@@ -1,0 +1,27 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve(device=DEFAULT_DEVICE) -> torch.device:
+    """The torch.device an entry point runs on. The default is the
+    CUDA card; with no CUDA device this raises rather than carrying on
+    on the CPU — CPU runs must ask for ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "on the CPU")
+    return dev
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """ModelConfig.dtype string ("bfloat16", "float32") -> torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt

@@ -1,0 +1,874 @@
+"""Continuous-batching serving engines, in PyTorch.
+
+Counterpart of ``kind_tpu_sim/models/serving.py``: a fixed grid of
+``max_slots`` slots decodes in chunks of ``chunk`` tokens; between
+chunks finished slots retire and queued requests are admitted. The
+scheduler state (slot lengths, active flags, per-slot sampling knobs)
+lives on the host as numpy arrays; the device holds the KV storage,
+each slot's last token and its seen-token set. Each round costs one
+device-to-host copy: the emitted tokens.
+
+Two engines: ``ServingEngine`` over a dense (slots, max_len) cache and
+``PagedServingEngine`` over a paged block pool (models/paged.py), whose
+decode attention runs on the hand-written paged-attention kernel when
+``ServingConfig.paged_kernel`` is set and through a gathered view
+otherwise. Prefill runs the flash-attention kernel when the model
+config sets ``flash``.
+
+Sampled tokens are a pure function of (request, seed, generation
+index): each draw's Gumbel noise comes from a torch.Generator seeded
+from (seed, index), so placement, co-tenants and recompute preemption
+cannot change a stream. Correctness contract: a greedy request decoded
+through a busy grid emits exactly what ``decode.greedy_generate``
+emits.
+
+This slice admits whole prompts one slot at a time. Prefix caching,
+chunked prefill, batched admission waves, overlapped rounds, deadlines,
+load shedding, speculative decoding, int8, MoE and meshes are later
+slices; their knobs raise ValueError at construction.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from kind_tpu_sim_torch.device import resolve, torch_dtype
+from kind_tpu_sim_torch.models.decode import (
+    NEG,
+    SamplingConfig,
+    _block_decode_chunk,
+    _new_chunk_buffers,
+    init_cache,
+)
+from kind_tpu_sim_torch.models.quant import embed_lookup
+from kind_tpu_sim_torch.models.transformer import (
+    ModelConfig,
+    Params,
+    _block_core,
+    _readout,
+    _rms_norm,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Engine knobs (the vLLM --max-num-seqs / --max-model-len analog),
+    with the JAX package's names and defaults. ``prefix_cache_entries``,
+    ``speculative_k`` and the fields past ``paged_width`` belong to
+    later slices: set away from their defaults, the engine raises."""
+
+    max_slots: int = 4        # concurrent sequences (the decode batch)
+    max_len: int = 128        # per-slot KV capacity (prompt + generated)
+    chunk: int = 16           # decode tokens per round between
+    #                           scheduling boundaries
+    prefix_cache_entries: int = 0
+    paged_blocks: int = 0     # >0: paged KV (PagedServingEngine)
+    block_size: int = 16      # KV positions per pool block
+    speculative_k: int = 0
+    paged_kernel: bool = False  # paged tier only: the CUDA paged-
+    #                             attention kernel (direct block reads)
+    paged_width: int = 0      # paged tier: fixed block-table width
+    #                           (0 = power-of-two bucketing)
+    admission_wave_sizes: tuple = ()
+    overlap_rounds: bool = False
+    prefill_chunk: int = 0
+    max_queue: int = 0
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request; ``max_new`` includes the first sampled
+    token. ``eos_id`` stops generation early when emitted. ``sampling``
+    None or temperature<=0 means greedy; ``seed`` None draws fresh
+    entropy at submit (stored on the request, so the run replays)."""
+
+    request_id: str
+    prompt: List[int]
+    max_new: int
+    eos_id: Optional[int] = None
+    sampling: Optional[SamplingConfig] = None
+    seed: Optional[int] = None
+    deadline_s: Optional[float] = None  # not ported yet: must be None
+    logprobs: bool = False       # raw-model log-probability per token
+
+
+@dataclasses.dataclass
+class Completion:
+    request_id: str
+    prompt: List[int]
+    tokens: List[int]          # generated tokens (eos included if hit)
+    finish_reason: str         # "stop" (eos) or "length"
+    ttft_s: Optional[float] = None   # submit -> first token
+    e2e_s: Optional[float] = None    # submit -> completion
+    logprobs: Optional[List[float]] = None
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Next power of two >= n (>= lo): the prompt padding."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _padded_window(toks) -> np.ndarray:
+    """(1, bucket(len)) zero-padded token window."""
+    arr = np.zeros((1, _bucket(len(toks))), np.int64)
+    arr[0, :len(toks)] = toks
+    return arr
+
+
+# ---------------------------------------------------------------------
+# device functions
+
+
+def _prefill_into_slot(params, cache, tokens, true_len: int, slot: int, *,
+                       cfg: ModelConfig):
+    """Run the prompt (1, L_pad) through the forward and write k/v for
+    positions < true_len into row ``slot`` of the cache, in place (the
+    rest of the row is zeroed). Returns the fp32 logits (vocab,) at the
+    TRUE last position; padding cannot leak into them (causal)."""
+    t_p = tokens.shape[1]
+    positions = torch.arange(t_p, device=tokens.device)[None, :]
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    keep = (torch.arange(t_p, device=tokens.device)
+            < true_len)[None, :, None, None]
+    for bparams, layer_cache in zip(params["blocks"], cache):
+        x, _, k, v = _block_core(x, bparams, cfg, positions)
+        for arr, upd in ((layer_cache["k"], k), (layer_cache["v"], v)):
+            n = min(t_p, arr.shape[1])
+            arr[slot].zero_()
+            arr[slot, :n] = torch.where(keep, upd, 0)[0, :n].to(arr.dtype)
+    h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
+    return _readout(h, params["embed"])[0].float()
+
+
+def _raw_token_lp(logits, toks):
+    """log_softmax of the raw fp32 logits at the chosen tokens.
+    logits (..., vocab), toks (...) -> (...) fp32."""
+    lg = logits.float()
+    picked = lg.gather(-1, toks[..., None].long())[..., 0]
+    return picked - torch.logsumexp(lg, dim=-1)
+
+
+def _apply_rep_penalty(logits, rep_pen, presence):
+    """HF/vLLM repetition penalty per row: logits of tokens in
+    ``presence`` (b, vocab) bool are divided by the penalty when
+    positive, multiplied when negative; 1.0 is the identity."""
+    pen = rep_pen[:, None]
+    penalized = torch.where(logits > 0, logits / pen, logits * pen)
+    return torch.where(presence & (pen != 1.0), penalized, logits)
+
+
+def _filtered_scaled(logits, temp, top_k, top_p, min_p=None):
+    """Temperature-scaled, top-k/top-p/min-p-filtered logits per row
+    (b, vocab); filtered entries are -1e30. The JAX package's math:
+    per-row k via the sorted kth value, nucleus cutoff from the mass
+    BEFORE each token, min-p floor relative to the max prob."""
+    vocab = logits.shape[-1]
+    scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab))
+    kth = sorted_desc.gather(
+        1, torch.clamp(k_eff - 1, 0, vocab - 1)[:, None].long())
+    scaled = scaled.masked_fill(scaled < kth, NEG)
+
+    probs = torch.softmax(scaled, dim=-1)
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    # top_p >= 1.0 disables the filter exactly (threshold 2.0)
+    p_eff = torch.where(top_p >= 1.0, torch.full_like(top_p, 2.0), top_p)
+    keep = (cum - sorted_probs) < p_eff[:, None]
+    cutoff = torch.where(keep, sorted_probs,
+                         torch.full_like(sorted_probs, 2.0)).amin(
+        dim=-1, keepdim=True)
+    scaled = scaled.masked_fill(probs < cutoff, NEG)
+
+    if min_p is not None:
+        probs = torch.softmax(scaled, dim=-1)
+        floor = min_p[:, None] * probs.amax(dim=-1, keepdim=True)
+        scaled = scaled.masked_fill((min_p[:, None] > 0.0) & (probs < floor),
+                                    NEG)
+    return scaled
+
+
+def _noise_seed(seed: int, gen_idx: int) -> int:
+    """64-bit generator seed for one (request seed, generation index)."""
+    seq = np.random.SeedSequence([int(seed) % 2 ** 64, int(gen_idx) % 2 ** 64])
+    return int(seq.generate_state(1, np.uint64)[0])
+
+
+def _gumbel_noise(keys, vocab: int, temp, device):
+    """(b, vocab) fp32 Gumbel noise, row r drawn on the CPU from a
+    torch.Generator seeded by ``keys[r]`` = (seed, generation index);
+    greedy rows (temp <= 0) get zeros."""
+    noise = torch.zeros((len(keys), vocab))
+    tiny = torch.finfo(torch.float32).tiny
+    for r, ((seed, gen_idx), t) in enumerate(zip(keys, temp.tolist())):
+        if t > 0.0:
+            gen = torch.Generator().manual_seed(_noise_seed(seed, gen_idx))
+            u = torch.rand(vocab, generator=gen).clamp_(min=tiny)
+            noise[r] = -torch.log(-torch.log(u))
+    return noise.to(device)
+
+
+def _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen, presence,
+                 keys=None, noise=None):
+    """Per-row sampling over fp32 logits (b, vocab), each row with its
+    own knobs. Rows with temp <= 0 are greedy: argmax of the PENALIZED
+    logits. Sampled rows take the Gumbel-max draw argmax(filtered +
+    noise); ``noise`` (b, vocab) defaults to ``_gumbel_noise(keys)``,
+    and tests pass their own to match another implementation's draw."""
+    logits = _apply_rep_penalty(logits, rep_pen, presence)
+    greedy = torch.argmax(logits, dim=-1)
+    if noise is None:
+        noise = _gumbel_noise(keys, logits.shape[-1], temp, logits.device)
+    scaled = _filtered_scaled(logits, temp, top_k, top_p, min_p)
+    sampled = torch.argmax(scaled + noise, dim=-1)
+    return torch.where(temp <= 0.0, greedy, sampled)
+
+
+def _chunk_scan(params, big_cache, lengths, last_token, active,
+                sampling_state, presence, *, cfg: ModelConfig, chunk: int,
+                block_fn=None):
+    """One scheduling quantum: ``chunk`` tokens for every slot against
+    a big cache that is only read (inactive slots compute too, their
+    emissions are ignored by the host and their write-back suppressed
+    by the caller's merge). ``big_cache`` is per-layer (b, s, kv, hd)
+    — the dense grid or a paged gather view; ``block_fn(x, bparams,
+    big_lc, small_lc, i)`` overrides the per-layer block (the paged
+    kernel tier). ``lengths`` (b,) int32 and ``active`` (b,) bool are
+    device tensors; ``sampling_state`` is the host-side tuple (temp,
+    top_k, top_p, min_p, rep_pen, seeds, prompt_len). ``presence``
+    (b, vocab) bool, the seen-token sets, is updated in place as
+    tokens emit. Returns (next_token, chunk buffers, emitted (b, chunk),
+    presence, raw-model logprobs (b, chunk))."""
+    temp, top_k, top_p, min_p, rep_pen, seeds, prompt_len = sampling_state
+    b = last_token.shape[0]
+    device = last_token.device
+    dtype = torch_dtype(cfg.dtype)
+    if block_fn is None:
+        # each slot attends over its own [0, lengths[b]) prefix
+        def block_fn(x, bparams, big_lc, small_lc, i):
+            return _block_decode_chunk(x, bparams, cfg, big_lc, small_lc,
+                                       lengths, i)
+    small = _new_chunk_buffers(cfg, b, chunk, device)
+    # the JAX package's lax.cond: an all-greedy, penalty-free grid (the
+    # common serving case) skips the sampling pipeline entirely
+    sampled = bool(np.any(temp > 0.0) or np.any(rep_pen != 1.0))
+    if sampled:
+        knobs = [torch.as_tensor(a, device=device)
+                 for a in (temp, top_k, top_p, min_p, rep_pen)]
+        # generation index of the token selected at step i: generation
+        # 0 came from the prefill logits at admission
+        gen0 = lengths.cpu().numpy().astype(np.int64) + 1 - prompt_len
+    rows = torch.arange(b, device=device)
+    token = last_token
+    emitted, lps = [], []
+    for i in range(chunk):
+        x = embed_lookup(params["embed"], token, dtype)
+        for bparams, big_lc, small_lc in zip(params["blocks"], big_cache,
+                                             small):
+            x, _ = block_fn(x, bparams, big_lc, small_lc, i)
+        x = _rms_norm(x, params["final_norm"])
+        logits = _readout(x, params["embed"])
+        if sampled:
+            keys = list(zip(seeds, (gen0 + i).tolist()))
+            nxt = _sample_rows(logits, *knobs, presence, keys)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(active, nxt, token)  # inactive slots hold
+        # the emitted token joins its row's seen set (masked: an
+        # inactive slot's held token must not re-mark itself)
+        presence[rows, nxt] = presence[rows, nxt] | active
+        lps.append(_raw_token_lp(logits, nxt))
+        emitted.append(nxt)
+        token = nxt
+    return (token, small, torch.stack(emitted, dim=1), presence,
+            torch.stack(lps, dim=1))
+
+
+def _scatter_chunk(cache_arr, small_arr, starts, active) -> None:
+    """Merge each slot's chunk-buffer rows into the big cache at that
+    slot's offset, in place. Inactive slots and slots whose window
+    would run past max_len (only reachable on a slot's final round,
+    which retires it) rewrite their current bytes instead."""
+    b, chunk = small_arr.shape[:2]
+    max_len = cache_arr.shape[1]
+    sel = active & (starts + chunk <= max_len)
+    cols = (torch.clamp(starts, 0, max_len - chunk).long()[:, None]
+            + torch.arange(chunk, device=starts.device)[None, :])
+    rows = torch.arange(b, device=starts.device)[:, None].expand(b, chunk)
+    cur = cache_arr[rows, cols]
+    cache_arr[rows, cols] = torch.where(sel[:, None, None, None],
+                                        small_arr.to(cache_arr.dtype), cur)
+
+
+def _decode_chunk(params, cache, lengths, last_token, active,
+                  sampling_state, presence, *, cfg: ModelConfig,
+                  chunk: int):
+    """One scheduling quantum over the dense slot grid; the cache is
+    updated in place. Returns (last_token, emitted (slots, chunk),
+    presence, logprobs)."""
+    token, small, emitted, presence, lps = _chunk_scan(
+        params, cache, lengths, last_token, active, sampling_state,
+        presence, cfg=cfg, chunk=chunk)
+    for big_lc, small_lc in zip(cache, small):
+        _scatter_chunk(big_lc["k"], small_lc["k"], lengths, active)
+        _scatter_chunk(big_lc["v"], small_lc["v"], lengths, active)
+    return token, emitted, presence, lps
+
+
+# ---------------------------------------------------------------------
+# host-side engine
+
+
+def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
+    """Loud, not silent: a knob outside this slice of the port would
+    otherwise "run" and serve with the wrong semantics."""
+    unsupported = {
+        "prefix_cache_entries>0": serving.prefix_cache_entries > 0,
+        "prefill_chunk>0": serving.prefill_chunk > 0,
+        "overlap_rounds": serving.overlap_rounds,
+        "speculative_k>0": serving.speculative_k > 0,
+        "admission_wave_sizes": bool(serving.admission_wave_sizes),
+        "max_queue>0": serving.max_queue > 0,
+        "a mesh": mesh is not None,
+        "cfg.int8_kv": cfg.int8_kv,
+        "cfg.int8_native": cfg.int8_native,
+        "cfg.n_experts>0": cfg.n_experts > 0,
+    }
+    named = [name for name, on in unsupported.items() if on]
+    if named:
+        raise ValueError(
+            f"{', '.join(named)}: not ported to kind_tpu_sim_torch yet "
+            "(later slices)")
+
+
+class ServingEngine:
+    """Continuous-batching scheduler over a dense (slots, max_len) cache.
+
+    ``run()`` drains the queue; ``submit`` / ``step_round`` / ``poll``
+    are the incremental surface. ``device`` is the card unless the
+    caller asks for the CPU; ``params`` must already live there.
+    """
+
+    def __init__(self, params: Params, cfg: ModelConfig,
+                 serving: ServingConfig = ServingConfig(), device="cuda",
+                 clock=None, mesh=None):
+        self.device = resolve(device)
+        _check_slice(cfg, serving, mesh)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed'].device}; the engine "
+                f"runs on {self.device}")
+        self._clock = clock if clock is not None else time.monotonic
+        self.params = params
+        self.cfg = cfg
+        self.serving = serving
+        n = serving.max_slots
+        # host-side scheduler state
+        self.lengths = np.zeros(n, np.int32)
+        self.active = np.zeros(n, bool)
+        self.temp = np.zeros(n, np.float32)
+        self.top_k = np.zeros(n, np.int32)
+        self.top_p = np.ones(n, np.float32)
+        self.min_p = np.zeros(n, np.float32)
+        self.rep_pen = np.ones(n, np.float32)
+        self.seeds: List[int] = [0] * n
+        self.prompt_len = np.zeros(n, np.int64)
+        # device state: each slot's last token and seen-token set
+        self.last_token = torch.zeros(n, dtype=torch.long,
+                                      device=self.device)
+        self.presence = torch.zeros((n, cfg.vocab_size), dtype=torch.bool,
+                                    device=self.device)
+
+        self.queue: List[Request] = []
+        self.slot_req: List[Optional[Request]] = [None] * n
+        self.slot_emitted: List[List[int]] = [[] for _ in range(n)]
+        self.slot_lps: List[List[float]] = [[] for _ in range(n)]
+        self.finished: List[Completion] = []
+        self._req_clock: Dict[str, Dict[str, float]] = {}
+        self._lat_window = collections.deque(maxlen=1024)
+        self._lat_count = 0
+        self._lat_ttft_max = 0.0
+        self._lat_e2e_max = 0.0
+        self._lat_itl_max = 0.0
+        # dispatch counts: each prefill launches the flash kernel once
+        # per layer (cfg.flash), each round the decode attention
+        # chunk x n_layers times
+        self.prefills = 0
+        self.decode_rounds = 0
+        self._init_storage()
+
+    def _init_storage(self) -> None:
+        if self.serving.paged_blocks or self.serving.paged_kernel:
+            raise ValueError(
+                f"{type(self).__name__} ignores paged_blocks/"
+                "paged_kernel; construct PagedServingEngine")
+        self.cache = init_cache(self.cfg, self.serving.max_slots,
+                                self.serving.max_len, device=self.device)
+
+    # -- public surface ------------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        self._capacity_check(request)
+        if request.deadline_s is not None:
+            raise ValueError(
+                "Request.deadline_s is not ported to kind_tpu_sim_torch "
+                "yet (a later slice)")
+        if request.max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if request.seed is None:
+            # per-request entropy, stored so the run replays
+            request.seed = int.from_bytes(os.urandom(4), "little")
+        if request.request_id in self._req_clock:
+            raise ValueError(
+                f"request id {request.request_id!r} is already queued or "
+                "in flight")
+        self._req_clock[request.request_id] = {"submit": self._clock()}
+        self.queue.append(request)
+
+    def step_round(self) -> None:
+        """One scheduling quantum: admit into free slots, decode one
+        chunk for the whole grid, retire finished slots."""
+        self._admit()
+        if any(r is not None for r in self.slot_req):
+            emitted, lps = self._decode_round(self._sampling_state())
+            self._retire(emitted, lps)
+
+    def poll(self) -> List[Completion]:
+        out, self.finished = self.finished, []
+        return out
+
+    def run(self) -> List[Completion]:
+        """Drain queue + grid; returns completions in finish order."""
+        done: List[Completion] = []
+        while self.queue or any(r is not None for r in self.slot_req):
+            self.step_round()
+            done.extend(self.poll())
+        return done
+
+    def _sampling_state(self):
+        return (self.temp, self.top_k, self.top_p, self.min_p,
+                self.rep_pen, self.seeds, self.prompt_len)
+
+    # -- storage hooks (PagedServingEngine overrides) ------------------
+
+    def _capacity_check(self, request: Request) -> None:
+        need = len(request.prompt) + request.max_new
+        if need > self.serving.max_len:
+            raise ValueError(
+                f"request {request.request_id} needs {need} positions; "
+                f"slot capacity is {self.serving.max_len}")
+
+    def _can_admit(self, request: Request, reserved: int = 0) -> bool:
+        return True
+
+    def _reserve_claim(self, request: Request) -> int:
+        return 0
+
+    def _claim_pending(self, slot: int, req: Request) -> int:
+        """Per-storage claim bookkeeping; returns the restored prefix
+        length (always 0: no prefix cache in this slice)."""
+        return 0
+
+    def _prefill_window(self, slot: int, req: Request, window, w: int,
+                        done: int):
+        logits = _prefill_into_slot(self.params, self.cache, window, w,
+                                    slot, cfg=self.cfg)
+        self.prefills += 1
+        return logits
+
+    def _release_storage(self, slot: int) -> None:
+        """Dense rows are pre-allocated per slot: nothing to free."""
+
+    def _decode_round(self, sampling_state):
+        lengths, active = self._device_vectors()
+        self.last_token, emitted, self.presence, lps = _decode_chunk(
+            self.params, self.cache, lengths, self.last_token, active,
+            sampling_state, self.presence, cfg=self.cfg,
+            chunk=self.serving.chunk)
+        self._advance_lengths()
+        return emitted, lps
+
+    def _device_vectors(self):
+        return (torch.as_tensor(self.lengths, device=self.device),
+                torch.as_tensor(self.active, device=self.device))
+
+    def _advance_lengths(self) -> None:
+        self.lengths = np.where(self.active,
+                                self.lengths + self.serving.chunk,
+                                self.lengths).astype(np.int32)
+        self.decode_rounds += 1
+
+    # -- admission and retirement --------------------------------------
+
+    def _admit(self) -> None:
+        claims = []
+        # storage promised to this round's earlier claims, so two claims
+        # cannot both pass the gate against the same free blocks
+        reserved = 0
+        for slot in range(self.serving.max_slots):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            if not self._can_admit(self.queue[0], reserved):
+                break  # FCFS: the head of the queue blocks the round
+            req = self.queue.pop(0)
+            claims.append((slot, req))
+            reserved += self._reserve_claim(req)
+        for slot, req in claims:
+            self._admit_single(slot, req, self._claim_pending(slot, req))
+
+    def _admit_single(self, slot: int, req: Request, done: int) -> None:
+        suffix = req.prompt[done:]
+        window = torch.as_tensor(_padded_window(suffix), device=self.device)
+        logits = self._prefill_window(slot, req, window, len(suffix), done)
+        self._activate(slot, req, logits)
+
+    def _seen_row(self, req: Request) -> np.ndarray:
+        row = np.zeros(self.cfg.vocab_size, bool)
+        row[np.asarray(req.prompt, np.int64)] = True
+        return row
+
+    def _activate(self, slot: int, req: Request, logits) -> None:
+        """Sample generation 0 from the prefill logits (one scalar
+        readback), then the shared bookkeeping."""
+        samp = req.sampling or SamplingConfig(temperature=0.0)
+        dev = self.device
+        first = int(_sample_rows(
+            logits[None, :],
+            torch.tensor([samp.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([samp.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([samp.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([samp.min_p], dtype=torch.float32, device=dev),
+            torch.tensor([samp.repetition_penalty], dtype=torch.float32,
+                         device=dev),
+            torch.as_tensor(self._seen_row(req), device=dev)[None, :],
+            keys=[(req.seed, 0)])[0])
+        self._activate_with_first(slot, req, logits, first)
+
+    def _activate_with_first(self, slot: int, req: Request, logits,
+                             first: int) -> None:
+        samp = req.sampling or SamplingConfig(temperature=0.0)
+        self.temp[slot] = samp.temperature
+        self.top_k[slot] = samp.top_k
+        self.top_p[slot] = samp.top_p
+        self.min_p[slot] = samp.min_p
+        self.rep_pen[slot] = samp.repetition_penalty
+        self.seeds[slot] = req.seed
+        self.prompt_len[slot] = len(req.prompt)
+        # seen set: the prompt's tokens plus the first token
+        self.presence[slot] = torch.as_tensor(self._seen_row(req),
+                                              device=self.device)
+        self.presence[slot, first] = True
+        self.slot_lps[slot] = []
+        if req.logprobs:
+            self.slot_lps[slot].append(float(_raw_token_lp(
+                logits, torch.tensor(first, device=self.device))))
+        # TTFT: the earliest first token survives a recompute preemption
+        clock = self._req_clock.get(req.request_id)
+        if clock is not None and "first" not in clock:
+            clock["first"] = self._clock()
+        self.slot_req[slot] = req
+        self.slot_emitted[slot] = [first]
+        self.lengths[slot] = len(req.prompt)
+        self.last_token[slot] = first
+        active = first != req.eos_id and req.max_new > 1
+        self.active[slot] = active
+        if not active:
+            self._finish(slot)
+
+    def _retire(self, emitted, lps) -> None:
+        """One device-to-host copy per round: the emitted tokens (and
+        the logprobs only when some in-flight request asked for them)."""
+        emitted = emitted.cpu().numpy()
+        lps_h = (lps.cpu().numpy()
+                 if any(r is not None and r.logprobs for r in self.slot_req)
+                 else None)
+        for slot, req in enumerate(self.slot_req):
+            if req is None or not self.active[slot]:
+                continue
+            have = self.slot_emitted[slot]
+            new = emitted[slot, :req.max_new - len(have)].tolist()
+            if req.eos_id is not None and req.eos_id in new:
+                new = new[:new.index(req.eos_id) + 1]
+            have.extend(new)
+            if req.logprobs:
+                self.slot_lps[slot].extend(
+                    float(v) for v in lps_h[slot, :len(new)])
+            if (len(have) >= req.max_new
+                    or (req.eos_id is not None and have[-1] == req.eos_id)):
+                self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        req = self.slot_req[slot]
+        toks = self.slot_emitted[slot]
+        reason = ("stop" if req.eos_id is not None and toks
+                  and toks[-1] == req.eos_id else "length")
+        now = self._clock()
+        clock = self._req_clock.pop(req.request_id, None)
+        ttft = e2e = None
+        if clock is not None:
+            ttft = clock.get("first", now) - clock["submit"]
+            e2e = now - clock["submit"]
+            # mean inter-token latency over the post-first tokens
+            itl = (e2e - ttft) / (len(toks) - 1) if len(toks) > 1 else None
+            self._lat_window.append((ttft, e2e, itl))
+            self._lat_count += 1
+            self._lat_ttft_max = max(self._lat_ttft_max, ttft)
+            self._lat_e2e_max = max(self._lat_e2e_max, e2e)
+            if itl is not None:
+                self._lat_itl_max = max(self._lat_itl_max, itl)
+        self.finished.append(Completion(
+            request_id=req.request_id, prompt=list(req.prompt),
+            tokens=list(toks), finish_reason=reason, ttft_s=ttft,
+            e2e_s=e2e,
+            logprobs=(list(self.slot_lps[slot][:len(toks)])
+                      if req.logprobs else None)))
+        self._clear_slot(slot)
+        self._release_storage(slot)
+
+    def _clear_slot(self, slot: int) -> None:
+        """Reset a slot's host bookkeeping and seen set (no completion,
+        no storage release) — retirement and recompute preemption. A
+        stale temp > 0 on an idle slot would keep the greedy fast path
+        off for every later round."""
+        self.slot_req[slot] = None
+        self.slot_emitted[slot] = []
+        self.slot_lps[slot] = []
+        self.active[slot] = False
+        self.temp[slot] = 0.0
+        self.top_k[slot] = 0
+        self.top_p[slot] = 1.0
+        self.min_p[slot] = 0.0
+        self.rep_pen[slot] = 1.0
+        self.presence[slot] = False
+
+    def _evict_slot(self, slot: int) -> Optional[Request]:
+        """Tear a slot down without a completion; returns its request."""
+        req = self.slot_req[slot]
+        if req is None:
+            return None
+        self._clear_slot(slot)
+        self._release_storage(slot)
+        return req
+
+    def report(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "slots": self.serving.max_slots,
+            "active": sum(1 for r in self.slot_req if r is not None),
+            "queued": len(self.queue),
+            "finished": len(self.finished),
+            "prefills": self.prefills,
+            "decode_rounds": self.decode_rounds,
+        }
+        if self._lat_count:
+            ttfts = sorted(t for t, _, _ in self._lat_window)
+            e2es = sorted(e for _, e, _ in self._lat_window)
+            itls = sorted(i for _, _, i in self._lat_window if i is not None)
+            out["latency"] = {
+                "completed": self._lat_count,
+                "ttft_p50_s": ttfts[len(ttfts) // 2],
+                "ttft_max_s": self._lat_ttft_max,
+                "e2e_p50_s": e2es[len(e2es) // 2],
+                "e2e_max_s": self._lat_e2e_max,
+            }
+            if itls:
+                out["latency"]["itl_p50_s"] = itls[len(itls) // 2]
+                out["latency"]["itl_max_s"] = self._lat_itl_max
+        return out
+
+
+class PagedServingEngine(ServingEngine):
+    """Continuous batching over a paged KV pool (models/paged.py).
+
+    Same scheduler, sampling and exactness contracts as the dense grid;
+    KV memory scales with tokens in flight (``paged_blocks x
+    block_size`` positions shared by all slots). Blocks are allocated
+    at chunk boundaries; pool exhaustion preempts the YOUNGEST slot
+    (recompute: its request is requeued at the front and replays its
+    exact stream). ``paged_kernel`` selects the CUDA paged-attention
+    tier (blocks read through the table, no gathered view); otherwise
+    each round gathers a dense view of the pool.
+    """
+
+    def _init_storage(self) -> None:
+        from kind_tpu_sim_torch.models import paged
+
+        cfg, serving = self.cfg, self.serving
+        if serving.paged_blocks < 2:
+            raise ValueError(
+                "PagedServingEngine needs ServingConfig.paged_blocks >= 2 "
+                "(block 0 is the garbage sink)")
+        if serving.paged_kernel and cfg.int8_kv:
+            raise ValueError(
+                "paged_kernel needs bf16 pools; int8_kv uses the gather "
+                "tier")
+        self.pools = paged.init_pools(cfg, serving.paged_blocks,
+                                      serving.block_size, device=self.device)
+        self.alloc = paged.BlockAllocator(serving.paged_blocks)
+        self.slot_blocks: List[List[int]] = [[] for _ in
+                                             range(serving.max_slots)]
+        self.slot_admit_seq = [0] * serving.max_slots
+        self._admit_counter = 0
+        self.preemptions = 0
+        chunk_fn = (paged.paged_decode_chunk_kernel if serving.paged_kernel
+                    else paged.paged_decode_chunk)
+        self._paged_chunk = functools.partial(chunk_fn, cfg=cfg,
+                                              chunk=serving.chunk)
+
+    def _capacity_check(self, request: Request) -> None:
+        cap = (self.serving.paged_blocks - 1) * self.serving.block_size
+        need = len(request.prompt) + request.max_new
+        if need > cap:
+            raise ValueError(
+                f"request {request.request_id} needs {need} positions; "
+                f"pool capacity is {cap}")
+
+    def _can_admit(self, request: Request, reserved: int = 0) -> bool:
+        from kind_tpu_sim_torch.models import paged
+
+        need = reserved + paged.blocks_needed(len(request.prompt),
+                                              self.serving.block_size)
+        return need <= self.alloc.free_blocks
+
+    def _reserve_claim(self, request: Request) -> int:
+        from kind_tpu_sim_torch.models import paged
+
+        return paged.blocks_needed(len(request.prompt),
+                                   self.serving.block_size)
+
+    def _claim_pending(self, slot: int, req: Request) -> int:
+        """Allocate the whole prompt's blocks up front (_can_admit
+        already gated the need)."""
+        from kind_tpu_sim_torch.models import paged
+
+        self._admit_counter += 1
+        self.slot_admit_seq[slot] = self._admit_counter
+        n = paged.blocks_needed(len(req.prompt), self.serving.block_size)
+        blocks = self.alloc.alloc(n)
+        if blocks is None:
+            raise RuntimeError(
+                f"paged claim for {req.request_id!r}: {n}-block allocation "
+                "failed after _can_admit passed — admission reservation "
+                "accounting is broken")
+        self.slot_blocks[slot] = blocks
+        return 0
+
+    def _prefill_window(self, slot: int, req: Request, window, w: int,
+                        done: int):
+        from kind_tpu_sim_torch.models import paged
+
+        blocks = self.slot_blocks[slot]
+        table_row = np.zeros(self._table_width(len(blocks)), np.int32)
+        table_row[:len(blocks)] = blocks
+        logits = paged.paged_prefill(
+            self.params, self.pools, window, w,
+            torch.as_tensor(table_row, device=self.device), cfg=self.cfg)
+        self.prefills += 1
+        return logits
+
+    def _release_storage(self, slot: int) -> None:
+        self.alloc.free(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+
+    def _preempt_youngest(self) -> bool:
+        """Evict the most recently admitted slot, free its blocks and
+        requeue its request AT THE FRONT for exact recompute."""
+        candidates = [(self.slot_admit_seq[s], s)
+                      for s, r in enumerate(self.slot_req) if r is not None]
+        if not candidates:
+            return False
+        _, slot = max(candidates)
+        self.queue.insert(0, self._evict_slot(slot))
+        self.preemptions += 1
+        return True
+
+    def _ensure_blocks(self, extend_by: int) -> None:
+        """Grow each active slot's block list to cover its next
+        ``extend_by`` writes, capped at the request's total need, so a
+        final round's overshoot never allocates (those writes land in
+        last-block slack or the garbage block). Under pool pressure,
+        preempt the youngest slot; the capacity check guarantees a
+        lone surviving slot always fits."""
+        from kind_tpu_sim_torch.models import paged
+
+        bsz = self.serving.block_size
+        while True:
+            shortfalls = {}
+            for s, req in enumerate(self.slot_req):
+                if req is None or not self.active[s]:
+                    continue
+                cover = min(int(self.lengths[s]) + extend_by,
+                            len(req.prompt) + req.max_new)
+                need = (paged.blocks_needed(cover, bsz)
+                        - len(self.slot_blocks[s]))
+                if need > 0:
+                    shortfalls[s] = need
+            if (sum(shortfalls.values()) <= self.alloc.free_blocks
+                    or not self._preempt_youngest()):
+                break
+        for s, need in shortfalls.items():
+            got = self.alloc.alloc(need)
+            if got is None:
+                raise RuntimeError("paged pool exhausted after preemption")
+            self.slot_blocks[s].extend(got)
+
+    def _table_width(self, n_blocks: int) -> int:
+        """Fixed (``paged_width``) or power-of-two bucketed width; a slot
+        outgrowing a fixed width fails loudly instead of writing to the
+        garbage block."""
+        from kind_tpu_sim_torch.models import paged
+
+        if self.serving.paged_width:
+            if n_blocks > self.serving.paged_width:
+                raise ValueError(
+                    f"slot needs {n_blocks} blocks; paged_width is fixed "
+                    f"at {self.serving.paged_width}")
+            return self.serving.paged_width
+        return paged.width_bucket(n_blocks)
+
+    def _build_tables(self) -> np.ndarray:
+        width = self._table_width(
+            max((len(b) for b in self.slot_blocks), default=1) or 1)
+        tables = np.zeros((self.serving.max_slots, width), np.int32)
+        for s, blks in enumerate(self.slot_blocks):
+            tables[s, :len(blks)] = blks
+        return tables
+
+    def _decode_round(self, sampling_state):
+        chunk = self.serving.chunk
+        self._ensure_blocks(chunk)
+        if not any(r is not None for r in self.slot_req):
+            # preemption emptied the grid
+            n = self.serving.max_slots
+            return (torch.zeros((n, chunk), dtype=torch.long),
+                    torch.zeros((n, chunk)))
+        lengths, active = self._device_vectors()
+        tables = torch.as_tensor(self._build_tables(), device=self.device)
+        self.last_token, emitted, self.presence, lps = self._paged_chunk(
+            self.params, self.pools, tables, lengths, self.last_token,
+            active, sampling_state, self.presence)
+        self._advance_lengths()
+        return emitted, lps
+
+    def report(self) -> Dict[str, Any]:
+        out = super().report()
+        out["paged"] = {
+            "blocks": self.serving.paged_blocks,
+            "block_size": self.serving.block_size,
+            "blocks_in_use": (self.serving.paged_blocks - 1
+                              - self.alloc.free_blocks),
+            "peak_in_use": self.alloc.peak_in_use,
+            "preemptions": self.preemptions,
+        }
+        return out

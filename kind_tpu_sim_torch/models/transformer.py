@@ -1,0 +1,272 @@
+"""The flagship decoder-only transformer LM, in PyTorch.
+
+Counterpart of ``kind_tpu_sim/models/transformer.py``: the same
+configurations, parameter tree and numerics (bf16 activations, fp32
+norms and score/readout accumulation), written as plain functions on
+tensors. Parameters are a dict ``{"embed", "final_norm", "blocks":
+[...]}`` with the JAX package's names and shapes, so a JAX parameter
+tree converts leaf by leaf (``kind_tpu_sim_torch.weights``).
+
+Training (``loss_fn``, the train step, the flash backward), MoE, int8
+and ring attention belong to later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from kind_tpu_sim_torch.device import resolve, torch_dtype
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 512
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 512
+    max_seq: int = 128
+    dtype: str = "bfloat16"       # activation/matmul dtype
+    remat: bool = False           # training only (later slice)
+    n_experts: int = 0            # >0: Switch-MoE MLP (later slice)
+    n_kv_heads: Optional[int] = None  # grouped-query attention; None = MHA
+    flash: bool = False           # flash-attention kernel in prefill
+    int8_kv: bool = False         # int8 KV cache (later slice)
+    int8_native: bool = False     # W8A8 (later slice)
+    seq_parallel: bool = False    # ring attention (later slice)
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        kv = self.n_heads if self.n_kv_heads is None else self.n_kv_heads
+        assert kv > 0 and self.n_heads % kv == 0
+        return kv
+
+
+def tiny_config() -> ModelConfig:
+    return ModelConfig()
+
+
+def pod_config() -> ModelConfig:
+    """The in-pod smoke config."""
+    return ModelConfig(vocab_size=256, d_model=64, n_heads=4,
+                       n_layers=2, d_ff=256, max_seq=64)
+
+
+def bench_config() -> ModelConfig:
+    """Single-chip benchmark config with 4:1 grouped-query attention."""
+    return ModelConfig(vocab_size=32768, d_model=1024, n_heads=16,
+                       n_layers=8, d_ff=4096, max_seq=1024, remat=False,
+                       n_kv_heads=4)
+
+
+def bench_config_large() -> ModelConfig:
+    """The flagship config: d_model 2048, head_dim 128, d_ff 8192,
+    16 query heads over 4 KV heads, 8 layers, 32768-token vocab."""
+    return ModelConfig(vocab_size=32768, d_model=2048, n_heads=16,
+                       n_layers=8, d_ff=8192, max_seq=1024, remat=False,
+                       n_kv_heads=4)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for configuration features later slices of the port add."""
+    for name in ("n_experts", "int8_kv", "int8_native", "seq_parallel",
+                 "remat"):
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"ModelConfig.{name} is not ported yet (a later slice "
+                "of kind_tpu_sim_torch)")
+
+
+# ---------------------------------------------------------------------
+# init
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Params:
+    """Random fp32 parameters with the JAX package's tree and scales,
+    drawn from ``generator`` (a torch.Generator on ``device``; seed 0
+    when None). The draws differ from ``jax.random``'s — tests that
+    compare against the JAX package convert its parameters instead
+    (``weights.params_from_numpy``)."""
+    check_supported(cfg)
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def dense(shape, scale):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * scale
+
+    scale = cfg.d_model ** -0.5
+    params: Params = {
+        "embed": dense((cfg.vocab_size, cfg.d_model), 1.0),
+        "final_norm": torch.ones(cfg.d_model, device=dev),
+        "blocks": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["blocks"].append({
+            "attn_norm": torch.ones(cfg.d_model, device=dev),
+            "mlp_norm": torch.ones(cfg.d_model, device=dev),
+            "wqkv": dense(
+                (cfg.d_model,
+                 (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim), scale),
+            "wo": dense((cfg.d_model, cfg.d_model), scale),
+            "w_up": dense((cfg.d_model, cfg.d_ff), scale),
+            "w_down": dense((cfg.d_ff, cfg.d_model), cfg.d_ff ** -0.5),
+        })
+    return params
+
+
+# ---------------------------------------------------------------------
+# forward
+
+
+def _readout(x, embed):
+    """Weight-tied fp32 logits — the one definition forward, prefill
+    and decode share (the cache-vs-forward argmax contract)."""
+    from kind_tpu_sim_torch.models.quant import readout
+
+    return readout(x, embed)
+
+
+def _rms_norm(x, weight, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.reciprocal(torch.sqrt(var + eps))
+    return (normed * weight).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rotary_freqs(half: int, device: torch.device):
+    """Rotary inverse frequencies (half,) fp32, computed on the CPU and
+    copied to ``device`` once: a copy per call would wait for the
+    device in every layer of every decode step. Callers must not write
+    to the shared result."""
+    # log(10000) rounded to fp32 first, as jnp.log(10000.0) is
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    return torch.exp(
+        -torch.arange(0, half, dtype=torch.float32) * (log_base / half)
+    ).to(device)
+
+
+def _rotary(x, positions):
+    """Rotary position embedding over the last (head_dim) axis.
+    x: (b, t, heads, hd); positions: (b, t) integer."""
+    half = x.shape[-1] // 2
+    freqs = _rotary_freqs(half, x.device)
+    angles = positions[..., None].float() * freqs        # (B, T, half)
+    angles = angles[:, :, None, :]                       # (B, T, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def _attention(q, k, v, causal=True):
+    """Plain GQA attention. q: (b, t, h, d); k/v: (b, s, kv, d).
+    Scores accumulate in fp32 from the activation-dtype values (a
+    bf16 x bf16 product is exact in fp32); the PV product rounds to
+    the value dtype, as the JAX einsum does."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    group = h // kv
+    qg = q.reshape(b, t, kv, group, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(),
+                          k.float()) * (d ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones(t, k.shape[1], dtype=torch.bool,
+                                     device=q.device))
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    return out.reshape(b, t, h, d)
+
+
+def _split_qkv(qkv, cfg: ModelConfig, b: int, t: int):
+    """(b, t, (h+2kv)*hd) -> q (b,t,h,hd), k/v (b,t,kv,hd) views."""
+    q_dim = cfg.n_heads * cfg.head_dim
+    kv_dim = cfg.kv_heads * cfg.head_dim
+    q, k, v = torch.split(qkv, [q_dim, kv_dim, kv_dim], dim=-1)
+    return (q.reshape(b, t, cfg.n_heads, cfg.head_dim),
+            k.reshape(b, t, cfg.kv_heads, cfg.head_dim),
+            v.reshape(b, t, cfg.kv_heads, cfg.head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype, device: torch.device):
+    """A 0-d constant rounded to ``dtype`` on ``device``, made once per
+    (value, dtype, device) so the decode step copies nothing to the
+    card. Callers must not write to the shared result."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def _gelu(x):
+    """jax.nn.gelu's default (tanh) form, op by op in x's dtype with the
+    constants rounded to it: in bf16 every step rounds, as in the JAX
+    package (a fused fp32 F.gelu(approximate="tanh") differs from it in
+    ~40% of bf16 outputs by one ulp)."""
+    def const(v):
+        return _const(v, x.dtype, x.device)
+
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
+def _mlp(h, bparams):
+    from kind_tpu_sim_torch.models.quant import linear
+
+    return linear(_gelu(linear(h, bparams["w_up"])), bparams["w_down"])
+
+
+def _block_core(x, bparams, cfg: ModelConfig, positions):
+    """Block body, also exposing the rotated k/v so the decode prefill
+    can fill its cache. Returns (x_out, aux_loss, k, v)."""
+    from kind_tpu_sim_torch.models.quant import linear
+
+    b, t, _ = x.shape
+    h = _rms_norm(x, bparams["attn_norm"])
+    qkv = linear(h, bparams["wqkv"])
+    q, k, v = _split_qkv(qkv, cfg, b, t)
+    q = _rotary(q, positions)
+    k = _rotary(k, positions)
+    if cfg.flash:
+        # the hand-written flash kernel (ops/flash_attention.py): no
+        # (t, t) score matrix in device memory
+        from kind_tpu_sim_torch.ops.flash_attention import flash_attention
+
+        attn = flash_attention(q, k, v, causal=True)
+    else:
+        attn = _attention(q, k, v)
+    attn = attn.reshape(b, t, cfg.d_model)
+    x = x + linear(attn, bparams["wo"])
+    h = _rms_norm(x, bparams["mlp_norm"])
+    return x + _mlp(h, bparams), 0.0, k, v
+
+
+def forward(params: Params, tokens, cfg: ModelConfig):
+    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32."""
+    from kind_tpu_sim_torch.models.quant import embed_lookup
+
+    check_supported(cfg)
+    b, t = tokens.shape
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    for bparams in params["blocks"]:
+        x, _, _, _ = _block_core(x, bparams, cfg, positions)
+    x = _rms_norm(x, params["final_norm"])
+    return _readout(x, params["embed"])
+

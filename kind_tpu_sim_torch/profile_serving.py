@@ -1,0 +1,163 @@
+"""Where the time of flagship paged serving goes on the card.
+
+    python3 -m kind_tpu_sim_torch.profile_serving [--gather] [--out FILE]
+
+Serves the flagship workload (``bench_config_large`` with ``flash=True``,
+random bf16 weights from seed 0; 16 greedy requests with 192/224/256-
+token prompts and 128 new tokens each, on 8 slots, chunk 64, a pool of
+129 blocks x 64 positions, table width 8) through
+``PagedServingEngine`` on the paged-kernel tier (``--gather``: the
+gather tier), then serves it again with ``torch.profiler`` tracing one
+pure decode round (the second round: the first wave's 8 slots, 64
+tokens each, no admission). Prints one JSON object:
+
+* ``wall_s``, ``tok_per_s``, ``ttft_mean_s``, ``e2e_mean_s`` -- the
+  untraced run, host clock around work that ends in a synchronize;
+* ``round_wall_ms`` and ``step_wall_ms`` -- the traced round on the
+  host clock, and per decode step (one token for every slot);
+* ``device_busy_ms`` and ``device_busy_share`` -- the sum of the
+  round's kernel times (one stream, so kernels do not overlap) and its
+  share of the round's wall time;
+* ``device_ops_per_step`` -- kernels and copies the device ran per
+  decode step;
+* ``kernels`` -- device time by kernel name, largest first, and
+  ``host_syncs`` -- the round's stream/device synchronisations and
+  blocking host-to-device copies, by CUDA runtime call.
+
+Run it on the card (it raises without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from kind_tpu_sim_torch.models import decode, serving
+from kind_tpu_sim_torch.models import transformer as tf
+
+SLOTS, BLOCK, CHUNK = 8, 64, 64
+PROMPT_LENS = (192, 224, 256)
+# pool sized to the workload: 2 x slots worth of 448-position sequences
+POOL_BLOCKS = 1 + 2 * SLOTS * ((256 + 192) // BLOCK + 1)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def flagship_config() -> tf.ModelConfig:
+    return dataclasses.replace(tf.bench_config_large(), flash=True)
+
+
+def flagship_serving(paged_kernel: bool) -> serving.ServingConfig:
+    return serving.ServingConfig(
+        max_slots=SLOTS, max_len=1024, chunk=CHUNK, paged_blocks=POOL_BLOCKS,
+        block_size=BLOCK, paged_width=8, paged_kernel=paged_kernel)
+
+
+def flagship_requests(vocab: int, n: int = 16, max_new: int = 128,
+                      logprobs: bool = False):
+    """``n`` greedy requests; prompt lengths and tokens drawn from
+    ``np.random.RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    lens = rng.choice(PROMPT_LENS, size=n)
+    return [serving.Request(f"q{i}", rng.randint(0, vocab, size=int(p))
+                            .tolist(), max_new, logprobs=logprobs)
+            for i, p in enumerate(lens)]
+
+
+def flagship_params(cfg: tf.ModelConfig):
+    """The bf16 serving snapshot of random weights from seed 0."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return decode.serving_params(tf.init_params(cfg, gen, "cuda"), cfg)
+
+
+def _profile_round(eng) -> dict:
+    """Trace one step_round of ``eng`` (a pure decode round)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.step_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, syncs, launches = {}, {}, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            launches += ev.count
+        elif ev.key.startswith(SYNC_CALLS):
+            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+    busy = sum(kernels.values())
+    return {"round_wall_ms": wall * 1e3,
+            "step_wall_ms": wall * 1e3 / eng.serving.chunk,
+            "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "device_ops_per_step": launches / eng.serving.chunk,
+            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+            "host_syncs": syncs}
+
+
+def run(paged_kernel: bool = True) -> dict:
+    cfg = flagship_config()
+    params = flagship_params(cfg)
+    reqs = flagship_requests(cfg.vocab_size)
+
+    def engine():
+        eng = serving.PagedServingEngine(params, cfg,
+                                         flagship_serving(paged_kernel))
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        return eng
+
+    warm = serving.PagedServingEngine(params, cfg,
+                                      flagship_serving(paged_kernel))
+    warm.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=65))
+    warm.run()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = engine()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(c.tokens) for c in done)
+
+    traced = engine()
+    traced.step_round()  # admits the first wave, decodes its first round
+    prof = _profile_round(traced)
+    return {"tier": "kernel" if paged_kernel else "gather",
+            "device": torch.cuda.get_device_name(0),
+            "requests": len(done), "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "ttft_mean_s": float(np.mean([c.ttft_s for c in done])),
+            "e2e_mean_s": float(np.mean([c.e2e_s for c in done])),
+            **prof}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gather", action="store_true",
+                    help="the gather tier instead of the paged kernel")
+    ap.add_argument("--out", help="also write the JSON object here")
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = run(paged_kernel=not args.gather)
+    text = json.dumps(result)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,176 @@
+"""The PyTorch port stands alone and never falls back.
+
+* No file of ``kind_tpu_sim_torch/`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of ``kind_tpu_sim`` (the JAX package is the
+  reference, not a dependency); the package imports with ``jax``
+  blocked.
+* Entry points run on the CUDA card unless the caller asks for the
+  CPU: without a card they raise instead of carrying on on the CPU.
+* The kernel build raises when ``nvcc`` is missing, and
+  ``chip_smoke.py`` exits non-zero with no result line when there is no
+  card or no package beside it.
+"""
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from kind_tpu_sim_torch import device as pdevice
+from kind_tpu_sim_torch.models import decode as pdecode
+from kind_tpu_sim_torch.models import serving as pserving
+from kind_tpu_sim_torch.models import transformer as ptf
+from kind_tpu_sim_torch.ops import _build
+from kind_tpu_sim_torch.ops import flash_attention as fa
+from kind_tpu_sim_torch.weights import params_from_numpy
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "kind_tpu_sim_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+CFG = ptf.ModelConfig(vocab_size=32, d_model=16, n_heads=2, n_layers=1,
+                      d_ff=32, max_seq=32, dtype="float32")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top == "jax" or top == "jaxlib" or top == "kind_tpu_sim"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and _forbidden(str(node.args[0].value))):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_tells_the_port_from_the_jax_package():
+    assert _forbidden("kind_tpu_sim.models.serving")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("kind_tpu_sim_torch.models.serving")
+
+
+def test_package_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PORT_FILES if p.parent != ROOT)
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['kind_tpu_sim'] = None",
+        f"for name in {[m.removesuffix('.__init__') for m in modules]!r}:",
+        "    importlib.import_module(name)",
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in"
+        " sys.modules.items() if v is not None)",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """This host as one without a CUDA device, whatever it has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_a_card_raise(no_card):
+    params = ptf.init_params(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserving.PagedServingEngine(
+            params, CFG, pserving.ServingConfig(paged_blocks=4,
+                                                paged_kernel=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserving.ServingEngine(params, CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptf.init_params(CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pdecode.greedy_generate(params, CFG, [[1, 2, 3]], 2)
+    tree = {"embed": params["embed"].numpy(),
+            "final_norm": params["final_norm"].numpy(),
+            "blocks": [{k: v.numpy() for k, v in b.items()}
+                       for b in params["blocks"]]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree, CFG)
+    assert pdevice.resolve("cpu").type == "cpu"
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists() or not any(
+        (tmp_path / "build").iterdir())
+
+
+def test_build_failure_raises_with_the_compiler_output(monkeypatch,
+                                                       tmp_path):
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    with pytest.raises(RuntimeError, match="no such target"):
+        _build.build()
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros(1, 8, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+def _run_smoke(cwd, home):
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(home),
+           "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def _result_lines(stdout):
+    lines = []
+    for line in stdout.splitlines():
+        try:
+            lines.append(json.loads(line))
+        except ValueError:
+            continue
+    return [obj for obj in lines if isinstance(obj, dict)
+            and ("ok" in obj or "kernels" in obj)]
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    out = _run_smoke(ROOT, tmp_path)
+    assert out.returncode != 0
+    assert not _result_lines(out.stdout)
+    assert "CUDA" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone / "chip_smoke.py")
+    out = _run_smoke(alone, tmp_path)
+    assert out.returncode != 0
+    assert not _result_lines(out.stdout)

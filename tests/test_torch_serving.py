@@ -1,0 +1,278 @@
+"""PyTorch port parity: decoding and the dense continuous-batching engine.
+
+Same weights (JAX init, crossed through numpy) and prompts on both
+sides, fp32 tiny GQA config with flash=True (the JAX side's Pallas
+flash kernel runs in interpret mode). Greedy streams must be equal
+token for token; every compared step's top-2 logit margin is checked
+to exceed the logit tolerance (1e-3), so a mismatch is a real
+divergence and not a tie. Sampling is compared on the same logits and
+the same injected Gumbel noise.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from kind_tpu_sim.models import decode as jdecode
+from kind_tpu_sim.models import serving as jserving
+from kind_tpu_sim_torch.models import decode as pdecode
+from kind_tpu_sim_torch.models import serving as pserving
+
+from torch_parity import (
+    TINY,
+    assert_margins,
+    drive,
+    jax_cfg,
+    make_params,
+    prompts,
+)
+
+CFG = TINY
+MARGIN = 1e-3
+MAX_NEW = 12
+
+
+@pytest.fixture(scope="module")
+def params():
+    return make_params(CFG, embed_scale=0.5, block_scale=6.0)
+
+
+@pytest.fixture(scope="module")
+def stream_prompts():
+    return prompts(5, CFG.vocab_size)
+
+
+@pytest.fixture(scope="module")
+def jax_dense(params, stream_prompts):
+    sc = jserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    eng = jserving.ServingEngine(params[0], jax_cfg(CFG), sc)
+    return drive(jserving, eng, stream_prompts, MAX_NEW, logprobs=True)
+
+
+def test_greedy_generate_matches_jax_across_chunks(params):
+    """Solo decoder: prefill + chunked cached decode; 19 steps at chunk
+    8 cross two chunk boundaries and end on a remainder chunk."""
+    jparams, pparams = params
+    batch = np.asarray(prompts(3, CFG.vocab_size, seed=5, base=9, step=0),
+                       np.int32)
+    ref = np.asarray(jdecode.greedy_generate(jparams, jax_cfg(CFG),
+                                             jnp.asarray(batch), 20,
+                                             chunk=8))
+    out = pdecode.greedy_generate(pparams, CFG, batch, 20, chunk=8,
+                                  device="cpu").numpy()
+    assert (out == ref).all()
+    for row in out:
+        assert_margins(pparams, CFG, row[:9].tolist(), row[9:].tolist(),
+                       MARGIN)
+
+
+def test_prefill_logits_and_cache_match_jax(params):
+    jparams, pparams = params
+    prompt = np.asarray(prompts(1, CFG.vocab_size, seed=6, base=11)[0:1],
+                        np.int32)
+    jl, jc = jdecode.prefill(jparams, jax_cfg(CFG), jnp.asarray(prompt), 16)
+    pl, pc = pdecode.prefill(pparams, CFG, torch.as_tensor(prompt).long(),
+                             16)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    for jlayer, player in zip(jc, pc):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(player[name].numpy(),
+                                       np.asarray(jlayer[name]), atol=1e-5,
+                                       rtol=1e-5)
+
+
+def test_dense_engine_streams_match_jax(params, stream_prompts, jax_dense):
+    """Mixed prompt lengths, mid-flight admission, more requests than
+    slots: the port's ServingEngine emits the JAX engine's streams."""
+    _, pparams = params
+    sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    eng = pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+    done = drive(pserving, eng, stream_prompts, MAX_NEW, logprobs=True)
+    assert sorted(done) == sorted(jax_dense)
+    for rid, comp in done.items():
+        assert comp.tokens == jax_dense[rid].tokens, rid
+        assert comp.finish_reason == jax_dense[rid].finish_reason == "length"
+        assert_margins(pparams, CFG, comp.prompt, comp.tokens, MARGIN)
+
+
+def test_dense_engine_logprobs_match_jax(params, stream_prompts, jax_dense):
+    _, pparams = params
+    sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    eng = pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+    done = drive(pserving, eng, stream_prompts, MAX_NEW, logprobs=True)
+    for rid, comp in done.items():
+        np.testing.assert_allclose(comp.logprobs, jax_dense[rid].logprobs,
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_engine_latency_fields_and_report(params, stream_prompts):
+    _, pparams = params
+    sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    eng = pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+    done = drive(pserving, eng, stream_prompts, MAX_NEW)
+    for comp in done.values():
+        assert 0 <= comp.ttft_s <= comp.e2e_s
+    rep = eng.report()
+    assert rep["latency"]["completed"] == len(stream_prompts)
+    assert rep["prefills"] == len(stream_prompts)
+    assert rep["active"] == 0 and rep["queued"] == 0
+
+
+def test_eos_stops_early(params, stream_prompts):
+    _, pparams = params
+    sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    eng = pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+    free = drive(pserving, eng, stream_prompts[:1], MAX_NEW,
+                 late=0)["r0"].tokens
+    eos = free[3]
+    cut = free[:free.index(eos) + 1]
+    eng = pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+    eng.submit(pserving.Request("e", stream_prompts[0], MAX_NEW, eos_id=eos))
+    (comp,) = eng.run()
+    assert comp.tokens == cut and comp.finish_reason == "stop"
+
+
+def _sampling_rows(seed=0, b=6, vocab=64):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(b, vocab) * 3).astype(np.float32)
+    temp = np.asarray([0.0, 0.7, 1.0, 1.3, 0.9, 1.1], np.float32)[:b]
+    top_k = np.asarray([0, 5, 0, 20, 0, 3], np.int32)[:b]
+    top_p = np.asarray([1.0, 1.0, 0.8, 0.95, 1.0, 0.5], np.float32)[:b]
+    min_p = np.asarray([0.0, 0.0, 0.05, 0.0, 0.2, 0.0], np.float32)[:b]
+    rep_pen = np.asarray([1.3, 1.0, 1.2, 1.0, 0.8, 1.5], np.float32)[:b]
+    presence = rng.rand(b, vocab) < 0.2
+    return logits, temp, top_k, top_p, min_p, rep_pen, presence
+
+
+def test_rep_penalty_and_filters_match_jax():
+    logits, temp, top_k, top_p, min_p, rep_pen, presence = _sampling_rows()
+    jpen = jserving._apply_rep_penalty(jnp.asarray(logits),
+                                       jnp.asarray(rep_pen),
+                                       jnp.asarray(presence))
+    ppen = pserving._apply_rep_penalty(torch.as_tensor(logits),
+                                       torch.as_tensor(rep_pen),
+                                       torch.as_tensor(presence))
+    np.testing.assert_allclose(ppen.numpy(), np.asarray(jpen), rtol=1e-6)
+    jf = np.asarray(jserving._filtered_scaled(
+        jpen, jnp.asarray(temp), jnp.asarray(top_k), jnp.asarray(top_p),
+        jnp.asarray(min_p)))
+    pf = pserving._filtered_scaled(
+        ppen, torch.as_tensor(temp), torch.as_tensor(top_k),
+        torch.as_tensor(top_p), torch.as_tensor(min_p)).numpy()
+    assert ((jf <= -1e29) == (pf <= -1e29)).all()
+    live = jf > -1e29
+    np.testing.assert_allclose(pf[live], jf[live], rtol=1e-6)
+
+
+def test_sample_rows_matches_jax_with_the_same_gumbel_noise():
+    """Gumbel-max with injected noise: the port's draw equals JAX's
+    ``_sample_rows`` whose categorical uses the same noise (JAX's
+    categorical is argmax(logits + gumbel(key)))."""
+    arrs = _sampling_rows(seed=1)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(6, dtype=jnp.uint32))
+    noise = np.array(jax.vmap(
+        lambda k: jax.random.gumbel(k, (64,), jnp.float32))(keys))
+    want = np.asarray(jserving._sample_rows(
+        *(jnp.asarray(a) for a in arrs), keys))
+    got = pserving._sample_rows(*(torch.as_tensor(a) for a in arrs),
+                                noise=torch.as_tensor(noise)).numpy()
+    assert (got == want).all()
+    assert got[0] == np.argmax(np.asarray(jserving._apply_rep_penalty(
+        *(jnp.asarray(a) for a in (arrs[0], arrs[5], arrs[6]))))[0])
+
+
+def test_gumbel_noise_is_a_pure_function_of_seed_and_index():
+    temp = torch.tensor([1.0, 1.0, 0.0])
+    a = pserving._gumbel_noise([(7, 3), (7, 4), (7, 3)], 64, temp, "cpu")
+    b = pserving._gumbel_noise([(7, 3), (7, 4), (7, 3)], 64, temp, "cpu")
+    assert torch.equal(a, b)
+    assert not torch.equal(a[0], a[1])
+    assert (a[2] == 0).all()  # greedy rows draw nothing
+
+
+def test_sampled_stream_reproducible_and_placement_independent(
+        params, stream_prompts):
+    """A seeded sampled request is a pure function of (request, seed,
+    index): the same stream alone, in a busy dense grid, and through a
+    paged pool small enough to force recompute preemption."""
+    _, pparams = params
+    samp = pdecode.SamplingConfig(temperature=1.0, top_k=20)
+
+    def run(engine):
+        for i, p in enumerate(stream_prompts):
+            engine.submit(pserving.Request(f"s{i}", p, MAX_NEW,
+                                           sampling=samp, seed=100 + i))
+        return {c.request_id: c.tokens for c in engine.run()}, engine
+
+    dense, _ = run(pserving.ServingEngine(
+        pparams, CFG, pserving.ServingConfig(max_slots=2, max_len=48,
+                                             chunk=8), device="cpu"))
+    paged, eng = run(pserving.PagedServingEngine(
+        pparams, CFG, pserving.ServingConfig(max_slots=2, max_len=48,
+                                             chunk=8, paged_blocks=5,
+                                             block_size=8,
+                                             paged_kernel=True),
+        device="cpu"))
+    assert eng.preemptions > 0
+    assert dense == paged
+    solo = pserving.ServingEngine(
+        pparams, CFG, pserving.ServingConfig(max_slots=1, max_len=48,
+                                             chunk=8), device="cpu")
+    solo.submit(pserving.Request("s3", stream_prompts[3], MAX_NEW,
+                                 sampling=samp, seed=103))
+    assert solo.run()[0].tokens == dense["s3"]
+    assert any(len(set(toks)) > 1 for toks in dense.values())
+
+
+UNPORTED_KNOBS = {
+    "prefix_cache_entries": dict(prefix_cache_entries=2),
+    "prefill_chunk": dict(prefill_chunk=8),
+    "overlap_rounds": dict(overlap_rounds=True),
+    "speculative_k": dict(speculative_k=2),
+    "admission_wave_sizes": dict(admission_wave_sizes=(1, 2)),
+    "max_queue": dict(max_queue=4),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(UNPORTED_KNOBS))
+def test_knobs_outside_the_slice_raise(params, knob):
+    sc = pserving.ServingConfig(max_slots=2, max_len=48,
+                                **UNPORTED_KNOBS[knob])
+    with pytest.raises(ValueError, match="not ported"):
+        pserving.ServingEngine(params[1], CFG, sc, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["int8_kv", "int8_native"])
+def test_config_features_outside_the_slice_raise(params, field):
+    cfg = dataclasses.replace(CFG, **{field: True})
+    with pytest.raises(ValueError, match="not ported"):
+        pserving.ServingEngine(params[1], cfg, pserving.ServingConfig(),
+                               device="cpu")
+
+
+def test_mesh_and_deadline_raise(params):
+    with pytest.raises(ValueError, match="a mesh"):
+        pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
+                               device="cpu", mesh=object())
+    eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="deadline"):
+        eng.submit(pserving.Request("d", [1, 2], 4, deadline_s=1.0))
+
+
+def test_capacity_and_paged_knobs_are_checked(params):
+    eng = pserving.ServingEngine(params[1], CFG,
+                                 pserving.ServingConfig(max_len=16),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="slot capacity"):
+        eng.submit(pserving.Request("big", [1] * 10, 8))
+    with pytest.raises(ValueError, match="PagedServingEngine"):
+        pserving.ServingEngine(params[1], CFG,
+                               pserving.ServingConfig(paged_blocks=8),
+                               device="cpu")
