@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
-The main path is paged continuous-batching serving of the flagship
-configuration (``bench_config_large`` with ``flash=True``: d_model 2048,
-16 query heads over 4 KV heads, head_dim 128, 8 layers, 32768-token
-vocab, bf16 weights and activations), random weights from seed 0.
-Phases, each of which exits non-zero when it fails (nothing is caught
-and ignored):
+The main paths run the flagship configuration (``bench_config_large``
+with ``flash=True``: d_model 2048, 16 query heads over 4 KV heads,
+head_dim 128, 8 layers, 32768-token vocab), random weights from seed
+0: paged continuous-batching serving (bf16 weights and activations),
+then training (fp32 parameters, bf16 activations, AdamW, batches of 8
+sequences of 1025 tokens). Phases, each of which exits non-zero when
+it fails (nothing is caught and ignored):
 
 1. build  -- compile every ``kind_tpu_sim_torch/csrc/*.cu`` with nvcc
    for sm_90a into ``build/kind_tpu_sim_torch/``;
-2. kernels -- each CUDA kernel at the serving path's shapes against its
-   plain PyTorch version on the same bf16 inputs (computed in fp32),
-   then timed with CUDA events (median of 30 launches after warm-up,
-   L2 flushed before each) beside the plain version and, where one
-   PyTorch call computes the same function, that call;
+2. kernels -- each CUDA kernel at its path's shapes against its plain
+   PyTorch version on the same bf16 inputs (computed in fp32), then
+   timed with CUDA events (median of 30 launches after warm-up, L2
+   flushed before each) beside the plain version and, where one
+   PyTorch call computes the same function, that call: the flash
+   forward at the serving prefill shape, the paged decode kernel, and
+   the flash backward's dq and dk/dv kernels at the training shape,
+   fed the forward kernel's out and lse as training feeds them (the
+   forward checked and timed there too);
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
    emit the streams the CPU plain path emits;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
    new tokens each) through ``PagedServingEngine(paged_kernel=True)``
    at full width, with the kernels' launch counters zeroed just before
-   and read just after; then the same stream on the gather tier.
+   and read just after; then the same stream on the gather tier;
+5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
+   the card; losses and final parameters must match the same steps on
+   the CPU plain path;
+6. train  -- the flagship training workload of
+   ``kind_tpu_sim_torch.profile_train`` at full width and depth: one
+   warm-up step, then 5 timed steps with the launch counters zeroed
+   just before; every loss finite, each flash kernel launched exactly
+   n_layers x steps times.
 
 Standard output ends with a ``{"kernels": [...]}`` line, the card's
 name and power limit as nvidia-smi prints them, and the result line
@@ -52,6 +65,16 @@ FLASH_TOL = 2e-2        # bf16 output rounding + P rounded to bf16 for PV
 LSE_TOL = 1e-3          # fp32 running max and denominator; sum order only
 PAGED_RTOL, PAGED_ATOL = 1e-3, 1e-4   # fp32 partials; summation order
 SMALL_MARGIN = 1e-3     # a stream split below this top-2 margin is a tie
+# dq, dk and dv are cast to bf16 once at the end (half an ulp is up to
+# 2^-8 of the value), the fp32 sums differ only in order: the error is
+# judged against the reference's largest magnitude
+BWD_REL_TOL = 1e-2
+# fp32 training on the card against the CPU: every product in fp32 (TF32
+# off), only the summation order differs; AdamW's normalised update
+# turns relative gradient noise into absolute parameter steps of up to
+# lr x it, so the parameters get the looser absolute bar
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -109,6 +132,16 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple:
 # phase 2: the kernels against their plain versions
 
 
+def _fused_qkv(gen, b, t, h, kv, d):
+    """q, k, v as views of one fused (b, t, (h + 2 kv) d) bf16 tensor,
+    the model's layout after the qkv projection."""
+    qkv = torch.randn((b, t, (h + 2 * kv) * d), generator=gen,
+                      device="cuda").bfloat16()
+    return (qkv[..., :h * d].reshape(b, t, h, d),
+            qkv[..., h * d:(h + kv) * d].reshape(b, t, kv, d),
+            qkv[..., (h + kv) * d:].reshape(b, t, kv, d))
+
+
 def flash_phase(fa) -> dict:
     """flash_attention at the prefill shape of the serving path: one
     256-token prompt (the 192/224/256 prompts' bucket), 16 q heads over
@@ -117,17 +150,9 @@ def flash_phase(fa) -> dict:
     case (t = s = 200) and a non-causal one."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     h, kv, d = 16, 4, 128
-
-    def fused(t):
-        qkv = torch.randn((1, t, (h + 2 * kv) * d), generator=gen,
-                          device="cuda").bfloat16()
-        return (qkv[..., :h * d].reshape(1, t, h, d),
-                qkv[..., h * d:(h + kv) * d].reshape(1, t, kv, d),
-                qkv[..., (h + kv) * d:].reshape(1, t, kv, d))
-
-    cases = [("main 256 causal", fused(256), True),
-             ("ragged 200 causal", fused(200), True),
-             ("full 256", fused(256), False)]
+    cases = [("main 256 causal", _fused_qkv(gen, 1, 256, h, kv, d), True),
+             ("ragged 200 causal", _fused_qkv(gen, 1, 200, h, kv, d), True),
+             ("full 256", _fused_qkv(gen, 1, 256, h, kv, d), False)]
     worst = 0.0
     for name, (q, k, v), causal in cases:
         out = fa.flash_attention(q, k, v, causal=causal)
@@ -247,6 +272,153 @@ def paged_phase(pa) -> dict:
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def _library_bwd_ms(q, k, v, g):
+    """One PyTorch call that computes the whole attention backward:
+    aten's flash-attention backward on head-major tensors, k/v expanded
+    to every q head beforehand (untimed). None, with the reason logged,
+    where the installed torch does not offer it."""
+    name = "_scaled_dot_product_flash_attention_backward"
+    if not hasattr(torch.ops.aten, name):
+        log(f"library backward: torch.ops.aten.{name} is not in torch "
+            f"{torch.__version__}; library_ms is null")
+        return None
+    group = q.shape[2] // k.shape[2]
+    qh, gh = (x.transpose(1, 2).contiguous() for x in (q, g))
+    kh, vh = (x.transpose(1, 2).repeat_interleave(group, dim=1).contiguous()
+              for x in (k, v))
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, True, False)
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+        bwd = getattr(torch.ops.aten, name)
+        return time_ms(lambda: bwd(gh, qh, kh, vh, out, lse, cum_q, cum_k,
+                                   max_q, max_k, 0.0, True, seed, offset))
+    except (RuntimeError, TypeError) as err:
+        log(f"library backward: torch.ops.aten.{name} refused the call "
+            f"({err}); library_ms is null")
+        return None
+
+
+def flash_bwd_phase(fa, fwd_row: dict) -> list:
+    """The flash backward's dq and dk/dv kernels at the training path's
+    shape: q (8, 1024, 16, 128) over k/v (8, 1024, 4, 128) bf16, causal,
+    q/k/v views of a fused qkv tensor, g random; plus a ragged causal
+    case (t = s = 200) and a non-causal one. Each case runs the chain
+    training runs -- the forward kernel's out and lse into the two
+    backward kernels -- against the plain chain in fp32 on the same bf16
+    inputs: the forward kernel's out and lse against the plain
+    forward's (their worst error joins ``fwd_row``), the kernels'
+    gradients against the plain backward fed the plain forward's out
+    and lse. Then the two kernels, each one's plain version, the whole
+    plain backward, aten's whole backward and the forward kernel timed
+    at the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, t, h, kv, d = 8, 1024, 16, 4, 128
+    cases = [("main (8,1024) causal", (b, t), True),
+             ("ragged (2,200) causal", (2, 200), True),
+             ("full (2,256)", (2, 256), False)]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, (bb, tt), causal in cases:
+        q, k, v = _fused_qkv(gen, bb, tt, h, kv, d)
+        g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, g, causal)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        out_ref, lse_ref = fa.flash_attention_ref(qf, kf, vf, causal,
+                                                  return_lse=True)
+        ref = fa.flash_attention_bwd_ref(qf, kf, vf, out_ref, lse_ref,
+                                         g.float(), causal)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and out.shape == q.shape
+              and lse.shape == lse_ref.shape,
+              f"flash_attention {name}: out {out.dtype} "
+              f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
+        out_err = float((out.float() - out_ref).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        log(f"flash_attention {name}: max_abs_err {out_err:.3e} "
+            f"(tolerance {FLASH_TOL}), lse {lse_err:.3e} (tolerance "
+            f"{LSE_TOL})")
+        check(math.isfinite(out_err) and out_err <= FLASH_TOL,
+              f"flash_attention {name}: max_abs_err {out_err}")
+        check(math.isfinite(lse_err) and lse_err <= LSE_TOL,
+              f"flash_attention {name}: lse max_abs_err {lse_err}")
+        fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], out_err)
+        for kname, got, want, like in (("dq", dq, ref[0], q),
+                                       ("dk", dk, ref[1], k),
+                                       ("dv", dv, ref[2], v)):
+            check(got.dtype == torch.bfloat16 and got.shape == like.shape,
+                  f"flash backward {name} {kname}: {got.dtype} "
+                  f"{tuple(got.shape)}")
+            err = float((got.float() - want).abs().max())
+            rel = err / float(want.abs().max())
+            log(f"flash backward {name} {kname}: max_abs_err {err:.3e}, "
+                f"relative to max |ref| {rel:.3e} (tolerance "
+                f"{BWD_REL_TOL})")
+            check(math.isfinite(rel) and rel <= BWD_REL_TOL,
+                  f"flash backward {name} {kname}: relative error {rel}")
+            key = "dq" if kname == "dq" else "dkv"
+            worst[key] = max(worst[key], err)
+        if name.startswith("main"):
+            main = (q, k, v, g, out, lse)
+        del ref, out_ref, lse_ref
+
+    q, k, v, g, out, lse = main
+    args = (q, k, v, out, lse, g)
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(*args))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+    dq_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dq_ref(*args))
+    dkv_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(*args))
+    whole_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(*args))
+    whole_library_ms = _library_bwd_ms(q, k, v, g)
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    fwd_plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                          causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True))
+
+    # bytes: each input read once, each output written once (bf16 q, k,
+    # v, g, out, dq, dk, dv; fp32 lse and D); operations: 2 flops per
+    # multiply-add of each (row, col, d) product over the live causal
+    # pairs -- forward S and PV, dq S, dP and dQ, dk/dv S, dV, dP and dK
+    pairs = b * h * t * (t + 1) // 2
+    qn, kn = q.numel(), k.numel()
+    rows = b * h * t
+    fwd_bound = bound(2 * (qn + 2 * kn + qn), 2 * 2 * pairs * d,
+                      torch.bfloat16)
+    dq_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * qn,
+                     3 * 2 * pairs * d, torch.bfloat16)
+    dkv_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * 2 * kn,
+                      4 * 2 * pairs * d, torch.bfloat16)
+    lib = "null" if whole_library_ms is None else f"{whole_library_ms:.4f}"
+    log(f"flash backward timing (8,1024,16,128) causal: dq {dq_ms:.4f} ms "
+        f"(plain {dq_plain_ms:.4f} ms, bound {dq_bound[0]:.5f} ms, "
+        f"{dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f} "
+        f"ms, bound {dkv_bound[0]:.5f} ms, {dkv_bound[1]}); whole backward: "
+        f"plain {whole_plain_ms:.4f} ms, aten {lib} ms")
+    log(f"flash_attention forward timing at the training shape "
+        f"(8,1024,16,128) causal: kernel {fwd_ms:.4f} ms, plain "
+        f"{fwd_plain_ms:.4f} ms, sdpa {fwd_library_ms:.4f} ms, bound "
+        f"{fwd_bound[0]:.5f} ms ({fwd_bound[1]})")
+    # no PyTorch call computes dq or dk/dv alone, so library_ms is null
+    # on both rows; aten's whole backward and the whole plain backward
+    # stand beside them under names that say so
+    common = {"route": "cuda", "source": fa.BWD_SOURCE, "library_ms": None,
+              "whole_backward_plain_ms": whole_plain_ms,
+              "whole_backward_library_ms": whole_library_ms}
+    return [{"name": "flash_attention_bwd_dq", "replaces": fa.DQ_REPLACES,
+             "max_abs_err": worst["dq"], "ms": dq_ms,
+             "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
+             "bound_by": dq_bound[1], **common},
+            {"name": "flash_attention_bwd_dkv", "replaces": fa.DKV_REPLACES,
+             "max_abs_err": worst["dkv"], "ms": dkv_ms,
+             "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound[0],
+             "bound_by": dkv_bound[1], **common}]
 
 
 # ---------------------------------------------------------------------
@@ -395,6 +567,103 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 5: a tiny model trained on the card against the CPU plain path
+
+
+def small_train_phase(tf, fa) -> None:
+    """5 AdamW steps of a tiny fp32 flash GQA model on the card (the
+    flash forward, dq and dk/dv kernels inside autograd) and the same
+    steps on the CPU (the plain versions), from the same parameters on
+    the same batches."""
+    cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
+                         n_kv_heads=2, n_layers=2, d_ff=256, max_seq=64,
+                         dtype="float32", flash=True)
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batches = [tf.sample_batch(gen, cfg, 4, 65, device="cuda")
+               for _ in range(5)]
+
+    def train(device):
+        step, init = tf.make_train_step(cfg, device=device)
+        state = init({"embed": params["embed"].clone(),
+                      "final_norm": params["final_norm"].clone(),
+                      "blocks": [{k: v.clone() for k, v in b.items()}
+                                 for b in params["blocks"]]})
+        losses = []
+        for tokens in batches:
+            state, loss = step(state, tokens.to(device))
+            losses.append(float(loss))
+        return losses, [p.detach().cpu() for p in tf._leaves(state["params"])]
+
+    counts = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    card_losses, card_params = train("cuda")
+    check(fa.flash_attention_bwd_dq.launches - counts[0] == 10
+          and fa.flash_attention_bwd_dkv.launches - counts[1] == 10,
+          "small train: the backward kernels were not launched once per "
+          "layer and step")
+    plain_losses, plain_params = train("cpu")
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(card_losses, plain_losses))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(card_params, plain_params))
+    log(f"small train: losses card {card_losses}, CPU {plain_losses}; "
+        f"loss error {loss_err:.3e} (relative, tolerance "
+        f"{TRAIN_LOSS_RTOL}), final parameters max_abs_err {param_err:.3e} "
+        f"(tolerance {TRAIN_PARAM_ATOL})")
+    check(all(math.isfinite(x) for x in card_losses),
+          "small train: non-finite loss on the card")
+    check(loss_err <= TRAIN_LOSS_RTOL, "small train: losses differ")
+    check(param_err <= TRAIN_PARAM_ATOL, "small train: parameters differ")
+
+
+# ---------------------------------------------------------------------
+# phase 6: training at full width
+
+
+def train_phase(trainer, fa) -> dict:
+    """The flagship workload of ``kind_tpu_sim_torch.profile_train``
+    (the same configuration, parameters, batches and optimizer)."""
+    cfg = trainer.flagship_config()
+    steps = trainer.STEPS
+    t0 = time.perf_counter()
+    step, state = trainer.flagship_state(cfg)
+    batches = trainer.flagship_batches(cfg, steps + 1)
+    n_params = sum(p.numel() for p in trainer.tf._leaves(state["params"]))
+    log(f"flagship training: {n_params} fp32 parameters, set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
+
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+                "flash_attention_bwd_dkv":
+                    fa.flash_attention_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    check(all(math.isfinite(x) for x in losses),
+          f"flagship training: non-finite loss in {losses}")
+    want = cfg.n_layers * steps
+    log(f"train launches: {launches} (expected n_layers x steps = {want} "
+        "each)")
+    check(all(n == want for n in launches.values()),
+          "flagship training launch counts")
+    median = float(np.median(walls))
+    tokens = trainer.BATCH * (trainer.SEQ - 1)
+    log(f"flagship training: warm-up step {warm[0]:.1f} ms; {steps} steps "
+        f"of {trainer.BATCH} x {trainer.SEQ - 1} trained positions, step "
+        f"wall ms {[round(w, 1) for w in walls]} (median {median:.1f}) = "
+        f"{tokens / (median / 1e3):.1f} train tok/s; losses {losses}; peak "
+        f"device memory {peak:.2f} GiB")
+    return launches
+
+
+# ---------------------------------------------------------------------
 
 
 def main() -> int:
@@ -404,6 +673,7 @@ def main() -> int:
         fail(f"the kind_tpu_sim_torch package is not beside {__file__}")
     sys.path.insert(0, str(HERE))
     from kind_tpu_sim_torch import profile_serving as flagship
+    from kind_tpu_sim_torch import profile_train as trainer
     from kind_tpu_sim_torch.models import serving
     from kind_tpu_sim_torch.models import transformer as tf
     from kind_tpu_sim_torch.ops import _build
@@ -426,19 +696,28 @@ def main() -> int:
     lib = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s, {lib}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
 
-    kernels = [flash_phase(fa), paged_phase(pa)]
+    flash_row = flash_phase(fa)
+    kernels = [flash_row, paged_phase(pa), *flash_bwd_phase(fa, flash_row)]
     small_phase(tf, serving)
     launches = serve_phase(flagship, serving, fa, pa)
+    small_train_phase(tf, fa)
+    train_launches = train_phase(trainer, fa)
+    # the forward and paged kernels' counts come from serving, the
+    # backward kernels' from training (the forward's there is checked)
+    launches.update({name: n for name, n in train_launches.items()
+                     if name not in launches})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    log(json.dumps({"kernels": [{key: k[key] for key in order}
-                                for k in kernels]}))
+    log(json.dumps({"kernels": [
+        {**{key: k[key] for key in order},
+         **{key: x for key, x in k.items() if key not in order}}
+        for k in kernels]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

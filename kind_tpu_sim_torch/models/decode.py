@@ -47,7 +47,8 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
     (matmul weights, embedding) cast to the activation dtype; norm
     scales stay fp32. The readout follows the embedding's dtype, so a
     bf16 snapshot's logits come from bf16 weights (accumulated in
-    fp32)."""
+    fp32). Every leaf is detached, so a snapshot of parameters that a
+    train step left requiring grad carries no autograd history."""
     dtype = torch_dtype(cfg.dtype)
 
     def cast(node):
@@ -55,6 +56,7 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
             return {k: cast(v) for k, v in node.items()}
         if isinstance(node, list):
             return [cast(v) for v in node]
+        node = node.detach()
         return node.to(dtype) if node.ndim >= 2 else node
 
     return cast(params)
@@ -250,11 +252,13 @@ class SamplingConfig:
     repetition_penalty: float = 1.0
 
 
+@torch.no_grad()
 def greedy_generate(params: Params, cfg: ModelConfig, prompt, num_new: int,
                     chunk: int = 64, device="cuda"):
     """prompt (b, t_p) integer -> (b, t_p + num_new) greedy continuation
     on ``device`` (the card unless the caller asks for the CPU):
-    batched prefill filling the cache, then chunked cached decode."""
+    batched prefill filling the cache, then chunked cached decode.
+    Runs without autograd, whatever ``params`` require."""
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
     b, t_p = prompt.shape

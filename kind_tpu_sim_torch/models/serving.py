@@ -437,9 +437,12 @@ class ServingEngine:
         self._req_clock[request.request_id] = {"submit": self._clock()}
         self.queue.append(request)
 
+    @torch.no_grad()
     def step_round(self) -> None:
         """One scheduling quantum: admit into free slots, decode one
-        chunk for the whole grid, retire finished slots."""
+        chunk for the whole grid, retire finished slots. Runs without
+        autograd (``run`` goes through here), so parameters that
+        require grad build no graph and leave none in the storage."""
         self._admit()
         if any(r is not None for r in self.slot_req):
             emitted, lps = self._decode_round(self._sampling_state())

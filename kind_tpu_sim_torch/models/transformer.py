@@ -7,8 +7,9 @@ tensors. Parameters are a dict ``{"embed", "final_norm", "blocks":
 [...]}`` with the JAX package's names and shapes, so a JAX parameter
 tree converts leaf by leaf (``kind_tpu_sim_torch.weights``).
 
-Training (``loss_fn``, the train step, the flash backward), MoE, int8
-and ring attention belong to later slices of the port.
+Training runs here too: ``loss_fn``, ``make_train_step`` (AdamW or
+SGD, parameters updated in place) and ``sample_batch``. MoE, int8,
+rematerialisation and ring attention belong to later slices.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -258,7 +259,9 @@ def _block_core(x, bparams, cfg: ModelConfig, positions):
 
 
 def forward(params: Params, tokens, cfg: ModelConfig):
-    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32."""
+    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32.
+    Differentiable in every parameter (the flash kernels through
+    ``FlashAttentionFunction``)."""
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
     check_supported(cfg)
@@ -269,4 +272,103 @@ def forward(params: Params, tokens, cfg: ModelConfig):
         x, _, _, _ = _block_core(x, bparams, cfg, positions)
     x = _rms_norm(x, params["final_norm"])
     return _readout(x, params["embed"])
+
+
+def loss_fn(params: Params, tokens, cfg: ModelConfig):
+    """Next-token cross-entropy: the forward over ``tokens[:, :-1]``,
+    log-softmax in fp32, mean negative log-likelihood of
+    ``tokens[:, 1:]``. No aux term (MoE is not ported)."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
+    return -picked.mean()
+
+
+# ---------------------------------------------------------------------
+# training
+
+
+def _leaves(params: Params) -> List[torch.Tensor]:
+    """The parameter tensors in a fixed order (embed, final_norm, then
+    each block's leaves in key order)."""
+    return ([params["embed"], params["final_norm"]]
+            + [b[key] for b in params["blocks"] for key in sorted(b)])
+
+
+@torch.no_grad()
+def sgd_step(params: Params, grads, lr: float) -> Params:
+    """Plain SGD, ``p - lr * g`` for every leaf, IN PLACE: ``grads``
+    is a list in ``_leaves`` order. Returns ``params``."""
+    for p, g in zip(_leaves(params), grads):
+        p.sub_(lr * g)
+    return params
+
+
+def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
+                    use_optax: bool = True, device="cuda"):
+    """Returns (step_fn, init_state), with the reference's keywords.
+
+    ``init_state(source)`` takes a ``torch.Generator`` (random
+    parameters, as ``init_params``) or an existing parameter tree (for
+    instance one converted from the JAX package by
+    ``weights.params_from_numpy``), moves it to ``device`` and returns
+    ``{"params", "opt"}``. ``step_fn(state, tokens) -> (state, loss)``
+    computes the loss and its gradient and updates the parameters IN
+    PLACE, so a tree already on ``device`` is itself the one trained.
+
+    ``use_optax=True`` is the reference's ``optax.adamw(learning_rate)``
+    with every hyperparameter written out — betas (0.9, 0.999), eps
+    1e-8, weight decay 1e-4 (``torch.optim.AdamW`` would default to
+    1e-2), bias correction, no amsgrad — as ``torch.optim.AdamW`` with
+    its default implementation (``foreach`` on the card, the per-tensor
+    loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
+    ``remat`` and the other unported config features raise."""
+    check_supported(cfg)
+    dev = resolve(device)
+
+    def init_state(source) -> Dict[str, Any]:
+        if isinstance(source, torch.Generator):
+            params = init_params(cfg, source, dev)
+        else:
+            params = {"embed": source["embed"].to(dev),
+                      "final_norm": source["final_norm"].to(dev),
+                      "blocks": [{k: v.to(dev) for k, v in b.items()}
+                                 for b in source["blocks"]]}
+        for p in _leaves(params):
+            p.requires_grad_(True)
+        opt = None
+        if use_optax:
+            opt = torch.optim.AdamW(
+                _leaves(params), lr=learning_rate, betas=(0.9, 0.999),
+                eps=1e-8, weight_decay=1e-4, amsgrad=False)
+        return {"params": params, "opt": opt}
+
+    def step_fn(state, tokens):
+        params = state["params"]
+        leaves = _leaves(params)
+        loss = loss_fn(params, tokens, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        if state["opt"] is None:
+            sgd_step(params, grads, learning_rate)
+        else:
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            state["opt"].step()
+            for p in leaves:
+                p.grad = None
+        return state, loss.detach()
+
+    return step_fn, init_state
+
+
+def sample_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,
+                 seq: Optional[int] = None, device="cuda"):
+    """Synthetic structured data (ramps mod vocab) the LM can learn:
+    ``(starts + arange(seq)) % vocab`` with the starts drawn from
+    ``generator`` (a torch.Generator on ``device``)."""
+    dev = resolve(device)
+    seq = seq or cfg.max_seq
+    starts = torch.randint(0, cfg.vocab_size, (batch, 1),
+                           generator=generator, device=dev)
+    return (starts + torch.arange(seq, device=dev)[None, :]) % cfg.vocab_size
 

@@ -1,11 +1,17 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers and their plain versions.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``kind_tpu_sim/ops/pallas_kernels.py:_flash_impl``. ``flash_attention``
-dispatches on the tensors' device alone: CUDA tensors launch the kernel
-(or raise), CPU tensors take ``flash_attention_ref``, the same online
-softmax written step by step in PyTorch. The backward kernels belong
-to the training slice.
+Three kernels, each replacing a Pallas TPU kernel of
+``kind_tpu_sim/ops/pallas_kernels.py``:
+
+* ``csrc/flash_attention.cu`` — the forward, ``_flash_impl``;
+* ``csrc/flash_attention_bwd.cu`` — the backward's dq kernel and its
+  dk/dv kernel, ``_flash_bwd``.
+
+Every wrapper dispatches on the tensors' device alone: CUDA tensors
+launch the kernel (or raise), CPU tensors take the plain version
+written step by step in PyTorch. ``FlashAttentionFunction`` joins the
+forward and the backward for autograd; ``flash_attention`` goes through
+it.
 """
 
 from __future__ import annotations
@@ -19,12 +25,25 @@ from kind_tpu_sim_torch.ops import _build
 SOURCE = "kind_tpu_sim_torch/csrc/flash_attention.cu"
 # the pallas_call of _flash_impl, the TPU kernel this one replaces
 REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:313"
+BWD_SOURCE = "kind_tpu_sim_torch/csrc/flash_attention_bwd.cu"
+# the pallas_calls of _flash_bwd's dq and dk/dv kernels
+DQ_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:416"
+DKV_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:485"
 NEG = -1e30
 BLOCK_KV = 64  # the kernel's kv tile; the plain version walks the same tiles
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 12
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def _bwd_argtypes(n_out: int) -> tuple:
+    """q, k, v, g, lse, dsum and the outputs; dtype, b, t, s, h, kv, d;
+    the strides of q, k, v, g and of each output; scale, causal,
+    stream."""
+    return ((ctypes.c_void_p,) * (6 + n_out) + (ctypes.c_int,) * 7
+            + (ctypes.c_longlong,) * (12 + 3 * n_out)
+            + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _check(q, k, v) -> None:
@@ -53,6 +72,21 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+
+
+def _check_bwd(q, k, v, out, lse, g) -> None:
+    _check(q, k, v)
+    b, t, h, _ = q.shape
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(
+            f"flash backward: out {tuple(out.shape)} and g "
+            f"{tuple(g.shape)} must have q's shape {tuple(q.shape)}")
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(
+            f"flash backward: lse must be (b, h, t) fp32; got "
+            f"{tuple(lse.shape)} {lse.dtype}")
+    if any(x.device != q.device for x in (out, lse, g)):
+        raise ValueError("flash backward: inputs on different devices")
 
 
 def flash_attention_ref(q, k, v, causal: bool = True,
@@ -94,11 +128,8 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
-    """Fused attention forward. q (b, t, h, d); k/v (b, s, kv, d) with kv
-    dividing h (GQA), any strides with a contiguous head dim; bf16 or
-    fp32; d <= 128 and a multiple of 8. Returns out (b, t, h, d) in
-    q's dtype and, with ``return_lse``, the logsumexp (b, h, t) fp32."""
+def _forward(q, k, v, causal: bool, return_lse: bool):
+    """The forward kernel's wrapper (no autograd)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, return_lse)
@@ -121,4 +152,193 @@ def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
     return (out, lse) if return_lse else out
 
 
+# ---------------------------------------------------------------------
+# backward
+
+
+def _dsum(out, g):
+    """D = rowsum(float(g) * float(out)), (b, h, t) fp32 — elementwise
+    work outside the kernels, as the reference computes it (:373-375)."""
+    return (g.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def _bwd_scores(q, k, v, out, lse, g, causal):
+    """What both halves of the plain backward share, head-major fp32:
+    q, g, k and v (k and v repeated over each GQA group), P and dS."""
+    t, h, d = q.shape[1:]
+    s, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    qf = q.float().permute(0, 2, 1, 3)                        # (b,h,t,d)
+    gf = g.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    sc = torch.einsum("bhtd,bhsd->bhts", qf, kf) * d ** -0.5
+    if causal:
+        mask = (torch.arange(s, device=q.device)[None, :]
+                > torch.arange(t, device=q.device)[:, None])
+        sc = sc.masked_fill(mask, NEG)
+    p = torch.exp(sc - lse[..., None])
+    dp = torch.einsum("bhtd,bhsd->bhts", gf, vf)
+    ds = p * (dp - _dsum(out, g)[..., None])
+    return qf, gf, kf, p, ds
+
+
+def _dq_from(q, kf, ds):
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf) * q.shape[3] ** -0.5
+    return dq.permute(0, 2, 1, 3).to(q.dtype).contiguous()
+
+
+def _dkv_from(q, k, v, qf, gf, p, ds):
+    b, s, kv, d = k.shape
+    group = q.shape[2] // kv
+    dk_h = torch.einsum("bhts,bhtd->bhsd", ds, qf) * d ** -0.5
+    dv_h = torch.einsum("bhts,bhtd->bhsd", p, gf)
+
+    def group_sum(x, dtype):                  # (b,h,s,d) -> (b,s,kv,d)
+        return (x.reshape(b, kv, group, s, d).sum(dim=2)
+                .permute(0, 2, 1, 3).to(dtype).contiguous())
+
+    return group_sum(dk_h, k.dtype), group_sum(dv_h, v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool = True):
+    """The backward's arithmetic in plain PyTorch, with the numerics of
+    the reference's ``_flash_bwd``: scores recomputed in fp32 as
+    (q k^T) * scale with masked entries -1e30, P = exp(S - lse) in fp32
+    (not rounded, unlike the forward's P before PV), dP = g v^T,
+    dS = P * (dP - D) with D = rowsum(g * out); dq = dS k * scale,
+    dv = P^T g and dk = dS^T q * scale, accumulated per q head in fp32
+    and summed over each GQA group before the one cast to k's and v's
+    dtype. Returns (dq, dk, dv) in the inputs' shapes and dtypes."""
+    qf, gf, kf, p, ds = _bwd_scores(q, k, v, out, lse, g, causal)
+    return (_dq_from(q, kf, ds), *_dkv_from(q, k, v, qf, gf, p, ds))
+
+
+def flash_attention_bwd_dq_ref(q, k, v, out, lse, g, causal: bool = True):
+    """The dq kernel's plain version: ``flash_attention_bwd_ref``'s dq
+    alone."""
+    _, _, kf, _, ds = _bwd_scores(q, k, v, out, lse, g, causal)
+    return _dq_from(q, kf, ds)
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, out, lse, g, causal: bool = True):
+    """The dk/dv kernel's plain version: ``flash_attention_bwd_ref``'s
+    (dk, dv) alone."""
+    qf, gf, _, p, ds = _bwd_scores(q, k, v, out, lse, g, causal)
+    return _dkv_from(q, k, v, qf, gf, p, ds)
+
+
+def _kernel_inputs(q, out, lse, g):
+    """What the kernels read besides q, k, v: g in q's dtype with a
+    contiguous head dim, lse contiguous, and D."""
+    if g.stride(-1) != 1 or g.dtype != q.dtype:
+        g = g.to(q.dtype).contiguous()
+    return g, lse.contiguous(), _dsum(out, g)
+
+
+def _bwd_launch(name, q, k, v, g, lse, dsum, outs, causal) -> None:
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    fn = _build.function(name, _bwd_argtypes(len(outs)))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), dsum.data_ptr(), *(x.data_ptr() for x in outs),
+             _DTYPE_CODES[q.dtype], b, t, s, h, kv, d,
+             *(st for x in (q, k, v, g, *outs) for st in x.stride()[:3]),
+             d ** -0.5, int(causal),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _launch_dq(q, k, v, g, lse, dsum, causal):
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("kts_flash_attention_bwd_dq", q, k, v, g, lse, dsum, [dq],
+                causal)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, g, lse, dsum, causal):
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("kts_flash_attention_bwd_dkv", q, k, v, g, lse, dsum,
+                [dk, dv], causal)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, g, causal: bool = True):
+    """dq (b, t, h, d) in q's dtype: the dq kernel on CUDA tensors, the
+    plain backward's dq on CPU tensors."""
+    _check_bwd(q, k, v, out, lse, g)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, out, lse, g, causal)
+    return _launch_dq(q, k, v, *_kernel_inputs(q, out, lse, g), causal)
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, g, causal: bool = True):
+    """(dk, dv), each (b, s, kv, d) in k's and v's dtype, GQA group
+    summed in fp32: the dk/dv kernel on CUDA tensors, the plain
+    backward's dk and dv on CPU tensors."""
+    _check_bwd(q, k, v, out, lse, g)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, out, lse, g, causal)
+    return _launch_dkv(q, k, v, *_kernel_inputs(q, out, lse, g), causal)
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True):
+    """(dq, dk, dv) for the upstream gradient ``g`` of ``out``: both
+    kernels on CUDA tensors, D computed once for the two; the plain
+    backward on CPU tensors."""
+    _check_bwd(q, k, v, out, lse, g)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal)
+    inputs = _kernel_inputs(q, out, lse, g)
+    return (_launch_dq(q, k, v, *inputs, causal),
+            *_launch_dkv(q, k, v, *inputs, causal))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Autograd around the flash kernels, as the reference's
+    ``jax.custom_vjp``: the forward saves q, k, v, out and the
+    logsumexp, the backward runs the dq and dk/dv kernels (the plain
+    backward for CPU tensors) once: it builds no graph, so a second
+    derivative raises. The logsumexp is computed only when
+    ``needs_lse`` — a gradient is wanted or the caller asked for it —
+    so the serving path's launches and outputs stay those of the
+    forward alone."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, needs_lse: bool):
+        ctx.causal = causal
+        if not needs_lse:
+            return _forward(q, k, v, causal, False), None
+        out, lse = _forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
+    """Fused attention. q (b, t, h, d); k/v (b, s, kv, d) with kv
+    dividing h (GQA), any strides with a contiguous head dim; bf16 or
+    fp32; d <= 128 and a multiple of 8. Returns out (b, t, h, d) in
+    q's dtype and, with ``return_lse``, the logsumexp (b, h, t) fp32.
+    Differentiable in q, k and v through ``FlashAttentionFunction``."""
+    wants_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    out, lse = FlashAttentionFunction.apply(q, k, v, causal,
+                                            wants_grad or return_lse)
+    return (out, lse) if return_lse else out
+
+
 flash_attention.launches = 0  # kernel launches (CPU calls not counted)
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

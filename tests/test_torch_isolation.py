@@ -110,6 +110,12 @@ def test_entry_points_without_a_card_raise(no_card):
                        for b in params["blocks"]]}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(tree, CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptf.make_train_step(CFG)
+    _, init_state = ptf.make_train_step(CFG, device="cpu")
+    assert init_state(params)["params"]["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptf.sample_batch(torch.Generator(), CFG, 2)
     assert pdevice.resolve("cpu").type == "cpu"
 
 

@@ -230,6 +230,56 @@ def test_sampled_stream_reproducible_and_placement_independent(
     assert any(len(set(toks)) > 1 for toks in dense.values())
 
 
+def test_serving_from_params_that_require_grad_builds_no_graph(
+        params, stream_prompts, monkeypatch):
+    """Parameters as a train step leaves them (leaves requiring grad)
+    serve the same streams as detached ones, and no cache, pool or
+    logit tensor carries autograd history."""
+    from kind_tpu_sim_torch.models import quant
+
+    _, pparams = params
+    trained = {"embed": pparams["embed"].clone().requires_grad_(),
+               "final_norm": pparams["final_norm"].clone().requires_grad_(),
+               "blocks": [{k: v.clone().requires_grad_() for k, v in b.items()}
+                          for b in pparams["blocks"]]}
+    logits_grad = []
+    real = quant.readout
+
+    def spy(x, embed):
+        out = real(x, embed)
+        logits_grad.append(out.requires_grad)
+        return out
+
+    monkeypatch.setattr(quant, "readout", spy)
+    dense_sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8)
+    paged_sc = pserving.ServingConfig(max_slots=2, max_len=48, chunk=8,
+                                      paged_blocks=9, block_size=8,
+                                      paged_kernel=True)
+    for engine, sc, storage in ((pserving.ServingEngine, dense_sc, "cache"),
+                                (pserving.PagedServingEngine, paged_sc,
+                                 "pools")):
+        streams = {}
+        for name, p in (("trained", trained), ("detached", pparams)):
+            eng = engine(p, CFG, sc, device="cpu")
+            done = drive(pserving, eng, stream_prompts, MAX_NEW)
+            streams[name] = {rid: c.tokens for rid, c in done.items()}
+            layers = getattr(eng, storage)
+            assert not any(t.requires_grad for lc in layers
+                           for t in lc.values()), storage
+            assert not eng.last_token.requires_grad
+        assert streams["trained"] == streams["detached"], engine.__name__
+    batch = np.asarray(prompts(2, CFG.vocab_size, seed=5, base=9, step=0))
+    out = pdecode.greedy_generate(trained, CFG, batch, 10, chunk=4,
+                                  device="cpu")
+    assert not out.requires_grad
+    assert torch.equal(out, pdecode.greedy_generate(pparams, CFG, batch, 10,
+                                                    chunk=4, device="cpu"))
+    assert logits_grad and not any(logits_grad)
+    snapshot = pdecode.serving_params(trained, CFG)
+    assert not snapshot["embed"].requires_grad
+    assert not snapshot["blocks"][0]["attn_norm"].requires_grad
+
+
 UNPORTED_KNOBS = {
     "prefix_cache_entries": dict(prefix_cache_entries=2),
     "prefill_chunk": dict(prefill_chunk=8),
