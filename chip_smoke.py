@@ -35,7 +35,19 @@ it fails (nothing is caught and ignored):
    ``kind_tpu_sim_torch.profile_train`` at full width and depth: one
    warm-up step, then 5 timed steps with the launch counters zeroed
    just before; every loss finite, each flash kernel launched exactly
-   n_layers x steps times.
+   n_layers x steps times; then one flagship step with ``remat=True``
+   after a warm-up, its peak device memory beside the plain step's, the
+   flash forward launched twice per layer (forward and recompute);
+7. toolchain -- the kernel-toolchain gate ``toolchain_smoke`` on the
+   card (the matmul, rms_norm and softmax kernels, each launched once),
+   then each of the three at flagship width against its plain version,
+   timed beside its plain version and one PyTorch call;
+8. train_smoke -- ``python -m kind_tpu_sim_torch train-smoke --steps 10
+   --checkpoint-dir <tmp> --json`` in-process: data pipeline, train
+   steps and the checkpoint/resume round trip on the card.
+
+Phase 5 also trains the tiny model with ``remat=True`` on the card and
+holds it to the plain run.
 
 Standard output ends with a ``{"kernels": [...]}`` line, the card's
 name and power limit as nvidia-smi prints them, and the result line
@@ -44,11 +56,14 @@ name and power limit as nvidia-smi prints them, and the result line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -75,6 +90,15 @@ BWD_REL_TOL = 1e-2
 # lr x it, so the parameters get the looser absolute bar
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 2e-4
+# matmul: fp32 sums in another order than cuBLAS's (the bf16 inputs'
+# products are exact in fp32), judged against the largest magnitude
+MATMUL_REL_TOL = 1e-3
+# rms_norm: the bf16 output of two fp32 computations that differ in
+# summation order and rsqrt may round to neighbouring bf16 values
+RMS_NORM_ULPS = 1.0
+# softmax: fp32 throughout; the kernel's running sum differs from the
+# plain version's only in order and in the rescaling of partial sums
+SOFTMAX_ATOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -574,7 +598,9 @@ def small_train_phase(tf, fa) -> None:
     """5 AdamW steps of a tiny fp32 flash GQA model on the card (the
     flash forward, dq and dk/dv kernels inside autograd) and the same
     steps on the CPU (the plain versions), from the same parameters on
-    the same batches."""
+    the same batches; then the same steps on the card with
+    ``remat=True``, held to the card's ``remat=False`` run at the same
+    bars, the forward kernel launched twice per layer and step."""
     cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=64,
                          dtype="float32", flash=True)
@@ -584,8 +610,9 @@ def small_train_phase(tf, fa) -> None:
     batches = [tf.sample_batch(gen, cfg, 4, 65, device="cuda")
                for _ in range(5)]
 
-    def train(device):
-        step, init = tf.make_train_step(cfg, device=device)
+    def train(device, remat=False):
+        step, init = tf.make_train_step(
+            dataclasses.replace(cfg, remat=remat), device=device)
         state = init({"embed": params["embed"].clone(),
                       "final_norm": params["final_norm"].clone(),
                       "blocks": [{k: v.clone() for k, v in b.items()}
@@ -596,13 +623,36 @@ def small_train_phase(tf, fa) -> None:
             losses.append(float(loss))
         return losses, [p.detach().cpu() for p in tf._leaves(state["params"])]
 
-    counts = (fa.flash_attention_bwd_dq.launches,
-              fa.flash_attention_bwd_dkv.launches)
+    def counts():
+        return (fa.flash_attention.launches,
+                fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches)
+
+    n = cfg.n_layers * len(batches)
+    before = counts()
     card_losses, card_params = train("cuda")
-    check(fa.flash_attention_bwd_dq.launches - counts[0] == 10
-          and fa.flash_attention_bwd_dkv.launches - counts[1] == 10,
-          "small train: the backward kernels were not launched once per "
-          "layer and step")
+    got = tuple(x - y for x, y in zip(counts(), before))
+    check(got == (n, n, n),
+          f"small train: launches (forward, dq, dk/dv) {got}, expected "
+          f"{(n, n, n)}: once per layer and step")
+    before = counts()
+    remat_losses, remat_params = train("cuda", remat=True)
+    got = tuple(x - y for x, y in zip(counts(), before))
+    check(got == (2 * n, n, n),
+          f"small train remat: launches (forward, dq, dk/dv) {got}, "
+          f"expected {(2 * n, n, n)}")
+    remat_loss_err = max(abs(a - b) / max(1.0, abs(b))
+                         for a, b in zip(remat_losses, card_losses))
+    remat_param_err = max(float((a - b).abs().max())
+                          for a, b in zip(remat_params, card_params))
+    log(f"small train remat on the card: loss error {remat_loss_err:.3e} "
+        f"(relative to remat=False, tolerance {TRAIN_LOSS_RTOL}), final "
+        f"parameters max_abs_err {remat_param_err:.3e} (tolerance "
+        f"{TRAIN_PARAM_ATOL}); launches forward, dq, dk/dv {got}")
+    check(remat_loss_err <= TRAIN_LOSS_RTOL,
+          "small train remat: losses differ from remat=False")
+    check(remat_param_err <= TRAIN_PARAM_ATOL,
+          "small train remat: parameters differ from remat=False")
     plain_losses, plain_params = train("cpu")
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(card_losses, plain_losses))
@@ -622,9 +672,10 @@ def small_train_phase(tf, fa) -> None:
 # phase 6: training at full width
 
 
-def train_phase(trainer, fa) -> dict:
+def train_phase(trainer, fa) -> tuple:
     """The flagship workload of ``kind_tpu_sim_torch.profile_train``
-    (the same configuration, parameters, batches and optimizer)."""
+    (the same configuration, parameters, batches and optimizer).
+    Returns (launches, {"step_ms", "peak_gib"})."""
     cfg = trainer.flagship_config()
     steps = trainer.STEPS
     t0 = time.perf_counter()
@@ -660,7 +711,210 @@ def train_phase(trainer, fa) -> dict:
         f"wall ms {[round(w, 1) for w in walls]} (median {median:.1f}) = "
         f"{tokens / (median / 1e3):.1f} train tok/s; losses {losses}; peak "
         f"device memory {peak:.2f} GiB")
-    return launches
+    return launches, {"step_ms": median, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------
+# phase 6b: one flagship step with remat
+
+
+def train_remat_phase(trainer, fa, plain: dict) -> None:
+    """One flagship train step with ``remat=True`` after a warm-up step
+    (which allocates AdamW's state), counters zeroed just before it: the
+    flash forward runs twice per layer (the forward and the backward's
+    recompute), dq and dk/dv once. Its peak device memory is printed
+    beside the ``remat=False`` steps' (``plain``, from ``train_phase``)."""
+    cfg = dataclasses.replace(trainer.flagship_config(), remat=True)
+    step, state = trainer.flagship_state(cfg)
+    batches = trainer.flagship_batches(cfg, 2)
+    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+                "flash_attention_bwd_dkv":
+                    fa.flash_attention_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers}
+    log(f"flagship remat step launches: {launches} (expected {want})")
+    check(launches == want, "flagship remat launch counts")
+    check(all(math.isfinite(x) for x in losses),
+          f"flagship remat: non-finite loss in {losses}")
+    log(f"flagship remat: warm-up step {warm[0]:.1f} ms, step {walls[0]:.1f} "
+        f"ms (remat=False median {plain['step_ms']:.1f} ms); peak device "
+        f"memory {peak:.2f} GiB (remat=False {plain['peak_gib']:.2f} GiB); "
+        f"loss {losses[0]}")
+
+
+# ---------------------------------------------------------------------
+# phase 7: the kernel-toolchain gate, then its kernels at flagship width
+
+
+def _bf16_ulps(got, want) -> float:
+    """The largest |got - want| in units of bf16's last place at the
+    larger of the two magnitudes."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    return float(((g - w).abs() / ulp).max())
+
+
+def toolchain_phase(tc) -> list:
+    """``toolchain_smoke`` on the card with the three launch counters
+    zeroed just before and read just after (each kernel exactly once:
+    its rows' ``launches``). Then each kernel at flagship width on the
+    same inputs as its plain version: matmul of the flagship's w_up
+    product over one 8 x 1024 training batch (bf16 (8192, 2048) @
+    (2048, 8192), fp32 out) plus an fp32 case; rms_norm of the norm
+    input over that batch (bf16 (8192, 2048), fp32 weight); softmax of
+    its readout logits (fp32 (8192, 32768)). Each is timed beside its
+    plain version and one PyTorch call."""
+    for fn in (tc.matmul, tc.rms_norm, tc.softmax):
+        fn.launches = 0
+    rep = tc.toolchain_smoke("cuda")
+    launches = {"matmul": tc.matmul.launches,
+                "rms_norm": tc.rms_norm.launches,
+                "softmax": tc.softmax.launches}
+    log(f"toolchain_smoke: {rep}; launches {launches}")
+    check(rep["ok"] and rep["interpret"] is False and rep["backend"] == "cuda",
+          f"toolchain_smoke on the card: {rep}")
+    check(all(n == 1 for n in launches.values()),
+          f"toolchain_smoke launch counts {launches} (each kernel once)")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+
+    # matmul: the fp32 case, then the flagship bf16 product
+    a = torch.randn((1024, 2048), generator=gen, device="cuda")
+    b = torch.randn((2048, 1024), generator=gen, device="cuda")
+    want = tc.matmul_ref(a, b)
+    fp32_err = float((tc.matmul(a, b) - want).abs().max())
+    fp32_rel = fp32_err / float(want.abs().max())
+    log(f"matmul fp32 (1024,2048)@(2048,1024): max_abs_err {fp32_err:.3e}, "
+        f"relative to max |ref| {fp32_rel:.3e} (tolerance {MATMUL_REL_TOL})")
+    check(math.isfinite(fp32_rel) and fp32_rel <= MATMUL_REL_TOL,
+          f"matmul fp32: relative error {fp32_rel}")
+    m, k, n = 8192, 2048, 8192
+    a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    got, want = tc.matmul(a, b), tc.matmul_ref(a, b)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == (m, n),
+          f"matmul: output {got.dtype} {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"matmul bf16 ({m},{k})@({k},{n}): max_abs_err {err:.3e}, relative "
+        f"to max |ref| {rel:.3e} (tolerance {MATMUL_REL_TOL})")
+    check(math.isfinite(rel) and rel <= MATMUL_REL_TOL,
+          f"matmul bf16: relative error {rel}")
+    del got, want
+    ms = time_ms(lambda: tc.matmul(a, b))
+    plain_ms = time_ms(lambda: tc.matmul_ref(a, b))
+    library_ms = time_ms(lambda: torch.matmul(a, b))
+    # A and B read once, C written once; 2 flops per multiply-add
+    bound_ms, bound_by = bound(2 * (m * k + k * n) + 4 * m * n,
+                               2 * m * k * n, torch.bfloat16)
+    log(f"matmul timing: kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} "
+        f"TFLOP/s), plain (fp32 cuBLAS) {plain_ms:.4f} ms, torch.matmul "
+        f"bf16 {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    rows.append({"name": "matmul", "route": "cuda",
+                 "source": tc.MATMUL_SOURCE, "replaces": tc.MATMUL_REPLACES,
+                 "max_abs_err": max(err, fp32_err), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "library_call": "torch.matmul on the bf16 inputs (cuBLAS, "
+                                 "bf16 out)"})
+    del a, b
+
+    # rms_norm
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((k,), generator=gen, device="cuda")
+    got, want = tc.rms_norm(x, w), tc.rms_norm_ref(x, w)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and got.shape == x.shape,
+          f"rms_norm: output {got.dtype} {tuple(got.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    ulps = _bf16_ulps(got, want)
+    log(f"rms_norm bf16 ({m},{k}): max_abs_err {err:.3e}, {ulps:.2f} bf16 "
+        f"ulps (tolerance {RMS_NORM_ULPS})")
+    check(ulps <= RMS_NORM_ULPS, f"rms_norm: {ulps} ulps")
+    w_bf16 = w.bfloat16()  # F.rms_norm wants the weight in x's dtype
+    ms = time_ms(lambda: tc.rms_norm(x, w))
+    plain_ms = time_ms(lambda: tc.rms_norm_ref(x, w))
+    library_ms = time_ms(lambda: torch.nn.functional.rms_norm(
+        x, (k,), w_bf16, 1e-6))
+    # x and w read once, out written once; ~4 fp32 flops an element
+    bound_ms, bound_by = bound(2 * 2 * m * k + 4 * k, 4 * m * k,
+                               torch.float32)
+    log(f"rms_norm timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"F.rms_norm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    rows.append({"name": "rms_norm", "route": "cuda",
+                 "source": tc.RMS_NORM_SOURCE,
+                 "replaces": tc.RMS_NORM_REPLACES, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "library_call": "torch.nn.functional.rms_norm, weight cast "
+                                 "to bf16 beforehand"})
+    del x, got, want
+
+    # softmax
+    v = 32768
+    x = torch.randn((m, v), generator=gen, device="cuda") * 4
+    got, want = tc.softmax(x), tc.softmax_ref(x)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == x.shape,
+          f"softmax: output {got.dtype} {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    log(f"softmax fp32 ({m},{v}): max_abs_err {err:.3e} (tolerance "
+        f"{SOFTMAX_ATOL})")
+    check(math.isfinite(err) and err <= SOFTMAX_ATOL,
+          f"softmax: max_abs_err {err}")
+    del got, want
+    ms = time_ms(lambda: tc.softmax(x))
+    plain_ms = time_ms(lambda: tc.softmax_ref(x))
+    library_ms = time_ms(lambda: torch.softmax(x, -1))
+    # x read once, out written once; ~5 fp32 flops an element
+    bound_ms, bound_by = bound(2 * 4 * m * v, 5 * m * v, torch.float32)
+    log(f"softmax timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.softmax {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    rows.append({"name": "softmax", "route": "cuda",
+                 "source": tc.SOFTMAX_SOURCE,
+                 "replaces": tc.SOFTMAX_REPLACES, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "library_call": "torch.softmax(x, -1)"})
+    del x
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    return rows
+
+
+# ---------------------------------------------------------------------
+# phase 8: the train-smoke command on the card
+
+
+def train_smoke_phase(cli) -> None:
+    """``python -m kind_tpu_sim_torch train-smoke --steps 10
+    --checkpoint-dir <tmp> --json`` in this process, on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train-smoke", "--steps", "10", "--checkpoint-dir",
+                           str(Path(tmp) / "ckpt"), "--json"])
+        wall = time.perf_counter() - t0
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"train-smoke: rc {rc} in {wall:.2f} s, report {report}")
+    check(rc == 0 and report["ok"] is True and report["resume_ok"] is True,
+          f"train-smoke: rc {rc}, report {report}")
 
 
 # ---------------------------------------------------------------------
@@ -672,6 +926,7 @@ def main() -> int:
     if not (HERE / "kind_tpu_sim_torch" / "__init__.py").is_file():
         fail(f"the kind_tpu_sim_torch package is not beside {__file__}")
     sys.path.insert(0, str(HERE))
+    from kind_tpu_sim_torch import cli
     from kind_tpu_sim_torch import profile_serving as flagship
     from kind_tpu_sim_torch import profile_train as trainer
     from kind_tpu_sim_torch.models import serving
@@ -679,6 +934,7 @@ def main() -> int:
     from kind_tpu_sim_torch.ops import _build
     from kind_tpu_sim_torch.ops import flash_attention as fa
     from kind_tpu_sim_torch.ops import paged_attention as pa
+    from kind_tpu_sim_torch.ops import toolchain as tc
 
     check(Path(fa.__file__).resolve().is_relative_to(HERE),
           f"kind_tpu_sim_torch imported from {fa.__file__}, not {HERE}")
@@ -704,13 +960,20 @@ def main() -> int:
     small_phase(tf, serving)
     launches = serve_phase(flagship, serving, fa, pa)
     small_train_phase(tf, fa)
-    train_launches = train_phase(trainer, fa)
+    train_launches, train_plain = train_phase(trainer, fa)
+    train_remat_phase(trainer, fa, train_plain)
+    toolchain_rows = toolchain_phase(tc)
+    train_smoke_phase(cli)
     # the forward and paged kernels' counts come from serving, the
-    # backward kernels' from training (the forward's there is checked)
+    # backward kernels' from training (the forward's there is checked),
+    # the toolchain kernels' from toolchain_smoke
     launches.update({name: n for name, n in train_launches.items()
                      if name not in launches})
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels += toolchain_rows
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel of the main paths was never launched")
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

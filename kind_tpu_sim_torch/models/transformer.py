@@ -8,8 +8,10 @@ tensors. Parameters are a dict ``{"embed", "final_norm", "blocks":
 tree converts leaf by leaf (``kind_tpu_sim_torch.weights``).
 
 Training runs here too: ``loss_fn``, ``make_train_step`` (AdamW or
-SGD, parameters updated in place) and ``sample_batch``. MoE, int8,
-rematerialisation and ring attention belong to later slices.
+SGD, parameters updated in place) and ``sample_batch``; with
+``ModelConfig.remat`` each block's activations are recomputed in the
+backward instead of kept. MoE, int8 and ring attention belong to later
+slices.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from kind_tpu_sim_torch.device import resolve, torch_dtype
 
@@ -35,7 +38,7 @@ class ModelConfig:
     d_ff: int = 512
     max_seq: int = 128
     dtype: str = "bfloat16"       # activation/matmul dtype
-    remat: bool = False           # training only (later slice)
+    remat: bool = False           # recompute each block in the backward
     n_experts: int = 0            # >0: Switch-MoE MLP (later slice)
     n_kv_heads: Optional[int] = None  # grouped-query attention; None = MHA
     flash: bool = False           # flash-attention kernel in prefill
@@ -82,8 +85,7 @@ def bench_config_large() -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configuration features later slices of the port add."""
-    for name in ("n_experts", "int8_kv", "int8_native", "seq_parallel",
-                 "remat"):
+    for name in ("n_experts", "int8_kv", "int8_native", "seq_parallel"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"ModelConfig.{name} is not ported yet (a later slice "
@@ -258,10 +260,17 @@ def _block_core(x, bparams, cfg: ModelConfig, positions):
     return x + _mlp(h, bparams), 0.0, k, v
 
 
+def _block(x, bparams, cfg: ModelConfig, positions):
+    return _block_core(x, bparams, cfg, positions)[0]
+
+
 def forward(params: Params, tokens, cfg: ModelConfig):
     """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32.
     Differentiable in every parameter (the flash kernels through
-    ``FlashAttentionFunction``)."""
+    ``FlashAttentionFunction``). With ``cfg.remat`` every block runs
+    under ``torch.utils.checkpoint`` (non-reentrant), as the reference
+    wraps it in ``jax.checkpoint``: the backward runs the block's forward
+    again instead of keeping its activations."""
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
     check_supported(cfg)
@@ -269,7 +278,11 @@ def forward(params: Params, tokens, cfg: ModelConfig):
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
     for bparams in params["blocks"]:
-        x, _, _, _ = _block_core(x, bparams, cfg, positions)
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, bparams, cfg, positions, use_reentrant=False)
+        else:
+            x = _block(x, bparams, cfg, positions)
     x = _rms_norm(x, params["final_norm"])
     return _readout(x, params["embed"])
 
@@ -322,7 +335,7 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
     1e-2), bias correction, no amsgrad — as ``torch.optim.AdamW`` with
     its default implementation (``foreach`` on the card, the per-tensor
     loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
-    ``remat`` and the other unported config features raise."""
+    The unported config features (MoE, int8, ring attention) raise."""
     check_supported(cfg)
     dev = resolve(device)
 

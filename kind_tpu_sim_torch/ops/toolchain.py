@@ -1,0 +1,235 @@
+"""The kernel-toolchain gate: matmul, rms_norm and softmax kernels.
+
+Counterpart of ``kind_tpu_sim/ops/pallas_kernels.py``'s first three
+Pallas TPU kernels (``matmul``, ``rms_norm``, ``softmax``) and of its
+``toolchain_smoke``, the gate the pallas pod runs: the kernels build,
+launch and agree with plain numerics. Each kernel is hand-written CUDA
+C++ (``csrc/matmul.cu``, ``csrc/rms_norm.cu``, ``csrc/softmax.cu``).
+
+Every wrapper dispatches on the tensors' device alone: CUDA tensors
+launch the kernel (or raise), CPU tensors take the plain version
+(``matmul_ref``, ``rms_norm_ref``, ``softmax_ref``). Each wrapper counts
+its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from kind_tpu_sim_torch.device import resolve
+from kind_tpu_sim_torch.ops import _build
+
+MATMUL_SOURCE = "kind_tpu_sim_torch/csrc/matmul.cu"
+RMS_NORM_SOURCE = "kind_tpu_sim_torch/csrc/rms_norm.cu"
+SOFTMAX_SOURCE = "kind_tpu_sim_torch/csrc/softmax.cu"
+# the pallas_calls of the TPU kernels these replace
+MATMUL_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:65"
+RMS_NORM_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:98"
+SOFTMAX_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:122"
+_MATMUL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_FLOAT_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+_INT_MAX = 2**31 - 1
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _check_device(name: str, *tensors) -> None:
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError(f"{name}: inputs on different devices")
+    if tensors[0].device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _launch(name: str, fn_name: str, argtypes: tuple, *args) -> None:
+    err = _build.function(fn_name, argtypes)(*args)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------
+# matmul
+
+
+def _matmul_check(a, b, block_m: int, block_n: int, block_k: int) -> None:
+    """The reference's contract: A (m, k) @ B (k, n) with each block
+    ``min(block, dim)`` dividing its dim (``pallas_kernels.py:46-52``);
+    both fp32 or both bf16."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(
+            f"matmul wants A (m, k) and B (k, n); got {tuple(a.shape)}, "
+            f"{tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    blocks = (min(block_m, m), min(block_n, n), min(block_k, k))
+    if 0 in blocks or m % blocks[0] or n % blocks[1] or k % blocks[2]:
+        raise ValueError(
+            f"matmul: (m, n, k) = {(m, n, k)} is not divisible by the "
+            f"blocks {blocks} (min(block, dim) each)")
+    if a.dtype != b.dtype or a.dtype not in _MATMUL_DTYPES:
+        raise ValueError(
+            f"matmul wants A and B both fp32 or both bf16; got {a.dtype}, "
+            f"{b.dtype}")
+    if max(m, n, k) > _INT_MAX:
+        raise ValueError("matmul: a dimension does not fit in 32 bits")
+    _check_device("matmul", a, b)
+
+
+def matmul_ref(a, b):
+    """The kernel's arithmetic in plain PyTorch: every product and sum
+    in fp32, fp32 out."""
+    return torch.matmul(a.float(), b.float())
+
+
+def matmul(a, b, block_m: int = 128, block_n: int = 128, block_k: int = 128):
+    """C = A @ B, fp32 out with fp32 accumulation. ``block_*`` keep the
+    reference's tiling contract (shapes they do not divide are refused
+    with ``ValueError``); they are not the CUDA kernel's tile."""
+    _matmul_check(a, b, block_m, block_n, block_k)
+    if a.device.type == "cpu":
+        return matmul_ref(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch("matmul", "kts_matmul", (_P, _P, _P) + (_I,) * 4 + (_P,),
+            a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            _MATMUL_DTYPES[a.dtype], m, n, k,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    matmul.launches += 1
+    return c
+
+
+matmul.launches = 0  # kernel launches (CPU calls not counted)
+
+
+# ---------------------------------------------------------------------
+# rms_norm
+
+
+def _rms_norm_check(x, weight) -> None:
+    if x.ndim != 2 or weight.shape != (x.shape[1],):
+        raise ValueError(
+            f"rms_norm wants x (rows, d) and weight (d,); got "
+            f"{tuple(x.shape)}, {tuple(weight.shape)}")
+    if x.dtype not in _FLOAT_DTYPES or weight.dtype not in _FLOAT_DTYPES:
+        raise ValueError(
+            f"rms_norm wants bf16, fp16 or fp32 tensors; got {x.dtype}, "
+            f"{weight.dtype}")
+    if max(x.shape) > _INT_MAX:
+        raise ValueError("rms_norm: a dimension does not fit in 32 bits")
+    _check_device("rms_norm", x, weight)
+
+
+def rms_norm_ref(x, weight, eps: float = 1e-6):
+    """The kernel's arithmetic in plain PyTorch:
+    ``x * rsqrt(mean(x^2) + eps) * w`` in fp32, cast to x's dtype."""
+    xf = x.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * inv * weight.float()).to(x.dtype)
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """Row-wise RMSNorm of x (rows, d) with weight (d,); fp32 inside,
+    x's dtype out."""
+    _rms_norm_check(x, weight)
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, weight, eps)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _launch("rms_norm", "kts_rms_norm",
+            (_P, _P, _P) + (_I,) * 4 + (ctypes.c_float, _P),
+            x.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            _FLOAT_DTYPES[x.dtype], _FLOAT_DTYPES[weight.dtype], x.shape[0],
+            x.shape[1], eps, torch.cuda.current_stream(x.device).cuda_stream)
+    rms_norm.launches += 1
+    return out
+
+
+rms_norm.launches = 0  # kernel launches (CPU calls not counted)
+
+
+# ---------------------------------------------------------------------
+# softmax
+
+
+def _softmax_check(x) -> None:
+    if x.ndim < 1:
+        raise ValueError("softmax wants at least one axis")
+    if x.dtype not in _FLOAT_DTYPES:
+        raise ValueError(f"softmax wants bf16, fp16 or fp32; got {x.dtype}")
+    if x.shape[-1] > _INT_MAX or x.numel() // max(x.shape[-1], 1) > _INT_MAX:
+        raise ValueError("softmax: rows or row length do not fit in 32 bits")
+    _check_device("softmax", x)
+
+
+def softmax_ref(x):
+    """The kernel's arithmetic in plain PyTorch: over the last axis in
+    fp32, subtract the row max, exp, divide by the sum; x's dtype out."""
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def softmax(x):
+    """Row-stable softmax over the last axis of x (any rank)."""
+    _softmax_check(x)
+    if x.device.type == "cpu":
+        return softmax_ref(x)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    n = x.shape[-1]
+    _launch("softmax", "kts_softmax", (_P, _P) + (_I,) * 3 + (_P,),
+            x.data_ptr(), out.data_ptr(), _FLOAT_DTYPES[x.dtype],
+            x.numel() // n, n, torch.cuda.current_stream(x.device).cuda_stream)
+    softmax.launches += 1
+    return out
+
+
+softmax.launches = 0  # kernel launches (CPU calls not counted)
+
+
+# ---------------------------------------------------------------------
+# the gate
+
+
+def toolchain_smoke(device="cuda") -> dict:
+    """The pallas-pod gate (``pallas_kernels.py:toolchain_smoke``): each
+    kernel runs once at the reference's shapes and is checked at its
+    tolerances -- a 256 x 256 fp32 matmul against numpy at atol 2e-4, a
+    (64, 128) fp32 rms_norm with unit weight against numpy at 1e-5, its
+    softmax against ``torch.softmax`` at 1e-6. Inputs come from
+    ``np.random.RandomState`` seeds 0, 1 and 2 (``jax.random``'s draws
+    cannot be reproduced). On the card the kernels run (``interpret``
+    False); on the CPU the plain versions do."""
+    dev = resolve(device)
+    a = np.random.RandomState(0).standard_normal((256, 256)).astype(np.float32)
+    b = np.random.RandomState(1).standard_normal((256, 256)).astype(np.float32)
+    x = np.random.RandomState(2).standard_normal((64, 128)).astype(np.float32)
+
+    def on_dev(arr):
+        return torch.from_numpy(arr).to(dev)
+
+    c = matmul(on_dev(a), on_dev(b)).cpu().numpy()
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    matmul_ok = bool(np.allclose(c, ref, atol=2e-4))
+
+    xt = on_dev(x)
+    normed = rms_norm(xt, torch.ones(128, device=dev)).cpu().numpy()
+    var = np.mean(np.square(x), axis=-1, keepdims=True)
+    norm_ok = bool(np.allclose(normed, x / np.sqrt(var + 1e-6), atol=1e-5))
+
+    sm = softmax(xt).cpu().numpy()
+    sm_ref = torch.softmax(xt, dim=-1).cpu().numpy()
+    sm_ok = bool(np.allclose(sm, sm_ref, atol=1e-6))
+
+    return {
+        "backend": dev.type,
+        "interpret": dev.type == "cpu",
+        "matmul_ok": matmul_ok,
+        "rms_norm_ok": norm_ok,
+        "softmax_ok": sm_ok,
+        "ok": matmul_ok and norm_ok and sm_ok,
+    }

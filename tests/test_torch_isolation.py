@@ -21,12 +21,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from kind_tpu_sim_torch import cli
+from kind_tpu_sim_torch import data as pdata
 from kind_tpu_sim_torch import device as pdevice
+from kind_tpu_sim_torch.models import checkpoint as pckpt
 from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.ops import _build
 from kind_tpu_sim_torch.ops import flash_attention as fa
+from kind_tpu_sim_torch.ops import toolchain as tc
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -92,7 +96,7 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_without_a_card_raise(no_card):
+def test_entry_points_without_a_card_raise(no_card, tmp_path):
     params = ptf.init_params(CFG, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pserving.PagedServingEngine(
@@ -116,6 +120,17 @@ def test_entry_points_without_a_card_raise(no_card):
     assert init_state(params)["params"]["embed"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ptf.sample_batch(torch.Generator(), CFG, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.toolchain_smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pdata.input_pipeline(CFG, 2, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pckpt.train_with_checkpointing(CFG, tmp_path / "ckpt", total_steps=1,
+                                       checkpoint_every=1)
+    assert not (tmp_path / "ckpt").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train-smoke"])
+    assert tc.toolchain_smoke(device="cpu")["ok"]
     assert pdevice.resolve("cpu").type == "cpu"
 
 
@@ -145,6 +160,13 @@ def test_wrappers_refuse_other_devices():
     q = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    x = torch.zeros(8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tc.matmul(x, x.T.contiguous())
+    with pytest.raises(ValueError, match="unsupported device"):
+        tc.rms_norm(x, x[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tc.softmax(x)
 
 
 def _run_smoke(cwd, home):

@@ -180,8 +180,46 @@ def test_sample_batch_is_a_seeded_ramp():
         2, MODEL.max_seq)
 
 
-@pytest.mark.parametrize("field", ["remat", "n_experts", "int8_kv",
-                                   "int8_native", "seq_parallel"])
+REMAT_CASES = {"model_bf16": dataclasses.replace(MODEL, dtype="bfloat16"),
+               "model": MODEL, "gqa_flash": GQA_FLASH}
+
+
+@pytest.mark.parametrize("name", sorted(REMAT_CASES))
+def test_remat_matches(name):
+    """tests/test_model.py:107 on the port, plus the gradients: each block
+    under torch.utils.checkpoint gives the loss of the plain forward
+    (held at 1e-5, as the reference holds it) and the same gradients
+    (the backward recomputes the block with the same operations on the
+    same inputs), and the JAX remat loss (1e-5 in fp32; 1e-3 relative in
+    bf16, whose activations round at other places in the two)."""
+    cfg = REMAT_CASES[name]
+    cfg_remat = dataclasses.replace(cfg, remat=True)
+    tree, (tokens, *_) = _tree(cfg), _batches(cfg)
+    tokens_t = torch.as_tensor(tokens).long()
+
+    def loss_and_grads(c):
+        params = params_from_numpy(tree, c, device="cpu")
+        leaves = ptf._leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = ptf.loss_fn(params, tokens_t, c)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    counts = fa.flash_attention.launches
+    plain_loss, plain_grads = loss_and_grads(cfg)
+    remat_loss, remat_grads = loss_and_grads(cfg_remat)
+    assert fa.flash_attention.launches == counts
+    np.testing.assert_allclose(remat_loss, plain_loss, rtol=1e-5)
+    for g_remat, g_plain in zip(remat_grads, plain_grads):
+        torch.testing.assert_close(g_remat, g_plain, rtol=1e-5, atol=1e-7)
+    want = float(jtf.loss_fn(jax.tree_util.tree_map(jnp.asarray, tree),
+                             jnp.asarray(tokens), jax_cfg(cfg_remat)))
+    np.testing.assert_allclose(remat_loss, want, rtol=1e-5 if
+                               cfg.dtype == "float32" else 1e-3)
+
+
+@pytest.mark.parametrize("field", ["n_experts", "int8_kv", "int8_native",
+                                   "seq_parallel"])
 def test_unported_training_features_raise(field):
     value = 2 if field == "n_experts" else True
     cfg = dataclasses.replace(MODEL, **{field: value})
