@@ -16,8 +16,9 @@ it fails (nothing is caught and ignored):
 2. kernels -- each CUDA kernel at its path's shapes against its plain
    PyTorch version on the same bf16 inputs (computed in fp32), then
    timed with CUDA events (median of 30 launches after warm-up, L2
-   flushed before each) beside the plain version and, where one
-   PyTorch call computes the same function, that call: the flash
+   flushed before each; the events hold the host's enqueue time where
+   it outlasts the flush) beside the plain version and,
+   where one PyTorch call computes the same function, that call: the flash
    forward at the serving prefill shape, the paged decode kernel, and
    the flash backward's dq and dk/dv kernels at the training shape,
    fed the forward kernel's out and lse as training feeds them (the
@@ -49,6 +50,23 @@ it fails (nothing is caught and ignored):
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
 
+The matmul and the flash forward each have two kernels, a route chosen
+from the inputs: wgmma fed by TMA for bf16 that TMA can read, the
+first CUDA-core kernel otherwise. Phases 2-7 check which route every
+launch took from the wrappers' per-route counts: the bf16 main paths
+(phases 2, 4, 6, the flagship products of 7) on the tensor cores
+only, the fp32 tiny models (3, 5) and the gate's fp32 product on the
+CUDA cores only. Phase 2 also holds the kept CUDA-core flash forward,
+out and lse, to its plain version on inputs routed to it (fp32 at the
+tiny models' shape, bf16 at head_dim 24, a misaligned bf16 view). Each
+redesigned kernel is timed against the kept CUDA-core kernel on the
+same inputs, in turns, in the same run, both through their C entry
+points behind the same Python layer: as every other kernel
+(``ms_tensor_cores``, ``ms_cuda_cores``), as device time alone with
+the card kept busy while the host enqueues (``device_ms*``), and as
+host time per call (``host_us*``). Its row's ``ms`` and ``host_us``
+are the user's wrapper's, as for every other kernel.
+
 Standard output ends with a ``{"kernels": [...]}`` line, the card's
 name and power limit as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}``. TF32 is off for every fp32 product.
@@ -78,6 +96,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 FLASH_TOL = 2e-2        # bf16 output rounding + P rounded to bf16 for PV
 LSE_TOL = 1e-3          # fp32 running max and denominator; sum order only
+FLASH_FP32_TOL = 1e-5   # fp32 in, out and lse: summation order only
 PAGED_RTOL, PAGED_ATOL = 1e-3, 1e-4   # fp32 partials; summation order
 SMALL_MARGIN = 1e-3     # a stream split below this top-2 margin is a tie
 # dq, dk and dv are cast to bf16 once at the end (half an ulp is up to
@@ -120,12 +139,20 @@ def log(msg: str) -> None:
 
 
 _L2_FLUSH = None
+# a spin on the card of ~0.5 ms, far longer than the host takes to
+# enqueue one call through a wrapper
+ENQUEUE_COVER_CYCLES = 1_000_000
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of one ``fn()`` call in ms, CUDA events around
-    each call, with the 50 MB L2 overwritten before every call (the
-    serving path's pools and weights are far larger than L2)."""
+def time_ms(fn, reps: int = 30, warmup: int = 5,
+            cover_enqueue: bool = False) -> float:
+    """Median time of one ``fn()`` call in ms, CUDA events around each
+    call, with the 50 MB L2 overwritten before every call (the serving
+    path's pools and weights are far larger than L2). The events hold
+    the host's enqueue time wherever it outlasts the L2 flush: every
+    ``ms`` of the kernels line is timed so. With ``cover_enqueue`` the
+    card spins before the start event while the host enqueues the call,
+    so the time is the device's alone (the ``device_ms`` keys)."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -135,6 +162,8 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     times = []
     for _ in range(reps):
         _L2_FLUSH.fill_(1)
+        if cover_enqueue:
+            torch.cuda._sleep(ENQUEUE_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -145,11 +174,77 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def host_us(fn, calls: int = 50, rounds: int = 5) -> float:
+    """Host time of one ``fn()`` call in us: the median over ``rounds``
+    of the mean over ``calls`` calls in a row, none waiting for the
+    card."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(means))
+
+
+def time_routes(name: str, wrapper, tensor_cores, cuda_cores) -> dict:
+    """A redesigned kernel against the kernel it replaces, on the same
+    inputs in one call. ``wrapper`` is the user's call (it takes the
+    tensor-core route); ``tensor_cores`` and ``cuda_cores`` launch each
+    route's C entry point through the same Python layer, uncounted, so
+    they differ in the kernel alone. The two routes are timed twice in
+    turns (tensor cores, CUDA cores, CUDA cores, tensor cores) both
+    ways (``time_ms`` as every other row, and device time alone), each
+    the mean of its two medians; the wrapper by ``time_ms``; all three
+    by host time per call. Returns {"ms" (the wrapper's),
+    "ms_tensor_cores", "ms_cuda_cores", "device_ms",
+    "device_ms_cuda_cores", "host_us" (the wrapper's),
+    "host_us_tensor_cores", "host_us_cuda_cores"}."""
+    res = {"ms": time_ms(wrapper)}
+    for cover, key in ((False, "ms"), (True, "device_ms")):
+        n1 = time_ms(tensor_cores, cover_enqueue=cover)
+        o1 = time_ms(cuda_cores, cover_enqueue=cover)
+        o2 = time_ms(cuda_cores, cover_enqueue=cover)
+        n2 = time_ms(tensor_cores, cover_enqueue=cover)
+        log(f"{name} in turns ({key}): tensor cores {n1:.4f}, {n2:.4f} ms; "
+            f"CUDA cores {o1:.4f}, {o2:.4f} ms")
+        new_key = "device_ms" if cover else "ms_tensor_cores"
+        res[new_key], res[f"{key}_cuda_cores"] = (n1 + n2) / 2, (o1 + o2) / 2
+    res["host_us"] = host_us(wrapper)
+    res["host_us_tensor_cores"] = host_us(tensor_cores)
+    res["host_us_cuda_cores"] = host_us(cuda_cores)
+    log(f"{name}: wrapper {res['ms']:.4f} ms; host time per call: wrapper "
+        f"{res['host_us']:.1f} us, tensor-core entry "
+        f"{res['host_us_tensor_cores']:.1f} us, CUDA-core entry "
+        f"{res['host_us_cuda_cores']:.1f} us")
+    return res
+
+
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
     """(least time in ms, "bytes" or "operations") on the card."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def zero_counts(*fns) -> None:
+    """Set each wrapper's launch count (and per-route counts) to 0."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def check_routes(name: str, fn, tensor_cores: int, cuda_cores: int) -> None:
+    """The launches of ``fn`` since its counts were zeroed went the
+    given number of times through each route."""
+    got = dict(fn.launches_by_route)
+    want = {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}
+    log(f"{name}: launches by route {got} (expected {want})")
+    check(got == want, f"{name}: launches by route {got}, expected {want}")
 
 
 # ---------------------------------------------------------------------
@@ -171,15 +266,38 @@ def flash_phase(fa) -> dict:
     256-token prompt (the 192/224/256 prompts' bucket), 16 q heads over
     4 kv heads, head_dim 128, bf16, causal, q/k/v read as views of the
     fused qkv projection (the model's layout). Plus a ragged causal
-    case (t = s = 200) and a non-causal one."""
+    case (t = s = 200), a non-causal one, a non-causal one whose t and
+    s the q and kv tiles do not divide (b = 2, t = s = 1000), one on
+    contiguous q, k, v, one on head-major tensors seen as (b, t, h, d),
+    and one at head_dim 64; every case on the tensor-core route (the
+    b = 1, t <= 256 cases and the head-major one with one consumer
+    warpgroup a block, the others with two). Then the CUDA-core kernel
+    on what the wrapper routes to it (``flash_cuda_cores_cases``). The
+    serving shape is timed on both routes in turns."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     h, kv, d = 16, 4, 128
+    contiguous = tuple(x.contiguous()
+                       for x in _fused_qkv(gen, 1, 256, h, kv, d))
+    # head-major tensors seen as (b, t, heads, d): the head stride is
+    # larger than the sequence stride
+    head_major = tuple(
+        torch.randn((2, n, 300, d), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+        for n in (h, kv, kv))
     cases = [("main 256 causal", _fused_qkv(gen, 1, 256, h, kv, d), True),
              ("ragged 200 causal", _fused_qkv(gen, 1, 200, h, kv, d), True),
-             ("full 256", _fused_qkv(gen, 1, 256, h, kv, d), False)]
+             ("full 256", _fused_qkv(gen, 1, 256, h, kv, d), False),
+             ("ragged full (2,1000)", _fused_qkv(gen, 2, 1000, h, kv, d),
+              False),
+             ("contiguous 256 causal", contiguous, True),
+             ("head-major (2,300) causal", head_major, True),
+             ("head_dim 64 (8,512) causal", _fused_qkv(gen, 8, 512, 8, 2, 64),
+              True)]
     worst = 0.0
     for name, (q, k, v), causal in cases:
+        zero_counts(fa.flash_attention)
         out = fa.flash_attention(q, k, v, causal=causal)
+        check_routes(f"flash_attention {name}", fa.flash_attention, 1, 0)
         ref = fa.flash_attention_ref(q.float(), k.float(), v.float(),
                                      causal=causal)
         torch.cuda.synchronize()
@@ -203,8 +321,16 @@ def flash_phase(fa) -> dict:
     check(lse.shape == lse_ref.shape and lse_err <= LSE_TOL,
           f"flash_attention lse: max_abs_err {lse_err} > {LSE_TOL}")
 
+    worst = max(worst, flash_cuda_cores_cases(fa, gen))
+
     b, t, _, _ = q.shape
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    # the serving path's call (no lse), and each route's entry point
+    turns = time_routes(
+        "flash_attention (1,256,16,128) causal",
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: fa._forward_launch(q, k, v, True, False, fa.TENSOR_CORES),
+        lambda: fa._forward_launch(q, k, v, True, False, fa.CUDA_CORES))
+    ms = turns["ms"]
     plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -215,14 +341,67 @@ def flash_phase(fa) -> dict:
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     pairs = b * h * t * (t + 1) // 2
     bound_ms, bound_by = bound(nbytes, 4 * pairs * d, torch.bfloat16)
-    log(f"flash_attention timing (1,256,16,128) causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by})")
+    log(f"flash_attention timing (1,256,16,128) causal: kernel {ms:.4f} ms "
+        f"(entry points: tensor cores {turns['ms_tensor_cores']:.4f}, CUDA "
+        f"cores {turns['ms_cuda_cores']:.4f} ms; device time "
+        f"alone {turns['device_ms']:.4f} against "
+        f"{turns['device_ms_cuda_cores']:.4f} ms), plain {plain_ms:.4f} "
+        f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
     return {"name": "flash_attention", "route": "cuda",
             "source": fa.SOURCE, "replaces": fa.REPLACES,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            **{key: x for key, x in turns.items() if key != "ms"}}
+
+
+def flash_cuda_cores_cases(fa, gen) -> float:
+    """The kept CUDA-core forward kernel, through its own entry point
+    (uncounted), against the plain version on the inputs the wrapper
+    routes to it: fp32 at the tiny flash models' shape (phases 3 and 5:
+    4 q heads over 2 kv heads, head_dim 32), bf16 at head_dim 24 (not a
+    multiple of 16) and bf16 views whose base lies one element off a
+    16-byte boundary. out and lse each; returns the worst out error."""
+    h, kv, d = 16, 4, 128
+    n = 1 * 256 * (h + 2 * kv) * d
+    off = torch.randn((n + 1,), generator=gen,
+                      device="cuda").bfloat16()[1:].view(1, 256, -1)
+    misaligned = (off[..., :h * d].reshape(1, 256, h, d),
+                  off[..., h * d:(h + kv) * d].reshape(1, 256, kv, d),
+                  off[..., (h + kv) * d:].reshape(1, 256, kv, d))
+    fp32 = tuple(x.float() for x in _fused_qkv(gen, 4, 64, 4, 2, 32))
+    cases = [("fp32 tiny (4,64,4->2,32) causal", fp32, True, FLASH_FP32_TOL,
+              FLASH_FP32_TOL),
+             ("bf16 head_dim 24 (2,200) causal",
+              _fused_qkv(gen, 2, 200, h, kv, 24), True, FLASH_TOL, LSE_TOL),
+             ("bf16 misaligned 256 full", misaligned, False, FLASH_TOL,
+              LSE_TOL)]
+    worst = 0.0
+    for name, (q, k, v), causal, tol, lse_tol in cases:
+        check(fa.forward_route(q, k, v) == fa.CUDA_CORES,
+              f"flash_attention CUDA cores {name}: routed to "
+              f"{fa.forward_route(q, k, v)}")
+        out, lse = fa._forward_launch(q, k, v, causal, True, fa.CUDA_CORES)
+        ref, lse_ref = fa.flash_attention_ref(q.float(), k.float(),
+                                              v.float(), causal=causal,
+                                              return_lse=True)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape
+              and lse.shape == lse_ref.shape,
+              f"flash_attention CUDA cores {name}: out {out.dtype} "
+              f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
+        err = float((out.float() - ref).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        log(f"flash_attention CUDA cores {name}: max_abs_err {err:.3e} "
+            f"(tolerance {tol}), lse {lse_err:.3e} (tolerance {lse_tol})")
+        check(math.isfinite(err) and err <= tol,
+              f"flash_attention CUDA cores {name}: max_abs_err {err}")
+        check(math.isfinite(lse_err) and lse_err <= lse_tol,
+              f"flash_attention CUDA cores {name}: lse max_abs_err "
+              f"{lse_err}")
+        worst = max(worst, err)
+    return worst
 
 
 def paged_phase(pa) -> dict:
@@ -347,8 +526,10 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     for name, (bb, tt), causal in cases:
         q, k, v = _fused_qkv(gen, bb, tt, h, kv, d)
         g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        zero_counts(fa.flash_attention)
         out, lse = fa.flash_attention(q, k, v, causal=causal,
                                       return_lse=True)
+        check_routes(f"flash_attention {name}", fa.flash_attention, 1, 0)
         dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, g, causal)
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -398,9 +579,15 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     dkv_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(*args))
     whole_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(*args))
     whole_library_ms = _library_bwd_ms(q, k, v, g)
-    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    fwd_plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
-                                                          causal=True))
+    # the forward as training calls it (with lse), and each route's
+    # entry point
+    fwd = time_routes(
+        "flash_attention (8,1024,16,128) causal with lse",
+        lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
+        lambda: fa._forward_launch(q, k, v, True, True, fa.TENSOR_CORES),
+        lambda: fa._forward_launch(q, k, v, True, True, fa.CUDA_CORES))
+    fwd_plain_ms = time_ms(lambda: fa.flash_attention_ref(
+        q, k, v, causal=True, return_lse=True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -413,7 +600,7 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     pairs = b * h * t * (t + 1) // 2
     qn, kn = q.numel(), k.numel()
     rows = b * h * t
-    fwd_bound = bound(2 * (qn + 2 * kn + qn), 2 * 2 * pairs * d,
+    fwd_bound = bound(2 * (qn + 2 * kn + qn) + 4 * rows, 2 * 2 * pairs * d,
                       torch.bfloat16)
     dq_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * qn,
                      3 * 2 * pairs * d, torch.bfloat16)
@@ -426,9 +613,15 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
         f"ms, bound {dkv_bound[0]:.5f} ms, {dkv_bound[1]}); whole backward: "
         f"plain {whole_plain_ms:.4f} ms, aten {lib} ms")
     log(f"flash_attention forward timing at the training shape "
-        f"(8,1024,16,128) causal: kernel {fwd_ms:.4f} ms, plain "
+        f"(8,1024,16,128) causal with lse: kernel {fwd['ms']:.4f} ms "
+        f"(CUDA-core kernel {fwd['ms_cuda_cores']:.4f} ms), plain "
         f"{fwd_plain_ms:.4f} ms, sdpa {fwd_library_ms:.4f} ms, bound "
         f"{fwd_bound[0]:.5f} ms ({fwd_bound[1]})")
+    fwd_row.update({**{f"train_{key}": x for key, x in fwd.items()},
+                    "train_plain_ms": fwd_plain_ms,
+                    "train_bound_ms": fwd_bound[0],
+                    "train_bound_by": fwd_bound[1],
+                    "train_library_ms": fwd_library_ms})
     # no PyTorch call computes dq or dk/dv alone, so library_ms is null
     # on both rows; aten's whole backward and the whole plain backward
     # stand beside them under names that say so
@@ -449,7 +642,9 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 # phase 3: a tiny model on the card against the CPU plain path
 
 
-def small_phase(tf, serving) -> None:
+def small_phase(tf, serving, fa) -> None:
+    """A tiny fp32 flash model served on the card (the flash forward on
+    its CUDA-core route: fp32 stays exact) against the CPU plain path."""
     cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=128,
                          dtype="float32", flash=True)
@@ -476,7 +671,11 @@ def small_phase(tf, serving) -> None:
               f"small phase ({device}): blocks left in use")
         return done, eng.preemptions
 
+    zero_counts(fa.flash_attention)
     card, card_pre = run(params, "cuda")
+    n = fa.flash_attention.launches
+    check_routes("small model flash_attention", fa.flash_attention, 0, n)
+    check(n > 0, "small phase: the flash forward was never launched")
     plain, plain_pre = run(cpu_params, "cpu")
     ties = 0
     for rid in sorted(plain):
@@ -531,11 +730,11 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     serve(serving, sp, cfg, kernel_sc,
           [dataclasses.replace(reqs[0], request_id="warm", max_new=65)])
 
-    fa.flash_attention.launches = 0
-    pa.paged_attention.launches = 0
+    zero_counts(fa.flash_attention, pa.paged_attention)
     eng, done, wall = serve(serving, sp, cfg, kernel_sc, reqs)
     launches = {"flash_attention": fa.flash_attention.launches,
                 "paged_attention": pa.paged_attention.launches}
+    flash_routes = dict(fa.flash_attention.launches_by_route)
 
     check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed")
     for r in reqs:
@@ -559,6 +758,7 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
           "flash_attention launch count")
     check(launches["paged_attention"] == want_paged > 0,
           "paged_attention launch count")
+    check_routes("serving flash_attention", fa.flash_attention, want_flash, 0)
 
     gen_tokens = sum(len(c.tokens) for c in done.values())
     ttft = float(np.mean([c.ttft_s for c in done.values()]))
@@ -587,7 +787,7 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     log(f"serving gather tier: {gen_tokens} tokens in {gwall:.3f} s = "
         f"{gen_tokens / gwall:.1f} generated tok/s; streams equal to the "
         f"kernel tier: {agree} of {len(reqs)}; first divergence: {first}")
-    return launches
+    return launches, flash_routes
 
 
 # ---------------------------------------------------------------------
@@ -629,6 +829,7 @@ def small_train_phase(tf, fa) -> None:
                 fa.flash_attention_bwd_dkv.launches)
 
     n = cfg.n_layers * len(batches)
+    zero_counts(fa.flash_attention)
     before = counts()
     card_losses, card_params = train("cuda")
     got = tuple(x - y for x, y in zip(counts(), before))
@@ -641,6 +842,8 @@ def small_train_phase(tf, fa) -> None:
     check(got == (2 * n, n, n),
           f"small train remat: launches (forward, dq, dk/dv) {got}, "
           f"expected {(2 * n, n, n)}")
+    # fp32: every forward launch on the CUDA-core route
+    check_routes("small train flash_attention", fa.flash_attention, 0, 3 * n)
     remat_loss_err = max(abs(a - b) / max(1.0, abs(b))
                          for a, b in zip(remat_losses, card_losses))
     remat_param_err = max(float((a - b).abs().max())
@@ -686,9 +889,8 @@ def train_phase(trainer, fa) -> tuple:
         f"{time.perf_counter() - t0:.2f} s")
     state, warm, _ = trainer.timed_steps(step, state, batches[:1])
 
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
     state, walls, losses = trainer.timed_steps(step, state, batches[1:])
     launches = {"flash_attention": fa.flash_attention.launches,
@@ -704,6 +906,9 @@ def train_phase(trainer, fa) -> tuple:
         "each)")
     check(all(n == want for n in launches.values()),
           "flagship training launch counts")
+    routes = dict(fa.flash_attention.launches_by_route)
+    check_routes("flagship training flash_attention", fa.flash_attention,
+                 want, 0)
     median = float(np.median(walls))
     tokens = trainer.BATCH * (trainer.SEQ - 1)
     log(f"flagship training: warm-up step {warm[0]:.1f} ms; {steps} steps "
@@ -711,7 +916,7 @@ def train_phase(trainer, fa) -> tuple:
         f"wall ms {[round(w, 1) for w in walls]} (median {median:.1f}) = "
         f"{tokens / (median / 1e3):.1f} train tok/s; losses {losses}; peak "
         f"device memory {peak:.2f} GiB")
-    return launches, {"step_ms": median, "peak_gib": peak}
+    return launches, {"step_ms": median, "peak_gib": peak, "routes": routes}
 
 
 # ---------------------------------------------------------------------
@@ -728,9 +933,8 @@ def train_remat_phase(trainer, fa, plain: dict) -> None:
     step, state = trainer.flagship_state(cfg)
     batches = trainer.flagship_batches(cfg, 2)
     state, warm, _ = trainer.timed_steps(step, state, batches[:1])
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
     state, walls, losses = trainer.timed_steps(step, state, batches[1:])
     launches = {"flash_attention": fa.flash_attention.launches,
@@ -743,6 +947,8 @@ def train_remat_phase(trainer, fa, plain: dict) -> None:
             "flash_attention_bwd_dkv": cfg.n_layers}
     log(f"flagship remat step launches: {launches} (expected {want})")
     check(launches == want, "flagship remat launch counts")
+    check_routes("flagship remat flash_attention", fa.flash_attention,
+                 2 * cfg.n_layers, 0)
     check(all(math.isfinite(x) for x in losses),
           f"flagship remat: non-finite loss in {losses}")
     log(f"flagship remat: warm-up step {warm[0]:.1f} ms, step {walls[0]:.1f} "
@@ -768,29 +974,36 @@ def _bf16_ulps(got, want) -> float:
 def toolchain_phase(tc) -> list:
     """``toolchain_smoke`` on the card with the three launch counters
     zeroed just before and read just after (each kernel exactly once:
-    its rows' ``launches``). Then each kernel at flagship width on the
-    same inputs as its plain version: matmul of the flagship's w_up
-    product over one 8 x 1024 training batch (bf16 (8192, 2048) @
-    (2048, 8192), fp32 out) plus an fp32 case; rms_norm of the norm
-    input over that batch (bf16 (8192, 2048), fp32 weight); softmax of
-    its readout logits (fp32 (8192, 32768)). Each is timed beside its
-    plain version and one PyTorch call."""
-    for fn in (tc.matmul, tc.rms_norm, tc.softmax):
-        fn.launches = 0
+    its rows' ``launches``; the fp32 matmul on the CUDA-core route).
+    Then each kernel at flagship width on the same inputs as its plain
+    version: matmul of the flagship's w_up product over one 8 x 1024
+    training batch (bf16 (8192, 2048) @ (2048, 8192), fp32 out) and a
+    bf16 (384, 640) @ (640, 896) the tensor-core tile does not divide,
+    both on the tensor-core route, plus an fp32 case on the CUDA cores;
+    rms_norm of the norm input over that batch (bf16 (8192, 2048), fp32
+    weight); softmax of its readout logits (fp32 (8192, 32768)). Each is
+    timed beside its plain version and one PyTorch call, the matmul's
+    two routes in turns."""
+    zero_counts(tc.matmul, tc.rms_norm, tc.softmax)
     rep = tc.toolchain_smoke("cuda")
     launches = {"matmul": tc.matmul.launches,
                 "rms_norm": tc.rms_norm.launches,
                 "softmax": tc.softmax.launches}
+    gate_routes = dict(tc.matmul.launches_by_route)
     log(f"toolchain_smoke: {rep}; launches {launches}")
     check(rep["ok"] and rep["interpret"] is False and rep["backend"] == "cuda",
           f"toolchain_smoke on the card: {rep}")
     check(all(n == 1 for n in launches.values()),
           f"toolchain_smoke launch counts {launches} (each kernel once)")
+    # the gate's 256 x 256 fp32 product stays exact on the CUDA cores
+    check_routes("toolchain_smoke matmul", tc.matmul, 0, 1)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
 
-    # matmul: the fp32 case, then the flagship bf16 product
+    # matmul: the fp32 case (CUDA cores), then the flagship bf16 product
+    # and a bf16 shape the 128 x 256 tile does not divide (tensor cores)
+    zero_counts(tc.matmul)
     a = torch.randn((1024, 2048), generator=gen, device="cuda")
     b = torch.randn((2048, 1024), generator=gen, device="cuda")
     want = tc.matmul_ref(a, b)
@@ -800,36 +1013,60 @@ def toolchain_phase(tc) -> list:
         f"relative to max |ref| {fp32_rel:.3e} (tolerance {MATMUL_REL_TOL})")
     check(math.isfinite(fp32_rel) and fp32_rel <= MATMUL_REL_TOL,
           f"matmul fp32: relative error {fp32_rel}")
-    m, k, n = 8192, 2048, 8192
-    a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-    b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
-    got, want = tc.matmul(a, b), tc.matmul_ref(a, b)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.float32 and got.shape == (m, n),
-          f"matmul: output {got.dtype} {tuple(got.shape)}")
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    log(f"matmul bf16 ({m},{k})@({k},{n}): max_abs_err {err:.3e}, relative "
-        f"to max |ref| {rel:.3e} (tolerance {MATMUL_REL_TOL})")
-    check(math.isfinite(rel) and rel <= MATMUL_REL_TOL,
-          f"matmul bf16: relative error {rel}")
-    del got, want
-    ms = time_ms(lambda: tc.matmul(a, b))
+    err = 0.0
+    for (m, k, n) in ((384, 640, 896), (8192, 2048, 8192)):
+        a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        got, want = tc.matmul(a, b), tc.matmul_ref(a, b)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == (m, n),
+              f"matmul: output {got.dtype} {tuple(got.shape)}")
+        case_err = float((got - want).abs().max())
+        rel = case_err / float(want.abs().max())
+        log(f"matmul bf16 ({m},{k})@({k},{n}): max_abs_err {case_err:.3e}, "
+            f"relative to max |ref| {rel:.3e} (tolerance {MATMUL_REL_TOL})")
+        check(math.isfinite(rel) and rel <= MATMUL_REL_TOL,
+              f"matmul bf16 ({m},{k})@({k},{n}): relative error {rel}")
+        err = max(err, case_err)
+        del got, want
+    check_routes("matmul at flagship width", tc.matmul, 2, 1)
+    flagship_routes = dict(tc.matmul.launches_by_route)
+    turns = time_routes(
+        f"matmul bf16 ({m},{k})@({k},{n})", lambda: tc.matmul(a, b),
+        lambda: tc._matmul_launch(a, b, tc.TENSOR_CORES),
+        lambda: tc._matmul_launch(a, b, tc.CUDA_CORES))
+    ms = turns["ms"]
     plain_ms = time_ms(lambda: tc.matmul_ref(a, b))
-    library_ms = time_ms(lambda: torch.matmul(a, b))
+    library_bf16_out_ms = time_ms(lambda: torch.matmul(a, b))
+    # the same function as the kernel (bf16 in, fp32 out) in one call
+    library_ms = time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
     # A and B read once, C written once; 2 flops per multiply-add
     bound_ms, bound_by = bound(2 * (m * k + k * n) + 4 * m * n,
                                2 * m * k * n, torch.bfloat16)
     log(f"matmul timing: kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} "
-        f"TFLOP/s), plain (fp32 cuBLAS) {plain_ms:.4f} ms, torch.matmul "
-        f"bf16 {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"TFLOP/s; entry points: tensor cores "
+        f"{turns['ms_tensor_cores']:.4f}, CUDA cores "
+        f"{turns['ms_cuda_cores']:.4f} ms), "
+        f"plain (fp32 cuBLAS) {plain_ms:.4f} ms, torch.mm fp32 out "
+        f"{library_ms:.4f} ms, torch.matmul bf16 out "
+        f"{library_bf16_out_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    # the times are the tensor-core kernel's; the main path (the gate)
+    # launches the CUDA-core one: no entry point of the port multiplies
+    # bf16 through matmul yet
     rows.append({"name": "matmul", "route": "cuda",
                  "source": tc.MATMUL_SOURCE, "replaces": tc.MATMUL_REPLACES,
                  "max_abs_err": max(err, fp32_err), "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": library_ms,
-                 "library_call": "torch.matmul on the bf16 inputs (cuBLAS, "
-                                 "bf16 out)"})
+                 "library_call": "torch.mm(a, b, out_dtype=torch.float32) "
+                                 "on the bf16 inputs",
+                 **{key: x for key, x in turns.items() if key != "ms"},
+                 "library_bf16_out_ms": library_bf16_out_ms,
+                 "timed_route": "tensor_cores",
+                 "launches_timed_route": gate_routes["tensor_cores"],
+                 "launches_by_route": gate_routes,
+                 "check_launches_by_route": flagship_routes})
     del a, b
 
     # rms_norm
@@ -957,8 +1194,8 @@ def main() -> int:
 
     flash_row = flash_phase(fa)
     kernels = [flash_row, paged_phase(pa), *flash_bwd_phase(fa, flash_row)]
-    small_phase(tf, serving)
-    launches = serve_phase(flagship, serving, fa, pa)
+    small_phase(tf, serving, fa)
+    launches, serve_routes = serve_phase(flagship, serving, fa, pa)
     small_train_phase(tf, fa)
     train_launches, train_plain = train_phase(trainer, fa)
     train_remat_phase(trainer, fa, train_plain)
@@ -969,6 +1206,8 @@ def main() -> int:
     # the toolchain kernels' from toolchain_smoke
     launches.update({name: n for name, n in train_launches.items()
                      if name not in launches})
+    flash_row.update({"launches_by_route": serve_routes,
+                      "train_launches_by_route": train_plain["routes"]})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels += toolchain_rows

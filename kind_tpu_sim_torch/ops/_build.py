@@ -8,6 +8,11 @@ the stream cross as ``c_void_p``. It is built at first use and rebuilt
 whenever a source (or the flags) change: the file name carries a hash
 of both. A missing ``nvcc`` or a failed build raises with the
 compiler's output — there is no fallback.
+
+Two kernels come in two routes each (``matmul``, the flash forward):
+``TENSOR_CORES`` (wgmma fed by TMA) and ``CUDA_CORES`` (the first
+versions, kept for fp32 and for what TMA cannot describe). The wrappers
+choose one from the inputs alone, before the launch.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # per-kernel registers, shared memory and spills, kept in the build log
 PTXAS_VERBOSE = ("-Xptxas", "-v")
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+ROUTES = (TENSOR_CORES, CUDA_CORES)
 
 
 def sources() -> list:
@@ -110,3 +118,13 @@ def function(name: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a failure: a CUDA error code
+    (> 0), or a tensor map the driver refused to encode (-CUresult)."""
+    if err > 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult {-err})")

@@ -9,9 +9,12 @@ Three kernels, each replacing a Pallas TPU kernel of
 
 Every wrapper dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version
-written step by step in PyTorch. ``FlashAttentionFunction`` joins the
-forward and the backward for autograd; ``flash_attention`` goes through
-it.
+written step by step in PyTorch. The forward has two kernels, chosen by
+``forward_route`` before the launch: bf16 on the tensor cores (wgmma
+fed by TMA) where TMA can read q, k and v, else the CUDA-core kernel;
+``flash_attention.launches_by_route`` counts its launches per route.
+``FlashAttentionFunction`` joins the forward and the backward for
+autograd; ``flash_attention`` goes through it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import ctypes
 import torch
 
 from kind_tpu_sim_torch.ops import _build
+from kind_tpu_sim_torch.ops._build import CUDA_CORES, ROUTES, TENSOR_CORES
 
 SOURCE = "kind_tpu_sim_torch/csrc/flash_attention.cu"
 # the pallas_call of _flash_impl, the TPU kernel this one replaces
@@ -35,6 +39,8 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 12
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# the tensor-core entry point takes no dtype: bf16 only
+_TC_ARGTYPES = _ARGTYPES[:5] + _ARGTYPES[6:]
 
 
 def _bwd_argtypes(n_out: int) -> tuple:
@@ -128,27 +134,58 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     return out
 
 
-def _forward(q, k, v, causal: bool, return_lse: bool):
-    """The forward kernel's wrapper (no autograd)."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, return_lse)
+def forward_route(q, k, v) -> str:
+    """The kernel a CUDA call of the forward launches, from the inputs
+    alone: ``TENSOR_CORES`` for bf16 with the head dim a multiple of 16
+    up to 128 and, for each of q, k and v, a base address on a 16-byte
+    boundary and batch, sequence and head strides that are positive
+    multiples of 16 bytes, which TMA needs (the stride of an axis of
+    length 1 is never followed); ``CUDA_CORES`` for everything else,
+    fp32 included. Inputs already passed ``_check``."""
+    d = q.shape[3]
+    if q.dtype != torch.bfloat16 or d % 16 or d > 128:
+        return CUDA_CORES
+    for x in (q, k, v):
+        if x.data_ptr() % 16 or any(
+                size > 1 and (stride <= 0 or (2 * stride) % 16)
+                for size, stride in zip(x.shape[:3], x.stride()[:3])):
+            return CUDA_CORES
+    return TENSOR_CORES
+
+
+def _forward_launch(q, k, v, causal: bool, return_lse: bool, route: str):
+    """One launch of ``route``'s forward kernel on checked CUDA inputs;
+    counts nothing (``_forward`` counts its own launches). Returns
+    (out, lse or None)."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = _build.function("kts_flash_attention_fwd", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(),
-             _DTYPE_CODES[q.dtype], b, t, s, h, kv, d,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], d ** -0.5, int(causal),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    rest = (b, t, s, h, kv, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], d ** -0.5, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == TENSOR_CORES:
+        fn = _build.function("kts_flash_attention_fwd_tc", _TC_ARGTYPES)
+        err = fn(*args, *rest)
+    else:
+        fn = _build.function("kts_flash_attention_fwd", _ARGTYPES)
+        err = fn(*args, _DTYPE_CODES[q.dtype], *rest)
+    _build.check("flash_attention", err)
+    return out, lse
+
+
+def _forward(q, k, v, causal: bool, return_lse: bool):
+    """The forward kernel's wrapper (no autograd)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, return_lse)
+    route = forward_route(q, k, v)
+    out, lse = _forward_launch(q, k, v, causal, return_lse, route)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return (out, lse) if return_lse else out
 
 
@@ -246,8 +283,7 @@ def _bwd_launch(name, q, k, v, g, lse, dsum, outs, causal) -> None:
              *(st for x in (q, k, v, g, *outs) for st in x.stride()[:3]),
              d ** -0.5, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.check(name, err)
 
 
 def _launch_dq(q, k, v, g, lse, dsum, causal):
@@ -340,5 +376,6 @@ def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
 
 
 flash_attention.launches = 0  # kernel launches (CPU calls not counted)
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

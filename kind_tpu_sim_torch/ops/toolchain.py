@@ -9,7 +9,10 @@ C++ (``csrc/matmul.cu``, ``csrc/rms_norm.cu``, ``csrc/softmax.cu``).
 Every wrapper dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version
 (``matmul_ref``, ``rms_norm_ref``, ``softmax_ref``). Each wrapper counts
-its launches in ``.launches``.
+its launches in ``.launches``. ``matmul`` has two kernels, chosen by
+``matmul_route`` before the launch: bf16 on the tensor cores (wgmma fed
+by TMA) where TMA can read the operands, else the CUDA-core kernel; it
+also counts its launches per route in ``.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from kind_tpu_sim_torch.device import resolve
 from kind_tpu_sim_torch.ops import _build
+from kind_tpu_sim_torch.ops._build import CUDA_CORES, ROUTES, TENSOR_CORES
 
 MATMUL_SOURCE = "kind_tpu_sim_torch/csrc/matmul.cu"
 RMS_NORM_SOURCE = "kind_tpu_sim_torch/csrc/rms_norm.cu"
@@ -45,9 +49,7 @@ def _check_device(name: str, *tensors) -> None:
 
 
 def _launch(name: str, fn_name: str, argtypes: tuple, *args) -> None:
-    err = _build.function(fn_name, argtypes)(*args)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.check(name, _build.function(fn_name, argtypes)(*args))
 
 
 # ---------------------------------------------------------------------
@@ -83,24 +85,54 @@ def matmul_ref(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def matmul_route(a, b) -> str:
+    """The kernel a CUDA call of ``matmul`` launches, from the inputs
+    alone: ``TENSOR_CORES`` for bf16 A (m, k) and B (k, n) whose row
+    strides (k and n elements) and base addresses are multiples of 16
+    bytes, which TMA needs; ``CUDA_CORES`` for everything else. fp32
+    stays on the CUDA cores: TF32 keeps about three digits, and the
+    gate holds the fp32 product to 2e-4. Both operands are contiguous
+    (``_matmul_check``)."""
+    k, n = a.shape[1], b.shape[1]
+    if (a.dtype == torch.bfloat16 and (2 * k) % 16 == 0
+            and (2 * n) % 16 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def _matmul_launch(a, b, route: str):
+    """One launch of ``route``'s kernel on checked CUDA inputs; counts
+    nothing (``matmul`` counts its own launches)."""
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if route == TENSOR_CORES:
+        _launch("matmul", "kts_matmul_tc", (_P, _P, _P) + (_I,) * 3 + (_P,),
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+    else:
+        _launch("matmul", "kts_matmul", (_P, _P, _P) + (_I,) * 4 + (_P,),
+                a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                _MATMUL_DTYPES[a.dtype], m, n, k, stream)
+    return c
+
+
 def matmul(a, b, block_m: int = 128, block_n: int = 128, block_k: int = 128):
     """C = A @ B, fp32 out with fp32 accumulation. ``block_*`` keep the
     reference's tiling contract (shapes they do not divide are refused
-    with ``ValueError``); they are not the CUDA kernel's tile."""
+    with ``ValueError``); they are not the CUDA kernels' tiles."""
     _matmul_check(a, b, block_m, block_n, block_k)
     if a.device.type == "cpu":
         return matmul_ref(a, b)
-    (m, k), n = a.shape, b.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch("matmul", "kts_matmul", (_P, _P, _P) + (_I,) * 4 + (_P,),
-            a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            _MATMUL_DTYPES[a.dtype], m, n, k,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    route = matmul_route(a, b)
+    c = _matmul_launch(a, b, route)
     matmul.launches += 1
+    matmul.launches_by_route[route] += 1
     return c
 
 
 matmul.launches = 0  # kernel launches (CPU calls not counted)
+matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------

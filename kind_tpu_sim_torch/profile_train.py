@@ -43,7 +43,8 @@ BATCH, SEQ = 8, 1025
 STEPS = 5  # timed steps after the warm-up
 LEARNING_RATE = 1e-2
 # kernel name fragments -> group, first match wins
-GROUPS = (("flash_fwd_kernel", "flash forward"),
+GROUPS = (("flash_fwd_tc_kernel", "flash forward"),
+          ("flash_fwd_kernel", "flash forward"),
           ("flash_bwd_dq_kernel", "flash dq"),
           ("flash_bwd_dkv_kernel", "flash dk/dv"),
           ("adam", "optimizer (AdamW)"),
