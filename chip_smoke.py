@@ -50,15 +50,17 @@ it fails (nothing is caught and ignored):
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
 
-The matmul and the flash forward each have two kernels, a route chosen
-from the inputs: wgmma fed by TMA for bf16 that TMA can read, the
-first CUDA-core kernel otherwise. Phases 2-7 check which route every
-launch took from the wrappers' per-route counts: the bf16 main paths
-(phases 2, 4, 6, the flagship products of 7) on the tensor cores
-only, the fp32 tiny models (3, 5) and the gate's fp32 product on the
-CUDA cores only. Phase 2 also holds the kept CUDA-core flash forward,
-out and lse, to its plain version on inputs routed to it (fp32 at the
-tiny models' shape, bf16 at head_dim 24, a misaligned bf16 view). Each
+The matmul, the flash forward and the flash backward's dq and dk/dv
+kernels each have two kernels, a route chosen from the inputs: wgmma
+fed by TMA for bf16 that TMA can read, the first CUDA-core kernel
+otherwise. Phases 2-7 check which route every launch took from the
+wrappers' per-route counts: the bf16 main paths (phases 2, 4, 6, the
+flagship products of 7) on the tensor cores only, the fp32 tiny models
+(3, 5) and the gate's fp32 product on the CUDA cores only. Phase 2 also
+holds the kept CUDA-core flash forward (out and lse) and backward (dq,
+dk, dv) to their plain versions on inputs routed to them (fp32 at the
+tiny models' shape, bf16 at head_dim 24, a misaligned bf16 view), and
+checks that two backward calls give bitwise-equal gradients. Each
 redesigned kernel is timed against the kept CUDA-core kernel on the
 same inputs, in turns, in the same run, both through their C entry
 points behind the same Python layer: as every other kernel
@@ -99,10 +101,16 @@ LSE_TOL = 1e-3          # fp32 running max and denominator; sum order only
 FLASH_FP32_TOL = 1e-5   # fp32 in, out and lse: summation order only
 PAGED_RTOL, PAGED_ATOL = 1e-3, 1e-4   # fp32 partials; summation order
 SMALL_MARGIN = 1e-3     # a stream split below this top-2 margin is a tie
-# dq, dk and dv are cast to bf16 once at the end (half an ulp is up to
-# 2^-8 of the value), the fp32 sums differ only in order: the error is
-# judged against the reference's largest magnitude
+# dq, dk and dv on the tensor cores: the products take P and dS rounded
+# to bf16 (about 2^-9 of each value; the reference keeps both fp32, as
+# FlashAttention-2 and -3 do not), the outputs are cast to bf16 once
+# (half an ulp is up to 2^-8 of the value), and the fp32 sums run in
+# another order: the error is judged against the reference's largest
+# magnitude. The kept CUDA-core kernels round only the outputs.
 BWD_REL_TOL = 1e-2
+# the kept CUDA-core backward in fp32: fp32 throughout, only the
+# summation order and expf's last bits differ from the plain version
+BWD_FP32_REL_TOL = 1e-5
 # fp32 training on the card against the CPU: every product in fp32 (TF32
 # off), only the summation order differs; AdamW's normalised update
 # turns relative gradient noise into absolute parameter steps of up to
@@ -251,14 +259,28 @@ def check_routes(name: str, fn, tensor_cores: int, cuda_cores: int) -> None:
 # phase 2: the kernels against their plain versions
 
 
+def _split_qkv(qkv, h, kv, d):
+    b, t = qkv.shape[:2]
+    return (qkv[..., :h * d].reshape(b, t, h, d),
+            qkv[..., h * d:(h + kv) * d].reshape(b, t, kv, d),
+            qkv[..., (h + kv) * d:].reshape(b, t, kv, d))
+
+
 def _fused_qkv(gen, b, t, h, kv, d):
     """q, k, v as views of one fused (b, t, (h + 2 kv) d) bf16 tensor,
     the model's layout after the qkv projection."""
     qkv = torch.randn((b, t, (h + 2 * kv) * d), generator=gen,
                       device="cuda").bfloat16()
-    return (qkv[..., :h * d].reshape(b, t, h, d),
-            qkv[..., h * d:(h + kv) * d].reshape(b, t, kv, d),
-            qkv[..., (h + kv) * d:].reshape(b, t, kv, d))
+    return _split_qkv(qkv, h, kv, d)
+
+
+def _misaligned_qkv(gen, b, t, h, kv, d):
+    """``_fused_qkv`` whose base lies one element off a 16-byte
+    boundary: TMA cannot read it."""
+    n = b * t * (h + 2 * kv) * d
+    off = torch.randn((n + 1,), generator=gen,
+                      device="cuda").bfloat16()[1:].view(b, t, -1)
+    return _split_qkv(off, h, kv, d)
 
 
 def flash_phase(fa) -> dict:
@@ -364,12 +386,7 @@ def flash_cuda_cores_cases(fa, gen) -> float:
     multiple of 16) and bf16 views whose base lies one element off a
     16-byte boundary. out and lse each; returns the worst out error."""
     h, kv, d = 16, 4, 128
-    n = 1 * 256 * (h + 2 * kv) * d
-    off = torch.randn((n + 1,), generator=gen,
-                      device="cuda").bfloat16()[1:].view(1, 256, -1)
-    misaligned = (off[..., :h * d].reshape(1, 256, h, d),
-                  off[..., h * d:(h + kv) * d].reshape(1, 256, kv, d),
-                  off[..., (h + kv) * d:].reshape(1, 256, kv, d))
+    misaligned = _misaligned_qkv(gen, 1, 256, h, kv, d)
     fp32 = tuple(x.float() for x in _fused_qkv(gen, 4, 64, 4, 2, 32))
     cases = [("fp32 tiny (4,64,4->2,32) causal", fp32, True, FLASH_FP32_TOL,
               FLASH_FP32_TOL),
@@ -480,58 +497,113 @@ def paged_phase(pa) -> dict:
 def _library_bwd_ms(q, k, v, g):
     """One PyTorch call that computes the whole attention backward:
     aten's flash-attention backward on head-major tensors, k/v expanded
-    to every q head beforehand (untimed). None, with the reason logged,
-    where the installed torch does not offer it."""
-    name = "_scaled_dot_product_flash_attention_backward"
-    if not hasattr(torch.ops.aten, name):
-        log(f"library backward: torch.ops.aten.{name} is not in torch "
-            f"{torch.__version__}; library_ms is null")
-        return None
+    to every q head and aten's own forward run beforehand (untimed)."""
     group = q.shape[2] // k.shape[2]
     qh, gh = (x.transpose(1, 2).contiguous() for x in (q, g))
     kh, vh = (x.transpose(1, 2).repeat_interleave(group, dim=1).contiguous()
               for x in (k, v))
-    try:
-        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            qh, kh, vh, 0.0, True, False)
-        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
-        bwd = getattr(torch.ops.aten, name)
-        return time_ms(lambda: bwd(gh, qh, kh, vh, out, lse, cum_q, cum_k,
-                                   max_q, max_k, 0.0, True, seed, offset))
-    except (RuntimeError, TypeError) as err:
-        log(f"library backward: torch.ops.aten.{name} refused the call "
-            f"({err}); library_ms is null")
-        return None
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qh, kh, vh, 0.0, True, False)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    return time_ms(lambda: bwd(gh, qh, kh, vh, out, lse, cum_q, cum_k,
+                               max_q, max_k, 0.0, True, seed, offset))
+
+
+def _bwd_errors(name: str, got, want, tol: float) -> dict:
+    """Each of dq, dk, dv (``got``) against the plain backward's
+    (``want``, fp32), judged relative to the largest magnitude of the
+    plain one; returns the worst absolute error by kernel ("dq",
+    "dkv")."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for kname, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - r).abs().max())
+        rel = err / float(r.abs().max())
+        log(f"flash backward {name} {kname}: max_abs_err {err:.3e}, "
+            f"relative to max |ref| {rel:.3e} (tolerance {tol})")
+        check(math.isfinite(rel) and rel <= tol,
+              f"flash backward {name} {kname}: relative error {rel}")
+        key = "dq" if kname == "dq" else "dkv"
+        worst[key] = max(worst[key], err)
+    return worst
+
+
+def flash_bwd_cuda_cores_cases(fa, gen) -> dict:
+    """The kept CUDA-core dq and dk/dv kernels, through their own entry
+    points (uncounted), against the plain backward on the inputs the
+    wrappers route to them: fp32 at the tiny flash models' shape
+    (phases 3 and 5), bf16 at head_dim 24 (not a multiple of 16) and
+    bf16 views whose base lies one element off a 16-byte boundary; each
+    fed the plain forward's out and lse and a random g. Returns the
+    worst absolute errors {"dq", "dkv"}."""
+    h, kv, d = 16, 4, 128
+    cases = [("fp32 tiny (4,64,4->2,32) causal",
+              tuple(x.float() for x in _fused_qkv(gen, 4, 64, 4, 2, 32)),
+              True, BWD_FP32_REL_TOL),
+             ("bf16 head_dim 24 (2,200) causal",
+              _fused_qkv(gen, 2, 200, h, kv, 24), True, BWD_REL_TOL),
+             ("bf16 misaligned 256 full",
+              _misaligned_qkv(gen, 1, 256, h, kv, d), False, BWD_REL_TOL)]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, (q, k, v), causal, tol in cases:
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        out, lse = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          causal, return_lse=True)
+        out = out.to(q.dtype)
+        inputs = fa._kernel_inputs(q, out, lse, g)
+        route = fa.backward_route(q, k, v, inputs[0])
+        check(route == fa.CUDA_CORES,
+              f"flash backward CUDA cores {name}: routed to {route}")
+        (dq,) = fa._bwd_launch("dq", fa.CUDA_CORES, q, k, v, *inputs,
+                               causal)
+        dk, dv = fa._bwd_launch("dkv", fa.CUDA_CORES, q, k, v, *inputs,
+                                causal)
+        ref = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         out.float(), lse, g.float(), causal)
+        torch.cuda.synchronize()
+        for kname, got, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+            check(got.dtype == q.dtype and got.shape == like.shape,
+                  f"flash backward CUDA cores {name} {kname}: {got.dtype} "
+                  f"{tuple(got.shape)}")
+        errs = _bwd_errors(f"CUDA cores {name}", (dq, dk, dv), ref, tol)
+        worst = {key: max(worst[key], errs[key]) for key in worst}
+    return worst
 
 
 def flash_bwd_phase(fa, fwd_row: dict) -> list:
     """The flash backward's dq and dk/dv kernels at the training path's
     shape: q (8, 1024, 16, 128) over k/v (8, 1024, 4, 128) bf16, causal,
     q/k/v views of a fused qkv tensor, g random; plus a ragged causal
-    case (t = s = 200) and a non-causal one. Each case runs the chain
-    training runs -- the forward kernel's out and lse into the two
-    backward kernels -- against the plain chain in fp32 on the same bf16
-    inputs: the forward kernel's out and lse against the plain
-    forward's (their worst error joins ``fwd_row``), the kernels'
-    gradients against the plain backward fed the plain forward's out
-    and lse. Then the two kernels, each one's plain version, the whole
-    plain backward, aten's whole backward and the forward kernel timed
-    at the training shape."""
+    case (t = s = 200) and a non-causal one, all three on the
+    tensor-core route. Each case runs the chain training runs -- the
+    forward kernel's out and lse into the two backward kernels --
+    against the plain chain in fp32 on the same bf16 inputs: the forward
+    kernel's out and lse against the plain forward's (their worst error
+    joins ``fwd_row``), the kernels' gradients against the plain
+    backward fed the plain forward's out and lse. Two calls on the main
+    case must give bitwise-equal gradients. Then the CUDA-core kernels
+    on what the wrappers route to them (``flash_bwd_cuda_cores_cases``).
+    Then the two kernels (each against its CUDA-core kernel in turns),
+    each one's plain version, the whole plain backward, aten's whole
+    backward and the forward kernel timed at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     b, t, h, kv, d = 8, 1024, 16, 4, 128
     cases = [("main (8,1024) causal", (b, t), True),
              ("ragged (2,200) causal", (2, 200), True),
              ("full (2,256)", (2, 256), False)]
     worst = {"dq": 0.0, "dkv": 0.0}
+    bwd = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for name, (bb, tt), causal in cases:
         q, k, v = _fused_qkv(gen, bb, tt, h, kv, d)
         g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
-        zero_counts(fa.flash_attention)
+        zero_counts(fa.flash_attention, *bwd)
         out, lse = fa.flash_attention(q, k, v, causal=causal,
                                       return_lse=True)
         check_routes(f"flash_attention {name}", fa.flash_attention, 1, 0)
         dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, g, causal)
+        check_routes(f"flash backward dq {name}", bwd[0], 1, 0)
+        check_routes(f"flash backward dk/dv {name}", bwd[1], 1, 0)
         qf, kf, vf = q.float(), k.float(), v.float()
         out_ref, lse_ref = fa.flash_attention_ref(qf, kf, vf, causal,
                                                   return_lse=True)
@@ -552,29 +624,42 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
         check(math.isfinite(lse_err) and lse_err <= LSE_TOL,
               f"flash_attention {name}: lse max_abs_err {lse_err}")
         fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], out_err)
-        for kname, got, want, like in (("dq", dq, ref[0], q),
-                                       ("dk", dk, ref[1], k),
-                                       ("dv", dv, ref[2], v)):
+        for kname, got, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
             check(got.dtype == torch.bfloat16 and got.shape == like.shape,
                   f"flash backward {name} {kname}: {got.dtype} "
                   f"{tuple(got.shape)}")
-            err = float((got.float() - want).abs().max())
-            rel = err / float(want.abs().max())
-            log(f"flash backward {name} {kname}: max_abs_err {err:.3e}, "
-                f"relative to max |ref| {rel:.3e} (tolerance "
-                f"{BWD_REL_TOL})")
-            check(math.isfinite(rel) and rel <= BWD_REL_TOL,
-                  f"flash backward {name} {kname}: relative error {rel}")
-            key = "dq" if kname == "dq" else "dkv"
-            worst[key] = max(worst[key], err)
+        errs = _bwd_errors(name, (dq, dk, dv), ref, BWD_REL_TOL)
+        worst = {key: max(worst[key], errs[key]) for key in worst}
         if name.startswith("main"):
             main = (q, k, v, g, out, lse)
+            # no atomics: a second call gives the same bits
+            again = (fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal),
+                     *fa.flash_attention_bwd_dkv(q, k, v, out, lse, g,
+                                                 causal))
+            same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+            log(f"flash backward {name}: a second call gives bitwise-equal "
+                f"dq, dk, dv: {same}")
+            check(same, f"flash backward {name}: two calls differ")
+            del again
         del ref, out_ref, lse_ref
+
+    cuda_cores = flash_bwd_cuda_cores_cases(fa, gen)
+    worst = {key: max(worst[key], cuda_cores[key]) for key in worst}
 
     q, k, v, g, out, lse = main
     args = (q, k, v, out, lse, g)
-    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(*args))
-    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+    inputs = fa._kernel_inputs(q, out, lse, g)
+    # the training path's call, and each route's entry point
+    turns = {kernel: time_routes(
+        f"flash backward {kernel} (8,1024,16,128) causal", wrapper,
+        lambda kernel=kernel: fa._bwd_launch(kernel, fa.TENSOR_CORES, q, k,
+                                             v, *inputs, True),
+        lambda kernel=kernel: fa._bwd_launch(kernel, fa.CUDA_CORES, q, k, v,
+                                             *inputs, True))
+        for kernel, wrapper in (
+            ("dq", lambda: fa.flash_attention_bwd_dq(*args)),
+            ("dkv", lambda: fa.flash_attention_bwd_dkv(*args)))}
+    dq_ms, dkv_ms = turns["dq"]["ms"], turns["dkv"]["ms"]
     dq_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dq_ref(*args))
     dkv_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(*args))
     whole_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(*args))
@@ -606,12 +691,15 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
                      3 * 2 * pairs * d, torch.bfloat16)
     dkv_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * 2 * kn,
                       4 * 2 * pairs * d, torch.bfloat16)
-    lib = "null" if whole_library_ms is None else f"{whole_library_ms:.4f}"
     log(f"flash backward timing (8,1024,16,128) causal: dq {dq_ms:.4f} ms "
-        f"(plain {dq_plain_ms:.4f} ms, bound {dq_bound[0]:.5f} ms, "
-        f"{dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f} "
+        f"(entry points: tensor cores {turns['dq']['ms_tensor_cores']:.4f}, "
+        f"CUDA cores {turns['dq']['ms_cuda_cores']:.4f} ms; plain "
+        f"{dq_plain_ms:.4f} ms, bound {dq_bound[0]:.5f} ms, {dq_bound[1]}), "
+        f"dk/dv {dkv_ms:.4f} ms (entry points: tensor cores "
+        f"{turns['dkv']['ms_tensor_cores']:.4f}, CUDA cores "
+        f"{turns['dkv']['ms_cuda_cores']:.4f} ms; plain {dkv_plain_ms:.4f} "
         f"ms, bound {dkv_bound[0]:.5f} ms, {dkv_bound[1]}); whole backward: "
-        f"plain {whole_plain_ms:.4f} ms, aten {lib} ms")
+        f"plain {whole_plain_ms:.4f} ms, aten {whole_library_ms:.4f} ms")
     log(f"flash_attention forward timing at the training shape "
         f"(8,1024,16,128) causal with lse: kernel {fwd['ms']:.4f} ms "
         f"(CUDA-core kernel {fwd['ms_cuda_cores']:.4f} ms), plain "
@@ -627,15 +715,19 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     # stand beside them under names that say so
     common = {"route": "cuda", "source": fa.BWD_SOURCE, "library_ms": None,
               "whole_backward_plain_ms": whole_plain_ms,
-              "whole_backward_library_ms": whole_library_ms}
+              "whole_backward_library_ms": whole_library_ms,
+              "timed_route": "tensor_cores",
+              "cuda_cores_source": fa.BWD_CUDA_CORES_SOURCE}
     return [{"name": "flash_attention_bwd_dq", "replaces": fa.DQ_REPLACES,
              "max_abs_err": worst["dq"], "ms": dq_ms,
              "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
-             "bound_by": dq_bound[1], **common},
+             "bound_by": dq_bound[1], **common,
+             **{key: x for key, x in turns["dq"].items() if key != "ms"}},
             {"name": "flash_attention_bwd_dkv", "replaces": fa.DKV_REPLACES,
              "max_abs_err": worst["dkv"], "ms": dkv_ms,
              "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound[0],
-             "bound_by": dkv_bound[1], **common}]
+             "bound_by": dkv_bound[1], **common,
+             **{key: x for key, x in turns["dkv"].items() if key != "ms"}}]
 
 
 # ---------------------------------------------------------------------
@@ -829,7 +921,8 @@ def small_train_phase(tf, fa) -> None:
                 fa.flash_attention_bwd_dkv.launches)
 
     n = cfg.n_layers * len(batches)
-    zero_counts(fa.flash_attention)
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
     before = counts()
     card_losses, card_params = train("cuda")
     got = tuple(x - y for x, y in zip(counts(), before))
@@ -842,8 +935,12 @@ def small_train_phase(tf, fa) -> None:
     check(got == (2 * n, n, n),
           f"small train remat: launches (forward, dq, dk/dv) {got}, "
           f"expected {(2 * n, n, n)}")
-    # fp32: every forward launch on the CUDA-core route
+    # fp32: every forward, dq and dk/dv launch on the CUDA-core route
     check_routes("small train flash_attention", fa.flash_attention, 0, 3 * n)
+    check_routes("small train flash backward dq", fa.flash_attention_bwd_dq,
+                 0, 2 * n)
+    check_routes("small train flash backward dk/dv",
+                 fa.flash_attention_bwd_dkv, 0, 2 * n)
     remat_loss_err = max(abs(a - b) / max(1.0, abs(b))
                          for a, b in zip(remat_losses, card_losses))
     remat_param_err = max(float((a - b).abs().max())
@@ -906,9 +1003,10 @@ def train_phase(trainer, fa) -> tuple:
         "each)")
     check(all(n == want for n in launches.values()),
           "flagship training launch counts")
-    routes = dict(fa.flash_attention.launches_by_route)
-    check_routes("flagship training flash_attention", fa.flash_attention,
-                 want, 0)
+    routes = {name: dict(getattr(fa, name).launches_by_route)
+              for name in launches}
+    for name in launches:
+        check_routes(f"flagship training {name}", getattr(fa, name), want, 0)
     median = float(np.median(walls))
     tokens = trainer.BATCH * (trainer.SEQ - 1)
     log(f"flagship training: warm-up step {warm[0]:.1f} ms; {steps} steps "
@@ -947,8 +1045,8 @@ def train_remat_phase(trainer, fa, plain: dict) -> None:
             "flash_attention_bwd_dkv": cfg.n_layers}
     log(f"flagship remat step launches: {launches} (expected {want})")
     check(launches == want, "flagship remat launch counts")
-    check_routes("flagship remat flash_attention", fa.flash_attention,
-                 2 * cfg.n_layers, 0)
+    for name, n in want.items():
+        check_routes(f"flagship remat {name}", getattr(fa, name), n, 0)
     check(all(math.isfinite(x) for x in losses),
           f"flagship remat: non-finite loss in {losses}")
     log(f"flagship remat: warm-up step {warm[0]:.1f} ms, step {walls[0]:.1f} "
@@ -1206,10 +1304,13 @@ def main() -> int:
     # the toolchain kernels' from toolchain_smoke
     launches.update({name: n for name, n in train_launches.items()
                      if name not in launches})
-    flash_row.update({"launches_by_route": serve_routes,
-                      "train_launches_by_route": train_plain["routes"]})
+    flash_row.update({
+        "launches_by_route": serve_routes,
+        "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k is not flash_row and k["name"] in train_plain["routes"]:
+            k["launches_by_route"] = train_plain["routes"][k["name"]]
     kernels += toolchain_rows
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")

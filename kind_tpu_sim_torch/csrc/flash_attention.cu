@@ -36,8 +36,8 @@
 //   kv tiles past the diagonal are never loaded, a warpgroup skips a
 //   tile that lies wholly above its rows, only the diagonal tile and
 //   the ragged s edge are masked, and the longest q tiles are scheduled
-//   first. A block of at most 9 warps may hold 224 registers a thread,
-//   so the consumers need no setmaxnreg.
+//   first. ptxas gives a block of 9 warps 168 registers a thread (as it
+//   would 12); the consumers need at most 128, so no setmaxnreg.
 // * CUDA cores (kts_flash_attention_fwd): fp32, and bf16 head dims or
 //   layouts TMA cannot describe. The first version, kept as it was: a
 //   loop inside the block walks the KV tiles up to the causal limit,
@@ -500,20 +500,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// a stride of a size-1 axis is never followed: give TMA a valid one
-inline cuuint64_t tma_stride(long long elems, int size, cuuint64_t fallback) {
-  return size == 1 ? fallback : (cuuint64_t)elems * 2;
-}
-
 inline int encode_qkv(CUtensorMap* map, const void* base, int d, int heads,
                       int rows, int b, Strides st, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)b};
-  const cuuint64_t sh = tma_stride(st.h, heads, (cuuint64_t)d * 2);
-  const cuuint64_t stt = tma_stride(st.t, rows, sh * heads);
-  const cuuint64_t strides[3] = {sh, stt, tma_stride(st.b, b, stt * rows)};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
-  return hopper::encode_bf16_sw128(map, base, 4, dims, strides, box);
+  return hopper::encode_heads(map, base, d, heads, rows, b, st.b, st.t, st.h,
+                              box_rows);
 }
 
 template <int NWG, int DPAD>

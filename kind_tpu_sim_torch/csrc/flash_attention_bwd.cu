@@ -1,5 +1,9 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a), CUDA C++: two
-// kernels, dq and dk/dv.
+// kernels, dq and dk/dv, on the CUDA cores. This is the route for fp32
+// (the tiny models stay exact here) and for bf16 head dims or layouts
+// TMA cannot read; bf16 that TMA can read goes to the tensor-core
+// kernels of csrc/flash_attention_bwd_tc.cu. ops/flash_attention.py
+// picks the route from the inputs before the launch.
 //
 // Replaces: kind_tpu_sim/ops/pallas_kernels.py:_flash_bwd, its dq_kernel
 // (:380, pl.pallas_call at :416) and its dkv_kernel (:440, pl.pallas_call
@@ -36,8 +40,7 @@
 // Neither uses atomics, so both are deterministic. Inputs are read
 // through element strides (V is a view of the fused qkv projection in
 // the model), and the ragged q and kv edges are masked here, so any
-// t, s and any d <= 128 that is a multiple of 8 run. Tensor cores,
-// wgmma and TMA are left for the PR that makes these kernels fast.
+// t, s and any d <= 128 that is a multiple of 8 run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

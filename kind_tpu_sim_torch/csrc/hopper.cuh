@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// csrc/matmul.cu and csrc/flash_attention.cu, written by hand in inline
-// PTX: mbarriers with a phase bit, TMA tile loads from a tensor map into
+// csrc/matmul.cu, csrc/flash_attention.cu and
+// csrc/flash_attention_bwd_tc.cu, written by hand in inline PTX:
+// mbarriers with a phase bit, TMA tile loads from a tensor map into
 // shared memory, the wgmma shared-memory matrix descriptor for 128-byte
 // swizzle, and wgmma.mma_async on bf16 with fp32 sums (both operands in
-// shared memory, or A in registers). Plus the host-side encoder of the
-// tensor maps, reached through cudaGetDriverEntryPoint so that the
-// library needs no -lcuda.
+// shared memory, or A in registers). Plus the host-side encoders of the
+// tensor maps (swizzled bf16 tiles, the 4D view of a (b, t, heads, d)
+// tensor, flat fp32 rows), reached through cudaGetDriverEntryPoint so
+// that the library needs no -lcuda.
 //
 // Layout conventions (PTX ISA, "asynchronous warpgroup matrix
 // multiply"; CUTLASS's canonical GMMA layouts):
@@ -99,6 +101,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
       : "memory");
 }
 
@@ -274,15 +285,14 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 // ---------------------------------------------------------------------
 // host: the tensor maps
 
-// Encode a bf16 tensor map of `rank` dims (innermost first; `strides`
-// in bytes for dims 1..rank-1) whose box has an inner extent of 64
-// elements, with 128-byte swizzle; what lies outside the dims reads as
-// zero. Returns 0, a CUDA runtime error if the driver's encoder cannot
-// be reached, or -CUresult if the encoder refuses the map.
-inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
-                             const cuuint64_t* dims,
-                             const cuuint64_t* strides,
-                             const cuuint32_t* box) {
+// Encode a tensor map of `rank` dims (innermost first; `strides` in
+// bytes for dims 1..rank-1); what lies outside the dims reads as zero.
+// Returns 0, a CUDA runtime error if the driver's encoder cannot be
+// reached, or -CUresult if the encoder refuses the map.
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -306,11 +316,53 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+      box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+// a bf16 map whose box has an inner extent of 64 elements (128 bytes),
+// with 128-byte swizzle: the layout every wgmma operand tile uses
+inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims,
+                             const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                      dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a flat fp32 array of n elements read in boxes of `box` (a multiple of
+// 4, at most 256), unswizzled
+inline int encode_f32_1d(CUtensorMap* map, const void* base, cuuint64_t n,
+                         cuuint32_t box) {
+  const cuuint64_t dims[1] = {n};
+  const cuuint64_t no_strides[1] = {0};
+  const cuuint32_t boxes[1] = {box};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 1, dims,
+                      no_strides, boxes, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// a stride of a size-1 axis is never followed: give TMA a valid one
+inline cuuint64_t tma_stride(long long elems, int size, cuuint64_t fallback) {
+  return size == 1 ? fallback : (cuuint64_t)elems * 2;
+}
+
+// A bf16 (b, rows, heads, d) tensor with element strides sb, st, sh and
+// a contiguous head dim, as a 4D map over (d, heads, rows, b) whose box
+// is 64 of d by one head by `box_rows` rows: q, k and v are read in
+// place as views of the fused qkv projection, and d is zero-padded to
+// the box.
+inline int encode_heads(CUtensorMap* map, const void* base, int d,
+                        int heads, int rows, int b, long long sb,
+                        long long st, long long sh, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)b};
+  const cuuint64_t bh = tma_stride(sh, heads, (cuuint64_t)d * 2);
+  const cuuint64_t bt = tma_stride(st, rows, bh * heads);
+  const cuuint64_t strides[3] = {bh, bt, tma_stride(sb, b, bt * rows)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  return encode_bf16_sw128(map, base, 4, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------

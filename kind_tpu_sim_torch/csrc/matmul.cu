@@ -26,8 +26,9 @@
 //   k step's products in flight and hand each stage back through an
 //   "empty" mbarrier. The fp32 sums (128 registers a thread) never
 //   leave registers; the epilogue writes them straight to C, masked at
-//   the ragged edge (TMA reads zeros past it). A block of 9 warps may
-//   hold 224 registers a thread, so the consumers need no setmaxnreg.
+//   the ragged edge (TMA reads zeros past it). ptxas gives a block of 9
+//   warps 168 registers a thread (as it would 12); the consumers fit, so
+//   they need no setmaxnreg.
 // * CUDA cores (kts_matmul): fp32, and bf16 that TMA cannot describe.
 //   The first version, kept as it was: one block owns a 128 x 128
 //   output tile and loops over k in steps of 8; A's 128 x 8 and B's

@@ -9,10 +9,11 @@ whenever a source (or the flags) change: the file name carries a hash
 of both. A missing ``nvcc`` or a failed build raises with the
 compiler's output — there is no fallback.
 
-Two kernels come in two routes each (``matmul``, the flash forward):
-``TENSOR_CORES`` (wgmma fed by TMA) and ``CUDA_CORES`` (the first
-versions, kept for fp32 and for what TMA cannot describe). The wrappers
-choose one from the inputs alone, before the launch.
+Four kernels come in two routes each (``matmul``, the flash forward,
+the flash backward's dq and dk/dv): ``TENSOR_CORES`` (wgmma fed by TMA)
+and ``CUDA_CORES`` (the first versions, kept for fp32 and for what TMA
+cannot describe). The wrappers choose one from the inputs alone, before
+the launch.
 """
 
 from __future__ import annotations

@@ -4,15 +4,16 @@ Three kernels, each replacing a Pallas TPU kernel of
 ``kind_tpu_sim/ops/pallas_kernels.py``:
 
 * ``csrc/flash_attention.cu`` — the forward, ``_flash_impl``;
-* ``csrc/flash_attention_bwd.cu`` — the backward's dq kernel and its
-  dk/dv kernel, ``_flash_bwd``.
+* ``csrc/flash_attention_bwd_tc.cu`` and ``csrc/flash_attention_bwd.cu``
+  — the backward's dq kernel and its dk/dv kernel, ``_flash_bwd``.
 
 Every wrapper dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version
-written step by step in PyTorch. The forward has two kernels, chosen by
-``forward_route`` before the launch: bf16 on the tensor cores (wgmma
-fed by TMA) where TMA can read q, k and v, else the CUDA-core kernel;
-``flash_attention.launches_by_route`` counts its launches per route.
+written step by step in PyTorch. Each kernel comes in two routes,
+chosen before the launch from the inputs alone (``forward_route``,
+``backward_route``): bf16 on the tensor cores (wgmma fed by TMA) where
+TMA can read every input, else the CUDA-core kernel; each wrapper's
+``launches_by_route`` counts its launches per route.
 ``FlashAttentionFunction`` joins the forward and the backward for
 autograd; ``flash_attention`` goes through it.
 """
@@ -29,7 +30,8 @@ from kind_tpu_sim_torch.ops._build import CUDA_CORES, ROUTES, TENSOR_CORES
 SOURCE = "kind_tpu_sim_torch/csrc/flash_attention.cu"
 # the pallas_call of _flash_impl, the TPU kernel this one replaces
 REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:313"
-BWD_SOURCE = "kind_tpu_sim_torch/csrc/flash_attention_bwd.cu"
+BWD_SOURCE = "kind_tpu_sim_torch/csrc/flash_attention_bwd_tc.cu"
+BWD_CUDA_CORES_SOURCE = "kind_tpu_sim_torch/csrc/flash_attention_bwd.cu"
 # the pallas_calls of _flash_bwd's dq and dk/dv kernels
 DQ_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:416"
 DKV_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:485"
@@ -43,11 +45,13 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
 _TC_ARGTYPES = _ARGTYPES[:5] + _ARGTYPES[6:]
 
 
-def _bwd_argtypes(n_out: int) -> tuple:
-    """q, k, v, g, lse, dsum and the outputs; dtype, b, t, s, h, kv, d;
+def _bwd_argtypes(n_out: int, route: str) -> tuple:
+    """q, k, v, g, lse, dsum and the outputs; dtype (the CUDA-core
+    route only: the tensor-core one is bf16 alone), b, t, s, h, kv, d;
     the strides of q, k, v, g and of each output; scale, causal,
     stream."""
-    return ((ctypes.c_void_p,) * (6 + n_out) + (ctypes.c_int,) * 7
+    n_int = 6 if route == TENSOR_CORES else 7
+    return ((ctypes.c_void_p,) * (6 + n_out) + (ctypes.c_int,) * n_int
             + (ctypes.c_longlong,) * (12 + 3 * n_out)
             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
@@ -134,23 +138,43 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     return out
 
 
-def forward_route(q, k, v) -> str:
-    """The kernel a CUDA call of the forward launches, from the inputs
-    alone: ``TENSOR_CORES`` for bf16 with the head dim a multiple of 16
-    up to 128 and, for each of q, k and v, a base address on a 16-byte
+def _route(q, tensors) -> str:
+    """``TENSOR_CORES`` for bf16 with the head dim a multiple of 16 up
+    to 128 and, for each of ``tensors``, a base address on a 16-byte
     boundary and batch, sequence and head strides that are positive
     multiples of 16 bytes, which TMA needs (the stride of an axis of
     length 1 is never followed); ``CUDA_CORES`` for everything else,
-    fp32 included. Inputs already passed ``_check``."""
+    fp32 included."""
     d = q.shape[3]
     if q.dtype != torch.bfloat16 or d % 16 or d > 128:
         return CUDA_CORES
-    for x in (q, k, v):
+    for x in tensors:
         if x.data_ptr() % 16 or any(
                 size > 1 and (stride <= 0 or (2 * stride) % 16)
                 for size, stride in zip(x.shape[:3], x.stride()[:3])):
             return CUDA_CORES
     return TENSOR_CORES
+
+
+def forward_route(q, k, v) -> str:
+    """The kernel a CUDA call of the forward launches, from the inputs
+    alone (``_route`` over q, k and v). Inputs already passed
+    ``_check``."""
+    return _route(q, (q, k, v))
+
+
+def backward_route(q, k, v, g) -> str:
+    """The kernels a CUDA call of the backward launches (dq and dk/dv
+    alike), from the inputs alone: the forward's rule over q, k, v and
+    ``g``, the upstream gradient as ``_kernel_inputs`` hands it to the
+    kernels (q's dtype, contiguous head dim); raises for any other g.
+    Inputs already passed ``_check_bwd``."""
+    if g.dtype != q.dtype or g.stride(-1) != 1:
+        raise ValueError(
+            "backward_route takes the g that _kernel_inputs hands the "
+            f"kernels (q's dtype, contiguous head dim); got {g.dtype} "
+            f"with strides {g.stride()}")
+    return _route(q, (q, k, v, g))
 
 
 def _forward_launch(q, k, v, causal: bool, return_lse: bool, route: str):
@@ -267,40 +291,53 @@ def flash_attention_bwd_dkv_ref(q, k, v, out, lse, g, causal: bool = True):
 
 def _kernel_inputs(q, out, lse, g):
     """What the kernels read besides q, k, v: g in q's dtype with a
-    contiguous head dim, lse contiguous, and D."""
+    contiguous head dim, lse contiguous on a 16-byte boundary (the
+    tensor-core dk/dv kernel reads its rows by TMA), and D."""
     if g.stride(-1) != 1 or g.dtype != q.dtype:
         g = g.to(q.dtype).contiguous()
-    return g, lse.contiguous(), _dsum(out, g)
+    lse = lse.contiguous()
+    if lse.data_ptr() % 16:
+        lse = lse.clone()
+    return g, lse, _dsum(out, g)
 
 
-def _bwd_launch(name, q, k, v, g, lse, dsum, outs, causal) -> None:
+def _bwd_launch(kernel: str, route: str, q, k, v, g, lse, dsum, causal):
+    """One launch of ``route``'s ``kernel`` ("dq" or "dkv") on checked
+    CUDA inputs from ``_kernel_inputs``; counts nothing (the wrappers
+    count their own launches). Returns [dq] or [dk, dv]."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
-    fn = _build.function(name, _bwd_argtypes(len(outs)))
+    outs = ([torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+            if kernel == "dq" else
+            [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+             for x in (k, v)])
+    name = f"kts_flash_attention_bwd_{kernel}"
+    dims = (b, t, s, h, kv, d)
+    if route == TENSOR_CORES:
+        name += "_tc"
+    else:
+        dims = (_DTYPE_CODES[q.dtype], *dims)
+    fn = _build.function(name, _bwd_argtypes(len(outs), route))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), dsum.data_ptr(), *(x.data_ptr() for x in outs),
-             _DTYPE_CODES[q.dtype], b, t, s, h, kv, d,
+             *dims,
              *(st for x in (q, k, v, g, *outs) for st in x.stride()[:3]),
              d ** -0.5, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(name, err)
+    return outs
 
 
-def _launch_dq(q, k, v, g, lse, dsum, causal):
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("kts_flash_attention_bwd_dq", q, k, v, g, lse, dsum, [dq],
-                causal)
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-def _launch_dkv(q, k, v, g, lse, dsum, causal):
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("kts_flash_attention_bwd_dkv", q, k, v, g, lse, dsum,
-                [dk, dv], causal)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+def _launch(kernel: str, q, k, v, g, lse, dsum, causal):
+    """``_bwd_launch`` on ``backward_route``'s route, counted on the
+    kernel's wrapper."""
+    route = backward_route(q, k, v, g)
+    outs = _bwd_launch(kernel, route, q, k, v, g, lse, dsum, causal)
+    wrapper = flash_attention_bwd_dq if kernel == "dq" else \
+        flash_attention_bwd_dkv
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+    return outs
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, g, causal: bool = True):
@@ -309,7 +346,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, g, causal: bool = True):
     _check_bwd(q, k, v, out, lse, g)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, out, lse, g, causal)
-    return _launch_dq(q, k, v, *_kernel_inputs(q, out, lse, g), causal)
+    return _launch("dq", q, k, v, *_kernel_inputs(q, out, lse, g),
+                   causal)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, g, causal: bool = True):
@@ -319,7 +357,8 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, g, causal: bool = True):
     _check_bwd(q, k, v, out, lse, g)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, out, lse, g, causal)
-    return _launch_dkv(q, k, v, *_kernel_inputs(q, out, lse, g), causal)
+    return tuple(_launch("dkv", q, k, v, *_kernel_inputs(q, out, lse, g),
+                         causal))
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True):
@@ -330,8 +369,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True):
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, g, causal)
     inputs = _kernel_inputs(q, out, lse, g)
-    return (_launch_dq(q, k, v, *inputs, causal),
-            *_launch_dkv(q, k, v, *inputs, causal))
+    return (*_launch("dq", q, k, v, *inputs, causal),
+            *_launch("dkv", q, k, v, *inputs, causal))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -378,4 +417,6 @@ def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
 flash_attention.launches = 0  # kernel launches (CPU calls not counted)
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -45,7 +45,9 @@ LEARNING_RATE = 1e-2
 # kernel name fragments -> group, first match wins
 GROUPS = (("flash_fwd_tc_kernel", "flash forward"),
           ("flash_fwd_kernel", "flash forward"),
+          ("flash_bwd_dq_tc_kernel", "flash dq"),
           ("flash_bwd_dq_kernel", "flash dq"),
+          ("flash_bwd_dkv_tc_kernel", "flash dk/dv"),
           ("flash_bwd_dkv_kernel", "flash dk/dv"),
           ("adam", "optimizer (AdamW)"),
           ("multi_tensor", "optimizer (AdamW)"))
