@@ -19,10 +19,11 @@ it fails (nothing is caught and ignored):
    flushed before each; the events hold the host's enqueue time where
    it outlasts the flush) beside the plain version and,
    where one PyTorch call computes the same function, that call: the flash
-   forward at the serving prefill shape, the paged decode kernel, and
-   the flash backward's dq and dk/dv kernels at the training shape,
-   fed the forward kernel's out and lse as training feeds them (the
-   forward checked and timed there too);
+   forward at the serving prefill shape, the paged decode kernels at
+   the serving decode shape and at the flagship's full context (1024
+   positions a slot), and the flash backward's dq and dk/dv kernels at
+   the training shape, fed the forward kernel's out and lse as training
+   feeds them (the forward checked and timed there too);
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
    emit the streams the CPU plain path emits;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
@@ -53,20 +54,28 @@ holds it to the plain run.
 The matmul, the flash forward and the flash backward's dq and dk/dv
 kernels each have two kernels, a route chosen from the inputs: wgmma
 fed by TMA for bf16 that TMA can read, the first CUDA-core kernel
-otherwise. Phases 2-7 check which route every launch took from the
-wrappers' per-route counts: the bf16 main paths (phases 2, 4, 6, the
-flagship products of 7) on the tensor cores only, the fp32 tiny models
-(3, 5) and the gate's fp32 product on the CUDA cores only. Phase 2 also
+otherwise. Paged attention has two as well: the split-KV kernel (the
+sequence split across blocks, 16-byte asynchronous copies, a combine
+in fixed split order) for bf16 that 16-byte copies can read, the
+one-pass kernel otherwise. Phases 2-7 check which route every launch
+took from the wrappers' per-route counts: the bf16 main paths (phases
+2, 4, 6, the flagship products of 7) on the tensor cores and the
+split-KV kernel only, the fp32 tiny models (3, 5) and the gate's fp32
+product on the CUDA cores and the one-pass kernel only. Phase 2 holds
+the split-KV kernel at several split sizes and the one-pass kernel to
+the plain version on the same inputs, and checks that two split-KV
+calls give bitwise-equal partials. Phase 2 also
 holds the kept CUDA-core flash forward (out and lse) and backward (dq,
 dk, dv) to their plain versions on inputs routed to them (fp32 at the
 tiny models' shape, bf16 at head_dim 24, a misaligned bf16 view), and
 checks that two backward calls give bitwise-equal gradients. Each
-redesigned kernel is timed against the kept CUDA-core kernel on the
-same inputs, in turns, in the same run, both through their C entry
+redesigned kernel is timed against the kernel it replaces (kept as the
+other route) on the same inputs, in turns, in the same run, both through their C entry
 points behind the same Python layer: as every other kernel
-(``ms_tensor_cores``, ``ms_cuda_cores``), as device time alone with
-the card kept busy while the host enqueues (``device_ms*``), and as
-host time per call (``host_us*``). Its row's ``ms`` and ``host_us``
+(``ms_tensor_cores``, ``ms_cuda_cores``; ``ms_split_kv``,
+``ms_one_pass``), as device time alone with the card kept busy while
+the host enqueues (``device_ms*``), and as host time per call
+(``host_us*``). Its row's ``ms`` and ``host_us``
 are the user's wrapper's, as for every other kernel.
 
 Standard output ends with a ``{"kernels": [...]}`` line, the card's
@@ -198,36 +207,37 @@ def host_us(fn, calls: int = 50, rounds: int = 5) -> float:
     return float(np.median(means))
 
 
-def time_routes(name: str, wrapper, tensor_cores, cuda_cores) -> dict:
+def time_routes(name: str, wrapper, new, old,
+                routes=("tensor_cores", "cuda_cores")) -> dict:
     """A redesigned kernel against the kernel it replaces, on the same
     inputs in one call. ``wrapper`` is the user's call (it takes the
-    tensor-core route); ``tensor_cores`` and ``cuda_cores`` launch each
-    route's C entry point through the same Python layer, uncounted, so
-    they differ in the kernel alone. The two routes are timed twice in
-    turns (tensor cores, CUDA cores, CUDA cores, tensor cores) both
-    ways (``time_ms`` as every other row, and device time alone), each
-    the mean of its two medians; the wrapper by ``time_ms``; all three
-    by host time per call. Returns {"ms" (the wrapper's),
-    "ms_tensor_cores", "ms_cuda_cores", "device_ms",
-    "device_ms_cuda_cores", "host_us" (the wrapper's),
-    "host_us_tensor_cores", "host_us_cuda_cores"}."""
+    new route); ``new`` and ``old`` launch each route's C entry point
+    through the same Python layer, uncounted, so they differ in the
+    kernel alone; ``routes`` names them. The two routes are timed twice
+    in turns (new, old, old, new) both ways (``time_ms`` as every other
+    row, and device time alone), each the mean of its two medians; the
+    wrapper by ``time_ms``; all three by host time per call. Returns
+    {"ms" (the wrapper's), "ms_<new>", "ms_<old>", "device_ms",
+    "device_ms_<old>", "host_us" (the wrapper's), "host_us_<new>",
+    "host_us_<old>"}."""
+    new_name, old_name = routes
     res = {"ms": time_ms(wrapper)}
     for cover, key in ((False, "ms"), (True, "device_ms")):
-        n1 = time_ms(tensor_cores, cover_enqueue=cover)
-        o1 = time_ms(cuda_cores, cover_enqueue=cover)
-        o2 = time_ms(cuda_cores, cover_enqueue=cover)
-        n2 = time_ms(tensor_cores, cover_enqueue=cover)
-        log(f"{name} in turns ({key}): tensor cores {n1:.4f}, {n2:.4f} ms; "
-            f"CUDA cores {o1:.4f}, {o2:.4f} ms")
-        new_key = "device_ms" if cover else "ms_tensor_cores"
-        res[new_key], res[f"{key}_cuda_cores"] = (n1 + n2) / 2, (o1 + o2) / 2
+        n1 = time_ms(new, cover_enqueue=cover)
+        o1 = time_ms(old, cover_enqueue=cover)
+        o2 = time_ms(old, cover_enqueue=cover)
+        n2 = time_ms(new, cover_enqueue=cover)
+        log(f"{name} in turns ({key}): {new_name} {n1:.4f}, {n2:.4f} ms; "
+            f"{old_name} {o1:.4f}, {o2:.4f} ms")
+        new_key = "device_ms" if cover else f"ms_{new_name}"
+        res[new_key], res[f"{key}_{old_name}"] = (n1 + n2) / 2, (o1 + o2) / 2
     res["host_us"] = host_us(wrapper)
-    res["host_us_tensor_cores"] = host_us(tensor_cores)
-    res["host_us_cuda_cores"] = host_us(cuda_cores)
+    res[f"host_us_{new_name}"] = host_us(new)
+    res[f"host_us_{old_name}"] = host_us(old)
     log(f"{name}: wrapper {res['ms']:.4f} ms; host time per call: wrapper "
-        f"{res['host_us']:.1f} us, tensor-core entry "
-        f"{res['host_us_tensor_cores']:.1f} us, CUDA-core entry "
-        f"{res['host_us_cuda_cores']:.1f} us")
+        f"{res['host_us']:.1f} us, {new_name} entry "
+        f"{res[f'host_us_{new_name}']:.1f} us, {old_name} entry "
+        f"{res[f'host_us_{old_name}']:.1f} us")
     return res
 
 
@@ -246,11 +256,13 @@ def zero_counts(*fns) -> None:
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
-def check_routes(name: str, fn, tensor_cores: int, cuda_cores: int) -> None:
+def check_routes(name: str, fn, *counts: int) -> None:
     """The launches of ``fn`` since its counts were zeroed went the
-    given number of times through each route."""
+    given number of times through each route, in the order of
+    ``fn.launches_by_route`` (tensor cores then CUDA cores; split-KV
+    then one-pass)."""
     got = dict(fn.launches_by_route)
-    want = {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}
+    want = dict(zip(fn.launches_by_route, counts))
     log(f"{name}: launches by route {got} (expected {want})")
     check(got == want, f"{name}: launches by route {got}, expected {want}")
 
@@ -421,77 +433,204 @@ def flash_cuda_cores_cases(fa, gen) -> float:
     return worst
 
 
-def paged_phase(pa) -> dict:
-    """paged_attention at the decode shape of the serving path: 8 slots,
-    4 kv heads x group 4, head_dim 128, bf16 pools of 129 blocks x 64
-    positions, table width 8. Lengths mix an empty slot, sub-block,
-    one block, block+1 and the longest slot (448); padding entries
-    point at the garbage block or at other slots' live blocks."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    slots, kv, g, hd, nblocks, bsz, width = 8, 4, 4, 128, 129, 64, 8
-    lengths_h = np.asarray([0, 1, 63, 64, 65, 448, 300, 129], np.int32)
-    rng = np.random.RandomState(2)
+def _paged_inputs(gen, rng, lengths_h, kv, g, hd, bsz, width,
+                  dtype=torch.bfloat16):
+    """Decode inputs on the card: distinct live blocks per slot (block
+    0 is the garbage block), padding entries pointing at the garbage
+    block or at other slots' live blocks, random q and pools."""
+    slots = len(lengths_h)
+    live_n = [-(-int(n) // bsz) for n in lengths_h]
+    nblocks = 1 + sum(live_n)
     perm = list(rng.permutation(np.arange(1, nblocks)))
     tables_h = np.zeros((slots, width), np.int32)
     live_blocks = []
-    for s, n in enumerate(lengths_h):
-        live = -(-int(n) // bsz)
+    for s, live in enumerate(live_n):
         tables_h[s, :live] = perm[:live]
         live_blocks += perm[:live]
         perm = perm[live:]
-    for s, n in enumerate(lengths_h):
-        for j in range(-(-int(n) // bsz), width):
+    for s, live in enumerate(live_n):
+        for j in range(live, width):
             tables_h[s, j] = 0 if j % 2 else int(rng.choice(live_blocks))
     qg = torch.randn((slots, kv, g, hd), generator=gen,
-                     device="cuda").bfloat16()
-    k_pool = torch.randn((nblocks, bsz, kv, hd), generator=gen,
-                         device="cuda").bfloat16()
-    v_pool = torch.randn((nblocks, bsz, kv, hd), generator=gen,
-                         device="cuda").bfloat16()
-    tables = torch.as_tensor(tables_h, device="cuda")
-    lengths = torch.as_tensor(lengths_h, device="cuda")
+                     device="cuda").to(dtype)
+    k_pool, v_pool = (torch.randn((nblocks, bsz, kv, hd), generator=gen,
+                                  device="cuda").to(dtype)
+                      for _ in range(2))
+    return (qg, k_pool, v_pool, torch.as_tensor(tables_h, device="cuda"),
+            torch.as_tensor(np.asarray(lengths_h, np.int32), device="cuda"))
 
-    got = pa.paged_attention(qg, k_pool, v_pool, tables, lengths)
-    want = pa.paged_attention_ref(qg, k_pool, v_pool, tables, lengths)
+
+def paged_decode_inputs():
+    """The serving path's decode call as the paged phase checks and
+    times it (and ``tools/compare_trees.py`` times it in two trees): 8
+    slots, 4 kv heads x group 4, head_dim 128, bf16 pools of
+    64-position blocks, table width 8, lengths from an empty slot to
+    448, seed 2."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.RandomState(2)
+    args = _paged_inputs(gen, rng, [0, 1, 63, 64, 65, 448, 300, 129], 4, 4,
+                         128, 64, 8)
+    return gen, rng, args
+
+
+def _paged_check(pa, name: str, got, args) -> float:
+    """(acc, m, l) against the plain version on the same inputs, at
+    PAGED_RTOL / PAGED_ATOL on live slots and exactly acc = 0, l = 0,
+    m = -1e30 on empty ones. Returns the largest absolute error."""
+    want = pa.paged_attention_ref(*args)
     torch.cuda.synchronize()
+    live = args[-1] > 0
     worst = 0.0
-    for name, a, r in zip(("acc", "m", "l"), got, want):
+    for key, a, r in zip(("acc", "m", "l"), got, want):
         check(a.dtype == torch.float32 and a.shape == r.shape,
-              f"paged_attention {name}: {a.dtype} {tuple(a.shape)}")
-        live = lengths_h > 0
-        a_l, r_l = a[torch.as_tensor(live)], r[torch.as_tensor(live)]
+              f"paged_attention {name} {key}: {a.dtype} {tuple(a.shape)}")
+        a_l, r_l = a[live], r[live]
         err = float((a_l - r_l).abs().max())
         ok = bool(((a_l - r_l).abs()
                    <= PAGED_ATOL + PAGED_RTOL * r_l.abs()).all())
-        log(f"paged_attention {name}: max_abs_err {err:.3e} "
-            f"(rtol {PAGED_RTOL}, atol {PAGED_ATOL})")
-        check(ok, f"paged_attention {name} outside tolerance ({err})")
+        check(ok and math.isfinite(err),
+              f"paged_attention {name} {key} outside tolerance ({err})")
         worst = max(worst, err)
-    acc0, m0, l0 = (x[0] for x in got)
-    check(bool((acc0 == 0).all() and (l0 == 0).all()
-               and (m0 == np.float32(-1e30)).all()),
-          "paged_attention: the zero-length slot is not exactly "
-          "acc = 0, l = 0, m = -1e30")
+    acc, m, l = (x[~live] for x in got)
+    check(bool((acc == 0).all() and (l == 0).all()
+               and (m == np.float32(-1e30)).all()),
+          f"paged_attention {name}: an empty slot is not exactly acc = 0, "
+          "l = 0, m = -1e30")
+    log(f"paged_attention {name}: max_abs_err {worst:.3e} (rtol "
+        f"{PAGED_RTOL}, atol {PAGED_ATOL}); {int((~live).sum())} empty "
+        "slot(s) exact")
+    return worst
 
-    ms = time_ms(lambda: pa.paged_attention(qg, k_pool, v_pool, tables,
-                                            lengths))
-    plain_ms = time_ms(lambda: pa.paged_attention_ref(qg, k_pool, v_pool,
-                                                      tables, lengths))
+
+def _paged_bound(args) -> tuple:
+    """Live k and v rows read once, q, tables and lengths read once, the
+    fp32 partials written once; QK and PV over every live position."""
+    qg, k_pool, _, tables, lengths = args
+    slots, kv, g, hd = qg.shape
+    total = int(lengths.clamp(max=tables.shape[1] * k_pool.shape[1]).sum())
+    nbytes = (2 * total * kv * hd * qg.element_size()
+              + qg.numel() * qg.element_size() + 4 * tables.numel()
+              + 4 * lengths.numel() + 4 * slots * kv * g * (hd + 2))
+    return bound(nbytes, 4 * total * kv * g * hd, torch.bfloat16)
+
+
+def _read_ms(args) -> float:
+    """Device time of one ``sum()`` over a contiguous bf16 tensor as
+    large as the live K and V rows, by the paged rows' method: what
+    reading the kernel's bytes costs one PyTorch launch here (no L2
+    hits, the card's launch latency), a floor beside the byte bound."""
+    qg, k_pool, _, tables, lengths = args
+    total = int(lengths.clamp(max=tables.shape[1] * k_pool.shape[1]).sum())
+    x = torch.zeros(2 * total * qg.shape[1] * qg.shape[3],
+                    dtype=torch.bfloat16, device="cuda")
+    return time_ms(lambda: x.sum(), cover_enqueue=True)
+
+
+def paged_phase(pa) -> dict:
+    """paged_attention at the decode shape of the serving path: 8 slots,
+    4 kv heads x group 4, head_dim 128, bf16 pools of 64-position
+    blocks, table width 8. Lengths mix an empty slot, sub-block, one
+    block, block+1 and the longest slot (448); padding entries point at
+    the garbage block or at other slots' live blocks. The wrapper takes
+    the split-KV route; two calls must give the same bits. The split
+    kernel is also run at other split sizes (2 blocks: two tiles,
+    double-buffered; 3: a short last split; 8: one split, no combine),
+    and the one-pass kernel on the same inputs. A gqa-8, head_dim 64,
+    16-position-block case puts four pool blocks in one tile; a
+    one-slot case of 505 table entries and group 3 makes the combine's
+    m and l the largest part of shared memory. Then the
+    flagship's full context: 8 slots x 1024 positions (width 16) plus
+    an empty and a ragged slot. Both shapes are timed on both routes in
+    turns."""
+    gen, rng, args = paged_decode_inputs()
+    kv, g, hd, bsz = 4, 4, 128, 64
+    lengths_h = args[-1].cpu().numpy()
+
+    zero_counts(pa.paged_attention)
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    check_routes("paged_attention decode shape", pa.paged_attention, 2, 0)
+    worst = _paged_check(pa, "split_kv decode shape", got, args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"paged_attention split_kv: a second call gives bitwise-equal "
+        f"acc, m, l: {same}")
+    check(same, "paged_attention split_kv: two calls differ")
+    for bps in (2, 3, 8):
+        worst = max(worst, _paged_check(
+            pa, f"split_kv decode shape, {bps} blocks a split",
+            pa._paged_launch(pa.SPLIT_KV, *args, bps=bps), args))
+    worst = max(worst, _paged_check(
+        pa, "one_pass decode shape", pa._paged_launch(pa.ONE_PASS, *args),
+        args))
+    gqa8 = _paged_inputs(gen, rng, [0, 17, 100, 192, 5], 2, 8, 64, 16, 12)
+    check(pa.paged_route(*gqa8) == pa.SPLIT_KV, "gqa8 case: not split_kv")
+    worst = max(worst, _paged_check(
+        pa, "split_kv gqa8 hd64 bsz16", pa._paged_launch(pa.SPLIT_KV, *gqa8),
+        gqa8))
+    # 505 splits of 3 query rows: the combine's m and l take the most
+    # shared memory, and q must still start on a 16-byte boundary
+    wide = _paged_inputs(gen, rng, [700], 1, 3, 24, 64, 505)
+    check(pa.paged_route(*wide) == pa.SPLIT_KV, "wide case: not split_kv")
+    worst = max(worst, _paged_check(
+        pa, "split_kv g3 hd24 width 505", pa._paged_launch(pa.SPLIT_KV, *wide),
+        wide))
+
+    turns = time_routes(
+        "paged_attention decode shape", lambda: pa.paged_attention(*args),
+        lambda: pa._paged_launch(pa.SPLIT_KV, *args),
+        lambda: pa._paged_launch(pa.ONE_PASS, *args),
+        routes=(pa.SPLIT_KV, pa.ONE_PASS))
+    plain_ms = time_ms(lambda: pa.paged_attention_ref(*args))
+    bound_ms, bound_by = _paged_bound(args)
+    read_ms = _read_ms(args)
     total = int(lengths_h.sum())
-    # live k and v rows read once, q, tables and lengths read once, the
-    # fp32 partials written once; QK and PV over every live position
-    nbytes = (2 * total * kv * hd * 2 + qg.numel() * 2 + tables.numel() * 4
-              + lengths.numel() * 4 + 4 * sum(x.numel() for x in got))
-    bound_ms, bound_by = bound(nbytes, 4 * total * kv * g * hd,
-                               torch.bfloat16)
-    log(f"paged_attention timing (8 slots, {total} live positions): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
+    log(f"paged_attention timing (8 slots, {total} live positions): wrapper "
+        f"{turns['ms']:.4f} ms, device split_kv {turns['device_ms']:.4f} vs "
+        f"one_pass {turns['device_ms_one_pass']:.4f} ms "
+        f"({turns['device_ms_one_pass'] / turns['device_ms']:.1f}x), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), a sum "
+        f"over the live K/V bytes {read_ms:.4f} ms")
+
+    # the flagship's full context (max_len 1024)
+    full = _paged_inputs(gen, rng, [1024] * 4 + [0, 700] + [1024] * 4, kv,
+                         g, hd, bsz, 16)
+    zero_counts(pa.paged_attention)
+    full_got = pa.paged_attention(*full)
+    check_routes("paged_attention full context", pa.paged_attention, 1, 0)
+    worst = max(worst, _paged_check(pa, "split_kv full context", full_got,
+                                    full))
+    worst = max(worst, _paged_check(
+        pa, "one_pass full context", pa._paged_launch(pa.ONE_PASS, *full),
+        full))
+    full_turns = time_routes(
+        "paged_attention full context", lambda: pa.paged_attention(*full),
+        lambda: pa._paged_launch(pa.SPLIT_KV, *full),
+        lambda: pa._paged_launch(pa.ONE_PASS, *full),
+        routes=(pa.SPLIT_KV, pa.ONE_PASS))
+    full_plain_ms = time_ms(lambda: pa.paged_attention_ref(*full))
+    full_bound = _paged_bound(full)
+    full_read_ms = _read_ms(full)
+    full_total = int(full[-1].sum())
+    log(f"paged_attention timing full context (10 slots, {full_total} live "
+        f"positions): device split_kv {full_turns['device_ms']:.4f} vs "
+        f"one_pass {full_turns['device_ms_one_pass']:.4f} ms "
+        f"({full_turns['device_ms_one_pass'] / full_turns['device_ms']:.1f}x)"
+        f", bound {full_bound[0]:.5f} ms ({full_bound[1]}): "
+        f"{full_bound[0] / full_turns['device_ms']:.1%} of the bound; a sum "
+        f"over the live K/V bytes {full_read_ms:.4f} ms")
     return {"name": "paged_attention", "route": "cuda",
             "source": pa.SOURCE, "replaces": pa.REPLACES,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "max_abs_err": worst, "ms": turns["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "timed_route": pa.SPLIT_KV, "one_pass_source": pa.ONE_PASS_SOURCE,
+            "device_ms_read_bytes": read_ms,
+            "full_context_device_ms_read_bytes": full_read_ms,
+            **{key: x for key, x in turns.items() if key != "ms"},
+            **{f"full_context_{key}": x for key, x in full_turns.items()},
+            "full_context_plain_ms": full_plain_ms,
+            "full_context_bound_ms": full_bound[0],
+            "full_context_bound_by": full_bound[1],
+            "full_context_live_positions": full_total}
 
 
 def _library_bwd_ms(q, k, v, g):
@@ -734,9 +873,10 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 # phase 3: a tiny model on the card against the CPU plain path
 
 
-def small_phase(tf, serving, fa) -> None:
+def small_phase(tf, serving, fa, pa) -> None:
     """A tiny fp32 flash model served on the card (the flash forward on
-    its CUDA-core route: fp32 stays exact) against the CPU plain path."""
+    its CUDA-core route and the paged kernel on its one-pass route:
+    fp32 stays exact) against the CPU plain path."""
     cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=128,
                          dtype="float32", flash=True)
@@ -763,11 +903,15 @@ def small_phase(tf, serving, fa) -> None:
               f"small phase ({device}): blocks left in use")
         return done, eng.preemptions
 
-    zero_counts(fa.flash_attention)
+    zero_counts(fa.flash_attention, pa.paged_attention)
     card, card_pre = run(params, "cuda")
     n = fa.flash_attention.launches
     check_routes("small model flash_attention", fa.flash_attention, 0, n)
     check(n > 0, "small phase: the flash forward was never launched")
+    n_paged = pa.paged_attention.launches
+    check_routes("small model paged_attention", pa.paged_attention, 0,
+                 n_paged)
+    check(n_paged > 0, "small phase: the paged kernel was never launched")
     plain, plain_pre = run(cpu_params, "cpu")
     ties = 0
     for rid in sorted(plain):
@@ -827,6 +971,7 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     launches = {"flash_attention": fa.flash_attention.launches,
                 "paged_attention": pa.paged_attention.launches}
     flash_routes = dict(fa.flash_attention.launches_by_route)
+    paged_routes = dict(pa.paged_attention.launches_by_route)
 
     check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed")
     for r in reqs:
@@ -851,6 +996,10 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     check(launches["paged_attention"] == want_paged > 0,
           "paged_attention launch count")
     check_routes("serving flash_attention", fa.flash_attention, want_flash, 0)
+    check(paged_routes == {"split_kv": want_paged, "one_pass": 0},
+          f"serving paged_attention: launches by route {paged_routes}, "
+          f"expected all {want_paged} on split_kv")
+    log(f"serving paged_attention: launches by route {paged_routes}")
 
     gen_tokens = sum(len(c.tokens) for c in done.values())
     ttft = float(np.mean([c.ttft_s for c in done.values()]))
@@ -879,7 +1028,8 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     log(f"serving gather tier: {gen_tokens} tokens in {gwall:.3f} s = "
         f"{gen_tokens / gwall:.1f} generated tok/s; streams equal to the "
         f"kernel tier: {agree} of {len(reqs)}; first divergence: {first}")
-    return launches, flash_routes
+    return launches, {"flash_attention": flash_routes,
+                      "paged_attention": paged_routes}
 
 
 # ---------------------------------------------------------------------
@@ -1292,7 +1442,7 @@ def main() -> int:
 
     flash_row = flash_phase(fa)
     kernels = [flash_row, paged_phase(pa), *flash_bwd_phase(fa, flash_row)]
-    small_phase(tf, serving, fa)
+    small_phase(tf, serving, fa, pa)
     launches, serve_routes = serve_phase(flagship, serving, fa, pa)
     small_train_phase(tf, fa)
     train_launches, train_plain = train_phase(trainer, fa)
@@ -1305,11 +1455,13 @@ def main() -> int:
     launches.update({name: n for name, n in train_launches.items()
                      if name not in launches})
     flash_row.update({
-        "launches_by_route": serve_routes,
+        "launches_by_route": serve_routes["flash_attention"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        if k is not flash_row and k["name"] in train_plain["routes"]:
+        if k["name"] == "paged_attention":
+            k["launches_by_route"] = serve_routes["paged_attention"]
+        elif k is not flash_row and k["name"] in train_plain["routes"]:
             k["launches_by_route"] = train_plain["routes"][k["name"]]
     kernels += toolchain_rows
     check(all(k["launches"] > 0 for k in kernels),

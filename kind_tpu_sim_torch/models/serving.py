@@ -61,9 +61,10 @@ from kind_tpu_sim_torch.models.transformer import (
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Engine knobs (the vLLM --max-num-seqs / --max-model-len analog),
-    with the JAX package's names and defaults. ``prefix_cache_entries``,
-    ``speculative_k`` and the fields past ``paged_width`` belong to
-    later slices: set away from their defaults, the engine raises."""
+    with the JAX package's names, order and defaults.
+    ``prefix_cache_entries``, ``speculative_k``, ``spec_windows`` and the
+    fields past ``paged_width`` belong to later slices: set away from
+    their defaults, the engine raises."""
 
     max_slots: int = 4        # concurrent sequences (the decode batch)
     max_len: int = 128        # per-slot KV capacity (prompt + generated)
@@ -73,6 +74,8 @@ class ServingConfig:
     paged_blocks: int = 0     # >0: paged KV (PagedServingEngine)
     block_size: int = 16      # KV positions per pool block
     speculative_k: int = 0
+    spec_windows: int = 4     # speculative grid engine: verify windows
+    #                           scanned per dispatch
     paged_kernel: bool = False  # paged tier only: the CUDA paged-
     #                             attention kernel (direct block reads)
     paged_width: int = 0      # paged tier: fixed block-table width
@@ -96,6 +99,7 @@ class Request:
     eos_id: Optional[int] = None
     sampling: Optional[SamplingConfig] = None
     seed: Optional[int] = None
+    cache_prefix: bool = False   # not ported yet: must be False
     deadline_s: Optional[float] = None  # not ported yet: must be None
     logprobs: bool = False       # raw-model log-probability per token
 
@@ -106,6 +110,7 @@ class Completion:
     prompt: List[int]
     tokens: List[int]          # generated tokens (eos included if hit)
     finish_reason: str         # "stop" (eos) or "length"
+    deadline_exceeded: bool = False  # deadlines are not ported yet
     ttft_s: Optional[float] = None   # submit -> first token
     e2e_s: Optional[float] = None    # submit -> completion
     logprobs: Optional[List[float]] = None
@@ -339,6 +344,7 @@ def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
         "prefill_chunk>0": serving.prefill_chunk > 0,
         "overlap_rounds": serving.overlap_rounds,
         "speculative_k>0": serving.speculative_k > 0,
+        "spec_windows!=4": serving.spec_windows != 4,
         "admission_wave_sizes": bool(serving.admission_wave_sizes),
         "max_queue>0": serving.max_queue > 0,
         "a mesh": mesh is not None,
@@ -424,6 +430,10 @@ class ServingEngine:
         if request.deadline_s is not None:
             raise ValueError(
                 "Request.deadline_s is not ported to kind_tpu_sim_torch "
+                "yet (a later slice)")
+        if request.cache_prefix:
+            raise ValueError(
+                "Request.cache_prefix is not ported to kind_tpu_sim_torch "
                 "yet (a later slice)")
         if request.max_new < 1:
             raise ValueError("max_new must be >= 1")

@@ -3,7 +3,9 @@
 ``flash_attention.forward_route``, ``flash_attention.backward_route``
 and ``toolchain.matmul_route`` pick the tensor-core kernel (wgmma fed
 by TMA) or the CUDA-core kernel from the inputs alone, before any
-launch. These are pure functions of dtype, shape, strides and
+launch; ``paged_attention.paged_route`` picks the split-KV kernel or
+the one-pass kernel the same way, and ``blocks_per_split`` sizes the
+split kernel's grid from host-known numbers. These are pure functions of dtype, shape, strides and
 alignment, so they are checked here on CPU tensors of the same
 layouts; a CPU call of any wrapper still takes the plain version and
 counts no launch on either route.
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from kind_tpu_sim_torch.ops import flash_attention as fa
+from kind_tpu_sim_torch.ops import paged_attention as pa
 from kind_tpu_sim_torch.ops import toolchain as tc
 
 TC, CC = fa.TENSOR_CORES, fa.CUDA_CORES
@@ -216,3 +219,110 @@ def test_cpu_calls_take_the_plain_versions_and_count_no_route():
     assert fa.flash_attention.launches_by_route == flash_routes
     assert tc.matmul.launches_by_route == matmul_routes
     assert set(flash_routes) == set(matmul_routes) == {TC, CC}
+
+
+def _paged_inputs(slots=8, kv=4, g=4, hd=128, nblocks=129, bsz=64, width=8,
+                  dtype=torch.bfloat16, offset=0):
+    """Inputs of the serving path's decode call (default: the flagship
+    shape), the pools starting ``offset`` elements into their
+    allocations."""
+    n = nblocks * bsz * kv * hd
+    pools = [torch.zeros(offset + n, dtype=dtype)[offset:].view(
+        nblocks, bsz, kv, hd) for _ in range(2)]
+    return (torch.zeros(slots, kv, g, hd, dtype=dtype), *pools,
+            torch.zeros(slots, width, dtype=torch.int32),
+            torch.zeros(slots, dtype=torch.int32))
+
+
+SPLIT, ONE = pa.SPLIT_KV, pa.ONE_PASS
+PAGED_CASES = {
+    "bf16 flagship": ({}, SPLIT),
+    "bf16 full context width 16": ({"width": 16, "nblocks": 200}, SPLIT),
+    "bf16 gqa8 hd64 bsz16": ({"g": 8, "hd": 64, "bsz": 16}, SPLIT),
+    "bf16 hd256 bsz256": ({"kv": 2, "hd": 256, "bsz": 256,
+                           "nblocks": 9}, SPLIT),
+    "bf16 g3 hd24 width 505": ({"slots": 1, "kv": 1, "g": 3, "hd": 24,
+                                "nblocks": 9, "width": 505}, SPLIT),
+    "fp32 flagship": ({"dtype": torch.float32}, ONE),
+    "fp32 small model": ({"slots": 4, "kv": 2, "g": 2, "hd": 32,
+                          "nblocks": 9, "bsz": 16, "width": 5,
+                          "dtype": torch.float32}, ONE),
+    "bf16 hd 12": ({"hd": 12}, ONE),
+    "bf16 pools one element off": ({"offset": 1}, ONE),
+    "bf16 table too wide for shared memory": ({"width": 40000}, ONE),
+}
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_route(case):
+    kwargs, want = PAGED_CASES[case]
+    args = _paged_inputs(**kwargs)
+    if case != "bf16 pools one element off":
+        pa._check(*args)  # every other case is one the wrapper takes
+    assert pa.paged_route(*args) == want
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (width, bsz)
+    ((8, 64), 1),        # the flagship decode call: 8 x 4 x 8 blocks
+    ((16, 64), 1),       # the flagship's full max_len
+    ((8, 16), 4),        # at least one 64-position tile
+    ((12, 16), 4),
+    ((3, 16), 3),        # never more than the table
+    ((8, 256), 1),
+    ((1, 64), 1),
+    ((505, 64), 1),
+    ((1024, 64), 2),     # never more than MAX_SPLITS splits
+])
+def test_blocks_per_split(shape, want):
+    width, bsz = shape
+    bps = pa.blocks_per_split(width, bsz)
+    assert bps == want
+    assert -(-width // bps) <= pa.MAX_SPLITS
+
+
+def test_split_smem_bytes_matches_the_kernel_layout():
+    """csrc/paged_attention_split.cu's layout at the flagship shape (8
+    splits): one stage of K and V (64 rows of 17 16-byte chunks each),
+    q in fp32, 64 x 8 scores, one table entry."""
+    q_off = 2 * 64 * 17 * 16
+    assert pa.split_layout(4, 128, 1, 1, 8) == (
+        q_off, q_off + 4 * 128 * 4, q_off + 4 * 128 * 4 + 64 * 8 * 4,
+        q_off + 4 * 128 * 4 + 64 * 8 * 4 + 16)
+    # the row-group sums outgrow a one-stage ring at head dim 8
+    assert pa.split_layout(8, 8, 1, 1, 8)[-1] == (
+        128 * 8 * 8 * 4 + 8 * 8 * 4 + 64 * 8 * 4 + 16)
+    # and the combine's m and l outgrow both at 512 splits
+    assert pa.split_layout(8, 8, 1, 1, 512)[-1] == (
+        512 * 8 * 2 * 4 + 8 * 8 * 4 + 64 * 8 * 4 + 16)
+
+
+@pytest.mark.parametrize("g,hd,stages,bps,n_splits", [
+    (3, 24, 1, 1, 505),   # the combine's m and l (12120 bytes) lead
+    (1, 8, 1, 1, 511),
+    (5, 40, 2, 7, 73),
+    (4, 128, 2, 2, 8),
+    (8, 256, 2, 3, 3),
+])
+def test_split_layout_keeps_16_byte_boundaries(g, hd, stages, bps,
+                                               n_splits):
+    """q is read as float4 and the tile ring by 16-byte copies: every
+    part of the layout starts on a 16-byte boundary, whichever of the
+    ring, the row-group sums and the combine's m and l is largest."""
+    layout = pa.split_layout(g, hd, stages, bps, n_splits)
+    assert all(off % 16 == 0 for off in layout)
+    assert layout[0] >= n_splits * g * 2 * 4
+
+
+def test_cpu_paged_calls_take_the_plain_version_and_count_no_route():
+    routes = dict(pa.paged_attention.launches_by_route)
+    qg, kp, vp, tables, lengths = _paged_inputs(
+        slots=2, kv=2, g=2, hd=16, nblocks=5, bsz=8, width=2)
+    qg, kp, vp = (x.normal_() for x in (qg, kp, vp))
+    lengths[:] = torch.tensor([9, 3])
+    tables[:] = torch.tensor([[1, 2], [3, 0]])
+    got = pa.paged_attention(qg, kp, vp, tables, lengths)
+    want = pa.paged_attention_ref(qg, kp, vp, tables, lengths)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert pa.paged_attention.launches_by_route == routes
+    assert set(routes) == {SPLIT, ONE}

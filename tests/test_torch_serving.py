@@ -20,8 +20,10 @@ import jax.numpy as jnp
 
 from kind_tpu_sim.models import decode as jdecode
 from kind_tpu_sim.models import serving as jserving
+from kind_tpu_sim.models import transformer as jtransformer
 from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import serving as pserving
+from kind_tpu_sim_torch.models import transformer as ptransformer
 
 from torch_parity import (
     TINY,
@@ -304,6 +306,44 @@ def test_config_features_outside_the_slice_raise(params, field):
     with pytest.raises(ValueError, match="not ported"):
         pserving.ServingEngine(params[1], cfg, pserving.ServingConfig(),
                                device="cpu")
+
+
+FIELD_CLASSES = {
+    "ServingConfig": (pserving.ServingConfig, jserving.ServingConfig),
+    "Request": (pserving.Request, jserving.Request),
+    "Completion": (pserving.Completion, jserving.Completion),
+    "SamplingConfig": (pdecode.SamplingConfig, jdecode.SamplingConfig),
+    "ModelConfig": (ptransformer.ModelConfig, jtransformer.ModelConfig),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIELD_CLASSES))
+def test_config_fields_match_the_reference_in_order(name):
+    """The port's copies keep the reference's field names, order and
+    defaults, so positional arguments land on the same fields."""
+    port, ref = FIELD_CLASSES[name]
+    assert ([f.name for f in dataclasses.fields(port)]
+            == [f.name for f in dataclasses.fields(ref)])
+    for pf, rf in zip(dataclasses.fields(port), dataclasses.fields(ref)):
+        assert pf.default == rf.default, pf.name
+
+
+def test_positional_serving_config_lands_like_the_reference():
+    args = (4, 128, 16, 0, 64, 16, 0, 4)
+    port, ref = pserving.ServingConfig(*args), jserving.ServingConfig(*args)
+    assert port.spec_windows == ref.spec_windows == 4
+    assert port.paged_kernel is ref.paged_kernel is False
+
+
+def test_unported_spec_windows_and_cache_prefix_raise(params):
+    with pytest.raises(ValueError, match="spec_windows"):
+        pserving.ServingEngine(params[1], CFG,
+                               pserving.ServingConfig(spec_windows=2),
+                               device="cpu")
+    eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="cache_prefix"):
+        eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True))
 
 
 def test_mesh_and_deadline_raise(params):
