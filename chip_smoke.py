@@ -43,7 +43,10 @@ it fails (nothing is caught and ignored):
 7. toolchain -- the kernel-toolchain gate ``toolchain_smoke`` on the
    card (the matmul, rms_norm and softmax kernels, each launched once),
    then each of the three at flagship width against its plain version,
-   timed beside its plain version and one PyTorch call;
+   rms_norm and softmax also on edge cases (ragged row counts, the
+   longest rows their new routes hold, -inf entries, rows their new
+   routes refuse), timed beside its plain version and one PyTorch
+   call;
 8. train_smoke -- ``python -m kind_tpu_sim_torch train-smoke --steps 10
    --checkpoint-dir <tmp> --json`` in-process: data pipeline, train
    steps and the checkpoint/resume round trip on the card.
@@ -57,11 +60,17 @@ fed by TMA for bf16 that TMA can read, the first CUDA-core kernel
 otherwise. Paged attention has two as well: the split-KV kernel (the
 sequence split across blocks, 16-byte asynchronous copies, a combine
 in fixed split order) for bf16 that 16-byte copies can read, the
-one-pass kernel otherwise. Phases 2-7 check which route every launch
-took from the wrappers' per-route counts: the bf16 main paths (phases
-2, 4, 6, the flagship products of 7) on the tensor cores and the
-split-KV kernel only, the fp32 tiny models (3, 5) and the gate's fp32
-product on the CUDA cores and the one-pass kernel only. Phase 2 holds
+one-pass kernel otherwise. So do rms_norm and softmax: ``vector`` and
+``one_read`` (16-byte loads, the row held in registers and read from
+device memory once) for rows that 16-byte loads can read and registers
+hold, ``scalar`` and ``two_pass`` (the first kernels) otherwise. Phases
+2-7 check which route every launch took from the wrappers' per-route
+counts: the bf16 main paths (phases 2, 4, 6, the flagship products of
+7) on the tensor cores and the split-KV kernel only, the fp32 tiny
+models (3, 5) and the gate's fp32 product on the CUDA cores and the
+one-pass kernel only, the gate's rms_norm and softmax on vector and
+one_read, and each row-kernel case of 7 on the route its inputs call
+for. Phase 2 holds
 the split-KV kernel at several split sizes and the one-pass kernel to
 the plain version on the same inputs, and checks that two split-KV
 calls give bitwise-equal partials. Phase 2 also
@@ -73,7 +82,8 @@ redesigned kernel is timed against the kernel it replaces (kept as the
 other route) on the same inputs, in turns, in the same run, both through their C entry
 points behind the same Python layer: as every other kernel
 (``ms_tensor_cores``, ``ms_cuda_cores``; ``ms_split_kv``,
-``ms_one_pass``), as device time alone with the card kept busy while
+``ms_one_pass``; ``ms_vector``, ``ms_scalar``; ``ms_one_read``,
+``ms_two_pass``), as device time alone with the card kept busy while
 the host enqueues (``device_ms*``), and as host time per call
 (``host_us*``). Its row's ``ms`` and ``host_us``
 are the user's wrapper's, as for every other kernel.
@@ -132,9 +142,14 @@ MATMUL_REL_TOL = 1e-3
 # rms_norm: the bf16 output of two fp32 computations that differ in
 # summation order and rsqrt may round to neighbouring bf16 values
 RMS_NORM_ULPS = 1.0
+# rms_norm in fp32: the gate's own bar (toolchain_smoke)
+RMS_NORM_FP32_ATOL = 1e-5
 # softmax: fp32 throughout; the kernel's running sum differs from the
 # plain version's only in order and in the rescaling of partial sums
 SOFTMAX_ATOL = 1e-6
+# softmax in bf16: one rounding to bf16 of fp32 values that agree to
+# about 1e-7 relative may land on neighbouring bf16 values
+SOFTMAX_BF16_ULPS = 1.0
 
 
 def fail(msg: str) -> None:
@@ -1219,19 +1234,222 @@ def _bf16_ulps(got, want) -> float:
     return float(((g - w).abs() / ulp).max())
 
 
+def _rows_input(gen, shape, dtype, offset: int = 0, scale: float = 1.0):
+    """A normal (rows, n) tensor on the card; with ``offset`` a view
+    that many elements into its allocation (off a 16-byte boundary)."""
+    n = math.prod(shape)
+    flat = torch.randn((n + offset,), generator=gen, device="cuda") * scale
+    return flat.to(dtype)[offset:].view(shape)
+
+
+def _row_case(name: str, fn, want_route: str, got, want, ulps_bar: float,
+              atol: float = 0.0) -> float:
+    """Check one row-kernel case: output dtype and shape, NaN exactly
+    where the plain version has NaN, the route its one launch took, and
+    the error on the rest (bf16 in units of bf16's last place, at most
+    ``ulps_bar``; fp32 absolute, at most ``atol``). Returns the largest
+    absolute error."""
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: output {got.dtype} {tuple(got.shape)}")
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan),
+          f"{name}: NaN where the plain version has none, or the reverse")
+    g = got.float().masked_fill(nan, 0.0)
+    w = want.float().masked_fill(nan, 0.0)
+    err = float((g - w).abs().max())
+    if got.dtype == torch.float32:
+        log(f"{name}: max_abs_err {err:.3e} (tolerance {atol}), "
+            f"{int(nan.any(-1).sum())} NaN rows")
+        check(math.isfinite(err) and err <= atol, f"{name}: error {err}")
+    else:
+        ulps = _bf16_ulps(g, w)
+        log(f"{name}: max_abs_err {err:.3e}, {ulps:.2f} bf16 ulps (tolerance "
+            f"{ulps_bar}), {int(nan.any(-1).sum())} NaN rows")
+        check(ulps <= ulps_bar, f"{name}: {ulps} ulps")
+    counts = [int(r == want_route) for r in fn.launches_by_route]
+    check_routes(name, fn, *counts)
+    return err
+
+
+def rms_norm_cases(tc, gen, gate_routes: dict) -> dict:
+    """rms_norm on the card against its plain version, each case through
+    the user's wrapper with its route asserted: the vector route at the
+    flagship shape (the norm input over one training batch, bf16 (8192,
+    2048)) with an fp32 and a bf16 weight, on a row count the 8 rows a
+    block do not divide, on fp32 rows with a bf16 weight (8-byte weight
+    loads), and at the longest row it holds (bf16 d 65536, 32 warps a
+    row); the scalar route on rows the vector route refuses
+    (d % 8 != 0, a base off a 16-byte boundary, one chunk past the
+    longest). Then the two routes timed in turns at the flagship shape.
+    Returns the kernels line's row."""
+    m, k = 8192, 2048
+    x = _rows_input(gen, (m, k), torch.bfloat16)
+    w = _rows_input(gen, (k,), torch.float32)
+    cases = [
+        ("flagship, fp32 weight", x, w, tc.VECTOR),
+        ("flagship, bf16 weight", x, w.bfloat16(), tc.VECTOR),
+        ("1001 rows", _rows_input(gen, (1001, k), torch.bfloat16), w,
+         tc.VECTOR),
+        ("fp32 x, bf16 weight", _rows_input(gen, (1001, k), torch.float32),
+         w.bfloat16(), tc.VECTOR),
+        ("longest row held, d 65536",
+         _rows_input(gen, (64, 65536), torch.bfloat16),
+         _rows_input(gen, (65536,), torch.float32), tc.VECTOR),
+        ("one chunk past it, d 65544",
+         _rows_input(gen, (16, 65544), torch.bfloat16),
+         _rows_input(gen, (65544,), torch.float32), tc.SCALAR),
+        ("d 2044", _rows_input(gen, (1001, 2044), torch.bfloat16),
+         _rows_input(gen, (2044,), torch.float32), tc.SCALAR),
+        ("base one element off",
+         _rows_input(gen, (1001, k), torch.bfloat16, offset=1), w,
+         tc.SCALAR),
+    ]
+    err, checked = 0.0, dict.fromkeys(tc.RMS_NORM_ROUTES, 0)
+    for name, xc, wc, route in cases:
+        zero_counts(tc.rms_norm)
+        case_err = _row_case(
+            f"rms_norm {str(xc.dtype)[6:]} {tuple(xc.shape)} {name}",
+            tc.rms_norm, route, tc.rms_norm(xc, wc), tc.rms_norm_ref(xc, wc),
+            RMS_NORM_ULPS, RMS_NORM_FP32_ATOL)
+        checked[route] += 1
+        if xc is x:
+            err = max(err, case_err)
+    del cases
+
+    turns = time_routes(
+        f"rms_norm bf16 ({m},{k})", lambda: tc.rms_norm(x, w),
+        lambda: tc._rms_norm_launch(x, w, tc.VECTOR),
+        lambda: tc._rms_norm_launch(x, w, tc.SCALAR),
+        routes=tc.RMS_NORM_ROUTES)
+    plain_ms = time_ms(lambda: tc.rms_norm_ref(x, w))
+    w_bf16 = w.bfloat16()  # F.rms_norm wants the weight in x's dtype
+    library_ms = time_ms(lambda: torch.nn.functional.rms_norm(
+        x, (k,), w_bf16, 1e-6))
+    library_device_ms = time_ms(lambda: torch.nn.functional.rms_norm(
+        x, (k,), w_bf16, 1e-6), cover_enqueue=True)
+    # the kernel's bytes moved by one PyTorch copy (x read, a copy
+    # written): what one launch reaches here, as against the bound
+    copy_device_ms = time_ms(x.clone, cover_enqueue=True)
+    # x and w read once, out written once; ~4 fp32 flops an element
+    bound_ms, bound_by = bound(2 * 2 * m * k + 4 * k, 4 * m * k,
+                               torch.float32)
+    share = bound_ms / turns["device_ms"]
+    log(f"rms_norm timing: wrapper {turns['ms']:.4f} ms, device vector "
+        f"{turns['device_ms']:.4f} ({share:.1%} of the bound) vs scalar "
+        f"{turns['device_ms_scalar']:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"F.rms_norm {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+        f"x.clone() device {copy_device_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return {"name": "rms_norm", "route": "cuda",
+            "source": tc.RMS_NORM_SOURCE, "replaces": tc.RMS_NORM_REPLACES,
+            "max_abs_err": err, "ms": turns["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_call": "torch.nn.functional.rms_norm, weight cast "
+                            "to bf16 beforehand",
+            **{key: t for key, t in turns.items() if key != "ms"},
+            "library_device_ms": library_device_ms,
+            "copy_device_ms": copy_device_ms,
+            "device_share_of_bound": share, "timed_route": tc.VECTOR,
+            "launches_by_route": gate_routes,
+            "check_launches_by_route": checked}
+
+
+def _neg_inf_rows(gen, shape):
+    """fp32 rows with about a third of the entries -inf and row 5 all
+    -inf (its softmax is NaN, in the plain version as in the kernels)."""
+    x = _rows_input(gen, shape, torch.float32, scale=4.0)
+    x[torch.rand(x.shape, generator=gen, device="cuda") < 0.3] = -math.inf
+    x[5] = -math.inf
+    return x
+
+
+def softmax_cases(tc, gen, gate_routes: dict) -> dict:
+    """softmax on the card against its plain version, each case through
+    the user's wrapper with its route asserted: the one_read route at
+    the flagship shape (the readout logits over one training batch,
+    fp32 (8192, 32768)) and in bf16, on a row count the 8 rows a block
+    do not divide, and on rows with -inf entries and one all -inf row;
+    the two_pass route on rows longer than the 32768 one_read holds
+    (with -inf entries and an all -inf row too) and on a base off a
+    16-byte boundary. Then the two routes timed in turns at the flagship
+    shape. Returns the kernels line's row."""
+    m, v = 8192, 32768
+    x = _rows_input(gen, (m, v), torch.float32, scale=4.0)
+    cases = [
+        ("flagship", x, tc.ONE_READ),
+        ("flagship in bf16",
+         _rows_input(gen, (m, v), torch.bfloat16, scale=4.0), tc.ONE_READ),
+        ("1001 rows",
+         _rows_input(gen, (1001, 1024), torch.float32, scale=4.0),
+         tc.ONE_READ),
+        ("-inf entries, an all -inf row", _neg_inf_rows(gen, (64, v)),
+         tc.ONE_READ),
+        ("past the longest row held, -inf entries, an all -inf row",
+         _neg_inf_rows(gen, (64, v + 4)), tc.TWO_PASS),
+        ("base one element off",
+         _rows_input(gen, (1001, 1024), torch.float32, offset=1,
+                     scale=4.0),
+         tc.TWO_PASS),
+    ]
+    err, checked = 0.0, dict.fromkeys(tc.SOFTMAX_ROUTES, 0)
+    for name, xc, route in cases:
+        zero_counts(tc.softmax)
+        case_err = _row_case(
+            f"softmax {str(xc.dtype)[6:]} {tuple(xc.shape)} {name}",
+            tc.softmax, route, tc.softmax(xc), tc.softmax_ref(xc),
+            SOFTMAX_BF16_ULPS, SOFTMAX_ATOL)
+        checked[route] += 1
+        if xc is x:
+            err = case_err
+    del cases
+
+    turns = time_routes(
+        f"softmax fp32 ({m},{v})", lambda: tc.softmax(x),
+        lambda: tc._softmax_launch(x, tc.ONE_READ),
+        lambda: tc._softmax_launch(x, tc.TWO_PASS),
+        routes=tc.SOFTMAX_ROUTES)
+    plain_ms = time_ms(lambda: tc.softmax_ref(x))
+    library_ms = time_ms(lambda: torch.softmax(x, -1))
+    library_device_ms = time_ms(lambda: torch.softmax(x, -1),
+                                cover_enqueue=True)
+    copy_device_ms = time_ms(x.clone, cover_enqueue=True)
+    # x read once, out written once; ~5 fp32 flops an element
+    bound_ms, bound_by = bound(2 * 4 * m * v, 5 * m * v, torch.float32)
+    share = bound_ms / turns["device_ms"]
+    log(f"softmax timing: wrapper {turns['ms']:.4f} ms, device one_read "
+        f"{turns['device_ms']:.4f} ({share:.1%} of the bound) vs two_pass "
+        f"{turns['device_ms_two_pass']:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.softmax {library_ms:.4f} ms (device "
+        f"{library_device_ms:.4f}), x.clone() device {copy_device_ms:.4f} "
+        f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "softmax", "route": "cuda",
+            "source": tc.SOFTMAX_SOURCE, "replaces": tc.SOFTMAX_REPLACES,
+            "max_abs_err": err, "ms": turns["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call": "torch.softmax(x, -1)",
+            **{key: t for key, t in turns.items() if key != "ms"},
+            "library_device_ms": library_device_ms,
+            "copy_device_ms": copy_device_ms,
+            "device_share_of_bound": share, "timed_route": tc.ONE_READ,
+            "launches_by_route": gate_routes,
+            "check_launches_by_route": checked}
+
+
 def toolchain_phase(tc) -> list:
     """``toolchain_smoke`` on the card with the three launch counters
     zeroed just before and read just after (each kernel exactly once:
-    its rows' ``launches``; the fp32 matmul on the CUDA-core route).
+    its rows' ``launches``; the fp32 matmul on the CUDA-core route,
+    rms_norm and softmax on their new routes, vector and one_read).
     Then each kernel at flagship width on the same inputs as its plain
     version: matmul of the flagship's w_up product over one 8 x 1024
     training batch (bf16 (8192, 2048) @ (2048, 8192), fp32 out) and a
     bf16 (384, 640) @ (640, 896) the tensor-core tile does not divide,
     both on the tensor-core route, plus an fp32 case on the CUDA cores;
-    rms_norm of the norm input over that batch (bf16 (8192, 2048), fp32
-    weight); softmax of its readout logits (fp32 (8192, 32768)). Each is
-    timed beside its plain version and one PyTorch call, the matmul's
-    two routes in turns."""
+    rms_norm and softmax on the cases of ``rms_norm_cases`` and
+    ``softmax_cases``. Each is timed beside its plain version and one
+    PyTorch call, its two routes in turns."""
     zero_counts(tc.matmul, tc.rms_norm, tc.softmax)
     rep = tc.toolchain_smoke("cuda")
     launches = {"matmul": tc.matmul.launches,
@@ -1243,8 +1461,13 @@ def toolchain_phase(tc) -> list:
           f"toolchain_smoke on the card: {rep}")
     check(all(n == 1 for n in launches.values()),
           f"toolchain_smoke launch counts {launches} (each kernel once)")
-    # the gate's 256 x 256 fp32 product stays exact on the CUDA cores
+    # the gate's 256 x 256 fp32 product stays exact on the CUDA cores;
+    # its (64, 128) fp32 rows take the row kernels' new routes
     check_routes("toolchain_smoke matmul", tc.matmul, 0, 1)
+    check_routes("toolchain_smoke rms_norm", tc.rms_norm, 1, 0)
+    check_routes("toolchain_smoke softmax", tc.softmax, 1, 0)
+    gate_rows = {"rms_norm": dict(tc.rms_norm.launches_by_route),
+                 "softmax": dict(tc.softmax.launches_by_route)}
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
@@ -1317,66 +1540,8 @@ def toolchain_phase(tc) -> list:
                  "check_launches_by_route": flagship_routes})
     del a, b
 
-    # rms_norm
-    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-    w = torch.randn((k,), generator=gen, device="cuda")
-    got, want = tc.rms_norm(x, w), tc.rms_norm_ref(x, w)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.bfloat16 and got.shape == x.shape,
-          f"rms_norm: output {got.dtype} {tuple(got.shape)}")
-    err = float((got.float() - want.float()).abs().max())
-    ulps = _bf16_ulps(got, want)
-    log(f"rms_norm bf16 ({m},{k}): max_abs_err {err:.3e}, {ulps:.2f} bf16 "
-        f"ulps (tolerance {RMS_NORM_ULPS})")
-    check(ulps <= RMS_NORM_ULPS, f"rms_norm: {ulps} ulps")
-    w_bf16 = w.bfloat16()  # F.rms_norm wants the weight in x's dtype
-    ms = time_ms(lambda: tc.rms_norm(x, w))
-    plain_ms = time_ms(lambda: tc.rms_norm_ref(x, w))
-    library_ms = time_ms(lambda: torch.nn.functional.rms_norm(
-        x, (k,), w_bf16, 1e-6))
-    # x and w read once, out written once; ~4 fp32 flops an element
-    bound_ms, bound_by = bound(2 * 2 * m * k + 4 * k, 4 * m * k,
-                               torch.float32)
-    log(f"rms_norm timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.rms_norm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
-    rows.append({"name": "rms_norm", "route": "cuda",
-                 "source": tc.RMS_NORM_SOURCE,
-                 "replaces": tc.RMS_NORM_REPLACES, "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms,
-                 "library_call": "torch.nn.functional.rms_norm, weight cast "
-                                 "to bf16 beforehand"})
-    del x, got, want
-
-    # softmax
-    v = 32768
-    x = torch.randn((m, v), generator=gen, device="cuda") * 4
-    got, want = tc.softmax(x), tc.softmax_ref(x)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.float32 and got.shape == x.shape,
-          f"softmax: output {got.dtype} {tuple(got.shape)}")
-    err = float((got - want).abs().max())
-    log(f"softmax fp32 ({m},{v}): max_abs_err {err:.3e} (tolerance "
-        f"{SOFTMAX_ATOL})")
-    check(math.isfinite(err) and err <= SOFTMAX_ATOL,
-          f"softmax: max_abs_err {err}")
-    del got, want
-    ms = time_ms(lambda: tc.softmax(x))
-    plain_ms = time_ms(lambda: tc.softmax_ref(x))
-    library_ms = time_ms(lambda: torch.softmax(x, -1))
-    # x read once, out written once; ~5 fp32 flops an element
-    bound_ms, bound_by = bound(2 * 4 * m * v, 5 * m * v, torch.float32)
-    log(f"softmax timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.softmax {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
-    rows.append({"name": "softmax", "route": "cuda",
-                 "source": tc.SOFTMAX_SOURCE,
-                 "replaces": tc.SOFTMAX_REPLACES, "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms,
-                 "library_call": "torch.softmax(x, -1)"})
-    del x
+    rows += [rms_norm_cases(tc, gen, gate_rows["rms_norm"]),
+             softmax_cases(tc, gen, gate_rows["softmax"])]
     for row in rows:
         row["launches"] = launches[row["name"]]
     return rows

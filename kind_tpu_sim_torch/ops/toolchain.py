@@ -9,15 +9,25 @@ C++ (``csrc/matmul.cu``, ``csrc/rms_norm.cu``, ``csrc/softmax.cu``).
 Every wrapper dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version
 (``matmul_ref``, ``rms_norm_ref``, ``softmax_ref``). Each wrapper counts
-its launches in ``.launches``. ``matmul`` has two kernels, chosen by
-``matmul_route`` before the launch: bf16 on the tensor cores (wgmma fed
-by TMA) where TMA can read the operands, else the CUDA-core kernel; it
-also counts its launches per route in ``.launches_by_route``.
+its launches in ``.launches`` and, per route, in ``.launches_by_route``.
+Each has two kernels, one chosen from the inputs alone before the
+launch (``matmul_route``, ``rms_norm_route``, ``softmax_route``):
+
+* ``matmul``: bf16 on the tensor cores (wgmma fed by TMA) where TMA can
+  read the operands, else the CUDA-core kernel;
+* ``rms_norm``: ``VECTOR`` (16-byte loads, the row held in registers
+  and read once) where 16-byte loads can read the rows and registers
+  hold one, else ``SCALAR``, the first kernel;
+* ``softmax``: ``ONE_READ`` (16-byte loads, the row held in registers,
+  read once and written once) on the same terms, else ``TWO_PASS``,
+  the first kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,19 +43,33 @@ SOFTMAX_SOURCE = "kind_tpu_sim_torch/csrc/softmax.cu"
 MATMUL_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:65"
 RMS_NORM_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:98"
 SOFTMAX_REPLACES = "kind_tpu_sim/ops/pallas_kernels.py:122"
+# the row kernels' routes: 16-byte loads, the row held on chip (new), or
+# the first kernels (kept)
+VECTOR, SCALAR = "vector", "scalar"
+RMS_NORM_ROUTES = (VECTOR, SCALAR)
+ONE_READ, TWO_PASS = "one_read", "two_pass"
+SOFTMAX_ROUTES = (ONE_READ, TWO_PASS)
 _MATMUL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _FLOAT_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _INT_MAX = 2**31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _check_device(name: str, *tensors) -> None:
-    if len({x.device for x in tensors}) != 1:
-        raise ValueError(f"{name}: inputs on different devices")
-    if tensors[0].device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
+def _device_index(name: str, *tensors) -> int:
+    """The index of the card the tensors lie on, -1 for the CPU; raises
+    unless they all lie on one card or all on the CPU, contiguous. Reads
+    ``get_device()``, the cheapest of a tensor's device attributes."""
+    index = tensors[0].get_device()
+    for x in tensors:
+        if x.get_device() != index:
+            raise ValueError(f"{name}: inputs on different devices")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if index < 0:
+        for x in tensors:
+            if not x.is_cpu:
+                raise ValueError(f"{name}: unsupported device {x.device}")
+    return index
 
 
 def _launch(name: str, fn_name: str, argtypes: tuple, *args) -> None:
@@ -76,7 +100,7 @@ def _matmul_check(a, b, block_m: int, block_n: int, block_k: int) -> None:
             f"{b.dtype}")
     if max(m, n, k) > _INT_MAX:
         raise ValueError("matmul: a dimension does not fit in 32 bits")
-    _check_device("matmul", a, b)
+    _device_index("matmul", a, b)
 
 
 def matmul_ref(a, b):
@@ -136,21 +160,38 @@ matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------
-# rms_norm
+# rms_norm and softmax: one row at a time, two routes each
 
 
-def _rms_norm_check(x, weight) -> None:
-    if x.ndim != 2 or weight.shape != (x.shape[1],):
+class _RowPlan(NamedTuple):
+    route: str
+    entry: str      # the C entry point
+    codes: tuple    # dtype codes: x's (and the weight's, for rms_norm)
+
+
+# rms_norm's vector kernel holds a row in at most 1024 threads x 8
+# chunks of 16 bytes (csrc/rms_norm.cu)
+RMS_NORM_ROW_BYTES = 1024 * 8 * 16
+_RMS_NORM_ENTRIES = {VECTOR: "kts_rms_norm_vec", SCALAR: "kts_rms_norm"}
+_RMS_NORM_ARGTYPES = (_P, _P, _P) + (_I,) * 4 + (ctypes.c_float, _P)
+
+
+def _rms_norm_check(x, weight) -> int:
+    """Raise unless the inputs are ones the kernels take; returns their
+    card's index, -1 for the CPU."""
+    shape = x.shape
+    if (len(shape) != 2 or weight.ndim != 1
+            or weight.shape[0] != shape[1]):
         raise ValueError(
             f"rms_norm wants x (rows, d) and weight (d,); got "
-            f"{tuple(x.shape)}, {tuple(weight.shape)}")
+            f"{tuple(shape)}, {tuple(weight.shape)}")
     if x.dtype not in _FLOAT_DTYPES or weight.dtype not in _FLOAT_DTYPES:
         raise ValueError(
             f"rms_norm wants bf16, fp16 or fp32 tensors; got {x.dtype}, "
             f"{weight.dtype}")
-    if max(x.shape) > _INT_MAX:
+    if shape[0] > _INT_MAX or shape[1] > _INT_MAX:
         raise ValueError("rms_norm: a dimension does not fit in 32 bits")
-    _check_device("rms_norm", x, weight)
+    return _device_index("rms_norm", x, weight)
 
 
 def rms_norm_ref(x, weight, eps: float = 1e-6):
@@ -161,39 +202,90 @@ def rms_norm_ref(x, weight, eps: float = 1e-6):
     return (xf * inv * weight.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def _rms_norm_plan(route, dtype, w_dtype, d: int, aligned: bool) -> _RowPlan:
+    """Everything about a launch that the host knows before it, cached
+    by dtypes, row length and alignment. ``route`` None:
+    ``rms_norm_route``'s rule."""
+    if route is None:
+        row_bytes = d * dtype.itemsize
+        route = (VECTOR if aligned and row_bytes % 16 == 0
+                 and 0 < row_bytes <= RMS_NORM_ROW_BYTES else SCALAR)
+    return _RowPlan(route, _RMS_NORM_ENTRIES[route],
+                    (_FLOAT_DTYPES[dtype], _FLOAT_DTYPES[w_dtype]))
+
+
+def rms_norm_route(x, weight) -> str:
+    """The kernel a CUDA call of ``rms_norm`` launches, from the inputs
+    alone: ``VECTOR`` where 16-byte loads can read the rows (x and the
+    weight on 16-byte boundaries, a row a whole number of 16-byte
+    chunks) and registers hold one (at most ``RMS_NORM_ROW_BYTES``:
+    bf16 d <= 65536, fp32 d <= 32768); ``SCALAR`` for everything
+    else. Inputs already passed ``_rms_norm_check``."""
+    return _rms_norm_plan(None, x.dtype, weight.dtype, x.shape[1],
+                          (x.data_ptr() | weight.data_ptr()) % 16 == 0).route
+
+
+def _rms_norm_run(plan: _RowPlan, x, xp: int, wp: int, eps: float,
+                  index: int):
+    """One launch of ``plan`` on checked CUDA inputs (``xp`` and ``wp``
+    the addresses of x and the weight, on card ``index``); counts
+    nothing."""
+    out = torch.empty_like(x)
+    rows, d = x.shape
+    _build.check("rms_norm", _build.function(
+        plan.entry, _RMS_NORM_ARGTYPES)(
+            xp, wp, out.data_ptr(), *plan.codes, rows, d, eps,
+            torch._C._cuda_getCurrentRawStream(index)))
+    return out
+
+
+def _rms_norm_launch(x, weight, route: str, eps: float = 1e-6):
+    """One launch of ``route``'s kernel on checked, non-empty CUDA
+    inputs; counts nothing (``rms_norm`` counts its own launches)."""
+    plan = _rms_norm_plan(route, x.dtype, weight.dtype, x.shape[1], True)
+    return _rms_norm_run(plan, x, x.data_ptr(), weight.data_ptr(), eps,
+                         x.get_device())
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
     """Row-wise RMSNorm of x (rows, d) with weight (d,); fp32 inside,
     x's dtype out."""
-    _rms_norm_check(x, weight)
-    if x.device.type == "cpu":
+    index = _rms_norm_check(x, weight)
+    if index < 0:
         return rms_norm_ref(x, weight, eps)
-    out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
-    _launch("rms_norm", "kts_rms_norm",
-            (_P, _P, _P) + (_I,) * 4 + (ctypes.c_float, _P),
-            x.data_ptr(), weight.data_ptr(), out.data_ptr(),
-            _FLOAT_DTYPES[x.dtype], _FLOAT_DTYPES[weight.dtype], x.shape[0],
-            x.shape[1], eps, torch.cuda.current_stream(x.device).cuda_stream)
+        return torch.empty_like(x)
+    xp, wp = x.data_ptr(), weight.data_ptr()
+    plan = _rms_norm_plan(None, x.dtype, weight.dtype, x.shape[1],
+                          (xp | wp) % 16 == 0)
+    out = _rms_norm_run(plan, x, xp, wp, eps, index)
     rms_norm.launches += 1
+    rms_norm.launches_by_route[plan.route] += 1
     return out
 
 
 rms_norm.launches = 0  # kernel launches (CPU calls not counted)
+rms_norm.launches_by_route = dict.fromkeys(RMS_NORM_ROUTES, 0)
 
 
-# ---------------------------------------------------------------------
-# softmax
+# softmax's one_read kernel holds a row in at most 1024 threads x 32
+# fp32 values (csrc/softmax.cu)
+SOFTMAX_ROW_MAX = 1024 * 32
+_SOFTMAX_ENTRIES = {ONE_READ: "kts_softmax_one_read", TWO_PASS: "kts_softmax"}
+_SOFTMAX_ARGTYPES = (_P, _P) + (_I,) * 3 + (_P,)
 
 
-def _softmax_check(x) -> None:
+def _softmax_check(x) -> int:
+    """Raise unless x is one the kernels take; returns its card's
+    index, -1 for the CPU."""
     if x.ndim < 1:
         raise ValueError("softmax wants at least one axis")
     if x.dtype not in _FLOAT_DTYPES:
         raise ValueError(f"softmax wants bf16, fp16 or fp32; got {x.dtype}")
     if x.shape[-1] > _INT_MAX or x.numel() // max(x.shape[-1], 1) > _INT_MAX:
         raise ValueError("softmax: rows or row length do not fit in 32 bits")
-    _check_device("softmax", x)
+    return _device_index("softmax", x)
 
 
 def softmax_ref(x):
@@ -204,23 +296,65 @@ def softmax_ref(x):
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def _softmax_plan(route, dtype, n: int, aligned: bool) -> _RowPlan:
+    """Everything about a launch that the host knows before it, cached
+    by dtype, row length and alignment. ``route`` None:
+    ``softmax_route``'s rule."""
+    if route is None:
+        route = (ONE_READ if aligned and (n * dtype.itemsize) % 16 == 0
+                 and 0 < n <= SOFTMAX_ROW_MAX else TWO_PASS)
+    return _RowPlan(route, _SOFTMAX_ENTRIES[route], (_FLOAT_DTYPES[dtype],))
+
+
+def softmax_route(x) -> str:
+    """The kernel a CUDA call of ``softmax`` launches, from the input
+    alone: ``ONE_READ`` where 16-byte loads can read the rows (x on a
+    16-byte boundary, a row a whole number of 16-byte chunks) and
+    registers hold one (at most ``SOFTMAX_ROW_MAX`` values);
+    ``TWO_PASS`` for everything else. x already passed
+    ``_softmax_check``."""
+    return _softmax_plan(None, x.dtype, x.shape[-1],
+                         x.data_ptr() % 16 == 0).route
+
+
+def _softmax_run(plan: _RowPlan, x, xp: int, numel: int, index: int):
+    """One launch of ``plan`` on a checked CUDA input (``xp`` its
+    address, ``numel`` its elements, on card ``index``); counts
+    nothing."""
+    out = torch.empty_like(x)
+    n = x.shape[-1]
+    _build.check("softmax", _build.function(plan.entry, _SOFTMAX_ARGTYPES)(
+        xp, out.data_ptr(), *plan.codes, numel // n, n,
+        torch._C._cuda_getCurrentRawStream(index)))
+    return out
+
+
+def _softmax_launch(x, route: str):
+    """One launch of ``route``'s kernel on a checked, non-empty CUDA
+    input; counts nothing (``softmax`` counts its own launches)."""
+    return _softmax_run(_softmax_plan(route, x.dtype, x.shape[-1], True), x,
+                        x.data_ptr(), x.numel(), x.get_device())
+
+
 def softmax(x):
     """Row-stable softmax over the last axis of x (any rank)."""
-    _softmax_check(x)
-    if x.device.type == "cpu":
+    index = _softmax_check(x)
+    if index < 0:
         return softmax_ref(x)
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    n = x.shape[-1]
-    _launch("softmax", "kts_softmax", (_P, _P) + (_I,) * 3 + (_P,),
-            x.data_ptr(), out.data_ptr(), _FLOAT_DTYPES[x.dtype],
-            x.numel() // n, n, torch.cuda.current_stream(x.device).cuda_stream)
+    numel = x.numel()
+    if numel == 0:
+        return torch.empty_like(x)
+    xp = x.data_ptr()
+    plan = _softmax_plan(None, x.dtype, x.shape[-1], xp % 16 == 0)
+    out = _softmax_run(plan, x, xp, numel, index)
     softmax.launches += 1
+    softmax.launches_by_route[plan.route] += 1
     return out
 
 
 softmax.launches = 0  # kernel launches (CPU calls not counted)
+softmax.launches_by_route = dict.fromkeys(SOFTMAX_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------

@@ -5,8 +5,10 @@ and ``toolchain.matmul_route`` pick the tensor-core kernel (wgmma fed
 by TMA) or the CUDA-core kernel from the inputs alone, before any
 launch; ``paged_attention.paged_route`` picks the split-KV kernel or
 the one-pass kernel the same way, and ``blocks_per_split`` sizes the
-split kernel's grid from host-known numbers. These are pure functions of dtype, shape, strides and
-alignment, so they are checked here on CPU tensors of the same
+split kernel's grid from host-known numbers; ``toolchain.rms_norm_route``
+and ``toolchain.softmax_route`` pick the row kernels' new routes
+(16-byte loads, the row held in registers) or their first kernels.
+These are pure functions of dtype, shape, strides and alignment, so they are checked here on CPU tensors of the same
 layouts; a CPU call of any wrapper still takes the plain version and
 counts no launch on either route.
 """
@@ -326,3 +328,93 @@ def test_cpu_paged_calls_take_the_plain_version_and_count_no_route():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert pa.paged_attention.launches_by_route == routes
     assert set(routes) == {SPLIT, ONE}
+
+
+def _rows(rows, d, dtype=torch.bfloat16, offset=0):
+    """An uninitialised (rows, d) tensor ``offset`` elements into its
+    allocation (``empty``: the flagship's rows take no memory until
+    written)."""
+    return torch.empty(offset + rows * d, dtype=dtype)[offset:].view(rows, d)
+
+
+VEC, SCA = tc.VECTOR, tc.SCALAR
+BF16, FP32, FP16 = torch.bfloat16, torch.float32, torch.float16
+# (x rows, d, dtype, offset), (weight dtype, offset), route
+RMS_NORM_CASES = {
+    "gate fp32 (64,128)": ((64, 128, FP32, 0), (FP32, 0), VEC),
+    "flagship bf16 (8192,2048), fp32 weight": ((8192, 2048, BF16, 0),
+                                               (FP32, 0), VEC),
+    "flagship bf16 (8192,2048), bf16 weight": ((8192, 2048, BF16, 0),
+                                               (BF16, 0), VEC),
+    "fp16 d 1032": ((4, 1032, FP16, 0), (FP16, 0), VEC),
+    "bf16 d 2044 (d % 8 = 4)": ((4, 2044, BF16, 0), (FP32, 0), SCA),
+    "fp32 d 2044 (d % 4 = 0)": ((4, 2044, FP32, 0), (BF16, 0), VEC),
+    "fp32 d 2046 (d % 4 = 2)": ((4, 2046, FP32, 0), (FP32, 0), SCA),
+    "bf16 x at storage offset 1": ((4, 2048, BF16, 1), (FP32, 0), SCA),
+    "bf16 x at storage offset 8 (16 bytes)": ((4, 2048, BF16, 8),
+                                              (FP32, 0), VEC),
+    "fp32 weight at storage offset 1": ((4, 2048, BF16, 0), (FP32, 1), SCA),
+    "bf16 longest row held, d 65536": ((4, 65536, BF16, 0), (FP32, 0), VEC),
+    "bf16 one element past it": ((4, 65537, BF16, 0), (FP32, 0), SCA),
+    "bf16 one chunk past it": ((4, 65544, BF16, 0), (FP32, 0), SCA),
+    "fp32 longest row held, d 32768": ((4, 32768, FP32, 0), (FP32, 0), VEC),
+    "fp32 one element past it": ((4, 32769, FP32, 0), (FP32, 0), SCA),
+    "fp32 one chunk past it": ((4, 32772, FP32, 0), (FP32, 0), SCA),
+}
+
+
+@pytest.mark.parametrize("case", list(RMS_NORM_CASES))
+def test_rms_norm_route(case):
+    (rows, d, dtype, off), (w_dtype, w_off), want = RMS_NORM_CASES[case]
+    x = _rows(rows, d, dtype, off)
+    w = torch.empty(w_off + d, dtype=w_dtype)[w_off:]
+    assert tc._rms_norm_check(x, w) == -1  # a case the wrapper takes
+    assert tc.rms_norm_route(x, w) == want
+
+
+ONE_READ, TWO_PASS = tc.ONE_READ, tc.TWO_PASS
+# (rows, n, dtype, offset), route
+SOFTMAX_CASES = {
+    "gate fp32 (64,128)": ((64, 128, FP32, 0), ONE_READ),
+    "flagship fp32 (8192,32768)": ((8192, 32768, FP32, 0), ONE_READ),
+    "flagship bf16 (8192,32768)": ((8192, 32768, BF16, 0), ONE_READ),
+    "fp16 n 2056": ((4, 2056, FP16, 0), ONE_READ),
+    "bf16 n 1020 (n % 8 = 4)": ((4, 1020, BF16, 0), TWO_PASS),
+    "fp32 n 1020 (n % 4 = 0)": ((4, 1020, FP32, 0), ONE_READ),
+    "fp32 n 1022 (n % 4 = 2)": ((4, 1022, FP32, 0), TWO_PASS),
+    "fp32 at storage offset 1": ((4, 1024, FP32, 1), TWO_PASS),
+    "fp32 at storage offset 4 (16 bytes)": ((4, 1024, FP32, 4), ONE_READ),
+    "bf16 one element past the longest row held": ((4, 32769, BF16, 0), TWO_PASS),
+    "bf16 one chunk past it": ((4, 32776, BF16, 0), TWO_PASS),
+    "fp32 one element past the longest row held": ((4, 32769, FP32, 0), TWO_PASS),
+    "fp32 one chunk past it": ((4, 32772, FP32, 0), TWO_PASS),
+}
+
+
+@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
+def test_softmax_route(case):
+    (rows, n, dtype, off), want = SOFTMAX_CASES[case]
+    x = _rows(rows, n, dtype, off)
+    assert tc._softmax_check(x) == -1  # a case the wrapper takes
+    assert tc.softmax_route(x) == want
+
+
+def test_softmax_route_reads_the_last_axis():
+    x = torch.empty(2, 3, 32768)
+    assert tc.softmax_route(x) == ONE_READ
+    assert tc.softmax_route(torch.empty(2, 32772, 4)) == ONE_READ
+    assert tc.softmax_route(torch.empty(2, 32772, 1)) == TWO_PASS
+    assert tc.softmax_route(torch.empty(1, 2, 32772)) == TWO_PASS
+
+
+def test_cpu_row_calls_take_the_plain_versions_and_count_no_route():
+    counts = {fn: (fn.launches, dict(fn.launches_by_route))
+              for fn in (tc.rms_norm, tc.softmax)}
+    x, w = torch.randn(9, 64), torch.randn(64)
+    assert torch.equal(tc.rms_norm(x, w), tc.rms_norm_ref(x, w))
+    assert torch.equal(tc.softmax(x), tc.softmax_ref(x))
+    tc.toolchain_smoke(device="cpu")
+    for fn, (n, routes) in counts.items():
+        assert fn.launches == n and fn.launches_by_route == routes
+    assert set(counts[tc.rms_norm][1]) == {VEC, SCA}
+    assert set(counts[tc.softmax][1]) == {ONE_READ, TWO_PASS}

@@ -6,7 +6,10 @@ plain versions) against the Pallas kernels of
 of ``tests/test_pallas.py:13-72`` with inputs made by numpy (the same
 values on both sides). Tolerances are the reference's own: matmul fp32
 2e-4, bf16 inputs 1e-2 (fp32 sums of exact bf16 products, in another
-order), rms_norm 1e-5, softmax 1e-6.
+order), rms_norm 1e-5, softmax 1e-6; bf16 outputs at rtol 2^-7 (one
+rounding to bf16 on each side). The cases include the edges the CUDA
+kernels' routes must keep: a bf16 weight, row counts that their rows
+a block do not divide, -inf entries and an all -inf row (NaN in both).
 """
 
 import numpy as np
@@ -126,6 +129,51 @@ def test_softmax_any_rank_keeps_the_input_dtype():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=2 ** -7,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,d,x_dtype", [
+    (13, 256, "bfloat16"),   # rows the kernels' 8 rows a block do not divide
+    (21, 200, "float32"),
+])
+def test_rms_norm_bf16_weight_matches_pallas(rows, d, x_dtype):
+    x, w = _normal((rows, d), 5, scale=3.0), _normal((d,), 6)
+    jx = jnp.asarray(x, getattr(jnp, x_dtype))
+    want = pk.rms_norm(jx, jnp.asarray(w, jnp.bfloat16), interpret=True)
+    got = tc.rms_norm(torch.from_numpy(x).to(getattr(torch, x_dtype)),
+                      torch.from_numpy(w).bfloat16())
+    assert got.dtype == getattr(torch, x_dtype) and want.dtype == jx.dtype
+    if x_dtype == "bfloat16":
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2 ** -7, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _with_neg_inf(shape, seed):
+    """Normal rows with about a third of the entries -inf and row 2
+    all -inf."""
+    rng = np.random.RandomState(seed)
+    x = (rng.standard_normal(shape) * 5.0).astype(np.float32)
+    x[rng.random_sample(shape) < 0.3] = -np.inf
+    x[2] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_neg_inf_entries_and_an_all_neg_inf_row_match_pallas(dtype):
+    x = _with_neg_inf((6, 96), 7)
+    want = np.asarray(pk.softmax(jnp.asarray(x, getattr(jnp, dtype)),
+                                 interpret=True), np.float32)
+    got = tc.softmax(torch.from_numpy(x).to(getattr(torch, dtype)))
+    got = got.float().numpy()
+    # -inf entries give 0 and the all -inf row is NaN, in both
+    assert np.isnan(want[2]).all() and np.isnan(got[2]).all()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    live = ~np.isnan(want)
+    assert (got[np.isneginf(x) & live] == 0).all()
+    rtol = 2 ** -7 if dtype == "bfloat16" else 0.0
+    np.testing.assert_allclose(got[live], want[live], rtol=rtol, atol=1e-6)
 
 
 def test_toolchain_smoke_on_the_cpu():
