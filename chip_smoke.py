@@ -19,17 +19,32 @@ it fails (nothing is caught and ignored):
    flushed before each; the events hold the host's enqueue time where
    it outlasts the flush) beside the plain version and,
    where one PyTorch call computes the same function, that call: the flash
-   forward at the serving prefill shape, the paged decode kernels at
-   the serving decode shape and at the flagship's full context (1024
-   positions a slot), and the flash backward's dq and dk/dv kernels at
-   the training shape, fed the forward kernel's out and lse as training
+   forward at the serving prefill shape and at the admission shapes (a
+   wave of 8 prompts in the 1024-token bucket, one 4096-token bucket),
+   the paged decode kernels at the serving decode shape, at the
+   flagship's full context (1024 positions a slot) and at the realistic
+   stream's table width of 64 with two slots sharing their first 16
+   blocks, and the flash backward's dq and dk/dv kernels at the
+   training shape, fed the forward kernel's out and lse as training
    feeds them (the forward checked and timed there too);
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
-   emit the streams the CPU plain path emits;
+   emit the streams the CPU plain path emits: under pool pressure, with
+   paged prefix hits, with dense chunked prefill and as a wave of 5;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
    new tokens each) through ``PagedServingEngine(paged_kernel=True)``
    at full width, with the kernels' launch counters zeroed just before
    and read just after; then the same stream on the gather tier;
+   4b. realistic -- the realistic stream of ``profile_serving`` (28
+   requests with 224-3072-token prompts and prefix families; prefix
+   caching, admission waves, a pool under demand) on the kernel tier,
+   counters zeroed just before and read just after: hits, preemption,
+   shared blocks never written, no leaked block, launch counts;
+   4c. hit against cold -- the families' members through prefix hits
+   against the same members cold (first-token logprobs and logits),
+   and the same comparison read on faulty suffix forwards, which must
+   fail it;
+   4d. long prompt -- the dense long-prompt stream (8 x 224 tokens, then
+   768) with and without chunked prefill;
 5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
    the card; losses and final parameters must match the same steps on
    the CPU plain path;
@@ -397,12 +412,76 @@ def flash_phase(fa) -> dict:
         f"{turns['device_ms_cuda_cores']:.4f} ms), plain {plain_ms:.4f} "
         f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by})")
+    admission = flash_admission_cases(fa, gen)
+    worst = max(worst, *(admission[f"{key}_max_abs_err"]
+                         for key in ADMISSION_SHAPES))
     return {"name": "flash_attention", "route": "cuda",
             "source": fa.SOURCE, "replaces": fa.REPLACES,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
-            **{key: x for key, x in turns.items() if key != "ms"}}
+            **{key: x for key, x in turns.items() if key != "ms"},
+            **admission}
+
+
+# the flash forward's shapes in prompt admission: the serving stream's
+# waves of 8 prompts in the 256-token bucket, a stacked wave of 8 in the
+# 1024-token bucket, and one 3072-token prompt padded to its 4096-token
+# bucket
+ADMISSION_SHAPES = {"serving_wave": (8, 256), "wave": (8, 1024),
+                    "long": (1, 4096)}
+
+
+def flash_admission_cases(fa, gen) -> dict:
+    """The flash forward at the admission shapes of the realistic stream
+    (``ADMISSION_SHAPES``; q/k/v views of the fused qkv projection, 16
+    q heads over 4 kv heads, head_dim 128, bf16, causal), each on the
+    tensor-core route against the plain version, then timed (``ms``
+    as every row, device time alone) beside the plain version, SDPA
+    and its bound. Returns the kernels line's keys, ``<shape>_ms`` and
+    so on."""
+    h, kv, d = 16, 4, 128
+    out = {}
+    for key, (b, t) in ADMISSION_SHAPES.items():
+        q, k, v = _fused_qkv(gen, b, t, h, kv, d)
+        name = f"flash_attention {key} ({b},{t}) causal"
+        zero_counts(fa.flash_attention)
+        got = fa.flash_attention(q, k, v, causal=True)
+        check_routes(name, fa.flash_attention, 1, 0)
+        ref = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and got.shape == q.shape,
+              f"{name}: output {got.dtype} {tuple(got.shape)}")
+        err = float((got.float() - ref).abs().max())
+        log(f"{name}: max_abs_err {err:.3e} (tolerance {FLASH_TOL})")
+        check(math.isfinite(err) and err <= FLASH_TOL,
+              f"{name}: max_abs_err {err} > {FLASH_TOL}")
+        del got, ref
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        device_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                            cover_enqueue=True)
+        plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                          causal=True))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True))
+        pairs = b * h * t * (t + 1) // 2
+        bound_ms, bound_by = bound(
+            2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+            4 * pairs * d, torch.bfloat16)
+        log(f"{name} timing: {ms:.4f} ms, device {device_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}): {bound_ms / device_ms:.1%} of "
+            "the bound")
+        out.update({f"{key}_shape": [b, t, h, d], f"{key}_max_abs_err": err,
+                    f"{key}_ms": ms, f"{key}_device_ms": device_ms,
+                    f"{key}_plain_ms": plain_ms,
+                    f"{key}_library_ms": library_ms,
+                    f"{key}_bound_ms": bound_ms, f"{key}_bound_by": bound_by})
+        del q, k, v, qt, kt, vt
+    return out
 
 
 def flash_cuda_cores_cases(fa, gen) -> float:
@@ -517,13 +596,14 @@ def _paged_check(pa, name: str, got, args) -> float:
     return worst
 
 
-def _paged_bound(args) -> tuple:
-    """Live k and v rows read once, q, tables and lengths read once, the
+def _paged_bound(args, shared_rows: int = 0) -> tuple:
+    """Live k and v rows read once (``shared_rows`` of them live in more
+    than one slot and count once), q, tables and lengths read once, the
     fp32 partials written once; QK and PV over every live position."""
     qg, k_pool, _, tables, lengths = args
     slots, kv, g, hd = qg.shape
     total = int(lengths.clamp(max=tables.shape[1] * k_pool.shape[1]).sum())
-    nbytes = (2 * total * kv * hd * qg.element_size()
+    nbytes = (2 * (total - shared_rows) * kv * hd * qg.element_size()
               + qg.numel() * qg.element_size() + 4 * tables.numel()
               + 4 * lengths.numel() + 4 * slots * kv * g * (hd + 2))
     return bound(nbytes, 4 * total * kv * g * hd, torch.bfloat16)
@@ -541,6 +621,62 @@ def _read_ms(args) -> float:
     return time_ms(lambda: x.sum(), cover_enqueue=True)
 
 
+def shared_paged_inputs(gen, rng):
+    """The realistic stream's decode shape: 8 slots, 4 kv heads x group
+    4, head_dim 128, bf16 pools of 64-position blocks, table width 64,
+    lengths from an empty slot to 3200; slots 1 and 2 point their first
+    16 table entries at the same blocks (a prefix family's 1024-token
+    head). Returns (args, the shared live rows)."""
+    lengths = [3200, 1184, 1216, 2112, 288, 0, 3136, 1088]
+    kv, g, hd, bsz, width, n_shared = 4, 4, 128, 64, 64, 16
+    live_n = [-(-n // bsz) for n in lengths]
+    nblocks = 1 + sum(live_n) - n_shared
+    perm = [int(x) for x in rng.permutation(np.arange(1, nblocks))]
+    shared, perm = perm[:n_shared], perm[n_shared:]
+    tables_h = np.zeros((len(lengths), width), np.int32)
+    for s, live in enumerate(live_n):
+        head = shared if s in (1, 2) else []
+        own = live - len(head)
+        tables_h[s, :live] = head + perm[:own]
+        perm = perm[own:]
+    qg = torch.randn((len(lengths), kv, g, hd), generator=gen,
+                     device="cuda").bfloat16()
+    k_pool, v_pool = (torch.randn((nblocks, bsz, kv, hd), generator=gen,
+                                  device="cuda").bfloat16() for _ in range(2))
+    return ((qg, k_pool, v_pool, torch.as_tensor(tables_h, device="cuda"),
+             torch.as_tensor(np.asarray(lengths, np.int32), device="cuda")),
+            n_shared * bsz)
+
+
+def paged_shared_case(pa, gen, rng) -> tuple:
+    """``shared_paged_inputs`` through the wrapper on the split-KV route
+    against the plain version, then timed beside the plain version and
+    its bound. Returns
+    (the worst error, the kernels line's ``shared_*`` keys)."""
+    args, shared_rows = shared_paged_inputs(gen, rng)
+    zero_counts(pa.paged_attention)
+    got = pa.paged_attention(*args)
+    check_routes("paged_attention width 64, shared blocks",
+                 pa.paged_attention, 1, 0)
+    err = _paged_check(pa, "split_kv width 64, shared blocks", got, args)
+    ms = time_ms(lambda: pa.paged_attention(*args))
+    device_ms = time_ms(lambda: pa.paged_attention(*args), cover_enqueue=True)
+    plain_ms = time_ms(lambda: pa.paged_attention_ref(*args))
+    bound_ms, bound_by = _paged_bound(args, shared_rows)
+    total = int(args[-1].sum())
+    log(f"paged_attention timing width 64, shared blocks (8 slots, {total} "
+        f"live positions, {shared_rows} rows in two slots): {ms:.4f} ms, "
+        f"device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}): {bound_ms / device_ms:.1%} of the "
+        "bound")
+    return err, {"shared_ms": ms, "shared_device_ms": device_ms,
+                 "shared_plain_ms": plain_ms,
+                 "shared_bound_ms": bound_ms, "shared_bound_by": bound_by,
+                 "shared_live_positions": total,
+                 "shared_table_width": int(args[3].shape[1]),
+                 "shared_max_abs_err": err}
+
+
 def paged_phase(pa) -> dict:
     """paged_attention at the decode shape of the serving path: 8 slots,
     4 kv heads x group 4, head_dim 128, bf16 pools of 64-position
@@ -556,7 +692,7 @@ def paged_phase(pa) -> dict:
     m and l the largest part of shared memory. Then the
     flagship's full context: 8 slots x 1024 positions (width 16) plus
     an empty and a ragged slot. Both shapes are timed on both routes in
-    turns."""
+    turns. Then the realistic stream's shape (``paged_shared_case``)."""
     gen, rng, args = paged_decode_inputs()
     kv, g, hd, bsz = 4, 4, 128, 64
     lengths_h = args[-1].cpu().numpy()
@@ -626,6 +762,8 @@ def paged_phase(pa) -> dict:
     full_bound = _paged_bound(full)
     full_read_ms = _read_ms(full)
     full_total = int(full[-1].sum())
+    shared_err, shared = paged_shared_case(pa, gen, rng)
+    worst = max(worst, shared_err)
     log(f"paged_attention timing full context (10 slots, {full_total} live "
         f"positions): device split_kv {full_turns['device_ms']:.4f} vs "
         f"one_pass {full_turns['device_ms_one_pass']:.4f} ms "
@@ -645,7 +783,7 @@ def paged_phase(pa) -> dict:
             "full_context_plain_ms": full_plain_ms,
             "full_context_bound_ms": full_bound[0],
             "full_context_bound_by": full_bound[1],
-            "full_context_live_positions": full_total}
+            "full_context_live_positions": full_total, **shared}
 
 
 def _library_bwd_ms(q, k, v, g):
@@ -888,10 +1026,72 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 # phase 3: a tiny model on the card against the CPU plain path
 
 
+def _small_compare(tf, cfg, cpu_params, name, prompts, card, plain) -> None:
+    """Streams from the card against the CPU plain path's: equal, or
+    split at a near tie (the plain forward's top-2 logit margin at the
+    split under SMALL_MARGIN)."""
+    ties = 0
+    for rid in sorted(plain):
+        a, b = card[rid], plain[rid]
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = torch.tensor([prompts[rid] + b[:i]])
+        logits = tf.forward(cpu_params, seq, cfg)[0, -1]
+        top2 = logits.topk(2).values
+        margin = float(top2[0] - top2[1])
+        check(margin < SMALL_MARGIN,
+              f"small phase {name}: {rid} splits at token {i} with top-2 "
+              f"margin {margin} (card {a[i]}, plain {b[i]})")
+        ties += 1
+    log(f"small model {name}: {len(plain)} streams, card vs CPU plain path: "
+        f"{len(plain) - ties} equal, {ties} split at a near tie")
+
+
+def small_streams(serving, rng, vocab: int) -> dict:
+    """The admission streams of phase 3: {name: (engine class, config,
+    waves of {request id: (prompt, Request keywords)})}, each wave
+    drained before the next."""
+    def prompt(n):
+        return rng.randint(0, vocab, size=n).tolist()
+
+    head = prompt(32)
+    paged = dict(max_len=80, chunk=8, block_size=16, paged_kernel=True)
+    return {
+        # a head stored for sharing (2 blocks), then two members
+        # pointed at its blocks
+        "paged prefix hits": (
+            serving.PagedServingEngine,
+            serving.ServingConfig(max_slots=4, paged_blocks=24,
+                                  prefix_cache_entries=4, **paged),
+            [{"h": (head, dict(cache_prefix=True))},
+             {"m0": (head + prompt(5), {}), "m1": (head + prompt(9), {})}]),
+        # windows of 8, interleaved with decode
+        "dense chunked prefill": (
+            serving.ServingEngine,
+            serving.ServingConfig(max_slots=4, max_len=80, chunk=8,
+                                  prefill_chunk=8),
+            [{f"c{i}": (prompt(n), {}) for i, n in enumerate((5, 17, 30, 41,
+                                                              12))}]),
+        # 5 misses of one bucket: one stacked wave of 4, then 1
+        "wave of 5": (
+            serving.PagedServingEngine,
+            serving.ServingConfig(max_slots=8, paged_blocks=40, paged_width=5,
+                                  **paged),
+            [{f"w{i}": (prompt(n), {}) for i, n in enumerate((17, 20, 24, 29,
+                                                              32))}]),
+    }
+
+
 def small_phase(tf, serving, fa, pa) -> None:
     """A tiny fp32 flash model served on the card (the flash forward on
     its CUDA-core route and the paged kernel on its one-pass route:
-    fp32 stays exact) against the CPU plain path."""
+    fp32 stays exact) against the CPU plain path: a stream under pool
+    pressure (admission waits and preempts), then the admission streams
+    of ``small_streams`` (paged prefix hits, dense chunked prefill, a
+    wave of 5 misses). Each run's flash launches are n_layers x the
+    prefill dispatches the engine reports, its paged launches n_layers x
+    chunk x decode rounds."""
     cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=128,
                          dtype="float32", flash=True)
@@ -902,50 +1102,68 @@ def small_phase(tf, serving, fa, pa) -> None:
                   "blocks": [{k: v.cpu() for k, v in b.items()}
                              for b in params["blocks"]]}
     rng = np.random.RandomState(3)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in (5, 17, 30, 41, 12, 26)]
+    pressure = [{f"s{i}": (rng.randint(0, cfg.vocab_size, size=n).tolist(),
+                           {})
+                 for i, n in enumerate((5, 17, 30, 41, 12, 26))}]
     # 8 usable blocks of 16 for 4 slots: admission waits and preempts
-    sc = serving.ServingConfig(max_slots=4, max_len=80, chunk=8,
-                               paged_blocks=9, block_size=16,
-                               paged_kernel=True)
+    streams = {"under pool pressure": (
+        serving.PagedServingEngine,
+        serving.ServingConfig(max_slots=4, max_len=80, chunk=8,
+                              paged_blocks=9, block_size=16,
+                              paged_kernel=True), pressure)}
+    streams.update(small_streams(serving, rng, cfg.vocab_size))
 
-    def run(p, device):
-        eng = serving.PagedServingEngine(p, cfg, sc, device=device)
-        for i, pr in enumerate(prompts):
-            eng.submit(serving.Request(f"s{i}", pr, max_new=24))
-        done = {c.request_id: c.tokens for c in eng.run()}
-        check(eng.report()["paged"]["blocks_in_use"] == 0,
-              f"small phase ({device}): blocks left in use")
-        return done, eng.preemptions
+    def run(engine, sc, waves, p, device):
+        eng = engine(p, cfg, sc, device=device)
+        done = {}
+        for wave in waves:
+            for rid, (prompt, kw) in wave.items():
+                eng.submit(serving.Request(rid, prompt, max_new=24, **kw))
+            done.update({c.request_id: c.tokens for c in eng.run()})
+        rep = eng.report()
+        check(rep.get("paged", {}).get("blocks_in_use", 0)
+              == sum(len(e["blocks"]) for e in getattr(
+                  eng.prefix_cache, "entries", {}).values()),
+              f"small phase ({device}): blocks left in use beyond the "
+              "prefix cache's")
+        return done, rep
 
-    zero_counts(fa.flash_attention, pa.paged_attention)
-    card, card_pre = run(params, "cuda")
-    n = fa.flash_attention.launches
-    check_routes("small model flash_attention", fa.flash_attention, 0, n)
-    check(n > 0, "small phase: the flash forward was never launched")
-    n_paged = pa.paged_attention.launches
-    check_routes("small model paged_attention", pa.paged_attention, 0,
-                 n_paged)
-    check(n_paged > 0, "small phase: the paged kernel was never launched")
-    plain, plain_pre = run(cpu_params, "cpu")
-    ties = 0
-    for rid in sorted(plain):
-        a, b = card[rid], plain[rid]
-        if a == b:
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        prompt = prompts[int(rid[1:])]
-        seq = torch.tensor([prompt + b[:i]])
-        logits = tf.forward(cpu_params, seq, cfg)[0, -1]
-        top2 = logits.topk(2).values
-        margin = float(top2[0] - top2[1])
-        check(margin < SMALL_MARGIN,
-              f"small phase: {rid} splits at token {i} with top-2 margin "
-              f"{margin} (card {a[i]}, plain {b[i]})")
-        ties += 1
-    log(f"small model: {len(plain)} streams, card kernel tier vs CPU plain "
-        f"path: {len(plain) - ties} equal, {ties} split at a near tie; "
-        f"preemptions card {card_pre}, plain {plain_pre}")
+    for name, (engine, sc, waves) in streams.items():
+        zero_counts(fa.flash_attention, pa.paged_attention)
+        card, rep = run(engine, sc, waves, params, "cuda")
+        n = fa.flash_attention.launches
+        check(n == cfg.n_layers * rep["prefill_dispatches"] > 0,
+              f"small phase {name}: {n} flash launches, expected n_layers x "
+              f"{rep['prefill_dispatches']} prefill dispatches")
+        check_routes(f"small model {name} flash_attention", fa.flash_attention,
+                     0, n)
+        n_paged = pa.paged_attention.launches
+        want = (cfg.n_layers * sc.chunk * rep["decode_rounds"]
+                if engine is serving.PagedServingEngine else 0)
+        check(n_paged == want,
+              f"small phase {name}: {n_paged} paged launches, expected "
+              f"{want}")
+        check_routes(f"small model {name} paged_attention",
+                     pa.paged_attention, 0, n_paged)
+        plain, plain_rep = run(engine, sc, waves, cpu_params, "cpu")
+        for key in ("prefix_cache", "waves", "suffix_windows"):
+            check(rep.get(key) == plain_rep.get(key),
+                  f"small phase {name}: {key} {rep.get(key)} on the card, "
+                  f"{plain_rep.get(key)} on the CPU")
+        prompts = {rid: prompt for wave in waves
+                   for rid, (prompt, _) in wave.items()}
+        _small_compare(tf, cfg, cpu_params, name, prompts, card, plain)
+        log(f"small model {name}: prefill dispatches "
+            f"{rep['prefill_dispatches']}, waves {rep['waves']}, suffix "
+            f"windows {rep['suffix_windows']}, prefix cache "
+            f"{rep.get('prefix_cache')}, preemptions "
+            f"{rep.get('paged', {}).get('preemptions')}")
+        if name == "paged prefix hits":
+            check(rep["prefix_cache"]["hits"] == 2,
+                  f"small phase {name}: {rep['prefix_cache']}")
+        elif name == "wave of 5":
+            check(rep["waves"] == {1: 1, 4: 1},
+                  f"small phase {name}: waves {rep['waves']}")
 
 
 # ---------------------------------------------------------------------
@@ -963,16 +1181,11 @@ def serve(serving, params, cfg, sc, reqs):
     return eng, done, time.perf_counter() - t0
 
 
-def serve_phase(flagship, serving, fa, pa) -> dict:
+def serve_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
     """The flagship workload of ``kind_tpu_sim_torch.profile_serving``
-    (the same stream, configuration and seed)."""
-    cfg = flagship.flagship_config()
-    t0 = time.perf_counter()
-    sp = flagship.flagship_params(cfg)
-    n_params = sum(x.numel() for x in [sp["embed"], sp["final_norm"]]
-                   + [w for b in sp["blocks"] for w in b.values()])
-    log(f"flagship params: {n_params} (bf16 serving snapshot), set up in "
-        f"{time.perf_counter() - t0:.2f} s")
+    (the same stream, configuration and seed; ``sp`` the bf16 serving
+    snapshot). Its admission waves stack the 8 first prompts into one
+    prefill, so the flash kernel launches once per layer and dispatch."""
     pool_blocks = flagship.POOL_BLOCKS
     kernel_sc = flagship.flagship_serving(paged_kernel=True)
     reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
@@ -1000,10 +1213,12 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
     rep = eng.report()
     check(rep["paged"]["blocks_in_use"] == 0,
           f"{rep['paged']['blocks_in_use']} blocks still in use")
-    want_flash = cfg.n_layers * rep["prefills"]
+    want_flash = cfg.n_layers * rep["prefill_dispatches"]
     want_paged = cfg.n_layers * kernel_sc.chunk * rep["decode_rounds"]
     log(f"launches: flash_attention {launches['flash_attention']} "
-        f"(expected n_layers x admissions = {want_flash}), paged_attention "
+        f"(expected n_layers x prefill dispatches = {want_flash}; "
+        f"{rep['prefills']} prefills in waves {rep['waves']}), "
+        "paged_attention "
         f"{launches['paged_attention']} (expected n_layers x chunk x "
         f"decode rounds = {want_paged})")
     check(launches["flash_attention"] == want_flash > 0,
@@ -1045,6 +1260,383 @@ def serve_phase(flagship, serving, fa, pa) -> dict:
         f"kernel tier: {agree} of {len(reqs)}; first divergence: {first}")
     return launches, {"flash_attention": flash_routes,
                       "paged_attention": paged_routes}
+
+
+def _snapshot(pools, blocks) -> torch.Tensor:
+    """Every layer's k and v rows of ``blocks``, stacked (a copy)."""
+    idx = torch.as_tensor(blocks, device=pools[0]["k"].device)
+    return torch.stack([lc[name][idx] for lc in pools for name in ("k", "v")])
+
+
+def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
+    """Phase 4b: the realistic stream of ``profile_serving`` (28
+    requests: mixed 224-3072-token prompts and prefix families) through
+    ``PagedServingEngine`` on the kernel tier with prefix caching and
+    admission waves, the pool well under worst-case demand. Warmed with
+    ``warm_admission`` first; launch counters zeroed just before the
+    stream and read just after. Each new prefix-cache entry's blocks
+    are copied when it is stored, and held against that copy after each
+    round while the entry lasts and whenever a family member that hit
+    finishes. Gates:
+    every request's 128 tokens with finite logprobs; hits, shared blocks
+    and preemptions; the blocks in use after the drain are the cache's
+    alone, and none once it is emptied; an entry's blocks unchanged
+    after its members decoded; the flash launches n_layers x the
+    engine's prefill dispatches, all on the tensor cores, and the paged
+    launches n_layers x chunk x decode rounds, all on split_kv."""
+    sc = flagship.realistic_serving()
+    reqs = flagship.realistic_requests(cfg.vocab_size, logprobs=True)
+    eng = serving.PagedServingEngine(sp, cfg, sc, device="cuda")
+    before = eng.report()
+    t0 = time.perf_counter()
+    eng.warm_admission(flagship.REALISTIC_LENS, sizes=sc.admission_wave_sizes)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(eng.report() == before and eng.alloc.peak_in_use == 0,
+          f"warm_admission changed the engine: {eng.report()}")
+    cache = eng.prefix_cache
+    # {stored blocks: their k/v when stored}; a new entry replaces the
+    # snapshot of blocks reused since
+    snaps, verified = {}, set()
+    store, finish = cache.store, eng._finish
+
+    def snapshot_store(prompt, blocks) -> None:
+        new = tuple(prompt[:len(prompt) // sc.block_size * sc.block_size])
+        fresh = new not in cache.entries
+        store(prompt, blocks)
+        if fresh and new in cache.entries:
+            held = tuple(cache.entries[new]["blocks"])
+            snaps[held] = _snapshot(eng.pools, held)
+
+    def unchanged(held, when: str) -> None:
+        check(torch.equal(_snapshot(eng.pools, held), snaps[held]),
+              f"realistic: {len(held)} shared blocks changed ({when})")
+
+    def checked_finish(slot: int) -> None:
+        # a member that hit releases the head's blocks: they must hold
+        # what the head's prefill wrote
+        rid = eng.slot_req[slot].request_id
+        family = rid[:-2] if rid.startswith("rf") and rid[-2] == "m" else None
+        n = len(heads.get(family, ())) // sc.block_size
+        held = tuple(eng.slot_blocks[slot][:n])
+        if family is not None and held in snaps:
+            unchanged(held, f"when {rid} finished")
+            verified.add(family)
+        finish(slot)
+
+    admit = eng._admit_and_advance
+    admission_s = [0.0]
+
+    def timed_admission() -> None:
+        # host time of admission; it ends in the first tokens' readback
+        # whenever a prompt completes, so its device work is inside
+        t = time.perf_counter()
+        admit()
+        admission_s[0] += time.perf_counter() - t
+
+    heads = {r.request_id[:-1]: r.prompt for r in reqs if r.cache_prefix}
+    cache.store = snapshot_store
+    eng._finish = checked_finish
+    eng._admit_and_advance = timed_admission
+    zero_counts(fa.flash_attention, pa.paged_attention)
+    torch.cuda.reset_peak_memory_stats()
+    done = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    while eng.queue or eng._pending or any(
+            r is not None for r in eng.slot_req):
+        eng.step_round()
+        done.update({c.request_id: c for c in eng.poll()})
+        for entry in cache.entries.values():
+            unchanged(tuple(entry["blocks"]), "after a round")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_attention.launches}
+    routes = {"flash_attention": dict(fa.flash_attention.launches_by_route),
+              "paged_attention": dict(pa.paged_attention.launches_by_route)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    check(len(done) == len(reqs), f"realistic: {len(done)} of {len(reqs)} "
+          "completed")
+    for r in reqs:
+        c = done[r.request_id]
+        check(len(c.tokens) == r.max_new and c.finish_reason == "length",
+              f"realistic {r.request_id}: {len(c.tokens)} tokens, "
+              f"{c.finish_reason}")
+        check(all(math.isfinite(x) for x in c.logprobs),
+              f"realistic {r.request_id}: non-finite logprobs")
+    rep = eng.report()
+    pc, pg = rep["prefix_cache"], rep["paged"]
+    log(f"realistic: report {json.dumps(rep)}")
+    check(pc["hits"] > 0 and pc["shared_blocks"] > 0,
+          f"realistic: no prefix sharing ({pc})")
+    check(pg["preemptions"] > 0,
+          f"realistic: no preemption with {sc.paged_blocks} blocks; lower "
+          "the pool")
+    held = {b for e in cache.entries.values() for b in e["blocks"]}
+    check(pg["blocks_in_use"] == len(held),
+          f"realistic: {pg['blocks_in_use']} blocks in use after the drain, "
+          f"the prefix cache holds {len(held)}")
+    while cache.evict_lru():
+        pass
+    in_use = eng.report()["paged"]["blocks_in_use"]
+    check(in_use == 0, f"realistic: {in_use} blocks leaked")
+    check(bool(verified), "realistic: no member that hit finished: no "
+          "family's shared blocks were held against their copy after its "
+          "members decoded")
+    want_flash = cfg.n_layers * rep["prefill_dispatches"]
+    want_paged = cfg.n_layers * sc.chunk * rep["decode_rounds"]
+    log(f"realistic launches: flash_attention {launches['flash_attention']} "
+        f"(expected n_layers x prefill dispatches = {want_flash}), "
+        f"paged_attention {launches['paged_attention']} (expected n_layers "
+        f"x chunk x decode rounds = {want_paged}); by route {routes}")
+    check(launches["flash_attention"] == want_flash > 0,
+          "realistic: flash_attention launch count")
+    check(launches["paged_attention"] == want_paged > 0,
+          "realistic: paged_attention launch count")
+    check_routes("realistic flash_attention", fa.flash_attention, want_flash,
+                 0)
+    check_routes("realistic paged_attention", pa.paged_attention, want_paged,
+                 0)
+
+    gen_tokens = sum(len(c.tokens) for c in done.values())
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    skipped = pc["shared_blocks"] * sc.block_size
+    out = {"requests": len(done), "generated_tokens": gen_tokens,
+           "wall_s": wall, "tok_per_s": gen_tokens / wall,
+           "ttft_mean_s": float(np.mean([c.ttft_s for c in done.values()])),
+           "e2e_mean_s": float(np.mean([c.e2e_s for c in done.values()])),
+           "prefills": rep["prefills"],
+           "prefill_dispatches": rep["prefill_dispatches"],
+           "waves": rep["waves"], "suffix_windows": rep["suffix_windows"],
+           "decode_rounds": rep["decode_rounds"], "prefix_cache": pc,
+           "prompt_tokens": prompt_tokens, "prompt_tokens_skipped": skipped,
+           "skipped_share": skipped / prompt_tokens,
+           "preemptions": pg["preemptions"],
+           "peak_blocks": pg["peak_in_use"],
+           "pool_blocks": sc.paged_blocks - 1,
+           "peak_gib": peak_gib, "warm_s": warm_s,
+           "admission_s": admission_s[0],
+           "families_verified": sorted(verified)}
+    log(f"realistic stream: {len(done)} requests, {gen_tokens} tokens in "
+        f"{wall:.3f} s = {out['tok_per_s']:.1f} generated tok/s; mean TTFT "
+        f"{out['ttft_mean_s']:.3f} s, mean e2e {out['e2e_mean_s']:.3f} s; "
+        f"prefills {rep['prefills']} in {rep['prefill_dispatches']} "
+        f"dispatches, waves {rep['waves']}, suffix windows "
+        f"{rep['suffix_windows']}; hits {pc['hits']}, misses {pc['misses']}, "
+        f"shared blocks {pc['shared_blocks']} ({skipped} of {prompt_tokens} "
+        f"prompt tokens skipped, {out['skipped_share']:.1%}); preemptions "
+        f"{pg['preemptions']}, peak blocks {pg['peak_in_use']} of "
+        f"{sc.paged_blocks - 1}; peak device memory {peak_gib:.2f} GiB; "
+        f"admission {admission_s[0]:.3f} s of the wall; warm-up "
+        f"{warm_s:.2f} s; families whose blocks were checked after "
+        f"their members: {sorted(verified)}")
+    log(json.dumps({"realistic": out}))
+    return {"routes": routes, **out}
+
+
+# a member's first-token logprob through a prefix hit (the suffix forward
+# against the stored blocks) against the cold path (the whole prompt
+# through the flash kernel). Kept as the stated bf16 gate, but on these
+# random weights it cannot fail: their softmax is nearly one-hot, so the
+# first token's logprob reads 0.0 on both paths and on the faulty
+# controls below; the logits gate is the one that discriminates
+HIT_LP_TOL = 5e-2
+# the reference bench's pool: the 8 members' cache-miss reservations (8 x
+# 18 blocks) fit beside the 4 stored heads (64 blocks), so admission
+# evicts no entry and every member hits
+HIT_VS_COLD_POOL = 272
+# the whole fp32 logit vector at a member's last prompt position, hit
+# against cold, judged against its largest magnitude (logits of
+# magnitude ~800 on random flagship weights, the top one ~600 above the
+# next). The two paths round bf16 activations at other points (GEMM
+# shapes, the suffix's plain attention against the flash kernel)
+# through 8 layers: 2.149e-3 (8 members; the reading repeats exactly,
+# as the kernels are deterministic). Attention on random weights is
+# close to flat over ~1100 positions, so the faulty controls
+# (SUFFIX_FAULTS) read only a little above that: 2.632e-3 with one
+# prefix position masked, 5.366e-3 with rotary positions off by one
+# (NVIDIA H100 80GB HBM3, 700.00 W). The limit lies between, and every
+# run reads the controls through the same comparison and requires them
+# above it, so the gate shows each time that it can fail
+HIT_LOGITS_REL_TOL = 2.4e-3
+# faults injected into the suffix forward for the controls: one prefix
+# position masked (the window's mask at base - 1, its positions right),
+# and the window's rotary positions one too far
+SUFFIX_FAULTS = ("prefix_position_masked", "rotary_off_by_one")
+
+
+@contextlib.contextmanager
+def _suffix_fault(kind: str):
+    """Run the suffix forward (``speculative._window_block``) with the
+    fault ``kind`` of SUFFIX_FAULTS injected; restored on exit."""
+    from kind_tpu_sim_torch.models import speculative
+
+    window, rotary = speculative._window_block, speculative._rotary
+    speculative._rotary = lambda t, pos: rotary(t, pos + 1)
+    if kind == "prefix_position_masked":
+        speculative._window_block = (
+            lambda x, bp, c, lc, base: window(x, bp, c, lc, base - 1))
+    try:
+        yield
+    finally:
+        speculative._window_block, speculative._rotary = window, rotary
+
+
+def _worst_rel(a: dict, b: dict, ids) -> float:
+    """The largest, over ``ids``, of max |a - b| over max |b| of two
+    logit vectors."""
+    return max(float((a[i] - b[i]).abs().max() / b[i].abs().max())
+               for i in ids)
+
+
+def hit_vs_cold_phase(flagship, serving, sp, cfg) -> dict:
+    """The realistic stream's 8 family members with logprobs, after
+    their heads, on the realistic engine (with the bench's pool of
+    ``HIT_VS_COLD_POOL`` blocks) with the prefix cache (every member a
+    hit) and without it (cold). Gates: each member's first-token
+    logprob within HIT_LP_TOL of the cold path's, and the logits it was
+    sampled from within HIT_LOGITS_REL_TOL of the cold path's. Then the
+    members hit once more, one new token each, under each fault of
+    SUFFIX_FAULTS: each control's logits must differ from the cold
+    path's by more than HIT_LOGITS_REL_TOL, or the gate could not see
+    that fault. Equal streams are reported, not gated, with the first
+    divergence."""
+    reqs = flagship.realistic_requests(cfg.vocab_size, logprobs=True)
+    heads = [r for r in reqs if r.cache_prefix]
+    members = [r for r in reqs
+               if r.request_id.startswith("rf") and not r.cache_prefix]
+    ids = [r.request_id for r in members]
+    runs, logits, engines = {}, {8: {}, 0: {}}, {}
+    for entries in (8, 0):
+        sc = dataclasses.replace(flagship.realistic_serving(HIT_VS_COLD_POOL),
+                                 prefix_cache_entries=entries)
+        eng = engines[entries] = serving.PagedServingEngine(
+            sp, cfg, sc, device="cuda")
+        for r in heads:
+            eng.submit(dataclasses.replace(r))
+        eng.run()
+        _capture_prompt_logits(eng, logits[entries])
+        for r in members:
+            eng.submit(dataclasses.replace(r))
+        runs[entries] = {c.request_id: c for c in eng.run()}
+        rep = eng.report()
+        if entries:
+            check(rep["prefix_cache"]["hits"] == len(members)
+                  and rep["suffix_windows"] == len(members),
+                  f"hit path: {rep['prefix_cache']}, suffix windows "
+                  f"{rep['suffix_windows']}")
+    worst, agree, first = 0.0, 0, None
+    for r in members:
+        hit, cold = runs[8][r.request_id], runs[0][r.request_id]
+        d = abs(hit.logprobs[0] - cold.logprobs[0])
+        worst = max(worst, d)
+        check(math.isfinite(d) and d <= HIT_LP_TOL,
+              f"hit vs cold {r.request_id}: first-token logprob "
+              f"{hit.logprobs[0]} vs {cold.logprobs[0]}")
+        rel = _worst_rel(logits[8], logits[0], [r.request_id])
+        check(math.isfinite(rel) and rel <= HIT_LOGITS_REL_TOL,
+              f"hit vs cold {r.request_id}: logits differ by {rel} of their "
+              "largest magnitude")
+        if hit.tokens == cold.tokens:
+            agree += 1
+        elif first is None:
+            i = next(j for j, (x, y) in enumerate(zip(hit.tokens,
+                                                      cold.tokens)) if x != y)
+            first = (f"{r.request_id} at token {i} ({hit.tokens[i]} vs "
+                     f"{cold.tokens[i]})")
+    worst_rel = _worst_rel(logits[8], logits[0], ids)
+    controls, eng = {}, engines[8]
+    for kind in SUFFIX_FAULTS:
+        logits[8].clear()
+        hits = eng.report()["prefix_cache"]["hits"]
+        with _suffix_fault(kind):
+            for r in members:
+                eng.submit(dataclasses.replace(r, max_new=1))
+            done = eng.run()
+        hits = eng.report()["prefix_cache"]["hits"] - hits
+        check(len(done) == len(members) and hits == len(members),
+              f"control {kind}: {len(done)} completed, {hits} hits")
+        controls[kind] = _worst_rel(logits[8], logits[0], ids)
+        check(controls[kind] > HIT_LOGITS_REL_TOL,
+              f"control {kind}: logits differ by only {controls[kind]} of "
+              f"their largest magnitude, within the gate's "
+              f"{HIT_LOGITS_REL_TOL}")
+    lps = [round(runs[8][r.request_id].logprobs[0], 6) for r in members]
+    log(f"hit vs cold: {len(members)} members, first-token logprob worst "
+        f"difference {worst:.3e} (tolerance {HIT_LP_TOL}; hit path's "
+        f"logprobs {lps}); logits at the last prompt position worst "
+        f"{worst_rel:.3e} of their largest magnitude (tolerance "
+        f"{HIT_LOGITS_REL_TOL}; faulty controls "
+        + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+        + f"); streams equal {agree} of {len(members)}; "
+        f"first divergence: {first}")
+    return {"members": len(members), "first_lp_worst_diff": worst,
+            "logits_worst_rel_diff": worst_rel,
+            "controls_logits_worst_rel_diff": controls,
+            "streams_equal": agree, "first_divergence": first}
+
+
+def _capture_prompt_logits(eng, store: dict) -> None:
+    """Record, by request id, the fp32 logits each admission of ``eng``
+    samples its first token from (a single window's or a wave row's)."""
+    window, group = eng._prefill_window, eng._prefill_group
+
+    def captured_window(slot, req, tokens, w, done):
+        out = window(slot, req, tokens, w, done)
+        store[req.request_id] = out.float().clone()
+        return out
+
+    def captured_group(grp):
+        out = group(grp)
+        for row, (_, req) in enumerate(grp):
+            store[req.request_id] = out[row].float().clone()
+        return out
+
+    eng._prefill_window, eng._prefill_group = captured_window, captured_group
+
+
+def longprompt_phase(flagship, serving, sp, cfg) -> dict:
+    """The reference bench's long-prompt stream on the dense grid at full
+    width: 8 requests of 224 tokens (96 new) and one of 768 (64 new)
+    behind them, once with whole-prompt admission and once with
+    ``prefill_chunk=64``, each engine warmed first. Gate: every request
+    completes. Logged: the short requests' e2e p50 and max and the long
+    request's TTFT."""
+    out = {}
+    for key, chunk in (("whole", 0), ("chunked", 64)):
+        eng = serving.ServingEngine(
+            sp, cfg, flagship.longprompt_serving(chunk), device="cuda")
+        eng.warm_admission((224,))
+        eng.warm_admission((768,), sizes=(1,))
+        for rid, n in (("warm", 256), ("warmL", 768)):
+            eng.submit(serving.Request(rid, [1] * n, 2))
+        eng.run()
+        reqs = flagship.longprompt_requests(cfg.vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        done = {c.request_id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(done) == len(reqs) and all(
+            len(done[r.request_id].tokens) == r.max_new for r in reqs),
+              f"long-prompt {key}: {len(done)} of {len(reqs)} completed")
+        e2es = sorted(c.e2e_s for rid, c in done.items() if rid != "L")
+        out[key] = {"wall_s": wall, "short_e2e_p50_s": e2es[len(e2es) // 2],
+                    "short_e2e_max_s": e2es[-1],
+                    "long_ttft_s": done["L"].ttft_s,
+                    "prefills": eng.report()["prefills"]}
+        log(f"long-prompt stream ({key}, prefill_chunk {chunk}): wall "
+            f"{wall:.3f} s; short e2e p50 {out[key]['short_e2e_p50_s']:.3f} "
+            f"s, max {out[key]['short_e2e_max_s']:.3f} s; long TTFT "
+            f"{out[key]['long_ttft_s']:.3f} s")
+    log(json.dumps({"longprompt": out}))
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -1608,7 +2200,18 @@ def main() -> int:
     flash_row = flash_phase(fa)
     kernels = [flash_row, paged_phase(pa), *flash_bwd_phase(fa, flash_row)]
     small_phase(tf, serving, fa, pa)
-    launches, serve_routes = serve_phase(flagship, serving, fa, pa)
+    cfg = flagship.flagship_config()
+    t0 = time.perf_counter()
+    sp = flagship.flagship_params(cfg)
+    n_params = sum(x.numel() for x in [sp["embed"], sp["final_norm"]]
+                   + [w for b in sp["blocks"] for w in b.values()])
+    log(f"flagship params: {n_params} (bf16 serving snapshot), set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches, serve_routes = serve_phase(flagship, serving, fa, pa, sp, cfg)
+    realistic = realistic_phase(flagship, serving, fa, pa, sp, cfg)
+    hit_vs_cold_phase(flagship, serving, sp, cfg)
+    longprompt_phase(flagship, serving, sp, cfg)
+    del sp
     small_train_phase(tf, fa)
     train_launches, train_plain = train_phase(trainer, fa)
     train_remat_phase(trainer, fa, train_plain)
@@ -1621,11 +2224,14 @@ def main() -> int:
                      if name not in launches})
     flash_row.update({
         "launches_by_route": serve_routes["flash_attention"],
+        "realistic_launches_by_route": realistic["routes"]["flash_attention"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":
             k["launches_by_route"] = serve_routes["paged_attention"]
+            k["realistic_launches_by_route"] = (
+                realistic["routes"]["paged_attention"])
         elif k is not flash_row and k["name"] in train_plain["routes"]:
             k["launches_by_route"] = train_plain["routes"][k["name"]]
     kernels += toolchain_rows

@@ -17,12 +17,18 @@ in place.
 Numerical contract (dense configs): a token generated through the
 cache path equals the argmax of the full (uncached) forward at that
 position. int8 caches and MoE belong to later slices of the port.
+
+Sampling draws its Gumbel noise from a ``torch.Generator`` seeded from
+(seed, generation index), not from ``jax.random``: sampled streams are
+reproducible and valid, not JAX's tokens; greedy streams equal JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from kind_tpu_sim_torch.device import resolve, torch_dtype
@@ -120,6 +126,29 @@ def _finish_block(x, attn, bparams, cfg: ModelConfig):
     return x + _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams)
 
 
+def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
+    """One block for one token at position ``pos``. The cache is read
+    stale (positions < pos) and the in-flight token's k/v attend
+    directly; the cache row at ``pos`` is written afterwards, in place."""
+    b = x.shape[0]
+    dtype = torch_dtype(cfg.dtype)
+    positions = torch.full((b, 1), pos, device=x.device)
+    qg, k, v = _attend_token(x, bparams, cfg, positions)
+    scale = cfg.head_dim ** -0.5
+    max_len = layer_cache["k"].shape[1]
+    valid = torch.arange(max_len, device=x.device) < pos
+    sc_past = _cache_scores(qg, layer_cache["k"], scale).masked_fill(
+        ~valid[None, None, None, :], NEG)
+    scores = torch.cat([sc_past, _cache_scores(qg, k, scale)], -1)
+    probs = torch.softmax(scores, dim=-1)
+    attn = (_cache_values(probs[..., :max_len], layer_cache["v"], dtype)
+            + _cache_values(probs[..., max_len:], v, dtype)
+            ).reshape(b, cfg.d_model)
+    _store(layer_cache["k"], k, pos)
+    _store(layer_cache["v"], v, pos)
+    return _finish_block(x, attn, bparams, cfg), layer_cache
+
+
 def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int):
     """prompt (b, t_p) -> (last-position logits (b, vocab), filled
     cache) in one batched forward over the whole prompt."""
@@ -134,6 +163,17 @@ def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int):
         _store(layer_cache["v"], v, 0)
     last = _rms_norm(x[:, -1, :], params["final_norm"])
     return _readout(last, params["embed"]), cache
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, token, cache, pos: int):
+    """token (b,) integer at position ``pos`` -> (fp32 logits
+    (b, vocab), cache); the cache is written in place."""
+    x = embed_lookup(params["embed"], token, torch_dtype(cfg.dtype))
+    for bparams, layer_cache in zip(params["blocks"], cache):
+        x, _ = _block_decode(x, bparams, cfg, layer_cache, pos)
+    x = _rms_norm(x, params["final_norm"])
+    return _readout(x, params["embed"]), cache
 
 
 def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
@@ -179,11 +219,16 @@ def _new_chunk_buffers(cfg: ModelConfig, b: int, size: int, device):
             for _ in range(cfg.n_layers)]
 
 
+def _greedy(logits, step: int):
+    return torch.argmax(logits, dim=-1)
+
+
 def _run_chunk(params, cfg: ModelConfig, token, cache, base: int,
-               size: int):
-    """Generate ``size`` greedy tokens with the big cache frozen, then
-    merge the chunk buffer into it once. Returns (next_token, cache,
-    emitted (b, size))."""
+               size: int, step0: int = 0, select_fn=_greedy):
+    """Generate ``size`` tokens with the big cache frozen, then merge
+    the chunk buffer into it once. ``select_fn(logits, step)`` picks
+    each token; ``step`` counts decode steps from ``step0``. Returns
+    (next_token, cache, emitted (b, size))."""
     dtype = torch_dtype(cfg.dtype)
     small = _new_chunk_buffers(cfg, token.shape[0], size, token.device)
     emitted = []
@@ -194,7 +239,7 @@ def _run_chunk(params, cfg: ModelConfig, token, cache, base: int,
             x, _ = _block_decode_chunk(x, bparams, cfg, big_lc, small_lc,
                                        base, i)
         x = _rms_norm(x, params["final_norm"])
-        token = torch.argmax(_readout(x, params["embed"]), dim=-1).to(
+        token = select_fn(_readout(x, params["embed"]), step0 + i).to(
             token.dtype)
         emitted.append(token)
     for big_lc, small_lc in zip(cache, small):
@@ -204,7 +249,8 @@ def _run_chunk(params, cfg: ModelConfig, token, cache, base: int,
 
 
 def _chunked_generate(params, cfg: ModelConfig, first_token, cache,
-                      start_pos: int, num_new: int, chunk: int = 64):
+                      start_pos: int, num_new: int, chunk: int = 64,
+                      select_fn=_greedy):
     """``first_token`` sits at ``start_pos``; runs ``num_new - 1`` token
     steps in chunks of ``chunk`` (the JAX package's chunk boundaries:
     full chunks of min(chunk, steps), then the remainder)."""
@@ -217,11 +263,13 @@ def _chunked_generate(params, cfg: ModelConfig, first_token, cache,
     outs = [first_token[:, None]]
     for c in range(n_full):
         token, cache, emitted = _run_chunk(
-            params, cfg, token, cache, start_pos + c * size, size)
+            params, cfg, token, cache, start_pos + c * size, size,
+            c * size, select_fn)
         outs.append(emitted)
     if rem:
         token, cache, emitted = _run_chunk(
-            params, cfg, token, cache, start_pos + n_full * size, rem)
+            params, cfg, token, cache, start_pos + n_full * size, rem,
+            n_full * size, select_fn)
         outs.append(emitted)
     return torch.cat(outs, dim=1)
 
@@ -252,6 +300,114 @@ class SamplingConfig:
     repetition_penalty: float = 1.0
 
 
+def _noise_seed(*key: int) -> int:
+    """64-bit generator seed for one key: (request seed, generation
+    index), with the batch row after them where one key serves a
+    batch."""
+    seq = np.random.SeedSequence([int(k) % 2 ** 64 for k in key])
+    return int(seq.generate_state(1, np.uint64)[0])
+
+
+def _filtered_scaled(logits, temp, top_k, top_p, min_p=None):
+    """Temperature-scaled, top-k/top-p/min-p-filtered logits per row
+    (b, vocab); filtered entries are -1e30. The JAX package's math:
+    per-row k via the sorted kth value, nucleus cutoff from the mass
+    BEFORE each token, min-p floor relative to the max prob."""
+    vocab = logits.shape[-1]
+    scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab))
+    kth = sorted_desc.gather(
+        1, torch.clamp(k_eff - 1, 0, vocab - 1)[:, None].long())
+    scaled = scaled.masked_fill(scaled < kth, NEG)
+
+    probs = torch.softmax(scaled, dim=-1)
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    # top_p >= 1.0 disables the filter exactly (threshold 2.0)
+    p_eff = torch.where(top_p >= 1.0, torch.full_like(top_p, 2.0), top_p)
+    keep = (cum - sorted_probs) < p_eff[:, None]
+    cutoff = torch.where(keep, sorted_probs,
+                         torch.full_like(sorted_probs, 2.0)).amin(
+        dim=-1, keepdim=True)
+    scaled = scaled.masked_fill(probs < cutoff, NEG)
+
+    if min_p is not None:
+        probs = torch.softmax(scaled, dim=-1)
+        floor = min_p[:, None] * probs.amax(dim=-1, keepdim=True)
+        scaled = scaled.masked_fill((min_p[:, None] > 0.0) & (probs < floor),
+                                    NEG)
+    return scaled
+
+
+def _gumbel_noise(keys, vocab: int, temp, device):
+    """(b, vocab) fp32 Gumbel noise, row r drawn on the CPU from a
+    torch.Generator seeded by ``_noise_seed(*keys[r])``; greedy rows
+    (temp <= 0) get zeros."""
+    noise = torch.zeros((len(keys), vocab))
+    tiny = torch.finfo(torch.float32).tiny
+    for r, (key, t) in enumerate(zip(keys, temp.tolist())):
+        if t > 0.0:
+            gen = torch.Generator().manual_seed(_noise_seed(*key))
+            u = torch.rand(vocab, generator=gen).clamp_(min=tiny)
+            noise[r] = -torch.log(-torch.log(u))
+    return noise.to(device)
+
+
+def _sample_token(logits, sampling: SamplingConfig,
+                  key: Tuple[int, int]):
+    """One sampling step over fp32 logits (b, vocab) -> tokens (b,):
+    greedy at temperature <= 0, else the Gumbel-max draw over
+    ``_filtered_scaled`` with the same knobs on every row. ``key`` is
+    (seed, generation index); row r's noise is drawn from
+    (seed, generation index, r)."""
+    if sampling.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    b, dev = logits.shape[0], logits.device
+
+    def rows(value, dtype):
+        return torch.full((b,), value, dtype=dtype, device=dev)
+
+    temp = rows(sampling.temperature, torch.float32)
+    scaled = _filtered_scaled(logits, temp,
+                              rows(sampling.top_k, torch.int32),
+                              rows(sampling.top_p, torch.float32),
+                              rows(sampling.min_p, torch.float32))
+    noise = _gumbel_noise([(*key, r) for r in range(b)], logits.shape[-1],
+                          temp, dev)
+    return torch.argmax(scaled + noise, dim=-1)
+
+
+@torch.no_grad()
+def sample_generate(params: Params, cfg: ModelConfig, prompt, num_new: int,
+                    seed: int, sampling: SamplingConfig = SamplingConfig(),
+                    device="cuda"):
+    """prompt (b, t_p) integer -> (b, t_p + num_new) sampled
+    continuation on ``device``: the prefill and chunked decode of
+    ``greedy_generate``, generation index i drawn with key (seed, i),
+    so a fixed seed replays the same sequence."""
+    if sampling.repetition_penalty != 1.0:
+        # the solo path keeps no presence state; the serving engines
+        # implement the penalty
+        raise ValueError(
+            "repetition_penalty is only supported by the serving "
+            "engines (models/serving.py), not sample_generate")
+    dev = resolve(device)
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    t_p = prompt.shape[1]
+    if num_new <= 0:
+        return prompt
+    logits, cache = prefill(params, cfg, prompt, t_p + num_new)
+    first = _sample_token(logits, sampling, (seed, 0))
+
+    def select(logits, step):
+        return _sample_token(logits, sampling, (seed, step + 1))
+
+    generated = _chunked_generate(params, cfg, first, cache, t_p, num_new,
+                                  select_fn=select)
+    return torch.cat([prompt, generated], dim=1)
+
+
 @torch.no_grad()
 def greedy_generate(params: Params, cfg: ModelConfig, prompt, num_new: int,
                     chunk: int = 64, device="cuda"):
@@ -269,3 +425,26 @@ def greedy_generate(params: Params, cfg: ModelConfig, prompt, num_new: int,
     generated = generate_from_cache(params, cfg, first, cache, t_p,
                                     num_new, chunk=chunk)
     return torch.cat([prompt, generated], dim=1)
+
+
+def generate_report(cfg: ModelConfig = None, batch: int = 2,
+                    prompt_len: int = 8, num_new: int = 8,
+                    device="cuda") -> Dict[str, Any]:
+    """Smoke and self-consistency check: random weights and a prompt
+    from seeded ``torch.Generator``s, a greedy continuation, and its
+    last token against the argmax of the uncached forward."""
+    from kind_tpu_sim_torch.models import transformer as tf
+
+    dev = resolve(device)
+    cfg = cfg or tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,
+                                n_layers=2, d_ff=64, max_seq=32)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    prompt = tf.sample_batch(torch.Generator(device=dev).manual_seed(1),
+                             cfg, batch, prompt_len, device=dev)
+    out = greedy_generate(params, cfg, prompt, num_new, device=dev)
+    with torch.no_grad():
+        logits = tf.forward(params, out[:, :-1], cfg)
+    consistent = bool((out[:, -1] == logits[:, -1].argmax(dim=-1)).all())
+    return {"prompt_len": prompt_len, "generated": num_new,
+            "cache_consistent": consistent, "ok": consistent}

@@ -22,11 +22,14 @@ Two decode tiers over the same pools:
 Pool writes are in place (the JAX package donates the pools). Block
 allocation is host-side bookkeeping at scheduling boundaries
 (``BlockAllocator``); pool exhaustion triggers recompute preemption in
-``serving.PagedServingEngine``.
+``serving.PagedServingEngine``. ``PagedPrefixCache`` shares whole
+prompt blocks between requests by reference count; ``paged_suffix``
+runs a prompt's suffix against the shared blocks.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import List, Optional
 
 import torch
@@ -135,19 +138,68 @@ def paged_prefill(params, pools, tokens, true_len: int, table_row, *,
     positions < true_len into the slot's pool blocks (table_row:
     (width,) int32), in place. Returns the fp32 logits at the true
     last position."""
-    t_p = tokens.shape[1]
-    positions = torch.arange(t_p, device=tokens.device)[None, :]
+    return paged_prefill_many(params, pools, tokens, [true_len],
+                              table_row[None, :], cfg=cfg)[0]
+
+
+def paged_prefill_many(params, pools, tokens, true_lens, tables, *,
+                       cfg: ModelConfig):
+    """K whole-prompt prefills (an admission wave: the reference's
+    ``serving._paged_prefill_many``) as ONE stacked forward over
+    ``tokens`` (K, t_pad): row r's k/v for its first ``true_lens[r]``
+    positions scatter through its table row ``tables[r]`` (positions
+    past them, or past the width, to the garbage block), in place. Each
+    row's result equals its own ``paged_prefill``; the flash kernel
+    launches once per layer for the wave. Returns (K, vocab) fp32
+    logits at each row's true last position."""
+    k_rows, t_p = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(t_p, device=dev)[None, :].expand(k_rows, t_p)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    idx = [_window_indices(t_p, 0, pools[0]["k"].shape[1], tables.shape[1],
+                           n, row) for n, row in zip(true_lens, tables)]
+    blocks = torch.cat([b for b, _ in idx])
+    offsets = torch.cat([o for _, o in idx])
+
+    def write(pool_arr, upd):
+        flat = upd.reshape((k_rows * t_p,) + tuple(upd.shape[2:]))
+        _scatter_flat(pool_arr, blocks, offsets, flat)
+
+    for bparams, lc in zip(params["blocks"], pools):
+        x, _, k, v = _block_core(x, bparams, cfg, positions)
+        _write_layer(lc, k, v, write)
+    lens = torch.as_tensor(true_lens, device=dev)
+    h = _rms_norm(x[torch.arange(k_rows, device=dev), lens - 1],
+                  params["final_norm"])
+    return _readout(h, params["embed"]).float()
+
+
+def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
+                 *, cfg: ModelConfig):
+    """Prefix-cache admission (and every chunked-prefill window after
+    the first), paged: the slot's table already points at the blocks
+    holding positions < ``base``; run the window (1, w_pad) through the
+    model attending to the gathered prefix view, scatter its k/v into
+    the slot's blocks from ``base`` on, in place, and return the fp32
+    logits at the true last window position. Shared blocks are never
+    written: a hit's suffix starts on a block boundary, so every write
+    lands in blocks this slot allocated itself."""
+    from kind_tpu_sim_torch.models.speculative import _window_block
+
+    w = tokens.shape[1]
+    view = gather_view(pools, table_row[None, :])
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    base_vec = torch.full((1,), base, device=tokens.device)
     blocks, offsets = _window_indices(
-        t_p, 0, pools[0]["k"].shape[1], table_row.shape[0], true_len,
+        w, base, pools[0]["k"].shape[1], table_row.shape[0], true_len,
         table_row)
 
     def write(pool_arr, upd):
         _scatter_flat(pool_arr, blocks, offsets, upd[0])
 
-    for bparams, lc in zip(params["blocks"], pools):
-        x, _, k, v = _block_core(x, bparams, cfg, positions)
-        _write_layer(lc, k, v, write)
+    for bparams, lc, view_lc in zip(params["blocks"], pools, view):
+        x, kk, vv = _window_block(x, bparams, cfg, view_lc, base_vec)
+        _write_layer(lc, kk, vv, write)
     return _last_logits(x, params, true_len)
 
 
@@ -286,6 +338,84 @@ class BlockAllocator:
 
     def refcount(self, block: int) -> int:
         return self._refs.get(block, 0)
+
+
+class PagedPrefixCache:
+    """Block-granular prompt-prefix sharing (exact-prefix tier): a
+    stored prefix is a list of FULL pool blocks, refcounted by the
+    allocator and keyed by the token tuple those blocks hold. A hit
+    points the new slot's table at the shared blocks (no copy, no
+    forward over the shared positions) and runs only the block-aligned
+    suffix. Shared blocks are never written (writes start at the first
+    block past the shared ones)."""
+
+    def __init__(self, capacity: int, alloc: BlockAllocator,
+                 block_size: int):
+        self.capacity = capacity
+        self.alloc = alloc
+        self.block_size = block_size
+        self.entries = collections.OrderedDict()
+        self._len_count = collections.Counter()
+        self.hits = 0
+        self.misses = 0
+        # blocks every hit pointed at instead of allocating and
+        # prefilling them (x block_size: prompt tokens skipped)
+        self.shared_blocks = 0
+
+    def lookup(self, prompt: List[int]):
+        """Longest stored full-block STRICT prefix of ``prompt`` (so at
+        least its last token runs through the model), LRU-refreshed;
+        None on a miss."""
+        for length in sorted(self._len_count, reverse=True):
+            if length >= len(prompt):
+                continue
+            key = tuple(prompt[:length])
+            entry = self.entries.get(key)
+            if entry is None:
+                continue
+            self.hits += 1
+            self.shared_blocks += len(entry["blocks"])
+            self.entries.move_to_end(key)
+            return entry
+        self.misses += 1
+        return None
+
+    def store(self, prompt: List[int], blocks: List[int]) -> None:
+        """Share the slot's full blocks of ``prompt`` into the cache
+        (only whole blocks are cacheable)."""
+        n_full = len(prompt) // self.block_size
+        usable = blocks[:n_full]
+        if not usable:
+            return
+        key = tuple(prompt[:n_full * self.block_size])
+        if key in self.entries:
+            self.entries.move_to_end(key)
+            return
+        self.alloc.share(usable)
+        self.entries[key] = {"blocks": list(usable),
+                             "len": n_full * self.block_size}
+        self._len_count[len(key)] += 1
+        while len(self.entries) > self.capacity:
+            self.evict_lru()
+
+    def evict_lru(self) -> bool:
+        """Drop the least recently used entry and its block references
+        (blocks a live slot still uses stay allocated until it
+        retires); False when the cache is empty. Runs on store
+        overflow and under pool pressure, so cache-held blocks never
+        starve admission."""
+        if not self.entries:
+            return False
+        old_key, old = self.entries.popitem(last=False)
+        self.alloc.free(old["blocks"])
+        self._len_count[len(old_key)] -= 1
+        if not self._len_count[len(old_key)]:
+            del self._len_count[len(old_key)]
+        return True
+
+    def report(self) -> dict:
+        return {"entries": len(self.entries), "hits": self.hits,
+                "misses": self.misses, "shared_blocks": self.shared_blocks}
 
 
 def blocks_needed(tokens: int, block_size: int) -> int:

@@ -22,10 +22,25 @@ cannot change a stream. Correctness contract: a greedy request decoded
 through a busy grid emits exactly what ``decode.greedy_generate``
 emits.
 
-This slice admits whole prompts one slot at a time. Prefix caching,
-chunked prefill, batched admission waves, overlapped rounds, deadlines,
-load shedding, speculative decoding, int8, MoE and meshes are later
-slices; their knobs raise ValueError at construction.
+Admission, the way a prompt gets into the KV storage, has three
+features that share one pair of hooks (``_claim_pending`` /
+``_prefill_window``, then ``_store_pending``):
+
+* prefix caching (``prefix_cache_entries``, ``Request.cache_prefix``):
+  a hit restores a stored prefix (dense: a device copy of its rows;
+  paged: the shared blocks, refcounted) and runs only the suffix;
+* chunked prefill (``prefill_chunk``): a prompt enters in windows, one
+  per scheduling round, interleaved with decode;
+* admission waves (``admission_wave_sizes``): a round's cache misses
+  that share a prompt bucket run as one stacked prefill of K prompts
+  (K decomposed into the configured sizes, largest first) with one
+  host readback of their first tokens.
+
+The first window of a prompt runs the forward (the flash kernel when
+the model config sets ``flash``); a suffix window runs
+``speculative._window_block`` against the prefix. Overlapped rounds,
+deadlines, load shedding, speculative decoding, int8, MoE and meshes
+are later slices; their knobs raise ValueError at construction.
 """
 
 from __future__ import annotations
@@ -45,6 +60,8 @@ from kind_tpu_sim_torch.models.decode import (
     NEG,
     SamplingConfig,
     _block_decode_chunk,
+    _filtered_scaled,
+    _gumbel_noise,
     _new_chunk_buffers,
     init_cache,
 )
@@ -62,9 +79,9 @@ from kind_tpu_sim_torch.models.transformer import (
 class ServingConfig:
     """Engine knobs (the vLLM --max-num-seqs / --max-model-len analog),
     with the JAX package's names, order and defaults.
-    ``prefix_cache_entries``, ``speculative_k``, ``spec_windows`` and the
-    fields past ``paged_width`` belong to later slices: set away from
-    their defaults, the engine raises."""
+    ``speculative_k``, ``spec_windows``, ``overlap_rounds`` and
+    ``max_queue`` belong to later slices: set away from their defaults,
+    the engine raises."""
 
     max_slots: int = 4        # concurrent sequences (the decode batch)
     max_len: int = 128        # per-slot KV capacity (prompt + generated)
@@ -99,7 +116,7 @@ class Request:
     eos_id: Optional[int] = None
     sampling: Optional[SamplingConfig] = None
     seed: Optional[int] = None
-    cache_prefix: bool = False   # not ported yet: must be False
+    cache_prefix: bool = False   # store the prompt's k/v for later hits
     deadline_s: Optional[float] = None  # not ported yet: must be None
     logprobs: bool = False       # raw-model log-probability per token
 
@@ -141,19 +158,138 @@ def _prefill_into_slot(params, cache, tokens, true_len: int, slot: int, *,
     positions < true_len into row ``slot`` of the cache, in place (the
     rest of the row is zeroed). Returns the fp32 logits (vocab,) at the
     TRUE last position; padding cannot leak into them (causal)."""
-    t_p = tokens.shape[1]
-    positions = torch.arange(t_p, device=tokens.device)[None, :]
+    return _prefill_many_into_slots(params, cache, tokens, [true_len], [slot],
+                                    cfg=cfg)[0]
+
+
+def _prefill_many_into_slots(params, cache, tokens, true_lens, slots, *,
+                             cfg: ModelConfig):
+    """K whole-prompt prefills as ONE stacked forward: ``tokens`` (K,
+    L_pad) within one prompt bucket, row r written into cache row
+    ``slots[r]`` for its first ``true_lens[r]`` positions (the rest of
+    the row zeroed), in place. Each row's result equals its own
+    ``_prefill_into_slot`` (the flash kernel launches once per layer
+    for the whole wave). Returns (K, vocab) fp32 logits at each row's
+    true last position."""
+    k_rows, t_p = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(t_p, device=dev)[None, :].expand(k_rows, t_p)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
-    keep = (torch.arange(t_p, device=tokens.device)
-            < true_len)[None, :, None, None]
+    lens = torch.as_tensor(true_lens, device=dev)
+    keep = (torch.arange(t_p, device=dev)[None, :]
+            < lens[:, None])[:, :, None, None]
+    rows = torch.as_tensor(slots, device=dev)
     for bparams, layer_cache in zip(params["blocks"], cache):
         x, _, k, v = _block_core(x, bparams, cfg, positions)
         for arr, upd in ((layer_cache["k"], k), (layer_cache["v"], v)):
             n = min(t_p, arr.shape[1])
-            arr[slot].zero_()
-            arr[slot, :n] = torch.where(keep, upd, 0)[0, :n].to(arr.dtype)
+            arr.index_fill_(0, rows, 0)
+            arr[rows, :n] = torch.where(keep, upd, 0)[:, :n].to(arr.dtype)
+    last = x[torch.arange(k_rows, device=dev), lens - 1]
+    h = _rms_norm(last, params["final_norm"])
+    return _readout(h, params["embed"]).float()
+
+
+def _suffix_into_slot(params, cache, tokens, true_len: int, base: int,
+                      slot: int, *, cfg: ModelConfig):
+    """Continue a slot whose first ``base`` positions already hold k/v
+    (a restored prefix, or the earlier windows of a chunked prefill):
+    run the window (1, w_pad) through the model attending to that
+    prefix (``speculative._window_block``), write its k/v from ``base``
+    on (positions past ``true_len`` zeroed; none past the row's end),
+    in place, and return the fp32 logits at the TRUE last window
+    position. ``_prefill_into_slot`` is the base == 0 case."""
+    from kind_tpu_sim_torch.models.speculative import _window_block
+
+    w = tokens.shape[1]
+    dev = tokens.device
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    keep = (torch.arange(w, device=dev) < true_len)[None, :, None, None]
+    base_vec = torch.full((1,), base, device=dev)
+    for bparams, layer_cache in zip(params["blocks"], cache):
+        row = {name: arr[slot:slot + 1] for name, arr in layer_cache.items()}
+        x, kk, vv = _window_block(x, bparams, cfg, row, base_vec)
+        for arr, upd in ((layer_cache["k"], kk), (layer_cache["v"], vv)):
+            n = min(w, arr.shape[1] - base)
+            arr[slot, base:base + n] = torch.where(keep, upd, 0)[0, :n].to(
+                arr.dtype)
     h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
     return _readout(h, params["embed"])[0].float()
+
+
+def _read_slot_rows(cache, slot: int, length: int):
+    """Copies of the first ``length`` cache rows of ``slot``, one
+    {"k", "v"} of (1, length, kv, hd) per layer: the store half of
+    dense prefix caching."""
+    return [{name: arr[slot:slot + 1, :length].clone()
+             for name, arr in layer_cache.items()} for layer_cache in cache]
+
+
+def _write_slot_rows(cache, entry_kv, slot: int) -> None:
+    """Copy a stored prefix entry's rows into ``slot`` from position 0,
+    device to device, in place: the restore half."""
+    for layer_cache, entry in zip(cache, entry_kv):
+        for name, arr in layer_cache.items():
+            arr[slot, :entry[name].shape[1]] = entry[name][0]
+
+
+class PrefixCache:
+    """Host-side LRU of prompt -> device KV rows (the exact-prefix tier
+    of automatic prefix caching). Entries are keyed by the stored token
+    tuple and padded to a power-of-two length. ``lookup`` returns the
+    LONGEST stored entry that strictly prefixes the query and fits the
+    slot; admission copies its rows and runs only the suffix. The k/v
+    of a prefix are positional (computed at positions 0..p-1), so they
+    are exact wherever they land."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.entries = collections.OrderedDict()
+        # stored length -> entry count: lookup probes one key per
+        # distinct length instead of comparing every entry
+        self._len_count: Dict[int, int] = collections.Counter()
+        self.hits = 0
+        self.misses = 0
+
+    def lookup(self, prompt: List[int], max_len: Optional[int] = None):
+        """Longest USABLE stored strict prefix of ``prompt``
+        (LRU-refreshed); None on a miss. With ``max_len``, an entry
+        whose stored rows (its pad) or whose bucket-padded suffix
+        window would run past ``max_len`` is no hit: it is not counted
+        or refreshed, and a shorter stored prefix that fits wins."""
+        for length in sorted(self._len_count, reverse=True):
+            if length >= len(prompt):
+                continue
+            key = tuple(prompt[:length])
+            entry = self.entries.get(key)
+            if entry is None:
+                continue
+            if max_len is not None and (
+                    entry["pad"] > max_len
+                    or entry["len"] + _bucket(len(prompt) - entry["len"])
+                    > max_len):
+                continue
+            self.hits += 1
+            self.entries.move_to_end(key)
+            return entry
+        self.misses += 1
+        return None
+
+    def store(self, prompt: List[int], entry) -> None:
+        key = tuple(prompt)
+        if key not in self.entries:
+            self._len_count[len(key)] += 1
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.capacity:
+            old_key, _ = self.entries.popitem(last=False)
+            self._len_count[len(old_key)] -= 1
+            if not self._len_count[len(old_key)]:
+                del self._len_count[len(old_key)]
+
+    def report(self) -> Dict[str, Any]:
+        return {"entries": len(self.entries), "hits": self.hits,
+                "misses": self.misses}
 
 
 def _raw_token_lp(logits, toks):
@@ -171,58 +307,6 @@ def _apply_rep_penalty(logits, rep_pen, presence):
     pen = rep_pen[:, None]
     penalized = torch.where(logits > 0, logits / pen, logits * pen)
     return torch.where(presence & (pen != 1.0), penalized, logits)
-
-
-def _filtered_scaled(logits, temp, top_k, top_p, min_p=None):
-    """Temperature-scaled, top-k/top-p/min-p-filtered logits per row
-    (b, vocab); filtered entries are -1e30. The JAX package's math:
-    per-row k via the sorted kth value, nucleus cutoff from the mass
-    BEFORE each token, min-p floor relative to the max prob."""
-    vocab = logits.shape[-1]
-    scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
-    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab))
-    kth = sorted_desc.gather(
-        1, torch.clamp(k_eff - 1, 0, vocab - 1)[:, None].long())
-    scaled = scaled.masked_fill(scaled < kth, NEG)
-
-    probs = torch.softmax(scaled, dim=-1)
-    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
-    cum = torch.cumsum(sorted_probs, dim=-1)
-    # top_p >= 1.0 disables the filter exactly (threshold 2.0)
-    p_eff = torch.where(top_p >= 1.0, torch.full_like(top_p, 2.0), top_p)
-    keep = (cum - sorted_probs) < p_eff[:, None]
-    cutoff = torch.where(keep, sorted_probs,
-                         torch.full_like(sorted_probs, 2.0)).amin(
-        dim=-1, keepdim=True)
-    scaled = scaled.masked_fill(probs < cutoff, NEG)
-
-    if min_p is not None:
-        probs = torch.softmax(scaled, dim=-1)
-        floor = min_p[:, None] * probs.amax(dim=-1, keepdim=True)
-        scaled = scaled.masked_fill((min_p[:, None] > 0.0) & (probs < floor),
-                                    NEG)
-    return scaled
-
-
-def _noise_seed(seed: int, gen_idx: int) -> int:
-    """64-bit generator seed for one (request seed, generation index)."""
-    seq = np.random.SeedSequence([int(seed) % 2 ** 64, int(gen_idx) % 2 ** 64])
-    return int(seq.generate_state(1, np.uint64)[0])
-
-
-def _gumbel_noise(keys, vocab: int, temp, device):
-    """(b, vocab) fp32 Gumbel noise, row r drawn on the CPU from a
-    torch.Generator seeded by ``keys[r]`` = (seed, generation index);
-    greedy rows (temp <= 0) get zeros."""
-    noise = torch.zeros((len(keys), vocab))
-    tiny = torch.finfo(torch.float32).tiny
-    for r, ((seed, gen_idx), t) in enumerate(zip(keys, temp.tolist())):
-        if t > 0.0:
-            gen = torch.Generator().manual_seed(_noise_seed(seed, gen_idx))
-            u = torch.rand(vocab, generator=gen).clamp_(min=tiny)
-            noise[r] = -torch.log(-torch.log(u))
-    return noise.to(device)
 
 
 def _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen, presence,
@@ -337,15 +421,12 @@ def _decode_chunk(params, cache, lengths, last_token, active,
 
 
 def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
-    """Loud, not silent: a knob outside this slice of the port would
+    """Loud, not silent: a knob outside the ported slices would
     otherwise "run" and serve with the wrong semantics."""
     unsupported = {
-        "prefix_cache_entries>0": serving.prefix_cache_entries > 0,
-        "prefill_chunk>0": serving.prefill_chunk > 0,
         "overlap_rounds": serving.overlap_rounds,
         "speculative_k>0": serving.speculative_k > 0,
         "spec_windows!=4": serving.spec_windows != 4,
-        "admission_wave_sizes": bool(serving.admission_wave_sizes),
         "max_queue>0": serving.max_queue > 0,
         "a mesh": mesh is not None,
         "cfg.int8_kv": cfg.int8_kv,
@@ -357,6 +438,12 @@ def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
         raise ValueError(
             f"{', '.join(named)}: not ported to kind_tpu_sim_torch yet "
             "(later slices)")
+    waves = serving.admission_wave_sizes
+    if waves and (1 not in waves
+                  or any(w < 1 or w > serving.max_slots for w in waves)):
+        raise ValueError(
+            "admission_wave_sizes must include 1 and stay within "
+            f"[1, max_slots={serving.max_slots}]; got {waves!r}")
 
 
 class ServingEngine:
@@ -401,6 +488,9 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * n
         self.slot_emitted: List[List[int]] = [[] for _ in range(n)]
         self.slot_lps: List[List[float]] = [[] for _ in range(n)]
+        # chunked prefill: slot -> {"req", "done"} for claimed slots
+        # whose prompts are still streaming in
+        self._pending: Dict[int, Dict[str, Any]] = {}
         self.finished: List[Completion] = []
         self._req_clock: Dict[str, Dict[str, float]] = {}
         self._lat_window = collections.deque(maxlen=1024)
@@ -408,10 +498,19 @@ class ServingEngine:
         self._lat_ttft_max = 0.0
         self._lat_e2e_max = 0.0
         self._lat_itl_max = 0.0
-        # dispatch counts: each prefill launches the flash kernel once
-        # per layer (cfg.flash), each round the decode attention
-        # chunk x n_layers times
+        # dispatch counts. prefills: prompt windows run through the
+        # model, one per request and window (a wave counts each row);
+        # prefill_dispatches: the forwards among them that start a
+        # prompt (a lone first window or a stacked wave), each
+        # launching the flash kernel once per layer (cfg.flash);
+        # suffix_windows: windows run against a prefix by
+        # speculative._window_block; wave_sizes: stacked dispatches by
+        # size; decode_rounds: chunks of chunk x n_layers decode
+        # attention calls
         self.prefills = 0
+        self.prefill_dispatches = 0
+        self.suffix_windows = 0
+        self.wave_sizes: Dict[int, int] = collections.Counter()
         self.decode_rounds = 0
         self._init_storage()
 
@@ -422,6 +521,9 @@ class ServingEngine:
                 "paged_kernel; construct PagedServingEngine")
         self.cache = init_cache(self.cfg, self.serving.max_slots,
                                 self.serving.max_len, device=self.device)
+        self.prefix_cache = (PrefixCache(self.serving.prefix_cache_entries)
+                             if self.serving.prefix_cache_entries > 0
+                             else None)
 
     # -- public surface ------------------------------------------------
 
@@ -430,10 +532,6 @@ class ServingEngine:
         if request.deadline_s is not None:
             raise ValueError(
                 "Request.deadline_s is not ported to kind_tpu_sim_torch "
-                "yet (a later slice)")
-        if request.cache_prefix:
-            raise ValueError(
-                "Request.cache_prefix is not ported to kind_tpu_sim_torch "
                 "yet (a later slice)")
         if request.max_new < 1:
             raise ValueError("max_new must be >= 1")
@@ -449,23 +547,33 @@ class ServingEngine:
 
     @torch.no_grad()
     def step_round(self) -> None:
-        """One scheduling quantum: admit into free slots, decode one
-        chunk for the whole grid, retire finished slots. Runs without
-        autograd (``run`` goes through here), so parameters that
-        require grad build no graph and leave none in the storage."""
-        self._admit()
+        """One scheduling quantum: admit into free slots, advance each
+        pending chunked prefill by one window, decode one chunk for the
+        whole grid, retire finished slots. Runs without autograd
+        (``run`` goes through here), so parameters that require grad
+        build no graph and leave none in the storage."""
+        self._admit_and_advance()
         if any(r is not None for r in self.slot_req):
             emitted, lps = self._decode_round(self._sampling_state())
             self._retire(emitted, lps)
+
+    def _admit_and_advance(self) -> None:
+        """Fill free slots, then advance each pending chunked prefill by
+        exactly one window (the pacing contract)."""
+        self._admit()
+        if self._pending:
+            self._advance_prefills()
 
     def poll(self) -> List[Completion]:
         out, self.finished = self.finished, []
         return out
 
     def run(self) -> List[Completion]:
-        """Drain queue + grid; returns completions in finish order."""
+        """Drain queue, pending prefills and grid; returns completions
+        in finish order."""
         done: List[Completion] = []
-        while self.queue or any(r is not None for r in self.slot_req):
+        while (self.queue or self._pending
+               or any(r is not None for r in self.slot_req)):
             self.step_round()
             done.extend(self.poll())
         return done
@@ -484,22 +592,56 @@ class ServingEngine:
                 f"slot capacity is {self.serving.max_len}")
 
     def _can_admit(self, request: Request, reserved: int = 0) -> bool:
+        """Admission gate beyond a free slot (paged: the block budget).
+        ``reserved`` is storage promised to this round's earlier
+        deferred claims, so two claims cannot both pass the gate
+        against the same free blocks."""
         return True
 
     def _reserve_claim(self, request: Request) -> int:
+        """Worst-case (cache-miss) storage a deferred claim takes, in
+        the units of ``reserved``; the dense grid pre-allocates."""
         return 0
 
     def _claim_pending(self, slot: int, req: Request) -> int:
         """Per-storage claim bookkeeping; returns the restored prefix
-        length (always 0: no prefix cache in this slice)."""
-        return 0
+        length, the start of the prompt window (0 on a miss)."""
+        return self._restore_prefix(slot, req)
 
     def _prefill_window(self, slot: int, req: Request, window, w: int,
                         done: int):
-        logits = _prefill_into_slot(self.params, self.cache, window, w,
-                                    slot, cfg=self.cfg)
-        self.prefills += 1
-        return logits
+        """One prompt window through the model: the plain prefill at
+        done 0, the suffix forward against the slot's [0, done) prefix
+        after it. Returns the window's fp32 logits."""
+        if done == 0:
+            return _prefill_into_slot(self.params, self.cache, window, w,
+                                      slot, cfg=self.cfg)
+        return _suffix_into_slot(self.params, self.cache, window, w, done,
+                                 slot, cfg=self.cfg)
+
+    def _prefill_group(self, group):
+        """Storage half of an admission wave (dense grid): the stacked
+        whole-prompt prefill. Returns (K, vocab) logits."""
+        toks = np.stack([_padded_window(req.prompt)[0] for _, req in group])
+        return _prefill_many_into_slots(
+            self.params, self.cache, torch.as_tensor(toks, device=self.device),
+            [len(req.prompt) for _, req in group],
+            [slot for slot, _ in group], cfg=self.cfg)
+
+    def _store_pending(self, slot: int, req: Request) -> None:
+        """Prompt-complete hook (the prefix-cache store)."""
+        self._store_prefix(slot, req)
+
+    def _batch_admission(self) -> bool:
+        """Whether the storage takes the stacked admission dispatch (the
+        dense grid always does; paged engines need a fixed width)."""
+        return True
+
+    def _wave_share_hit(self, stored_prompt, prompt) -> bool:
+        """Would a store still pending in this wave serve ``prompt``?
+        (Dense: the stored prompt must be an exact prefix.)"""
+        return (len(stored_prompt) <= len(prompt)
+                and prompt[:len(stored_prompt)] == stored_prompt)
 
     def _release_storage(self, slot: int) -> None:
         """Dense rows are pre-allocated per slot: nothing to free."""
@@ -523,29 +665,223 @@ class ServingEngine:
                                 self.lengths).astype(np.int32)
         self.decode_rounds += 1
 
+    # -- prefix cache (dense) ------------------------------------------
+
+    def _restore_prefix(self, slot: int, req: Request) -> int:
+        """Copy the longest usable stored prefix of the prompt into
+        ``slot``; returns its length (0: a miss or no cache). The
+        lookup decides feasibility."""
+        if self.prefix_cache is None:
+            return 0
+        hit = self.prefix_cache.lookup(req.prompt,
+                                       max_len=self.serving.max_len)
+        if hit is None:
+            return 0
+        _write_slot_rows(self.cache, hit["kv"], slot)
+        return hit["len"]
+
+    def _store_prefix(self, slot: int, req: Request) -> None:
+        """Store the slot's whole-prompt k/v, padded to the prompt's
+        bucket, once the slot holds all of it."""
+        if not (req.cache_prefix and self.prefix_cache is not None):
+            return
+        t_p = len(req.prompt)
+        bucket = min(_bucket(t_p), self.serving.max_len)
+        self.prefix_cache.store(req.prompt, {
+            "kv": _read_slot_rows(self.cache, slot, bucket),
+            "len": t_p, "pad": bucket})
+
     # -- admission and retirement --------------------------------------
 
     def _admit(self) -> None:
         claims = []
-        # storage promised to this round's earlier claims, so two claims
-        # cannot both pass the gate against the same free blocks
+        # storage promised to this round's deferred claims, so two
+        # claims cannot both pass the gate against the same free blocks
         reserved = 0
         for slot in range(self.serving.max_slots):
-            if self.slot_req[slot] is not None or not self.queue:
+            if (self.slot_req[slot] is not None or slot in self._pending
+                    or not self.queue):
                 continue
             if not self._can_admit(self.queue[0], reserved):
                 break  # FCFS: the head of the queue blocks the round
             req = self.queue.pop(0)
+            if self.serving.prefill_chunk > 0:
+                # claimed but inactive: _advance_prefills feeds one
+                # window a round from the restored prefix on; the claim
+                # allocated now, so nothing is reserved
+                self._pending[slot] = {"req": req,
+                                       "done": self._claim_pending(slot,
+                                                                   req)}
+                continue
             claims.append((slot, req))
             reserved += self._reserve_claim(req)
+        if claims:
+            self._admit_claims(claims)
+
+    def _admit_claims(self, claims) -> None:
+        """Admit this round's whole-prompt claims. Prefix-cache hits run
+        their suffix per slot; misses of one prompt bucket share a
+        stacked prefill and one first-token readback
+        (``_admit_group``). A claim whose prompt extends a store still
+        pending in the wave flushes the wave first, so it hits as it
+        would under sequential admission."""
+        if not self._batch_admission():
+            # dynamic-width paged tables: claim, window, store and
+            # activate per slot, each store visible to the next claim
+            for slot, req in claims:
+                self._admit_single(slot, req, self._claim_pending(slot, req))
+            return
+        groups: Dict[int, list] = {}
+        wave_stores: list = []
         for slot, req in claims:
-            self._admit_single(slot, req, self._claim_pending(slot, req))
+            if any(self._wave_share_hit(sp, req.prompt)
+                   for sp in wave_stores):
+                self._flush_groups(groups)
+                groups, wave_stores = {}, []
+            done = self._claim_pending(slot, req)
+            if done:
+                self._admit_single(slot, req, done)
+                continue
+            groups.setdefault(_bucket(len(req.prompt)), []).append(
+                (slot, req))
+            if req.cache_prefix and self.prefix_cache is not None:
+                wave_stores.append(list(req.prompt))
+        self._flush_groups(groups)
+
+    def _flush_groups(self, groups) -> None:
+        for _, group in sorted(groups.items()):
+            self._admit_group(group)
+
+    def _window(self, slot: int, req: Request, window, w: int, done: int):
+        """``_prefill_window``, counted."""
+        self.prefills += 1
+        if done == 0:
+            self.prefill_dispatches += 1
+        else:
+            self.suffix_windows += 1
+        return self._prefill_window(slot, req, window, w, done)
 
     def _admit_single(self, slot: int, req: Request, done: int) -> None:
+        """One slot's whole-prompt admission (claim done): the prompt
+        past the restored prefix as one window, store, activate."""
         suffix = req.prompt[done:]
         window = torch.as_tensor(_padded_window(suffix), device=self.device)
-        logits = self._prefill_window(slot, req, window, len(suffix), done)
+        logits = self._window(slot, req, window, len(suffix), done)
+        self._store_pending(slot, req)
         self._activate(slot, req, logits)
+
+    def _wave_sizes(self) -> list:
+        """Sub-wave sizes, largest first: the configured ones, or every
+        power of two up to max_slots. 1 is among them, so any wave
+        decomposes exactly."""
+        sizes = self.serving.admission_wave_sizes
+        if not sizes:
+            sizes, w = [], 1
+            while w <= self.serving.max_slots:
+                sizes.append(w)
+                w *= 2
+        return sorted(sizes, reverse=True)
+
+    def _admit_group(self, group) -> None:
+        """One same-bucket admission wave: K decomposed into sub-waves
+        of the configured sizes, largest first (11 -> 8+2+1), each one
+        stacked prefill and one batched first-token sample; ONE host
+        readback for all K first tokens."""
+        handles = []
+        sizes = self._wave_sizes()
+        i = 0
+        while i < len(group):
+            w = next(s for s in sizes if s <= len(group) - i)
+            sub = group[i:i + w]
+            i += w
+            logits_k = self._prefill_group(sub)
+            self.prefills += w
+            self.prefill_dispatches += 1
+            self.wave_sizes[w] += 1
+            handles.append((sub, logits_k, self._first_group(sub, logits_k)))
+        firsts = self._first_read_many([h[2] for h in handles])
+        j = 0
+        for sub, logits_k, _ in handles:
+            for r, (slot, req) in enumerate(sub):
+                self._store_pending(slot, req)
+                self._activate_with_first(slot, req, logits_k[r], firsts[j])
+                j += 1
+
+    def _first_group(self, group, logits_k):
+        """The first token of each row of a wave, sampled on the device
+        from its prefill logits (K, vocab) with key (seed, 0); no
+        readback. An all-greedy, penalty-free wave is the argmax."""
+        samps = [req.sampling or SamplingConfig(temperature=0.0)
+                 for _, req in group]
+        temp = np.asarray([s.temperature for s in samps], np.float32)
+        rep_pen = np.asarray([s.repetition_penalty for s in samps],
+                             np.float32)
+        if not (np.any(temp > 0.0) or np.any(rep_pen != 1.0)):
+            return torch.argmax(logits_k, dim=-1)
+        dev = self.device
+        seen = np.stack([self._seen_row(req) for _, req in group])
+        keys = [(req.seed or 0, 0) for _, req in group]
+        return _sample_rows(
+            logits_k, torch.as_tensor(temp, device=dev),
+            torch.as_tensor([s.top_k for s in samps], dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor([s.top_p for s in samps], dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor([s.min_p for s in samps], dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(rep_pen, device=dev),
+            torch.as_tensor(seen, device=dev),
+            noise=_gumbel_noise(keys, logits_k.shape[-1],
+                                torch.as_tensor(temp), dev))
+
+    @staticmethod
+    def _first_read_many(arrs) -> List[int]:
+        """One host readback of a wave's first tokens, however many
+        sub-waves produced them."""
+        return torch.cat(arrs).cpu().tolist()
+
+    @torch.no_grad()
+    def warm_admission(self, prompt_lens, sizes=None) -> None:
+        """Run every (prompt bucket x sub-wave size) admission dispatch
+        the wave decomposition can make on dummy prompts, before
+        traffic: the kernels build and the caching allocator grows to
+        the waves' size. Scheduler, allocator and counters are left as
+        they were: dense grids scribble on idle slots' rows (prefilled
+        again before any read), paged engines write through all-zero
+        table rows into the garbage block. A no-op for engines that
+        admit per slot (dynamic-width paged, chunked prefill)."""
+        if any(r is not None for r in self.slot_req) or self._pending:
+            raise RuntimeError(
+                "warm_admission requires an idle engine (no live slots, "
+                "no pending prefills): its dummy prefills overwrite slot "
+                "KV state")
+        if not self._batch_admission() or self.serving.prefill_chunk > 0:
+            return
+        for wl in prompt_lens:
+            for w in (sizes or self._wave_sizes()):
+                group = [(slot, Request(f"__warm_{wl}_{w}_{slot}", [1] * wl,
+                                        1, seed=0)) for slot in range(w)]
+                self._first_read_many(
+                    [self._first_group(group, self._prefill_group(group))])
+
+    def _advance_prefills(self) -> None:
+        """One prompt window per pending slot per round: long prompts
+        enter in ``prefill_chunk``-token windows between the grid's
+        decode chunks; a slot activates when its last window is in."""
+        chunk = self.serving.prefill_chunk
+        for slot in sorted(self._pending):
+            st = self._pending[slot]
+            req, done = st["req"], st["done"]
+            t_p = len(req.prompt)
+            w = min(chunk, t_p - done)
+            window = torch.as_tensor(
+                _padded_window(req.prompt[done:done + w]), device=self.device)
+            logits = self._window(slot, req, window, w, done)
+            st["done"] = done + w
+            if st["done"] >= t_p:
+                self._store_pending(slot, req)
+                del self._pending[slot]
+                self._activate(slot, req, logits)
 
     def _seen_row(self, req: Request) -> np.ndarray:
         row = np.zeros(self.cfg.vocab_size, bool)
@@ -555,18 +891,8 @@ class ServingEngine:
     def _activate(self, slot: int, req: Request, logits) -> None:
         """Sample generation 0 from the prefill logits (one scalar
         readback), then the shared bookkeeping."""
-        samp = req.sampling or SamplingConfig(temperature=0.0)
-        dev = self.device
-        first = int(_sample_rows(
-            logits[None, :],
-            torch.tensor([samp.temperature], dtype=torch.float32, device=dev),
-            torch.tensor([samp.top_k], dtype=torch.int32, device=dev),
-            torch.tensor([samp.top_p], dtype=torch.float32, device=dev),
-            torch.tensor([samp.min_p], dtype=torch.float32, device=dev),
-            torch.tensor([samp.repetition_penalty], dtype=torch.float32,
-                         device=dev),
-            torch.as_tensor(self._seen_row(req), device=dev)[None, :],
-            keys=[(req.seed, 0)])[0])
+        first = self._first_read_many(
+            [self._first_group([(slot, req)], logits[None, :])])[0]
         self._activate_with_first(slot, req, logits, first)
 
     def _activate_with_first(self, slot: int, req: Request, logits,
@@ -667,7 +993,12 @@ class ServingEngine:
         self.presence[slot] = False
 
     def _evict_slot(self, slot: int) -> Optional[Request]:
-        """Tear a slot down without a completion; returns its request."""
+        """Tear a claimed slot down without a completion, an active one
+        or a chunked prefill mid-stream; returns its request."""
+        if slot in self._pending:
+            req = self._pending.pop(slot)["req"]
+            self._release_storage(slot)
+            return req
         req = self.slot_req[slot]
         if req is None:
             return None
@@ -680,10 +1011,16 @@ class ServingEngine:
             "slots": self.serving.max_slots,
             "active": sum(1 for r in self.slot_req if r is not None),
             "queued": len(self.queue),
+            "pending_prefill": len(self._pending),
             "finished": len(self.finished),
             "prefills": self.prefills,
+            "prefill_dispatches": self.prefill_dispatches,
+            "suffix_windows": self.suffix_windows,
+            "waves": dict(sorted(self.wave_sizes.items())),
             "decode_rounds": self.decode_rounds,
         }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.report()
         if self._lat_count:
             ttfts = sorted(t for t, _, _ in self._lat_window)
             e2es = sorted(e for _, e, _ in self._lat_window)
@@ -707,11 +1044,13 @@ class PagedServingEngine(ServingEngine):
     Same scheduler, sampling and exactness contracts as the dense grid;
     KV memory scales with tokens in flight (``paged_blocks x
     block_size`` positions shared by all slots). Blocks are allocated
-    at chunk boundaries; pool exhaustion preempts the YOUNGEST slot
-    (recompute: its request is requeued at the front and replays its
-    exact stream). ``paged_kernel`` selects the CUDA paged-attention
-    tier (blocks read through the table, no gathered view); otherwise
-    each round gathers a dense view of the pool.
+    at chunk boundaries; pool exhaustion first evicts prefix-cache
+    entries, then preempts the YOUNGEST slot (recompute: its request is
+    requeued at the front and replays its exact stream).
+    ``paged_kernel`` selects the CUDA paged-attention tier (blocks read
+    through the table, no gathered view); otherwise each round gathers
+    a dense view of the pool. A prefix-cache hit points the slot's
+    table at the stored blocks (refcounted, no copy).
     """
 
     def _init_storage(self) -> None:
@@ -734,6 +1073,10 @@ class PagedServingEngine(ServingEngine):
         self.slot_admit_seq = [0] * serving.max_slots
         self._admit_counter = 0
         self.preemptions = 0
+        self.prefix_cache = (
+            paged.PagedPrefixCache(serving.prefix_cache_entries, self.alloc,
+                                   serving.block_size)
+            if serving.prefix_cache_entries > 0 else None)
         chunk_fn = (paged.paged_decode_chunk_kernel if serving.paged_kernel
                     else paged.paged_decode_chunk)
         self._paged_chunk = functools.partial(chunk_fn, cfg=cfg,
@@ -748,57 +1091,118 @@ class PagedServingEngine(ServingEngine):
                 f"pool capacity is {cap}")
 
     def _can_admit(self, request: Request, reserved: int = 0) -> bool:
+        """The cache-miss need plus this round's reservations; under
+        pressure, prefix-cache entries are evicted first, so cache-held
+        blocks never starve admission."""
         from kind_tpu_sim_torch.models import paged
 
         need = reserved + paged.blocks_needed(len(request.prompt),
                                               self.serving.block_size)
-        return need <= self.alloc.free_blocks
+        while need > self.alloc.free_blocks:
+            if (self.prefix_cache is None
+                    or not self.prefix_cache.evict_lru()):
+                return False
+        return True
 
     def _reserve_claim(self, request: Request) -> int:
+        # the cache-miss worst case: a hit allocates fewer, which only
+        # makes the gate conservative
         from kind_tpu_sim_torch.models import paged
 
         return paged.blocks_needed(len(request.prompt),
                                    self.serving.block_size)
 
     def _claim_pending(self, slot: int, req: Request) -> int:
-        """Allocate the whole prompt's blocks up front (_can_admit
-        already gated the need)."""
+        """Allocate the whole prompt's blocks up front (_can_admit gated
+        the need); a prefix hit shares the stored blocks instead of the
+        first ones and returns their (block-aligned) length."""
         from kind_tpu_sim_torch.models import paged
 
+        t_p = len(req.prompt)
+        bsz = self.serving.block_size
         self._admit_counter += 1
         self.slot_admit_seq[slot] = self._admit_counter
-        n = paged.blocks_needed(len(req.prompt), self.serving.block_size)
-        blocks = self.alloc.alloc(n)
-        if blocks is None:
+        hit = (self.prefix_cache.lookup(req.prompt)
+               if self.prefix_cache is not None else None)
+        base = hit["len"] if hit is not None else 0
+        n = paged.blocks_needed(t_p - base, bsz)
+        own = self.alloc.alloc(n)
+        if own is None:
             raise RuntimeError(
                 f"paged claim for {req.request_id!r}: {n}-block allocation "
                 "failed after _can_admit passed — admission reservation "
                 "accounting is broken")
-        self.slot_blocks[slot] = blocks
-        return 0
+        if hit is None:
+            self.slot_blocks[slot] = own
+            return 0
+        self.alloc.share(hit["blocks"])
+        self.slot_blocks[slot] = list(hit["blocks"]) + own
+        return base
 
-    def _prefill_window(self, slot: int, req: Request, window, w: int,
-                        done: int):
-        from kind_tpu_sim_torch.models import paged
-
+    def _table_row(self, slot: int) -> torch.Tensor:
         blocks = self.slot_blocks[slot]
         table_row = np.zeros(self._table_width(len(blocks)), np.int32)
         table_row[:len(blocks)] = blocks
-        logits = paged.paged_prefill(
-            self.params, self.pools, window, w,
-            torch.as_tensor(table_row, device=self.device), cfg=self.cfg)
-        self.prefills += 1
-        return logits
+        return torch.as_tensor(table_row, device=self.device)
+
+    def _prefill_window(self, slot: int, req: Request, window, w: int,
+                        done: int):
+        """One prompt window through the block pool: the paged prefill
+        at done 0, the suffix forward against the slot's [0, done)
+        blocks after it."""
+        from kind_tpu_sim_torch.models import paged
+
+        if done == 0:
+            return paged.paged_prefill(self.params, self.pools, window, w,
+                                       self._table_row(slot), cfg=self.cfg)
+        return paged.paged_suffix(self.params, self.pools, window, w, done,
+                                  self._table_row(slot), cfg=self.cfg)
+
+    def _batch_admission(self) -> bool:
+        # a fixed table width makes the stacked rows one shape
+        return bool(self.serving.paged_width)
+
+    def _prefill_group(self, group):
+        """Storage half of an admission wave, paged: the stacked
+        whole-prompt prefill into each slot's claimed blocks through
+        fixed-width table rows."""
+        toks = np.stack([_padded_window(req.prompt)[0] for _, req in group])
+        tables = np.zeros((len(group), self.serving.paged_width), np.int32)
+        for i, (slot, _) in enumerate(group):
+            blocks = self.slot_blocks[slot]
+            self._table_width(len(blocks))  # loud overflow check
+            tables[i, :len(blocks)] = blocks
+        from kind_tpu_sim_torch.models import paged
+
+        return paged.paged_prefill_many(
+            self.params, self.pools, torch.as_tensor(toks, device=self.device),
+            [len(req.prompt) for _, req in group],
+            torch.as_tensor(tables, device=self.device), cfg=self.cfg)
+
+    def _wave_share_hit(self, stored_prompt, prompt) -> bool:
+        # block-granular sharing: a pending store serves this claim if
+        # they share the first full block
+        bsz = self.serving.block_size
+        return (len(stored_prompt) >= bsz and len(prompt) >= bsz
+                and stored_prompt[:bsz] == prompt[:bsz])
+
+    def _store_pending(self, slot: int, req: Request) -> None:
+        if req.cache_prefix and self.prefix_cache is not None:
+            # share the slot's blocks: they hold the whole prompt now
+            self.prefix_cache.store(req.prompt, self.slot_blocks[slot])
 
     def _release_storage(self, slot: int) -> None:
         self.alloc.free(self.slot_blocks[slot])
         self.slot_blocks[slot] = []
 
     def _preempt_youngest(self) -> bool:
-        """Evict the most recently admitted slot, free its blocks and
-        requeue its request AT THE FRONT for exact recompute."""
+        """Evict the most recently admitted slot, active or mid chunked
+        prefill (a pending slot holds its prompt's blocks too), free its
+        blocks and requeue its request AT THE FRONT for exact
+        recompute."""
         candidates = [(self.slot_admit_seq[s], s)
                       for s, r in enumerate(self.slot_req) if r is not None]
+        candidates += [(self.slot_admit_seq[s], s) for s in self._pending]
         if not candidates:
             return False
         _, slot = max(candidates)
@@ -811,8 +1215,9 @@ class PagedServingEngine(ServingEngine):
         ``extend_by`` writes, capped at the request's total need, so a
         final round's overshoot never allocates (those writes land in
         last-block slack or the garbage block). Under pool pressure,
-        preempt the youngest slot; the capacity check guarantees a
-        lone surviving slot always fits."""
+        reclaim the cheapest first: prefix-cache entries (a future
+        recompute), then the youngest slot (work already done); the
+        capacity check guarantees a lone surviving slot always fits."""
         from kind_tpu_sim_torch.models import paged
 
         bsz = self.serving.block_size
@@ -827,8 +1232,12 @@ class PagedServingEngine(ServingEngine):
                         - len(self.slot_blocks[s]))
                 if need > 0:
                     shortfalls[s] = need
-            if (sum(shortfalls.values()) <= self.alloc.free_blocks
-                    or not self._preempt_youngest()):
+            if sum(shortfalls.values()) <= self.alloc.free_blocks:
+                break
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.evict_lru()):
+                continue
+            if not self._preempt_youngest():
                 break
         for s, need in shortfalls.items():
             got = self.alloc.alloc(need)

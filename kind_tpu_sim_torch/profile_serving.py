@@ -25,6 +25,10 @@ tokens each, no admission). Prints one JSON object:
   blocking host-to-device copies, by CUDA runtime call.
 
 Run it on the card (it raises without one).
+
+``realistic_serving`` and ``realistic_requests`` define the realistic
+stream (prompt admission under pool pressure: prefix families, mixed
+prompt lengths, admission waves) that ``chip_smoke.py`` serves.
 """
 
 from __future__ import annotations
@@ -68,6 +72,99 @@ def flagship_requests(vocab: int, n: int = 16, max_new: int = 128,
     return [serving.Request(f"q{i}", rng.randint(0, vocab, size=int(p))
                             .tolist(), max_new, logprobs=logprobs)
             for i, p in enumerate(lens)]
+
+
+REALISTIC_LENS = (224, 1024, 2048, 3072)   # bench.py:1279
+# The realistic stream's sizes; the bench's own in brackets, where this
+# stream cuts it for card time:
+REALISTIC_INDEPENDENT = 16      # independent requests (40, bench.py:1277)
+REALISTIC_FAMILIES = 4          # prefix families (8, bench.py:1292)
+REALISTIC_MAX_NEW = 128         # new tokens a request (512, bench.py:1291)
+REALISTIC_HEAD = 1024           # a family's head (bench.py:1293)
+REALISTIC_SUFFIXES = (96, 128)  # its members' suffixes (bench.py:1302)
+LONG = 768                      # the long prompt (bench.py:1057)
+
+
+def realistic_serving(pool_blocks: int = 192) -> serving.ServingConfig:
+    """The reference bench's realistic engine (``bench.py:1256-1274``) on
+    the paged-kernel tier: 8 slots, ``max_len`` 3648, chunk 64, blocks
+    of 64 positions, a fixed table width of 64, 8 prefix-cache entries,
+    admission waves of (1, 4, 8). The pool (the bench's 272 blocks)
+    starts at 192 here, far under the 8 x 50 blocks that eight 3072-token
+    prompts with their outputs would take, so growth preempts."""
+    return serving.ServingConfig(
+        max_slots=8, max_len=3648, chunk=64, paged_blocks=pool_blocks,
+        block_size=64, paged_width=64, paged_kernel=True,
+        prefix_cache_entries=8, admission_wave_sizes=(1, 4, 8))
+
+
+def realistic_requests(vocab: int, logprobs: bool = False):
+    """The reference bench's realistic stream (``bench.py:1276-1338``),
+    cut for card time by the ``REALISTIC_*`` constants above: 16
+    independent requests with prompts of ``REALISTIC_LENS`` tokens drawn
+    with ``RandomState(7)``, and 4 prefix families, each a 1024-token
+    head with ``cache_prefix=True`` and one member per suffix length
+    extending it; 128 new tokens a request, so 28 requests in all.
+    Prompt tokens tile one 1024-token row from ``RandomState(0)`` (the
+    bench tiles its token batch's first row), shifted per request. The
+    order is the bench's: a seeded permutation with each family's head
+    ahead of its members."""
+    rng = np.random.RandomState(7)
+    base = np.random.RandomState(0).randint(0, vocab, size=1024)
+    reqs = []
+    max_new = REALISTIC_MAX_NEW
+    for i in range(REALISTIC_INDEPENDENT):
+        p_len = int(rng.choice(REALISTIC_LENS))
+        reqs.append(serving.Request(
+            f"r{i}", ((np.resize(base, p_len) + i) % vocab).tolist(),
+            max_new, logprobs=logprobs))
+    fam_of = {}
+    for f in range(REALISTIC_FAMILIES):
+        shared = ((np.resize(base, REALISTIC_HEAD) + 1000 + f)
+                  % vocab).tolist()
+        reqs.append(serving.Request(f"rf{f}h", shared, max_new,
+                                    cache_prefix=True, logprobs=logprobs))
+        fam_of[f"rf{f}h"] = f
+        for m, n in enumerate(REALISTIC_SUFFIXES):
+            sfx = ((np.resize(base, n) + 7 * f + m) % vocab).tolist()
+            reqs.append(serving.Request(f"rf{f}m{m}", shared + sfx, max_new,
+                                        logprobs=logprobs))
+            fam_of[f"rf{f}m{m}"] = f
+    heads = {f"rf{f}h" for f in range(REALISTIC_FAMILIES)}
+    seen_head, order, deferred = set(), [], {}
+    for idx in rng.permutation(len(reqs)).tolist():
+        r = reqs[idx]
+        f = fam_of.get(r.request_id)
+        if f is None or r.request_id in heads:
+            order.append(r)
+            if f is not None:
+                seen_head.add(f)
+                order.extend(deferred.pop(f, []))
+        elif f in seen_head:
+            order.append(r)
+        else:
+            deferred.setdefault(f, []).append(r)
+    for rs in deferred.values():
+        order.extend(rs)
+    return order
+
+
+def longprompt_serving(prefill_chunk: int = 0) -> serving.ServingConfig:
+    """The reference bench's long-prompt engine (``bench.py:1056-1075``):
+    the dense grid of 8 slots, ``max_len`` 1024, chunk 64, optionally
+    with chunked prefill."""
+    return serving.ServingConfig(max_slots=SLOTS, max_len=1024, chunk=CHUNK,
+                                 prefill_chunk=prefill_chunk)
+
+
+def longprompt_requests(vocab: int):
+    """The bench's long-prompt stream (``bench.py:1094-1100``): 8 requests
+    of 224 tokens with 96 new, then one ``LONG``-token request with 64
+    new behind them (prompt tokens from ``RandomState(0)``)."""
+    base = np.random.RandomState(0).randint(0, vocab, size=1024)
+    reqs = [serving.Request(f"s{i}", base[:224].tolist(), 96)
+            for i in range(SLOTS)]
+    return reqs + [serving.Request("L", np.resize(base, LONG).tolist(), 64)]
 
 
 def flagship_params(cfg: tf.ModelConfig):

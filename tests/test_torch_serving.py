@@ -283,11 +283,8 @@ def test_serving_from_params_that_require_grad_builds_no_graph(
 
 
 UNPORTED_KNOBS = {
-    "prefix_cache_entries": dict(prefix_cache_entries=2),
-    "prefill_chunk": dict(prefill_chunk=8),
     "overlap_rounds": dict(overlap_rounds=True),
     "speculative_k": dict(speculative_k=2),
-    "admission_wave_sizes": dict(admission_wave_sizes=(1, 2)),
     "max_queue": dict(max_queue=4),
 }
 
@@ -298,6 +295,34 @@ def test_knobs_outside_the_slice_raise(params, knob):
                                 **UNPORTED_KNOBS[knob])
     with pytest.raises(ValueError, match="not ported"):
         pserving.ServingEngine(params[1], CFG, sc, device="cpu")
+
+
+ADMISSION_KNOBS = {
+    "prefix_cache_entries": dict(prefix_cache_entries=2),
+    "prefill_chunk": dict(prefill_chunk=8),
+    "admission_wave_sizes": dict(admission_wave_sizes=(1, 2)),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(ADMISSION_KNOBS))
+def test_admission_knobs_are_served(params, stream_prompts, knob):
+    """The admission knobs (once outside the slice) run on both engines
+    and serve the streams the default engine serves."""
+    _, pparams = params
+    base = dict(max_slots=2, max_len=48, chunk=8)
+    want = {r: c.tokens for r, c in drive(
+        pserving, pserving.ServingEngine(
+            pparams, CFG, pserving.ServingConfig(**base), device="cpu"),
+        stream_prompts, MAX_NEW).items()}
+    for engine, extra in ((pserving.ServingEngine, {}),
+                          (pserving.PagedServingEngine,
+                           dict(paged_blocks=24, block_size=8,
+                                paged_width=6))):
+        sc = pserving.ServingConfig(**base, **extra, **ADMISSION_KNOBS[knob])
+        eng = engine(pparams, CFG, sc, device="cpu")
+        got = drive(pserving, eng, stream_prompts, MAX_NEW,
+                    cache_prefix=True)
+        assert {r: c.tokens for r, c in got.items()} == want, engine
 
 
 @pytest.mark.parametrize("field", ["int8_kv", "int8_native"])
@@ -336,14 +361,21 @@ def test_positional_serving_config_lands_like_the_reference():
 
 
 def test_unported_spec_windows_and_cache_prefix_raise(params):
+    """``spec_windows`` still raises, naming itself; a ``cache_prefix``
+    request is served now, and one that also sets an unported field
+    raises naming that field, not ``cache_prefix``."""
     with pytest.raises(ValueError, match="spec_windows"):
         pserving.ServingEngine(params[1], CFG,
                                pserving.ServingConfig(spec_windows=2),
                                device="cpu")
     eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
                                  device="cpu")
-    with pytest.raises(ValueError, match="cache_prefix"):
-        eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True))
+    with pytest.raises(ValueError, match="deadline_s"):
+        eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True,
+                                    deadline_s=1.0))
+    eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True))
+    (comp,) = eng.run()
+    assert len(comp.tokens) == 4
 
 
 def test_mesh_and_deadline_raise(params):
