@@ -29,7 +29,11 @@ it fails (nothing is caught and ignored):
    feeds them (the forward checked and timed there too);
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
    emit the streams the CPU plain path emits: under pool pressure, with
-   paged prefix hits, with dense chunked prefill and as a wave of 5;
+   paged prefix hits, with dense chunked prefill, as a wave of 5,
+   through both speculative engines (prompt lookup, a one-layer draft
+   model, paged under pool pressure and with chunked prefill) and the
+   overlapped dense grid; then ``engines_report`` and
+   ``serving_report`` on the card;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
    new tokens each) through ``PagedServingEngine(paged_kernel=True)``
    at full width, with the kernels' launch counters zeroed just before
@@ -45,6 +49,23 @@ it fails (nothing is caught and ignored):
    fail it;
    4d. long prompt -- the dense long-prompt stream (8 x 224 tokens, then
    768) with and without chunked prefill;
+   4e. speculative -- solo ``speculative_generate`` (8 x 256 tokens, 256
+   new, k 4) against ``greedy_generate``; ``SpeculativeServingEngine``
+   and ``PagedSpeculativeServingEngine`` (k 4, 4 windows a round) on
+   phase 4's stream, held to phase 4's streams; the reference bench's
+   motif stream at 64 windows a round (512 new tokens) beside the
+   bench's dense twin (chunk 256, overlapped). Tokens a verify window,
+   tok/s, TTFT, e2e; flash launches n_layers x prefill dispatches, all
+   on the tensor cores;
+   4f. engine surface -- the dense grid (chunk 64 on phase 4's stream
+   and one sampled request, chunk 8 on the bench's ``serving_rtt_bound``
+   stream) and the
+   speculative grid, sequential against ``overlap_rounds`` in turns:
+   streams equal, tok/s and host syncs a round, none inside a
+   dispatch; a slot failure on a busy slot of the paged kernel tier
+   (the replay equal to phase 4, no block leaked, the recovery log's
+   counts); a deadline (mid-stream and queued) and a ``max_queue``
+   shed under an injected clock;
 5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
    the card; losses and final parameters must match the same steps on
    the CPU plain path;
@@ -119,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1026,15 +1048,19 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 # phase 3: a tiny model on the card against the CPU plain path
 
 
-def _small_compare(tf, cfg, cpu_params, name, prompts, card, plain) -> None:
+def _small_compare(tf, cfg, cpu_params, name, prompts, card, plain,
+                   exact=()) -> None:
     """Streams from the card against the CPU plain path's: equal, or
     split at a near tie (the plain forward's top-2 logit margin at the
-    split under SMALL_MARGIN)."""
+    split under SMALL_MARGIN). The sampled streams in ``exact`` must be
+    equal."""
     ties = 0
     for rid in sorted(plain):
         a, b = card[rid], plain[rid]
         if a == b:
             continue
+        check(rid not in exact,
+              f"small phase {name}: sampled {rid} differs, card {a}, CPU {b}")
         i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         seq = torch.tensor([prompts[rid] + b[:i]])
         logits = tf.forward(cpu_params, seq, cfg)[0, -1]
@@ -1083,24 +1109,39 @@ def small_streams(serving, rng, vocab: int) -> dict:
     }
 
 
+def _to_cpu(params):
+    return {"embed": params["embed"].cpu(),
+            "final_norm": params["final_norm"].cpu(),
+            "blocks": [{k: v.cpu() for k, v in b.items()}
+                       for b in params["blocks"]]}
+
+
 def small_phase(tf, serving, fa, pa) -> None:
     """A tiny fp32 flash model served on the card (the flash forward on
     its CUDA-core route and the paged kernel on its one-pass route:
     fp32 stays exact) against the CPU plain path: a stream under pool
     pressure (admission waits and preempts), then the admission streams
     of ``small_streams`` (paged prefix hits, dense chunked prefill, a
-    wave of 5 misses). Each run's flash launches are n_layers x the
-    prefill dispatches the engine reports, its paged launches n_layers x
-    chunk x decode rounds."""
+    wave of 5 misses), then the same pressure stream through the
+    speculative engines (prompt lookup, a one-layer draft model, paged
+    under pool pressure and with chunked prefill) and the overlapped
+    dense grid. Each run's flash launches are n_layers x the prefill
+    dispatches the engine reports (plus the draft's layers x its
+    prefills), its paged launches n_layers x chunk x decode rounds
+    (none for the speculative engines: their windows read the gather
+    view). Then ``engines_report`` and ``serving_report`` on the card."""
     cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=128,
                          dtype="float32", flash=True)
     params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
                             "cuda")
-    cpu_params = {"embed": params["embed"].cpu(),
-                  "final_norm": params["final_norm"].cpu(),
-                  "blocks": [{k: v.cpu() for k, v in b.items()}
-                             for b in params["blocks"]]}
+    cpu_params = _to_cpu(params)
+    dcfg = tf.ModelConfig(vocab_size=cfg.vocab_size, d_model=64, n_heads=2,
+                          n_layers=1, d_ff=128, max_seq=128, dtype="float32",
+                          flash=True)
+    dparams = tf.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+    drafts = {"cuda": (dparams, dcfg), "cpu": (_to_cpu(dparams), dcfg)}
     rng = np.random.RandomState(3)
     pressure = [{f"s{i}": (rng.randint(0, cfg.vocab_size, size=n).tolist(),
                            {})
@@ -1112,9 +1153,37 @@ def small_phase(tf, serving, fa, pa) -> None:
                               paged_blocks=9, block_size=16,
                               paged_kernel=True), pressure)}
     streams.update(small_streams(serving, rng, cfg.vocab_size))
+    spec = dict(max_slots=4, max_len=80, speculative_k=3)
+    # a sampled request beside them: its draws are an integer hash of
+    # (seed, generation index), so the card gives the CPU's tokens
+    samp = serving.SamplingConfig(temperature=0.9, top_k=40)
+    with_sampled = [dict(pressure[0], sampled=(
+        rng.randint(0, cfg.vocab_size, size=19).tolist(),
+        dict(sampling=samp, seed=23)))]
+    streams.update({
+        "speculative prompt lookup with a sampled request": (
+            serving.SpeculativeServingEngine, serving.ServingConfig(**spec),
+            with_sampled),
+        "speculative draft model": (
+            serving.SpeculativeServingEngine, serving.ServingConfig(**spec),
+            pressure, "draft"),
+        "paged speculative under pool pressure": (
+            serving.PagedSpeculativeServingEngine,
+            serving.ServingConfig(paged_blocks=9, block_size=16, **spec),
+            pressure),
+        "paged speculative chunked prefill": (
+            serving.PagedSpeculativeServingEngine,
+            serving.ServingConfig(paged_blocks=24, block_size=16,
+                                  prefill_chunk=8, **spec), pressure),
+        "dense overlapped": (
+            serving.ServingEngine,
+            serving.ServingConfig(max_slots=4, max_len=80, chunk=8,
+                                  overlap_rounds=True), pressure),
+    })
 
-    def run(engine, sc, waves, p, device):
-        eng = engine(p, cfg, sc, device=device)
+    def run(engine, sc, waves, p, device, draft=False):
+        extra = {"draft": drafts[device]} if draft else {}
+        eng = engine(p, cfg, sc, device=device, **extra)
         done = {}
         for wave in waves:
             for rid, (prompt, kw) in wave.items():
@@ -1128,13 +1197,16 @@ def small_phase(tf, serving, fa, pa) -> None:
               "prefix cache's")
         return done, rep
 
-    for name, (engine, sc, waves) in streams.items():
+    for name, (engine, sc, waves, *draft) in streams.items():
         zero_counts(fa.flash_attention, pa.paged_attention)
-        card, rep = run(engine, sc, waves, params, "cuda")
+        card, rep = run(engine, sc, waves, params, "cuda", bool(draft))
         n = fa.flash_attention.launches
-        check(n == cfg.n_layers * rep["prefill_dispatches"] > 0,
+        want = (cfg.n_layers * rep["prefill_dispatches"]
+                + dcfg.n_layers * rep.get("draft_prefills", 0))
+        check(n == want > 0,
               f"small phase {name}: {n} flash launches, expected n_layers x "
-              f"{rep['prefill_dispatches']} prefill dispatches")
+              f"{rep['prefill_dispatches']} prefill dispatches + the draft's "
+              f"layers x {rep.get('draft_prefills', 0)} prefills")
         check_routes(f"small model {name} flash_attention", fa.flash_attention,
                      0, n)
         n_paged = pa.paged_attention.launches
@@ -1145,25 +1217,38 @@ def small_phase(tf, serving, fa, pa) -> None:
               f"{want}")
         check_routes(f"small model {name} paged_attention",
                      pa.paged_attention, 0, n_paged)
-        plain, plain_rep = run(engine, sc, waves, cpu_params, "cpu")
+        plain, plain_rep = run(engine, sc, waves, cpu_params, "cpu",
+                               bool(draft))
         for key in ("prefix_cache", "waves", "suffix_windows"):
             check(rep.get(key) == plain_rep.get(key),
                   f"small phase {name}: {key} {rep.get(key)} on the card, "
                   f"{plain_rep.get(key)} on the CPU")
         prompts = {rid: prompt for wave in waves
                    for rid, (prompt, _) in wave.items()}
-        _small_compare(tf, cfg, cpu_params, name, prompts, card, plain)
+        exact = {rid for wave in waves for rid, (_, kw) in wave.items()
+                 if "sampling" in kw}
+        _small_compare(tf, cfg, cpu_params, name, prompts, card, plain,
+                       exact)
         log(f"small model {name}: prefill dispatches "
             f"{rep['prefill_dispatches']}, waves {rep['waves']}, suffix "
             f"windows {rep['suffix_windows']}, prefix cache "
             f"{rep.get('prefix_cache')}, preemptions "
-            f"{rep.get('paged', {}).get('preemptions')}")
+            f"{rep.get('paged', {}).get('preemptions')}, speculative "
+            f"{rep.get('speculative')} (CPU "
+            f"{plain_rep.get('speculative')})")
         if name == "paged prefix hits":
             check(rep["prefix_cache"]["hits"] == 2,
                   f"small phase {name}: {rep['prefix_cache']}")
         elif name == "wave of 5":
             check(rep["waves"] == {1: 1, 4: 1},
                   f"small phase {name}: waves {rep['waves']}")
+        elif name.startswith("paged speculative under"):
+            check(rep["paged"]["preemptions"] > 0,
+                  f"small phase {name}: no preemption")
+    for report in (serving.engines_report, serving.serving_report):
+        rep = report(device="cuda")
+        log(f"small model {report.__name__} on the card: {rep}")
+        check(rep["ok"] is True, f"{report.__name__} on the card: {rep}")
 
 
 # ---------------------------------------------------------------------
@@ -1259,7 +1344,8 @@ def serve_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
         f"{gen_tokens / gwall:.1f} generated tok/s; streams equal to the "
         f"kernel tier: {agree} of {len(reqs)}; first divergence: {first}")
     return launches, {"flash_attention": flash_routes,
-                      "paged_attention": paged_routes}
+                      "paged_attention": paged_routes}, {
+        rid: c.tokens for rid, c in done.items()}
 
 
 def _snapshot(pools, blocks) -> torch.Tensor:
@@ -1636,6 +1722,494 @@ def longprompt_phase(flagship, serving, sp, cfg) -> dict:
             f"s, max {out[key]['short_e2e_max_s']:.3f} s; long TTFT "
             f"{out[key]['long_ttft_s']:.3f} s")
     log(json.dumps({"longprompt": out}))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phases 4e and 4f: speculative decoding and the engine surface at full
+# width
+
+# A greedy stream of another engine may split from phase 4's only where
+# two tokens nearly tie: a (b, k+1) verify window, a one-token decode
+# chunk and waves of other sizes round bf16 activations at other
+# points, which moved the flagship's logits by up to 2.149e-3 of their
+# largest magnitude between two admission paths (phase 4c). A split is
+# taken as such a tie when the plain forward's top-2 logit margin there
+# is under twice that share of its largest logit; any other split fails.
+SPLIT_MARGIN_REL = 2 * HIT_LOGITS_REL_TOL
+SPEC_K = 4                # bench.py:1204 (serving), :1694 (solo)
+SPEC_WINDOWS = 4          # ServingConfig's default, bench serving_speculative
+FLIP_WINDOWS = 64         # bench.py:1593, serving_speculative_flip
+FLIP_MAX_NEW = 512        # bench.py:1585
+FLIP_TWIN_CHUNK = 256     # bench.py:1603, serving_dense_flip_twin (overlapped)
+SOLO_BATCH, SOLO_PROMPT, SOLO_NEW = 8, 256, 256   # bench.py:1697-1700
+
+
+def hold_streams(name: str, tf, sp, cfg, prompts: dict, got: dict,
+                 want: dict, prefix: bool = False) -> int:
+    """Greedy streams ``got`` against ``want`` ({request id: tokens}):
+    equal (with ``prefix``, ``got`` a prefix of ``want``), or split
+    first where the plain bf16 forward's top-2 margin is under
+    SPLIT_MARGIN_REL of its largest logit. Returns the count of
+    splits."""
+    plain = dataclasses.replace(cfg, flash=False)
+    splits = 0
+    for rid in sorted(got):
+        a, b = got[rid], want[rid]
+        check(len(a) <= len(b) if prefix else len(a) == len(b),
+              f"{name} {rid}: {len(a)} tokens against {len(b)}")
+        b = b[:len(a)]
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = torch.tensor([list(prompts[rid]) + b[:i]], device="cuda")
+        with torch.no_grad():
+            logits = tf.forward(sp, seq, plain)[0, -1].float()
+        top2 = logits.topk(2).values
+        rel = float(top2[0] - top2[1]) / float(logits.abs().max())
+        check(rel < SPLIT_MARGIN_REL,
+              f"{name}: {rid} splits at token {i} ({a[i]} vs {b[i]}) with "
+              f"top-2 margin {rel:.3e} of the largest logit (bar "
+              f"{SPLIT_MARGIN_REL:.1e})")
+        splits += 1
+    log(f"{name}: {len(got)} streams, {len(got) - splits} equal, {splits} "
+        "split at a near tie")
+    return splits
+
+
+class SyncCount(contextlib.AbstractContextManager):
+    """The host's waits for the card inside the block: each operation
+    PyTorch flags as synchronizing (``set_sync_debug_mode``: blocking
+    copies, stream and device synchronizes) and each CUDA event wait.
+    ``watch(engine)`` also counts the engine's round dispatches and the
+    flagged operations inside them."""
+
+    def __enter__(self):
+        self.events = self.dispatches = self.dispatch_flagged = 0
+        self._orig_sync = torch.cuda.Event.synchronize
+        counter = self
+
+        def synchronize(event):
+            counter.events += 1
+            return counter._orig_sync(event)
+
+        torch.cuda.Event.synchronize = synchronize
+        self._catch = warnings.catch_warnings(record=True)
+        self._records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def flagged(self) -> int:
+        return sum("synchronizing" in str(w.message) for w in self._records)
+
+    def watch(self, eng) -> None:
+        dispatch = eng._round_dispatch
+
+        def counted():
+            before = self.flagged()
+            out = dispatch()
+            self.dispatch_flagged += self.flagged() - before
+            self.dispatches += out is not None
+            return out
+
+        eng._round_dispatch = counted
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self.total_flagged = self.flagged()
+        self._catch.__exit__(*exc)
+        torch.cuda.Event.synchronize = self._orig_sync
+        return False
+
+
+def _drain(eng, reqs, warm=None):
+    """Submit copies of ``reqs``, drain the engine; returns ({id:
+    Completion}, wall s, SyncCount)."""
+    torch.cuda.synchronize()
+    with SyncCount() as syncs:
+        syncs.watch(eng)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        done = {c.request_id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return done, wall, syncs
+
+
+def _warm(engine_fn, reqs) -> None:
+    """One short request through a throwaway engine of the same kind:
+    the kernels and libraries of prefill and one round warm up."""
+    eng = engine_fn()
+    eng.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=9))
+    eng.run()
+
+
+def _run_stats(name: str, cfg, done: dict, wall: float, rep: dict,
+               syncs=None) -> dict:
+    """Every request complete with finite logprobs where asked; the
+    stream's tok/s, mean TTFT and e2e, verify windows and tokens per
+    window (generated tokens over windows, the bench's definition) and
+    host syncs per round, logged and returned."""
+    for rid, c in done.items():
+        check(c.finish_reason == "length",
+              f"{name} {rid}: finish_reason {c.finish_reason}")
+        check(all(0 <= t < cfg.vocab_size for t in c.tokens),
+              f"{name} {rid}: token out of range")
+        if c.logprobs is not None:
+            check(all(math.isfinite(x) for x in c.logprobs),
+                  f"{name} {rid}: non-finite logprobs")
+    gen = sum(len(c.tokens) for c in done.values())
+    out = {"requests": len(done), "generated_tokens": gen, "wall_s": wall,
+           "tok_per_s": gen / wall,
+           "ttft_mean_s": float(np.mean([c.ttft_s for c in done.values()])),
+           "e2e_mean_s": float(np.mean([c.e2e_s for c in done.values()])),
+           "prefill_dispatches": rep["prefill_dispatches"]}
+    spec = rep.get("speculative")
+    if spec:
+        out["verify_steps"] = spec["verify_steps"]
+        out["tokens_per_window"] = gen / max(spec["verify_steps"], 1)
+    if syncs is not None:
+        out.update(rounds=syncs.dispatches,
+                   host_syncs=syncs.total_flagged + syncs.events,
+                   host_syncs_per_round=(syncs.total_flagged + syncs.events)
+                   / max(syncs.dispatches, 1),
+                   syncs_in_dispatch=syncs.dispatch_flagged)
+    log(f"{name}: {len(done)} requests, {gen} tokens in {wall:.3f} s = "
+        f"{out['tok_per_s']:.1f} generated tok/s; mean TTFT "
+        f"{out['ttft_mean_s']:.3f} s, mean e2e {out['e2e_mean_s']:.3f} s"
+        + (f"; verify windows {out['verify_steps']}, "
+           f"{out['tokens_per_window']:.2f} tokens a window" if spec else "")
+        + (f"; {out['rounds']} rounds, {out['host_syncs']} host syncs "
+           f"({out['host_syncs_per_round']:.2f} a round), "
+           f"{out['syncs_in_dispatch']} inside a dispatch"
+           if syncs is not None else ""))
+    return out
+
+
+def _flash_check(name: str, fa, want: int, routes: dict) -> None:
+    """Every flash launch since the counts were zeroed on the tensor
+    cores, ``want`` of them (n_layers x prefill dispatches); their
+    routes added to ``routes``."""
+    got = dict(fa.flash_attention.launches_by_route)
+    log(f"{name}: flash_attention {fa.flash_attention.launches} launches "
+        f"(expected n_layers x prefill dispatches = {want}), by route {got}")
+    check(got == {"tensor_cores": want, "cuda_cores": 0} and want > 0,
+          f"{name}: flash launches by route {got}, expected {want} on the "
+          "tensor cores")
+    for route, n in got.items():
+        routes[route] = routes.get(route, 0) + n
+
+
+def bench_row(tf, cfg) -> np.ndarray:
+    """The reference bench's token row (``tokens_h[0]``, bench.py:315,
+    821): the first of ``sample_batch``'s 8 ramps, from seed 1."""
+    return tf.sample_batch(torch.Generator(device="cuda").manual_seed(1),
+                           cfg, 8, cfg.max_seq, device="cuda")[0].cpu().numpy()
+
+
+def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
+    """Phase 4e, speculative decoding at full width on the bf16 serving
+    snapshot: (a) solo ``speculative_generate`` (bench.py:1694-1724)
+    against ``greedy_generate``; (b) ``SpeculativeServingEngine`` and
+    (c) ``PagedSpeculativeServingEngine`` (the bench's paged settings)
+    on phase 4's 16-request stream, held to phase 4's streams (``want``);
+    (d) the motif stream of bench ``serving_speculative_flip`` at 64
+    windows a round beside the dense grid on the same stream. Flash
+    launches n_layers x prefill dispatches on the tensor cores each;
+    no paged-kernel launch (the windows read the gather view)."""
+    from kind_tpu_sim_torch.models import decode
+    from kind_tpu_sim_torch.models import speculative as spec
+
+    routes, out = {}, {}
+    # (a) solo
+    prompt = tf.sample_batch(torch.Generator(device="cuda").manual_seed(1),
+                             cfg, SOLO_BATCH, SOLO_PROMPT, device="cuda")
+    spec.speculative_generate(sp, cfg, prompt, 9, draft_k=SPEC_K,
+                              device="cuda")
+    zero_counts(fa.flash_attention, pa.paged_attention)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, stats = spec.speculative_generate(sp, cfg, prompt, SOLO_NEW,
+                                            draft_k=SPEC_K, return_stats=True,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _flash_check("4e solo speculative_generate", fa, cfg.n_layers, routes)
+    t0 = time.perf_counter()
+    greedy = decode.greedy_generate(sp, cfg, prompt, SOLO_NEW, device="cuda")
+    torch.cuda.synchronize()
+    greedy_wall = time.perf_counter() - t0
+    rows = {f"row{r}": prompt[r].tolist() for r in range(SOLO_BATCH)}
+    splits = hold_streams(
+        "4e solo speculative_generate against greedy_generate", tf, sp, cfg,
+        rows, {f"row{r}": toks[r, SOLO_PROMPT:].tolist()
+               for r in range(SOLO_BATCH)},
+        {f"row{r}": greedy[r, SOLO_PROMPT:].tolist()
+         for r in range(SOLO_BATCH)})
+    out["solo"] = {"verify_steps": stats["steps"],
+                   "tokens_per_step": (SOLO_NEW - 1) / stats["steps"],
+                   "wall_s": wall,
+                   "tok_per_s": SOLO_BATCH * SOLO_NEW / wall,
+                   "greedy_tok_per_s": SOLO_BATCH * SOLO_NEW / greedy_wall,
+                   "splits": splits}
+    log(f"4e solo: batch {SOLO_BATCH}, {SOLO_PROMPT}-token prompts, "
+        f"{SOLO_NEW} new, k {SPEC_K}: {stats['steps']} verify steps, "
+        f"{out['solo']['tokens_per_step']:.2f} tokens a step; "
+        f"{out['solo']['tok_per_s']:.1f} tok/s against greedy_generate's "
+        f"{out['solo']['greedy_tok_per_s']:.1f}")
+
+    # (b), (c): the phase 4 stream
+    reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
+    prompts = {r.request_id: r.prompt for r in reqs}
+    base = dict(max_slots=flagship.SLOTS, max_len=1024, speculative_k=SPEC_K,
+                spec_windows=SPEC_WINDOWS)
+    paged_sc = serving.ServingConfig(
+        paged_blocks=flagship.POOL_BLOCKS, block_size=flagship.BLOCK,
+        paged_width=8, **base)
+    runs = (("4e speculative serving", serving.SpeculativeServingEngine,
+             serving.ServingConfig(**base)),
+            ("4e paged speculative serving",
+             serving.PagedSpeculativeServingEngine, paged_sc))
+    for name, engine, sc in runs:
+        _warm(lambda: engine(sp, cfg, sc, device="cuda"), reqs)
+        eng = engine(sp, cfg, sc, device="cuda")
+        zero_counts(fa.flash_attention, pa.paged_attention)
+        done, wall, syncs = _drain(eng, reqs)
+        rep = eng.report()
+        _flash_check(name, fa, cfg.n_layers * rep["prefill_dispatches"],
+                     routes)
+        check(pa.paged_attention.launches == 0,
+              f"{name}: {pa.paged_attention.launches} paged launches")
+        check(len(done) == len(reqs), f"{name}: {len(done)} completed")
+        stats = _run_stats(name, cfg, done, wall, rep, syncs)
+        stats["splits"] = hold_streams(
+            f"{name} against phase 4", tf, sp, cfg, prompts,
+            {r: c.tokens for r, c in done.items()}, want)
+        log(f"{name}: q0's first 24 tokens {done['q0'].tokens[:24]} (what "
+            "prompt lookup drafts from)")
+        if "paged" in rep:
+            check(rep["paged"]["blocks_in_use"] == 0,
+                  f"{name}: {rep['paged']['blocks_in_use']} blocks in use "
+                  "after the drain")
+            stats["peak_blocks"] = rep["paged"]["peak_in_use"]
+            stats["preemptions"] = rep["paged"]["preemptions"]
+        out["paged" if "paged" in rep else "grid"] = stats
+
+    # (d) the motif stream, speculative at 64 windows and the dense grid
+    motif = bench_row(tf, cfg)[:8]
+    flip = [serving.Request(f"flip{i}", ((np.resize(motif, 192) + i)
+                                         % cfg.vocab_size).tolist(),
+                            FLIP_MAX_NEW) for i in range(2 * flagship.SLOTS)]
+    flip_prompts = {r.request_id: r.prompt for r in flip}
+    dense_sc = serving.ServingConfig(max_slots=flagship.SLOTS, max_len=1024,
+                                     chunk=FLIP_TWIN_CHUNK,
+                                     overlap_rounds=True)
+    _warm(lambda: serving.ServingEngine(sp, cfg, dense_sc, device="cuda"),
+          flip)
+    dense = serving.ServingEngine(sp, cfg, dense_sc, device="cuda")
+    dense_done, dense_wall, _ = _drain(dense, flip)
+    out["flip_dense"] = _run_stats(
+        f"4e motif stream, dense twin (chunk {FLIP_TWIN_CHUNK}, overlapped)",
+                                   cfg, dense_done, dense_wall,
+                                   dense.report())
+    flip_sc = serving.ServingConfig(**dict(base, spec_windows=FLIP_WINDOWS))
+    _warm(lambda: serving.SpeculativeServingEngine(sp, cfg, flip_sc,
+                                                   device="cuda"), flip)
+    eng = serving.SpeculativeServingEngine(sp, cfg, flip_sc, device="cuda")
+    zero_counts(fa.flash_attention, pa.paged_attention)
+    done, wall, syncs = _drain(eng, flip)
+    rep = eng.report()
+    _flash_check("4e motif stream", fa, cfg.n_layers * rep["prefill_dispatches"],
+                 routes)
+    out["flip"] = _run_stats(
+        f"4e motif stream (bench serving_speculative_flip, W {FLIP_WINDOWS}, "
+        f"{FLIP_MAX_NEW} new tokens)",
+        cfg, done, wall, rep, syncs)
+    log(f"4e motif stream: flip0's prompt begins {flip[0].prompt[:10]}, its "
+        f"first 24 tokens {done['flip0'].tokens[:24]}")
+    out["flip"]["splits"] = hold_streams(
+        "4e motif stream against the dense grid", tf, sp, cfg, flip_prompts,
+        {r: c.tokens for r, c in done.items()},
+        {r: c.tokens for r, c in dense_done.items()})
+    out["flash_launches_by_route"] = routes
+    log(json.dumps({"speculative": out}))
+    return out
+
+
+def surface_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
+    """Phase 4f, the engine surface at full width: the dense grid
+    sequential against ``overlap_rounds`` on phase 4's stream (chunk
+    64) and on the bench's ``serving_rtt_bound`` stream (chunk 8,
+    bench.py:1440-1486), and the speculative grid of 4e overlapped;
+    streams equal, tok/s and host syncs a round printed, no
+    synchronizing operation inside a dispatch. Then a slot failure on a
+    busy slot of the paged kernel tier mid-stream (replay held to phase
+    4, no block leaked), and a deadline and a ``max_queue`` shed under
+    an injected clock."""
+    from kind_tpu_sim_torch import metrics
+
+    routes, out = {}, {}
+    reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
+    prompts = {r.request_id: r.prompt for r in reqs}
+    row = bench_row(tf, cfg)
+    rtt = [serving.Request(f"rtt{i}", ((row[:192] + i)
+                                       % cfg.vocab_size).tolist(), 128)
+           for i in range(2 * flagship.SLOTS)]
+    # one sampled request beside phase 4's greedy ones: its noise is
+    # drawn on the card, so sampling adds no wait to a dispatch either
+    sampled = serving.Request(
+        "sampled0", reqs[0].prompt, reqs[0].max_new, logprobs=True,
+        sampling=serving.SamplingConfig(temperature=0.8, top_k=50), seed=17)
+    base = dict(max_slots=flagship.SLOTS, max_len=1024)
+    pairs = (("phase 4 stream and a sampled request, dense chunk 64",
+              serving.ServingEngine, dict(base, chunk=flagship.CHUNK),
+              reqs + [sampled]),
+             ("serving_rtt_bound, dense chunk 8", serving.ServingEngine,
+              dict(base, chunk=8), rtt),
+             ("phase 4 stream, speculative grid", serving.SpeculativeServingEngine,
+              dict(base, speculative_k=SPEC_K, spec_windows=SPEC_WINDOWS),
+              reqs))
+    for name, engine, kw, stream in pairs:
+        _warm(lambda: engine(sp, cfg, serving.ServingConfig(**kw),
+                             device="cuda"), stream)
+        streams = {}
+        for overlap in (False, True, True, False):
+            sc = serving.ServingConfig(overlap_rounds=overlap, **kw)
+            eng = engine(sp, cfg, sc, device="cuda")
+            zero_counts(fa.flash_attention, pa.paged_attention)
+            done, wall, syncs = _drain(eng, stream)
+            rep = eng.report()
+            _flash_check(f"4f {name}", fa,
+                         cfg.n_layers * rep["prefill_dispatches"], routes)
+            key = "overlap" if overlap else "sequential"
+            stats = _run_stats(f"4f {name}, {key}", cfg, done, wall, rep,
+                               syncs)
+            check(stats["syncs_in_dispatch"] == 0,
+                  f"4f {name}, {key}: {stats['syncs_in_dispatch']} "
+                  "synchronizing operations inside a round's dispatch")
+            tokens = {r: c.tokens for r, c in done.items()}
+            check(streams.setdefault(key, tokens) == tokens,
+                  f"4f {name}, {key}: streams differ between two runs")
+            out.setdefault(name, {}).setdefault(key, []).append(stats)
+        check(streams["overlap"] == streams["sequential"],
+              f"4f {name}: overlapped streams differ from sequential")
+        if stream[0] is reqs[0]:
+            out[name]["splits"] = hold_streams(
+                f"4f {name} against phase 4", tf, sp, cfg, prompts,
+                {r: t for r, t in streams["sequential"].items() if r in want},
+                want)
+        log(f"4f {name}: overlapped streams equal the sequential ones")
+
+    # a slot failure mid-stream on the paged kernel tier
+    sc = flagship.flagship_serving(paged_kernel=True)
+    eng = serving.PagedServingEngine(sp, cfg, sc, device="cuda")
+    before = metrics.recovery_log().counts()
+    zero_counts(fa.flash_attention, pa.paged_attention)
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    eng.step_round()
+    busy = [s for s, r in enumerate(eng.slot_req)
+            if r is not None and 1 < len(eng.slot_emitted[s]) < r.max_new]
+    check(bool(busy), "4f slot failure: no busy slot after a round")
+    victim, in_use = eng.slot_req[busy[0]].request_id, eng.alloc.in_use
+    check(eng.inject_slot_failure(busy[0]),
+          "4f slot failure: nothing displaced")
+    check(eng.alloc.in_use < in_use and eng.queue[0].request_id == victim,
+          "4f slot failure: blocks not released or request not requeued")
+    eng.step_round()
+    check(eng.slot_req[busy[0]] is None,
+          "4f slot failure: a quarantined slot was admitted to")
+    quarantined = eng.report()["chaos"]
+    eng.restore_slot(busy[0])
+    done = {c.request_id: c for c in eng.poll() + eng.run()}
+    rep = eng.report()
+    events = metrics.recovery_log().snapshot_since(before)
+    check(len(done) == len(reqs), f"4f slot failure: {len(done)} completed")
+    check(rep["paged"]["blocks_in_use"] == 0,
+          f"4f slot failure: {rep['paged']['blocks_in_use']} blocks in use")
+    check(events == {"slot_failure": 1, "slot_requeue": 1},
+          f"4f slot failure: recovery log {events}")
+    want_paged = cfg.n_layers * sc.chunk * rep["decode_rounds"]
+    check(pa.paged_attention.launches == want_paged
+          and pa.paged_attention.launches_by_route["split_kv"] == want_paged,
+          f"4f slot failure: paged launches by route "
+          f"{dict(pa.paged_attention.launches_by_route)}, expected "
+          f"{want_paged} on split_kv")
+    _flash_check("4f slot failure", fa,
+                 cfg.n_layers * rep["prefill_dispatches"], routes)
+    splits = hold_streams("4f slot failure against phase 4", tf, sp, cfg,
+                          prompts, {r: c.tokens for r, c in done.items()},
+                          want)
+    check(done[victim].tokens == want[victim],
+          f"4f slot failure: the replayed {victim} differs from phase 4")
+    out["slot_failure"] = {"victim": victim, "slot": busy[0],
+                           "chaos": quarantined, "events": events,
+                           "splits": splits,
+                           "paged_launches": pa.paged_attention.launches,
+                           "paged_routes": dict(
+                               pa.paged_attention.launches_by_route)}
+    log(f"4f slot failure: {victim} on slot {busy[0]} failed after one "
+        f"round, replayed equal to phase 4; chaos while quarantined "
+        f"{quarantined}; recovery log {events}; 0 blocks in use after the "
+        "drain")
+
+    # a deadline and a shed under an injected clock, a second a round:
+    # 8 requests fill the queue (max_queue 8) and the 9th is shed; one
+    # round admits the 8, and the rest queue behind them. Chunk 32, so
+    # a request takes 4 rounds: the first (deadline 1.5 s) expires after
+    # its second or third, the last (0.5 s) while queued
+    now = [0.0]
+    sc = serving.ServingConfig(max_slots=flagship.SLOTS, max_len=1024,
+                               chunk=32, max_queue=flagship.SLOTS)
+    eng = serving.ServingEngine(sp, cfg, sc, device="cuda",
+                                clock=lambda: now[0])
+    before = metrics.recovery_log().counts()
+    deadlines = {reqs[0].request_id: 1.5, reqs[-1].request_id: 0.5}
+    dead = set(deadlines)
+    accepted, shed = [], []
+    for i, r in enumerate(reqs):
+        if i == flagship.SLOTS + 1:
+            now[0] += 1.0
+            eng.step_round()
+        try:
+            eng.submit(dataclasses.replace(
+                r, deadline_s=deadlines.get(r.request_id)))
+            accepted.append(r.request_id)
+        except serving.EngineSaturated:
+            shed.append(r.request_id)
+    done = {}
+    while eng.outstanding():
+        eng.step_round()
+        now[0] += 1.0
+        done.update({c.request_id: c for c in eng.poll()})
+    events = metrics.recovery_log().snapshot_since(before)
+    check(shed == [reqs[flagship.SLOTS].request_id]
+          and events == {"request_shed": 1},
+          f"4f shed: shed {shed}, recovery log {events}")
+    check(sorted(done) == sorted(accepted),
+          f"4f deadline: {len(done)} of {len(accepted)} accepted completed")
+    for rid, c in done.items():
+        expired = rid in dead
+        check(c.deadline_exceeded == expired
+              and c.finish_reason == ("deadline_exceeded" if expired
+                                      else "length"),
+              f"4f deadline: {rid} {c.finish_reason}")
+    check(0 < len(done[reqs[0].request_id].tokens) < reqs[0].max_new
+          and done[reqs[-1].request_id].tokens == [],
+          "4f deadline: the expired requests' tokens "
+          f"{len(done[reqs[0].request_id].tokens)} (mid-stream) and "
+          f"{len(done[reqs[-1].request_id].tokens)} (queued)")
+    hold_streams("4f deadline and shed against phase 4 (prefixes)", tf, sp,
+                 cfg, prompts, {r: c.tokens for r, c in done.items()}, want,
+                 prefix=True)
+    out["deadline"] = {
+        "expired_tokens": {rid: len(done[rid].tokens) for rid in sorted(dead)},
+        "shed": shed, "chaos": eng.report()["chaos"]}
+    log(f"4f deadline and shed: {out['deadline']}")
+    out["flash_launches_by_route"] = routes
+    log(json.dumps({"surface": out}))
     return out
 
 
@@ -2207,10 +2781,13 @@ def main() -> int:
                    + [w for b in sp["blocks"] for w in b.values()])
     log(f"flagship params: {n_params} (bf16 serving snapshot), set up in "
         f"{time.perf_counter() - t0:.2f} s")
-    launches, serve_routes = serve_phase(flagship, serving, fa, pa, sp, cfg)
+    launches, serve_routes, streams = serve_phase(flagship, serving, fa, pa,
+                                                  sp, cfg)
     realistic = realistic_phase(flagship, serving, fa, pa, sp, cfg)
     hit_vs_cold_phase(flagship, serving, sp, cfg)
     longprompt_phase(flagship, serving, sp, cfg)
+    spec = spec_phase(flagship, serving, tf, fa, pa, sp, cfg, streams)
+    surface = surface_phase(flagship, serving, tf, fa, pa, sp, cfg, streams)
     del sp
     small_train_phase(tf, fa)
     train_launches, train_plain = train_phase(trainer, fa)
@@ -2225,6 +2802,8 @@ def main() -> int:
     flash_row.update({
         "launches_by_route": serve_routes["flash_attention"],
         "realistic_launches_by_route": realistic["routes"]["flash_attention"],
+        "speculative_launches_by_route": spec["flash_launches_by_route"],
+        "surface_launches_by_route": surface["flash_launches_by_route"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -25,3 +26,15 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``, queued without
+    waiting: on a card the copy goes through pinned memory with
+    ``non_blocking=True``, so the host does not wait for the work in
+    flight (a copy from pageable memory synchronises the stream). The
+    pinned buffer is held until the copy has run."""
+    host = torch.tensor(np.asarray(array))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)

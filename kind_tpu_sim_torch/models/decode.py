@@ -18,8 +18,9 @@ Numerical contract (dense configs): a token generated through the
 cache path equals the argmax of the full (uncached) forward at that
 position. int8 caches and MoE belong to later slices of the port.
 
-Sampling draws its Gumbel noise from a ``torch.Generator`` seeded from
-(seed, generation index), not from ``jax.random``: sampled streams are
+Sampling draws its Gumbel noise from a counter-based integer hash of
+(seed, generation index[, batch row]) computed on the device
+(``_counter_uniform``), not from ``jax.random``: sampled streams are
 reproducible and valid, not JAX's tokens; greedy streams equal JAX's.
 """
 
@@ -31,7 +32,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from kind_tpu_sim_torch.device import resolve, torch_dtype
+from kind_tpu_sim_torch.device import resolve, to_device, torch_dtype
 from kind_tpu_sim_torch.models.quant import embed_lookup, linear
 from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
@@ -300,14 +301,6 @@ class SamplingConfig:
     repetition_penalty: float = 1.0
 
 
-def _noise_seed(*key: int) -> int:
-    """64-bit generator seed for one key: (request seed, generation
-    index), with the batch row after them where one key serves a
-    batch."""
-    seq = np.random.SeedSequence([int(k) % 2 ** 64 for k in key])
-    return int(seq.generate_state(1, np.uint64)[0])
-
-
 def _filtered_scaled(logits, temp, top_k, top_p, min_p=None):
     """Temperature-scaled, top-k/top-p/min-p-filtered logits per row
     (b, vocab); filtered entries are -1e30. The JAX package's math:
@@ -340,18 +333,84 @@ def _filtered_scaled(logits, temp, top_k, top_p, min_p=None):
     return scaled
 
 
+_MASK32 = 0xFFFFFFFF
+_GOLDEN32 = 0x9E3779B9
+
+
+def _hash32(x):
+    """A 32-bit integer hash (lowbias32) of int64 values in
+    [0, 2**32), in int64 arithmetic that cannot overflow: each
+    product is split into 16-bit halves of the constant."""
+    def mul(v, c):
+        return (v * (c & 0xFFFF) + (((v * (c >> 16)) & 0xFFFF) << 16)) \
+            & _MASK32
+
+    x = x ^ (x >> 16)
+    x = mul(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _mix(h, v):
+    return _hash32(((h ^ (v & _MASK32)) + _GOLDEN32) & _MASK32)
+
+
+def _seed_words(seeds, *extra) -> np.ndarray:
+    """Request seeds as rows of 32-bit words (low, high), followed by
+    ``extra`` per-row words (the batch row where one seed serves a
+    batch): the ``seeds`` argument of ``_counter_uniform``."""
+    words = [[int(s) & _MASK32, (int(s) >> 32) & _MASK32] for s in seeds]
+    for col in extra:
+        for row, v in zip(words, col):
+            row.append(int(v) & _MASK32)
+    return np.asarray(words, np.int64).reshape(len(words), -1)
+
+
+def _counter_uniform(seeds, gidx, stream: int, width: int = 0):
+    """Uniforms in (0, 1), fp32, as a pure function of (key words,
+    generation index, stream[, column]) — the one source of every
+    random draw of sampling. ``seeds`` (b, n) int64 holds each row's
+    key as 32-bit words (``_seed_words``), ``gidx`` (b, ...) the
+    generation indices; with ``width`` a trailing dimension of that
+    many columns is added (one draw per vocabulary entry). Integer
+    arithmetic only, so the card and the CPU give the same draws."""
+    view = (-1,) + (1,) * (gidx.dim() - 1)
+    h = _hash32(seeds[:, 0])
+    for j in range(1, seeds.shape[1]):
+        h = _mix(h, seeds[:, j])
+    h = _mix(_mix(h.view(view), gidx.long()),
+             torch.full_like(gidx.long(), stream))
+    if width:
+        h = _mix(h[..., None], torch.arange(width, device=gidx.device))
+    return _unit_float(h)
+
+
+def _unit_float(h):
+    """32-bit hashes -> fp32 uniforms in (0, 1): the top 23 bits plus
+    one half, scaled. 24 bits would round the largest value up to
+    exactly 1.0 in fp32, an infinite Gumbel draw."""
+    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def _counter_gumbel(seeds, gidx, vocab: int):
+    """(b, vocab) fp32 Gumbel noise for generation indices ``gidx`` (b,):
+    stream 1 of ``_counter_uniform``, computed where ``seeds`` lies."""
+    return -torch.log(-torch.log(_counter_uniform(seeds, gidx, 1, vocab)))
+
+
 def _gumbel_noise(keys, vocab: int, temp, device):
-    """(b, vocab) fp32 Gumbel noise, row r drawn on the CPU from a
-    torch.Generator seeded by ``_noise_seed(*keys[r])``; greedy rows
-    (temp <= 0) get zeros."""
-    noise = torch.zeros((len(keys), vocab))
-    tiny = torch.finfo(torch.float32).tiny
-    for r, (key, t) in enumerate(zip(keys, temp.tolist())):
-        if t > 0.0:
-            gen = torch.Generator().manual_seed(_noise_seed(*key))
-            u = torch.rand(vocab, generator=gen).clamp_(min=tiny)
-            noise[r] = -torch.log(-torch.log(u))
-    return noise.to(device)
+    """(b, vocab) fp32 Gumbel noise for host keys (seed, generation
+    index[, batch row]), computed on ``device`` without waiting for it;
+    greedy rows (temp <= 0) get zeros."""
+    seeds, gidx = zip(*((k[0], k[1]) for k in keys))
+    extra = list(zip(*(k[2:] for k in keys)))
+    dev = torch.device(device)
+    noise = _counter_gumbel(to_device(_seed_words(seeds, *extra), dev),
+                            to_device(np.asarray(gidx, np.int64), dev),
+                            vocab)
+    return torch.where(temp.to(dev)[:, None] > 0.0, noise,
+                       torch.zeros_like(noise))
 
 
 def _sample_token(logits, sampling: SamplingConfig,

@@ -24,7 +24,9 @@ allocation is host-side bookkeeping at scheduling boundaries
 (``BlockAllocator``); pool exhaustion triggers recompute preemption in
 ``serving.PagedServingEngine``. ``PagedPrefixCache`` shares whole
 prompt blocks between requests by reference count; ``paged_suffix``
-runs a prompt's suffix against the shared blocks.
+runs a prompt's suffix against the shared blocks. Speculative verify
+windows (``paged_verify_step`` / ``paged_verify_scan``) run on the
+gather tier: one view a window, the window's k/v scattered back.
 """
 
 from __future__ import annotations
@@ -278,6 +280,52 @@ def paged_decode_chunk_kernel(params, pools, tables, lengths, last_token,
         presence, cfg=cfg, chunk=chunk, block_fn=block_fn)
     scatter_rows(pools, tables, lengths, small, active)
     return token, emitted, presence, lps
+
+
+def paged_verify_step(params, pools, tables, out, total, active, sampling,
+                      *, cfg: ModelConfig, k: int):
+    """One speculative verify window over paged storage: gather the
+    block view once per window (amortized over up to k+1 emitted
+    tokens), run the window forward against it, scatter the window's
+    k/v into each slot's blocks from its base (inactive slots to the
+    garbage block), in place, and run the shared accept/emit
+    (``speculative._accept_and_emit``; ``sampling`` from
+    ``speculative._spec_sampling``). Returns (out, total, emit, m,
+    lp)."""
+    from kind_tpu_sim_torch.models.speculative import (
+        _accept_and_emit,
+        _window_forward,
+    )
+
+    view = gather_view(pools, tables)
+    draft, base, logits, rows = _window_forward(params, view, out, total,
+                                                cfg=cfg, k=k)
+    scatter_rows(pools, tables, base, rows, active)
+    return _accept_and_emit(logits, draft, out, total, active, sampling, k=k)
+
+
+def paged_verify_scan(params, pools, tables, out, total, active,
+                      sampling_state, *, cfg: ModelConfig, k: int,
+                      windows: int):
+    """``windows`` paged verify windows in one dispatch (a loop that
+    never reads the device), the paged twin of
+    ``speculative._grid_verify_scan``. ``tables`` stay fixed across the
+    windows: the caller grows every slot's block list to cover
+    windows*(k+1) positions first; each window gathers the view again,
+    as the pools advanced. Returns (out, total, emits (W, b, k+1),
+    ms (W, b), lps (W, b, k+1))."""
+    from kind_tpu_sim_torch.models.speculative import (
+        _scan_windows,
+        _spec_sampling,
+    )
+
+    sampling = _spec_sampling(sampling_state, out.device)
+
+    def step(out, total):
+        return paged_verify_step(params, pools, tables, out, total, active,
+                                 sampling, cfg=cfg, k=k)
+
+    return _scan_windows(step, out, total, windows)
 
 
 # ---------------------------------------------------------------------

@@ -6,21 +6,24 @@ chunks finished slots retire and queued requests are admitted. The
 scheduler state (slot lengths, active flags, per-slot sampling knobs)
 lives on the host as numpy arrays; the device holds the KV storage,
 each slot's last token and its seen-token set. Each round costs one
-device-to-host copy: the emitted tokens.
+device-to-host copy: its emitted tokens, queued into pinned host memory
+right after the round's launches, with an event the retire waits on.
 
-Two engines: ``ServingEngine`` over a dense (slots, max_len) cache and
+Four engines: ``ServingEngine`` over a dense (slots, max_len) cache,
 ``PagedServingEngine`` over a paged block pool (models/paged.py), whose
 decode attention runs on the hand-written paged-attention kernel when
 ``ServingConfig.paged_kernel`` is set and through a gathered view
-otherwise. Prefill runs the flash-attention kernel when the model
-config sets ``flash``.
+otherwise, and their speculative twins ``SpeculativeServingEngine``
+and ``PagedSpeculativeServingEngine`` (models/speculative.py): a round
+scans ``spec_windows`` verify windows of ``speculative_k`` drafted
+tokens each, drafted by prompt lookup or by a draft model. Prefill
+runs the flash-attention kernel when the model config sets ``flash``.
 
 Sampled tokens are a pure function of (request, seed, generation
-index): each draw's Gumbel noise comes from a torch.Generator seeded
-from (seed, index), so placement, co-tenants and recompute preemption
-cannot change a stream. Correctness contract: a greedy request decoded
-through a busy grid emits exactly what ``decode.greedy_generate``
-emits.
+index): each draw's noise comes from (seed, index) alone, so placement,
+co-tenants and recompute preemption cannot change a stream. Correctness
+contract: a greedy request decoded through a busy grid, speculative or
+not, emits exactly what ``decode.greedy_generate`` emits.
 
 Admission, the way a prompt gets into the KV storage, has three
 features that share one pair of hooks (``_claim_pending`` /
@@ -38,9 +41,16 @@ features that share one pair of hooks (``_claim_pending`` /
 
 The first window of a prompt runs the forward (the flash kernel when
 the model config sets ``flash``); a suffix window runs
-``speculative._window_block`` against the prefix. Overlapped rounds,
-deadlines, load shedding, speculative decoding, int8, MoE and meshes
-are later slices; their knobs raise ValueError at construction.
+``speculative._window_block`` against the prefix.
+
+The rest of the engine surface: ``overlap_rounds`` pipelines ``run()``
+(round N+1 is launched before round N is read back; dense and
+speculative grids), ``Request.deadline_s`` completes an expired request
+with ``finish_reason="deadline_exceeded"``, ``max_queue`` sheds new
+requests with ``EngineSaturated``, and ``inject_slot_failure`` /
+``restore_slot`` requeue a slot's request for exact replay and
+quarantine the slot. int8, MoE and meshes are later slices; their
+knobs raise ValueError at construction.
 """
 
 from __future__ import annotations
@@ -55,14 +65,17 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from kind_tpu_sim_torch.device import resolve, torch_dtype
+from kind_tpu_sim_torch import metrics
+from kind_tpu_sim_torch.device import resolve, to_device, torch_dtype
 from kind_tpu_sim_torch.models.decode import (
     NEG,
     SamplingConfig,
     _block_decode_chunk,
+    _counter_gumbel,
     _filtered_scaled,
     _gumbel_noise,
     _new_chunk_buffers,
+    _seed_words,
     init_cache,
 )
 from kind_tpu_sim_torch.models.quant import embed_lookup
@@ -78,10 +91,7 @@ from kind_tpu_sim_torch.models.transformer import (
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Engine knobs (the vLLM --max-num-seqs / --max-model-len analog),
-    with the JAX package's names, order and defaults.
-    ``speculative_k``, ``spec_windows``, ``overlap_rounds`` and
-    ``max_queue`` belong to later slices: set away from their defaults,
-    the engine raises."""
+    with the JAX package's names, order and defaults."""
 
     max_slots: int = 4        # concurrent sequences (the decode batch)
     max_len: int = 128        # per-slot KV capacity (prompt + generated)
@@ -90,17 +100,28 @@ class ServingConfig:
     prefix_cache_entries: int = 0
     paged_blocks: int = 0     # >0: paged KV (PagedServingEngine)
     block_size: int = 16      # KV positions per pool block
-    speculative_k: int = 0
-    spec_windows: int = 4     # speculative grid engine: verify windows
+    speculative_k: int = 0    # >0: drafts of this width, verified in
+    #                           windows of k+1 tokens (the speculative
+    #                           engines only)
+    spec_windows: int = 4     # speculative engines: verify windows
     #                           scanned per dispatch
     paged_kernel: bool = False  # paged tier only: the CUDA paged-
     #                             attention kernel (direct block reads)
     paged_width: int = 0      # paged tier: fixed block-table width
     #                           (0 = power-of-two bucketing)
     admission_wave_sizes: tuple = ()
-    overlap_rounds: bool = False
+    overlap_rounds: bool = False  # run(): launch round N+1 before
+    #                               reading round N back (dense and
+    #                               speculative grids only)
     prefill_chunk: int = 0
-    max_queue: int = 0
+    max_queue: int = 0        # >0: submit() raises EngineSaturated
+    #                           once this many requests are queued
+
+
+class EngineSaturated(RuntimeError):
+    """submit() shed a request: the queue is at ServingConfig.max_queue.
+    Accepted (queued or in-flight) requests are unaffected: shedding
+    happens at admission, never mid-stream."""
 
 
 @dataclasses.dataclass
@@ -117,7 +138,8 @@ class Request:
     sampling: Optional[SamplingConfig] = None
     seed: Optional[int] = None
     cache_prefix: bool = False   # store the prompt's k/v for later hits
-    deadline_s: Optional[float] = None  # not ported yet: must be None
+    deadline_s: Optional[float] = None  # e2e budget in clock seconds from
+    #                                    submit(), checked once a round
     logprobs: bool = False       # raw-model log-probability per token
 
 
@@ -126,10 +148,11 @@ class Completion:
     request_id: str
     prompt: List[int]
     tokens: List[int]          # generated tokens (eos included if hit)
-    finish_reason: str         # "stop" (eos) or "length"
-    deadline_exceeded: bool = False  # deadlines are not ported yet
-    ttft_s: Optional[float] = None   # submit -> first token
-    e2e_s: Optional[float] = None    # submit -> completion
+    finish_reason: str         # "stop" (eos), "length" or
+    #                            "deadline_exceeded" (tokens so far kept)
+    deadline_exceeded: bool = False
+    ttft_s: Optional[float] = None   # submit -> first token, 6 places
+    e2e_s: Optional[float] = None    # submit -> completion, 6 places
     logprobs: Optional[List[float]] = None
 
 
@@ -310,16 +333,14 @@ def _apply_rep_penalty(logits, rep_pen, presence):
 
 
 def _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen, presence,
-                 keys=None, noise=None):
+                 noise):
     """Per-row sampling over fp32 logits (b, vocab), each row with its
     own knobs. Rows with temp <= 0 are greedy: argmax of the PENALIZED
     logits. Sampled rows take the Gumbel-max draw argmax(filtered +
-    noise); ``noise`` (b, vocab) defaults to ``_gumbel_noise(keys)``,
-    and tests pass their own to match another implementation's draw."""
+    noise); ``noise`` (b, vocab) is the rows' ``_counter_gumbel`` draw
+    (tests pass another implementation's to match its draw)."""
     logits = _apply_rep_penalty(logits, rep_pen, presence)
     greedy = torch.argmax(logits, dim=-1)
-    if noise is None:
-        noise = _gumbel_noise(keys, logits.shape[-1], temp, logits.device)
     scaled = _filtered_scaled(logits, temp, top_k, top_p, min_p)
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temp <= 0.0, greedy, sampled)
@@ -354,11 +375,15 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
     # common serving case) skips the sampling pipeline entirely
     sampled = bool(np.any(temp > 0.0) or np.any(rep_pen != 1.0))
     if sampled:
-        knobs = [torch.as_tensor(a, device=device)
+        # queued host-to-device copies and noise made on the device:
+        # nothing here waits for a round still in flight
+        knobs = [to_device(a, device)
                  for a in (temp, top_k, top_p, min_p, rep_pen)]
+        words = to_device(_seed_words(seeds), device)
         # generation index of the token selected at step i: generation
         # 0 came from the prefill logits at admission
-        gen0 = lengths.cpu().numpy().astype(np.int64) + 1 - prompt_len
+        gen0 = lengths.long() + 1 - to_device(
+            np.asarray(prompt_len, np.int64), device)
     rows = torch.arange(b, device=device)
     token = last_token
     emitted, lps = [], []
@@ -370,8 +395,8 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
         x = _rms_norm(x, params["final_norm"])
         logits = _readout(x, params["embed"])
         if sampled:
-            keys = list(zip(seeds, (gen0 + i).tolist()))
-            nxt = _sample_rows(logits, *knobs, presence, keys)
+            noise = _counter_gumbel(words, gen0 + i, logits.shape[-1])
+            nxt = _sample_rows(logits, *knobs, presence, noise=noise)
         else:
             nxt = torch.argmax(logits, dim=-1)
         nxt = torch.where(active, nxt, token)  # inactive slots hold
@@ -424,10 +449,6 @@ def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
     """Loud, not silent: a knob outside the ported slices would
     otherwise "run" and serve with the wrong semantics."""
     unsupported = {
-        "overlap_rounds": serving.overlap_rounds,
-        "speculative_k>0": serving.speculative_k > 0,
-        "spec_windows!=4": serving.spec_windows != 4,
-        "max_queue>0": serving.max_queue > 0,
         "a mesh": mesh is not None,
         "cfg.int8_kv": cfg.int8_kv,
         "cfg.int8_native": cfg.int8_native,
@@ -452,13 +473,23 @@ class ServingEngine:
     ``run()`` drains the queue; ``submit`` / ``step_round`` / ``poll``
     are the incremental surface. ``device`` is the card unless the
     caller asks for the CPU; ``params`` must already live there.
+    ``clock`` is what every latency stamp and deadline reads (default
+    ``time.monotonic``).
     """
+
+    # the speculative engines take ServingConfig.speculative_k; the
+    # others refuse it rather than serve without speculation
+    _speculative = False
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  serving: ServingConfig = ServingConfig(), device="cuda",
                  clock=None, mesh=None):
         self.device = resolve(device)
         _check_slice(cfg, serving, mesh)
+        if serving.speculative_k > 0 and not self._speculative:
+            raise ValueError(
+                f"{type(self).__name__} ignores speculative_k; construct "
+                "SpeculativeServingEngine or PagedSpeculativeServingEngine")
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}; the engine "
@@ -486,12 +517,23 @@ class ServingEngine:
 
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * n
+        # per-slot admission generation, bumped at every activation: a
+        # round's retire keeps a slot's rows only if the generation is
+        # the one it was launched with (a slot freed and re-admitted in
+        # between, even by the same Request object, is detected)
+        self._slot_gen: List[int] = [0] * n
         self.slot_emitted: List[List[int]] = [[] for _ in range(n)]
         self.slot_lps: List[List[float]] = [[] for _ in range(n)]
         # chunked prefill: slot -> {"req", "done"} for claimed slots
         # whose prompts are still streaming in
         self._pending: Dict[int, Dict[str, Any]] = {}
         self.finished: List[Completion] = []
+        # chaos state: quarantined slots and the fault/recovery counts
+        # report() publishes
+        self._failed_slots: set = set()
+        self.slot_failures = 0
+        self.requeues = 0
+        self.shed = 0
         self._req_clock: Dict[str, Dict[str, float]] = {}
         self._lat_window = collections.deque(maxlen=1024)
         self._lat_count = 0
@@ -528,11 +570,23 @@ class ServingEngine:
     # -- public surface ------------------------------------------------
 
     def submit(self, request: Request) -> None:
+        if (self.serving.max_queue
+                and len(self.queue) >= self.serving.max_queue):
+            # shed at admission with a typed error to back off on;
+            # in-flight streams are untouched
+            self.shed += 1
+            metrics.recovery_log().record(
+                "request_shed", request=request.request_id,
+                queued=len(self.queue))
+            raise EngineSaturated(
+                f"queue at max_queue={self.serving.max_queue}; "
+                f"request {request.request_id!r} shed")
         self._capacity_check(request)
-        if request.deadline_s is not None:
-            raise ValueError(
-                "Request.deadline_s is not ported to kind_tpu_sim_torch "
-                "yet (a later slice)")
+        self._check_request(request)
+        if request.sampling is not None:
+            # at submit, not admission: a refusal inside run() would
+            # abandon the co-tenants' drain
+            self._check_sampling(request.sampling)
         if request.max_new < 1:
             raise ValueError("max_new must be >= 1")
         if request.seed is None:
@@ -549,13 +603,13 @@ class ServingEngine:
     def step_round(self) -> None:
         """One scheduling quantum: admit into free slots, advance each
         pending chunked prefill by one window, decode one chunk for the
-        whole grid, retire finished slots. Runs without autograd
-        (``run`` goes through here), so parameters that require grad
-        build no graph and leave none in the storage."""
+        whole grid, retire finished slots. Runs without autograd, so
+        parameters that require grad build no graph and leave none in
+        the storage."""
         self._admit_and_advance()
-        if any(r is not None for r in self.slot_req):
-            emitted, lps = self._decode_round(self._sampling_state())
-            self._retire(emitted, lps)
+        handles = self._round_dispatch()
+        if handles is not None:
+            self._round_retire(handles)
 
     def _admit_and_advance(self) -> None:
         """Fill free slots, then advance each pending chunked prefill by
@@ -564,19 +618,154 @@ class ServingEngine:
         if self._pending:
             self._advance_prefills()
 
+    def _round_dispatch(self):
+        """Launch one decode round for the grid and queue its readback;
+        returns (staged readback, admission-generation snapshot), or
+        None when no slot is live."""
+        if not any(r is not None for r in self.slot_req):
+            return None
+        emitted, lps = self._decode_round(self._sampling_state())
+        return self._stage(emitted, lps), list(self._slot_gen)
+
+    def _round_retire(self, handles) -> None:
+        staged, owners = handles
+        emitted, lps = self._fetch(staged)
+        self._retire(emitted, lps, owners)
+        self._expire_deadlines()
+
+    def _stage(self, *arrs):
+        """Queue the copy of a round's outputs to the host without
+        waiting. On a card each goes into pinned host memory with
+        ``non_blocking=True`` and an event is recorded behind the
+        copies, so the retire waits for this round alone, not for a
+        round launched after it. The logprobs plane (the last array)
+        rides along only when a live request asked for logprobs;
+        otherwise it is None."""
+        if not any(r is not None and r.logprobs for r in self.slot_req):
+            arrs = arrs[:-1] + (None,)
+        if self.device.type != "cuda":
+            return [None if a is None else a.clone() for a in arrs], None
+        host = []
+        for a in arrs:
+            if a is not None:
+                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                h.copy_(a, non_blocking=True)
+                a = h
+            host.append(a)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _fetch(staged):
+        """Wait for a staged round and return its arrays as numpy."""
+        host, done = staged
+        if done is not None:
+            done.synchronize()
+        return [None if h is None else h.numpy() for h in host]
+
+    def _expire_deadlines(self) -> None:
+        """Deadline enforcement once a round, after its retire: every
+        live or mid-prefill slot whose request's budget has run out
+        completes now with finish_reason "deadline_exceeded" (tokens
+        already emitted are kept) and frees its slot."""
+        now = self._clock()
+
+        def expired(req) -> bool:
+            if req is None or req.deadline_s is None:
+                return False
+            clock = self._req_clock.get(req.request_id)
+            return (clock is not None
+                    and now - clock["submit"] >= req.deadline_s)
+
+        for slot, req in enumerate(self.slot_req):
+            if expired(req):
+                self._finish(slot, reason="deadline_exceeded")
+        for slot in [s for s, st in self._pending.items()
+                     if expired(st["req"])]:
+            req = self._pending.pop(slot)["req"]
+            self._release_storage(slot)
+            self._complete_unserved(req)
+
+    def _complete_unserved(self, req: Request) -> None:
+        """A deadline_exceeded Completion for a request that never
+        reached (or never finished reaching) a slot: expired in the
+        queue or mid chunked prefill. No tokens."""
+        now = self._clock()
+        clock = self._req_clock.pop(req.request_id, None)
+        e2e = (round(now - clock["submit"], 6)
+               if clock and "submit" in clock else None)
+        self.finished.append(Completion(
+            request_id=req.request_id, prompt=list(req.prompt), tokens=[],
+            finish_reason="deadline_exceeded", deadline_exceeded=True,
+            ttft_s=None, e2e_s=e2e, logprobs=None))
+
+    def outstanding(self) -> int:
+        """Accepted but unfinished requests: queued, streaming a
+        chunked prefill, or in a slot."""
+        return (len(self.queue) + len(self._pending)
+                + sum(1 for r in self.slot_req if r is not None))
+
     def poll(self) -> List[Completion]:
         out, self.finished = self.finished, []
         return out
 
+    @torch.no_grad()
     def run(self) -> List[Completion]:
         """Drain queue, pending prefills and grid; returns completions
-        in finish order."""
+        in finish order. With ``overlap_rounds`` the loop is pipelined:
+        round N+1 is launched before round N is read back, so the
+        readback waits behind device work. The price is one lagged
+        round per retirement (a finished slot computes until its
+        results are read; the generation snapshot discards those rows)
+        and one trailing discarded round per drain."""
         done: List[Completion] = []
-        while (self.queue or self._pending
+        if not self.serving.overlap_rounds:
+            while (self.queue or self._pending
+                   or any(r is not None for r in self.slot_req)):
+                self._assert_serviceable()
+                self.step_round()
+                done.extend(self.poll())
+            return done
+        pending = None
+        while (self.queue or self._pending or pending is not None
                or any(r is not None for r in self.slot_req)):
-            self.step_round()
+            if pending is None:
+                self._assert_serviceable()
+            if pending is not None and self._round_finishes_all():
+                # the round in flight completes every live slot: another
+                # launch now would be all zombie rows, so retire it and
+                # refill the freed slots first (windows still advance
+                # once an iteration, below)
+                self._round_retire(pending)
+                pending = None
+                self._admit()
+            nxt = self._round_dispatch()
+            if pending is not None:
+                self._round_retire(pending)
+            pending = nxt
+            self._admit_and_advance()
             done.extend(self.poll())
         return done
+
+    def _round_min_tokens(self) -> int:
+        """Tokens a round surely delivers to each live slot: ``chunk``
+        (the speculative engines: one a window)."""
+        return self.serving.chunk
+
+    def _round_finishes_all(self) -> bool:
+        """Does the round in flight complete every live slot? Exact for
+        budget-bound requests; with an eos_id the stop cannot be
+        predicted, so those keep pipelining."""
+        lo = self._round_min_tokens()
+        saw = False
+        for req, emitted in zip(self.slot_req, self.slot_emitted):
+            if req is None:
+                continue
+            saw = True
+            if req.eos_id is not None or len(emitted) + lo < req.max_new:
+                return False
+        return saw
 
     def _sampling_state(self):
         return (self.temp, self.top_k, self.top_p, self.min_p,
@@ -646,6 +835,24 @@ class ServingEngine:
     def _release_storage(self, slot: int) -> None:
         """Dense rows are pre-allocated per slot: nothing to free."""
 
+    # -- engine hooks (the speculative engines override) ---------------
+
+    def _check_sampling(self, samp: SamplingConfig) -> None:
+        """Per-engine sampling gate, at submit (the speculative engines
+        refuse repetition_penalty)."""
+
+    def _check_request(self, request: Request) -> None:
+        """Per-engine request gate, at submit."""
+
+    def _prefill_extras(self, slot: int, request: Request) -> None:
+        """Run at activation on every admission path, before the slot's
+        state is set (the draft-model engine prefills its draft cache
+        here)."""
+
+    def _on_admitted(self, slot: int, request: Request, first: int) -> None:
+        """Run at activation once the slot's state is set (the
+        speculative engines seed the slot's token buffer)."""
+
     def _decode_round(self, sampling_state):
         lengths, active = self._device_vectors()
         self.last_token, emitted, self.presence, lps = _decode_chunk(
@@ -656,8 +863,8 @@ class ServingEngine:
         return emitted, lps
 
     def _device_vectors(self):
-        return (torch.as_tensor(self.lengths, device=self.device),
-                torch.as_tensor(self.active, device=self.device))
+        return (to_device(self.lengths, self.device),
+                to_device(self.active, self.device))
 
     def _advance_lengths(self) -> None:
         self.lengths = np.where(self.active,
@@ -694,13 +901,25 @@ class ServingEngine:
     # -- admission and retirement --------------------------------------
 
     def _admit(self) -> None:
+        # a queued request whose budget already ran out pays no prefill
+        if any(r.deadline_s is not None for r in self.queue):
+            now = self._clock()
+            keep = []
+            for req in self.queue:
+                clock = self._req_clock.get(req.request_id)
+                if (req.deadline_s is not None and clock is not None
+                        and now - clock["submit"] >= req.deadline_s):
+                    self._complete_unserved(req)
+                else:
+                    keep.append(req)
+            self.queue = keep
         claims = []
         # storage promised to this round's deferred claims, so two
         # claims cannot both pass the gate against the same free blocks
         reserved = 0
         for slot in range(self.serving.max_slots):
             if (self.slot_req[slot] is not None or slot in self._pending
-                    or not self.queue):
+                    or slot in self._failed_slots or not self.queue):
                 continue
             if not self._can_admit(self.queue[0], reserved):
                 break  # FCFS: the head of the queue blocks the round
@@ -821,18 +1040,14 @@ class ServingEngine:
         dev = self.device
         seen = np.stack([self._seen_row(req) for _, req in group])
         keys = [(req.seed or 0, 0) for _, req in group]
+        temp = to_device(temp, dev)
         return _sample_rows(
-            logits_k, torch.as_tensor(temp, device=dev),
-            torch.as_tensor([s.top_k for s in samps], dtype=torch.int32,
-                            device=dev),
-            torch.as_tensor([s.top_p for s in samps], dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor([s.min_p for s in samps], dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor(rep_pen, device=dev),
-            torch.as_tensor(seen, device=dev),
-            noise=_gumbel_noise(keys, logits_k.shape[-1],
-                                torch.as_tensor(temp), dev))
+            logits_k, temp,
+            to_device(np.asarray([s.top_k for s in samps], np.int32), dev),
+            to_device(np.asarray([s.top_p for s in samps], np.float32), dev),
+            to_device(np.asarray([s.min_p for s in samps], np.float32), dev),
+            to_device(rep_pen, dev), to_device(seen, dev),
+            noise=_gumbel_noise(keys, logits_k.shape[-1], temp, dev))
 
     @staticmethod
     def _first_read_many(arrs) -> List[int]:
@@ -897,6 +1112,7 @@ class ServingEngine:
 
     def _activate_with_first(self, slot: int, req: Request, logits,
                              first: int) -> None:
+        self._prefill_extras(slot, req)
         samp = req.sampling or SamplingConfig(temperature=0.0)
         self.temp[slot] = samp.temperature
         self.top_k[slot] = samp.top_k
@@ -906,8 +1122,7 @@ class ServingEngine:
         self.seeds[slot] = req.seed
         self.prompt_len[slot] = len(req.prompt)
         # seen set: the prompt's tokens plus the first token
-        self.presence[slot] = torch.as_tensor(self._seen_row(req),
-                                              device=self.device)
+        self.presence[slot] = to_device(self._seen_row(req), self.device)
         self.presence[slot, first] = True
         self.slot_lps[slot] = []
         if req.logprobs:
@@ -918,23 +1133,26 @@ class ServingEngine:
         if clock is not None and "first" not in clock:
             clock["first"] = self._clock()
         self.slot_req[slot] = req
+        self._slot_gen[slot] += 1
         self.slot_emitted[slot] = [first]
         self.lengths[slot] = len(req.prompt)
         self.last_token[slot] = first
         active = first != req.eos_id and req.max_new > 1
         self.active[slot] = active
+        self._on_admitted(slot, req, first)
         if not active:
             self._finish(slot)
 
-    def _retire(self, emitted, lps) -> None:
-        """One device-to-host copy per round: the emitted tokens (and
-        the logprobs only when some in-flight request asked for them)."""
-        emitted = emitted.cpu().numpy()
-        lps_h = (lps.cpu().numpy()
-                 if any(r is not None and r.logprobs for r in self.slot_req)
-                 else None)
+    def _retire(self, emitted, lps_h, owners=None) -> None:
+        """Credit a round's emitted tokens (host arrays; the logprobs
+        None unless a live request asked for them) to the live slots,
+        truncated at each budget and eos. With ``owners`` (the round's
+        generation snapshot) a slot re-admitted since the round was
+        launched is skipped: its rows belong to the previous tenant."""
         for slot, req in enumerate(self.slot_req):
             if req is None or not self.active[slot]:
+                continue
+            if owners is not None and owners[slot] != self._slot_gen[slot]:
                 continue
             have = self.slot_emitted[slot]
             new = emitted[slot, :req.max_new - len(have)].tolist()
@@ -948,17 +1166,18 @@ class ServingEngine:
                     or (req.eos_id is not None and have[-1] == req.eos_id)):
                 self._finish(slot)
 
-    def _finish(self, slot: int) -> None:
+    def _finish(self, slot: int, reason: Optional[str] = None) -> None:
         req = self.slot_req[slot]
         toks = self.slot_emitted[slot]
-        reason = ("stop" if req.eos_id is not None and toks
-                  and toks[-1] == req.eos_id else "length")
+        if reason is None:
+            reason = ("stop" if req.eos_id is not None and toks
+                      and toks[-1] == req.eos_id else "length")
         now = self._clock()
         clock = self._req_clock.pop(req.request_id, None)
         ttft = e2e = None
         if clock is not None:
-            ttft = clock.get("first", now) - clock["submit"]
-            e2e = now - clock["submit"]
+            ttft = round(clock.get("first", now) - clock["submit"], 6)
+            e2e = round(now - clock["submit"], 6)
             # mean inter-token latency over the post-first tokens
             itl = (e2e - ttft) / (len(toks) - 1) if len(toks) > 1 else None
             self._lat_window.append((ttft, e2e, itl))
@@ -969,7 +1188,8 @@ class ServingEngine:
                 self._lat_itl_max = max(self._lat_itl_max, itl)
         self.finished.append(Completion(
             request_id=req.request_id, prompt=list(req.prompt),
-            tokens=list(toks), finish_reason=reason, ttft_s=ttft,
+            tokens=list(toks), finish_reason=reason,
+            deadline_exceeded=reason == "deadline_exceeded", ttft_s=ttft,
             e2e_s=e2e,
             logprobs=(list(self.slot_lps[slot][:len(toks)])
                       if req.logprobs else None)))
@@ -1006,6 +1226,47 @@ class ServingEngine:
         self._release_storage(slot)
         return req
 
+    # -- chaos surface -------------------------------------------------
+
+    def inject_slot_failure(self, slot: int, quarantine: bool = True) -> bool:
+        """Simulate a slot failure: the slot's in-flight or mid-prefill
+        request is requeued at the front for exact recompute (a stream
+        is a pure function of request, seed and index, so the replay
+        equals the uninterrupted stream), its storage is released, and
+        the slot is quarantined from admission until ``restore_slot``.
+        Returns whether a request was displaced."""
+        if not 0 <= slot < self.serving.max_slots:
+            raise ValueError(f"slot {slot} out of range")
+        req = self._evict_slot(slot)
+        if quarantine:
+            self._failed_slots.add(slot)
+        self.slot_failures += 1
+        metrics.recovery_log().record(
+            "slot_failure", slot=slot,
+            request=req.request_id if req else None)
+        if req is not None:
+            self.queue.insert(0, req)
+            self.requeues += 1
+            metrics.recovery_log().record(
+                "slot_requeue", slot=slot, request=req.request_id)
+        return req is not None
+
+    def restore_slot(self, slot: int) -> None:
+        """Lift a slot's quarantine; it takes requests from the next
+        scheduling round on."""
+        self._failed_slots.discard(slot)
+
+    def _assert_serviceable(self) -> None:
+        """Queued work, nothing in flight and every slot quarantined
+        would spin run() forever: raise instead."""
+        if (self.queue and not self._pending
+                and not any(r is not None for r in self.slot_req)
+                and len(self._failed_slots) >= self.serving.max_slots):
+            raise RuntimeError(
+                f"all {self.serving.max_slots} slots are quarantined with "
+                f"{len(self.queue)} request(s) queued; call restore_slot() "
+                "or shed the queue")
+
     def report(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {
             "slots": self.serving.max_slots,
@@ -1019,6 +1280,14 @@ class ServingEngine:
             "waves": dict(sorted(self.wave_sizes.items())),
             "decode_rounds": self.decode_rounds,
         }
+        if (self.slot_failures or self.requeues or self.shed
+                or self._failed_slots):
+            out["chaos"] = {
+                "slot_failures": self.slot_failures,
+                "requeues": self.requeues,
+                "shed": self.shed,
+                "quarantined": sorted(self._failed_slots),
+            }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.report()
         if self._lat_count:
@@ -1027,15 +1296,24 @@ class ServingEngine:
             itls = sorted(i for _, _, i in self._lat_window if i is not None)
             out["latency"] = {
                 "completed": self._lat_count,
-                "ttft_p50_s": ttfts[len(ttfts) // 2],
-                "ttft_max_s": self._lat_ttft_max,
-                "e2e_p50_s": e2es[len(e2es) // 2],
-                "e2e_max_s": self._lat_e2e_max,
+                "ttft_p50_s": round(ttfts[len(ttfts) // 2], 4),
+                "ttft_max_s": round(self._lat_ttft_max, 4),
+                "e2e_p50_s": round(e2es[len(e2es) // 2], 4),
+                "e2e_max_s": round(self._lat_e2e_max, 4),
             }
             if itls:
-                out["latency"]["itl_p50_s"] = itls[len(itls) // 2]
-                out["latency"]["itl_max_s"] = self._lat_itl_max
+                out["latency"]["itl_p50_s"] = round(itls[len(itls) // 2], 4)
+                out["latency"]["itl_max_s"] = round(self._lat_itl_max, 4)
         return out
+
+    def reset_latency(self) -> None:
+        """Discard the latency aggregates (e.g. after warm-up requests
+        whose latency is build time, not serving time)."""
+        self._lat_window.clear()
+        self._lat_count = 0
+        self._lat_ttft_max = 0.0
+        self._lat_e2e_max = 0.0
+        self._lat_itl_max = 0.0
 
 
 class PagedServingEngine(ServingEngine):
@@ -1061,6 +1339,12 @@ class PagedServingEngine(ServingEngine):
             raise ValueError(
                 "PagedServingEngine needs ServingConfig.paged_blocks >= 2 "
                 "(block 0 is the garbage sink)")
+        if serving.overlap_rounds:
+            raise ValueError(
+                "overlap_rounds is dense/spec-grid only: the paged block "
+                "accounting (_ensure_blocks) host-syncs on occupancy every "
+                "round, so there is no RTT to hide and preemption between "
+                "a dispatched round and its retire is not composed")
         if serving.paged_kernel and cfg.int8_kv:
             raise ValueError(
                 "paged_kernel needs bf16 pools; int8_kv uses the gather "
@@ -1210,11 +1494,13 @@ class PagedServingEngine(ServingEngine):
         self.preemptions += 1
         return True
 
-    def _ensure_blocks(self, extend_by: int) -> None:
+    def _ensure_blocks(self, extend_by: int, occupancy) -> None:
         """Grow each active slot's block list to cover its next
-        ``extend_by`` writes, capped at the request's total need, so a
-        final round's overshoot never allocates (those writes land in
-        last-block slack or the garbage block). Under pool pressure,
+        ``extend_by`` writes past ``occupancy[slot]`` (host integers:
+        the chunk engine's lengths, the speculative engine's totals),
+        capped at the request's total need, so a final round's
+        overshoot never allocates (those writes land in last-block
+        slack or the garbage block). Under pool pressure,
         reclaim the cheapest first: prefix-cache entries (a future
         recompute), then the youngest slot (work already done); the
         capacity check guarantees a lone surviving slot always fits."""
@@ -1226,7 +1512,7 @@ class PagedServingEngine(ServingEngine):
             for s, req in enumerate(self.slot_req):
                 if req is None or not self.active[s]:
                     continue
-                cover = min(int(self.lengths[s]) + extend_by,
+                cover = min(int(occupancy[s]) + extend_by,
                             len(req.prompt) + req.max_new)
                 need = (paged.blocks_needed(cover, bsz)
                         - len(self.slot_blocks[s]))
@@ -1269,14 +1555,15 @@ class PagedServingEngine(ServingEngine):
 
     def _decode_round(self, sampling_state):
         chunk = self.serving.chunk
-        self._ensure_blocks(chunk)
+        self._ensure_blocks(chunk, self.lengths)
         if not any(r is not None for r in self.slot_req):
             # preemption emptied the grid
             n = self.serving.max_slots
-            return (torch.zeros((n, chunk), dtype=torch.long),
-                    torch.zeros((n, chunk)))
+            return (torch.zeros((n, chunk), dtype=torch.long,
+                                device=self.device),
+                    torch.zeros((n, chunk), device=self.device))
         lengths, active = self._device_vectors()
-        tables = torch.as_tensor(self._build_tables(), device=self.device)
+        tables = to_device(self._build_tables(), self.device)
         self.last_token, emitted, self.presence, lps = self._paged_chunk(
             self.params, self.pools, tables, lengths, self.last_token,
             active, sampling_state, self.presence)
@@ -1294,3 +1581,327 @@ class PagedServingEngine(ServingEngine):
             "preemptions": self.preemptions,
         }
         return out
+
+
+class _Speculative:
+    """What the two speculative engines share: the slot's token buffer
+    (``out`` / ``total``, seeded at admission), the penalty refusal and
+    the ragged retire. ``out`` rows hold prompt + emitted tokens, with
+    room past the budget for a scan's surplus windows."""
+
+    _speculative = True
+
+    def _check_spec(self) -> None:
+        if self.serving.speculative_k < 1:
+            raise ValueError(f"{type(self).__name__} needs "
+                             "ServingConfig.speculative_k >= 1")
+        if self.serving.spec_windows < 1:
+            raise ValueError("spec_windows must be >= 1")
+
+    def _init_spec_state(self, rows: int) -> None:
+        n = self.serving.max_slots
+        self._rows = rows
+        self.out = torch.zeros((n, rows), dtype=torch.long,
+                               device=self.device)
+        self.total = torch.zeros(n, dtype=torch.long, device=self.device)
+        # the totals as of the last retire, for block accounting
+        self._total_host = np.zeros(n, np.int64)
+        self.verify_steps = 0
+
+    def _check_sampling(self, samp: SamplingConfig) -> None:
+        if samp.repetition_penalty != 1.0:
+            raise ValueError(
+                "repetition_penalty is not supported by the speculative "
+                "engines yet (the verify window's acceptance math has no "
+                "in-window presence state); use the chunked engines")
+
+    def _on_admitted(self, slot: int, request: Request, first: int) -> None:
+        t_p = len(request.prompt)
+        row = np.zeros(self._rows, np.int64)
+        row[:t_p] = request.prompt
+        row[t_p] = first
+        self.out[slot] = to_device(row, self.device)
+        self.total[slot] = t_p + 1
+        self._total_host[slot] = t_p + 1
+
+    def _round_min_tokens(self) -> int:
+        # every verify window delivers at least its bonus token
+        return self.serving.spec_windows
+
+    def _round_retire(self, handles) -> None:
+        staged, owners = handles
+        emits, ms, total, lps = self._fetch(staged)
+        self._total_host = total
+        self._spec_retire(emits, ms, lps, owners)
+        self._expire_deadlines()
+
+    def _spec_retire(self, emits, ms, lps_h, owners=None) -> None:
+        """Ragged retirement of a scanned verify dispatch (host arrays
+        emits (W, b, k+1), ms (W, b), lps (W, b, k+1) or None): each
+        live slot takes its accepted drafts plus bonus per window,
+        truncated at its budget and eos; a slot that finished in window
+        w drops its later windows' surplus. ``verify_steps`` counts the
+        windows that delivered a token to some slot."""
+        used = 0
+        for slot, req in enumerate(self.slot_req):
+            if req is None or not self.active[slot]:
+                continue
+            if owners is not None and owners[slot] != self._slot_gen[slot]:
+                continue
+            have = self.slot_emitted[slot]
+            for w in range(emits.shape[0]):
+                budget = req.max_new - len(have)
+                if budget <= 0:
+                    break
+                new = emits[w, slot, :int(ms[w, slot]) + 1][:budget].tolist()
+                if req.eos_id is not None and req.eos_id in new:
+                    new = new[:new.index(req.eos_id) + 1]
+                have.extend(new)
+                if req.logprobs:
+                    self.slot_lps[slot].extend(
+                        float(v) for v in lps_h[w, slot, :len(new)])
+                used = max(used, w + 1)
+                if req.eos_id is not None and have[-1] == req.eos_id:
+                    break
+            if (len(have) >= req.max_new
+                    or (req.eos_id is not None and have[-1] == req.eos_id)):
+                self._finish(slot)
+        self.verify_steps += used
+
+
+class SpeculativeServingEngine(_Speculative, ServingEngine):
+    """Continuous batching with speculative decoding per slot (the vLLM
+    speculative + continuous-batching composition) over a dense grid.
+
+    Each round scans ``spec_windows`` verify windows over the whole
+    grid (``speculative._grid_verify_scan``): every active slot drafts
+    ``speculative_k`` tokens from its own buffer, each window is
+    verified in one forward, and each slot keeps its longest
+    model-agreeing prefix plus a bonus token, 1 to k+1 tokens a window.
+    Admission and retirement run between rounds. Greedy requests are
+    argmax-verified, so their streams equal the dense grid's and the
+    solo decoder's; sampled requests use rejection sampling against the
+    per-request filtered target distribution, a pure function of
+    (request, seed).
+
+    ``draft=(draft_params, draft_cfg)`` (the fourth argument, as in the
+    reference) swaps prompt lookup for a draft model with the target's
+    vocab: k+1 greedy steps a window over its own per-slot cache.
+    Cache rows are ``max_len + spec_windows * (k + 1)``: a slot that
+    finishes mid-scan keeps writing until the scan ends. Prefix caching
+    and chunked prefill compose unchanged.
+    """
+
+    def __init__(self, params: Params, cfg: ModelConfig,
+                 serving: ServingConfig = ServingConfig(), draft=None, *,
+                 device="cuda", clock=None, mesh=None):
+        self._draft = draft
+        super().__init__(params, cfg, serving, device=device, clock=clock,
+                         mesh=mesh)
+
+    def _init_storage(self) -> None:
+        cfg, serving = self.cfg, self.serving
+        self._check_spec()
+        if serving.paged_blocks or serving.paged_kernel:
+            raise ValueError(
+                "SpeculativeServingEngine ignores paged_blocks/paged_kernel;"
+                " construct PagedSpeculativeServingEngine")
+        k, W = serving.speculative_k, serving.spec_windows
+        self._init_spec_state(serving.max_len + W * (k + 1))
+        n = serving.max_slots
+        self.cache = init_cache(cfg, n, self._rows, device=self.device)
+        self.draft_prefills = 0
+        if self._draft is not None:
+            dparams, dcfg = self._draft
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}")
+            _check_slice(dcfg, serving, None)
+            if dparams["embed"].device.type != self.device.type:
+                raise ValueError(
+                    f"draft params live on {dparams['embed'].device}; the "
+                    f"engine runs on {self.device}")
+            self.draft_cache = init_cache(dcfg, n, self._rows,
+                                          device=self.device)
+        self.prefix_cache = (PrefixCache(serving.prefix_cache_entries)
+                             if serving.prefix_cache_entries > 0 else None)
+
+    def _prefill_extras(self, slot: int, req: Request) -> None:
+        if self._draft is not None:
+            # the draft model's own prompt k/v (a small model: one
+            # prefill a slot, on every admission path)
+            dparams, dcfg = self._draft
+            window = torch.as_tensor(_padded_window(req.prompt),
+                                     device=self.device)
+            _prefill_into_slot(dparams, self.draft_cache, window,
+                               len(req.prompt), slot, cfg=dcfg)
+            self.draft_prefills += 1
+
+    def _round_dispatch(self):
+        """One scanned verify dispatch for the grid; returns (staged
+        readback, generation snapshot) or None when no slot is live."""
+        from kind_tpu_sim_torch.models import speculative as spec
+
+        if not any(r is not None for r in self.slot_req):
+            return None
+        k, W = self.serving.speculative_k, self.serving.spec_windows
+        active = to_device(self.active, self.device)
+        state = self._sampling_state()
+        if self._draft is None:
+            self.out, self.total, emits, ms, lps = spec._grid_verify_scan(
+                self.params, self.cache, self.out, self.total, active,
+                state, cfg=self.cfg, k=k, windows=W)
+        else:
+            dparams, dcfg = self._draft
+            (self.out, self.total, emits, ms,
+             lps) = spec._grid_draft_verify_scan(
+                self.params, dparams, self.cache, self.draft_cache,
+                self.out, self.total, active, state, cfg=self.cfg,
+                dcfg=dcfg, k=k, windows=W)
+        return (self._stage(emits, ms, self.total, lps),
+                list(self._slot_gen))
+
+    def report(self) -> Dict[str, Any]:
+        out = super().report()
+        out["speculative"] = {
+            "draft_k": self.serving.speculative_k,
+            "verify_steps": self.verify_steps,
+            "proposer": ("draft-model" if self._draft is not None
+                         else "prompt-lookup"),
+        }
+        if self._draft is not None:
+            # draft-model prompt prefills (one per admission), each a
+            # flash launch per draft layer when the draft sets flash
+            out["draft_prefills"] = self.draft_prefills
+        return out
+
+
+class PagedSpeculativeServingEngine(_Speculative, PagedServingEngine):
+    """Speculative decoding over paged storage: continuous batching,
+    paged KV, verify windows and greedy-exact or rejection-sampled
+    acceptance in one engine. Each window gathers the block view once
+    (``paged.paged_verify_step``) and scatters its k/v into each slot's
+    blocks; block growth covers a whole round's ``spec_windows *
+    (k + 1)`` positions past each slot's total up front. Growth,
+    recompute preemption, pressure eviction and block-granular prefix
+    sharing are ``PagedServingEngine``'s. The verify window reads the
+    gather view, so ``paged_kernel`` is refused, as the reference
+    refuses it.
+    """
+
+    def _init_storage(self) -> None:
+        serving = self.serving
+        self._check_spec()
+        if serving.paged_kernel:
+            raise ValueError(
+                "paged_kernel applies to the chunked decode path; the "
+                "verify window uses the gather tier")
+        super()._init_storage()
+        k, W = serving.speculative_k, serving.spec_windows
+        cap = (serving.paged_blocks - 1) * serving.block_size
+        # every scanned window's write (to total + W*(k+1)) and the emit
+        # write stay inside the row
+        self._init_spec_state(cap + W * (k + 1))
+
+    def _round_dispatch(self):
+        """Grow the blocks for a whole round, then one paged verify
+        scan; returns (staged readback, generation snapshot) or None."""
+        from kind_tpu_sim_torch.models import paged
+
+        if not any(r is not None for r in self.slot_req):
+            return None
+        k, W = self.serving.speculative_k, self.serving.spec_windows
+        self._ensure_blocks(W * (k + 1), self._total_host)
+        if not any(r is not None for r in self.slot_req):
+            return None  # preemption emptied the grid
+        tables = to_device(self._build_tables(), self.device)
+        active = to_device(self.active, self.device)
+        self.out, self.total, emits, ms, lps = paged.paged_verify_scan(
+            self.params, self.pools, tables, self.out, self.total, active,
+            self._sampling_state(), cfg=self.cfg, k=k, windows=W)
+        return (self._stage(emits, ms, self.total, lps),
+                list(self._slot_gen))
+
+    def report(self) -> Dict[str, Any]:
+        out = super().report()
+        out["speculative"] = {
+            "draft_k": self.serving.speculative_k,
+            "verify_steps": self.verify_steps,
+        }
+        return out
+
+
+def _report_setup(cfg, device):
+    from kind_tpu_sim_torch.models import transformer as tf
+
+    dev = resolve(device)
+    cfg = cfg or tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,
+                                n_layers=2, d_ff=64, max_seq=64)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    return cfg, params, dev
+
+
+def engines_report(cfg: ModelConfig = None, device="cuda") -> Dict[str, Any]:
+    """One smoke over the whole serving matrix: the same greedy request
+    stream through the dense grid, chunked prefill, paged, speculative,
+    paged speculative and paged speculative with chunked prefill must
+    emit identical streams. Random weights from a seeded
+    ``torch.Generator``."""
+    cfg, params, dev = _report_setup(cfg, device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=4 + 3 * i).tolist()
+               for i in range(3)]
+
+    def run(engine, **knobs):
+        eng = engine(params, cfg, ServingConfig(max_slots=2, max_len=48,
+                                                **knobs), device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"e{i}", p, max_new=6))
+        return {c.request_id: tuple(c.tokens) for c in eng.run()}
+
+    paged = dict(paged_blocks=12, block_size=8)
+    outs = {
+        "grid": run(ServingEngine, chunk=8),
+        "grid_chunked_prefill": run(ServingEngine, chunk=8, prefill_chunk=8),
+        "paged": run(PagedServingEngine, chunk=8, **paged),
+        "spec": run(SpeculativeServingEngine, speculative_k=3),
+        "paged_spec": run(PagedSpeculativeServingEngine, speculative_k=3,
+                          **paged),
+        "paged_spec_chunked": run(PagedSpeculativeServingEngine,
+                                  speculative_k=3, prefill_chunk=8,
+                                  **paged),
+    }
+    agree = all(o == outs["grid"] for o in outs.values())
+    return {"engines": sorted(outs), "requests": len(prompts),
+            "all_streams_identical": bool(agree), "ok": bool(agree)}
+
+
+def serving_report(cfg: ModelConfig = None, max_slots: int = 2,
+                   device="cuda") -> Dict[str, Any]:
+    """Smoke and contract check of the continuous-batching engine: a
+    mixed greedy and sampled workload with more requests than slots
+    drains completely, and the greedy request equals its solo
+    decode."""
+    from kind_tpu_sim_torch.models import decode
+
+    cfg, params, dev = _report_setup(cfg, device)
+    sc = ServingConfig(max_slots=max_slots, max_len=48, chunk=8)
+    eng = ServingEngine(params, cfg, sc, device=dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=4 + i).tolist()
+               for i in range(2 * max_slots)]
+    for i, p in enumerate(prompts):
+        samp = SamplingConfig(temperature=1.2) if i % 2 else None
+        eng.submit(Request(f"r{i}", p, max_new=6, sampling=samp, seed=i))
+    by_id = {c.request_id: c for c in eng.run()}
+    solo = decode.greedy_generate(params, cfg, [prompts[0]], 6,
+                                  chunk=sc.chunk, device=dev)
+    greedy_exact = by_id["r0"].tokens == solo[0, len(prompts[0]):].tolist()
+    all_done = len(by_id) == len(prompts) and all(
+        len(c.tokens) == 6 for c in by_id.values())
+    ok = bool(greedy_exact and all_done)
+    return {"requests": len(prompts), "slots": max_slots,
+            "greedy_exact": bool(greedy_exact), "all_finished": bool(all_done),
+            "ok": ok}

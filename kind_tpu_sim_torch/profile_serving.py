@@ -1,6 +1,7 @@
 """Where the time of flagship paged serving goes on the card.
 
-    python3 -m kind_tpu_sim_torch.profile_serving [--gather] [--out FILE]
+    python3 -m kind_tpu_sim_torch.profile_serving [--gather | --speculative]
+        [--out FILE]
 
 Serves the flagship workload (``bench_config_large`` with ``flash=True``,
 random bf16 weights from seed 0; 16 greedy requests with 192/224/256-
@@ -23,6 +24,16 @@ tokens each, no admission). Prints one JSON object:
 * ``kernels`` -- device time by kernel name, largest first, and
   ``host_syncs`` -- the round's stream/device synchronisations and
   blocking host-to-device copies, by CUDA runtime call.
+
+With ``--speculative`` the stream goes through
+``SpeculativeServingEngine`` instead (k 4, 4 verify windows a round, the
+bench's ``serving_speculative``), and the traced round is one scanned
+verify dispatch and its readback; ``phases`` splits its device and host
+time between the draft (``propose_ngram``), the window blocks
+(``speculative._window_block``, all layers), the readout, the cache
+write, acceptance (``_accept_and_emit``) and the readback, each a
+``torch.profiler.record_function`` range wrapped around the function
+for the trace only.
 
 Run it on the card (it raises without one).
 
@@ -202,20 +213,90 @@ def _profile_round(eng) -> dict:
             "host_syncs": syncs}
 
 
-def run(paged_kernel: bool = True) -> dict:
+SPEC_PHASES = {"draft": "propose_ngram", "window blocks": "_window_block",
+               "readout": "_readout", "cache write": "_write_rows",
+               "accept": "_accept_and_emit"}
+
+
+def _profile_spec_round(eng) -> dict:
+    """Trace one step_round of a speculative engine (a verify dispatch
+    of ``spec_windows`` windows and its readback, no admission), with
+    each phase of ``SPEC_PHASES`` (and the readback) in its own
+    ``record_function`` range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kind_tpu_sim_torch.models import speculative as spec
+
+    def ranged(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    originals = {name: getattr(spec, name) for name in SPEC_PHASES.values()}
+    fetch = eng._fetch
+    torch.cuda.synchronize()
+    try:
+        for label, name in SPEC_PHASES.items():
+            setattr(spec, name, ranged(label, originals[name]))
+        eng._fetch = ranged("readback", fetch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(spec, name, fn)
+        eng._fetch = fetch
+    phases = {label: {"device_ms": 0.0, "host_ms": 0.0, "calls": 0}
+              for label in [*SPEC_PHASES, "readback"]}
+    kernels, syncs, launches = {}, {}, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if ev.key in phases:
+            continue  # a range's span on the card's timeline, not a kernel
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            launches += ev.count
+        elif ev.key.startswith(SYNC_CALLS):
+            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+    for ev in prof.events():
+        if ev.name in phases and ev.device_type == torch.autograd.DeviceType.CPU:
+            phases[ev.name]["device_ms"] += ev.device_time_total / 1e3
+            phases[ev.name]["host_ms"] += ev.cpu_time_total / 1e3
+            phases[ev.name]["calls"] += 1
+    busy = sum(kernels.values())
+    windows = eng.serving.spec_windows
+    return {"round_wall_ms": wall * 1e3, "window_wall_ms": wall * 1e3 / windows,
+            "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
+            "device_ops_per_window": launches / windows, "phases": phases,
+            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+            "host_syncs": syncs}
+
+
+def run(paged_kernel: bool = True, speculative: bool = False) -> dict:
     cfg = flagship_config()
     params = flagship_params(cfg)
     reqs = flagship_requests(cfg.vocab_size)
 
+    def new_engine():
+        if speculative:
+            return serving.SpeculativeServingEngine(
+                params, cfg, serving.ServingConfig(
+                    max_slots=SLOTS, max_len=1024, speculative_k=4,
+                    spec_windows=4))
+        return serving.PagedServingEngine(params, cfg,
+                                          flagship_serving(paged_kernel))
+
     def engine():
-        eng = serving.PagedServingEngine(params, cfg,
-                                         flagship_serving(paged_kernel))
+        eng = new_engine()
         for r in reqs:
             eng.submit(dataclasses.replace(r))
         return eng
 
-    warm = serving.PagedServingEngine(params, cfg,
-                                      flagship_serving(paged_kernel))
+    warm = new_engine()
     warm.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=65))
     warm.run()
 
@@ -229,8 +310,13 @@ def run(paged_kernel: bool = True) -> dict:
 
     traced = engine()
     traced.step_round()  # admits the first wave, decodes its first round
-    prof = _profile_round(traced)
-    return {"tier": "kernel" if paged_kernel else "gather",
+    prof = (_profile_spec_round if speculative else _profile_round)(traced)
+    tier = ("speculative" if speculative
+            else "kernel" if paged_kernel else "gather")
+    if speculative:
+        prof.update(verify_steps=eng.verify_steps,
+                    tokens_per_window=tokens / eng.verify_steps)
+    return {"tier": tier,
             "device": torch.cuda.get_device_name(0),
             "requests": len(done), "tokens": tokens, "wall_s": wall,
             "tok_per_s": tokens / wall,
@@ -241,13 +327,17 @@ def run(paged_kernel: bool = True) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--gather", action="store_true",
-                    help="the gather tier instead of the paged kernel")
+    tier = ap.add_mutually_exclusive_group()
+    tier.add_argument("--gather", action="store_true",
+                      help="the gather tier instead of the paged kernel")
+    tier.add_argument("--speculative", action="store_true",
+                      help="SpeculativeServingEngine, one verify round "
+                      "traced")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = run(paged_kernel=not args.gather)
+    result = run(paged_kernel=not args.gather, speculative=args.speculative)
     text = json.dumps(result)
     print(text)
     if args.out:

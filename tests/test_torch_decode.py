@@ -4,7 +4,7 @@
 port's full forward and the JAX package's ``decode_step``;
 ``sample_generate`` in its greedy modes against JAX's greedy
 continuation; sampled streams held to reproducibility and validity
-(the port's noise comes from ``torch.Generator``, not ``jax.random``),
+(the port's noise comes from a counter-based hash, not ``jax.random``),
 and the sampling filters to JAX's on the same logits;
 ``generate_report``. Same weights on both sides (JAX init, crossed
 through numpy), fp32 tiny GQA config.

@@ -27,6 +27,7 @@ from kind_tpu_sim_torch import device as pdevice
 from kind_tpu_sim_torch.models import checkpoint as pckpt
 from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import serving as pserving
+from kind_tpu_sim_torch.models import speculative as pspec
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.ops import _build
 from kind_tpu_sim_torch.ops import flash_attention as fa
@@ -108,6 +109,21 @@ def test_entry_points_without_a_card_raise(no_card, tmp_path):
         ptf.init_params(CFG)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pdecode.greedy_generate(params, CFG, [[1, 2, 3]], 2)
+    spec = pserving.ServingConfig(speculative_k=2, paged_blocks=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserving.PagedSpeculativeServingEngine(params, CFG, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserving.SpeculativeServingEngine(
+            params, CFG, pserving.ServingConfig(speculative_k=2),
+            (params, CFG))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pspec.speculative_generate(params, CFG, [[1, 2, 3]], 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pspec.draft_model_generate(params, CFG, params, CFG, [[1, 2, 3]], 2)
+    for report in (pspec.speculative_report, pserving.engines_report,
+                   pserving.serving_report):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            report()
     tree = {"embed": params["embed"].numpy(),
             "final_norm": params["final_norm"].numpy(),
             "blocks": [{k: v.numpy() for k, v in b.items()}

@@ -282,19 +282,46 @@ def test_serving_from_params_that_require_grad_builds_no_graph(
     assert not snapshot["blocks"][0]["attn_norm"].requires_grad
 
 
+def _overlap_refused(pparams):
+    sc = dict(max_slots=2, max_len=48, chunk=8, overlap_rounds=True)
+    pserving.ServingEngine(pparams, CFG, pserving.ServingConfig(**sc),
+                           device="cpu")
+    with pytest.raises(ValueError, match="overlap_rounds is dense/spec-grid"):
+        pserving.PagedServingEngine(
+            pparams, CFG, pserving.ServingConfig(paged_blocks=12,
+                                                 block_size=8, **sc),
+            device="cpu")
+
+
+def _speculative_k_refused(pparams):
+    sc = pserving.ServingConfig(max_slots=2, max_len=48, speculative_k=2)
+    pserving.SpeculativeServingEngine(pparams, CFG, sc, device="cpu")
+    with pytest.raises(ValueError, match="construct SpeculativeServingEngine"):
+        pserving.ServingEngine(pparams, CFG, sc, device="cpu")
+
+
+def _max_queue_refused(pparams):
+    eng = pserving.ServingEngine(
+        pparams, CFG, pserving.ServingConfig(max_slots=2, max_len=48,
+                                             max_queue=1), device="cpu")
+    eng.submit(pserving.Request("a", [1, 2], 2))
+    with pytest.raises(pserving.EngineSaturated, match="max_queue=1"):
+        eng.submit(pserving.Request("b", [1, 2], 2))
+
+
+# the knobs that sat outside the slice until the engine surface was
+# ported: each is served now and raises only where it still must (on
+# an engine that does not take it, or past its limit)
 UNPORTED_KNOBS = {
-    "overlap_rounds": dict(overlap_rounds=True),
-    "speculative_k": dict(speculative_k=2),
-    "max_queue": dict(max_queue=4),
+    "overlap_rounds": _overlap_refused,
+    "speculative_k": _speculative_k_refused,
+    "max_queue": _max_queue_refused,
 }
 
 
 @pytest.mark.parametrize("knob", sorted(UNPORTED_KNOBS))
 def test_knobs_outside_the_slice_raise(params, knob):
-    sc = pserving.ServingConfig(max_slots=2, max_len=48,
-                                **UNPORTED_KNOBS[knob])
-    with pytest.raises(ValueError, match="not ported"):
-        pserving.ServingEngine(params[1], CFG, sc, device="cpu")
+    UNPORTED_KNOBS[knob](params[1])
 
 
 ADMISSION_KNOBS = {
@@ -325,7 +352,7 @@ def test_admission_knobs_are_served(params, stream_prompts, knob):
         assert {r: c.tokens for r, c in got.items()} == want, engine
 
 
-@pytest.mark.parametrize("field", ["int8_kv", "int8_native"])
+@pytest.mark.parametrize("field", ["int8_kv", "int8_native", "n_experts"])
 def test_config_features_outside_the_slice_raise(params, field):
     cfg = dataclasses.replace(CFG, **{field: True})
     with pytest.raises(ValueError, match="not ported"):
@@ -360,32 +387,49 @@ def test_positional_serving_config_lands_like_the_reference():
     assert port.paged_kernel is ref.paged_kernel is False
 
 
-def test_unported_spec_windows_and_cache_prefix_raise(params):
-    """``spec_windows`` still raises, naming itself; a ``cache_prefix``
-    request is served now, and one that also sets an unported field
-    raises naming that field, not ``cache_prefix``."""
-    with pytest.raises(ValueError, match="spec_windows"):
-        pserving.ServingEngine(params[1], CFG,
-                               pserving.ServingConfig(spec_windows=2),
-                               device="cpu")
-    eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
+def test_unported_spec_windows_and_cache_prefix_raise(params, stream_prompts):
+    """``spec_windows`` and ``deadline_s`` are served now: one verify
+    window a round gives the streams four do (and the dense grid's),
+    and a ``cache_prefix`` request with a deadline it meets completes
+    in full."""
+    _, pparams = params
+    want = {r: c.tokens for r, c in drive(
+        pserving, pserving.ServingEngine(
+            pparams, CFG, pserving.ServingConfig(max_slots=2, max_len=48,
+                                                 chunk=8), device="cpu"),
+        stream_prompts, MAX_NEW).items()}
+    for windows in (1, 4):
+        sc = pserving.ServingConfig(max_slots=2, max_len=48,
+                                    speculative_k=2, spec_windows=windows)
+        eng = pserving.SpeculativeServingEngine(pparams, CFG, sc,
+                                                device="cpu")
+        got = drive(pserving, eng, stream_prompts, MAX_NEW)
+        assert {r: c.tokens for r, c in got.items()} == want, windows
+    eng = pserving.ServingEngine(pparams, CFG, pserving.ServingConfig(),
                                  device="cpu")
-    with pytest.raises(ValueError, match="deadline_s"):
-        eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True,
-                                    deadline_s=1.0))
-    eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True))
+    eng.submit(pserving.Request("c", [1, 2], 4, cache_prefix=True,
+                                deadline_s=3600.0))
     (comp,) = eng.run()
-    assert len(comp.tokens) == 4
+    assert len(comp.tokens) == 4 and comp.finish_reason == "length"
+    assert not comp.deadline_exceeded
 
 
 def test_mesh_and_deadline_raise(params):
+    """A mesh still raises (a later slice); a deadline is served: a
+    request whose budget is spent before admission completes unserved,
+    with no tokens."""
     with pytest.raises(ValueError, match="a mesh"):
         pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
                                device="cpu", mesh=object())
+    now = [0.0]
     eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
-                                 device="cpu")
-    with pytest.raises(ValueError, match="deadline"):
-        eng.submit(pserving.Request("d", [1, 2], 4, deadline_s=1.0))
+                                 device="cpu", clock=lambda: now[0])
+    eng.submit(pserving.Request("d", [1, 2], 4, deadline_s=1.0))
+    now[0] = 1.5
+    (comp,) = eng.run()
+    assert comp.finish_reason == "deadline_exceeded"
+    assert comp.deadline_exceeded and comp.tokens == []
+    assert comp.e2e_s == 1.5 and comp.ttft_s is None
 
 
 def test_capacity_and_paged_knobs_are_checked(params):
