@@ -26,14 +26,24 @@ it fails (nothing is caught and ignored):
    stream's table width of 64 with two slots sharing their first 16
    blocks, and the flash backward's dq and dk/dv kernels at the
    training shape, fed the forward kernel's out and lse as training
-   feeds them (the forward checked and timed there too);
+   feeds them (the forward checked and timed there too); then the
+   exact int8 product (``csrc/int8_matmul.cu``) at every W8A8 shape of
+   the flagship (decode's weights, the readout against the embedding
+   read in place, the int8 cache's scores and values read in place,
+   prefill's w_up), a ragged K and the largest |sum|, bitwise equal
+   to its plain version, timed beside it, ``torch._int_mm`` and the
+   dequant product;
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
    emit the streams the CPU plain path emits: under pool pressure, with
    paged prefix hits, with dense chunked prefill, as a wave of 5,
    through both speculative engines (prompt lookup, a one-layer draft
    model, paged under pool pressure and with chunked prefill) and the
    overlapped dense grid; then ``engines_report`` and
-   ``serving_report`` on the card;
+   ``serving_report`` on the card; then a tiny int8 snapshot (W8A8,
+   int8 KV) through the dense grid and the paged gather tier, and a
+   tiny 4-expert MoE through the dense grid, the paged kernel tier and
+   the speculative grid and as a wave of 5 whose first tokens equal
+   each prompt admitted alone;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
    new tokens each) through ``PagedServingEngine(paged_kernel=True)``
    at full width, with the kernels' launch counters zeroed just before
@@ -66,9 +76,19 @@ it fails (nothing is caught and ignored):
    (the replay equal to phase 4, no block leaked, the recovery log's
    counts); a deadline (mid-stream and queued) and a ``max_queue``
    shed under an injected clock;
+   4g. int8 -- solo decode as the reference bench runs it (batch 8,
+   1024-token prompts, 512 new tokens) on bf16, W8A8 + int8 KV and
+   dequant + int8 KV (first-step logits correlated > 0.99 with bf16's,
+   every int8 launch counted), ``serving_saturated_int8`` beside the
+   bf16 ``serving_saturated``, phase 4's stream on int8 pools (gather
+   tier) and the kernel tier's refusal of them;
+   4h. MoE -- the flagship with 4 experts: phase 4's stream through the
+   paged kernel tier, the dense grid and the speculative grid, each
+   first token held to its prompt admitted alone;
 5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
    the card; losses and final parameters must match the same steps on
-   the CPU plain path;
+   the CPU plain path; then a tiny 4-expert MoE the same way (losses
+   with the auxiliary term, the first step's gradients);
 6. train  -- the flagship training workload of
    ``kind_tpu_sim_torch.profile_train`` at full width and depth: one
    warm-up step, then 5 timed steps with the launch counters zeroed
@@ -76,6 +96,10 @@ it fails (nothing is caught and ignored):
    n_layers x steps times; then one flagship step with ``remat=True``
    after a warm-up, its peak device memory beside the plain step's, the
    flash forward launched twice per layer (forward and recompute);
+   6b. MoE training -- the flagship with 4 experts, one warm-up and 3
+   timed steps: finite losses, the auxiliary term at least 0.99 x its
+   weight, the flash kernels n_layers x steps each, step wall and peak
+   memory beside the dense step's;
 7. toolchain -- the kernel-toolchain gate ``toolchain_smoke`` on the
    card (the matmul, rms_norm and softmax kernels, each launched once),
    then each of the three at flagship width against its plain version,
@@ -124,7 +148,9 @@ the host enqueues (``device_ms*``), and as host time per call
 (``host_us*``). Its row's ``ms`` and ``host_us``
 are the user's wrapper's, as for every other kernel.
 
-Standard output ends with a ``{"kernels": [...]}`` line, the card's
+Each phase's wall time is printed as it ends and collected in a
+``{"phase_wall_s": ...}`` line. Standard output ends with a
+``{"kernels": [...]}`` line, the card's
 name and power limit as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}``. TF32 is off for every fp32 product.
 """
@@ -150,7 +176,8 @@ HERE = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 FLASH_TOL = 2e-2        # bf16 output rounding + P rounded to bf16 for PV
 LSE_TOL = 1e-3          # fp32 running max and denominator; sum order only
@@ -1045,6 +1072,123 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 
 
 # ---------------------------------------------------------------------
+# phase 2 (int8): the exact int8 product against its plain version
+
+
+INT8_HEADLINE = "w_up"   # the kernels line's row: decode's largest weight
+
+
+def int8_cases(gen) -> dict:
+    """The W8A8 products of the flagship (d_model 2048, d_ff 8192, 16 query
+    heads over 4 KV heads of 128, vocab 32768): {name: (a, b)}. Decode's
+    weight products at batch 8 (b (K, N), N contiguous); the readout
+    against an embedding's int8 rows read in place (``embed.q.t()``, K
+    contiguous); the cache scores and values at batch 8 over 1536
+    positions, read in place from a (b, s, kv, hd) cache; prefill's w_up
+    over a wave of 8 x 1024 tokens; a ragged K (1027, not a multiple of
+    4) with ragged M and N; rows of -127 against columns of 127, the
+    largest |sum| (127^2 x 8192)."""
+    def r8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+
+    embed_q = r8(32768, 2048)
+    k_cache, v_cache = r8(8, 1536, 4, 128), r8(8, 1536, 4, 128)
+    return {
+        "wqkv": (r8(8, 2048), r8(2048, 3072)),
+        "w_up": (r8(8, 2048), r8(2048, 8192)),
+        "w_down": (r8(8, 8192), r8(8192, 2048)),
+        "readout": (r8(8, 2048), embed_q.t()),
+        "cache_scores": (r8(8, 4, 4, 128), k_cache.permute(0, 2, 3, 1)),
+        "cache_values": (r8(8, 4, 4, 1536), v_cache.permute(0, 2, 1, 3)),
+        "prefill_w_up": (r8(8192, 2048), r8(2048, 8192)),
+        "ragged": (r8(37, 1027), r8(1027, 301)),
+        "extreme": (torch.full((8, 8192), -127, dtype=torch.int8,
+                               device="cuda"),
+                    torch.full((8192, 2048), 127, dtype=torch.int8,
+                               device="cuda")),
+    }
+
+
+def _int_mm_ms(a, b, want):
+    """``torch._int_mm`` (2-D only; it takes M > 16 and K, N multiples of
+    8) on the same operands, M padded to 32 where it is not over 16:
+    its time, after checking its product. None where it cannot take the
+    shape."""
+    if a.dim() != 2 or a.shape[1] % 8 or b.shape[1] % 8:
+        return None
+    ap = a if a.shape[0] > 16 else torch.nn.functional.pad(
+        a, (0, 0, 0, 32 - a.shape[0]))
+    check(torch.equal(torch._int_mm(ap, b)[:a.shape[0]], want),
+          "torch._int_mm disagrees with the exact product")
+    return time_ms(lambda: torch._int_mm(ap, b))
+
+
+def int8_phase(im, quant) -> dict:
+    """The int8 kernel at every shape of ``int8_cases`` against its plain
+    version (int64 products, summed, cast): bitwise equal
+    (``torch.equal``), both exact int32. Timed beside the plain version,
+    ``torch._int_mm`` and the port's dequant product of the same weight
+    (``quant.linear`` / ``quant.readout`` with ``native=False``: the
+    int8 weight cast at the product, fp32 accumulation), and as device
+    time alone (``device_ms``, the share of the bound's denominator).
+    Returns the kernels line's row (the ``INT8_HEADLINE`` case), every
+    case under ``cases``."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases, worst = {}, 0
+    for name, (a, b) in int8_cases(gen).items():
+        got = im.int8_matmul(a, b)
+        want = im.int8_matmul_ref(a, b)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        worst = max(worst, int((got.long() - want.long()).abs().max()))
+        check(equal and got.dtype == torch.int32,
+              f"int8_matmul {name} {tuple(a.shape)} x {tuple(b.shape)}: "
+              f"differs from its plain version by up to {worst}")
+        if name == "extreme":
+            check(bool((got == -127 * 127 * a.shape[1]).all()),
+                  "int8_matmul extreme: not -127^2 K everywhere")
+        batch = a.numel() // (a.shape[-2] * a.shape[-1])
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        bnd = bound(a.numel() + b.numel() + 4 * batch * m * n,
+                    2 * batch * m * n * k, torch.int8)
+        row = {"a": list(a.shape), "b": list(b.shape),
+               "b_strides": list(b.stride()),
+               "k_splits": list(im.k_splits(batch, m, n, k)),
+               "ms": time_ms(lambda: im.int8_matmul(a, b)),
+               "device_ms": time_ms(lambda: im.int8_matmul(a, b),
+                                    cover_enqueue=True),
+               "plain_ms": (time_ms(lambda: im.int8_matmul_ref(a, b), reps=3,
+                                    warmup=1)
+                            if name != "prefill_w_up" else None),
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "library_ms": _int_mm_ms(a, b, want)}
+        if name in ("wqkv", "w_up", "w_down", "readout"):
+            x = torch.randn(a.shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            if name == "readout":
+                emb = quant.QuantArray(b.t(), torch.ones(
+                    b.shape[1], 1, device="cuda"))
+                row["dequant_ms"] = time_ms(
+                    lambda: quant.readout(x, emb, native=False))
+            else:
+                w = quant.QuantArray(b, torch.ones(1, n, device="cuda"))
+                row["dequant_ms"] = time_ms(
+                    lambda: quant.linear(x, w, native=False))
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        log(f"int8_matmul {name}: {row}")
+        cases[name] = row
+    head = cases[INT8_HEADLINE]
+    return {"name": "int8_matmul", "route": "cuda", "source": im.SOURCE,
+            "replaces": im.REPLACES, "max_abs_err": float(worst),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "shape": INT8_HEADLINE,
+            "cases": cases}
+
+
+# ---------------------------------------------------------------------
 # phase 3: a tiny model on the card against the CPU plain path
 
 
@@ -1109,11 +1253,16 @@ def small_streams(serving, rng, vocab: int) -> dict:
     }
 
 
-def _to_cpu(params):
-    return {"embed": params["embed"].cpu(),
-            "final_norm": params["final_norm"].cpu(),
-            "blocks": [{k: v.cpu() for k, v in b.items()}
-                       for b in params["blocks"]]}
+def _tree_to(tree, fn):
+    """``fn`` applied to every tensor of a parameter tree (dicts, lists,
+    int8 QuantArrays)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, fn) for v in tree]
+    if isinstance(tree, tuple):   # a QuantArray
+        return type(tree)(*(fn(v) for v in tree))
+    return fn(tree)
 
 
 def small_phase(tf, serving, fa, pa) -> None:
@@ -1135,13 +1284,13 @@ def small_phase(tf, serving, fa, pa) -> None:
                          dtype="float32", flash=True)
     params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
                             "cuda")
-    cpu_params = _to_cpu(params)
+    cpu_params = _tree_to(params, lambda t: t.cpu())
     dcfg = tf.ModelConfig(vocab_size=cfg.vocab_size, d_model=64, n_heads=2,
                           n_layers=1, d_ff=128, max_seq=128, dtype="float32",
                           flash=True)
     dparams = tf.init_params(
         dcfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
-    drafts = {"cuda": (dparams, dcfg), "cpu": (_to_cpu(dparams), dcfg)}
+    drafts = {"cuda": (dparams, dcfg), "cpu": (_tree_to(dparams, lambda t: t.cpu()), dcfg)}
     rng = np.random.RandomState(3)
     pressure = [{f"s{i}": (rng.randint(0, cfg.vocab_size, size=n).tolist(),
                            {})
@@ -1249,6 +1398,117 @@ def small_phase(tf, serving, fa, pa) -> None:
         rep = report(device="cuda")
         log(f"small model {report.__name__} on the card: {rep}")
         check(rep["ok"] is True, f"{report.__name__} on the card: {rep}")
+
+
+def small_int8_moe_phase(tf, serving, quant, fa, pa, im) -> None:
+    """Phase 3, the int8 tiers and MoE: a tiny fp32 flash model on the
+    card against the CPU plain path, as ``small_phase`` holds it. An int8
+    snapshot (W8A8, int8 KV) through the dense grid and the paged gather
+    tier, every W8A8 product on the int8 kernel (launched, counted; none
+    in the MoE runs); an MoE of 4 experts (2 would give every expert the
+    capacity of every token, so no routed set could show) through the
+    dense grid, the paged kernel tier (paged launches n_layers x chunk x
+    decode rounds) and the speculative grid; then a wave of 5 MoE
+    admissions (one stacked wave of 4, then 1), whose first tokens must
+    equal each prompt admitted alone in its bucket."""
+    from kind_tpu_sim_torch.models import decode
+
+    base = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
+                          n_kv_heads=2, n_layers=2, d_ff=256, max_seq=128,
+                          dtype="float32", flash=True)
+    q_cfg = dataclasses.replace(base, int8_kv=True, int8_native=True)
+    m_cfg = dataclasses.replace(base, n_experts=4)
+    dense = tf.init_params(base, torch.Generator(device="cuda").manual_seed(7),
+                           "cuda")
+    models = {
+        "int8": (q_cfg, quant.quantize_params(dense, q_cfg)),
+        "MoE": (m_cfg, tf.init_params(
+            m_cfg, torch.Generator(device="cuda").manual_seed(8), "cuda")),
+    }
+    rng = np.random.RandomState(7)
+    pressure = [{f"s{i}": (rng.randint(0, base.vocab_size, size=n).tolist(),
+                           {})
+                 for i, n in enumerate((5, 17, 30, 41, 12, 26))}]
+    grid = dict(max_slots=4, max_len=80, chunk=8)
+    wave = [{f"w{i}": (rng.randint(0, base.vocab_size, size=n).tolist(), {})
+             for i, n in enumerate((17, 20, 24, 29, 32))}]
+    runs = {
+        "int8 dense grid": ("int8", serving.ServingEngine,
+                            serving.ServingConfig(**grid), pressure),
+        "int8 paged gather tier": ("int8", serving.PagedServingEngine,
+                                   serving.ServingConfig(
+                                       paged_blocks=9, block_size=16, **grid),
+                                   pressure),
+        "MoE dense grid": ("MoE", serving.ServingEngine,
+                           serving.ServingConfig(**grid), pressure),
+        "MoE paged kernel tier": ("MoE", serving.PagedServingEngine,
+                                  serving.ServingConfig(
+                                      paged_blocks=9, block_size=16,
+                                      paged_kernel=True, **grid), pressure),
+        "MoE speculative grid": ("MoE", serving.SpeculativeServingEngine,
+                                 serving.ServingConfig(
+                                     max_slots=4, max_len=80,
+                                     speculative_k=3), pressure),
+        "MoE wave of 5": ("MoE", serving.PagedServingEngine,
+                          serving.ServingConfig(
+                              paged_blocks=40, paged_width=5, block_size=16,
+                              paged_kernel=True, **dict(grid, max_slots=8)),
+                          wave),
+    }
+
+    def run(engine, sc, waves, cfg, params, device):
+        eng = engine(params, cfg, sc, device=device)
+        done = {}
+        for w in waves:
+            for rid, (prompt, kw) in w.items():
+                eng.submit(serving.Request(rid, prompt, max_new=24, **kw))
+            done.update({c.request_id: c.tokens for c in eng.run()})
+        return done, eng.report()
+
+    cpu = {name: (cfg, _tree_to(p, lambda t: t.cpu()))
+           for name, (cfg, p) in models.items()}
+    for name, (model, engine, sc, waves) in runs.items():
+        cfg, params = models[model]
+        zero_counts(fa.flash_attention, pa.paged_attention, im.int8_matmul)
+        card, rep = run(engine, sc, waves, cfg, params, "cuda")
+        n_flash = fa.flash_attention.launches
+        n_paged = pa.paged_attention.launches
+        n_int8 = im.int8_matmul.launches
+        check(n_flash == cfg.n_layers * rep["prefill_dispatches"] > 0,
+              f"small phase {name}: {n_flash} flash launches, expected "
+              f"n_layers x {rep['prefill_dispatches']}")
+        want_paged = (cfg.n_layers * sc.chunk * rep["decode_rounds"]
+                      if sc.paged_kernel else 0)
+        check(n_paged == want_paged,
+              f"small phase {name}: {n_paged} paged launches, expected "
+              f"{want_paged}")
+        check((n_int8 > 0) == (model == "int8"),
+              f"small phase {name}: {n_int8} int8_matmul launches")
+        plain, plain_rep = run(engine, sc, waves, *cpu[model], "cpu")
+        check(rep.get("waves") == plain_rep.get("waves"),
+              f"small phase {name}: waves {rep.get('waves')} on the card, "
+              f"{plain_rep.get('waves')} on the CPU")
+        prompts = {rid: p for w in waves for rid, (p, _) in w.items()}
+        _small_compare(tf, cfg, cpu[model][1], name, prompts, card, plain)
+        log(f"small model {name}: launches flash {n_flash}, paged {n_paged}, "
+            f"int8_matmul {n_int8}; waves {rep['waves']}, decode rounds "
+            f"{rep['decode_rounds']}")
+        if name == "MoE wave of 5":
+            check(rep["waves"] == {1: 1, 4: 1},
+                  f"small phase {name}: waves {rep['waves']}")
+            for rid, prompt in prompts.items():
+                window = torch.as_tensor(serving._padded_window(prompt),
+                                         device="cuda")
+                alone = serving._prefill_into_slot(
+                    params, decode.init_cache(cfg, 1, window.shape[1],
+                                              device="cuda"),
+                    window, len(prompt), 0, cfg=cfg)
+                check(int(alone.argmax()) == card[rid][0],
+                      f"small phase {name}: {rid}'s first token "
+                      f"{card[rid][0]} in the wave, "
+                      f"{int(alone.argmax())} admitted alone")
+            log(f"small model {name}: every first token equals its prompt "
+                "admitted alone")
 
 
 # ---------------------------------------------------------------------
@@ -2214,6 +2474,255 @@ def surface_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 4g: the int8 tiers at full width
+
+
+SOLO_INT8_NEW = 512      # bench.py:645 (the TPU bench's new tokens)
+SATURATED_NEW = 512      # bench.py:1416, :1512 (uniform_stream)
+SATURATED_PROMPT = 192
+SATURATED_CHUNK = 256    # bench.py:1413, :1510
+INT8_CORR = 0.99         # tests/test_quant.py:61-69, the reference's bar
+
+
+def int8_step_bytes(cfg, batch: int, cache_len: int) -> float:
+    """Device bytes one W8A8 + int8-KV decode step must read and write,
+    the reference's accounting (``kind_tpu_sim/models/flops.py:
+    decode_bytes_per_step`` with weight and KV bytes 1): every int8
+    matmul weight and the embedding once, their fp32 scales, the whole
+    allocated int8 cache of ``cache_len`` positions with its fp32
+    row scales, and one new k/v row a layer."""
+    d, ff = cfg.d_model, cfg.d_ff
+    qkv = (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim
+    weights = cfg.n_layers * (d * qkv + d * d + 2 * d * ff) \
+        + cfg.vocab_size * d
+    scales = 4.0 * (cfg.n_layers * (qkv + d + ff + d) + cfg.vocab_size)
+    rows = 2.0 * cfg.n_layers * batch * cache_len * cfg.kv_heads
+    kv = rows * cfg.head_dim + 4.0 * rows \
+        + 2.0 * cfg.n_layers * batch * cfg.kv_heads * cfg.head_dim
+    return weights + scales + kv
+
+
+def _solo_decode(decode, params, cfg, prompt, new: int):
+    """The bench's solo decode (bench.py:645-705): one prefill into a
+    cache of prompt + ``new`` positions, then ``new`` greedy tokens by the
+    chunked decoder. Returns (prefill logits, tokens, prefill s, decode
+    s)."""
+    t_p = prompt.shape[1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode.prefill(params, cfg, prompt, t_p + new)
+        first = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = decode.generate_from_cache(params, cfg, first, cache, t_p, new)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return logits, out, t1 - t0, t2 - t1
+
+
+def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
+                       cfg) -> dict:
+    """Phase 4g on the flagship: (a) solo decode as the reference bench
+    runs it (batch 8, the bench's (8, 1024) prompt from ``sample_batch``,
+    512 new tokens, a cache of 1536) on the bf16 snapshot, then W8A8 with
+    the int8 KV cache, then dequant with it, the int8 snapshot quantized
+    from the fp32 weights as the bench quantizes it: tok/s, the achieved
+    GB/s over a step's int8 bytes, the first-step logits' correlation
+    with bf16's (> 0.99) and every int8_matmul launch counted
+    (n_layers x 4 linears + the readout at prefill; n_layers x (4
+    linears + cache scores + values) + the readout a step); (b)
+    ``serving_saturated_int8`` (bench.py:1487-1514) beside the bf16
+    ``serving_saturated`` (bench.py:1405-1418) on the same stream; (c)
+    phase 4's stream on ``PagedServingEngine`` with int8 pools (the
+    gather tier), and the kernel tier's refusal of int8 pools."""
+    from kind_tpu_sim_torch.models import decode
+
+    q_cfg = dataclasses.replace(cfg, int8_kv=True, int8_native=True)
+    dq_cfg = dataclasses.replace(q_cfg, int8_native=False)
+    dense = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    qp = quant.quantize_params(dense, q_cfg)
+    del dense
+    out = {}
+    prompt = tf.sample_batch(torch.Generator(device="cuda").manual_seed(1),
+                             cfg, 8, cfg.max_seq, device="cuda")
+    total = prompt.shape[1] + SOLO_INT8_NEW
+    logits = {}
+    for name, p, c in (("bf16", sp, cfg), ("w8a8", qp, q_cfg),
+                       ("dequant", qp, dq_cfg)):
+        _solo_decode(decode, p, c, prompt, 9)  # warm-up
+        zero_counts(im.int8_matmul)
+        lg, toks, pre_s, dec_s = _solo_decode(decode, p, c, prompt,
+                                              SOLO_INT8_NEW)
+        n_int8 = im.int8_matmul.launches
+        steps = SOLO_INT8_NEW - 1
+        want = ((cfg.n_layers * 4 + 1) + steps * (cfg.n_layers * 6 + 1)
+                if name == "w8a8" else 0)
+        check(n_int8 == want,
+              f"4g(a) {name}: {n_int8} int8_matmul launches, expected "
+              f"{want}")
+        check(bool(torch.isfinite(lg).all()) and toks.shape == (
+            8, SOLO_INT8_NEW), f"4g(a) {name}: non-finite logits or shape")
+        logits[name] = lg.float().flatten().cpu().numpy()
+        tps = 8 * SOLO_INT8_NEW / dec_s
+        row = {"prefill_s": pre_s, "decode_s": dec_s, "tok_per_s": tps,
+               "int8_matmul_launches": n_int8}
+        if name != "bf16":
+            row["gb_per_s"] = int8_step_bytes(cfg, 8, total) * tps / 8 / 1e9
+            row["corr_vs_bf16"] = float(np.corrcoef(logits["bf16"],
+                                                    logits[name])[0, 1])
+            check(row["corr_vs_bf16"] > INT8_CORR,
+                  f"4g(a) {name}: first-step logits correlate "
+                  f"{row['corr_vs_bf16']:.4f} with bf16's (bar {INT8_CORR})")
+        if name == "w8a8":
+            out["w8a8_launches"] = n_int8
+        log(f"4g(a) solo decode {name}: 8 x {SOLO_INT8_NEW} new tokens in "
+            f"{dec_s:.3f} s = {tps:.1f} tok/s (prefill {pre_s:.3f} s); {row}")
+        out[f"solo_{name}"] = row
+    out["int8_step_bytes"] = int8_step_bytes(cfg, 8, total)
+
+    # (b) the saturated dense grid, bf16 then W8A8 + int8 KV
+    row0 = bench_row(tf, cfg)
+    reqs = [serving.Request(f"sat{i}", ((row0[:SATURATED_PROMPT] + i)
+                                        % cfg.vocab_size).tolist(),
+                            SATURATED_NEW) for i in range(16)]
+    for name, p, c, overlap in (("bf16 serving_saturated", sp, cfg, False),
+                                ("serving_saturated_int8", qp, q_cfg, True)):
+        sc = serving.ServingConfig(max_slots=8, max_len=1024,
+                                   chunk=SATURATED_CHUNK,
+                                   overlap_rounds=overlap)
+        _warm(lambda: serving.ServingEngine(p, c, sc, device="cuda"), reqs)
+        eng = serving.ServingEngine(p, c, sc, device="cuda")
+        zero_counts(fa.flash_attention, im.int8_matmul)
+        done, wall, syncs = _drain(eng, reqs)
+        check(len(done) == len(reqs), f"4g(b) {name}: {len(done)} completed")
+        check((im.int8_matmul.launches > 0) == (c is q_cfg),
+              f"4g(b) {name}: {im.int8_matmul.launches} int8 launches")
+        stats = _run_stats(f"4g(b) {name}", c, done, wall, eng.report(),
+                           syncs)
+        stats["int8_matmul_launches"] = im.int8_matmul.launches
+        out[name] = stats
+
+    # (c) phase 4's stream on int8 pools, the gather tier
+    with_kernel = flagship.flagship_serving(paged_kernel=True)
+    try:
+        serving.PagedServingEngine(qp, q_cfg, with_kernel, device="cuda")
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        refusal = None
+    check(refusal == "paged_kernel needs bf16 pools; int8_kv uses the "
+          "gather tier", f"4g(c): paged_kernel with int8_kv: {refusal!r}")
+    sc = flagship.flagship_serving(paged_kernel=False)
+    reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
+    _warm(lambda: serving.PagedServingEngine(qp, q_cfg, sc, device="cuda"),
+          reqs)
+    eng = serving.PagedServingEngine(qp, q_cfg, sc, device="cuda")
+    zero_counts(pa.paged_attention)
+    done, wall, syncs = _drain(eng, reqs)
+    rep = eng.report()
+    check(pa.paged_attention.launches == 0 and rep["paged"]["blocks_in_use"]
+          == 0, f"4g(c): {pa.paged_attention.launches} paged launches, "
+          f"{rep['paged']['blocks_in_use']} blocks left")
+    out["paged_int8_gather"] = _run_stats(
+        "4g(c) phase 4's stream, int8 pools (gather tier)", q_cfg, done,
+        wall, rep, syncs)
+    out["paged_int8_gather"]["refusal"] = refusal
+    del qp
+    log(json.dumps({"int8_serving": out}))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 4h: MoE serving at full width
+
+
+MOE_EXPERTS = 4   # MoeConfig's default
+
+
+def _first_tokens_gate(name: str, serving, decode, params, cfg, reqs,
+                       done) -> int:
+    """Each request's first token against its prompt admitted alone in
+    its bucket (one prefill, the MoE routing that prompt's padded tokens
+    alone): equal, or split where the alone logits' top-2 margin is
+    under SPLIT_MARGIN_REL of their largest magnitude (a wave's bf16
+    products round differently from a lone prompt's). Returns the count
+    of such splits."""
+    splits = 0
+    with torch.no_grad():
+        for r in reqs:
+            window = torch.as_tensor(serving._padded_window(r.prompt),
+                                     device="cuda")
+            alone = serving._prefill_into_slot(
+                params, decode.init_cache(cfg, 1, window.shape[1],
+                                          device="cuda"),
+                window, len(r.prompt), 0, cfg=cfg)
+            tok = done[r.request_id].tokens[0]
+            if tok == int(alone.argmax()):
+                continue
+            top2 = alone.topk(2).values
+            rel = float(top2[0] - top2[1]) / float(alone.abs().max())
+            check(rel < SPLIT_MARGIN_REL,
+                  f"{name}: {r.request_id}'s first token {tok}, "
+                  f"{int(alone.argmax())} admitted alone (top-2 margin "
+                  f"{rel:.3e})")
+            splits += 1
+    log(f"{name}: {len(reqs)} first tokens against their prompts admitted "
+        f"alone: {len(reqs) - splits} equal, {splits} split at a near tie")
+    return splits
+
+
+def moe_serving_phase(flagship, serving, tf, fa, pa, cfg) -> dict:
+    """Phase 4h: the flagship with ``n_experts=4`` as a bf16 snapshot of
+    random weights (seed 0; the router stays fp32), phase 4's stream
+    through ``PagedServingEngine(paged_kernel=True)`` (flash launches
+    n_layers x prefill dispatches, paged n_layers x chunk x decode
+    rounds, as phase 4 counts them), ``ServingEngine`` (chunk 64) and
+    ``SpeculativeServingEngine`` (k 4, 4 windows). tok/s, TTFT, e2e;
+    every first token held to its prompt admitted alone."""
+    from kind_tpu_sim_torch.models import decode
+
+    m_cfg = dataclasses.replace(cfg, n_experts=MOE_EXPERTS)
+    smp = decode.serving_params(tf.init_params(
+        m_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), m_cfg)
+    reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
+    base = dict(max_slots=flagship.SLOTS, max_len=1024)
+    runs = (("4h MoE paged kernel tier", serving.PagedServingEngine,
+             flagship.flagship_serving(paged_kernel=True)),
+            ("4h MoE dense grid", serving.ServingEngine,
+             serving.ServingConfig(chunk=flagship.CHUNK, **base)),
+            ("4h MoE speculative grid", serving.SpeculativeServingEngine,
+             serving.ServingConfig(speculative_k=SPEC_K,
+                                   spec_windows=SPEC_WINDOWS, **base)))
+    out, routes = {}, {}
+    for name, engine, sc in runs:
+        _warm(lambda: engine(smp, m_cfg, sc, device="cuda"), reqs)
+        eng = engine(smp, m_cfg, sc, device="cuda")
+        zero_counts(fa.flash_attention, pa.paged_attention)
+        done, wall, syncs = _drain(eng, reqs)
+        rep = eng.report()
+        check(len(done) == len(reqs), f"{name}: {len(done)} completed")
+        _flash_check(name, fa, m_cfg.n_layers * rep["prefill_dispatches"],
+                     routes)
+        want_paged = (m_cfg.n_layers * sc.chunk * rep["decode_rounds"]
+                      if sc.paged_kernel else 0)
+        got_paged = dict(pa.paged_attention.launches_by_route)
+        check(got_paged == {"split_kv": want_paged, "one_pass": 0},
+              f"{name}: paged launches by route {got_paged}, expected "
+              f"{want_paged} on split_kv")
+        stats = _run_stats(name, m_cfg, done, wall, rep, syncs)
+        stats["paged_launches"] = want_paged
+        stats["first_token_splits"] = _first_tokens_gate(
+            name, serving, decode, smp, m_cfg, reqs, done)
+        out[name] = stats
+    out["flash_launches_by_route"] = routes
+    del smp
+    log(json.dumps({"moe_serving": out}))
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 5: a tiny model trained on the card against the CPU plain path
 
 
@@ -2299,6 +2808,79 @@ def small_train_phase(tf, fa) -> None:
     check(param_err <= TRAIN_PARAM_ATOL, "small train: parameters differ")
 
 
+# the tiny MoE's first-step gradients on the card against the CPU, each
+# leaf's largest |difference| over its largest magnitude: fp32 throughout
+# (TF32 off), only the summation order differs (7.3e-7 measured on the
+# H100). Its AdamW parameters are printed, not held to a bar: an expert
+# weight whose gradient is near AdamW's eps (1e-8) takes a step of
+# lr * g / (|g| + eps), so 1e-7 relative noise there moves it by up to
+# lr; one step moved b0.moe.w_up by 8.5e-4 while SGD's parameters agree
+# to 2.4e-7 after 5 steps.
+MOE_GRAD_REL_TOL = 1e-5
+
+
+def small_moe_train_phase(tf, fa) -> None:
+    """Phase 5, MoE: 5 AdamW steps of a tiny fp32 flash GQA model with 4
+    experts on the card (autograd through the dense dispatch, the flash
+    kernels inside) against the same steps on the CPU from the same
+    parameters on the same batches: the losses, which carry the
+    auxiliary term, at ``small_train_phase``'s bar, the flash forward,
+    dq and dk/dv launched once per layer and step; then the first
+    step's gradients at ``MOE_GRAD_REL_TOL``."""
+    cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_heads=4,
+                         n_kv_heads=2, n_layers=2, d_ff=256, max_seq=64,
+                         dtype="float32", flash=True, n_experts=MOE_EXPERTS)
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(9),
+                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batches = [tf.sample_batch(gen, cfg, 4, 65, device="cuda")
+               for _ in range(5)]
+
+    def train(device):
+        step, init = tf.make_train_step(cfg, device=device)
+        state = init(_tree_to(params, lambda t: t.detach().clone()))
+        losses = []
+        for tokens in batches:
+            state, loss = step(state, tokens.to(device))
+            losses.append(float(loss))
+        return losses, [p.detach().cpu() for p in tf._leaves(state["params"])]
+
+    def first_grads(device):
+        tree = _tree_to(params, lambda t: t.detach().to(device))
+        leaves = tf._leaves(tree)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = tf.loss_fn(tree, batches[0].to(device), cfg)
+        return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    n = cfg.n_layers * len(batches)
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    card_losses, card_params = train("cuda")
+    got = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+           fa.flash_attention_bwd_dkv.launches)
+    check(got == (n, n, n),
+          f"small MoE train: launches (forward, dq, dk/dv) {got}, expected "
+          f"{(n, n, n)}: once per layer and step")
+    plain_losses, plain_params = train("cpu")
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(card_losses, plain_losses))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(card_params, plain_params))
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(first_grads("cuda"), first_grads("cpu")))
+    log(f"small MoE train: losses card {card_losses}, CPU {plain_losses}; "
+        f"loss error {loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); first "
+        f"step's gradients {grad_err:.3e} of each leaf's largest magnitude "
+        f"(tolerance {MOE_GRAD_REL_TOL}); final AdamW parameters "
+        f"max_abs_err {param_err:.3e} (no bar: AdamW near eps)")
+    check(all(math.isfinite(x) for x in card_losses),
+          "small MoE train: non-finite loss on the card")
+    check(loss_err <= TRAIN_LOSS_RTOL, "small MoE train: losses differ")
+    check(grad_err <= MOE_GRAD_REL_TOL, "small MoE train: gradients differ")
+
+
 # ---------------------------------------------------------------------
 # phase 6: training at full width
 
@@ -2349,7 +2931,7 @@ def train_phase(trainer, fa) -> tuple:
 
 
 # ---------------------------------------------------------------------
-# phase 6b: one flagship step with remat
+# phase 6, continued: one flagship step with remat
 
 
 def train_remat_phase(trainer, fa, plain: dict) -> None:
@@ -2384,6 +2966,72 @@ def train_remat_phase(trainer, fa, plain: dict) -> None:
         f"ms (remat=False median {plain['step_ms']:.1f} ms); peak device "
         f"memory {peak:.2f} GiB (remat=False {plain['peak_gib']:.2f} GiB); "
         f"loss {losses[0]}")
+
+
+# ---------------------------------------------------------------------
+# phase 6b: MoE training at full width
+
+
+MOE_TRAIN_STEPS = 3
+
+
+def train_moe_phase(trainer, tf, fa, plain: dict) -> dict:
+    """The flagship with ``n_experts=4`` trained as phase 6 trains it (fp32
+    parameters from seed 0, bf16 activations, AdamW, batches of 8 x 1025
+    from seed 1): one warm-up step, then ``MOE_TRAIN_STEPS`` timed with
+    the counters zeroed just before. Every loss finite; the flash
+    forward, dq and dk/dv each launched n_layers x steps; the summed
+    auxiliary term at least 0.99 x ``aux_loss_weight`` (tests/test_moe.py
+    holds one MoE call so). Step wall, train tok/s and peak memory
+    beside the dense step's (``plain``)."""
+    from kind_tpu_sim_torch.models.moe import MoeConfig
+
+    cfg = dataclasses.replace(trainer.flagship_config(),
+                              n_experts=MOE_EXPERTS)
+    t0 = time.perf_counter()
+    step, state = trainer.flagship_state(cfg)
+    batches = trainer.flagship_batches(cfg, MOE_TRAIN_STEPS + 1)
+    n_params = sum(p.numel() for p in tf._leaves(state["params"]))
+    log(f"flagship MoE training: {n_params} fp32 parameters, set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: getattr(fa, name).launches for name in (
+        "flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+    want = cfg.n_layers * MOE_TRAIN_STEPS
+    check(all(math.isfinite(x) for x in losses),
+          f"flagship MoE training: non-finite loss in {losses}")
+    log(f"flagship MoE train launches: {launches} (expected n_layers x "
+        f"steps = {want} each)")
+    for name in launches:
+        check_routes(f"flagship MoE training {name}", getattr(fa, name),
+                     want, 0)
+    with torch.no_grad():
+        _, aux = tf.forward(state["params"], batches[-1][:, :-1], cfg,
+                            return_aux=True)
+    weight = MoeConfig().aux_loss_weight
+    check(float(aux) >= 0.99 * weight,
+          f"flagship MoE training: auxiliary term {float(aux)} under 0.99 x "
+          f"{weight}")
+    median = float(np.median(walls))
+    tokens = trainer.BATCH * (trainer.SEQ - 1)
+    out = {"step_ms": median, "walls_ms": walls, "losses": losses,
+           "train_tok_per_s": tokens / (median / 1e3), "peak_gib": peak,
+           "aux": float(aux), "dense_step_ms": plain["step_ms"],
+           "dense_peak_gib": plain["peak_gib"], "warm_up_ms": warm[0]}
+    log(f"flagship MoE training: warm-up step {warm[0]:.1f} ms; step wall "
+        f"ms {[round(w, 1) for w in walls]} (median {median:.1f}; dense "
+        f"{plain['step_ms']:.1f}) = {out['train_tok_per_s']:.1f} train "
+        f"tok/s; losses {losses}; auxiliary term {float(aux):.5f} over "
+        f"{cfg.n_layers} layers; peak device memory {peak:.2f} GiB (dense "
+        f"{plain['peak_gib']:.2f} GiB)")
+    del state
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -2745,10 +3393,11 @@ def main() -> int:
     from kind_tpu_sim_torch import cli
     from kind_tpu_sim_torch import profile_serving as flagship
     from kind_tpu_sim_torch import profile_train as trainer
-    from kind_tpu_sim_torch.models import serving
+    from kind_tpu_sim_torch.models import quant, serving
     from kind_tpu_sim_torch.models import transformer as tf
     from kind_tpu_sim_torch.ops import _build
     from kind_tpu_sim_torch.ops import flash_attention as fa
+    from kind_tpu_sim_torch.ops import int8_matmul as im
     from kind_tpu_sim_torch.ops import paged_attention as pa
     from kind_tpu_sim_torch.ops import toolchain as tc
 
@@ -2763,17 +3412,28 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)} ({smi}); TF32 off for matmul "
         "and cuDNN")
+    walls = {}
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s, {lib}")
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {walls[name]:.1f} s")
+        return result
+
+    lib = phase("1 build", _build.build)
+    log(f"build: {lib}")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
 
-    flash_row = flash_phase(fa)
-    kernels = [flash_row, paged_phase(pa), *flash_bwd_phase(fa, flash_row)]
-    small_phase(tf, serving, fa, pa)
+    flash_row = phase("2 flash", flash_phase, fa)
+    kernels = [flash_row, phase("2 paged", paged_phase, pa),
+               *phase("2 flash backward", flash_bwd_phase, fa, flash_row)]
+    int8_row = phase("2 int8", int8_phase, im, quant)
+    phase("3 small", small_phase, tf, serving, fa, pa)
+    phase("3 small int8 and MoE", small_int8_moe_phase, tf, serving, quant,
+          fa, pa, im)
     cfg = flagship.flagship_config()
     t0 = time.perf_counter()
     sp = flagship.flagship_params(cfg)
@@ -2781,30 +3441,45 @@ def main() -> int:
                    + [w for b in sp["blocks"] for w in b.values()])
     log(f"flagship params: {n_params} (bf16 serving snapshot), set up in "
         f"{time.perf_counter() - t0:.2f} s")
-    launches, serve_routes, streams = serve_phase(flagship, serving, fa, pa,
-                                                  sp, cfg)
-    realistic = realistic_phase(flagship, serving, fa, pa, sp, cfg)
-    hit_vs_cold_phase(flagship, serving, sp, cfg)
-    longprompt_phase(flagship, serving, sp, cfg)
-    spec = spec_phase(flagship, serving, tf, fa, pa, sp, cfg, streams)
-    surface = surface_phase(flagship, serving, tf, fa, pa, sp, cfg, streams)
+    launches, serve_routes, streams = phase(
+        "4 serve", serve_phase, flagship, serving, fa, pa, sp, cfg)
+    realistic = phase("4b realistic", realistic_phase, flagship, serving, fa,
+                      pa, sp, cfg)
+    phase("4c hit against cold", hit_vs_cold_phase, flagship, serving, sp,
+          cfg)
+    phase("4d long prompt", longprompt_phase, flagship, serving, sp, cfg)
+    spec = phase("4e speculative", spec_phase, flagship, serving, tf, fa, pa,
+                 sp, cfg, streams)
+    surface = phase("4f engine surface", surface_phase, flagship, serving,
+                    tf, fa, pa, sp, cfg, streams)
+    int8_serving = phase("4g int8", int8_serving_phase, flagship, serving, tf,
+                         quant, fa, pa, im, sp, cfg)
     del sp
-    small_train_phase(tf, fa)
-    train_launches, train_plain = train_phase(trainer, fa)
-    train_remat_phase(trainer, fa, train_plain)
-    toolchain_rows = toolchain_phase(tc)
-    train_smoke_phase(cli)
+    moe = phase("4h MoE", moe_serving_phase, flagship, serving, tf, fa, pa,
+                cfg)
+    phase("5 small train", small_train_phase, tf, fa)
+    phase("5 small MoE train", small_moe_train_phase, tf, fa)
+    train_launches, train_plain = phase("6 train", train_phase, trainer, fa)
+    phase("6 remat", train_remat_phase, trainer, fa, train_plain)
+    phase("6b MoE train", train_moe_phase, trainer, tf, fa, train_plain)
+    toolchain_rows = phase("7 toolchain", toolchain_phase, tc)
+    phase("8 train-smoke", train_smoke_phase, cli)
     # the forward and paged kernels' counts come from serving, the
     # backward kernels' from training (the forward's there is checked),
-    # the toolchain kernels' from toolchain_smoke
+    # the int8 kernel's from 4g's solo W8A8 decode, the toolchain
+    # kernels' from toolchain_smoke
     launches.update({name: n for name, n in train_launches.items()
                      if name not in launches})
+    launches["int8_matmul"] = int8_serving["w8a8_launches"]
     flash_row.update({
         "launches_by_route": serve_routes["flash_attention"],
         "realistic_launches_by_route": realistic["routes"]["flash_attention"],
         "speculative_launches_by_route": spec["flash_launches_by_route"],
         "surface_launches_by_route": surface["flash_launches_by_route"],
+        "moe_launches_by_route": moe["flash_launches_by_route"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
+    int8_row["launches_by_route"] = {im.DP4A: launches["int8_matmul"]}
+    kernels.append(int8_row)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":
@@ -2816,6 +3491,7 @@ def main() -> int:
     kernels += toolchain_rows
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")
+    log(json.dumps({"phase_wall_s": walls}))
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

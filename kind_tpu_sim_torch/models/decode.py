@@ -16,7 +16,14 @@ in place.
 
 Numerical contract (dense configs): a token generated through the
 cache path equals the argmax of the full (uncached) forward at that
-position. int8 caches and MoE belong to later slices of the port.
+position. Two carve-outs, as in the JAX package: MoE (routing capacity
+counts the tokens of the current call: the slots of a decode step
+against the whole prompt of the forward) and ``int8_kv`` (in-chunk
+tokens are attended from the bf16 chunk buffer, merged ones at int8).
+With ``ModelConfig.int8_kv`` the big cache holds int8 rows with one
+fp32 scale per (batch, position, kv head) row (``QuantArray``); its
+scores and values take the dequant path or, with ``int8_native``, the
+exact int8 product of ``ops/int8_matmul.py``.
 
 Sampling draws its Gumbel noise from a counter-based integer hash of
 (seed, generation index[, batch row]) computed on the device
@@ -33,7 +40,13 @@ import numpy as np
 import torch
 
 from kind_tpu_sim_torch.device import resolve, to_device, torch_dtype
-from kind_tpu_sim_torch.models.quant import embed_lookup, linear
+from kind_tpu_sim_torch.models.quant import (
+    QuantArray,
+    embed_lookup,
+    linear,
+    quant_rows,
+    quantize,
+)
 from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
     Params,
@@ -45,66 +58,153 @@ from kind_tpu_sim_torch.models.transformer import (
     _split_qkv,
     check_supported,
 )
+from kind_tpu_sim_torch.ops.int8_matmul import int8_matmul
 
 NEG = -1e30
 
 
 def serving_params(params: Params, cfg: ModelConfig) -> Params:
     """Copy of ``params`` with every leaf of two or more dimensions
-    (matmul weights, embedding) cast to the activation dtype; norm
-    scales stay fp32. The readout follows the embedding's dtype, so a
+    (matmul weights, embedding, MoE experts) cast to the activation
+    dtype; norm scales and the MoE router stay fp32, int8 QuantArrays
+    stay as they are. The readout follows the embedding's dtype, so a
     bf16 snapshot's logits come from bf16 weights (accumulated in
     fp32). Every leaf is detached, so a snapshot of parameters that a
     train step left requiring grad carries no autograd history."""
     dtype = torch_dtype(cfg.dtype)
 
-    def cast(node):
+    def cast(node, name=None):
+        if isinstance(node, QuantArray):
+            return node
         if isinstance(node, dict):
-            return {k: cast(v) for k, v in node.items()}
+            return {k: cast(v, k) for k, v in node.items()}
         if isinstance(node, list):
             return [cast(v) for v in node]
         node = node.detach()
-        return node.to(dtype) if node.ndim >= 2 else node
+        return node.to(dtype) if node.ndim >= 2 and name != "router" else node
 
     return cast(params)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Preallocated per-layer KV cache, (batch, max_len, kv, hd) in the
-    activation dtype."""
-    if cfg.int8_kv:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet (the int8 slice of "
-            "kind_tpu_sim_torch)")
+    activation dtype; with ``cfg.int8_kv`` each k/v is a QuantArray of
+    int8 zeros with fp32 scales of one per (batch, position, kv head)
+    row."""
     dev = resolve(device)
     shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    if cfg.int8_kv:
+        def qzeros():
+            return QuantArray(
+                q=torch.zeros(shape, dtype=torch.int8, device=dev),
+                scale=torch.ones(shape[:3] + (1,), device=dev))
+
+        return [{"k": qzeros(), "v": qzeros()} for _ in range(cfg.n_layers)]
     dtype = torch_dtype(cfg.dtype)
     return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}
             for _ in range(cfg.n_layers)]
 
 
+def _map_kv(arr, fn):
+    """``fn`` applied to a cache tensor, or to both parts of an int8
+    one (q and its per-row scale share the cache's geometry)."""
+    if isinstance(arr, QuantArray):
+        return QuantArray(q=fn(arr.q), scale=fn(arr.scale))
+    return fn(arr)
+
+
+def _write(arr, index, upd, keep=None) -> None:
+    """``arr[index] = upd`` in place, ``upd`` (..., kv, hd) in the
+    activation dtype: the one write of k/v rows into a cache or pool.
+    An int8 cache gets ``upd`` quantized per (..., kv) row, its q and
+    scale written at the same index. With ``keep`` (a mask that
+    broadcasts over ``upd``), entries where it is False keep their
+    bytes."""
+    if isinstance(arr, QuantArray):
+        qa = quantize(upd, axis=-1)
+        pairs = ((arr.q, qa.q), (arr.scale, qa.scale))
+    else:
+        pairs = ((arr, upd.to(arr.dtype)),)
+    for dst, src in pairs:
+        if keep is not None:
+            src = torch.where(keep, src, dst[index])
+        dst[index] = src
+
+
 def _store(cache_arr, update, start: int) -> None:
     """Write ``update`` (b, t, kv, hd) into ``cache_arr`` at sequence
-    position ``start``, in place. The start is clamped so the window
-    fits, as ``lax.dynamic_update_slice`` clamps it."""
+    position ``start``, in place, quantizing per (b, t, kv) row when the
+    cache is int8. The start is clamped so the window fits, as
+    ``lax.dynamic_update_slice`` clamps it."""
     t = update.shape[1]
     start = max(0, min(int(start), cache_arr.shape[1] - t))
-    cache_arr[:, start:start + t] = update.to(cache_arr.dtype)
+    _write(cache_arr, (slice(None), slice(start, start + t)), update)
 
 
-def _cache_scores(qg, cache_k, scale):
-    """Scores of qg (b, kv, g, hd) against a cache tensor (b, s, kv, hd):
-    fp32 (b, kv, g, s), accumulated in fp32 from the stored values."""
-    return torch.einsum("bkgd,bskd->bkgs", qg.float(),
+def _fold(x):
+    """(b, w, kv, m, n) -> (b, kv, w*m, n): a verify window's positions
+    folded into the rows of one batched product per (b, kv); a 4-D
+    (b, kv, m, n) stays as it is."""
+    if x.dim() == 4:
+        return x
+    b, w, kv, m, n = x.shape
+    return x.permute(0, 2, 1, 3, 4).reshape(b, kv, w * m, n)
+
+
+def _unfold(y, like):
+    """``_fold``'s inverse for a product y (b, kv, w*m, n2) of a folded
+    ``like`` (b, w, kv, m, n)."""
+    if like.dim() == 4:
+        return y
+    b, w, kv, m, _ = like.shape
+    return y.reshape(b, kv, w, m, y.shape[-1]).permute(0, 2, 1, 3, 4)
+
+
+def _row_scales(cache_arr, ndim: int):
+    """An int8 cache's per-row scales (b, s, kv, 1) as (b, [1,] kv, 1, s),
+    to multiply scores or probs of ``ndim`` dimensions."""
+    row = cache_arr.scale[..., 0].transpose(1, 2)[:, :, None, :]
+    return row if ndim == 4 else row[:, None]
+
+
+def _cache_scores(qg, cache_k, scale, native=False):
+    """Scores of qg (b, [w,] kv, g, hd) against a cache (b, s, kv, hd),
+    plain or int8: fp32 (b, [w,] kv, g, s). Plain: accumulated in fp32
+    from the stored values. int8 dequant: the fp32 product of the
+    cast values, then the per-row scale. int8 native (W8A8): qg
+    quantized per row and the exact int32 product against the cache's
+    int8 rows, read in place."""
+    if isinstance(cache_k, QuantArray):
+        row = _row_scales(cache_k, qg.dim())
+        if native:
+            qq, qs = quant_rows(qg)
+            acc = _unfold(int8_matmul(_fold(qq),
+                                      cache_k.q.permute(0, 2, 3, 1)), qg)
+            return acc.float() * (qs * scale) * row
+        return torch.einsum("b...kgd,bskd->b...kgs", qg.float(),
+                            cache_k.q.float()) * scale * row
+    return torch.einsum("b...kgd,bskd->b...kgs", qg.float(),
                         cache_k.float()) * scale
 
 
-def _cache_values(probs, cache_v, dtype):
-    """probs (b, kv, g, s) fp32 x values (b, s, kv, hd) -> (b, kv, g, hd)
-    in ``dtype``: probs rounded to the value dtype, product rounded to
-    it, as the JAX einsum does."""
-    return torch.einsum("bkgs,bskd->bkgd", probs.to(dtype).float(),
+def _cache_values(probs, cache_v, dtype, native=False):
+    """probs (b, [w,] kv, g, s) fp32 x a cache's values (b, s, kv, hd) ->
+    (b, [w,] kv, g, hd) in ``dtype``. Plain: probs rounded to the value
+    dtype, the product rounded to it, as the JAX einsum does. int8: the
+    per-row value scale folds into probs first; then the product of
+    probs in ``dtype`` with the cast values, or (native) probs quantized
+    per row and the exact int32 product, its row scale after."""
+    if isinstance(cache_v, QuantArray):
+        p = probs * _row_scales(cache_v, probs.dim())
+        if native:
+            pq, ps = quant_rows(p)
+            acc = _unfold(int8_matmul(_fold(pq),
+                                      cache_v.q.permute(0, 2, 1, 3)), p)
+            return (acc.float() * ps).to(dtype)
+        return torch.einsum("b...kgs,bskd->b...kgd", p.to(dtype).float(),
+                            cache_v.q.float()).to(dtype)
+    return torch.einsum("b...kgs,bskd->b...kgd", probs.to(dtype).float(),
                         cache_v.float()).to(dtype)
 
 
@@ -114,7 +214,8 @@ def _attend_token(x, bparams, cfg: ModelConfig, positions):
     (b, 1, kv, hd)."""
     b = x.shape[0]
     h = _rms_norm(x, bparams["attn_norm"])
-    q, k, v = _split_qkv(linear(h, bparams["wqkv"]), cfg, b, 1)
+    q, k, v = _split_qkv(linear(h, bparams["wqkv"], native=cfg.int8_native),
+                         cfg, b, 1)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
     group = cfg.n_heads // cfg.kv_heads
@@ -122,9 +223,12 @@ def _attend_token(x, bparams, cfg: ModelConfig, positions):
 
 
 def _finish_block(x, attn, bparams, cfg: ModelConfig):
-    """Shared decode-step back half: output projection + MLP."""
-    x = x + linear(attn, bparams["wo"])
-    return x + _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams)
+    """Shared decode-step back half: output projection + MLP or MoE. x
+    is (b, d), or (b, w, d) for a verify window; an MoE routes each
+    position over the rows (the reference's vmap over w)."""
+    x = x + linear(attn, bparams["wo"], native=cfg.int8_native)
+    return x + _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams, cfg,
+                    "columns")[0]
 
 
 def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
@@ -138,11 +242,14 @@ def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
     scale = cfg.head_dim ** -0.5
     max_len = layer_cache["k"].shape[1]
     valid = torch.arange(max_len, device=x.device) < pos
-    sc_past = _cache_scores(qg, layer_cache["k"], scale).masked_fill(
-        ~valid[None, None, None, :], NEG)
+    native = cfg.int8_native
+    sc_past = _cache_scores(qg, layer_cache["k"], scale,
+                            native).masked_fill(~valid[None, None, None, :],
+                                                NEG)
     scores = torch.cat([sc_past, _cache_scores(qg, k, scale)], -1)
     probs = torch.softmax(scores, dim=-1)
-    attn = (_cache_values(probs[..., :max_len], layer_cache["v"], dtype)
+    attn = (_cache_values(probs[..., :max_len], layer_cache["v"], dtype,
+                          native)
             + _cache_values(probs[..., max_len:], v, dtype)
             ).reshape(b, cfg.d_model)
     _store(layer_cache["k"], k, pos)
@@ -163,7 +270,7 @@ def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int):
         _store(layer_cache["k"], k, 0)
         _store(layer_cache["v"], v, 0)
     last = _rms_norm(x[:, -1, :], params["final_norm"])
-    return _readout(last, params["embed"]), cache
+    return _readout(last, params["embed"], cfg.int8_native), cache
 
 
 @torch.no_grad()
@@ -174,7 +281,7 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache, pos: int):
     for bparams, layer_cache in zip(params["blocks"], cache):
         x, _ = _block_decode(x, bparams, cfg, layer_cache, pos)
     x = _rms_norm(x, params["final_norm"])
-    return _readout(x, params["embed"]), cache
+    return _readout(x, params["embed"], cfg.int8_native), cache
 
 
 def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
@@ -194,7 +301,8 @@ def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
     c_len = small["k"].shape[1]
     big_mask = (torch.arange(s_big, device=x.device)[None, :]
                 < base[:, None])
-    sc_big = _cache_scores(qg, big["k"], scale).masked_fill(
+    sc_big = _cache_scores(qg, big["k"], scale,
+                           cfg.int8_native).masked_fill(
         ~big_mask[:, None, None, :], NEG)
     sm_mask = torch.arange(c_len, device=x.device) < i
     sc_sm = _cache_scores(qg, small["k"], scale).masked_fill(
@@ -202,7 +310,7 @@ def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
     scores = torch.cat([sc_big, sc_sm, _cache_scores(qg, k, scale)], -1)
     probs = torch.softmax(scores, dim=-1)
     attn = (
-        _cache_values(probs[..., :s_big], big["v"], dtype)
+        _cache_values(probs[..., :s_big], big["v"], dtype, cfg.int8_native)
         + _cache_values(probs[..., s_big:s_big + c_len], small["v"], dtype)
         + _cache_values(probs[..., s_big + c_len:], v, dtype)
     ).reshape(b, cfg.d_model)
@@ -240,8 +348,8 @@ def _run_chunk(params, cfg: ModelConfig, token, cache, base: int,
             x, _ = _block_decode_chunk(x, bparams, cfg, big_lc, small_lc,
                                        base, i)
         x = _rms_norm(x, params["final_norm"])
-        token = select_fn(_readout(x, params["embed"]), step0 + i).to(
-            token.dtype)
+        token = select_fn(_readout(x, params["embed"], cfg.int8_native),
+                          step0 + i).to(token.dtype)
         emitted.append(token)
     for big_lc, small_lc in zip(cache, small):
         _store(big_lc["k"], small_lc["k"], base)

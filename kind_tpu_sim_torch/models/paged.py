@@ -27,6 +27,12 @@ prompt blocks between requests by reference count; ``paged_suffix``
 runs a prompt's suffix against the shared blocks. Speculative verify
 windows (``paged_verify_step`` / ``paged_verify_scan``) run on the
 gather tier: one view a window, the window's k/v scattered back.
+
+With ``ModelConfig.int8_kv`` the pools are int8 ``QuantArray``s (q and a
+per-row scale share the paging geometry): every write quantizes its
+rows (``decode._write``), every view gathers both parts. int8 pools
+serve on the gather tier only; the engine refuses the kernel tier for
+them, as the reference does.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from kind_tpu_sim_torch.models.decode import (
     _attend_token,
     _cache_scores,
     _finish_block,
+    _map_kv,
+    _write,
     init_cache,
 )
 from kind_tpu_sim_torch.models.quant import embed_lookup
@@ -72,13 +80,15 @@ def gather_view(pools, tables):
         return arr[flat].reshape((slots, width * arr.shape[1])
                                  + tuple(arr.shape[2:]))
 
-    return [{"k": view(lc["k"]), "v": view(lc["v"])} for lc in pools]
+    return [{"k": _map_kv(lc["k"], view), "v": _map_kv(lc["v"], view)}
+            for lc in pools]
 
 
 def _scatter_flat(pool_arr, blocks, offsets, rows) -> None:
     """pool[blocks[i], offsets[i]] = rows[i] for every flat row i, in
-    place. Duplicate targets occur only in the garbage block."""
-    pool_arr[blocks.long(), offsets.long()] = rows.to(pool_arr.dtype)
+    place (quantized per row into an int8 pool). Duplicate targets
+    occur only in the garbage block."""
+    _write(pool_arr, (blocks.long(), offsets.long()), rows)
 
 
 def _window_indices(length: int, base: int, block_size: int, width: int,
@@ -102,10 +112,10 @@ def _write_layer(lc, kk, vv, write) -> None:
     write(lc["v"], vv)
 
 
-def _last_logits(x, params, true_len: int):
+def _last_logits(x, params, true_len: int, cfg: ModelConfig):
     """fp32 logits (vocab,) at the window's TRUE last position."""
     h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
-    return _readout(h, params["embed"])[0].float()
+    return _readout(h, params["embed"], cfg.int8_native)[0].float()
 
 
 def scatter_rows(pools, tables, starts, rows_per_layer, active) -> None:
@@ -152,7 +162,8 @@ def paged_prefill_many(params, pools, tokens, true_lens, tables, *,
     positions scatter through its table row ``tables[r]`` (positions
     past them, or past the width, to the garbage block), in place. Each
     row's result equals its own ``paged_prefill``; the flash kernel
-    launches once per layer for the wave. Returns (K, vocab) fp32
+    launches once per layer for the wave, an MoE routes each prompt
+    alone. Returns (K, vocab) fp32
     logits at each row's true last position."""
     k_rows, t_p = tokens.shape
     dev = tokens.device
@@ -168,12 +179,12 @@ def paged_prefill_many(params, pools, tokens, true_lens, tables, *,
         _scatter_flat(pool_arr, blocks, offsets, flat)
 
     for bparams, lc in zip(params["blocks"], pools):
-        x, _, k, v = _block_core(x, bparams, cfg, positions)
+        x, _, k, v = _block_core(x, bparams, cfg, positions, "rows")
         _write_layer(lc, k, v, write)
     lens = torch.as_tensor(true_lens, device=dev)
     h = _rms_norm(x[torch.arange(k_rows, device=dev), lens - 1],
                   params["final_norm"])
-    return _readout(h, params["embed"]).float()
+    return _readout(h, params["embed"], cfg.int8_native).float()
 
 
 def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
@@ -202,7 +213,7 @@ def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
     for bparams, lc, view_lc in zip(params["blocks"], pools, view):
         x, kk, vv = _window_block(x, bparams, cfg, view_lc, base_vec)
         _write_layer(lc, kk, vv, write)
-    return _last_logits(x, params, true_len)
+    return _last_logits(x, params, true_len, cfg)
 
 
 def paged_decode_chunk(params, pools, tables, lengths, last_token, active,

@@ -49,8 +49,16 @@ speculative grids), ``Request.deadline_s`` completes an expired request
 with ``finish_reason="deadline_exceeded"``, ``max_queue`` sheds new
 requests with ``EngineSaturated``, and ``inject_slot_failure`` /
 ``restore_slot`` requeue a slot's request for exact replay and
-quarantine the slot. int8, MoE and meshes are later slices; their
-knobs raise ValueError at construction.
+quarantine the slot.
+
+Every engine serves the int8 tiers (``ModelConfig.int8_kv``: int8 KV
+rows with per-row scales, quantized at every write; ``int8_native``:
+W8A8 products; an int8 weight snapshot from ``quant.quantize_params``)
+and MoE configs (``n_experts``: each decode step routes the grid's
+slots together, each verify-window position the slots at that
+position, each admitted prompt alone, as the JAX package routes them).
+int8 pools serve on the paged gather tier only, as in the reference.
+Meshes are a later slice; a mesh raises ValueError at construction.
 """
 
 from __future__ import annotations
@@ -74,11 +82,13 @@ from kind_tpu_sim_torch.models.decode import (
     _counter_gumbel,
     _filtered_scaled,
     _gumbel_noise,
+    _map_kv,
     _new_chunk_buffers,
     _seed_words,
+    _write,
     init_cache,
 )
-from kind_tpu_sim_torch.models.quant import embed_lookup
+from kind_tpu_sim_torch.models.quant import QuantArray, embed_lookup
 from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
     Params,
@@ -179,8 +189,10 @@ def _prefill_into_slot(params, cache, tokens, true_len: int, slot: int, *,
                        cfg: ModelConfig):
     """Run the prompt (1, L_pad) through the forward and write k/v for
     positions < true_len into row ``slot`` of the cache, in place (the
-    rest of the row is zeroed). Returns the fp32 logits (vocab,) at the
-    TRUE last position; padding cannot leak into them (causal)."""
+    rest of the row is zeroed: in an int8 cache, quantized zeros with
+    scale 1e-8/127, as the reference's padded write leaves). Returns the
+    fp32 logits (vocab,) at the TRUE last position; padding cannot leak
+    into them (causal)."""
     return _prefill_many_into_slots(params, cache, tokens, [true_len], [slot],
                                     cfg=cfg)[0]
 
@@ -192,8 +204,10 @@ def _prefill_many_into_slots(params, cache, tokens, true_lens, slots, *,
     ``slots[r]`` for its first ``true_lens[r]`` positions (the rest of
     the row zeroed), in place. Each row's result equals its own
     ``_prefill_into_slot`` (the flash kernel launches once per layer
-    for the whole wave). Returns (K, vocab) fp32 logits at each row's
-    true last position."""
+    for the whole wave; an MoE routes each prompt alone, over its
+    bucket-padded length, as the reference's scan of single-prompt
+    prefills does). Returns (K, vocab) fp32 logits at each row's true
+    last position."""
     k_rows, t_p = tokens.shape
     dev = tokens.device
     positions = torch.arange(t_p, device=dev)[None, :].expand(k_rows, t_p)
@@ -203,14 +217,15 @@ def _prefill_many_into_slots(params, cache, tokens, true_lens, slots, *,
             < lens[:, None])[:, :, None, None]
     rows = torch.as_tensor(slots, device=dev)
     for bparams, layer_cache in zip(params["blocks"], cache):
-        x, _, k, v = _block_core(x, bparams, cfg, positions)
+        x, _, k, v = _block_core(x, bparams, cfg, positions, "rows")
         for arr, upd in ((layer_cache["k"], k), (layer_cache["v"], v)):
             n = min(t_p, arr.shape[1])
-            arr.index_fill_(0, rows, 0)
-            arr[rows, :n] = torch.where(keep, upd, 0)[:, :n].to(arr.dtype)
+            whole = upd.new_zeros((k_rows, arr.shape[1]) + upd.shape[2:])
+            whole[:, :n] = torch.where(keep, upd, 0)[:, :n]
+            _write(arr, rows, whole)
     last = x[torch.arange(k_rows, device=dev), lens - 1]
     h = _rms_norm(last, params["final_norm"])
-    return _readout(h, params["embed"]).float()
+    return _readout(h, params["embed"], cfg.int8_native).float()
 
 
 def _suffix_into_slot(params, cache, tokens, true_len: int, base: int,
@@ -230,21 +245,22 @@ def _suffix_into_slot(params, cache, tokens, true_len: int, base: int,
     keep = (torch.arange(w, device=dev) < true_len)[None, :, None, None]
     base_vec = torch.full((1,), base, device=dev)
     for bparams, layer_cache in zip(params["blocks"], cache):
-        row = {name: arr[slot:slot + 1] for name, arr in layer_cache.items()}
+        row = {name: _map_kv(arr, lambda a: a[slot:slot + 1])
+               for name, arr in layer_cache.items()}
         x, kk, vv = _window_block(x, bparams, cfg, row, base_vec)
         for arr, upd in ((layer_cache["k"], kk), (layer_cache["v"], vv)):
             n = min(w, arr.shape[1] - base)
-            arr[slot, base:base + n] = torch.where(keep, upd, 0)[0, :n].to(
-                arr.dtype)
+            _write(arr, (slot, slice(base, base + n)),
+                   torch.where(keep, upd, 0)[0, :n])
     h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
-    return _readout(h, params["embed"])[0].float()
+    return _readout(h, params["embed"], cfg.int8_native)[0].float()
 
 
 def _read_slot_rows(cache, slot: int, length: int):
     """Copies of the first ``length`` cache rows of ``slot``, one
-    {"k", "v"} of (1, length, kv, hd) per layer: the store half of
-    dense prefix caching."""
-    return [{name: arr[slot:slot + 1, :length].clone()
+    {"k", "v"} of (1, length, kv, hd) per layer (int8 caches: q and
+    scale, as they are): the store half of dense prefix caching."""
+    return [{name: _map_kv(arr, lambda a: a[slot:slot + 1, :length].clone())
              for name, arr in layer_cache.items()} for layer_cache in cache]
 
 
@@ -253,7 +269,10 @@ def _write_slot_rows(cache, entry_kv, slot: int) -> None:
     device to device, in place: the restore half."""
     for layer_cache, entry in zip(cache, entry_kv):
         for name, arr in layer_cache.items():
-            arr[slot, :entry[name].shape[1]] = entry[name][0]
+            pairs = (zip(arr, entry[name]) if isinstance(arr, QuantArray)
+                     else ((arr, entry[name]),))
+            for dst, src in pairs:
+                dst[slot, :src.shape[1]] = src[0]
 
 
 class PrefixCache:
@@ -393,7 +412,7 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
                                              small):
             x, _ = block_fn(x, bparams, big_lc, small_lc, i)
         x = _rms_norm(x, params["final_norm"])
-        logits = _readout(x, params["embed"])
+        logits = _readout(x, params["embed"], cfg.int8_native)
         if sampled:
             noise = _counter_gumbel(words, gen0 + i, logits.shape[-1])
             nxt = _sample_rows(logits, *knobs, presence, noise=noise)
@@ -412,18 +431,17 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
 
 def _scatter_chunk(cache_arr, small_arr, starts, active) -> None:
     """Merge each slot's chunk-buffer rows into the big cache at that
-    slot's offset, in place. Inactive slots and slots whose window
-    would run past max_len (only reachable on a slot's final round,
-    which retires it) rewrite their current bytes instead."""
+    slot's offset, in place (quantized per row into an int8 cache).
+    Inactive slots and slots whose window would run past max_len (only
+    reachable on a slot's final round, which retires it) rewrite their
+    current bytes instead."""
     b, chunk = small_arr.shape[:2]
     max_len = cache_arr.shape[1]
     sel = active & (starts + chunk <= max_len)
     cols = (torch.clamp(starts, 0, max_len - chunk).long()[:, None]
             + torch.arange(chunk, device=starts.device)[None, :])
     rows = torch.arange(b, device=starts.device)[:, None].expand(b, chunk)
-    cur = cache_arr[rows, cols]
-    cache_arr[rows, cols] = torch.where(sel[:, None, None, None],
-                                        small_arr.to(cache_arr.dtype), cur)
+    _write(cache_arr, (rows, cols), small_arr, keep=sel[:, None, None, None])
 
 
 def _decode_chunk(params, cache, lengths, last_token, active,
@@ -448,17 +466,9 @@ def _decode_chunk(params, cache, lengths, last_token, active,
 def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
     """Loud, not silent: a knob outside the ported slices would
     otherwise "run" and serve with the wrong semantics."""
-    unsupported = {
-        "a mesh": mesh is not None,
-        "cfg.int8_kv": cfg.int8_kv,
-        "cfg.int8_native": cfg.int8_native,
-        "cfg.n_experts>0": cfg.n_experts > 0,
-    }
-    named = [name for name, on in unsupported.items() if on]
-    if named:
+    if mesh is not None:
         raise ValueError(
-            f"{', '.join(named)}: not ported to kind_tpu_sim_torch yet "
-            "(later slices)")
+            "a mesh: not ported to kind_tpu_sim_torch yet (later slices)")
     waves = serving.admission_wave_sizes
     if waves and (1 not in waves
                   or any(w < 1 or w > serving.max_slots for w in waves)):

@@ -32,7 +32,11 @@ while its law is the same. Greedy streams equal the JAX package's.
 The window attention (``_window_block``) is plain PyTorch, as the
 reference's is plain XLA: fp32 scores from the stored values, one
 softmax over the cache and window groups, probabilities rounded to the
-value dtype before each PV product and each product rounded to it.
+value dtype before each PV product and each product rounded to it. An
+int8 cache is read as ``decode._cache_scores`` / ``_cache_values`` read
+it (the window's positions folded into one product a (slot, kv head);
+with ``int8_native`` the exact int8 kernel), its window rows quantized
+at the write; an MoE routes each window position over the slots.
 Prompt admission uses it too: a prefix-cache hit runs its prompt's
 suffix through it, and so does every chunked-prefill window after the
 first (``serving._suffix_into_slot``, ``paged.paged_suffix``).
@@ -48,11 +52,14 @@ import torch
 from kind_tpu_sim_torch.device import resolve, to_device, torch_dtype
 from kind_tpu_sim_torch.models.decode import (
     NEG,
+    _cache_scores,
+    _cache_values,
     _counter_gumbel,
     _counter_uniform,
     _filtered_scaled,
     _finish_block,
     _seed_words,
+    _write,
     prefill,
 )
 from kind_tpu_sim_torch.models.quant import embed_lookup, linear
@@ -102,8 +109,10 @@ def _window_block(x, bparams, cfg: ModelConfig, layer_cache, base):
     write."""
     b, w, _ = x.shape
     dtype = torch_dtype(cfg.dtype)
+    native = cfg.int8_native
     h = _rms_norm(x, bparams["attn_norm"])
-    q, kk, vv = _split_qkv(linear(h, bparams["wqkv"]), cfg, b, w)
+    q, kk, vv = _split_qkv(linear(h, bparams["wqkv"], native=native), cfg,
+                           b, w)
     positions = base[:, None] + torch.arange(w, device=x.device)[None, :]
     q = _rotary(q, positions)
     kk = _rotary(kk, positions)
@@ -111,21 +120,20 @@ def _window_block(x, bparams, cfg: ModelConfig, layer_cache, base):
     group = cfg.n_heads // cfg.kv_heads
     scale = cfg.head_dim ** -0.5
     s_big = layer_cache["k"].shape[1]
-    qg = q.reshape(b, w, cfg.kv_heads, group, cfg.head_dim).float()
-    sc_big = torch.einsum("bwkgd,bskd->bwkgs", qg,
-                          layer_cache["k"].float()) * scale
+    qg = q.reshape(b, w, cfg.kv_heads, group, cfg.head_dim)
+    sc_big = _cache_scores(qg, layer_cache["k"], scale, native)
     big_mask = (torch.arange(s_big, device=x.device)[None, :]
                 < base[:, None])                               # (b, s)
     sc_big = sc_big.masked_fill(~big_mask[:, None, None, None, :], NEG)
-    sc_win = torch.einsum("bwkgd,bvkd->bwkgv", qg, kk.float()) * scale
+    sc_win = torch.einsum("bwkgd,bvkd->bwkgv", qg.float(),
+                          kk.float()) * scale
     causal = torch.tril(torch.ones((w, w), dtype=torch.bool,
                                    device=x.device))
     sc_win = sc_win.masked_fill(~causal[None, :, None, None, :], NEG)
 
     probs = torch.softmax(torch.cat([sc_big, sc_win], dim=-1), dim=-1)
-    attn_big = torch.einsum(
-        "bwkgs,bskd->bwkgd", probs[..., :s_big].to(dtype).float(),
-        layer_cache["v"].float()).to(dtype)
+    attn_big = _cache_values(probs[..., :s_big], layer_cache["v"], dtype,
+                             native)
     attn_win = torch.einsum(
         "bwkgv,bvkd->bwkgd", probs[..., s_big:].to(dtype).float(),
         vv.float()).to(dtype)
@@ -135,20 +143,17 @@ def _window_block(x, bparams, cfg: ModelConfig, layer_cache, base):
 
 def _write_window(cache_arr, upd, starts, active=None) -> None:
     """Write ``upd`` (b, w, kv, hd) into ``cache_arr`` (b, s, kv, hd) at
-    per-row offsets ``starts`` (b,), in place: one indexed write. A
-    start is clamped so the window fits, as the reference's
-    ``dynamic_update_slice`` clamps it. Rows where ``active`` (b,) is
-    False rewrite their current bytes."""
+    per-row offsets ``starts`` (b,), in place: one indexed write,
+    quantized per row into an int8 cache. A start is clamped so the
+    window fits, as the reference's ``dynamic_update_slice`` clamps it.
+    Rows where ``active`` (b,) is False rewrite their current bytes."""
     b, w = upd.shape[:2]
     dev = upd.device
     starts = torch.clamp(starts, 0, cache_arr.shape[1] - w).long()
     rows = torch.arange(b, device=dev)[:, None]
     cols = starts[:, None] + torch.arange(w, device=dev)[None, :]
-    upd = upd.to(cache_arr.dtype)
-    if active is not None:
-        upd = torch.where(active[:, None, None, None], upd,
-                          cache_arr[rows, cols])
-    cache_arr[rows, cols] = upd
+    keep = None if active is None else active[:, None, None, None]
+    _write(cache_arr, (rows, cols), upd, keep)
 
 
 def _write_rows(cache, rows, base, active=None) -> None:
@@ -266,7 +271,8 @@ def _window_forward(params, cache_like, out, total, *, cfg: ModelConfig,
         x, kk, vv = _window_block(x, bparams, cfg, layer_cache, base)
         rows.append({"k": kk, "v": vv})
     x = _rms_norm(x, params["final_norm"])
-    return draft, base, _readout(x, params["embed"]).float(), rows
+    return (draft, base,
+            _readout(x, params["embed"], cfg.int8_native).float(), rows)
 
 
 def _accept_and_emit(logits, draft, out, total, active, sampling, *, k: int):
@@ -446,7 +452,8 @@ def _draft_propose(draft_params, draft_cache, out, total, *,
             _write_window(lc["k"], kk, base0 + i)
             _write_window(lc["v"], vv, base0 + i)
         h = _rms_norm(x[:, 0, :], draft_params["final_norm"])
-        tok = torch.argmax(_readout(h, draft_params["embed"]), dim=-1)
+        tok = torch.argmax(_readout(h, draft_params["embed"],
+                                    dcfg.int8_native), dim=-1)
         drafts.append(tok)
     return torch.stack(drafts[:k], dim=1)
 

@@ -10,8 +10,10 @@ tree converts leaf by leaf (``kind_tpu_sim_torch.weights``).
 Training runs here too: ``loss_fn``, ``make_train_step`` (AdamW or
 SGD, parameters updated in place) and ``sample_batch``; with
 ``ModelConfig.remat`` each block's activations are recomputed in the
-backward instead of kept. MoE, int8 and ring attention belong to later
-slices.
+backward instead of kept. ``n_experts > 0`` swaps each block's MLP for
+a Switch-MoE (``models/moe.py``, its auxiliary loss added to the
+loss); int8 snapshots (``models/quant.py``) serve through the same
+forward. Ring attention belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -39,11 +41,11 @@ class ModelConfig:
     max_seq: int = 128
     dtype: str = "bfloat16"       # activation/matmul dtype
     remat: bool = False           # recompute each block in the backward
-    n_experts: int = 0            # >0: Switch-MoE MLP (later slice)
+    n_experts: int = 0            # >0: Switch-MoE MLP
     n_kv_heads: Optional[int] = None  # grouped-query attention; None = MHA
     flash: bool = False           # flash-attention kernel in prefill
-    int8_kv: bool = False         # int8 KV cache (later slice)
-    int8_native: bool = False     # W8A8 (later slice)
+    int8_kv: bool = False         # int8 KV cache (serving)
+    int8_native: bool = False     # W8A8: exact int8 x int8 -> int32 products
     seq_parallel: bool = False    # ring attention (later slice)
 
     @property
@@ -85,11 +87,10 @@ def bench_config_large() -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configuration features later slices of the port add."""
-    for name in ("n_experts", "int8_kv", "int8_native", "seq_parallel"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"ModelConfig.{name} is not ported yet (a later slice "
-                "of kind_tpu_sim_torch)")
+    if cfg.seq_parallel:
+        raise NotImplementedError(
+            "ModelConfig.seq_parallel is not ported yet (a later slice "
+            "of kind_tpu_sim_torch)")
 
 
 # ---------------------------------------------------------------------
@@ -119,16 +120,24 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "blocks": [],
     }
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
+        block = {
             "attn_norm": torch.ones(cfg.d_model, device=dev),
             "mlp_norm": torch.ones(cfg.d_model, device=dev),
             "wqkv": dense(
                 (cfg.d_model,
                  (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim), scale),
             "wo": dense((cfg.d_model, cfg.d_model), scale),
-            "w_up": dense((cfg.d_model, cfg.d_ff), scale),
-            "w_down": dense((cfg.d_ff, cfg.d_model), cfg.d_ff ** -0.5),
-        })
+        }
+        if cfg.n_experts > 0:
+            from kind_tpu_sim_torch.models.moe import (MoeConfig,
+                                                       init_moe_params)
+
+            block["moe"] = init_moe_params(generator, cfg.d_model, cfg.d_ff,
+                                           MoeConfig(n_experts=cfg.n_experts))
+        else:
+            block["w_up"] = dense((cfg.d_model, cfg.d_ff), scale)
+            block["w_down"] = dense((cfg.d_ff, cfg.d_model), cfg.d_ff ** -0.5)
+        params["blocks"].append(block)
     return params
 
 
@@ -136,12 +145,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # forward
 
 
-def _readout(x, embed):
-    """Weight-tied fp32 logits — the one definition forward, prefill
-    and decode share (the cache-vs-forward argmax contract)."""
+def _readout(x, embed, native=False):
+    """Weight-tied fp32 logits (plain or int8 embedding) — the one
+    definition forward, prefill and decode share (the cache-vs-forward
+    argmax contract)."""
     from kind_tpu_sim_torch.models.quant import readout
 
-    return readout(x, embed)
+    return readout(x, embed, native=native)
 
 
 def _rms_norm(x, weight, eps=1e-6):
@@ -229,20 +239,46 @@ def _gelu(x):
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
-def _mlp(h, bparams):
+def _mlp(h, bparams, cfg: ModelConfig, route: str = "all"):
+    """The block's MLP on the normed ``h`` -> (out, aux loss). Dense: the
+    GELU MLP (plain or int8 weights), aux 0. MoE: the tokens that share
+    the experts' capacity are, by ``route``, all of ``h`` ("all": the
+    forward and a batched prefill), each batch row of h (b, t, d) alone
+    ("rows": one prompt a prefill, as the reference admits a wave one
+    prompt at a time), or each column of h (b, w, d), every row of h
+    (b, d) ("columns": a decode step, or one position of a verify
+    window, routes over the slots)."""
     from kind_tpu_sim_torch.models.quant import linear
 
-    return linear(_gelu(linear(h, bparams["w_up"])), bparams["w_down"])
+    if "moe" not in bparams:
+        native = cfg.int8_native
+        return linear(_gelu(linear(h, bparams["w_up"], native=native)),
+                      bparams["w_down"], native=native), 0.0
+    from kind_tpu_sim_torch.models.moe import MoeConfig, moe_mlp
+
+    moe = MoeConfig(n_experts=cfg.n_experts)
+    if route == "all":
+        return moe_mlp(h, bparams["moe"], moe)
+    groups = h if route == "rows" else (
+        h[:, None] if h.dim() == 2 else h).transpose(0, 1)
+    outs = [moe_mlp(g[None], bparams["moe"], moe) for g in groups]
+    out = torch.cat([o for o, _ in outs])
+    if route == "columns":
+        out = out.transpose(0, 1).reshape(h.shape)
+    return out, sum(a for _, a in outs)
 
 
-def _block_core(x, bparams, cfg: ModelConfig, positions):
+def _block_core(x, bparams, cfg: ModelConfig, positions,
+                moe_route: str = "all"):
     """Block body, also exposing the rotated k/v so the decode prefill
-    can fill its cache. Returns (x_out, aux_loss, k, v)."""
+    can fill its cache. Returns (x_out, aux_loss, k, v); ``moe_route``
+    is ``_mlp``'s ``route``."""
     from kind_tpu_sim_torch.models.quant import linear
 
     b, t, _ = x.shape
+    native = cfg.int8_native
     h = _rms_norm(x, bparams["attn_norm"])
-    qkv = linear(h, bparams["wqkv"])
+    qkv = linear(h, bparams["wqkv"], native=native)
     q, k, v = _split_qkv(qkv, cfg, b, t)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
@@ -255,46 +291,53 @@ def _block_core(x, bparams, cfg: ModelConfig, positions):
     else:
         attn = _attention(q, k, v)
     attn = attn.reshape(b, t, cfg.d_model)
-    x = x + linear(attn, bparams["wo"])
-    h = _rms_norm(x, bparams["mlp_norm"])
-    return x + _mlp(h, bparams), 0.0, k, v
+    x = x + linear(attn, bparams["wo"], native=native)
+    out, aux = _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams, cfg,
+                    moe_route)
+    return x + out, aux, k, v
 
 
 def _block(x, bparams, cfg: ModelConfig, positions):
-    return _block_core(x, bparams, cfg, positions)[0]
+    x, aux, _, _ = _block_core(x, bparams, cfg, positions)
+    return x, aux
 
 
-def forward(params: Params, tokens, cfg: ModelConfig):
-    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32.
-    Differentiable in every parameter (the flash kernels through
-    ``FlashAttentionFunction``). With ``cfg.remat`` every block runs
-    under ``torch.utils.checkpoint`` (non-reentrant), as the reference
-    wraps it in ``jax.checkpoint``: the backward runs the block's forward
-    again instead of keeping its activations."""
+def forward(params: Params, tokens, cfg: ModelConfig,
+            return_aux: bool = False):
+    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32;
+    with ``return_aux`` also the summed MoE load-balancing loss (0 for
+    dense configs). Differentiable in every parameter (the flash
+    kernels through ``FlashAttentionFunction``). With ``cfg.remat``
+    every block runs under ``torch.utils.checkpoint`` (non-reentrant),
+    as the reference wraps it in ``jax.checkpoint``: the backward runs
+    the block's forward again instead of keeping its activations."""
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
     check_supported(cfg)
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
+    aux_total = 0.0
     for bparams in params["blocks"]:
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _block, x, bparams, cfg, positions, use_reentrant=False)
         else:
-            x = _block(x, bparams, cfg, positions)
+            x, aux = _block(x, bparams, cfg, positions)
+        aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"])
-    return _readout(x, params["embed"])
+    logits = _readout(x, params["embed"], cfg.int8_native)
+    return (logits, aux_total) if return_aux else logits
 
 
 def loss_fn(params: Params, tokens, cfg: ModelConfig):
     """Next-token cross-entropy: the forward over ``tokens[:, :-1]``,
     log-softmax in fp32, mean negative log-likelihood of
-    ``tokens[:, 1:]``. No aux term (MoE is not ported)."""
-    logits = forward(params, tokens[:, :-1], cfg)
+    ``tokens[:, 1:]``, plus the MoE auxiliary loss."""
+    logits, aux = forward(params, tokens[:, :-1], cfg, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-    return -picked.mean()
+    return -picked.mean() + aux
 
 
 # ---------------------------------------------------------------------
@@ -303,9 +346,15 @@ def loss_fn(params: Params, tokens, cfg: ModelConfig):
 
 def _leaves(params: Params) -> List[torch.Tensor]:
     """The parameter tensors in a fixed order (embed, final_norm, then
-    each block's leaves in key order)."""
+    each block's leaves in key order, an MoE subtree's in its own key
+    order)."""
+    def block_leaves(node):
+        return [leaf for key in sorted(node) for leaf in (
+            block_leaves(node[key]) if isinstance(node[key], dict)
+            else [node[key]])]
+
     return ([params["embed"], params["final_norm"]]
-            + [b[key] for b in params["blocks"] for key in sorted(b)])
+            + [leaf for b in params["blocks"] for leaf in block_leaves(b)])
 
 
 @torch.no_grad()
@@ -335,7 +384,8 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
     1e-2), bias correction, no amsgrad — as ``torch.optim.AdamW`` with
     its default implementation (``foreach`` on the card, the per-tensor
     loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
-    The unported config features (MoE, int8, ring attention) raise."""
+    ``n_experts > 0`` trains the MoE through autograd, its auxiliary
+    loss in the loss; ring attention (``seq_parallel``) raises."""
     check_supported(cfg)
     dev = resolve(device)
 
@@ -343,10 +393,14 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
         if isinstance(source, torch.Generator):
             params = init_params(cfg, source, dev)
         else:
+            def to_dev(node):
+                if isinstance(node, dict):
+                    return {k: to_dev(v) for k, v in node.items()}
+                return node.to(dev)
+
             params = {"embed": source["embed"].to(dev),
                       "final_norm": source["final_norm"].to(dev),
-                      "blocks": [{k: v.to(dev) for k, v in b.items()}
-                                 for b in source["blocks"]]}
+                      "blocks": [to_dev(b) for b in source["blocks"]]}
         for p in _leaves(params):
             p.requires_grad_(True)
         opt = None

@@ -4,7 +4,11 @@ A JAX parameter tree (the same dict/list nesting, leaves as numpy
 arrays — e.g. ``jax.tree_util.tree_map(lambda a: np.asarray(a,
 np.float32), params)``) becomes the port's parameter dict. bf16 leaves
 cross as fp32 numpy arrays and are cast back to bf16 here, which is
-lossless, so no bf16 numpy dtype is needed on this side.
+lossless, so no bf16 numpy dtype is needed on this side. An int8
+weight crosses as an object with ``.q`` and ``.scale`` (the JAX
+package's ``QuantArray`` of numpy arrays) or a ``(q, scale)`` tuple
+whose q is int8, and becomes the port's ``quant.QuantArray``; an MoE
+block's ``moe`` subtree crosses as a dict.
 """
 
 from __future__ import annotations
@@ -13,27 +17,35 @@ import numpy as np
 import torch
 
 from kind_tpu_sim_torch.device import resolve
+from kind_tpu_sim_torch.models.quant import QuantArray
 
 
 def params_from_numpy(tree, cfg, device="cuda", dtype=None):
     """numpy tree -> torch params on ``device``. With ``dtype`` the
-    leaves of two or more dimensions (matmul weights, embedding) are
-    cast to it and 1-D leaves (norm scales) stay fp32 — the layout of
-    ``decode.serving_params``. Shapes are checked against ``cfg``."""
+    leaves of two or more dimensions (matmul weights, embedding, MoE
+    experts) are cast to it; 1-D leaves (norm scales) and the MoE
+    ``router`` stay fp32 — the layout of ``decode.serving_params``. An
+    int8 weight's q and scale are never cast. Shapes are checked
+    against ``cfg``."""
     dev = resolve(device)
 
-    def convert(leaf):
-        t = torch.from_numpy(np.array(leaf)).to(dev)
-        if dtype is not None and t.ndim >= 2:
-            t = t.to(dtype)
-        return t
+    def tensor(leaf):
+        return torch.from_numpy(np.array(leaf)).to(dev)
 
-    def walk(node):
+    def walk(node, name=None):
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QuantArray(q=tensor(node.q), scale=tensor(node.scale))
+        if (isinstance(node, tuple) and len(node) == 2
+                and np.asarray(node[0]).dtype == np.int8):
+            return QuantArray(q=tensor(node[0]), scale=tensor(node[1]))
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return convert(node)
+        t = tensor(node)
+        if dtype is not None and t.ndim >= 2 and name != "router":
+            t = t.to(dtype)
+        return t
 
     params = walk(tree)
     if tuple(params["embed"].shape) != (cfg.vocab_size, cfg.d_model):

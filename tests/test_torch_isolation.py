@@ -5,13 +5,15 @@
   reference, not a dependency); the package imports with ``jax``
   blocked.
 * Entry points run on the CUDA card unless the caller asks for the
-  CPU: without a card they raise instead of carrying on on the CPU.
+  CPU: without a card they raise instead of carrying on on the CPU,
+  for int8 and MoE configs too.
 * The kernel build raises when ``nvcc`` is missing, and
   ``chip_smoke.py`` exits non-zero with no result line when there is no
   card or no package beside it.
 """
 
 import ast
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -26,11 +28,13 @@ from kind_tpu_sim_torch import data as pdata
 from kind_tpu_sim_torch import device as pdevice
 from kind_tpu_sim_torch.models import checkpoint as pckpt
 from kind_tpu_sim_torch.models import decode as pdecode
+from kind_tpu_sim_torch.models import quant as pquant
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import speculative as pspec
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.ops import _build
 from kind_tpu_sim_torch.ops import flash_attention as fa
+from kind_tpu_sim_torch.ops import int8_matmul as i8
 from kind_tpu_sim_torch.ops import toolchain as tc
 from kind_tpu_sim_torch.weights import params_from_numpy
 
@@ -107,6 +111,13 @@ def test_entry_points_without_a_card_raise(no_card, tmp_path):
         pserving.ServingEngine(params, CFG)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ptf.init_params(CFG)
+    moe = dataclasses.replace(CFG, n_experts=2, int8_kv=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptf.init_params(moe)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pdecode.init_cache(moe, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserving.ServingEngine(pquant.quantize_params(params, moe), moe)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pdecode.greedy_generate(params, CFG, [[1, 2, 3]], 2)
     spec = pserving.ServingConfig(speculative_k=2, paged_blocks=4)
@@ -183,6 +194,9 @@ def test_wrappers_refuse_other_devices():
         tc.rms_norm(x, x[0])
     with pytest.raises(ValueError, match="unsupported device"):
         tc.softmax(x)
+    a = torch.zeros(8, 16, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        i8.int8_matmul(a, a.t())
 
 
 def _run_smoke(cwd, home):

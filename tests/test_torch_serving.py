@@ -19,15 +19,18 @@ import jax
 import jax.numpy as jnp
 
 from kind_tpu_sim.models import decode as jdecode
+from kind_tpu_sim.models import quant as jquant
 from kind_tpu_sim.models import serving as jserving
 from kind_tpu_sim.models import transformer as jtransformer
 from kind_tpu_sim_torch.models import decode as pdecode
+from kind_tpu_sim_torch.models import quant as pquant
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptransformer
 
 from torch_parity import (
     TINY,
     assert_margins,
+    assert_streams_split_only_at_ties,
     drive,
     jax_cfg,
     make_params,
@@ -37,6 +40,11 @@ from torch_parity import (
 CFG = TINY
 MARGIN = 1e-3
 MAX_NEW = 12
+# an int8 or MoE stream may split from the reference's only where the
+# reference's top-2 logits lie within this share of its largest logit:
+# a one-step change of one quantized value moves a logit by up to about
+# 1/127 of its row's scale
+SPLIT_REL = 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -247,8 +255,8 @@ def test_serving_from_params_that_require_grad_builds_no_graph(
     logits_grad = []
     real = quant.readout
 
-    def spy(x, embed):
-        out = real(x, embed)
+    def spy(x, embed, native=False):
+        out = real(x, embed, native)
         logits_grad.append(out.requires_grad)
         return out
 
@@ -353,11 +361,30 @@ def test_admission_knobs_are_served(params, stream_prompts, knob):
 
 
 @pytest.mark.parametrize("field", ["int8_kv", "int8_native", "n_experts"])
-def test_config_features_outside_the_slice_raise(params, field):
-    cfg = dataclasses.replace(CFG, **{field: True})
-    with pytest.raises(ValueError, match="not ported"):
-        pserving.ServingEngine(params[1], cfg, pserving.ServingConfig(),
-                               device="cpu")
+def test_config_features_outside_the_slice_raise(params, stream_prompts,
+                                                 field):
+    """These config features are served now (only a mesh still raises):
+    the int8 flags on an int8 snapshot (``quantize_params`` on both
+    sides) and ``n_experts`` on MoE weights from the JAX init, each
+    through ``ServingEngine``, emit the JAX engine's greedy streams (a
+    split allowed only at a near tie, ``SPLIT_REL``)."""
+    value = 4 if field == "n_experts" else True
+    cfg = dataclasses.replace(CFG, **{field: value})
+    if field == "n_experts":
+        jparams, pparams = make_params(cfg, embed_scale=0.5, block_scale=6.0)
+    else:
+        jparams = jquant.quantize_params(params[0], jax_cfg(cfg))
+        pparams = pquant.quantize_params(params[1], cfg)
+    sc = dict(max_slots=2, max_len=48, chunk=8)
+    want = drive(jserving, jserving.ServingEngine(
+        jparams, jax_cfg(cfg), jserving.ServingConfig(**sc)),
+        stream_prompts, MAX_NEW)
+    got = drive(pserving, pserving.ServingEngine(
+        pparams, cfg, pserving.ServingConfig(**sc), device="cpu"),
+        stream_prompts, MAX_NEW)
+    assert_streams_split_only_at_ties(
+        jparams, cfg, stream_prompts, {r: c.tokens for r, c in got.items()},
+        {r: c.tokens for r, c in want.items()}, SPLIT_REL)
 
 
 FIELD_CLASSES = {

@@ -88,8 +88,14 @@ def _port_run(cfg, tree, batches, use_optax):
 
 
 def _leaf_pairs(jparams, pparams):
+    def block_leaves(node):  # ptf._leaves's order: keys sorted, nested too
+        return [leaf for key in sorted(node) for leaf in (
+            block_leaves(node[key]) if isinstance(node[key], dict)
+            else [node[key]])]
+
     jleaves = ([jparams["embed"], jparams["final_norm"]]
-               + [b[key] for b in jparams["blocks"] for key in sorted(b)])
+               + [leaf for b in jparams["blocks"]
+                  for leaf in block_leaves(b)])
     return [(np.asarray(j, np.float32), p.detach().float().numpy())
             for j, p in zip(jleaves, ptf._leaves(pparams))]
 
@@ -221,7 +227,25 @@ def test_remat_matches(name):
 @pytest.mark.parametrize("field", ["n_experts", "int8_kv", "int8_native",
                                    "seq_parallel"])
 def test_unported_training_features_raise(field):
+    """Only ``seq_parallel`` (ring attention) still raises. ``n_experts``
+    trains through autograd with the MoE auxiliary loss in the loss, as
+    the JAX ``make_train_step`` does (AdamW, the fp32 bars above); the
+    int8 serving flags take no path in training (fp32 parameters are
+    plain tensors), so those steps equal the plain config's exactly and
+    the JAX package's at the fp32 bars."""
     value = 2 if field == "n_experts" else True
     cfg = dataclasses.replace(MODEL, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        ptf.make_train_step(cfg, device="cpu")
+    if field == "seq_parallel":
+        with pytest.raises(NotImplementedError, match=field):
+            ptf.make_train_step(cfg, device="cpu")
+        return
+    tree, batches = _tree(cfg), _batches(cfg)[:2]
+    want_losses, want = _jax_run(cfg, tree, batches, True)
+    got_losses, got = _port_run(cfg, tree, batches, True)
+    loss_tol, param_tol = FP32_TOL[True]
+    np.testing.assert_allclose(got_losses, want_losses, atol=loss_tol,
+                               rtol=0)
+    for j, p in _leaf_pairs(want, got):
+        np.testing.assert_allclose(p, j, atol=param_tol, rtol=0)
+    if field != "n_experts":
+        assert got_losses == _port_run(MODEL, tree, batches, True)[0]

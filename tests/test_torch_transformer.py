@@ -170,6 +170,22 @@ def test_params_from_numpy_checks_shapes():
 
 
 def test_unported_config_features_raise():
+    """``n_experts`` is served now: ``init_params`` builds the reference's
+    MoE subtree in place of the dense MLP (router (d, e), w_up (e, d,
+    d_ff), w_down (e, d_ff, d), fp32) and the forward runs it, returning
+    its auxiliary loss; ``seq_parallel`` still raises."""
     cfg = dataclasses.replace(CONFIGS["fp32_mha"], n_experts=4)
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        ptf.init_params(cfg, device="cpu")
+    params = ptf.init_params(cfg, device="cpu")
+    jparams = jtf.init_params(jax.random.PRNGKey(0), jax_cfg(cfg))
+    for pb, jb in zip(params["blocks"], jparams["blocks"]):
+        assert sorted(pb) == sorted(jb)
+        assert sorted(pb["moe"]) == sorted(jb["moe"])
+        for name, leaf in jb["moe"].items():
+            assert tuple(pb["moe"][name].shape) == leaf.shape
+            assert pb["moe"][name].dtype == torch.float32
+    toks = torch.as_tensor(_tokens(cfg, 2, 16)).long()
+    logits, aux = ptf.forward(params, toks, cfg, return_aux=True)
+    assert torch.isfinite(logits).all() and float(aux) > 0
+    with pytest.raises(NotImplementedError, match="seq_parallel"):
+        ptf.init_params(dataclasses.replace(cfg, seq_parallel=True),
+                        device="cpu")

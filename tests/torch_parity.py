@@ -41,7 +41,8 @@ def make_params(cfg, seed=0, embed_scale=1.0, block_scale=1.0):
     tree["embed"] = tree["embed"] * np.float32(embed_scale)
     for block in tree["blocks"]:
         block["wo"] = block["wo"] * np.float32(block_scale)
-        block["w_down"] = block["w_down"] * np.float32(block_scale)
+        mlp = block.get("moe", block)
+        mlp["w_down"] = mlp["w_down"] * np.float32(block_scale)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     return jparams, params_from_numpy(tree, cfg, device="cpu")
 
@@ -79,3 +80,32 @@ def assert_margins(params, cfg, prompt, tokens, tol):
     top2 = steps.topk(2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).numpy()
     assert margins.min() > tol, (margins.min(), tol)
+
+
+def assert_streams_split_only_at_ties(jparams, cfg, ps, got, want, rel):
+    """Greedy streams ``got`` and ``want`` ({request id: tokens}, the
+    prompts ``ps`` in request order "r0", "r1", ...) are equal, or each
+    first splits where the JAX forward's top-2 logits (plain attention,
+    on the reference's weights and config ``cfg``) lie within ``rel`` of
+    its largest logit magnitude: int8 rounding on either side may turn
+    a near tie, nothing else may. Returns the count of splits."""
+    import jax.numpy as jnp
+
+    from kind_tpu_sim.models import transformer as jtf
+
+    assert sorted(got) == sorted(want)
+    jcfg = jax_cfg(dataclasses.replace(cfg, flash=False))
+    splits = 0
+    for rid in sorted(want):
+        a, b = list(got[rid]), list(want[rid])
+        assert len(a) == len(b), rid
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = jnp.asarray([list(ps[int(rid[1:])]) + b[:i]], jnp.int32)
+        logits = np.asarray(jtf.forward(jparams, seq, jcfg))[0, -1]
+        top2 = np.sort(logits)[-2:]
+        margin = float(top2[1] - top2[0]) / float(np.abs(logits).max())
+        assert margin < rel, (rid, i, a[i], b[i], margin, rel)
+        splits += 1
+    return splits
