@@ -27,12 +27,16 @@ it fails (nothing is caught and ignored):
    blocks, and the flash backward's dq and dk/dv kernels at the
    training shape, fed the forward kernel's out and lse as training
    feeds them (the forward checked and timed there too); then the
-   exact int8 product (``csrc/int8_matmul.cu``) at every W8A8 shape of
-   the flagship (decode's weights, the readout against the embedding
-   read in place, the int8 cache's scores and values read in place,
-   prefill's w_up), a ragged K and the largest |sum|, bitwise equal
-   to its plain version, timed beside it, ``torch._int_mm`` and the
-   dequant product;
+   exact int8 product at every W8A8 shape of the flagship (decode's
+   weights held K-major, the readout against the embedding read in
+   place, a verify window's 40 rows, the int8 cache's scores and values
+   read in place, w_up over an admission wave, prefill's w_up and
+   w_down), a ragged K and the largest |sum|, through the wrapper (its
+   route asserted) and through every route that takes the shape
+   (``wgmma``, ``csrc/int8_matmul_tc.cu``; ``gemv``,
+   ``csrc/int8_gemv.cu``; ``dp4a``, ``csrc/int8_matmul.cu``), each
+   bitwise equal to its plain version, the routes timed in turns beside
+   it, ``torch._int_mm`` and the dequant product;
 3. small  -- a tiny fp32 model served on the card (kernel tier) must
    emit the streams the CPU plain path emits: under pool pressure, with
    paged prefix hits, with dense chunked prefill, as a wave of 5,
@@ -79,7 +83,10 @@ it fails (nothing is caught and ignored):
    4g. int8 -- solo decode as the reference bench runs it (batch 8,
    1024-token prompts, 512 new tokens) on bf16, W8A8 + int8 KV and
    dequant + int8 KV (first-step logits correlated > 0.99 with bf16's,
-   every int8 launch counted), ``serving_saturated_int8`` beside the
+   every int8 launch counted: the prefill linears on ``wgmma``, every
+   decode step's products on ``gemv``; each tier's prefill time, and a
+   W8A8 step's int8 device time traced), ``serving_saturated_int8``
+   beside the
    bf16 ``serving_saturated``, phase 4's stream on int8 pools (gather
    tier) and the kernel tier's refusal of them;
    4h. MoE -- the flagship with 4 experts: phase 4's stream through the
@@ -1076,37 +1083,50 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
 
 
 INT8_HEADLINE = "w_up"   # the kernels line's row: decode's largest weight
+# products too large for the plain version's int64 sums to be timed
+INT8_UNTIMED_PLAIN = ("wave_w_up", "prefill_w_up", "prefill_w_down")
 
 
 def int8_cases(gen) -> dict:
     """The W8A8 products of the flagship (d_model 2048, d_ff 8192, 16 query
     heads over 4 KV heads of 128, vocab 32768): {name: (a, b)}. Decode's
-    weight products at batch 8 (b (K, N), N contiguous); the readout
-    against an embedding's int8 rows read in place (``embed.q.t()``, K
-    contiguous); the cache scores and values at batch 8 over 1536
-    positions, read in place from a (b, s, kv, hd) cache; prefill's w_up
-    over a wave of 8 x 1024 tokens; a ragged K (1027, not a multiple of
-    4) with ragged M and N; rows of -127 against columns of 127, the
-    largest |sum| (127^2 x 8192)."""
+    weight products at batch 8 (b (K, N) held K-major, as
+    ``quant.quantize_params`` holds it); the readout against an
+    embedding's int8 rows read in place (``embed.q.t()``, K contiguous);
+    a verify window's 8 slots x 5 rows against w_up; the cache scores and
+    values at batch 8 over 1536 positions, read in place from a (b, s,
+    kv, hd) cache; w_up over an admission wave of 8 x 256 tokens and over
+    prefill's 8 x 1024, and prefill's w_down; a ragged K (1027, not a
+    multiple of 4) with ragged M and N; rows of -127 against columns of
+    127, the largest |sum| (127^2 x 8192), at decode's 8 rows and at 200
+    (the tensor cores)."""
     def r8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda",
                              dtype=torch.int16).to(torch.int8)
 
+    def k_major(n, k):
+        return r8(n, k).t()
+
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=torch.int8, device="cuda")
+
     embed_q = r8(32768, 2048)
     k_cache, v_cache = r8(8, 1536, 4, 128), r8(8, 1536, 4, 128)
     return {
-        "wqkv": (r8(8, 2048), r8(2048, 3072)),
-        "w_up": (r8(8, 2048), r8(2048, 8192)),
-        "w_down": (r8(8, 8192), r8(8192, 2048)),
+        "wqkv": (r8(8, 2048), k_major(3072, 2048)),
+        "wo": (r8(8, 2048), k_major(2048, 2048)),
+        "w_up": (r8(8, 2048), k_major(8192, 2048)),
+        "w_down": (r8(8, 8192), k_major(2048, 8192)),
         "readout": (r8(8, 2048), embed_q.t()),
+        "verify_w_up": (r8(40, 2048), k_major(8192, 2048)),
         "cache_scores": (r8(8, 4, 4, 128), k_cache.permute(0, 2, 3, 1)),
         "cache_values": (r8(8, 4, 4, 1536), v_cache.permute(0, 2, 1, 3)),
-        "prefill_w_up": (r8(8192, 2048), r8(2048, 8192)),
+        "wave_w_up": (r8(2048, 2048), k_major(8192, 2048)),
+        "prefill_w_up": (r8(8192, 2048), k_major(8192, 2048)),
+        "prefill_w_down": (r8(8192, 8192), k_major(2048, 8192)),
         "ragged": (r8(37, 1027), r8(1027, 301)),
-        "extreme": (torch.full((8, 8192), -127, dtype=torch.int8,
-                               device="cuda"),
-                    torch.full((8192, 2048), 127, dtype=torch.int8,
-                               device="cuda")),
+        "extreme": (full(-127, 8, 8192), full(127, 2048, 8192).t()),
+        "extreme_tc": (full(-127, 200, 8192), full(127, 2048, 8192).t()),
     }
 
 
@@ -1124,46 +1144,90 @@ def _int_mm_ms(a, b, want):
     return time_ms(lambda: torch._int_mm(ap, b))
 
 
+def time_int8_routes(im, name: str, a, b, routes) -> dict:
+    """Every route that takes (a, b), launched uncounted through
+    ``im._launch``, timed in turns (the routes in order, then reversed)
+    both ways (``time_ms``, and device time alone), each the mean of its
+    two medians, and by host time per call. Returns {route: {"ms",
+    "device_ms", "host_us"}}."""
+    res = {r: {} for r in routes}
+    order = list(routes) + list(reversed(routes))
+    for cover, key in ((False, "ms"), (True, "device_ms")):
+        times = {r: [] for r in routes}
+        for r in order:
+            times[r].append(time_ms(lambda r=r: im._launch(r, a, b),
+                                    cover_enqueue=cover))
+        for r in routes:
+            res[r][key] = sum(times[r]) / len(times[r])
+        log(f"int8_matmul {name} in turns ({key}): " + "; ".join(
+            f"{r} {', '.join(f'{t:.4f}' for t in times[r])} ms"
+            for r in routes))
+    for r in routes:
+        res[r]["host_us"] = host_us(lambda r=r: im._launch(r, a, b),
+                                    calls=20, rounds=3)
+    return res
+
+
 def int8_phase(im, quant) -> dict:
-    """The int8 kernel at every shape of ``int8_cases`` against its plain
-    version (int64 products, summed, cast): bitwise equal
-    (``torch.equal``), both exact int32. Timed beside the plain version,
-    ``torch._int_mm`` and the port's dequant product of the same weight
-    (``quant.linear`` / ``quant.readout`` with ``native=False``: the
-    int8 weight cast at the product, fp32 accumulation), and as device
-    time alone (``device_ms``, the share of the bound's denominator).
-    Returns the kernels line's row (the ``INT8_HEADLINE`` case), every
-    case under ``cases``."""
+    """The int8 product at every shape of ``int8_cases``: through the
+    wrapper (its route asserted to be ``int8_route``'s) and through every
+    route that takes the shape (``int8_routes``), each bitwise equal
+    (``torch.equal``) to the plain version (int64 products, summed,
+    cast), all exact int32. The routes are timed in turns
+    (``time_int8_routes``) beside the plain version, ``torch._int_mm``
+    and the port's dequant product of the same weight (``quant.linear``
+    / ``quant.readout`` with ``native=False``: the int8 weight cast at
+    the product, fp32 accumulation). Returns the kernels line's row (the
+    ``INT8_HEADLINE`` case), every case under ``cases``."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases, worst = {}, 0
     for name, (a, b) in int8_cases(gen).items():
+        route, takes = im.int8_route(a, b), im.int8_routes(a, b)
+        zero_counts(im.int8_matmul)
         got = im.int8_matmul(a, b)
+        check(im.int8_matmul.launches_by_route[route] == 1
+              and im.int8_matmul.launches == 1,
+              f"int8_matmul {name}: launches {im.int8_matmul.launches_by_route}"
+              f", expected one on {route}")
         want = im.int8_matmul_ref(a, b)
         torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        worst = max(worst, int((got.long() - want.long()).abs().max()))
-        check(equal and got.dtype == torch.int32,
-              f"int8_matmul {name} {tuple(a.shape)} x {tuple(b.shape)}: "
-              f"differs from its plain version by up to {worst}")
-        if name == "extreme":
-            check(bool((got == -127 * 127 * a.shape[1]).all()),
-                  "int8_matmul extreme: not -127^2 K everywhere")
+        for r, out in [("wrapper", got)] + [(r, im._launch(r, a, b))
+                                            for r in takes]:
+            torch.cuda.synchronize()
+            err = int((out.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(out, want) and out.dtype == torch.int32,
+                  f"int8_matmul {name} {tuple(a.shape)} x {tuple(b.shape)} "
+                  f"({r}): differs from its plain version by up to {err}")
+            if name.startswith("extreme"):
+                check(bool((out == -127 * 127 * a.shape[1]).all()),
+                      f"int8_matmul {name} ({r}): not -127^2 K everywhere")
+        log(f"int8_matmul {name}: {route} of {takes}, every route bitwise "
+            "equal to the plain version")
+        if name.startswith("extreme"):
+            continue
         batch = a.numel() // (a.shape[-2] * a.shape[-1])
         m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
         bnd = bound(a.numel() + b.numel() + 4 * batch * m * n,
                     2 * batch * m * n * k, torch.int8)
+        by_route = time_int8_routes(im, name, a, b, takes)
+        for t in by_route.values():
+            t["share_of_bound"] = bnd[0] / t["device_ms"]
         row = {"a": list(a.shape), "b": list(b.shape),
-               "b_strides": list(b.stride()),
-               "k_splits": list(im.k_splits(batch, m, n, k)),
+               "b_strides": list(b.stride()), "route": route,
                "ms": time_ms(lambda: im.int8_matmul(a, b)),
-               "device_ms": time_ms(lambda: im.int8_matmul(a, b),
-                                    cover_enqueue=True),
+               "device_ms": by_route[route]["device_ms"],
+               "host_us": host_us(lambda: im.int8_matmul(a, b), calls=20,
+                                  rounds=3),
                "plain_ms": (time_ms(lambda: im.int8_matmul_ref(a, b), reps=3,
                                     warmup=1)
-                            if name != "prefill_w_up" else None),
+                            if name not in INT8_UNTIMED_PLAIN else None),
                "bound_ms": bnd[0], "bound_by": bnd[1],
-               "library_ms": _int_mm_ms(a, b, want)}
-        if name in ("wqkv", "w_up", "w_down", "readout"):
+               "library_ms": _int_mm_ms(a, b, want), "routes": by_route}
+        if im.GEMV in takes:
+            row["gemv_plan"] = list(im.gemv_plan(
+                batch, m, n, k, b.stride(-1) == 1 or b.shape[-1] == 1))
+        if name in ("wqkv", "wo", "w_up", "w_down", "readout"):
             x = torch.randn(a.shape, generator=gen, device="cuda").to(
                 torch.bfloat16)
             if name == "readout":
@@ -1180,11 +1244,11 @@ def int8_phase(im, quant) -> dict:
         cases[name] = row
     head = cases[INT8_HEADLINE]
     return {"name": "int8_matmul", "route": "cuda", "source": im.SOURCE,
-            "replaces": im.REPLACES, "max_abs_err": float(worst),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "device_ms": head["device_ms"],
-            "shape": INT8_HEADLINE,
+            "sources": im.SOURCES, "replaces": im.REPLACES,
+            "max_abs_err": float(worst), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"], "shape": INT8_HEADLINE,
             "cases": cases}
 
 
@@ -2502,11 +2566,11 @@ def int8_step_bytes(cfg, batch: int, cache_len: int) -> float:
     return weights + scales + kv
 
 
-def _solo_decode(decode, params, cfg, prompt, new: int):
+def _solo_decode(decode, params, cfg, prompt, new: int, on_prefill=None):
     """The bench's solo decode (bench.py:645-705): one prefill into a
     cache of prompt + ``new`` positions, then ``new`` greedy tokens by the
-    chunked decoder. Returns (prefill logits, tokens, prefill s, decode
-    s)."""
+    chunked decoder; ``on_prefill()`` runs between the two. Returns
+    (prefill logits, tokens, prefill s, decode s)."""
     t_p = prompt.shape[1]
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -2515,10 +2579,52 @@ def _solo_decode(decode, params, cfg, prompt, new: int):
         first = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        if on_prefill is not None:
+            on_prefill()
+        t1b = time.perf_counter()
         out = decode.generate_from_cache(params, cfg, first, cache, t_p, new)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    return logits, out, t1 - t0, t2 - t1
+    return logits, out, t1 - t0, t2 - t1b
+
+
+# the int8 routes' kernels (a library's fp32 "gemvx" kernel is not one)
+INT8_KERNEL_NAMES = ("int8_matmul_kernel", "int8_matmul_tc_kernel",
+                     "gemv_nk_kernel", "gemv_kn_kernel")
+INT8_TRACED_STEPS = 8
+
+
+def int8_step_device_ms(decode, params, cfg, prompt) -> dict:
+    """Device time of the int8 kernels (and of everything) in one W8A8
+    decode step of 4g(a)'s solo decode (a cache of 1536 positions):
+    ``torch.profiler`` over ``INT8_TRACED_STEPS`` steps of the chunked
+    decoder after a prefill, the kernels' self device time summed by
+    name and divided by the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_p = prompt.shape[1]
+    with torch.no_grad():
+        logits, cache = decode.prefill(params, cfg, prompt,
+                                       t_p + SOLO_INT8_NEW)
+        first = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode.generate_from_cache(params, cfg, first, cache, t_p,
+                                       INT8_TRACED_STEPS + 1)
+            torch.cuda.synchronize()
+    by_kernel, total = {}, 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us <= 0:
+            continue
+        total += dev_us
+        if any(w in ev.key for w in INT8_KERNEL_NAMES):
+            by_kernel[ev.key[:80]] = dev_us / 1e3 / INT8_TRACED_STEPS
+    # the first of the INT8_TRACED_STEPS + 1 tokens is given: one step each
+    return {"int8_ms_per_step": sum(by_kernel.values()),
+            "device_ms_per_step": total / 1e3 / INT8_TRACED_STEPS,
+            "int8_by_kernel_ms_per_step": by_kernel}
 
 
 def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
@@ -2553,8 +2659,10 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
                        ("dequant", qp, dq_cfg)):
         _solo_decode(decode, p, c, prompt, 9)  # warm-up
         zero_counts(im.int8_matmul)
-        lg, toks, pre_s, dec_s = _solo_decode(decode, p, c, prompt,
-                                              SOLO_INT8_NEW)
+        at_prefill = {}
+        lg, toks, pre_s, dec_s = _solo_decode(
+            decode, p, c, prompt, SOLO_INT8_NEW, on_prefill=lambda:
+            at_prefill.update(im.int8_matmul.launches_by_route))
         n_int8 = im.int8_matmul.launches
         steps = SOLO_INT8_NEW - 1
         want = ((cfg.n_layers * 4 + 1) + steps * (cfg.n_layers * 6 + 1)
@@ -2562,6 +2670,23 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
         check(n_int8 == want,
               f"4g(a) {name}: {n_int8} int8_matmul launches, expected "
               f"{want}")
+        if name == "w8a8":
+            # prefill: the linears over 8 x 1024 rows on the tensor cores,
+            # the last position's readout on gemv; every decode step's
+            # products (8 rows, the cache's 4-row groups) on gemv
+            routes = dict(im.int8_matmul.launches_by_route)
+            decode_routes = {r: routes[r] - at_prefill[r] for r in routes}
+            want_prefill = {im.DP4A: 0, im.GEMV: 1,
+                            im.WGMMA: cfg.n_layers * 4}
+            want_decode = {im.DP4A: 0, im.WGMMA: 0,
+                           im.GEMV: steps * (cfg.n_layers * 6 + 1)}
+            log(f"4g(a) w8a8 int8 launches by route: prefill {at_prefill} "
+                f"(expected {want_prefill}), decode {decode_routes} "
+                f"(expected {want_decode})")
+            check(at_prefill == want_prefill and decode_routes == want_decode,
+                  "4g(a) w8a8: int8 launches by route, prefill "
+                  f"{at_prefill}, decode {decode_routes}")
+            out["w8a8_launches_by_route"] = routes
         check(bool(torch.isfinite(lg).all()) and toks.shape == (
             8, SOLO_INT8_NEW), f"4g(a) {name}: non-finite logits or shape")
         logits[name] = lg.float().flatten().cpu().numpy()
@@ -2577,8 +2702,12 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
                   f"{row['corr_vs_bf16']:.4f} with bf16's (bar {INT8_CORR})")
         if name == "w8a8":
             out["w8a8_launches"] = n_int8
+            row.update(int8_step_device_ms(decode, p, c, prompt))
+        row["prefill_s_over_bf16"] = pre_s / out["solo_bf16"]["prefill_s"] \
+            if name != "bf16" else 1.0
         log(f"4g(a) solo decode {name}: 8 x {SOLO_INT8_NEW} new tokens in "
-            f"{dec_s:.3f} s = {tps:.1f} tok/s (prefill {pre_s:.3f} s); {row}")
+            f"{dec_s:.3f} s = {tps:.1f} tok/s (prefill {pre_s:.4f} s, "
+            f"{row['prefill_s_over_bf16']:.3f}x bf16's); {row}")
         out[f"solo_{name}"] = row
     out["int8_step_bytes"] = int8_step_bytes(cfg, 8, total)
 
@@ -3478,7 +3607,7 @@ def main() -> int:
         "surface_launches_by_route": surface["flash_launches_by_route"],
         "moe_launches_by_route": moe["flash_launches_by_route"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
-    int8_row["launches_by_route"] = {im.DP4A: launches["int8_matmul"]}
+    int8_row["launches_by_route"] = int8_serving["w8a8_launches_by_route"]
     kernels.append(int8_row)
     for k in kernels:
         k["launches"] = launches[k["name"]]

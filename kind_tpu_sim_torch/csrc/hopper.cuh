@@ -3,9 +3,10 @@
 // csrc/flash_attention_bwd_tc.cu, written by hand in inline PTX:
 // mbarriers with a phase bit, TMA tile loads from a tensor map into
 // shared memory, the wgmma shared-memory matrix descriptor for 128-byte
-// swizzle, and wgmma.mma_async on bf16 with fp32 sums (both operands in
-// shared memory, or A in registers). Plus the host-side encoders of the
-// tensor maps (swizzled bf16 tiles, the 4D view of a (b, t, heads, d)
+// swizzle, wgmma.mma_async on bf16 with fp32 sums (both operands in
+// shared memory, or A in registers) and on int8 with int32 sums (both in
+// shared memory, K-major). Plus the host-side encoders of the tensor
+// maps (swizzled bf16 and int8 tiles, the 4D view of a (b, t, heads, d)
 // tensor, flat fp32 rows), reached through cudaGetDriverEntryPoint so
 // that the library needs no -lcuda.
 //
@@ -27,6 +28,12 @@
 //   d[4 j + 0..1] are the first row's columns 8 j + 2 (l % 4) + {0, 1},
 //   d[4 j + 2..3] the second row's. The A-in-registers fragment of a
 //   k16 step is the same pattern over 16 columns, as bf16 pairs.
+// * int8 (m64nNk32.s32.s8.s8): a 128-byte swizzled row holds 128 K
+//   values, and the k32 step s starts 32 s bytes in, the byte offset of
+//   a bf16 k16 step, so the K-major descriptor arithmetic is the same
+//   byte for byte. Both operands must be K-major (no transpose bit for
+//   8-bit types; TMA copies bytes as they lie). The s32 accumulator is
+//   laid out as the fp32 one of m64nNk16.
 
 #pragma once
 
@@ -159,6 +166,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // D (64 x N, fp32) = A (64 x 16, bf16) B (16 x N, bf16) + (scale_d ? D : 0).
 // _ss: A and B from shared memory (A K-major); _rs: A from registers.
 // TRANS_B = 1 reads B MN-major.
@@ -282,6 +295,53 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(scale_d), "n"(TRANS_B));
 }
 
+// D (64 x 256, int32) = A (64 x 32, s8) B (32 x 256, s8) + (scale_d ? D : 0),
+// both operands K-major in shared memory: the 8-bit forms have no
+// transpose bit. Integer products are exact; no .satfinite, so a sum
+// wraps as int32 arithmetic does (|D| <= 127^2 K stays far inside it).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------
 // host: the tensor maps
 
@@ -330,6 +390,15 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
                              const cuuint32_t* box) {
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
                       dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// an int8 map whose box has an inner extent of 128 bytes, with 128-byte
+// swizzle: a K-major int8 wgmma operand tile (128 K values a row)
+inline int encode_u8_sw128(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // a flat fp32 array of n elements read in boxes of `box` (a multiple of

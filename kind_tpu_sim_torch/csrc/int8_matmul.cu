@@ -1,11 +1,15 @@
 // Exact int8 x int8 -> int32 batched matrix product for NVIDIA Hopper
-// (sm_90a), CUDA C++.
+// (sm_90a), CUDA C++: the "dp4a" route of ops/int8_matmul.py, the first
+// kernel, kept for the products the "wgmma" (csrc/int8_matmul_tc.cu)
+// and "gemv" (csrc/int8_gemv.cu) routes do not take: K not a multiple of
+// 16, bases or strides off 16-byte boundaries, an N-contiguous B with
+// more than 40 rows of A.
 //
 // Replaces no Pallas kernel: the JAX package runs its W8A8 contractions
 // as XLA dot_generals with preferred_element_type=int32
-// (kind_tpu_sim/models/quant.py:linear :95 and readout :140,
-// kind_tpu_sim/models/decode.py:_cache_scores :125 and _cache_values
-// :159). PyTorch has no batched int8 product on CUDA (torch.bmm and
+// (kind_tpu_sim/models/quant.py:118 in linear, :153 in readout;
+// kind_tpu_sim/models/decode.py:143 and :176, the int8 cache's scores
+// and values). PyTorch has no batched int8 product on CUDA (torch.bmm and
 // einsum refuse int8 there; torch._int_mm is 2-D only), and a float
 // GEMM of int8 values is exact only while partial sums stay under
 // 2^24, which the flagship's K of 2048-8192 passes. So this kernel.
@@ -36,10 +40,8 @@
 // blocks to fill the card (decode's M = 8), K is split across blocks
 // (``splits``) and each adds its partial sums into C with atomicAdd on
 // int32, which is exact and gives the same bits in any order; C must
-// then hold zeros before the launch. Not done here, for a later
-// redesign: wgmma on int8 fed by TMA (the tensor cores' 1979 TOPS),
-// register tiles of 8 x 8 (two shared loads per four dp4a here), a
-// fused dequant for the decode GEMV.
+// then hold zeros before the launch. The tensor cores (wgmma) and a
+// GEMV that reads B once in 16-byte loads are the other two routes.
 
 #include <cstdint>
 

@@ -56,7 +56,6 @@ from kind_tpu_sim_torch.models.transformer import (
     _rms_norm,
     _rotary,
     _split_qkv,
-    check_supported,
 )
 from kind_tpu_sim_torch.ops.int8_matmul import int8_matmul
 
@@ -260,7 +259,6 @@ def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
 def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int):
     """prompt (b, t_p) -> (last-position logits (b, vocab), filled
     cache) in one batched forward over the whole prompt."""
-    check_supported(cfg)
     b, t_p = prompt.shape
     positions = torch.arange(t_p, device=prompt.device).expand(b, t_p)
     x = embed_lookup(params["embed"], prompt, torch_dtype(cfg.dtype))

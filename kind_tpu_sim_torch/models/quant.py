@@ -132,26 +132,40 @@ def readout(x, embed, native=False):
     return x.to(embed.dtype).float() @ embed.float().t()
 
 
+# the block matmul weights, quantized along axis 0 (K) and held K-major
+K_MAJOR = ("wqkv", "wo", "w_up", "w_down")
+
+
+def k_major(qa: QuantArray) -> QuantArray:
+    """The same (K, N) int8 weight with K contiguous: the (K, N) view of
+    an (N, K) contiguous tensor. Shape, dtype and values are unchanged;
+    the W8A8 product's tensor-core route reads B only K-major (the
+    8-bit wgmma forms have no transpose), and its GEMV route reads each
+    column's K run in 16-byte loads."""
+    return QuantArray(q=qa.q.t().contiguous().t(), scale=qa.scale)
+
+
 @torch.no_grad()
 def quantize_params(params, cfg):
     """Int8 snapshot of the parameters for serving: the embedding per
-    row, the block matmul weights per output channel; norms stay as
-    they are; an MoE subtree keeps its router as it is and its experts
-    in the activation dtype. Runs without autograd."""
+    row, the block matmul weights per output channel, held K-major
+    (``k_major``); norms stay as they are; an MoE subtree keeps its
+    router as it is and its experts in the activation dtype. Runs
+    without autograd."""
     dtype = torch_dtype(cfg.dtype)
     out = {"embed": quantize(params["embed"], axis=1),
            "final_norm": params["final_norm"], "blocks": []}
     for block in params["blocks"]:
         qblock = {"attn_norm": block["attn_norm"],
                   "mlp_norm": block["mlp_norm"],
-                  "wqkv": quantize(block["wqkv"]),
-                  "wo": quantize(block["wo"])}
+                  "wqkv": k_major(quantize(block["wqkv"])),
+                  "wo": k_major(quantize(block["wo"]))}
         if "moe" in block:
             qblock["moe"] = {"router": block["moe"]["router"],
                              "w_up": block["moe"]["w_up"].to(dtype),
                              "w_down": block["moe"]["w_down"].to(dtype)}
         else:
-            qblock["w_up"] = quantize(block["w_up"])
-            qblock["w_down"] = quantize(block["w_down"])
+            qblock["w_up"] = k_major(quantize(block["w_up"]))
+            qblock["w_down"] = k_major(quantize(block["w_down"]))
         out["blocks"].append(qblock)
     return out

@@ -46,7 +46,7 @@ class ModelConfig:
     flash: bool = False           # flash-attention kernel in prefill
     int8_kv: bool = False         # int8 KV cache (serving)
     int8_native: bool = False     # W8A8: exact int8 x int8 -> int32 products
-    seq_parallel: bool = False    # ring attention (later slice)
+    seq_parallel: bool = False    # ring attention; no mesh: plain
 
     @property
     def head_dim(self) -> int:
@@ -85,14 +85,6 @@ def bench_config_large() -> ModelConfig:
                        n_kv_heads=4)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration features later slices of the port add."""
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            "ModelConfig.seq_parallel is not ported yet (a later slice "
-            "of kind_tpu_sim_torch)")
-
-
 # ---------------------------------------------------------------------
 # init
 
@@ -104,7 +96,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     when None). The draws differ from ``jax.random``'s — tests that
     compare against the JAX package convert its parameters instead
     (``weights.params_from_numpy``)."""
-    check_supported(cfg)
     dev = resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -313,7 +304,6 @@ def forward(params: Params, tokens, cfg: ModelConfig,
     the block's forward again instead of keeping its activations."""
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
-    check_supported(cfg)
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
@@ -385,8 +375,9 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
     its default implementation (``foreach`` on the card, the per-tensor
     loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
     ``n_experts > 0`` trains the MoE through autograd, its auxiliary
-    loss in the loss; ring attention (``seq_parallel``) raises."""
-    check_supported(cfg)
+    loss in the loss. ``seq_parallel`` is plain attention here: the
+    reference rides a ring only under a mesh with a ``seq`` axis, and
+    the port takes no mesh."""
     dev = resolve(device)
 
     def init_state(source) -> Dict[str, Any]:

@@ -12,8 +12,9 @@ compiler's output — there is no fallback.
 Four kernels come in two routes each (``matmul``, the flash forward,
 the flash backward's dq and dk/dv): ``TENSOR_CORES`` (wgmma fed by TMA)
 and ``CUDA_CORES`` (the first versions, kept for fp32 and for what TMA
-cannot describe). The wrappers choose one from the inputs alone, before
-the launch.
+cannot describe); the exact int8 product has three (``ops/int8_matmul.py``:
+wgmma, gemv, dp4a). The wrappers choose one from the inputs alone,
+before the launch.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ cross as fp32 numpy arrays and are cast back to bf16 here, which is
 lossless, so no bf16 numpy dtype is needed on this side. An int8
 weight crosses as an object with ``.q`` and ``.scale`` (the JAX
 package's ``QuantArray`` of numpy arrays) or a ``(q, scale)`` tuple
-whose q is int8, and becomes the port's ``quant.QuantArray``; an MoE
-block's ``moe`` subtree crosses as a dict.
+whose q is int8, and becomes the port's ``quant.QuantArray`` (a block
+matmul weight's held K-major, as ``quant.quantize_params`` holds it);
+an MoE block's ``moe`` subtree crosses as a dict.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from kind_tpu_sim_torch.device import resolve
-from kind_tpu_sim_torch.models.quant import QuantArray
+from kind_tpu_sim_torch.models.quant import K_MAJOR, QuantArray, k_major
 
 
 def params_from_numpy(tree, cfg, device="cuda", dtype=None):
@@ -32,12 +33,16 @@ def params_from_numpy(tree, cfg, device="cuda", dtype=None):
     def tensor(leaf):
         return torch.from_numpy(np.array(leaf)).to(dev)
 
+    def quant(q, scale, name):
+        qa = QuantArray(q=tensor(q), scale=tensor(scale))
+        return k_major(qa) if name in K_MAJOR else qa
+
     def walk(node, name=None):
         if hasattr(node, "q") and hasattr(node, "scale"):
-            return QuantArray(q=tensor(node.q), scale=tensor(node.scale))
+            return quant(node.q, node.scale, name)
         if (isinstance(node, tuple) and len(node) == 2
                 and np.asarray(node[0]).dtype == np.int8):
-            return QuantArray(q=tensor(node[0]), scale=tensor(node[1]))
+            return quant(node[0], node[1], name)
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

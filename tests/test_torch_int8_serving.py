@@ -153,32 +153,73 @@ def test_prefill_into_slot_writes_quantized_zeros_past_the_prompt(snapshots):
     _same_cache(pserving._read_slot_rows(pcache, 0, 16), jrows)
 
 
+PAGED = dict(paged_blocks=24, block_size=8)
+# name: (port engine, JAX engine, ServingConfig knobs, prompts): "stream"
+# the module's five, "family" a 16-token head and two prompts on it,
+# with cache_prefix (hits
+# counted alike, at least one), "long" five of 28-36 tokens (a pool of 10
+# blocks of 8 then preempts)
 ENGINES = {
-    "dense": (pserving.ServingEngine, jserving.ServingEngine, {}),
+    "dense": (pserving.ServingEngine, jserving.ServingEngine, {}, "stream"),
     "dense chunked prefill": (pserving.ServingEngine, jserving.ServingEngine,
-                              dict(prefill_chunk=8)),
+                              dict(prefill_chunk=8), "stream"),
+    "dense admission waves": (pserving.ServingEngine,
+                              jserving.ServingEngine,
+                              dict(admission_wave_sizes=(1, 2)), "stream"),
+    "overlapped rounds": (pserving.ServingEngine, jserving.ServingEngine,
+                          dict(overlap_rounds=True), "stream"),
     "paged gather tier": (pserving.PagedServingEngine,
+                          jserving.PagedServingEngine, PAGED, "stream"),
+    "paged prefix hits": (pserving.PagedServingEngine,
                           jserving.PagedServingEngine,
-                          dict(paged_blocks=24, block_size=8)),
+                          dict(PAGED, prefix_cache_entries=4), "family"),
+    "paged chunked prefill": (pserving.PagedServingEngine,
+                              jserving.PagedServingEngine,
+                              dict(PAGED, prefill_chunk=8), "stream"),
+    "paged waves": (pserving.PagedServingEngine, jserving.PagedServingEngine,
+                    dict(PAGED, admission_wave_sizes=(1, 2)), "stream"),
+    "paged pool of 10 blocks": (pserving.PagedServingEngine,
+                                jserving.PagedServingEngine,
+                                dict(paged_blocks=10, block_size=8), "long"),
+    "paged speculative, pool of 10 blocks": (
+        pserving.PagedSpeculativeServingEngine,
+        jserving.PagedSpeculativeServingEngine,
+        dict(paged_blocks=10, block_size=8, speculative_k=3), "long"),
 }
+
+
+def _family():
+    """The 16-token head (two blocks of 8) and the two members of
+    ``test_int8_prefix_hits_match_jax`` on it."""
+    head = prompts(1, CFG.vocab_size, seed=9, base=16)[0]
+    rng = np.random.RandomState(10)
+    return [head] + [head + rng.randint(0, CFG.vocab_size, n).tolist()
+                     for n in (3, 7)]
 
 
 @pytest.mark.parametrize("name", sorted(ENGINES))
 def test_int8_engine_streams_match_jax(snapshots, stream_prompts, name):
-    """W8A8 with an int8 KV cache through the dense grid (whole prompts,
-    then windows of 8 by chunked prefill) and the paged gather tier:
-    the JAX engine's streams."""
-    port, ref, knobs = ENGINES[name]
+    """W8A8 with an int8 KV cache through every engine: the dense grid
+    (whole prompts, windows of 8 by chunked prefill, admission waves,
+    overlapped rounds), the paged gather tier (prefix hits, chunked
+    prefill, waves, a pool of 10 blocks under pressure) and the paged
+    speculative engine on that pool: the JAX engine's streams."""
+    port, ref, knobs, which = ENGINES[name]
     jparams, pparams = snapshots
-    want = drive(jserving, ref(jparams, jax_cfg(CFG),
-                               jserving.ServingConfig(**SC, **knobs)),
-                 stream_prompts, MAX_NEW)
-    got = drive(pserving, port(pparams, CFG,
-                               pserving.ServingConfig(**SC, **knobs),
-                               device="cpu"), stream_prompts, MAX_NEW)
-    assert_streams_split_only_at_ties(snapshots[0], CFG, stream_prompts,
-                                      _streams(got), _streams(want),
-                                      SPLIT_REL)
+    ps = {"stream": stream_prompts, "family": _family(),
+          "long": prompts(5, CFG.vocab_size, seed=12, base=28, step=2)}[which]
+    req = dict(cache_prefix=True) if which == "family" else {}
+    jeng = ref(jparams, jax_cfg(CFG), jserving.ServingConfig(**SC, **knobs))
+    peng = port(pparams, CFG, pserving.ServingConfig(**SC, **knobs),
+                device="cpu")
+    want = drive(jserving, jeng, ps, MAX_NEW, **req)
+    got = drive(pserving, peng, ps, MAX_NEW, **req)
+    if which == "family":
+        assert peng.prefix_cache.hits == jeng.prefix_cache.hits > 0
+    if which == "long":
+        assert peng.report()["paged"]["preemptions"] > 0
+    assert_streams_split_only_at_ties(snapshots[0], CFG, ps, _streams(got),
+                                      _streams(want), SPLIT_REL)
 
 
 def test_int8_prefix_hits_match_jax(snapshots):

@@ -204,34 +204,74 @@ def test_moe_admission_wave_matches_the_scanned_admission():
                                    atol=1e-5, rtol=1e-5)
 
 
+PAGED = dict(chunk=8, paged_blocks=24, block_size=8)
+# name: (port engine, JAX engine, ServingConfig knobs, prompts): "stream"
+# five short prompts, "family" a 16-token head and four prompts on it
+# with cache_prefix (hits counted alike, at least one), "long" five of 28-36
+# tokens (a pool of 10 blocks of 8 then preempts)
 ENGINES = {
     "dense waves": (pserving.ServingEngine, jserving.ServingEngine,
-                    dict(chunk=8, admission_wave_sizes=(1, 2))),
+                    dict(chunk=8, admission_wave_sizes=(1, 2)), "stream"),
+    "dense prefix hits": (pserving.ServingEngine, jserving.ServingEngine,
+                          dict(chunk=8, prefix_cache_entries=4), "family"),
+    "overlapped rounds": (pserving.ServingEngine, jserving.ServingEngine,
+                          dict(chunk=8, overlap_rounds=True), "stream"),
     "paged": (pserving.PagedServingEngine, jserving.PagedServingEngine,
-              dict(chunk=8, paged_blocks=24, block_size=8)),
+              PAGED, "stream"),
+    "paged chunked prefill": (pserving.PagedServingEngine,
+                              jserving.PagedServingEngine,
+                              dict(PAGED, prefill_chunk=8), "stream"),
+    "paged pool of 10 blocks": (pserving.PagedServingEngine,
+                                jserving.PagedServingEngine,
+                                dict(PAGED, paged_blocks=10), "long"),
+    "paged kernel tier": (pserving.PagedServingEngine,
+                          jserving.PagedServingEngine,
+                          dict(PAGED, paged_kernel=True), "stream"),
     "speculative": (pserving.SpeculativeServingEngine,
                     jserving.SpeculativeServingEngine,
-                    dict(speculative_k=3)),
+                    dict(speculative_k=3), "stream"),
     "paged speculative": (pserving.PagedSpeculativeServingEngine,
                           jserving.PagedSpeculativeServingEngine,
                           dict(speculative_k=3, paged_blocks=24,
-                               block_size=8)),
+                               block_size=8), "stream"),
 }
+
+
+def _prompts(which):
+    if which == "stream":
+        return prompts(5, CFG.vocab_size)
+    if which == "long":
+        return prompts(5, CFG.vocab_size, seed=12, base=28, step=2)
+    head = prompts(1, CFG.vocab_size, seed=9, base=16)[0]
+    rng = np.random.RandomState(10)
+    return [head] + [head + rng.randint(0, CFG.vocab_size, n).tolist()
+                     for n in (3, 7, 5, 6)]
 
 
 @pytest.mark.parametrize("name", sorted(ENGINES))
 def test_moe_engine_streams_match_jax(name):
-    """n_experts=2 through each engine: the decode grid routes its slots
+    """n_experts=4 through each engine: the decode grid routes its slots
     together (inactive rows too), a verify window each position over the
-    slots, admission each prompt alone. Greedy streams equal the JAX
-    engine's."""
-    port, ref, knobs = ENGINES[name]
+    slots, admission each prompt alone (or a wave, or a window of 8 by
+    chunked prefill, or a suffix after a prefix hit). Greedy streams
+    equal the JAX engine's, on the dense grid (waves, prefix hits,
+    overlapped rounds), the paged gather tier (chunked prefill, a pool
+    of 10 blocks under pressure), the paged kernel tier and both
+    speculative engines. Left out: the speculative
+    grid with chunked prefill, where the reference overwrites a pending
+    slot's rows (ROADMAP fault C-5)."""
+    port, ref, knobs, which = ENGINES[name]
     jparams, pparams = make_params(CFG, embed_scale=0.5, block_scale=6.0)
-    ps = prompts(5, CFG.vocab_size)
+    ps = _prompts(which)
+    req = dict(cache_prefix=True) if which == "family" else {}
     sc = dict(max_slots=2, max_len=48, **knobs)
-    want = drive(jserving, ref(jparams, jax_cfg(CFG),
-                               jserving.ServingConfig(**sc)), ps, MAX_NEW)
-    got = drive(pserving, port(pparams, CFG, pserving.ServingConfig(**sc),
-                               device="cpu"), ps, MAX_NEW)
+    jeng = ref(jparams, jax_cfg(CFG), jserving.ServingConfig(**sc))
+    peng = port(pparams, CFG, pserving.ServingConfig(**sc), device="cpu")
+    want = drive(jserving, jeng, ps, MAX_NEW, **req)
+    got = drive(pserving, peng, ps, MAX_NEW, **req)
+    if which == "family":
+        assert peng.prefix_cache.hits == jeng.prefix_cache.hits > 0
+    if which == "long":
+        assert peng.report()["paged"]["preemptions"] > 0
     assert {r: c.tokens for r, c in got.items()} == {
         r: c.tokens for r, c in want.items()}

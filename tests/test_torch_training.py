@@ -227,19 +227,19 @@ def test_remat_matches(name):
 @pytest.mark.parametrize("field", ["n_experts", "int8_kv", "int8_native",
                                    "seq_parallel"])
 def test_unported_training_features_raise(field):
-    """Only ``seq_parallel`` (ring attention) still raises. ``n_experts``
-    trains through autograd with the MoE auxiliary loss in the loss, as
-    the JAX ``make_train_step`` does (AdamW, the fp32 bars above); the
-    int8 serving flags take no path in training (fp32 parameters are
-    plain tensors), so those steps equal the plain config's exactly and
-    the JAX package's at the fp32 bars."""
+    """Every config feature trains now. ``n_experts`` trains through
+    autograd with the MoE auxiliary loss in the loss, as the JAX
+    ``make_train_step`` does (AdamW, the fp32 bars above); the int8
+    serving flags take no path in training (fp32 parameters are plain
+    tensors), and ``seq_parallel`` without a mesh is plain attention on
+    both sides (the reference's ``_use_ring`` needs a mesh with a
+    ``seq`` axis), so those steps equal the plain config's exactly and
+    the JAX package's at the fp32 bars. ``seq_parallel`` runs all
+    ``STEPS`` steps."""
     value = 2 if field == "n_experts" else True
     cfg = dataclasses.replace(MODEL, **{field: value})
-    if field == "seq_parallel":
-        with pytest.raises(NotImplementedError, match=field):
-            ptf.make_train_step(cfg, device="cpu")
-        return
-    tree, batches = _tree(cfg), _batches(cfg)[:2]
+    steps = STEPS if field == "seq_parallel" else 2
+    tree, batches = _tree(cfg), _batches(cfg)[:steps]
     want_losses, want = _jax_run(cfg, tree, batches, True)
     got_losses, got = _port_run(cfg, tree, batches, True)
     loss_tol, param_tol = FP32_TOL[True]

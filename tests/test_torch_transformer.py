@@ -20,10 +20,11 @@ import jax.numpy as jnp
 from kind_tpu_sim.models import decode as jdecode
 from kind_tpu_sim.models import transformer as jtf
 from kind_tpu_sim_torch.models import decode as pdecode
+from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.weights import params_from_numpy
 
-from torch_parity import jax_cfg, make_params
+from torch_parity import TINY, jax_cfg, make_params, prompts
 
 CONFIGS = {
     "fp32_mha": ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,
@@ -170,10 +171,14 @@ def test_params_from_numpy_checks_shapes():
 
 
 def test_unported_config_features_raise():
-    """``n_experts`` is served now: ``init_params`` builds the reference's
+    """``n_experts`` is served: ``init_params`` builds the reference's
     MoE subtree in place of the dense MLP (router (d, e), w_up (e, d,
     d_ff), w_down (e, d_ff, d), fp32) and the forward runs it, returning
-    its auxiliary loss; ``seq_parallel`` still raises."""
+    its auxiliary loss. ``seq_parallel`` is served too: without a mesh
+    the reference's ``_use_ring`` is False and attention is plain, so
+    the port's forward equals the JAX forward of the same config (the
+    fp32 bar) and ``greedy_generate`` equals the engine's stream and the
+    JAX decoder's on the tiny config."""
     cfg = dataclasses.replace(CONFIGS["fp32_mha"], n_experts=4)
     params = ptf.init_params(cfg, device="cpu")
     jparams = jtf.init_params(jax.random.PRNGKey(0), jax_cfg(cfg))
@@ -186,6 +191,27 @@ def test_unported_config_features_raise():
     toks = torch.as_tensor(_tokens(cfg, 2, 16)).long()
     logits, aux = ptf.forward(params, toks, cfg, return_aux=True)
     assert torch.isfinite(logits).all() and float(aux) > 0
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        ptf.init_params(dataclasses.replace(cfg, seq_parallel=True),
-                        device="cpu")
+
+    sp = dataclasses.replace(TINY, seq_parallel=True)
+    jparams, pparams = make_params(sp, embed_scale=0.5, block_scale=6.0)
+    assert sorted(ptf.init_params(sp, device="cpu")) == sorted(pparams)
+    toks = _tokens(sp, 2, 24)
+    ref = np.asarray(jtf.forward(jparams, jnp.asarray(toks), jax_cfg(sp)))
+    out = ptf.forward(pparams, torch.as_tensor(toks).long(), sp).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+    batch = np.asarray(prompts(2, sp.vocab_size, seed=5, base=9, step=0),
+                       np.int32)
+    gen = pdecode.greedy_generate(pparams, sp, batch, 12, chunk=4,
+                                  device="cpu").numpy()
+    want = np.asarray(jdecode.greedy_generate(jparams, jax_cfg(sp),
+                                              jnp.asarray(batch), 12,
+                                              chunk=4))
+    assert (gen == want).all()
+    eng = pserving.ServingEngine(
+        pparams, sp, pserving.ServingConfig(max_slots=2, max_len=32,
+                                            chunk=4), device="cpu")
+    for i, row in enumerate(batch):
+        eng.submit(pserving.Request(f"r{i}", row.tolist(), max_new=12))
+    done = {c.request_id: c.tokens for c in eng.run()}
+    for i, row in enumerate(gen):
+        assert done[f"r{i}"] == row[9:].tolist()
