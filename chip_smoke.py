@@ -92,6 +92,14 @@ it fails (nothing is caught and ignored):
    4h. MoE -- the flagship with 4 experts: phase 4's stream through the
    paged kernel tier, the dense grid and the speculative grid, each
    first token held to its prompt admitted alone;
+   4i. compiled rounds -- every engine's rounds as CUDA graph replays
+   against the same engine's eager rounds, on phase 4's stream: the
+   dense grid, the paged gather and kernel tiers, the prompt-lookup
+   grid, the paged speculative engine, the draft-model grid, W8A8 with
+   the int8 KV cache and the MoE kernel tier, five runs of each path in
+   turns: streams equal, logprobs within 1e-4, the same launches in
+   every run; graphs captured, capture time, replays, tok/s, step wall
+   and a traced round's device busy share for both paths;
 5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
    the card; losses and final parameters must match the same steps on
    the CPU plain path; then a tiny 4-expert MoE the same way (losses
@@ -120,6 +128,12 @@ it fails (nothing is caught and ignored):
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
+
+Every serving round on the card is a CUDA graph replay
+(``kind_tpu_sim_torch/models/graphs.py``): an engine's first round of a
+key runs eagerly and captures the graph, so the walls of phases 3-4h
+hold their engines' captures. The kernels' launch counts hold the
+replayed launches.
 
 The matmul, the flash forward and the flash backward's dq and dk/dv
 kernels each have two kernels, a route chosen from the inputs: wgmma
@@ -2164,8 +2178,13 @@ def _drain(eng, reqs, warm=None):
 
 def _warm(engine_fn, reqs) -> None:
     """One short request through a throwaway engine of the same kind:
-    the kernels and libraries of prefill and one round warm up."""
+    the kernels and libraries of prefill and one round warm up. Its
+    rounds run eagerly: a CUDA graph captured there would serve no later
+    engine."""
+    from kind_tpu_sim_torch.models import graphs
+
     eng = engine_fn()
+    eng._round = graphs.eager
     eng.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=9))
     eng.run()
 
@@ -2852,6 +2871,216 @@ def moe_serving_phase(flagship, serving, tf, fa, pa, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 4i: compiled rounds, each engine's CUDA graphs against its eager
+# rounds
+
+
+COMPILED_RUNS = 5        # timed runs of each path, in turns
+COMPILED_LP_TOL = 1e-4   # logprobs, graph replays against eager rounds
+
+
+def _stream_run(eng, reqs):
+    """Serve copies of ``reqs`` on ``eng`` (sequential rounds), the host
+    wall of each round recorded. Returns ({id: Completion}, wall s,
+    [(round wall s, whether the round admitted)])."""
+    rounds, step = [], eng.step_round
+
+    def timed():
+        prefills = eng.prefills
+        t0 = time.perf_counter()
+        step()
+        rounds.append((time.perf_counter() - t0, eng.prefills != prefills))
+
+    eng.step_round = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    done = {c.request_id: c for c in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng.step_round
+    return done, wall, rounds
+
+
+def _traced_round(flagship, eng, reqs) -> dict:
+    """``profile_serving``'s trace of one pure decode round of ``eng``:
+    the stream submitted, its first round run (admission), the second
+    traced. The stream is left in flight."""
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    eng.step_round()
+    prefills = eng.prefills
+    prof = flagship._profile_round(eng)
+    check(eng.prefills == prefills, "4i: the traced round admitted")
+    return prof
+
+
+def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
+                          cfg) -> dict:
+    """Phase 4i: every serving round a CUDA graph replay, held against
+    the same engine's eager rounds (its ``_round`` rebound to
+    ``graphs.eager``), at flagship width on phase 4's stream: the dense
+    grid (chunk 64), the paged gather and kernel tiers, the prompt-lookup
+    grid, the paged speculative engine, the draft-model grid (a random
+    2-layer draft with the flagship's vocab), W8A8 with the int8 KV cache
+    on the dense grid and the 4-expert MoE on the paged kernel tier. Each
+    engine serves the stream once through its graphs (capturing every key
+    the stream needs; its second round, a replay, traced), then
+    ``COMPILED_RUNS`` times each way in turns (eager, graph, graph,
+    eager, ...): token streams equal, logprobs within
+    ``COMPILED_LP_TOL``, the kernels' launches the same in every run (the
+    paged kernel's n_layers x chunk x decode rounds); then one eager
+    round is traced. Printed: graphs captured, capture seconds and
+    replays; medians of tok/s and of the pure decode rounds' step wall
+    for both paths; a traced round's device busy share and kernels a
+    step for both paths."""
+    from kind_tpu_sim_torch.models import decode, graphs
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
+    base = dict(max_slots=flagship.SLOTS, max_len=1024)
+    spec = dict(base, speculative_k=SPEC_K, spec_windows=SPEC_WINDOWS)
+    q_cfg = dataclasses.replace(cfg, int8_kv=True, int8_native=True)
+    qp = quant.quantize_params(tf.init_params(cfg, gen(0), "cuda"), q_cfg)
+    m_cfg = dataclasses.replace(cfg, n_experts=MOE_EXPERTS)
+    smp = decode.serving_params(tf.init_params(m_cfg, gen(0), "cuda"),
+                                m_cfg)
+    dcfg = tf.ModelConfig(vocab_size=cfg.vocab_size, d_model=256, n_heads=4,
+                          n_kv_heads=2, n_layers=2, d_ff=1024,
+                          max_seq=cfg.max_seq, dtype=cfg.dtype, flash=True)
+    dparams = decode.serving_params(tf.init_params(dcfg, gen(5), "cuda"),
+                                    dcfg)
+    dense_sc = serving.ServingConfig(chunk=flagship.CHUNK, **base)
+    engines = (
+        ("dense chunk 64", serving.ServingEngine, sp, cfg, dense_sc, {}),
+        ("paged gather tier", serving.PagedServingEngine, sp, cfg,
+         flagship.flagship_serving(paged_kernel=False), {}),
+        ("paged kernel tier", serving.PagedServingEngine, sp, cfg,
+         flagship.flagship_serving(paged_kernel=True), {}),
+        ("prompt-lookup grid", serving.SpeculativeServingEngine, sp, cfg,
+         serving.ServingConfig(**spec), {}),
+        ("paged speculative", serving.PagedSpeculativeServingEngine, sp, cfg,
+         serving.ServingConfig(paged_blocks=flagship.POOL_BLOCKS,
+                               block_size=flagship.BLOCK, paged_width=8,
+                               **spec), {}),
+        ("draft-model grid", serving.SpeculativeServingEngine, sp, cfg,
+         serving.ServingConfig(**spec), {"draft": (dparams, dcfg)}),
+        ("W8A8 + int8 KV dense chunk 64", serving.ServingEngine, qp, q_cfg,
+         dense_sc, {}),
+        ("MoE paged kernel tier", serving.PagedServingEngine, smp, m_cfg,
+         flagship.flagship_serving(paged_kernel=True), {}),
+    )
+    wrappers = {"flash_attention": fa.flash_attention,
+                "paged_attention": pa.paged_attention,
+                "int8_matmul": im.int8_matmul}
+    order = [("eager", "graph", "graph", "eager")[i % 4]
+             for i in range(2 * COMPILED_RUNS)]
+    out = {}
+    for name, engine, params, c, sc, extra in engines:
+        eng = engine(params, c, sc, device="cuda", **extra)
+        runner = eng._round
+        check(isinstance(runner, graphs.RoundGraphs),
+              f"4i {name}: the engine's round is {runner!r}, not graphs")
+        steps = sc.spec_windows if sc.speculative_k else sc.chunk
+        traced = {"graph": _traced_round(flagship, eng, reqs)}
+        warm = {c_.request_id: c_ for c_ in eng.run()}
+        check(len(warm) == len(reqs), f"4i {name}: {len(warm)} completed")
+        want = {r: c_.tokens for r, c_ in warm.items()}
+        captured = runner.captured
+        ref_lp = counts = None
+        runs = {"graph": [], "eager": []}
+        max_lp = 0.0
+        for path in order:
+            eng._round = runner if path == "graph" else graphs.eager
+            zero_counts(*wrappers.values())
+            rounds0 = eng.decode_rounds
+            done, wall, rounds = _stream_run(eng, reqs)
+            got = {r: c_.tokens for r, c_ in done.items()}
+            check(got == want, f"4i {name}, {path}: token streams differ "
+                  "from the graphs' first run")
+            lps = {r: np.asarray(c_.logprobs) for r, c_ in done.items()}
+            if ref_lp is None:
+                ref_lp = lps
+            diff = max(float(np.abs(lps[r] - ref_lp[r]).max()) for r in lps)
+            max_lp = max(max_lp, diff)
+            launched = {n: dict(w.launches_by_route)
+                        for n, w in wrappers.items()}
+            check(counts is None or launched == counts,
+                  f"4i {name}, {path}: launches {launched}, another run "
+                  f"{counts}")
+            counts = launched
+            if sc.paged_kernel:
+                n = c.n_layers * sc.chunk * (eng.decode_rounds - rounds0)
+                check(launched["paged_attention"] == {"split_kv": n,
+                                                      "one_pass": 0},
+                      f"4i {name}, {path}: paged launches "
+                      f"{launched['paged_attention']}, expected {n} on "
+                      "split_kv")
+            gen_tokens = sum(len(t) for t in got.values())
+            pure = [w / steps for w, admitted in rounds if not admitted]
+            runs[path].append({"tok_per_s": gen_tokens / wall,
+                               "step_wall_ms": 1e3 * float(np.median(pure))})
+        check(max_lp <= COMPILED_LP_TOL,
+              f"4i {name}: logprobs differ by {max_lp:.3e} between runs "
+              f"(bar {COMPILED_LP_TOL})")
+        check(runner.captured == captured,
+              f"4i {name}: {runner.captured - captured} graphs captured "
+              "after the first stream")
+        eng._round = graphs.eager
+        traced["eager"] = _traced_round(flagship, eng, reqs)
+        row = {"graphs_captured": runner.captured,
+               "capture_s": runner.capture_s, "replays": runner.replays,
+               "max_logprob_diff": max_lp, "launches_a_run": counts}
+        for path, rs in runs.items():
+            step_ms = float(np.median([r["step_wall_ms"] for r in rs]))
+            row[path] = {
+                "tok_per_s": float(np.median([r["tok_per_s"] for r in rs])),
+                "step_wall_ms": step_ms,
+                "tok_per_s_runs": [r["tok_per_s"] for r in rs],
+                "step_wall_ms_runs": [r["step_wall_ms"] for r in rs],
+                "traced_device_busy_share": traced[path]["device_busy_share"],
+                "traced_device_busy_ms": traced[path]["device_busy_ms"],
+                "traced_round_wall_ms": traced[path]["round_wall_ms"],
+                "traced_device_ops_per_step": traced[path][
+                    "device_ops_per_step"],
+                # the traced round's device time over the untraced
+                # rounds' median wall: the profiler slows the host
+                "busy_over_untraced_wall": traced[path]["device_busy_ms"]
+                / (step_ms * steps),
+                "traced_top_kernels_ms": dict(list(
+                    traced[path]["kernels"].items())[:8])}
+        row["graph_over_eager_tok_per_s"] = (row["graph"]["tok_per_s"]
+                                             / row["eager"]["tok_per_s"])
+        out[name] = row
+        log(f"4i {name}: {runner.captured} graphs captured in "
+            f"{runner.capture_s:.2f} s, {runner.replays} replays; tok/s "
+            f"graph {row['graph']['tok_per_s']:.1f} / eager "
+            f"{row['eager']['tok_per_s']:.1f} "
+            f"({row['graph_over_eager_tok_per_s']:.2f}x, medians of "
+            f"{COMPILED_RUNS}); step wall graph "
+            f"{row['graph']['step_wall_ms']:.3f} ms / eager "
+            f"{row['eager']['step_wall_ms']:.3f} ms; traced busy share graph "
+            f"{row['graph']['traced_device_busy_share']:.3f} / eager "
+            f"{row['eager']['traced_device_busy_share']:.3f} (its device time "
+            f"over the untraced wall: graph "
+            f"{row['graph']['busy_over_untraced_wall']:.3f} / eager "
+            f"{row['eager']['busy_over_untraced_wall']:.3f}); device ops a "
+            f"step {row['graph']['traced_device_ops_per_step']:.1f}; streams "
+            f"equal, logprobs within {max_lp:.2e}")
+        del eng, runner
+    out["w8a8_over_bf16_dense_tok_per_s"] = {
+        path: out["W8A8 + int8 KV dense chunk 64"][path]["tok_per_s"]
+        / out["dense chunk 64"][path]["tok_per_s"]
+        for path in ("graph", "eager")}
+    del qp, smp, dparams
+    log(json.dumps({"compiled_rounds": out}))
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 5: a tiny model trained on the card against the CPU plain path
 
 
@@ -3380,6 +3609,32 @@ def softmax_cases(tc, gen, gate_routes: dict) -> dict:
             "check_launches_by_route": checked}
 
 
+def pod_matmul_case(tc, gen) -> dict:
+    """The pod's inline Pallas kernel (``pods/pallas-pod.yaml:28-35``):
+    one 128 x 128 fp32 product, on the CUDA-core route as the gate's
+    fp32 product runs. Held to the plain version and timed beside it and
+    ``torch.mm``; returns the ``pod_*`` keys of the matmul row."""
+    a = torch.randn((128, 128), generator=gen, device="cuda")
+    b = torch.randn((128, 128), generator=gen, device="cuda")
+    check(tc.matmul_route(a, b) == tc.CUDA_CORES,
+          "matmul 128 x 128 fp32: not on the CUDA cores")
+    want = tc.matmul_ref(a, b)
+    err = float((tc.matmul(a, b) - want).abs().max())
+    check(err <= MATMUL_REL_TOL * float(want.abs().max()),
+          f"matmul 128 x 128 fp32: max_abs_err {err}")
+    ms = time_ms(lambda: tc.matmul(a, b))
+    plain_ms = time_ms(lambda: tc.matmul_ref(a, b))
+    library_ms = time_ms(lambda: torch.mm(a, b))
+    bound_ms, bound_by = bound(3 * 128 * 128 * 4, 2 * 128 ** 3,
+                               torch.float32)
+    log(f"matmul fp32 (128,128)@(128,128), the pod's kernel: max_abs_err "
+        f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mm "
+        f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return {"pod_max_abs_err": err, "pod_ms": ms, "pod_plain_ms": plain_ms,
+            "pod_library_ms": library_ms, "pod_bound_ms": bound_ms,
+            "pod_bound_by": bound_by}
+
+
 def toolchain_phase(tc) -> list:
     """``toolchain_smoke`` on the card with the three launch counters
     zeroed just before and read just after (each kernel exactly once:
@@ -3480,7 +3735,8 @@ def toolchain_phase(tc) -> list:
                  "timed_route": "tensor_cores",
                  "launches_timed_route": gate_routes["tensor_cores"],
                  "launches_by_route": gate_routes,
-                 "check_launches_by_route": flagship_routes})
+                 "check_launches_by_route": flagship_routes,
+                 **pod_matmul_case(tc, gen)})
     del a, b
 
     rows += [rms_norm_cases(tc, gen, gate_rows["rms_norm"]),
@@ -3583,9 +3839,11 @@ def main() -> int:
                     tf, fa, pa, sp, cfg, streams)
     int8_serving = phase("4g int8", int8_serving_phase, flagship, serving, tf,
                          quant, fa, pa, im, sp, cfg)
-    del sp
     moe = phase("4h MoE", moe_serving_phase, flagship, serving, tf, fa, pa,
                 cfg)
+    phase("4i compiled rounds", compiled_rounds_phase, flagship, serving, tf,
+          quant, fa, pa, im, sp, cfg)
+    del sp
     phase("5 small train", small_train_phase, tf, fa)
     phase("5 small MoE train", small_moe_train_phase, tf, fa)
     train_launches, train_plain = phase("6 train", train_phase, trainer, fa)
@@ -3621,6 +3879,11 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")
     log(json.dumps({"phase_wall_s": walls}))
+    # phase 4i adds forty stream runs of the flagship, half of them
+    # eager: most of the run's time beyond the earlier phases
+    log(f"phases: {sum(walls.values()):.1f} s in all, "
+        f"{walls['4i compiled rounds']:.1f} s of them phase 4i (compiled "
+        "rounds against eager ones)")
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

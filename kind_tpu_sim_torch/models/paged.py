@@ -217,19 +217,19 @@ def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
 
 
 def paged_decode_chunk(params, pools, tables, lengths, last_token, active,
-                       sampling_state, presence, *, cfg: ModelConfig,
-                       chunk: int):
+                       sampling, presence, *, cfg: ModelConfig, chunk: int):
     """One scheduling quantum on the gather tier: gather the block view
-    once, run the shared chunk scan, scatter the chunk buffer back.
-    Returns (last_token, emitted, presence, logprobs)."""
+    once, run the shared chunk scan (``serving._chunk_scan``: device
+    inputs only, ``last_token`` and ``presence`` updated in place),
+    scatter the chunk buffer back. Returns (emitted, logprobs)."""
     from kind_tpu_sim_torch.models.serving import _chunk_scan
 
     view = gather_view(pools, tables)
-    token, small, emitted, presence, lps = _chunk_scan(
-        params, view, lengths, last_token, active, sampling_state,
-        presence, cfg=cfg, chunk=chunk)
+    small, emitted, lps = _chunk_scan(
+        params, view, lengths, last_token, active, sampling, presence,
+        cfg=cfg, chunk=chunk)
     scatter_rows(pools, tables, lengths, small, active)
-    return token, emitted, presence, lps
+    return emitted, lps
 
 
 def _block_decode_kernel(x, bparams, cfg: ModelConfig, pool_lc, tables,
@@ -273,24 +273,24 @@ def _block_decode_kernel(x, bparams, cfg: ModelConfig, pool_lc, tables,
 
 
 def paged_decode_chunk_kernel(params, pools, tables, lengths, last_token,
-                              active, sampling_state, presence, *,
+                              active, sampling, presence, *,
                               cfg: ModelConfig, chunk: int):
     """paged_decode_chunk's kernel tier: same scheduling quantum, with
     the big-cache attention reading pool blocks directly through the
     table — no per-chunk gather, no transient view. ``tables`` and
-    ``lengths`` are int32 device tensors. Returns (last_token, emitted,
-    presence, logprobs)."""
+    ``lengths`` are int32 device tensors. Returns (emitted,
+    logprobs)."""
     from kind_tpu_sim_torch.models.serving import _chunk_scan
 
     def block_fn(x, bparams, pool_lc, small_lc, i):
         return _block_decode_kernel(x, bparams, cfg, pool_lc, tables,
                                     small_lc, lengths, i)
 
-    token, small, emitted, presence, lps = _chunk_scan(
-        params, pools, lengths, last_token, active, sampling_state,
-        presence, cfg=cfg, chunk=chunk, block_fn=block_fn)
+    small, emitted, lps = _chunk_scan(
+        params, pools, lengths, last_token, active, sampling, presence,
+        cfg=cfg, chunk=chunk, block_fn=block_fn)
     scatter_rows(pools, tables, lengths, small, active)
-    return token, emitted, presence, lps
+    return emitted, lps
 
 
 def paged_verify_step(params, pools, tables, out, total, active, sampling,
@@ -300,8 +300,7 @@ def paged_verify_step(params, pools, tables, out, total, active, sampling,
     tokens), run the window forward against it, scatter the window's
     k/v into each slot's blocks from its base (inactive slots to the
     garbage block), in place, and run the shared accept/emit
-    (``speculative._accept_and_emit``; ``sampling`` from
-    ``speculative._spec_sampling``). Returns (out, total, emit, m,
+    (``speculative._accept_and_emit``). Returns (out, total, emit, m,
     lp)."""
     from kind_tpu_sim_torch.models.speculative import (
         _accept_and_emit,
@@ -315,22 +314,17 @@ def paged_verify_step(params, pools, tables, out, total, active, sampling,
     return _accept_and_emit(logits, draft, out, total, active, sampling, k=k)
 
 
-def paged_verify_scan(params, pools, tables, out, total, active,
-                      sampling_state, *, cfg: ModelConfig, k: int,
-                      windows: int):
+def paged_verify_scan(params, pools, tables, out, total, active, sampling,
+                      *, cfg: ModelConfig, k: int, windows: int):
     """``windows`` paged verify windows in one dispatch (a loop that
     never reads the device), the paged twin of
-    ``speculative._grid_verify_scan``. ``tables`` stay fixed across the
-    windows: the caller grows every slot's block list to cover
-    windows*(k+1) positions first; each window gathers the view again,
-    as the pools advanced. Returns (out, total, emits (W, b, k+1),
+    ``speculative._grid_verify_scan`` (its inputs are the same device
+    tensors; ``out`` and ``total`` are updated in place). ``tables``
+    stay fixed across the windows: the caller grows every slot's block
+    list to cover windows*(k+1) positions first; each window gathers
+    the view again, as the pools advanced. Returns (emits (W, b, k+1),
     ms (W, b), lps (W, b, k+1))."""
-    from kind_tpu_sim_torch.models.speculative import (
-        _scan_windows,
-        _spec_sampling,
-    )
-
-    sampling = _spec_sampling(sampling_state, out.device)
+    from kind_tpu_sim_torch.models.speculative import _scan_windows
 
     def step(out, total):
         return paged_verify_step(params, pools, tables, out, total, active,

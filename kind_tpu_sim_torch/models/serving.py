@@ -8,6 +8,10 @@ lives on the host as numpy arrays; the device holds the KV storage,
 each slot's last token and its seen-token set. Each round costs one
 device-to-host copy: its emitted tokens, queued into pinned host memory
 right after the round's launches, with an event the retire waits on.
+On a card a round is one CUDA graph replay, the counterpart of the
+reference's jitted round programs (``models/graphs.py``): the host
+state a round reads enters through fixed device buffers, and the round
+writes its results back into the engine's state in place.
 
 Four engines: ``ServingEngine`` over a dense (slots, max_len) cache,
 ``PagedServingEngine`` over a paged block pool (models/paged.py), whose
@@ -84,10 +88,10 @@ from kind_tpu_sim_torch.models.decode import (
     _gumbel_noise,
     _map_kv,
     _new_chunk_buffers,
-    _seed_words,
     _write,
     init_cache,
 )
+from kind_tpu_sim_torch.models import graphs
 from kind_tpu_sim_torch.models.quant import QuantArray, embed_lookup
 from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
@@ -365,22 +369,23 @@ def _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen, presence,
     return torch.where(temp <= 0.0, greedy, sampled)
 
 
-def _chunk_scan(params, big_cache, lengths, last_token, active,
-                sampling_state, presence, *, cfg: ModelConfig, chunk: int,
-                block_fn=None):
+def _chunk_scan(params, big_cache, lengths, last_token, active, sampling,
+                presence, *, cfg: ModelConfig, chunk: int, block_fn=None):
     """One scheduling quantum: ``chunk`` tokens for every slot against
     a big cache that is only read (inactive slots compute too, their
     emissions are ignored by the host and their write-back suppressed
     by the caller's merge). ``big_cache`` is per-layer (b, s, kv, hd)
     — the dense grid or a paged gather view; ``block_fn(x, bparams,
     big_lc, small_lc, i)`` overrides the per-layer block (the paged
-    kernel tier). ``lengths`` (b,) int32 and ``active`` (b,) bool are
-    device tensors; ``sampling_state`` is the host-side tuple (temp,
-    top_k, top_p, min_p, rep_pen, seeds, prompt_len). ``presence``
-    (b, vocab) bool, the seen-token sets, is updated in place as
-    tokens emit. Returns (next_token, chunk buffers, emitted (b, chunk),
-    presence, raw-model logprobs (b, chunk))."""
-    temp, top_k, top_p, min_p, rep_pen, seeds, prompt_len = sampling_state
+    kernel tier). Every input is a device tensor, nothing is copied
+    from the host: ``lengths`` (b,) int32, ``active`` (b,) bool and
+    ``sampling``, None when every row is greedy and penalty-free (the
+    JAX package's lax.cond, decided on the host, a graph key) or the
+    tuple (temp, top_k, top_p, min_p, rep_pen, seed words, prompt_len)
+    of ``graphs.RoundInputs.sampling``. ``last_token`` (b,) and
+    ``presence`` (b, vocab) bool, the seen-token sets, are updated in
+    place. Returns (chunk buffers, emitted (b, chunk), raw-model
+    logprobs (b, chunk))."""
     b = last_token.shape[0]
     device = last_token.device
     dtype = torch_dtype(cfg.dtype)
@@ -390,19 +395,11 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
             return _block_decode_chunk(x, bparams, cfg, big_lc, small_lc,
                                        lengths, i)
     small = _new_chunk_buffers(cfg, b, chunk, device)
-    # the JAX package's lax.cond: an all-greedy, penalty-free grid (the
-    # common serving case) skips the sampling pipeline entirely
-    sampled = bool(np.any(temp > 0.0) or np.any(rep_pen != 1.0))
-    if sampled:
-        # queued host-to-device copies and noise made on the device:
-        # nothing here waits for a round still in flight
-        knobs = [to_device(a, device)
-                 for a in (temp, top_k, top_p, min_p, rep_pen)]
-        words = to_device(_seed_words(seeds), device)
+    if sampling is not None:
+        temp, top_k, top_p, min_p, rep_pen, words, prompt_len = sampling
         # generation index of the token selected at step i: generation
         # 0 came from the prefill logits at admission
-        gen0 = lengths.long() + 1 - to_device(
-            np.asarray(prompt_len, np.int64), device)
+        gen0 = lengths.long() + 1 - prompt_len
     rows = torch.arange(b, device=device)
     token = last_token
     emitted, lps = [], []
@@ -413,9 +410,10 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
             x, _ = block_fn(x, bparams, big_lc, small_lc, i)
         x = _rms_norm(x, params["final_norm"])
         logits = _readout(x, params["embed"], cfg.int8_native)
-        if sampled:
+        if sampling is not None:
             noise = _counter_gumbel(words, gen0 + i, logits.shape[-1])
-            nxt = _sample_rows(logits, *knobs, presence, noise=noise)
+            nxt = _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen,
+                               presence, noise=noise)
         else:
             nxt = torch.argmax(logits, dim=-1)
         nxt = torch.where(active, nxt, token)  # inactive slots hold
@@ -425,8 +423,8 @@ def _chunk_scan(params, big_cache, lengths, last_token, active,
         lps.append(_raw_token_lp(logits, nxt))
         emitted.append(nxt)
         token = nxt
-    return (token, small, torch.stack(emitted, dim=1), presence,
-            torch.stack(lps, dim=1))
+    last_token.copy_(token)
+    return small, torch.stack(emitted, dim=1), torch.stack(lps, dim=1)
 
 
 def _scatter_chunk(cache_arr, small_arr, starts, active) -> None:
@@ -444,19 +442,19 @@ def _scatter_chunk(cache_arr, small_arr, starts, active) -> None:
     _write(cache_arr, (rows, cols), small_arr, keep=sel[:, None, None, None])
 
 
-def _decode_chunk(params, cache, lengths, last_token, active,
-                  sampling_state, presence, *, cfg: ModelConfig,
-                  chunk: int):
-    """One scheduling quantum over the dense slot grid; the cache is
-    updated in place. Returns (last_token, emitted (slots, chunk),
-    presence, logprobs)."""
-    token, small, emitted, presence, lps = _chunk_scan(
-        params, cache, lengths, last_token, active, sampling_state,
-        presence, cfg=cfg, chunk=chunk)
+def _decode_chunk(params, cache, lengths, last_token, active, sampling,
+                  presence, *, cfg: ModelConfig, chunk: int):
+    """One scheduling quantum over the dense slot grid (``_chunk_scan``,
+    then each slot's chunk merged into the cache); the cache,
+    ``last_token`` and ``presence`` are updated in place. Returns
+    (emitted (slots, chunk), logprobs)."""
+    small, emitted, lps = _chunk_scan(
+        params, cache, lengths, last_token, active, sampling, presence,
+        cfg=cfg, chunk=chunk)
     for big_lc, small_lc in zip(cache, small):
         _scatter_chunk(big_lc["k"], small_lc["k"], lengths, active)
         _scatter_chunk(big_lc["v"], small_lc["v"], lengths, active)
-    return token, emitted, presence, lps
+    return emitted, lps
 
 
 # ---------------------------------------------------------------------
@@ -524,6 +522,11 @@ class ServingEngine:
                                       device=self.device)
         self.presence = torch.zeros((n, cfg.vocab_size), dtype=torch.bool,
                                     device=self.device)
+        # what a round reads of the host's state enters through these
+        # buffers, and the round runs through ``_round``: a CUDA graph
+        # per key on a card, the eager function on the CPU
+        self._in = graphs.RoundInputs(n, self.device)
+        self._round = graphs.round_runner(self.device)
 
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * n
@@ -634,7 +637,7 @@ class ServingEngine:
         None when no slot is live."""
         if not any(r is not None for r in self.slot_req):
             return None
-        emitted, lps = self._decode_round(self._sampling_state())
+        emitted, lps = self._decode_round()
         return self._stage(emitted, lps), list(self._slot_gen)
 
     def _round_retire(self, handles) -> None:
@@ -777,9 +780,16 @@ class ServingEngine:
                 return False
         return saw
 
-    def _sampling_state(self):
-        return (self.temp, self.top_k, self.top_p, self.min_p,
-                self.rep_pen, self.seeds, self.prompt_len)
+    def _round_sampling(self):
+        """The slots' sampling state in the round's buffers, or None
+        when no slot samples or penalizes (the JAX package's lax.cond:
+        an all-greedy, penalty-free grid, the common serving case, skips
+        the sampling pipeline; part of the graph key)."""
+        if not (np.any(self.temp > 0.0) or np.any(self.rep_pen != 1.0)):
+            return None
+        return self._in.sampling(self.temp, self.top_k, self.top_p,
+                                 self.min_p, self.rep_pen, self.seeds,
+                                 self.prompt_len)
 
     # -- storage hooks (PagedServingEngine overrides) ------------------
 
@@ -863,18 +873,23 @@ class ServingEngine:
         """Run at activation once the slot's state is set (the
         speculative engines seed the slot's token buffer)."""
 
-    def _decode_round(self, sampling_state):
+    def _decode_round(self):
+        chunk = self.serving.chunk
         lengths, active = self._device_vectors()
-        self.last_token, emitted, self.presence, lps = _decode_chunk(
-            self.params, self.cache, lengths, self.last_token, active,
-            sampling_state, self.presence, cfg=self.cfg,
-            chunk=self.serving.chunk)
+        sampling = self._round_sampling()
+        emitted, lps = self._round(
+            ("chunk", chunk, sampling is not None),
+            functools.partial(_decode_chunk, self.params, self.cache, lengths,
+                              self.last_token, active, sampling,
+                              self.presence, cfg=self.cfg, chunk=chunk))
         self._advance_lengths()
         return emitted, lps
 
     def _device_vectors(self):
-        return (to_device(self.lengths, self.device),
-                to_device(self.active, self.device))
+        """The slots' lengths and active flags in the round's
+        buffers."""
+        return (self._in.fill(self._in.lengths, self.lengths),
+                self._in.fill(self._in.active, self.active))
 
     def _advance_lengths(self) -> None:
         self.lengths = np.where(self.active,
@@ -1563,7 +1578,7 @@ class PagedServingEngine(ServingEngine):
             tables[s, :len(blks)] = blks
         return tables
 
-    def _decode_round(self, sampling_state):
+    def _decode_round(self):
         chunk = self.serving.chunk
         self._ensure_blocks(chunk, self.lengths)
         if not any(r is not None for r in self.slot_req):
@@ -1573,10 +1588,13 @@ class PagedServingEngine(ServingEngine):
                                 device=self.device),
                     torch.zeros((n, chunk), device=self.device))
         lengths, active = self._device_vectors()
-        tables = to_device(self._build_tables(), self.device)
-        self.last_token, emitted, self.presence, lps = self._paged_chunk(
-            self.params, self.pools, tables, lengths, self.last_token,
-            active, sampling_state, self.presence)
+        tables = self._in.tables(self._build_tables())
+        sampling = self._round_sampling()
+        emitted, lps = self._round(
+            ("paged chunk", chunk, tables.shape[1], sampling is not None),
+            functools.partial(self._paged_chunk, self.params, self.pools,
+                              tables, lengths, self.last_token, active,
+                              sampling, self.presence))
         self._advance_lengths()
         return emitted, lps
 
@@ -1756,19 +1774,20 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
         if not any(r is not None for r in self.slot_req):
             return None
         k, W = self.serving.speculative_k, self.serving.spec_windows
-        active = to_device(self.active, self.device)
-        state = self._sampling_state()
+        active = self._in.fill(self._in.active, self.active)
+        sampling = self._round_sampling()
         if self._draft is None:
-            self.out, self.total, emits, ms, lps = spec._grid_verify_scan(
-                self.params, self.cache, self.out, self.total, active,
-                state, cfg=self.cfg, k=k, windows=W)
+            fn = functools.partial(
+                spec._grid_verify_scan, self.params, self.cache, self.out,
+                self.total, active, sampling, cfg=self.cfg, k=k, windows=W)
         else:
             dparams, dcfg = self._draft
-            (self.out, self.total, emits, ms,
-             lps) = spec._grid_draft_verify_scan(
-                self.params, dparams, self.cache, self.draft_cache,
-                self.out, self.total, active, state, cfg=self.cfg,
-                dcfg=dcfg, k=k, windows=W)
+            fn = functools.partial(
+                spec._grid_draft_verify_scan, self.params, dparams,
+                self.cache, self.draft_cache, self.out, self.total, active,
+                sampling, cfg=self.cfg, dcfg=dcfg, k=k, windows=W)
+        emits, ms, lps = self._round(("verify", k, W, sampling is not None),
+                                     fn)
         return (self._stage(emits, ms, self.total, lps),
                 list(self._slot_gen))
 
@@ -1825,11 +1844,15 @@ class PagedSpeculativeServingEngine(_Speculative, PagedServingEngine):
         self._ensure_blocks(W * (k + 1), self._total_host)
         if not any(r is not None for r in self.slot_req):
             return None  # preemption emptied the grid
-        tables = to_device(self._build_tables(), self.device)
-        active = to_device(self.active, self.device)
-        self.out, self.total, emits, ms, lps = paged.paged_verify_scan(
-            self.params, self.pools, tables, self.out, self.total, active,
-            self._sampling_state(), cfg=self.cfg, k=k, windows=W)
+        tables = self._in.tables(self._build_tables())
+        active = self._in.fill(self._in.active, self.active)
+        sampling = self._round_sampling()
+        emits, ms, lps = self._round(
+            ("paged verify", k, W, tables.shape[1], sampling is not None),
+            functools.partial(paged.paged_verify_scan, self.params,
+                              self.pools, tables, self.out, self.total,
+                              active, sampling, cfg=self.cfg, k=k,
+                              windows=W))
         return (self._stage(emits, ms, self.total, lps),
                 list(self._slot_gen))
 

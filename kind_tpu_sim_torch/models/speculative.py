@@ -46,10 +46,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
-from kind_tpu_sim_torch.device import resolve, to_device, torch_dtype
+from kind_tpu_sim_torch.device import resolve, torch_dtype
 from kind_tpu_sim_torch.models.decode import (
     NEG,
     _cache_scores,
@@ -58,7 +57,6 @@ from kind_tpu_sim_torch.models.decode import (
     _counter_uniform,
     _filtered_scaled,
     _finish_block,
-    _seed_words,
     _write,
     prefill,
 )
@@ -217,35 +215,15 @@ def _rejection_select(probs, draft, u, seeds, gidx):
     return m, bonus
 
 
-def _spec_sampling(sampling_state, device):
-    """The serving engine's host sampling tuple (temp, top_k, top_p,
-    min_p, rep_pen, seeds, prompt_len) as device tensors (temp, top_k,
-    top_p, min_p, seeds (b, 2), prompt_len), or None when no row
-    samples — the JAX package's ``lax.cond`` on any temp > 0, decided
-    once a dispatch on the host. ``rep_pen`` is 1.0 on every row (the
-    speculative engines refuse penalties at submit)."""
-    if sampling_state is None:
-        return None
-    temp, top_k, top_p, min_p, _rep_pen, seeds, prompt_len = sampling_state
-    if not np.any(np.asarray(temp) > 0.0):
-        return None
-    return (to_device(np.asarray(temp, np.float32), device),
-            to_device(np.asarray(top_k, np.int32), device),
-            to_device(np.asarray(top_p, np.float32), device),
-            to_device(np.asarray(min_p, np.float32), device),
-            to_device(_seed_words(seeds), device),
-            to_device(np.asarray(prompt_len, np.int64), device))
-
-
 def _grid_verify_step(params, cache, out, total, active, sampling=None, *,
                       cfg: ModelConfig, k: int, draft=None):
     """One speculative step over the serving grid: like ``_verify_step``
     with an ``active`` mask (inactive slots compute too; their state,
     ``out`` row and cache rows are left as they are) and, when
-    ``sampling`` (from ``_spec_sampling``) is given, rejection-sampled
-    acceptance for temp > 0 rows. Returns (out, total, emit (b, k+1),
-    m, lp (b, k+1)): row b's new tokens are emit[b, :m[b]+1], lp their
-    raw-model logprobs."""
+    ``sampling`` (``graphs.RoundInputs.sampling``'s device tuple) is
+    given, rejection-sampled acceptance for temp > 0 rows. Returns (out,
+    total, emit (b, k+1), m, lp (b, k+1)): row b's new tokens are
+    emit[b, :m[b]+1], lp their raw-model logprobs."""
     draft, base, logits, rows = _window_forward(params, cache, out, total,
                                                 cfg=cfg, k=k, draft=draft)
     _write_rows(cache, rows, base, active)
@@ -292,7 +270,9 @@ def _accept_and_emit(logits, draft, out, total, active, sampling, *, k: int):
     m = torch.cumprod(agree.long(), dim=1).sum(dim=1)
     bonus = preds.gather(1, m[:, None])[:, 0]
     if sampling is not None:
-        temp, top_k, top_p, min_p, seeds, prompt_len = sampling
+        # rep_pen is 1.0 on every row: the speculative engines refuse
+        # penalties at submit
+        temp, top_k, top_p, min_p, _rep_pen, seeds, prompt_len = sampling
         vocab = logits.shape[-1]
 
         def tile(v):
@@ -327,17 +307,17 @@ def _accept_and_emit(logits, draft, out, total, active, sampling, *, k: int):
     return out, total, emit, m, _raw_token_lp(logits, emit)
 
 
-def _grid_verify_scan(params, cache, out, total, active, sampling_state=None,
+def _grid_verify_scan(params, cache, out, total, active, sampling=None,
                       *, cfg: ModelConfig, k: int, windows: int):
     """``windows`` verify windows in one dispatch (the JAX package's
     ``lax.scan`` over ``_grid_verify_step``; a loop here that never
-    reads the device). Drafts for window i+1 come from the carried
-    (out, total) exactly as from the engine's state; a slot that
-    finishes mid-scan keeps computing until the scan ends and the host
-    discards its surplus. Returns (out, total, emits (W, b, k+1),
-    ms (W, b), lps (W, b, k+1))."""
-    sampling = _spec_sampling(sampling_state, out.device)
-
+    reads the device). Every input is a device tensor: ``active`` (b,)
+    bool, ``sampling`` None (no row samples) or the tuple of
+    ``graphs.RoundInputs.sampling``. Drafts for window i+1 come from the
+    carried (out, total) exactly as from the engine's state; a slot
+    that finishes mid-scan keeps computing until the scan ends and the
+    host discards its surplus. ``out`` and ``total`` are updated in
+    place. Returns (emits (W, b, k+1), ms (W, b), lps (W, b, k+1))."""
     def step(out, total):
         return _grid_verify_step(params, cache, out, total, active, sampling,
                                  cfg=cfg, k=k)
@@ -347,20 +327,22 @@ def _grid_verify_scan(params, cache, out, total, active, sampling_state=None,
 
 def _scan_windows(step, out, total, windows: int):
     """``windows`` calls of ``step(out, total) -> (out, total, emit, m,
-    lp)``, each fed the last one's buffer and totals; returns (out,
-    total, emits (W, b, k+1), ms (W, b), lps (W, b, k+1))."""
+    lp)``, each fed the last one's buffer and totals (``step`` writes
+    ``out`` in place); the last totals are written into ``total``.
+    Returns (emits (W, b, k+1), ms (W, b), lps (W, b, k+1))."""
     emits, ms, lps = [], [], []
+    totals = total
     for _ in range(windows):
-        out, total, emit, m, lp = step(out, total)
+        out, totals, emit, m, lp = step(out, totals)
         emits.append(emit)
         ms.append(m)
         lps.append(lp)
-    return (out, total, torch.stack(emits), torch.stack(ms),
-            torch.stack(lps))
+    total.copy_(totals)
+    return torch.stack(emits), torch.stack(ms), torch.stack(lps)
 
 
 def _grid_draft_verify_scan(params, draft_params, cache, draft_cache, out,
-                            total, active, sampling_state=None, *,
+                            total, active, sampling=None, *,
                             cfg: ModelConfig, dcfg: ModelConfig, k: int,
                             windows: int):
     """``_grid_verify_scan`` with the n-gram proposer swapped for a
@@ -368,9 +350,7 @@ def _grid_draft_verify_scan(params, draft_params, cache, draft_cache, out,
     model over its own per-slot cache (``_draft_propose``), then the
     target verifies the proposed window. Acceptance is unchanged (the
     argmax draft is deterministic given state), so the exactness
-    contracts carry over. Returns (out, total, emits, ms, lps)."""
-    sampling = _spec_sampling(sampling_state, out.device)
-
+    contracts carry over. Returns (emits, ms, lps)."""
     def step(out, total):
         draft = _draft_propose(draft_params, draft_cache, out, total,
                                dcfg=dcfg, k=k)

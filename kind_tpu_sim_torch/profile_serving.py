@@ -8,9 +8,11 @@ random bf16 weights from seed 0; 16 greedy requests with 192/224/256-
 token prompts and 128 new tokens each, on 8 slots, chunk 64, a pool of
 129 blocks x 64 positions, table width 8) through
 ``PagedServingEngine`` on the paged-kernel tier (``--gather``: the
-gather tier), then serves it again with ``torch.profiler`` tracing one
-pure decode round (the second round: the first wave's 8 slots, 64
-tokens each, no admission). Prints one JSON object:
+gather tier), after one short request through the same engine (the
+kernels build and the engine captures its round's CUDA graph), then
+serves it again with ``torch.profiler`` tracing one pure decode round
+(the second round: the first wave's 8 slots, 64 tokens each, no
+admission). Prints one JSON object:
 
 * ``wall_s``, ``tok_per_s``, ``ttft_mean_s``, ``e2e_mean_s`` -- the
   untraced run, host clock around work that ends in a synchronize;
@@ -20,20 +22,22 @@ tokens each, no admission). Prints one JSON object:
   round's kernel times (one stream, so kernels do not overlap) and its
   share of the round's wall time;
 * ``device_ops_per_step`` -- kernels and copies the device ran per
-  decode step;
+  decode step: the kernel nodes of the round's CUDA graph, over its
+  steps;
 * ``kernels`` -- device time by kernel name, largest first, and
   ``host_syncs`` -- the round's stream/device synchronisations and
-  blocking host-to-device copies, by CUDA runtime call.
+  blocking host-to-device copies, by CUDA runtime call;
+* ``graphs`` -- the engine's graphs captured, the seconds spent
+  capturing them and the replays.
+
+The traced round is a replay: the engine captures its round's CUDA
+graph in the round before (``models/graphs.py``).
 
 With ``--speculative`` the stream goes through
 ``SpeculativeServingEngine`` instead (k 4, 4 verify windows a round, the
 bench's ``serving_speculative``), and the traced round is one scanned
-verify dispatch and its readback; ``phases`` splits its device and host
-time between the draft (``propose_ngram``), the window blocks
-(``speculative._window_block``, all layers), the readout, the cache
-write, acceptance (``_accept_and_emit``) and the readback, each a
-``torch.profiler.record_function`` range wrapped around the function
-for the trace only.
+verify dispatch (four windows in one graph) and its readback;
+``step_wall_ms`` and ``device_ops_per_step`` are then per window.
 
 Run it on the card (it raises without one).
 
@@ -185,10 +189,15 @@ def flagship_params(cfg: tf.ModelConfig):
 
 
 def _profile_round(eng) -> dict:
-    """Trace one step_round of ``eng`` (a pure decode round)."""
+    """Trace one step_round of ``eng``: a pure decode round (a chunk of
+    decode steps, or a speculative engine's verify windows) and its
+    readback. On a card that round is one CUDA graph replay once the
+    engine has captured its key."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    steps = (eng.serving.spec_windows if eng.serving.speculative_k
+             else eng.serving.chunk)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -196,82 +205,22 @@ def _profile_round(eng) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, syncs, launches = {}, {}, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
-            launches += ev.count
-        elif ev.key.startswith(SYNC_CALLS):
-            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+    # the raw events: building the profiler's event tree
+    # (``key_averages``) takes seconds for each 10,000 operations
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if ev.duration_ns() > 0 and not ev.is_user_annotation():
+                kernels[name] = kernels.get(name, 0.0) + ev.duration_ns() / 1e6
+                launches += 1
+        elif name.startswith(SYNC_CALLS):
+            syncs[name] = syncs.get(name, 0) + 1
     busy = sum(kernels.values())
     return {"round_wall_ms": wall * 1e3,
-            "step_wall_ms": wall * 1e3 / eng.serving.chunk,
+            "step_wall_ms": wall * 1e3 / steps,
             "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
-            "device_ops_per_step": launches / eng.serving.chunk,
-            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
-            "host_syncs": syncs}
-
-
-SPEC_PHASES = {"draft": "propose_ngram", "window blocks": "_window_block",
-               "readout": "_readout", "cache write": "_write_rows",
-               "accept": "_accept_and_emit"}
-
-
-def _profile_spec_round(eng) -> dict:
-    """Trace one step_round of a speculative engine (a verify dispatch
-    of ``spec_windows`` windows and its readback, no admission), with
-    each phase of ``SPEC_PHASES`` (and the readback) in its own
-    ``record_function`` range."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from kind_tpu_sim_torch.models import speculative as spec
-
-    def ranged(label, fn):
-        def wrapped(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return wrapped
-
-    originals = {name: getattr(spec, name) for name in SPEC_PHASES.values()}
-    fetch = eng._fetch
-    torch.cuda.synchronize()
-    try:
-        for label, name in SPEC_PHASES.items():
-            setattr(spec, name, ranged(label, originals[name]))
-        eng._fetch = ranged("readback", fetch)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step_round()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for name, fn in originals.items():
-            setattr(spec, name, fn)
-        eng._fetch = fetch
-    phases = {label: {"device_ms": 0.0, "host_ms": 0.0, "calls": 0}
-              for label in [*SPEC_PHASES, "readback"]}
-    kernels, syncs, launches = {}, {}, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if ev.key in phases:
-            continue  # a range's span on the card's timeline, not a kernel
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
-            launches += ev.count
-        elif ev.key.startswith(SYNC_CALLS):
-            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
-    for ev in prof.events():
-        if ev.name in phases and ev.device_type == torch.autograd.DeviceType.CPU:
-            phases[ev.name]["device_ms"] += ev.device_time_total / 1e3
-            phases[ev.name]["host_ms"] += ev.cpu_time_total / 1e3
-            phases[ev.name]["calls"] += 1
-    busy = sum(kernels.values())
-    windows = eng.serving.spec_windows
-    return {"round_wall_ms": wall * 1e3, "window_wall_ms": wall * 1e3 / windows,
-            "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
-            "device_ops_per_window": launches / windows, "phases": phases,
+            "device_ops_per_step": launches / steps,
             "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
             "host_syncs": syncs}
 
@@ -290,32 +239,35 @@ def run(paged_kernel: bool = True, speculative: bool = False) -> dict:
         return serving.PagedServingEngine(params, cfg,
                                           flagship_serving(paged_kernel))
 
-    def engine():
-        eng = new_engine()
+    def submit(eng):
         for r in reqs:
             eng.submit(dataclasses.replace(r))
-        return eng
 
-    warm = new_engine()
-    warm.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=65))
-    warm.run()
+    eng = new_engine()
+    # the kernels build and the engine captures its round's graph
+    eng.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=65))
+    eng.run()
+    windows0 = getattr(eng, "verify_steps", 0)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng = engine()
+    submit(eng)
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tokens = sum(len(c.tokens) for c in done)
+    windows = getattr(eng, "verify_steps", 0) - windows0
 
-    traced = engine()
-    traced.step_round()  # admits the first wave, decodes its first round
-    prof = (_profile_spec_round if speculative else _profile_round)(traced)
+    submit(eng)
+    eng.step_round()  # admits the first wave, decodes its first round
+    prof = _profile_round(eng)  # a pure decode round: a graph replay
     tier = ("speculative" if speculative
             else "kernel" if paged_kernel else "gather")
     if speculative:
-        prof.update(verify_steps=eng.verify_steps,
-                    tokens_per_window=tokens / eng.verify_steps)
+        prof.update(verify_steps=windows, tokens_per_window=tokens / windows)
+    prof["graphs"] = {"captured": eng._round.captured,
+                      "capture_s": eng._round.capture_s,
+                      "replays": eng._round.replays}
     return {"tier": tier,
             "device": torch.cuda.get_device_name(0),
             "requests": len(done), "tokens": tokens, "wall_s": wall,

@@ -21,6 +21,7 @@ from kind_tpu_sim.models import serving as jserving
 from kind_tpu_sim_torch import metrics as pmetrics
 from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import serving as pserving
+from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import TINY, jax_cfg, make_params
 
@@ -32,6 +33,14 @@ TICK = 0.1234567891
 @pytest.fixture(scope="module")
 def params():
     return make_params(CFG, embed_scale=0.5, block_scale=6.0)
+
+
+@pytest.fixture(scope="module")
+def draft_model():
+    """A one-layer draft model: (cfg, JAX params, port params)."""
+    dcfg = ptf.ModelConfig(vocab_size=CFG.vocab_size, d_model=16, n_heads=2,
+                           n_layers=1, d_ff=32, max_seq=64, dtype="float32")
+    return (dcfg,) + make_params(dcfg, seed=11, block_scale=4.0)
 
 
 def make_prompt(seed, length):
@@ -50,14 +59,19 @@ class FakeClock:
         self.t += dt
 
 
-def engine(mod, params, kw, cls="ServingEngine", clock=None):
+def engine(mod, params, kw, cls="ServingEngine", clock=None, draft=None):
+    """``mod``'s engine; ``draft`` (cfg, JAX params, port params) makes
+    it a draft-model speculative engine."""
     jparams, pparams = params
     if mod is pserving:
+        extra = {} if draft is None else dict(draft=(draft[2], draft[0]))
         return getattr(pserving, cls)(pparams, CFG,
                                       pserving.ServingConfig(**kw),
-                                      device="cpu", clock=clock)
+                                      device="cpu", clock=clock, **extra)
+    extra = {} if draft is None else dict(draft=(draft[1], jax_cfg(draft[0])))
     return getattr(jserving, cls)(jparams, jax_cfg(CFG),
-                                  jserving.ServingConfig(**kw), clock=clock)
+                                  jserving.ServingConfig(**kw), clock=clock,
+                                  **extra)
 
 
 def completions(done):
@@ -87,22 +101,27 @@ def overlap_requests(mod, pparams, greedy_only=False):
     return reqs
 
 
+# the engines that take overlap_rounds (the paged ones refuse it):
+# name -> (engine, ServingConfig fields, with a draft model)
 OVERLAP_ENGINES = {
-    "dense": ("ServingEngine", dict(max_slots=2, max_len=64, chunk=8)),
+    "dense": ("ServingEngine", dict(max_slots=2, max_len=64, chunk=8), False),
     "spec": ("SpeculativeServingEngine",
-             dict(max_slots=2, max_len=64, speculative_k=3)),
+             dict(max_slots=2, max_len=64, speculative_k=3), False),
+    "draft": ("SpeculativeServingEngine",
+              dict(max_slots=2, max_len=64, speculative_k=3), True),
 }
 
 
 @pytest.mark.parametrize("name", sorted(OVERLAP_ENGINES))
-def test_overlap_equals_sequential_and_jax(params, name):
+def test_overlap_equals_sequential_and_jax(params, draft_model, name):
     """8 requests on 2 slots (re-admission behind zombie rounds), greedy,
     sampled and eos mixed: the pipelined run gives the sequential
     streams; the greedy ones are also the JAX engine's, pipelined."""
-    cls, kw = OVERLAP_ENGINES[name]
+    cls, kw, with_draft = OVERLAP_ENGINES[name]
+    draft = draft_model if with_draft else None
 
     def run(mod, greedy_only=False, **extra):
-        eng = engine(mod, params, dict(kw, **extra), cls)
+        eng = engine(mod, params, dict(kw, **extra), cls, draft=draft)
         for r in overlap_requests(mod, params[1], greedy_only):
             eng.submit(r)
         return ({c.request_id: (c.tokens, c.finish_reason) for c in eng.run()},
@@ -118,13 +137,15 @@ def test_overlap_equals_sequential_and_jax(params, name):
 
 
 @pytest.mark.parametrize("name", sorted(OVERLAP_ENGINES))
-def test_round_dispatch_reads_nothing_back(params, name, monkeypatch):
+def test_round_dispatch_reads_nothing_back(params, draft_model, name,
+                                           monkeypatch):
     """A round's dispatch never reads a tensor on the host, sampled
     rows included: their noise is made where the logits are, from the
     host's seeds and the device's lengths. On a card any such read
     would wait for the round in flight and undo the overlap."""
-    cls, kw = OVERLAP_ENGINES[name]
-    eng = engine(pserving, params, dict(kw, overlap_rounds=True), cls)
+    cls, kw, with_draft = OVERLAP_ENGINES[name]
+    eng = engine(pserving, params, dict(kw, overlap_rounds=True), cls,
+                 draft=draft_model if with_draft else None)
     for r in overlap_requests(pserving, params[1]):
         eng.submit(r)
     dispatch, reads = eng._round_dispatch, []

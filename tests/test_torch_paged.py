@@ -173,19 +173,17 @@ def test_paged_decode_chunk_kernel_matches_jax(params):
         jparams, jpools, jnp.asarray(tables), jnp.asarray(lengths),
         jnp.asarray(last), jnp.asarray(active), jstate,
         jnp.asarray(presence), cfg=jax_cfg(CFG), chunk=8)
-    pstate = (np.zeros(b, np.float32), np.zeros(b, np.int32),
-              np.ones(b, np.float32), np.zeros(b, np.float32),
-              np.ones(b, np.float32), [0] * b, lengths.astype(np.int64))
     gather_pools = [{n: t.clone() for n, t in lc.items()} for lc in ppools]
     outs = {}
     for name, fn, pools in (("kernel", ppaged.paged_decode_chunk_kernel,
                              ppools),
                             ("gather", ppaged.paged_decode_chunk,
                              gather_pools)):
-        _, emit, _, lps = fn(
+        # sampling None: every row greedy and penalty-free, as jstate's
+        emit, lps = fn(
             pparams, pools, torch.as_tensor(tables),
             torch.as_tensor(lengths), torch.as_tensor(last).long(),
-            torch.as_tensor(active), pstate,
+            torch.as_tensor(active), None,
             torch.as_tensor(presence), cfg=CFG, chunk=8)
         outs[name] = (emit.numpy(), lps.numpy())
     live = active

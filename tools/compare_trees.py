@@ -18,9 +18,10 @@ in its own process with its own tree as working directory and on
 The order is base, change, change, base, ... (``--pairs`` of each).
 Prints one JSON line a run, then one with each tree's medians of
 ``tok_per_s``, ``step_wall_ms``, ``device_busy_ms``,
-``device_busy_share``, ``paged_ms`` (the traced round's device time in
-kernels whose name holds ``paged_attention``), ``paged_host_us`` and
-``paged_host_us_min``. Run it on the card.
+``device_busy_share``, ``device_ops_per_step``, ``paged_ms`` (the
+traced round's device time in kernels whose name holds
+``paged_attention``), ``paged_host_us`` and ``paged_host_us_min``. Run
+it on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import numpy as np
 
 CHANGE = Path(__file__).resolve().parent.parent
 KEYS = ("tok_per_s", "step_wall_ms", "device_busy_ms", "device_busy_share",
-        "paged_ms", "paged_host_us", "paged_host_us_min")
+        "device_ops_per_step", "paged_ms", "paged_host_us",
+        "paged_host_us_min")
 
 # the wrapper's host time, run inside one tree (its own package) on this
 # checkout's chip_smoke inputs and timer
@@ -69,7 +71,7 @@ def run_tree(tree: Path) -> dict:
         [sys.executable, "-c", HOST_TIME], **env_cmd).stdout)
     paged = {name: ms for name, ms in prof["kernels"].items()
              if "paged_attention" in name}
-    return {**{key: prof[key] for key in KEYS[:4]},
+    return {**{key: prof[key] for key in KEYS[:5]},
             "paged_ms": sum(paged.values()), **host, "paged_kernels": paged}
 
 
