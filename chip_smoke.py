@@ -96,7 +96,7 @@ it fails (nothing is caught and ignored):
    against the same engine's eager rounds, on phase 4's stream: the
    dense grid, the paged gather and kernel tiers, the prompt-lookup
    grid, the paged speculative engine, the draft-model grid, W8A8 with
-   the int8 KV cache and the MoE kernel tier, five runs of each path in
+   the int8 KV cache and the MoE kernel tier, three runs of each path in
    turns: streams equal, logprobs within 1e-4, the same launches in
    every run; graphs captured, capture time, replays, tok/s, step wall
    and a traced round's device busy share for both paths;
@@ -124,7 +124,24 @@ it fails (nothing is caught and ignored):
    call;
 8. train_smoke -- ``python -m kind_tpu_sim_torch train-smoke --steps 10
    --checkpoint-dir <tmp> --json`` in-process: data pipeline, train
-   steps and the checkpoint/resume round trip on the card.
+   steps and the checkpoint/resume round trip on the card;
+9. bench -- ``kind_tpu_sim_torch.bench.model_throughput()`` once, the
+   reference bench's model block at the flagship (``bench_config_large``,
+   batch 8): the forward, the dense and flash train steps, the 4k-token
+   forward and forward+backward, prefill and the compiled decode in
+   bf16, W8A8 and dequant, and the serving matrix; with the launch
+   counters zeroed just before and read just after. Its
+   ``headline_numbers`` are printed on a line of their own and the whole
+   result is written to ``build/chip_smoke_bench.json``. It fails
+   on any ``_error`` key, a missing key the simulator's calibration
+   needs, an MFU outside (0, 100], a ``roof_frac`` above 1.05, a graphed
+   decode whose first chunk differs from the eager loop's, or a route
+   that did not launch: the flash forward and backward (dq, dk/dv) on
+   the tensor cores, split-KV paged attention, the int8 ``gemv`` and
+   ``wgmma`` routes;
+10. profile -- ``profiling.profile_flagship`` at the flagship config: the
+   Chrome trace must carry the card's own events, and the top ops must
+   be device kernels or copies.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -180,6 +197,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
 import io
 import json
 import math
@@ -2875,7 +2893,9 @@ def moe_serving_phase(flagship, serving, tf, fa, pa, cfg) -> dict:
 # rounds
 
 
-COMPILED_RUNS = 5        # timed runs of each path, in turns
+# timed runs of each path, in turns: three keep the whole run, phase 9's
+# bench included, well inside its time limit
+COMPILED_RUNS = 3
 COMPILED_LP_TOL = 1e-4   # logprobs, graph replays against eager rounds
 
 
@@ -3769,13 +3789,94 @@ def train_smoke_phase(cli) -> None:
 # ---------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------
+# phases 9-10: the bench's model block and the profiler
+
+MFU_RANGE = (0.0, 100.0)   # an MFU outside it is a measurement fault
+ROOF_FRAC_MAX = 1.05       # a decode above its memory roofline is one too
+
+
+def bench_phase(bench, fa, pa, im) -> dict:
+    """Phase 9: the bench's model block at the flagship, its counts
+    zeroed just before and read just after. Returns the launches by
+    route of the counted kernels during the phase."""
+    from kind_tpu_sim_torch.ops._build import TENSOR_CORES
+
+    counted = (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, pa.paged_attention,
+               im.int8_matmul)
+    zero_counts(*counted)
+    model = bench.model_throughput()
+    routes = {fn.__name__: dict(fn.launches_by_route) for fn in counted}
+    log(json.dumps({"bench_headline": bench.headline_numbers(model)}))
+    out = HERE / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_bench.json").write_text(json.dumps(
+        {"model": model, "section_seconds": dict(bench.SECTION_S)}) + "\n")
+    log(f"bench: sections {bench.SECTION_S}; busy % "
+        f"{model.get('device_busy_pct')}; launches by route {routes}")
+    errors = {k: v for k, v in model.items()
+              if k.endswith("_error") or k == "error"}
+    check(not errors, f"bench: errors {errors}")
+    missing = [k for k in bench.REQUIRED_MODEL_KEYS if k not in model]
+    for roof in ("decode_roofline", "decode_int8_roofline"):
+        missing += [f"{roof}.{k}" for k in bench.REQUIRED_ROOFLINE_KEYS
+                    if k not in model.get(roof, {})]
+    check(not missing, f"bench: missing keys {missing}")
+    for k, v in model.items():
+        if k.endswith("_mfu_pct"):
+            check(MFU_RANGE[0] < v <= MFU_RANGE[1],
+                  f"bench: {k} = {v} outside (0, 100]")
+    for roof in ("decode_roofline", "decode_int8_roofline"):
+        frac = model[roof]["roof_frac"]
+        check(frac <= ROOF_FRAC_MAX,
+              f"bench: {roof}.roof_frac {frac} > {ROOF_FRAC_MAX}")
+    check(model.get("decode_graph_check", {}).get("equal") is True,
+          f"bench: graphed decode check {model.get('decode_graph_check')}")
+    want = {"flash_attention": TENSOR_CORES,
+            "flash_attention_bwd_dq": TENSOR_CORES,
+            "flash_attention_bwd_dkv": TENSOR_CORES,
+            "paged_attention": pa.SPLIT_KV}
+    for name, route in want.items():
+        check(routes[name].get(route, 0) > 0,
+              f"bench: {name} never launched on {route}: {routes[name]}")
+    for route in (im.GEMV, im.WGMMA):
+        check(routes["int8_matmul"].get(route, 0) > 0,
+              f"bench: int8_matmul never launched on {route}: "
+              f"{routes['int8_matmul']}")
+    return routes
+
+
+def profile_phase(profiling, flagship) -> dict:
+    """Phase 10: ``profile_flagship`` at the flagship config on the card;
+    the trace's top ops must be the card's own events."""
+    with tempfile.TemporaryDirectory() as tmp:
+        report = profiling.profile_flagship(
+            tmp, cfg=flagship.flagship_config())
+        with gzip.open(report["summary"]["trace_file"], "rt") as fh:
+            events = json.load(fh)["traceEvents"]
+    device_names = {ev.get("name") for ev in events
+                    if ev.get("cat") in profiling.DEVICE_CATEGORIES}
+    summary = report["summary"]
+    log(f"profile: {report['model']} one step in {report['wall_s']} s on "
+        f"{report['device']}; device tracks {summary['device_tracks']}; "
+        f"top ops {json.dumps(summary['top_ops'])}")
+    check(summary["device_tracks"] is True,
+          "profile: the trace has no device events")
+    top = [op["name"] for op in summary["top_ops"]]
+    check(top and all(n in device_names for n in top),
+          f"profile: top ops that are not device events: "
+          f"{[n for n in top if n not in device_names]}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     if not (HERE / "kind_tpu_sim_torch" / "__init__.py").is_file():
         fail(f"the kind_tpu_sim_torch package is not beside {__file__}")
     sys.path.insert(0, str(HERE))
-    from kind_tpu_sim_torch import cli
+    from kind_tpu_sim_torch import bench, cli, profiling
     from kind_tpu_sim_torch import profile_serving as flagship
     from kind_tpu_sim_torch import profile_train as trainer
     from kind_tpu_sim_torch.models import quant, serving
@@ -3851,6 +3952,8 @@ def main() -> int:
     phase("6b MoE train", train_moe_phase, trainer, tf, fa, train_plain)
     toolchain_rows = phase("7 toolchain", toolchain_phase, tc)
     phase("8 train-smoke", train_smoke_phase, cli)
+    bench_routes = phase("9 bench", bench_phase, bench, fa, pa, im)
+    phase("10 profile", profile_phase, profiling, flagship)
     # the forward and paged kernels' counts come from serving, the
     # backward kernels' from training (the forward's there is checked),
     # the int8 kernel's from 4g's solo W8A8 decode, the toolchain
@@ -3875,6 +3978,9 @@ def main() -> int:
                 realistic["routes"]["paged_attention"])
         elif k is not flash_row and k["name"] in train_plain["routes"]:
             k["launches_by_route"] = train_plain["routes"][k["name"]]
+    for k in kernels:
+        if k["name"] in bench_routes:
+            k["bench_launches_by_route"] = bench_routes[k["name"]]
     kernels += toolchain_rows
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")

@@ -2,6 +2,8 @@
 
     python -m kind_tpu_sim_torch train-smoke [--steps N] [--batch B]
         [--checkpoint-dir DIR] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch profile [--out DIR] [--json]
+        [--device cuda|cpu]
 
 ``train-smoke`` is the counterpart of ``python -m kind_tpu_sim
 train-smoke`` (``kind_tpu_sim/cli.py:run_train_smoke``): the training
@@ -10,6 +12,13 @@ and the loss must fall; with ``--checkpoint-dir`` also the
 checkpoint/resume round trip, whose resumed loss trajectory must match
 the uninterrupted one. It runs on the CUDA card unless ``--device cpu``
 is given, and raises without a card.
+
+``profile`` is the counterpart of ``python -m kind_tpu_sim profile``
+(``kind_tpu_sim/cli.py:run_profile``): one flagship loss step traced
+with ``torch.profiler`` (``profiling.profile_flagship``, the tiny
+``ModelConfig()`` at batch 2), its Chrome trace written under ``--out``
+and its top ops printed -- the card's kernels where the trace has them,
+host operations otherwise.
 """
 
 from __future__ import annotations
@@ -49,6 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--json", action="store_true", dest="as_json")
     train.add_argument("--device", default="cuda",
                        help="torch device to run on (default: cuda)")
+
+    profile = sub.add_parser(
+        "profile",
+        help=("trace one flagship-model step with torch.profiler and "
+              "print the top device ops"))
+    profile.add_argument("--out", default="tpu-sim-trace",
+                         help="trace output directory (Chrome trace)")
+    profile.add_argument("--json", action="store_true", dest="as_json")
+    profile.add_argument("--device", default="cuda",
+                         help="torch device to run on (default: cuda)")
     return parser
 
 
@@ -124,6 +143,27 @@ def run_train_smoke(args: argparse.Namespace) -> int:
     return 0 if report["ok"] else 1
 
 
+def run_profile(args: argparse.Namespace) -> int:
+    from kind_tpu_sim_torch import profiling
+
+    report = profiling.profile_flagship(args.out, device=args.device)
+    if args.as_json:
+        print(json.dumps(report, sort_keys=True))
+        return 0
+    print(f"model {report['model']}: one step in "
+          f"{report['wall_s']}s on {report['device']}, trace in "
+          f"{report['log_dir']}")
+    summary = report["summary"]
+    scope = "device" if summary["device_tracks"] else "host"
+    print(f"top {scope} ops:")
+    for op in summary["top_ops"]:
+        print(f"  {op['total_us']:>12.1f} us  x{op['count']:<4} "
+              f"{op['name']}")
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return run_train_smoke(args)  # the one command so far
+    if args.command == "profile":
+        return run_profile(args)
+    return run_train_smoke(args)

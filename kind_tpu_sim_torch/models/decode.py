@@ -131,13 +131,20 @@ def _write(arr, index, upd, keep=None) -> None:
         dst[index] = src
 
 
-def _store(cache_arr, update, start: int) -> None:
+def _store(cache_arr, update, start) -> None:
     """Write ``update`` (b, t, kv, hd) into ``cache_arr`` at sequence
     position ``start``, in place, quantizing per (b, t, kv) row when the
     cache is int8. The start is clamped so the window fits, as
-    ``lax.dynamic_update_slice`` clamps it."""
+    ``lax.dynamic_update_slice`` clamps it. ``start`` is an int, or a
+    (1,) device tensor (a compiled decode program's buffer), which is
+    read on the device only."""
     t = update.shape[1]
-    start = max(0, min(int(start), cache_arr.shape[1] - t))
+    limit = cache_arr.shape[1] - t
+    if isinstance(start, torch.Tensor):
+        rows = start.clamp(0, limit) + torch.arange(t, device=start.device)
+        _write(cache_arr, (slice(None), rows), update)
+        return
+    start = max(0, min(int(start), limit))
     _write(cache_arr, (slice(None), slice(start, start + t)), update)
 
 
@@ -330,12 +337,13 @@ def _greedy(logits, step: int):
     return torch.argmax(logits, dim=-1)
 
 
-def _run_chunk(params, cfg: ModelConfig, token, cache, base: int,
+def _run_chunk(params, cfg: ModelConfig, token, cache, base,
                size: int, step0: int = 0, select_fn=_greedy):
     """Generate ``size`` tokens with the big cache frozen, then merge
     the chunk buffer into it once. ``select_fn(logits, step)`` picks
-    each token; ``step`` counts decode steps from ``step0``. Returns
-    (next_token, cache, emitted (b, size))."""
+    each token; ``step`` counts decode steps from ``step0``. ``base`` is
+    an int or a (1,) device tensor (``_store``). Returns (next_token,
+    cache, emitted (b, size))."""
     dtype = torch_dtype(cfg.dtype)
     small = _new_chunk_buffers(cfg, token.shape[0], size, token.device)
     emitted = []

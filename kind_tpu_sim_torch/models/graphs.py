@@ -39,6 +39,7 @@ What makes a round capturable:
 
 from __future__ import annotations
 
+import functools
 import gc
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
@@ -46,7 +47,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from kind_tpu_sim_torch.models.decode import _seed_words
+from kind_tpu_sim_torch.models.decode import _run_chunk, _seed_words
 from kind_tpu_sim_torch.ops import flash_attention as fa
 from kind_tpu_sim_torch.ops import int8_matmul as im
 from kind_tpu_sim_torch.ops import paged_attention as pa
@@ -91,6 +92,19 @@ def add_launches(delta) -> None:
             w.launches_by_route[r] += c
 
 
+def fill(buf: torch.Tensor, array) -> torch.Tensor:
+    """Copy the host ``array`` into the device buffer ``buf``; returns
+    ``buf``. The host values are read now, so the caller may change its
+    array while the copy is in flight; on a card the copy goes through
+    pinned memory and waits for nothing."""
+    host = torch.as_tensor(np.asarray(array)).to(buf.dtype)
+    if buf.device.type == "cuda":
+        buf.copy_(host.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(host)
+    return buf
+
+
 class RoundInputs:
     """The device buffers through which a round reads the host's
     per-round values, allocated once per engine: ``lengths`` (int32),
@@ -114,15 +128,8 @@ class RoundInputs:
         self._tables: Dict[int, torch.Tensor] = {}
 
     def fill(self, buf: torch.Tensor, array) -> torch.Tensor:
-        """Copy the host ``array`` into ``buf``; returns ``buf``. The
-        host values are read now, so the caller may change its array
-        while the copy is in flight."""
-        host = torch.as_tensor(np.asarray(array)).to(buf.dtype)
-        if buf.device.type == "cuda":
-            buf.copy_(host.pin_memory(), non_blocking=True)
-        else:
-            buf.copy_(host)
-        return buf
+        """``fill``: the host ``array`` copied into ``buf``."""
+        return fill(buf, array)
 
     def tables(self, host: np.ndarray) -> torch.Tensor:
         """The (slots, width) int32 buffer of ``host``'s width, filled
@@ -236,3 +243,60 @@ def round_runner(device: torch.device):
     """What an engine on ``device`` runs its rounds through: graphs on a
     card, ``eager`` on the CPU."""
     return RoundGraphs(device) if device.type == "cuda" else eager
+
+
+def _solo_chunk(params, cfg, token, cache, base, size: int) -> tuple:
+    """One chunk of the solo greedy decoder as a round: ``size`` steps
+    from the token in ``token`` with the chunk's first position in the
+    (1,) buffer ``base``, the chunk merged into ``cache``; the next
+    token is written back into ``token``. Returns (emitted (b, size),)."""
+    nxt, _, emitted = _run_chunk(params, cfg, token, cache, base, size)
+    token.copy_(nxt)
+    return (emitted,)
+
+
+class DecodeProgram:
+    """``decode.generate_from_cache`` over one cache as compiled rounds:
+    the counterpart of the reference bench's ``jax.jit`` of its decode
+    loop. Each chunk is a round of ``round_runner``: on a card a CUDA
+    graph a chunk size, captured at the first chunk of that size and
+    replayed after; on the CPU the eager round. The chunk's first
+    position enters through a fixed (1,) buffer and the running token
+    through a fixed (b,) buffer, so the graph of a size serves every
+    chunk of it. The chunk boundaries are ``generate_from_cache``'s,
+    and so are the tokens.
+
+    ``program(first_token, start_pos, num_new)`` -> (b, num_new) tokens;
+    the cache is written in place, as the eager loop writes it."""
+
+    CHUNK = 64  # generate_from_cache's chunk
+
+    def __init__(self, params, cfg, cache):
+        self.params, self.cfg, self.cache = params, cfg, cache
+        k = cache[0]["k"]
+        self._round = round_runner(k.device)
+        self._token = torch.zeros(k.shape[0], dtype=torch.long,
+                                  device=k.device)
+        self._base = torch.zeros(1, dtype=torch.long, device=k.device)
+
+    def __call__(self, first_token, start_pos: int, num_new: int):
+        if num_new <= 0:
+            return first_token.new_zeros((first_token.shape[0], 0))
+        self._token.copy_(first_token)
+        outs = [first_token[:, None]]
+        steps = num_new - 1
+        size = min(self.CHUNK, steps)
+        n_full, rem = divmod(steps, size) if steps > 0 else (0, 0)
+        bases = [(start_pos + c * size, size) for c in range(n_full)]
+        if rem:
+            bases.append((start_pos + n_full * size, rem))
+        for base, width in bases:
+            fill(self._base, [base])
+            emitted, = self._round(
+                ("solo chunk", width),
+                functools.partial(_solo_chunk, self.params, self.cfg,
+                                  self._token, self.cache, self._base,
+                                  width))
+            # the graph rewrites its output at the next replay
+            outs.append(emitted.clone())
+        return torch.cat(outs, dim=1)

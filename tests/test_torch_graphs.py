@@ -16,7 +16,10 @@ draft-model grids, the paged verify scan) on the tiny config:
 * the engine's state stays at fixed addresses across rounds,
   admissions and a slot failure;
 * outputs a later round rewrites in place (a graph's) give the eager
-  streams, which equal the JAX engine's.
+  streams, which equal the JAX engine's;
+* the bench's compiled decode loop (``DecodeProgram``) gives the eager
+  loop's tokens, and its chunks of one size run the same operations
+  whatever their first position.
 
 What only a card can show (capture, replay, launch counts at replay)
 is held by ``chip_smoke.py``'s compiled-rounds phase.
@@ -34,6 +37,7 @@ from kind_tpu_sim.models import serving as jserving
 from kind_tpu_sim_torch import device as pdevice
 from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import graphs
+from kind_tpu_sim_torch.models import quant as pquant
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.ops import flash_attention as pfa
@@ -377,3 +381,57 @@ def test_capture_takes_back_its_launch_counts_and_replays_add_them():
     finally:
         for w, (n, routes) in zip(wrappers, saved):
             w.launches, w.launches_by_route = n, routes
+
+
+@pytest.mark.parametrize("tier", ["bf16 path", "w8a8 int8 kv"])
+def test_decode_program_is_the_eager_loop_as_rounds(params, tier,
+                                                    monkeypatch):
+    """``DecodeProgram`` (the bench's decode as a graph a chunk size)
+    emits ``generate_from_cache``'s tokens, call after call on its one
+    cache; the chunks of one size run the same aten operations on the
+    same shapes whatever their first position (which enters through a
+    buffer), with ``to_device`` refused."""
+    cfg, p = CFG, params[1]
+    if tier != "bf16 path":
+        cfg = dataclasses.replace(CFG, int8_kv=True, int8_native=True)
+        p = pquant.quantize_params(p, cfg)
+    rng = np.random.RandomState(4)
+    prompt = torch.as_tensor(rng.randint(0, CFG.vocab_size, size=(2, 9)))
+    n_new = 2 * graphs.DecodeProgram.CHUNK + 6  # chunks 64, 64 and 5
+    with torch.no_grad():
+        logits, cache = pdecode.prefill(p, cfg, prompt, 9 + n_new)
+        first = torch.argmax(logits, -1)
+        want = pdecode.generate_from_cache(p, cfg, first, cache, 9, n_new)
+        _, cache = pdecode.prefill(p, cfg, prompt, 9 + n_new)
+        prog = graphs.DecodeProgram(p, cfg, cache)
+        rounds = []
+
+        def record(key, fn):
+            with monkeypatch.context() as m:
+                for mod in (pdevice, pdecode):
+                    m.setattr(mod, "to_device", _refuse)
+                with OpLog() as log:
+                    out = fn()
+            rounds.append((key, log.ops))
+            return out
+
+        prog._round = record
+        got = prog(first, 9, n_new)
+        again = prog(first, 9, n_new)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert [k for k, _ in rounds[:3]] == [("solo chunk", 64)] * 2 + [
+        ("solo chunk", 5)]
+    assert rounds[0][1] == rounds[1][1] == rounds[3][1]
+
+
+def test_store_takes_a_device_start_as_an_int_start():
+    """``decode._store`` with a (1,) tensor start writes the rows an int
+    start writes, clamped the same way at the cache's end."""
+    rng = np.random.RandomState(5)
+    for start in (0, 3, 7, 12):
+        upd = torch.as_tensor(rng.randn(2, 4, 1, 3), dtype=torch.float32)
+        a = torch.zeros(2, 10, 1, 3)
+        b = torch.zeros(2, 10, 1, 3)
+        pdecode._store(a, upd, start)
+        pdecode._store(b, upd, torch.tensor([start]))
+        assert torch.equal(a, b), start
