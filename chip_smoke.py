@@ -96,7 +96,7 @@ it fails (nothing is caught and ignored):
    against the same engine's eager rounds, on phase 4's stream: the
    dense grid, the paged gather and kernel tiers, the prompt-lookup
    grid, the paged speculative engine, the draft-model grid, W8A8 with
-   the int8 KV cache and the MoE kernel tier, three runs of each path in
+   the int8 KV cache and the MoE kernel tier, two runs of each path in
    turns: streams equal, logprobs within 1e-4, the same launches in
    every run; graphs captured, capture time, replays, tok/s, step wall
    and a traced round's device busy share for both paths;
@@ -141,7 +141,23 @@ it fails (nothing is caught and ignored):
    ``wgmma`` routes;
 10. profile -- ``profiling.profile_flagship`` at the flagship config: the
    Chrome trace must carry the card's own events, and the top ops must
-   be device kernels or copies.
+   be device kernels or copies;
+11. parallel (run after 4i, while phase 4's streams and snapshot are
+   at hand) -- the parallel layer on one card: the collective smokes at
+   world size 1 on NCCL and on 4 gloo ranks, and which gloo collectives
+   take CUDA tensors (each in a world of its own); phase 4's stream
+   through the dense engine at (data 2, model 2) and ('model', 4) and
+   the paged gather tier at ('model', 2) on gloo ranks sharing the card,
+   held to phase 4's streams by the split rule, the first-step logits
+   against unsharded, 0 paged-kernel launches and the flash forward on
+   the tensor cores on every rank; the dense engine on an NCCL mesh of
+   world size 1 (its rounds CUDA graphs, the collectives captured),
+   bitwise against the unsharded graphed engine; 3 AdamW steps of phase
+   6's training at ('model', 2) and ('data', 2) and 2 of the 4-expert
+   flagship at ('expert', 2) (batch 8), the losses within rtol 2e-2 of
+   the unsharded steps', each rank's peak memory; the flash forward and
+   backward and the int8 cache products at one rank's shapes against
+   their plain versions, timed (the kernels line's ``sharded_shapes``).
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -206,6 +222,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -3870,6 +3887,516 @@ def profile_phase(profiling, flagship) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 11: the parallel layer (kind_tpu_sim_torch/parallel/)
+#
+# The machine has one card, and NCCL refuses two ranks on one card: the
+# multi-rank checks run gloo ranks sharing the card (their collectives
+# cross the host, so their times measure correctness, not tensor-parallel
+# speed), and NCCL runs at world size 1, where a round's collectives are
+# captured in its CUDA graph. The rank programs below are module-level:
+# ``parallel.launch.spawn`` starts each rank with the spawn method, which
+# imports them by name.
+
+# tests/test_model.py:60-76's bar for a sharded loss against the unsharded
+# one (rtol=2e-2)
+TP_LOSS_RTOL = 2e-2
+PARALLEL_TRAIN_STEPS = 3
+PARALLEL_MOE_STEPS = 2
+PARALLEL_TIMEOUT_S = 420
+# the first-step logits of 4 prompts of 256 tokens, sharded against
+# unsharded, judged against their largest magnitude: bf16 partial sums
+# reduced across ranks round at other points than one product does
+TP_LOGITS_REL_TOL = 2 * 2.4e-3
+
+
+# the collectives the port's gloo path runs on a card's tensors (each
+# rank of phase 11's collectives world probes them), and the ones it
+# avoids (a world of 2 ranks each: a refusal may abort the rank)
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather")
+GLOO_CUDA_AVOIDED = ("all_to_all_single", "send/recv")
+
+
+def _gloo_cuda_op(op: str) -> str:
+    """On the gloo ranks of the world, sharing the card: one collective
+    on CUDA tensors (rank r holds r + 1), its result checked."""
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    want = [float(r + 1) for r in range(n)]
+    x = torch.full((n,), float(rank + 1), device="cuda")
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        ok = float(x[0]) == sum(want)
+    elif op == "broadcast":
+        dist.broadcast(x, src=0)
+        ok = float(x[0]) == 1.0
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        ok = [float(p[0]) for p in parts] == want
+    elif op == "all_to_all_single":
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        ok = y.tolist() == want
+    else:
+        y = torch.empty_like(x)
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, (rank + 1) % n),
+                dist.P2POp(dist.irecv, y, (rank - 1) % n)]):
+            w.wait()
+        ok = float(y[0]) == float((rank - 1) % n + 1)
+    torch.cuda.synchronize()
+    return "ran" if ok else "ran, wrong result"
+
+
+def _collectives_rank() -> dict:
+    """On 4 gloo ranks sharing the card: the smokes on ``slice_mesh``
+    2x2 and the two-tier psum on ``multislice_mesh(2, 1, 2)`` (on CUDA
+    tensors, the ring's point-to-point step on the host), and the
+    collectives of ``GLOO_CUDA_OPS`` on CUDA tensors."""
+    from kind_tpu_sim_torch.parallel import collectives, mesh
+
+    s = mesh.slice_mesh(mesh.make_slice(topology="2x2"))
+    return {"run_all": collectives.run_all(s),
+            "hierarchical": collectives.hierarchical_psum_smoke(
+                mesh.multislice_mesh(2, 1, 2)),
+            "gloo_cuda_ops": {op: _gloo_cuda_op(op) for op in GLOO_CUDA_OPS}}
+
+
+def gloo_collectives(launch) -> tuple:
+    """The 4-rank collectives world, and beside it a 2-rank world for
+    each collective of ``GLOO_CUDA_AVOIDED``, all at once (a store
+    each). Returns (the collectives world's report, {avoided op: "ran"
+    or how it was refused})."""
+    def probe(op):
+        try:
+            return launch.spawn(_gloo_cuda_op, 2, op, backend="gloo",
+                                device="cuda", timeout_s=90)
+        except Exception as exc:  # the probe's answer, recorded and shown
+            return (f"refused: {type(exc).__name__}: "
+                    f"{str(exc).splitlines()[0][:160]}")
+
+    with ThreadPoolExecutor(1 + len(GLOO_CUDA_AVOIDED)) as pool:
+        world = pool.submit(launch.spawn, _collectives_rank, 4,
+                            backend="gloo", device="cuda",
+                            timeout_s=PARALLEL_TIMEOUT_S)
+        avoided = dict(zip(GLOO_CUDA_AVOIDED,
+                           pool.map(probe, GLOO_CUDA_AVOIDED)))
+        return world.result(), avoided
+
+
+def _rank_reports(value) -> list:
+    """Every rank's ``value``, in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def _dense_serving(flagship, serving):
+    return serving.ServingConfig(max_slots=flagship.SLOTS, max_len=1024,
+                                 chunk=flagship.CHUNK)
+
+
+def _logit_prompts(cfg):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                         device="cuda")
+
+
+def _serve_rank(shape, names, paged: bool) -> dict:
+    """On every rank of ``Mesh(shape, names)`` (gloo, the card shared):
+    the flagship's bf16 snapshot, phase 4's stream through the dense
+    engine (or the paged gather tier), the first-step logits of 4
+    prompts of 256 tokens, and this rank's kernel launches and peak
+    memory."""
+    from kind_tpu_sim_torch import profile_serving as flagship
+    from kind_tpu_sim_torch.models import serving
+    from kind_tpu_sim_torch.models import transformer as tf
+    from kind_tpu_sim_torch.ops import flash_attention as fa
+    from kind_tpu_sim_torch.ops import paged_attention as pa
+    from kind_tpu_sim_torch.parallel import mesh as mesh_lib
+    from kind_tpu_sim_torch.parallel import tp
+
+    mesh = mesh_lib.Mesh(shape, names)
+    cfg = flagship.flagship_config()
+    sp = flagship.flagship_params(cfg)
+    sc = (flagship.flagship_serving(paged_kernel=False) if paged
+          else _dense_serving(flagship, serving))
+    engine = serving.PagedServingEngine if paged else serving.ServingEngine
+    reqs = flagship.flagship_requests(cfg.vocab_size)
+    eng = engine(sp, cfg, sc, device="cuda", mesh=mesh)
+    del sp
+    torch.cuda.empty_cache()
+    # the serving peak: this rank's shards, storage and rounds
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa.flash_attention, pa.paged_attention)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    done = {c.request_id: c.tokens for c in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_by_route": dict(fa.flash_attention.launches_by_route),
+                "paged": pa.paged_attention.launches}
+    prompts = tf.shard_batch(_logit_prompts(cfg), mesh)
+    with torch.no_grad(), tp.scope(eng._shards._replace(
+            data=tp.axis(mesh, "dcn", "data"))):
+        logits = tf._forward(eng.params, prompts, cfg)[0][:, -1].float()
+    data = tp.axis(mesh, "dcn", "data")
+    if data is not None:
+        logits = tp.all_gather(logits, data, 0)
+    rep = eng.report()
+    return {"streams": done, "wall_s": wall, "logits": logits.cpu(),
+            "report": {k: rep[k] for k in ("mesh", "prefill_dispatches",
+                                           "decode_rounds")},
+            "ranks": _rank_reports({
+                **launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
+
+
+def _train_rank(shape, names, n_experts: int, steps: int,
+                batch: int) -> dict:
+    """On every rank of ``Mesh(shape, names)``: the flagship's train
+    step (fp32 parameters from seed 0, AdamW) sharded, ``steps`` steps
+    of ``batch`` x 1025 tokens from seed 1, each rank feeding its rows.
+    Returns the losses, and each rank's step walls, flash launches by
+    route and peak memory."""
+    from kind_tpu_sim_torch import profile_train as trainer
+    from kind_tpu_sim_torch.ops import flash_attention as fa
+    from kind_tpu_sim_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.Mesh(shape, names)
+    cfg = dataclasses.replace(trainer.flagship_config(), n_experts=n_experts)
+    tf = trainer.tf
+    step, init = tf.make_train_step(cfg, mesh=mesh,
+                                    learning_rate=trainer.LEARNING_RATE,
+                                    device="cuda")
+    state = init(torch.Generator(device="cuda").manual_seed(0))
+    batches = _train_batches(tf, cfg, steps, batch)
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    zero_counts(*kernels)
+    losses, walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tf.shard_batch(b, mesh))
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "ranks": _rank_reports({
+        "walls_ms": walls,
+        "launches_by_route": {k.__name__: dict(k.launches_by_route)
+                              for k in kernels},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
+
+
+def _train_batches(tf, cfg, steps: int, batch: int):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return [tf.sample_batch(gen, cfg, batch, 1025, device="cuda")
+            for _ in range(steps)]
+
+
+def _plain_train(tf, trainer, n_experts: int, steps: int, batch: int):
+    """The unsharded step on the same parameters and batches: (losses,
+    peak GiB above what this process held before the state was made)."""
+    cfg = dataclasses.replace(trainer.flagship_config(), n_experts=n_experts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step, init = tf.make_train_step(cfg, learning_rate=trainer.LEARNING_RATE,
+                                    device="cuda")
+    state = init(torch.Generator(device="cuda").manual_seed(0))
+    losses = []
+    for b in _train_batches(tf, cfg, steps, batch):
+        state, loss = step(state, b)
+        losses.append(float(loss))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del state, step
+    torch.cuda.empty_cache()
+    return losses, peak
+
+
+def _hold_losses(name: str, got, want) -> float:
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"{name}: losses {got} against unsharded {want}; largest relative "
+        f"gap {gap:.3e} (bar rtol {TP_LOSS_RTOL})")
+    check(all(math.isfinite(x) for x in got), f"{name}: non-finite loss")
+    check(gap <= TP_LOSS_RTOL, f"{name}: relative gap {gap} > {TP_LOSS_RTOL}")
+    return gap
+
+
+def _sharded_flash(fa, gen, b, t, h, kv) -> dict:
+    """The flash forward and (t = 1024) backward at one rank's heads,
+    each against its plain version and timed as phase 2 times them."""
+    d = 128
+    q, k, v = _fused_qkv(gen, b, t, h, kv, d)
+    name = f"({b},{t},{h}/{kv},{d})"
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    check_routes(f"flash_attention {name}", fa.flash_attention, 1, 0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out_ref, lse_ref = fa.flash_attention_ref(qf, kf, vf, True,
+                                              return_lse=True)
+    err = float((out.float() - out_ref).abs().max())
+    log(f"flash_attention {name} causal: max_abs_err {err:.3e} (tolerance "
+        f"{FLASH_TOL})")
+    check(math.isfinite(err) and err <= FLASH_TOL,
+          f"flash_attention {name}: max_abs_err {err}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = b * h * t * (t + 1) // 2
+    qn, kn, rows = q.numel(), k.numel(), b * h * t
+    fwd_bound = bound(2 * (qn + 2 * kn + qn), 2 * 2 * pairs * d,
+                      torch.bfloat16)
+    row = {"launches": 1, "max_abs_err": err,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+               q, k, v, causal=True)),
+           "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)),
+           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+    if t < 1024:
+        return {"forward": row}
+    g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, g, True)
+    check_routes(f"flash backward dq {name}", fa.flash_attention_bwd_dq, 1, 0)
+    check_routes(f"flash backward dk/dv {name}", fa.flash_attention_bwd_dkv,
+                 1, 0)
+    ref = fa.flash_attention_bwd_ref(qf, kf, vf, out_ref, lse_ref, g.float(),
+                                     True)
+    errs = _bwd_errors(name, (dq, dk, dv), ref, BWD_REL_TOL)
+    args = (q, k, v, out, lse, g)
+    dq_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * qn,
+                     3 * 2 * pairs * d, torch.bfloat16)
+    dkv_bound = bound(2 * (qn + 2 * kn + qn) + 4 * 2 * rows + 2 * 2 * kn,
+                      4 * 2 * pairs * d, torch.bfloat16)
+    res = {"forward": row}
+    for key, wrapper, plain, bnd in (
+            ("dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_ref,
+             dq_bound),
+            ("dkv", fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_ref, dkv_bound)):
+        res[key] = {"launches": 1, "max_abs_err": errs[key],
+                    "ms": time_ms(lambda w=wrapper: w(*args)),
+                    "plain_ms": time_ms(lambda p=plain: p(*args)),
+                    "library_ms": None, "bound_ms": bnd[0],
+                    "bound_by": bnd[1]}
+    log(f"sharded flash {name}: {res}")
+    return res
+
+
+def _sharded_int8(im, gen) -> dict:
+    """The int8 cache's score and value products at one rank's 2 of 4
+    KV heads (batch 8, 1536 positions), bitwise against the plain
+    version, timed beside it."""
+    def r8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+
+    k_cache, v_cache = r8(8, 1536, 2, 128), r8(8, 1536, 2, 128)
+    cases = {"cache_scores": (r8(8, 2, 4, 128), k_cache.permute(0, 2, 3, 1)),
+             "cache_values": (r8(8, 2, 4, 1536), v_cache.permute(0, 2, 1, 3))}
+    out = {}
+    for name, (a, b) in cases.items():
+        zero_counts(im.int8_matmul)
+        got = im.int8_matmul(a, b)
+        want = im.int8_matmul_ref(a, b)
+        check(torch.equal(got, want) and im.int8_matmul.launches == 1,
+              f"int8_matmul {name} at kv 2: differs from its plain version")
+        batch = a.numel() // (a.shape[-2] * a.shape[-1])
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        bnd = bound(a.numel() + b.numel() + 4 * batch * m * n,
+                    2 * batch * m * n * k, torch.int8)
+        out[name] = {"launches": 1, "max_abs_err": 0.0,
+                     "route": im.int8_route(a, b),
+                     "ms": time_ms(lambda: im.int8_matmul(a, b)),
+                     "plain_ms": time_ms(lambda: im.int8_matmul_ref(a, b)),
+                     "library_ms": None, "bound_ms": bnd[0],
+                     "bound_by": bnd[1]}
+        log(f"int8_matmul {name} at kv 2 (bitwise equal): {out[name]}")
+    return out
+
+
+def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
+                   streams) -> dict:
+    """(a) the collective smokes at world size 1 on NCCL and on 4 gloo
+    ranks, and which gloo collectives take CUDA tensors; (b) the
+    flagship served tensor-parallel: the dense engine at (data 2, model
+    2) and ('model', 4), the paged gather tier at ('model', 2), each held
+    to phase 4's streams by the split rule, then the dense engine on an
+    NCCL mesh of world size 1, its rounds CUDA graphs with the
+    collectives captured, bitwise against the unsharded graphed engine;
+    (c) flagship training at ('model', 2) and ('data', 2) and (d) the
+    4-expert flagship at ('expert', 2) against unsharded steps; (e) the
+    flash and int8 kernels at the sharded shapes."""
+    from kind_tpu_sim_torch.parallel import collectives, launch
+    from kind_tpu_sim_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    # (a)
+    t_part = time.perf_counter()
+    with launch.process_group("nccl"):
+        one = mesh_lib.slice_mesh(mesh_lib.make_slice(topology="1x1"))
+        nccl = {"run_all": collectives.run_all(one),
+                "hierarchical": collectives.hierarchical_psum_smoke(
+                    mesh_lib.multislice_mesh(1, 1, 1))}
+    gloo, avoided = gloo_collectives(launch)
+    for where, rep in (("nccl world 1", nccl),
+                       ("gloo world 4 on CUDA tensors", gloo)):
+        log(f"collectives ({where}): {json.dumps(rep)}")
+        check(rep["run_all"]["ok"] and rep["hierarchical"]["ok"],
+              f"collective smokes failed on {where}")
+    out["gloo_cuda_ops"] = {**gloo["gloo_cuda_ops"], **avoided}
+    log(f"gloo collectives on CUDA tensors: {out['gloo_cuda_ops']}")
+    check(all(gloo["gloo_cuda_ops"][op] == "ran" for op in GLOO_CUDA_OPS),
+          f"gloo refused one of {GLOO_CUDA_OPS} on CUDA tensors")
+    log(f"parallel (a): {time.perf_counter() - t_part:.1f} s")
+
+    # (b)
+    reqs = flagship.flagship_requests(cfg.vocab_size)
+    prompts = {r.request_id: r.prompt for r in reqs}
+    with torch.no_grad():
+        want_logits = tf.forward(sp, _logit_prompts(cfg), cfg)[:, -1].float()
+    torch.cuda.empty_cache()
+    out["serving"] = {}
+    cases = (("dense (data 2, model 2)", (2, 2), ("data", "model"), False),
+             ("dense ('model', 4)", (4,), ("model",), False),
+             ("paged gather ('model', 2)", (2,), ("model",), True))
+
+    def world(case):
+        _, shape, names, paged = case
+        return launch.spawn(_serve_rank, int(np.prod(shape)), shape, names,
+                            paged, backend="gloo", device="cuda",
+                            timeout_s=PARALLEL_TIMEOUT_S)
+
+    # the worlds are independent (a store each) and bound by their hosts'
+    # gloo transport, not by the card: all at once
+    t_part = time.perf_counter()
+    with ThreadPoolExecutor(len(cases)) as pool:
+        results = list(pool.map(world, cases))
+    log(f"parallel (b) the three gloo serving worlds at once: "
+        f"{time.perf_counter() - t_part:.1f} s")
+    for (label, *_), res in zip(cases, results):
+        splits = hold_streams(f"tensor-parallel serving {label}", tf, sp, cfg,
+                              prompts, res["streams"], streams)
+        diff = float((res["logits"].cuda() - want_logits).abs().max())
+        rel = diff / float(want_logits.abs().max())
+        log(f"tensor-parallel serving {label}: first-step logits' largest "
+            f"difference {diff:.4e} ({rel:.3e} of the largest; bar "
+            f"{TP_LOGITS_REL_TOL:.1e}); {res['report']}; per rank "
+            f"{res['ranks']}; stream wall {res['wall_s']:.2f} s on gloo "
+            "ranks sharing one card beside the other worlds (a correctness "
+            "rig, not a speed)")
+        check(rel <= TP_LOGITS_REL_TOL,
+              f"tensor-parallel serving {label}: logits {rel}")
+        check(res["report"]["mesh"]["rounds"] == "eager",
+              f"{label}: gloo rounds should run eagerly")
+        for r in res["ranks"]:
+            check(r["paged"] == 0, f"{label}: paged kernel launched")
+            check(r["flash_by_route"]["tensor_cores"] > 0
+                  and r["flash_by_route"]["cuda_cores"] == 0,
+                  f"{label}: flash launches by route {r['flash_by_route']}")
+        out["serving"][label] = {
+            "splits": splits, "logits_rel": rel, "wall_s": res["wall_s"],
+            "ranks": res["ranks"], "report": res["report"]}
+
+    # (b) NCCL at world size 1: the graphed rounds with their collectives
+    sc = _dense_serving(flagship, serving)
+
+    def graphed(mesh):
+        eng = serving.ServingEngine(sp, cfg, sc, device="cuda", mesh=mesh)
+        for r in reqs[:1]:
+            eng.submit(dataclasses.replace(r, request_id="warm", max_new=65,
+                                           logprobs=True))
+        eng.run()
+        torch.cuda.synchronize()
+        warm_rounds = eng.decode_rounds
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(dataclasses.replace(r, logprobs=True))
+        done = {c.request_id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return eng, done, wall, eng.decode_rounds - warm_rounds
+
+    t_part = time.perf_counter()
+    plain_eng, plain, plain_wall, plain_rounds = graphed(None)
+    with launch.process_group("nccl"):
+        mesh_eng, meshed, mesh_wall, rounds = graphed(
+            mesh_lib.training_mesh(1, 1))
+        mesh_rep = mesh_eng.report()
+        captured = mesh_eng._round.captured
+        del mesh_eng
+    same = all(plain[rid].tokens == meshed[rid].tokens
+               and plain[rid].logprobs == meshed[rid].logprobs
+               for rid in plain)
+    tokens = sum(len(c.tokens) for c in plain.values())
+    log(f"NCCL world 1 graphed serving: {mesh_rep['mesh']}, {captured} "
+        f"graphs; streams and logprobs bitwise equal to the unsharded "
+        f"graphed engine: {same}; stream wall {mesh_wall:.3f} s "
+        f"({tokens / mesh_wall:.1f} tok/s, {mesh_wall / rounds * 1e3:.2f} ms "
+        f"of wall a round over {rounds} rounds, admission included) against "
+        f"{plain_wall:.3f} s ({tokens / plain_wall:.1f} tok/s, "
+        f"{plain_wall / plain_rounds * 1e3:.2f} ms) unsharded")
+    check(mesh_rep["mesh"]["rounds"] == "graphs" and captured > 0,
+          "NCCL mesh rounds are not graphs")
+    check(same, "NCCL world 1 graphed streams differ from unsharded")
+    out["nccl_world1"] = {"wall_s": mesh_wall, "plain_wall_s": plain_wall,
+                          "round_ms": mesh_wall / rounds * 1e3,
+                          "plain_round_ms": plain_wall / plain_rounds * 1e3,
+                          "tok_per_s": tokens / mesh_wall,
+                          "plain_tok_per_s": tokens / plain_wall}
+    del plain_eng
+    torch.cuda.empty_cache()
+    log(f"parallel (b) NCCL world 1: {time.perf_counter() - t_part:.1f} s")
+
+    # (c), (d)
+    out["training"] = {}
+    batch, unsharded = trainer.BATCH, {}
+    for label, experts, shape, names, steps in (
+            ("('model', 2)", 0, (2,), ("model",), PARALLEL_TRAIN_STEPS),
+            ("('data', 2)", 0, (2,), ("data",), PARALLEL_TRAIN_STEPS),
+            ("MoE ('expert', 2)", MOE_EXPERTS, (2,), ("expert",),
+             PARALLEL_MOE_STEPS)):
+        t_part = time.perf_counter()
+        if (experts, steps) not in unsharded:
+            unsharded[experts, steps] = _plain_train(tf, trainer, experts,
+                                                     steps, batch)
+        want, plain_peak = unsharded[experts, steps]
+        res = launch.spawn(_train_rank, 2, shape, names, experts, steps,
+                           batch, backend="gloo", device="cuda",
+                           timeout_s=PARALLEL_TIMEOUT_S)
+        log(f"parallel {label}: unsharded steps and world "
+            f"{time.perf_counter() - t_part:.1f} s")
+        gap = _hold_losses(f"sharded training {label}", res["losses"], want)
+        log(f"sharded training {label}: per rank {res['ranks']}; unsharded "
+            f"peak {plain_peak:.2f} GiB (gloo ranks sharing one card: step "
+            "walls are a correctness rig's)")
+        for r in res["ranks"]:
+            for kname, routes in r["launches_by_route"].items():
+                check(routes["cuda_cores"] == 0 and
+                      routes["tensor_cores"] == 8 * steps,
+                      f"sharded training {label}: {kname} {routes}")
+        out["training"][label] = {"gap": gap, "losses": res["losses"],
+                                  "unsharded": want, "ranks": res["ranks"],
+                                  "unsharded_peak_gib": plain_peak}
+
+    # (e)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out["kernels"] = {
+        "train (8,1024) 8/2 heads": _sharded_flash(fa, gen, 8, 1024, 8, 2),
+        "train (8,1024) 4/1 heads": _sharded_flash(fa, gen, 8, 1024, 4, 1),
+        "admission (8,256) 8/2 heads": _sharded_flash(fa, gen, 8, 256, 8, 2),
+        "int8 cache kv 2": _sharded_int8(im, gen)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -3944,6 +4471,8 @@ def main() -> int:
                 cfg)
     phase("4i compiled rounds", compiled_rounds_phase, flagship, serving, tf,
           quant, fa, pa, im, sp, cfg)
+    parallel = phase("11 parallel", parallel_phase, flagship, trainer,
+                     serving, tf, fa, pa, im, sp, cfg, streams)
     del sp
     phase("5 small train", small_train_phase, tf, fa)
     phase("5 small MoE train", small_moe_train_phase, tf, fa)
@@ -3969,6 +4498,18 @@ def main() -> int:
         "moe_launches_by_route": moe["flash_launches_by_route"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     int8_row["launches_by_route"] = int8_serving["w8a8_launches_by_route"]
+    # the kernels at the shapes one rank of a mesh gives them (phase 11)
+    sharded = parallel["kernels"]
+    flash_row["sharded_shapes"] = {key: x["forward"]
+                                   for key, x in sharded.items()
+                                   if "forward" in x}
+    for k in kernels:
+        kind = {"flash_attention_bwd_dq": "dq",
+                "flash_attention_bwd_dkv": "dkv"}.get(k["name"])
+        if kind is not None:
+            k["sharded_shapes"] = {key: x[kind] for key, x in sharded.items()
+                                   if kind in x}
+    int8_row["sharded_shapes"] = sharded["int8 cache kv 2"]
     kernels.append(int8_row)
     for k in kernels:
         k["launches"] = launches[k["name"]]

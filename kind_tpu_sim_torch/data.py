@@ -9,8 +9,10 @@ while the device runs batch N:
   sliced into exact (batch, seq) windows, no padding.
 * **Device placement.** Each batch is copied from pinned host memory
   with ``.to(device, non_blocking=True)``, which returns before the
-  copy ends, as ``jax.device_put`` does. Placement over a mesh is not
-  ported yet.
+  copy ends, as ``jax.device_put`` does. Over a mesh each rank places
+  only its rows of the global batch (``transformer.batch_spec``: the
+  batch over ('dcn', 'data')), as the reference's sharded placement
+  leaves each device its shard.
 * **Double-buffered prefetch.** ``Prefetcher`` stages up to ``depth``
   batches ahead on a background thread.
 """
@@ -143,13 +145,17 @@ class Prefetcher:
         self.close()
 
 
-def input_pipeline(cfg, batch: int, seed: int = 0,
+def input_pipeline(cfg, batch: int, seed: int = 0, mesh=None,
                    steps: Optional[int] = None,
                    device="cuda") -> Prefetcher:
     """The assembled pipeline: synthetic documents -> packed (batch,
     max_seq) int32 windows -> int64 tokens on ``device`` (pinned host
     memory, asynchronous copy to the card) -> double-buffered prefetch.
-    ``steps`` bounds the stream (None: endless)."""
+    ``steps`` bounds the stream (None: endless). With ``mesh`` every
+    rank packs the same global stream and places its own rows
+    (``transformer.shard_batch``), what the meshed train step takes."""
+    from kind_tpu_sim_torch.models.transformer import shard_batch
+
     dev = resolve(device)
     batches: Iterator[np.ndarray] = pack(
         synthetic_documents(seed, cfg.vocab_size), batch, cfg.max_seq)
@@ -157,7 +163,7 @@ def input_pipeline(cfg, batch: int, seed: int = 0,
         batches = itertools.islice(batches, steps)
 
     def place(window: np.ndarray) -> torch.Tensor:
-        tokens = torch.from_numpy(window).long()
+        tokens = shard_batch(torch.from_numpy(window).long(), mesh)
         if dev.type == "cuda":
             tokens = tokens.pin_memory()
         return tokens.to(dev, non_blocking=True)

@@ -10,14 +10,20 @@ Counterpart of ``kind_tpu_sim/models/checkpoint.py`` without orbax:
   ``latest_step`` would return;
 * the newest ``max_to_keep`` (3) steps are kept;
 * ``restore`` loads into a train state made by the same ``init_state``
-  (the template), in place, on that state's device.
+  (the template), in place, on that state's device; ``abstract_like``
+  makes a fresh template with another state's shapes and placement.
 
-Placement over a mesh is not ported yet.
+Over a mesh (a state of ``make_train_step(cfg, mesh=...)``) ``save`` is
+collective: the shards of every parameter and AdamW moment are gathered
+into whole tensors and rank 0 writes them, so the file is the one an
+unsharded run writes. ``restore`` cuts each whole tensor for the
+template's own mesh, which may differ from the one that saved it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import os
 import pathlib
 import shutil
@@ -27,9 +33,11 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kind_tpu_sim_torch.device import resolve
 from kind_tpu_sim_torch.models import transformer as tf
+from kind_tpu_sim_torch.parallel import tp
 
 STATE_FILE = "state.pt"
 
@@ -123,12 +131,16 @@ def save(directory, step: int, state: Dict[str, Any], *,
     final = path / str(step)
     if final.exists():
         raise FileExistsError(f"checkpoint {final} already exists")
+    params = [p.detach() for p in tf._leaves(state["params"])]
+    opt = None if state["opt"] is None else state["opt"].state_dict()
+    mesh = state.get("mesh")
+    if mesh is not None:
+        params, opt = _whole(state, params, opt)
+        if mesh.rank != 0:
+            dist.barrier()
+            return
     path.mkdir(parents=True, exist_ok=True)
-    payload = {
-        "step": int(step),
-        "params": [p.detach() for p in tf._leaves(state["params"])],
-        "opt": None if state["opt"] is None else state["opt"].state_dict(),
-    }
+    payload = {"step": int(step), "params": params, "opt": opt}
     tmp = path / f".{step}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir()
@@ -139,6 +151,73 @@ def save(directory, step: int, state: Dict[str, Any], *,
     os.replace(tmp, final)
     for stale in _steps(path)[:-max_to_keep]:
         shutil.rmtree(path / str(stale))
+    if mesh is not None:
+        dist.barrier()
+
+
+def _moments(opt_state, placements, fn):
+    """``fn(tensor, placement)`` over the AdamW moments of an optimizer
+    state dict (a moment has its parameter's shape and placement); the
+    step counts and hyperparameters are kept."""
+    out = {"state": {}, "param_groups": opt_state["param_groups"]}
+    for i, per in opt_state["state"].items():
+        out["state"][i] = {k: (fn(v, placements[i]) if v.dim() > 0 else v)
+                           for k, v in per.items()}
+    return out
+
+
+def _whole(state, params, opt):
+    """The whole parameters and optimizer state of a meshed state, on
+    every rank (collective)."""
+    mesh = state["mesh"]
+    placements = tf.leaf_placements(state["cfg"], mesh)
+
+    def gather(t, placement):
+        return tp.gather_tensor(t, placement[0], mesh, placement[1])
+
+    params = [gather(p, pl) for p, pl in zip(params, placements)]
+    if opt is not None:
+        opt = _moments(opt, placements, gather)
+    return params, opt
+
+
+def _cut(state, params, opt):
+    """Whole parameters and optimizer state cut for a meshed state's
+    own mesh."""
+    mesh = state["mesh"]
+    placements = tf.leaf_placements(state["cfg"], mesh)
+
+    def cut(t, placement):
+        return tp.shard_tensor(t, placement[0], mesh, placement[1])
+
+    params = [cut(p, pl) for p, pl in zip(params, placements)]
+    if opt is not None:
+        opt = _moments(opt, placements, cut)
+    return params, opt
+
+
+def abstract_like(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A fresh template of ``state`` to ``restore`` into: parameters of
+    the same shapes, dtypes, devices and placement (zeros), an optimizer
+    of the same kind and hyperparameters with no state yet, the same
+    mesh. The reference's abstract tree of shapes and shardings."""
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [zeros(v) for v in node]
+        return torch.zeros_like(node.detach()).requires_grad_(
+            node.requires_grad)
+
+    out = dict(state)
+    out["params"] = zeros(state["params"])
+    if state["opt"] is not None:
+        opt = state["opt"]
+        takes = inspect.signature(type(opt)).parameters
+        out["opt"] = type(opt)(tf._leaves(out["params"]),
+                               **{k: v for k, v in opt.defaults.items()
+                                  if k in takes})
+    return out
 
 
 def restore(directory, state: Dict[str, Any],
@@ -156,8 +235,12 @@ def restore(directory, state: Dict[str, Any],
             f"no checkpoint{'' if step is None else f' {step}'} under "
             f"{directory}")
     leaves = tf._leaves(state["params"])
-    payload = torch.load(file, map_location=leaves[0].device,
-                         weights_only=True)
+    meshed = state.get("mesh") is not None
+    payload = torch.load(file, map_location="cpu" if meshed
+                         else leaves[0].device, weights_only=True)
+    if meshed and len(payload["params"]) == len(leaves):
+        payload["params"], payload["opt"] = _cut(state, payload["params"],
+                                                 payload["opt"])
     if len(payload["params"]) != len(leaves) or any(
             saved.shape != p.shape
             for saved, p in zip(payload["params"], leaves)):
@@ -187,7 +270,7 @@ def train_with_checkpointing(cfg, directory, *, total_steps: int,
                              seed: int = 0, learning_rate: float = 1e-2,
                              on_step: Optional[Callable[[int], None]] = None,
                              handle_preemption: bool = True,
-                             device="cuda"):
+                             device="cuda", mesh=None):
     """Run (or resume) the training loop with periodic saves.
 
     Picks up from ``latest_step(directory)`` when present; the
@@ -199,10 +282,14 @@ def train_with_checkpointing(cfg, directory, *, total_steps: int,
     a flag: the in-flight step finishes, a checkpoint is written at that
     exact step, and :class:`Preempted` is raised. ``on_step(i)`` is
     called after step ``i``'s loss is recorded and before the preemption
-    check and the checkpoint decision."""
+    check and the checkpoint decision.
+
+    With ``mesh`` every rank runs the loop: the state is sharded, each
+    rank trains on its rows of step i's batch, and the saves are
+    collective (``save``)."""
     dev = resolve(device)
     step_fn, init_state = tf.make_train_step(
-        cfg, learning_rate=learning_rate, device=dev)
+        cfg, mesh=mesh, learning_rate=learning_rate, device=dev)
     state = init_state(torch.Generator(device=dev).manual_seed(seed))
     guard_cm = (preemption_guard() if handle_preemption
                 else contextlib.nullcontext(PreemptionGuard()))
@@ -216,7 +303,7 @@ def train_with_checkpointing(cfg, directory, *, total_steps: int,
         for i in range(start, total_steps):
             tokens = tf.sample_batch(batch_generator(seed, i, dev), cfg,
                                      batch, cfg.max_seq, device=dev)
-            state, loss = step_fn(state, tokens)
+            state, loss = step_fn(state, tf.shard_batch(tokens, mesh))
             losses[i] = float(loss)
             if on_step is not None:
                 on_step(i)

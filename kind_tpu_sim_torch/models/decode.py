@@ -56,6 +56,7 @@ from kind_tpu_sim_torch.models.transformer import (
     _rms_norm,
     _rotary,
     _split_qkv,
+    local_heads,
 )
 from kind_tpu_sim_torch.ops.int8_matmul import int8_matmul
 
@@ -89,9 +90,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Preallocated per-layer KV cache, (batch, max_len, kv, hd) in the
     activation dtype; with ``cfg.int8_kv`` each k/v is a QuantArray of
     int8 zeros with fp32 scales of one per (batch, position, kv head)
-    row."""
+    row. Under a tensor-parallel scope kv is this rank's KV heads."""
     dev = resolve(device)
-    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (batch, max_len, local_heads(cfg)[1], cfg.head_dim)
     if cfg.int8_kv:
         def qzeros():
             return QuantArray(
@@ -220,19 +221,20 @@ def _attend_token(x, bparams, cfg: ModelConfig, positions):
     (b, 1, kv, hd)."""
     b = x.shape[0]
     h = _rms_norm(x, bparams["attn_norm"])
-    q, k, v = _split_qkv(linear(h, bparams["wqkv"], native=cfg.int8_native),
-                         cfg, b, 1)
+    q, k, v = _split_qkv(linear(h, bparams["wqkv"], native=cfg.int8_native,
+                                parallel="column"), cfg, b, 1)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
-    group = cfg.n_heads // cfg.kv_heads
-    return q.reshape(b, cfg.kv_heads, group, cfg.head_dim), k, v
+    heads, kv = local_heads(cfg)
+    return q.reshape(b, kv, heads // kv, cfg.head_dim), k, v
 
 
 def _finish_block(x, attn, bparams, cfg: ModelConfig):
     """Shared decode-step back half: output projection + MLP or MoE. x
     is (b, d), or (b, w, d) for a verify window; an MoE routes each
     position over the rows (the reference's vmap over w)."""
-    x = x + linear(attn, bparams["wo"], native=cfg.int8_native)
+    x = x + linear(attn, bparams["wo"], native=cfg.int8_native,
+                   parallel="row")
     return x + _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams, cfg,
                     "columns")[0]
 
@@ -257,7 +259,7 @@ def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
     attn = (_cache_values(probs[..., :max_len], layer_cache["v"], dtype,
                           native)
             + _cache_values(probs[..., max_len:], v, dtype)
-            ).reshape(b, cfg.d_model)
+            ).reshape(b, -1)
     _store(layer_cache["k"], k, pos)
     _store(layer_cache["v"], v, pos)
     return _finish_block(x, attn, bparams, cfg), layer_cache
@@ -318,7 +320,7 @@ def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
         _cache_values(probs[..., :s_big], big["v"], dtype, cfg.int8_native)
         + _cache_values(probs[..., s_big:s_big + c_len], small["v"], dtype)
         + _cache_values(probs[..., s_big + c_len:], v, dtype)
-    ).reshape(b, cfg.d_model)
+    ).reshape(b, -1)
 
     small["k"][:, i] = k[:, 0]
     small["v"][:, i] = v[:, 0]
@@ -327,7 +329,7 @@ def _block_decode_chunk(x, bparams, cfg: ModelConfig, big, small, base, i):
 
 def _new_chunk_buffers(cfg: ModelConfig, b: int, size: int, device):
     dtype = torch_dtype(cfg.dtype)
-    shape = (b, size, cfg.kv_heads, cfg.head_dim)
+    shape = (b, size, local_heads(cfg)[1], cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.n_layers)]

@@ -239,10 +239,16 @@ class RoundGraphs:
         return outputs
 
 
-def round_runner(device: torch.device):
+def round_runner(device: torch.device, mesh=None):
     """What an engine on ``device`` runs its rounds through: graphs on a
-    card, ``eager`` on the CPU."""
-    return RoundGraphs(device) if device.type == "cuda" else eager
+    card, ``eager`` on the CPU. Under a mesh the graphs capture the
+    round's collectives, which NCCL allows (its groups are warmed by the
+    eager first round of each key); a gloo mesh runs its collectives on
+    the host, which a graph cannot hold, so its rounds are eager."""
+    if device.type != "cuda" or (mesh is not None
+                                 and mesh.backend != "nccl"):
+        return eager
+    return RoundGraphs(device)
 
 
 def _solo_chunk(params, cfg, token, cache, base, size: int) -> tuple:

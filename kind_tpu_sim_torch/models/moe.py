@@ -14,8 +14,14 @@ stream carries it). So which tokens share a call is part of the
 result: the callers route exactly the sets the JAX package routes
 (``transformer._moe``).
 
-The expert weights' sharding over a mesh (the reference's
-``moe_param_specs``) belongs to the port's parallel layer.
+Over a mesh (``moe_param_specs``) each rank holds the experts of its
+slice of the 'expert' axis (else 'model'); the tokens are replicated
+over that axis, each rank runs its own experts and the combine is
+summed over it (``parallel.tp``). While the tokens of the call are
+split over data ranks, routing keeps the global batch's semantics, as
+GSPMD's does: capacity from the global token count, each token's queue
+position continued from the lower ranks' counts, the auxiliary loss's
+means over every token.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from kind_tpu_sim_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,13 +67,18 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     of equal maxima, as ``jnp.argmax`` does); each token's position in
     its expert's queue is the running count of earlier tokens sent
     there; the expert products run in the activation dtype, with the
-    tanh form of GELU (``transformer._gelu``)."""
+    tanh form of GELU (``transformer._gelu``). Under a scope with an
+    expert axis ``mparams`` holds this rank's experts; with a data axis
+    ``x`` is this rank's part of the call's tokens."""
     from kind_tpu_sim_torch.models.transformer import _gelu
 
+    shards = tp.current()
+    data, ex = shards.data, shards.expert
     b, t, d = x.shape
     s = b * t
     e = moe.n_experts
-    capacity = max(1, int(moe.capacity_factor * s / e))
+    total = s * (1 if data is None else data.size)
+    capacity = max(1, int(moe.capacity_factor * total / e))
 
     tokens = x.reshape(s, d)
     logits = tokens.float() @ mparams["router"].float()
@@ -74,7 +87,12 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     gate = probs.amax(dim=-1)                                # (s,)
 
     onehot = F.one_hot(expert_idx, e).float()                # (s, e)
-    position = torch.cumsum(onehot, dim=0) * onehot - 1.0    # (s, e)
+    queue = torch.cumsum(onehot, dim=0)
+    if data is not None:
+        # the lower data ranks' tokens queue first
+        counts = tp.all_gather(onehot.sum(dim=0)[None], data, 0)
+        queue = queue + counts[:data.index].sum(dim=0)
+    position = queue * onehot - 1.0                          # (s, e)
     keep = (position < capacity) & (onehot > 0)
     position = torch.where(keep, position, 0.0).long()
     pos_onehot = F.one_hot(position.amax(dim=-1), capacity).float()
@@ -83,17 +101,44 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     dispatch = ((onehot * keep_any[:, None])[:, :, None]
                 * pos_onehot[:, None, :])
 
+    weight = gate * keep_any
+    if ex is not None:
+        # this rank's experts: the replicated tokens and combine weights
+        # enter the split region, the partial combines are summed
+        lo = ex.index * mparams["w_up"].shape[0]
+        dispatch = dispatch[:, lo:lo + mparams["w_up"].shape[0]]
+        tokens, weight = tp.copy_in(tokens, ex), tp.copy_in(weight, ex)
     dispatch_c = dispatch.to(x.dtype)
     expert_in = torch.einsum("sec,sd->ecd", dispatch_c, tokens)
     hidden = _gelu(torch.einsum("ecd,edf->ecf", expert_in,
                                 mparams["w_up"].to(x.dtype)))
     expert_out = torch.einsum("ecf,efd->ecd", hidden,
                               mparams["w_down"].to(x.dtype))
-    combine = dispatch_c * (gate * keep_any).to(x.dtype)[:, None, None]
-    out = torch.einsum("sec,ecd->sd", combine, expert_out)
+    combine = dispatch_c * weight.to(x.dtype)[:, None, None]
+    out = tp.reduce_out(torch.einsum("sec,ecd->sd", combine, expert_out), ex)
 
     # load-balancing loss (Switch eq. 4): E * sum_e f_e * P_e
-    fraction = onehot.mean(dim=0)
-    router_prob = probs.mean(dim=0)
+    if data is None:
+        fraction = onehot.mean(dim=0)
+        router_prob = probs.mean(dim=0)
+    else:
+        fraction = tp.all_reduce(onehot.sum(dim=0), data) / total
+        router_prob = tp.sum_across(probs.sum(dim=0), data) / total
     aux = moe.aux_loss_weight * e * torch.sum(fraction * router_prob)
     return out.reshape(b, t, d).to(x.dtype), aux
+
+
+def moe_param_specs(mesh=None):
+    """The expert dimension of w_up / w_down over 'expert' (preferred)
+    or 'model'; the router replicated (the reference's PartitionSpecs,
+    as tuples)."""
+    axis = None
+    if mesh is not None:
+        names = mesh.axis_names
+        axis = "expert" if "expert" in names else (
+            "model" if "model" in names else None)
+    return {
+        "router": (None, None),
+        "w_up": (axis, None, None),
+        "w_down": (axis, None, None),
+    }

@@ -265,7 +265,7 @@ def _block_decode_kernel(x, bparams, cfg: ModelConfig, pool_lc, tables,
     corr = torch.exp(m_b - m_tot)
     l_tot = l_b * corr + p_rest.sum(dim=-1)
     attn = ((acc_b * corr[..., None] + attn_rest) / l_tot[..., None]).to(
-        torch_dtype(cfg.dtype)).reshape(b, cfg.d_model)
+        torch_dtype(cfg.dtype)).reshape(b, -1)
 
     small_lc["k"][:, i] = k1[:, 0]
     small_lc["v"][:, i] = v1[:, 0]

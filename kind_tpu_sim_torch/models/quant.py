@@ -35,6 +35,7 @@ import torch
 
 from kind_tpu_sim_torch.device import torch_dtype
 from kind_tpu_sim_torch.ops.int8_matmul import int8_matmul
+from kind_tpu_sim_torch.parallel import tp
 
 
 class QuantArray(NamedTuple):
@@ -86,29 +87,57 @@ def _int8_rows_matmul(xq, bq, n: int):
     return acc.reshape(lead + (n,))
 
 
-def linear(x, w, dtype=None, native=False):
+def linear(x, w, dtype=None, native=False, parallel=None):
     """x @ w for a plain tensor or a QuantArray weight (quantized along
     axis 0: scale (1, out)). Plain: the product in the activation dtype,
     rounded to it, as ``x @ w.astype(x.dtype)``. Dequant: fp32
     accumulation, the channel scale on the fp32 result, then the cast.
-    Native: W8A8 through the exact int32 product."""
+    Native: W8A8 through the exact int32 product.
+
+    ``parallel`` names the weight's split under a tensor-parallel scope
+    (``parallel.tp``): "column" (w holds this rank's output columns; x
+    enters through ``copy_in``) or "row" (w holds this rank's input
+    rows and x its matching columns; the partial products are summed
+    over the ranks in fp32). Outside a scope it changes nothing. An
+    int8 weight is never split over ranks: ``shard_params`` refuses to
+    place its (1, out) scale, as the reference's placement does."""
+    ax = tp.current().model if parallel else None
+    if parallel == "column":
+        x = tp.copy_in(x, ax)
+    row = ax if parallel == "row" else None
     if isinstance(w, QuantArray):
         if w.scale.shape[0] != 1:
             raise ValueError(
                 "linear() needs a weight quantized along axis 0 "
                 f"(scale shape (1, out)); got scale {tuple(w.scale.shape)}")
+        if row is not None and row.size > 1:
+            raise ValueError("an int8 weight cannot be split over ranks")
         if native:
             xq, xs = quant_rows(x)
             acc = _int8_rows_matmul(xq, w.q, w.q.shape[1])
             return (acc.float() * xs * w.scale[0]).to(x.dtype)
         out = x.float() @ w.q.float()
         return (out * w.scale[0]).to(x.dtype)
-    return x @ w.to(dtype or x.dtype)
+    return tp.reduce_out(x @ w.to(dtype or x.dtype), row)
 
 
 def embed_lookup(embed, tokens, dtype):
     """Token embedding gather for a plain or a per-row quantized table;
-    the quantized rows and their scales multiply in ``dtype``."""
+    the quantized rows and their scales multiply in ``dtype``. Under a
+    tensor-parallel scope the table holds this rank's slice of the
+    vocabulary: tokens outside it look up zeros and the ranks' lookups
+    are summed (one rank holds each token, so the sum is exact)."""
+    ax = tp.current().model
+    if ax is not None:
+        lo = ax.index * embed.shape[0]
+        local = tokens - lo
+        inside = (local >= 0) & (local < embed.shape[0])
+        rows = _lookup(embed, torch.where(inside, local, 0), dtype)
+        return tp.reduce_out(rows * inside[..., None].to(dtype), ax)
+    return _lookup(embed, tokens, dtype)
+
+
+def _lookup(embed, tokens, dtype):
     if isinstance(embed, QuantArray):
         rows = embed.q[tokens].to(dtype)
         return rows * embed.scale[tokens].to(dtype)

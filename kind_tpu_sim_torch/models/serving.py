@@ -62,7 +62,24 @@ and MoE configs (``n_experts``: each decode step routes the grid's
 slots together, each verify-window position the slots at that
 position, each admitted prompt alone, as the JAX package routes them).
 int8 pools serve on the paged gather tier only, as in the reference.
-Meshes are a later slice; a mesh raises ValueError at construction.
+
+Every engine serves over a mesh (``parallel/mesh.py``), as the
+reference's tensor-parallel serving does. Every rank runs the same host
+scheduler on the same requests. The parameters are Megatron-sharded over
+'model' (``transformer.shard_params``), the KV storage holds this
+rank's KV heads, and the slots of the dense grids are split over 'data':
+each data rank's cache holds its own slots (plus one sink row the
+other slots' writes are aimed at), a round computes only those rows,
+and its emitted tokens and logprobs are all-gathered over 'data' so
+every rank's scheduler stays in step. Whole-prompt prefills run on
+every data rank (each keeps its own slots' rows); a window against a
+slot's prefix runs on the slot's data rank and its logits are
+broadcast. Paged pools keep the block axis global, so paged engines
+refuse a data axis; the paged kernel tier is refused under any mesh, as
+the reference refuses its Pallas tier. On a card, rounds are CUDA graphs
+with their collectives captured when the mesh's backend is NCCL, and
+eager under gloo, whose collectives run on the host; ``report()`` says
+which (``"mesh"``).
 """
 
 from __future__ import annotations
@@ -97,9 +114,12 @@ from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
     Params,
     _block_core,
+    _check_mesh,
     _readout,
     _rms_norm,
+    shard_params,
 )
+from kind_tpu_sim_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -461,12 +481,48 @@ def _decode_chunk(params, cache, lengths, last_token, active, sampling,
 # host-side engine
 
 
+def _scoped(method):
+    """Run an engine method with the engine's split in scope
+    (``parallel.tp``): its parameters and storage are this rank's
+    shards."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with tp.scope(self._shards):
+            return method(self, *args, **kwargs)
+
+    return run
+
+
+def _check_mesh_divisibility(cfg: ModelConfig, slots: int, mesh) -> None:
+    data = mesh.axis_size("data")
+    model = mesh.axis_size("model")
+    if slots % data != 0:
+        raise ValueError(
+            f"max_slots {slots} not divisible by mesh data axis {data}")
+    if cfg.kv_heads % model != 0:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by mesh model axis "
+            f"{model}")
+
+
 def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
     """Loud, not silent: a knob outside the ported slices would
-    otherwise "run" and serve with the wrong semantics."""
+    otherwise "run" and serve with the wrong semantics. Every mesh
+    rejection fires before the weights are sharded, as the reference's
+    do before its weight transfer."""
     if mesh is not None:
-        raise ValueError(
-            "a mesh: not ported to kind_tpu_sim_torch yet (later slices)")
+        _check_mesh(mesh)
+        if serving.paged_kernel:
+            raise ValueError(
+                "the paged-attention kernel tier does not partition under "
+                "a mesh (its CUDA kernel reads whole pools); use the "
+                "gather tier")
+        if serving.paged_blocks and mesh.axis_size("data") > 1:
+            raise ValueError(
+                "paged mesh serving shards kv heads over 'model' only — "
+                "the block pool is global across slots, so the slot axis "
+                "cannot shard over 'data'; use a mesh without a data axis")
+        _check_mesh_divisibility(cfg, serving.max_slots, mesh)
     waves = serving.admission_wave_sizes
     if waves and (1 not in waves
                   or any(w < 1 or w > serving.max_slots for w in waves)):
@@ -482,7 +538,9 @@ class ServingEngine:
     are the incremental surface. ``device`` is the card unless the
     caller asks for the CPU; ``params`` must already live there.
     ``clock`` is what every latency stamp and deadline reads (default
-    ``time.monotonic``).
+    ``time.monotonic``). ``mesh`` serves tensor-parallel (the module
+    docstring): every rank constructs the engine with the same whole
+    ``params`` and drives it with the same requests.
     """
 
     # the speculative engines take ServingConfig.speculative_k; the
@@ -503,6 +561,16 @@ class ServingEngine:
                 f"params live on {params['embed'].device}; the engine "
                 f"runs on {self.device}")
         self._clock = clock if clock is not None else time.monotonic
+        self.mesh = mesh
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
+        # what the engine's computations are split over: the parameters
+        # over 'model' (experts over 'expert' or 'model'); a round of a
+        # dense grid's slots also over 'data'
+        self._shards = tp.shards_of(mesh, None)
+        data = tp.axis(mesh, "data") if mesh is not None else None
+        self._data = data if data is not None and data.size > 1 else None
+        self._lo, self._hi = tp.split_rows(serving.max_slots, self._data)
         self.params = params
         self.cfg = cfg
         self.serving = serving
@@ -526,7 +594,7 @@ class ServingEngine:
         # buffers, and the round runs through ``_round``: a CUDA graph
         # per key on a card, the eager function on the CPU
         self._in = graphs.RoundInputs(n, self.device)
-        self._round = graphs.round_runner(self.device)
+        self._round = graphs.round_runner(self.device, mesh)
 
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * n
@@ -567,18 +635,89 @@ class ServingEngine:
         self.suffix_windows = 0
         self.wave_sizes: Dict[int, int] = collections.Counter()
         self.decode_rounds = 0
-        self._init_storage()
+        with tp.scope(self._shards):
+            self._init_storage()
 
     def _init_storage(self) -> None:
         if self.serving.paged_blocks or self.serving.paged_kernel:
             raise ValueError(
                 f"{type(self).__name__} ignores paged_blocks/"
                 "paged_kernel; construct PagedServingEngine")
-        self.cache = init_cache(self.cfg, self.serving.max_slots,
+        self.cache = init_cache(self.cfg, self._storage_slots(),
                                 self.serving.max_len, device=self.device)
         self.prefix_cache = (PrefixCache(self.serving.prefix_cache_entries)
                              if self.serving.prefix_cache_entries > 0
                              else None)
+
+    # -- the slots' split over 'data' (dense grids) --------------------
+
+    def _storage_slots(self) -> int:
+        """Rows of a slot-indexed storage: every slot, or this data
+        rank's slots and the sink row."""
+        if self._data is None:
+            return self.serving.max_slots
+        return self._hi - self._lo + 1
+
+    def _row(self, slot: int) -> int:
+        """The storage row of ``slot``: the sink row for a slot of
+        another data rank (writes aimed there are never read)."""
+        if self._data is None:
+            return slot
+        if self._lo <= slot < self._hi:
+            return slot - self._lo
+        return self._hi - self._lo
+
+    def _owner(self, slot: int) -> int:
+        return slot // (self._hi - self._lo)
+
+    def _owns(self, slot: int) -> bool:
+        return self._data is None or self._lo <= slot < self._hi
+
+    def _mine(self, t):
+        """This data rank's slots of a per-slot tensor (a view), or of
+        each tensor of a tuple; None stays None."""
+        if self._data is None or t is None:
+            return t
+        if isinstance(t, tuple):
+            return tuple(self._mine(x) for x in t)
+        return t[self._lo:self._hi]
+
+    def _local(self, storage):
+        """Per-layer views of a slot-indexed storage without its sink
+        row: the rows a round computes."""
+        if self._data is None:
+            return storage
+        n = self._hi - self._lo
+        return [{name: _map_kv(arr, lambda a: a[:n])
+                 for name, arr in lc.items()} for lc in storage]
+
+    def _gathered(self, fn, dims):
+        """A round function over this rank's slots made a round over the
+        grid: ``fn`` runs with the slots' split in scope and each output
+        is all-gathered over 'data' along its slot dimension (``dims``)."""
+        if self._data is None:
+            return fn
+        shards = self._shards._replace(data=self._data)
+
+        def run():
+            with tp.scope(shards):
+                outs = fn()
+            return tuple(tp.all_gather(o, self._data, d)
+                         for o, d in zip(outs, dims))
+
+        return run
+
+    def _from_owner(self, slot: int, fn, vocab: int):
+        """fp32 logits (vocab,) that only ``slot``'s data rank can
+        compute (a window against the slot's prefix): computed there
+        and broadcast over 'data'."""
+        if self._data is None:
+            return fn()
+        if self._owns(slot):
+            out = fn().contiguous()
+        else:
+            out = torch.empty(vocab, dtype=torch.float32, device=self.device)
+        return tp.broadcast(out, self._data, self._owner(slot))
 
     # -- public surface ------------------------------------------------
 
@@ -613,6 +752,7 @@ class ServingEngine:
         self.queue.append(request)
 
     @torch.no_grad()
+    @_scoped
     def step_round(self) -> None:
         """One scheduling quantum: admit into free slots, advance each
         pending chunked prefill by one window, decode one chunk for the
@@ -724,6 +864,7 @@ class ServingEngine:
         return out
 
     @torch.no_grad()
+    @_scoped
     def run(self) -> List[Completion]:
         """Drain queue, pending prefills and grid; returns completions
         in finish order. With ``overlap_rounds`` the loop is pipelined:
@@ -824,9 +965,10 @@ class ServingEngine:
         after it. Returns the window's fp32 logits."""
         if done == 0:
             return _prefill_into_slot(self.params, self.cache, window, w,
-                                      slot, cfg=self.cfg)
-        return _suffix_into_slot(self.params, self.cache, window, w, done,
-                                 slot, cfg=self.cfg)
+                                      self._row(slot), cfg=self.cfg)
+        return self._from_owner(slot, lambda: _suffix_into_slot(
+            self.params, self.cache, window, w, done, self._row(slot),
+            cfg=self.cfg), self.cfg.vocab_size)
 
     def _prefill_group(self, group):
         """Storage half of an admission wave (dense grid): the stacked
@@ -835,7 +977,7 @@ class ServingEngine:
         return _prefill_many_into_slots(
             self.params, self.cache, torch.as_tensor(toks, device=self.device),
             [len(req.prompt) for _, req in group],
-            [slot for slot, _ in group], cfg=self.cfg)
+            [self._row(slot) for slot, _ in group], cfg=self.cfg)
 
     def _store_pending(self, slot: int, req: Request) -> None:
         """Prompt-complete hook (the prefix-cache store)."""
@@ -879,9 +1021,12 @@ class ServingEngine:
         sampling = self._round_sampling()
         emitted, lps = self._round(
             ("chunk", chunk, sampling is not None),
-            functools.partial(_decode_chunk, self.params, self.cache, lengths,
-                              self.last_token, active, sampling,
-                              self.presence, cfg=self.cfg, chunk=chunk))
+            self._gathered(functools.partial(
+                _decode_chunk, self.params, self._local(self.cache),
+                self._mine(lengths), self._mine(self.last_token),
+                self._mine(active), self._mine(sampling),
+                self._mine(self.presence), cfg=self.cfg, chunk=chunk),
+                (0, 0)))
         self._advance_lengths()
         return emitted, lps
 
@@ -909,7 +1054,8 @@ class ServingEngine:
                                        max_len=self.serving.max_len)
         if hit is None:
             return 0
-        _write_slot_rows(self.cache, hit["kv"], slot)
+        if self._owns(slot):
+            _write_slot_rows(self.cache, hit["kv"], self._row(slot))
         return hit["len"]
 
     def _store_prefix(self, slot: int, req: Request) -> None:
@@ -920,8 +1066,20 @@ class ServingEngine:
         t_p = len(req.prompt)
         bucket = min(_bucket(t_p), self.serving.max_len)
         self.prefix_cache.store(req.prompt, {
-            "kv": _read_slot_rows(self.cache, slot, bucket),
+            "kv": self._slot_rows(slot, bucket),
             "len": t_p, "pad": bucket})
+
+    def _slot_rows(self, slot: int, length: int):
+        """``_read_slot_rows`` of ``slot``, on every data rank: its data
+        rank reads them and broadcasts them over 'data' (the others read
+        their sink row for the shapes)."""
+        rows = _read_slot_rows(self.cache, self._row(slot), length)
+        if self._data is not None:
+            for layer in rows:
+                for arr in layer.values():
+                    for t in (arr if isinstance(arr, QuantArray) else (arr,)):
+                        tp.broadcast(t, self._data, self._owner(slot))
+        return rows
 
     # -- admission and retirement --------------------------------------
 
@@ -1081,6 +1239,7 @@ class ServingEngine:
         return torch.cat(arrs).cpu().tolist()
 
     @torch.no_grad()
+    @_scoped
     def warm_admission(self, prompt_lens, sizes=None) -> None:
         """Run every (prompt bucket x sub-wave size) admission dispatch
         the wave decomposition can make on dummy prompts, before
@@ -1315,6 +1474,14 @@ class ServingEngine:
             }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.report()
+        if self.mesh is not None:
+            out["mesh"] = {
+                "axes": dict(self.mesh.shape),
+                "backend": self.mesh.backend,
+                "rounds": ("graphs" if isinstance(self._round,
+                                                  graphs.RoundGraphs)
+                           else "eager"),
+            }
         if self._lat_count:
             ttfts = sorted(t for t, _, _ in self._lat_window)
             e2es = sorted(e for _, e, _ in self._lat_window)
@@ -1736,7 +1903,7 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
                 " construct PagedSpeculativeServingEngine")
         k, W = serving.speculative_k, serving.spec_windows
         self._init_spec_state(serving.max_len + W * (k + 1))
-        n = serving.max_slots
+        n = self._storage_slots()
         self.cache = init_cache(cfg, n, self._rows, device=self.device)
         self.draft_prefills = 0
         if self._draft is not None:
@@ -1745,11 +1912,13 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
                 raise ValueError(
                     f"draft vocab {dcfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size}")
-            _check_slice(dcfg, serving, None)
+            _check_slice(dcfg, serving, self.mesh)
             if dparams["embed"].device.type != self.device.type:
                 raise ValueError(
                     f"draft params live on {dparams['embed'].device}; the "
                     f"engine runs on {self.device}")
+            if self.mesh is not None:
+                self._draft = (shard_params(dparams, dcfg, self.mesh), dcfg)
             self.draft_cache = init_cache(dcfg, n, self._rows,
                                           device=self.device)
         self.prefix_cache = (PrefixCache(serving.prefix_cache_entries)
@@ -1763,7 +1932,7 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
             window = torch.as_tensor(_padded_window(req.prompt),
                                      device=self.device)
             _prefill_into_slot(dparams, self.draft_cache, window,
-                               len(req.prompt), slot, cfg=dcfg)
+                               len(req.prompt), self._row(slot), cfg=dcfg)
             self.draft_prefills += 1
 
     def _round_dispatch(self):
@@ -1774,21 +1943,28 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
         if not any(r is not None for r in self.slot_req):
             return None
         k, W = self.serving.speculative_k, self.serving.spec_windows
-        active = self._in.fill(self._in.active, self.active)
-        sampling = self._round_sampling()
+        active = self._mine(self._in.fill(self._in.active, self.active))
+        sampling = self._mine(self._round_sampling())
+        out, total = self._mine(self.out), self._mine(self.total)
         if self._draft is None:
             fn = functools.partial(
-                spec._grid_verify_scan, self.params, self.cache, self.out,
-                self.total, active, sampling, cfg=self.cfg, k=k, windows=W)
+                spec._grid_verify_scan, self.params, self._local(self.cache),
+                out, total, active, sampling, cfg=self.cfg, k=k, windows=W)
         else:
             dparams, dcfg = self._draft
             fn = functools.partial(
                 spec._grid_draft_verify_scan, self.params, dparams,
-                self.cache, self.draft_cache, self.out, self.total, active,
-                sampling, cfg=self.cfg, dcfg=dcfg, k=k, windows=W)
-        emits, ms, lps = self._round(("verify", k, W, sampling is not None),
-                                     fn)
-        return (self._stage(emits, ms, self.total, lps),
+                self._local(self.cache), self._local(self.draft_cache), out,
+                total, active, sampling, cfg=self.cfg, dcfg=dcfg, k=k,
+                windows=W)
+        key = ("verify", k, W, sampling is not None)
+        if self._data is None:
+            emits, ms, lps = self._round(key, fn)
+        else:
+            # the totals ride along: each data rank advanced only its own
+            emits, ms, lps, total = self._round(key, self._gathered(
+                lambda: (*fn(), total), (1, 1, 1, 0)))
+        return (self._stage(emits, ms, total, lps),
                 list(self._slot_gen))
 
     def report(self) -> Dict[str, Any]:

@@ -68,6 +68,7 @@ from kind_tpu_sim_torch.models.transformer import (
     _rms_norm,
     _rotary,
     _split_qkv,
+    local_heads,
 )
 
 def _at(out, pos):
@@ -109,16 +110,16 @@ def _window_block(x, bparams, cfg: ModelConfig, layer_cache, base):
     dtype = torch_dtype(cfg.dtype)
     native = cfg.int8_native
     h = _rms_norm(x, bparams["attn_norm"])
-    q, kk, vv = _split_qkv(linear(h, bparams["wqkv"], native=native), cfg,
-                           b, w)
+    q, kk, vv = _split_qkv(linear(h, bparams["wqkv"], native=native,
+                                  parallel="column"), cfg, b, w)
     positions = base[:, None] + torch.arange(w, device=x.device)[None, :]
     q = _rotary(q, positions)
     kk = _rotary(kk, positions)
 
-    group = cfg.n_heads // cfg.kv_heads
+    heads, kv = local_heads(cfg)
     scale = cfg.head_dim ** -0.5
     s_big = layer_cache["k"].shape[1]
-    qg = q.reshape(b, w, cfg.kv_heads, group, cfg.head_dim)
+    qg = q.reshape(b, w, kv, heads // kv, cfg.head_dim)
     sc_big = _cache_scores(qg, layer_cache["k"], scale, native)
     big_mask = (torch.arange(s_big, device=x.device)[None, :]
                 < base[:, None])                               # (b, s)
@@ -135,7 +136,7 @@ def _window_block(x, bparams, cfg: ModelConfig, layer_cache, base):
     attn_win = torch.einsum(
         "bwkgv,bvkd->bwkgd", probs[..., s_big:].to(dtype).float(),
         vv.float()).to(dtype)
-    attn = (attn_big + attn_win).reshape(b, w, cfg.d_model)
+    attn = (attn_big + attn_win).reshape(b, w, -1)
     return _finish_block(x, attn, bparams, cfg), kk, vv
 
 

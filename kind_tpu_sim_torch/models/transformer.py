@@ -13,11 +13,22 @@ SGD, parameters updated in place) and ``sample_batch``; with
 backward instead of kept. ``n_experts > 0`` swaps each block's MLP for
 a Switch-MoE (``models/moe.py``, its auxiliary loss added to the
 loss); int8 snapshots (``models/quant.py``) serve through the same
-forward. Ring attention belongs to a later slice.
+forward.
+
+Over a mesh (``parallel/mesh.py``) each rank holds its shard of the
+tree (``param_specs``, ``shard_params``): Megatron tensor parallelism
+over 'model' (wqkv by heads and w_up column-parallel, wo and w_down
+row-parallel, the embedding and the tied readout split over the
+vocabulary, norms replicated), an MoE's experts over 'expert' (else
+'model'), the batch over ('dcn', 'data') (``batch_spec``). The model
+functions read the split from ``parallel.tp``'s scope; ``forward``,
+``loss_fn`` and ``make_train_step`` take ``mesh`` where the reference
+does. A 'seq' axis longer than 1 (ring attention) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -27,6 +38,7 @@ import torch
 import torch.utils.checkpoint
 
 from kind_tpu_sim_torch.device import resolve, torch_dtype
+from kind_tpu_sim_torch.parallel import tp
 
 Params = Dict[str, Any]
 
@@ -136,13 +148,25 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # forward
 
 
-def _readout(x, embed, native=False):
+def _readout(x, embed, native=False, whole=True):
     """Weight-tied fp32 logits (plain or int8 embedding) — the one
     definition forward, prefill and decode share (the cache-vs-forward
-    argmax contract)."""
+    argmax contract). Under a tensor-parallel scope ``whole=False``
+    leaves each rank its vocabulary slice."""
     from kind_tpu_sim_torch.models.quant import readout
 
-    return readout(x, embed, native=native)
+    ax = tp.current().model
+    if ax is None:
+        return readout(x, embed, native=native)
+    logits = readout(tp.copy_in(x, ax), embed, native=native)
+    return tp.gather_last(logits, ax) if whole else logits
+
+
+def local_heads(cfg: ModelConfig):
+    """(query heads, KV heads) this rank computes: all of them, or its
+    share under a tensor-parallel scope."""
+    m = tp.model_size()
+    return cfg.n_heads // m, cfg.kv_heads // m
 
 
 def _rms_norm(x, weight, eps=1e-6):
@@ -201,13 +225,13 @@ def _attention(q, k, v, causal=True):
 
 
 def _split_qkv(qkv, cfg: ModelConfig, b: int, t: int):
-    """(b, t, (h+2kv)*hd) -> q (b,t,h,hd), k/v (b,t,kv,hd) views."""
-    q_dim = cfg.n_heads * cfg.head_dim
-    kv_dim = cfg.kv_heads * cfg.head_dim
-    q, k, v = torch.split(qkv, [q_dim, kv_dim, kv_dim], dim=-1)
-    return (q.reshape(b, t, cfg.n_heads, cfg.head_dim),
-            k.reshape(b, t, cfg.kv_heads, cfg.head_dim),
-            v.reshape(b, t, cfg.kv_heads, cfg.head_dim))
+    """(b, t, (h+2kv)*hd) -> q (b,t,h,hd), k/v (b,t,kv,hd) views, at
+    this rank's head counts (``local_heads``)."""
+    h, kv = local_heads(cfg)
+    hd = cfg.head_dim
+    q, k, v = torch.split(qkv, [h * hd, kv * hd, kv * hd], dim=-1)
+    return (q.reshape(b, t, h, hd), k.reshape(b, t, kv, hd),
+            v.reshape(b, t, kv, hd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -243,8 +267,9 @@ def _mlp(h, bparams, cfg: ModelConfig, route: str = "all"):
 
     if "moe" not in bparams:
         native = cfg.int8_native
-        return linear(_gelu(linear(h, bparams["w_up"], native=native)),
-                      bparams["w_down"], native=native), 0.0
+        up = linear(h, bparams["w_up"], native=native, parallel="column")
+        return linear(_gelu(up), bparams["w_down"], native=native,
+                      parallel="row"), 0.0
     from kind_tpu_sim_torch.models.moe import MoeConfig, moe_mlp
 
     moe = MoeConfig(n_experts=cfg.n_experts)
@@ -269,7 +294,7 @@ def _block_core(x, bparams, cfg: ModelConfig, positions,
     b, t, _ = x.shape
     native = cfg.int8_native
     h = _rms_norm(x, bparams["attn_norm"])
-    qkv = linear(h, bparams["wqkv"], native=native)
+    qkv = linear(h, bparams["wqkv"], native=native, parallel="column")
     q, k, v = _split_qkv(qkv, cfg, b, t)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
@@ -281,8 +306,8 @@ def _block_core(x, bparams, cfg: ModelConfig, positions,
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = _attention(q, k, v)
-    attn = attn.reshape(b, t, cfg.d_model)
-    x = x + linear(attn, bparams["wo"], native=native)
+    attn = attn.reshape(b, t, -1)
+    x = x + linear(attn, bparams["wo"], native=native, parallel="row")
     out, aux = _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams, cfg,
                     moe_route)
     return x + out, aux, k, v
@@ -293,41 +318,229 @@ def _block(x, bparams, cfg: ModelConfig, positions):
     return x, aux
 
 
-def forward(params: Params, tokens, cfg: ModelConfig,
-            return_aux: bool = False):
-    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32;
-    with ``return_aux`` also the summed MoE load-balancing loss (0 for
-    dense configs). Differentiable in every parameter (the flash
-    kernels through ``FlashAttentionFunction``). With ``cfg.remat``
-    every block runs under ``torch.utils.checkpoint`` (non-reentrant),
-    as the reference wraps it in ``jax.checkpoint``: the backward runs
-    the block's forward again instead of keeping its activations."""
+def _block_in(shards, x, bparams, cfg: ModelConfig, positions):
+    """``_block`` under ``shards``: what a remat recompute runs, since
+    the backward may run on another thread than the scope's."""
+    with tp.scope(shards):
+        return _block(x, bparams, cfg, positions)
+
+
+def _mesh_scope(mesh):
+    """The scope a call with ``mesh`` runs in (its tokens split over
+    ('dcn', 'data')); without one, whatever scope is current."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return tp.scope(tp.shards_of(mesh))
+
+
+def _forward(params: Params, tokens, cfg: ModelConfig, whole: bool = True):
+    """The forward in the current scope -> (logits, aux); ``whole``
+    False leaves each tensor-parallel rank its vocabulary slice."""
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
     aux_total = 0.0
+    shards = tp.current()
     for bparams in params["blocks"]:
         if cfg.remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _block, x, bparams, cfg, positions, use_reentrant=False)
+                _block_in, shards, x, bparams, cfg, positions,
+                use_reentrant=False)
         else:
             x, aux = _block(x, bparams, cfg, positions)
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"])
-    logits = _readout(x, params["embed"], cfg.int8_native)
-    return (logits, aux_total) if return_aux else logits
+    return _readout(x, params["embed"], cfg.int8_native, whole), aux_total
 
 
-def loss_fn(params: Params, tokens, cfg: ModelConfig):
+def forward(params: Params, tokens, cfg: ModelConfig,
+            return_aux: bool = False, mesh=None):
+    """tokens (batch, seq) integer -> logits (batch, seq, vocab) fp32;
+    with ``return_aux`` also the summed MoE load-balancing loss (0 for
+    dense configs). Differentiable in every parameter (the flash
+    kernels through ``FlashAttentionFunction``). With ``cfg.remat``
+    every block runs under ``torch.utils.checkpoint`` (non-reentrant),
+    as the reference wraps it in ``jax.checkpoint``: the backward runs
+    the block's forward again instead of keeping its activations.
+
+    With ``mesh`` the parameters are this rank's shards
+    (``shard_params``) and ``tokens`` its rows of the batch
+    (``shard_batch``); the logits are this rank's rows over the whole
+    vocabulary."""
+    if mesh is not None:
+        _check_mesh(mesh)
+    with _mesh_scope(mesh):
+        logits, aux = _forward(params, tokens, cfg)
+    return (logits, aux) if return_aux else logits
+
+
+def _vocab_parallel_nll(logits, targets, ax):
+    """Per-position -log softmax(logits)[target] where each rank of
+    ``ax`` holds a slice of the vocabulary: the max, the sum of
+    exponentials and the target's logit are each summed (or maxed)
+    over the ranks."""
+    v = logits.shape[-1]
+    m = tp.all_reduce(logits.detach().amax(dim=-1, keepdim=True), ax, "max")
+    z = logits - m
+    sumexp = tp.reduce_out(torch.exp(z).sum(dim=-1), ax)
+    local = targets - ax.index * v
+    inside = (local >= 0) & (local < v)
+    picked = torch.gather(z, -1, torch.where(inside, local, 0)[..., None])
+    picked = tp.reduce_out(picked[..., 0] * inside, ax)
+    return torch.log(sumexp) - picked
+
+
+def loss_fn(params: Params, tokens, cfg: ModelConfig, mesh=None):
     """Next-token cross-entropy: the forward over ``tokens[:, :-1]``,
     log-softmax in fp32, mean negative log-likelihood of
-    ``tokens[:, 1:]``, plus the MoE auxiliary loss."""
-    logits, aux = forward(params, tokens[:, :-1], cfg, return_aux=True)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    picked = torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-    return -picked.mean() + aux
+    ``tokens[:, 1:]``, plus the MoE auxiliary loss. With ``mesh`` (or
+    inside a tensor-parallel scope) the log-softmax is vocab-parallel
+    and the mean is over this rank's rows."""
+    if mesh is not None:
+        _check_mesh(mesh)
+    with _mesh_scope(mesh):
+        logits, aux = _forward(params, tokens[:, :-1], cfg, whole=False)
+        ax = tp.current().model
+        targets = tokens[:, 1:]
+        if ax is None:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            picked = torch.gather(logp, -1, targets[..., None])[..., 0]
+            return -picked.mean() + aux
+        return _vocab_parallel_nll(logits.float(), targets, ax).mean() + aux
+
+
+# ---------------------------------------------------------------------
+# sharding
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh the port runs: a 'seq' axis longer than 1 is ring
+    attention, which is not ported; it raises rather than running the
+    sequence split some other way."""
+    if mesh.shape.get("seq", 1) > 1:
+        raise ValueError(
+            f"a mesh with a 'seq' axis of {mesh.shape['seq']}: sequence "
+            "parallelism is ring attention (the reference's "
+            "parallel/ring_attention.py), not ported to "
+            "kind_tpu_sim_torch")
+
+
+def param_specs(cfg: ModelConfig, mesh=None):
+    """The placement of every leaf, as the reference's PartitionSpec
+    tree (a tuple of one axis name or None per dimension): wqkv and
+    w_up column-parallel over 'model', wo and w_down row-parallel, the
+    embedding split over the vocabulary, norms replicated, an MoE's
+    experts over 'expert' (else 'model'). With no mesh (or no 'model'
+    axis) everything is replicated. wqkv's columns are split by heads
+    (``tp.qkv_columns``), not as one contiguous slice."""
+    has_model = mesh is not None and "model" in mesh.axis_names
+    m = "model" if has_model else None
+    if cfg.n_experts > 0:
+        from kind_tpu_sim_torch.models.moe import moe_param_specs
+
+        mlp_spec = {"moe": moe_param_specs(mesh)}
+    else:
+        mlp_spec = {"w_up": (None, m), "w_down": (m, None)}
+    return {
+        "embed": (m, None),
+        "final_norm": (None,),
+        "blocks": [
+            {
+                "attn_norm": (None,),
+                "mlp_norm": (None,),
+                "wqkv": (None, m),
+                "wo": (m, None),
+                **mlp_spec,
+            }
+            for _ in range(cfg.n_layers)
+        ],
+    }
+
+
+def batch_spec(mesh=None):
+    """Tokens (batch, seq): batch over 'data' (jointly over ('dcn',
+    'data') on a multislice mesh), seq over 'seq' if present."""
+    if mesh is None:
+        return (None, None)
+    names = mesh.axis_names
+    if "dcn" in names and "data" in names:
+        batch_axes = ("dcn", "data")
+    elif "data" in names:
+        batch_axes = "data"
+    else:
+        batch_axes = None
+    return (batch_axes, "seq" if "seq" in names else None)
+
+
+def shard_batch(tokens, mesh):
+    """This rank's rows of a global batch, as ``batch_spec`` places
+    them."""
+    if mesh is None:
+        return tokens
+    _check_mesh(mesh)
+    lo, hi = tp.split_rows(tokens.shape[0],
+                           tp.axis(mesh, "dcn", "data"))
+    return tokens[lo:hi]
+
+
+def _qkv_columns(cfg: ModelConfig):
+    """wqkv's head split for ``tp.shard_tensor`` / ``tp.gather_tensor``."""
+    def columns_of(size, index):
+        return tp.qkv_columns(cfg.n_heads, cfg.kv_heads, cfg.head_dim,
+                              size, index)
+
+    return columns_of
+
+
+def _placed(params, cfg: ModelConfig, mesh, fn):
+    """``fn(leaf, spec, columns_of)`` over the tree with the specs of
+    ``param_specs``; ``columns_of`` is wqkv's head split (None
+    elsewhere). A QuantArray's q and scale take the same spec."""
+    from kind_tpu_sim_torch.models.quant import QuantArray
+
+    specs = param_specs(cfg, mesh)
+
+    def walk(node, spec, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, s) for v, s in zip(node, spec)]
+        cols = _qkv_columns(cfg) if name == "wqkv" else None
+        if isinstance(node, QuantArray):
+            return QuantArray(q=fn(node.q, spec, cols),
+                              scale=fn(node.scale, spec, cols))
+        return fn(node, spec, cols)
+
+    return walk(params, specs)
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """This rank's shard of the whole tree ``params`` (every rank passes
+    the same tree): ``param_specs``' placement, wqkv by heads. A leaf
+    whose split dimension does not divide raises, as the reference's
+    placement does (an int8 weight's (1, out) scale under a 'model' axis
+    longer than 1)."""
+    if mesh is None:
+        return params
+    _check_mesh(mesh)
+    if cfg.kv_heads % mesh.shape.get("model", 1):
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by mesh model axis "
+            f"{mesh.shape['model']}")
+
+    return _placed(params, cfg, mesh,
+                   lambda t, spec, cols: tp.shard_tensor(t, spec, mesh, cols))
+
+
+def gather_params(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """``shard_params``' inverse: the whole tree on every rank."""
+    if mesh is None:
+        return params
+    return _placed(params, cfg, mesh,
+                   lambda t, spec, cols: tp.gather_tensor(t, spec, mesh,
+                                                          cols))
 
 
 # ---------------------------------------------------------------------
@@ -347,6 +560,20 @@ def _leaves(params: Params) -> List[torch.Tensor]:
             + [leaf for b in params["blocks"] for leaf in block_leaves(b)])
 
 
+def leaf_placements(cfg: ModelConfig, mesh=None) -> list:
+    """``param_specs`` in ``_leaves`` order: (spec, columns_of) per leaf,
+    as ``tp.shard_tensor`` and ``tp.gather_tensor`` take them."""
+    specs = param_specs(cfg, mesh)
+
+    def block(node, name=None):
+        if isinstance(node, dict):
+            return [s for key in sorted(node) for s in block(node[key], key)]
+        return [(node, _qkv_columns(cfg) if name == "wqkv" else None)]
+
+    return ([(specs["embed"], None), (specs["final_norm"], None)]
+            + [s for b in specs["blocks"] for s in block(b)])
+
+
 @torch.no_grad()
 def sgd_step(params: Params, grads, lr: float) -> Params:
     """Plain SGD, ``p - lr * g`` for every leaf, IN PLACE: ``grads``
@@ -356,7 +583,19 @@ def sgd_step(params: Params, grads, lr: float) -> Params:
     return params
 
 
-def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
+def _mean_over(tensors, ax):
+    """Each tensor averaged over the ranks of ``ax`` (one flat fp32
+    all-reduce)."""
+    flat = tp.all_reduce(torch.cat([t.reshape(-1).float() for t in tensors]),
+                         ax) / ax.size
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
                     use_optax: bool = True, device="cuda"):
     """Returns (step_fn, init_state), with the reference's keywords.
 
@@ -375,10 +614,21 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
     its default implementation (``foreach`` on the card, the per-tensor
     loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
     ``n_experts > 0`` trains the MoE through autograd, its auxiliary
-    loss in the loss. ``seq_parallel`` is plain attention here: the
-    reference rides a ring only under a mesh with a ``seq`` axis, and
-    the port takes no mesh."""
+    loss in the loss.
+
+    With ``mesh`` every rank passes the same source; the state holds
+    this rank's shards (``shard_params``) and ``"mesh"`` and ``"cfg"``
+    entries (for ``models/checkpoint.py``), and
+    ``step_fn`` takes this rank's rows of the batch (``shard_batch``,
+    or ``data.input_pipeline(mesh=...)``). The gradients are averaged
+    over ('dcn', 'data') and the returned loss is the global batch's;
+    AdamW, elementwise, runs on the shards. ``seq_parallel`` is plain
+    attention: the reference rides a ring only under a mesh with a
+    'seq' axis, which raises here."""
     dev = resolve(device)
+    if mesh is not None:
+        _check_mesh(mesh)
+    shards = tp.shards_of(mesh)
 
     def init_state(source) -> Dict[str, Any]:
         if isinstance(source, torch.Generator):
@@ -392,6 +642,9 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
             params = {"embed": source["embed"].to(dev),
                       "final_norm": source["final_norm"].to(dev),
                       "blocks": [to_dev(b) for b in source["blocks"]]}
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
+            params = _place_leaves(params)
         for p in _leaves(params):
             p.requires_grad_(True)
         opt = None
@@ -399,13 +652,23 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
             opt = torch.optim.AdamW(
                 _leaves(params), lr=learning_rate, betas=(0.9, 0.999),
                 eps=1e-8, weight_decay=1e-4, amsgrad=False)
-        return {"params": params, "opt": opt}
+        state = {"params": params, "opt": opt}
+        if mesh is not None:
+            # what a checkpoint needs to gather the shards and to cut a
+            # whole state into them
+            state["mesh"], state["cfg"] = mesh, cfg
+        return state
 
     def step_fn(state, tokens):
         params = state["params"]
         leaves = _leaves(params)
-        loss = loss_fn(params, tokens, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        with tp.scope(shards):
+            loss = loss_fn(params, tokens, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if shards.data is not None:
+            grads = _mean_over(grads, shards.data)
+            loss = _mean_over([loss], shards.data)[0]
         if state["opt"] is None:
             sgd_step(params, grads, learning_rate)
         else:
@@ -414,9 +677,22 @@ def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-2,
             state["opt"].step()
             for p in leaves:
                 p.grad = None
-        return state, loss.detach()
+        return state, loss
 
     return step_fn, init_state
+
+
+def _place_leaves(params):
+    """Every leaf its own storage (a shard that is a view of the whole
+    tree would keep the whole tensor alive)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node.detach().clone()
+
+    return walk(params)
 
 
 def sample_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,

@@ -12,6 +12,7 @@ import os
 import signal
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -174,3 +175,48 @@ def test_batches_depend_on_seed_and_step_alone():
     assert torch.equal(batch(0, 3), batch(0, 3))
     assert not torch.equal(batch(0, 3), batch(0, 4))
     assert not torch.equal(batch(0, 3), batch(1, 3))
+
+
+# tests/test_checkpoint.py:113-160 on the port: kv heads divisible by a
+# model axis of 4
+MESH_CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=4,
+                           n_layers=2, d_ff=64, max_seq=16, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def meshed(tmp_path_factory):
+    import torch_parity
+    from kind_tpu_sim_torch.parallel import launch
+
+    root = tmp_path_factory.mktemp("meshed")
+    return launch.spawn(torch_parity.mesh_rank_checkpoint, 8, MESH_CFG,
+                        str(root), backend="gloo", timeout_s=150)
+
+
+def test_meshed_train_and_resume(meshed, tmp_path):
+    """The train / checkpoint / resume loop over a (data 2, model 4)
+    mesh: 2 steps, then a resume to 4, the losses those of the
+    unsharded loop."""
+    first, more = meshed[0], meshed[1]
+    assert set(first) == {0, 1} and set(more) == {2, 3}
+    _, plain = ckpt.train_with_checkpointing(
+        MESH_CFG, tmp_path, total_steps=4, checkpoint_every=2,
+        device="cpu")
+    for i, loss in {**first, **more}.items():
+        assert abs(loss - plain[i]) < 1e-4, (i, loss, plain[i])
+
+
+def test_cross_mesh_restore(meshed):
+    """A state sharded over (data 4, model 2) restores onto (data 2,
+    model 4), exactly: every parameter and AdamW moment, gathered, is
+    the saved one; wqkv holds a quarter of the heads."""
+    (params_a, moments_a), (params_b, moments_b) = meshed[2], meshed[3]
+    assert len(params_a) == len(params_b)
+    for a, b in zip(params_a, params_b):
+        np.testing.assert_array_equal(a, b)
+    assert moments_a.keys() == moments_b.keys()
+    for i in moments_a:
+        for name in moments_a[i]:
+            np.testing.assert_array_equal(moments_a[i][name],
+                                          moments_b[i][name])
+    assert meshed[4] == (32, 3 * 32 // 4)

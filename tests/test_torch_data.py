@@ -163,3 +163,25 @@ def test_smoke_training_matches_jax_through_the_pipeline():
         got.append(float(loss))
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
     assert np.mean(got[-5:]) < np.mean(got[:5])
+
+
+def test_pipeline_places_shards_on_mesh():
+    """tests/test_data.py:65-82 on the port: over training_mesh(4, 2)
+    (8 gloo ranks) each rank gets its 2 rows of the 8-row global batch
+    (the batch over 'data', replicated over 'model'), and the rows in
+    mesh order are the reference's batch."""
+    import torch_parity
+    from kind_tpu_sim_torch.parallel import launch
+
+    cfg = dataclasses.replace(CFG, max_seq=16) if CFG.max_seq != 16 else CFG
+    got = launch.spawn(torch_parity.mesh_rank_pipeline, 8, cfg, (4, 2),
+                       ("data", "model"), 8, 2, backend="gloo",
+                       timeout_s=120)
+    want = list(jdata.input_pipeline(jax_cfg(cfg), batch=8, steps=2))
+    assert {p.shape for p in got} == {(2, 2, cfg.max_seq)}
+    for step, w in enumerate(want):
+        rows = np.concatenate([got[2 * d][step] for d in range(4)])
+        np.testing.assert_array_equal(rows, np.asarray(w))
+        for d in range(4):  # the model axis holds the same rows
+            np.testing.assert_array_equal(got[2 * d][step],
+                                          got[2 * d + 1][step])

@@ -442,12 +442,26 @@ def test_unported_spec_windows_and_cache_prefix_raise(params, stream_prompts):
 
 
 def test_mesh_and_deadline_raise(params):
-    """A mesh still raises (a later slice); a deadline is served: a
-    request whose budget is spent before admission completes unserved,
-    with no tokens."""
-    with pytest.raises(ValueError, match="a mesh"):
-        pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
-                               device="cpu", mesh=object())
+    """A valid mesh serves: the engine over ('data', 2) on two gloo ranks
+    emits the unsharded engine's streams; an invalid one raises the
+    reference's guard (3 slots over a data axis of 2). A deadline is
+    served: a request whose budget is spent before admission completes
+    unserved, with no tokens."""
+    import torch_parity
+    from kind_tpu_sim_torch.parallel import launch
+
+    knobs = dict(max_slots=2, max_len=48, chunk=8)
+    reqs = [(f"m{i}", p, 6) for i, p in enumerate(
+        torch_parity.prompts(3, CFG.vocab_size, seed=4))]
+    meshed, bad = launch.spawn(
+        torch_parity.mesh_rank_serve, 2, torch_parity.tree_numpy(params[0]),
+        CFG, (2,), ("data",),
+        [dict(engine="ServingEngine", knobs=knobs, reqs=reqs),
+         dict(engine="ServingEngine", knobs=dict(knobs, max_slots=3),
+              reqs=[])], backend="gloo", timeout_s=120)
+    assert meshed[0] == torch_parity.serve_plain(params[1], CFG,
+                                                 "ServingEngine", knobs, reqs)
+    assert bad[0] == "raise" and "divisible" in bad[1]
     now = [0.0]
     eng = pserving.ServingEngine(params[1], CFG, pserving.ServingConfig(),
                                  device="cpu", clock=lambda: now[0])
