@@ -971,8 +971,8 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     """The flash backward's dq and dk/dv kernels at the training path's
     shape: q (8, 1024, 16, 128) over k/v (8, 1024, 4, 128) bf16, causal,
     q/k/v views of a fused qkv tensor, g random; plus a ragged causal
-    case (t = s = 200) and a non-causal one, all three on the
-    tensor-core route. Each case runs the chain training runs -- the
+    case (t = s = 200), a non-causal one and an odd length (8, 1023),
+    all on the tensor-core route. Each case runs the chain training runs -- the
     forward kernel's out and lse into the two backward kernels --
     against the plain chain in fp32 on the same bf16 inputs: the forward
     kernel's out and lse against the plain forward's (their worst error
@@ -985,14 +985,19 @@ def flash_bwd_phase(fa, fwd_row: dict) -> list:
     backward and the forward kernel timed at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     b, t, h, kv, d = 8, 1024, 16, 4, 128
-    cases = [("main (8,1024) causal", (b, t), True),
-             ("ragged (2,200) causal", (2, 200), True),
-             ("full (2,256)", (2, 256), False)]
+    cases = [("main (8,1024) causal", (b, t), True, gen),
+             ("ragged (2,200) causal", (2, 200), True, gen),
+             ("full (2,256)", (2, 256), False, gen),
+             # an odd length (a training forward over 1023 positions):
+             # the (b, h, t) lse and D rows start off 16-byte boundaries
+             ("odd (8,1023) causal", (b, t - 1), True,
+              torch.Generator(device="cuda").manual_seed(5))]
     worst = {"dq": 0.0, "dkv": 0.0}
     bwd = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
-    for name, (bb, tt), causal in cases:
-        q, k, v = _fused_qkv(gen, bb, tt, h, kv, d)
-        g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    for name, (bb, tt), causal, case_gen in cases:
+        q, k, v = _fused_qkv(case_gen, bb, tt, h, kv, d)
+        g = torch.randn(q.shape, generator=case_gen,
+                        device="cuda").bfloat16()
         zero_counts(fa.flash_attention, *bwd)
         out, lse = fa.flash_attention(q, k, v, causal=causal,
                                       return_lse=True)
@@ -4094,15 +4099,17 @@ def _train_rank(shape, names, n_experts: int, steps: int,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
 
 
-def _train_batches(tf, cfg, steps: int, batch: int):
+def _train_batches(tf, cfg, steps: int, batch: int, seq: int = 1025):
     gen = torch.Generator(device="cuda").manual_seed(1)
-    return [tf.sample_batch(gen, cfg, batch, 1025, device="cuda")
+    return [tf.sample_batch(gen, cfg, batch, seq, device="cuda")
             for _ in range(steps)]
 
 
-def _plain_train(tf, trainer, n_experts: int, steps: int, batch: int):
-    """The unsharded step on the same parameters and batches: (losses,
-    peak GiB above what this process held before the state was made)."""
+def _plain_train(tf, trainer, n_experts: int, steps: int, batch: int,
+                 seq: int = 1025):
+    """The unsharded step on the same parameters and batches (of
+    ``seq`` tokens): (losses, peak GiB above what this process held
+    before the state was made)."""
     cfg = dataclasses.replace(trainer.flagship_config(), n_experts=n_experts)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4111,7 +4118,7 @@ def _plain_train(tf, trainer, n_experts: int, steps: int, batch: int):
                                     device="cuda")
     state = init(torch.Generator(device="cuda").manual_seed(0))
     losses = []
-    for b in _train_batches(tf, cfg, steps, batch):
+    for b in _train_batches(tf, cfg, steps, batch, seq):
         state, loss = step(state, b)
         losses.append(float(loss))
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
@@ -4397,6 +4404,421 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 12: long context, pipeline, multi-host (gloo ranks sharing the
+# one card, as phase 11's). A ring step's K/V block and a pipeline
+# hand-off cross gloo through the host (gloo's send of a card's tensor
+# aborts the rank, phase 11); their times measure correctness, not
+# speed across cards.
+
+# the flagship's attention: batch 8, 1024 positions, 16 query heads over
+# 4 KV heads of 128
+RING_SHAPE = (8, 1024, 16, 4, 128)
+RING_WORLDS = (2, 4)
+RING_TOL = FLASH_TOL   # the ring keeps P in fp32; plain rounds it to bf16
+# the ring splits the whole sequence (the reference's ring loss runs the
+# full length), so its batches are 1024 tokens, which divide over 'seq'
+SEQ_LEN = 1024
+SEQ_TRAIN_STEPS = 3
+PIPELINE_MESHES = (((4,), ("stage",)), ((2, 2), ("data", "stage")))
+# the reference's slice smokes as a user runs them, and what its tests
+# assert of each (tests/test_multihost_slice.py, tests/test_profiling.py)
+SLICE_SMOKES = (
+    ("2x2x2 v4, 32768-token ring",
+     ("--topology", "2x2x2", "--accelerator", "tpu-v4-podslice",
+      "--ring-tokens", "32768"),
+     {"workers": 2, "process_count": 2, "local_devices": 4,
+      "global_devices": 8, "ring_tokens": 32768, "ring_devices": 8}),
+    ("v5e-16", ("--topology", "4x4", "--accelerator",
+                "tpu-v5-lite-podslice"),
+     {"workers": 2, "process_count": 2, "local_devices": 8,
+      "global_devices": 16, "psum_total": 8 * (1 + 2)}),
+    ("2x2 v5e with serving",
+     ("--topology", "2x2", "--accelerator", "tpu-v5-lite-podslice",
+      "--serving"),
+     {"workers": 1, "process_count": 1, "local_devices": 4,
+      "global_devices": 4}),
+    ("2 slices of 2x2x2 v4",
+     ("--num-slices", "2", "--topology", "2x2x2", "--accelerator",
+      "tpu-v4-podslice"),
+     {"workers": 4, "process_count": 2, "local_devices": 4,
+      "global_devices": 8}))
+SLICE_TIMEOUT_S = 600
+SLICE_SMOKES_AT_ONCE = 4
+
+
+def _cuda_sync_barrier() -> None:
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _ring_rank() -> dict:
+    """On every rank of a ('seq', n) world sharing the card: ring
+    attention at the flagship's attention shape (bf16, causal), both
+    orderings, against the port's plain attention over the whole
+    sequence; the wall of one call of each (median of 5, every rank
+    synchronised); with 4 ranks also ``bench_report``."""
+    import torch.distributed as dist
+
+    from kind_tpu_sim_torch.parallel import ring_attention as ra
+    from kind_tpu_sim_torch.parallel import tp
+    from kind_tpu_sim_torch.parallel.mesh import Mesh
+
+    n = dist.get_world_size()
+    mesh = Mesh((n,), ("seq",))
+    ax = tp.axis(mesh, "seq")
+    b, t, h, kv, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda")
+               .bfloat16() for heads in (h, kv, kv))
+    spec = (None, "seq", None, None)
+    with torch.no_grad():
+        want = tp.shard_tensor(ra.reference_attention(q, k, v), spec, mesh)
+        plain_ms = time_ms(lambda: ra.reference_attention(q, k, v), reps=5,
+                           warmup=1)
+    lq, lk, lv = (tp.shard_tensor(x, spec, mesh) for x in (q, k, v))
+    del q, k, v
+    out = {"plain_ms": plain_ms,
+           "rotation_bytes": 2 * b * (t // n) * kv * d * 2}
+    for name, db in (("double_buffered", True), ("serial", False)):
+        walls = []
+        with torch.no_grad():
+            for _ in range(6):
+                _cuda_sync_barrier()
+                t0 = time.perf_counter()
+                got = ra.ring_attention(lq, lk, lv, mesh, "seq",
+                                        double_buffer=db)
+                _cuda_sync_barrier()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        err = (got.float() - want.float()).abs().max()
+        out[name] = {"max_abs_err": float(tp.all_reduce(err[None], ax,
+                                                        "max")[0]),
+                     "wall_ms": float(np.median(walls[1:]))}
+    if n == 4:
+        out["bench_report"] = ra.bench_report()
+    return {"report": out, "ranks": _rank_reports(
+        {"peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
+
+
+def _seq_train_rank(steps: int, batch: int) -> dict:
+    """On the 2 ranks of ('seq', 2) sharing the card: ``steps`` AdamW
+    steps of the flagship with ``seq_parallel`` (the ring), each rank
+    feeding its columns of ``batch`` x 1024 tokens (seed 0 parameters,
+    seed 1 batches, as ``_plain_train``); then the dense config (flash,
+    no ring: attention over the gathered sequence) on the same mesh:
+    its first-batch logits against the unsharded forward on this rank,
+    and one train step, each with its flash launches."""
+    from kind_tpu_sim_torch import profile_train as trainer
+    from kind_tpu_sim_torch.ops import flash_attention as fa
+    from kind_tpu_sim_torch.parallel import mesh as mesh_lib
+    from kind_tpu_sim_torch.parallel import tp
+
+    tf = trainer.tf
+    mesh = mesh_lib.Mesh((2,), ("seq",))
+    ax = tp.axis(mesh, "seq")
+    dense = trainer.flagship_config()
+    ring = dataclasses.replace(dense, seq_parallel=True)
+    batches = _train_batches(tf, dense, steps, batch, SEQ_LEN)
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    step, init = tf.make_train_step(ring, mesh=mesh,
+                                    learning_rate=trainer.LEARNING_RATE,
+                                    device="cuda")
+    state = init(torch.Generator(device="cuda").manual_seed(0))
+    zero_counts(*kernels)
+    losses, walls = [], []
+    for tokens in batches:
+        _cuda_sync_barrier()
+        t0 = time.perf_counter()
+        state, loss = step(state, tf.shard_batch(tokens, mesh))
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["ring"] = {"losses": losses, "walls_ms": walls,
+                   "flash_launches": {k.__name__: k.launches
+                                      for k in kernels}}
+    ring_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, init
+    torch.cuda.empty_cache()
+
+    params = tf.init_params(dense, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    rows = tf.shard_batch(batches[0], mesh)
+    lo = ax.index * rows.shape[1]
+    zero_counts(*kernels)
+    with torch.no_grad():
+        got = tf.forward(params, rows, dense, mesh=mesh)
+        fwd_routes = dict(fa.flash_attention.launches_by_route)
+        want = tf.forward(params, batches[0], dense)[:, lo:lo + rows.shape[1]]
+    diff = tp.all_reduce((got - want).abs().max()[None], ax, "max")
+    big = tp.all_reduce(want.abs().max()[None], ax, "max")
+    del got, want
+    torch.cuda.empty_cache()
+    step, init = tf.make_train_step(dense, mesh=mesh,
+                                    learning_rate=trainer.LEARNING_RATE,
+                                    device="cuda")
+    state = init(params)
+    zero_counts(*kernels)
+    state, loss = step(state, rows)
+    out["gathered"] = {
+        "logits_diff": float(diff[0]), "logits_max": float(big[0]),
+        "forward_launches_by_route": fwd_routes,
+        "train_loss": float(loss),
+        "train_launches_by_route": {k.__name__: dict(k.launches_by_route)
+                                    for k in kernels}}
+    return {"report": out, "ranks": _rank_reports({
+        "ring_peak_gib": ring_peak,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
+
+
+def _pipeline_rank() -> dict:
+    """On 4 ranks sharing the card: the flagship's bf16 snapshot forward
+    over (8, 1024) tokens pipelined over ('stage', 4) and over ('data',
+    2, 'stage', 2), each against the unsharded forward on this rank,
+    with the flash forward's launches a rank (its microbatch shape)."""
+    from kind_tpu_sim_torch import profile_serving as flagship
+    from kind_tpu_sim_torch.models import transformer as tf
+    from kind_tpu_sim_torch.ops import flash_attention as fa
+    from kind_tpu_sim_torch.parallel import mesh as mesh_lib
+    from kind_tpu_sim_torch.parallel import pipeline, tp
+
+    cfg = flagship.flagship_config()
+    params = flagship.flagship_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, (8, SEQ_LEN), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        want = tf.forward(params, tokens, cfg)
+    out = {"logits_max": float(want.abs().max())}
+    for shape, names in PIPELINE_MESHES:
+        mesh = mesh_lib.Mesh(shape, names)
+        world = tp.axis(mesh, *names)
+        stages = mesh.shape["stage"]
+        stacked = pipeline.stack_stage_params(params, stages)
+        zero_counts(fa.flash_attention)
+        _cuda_sync_barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = pipeline.pipeline_forward(params, tokens, cfg, mesh,
+                                            stacked_params=stacked)
+        _cuda_sync_barrier()
+        wall = (time.perf_counter() - t0) * 1e3
+        routes = dict(fa.flash_attention.launches_by_route)
+        diff = tp.all_reduce((got - want).abs().max()[None], world, "max")
+        micro = stages
+        out[str(dict(mesh.shape))] = {
+            "logits_diff": float(diff[0]), "wall_ms": wall,
+            "microbatch": [8 // micro // mesh.shape.get("data", 1), SEQ_LEN],
+            "expected_launches": (micro + stages - 1)
+            * cfg.n_layers // stages,
+            "ranks": _rank_reports(routes)}
+        del got, stacked
+    return {"report": out, "ranks": _rank_reports(
+        {"peak_gib": torch.cuda.max_memory_allocated() / 2**30})}
+
+
+def _slice_smoke_cli(argv) -> dict:
+    """``python -m kind_tpu_sim_torch slice-smoke ... --json`` on the
+    card, as a user runs it: its report and wall time."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "kind_tpu_sim_torch", "slice-smoke", *argv,
+         "--json", "--device", "cuda"], cwd=HERE, capture_output=True,
+        text=True, timeout=SLICE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode not in (0, 1) or not lines:
+        fail(f"slice-smoke {' '.join(argv)} exited {res.returncode}:\n"
+             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return {"rc": res.returncode, "wall_s": wall,
+            "report": json.loads(lines[-1])}
+
+
+def _hold_slice(label: str, res: dict, want: dict) -> None:
+    rep = res["report"]
+    workers = rep["workers"]
+    log(f"slice-smoke {label}: rc {res['rc']}, {res['wall_s']:.1f} s; "
+        f"{json.dumps(rep)[:3000]}")
+    check(res["rc"] == 0 and rep["ok"], f"slice-smoke {label} not ok")
+    check(len(workers) == want["workers"],
+          f"slice-smoke {label}: {len(workers)} workers")
+    for i, w in enumerate(workers):
+        check(w["ok"], f"slice-smoke {label}: worker {i} {w}")
+        check(w["process_index"] == i % w["process_count"],
+              f"slice-smoke {label}: worker {i} index {w['process_index']}")
+        for key, value in want.items():
+            if key != "workers":
+                check(w[key] == value,
+                      f"slice-smoke {label}: worker {i} {key} {w[key]}")
+        if "ring_tokens" in want:
+            check(w["ring_ok"] and w["ring_max_rel_err"] < 1e-5,
+                  f"slice-smoke {label}: ring {w}")
+        if "slice" in w:
+            check(w["megascale_slice_id"] == str(w["slice"])
+                  and w["megascale_num_slices"] == "2",
+                  f"slice-smoke {label}: megascale identity {w}")
+    if "serving" in rep:
+        check(rep["serving"]["ok"] and rep["speculative"]["ok"]
+              and rep["serving"]["engines"]["ok"],
+              f"slice-smoke {label}: serving reports")
+
+
+def _host_used() -> int:
+    """The host memory in use (MemTotal - MemAvailable), bytes."""
+    info = dict(line.split(":", 1) for line in
+                Path("/proc/meminfo").read_text().splitlines())
+    return 1024 * (int(info["MemTotal"].split()[0])
+                   - int(info["MemAvailable"].split()[0]))
+
+
+class _MemoryPeak:
+    """The card's memory in use by every process (``mem_get_info``) and
+    the host's, their peaks sampled every 0.2 s while the block runs."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self.host_peak = 0, 0
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.2):
+                free, total = torch.cuda.mem_get_info()
+                self.peak = max(self.peak, total - free)
+                self.host_peak = max(self.host_peak, _host_used())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def long_context_phase(trainer, tf, fa) -> dict:
+    """(a) ring attention at the flagship's attention shape over ('seq',
+    2) and ('seq', 4), both orderings, against plain attention, and
+    ``bench_report`` on 4 ranks; (d) the four slice smokes through the
+    CLI; then (b) 3 ring training steps of the flagship at ('seq', 2)
+    against unsharded steps on the same batches, and the dense config
+    on the same mesh (gathered attention: logits and one step); (c) the
+    flagship forward pipelined over ('stage', 4) and ('data', 2,
+    'stage', 2). Independent worlds run at once, in two waves; the
+    card's peak memory over all processes is sampled in each."""
+    from kind_tpu_sim_torch.parallel import launch
+
+    out = {}
+
+    def world(fn, n, *args):
+        return launch.spawn(fn, n, *args, backend="gloo", device="cuda",
+                            timeout_s=PARALLEL_TIMEOUT_S)
+
+    t_part = time.perf_counter()
+    # every rank is a process holding a CUDA context (host memory too):
+    # the slice smokes run SLICE_SMOKES_AT_ONCE at a time beside the ring
+    with _MemoryPeak() as mem, ThreadPoolExecutor(
+            len(RING_WORLDS)) as pool, ThreadPoolExecutor(
+            SLICE_SMOKES_AT_ONCE) as smoke_pool:
+        rings = [pool.submit(world, _ring_rank, n) for n in RING_WORLDS]
+        smokes = [smoke_pool.submit(_slice_smoke_cli, argv)
+                  for _, argv, _ in SLICE_SMOKES]
+        rings = [f.result() for f in rings]
+        smokes = [f.result() for f in smokes]
+    out["wave1_s"] = time.perf_counter() - t_part
+    out["wave1_peak_gib"] = mem.peak / 2**30
+    out["wave1_host_peak_gib"] = mem.host_peak / 2**30
+    log(f"phase 12 wave 1 (ring worlds of {RING_WORLDS}, the slice smokes "
+        f"{SLICE_SMOKES_AT_ONCE} at a time): {out['wave1_s']:.1f} s, the "
+        f"card's peak {out['wave1_peak_gib']:.2f} GiB over every process, "
+        f"the host's {out['wave1_host_peak_gib']:.2f} GiB")
+    out["ring"] = {}
+    for n, res in zip(RING_WORLDS, rings):
+        rep = res["report"]
+        for name in ("double_buffered", "serial"):
+            err = rep[name]["max_abs_err"]
+            log(f"ring attention ('seq', {n}) {name} at {RING_SHAPE} bf16 "
+                f"causal: max_abs_err {err:.3e} against plain attention "
+                f"(bar {RING_TOL}); wall {rep[name]['wall_ms']:.2f} ms a "
+                f"call against plain {rep['plain_ms']:.2f} ms on one rank; "
+                f"{rep['rotation_bytes']} bytes a rotation")
+            check(math.isfinite(err) and err <= RING_TOL,
+                  f"ring attention ('seq', {n}) {name}: {err}")
+        if "bench_report" in rep:
+            log(f"ring bench_report ('seq', 4): {rep['bench_report']}")
+        out["ring"][n] = {**rep, "ranks": res["ranks"]}
+    out["slice_smoke"] = {}
+    for (label, _, want), res in zip(SLICE_SMOKES, smokes):
+        _hold_slice(label, res, want)
+        out["slice_smoke"][label] = {"wall_s": res["wall_s"]}
+
+    t_part = time.perf_counter()
+    batch = trainer.BATCH
+    with _MemoryPeak() as mem, ThreadPoolExecutor(2) as pool:
+        seq = pool.submit(world, _seq_train_rank, 2, SEQ_TRAIN_STEPS, batch)
+        pipe = pool.submit(world, _pipeline_rank, 4)
+        plain, plain_peak = _plain_train(tf, trainer, 0, SEQ_TRAIN_STEPS,
+                                         batch, SEQ_LEN)
+        seq, pipe = seq.result(), pipe.result()
+    out["wave2_s"] = time.perf_counter() - t_part
+    out["wave2_peak_gib"] = mem.peak / 2**30
+    out["wave2_host_peak_gib"] = mem.host_peak / 2**30
+    log(f"phase 12 wave 2 (seq training, pipeline and unsharded steps at "
+        f"once): {out['wave2_s']:.1f} s, the card's peak "
+        f"{out['wave2_peak_gib']:.2f} GiB over every process, the host's "
+        f"{out['wave2_host_peak_gib']:.2f} GiB")
+    rep = seq["report"]
+    gap = _hold_losses("sequence-parallel training ('seq', 2)",
+                       rep["ring"]["losses"], plain)
+    log(f"sequence-parallel training ('seq', 2): step walls "
+        f"{rep['ring']['walls_ms']} ms, per rank {seq['ranks']}; unsharded "
+        f"peak {plain_peak:.2f} GiB; flash launches {rep['ring']['flash_launches']}")
+    check(all(n == 0 for n in rep["ring"]["flash_launches"].values()),
+          "the ring's train step launched a flash kernel")
+    g = rep["gathered"]
+    rel = g["logits_diff"] / g["logits_max"]
+    log(f"gathered attention ('seq', 2), dense config: logits' largest "
+        f"difference {g['logits_diff']:.4e} ({rel:.3e} of the largest; bar "
+        f"{TP_LOGITS_REL_TOL:.1e}); forward launches "
+        f"{g['forward_launches_by_route']}; one train step loss "
+        f"{g['train_loss']} against unsharded {plain[0]}, launches "
+        f"{g['train_launches_by_route']}")
+    check(rel <= TP_LOGITS_REL_TOL, f"gathered attention logits {rel}")
+    _hold_losses("gathered attention train step", [g["train_loss"]],
+                 plain[:1])
+    check(g["forward_launches_by_route"] == {"tensor_cores": 8,
+                                             "cuda_cores": 0},
+          f"gathered forward launches {g['forward_launches_by_route']}")
+    for name, routes in g["train_launches_by_route"].items():
+        check(routes == {"tensor_cores": 8, "cuda_cores": 0},
+              f"gathered train step {name} {routes}")
+    out["seq_train"] = {"gap": gap, "losses": rep["ring"]["losses"],
+                        "unsharded": plain, "unsharded_peak_gib": plain_peak,
+                        "ranks": seq["ranks"], "gathered": g,
+                        "gathered_rel": rel}
+    rep = pipe["report"]
+    out["pipeline"] = {"ranks": pipe["ranks"]}
+    for key, x in rep.items():
+        if key == "logits_max":
+            continue
+        rel = x["logits_diff"] / rep["logits_max"]
+        log(f"pipeline {key}: logits' largest difference "
+            f"{x['logits_diff']:.4e} ({rel:.3e} of the largest; bar "
+            f"{TP_LOGITS_REL_TOL:.1e}); wall {x['wall_ms']:.1f} ms; flash "
+            f"launches a rank {x['ranks']} at microbatch {x['microbatch']} "
+            f"(want {x['expected_launches']} each)")
+        check(rel <= TP_LOGITS_REL_TOL, f"pipeline {key}: logits {rel}")
+        for r in x["ranks"]:
+            check(r == {"tensor_cores": x["expected_launches"],
+                        "cuda_cores": 0},
+                  f"pipeline {key}: flash launches {r}")
+        out["pipeline"][key] = {**x, "rel": rel}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -4474,6 +4896,8 @@ def main() -> int:
     parallel = phase("11 parallel", parallel_phase, flagship, trainer,
                      serving, tf, fa, pa, im, sp, cfg, streams)
     del sp
+    long_ctx = phase("12 long context, pipeline, multi-host",
+                     long_context_phase, trainer, tf, fa)
     phase("5 small train", small_train_phase, tf, fa)
     phase("5 small MoE train", small_moe_train_phase, tf, fa)
     train_launches, train_plain = phase("6 train", train_phase, trainer, fa)
@@ -4510,6 +4934,19 @@ def main() -> int:
             k["sharded_shapes"] = {key: x[kind] for key, x in sharded.items()
                                    if kind in x}
     int8_row["sharded_shapes"] = sharded["int8 cache kv 2"]
+    # phase 12: the flash forward a pipeline stage runs at its microbatch
+    # shape, and the kernels of attention over the gathered sequence
+    gathered = long_ctx["seq_train"]["gathered"]
+    flash_row["pipeline_launches_by_route"] = {
+        key: x["ranks"] for key, x in long_ctx["pipeline"].items()
+        if key != "ranks"}
+    flash_row["seq_gathered_launches_by_route"] = {
+        "forward": gathered["forward_launches_by_route"],
+        "train_step": gathered["train_launches_by_route"]["flash_attention"]}
+    for k in kernels:
+        if k["name"] in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            k["seq_gathered_launches_by_route"] = (
+                gathered["train_launches_by_route"][k["name"]])
     kernels.append(int8_row)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -36,8 +36,10 @@
 //   FlashAttention-3 form: one consumer warpgroup and one producer warp.
 //   TMA brings the K and V tiles in once, then, for each q head of the
 //   GQA group and each q tile of 64 rows from the causal start, the Q
-//   and dO tiles and their lse and D rows (1D maps over the flat
-//   (b, h, t) fp32 arrays) through a 2-stage ring. S^T = K Q^T and
+//   and dO tiles through a 2-stage ring, beside their lse and D rows,
+//   which the producer warp's 32 lanes copy from the flat (b, h, t) fp32
+//   arrays (a TMA copy needs each row's start on a 16-byte boundary,
+//   which an odd t breaks: the copy then never completes). S^T = K Q^T and
 //   dP^T = V dO^T put the kv rows on wgmma's M dimension, so P^T and
 //   dS^T come out of the accumulators as register A fragments for
 //   dV += P^T dO and dK += dS^T Q, which read dO and Q MN-major. The
@@ -338,8 +340,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const __grid_constant__ CUtensorMap map_g,
-                        const __grid_constant__ CUtensorMap map_lse,
-                        const __grid_constant__ CUtensorMap map_dsum,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int b, int t, int s,
                         int h, int kv, int d, Strides dks, Strides dvs,
@@ -383,8 +385,12 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (warp == 4) {
     // producer: K and V once, then per (q head, q tile) Q with its lse
-    // rows and dO with its D rows through the ring
-    if (threadIdx.x % 32 == 0) {
+    // rows and dO with its D rows through the ring; lane 0 issues the
+    // TMA copies, the warp's lanes copy the lse and D rows (rows at or
+    // past t read 0: they are masked) before lane 0's arrivals release
+    // them
+    const int plane = threadIdx.x % 32;
+    if (plane == 0) {
       hopper::mbar_arrive_expect_tx(&kv_full, 2 * S::TILE_BYTES);
 #pragma unroll
       for (int c = 0; c < S::CHUNKS; ++c) {
@@ -393,26 +399,33 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::tma_load_4d(v_s + c * TILE * 128, &map_v, &kv_full, 64 * c,
                             kvh, k0, bi);
       }
-      for (int it = 0; it < n_it; ++it) {
-        const int hq = kvh * group + it / n_live;
-        const int q0 = (q_first + it % n_live) * TILE;
-        const int row0 = (bi * h + hq) * t + q0;  // into the (b, h, t) rows
-        const int st = it % STAGES;
-        if (it >= STAGES) hopper::mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int hq = kvh * group + it / n_live;
+      const int q0 = (q_first + it % n_live) * TILE;
+      // into the (b, h, t) rows
+      const long long row0 = ((long long)bi * h + hq) * t + q0;
+      const int st = it % STAGES;
+      if (it >= STAGES) hopper::mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+      for (int r = plane; r < TILE; r += 32) {
+        const bool live = q0 + r < t;
+        lse_s[st * TILE + r] = live ? lse[row0 + r] : 0.f;
+        d_s[st * TILE + r] = live ? dsum[row0 + r] : 0.f;
+      }
+      __syncwarp();
+      if (plane == 0) {
         uint8_t* qt = q_s + st * S::TILE_BYTES;
         uint8_t* gt = g_s + st * S::TILE_BYTES;
-        hopper::mbar_arrive_expect_tx(&q_full[st], S::TILE_BYTES + TILE * 4);
+        hopper::mbar_arrive_expect_tx(&q_full[st], S::TILE_BYTES);
 #pragma unroll
         for (int c = 0; c < S::CHUNKS; ++c)
           hopper::tma_load_4d(qt + c * TILE * 128, &map_q, &q_full[st],
                               64 * c, hq, q0, bi);
-        hopper::tma_load_1d(lse_s + st * TILE, &map_lse, &q_full[st], row0);
-        hopper::mbar_arrive_expect_tx(&g_full[st], S::TILE_BYTES + TILE * 4);
+        hopper::mbar_arrive_expect_tx(&g_full[st], S::TILE_BYTES);
 #pragma unroll
         for (int c = 0; c < S::CHUNKS; ++c)
           hopper::tma_load_4d(gt + c * TILE * 128, &map_g, &g_full[st],
                               64 * c, hq, q0, bi);
-        hopper::tma_load_1d(d_s + st * TILE, &map_dsum, &g_full[st], row0);
       }
     }
     return;
@@ -585,14 +598,11 @@ int launch_dq(const Args& a) {
 template <int DPAD>
 int launch_dkv(const Args& a) {
   using S = Shape<DPAD>;
-  CUtensorMap map_q, map_k, map_v, map_g, map_lse, map_dsum;
-  const cuuint64_t rows = (cuuint64_t)a.b * a.h * a.t;
+  CUtensorMap map_q, map_k, map_v, map_g;
   int err = encode(&map_q, a.q, a, a.h, a.t, a.qs);
   if (!err) err = encode(&map_g, a.g, a, a.h, a.t, a.gs);
   if (!err) err = encode(&map_k, a.k, a, a.kv, a.s, a.ks);
   if (!err) err = encode(&map_v, a.v, a, a.kv, a.s, a.vs);
-  if (!err) err = hopper::encode_f32_1d(&map_lse, a.lse, rows, TILE);
-  if (!err) err = hopper::encode_f32_1d(&map_dsum, a.dsum, rows, TILE);
   if (err) return err;
   static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
   err = hopper::allow_smem((const void*)flash_bwd_dkv_tc_kernel<DPAD>,
@@ -603,7 +613,8 @@ int launch_dkv(const Args& a) {
                     &blocks);
   if (err) return err;
   flash_bwd_dkv_tc_kernel<DPAD><<<blocks, THREADS, S::DKV_SMEM, a.stream>>>(
-      map_q, map_k, map_v, map_g, map_lse, map_dsum,
+      map_q, map_k, map_v, map_g, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.dsum),
       static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1),
       a.b, a.t, a.s, a.h, a.kv, a.d, a.os0, a.os1, a.scale, a.causal);
   return (int)cudaGetLastError();

@@ -111,15 +111,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -403,15 +394,6 @@ inline int encode_u8_sw128(CUtensorMap* map, const void* base, int rank,
 
 // a flat fp32 array of n elements read in boxes of `box` (a multiple of
 // 4, at most 256), unswizzled
-inline int encode_f32_1d(CUtensorMap* map, const void* base, cuuint64_t n,
-                         cuuint32_t box) {
-  const cuuint64_t dims[1] = {n};
-  const cuuint64_t no_strides[1] = {0};
-  const cuuint32_t boxes[1] = {box};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 1, dims,
-                      no_strides, boxes, CU_TENSOR_MAP_SWIZZLE_NONE);
-}
-
 // a stride of a size-1 axis is never followed: give TMA a valid one
 inline cuuint64_t tma_stride(long long elems, int size, cuuint64_t fallback) {
   return size == 1 ? fallback : (cuuint64_t)elems * 2;

@@ -18,9 +18,11 @@ Over a mesh (``moe_param_specs``) each rank holds the experts of its
 slice of the 'expert' axis (else 'model'); the tokens are replicated
 over that axis, each rank runs its own experts and the combine is
 summed over it (``parallel.tp``). While the tokens of the call are
-split over data ranks, routing keeps the global batch's semantics, as
-GSPMD's does: capacity from the global token count, each token's queue
-position continued from the lower ranks' counts, the auxiliary loss's
+split over data ranks (rows) and 'seq' ranks (columns), routing keeps
+the global batch's semantics, as GSPMD's does: capacity from the global
+token count, each token's queue position that of the flattened global
+(batch, seq) order (after every token of the rows before its row, and
+after its row's tokens on the lower 'seq' ranks), the auxiliary loss's
 means over every token.
 """
 
@@ -68,16 +70,55 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     its expert's queue is the running count of earlier tokens sent
     there; the expert products run in the activation dtype, with the
     tanh form of GELU (``transformer._gelu``). Under a scope with an
-    expert axis ``mparams`` holds this rank's experts; with a data axis
-    ``x`` is this rank's part of the call's tokens."""
+    expert axis ``mparams`` holds this rank's experts; with a data or
+    'seq' axis ``x`` is this rank's block of the call's tokens (with
+    ``seq_tokens`` set, the positions past it are not routed: their
+    output is zero)."""
+    shards = tp.current()
+    b, t, d = x.shape
+    seq = shards.seq
+    if seq is not None and shards.seq_tokens:
+        kept = min(t, max(0, shards.seq_tokens - seq.index * t))
+        if kept < t:
+            out, aux = _route(x[:, :kept], mparams, moe, shards)
+            return torch.cat([out, x.new_zeros(b, t - kept, d)], 1), aux
+    return _route(x, mparams, moe, shards)
+
+
+def _queue(onehot, b: int, t: int, group, seq):
+    """Each token's place in its expert's queue, counting from 1, in
+    the flattened global (batch, seq) order: the local running count
+    along the row plus the tokens of earlier rows and of the same
+    row's lower 'seq' ranks, from every rank's per-row counts."""
+    if group is None:
+        return torch.cumsum(onehot, dim=0)
+    e = onehot.shape[-1]
+    rows = onehot.reshape(b, t, e)
+    queue = torch.cumsum(rows, dim=1)
+    n_seq = 1 if seq is None else seq.size
+    counts = tp.all_gather(rows.sum(dim=1)[None], group, 0).reshape(
+        group.size // n_seq, n_seq, b, e)
+    per_row = counts.sum(dim=1).reshape(-1, e)    # global rows in order
+    before = torch.cumsum(per_row, dim=0) - per_row
+    d_i, s_i = divmod(group.index, n_seq)
+    offset = before[d_i * b:(d_i + 1) * b] + counts[d_i, :s_i].sum(dim=0)
+    return (queue + offset[:, None]).reshape(-1, e)
+
+
+def _route(x, mparams, moe: MoeConfig, shards):
     from kind_tpu_sim_torch.models.transformer import _gelu
 
-    shards = tp.current()
-    data, ex = shards.data, shards.expert
+    group, seq, ex = shards.token_group(), shards.seq, shards.expert
     b, t, d = x.shape
     s = b * t
     e = moe.n_experts
-    total = s * (1 if data is None else data.size)
+    if group is None:
+        total = s
+    elif seq is None:
+        total = s * group.size
+    else:
+        total = (group.size // seq.size) * b * (shards.seq_tokens
+                                                or t * seq.size)
     capacity = max(1, int(moe.capacity_factor * total / e))
 
     tokens = x.reshape(s, d)
@@ -87,12 +128,7 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     gate = probs.amax(dim=-1)                                # (s,)
 
     onehot = F.one_hot(expert_idx, e).float()                # (s, e)
-    queue = torch.cumsum(onehot, dim=0)
-    if data is not None:
-        # the lower data ranks' tokens queue first
-        counts = tp.all_gather(onehot.sum(dim=0)[None], data, 0)
-        queue = queue + counts[:data.index].sum(dim=0)
-    position = queue * onehot - 1.0                          # (s, e)
+    position = _queue(onehot, b, t, group, seq) * onehot - 1.0  # (s, e)
     keep = (position < capacity) & (onehot > 0)
     position = torch.where(keep, position, 0.0).long()
     pos_onehot = F.one_hot(position.amax(dim=-1), capacity).float()
@@ -118,12 +154,12 @@ def moe_mlp(x, mparams, moe: MoeConfig) -> Tuple[Any, Any]:
     out = tp.reduce_out(torch.einsum("sec,ecd->sd", combine, expert_out), ex)
 
     # load-balancing loss (Switch eq. 4): E * sum_e f_e * P_e
-    if data is None:
+    if group is None:
         fraction = onehot.mean(dim=0)
         router_prob = probs.mean(dim=0)
     else:
-        fraction = tp.all_reduce(onehot.sum(dim=0), data) / total
-        router_prob = tp.sum_across(probs.sum(dim=0), data) / total
+        fraction = tp.all_reduce(onehot.sum(dim=0), group) / total
+        router_prob = tp.sum_across(probs.sum(dim=0), group) / total
     aux = moe.aux_loss_weight * e * torch.sum(fraction * router_prob)
     return out.reshape(b, t, d).to(x.dtype), aux
 

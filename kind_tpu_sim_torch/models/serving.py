@@ -114,7 +114,6 @@ from kind_tpu_sim_torch.models.transformer import (
     ModelConfig,
     Params,
     _block_core,
-    _check_mesh,
     _readout,
     _rms_norm,
     shard_params,
@@ -511,7 +510,6 @@ def _check_slice(cfg: ModelConfig, serving: ServingConfig, mesh) -> None:
     rejection fires before the weights are sharded, as the reference's
     do before its weight transfer."""
     if mesh is not None:
-        _check_mesh(mesh)
         if serving.paged_kernel:
             raise ValueError(
                 "the paged-attention kernel tier does not partition under "

@@ -20,10 +20,15 @@ tree (``param_specs``, ``shard_params``): Megatron tensor parallelism
 over 'model' (wqkv by heads and w_up column-parallel, wo and w_down
 row-parallel, the embedding and the tied readout split over the
 vocabulary, norms replicated), an MoE's experts over 'expert' (else
-'model'), the batch over ('dcn', 'data') (``batch_spec``). The model
-functions read the split from ``parallel.tp``'s scope; ``forward``,
-``loss_fn`` and ``make_train_step`` take ``mesh`` where the reference
-does. A 'seq' axis longer than 1 (ring attention) is not ported.
+'model'), the batch over ('dcn', 'data') and the sequence over 'seq'
+(``batch_spec``). The model functions read the split from
+``parallel.tp``'s scope; ``forward``, ``loss_fn`` and
+``make_train_step`` take ``mesh`` where the reference does. Over a
+'seq' axis longer than 1 each rank holds its columns of every row, at
+their global positions: with ``seq_parallel`` attention rides the ring
+(``parallel/ring_attention.py``, the reference's ``_use_ring``);
+without it each rank attends over the sequence gathered along 'seq'
+(plain or flash), what GSPMD gives the reference.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ class ModelConfig:
     flash: bool = False           # flash-attention kernel in prefill
     int8_kv: bool = False         # int8 KV cache (serving)
     int8_native: bool = False     # W8A8: exact int8 x int8 -> int32 products
-    seq_parallel: bool = False    # ring attention; no mesh: plain
+    seq_parallel: bool = False    # ring attention over 'seq'; else plain
 
     @property
     def head_dim(self) -> int:
@@ -298,19 +303,36 @@ def _block_core(x, bparams, cfg: ModelConfig, positions,
     q, k, v = _split_qkv(qkv, cfg, b, t)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
-    if cfg.flash:
-        # the hand-written flash kernel (ops/flash_attention.py): no
-        # (t, t) score matrix in device memory
-        from kind_tpu_sim_torch.ops.flash_attention import flash_attention
+    seq = tp.current().seq
+    if seq is not None and cfg.seq_parallel:
+        # sequence-parallel long context: the K/V blocks ride the ring
+        from kind_tpu_sim_torch.parallel.ring_attention import (
+            ring_attention_shard)
 
-        attn = flash_attention(q, k, v, causal=True)
+        attn = ring_attention_shard(q, k, v, seq, causal=True)
+    elif seq is not None:
+        # the sequence gathered along 'seq', this rank's positions kept
+        lo = seq.index * t
+        attn = _attend(*(tp.gather_dim(x, seq, 1) for x in (q, k, v)),
+                       cfg)[:, lo:lo + t]
     else:
-        attn = _attention(q, k, v)
+        attn = _attend(q, k, v, cfg)
     attn = attn.reshape(b, t, -1)
     x = x + linear(attn, bparams["wo"], native=native, parallel="row")
     out, aux = _mlp(_rms_norm(x, bparams["mlp_norm"]), bparams, cfg,
                     moe_route)
     return x + out, aux, k, v
+
+
+def _attend(q, k, v, cfg: ModelConfig):
+    """Causal attention over the whole of q, k, v: the hand-written
+    flash kernel (ops/flash_attention.py, no (t, t) score matrix in
+    device memory) with ``cfg.flash``, else plain."""
+    if cfg.flash:
+        from kind_tpu_sim_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True)
+    return _attention(q, k, v)
 
 
 def _block(x, bparams, cfg: ModelConfig, positions):
@@ -339,10 +361,12 @@ def _forward(params: Params, tokens, cfg: ModelConfig, whole: bool = True):
     from kind_tpu_sim_torch.models.quant import embed_lookup
 
     b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    shards = tp.current()
+    first = 0 if shards.seq is None else shards.seq.index * t
+    positions = torch.arange(first, first + t,
+                             device=tokens.device).expand(b, t)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
     aux_total = 0.0
-    shards = tp.current()
     for bparams in params["blocks"]:
         if cfg.remat:
             x, aux = torch.utils.checkpoint.checkpoint(
@@ -366,11 +390,9 @@ def forward(params: Params, tokens, cfg: ModelConfig,
     the block's forward again instead of keeping its activations.
 
     With ``mesh`` the parameters are this rank's shards
-    (``shard_params``) and ``tokens`` its rows of the batch
-    (``shard_batch``); the logits are this rank's rows over the whole
-    vocabulary."""
-    if mesh is not None:
-        _check_mesh(mesh)
+    (``shard_params``) and ``tokens`` its block of the batch
+    (``shard_batch``: its rows, and its columns over 'seq'); the logits
+    are that block over the whole vocabulary."""
     with _mesh_scope(mesh):
         logits, aux = _forward(params, tokens, cfg)
     return (logits, aux) if return_aux else logits
@@ -392,39 +414,60 @@ def _vocab_parallel_nll(logits, targets, ax):
     return torch.log(sumexp) - picked
 
 
+def _nll(logits, targets):
+    """Per-position -log softmax(logits)[target] in fp32 (vocab-parallel
+    inside a tensor-parallel scope)."""
+    ax = tp.current().model
+    if ax is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return _vocab_parallel_nll(logits.float(), targets, ax)
+
+
 def loss_fn(params: Params, tokens, cfg: ModelConfig, mesh=None):
     """Next-token cross-entropy: the forward over ``tokens[:, :-1]``,
     log-softmax in fp32, mean negative log-likelihood of
     ``tokens[:, 1:]``, plus the MoE auxiliary loss. With ``mesh`` (or
-    inside a tensor-parallel scope) the log-softmax is vocab-parallel
-    and the mean is over this rank's rows."""
-    if mesh is not None:
-        _check_mesh(mesh)
+    inside a tensor-parallel scope) the log-softmax is vocab-parallel;
+    each rank's loss is its share of the global mean, which is the mean
+    of the ranks' losses over ``Shards.token_group()`` (over data ranks
+    alone: the mean over this rank's rows)."""
     with _mesh_scope(mesh):
+        if tp.current().seq is not None:
+            return _seq_loss(params, tokens, cfg)
         logits, aux = _forward(params, tokens[:, :-1], cfg, whole=False)
-        ax = tp.current().model
-        targets = tokens[:, 1:]
-        if ax is None:
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            picked = torch.gather(logp, -1, targets[..., None])[..., 0]
-            return -picked.mean() + aux
-        return _vocab_parallel_nll(logits.float(), targets, ax).mean() + aux
+        return _nll(logits, tokens[:, 1:]).mean() + aux
+
+
+def _seq_loss(params: Params, tokens, cfg: ModelConfig):
+    """``loss_fn`` with the sequence split over 'seq': the forward runs
+    over this rank's whole block and the last global position's logit
+    is dropped (identical logits under the causal mask; the
+    reference's ring loss). The target of a rank's last column is the
+    next rank's first token. With the ring the MoE routes every
+    position, the final one too, as the reference's ring does; without
+    it the final position is left out of routing, as the reference's
+    forward over ``tokens[:, :-1]`` leaves it."""
+    shards = tp.current()
+    seq, group = shards.seq, shards.token_group()
+    b, t = tokens.shape
+    total = t * seq.size
+    scope = shards if cfg.seq_parallel else shards._replace(
+        seq_tokens=total - 1)
+    with tp.scope(scope):
+        logits, aux = _forward(params, tokens, cfg, whole=False)
+    firsts = tp.all_gather(tokens[:, :1], seq, 1)
+    targets = torch.cat(
+        [tokens[:, 1:], firsts[:, (seq.index + 1) % seq.size, None]], dim=1)
+    nll = _nll(logits, targets)
+    if seq.index == seq.size - 1:
+        nll = nll[:, :-1]
+    positions = b * (group.size // seq.size) * (total - 1)
+    return nll.sum() * (group.size / positions) + aux
 
 
 # ---------------------------------------------------------------------
 # sharding
-
-
-def _check_mesh(mesh) -> None:
-    """A mesh the port runs: a 'seq' axis longer than 1 is ring
-    attention, which is not ported; it raises rather than running the
-    sequence split some other way."""
-    if mesh.shape.get("seq", 1) > 1:
-        raise ValueError(
-            f"a mesh with a 'seq' axis of {mesh.shape['seq']}: sequence "
-            "parallelism is ring attention (the reference's "
-            "parallel/ring_attention.py), not ported to "
-            "kind_tpu_sim_torch")
 
 
 def param_specs(cfg: ModelConfig, mesh=None):
@@ -475,14 +518,17 @@ def batch_spec(mesh=None):
 
 
 def shard_batch(tokens, mesh):
-    """This rank's rows of a global batch, as ``batch_spec`` places
-    them."""
+    """This rank's block of a global batch, as ``batch_spec`` places
+    it: its rows, and its columns over a 'seq' axis."""
     if mesh is None:
         return tokens
-    _check_mesh(mesh)
     lo, hi = tp.split_rows(tokens.shape[0],
                            tp.axis(mesh, "dcn", "data"))
-    return tokens[lo:hi]
+    tokens = tokens[lo:hi]
+    if mesh.shape.get("seq", 1) > 1:
+        lo, hi = tp.split_rows(tokens.shape[1], tp.axis(mesh, "seq"))
+        tokens = tokens[:, lo:hi]
+    return tokens
 
 
 def _qkv_columns(cfg: ModelConfig):
@@ -524,7 +570,6 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
     longer than 1)."""
     if mesh is None:
         return params
-    _check_mesh(mesh)
     if cfg.kv_heads % mesh.shape.get("model", 1):
         raise ValueError(
             f"kv_heads {cfg.kv_heads} not divisible by mesh model axis "
@@ -619,16 +664,17 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
     With ``mesh`` every rank passes the same source; the state holds
     this rank's shards (``shard_params``) and ``"mesh"`` and ``"cfg"``
     entries (for ``models/checkpoint.py``), and
-    ``step_fn`` takes this rank's rows of the batch (``shard_batch``,
+    ``step_fn`` takes this rank's block of the batch (``shard_batch``,
     or ``data.input_pipeline(mesh=...)``). The gradients are averaged
-    over ('dcn', 'data') and the returned loss is the global batch's;
-    AdamW, elementwise, runs on the shards. ``seq_parallel`` is plain
-    attention: the reference rides a ring only under a mesh with a
-    'seq' axis, which raises here."""
+    over the ranks that share the batch (('dcn', 'data') and 'seq':
+    ``Shards.token_group``), each rank's loss being its share of the
+    global mean, and the returned loss is the global batch's; AdamW,
+    elementwise, runs on the shards. ``seq_parallel`` rides the ring
+    under a mesh with a 'seq' axis longer than 1 and is plain attention
+    elsewhere, as in the reference."""
     dev = resolve(device)
-    if mesh is not None:
-        _check_mesh(mesh)
     shards = tp.shards_of(mesh)
+    group = shards.token_group()
 
     def init_state(source) -> Dict[str, Any]:
         if isinstance(source, torch.Generator):
@@ -666,9 +712,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
             loss = loss_fn(params, tokens, cfg)
             grads = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
-        if shards.data is not None:
-            grads = _mean_over(grads, shards.data)
-            loss = _mean_over([loss], shards.data)[0]
+        if group is not None:
+            grads = _mean_over(grads, group)
+            loss = _mean_over([loss], group)[0]
         if state["opt"] is None:
             sgd_step(params, grads, learning_rate)
         else:

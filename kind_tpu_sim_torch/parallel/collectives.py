@@ -138,21 +138,19 @@ def ring_permute_smoke(mesh=None) -> Dict[str, object]:
 
     if mesh is None:
         mesh = slice_mesh()
+    from kind_tpu_sim_torch.parallel import tp
+
     axis = mesh.axis_names[-1]
     ring = mesh.shape[axis]
     grid = np.arange(float(mesh.size)).reshape(mesh.devices.shape)
-    # gloo sends and receives host tensors only (a card's tensor aborts
-    # the rank inside gloo's transport)
-    x = _mine(mesh, grid, "cpu" if mesh.backend == "gloo" else None)
-    got = x.clone()  # a ring of one passes its value to itself
+    x = _mine(mesh, grid)
+    got = x  # a ring of one passes its value to itself
     pos = mesh.coords[axis]
     if ring > 1:
-        ops = [dist.P2POp(dist.isend, x,
-                          mesh.group_rank(**{axis: (pos + 1) % ring})),
-               dist.P2POp(dist.irecv, got,
-                          mesh.group_rank(**{axis: (pos - 1) % ring}))]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        # under gloo a card's value crosses through the host
+        got = tp.start_exchange(
+            x, mesh.group_rank(**{axis: (pos + 1) % ring}),
+            mesh.group_rank(**{axis: (pos - 1) % ring})).wait()
     expected = np.roll(grid, 1, axis=-1)
     ok = torch.tensor([float(abs(float(got[0]) - _mine(
         mesh, expected, x.device)[0]) < 1e-6)], device=x.device)

@@ -14,6 +14,10 @@ process. ``torch.distributed`` runs one process per rank, so
   call: a rank that raises has its exception re-raised here (with the
   rank's traceback as a note), a rank that dies fails the call, and a
   world still running at the deadline is killed and fails it;
+* ``rendezvous=(init_method, first_rank, world_size)`` joins the
+  ranks into a larger world instead (``tcp://host:port``, the ranks
+  first_rank.. of it), as each simulated host of a slice does
+  (``parallel/multihost.py``);
 * the caller names the backend (``gloo`` or ``nccl``); nothing picks
   one. ``device="cuda"`` with ``nccl`` gives rank r card r; with
   ``gloo`` every rank uses the card it is given (several ranks may
@@ -34,7 +38,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,45 +56,55 @@ def rank_device() -> torch.device:
 
 
 def _rank_main(fn, args: Tuple, rank: int, world: int, store: str,
-               backend: str, device: str, timeout_s: float, results) -> None:
+               backend: str, device: str, timeout_s: float, results,
+               rendezvous=None) -> None:
     global _RANK_DEVICE
     torch.set_num_threads(1)
+    local = rank
+    init_method = f"file://{store}"
+    if rendezvous is not None:
+        init_method, first, world = rendezvous
+        rank = first + local
     try:
         if backend == "nccl":
-            _RANK_DEVICE = torch.device("cuda", rank)
+            _RANK_DEVICE = torch.device("cuda", local)
         elif device.startswith("cuda"):
             _RANK_DEVICE = torch.device("cuda", torch.device(device).index
                                         or 0)
         if _RANK_DEVICE.type == "cuda":
             torch.cuda.set_device(_RANK_DEVICE)
         dist.init_process_group(
-            backend, init_method=f"file://{store}", rank=rank,
+            backend, init_method=init_method, rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
         out = fn(*args)
         dist.barrier()
         # pickled to bytes here: the queue's own pickler would hand
         # tensors over as shared memory that dies with this process
-        results.put((rank, "ok", pickle.dumps(out if rank == 0 else None),
-                     ""))
+        results.put((local, "ok",
+                     pickle.dumps(out if local == 0 else None), ""))
     except BaseException as exc:  # handed to the parent, raised there
         text = traceback.format_exc()
         try:
             payload = pickle.dumps(exc)
         except Exception:
             payload = pickle.dumps(RuntimeError(f"{type(exc).__name__}: {exc}"))
-        results.put((rank, "error", payload, text))
+        results.put((local, "error", payload, text))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 def spawn(fn: Callable[..., Any], world: int, *args, backend: str,
-          device: str = "cpu", timeout_s: float = 120.0) -> Any:
+          device: str = "cpu", timeout_s: float = 120.0,
+          rendezvous: Optional[Tuple[str, int, int]] = None) -> Any:
     """Run ``fn(*args)`` on ``world`` ranks of a fresh process group and
     return rank 0's result. ``fn`` must be importable by name (a
     module-level function). Raises the first failing rank's exception,
-    or RuntimeError when a rank dies or the deadline passes."""
+    or RuntimeError when a rank dies or the deadline passes. With
+    ``rendezvous`` the ``world`` ranks started here are ranks
+    ``first_rank..`` of a world of ``world_size`` joined at
+    ``init_method``; the result is that of the first of them."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl'; got {backend!r}")
     ctx = mp.get_context("spawn")
@@ -99,7 +113,7 @@ def spawn(fn: Callable[..., Any], world: int, *args, backend: str,
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, args, rank, world,
                                os.path.join(tmp, "store"), backend, device,
-                               timeout_s, results), daemon=True)
+                               timeout_s, results, rendezvous), daemon=True)
              for rank in range(world)]
     deadline = time.monotonic() + timeout_s
     try:

@@ -20,6 +20,14 @@ calls the collectives itself, on the groups of the ``Shards`` in scope:
   routes over the global batch: capacity from the global token count,
   queue positions continued across ranks, the auxiliary loss's means
   over every token.
+* ``seq``: set while the call's sequence is split over the 'seq' axis
+  (each rank holds its columns of every row): attention rides the ring
+  (``parallel/ring_attention.py``) or the sequence gathered along it,
+  positions are global. ``tokens`` is then the ranks that share the
+  call's tokens, ('dcn', 'data') and 'seq' jointly (seq innermost), and
+  ``seq_tokens`` the positions of the global sequence an MoE routes (0:
+  all of them; the loss without the ring leaves the last one out, as
+  the reference's forward over ``tokens[:, :-1]`` does).
 
 ``scope(shards)`` sets what is in scope for a block of code (a context
 variable, so nothing outside the block sees it); ``current()`` reads
@@ -56,6 +64,14 @@ class Shards(NamedTuple):
     model: Optional[Axis] = None
     expert: Optional[Axis] = None
     data: Optional[Axis] = None
+    seq: Optional[Axis] = None
+    tokens: Optional[Axis] = None
+    seq_tokens: int = 0
+
+    def token_group(self) -> Optional[Axis]:
+        """Every rank holding a part of the call's tokens: ``tokens``
+        where the sequence is split, else ``data``."""
+        return self.tokens if self.tokens is not None else self.data
 
 
 def axis(mesh, *names: str) -> Optional[Axis]:
@@ -77,12 +93,19 @@ def axis(mesh, *names: str) -> Optional[Axis]:
 def shards_of(mesh, data_axes=("dcn", "data")) -> Shards:
     """The split a mesh gives a computation: 'model', the expert axis
     ('expert' if present, else 'model') and, when the call's tokens are
-    split over them, ``data_axes`` (None: tokens replicated)."""
+    split over them, ``data_axes`` and a 'seq' axis longer than 1 (None:
+    tokens replicated, over 'seq' too)."""
     if mesh is None:
         return Shards()
     model = axis(mesh, "model")
     expert = axis(mesh, "expert") if "expert" in mesh.axis_names else model
-    return Shards(model, expert, axis(mesh, *data_axes) if data_axes else None)
+    if not data_axes:
+        return Shards(model, expert)
+    data = axis(mesh, *data_axes)
+    if mesh.shape.get("seq", 1) == 1:
+        return Shards(model, expert, data)
+    return Shards(model, expert, data, axis(mesh, "seq"),
+                  axis(mesh, *data_axes, "seq"))
 
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
@@ -139,6 +162,42 @@ def broadcast(x: torch.Tensor, ax: Axis, src_index: int) -> torch.Tensor:
     return x
 
 
+class Pending:
+    """A posted point-to-point exchange: ``wait()`` gives the received
+    tensor (zeros where nothing is received)."""
+
+    def __init__(self, works, buf, device, keep):
+        self._works, self._buf, self._device = works, buf, device
+        self._keep = keep  # the sent buffer lives until the send is done
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works, self._keep = [], None
+        if self._device is not None:
+            return self._buf.to(self._device)
+        return self._buf
+
+
+def start_exchange(x: torch.Tensor, send_to: Optional[int],
+                   recv_from: Optional[int], tag: int = 0) -> Pending:
+    """Post the send of ``x`` to world rank ``send_to`` and the receive
+    of a tensor like it from ``recv_from`` (either None: not posted).
+    The transport follows the world's backend: NCCL moves the card's
+    tensors; gloo moves host tensors, so a card's tensor is staged
+    through the host (gloo's send of a CUDA tensor aborts the rank)."""
+    staged = x.is_cuda and dist.get_backend() == "gloo"
+    src = (x.detach().cpu() if staged else x.detach()).contiguous()
+    buf = torch.zeros_like(src)
+    ops = []
+    if send_to is not None:
+        ops.append(dist.P2POp(dist.isend, src, send_to, tag=tag))
+    if recv_from is not None:
+        ops.append(dist.P2POp(dist.irecv, buf, recv_from, tag=tag))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, buf, x.device if staged else None, src)
+
+
 # ---------------------------------------------------------------------
 # collectives with gradients
 
@@ -188,6 +247,29 @@ class _GatherLast(torch.autograd.Function):
     def backward(ctx, g):
         lo = ctx.ax.index * ctx.n
         return g[..., lo:lo + ctx.n].contiguous(), None
+
+
+class _GatherDim(torch.autograd.Function):
+    """The ranks' slices joined along ``dim``; the backward is the
+    reduce-scatter (every rank's gradient of the whole summed, this
+    rank's slice kept)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = all_reduce(g, ctx.ax)
+        return (whole.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+def gather_dim(x, ax: Optional[Axis], dim: int):
+    """The ranks' slices of ``x`` joined along ``dim`` (differentiable:
+    the gradient is reduce-scattered back)."""
+    return x if ax is None else _GatherDim.apply(x, ax, dim)
 
 
 def copy_in(x, ax: Optional[Axis]):

@@ -22,85 +22,18 @@ from kind_tpu_sim_torch.parallel import launch
 import torch_parity
 from torch_parity import jax_cfg
 
-# tests/test_torch_training.py's bars: use_optax -> (loss, params)
-FP32_TOL = {True: (1e-4, 5e-5), False: (1e-4, 5e-6)}
+FP32_TOL = torch_parity.FP32_TOL
 GQA = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=4, n_kv_heads=2,
                       n_layers=2, d_ff=64, max_seq=16, dtype="float32")
 # tests/test_moe.py's moe_cfg
 MOE = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
                       d_ff=64, max_seq=16, dtype="float32", n_experts=4)
-
-
-def _tree(cfg, seed=0, router_bias=0.0):
-    """The reference's init as numpy; ``router_bias`` added to every
-    router's first column (most tokens then pick expert 0, so capacity
-    drops tokens and the global batch's queue decides which)."""
-    import jax
-
-    from kind_tpu_sim.models import transformer as jtf
-
-    tree = jax.tree_util.tree_map(
-        lambda a: np.array(a, np.float32),
-        jtf.init_params(jax.random.PRNGKey(seed), jax_cfg(cfg)))
-    for block in tree["blocks"]:
-        if "moe" in block:
-            block["moe"]["router"][:, 0] += np.float32(router_bias)
-    return tree
-
-
-def _batches(cfg, n=3, batch=8, seed=0):
-    rng = np.random.RandomState(seed)
-    seq = cfg.max_seq + 1
-    return [((rng.randint(0, cfg.vocab_size, (batch, 1))
-              + np.arange(seq)[None, :]) % cfg.vocab_size).astype(np.int64)
-            for _ in range(n)]
-
-
-def _jax_mesh(shape, names):
-    import jax
-    from jax.sharding import Mesh
-
-    n = int(np.prod(shape))
-    return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
-
-
-def _jax_train(cfg, tree, batches, use_optax, mesh=None):
-    """The reference's make_train_step (on ``mesh`` when given) from
-    ``tree``: (losses, leaves in the port's order)."""
-    import jax
-    import jax.numpy as jnp
-
-    from kind_tpu_sim.models import transformer as jtf
-
-    step, init_state = jtf.make_train_step(jax_cfg(cfg), mesh=mesh,
-                                           use_optax=use_optax)
-    state = init_state(jax.random.PRNGKey(0))  # moments: zeros, any init
-    state["params"] = jax.tree_util.tree_map(
-        lambda t, like: jax.device_put(jnp.asarray(t), like.sharding),
-        tree, state["params"])
-    losses = []
-    for b in batches:
-        state, loss = step(state, jnp.asarray(b, jnp.int32))
-        losses.append(float(loss))
-    return losses, _leaves(jax.tree_util.tree_map(np.asarray,
-                                                  state["params"]))
-
-
-def _leaves(tree):
-    def block(node):
-        return [leaf for key in sorted(node) for leaf in (
-            block(node[key]) if isinstance(node[key], dict)
-            else [node[key]])]
-
-    return ([tree["embed"], tree["final_norm"]]
-            + [leaf for b in tree["blocks"] for leaf in block(b)])
-
-
-def _assert_train(got, want, use_optax):
-    loss_tol, param_tol = FP32_TOL[use_optax]
-    np.testing.assert_allclose(got[0], want[0], atol=loss_tol, rtol=0)
-    for p, j in zip(got[1], want[1]):
-        np.testing.assert_allclose(p, j, atol=param_tol, rtol=0)
+_tree = torch_parity.init_tree
+_batches = torch_parity.ramp_batches
+_jax_mesh = torch_parity.jax_mesh
+_jax_train = torch_parity.jax_train
+_leaves = torch_parity.leaves
+_assert_train = torch_parity.assert_train
 
 
 @pytest.mark.parametrize("cfg", [GQA, MOE], ids=["dense", "moe"])
@@ -182,7 +115,30 @@ def test_meshed_train_steps_match_jax(tp22, use_optax):
 
 
 def test_a_seq_axis_raises_naming_ring_attention(tp22):
-    assert all(m is not None and "ring attention" in m for m in tp22["seq"])
+    """A 'seq' axis, once refused, is served: on training_mesh(1, 2, 2)
+    (no ring: attention over the gathered sequence) the port's forward,
+    loss and 3 AdamW steps equal the reference's. The steps are held to
+    the reference's unsharded step: its GSPMD step on this mesh (model
+    2 and seq 2, no ring) departs from it (parameters 0.058 apart after
+    3 steps on the CPU backend), where its ring step on the mesh and its
+    step on (1, 1, 2) or (2, 1, 2) agree with it within 4e-6."""
+    import jax
+    import jax.numpy as jnp
+
+    from kind_tpu_sim.models import transformer as jtf
+
+    got = tp22["seq"]
+    tree = _tree(GQA)
+    cut = [b[:, :GQA.max_seq] for b in _batches(GQA)]
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tokens = jnp.asarray(cut[0], jnp.int32)
+    np.testing.assert_allclose(
+        got["logits"], np.asarray(jtf.forward(jparams, tokens, jax_cfg(GQA))),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        got["loss"], float(jtf.loss_fn(jparams, tokens, jax_cfg(GQA))),
+        atol=1e-5, rtol=0)
+    _assert_train(got["adamw"], _jax_train(GQA, tree, cut, True), True)
 
 
 def test_moe_over_an_expert_axis_matches_jax():

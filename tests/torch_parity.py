@@ -247,9 +247,10 @@ def rank_dies(bad_rank):
 def mesh_rank_tp(tree, cfg, shape, names, batches):
     """On every rank of ``Mesh(shape, names)``: ``shard_params`` then
     ``gather_params`` (exact?), the forward of the first batch (whole
-    logits), 3 AdamW and 3 SGD steps (losses, whole leaves), and what a
-    'seq' axis of 2 raises (a second mesh over the same ranks, when the
-    world has 4)."""
+    logits), 3 AdamW and 3 SGD steps (losses, whole leaves), and, when
+    the world has 4, the same model on training_mesh(1, 2, 2) (a 'seq'
+    axis of 2 over the same ranks): whole logits, the global loss and 3
+    AdamW steps on the batches cut to ``max_seq`` tokens."""
     import torch
     import torch.distributed as dist
 
@@ -283,18 +284,18 @@ def mesh_rank_tp(tree, cfg, shape, names, batches):
         out[name] = (losses, [p.detach().numpy()
                               for p in ptf_._leaves(whole)])
     if dist.get_world_size() == 4:
+        # a 'seq' axis over the same ranks: attention over the gathered
+        # sequence; batches cut to max_seq tokens, which split over it
         seq = pmesh.training_mesh(1, 2, 2)
-        raised = []
-        for call in (lambda: ptf_.make_train_step(cfg, mesh=seq,
-                                                  device="cpu"),
-                     lambda: ptf_.forward(shard, rows, cfg, mesh=seq),
-                     lambda: ptf_.loss_fn(shard, rows, cfg, mesh=seq)):
-            try:
-                call()
-                raised.append(None)
-            except ValueError as exc:
-                raised.append(str(exc))
-        out["seq"] = raised
+        cut = [bt[:, :cfg.max_seq] for bt in batches]
+        shard = ptf_.shard_params(params, cfg, seq)
+        block = ptf_.shard_batch(torch.as_tensor(cut[0]).long(), seq)
+        out["seq"] = {
+            "logits": gather_tokens(ptf_.forward(shard, block, cfg,
+                                                 mesh=seq), seq),
+            "loss": global_loss(ptf_.loss_fn(shard, block, cfg, mesh=seq),
+                                seq),
+            "adamw": port_train(cfg, seq, tree, cut, True)}
     return out
 
 
@@ -416,3 +417,274 @@ def jax_mesh(shape, names):
 
     n = int(np.prod(shape))
     return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
+
+
+# ---------------------------------------------------------------------
+# training against the reference (the bars of tests/test_torch_training.py)
+
+# use_optax -> (loss, params) fp32 bars
+FP32_TOL = {True: (1e-4, 5e-5), False: (1e-4, 5e-6)}
+
+
+def init_tree(cfg, seed=0, router_bias=0.0):
+    """The reference's init as numpy; ``router_bias`` added to every
+    router's first column (most tokens then pick expert 0, so capacity
+    drops tokens and the global batch's queue decides which)."""
+    import jax
+
+    from kind_tpu_sim.models import transformer as jtf
+
+    tree = jax.tree_util.tree_map(
+        lambda a: np.array(a, np.float32),
+        jtf.init_params(jax.random.PRNGKey(seed), jax_cfg(cfg)))
+    for block in tree["blocks"]:
+        if "moe" in block:
+            block["moe"]["router"][:, 0] += np.float32(router_bias)
+    return tree
+
+
+def ramp_batches(cfg, n=3, batch=8, seed=0, seq=None):
+    """``n`` batches of ramps mod vocab, ``seq`` tokens (default
+    max_seq + 1)."""
+    rng = np.random.RandomState(seed)
+    seq = cfg.max_seq + 1 if seq is None else seq
+    return [((rng.randint(0, cfg.vocab_size, (batch, 1))
+              + np.arange(seq)[None, :]) % cfg.vocab_size).astype(np.int64)
+            for _ in range(n)]
+
+
+def leaves(tree):
+    """A parameter tree's leaves in the port's ``_leaves`` order."""
+    def block(node):
+        return [leaf for key in sorted(node) for leaf in (
+            block(node[key]) if isinstance(node[key], dict)
+            else [node[key]])]
+
+    return ([tree["embed"], tree["final_norm"]]
+            + [leaf for b in tree["blocks"] for leaf in block(b)])
+
+
+def jax_train(cfg, tree, batches, use_optax, mesh=None):
+    """The reference's make_train_step (on ``mesh`` when given) from
+    ``tree``: (losses, leaves in the port's order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from kind_tpu_sim.models import transformer as jtf
+
+    step, init_state = jtf.make_train_step(jax_cfg(cfg), mesh=mesh,
+                                           use_optax=use_optax)
+    state = init_state(jax.random.PRNGKey(0))  # moments: zeros, any init
+    state["params"] = jax.tree_util.tree_map(
+        lambda t, like: jax.device_put(jnp.asarray(t), like.sharding),
+        tree, state["params"])
+    losses = []
+    for b in batches:
+        state, loss = step(state, jnp.asarray(b, jnp.int32))
+        losses.append(float(loss))
+    return losses, leaves(jax.tree_util.tree_map(np.asarray,
+                                                 state["params"]))
+
+
+def assert_train(got, want, use_optax):
+    loss_tol, param_tol = FP32_TOL[use_optax]
+    np.testing.assert_allclose(got[0], want[0], atol=loss_tol, rtol=0)
+    for p, j in zip(got[1], want[1]):
+        np.testing.assert_allclose(p, j, atol=param_tol, rtol=0)
+
+
+def port_train(cfg, mesh, tree, batches, use_optax):
+    """On every rank of ``mesh``: the port's meshed train step from
+    ``tree`` over the global ``batches`` -> (losses, whole leaves)."""
+    import torch
+
+    step, init = ptf.make_train_step(cfg, mesh=mesh, device="cpu",
+                                     use_optax=use_optax)
+    state = init(params_from_numpy(tree, cfg, device="cpu"))
+    losses = []
+    for b in batches:
+        state, loss = step(state, ptf.shard_batch(
+            torch.as_tensor(b).long(), mesh))
+        losses.append(float(loss))
+    whole = ptf.gather_params(state["params"], cfg, mesh)
+    return losses, [p.detach().numpy() for p in ptf._leaves(whole)]
+
+
+def global_loss(loss, mesh):
+    """The global loss from every rank's share (``loss_fn`` over a
+    mesh: the mean over the ranks that share the tokens)."""
+    from kind_tpu_sim_torch.parallel import tp
+
+    group = tp.shards_of(mesh).token_group()
+    if group is None:
+        return float(loss)
+    return float(tp.all_reduce(loss.detach()[None], group)[0]) / group.size
+
+
+def gather_tokens(x, mesh):
+    """A (batch, seq, ...) block of every rank joined whole: rows over
+    'data', columns over 'seq'."""
+    from kind_tpu_sim_torch.parallel import tp
+
+    spec = ("data", "seq") + (None,) * (x.dim() - 2)
+    return tp.gather_tensor(x, spec, mesh).numpy()
+
+
+# ---------------------------------------------------------------------
+# long context and pipeline rank programs
+
+
+def mesh_rank_ring(cases):
+    """On 8 ranks: each ring case -- a dict of ``shape``, ``names``,
+    ``axis``, ``qkv`` (numpy), ``causal`` and optionally
+    ``double_buffer`` and ``grads`` -- with the inputs placed as
+    ``ring_specs`` says; returns per case the whole output (and the
+    whole gradients of sum(out**2)) and the specs; then the analytic
+    long-context smoke at 4096 tokens and a small ``bench_report``."""
+    import torch
+
+    from kind_tpu_sim_torch.parallel import multihost, tp
+    from kind_tpu_sim_torch.parallel import ring_attention as ra
+    from kind_tpu_sim_torch.parallel.mesh import Mesh
+
+    meshes, results = {}, []
+    for case in cases:
+        key = (tuple(case["shape"]), tuple(case["names"]))
+        if key not in meshes:
+            meshes[key] = Mesh(*key)
+        mesh = meshes[key]
+        q, k, v = (torch.from_numpy(x) for x in case["qkv"])
+        specs = ra.ring_specs(q.shape, k.shape, mesh, case["axis"])
+        grads = case.get("grads", False)
+        local = [tp.shard_tensor(x, s, mesh).clone().requires_grad_(grads)
+                 for x, s in zip((q, k, v), (specs[0], specs[1], specs[1]))]
+        out = ra.ring_attention(*local, mesh, case["axis"],
+                                causal=case["causal"],
+                                double_buffer=case.get("double_buffer"))
+        res = {"out": tp.gather_tensor(out, specs[0], mesh).numpy(),
+               "specs": specs}
+        if grads:
+            (out ** 2).sum().backward()
+            res["grads"] = [tp.gather_tensor(x.grad, s, mesh).numpy()
+                            for x, s in zip(local, (specs[0], specs[1],
+                                                    specs[1]))]
+        results.append(res)
+    smoke = multihost.ring_long_context_smoke(4096, head_dim=16)
+    bench = ra.bench_report(small_tokens=256, large_tokens=1024,
+                            head_dim=8, heads=2)
+    return results, smoke, bench
+
+
+def mesh_rank_seq(tree, cfg, batches, root):
+    """On 8 ranks, sequence parallelism (``cfg`` fp32, ``seq_parallel``
+    off; batches of ``max_seq`` tokens): ``forward``, the ring
+    forward's whole logits on training_mesh(2, 1, 4); ``ring`` /
+    ``gathered``, 3 AdamW steps on training_mesh(2, 2, 2) with and
+    without the ring (losses, whole leaves), and the gathered forward's
+    whole logits and global loss there; ``pipeline``, 2 batches of
+    ``data.input_pipeline(mesh=...)`` there, gathered whole;
+    ``checkpoint``, a ring state of that mesh after one step saved under
+    ``root`` and restored onto training_mesh(4, 2) (no 'seq'), both
+    states' whole leaves and AdamW moments."""
+    import dataclasses as dc
+
+    import torch
+
+    from kind_tpu_sim_torch.parallel import mesh as pmesh
+
+    ring = dc.replace(cfg, seq_parallel=True)
+    out = {}
+    mesh = pmesh.training_mesh(2, 1, 4)
+    params = ptf.shard_params(params_from_numpy(tree, cfg, device="cpu"),
+                              cfg, mesh)
+    tokens = torch.as_tensor(batches[0]).long()
+    out["forward"] = gather_tokens(
+        ptf.forward(params, ptf.shard_batch(tokens, mesh), ring, mesh=mesh),
+        mesh)
+
+    mesh = pmesh.training_mesh(2, 2, 2)
+    out["ring"] = port_train(ring, mesh, tree, batches, True)
+    out["gathered"] = port_train(cfg, mesh, tree, batches, True)
+    params = ptf.shard_params(params_from_numpy(tree, cfg, device="cpu"),
+                              cfg, mesh)
+    rows = ptf.shard_batch(tokens, mesh)
+    out["gathered_logits"] = gather_tokens(
+        ptf.forward(params, rows, cfg, mesh=mesh), mesh)
+    out["gathered_loss"] = global_loss(
+        ptf.loss_fn(params, rows, cfg, mesh=mesh), mesh)
+
+    from kind_tpu_sim_torch import data as pdata
+    from kind_tpu_sim_torch.models import checkpoint as ckpt_
+
+    with pdata.input_pipeline(cfg, batch=8, mesh=mesh, steps=2,
+                              device="cpu") as pipe:
+        out["pipeline"] = [gather_tokens(b, mesh) for b in pipe]
+    step, init = ptf.make_train_step(ring, mesh=mesh, device="cpu")
+    state, _ = step(init(params_from_numpy(tree, cfg, device="cpu")), rows)
+    ckpt_.save(root, 1, state)
+    _, init_b = ptf.make_train_step(ring, mesh=pmesh.training_mesh(4, 2),
+                                    device="cpu")
+    restored = ckpt_.restore(root, ckpt_.abstract_like(
+        init_b(torch.Generator().manual_seed(1))))
+
+    def whole(st):
+        params, opt = ckpt_._whole(
+            st, [p.detach() for p in ptf._leaves(st["params"])],
+            st["opt"].state_dict())
+        return ([p.numpy() for p in params],
+                [{k: v.numpy() for k, v in per.items()}
+                 for _, per in sorted(opt["state"].items())])
+
+    out["checkpoint"] = (whole(state), whole(restored))
+    return out
+
+
+def mesh_rank_seq_moe(tree, cfg, batches, x):
+    """On the 8 ranks of (data 2, seq 4), an MoE ``cfg``: one
+    ``moe_mlp`` of block 0 over the global tokens ``x`` (whole out,
+    aux), 2 SGD steps with the ring (losses, whole leaves) and the
+    global loss without it."""
+    import dataclasses as dc
+
+    import torch
+
+    from kind_tpu_sim_torch.models import moe as pmoe
+    from kind_tpu_sim_torch.parallel import tp
+    from kind_tpu_sim_torch.parallel.mesh import Mesh
+
+    mesh = Mesh((2, 4), ("data", "seq"))
+    params = params_from_numpy(tree, cfg, device="cpu")
+    with tp.scope(tp.shards_of(mesh)):
+        o, aux = pmoe.moe_mlp(ptf.shard_batch(torch.as_tensor(x), mesh),
+                              params["blocks"][0]["moe"],
+                              pmoe.MoeConfig(n_experts=cfg.n_experts))
+    tokens = torch.as_tensor(batches[0]).long()
+    return {"moe": (gather_tokens(o, mesh), float(aux)),
+            "ring": port_train(dc.replace(cfg, seq_parallel=True), mesh,
+                               tree, batches, False),
+            "loss": global_loss(ptf.loss_fn(
+                params, ptf.shard_batch(tokens, mesh), cfg, mesh=mesh),
+                mesh)}
+
+
+def mesh_rank_pipe(tree, cfg, shape, names, cases):
+    """On every rank of ``Mesh(shape, names)``: ``pipeline_forward`` of
+    each (tokens, n_microbatches) case -> whole logits, or the message
+    it raises."""
+    import torch
+
+    from kind_tpu_sim_torch.parallel import pipeline
+    from kind_tpu_sim_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(shape, names)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    out = []
+    for tokens, n_micro in cases:
+        try:
+            with torch.no_grad():
+                out.append(pipeline.pipeline_forward(
+                    params, torch.as_tensor(tokens).long(), cfg, mesh,
+                    n_microbatches=n_micro).numpy())
+        except ValueError as exc:
+            out.append(str(exc))
+    return out
