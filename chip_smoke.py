@@ -96,7 +96,7 @@ it fails (nothing is caught and ignored):
    against the same engine's eager rounds, on phase 4's stream: the
    dense grid, the paged gather and kernel tiers, the prompt-lookup
    grid, the paged speculative engine, the draft-model grid, W8A8 with
-   the int8 KV cache and the MoE kernel tier, two runs of each path in
+   the int8 KV cache and the MoE kernel tier, three runs of each path in
    turns: streams equal, logprobs within 1e-4, the same launches in
    every run; graphs captured, capture time, replays, tok/s, step wall
    and a traced round's device busy share for both paths;
@@ -138,7 +138,15 @@ it fails (nothing is caught and ignored):
    decode whose first chunk differs from the eager loop's, or a route
    that did not launch: the flash forward and backward (dq, dk/dv) on
    the tensor cores, split-KV paged attention, the int8 ``gemv`` and
-   ``wgmma`` routes;
+   ``wgmma`` routes. The entries after the serving matrix are held too,
+   each with its launches read at the bench's ``emit`` before and after
+   it: ``paged_tier_micro`` (the tiers' tokens equal, a positive
+   ratio, its kernel tier on split-KV exactly 4 runs x layers x chunk x
+   chained chunks), ``serving_realistic`` (64 requests, preemptions and
+   prefix-skipped tokens, no block in use once its prefix cache is
+   emptied, its admissions' flash forward on the tensor cores and its
+   decode on split-KV) and the solo ``speculative`` (at least one token
+   a verify step, its prefill's flash forward on the tensor cores);
 10. profile -- ``profiling.profile_flagship`` at the flagship config: the
    Chrome trace must carry the card's own events, and the top ops must
    be device kernels or copies;
@@ -158,6 +166,20 @@ it fails (nothing is caught and ignored):
    the unsharded steps', each rank's peak memory; the flash forward and
    backward and the int8 cache products at one rank's shapes against
    their plain versions, timed (the kernels line's ``sharded_shapes``).
+13. entry points and pods -- ``python -m kind_tpu_sim_torch torch-smoke``
+   at NCCL world size 1 and on 4 gloo ranks on CUDA tensors (ok, every
+   warm run faster than the cold bring-up, one worker across the runs),
+   and each pod's payload, taken from its generator in
+   ``kind_tpu_sim_torch/manifests.py`` and run as a script on the card:
+   the device-gate pod allocated 1 GPU (DEVICES OK, PLATFORM OK, PSUM
+   OK) and allocated 2 (it must exit non-zero naming both counts), the
+   multi-host payload as 1 replica x 1 GPU over tcp://127.0.0.1 (GLOBAL
+   PSUM OK), the kernel pod built into ``build/kind_tpu_sim_torch/``
+   (CUDA KERNEL OK); all six at once, beside no other phase (beside
+   phase 11's training worlds they slowed its steps beyond their spread,
+   ``tools/phase13_overlap.py``). The kernel pod's own
+   kernel is then loaded from that build, held to ``torch.matmul`` and
+   timed: the matmul row's ``pod`` entry (kernel table row 8).
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -3818,17 +3840,46 @@ MFU_RANGE = (0.0, 100.0)   # an MFU outside it is a measurement fault
 ROOF_FRAC_MAX = 1.05       # a decode above its memory roofline is one too
 
 
-def bench_phase(bench, fa, pa, im) -> dict:
+# the bench's entries after its serving matrix, the kernels each must
+# launch and the route (ISSUE 16's rows 4 and 7)
+BENCH_ENTRY_ROUTES = {
+    "paged_tier_micro": ("paged_attention",),
+    "serving_realistic": ("flash_attention", "paged_attention"),
+    "speculative": ("flash_attention",),
+}
+# paged_tier_micro runs each tier 4 times (a warm run that captures its
+# graph, 3 timed replays), N chunks of ``chunk`` steps each
+TIER_MICRO_RUNS = 4
+
+
+def _entry_launches(snaps, key) -> dict:
+    """The launches by route during bench entry ``key``: the counts at
+    the ``emit`` after it against those at the one before."""
+    i = next(i for i, (keys, _) in enumerate(snaps) if key in keys)
+    before = snaps[i - 1][1]
+    return {name: {r: n - before[name].get(r, 0) for r, n in routes.items()}
+            for name, routes in snaps[i][1].items()}
+
+
+def bench_phase(bench, fa, pa, im) -> tuple:
     """Phase 9: the bench's model block at the flagship, its counts
     zeroed just before and read just after. Returns the launches by
-    route of the counted kernels during the phase."""
+    route of the counted kernels during the phase, and during each of
+    the entries of ``BENCH_ENTRY_ROUTES`` (read at the bench's ``emit``
+    after each section)."""
     from kind_tpu_sim_torch.ops._build import TENSOR_CORES
 
     counted = (fa.flash_attention, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, pa.paged_attention,
                im.int8_matmul)
+    snaps = []
+
+    def emit(res):
+        snaps.append((set(res), {fn.__name__: dict(fn.launches_by_route)
+                                 for fn in counted}))
+
     zero_counts(*counted)
-    model = bench.model_throughput()
+    model = bench.model_throughput(emit=emit)
     routes = {fn.__name__: dict(fn.launches_by_route) for fn in counted}
     log(json.dumps({"bench_headline": bench.headline_numbers(model)}))
     out = HERE / "build"
@@ -3866,7 +3917,48 @@ def bench_phase(bench, fa, pa, im) -> dict:
         check(routes["int8_matmul"].get(route, 0) > 0,
               f"bench: int8_matmul never launched on {route}: "
               f"{routes['int8_matmul']}")
-    return routes
+
+    # the entries after the serving matrix
+    ptm, real, spec = (model["paged_tier_micro"], model["serving_realistic"],
+                       model["speculative"])
+    entry_routes = {key: _entry_launches(snaps, key)
+                    for key in BENCH_ENTRY_ROUTES}
+    log(f"bench paged_tier_micro (the two tiers' tokens equal, or the "
+        f"entry errs): {json.dumps(ptm)}; launches "
+        f"{entry_routes['paged_tier_micro']}")
+    check(ptm["gather_over_kernel"] > 0,
+          f"bench: paged_tier_micro {ptm}")
+    want_paged = (TIER_MICRO_RUNS * model_layers(model)
+                  * ptm["chunk"] * ptm["chained_chunks"])
+    check(entry_routes["paged_tier_micro"]["paged_attention"]
+          == {pa.SPLIT_KV: want_paged, pa.ONE_PASS: 0},
+          f"bench: paged_tier_micro's kernel tier launches "
+          f"{entry_routes['paged_tier_micro']['paged_attention']}, want "
+          f"{want_paged} on {pa.SPLIT_KV}")
+    log(f"bench serving_realistic: {json.dumps(real)}; launches "
+        f"{entry_routes['serving_realistic']}")
+    check(real["preemptions"] > 0
+          and real["prefix_prefill_tokens_skipped"] > 0
+          and real["requests"] == 64,
+          f"bench: serving_realistic {real}")
+    log(f"bench speculative: {json.dumps(spec)}; launches "
+        f"{entry_routes['speculative']}")
+    check(spec["tokens_per_step"] >= 1, f"bench: speculative {spec}")
+    want_route = {"flash_attention": TENSOR_CORES,
+                  "paged_attention": pa.SPLIT_KV}
+    for key, kernels in BENCH_ENTRY_ROUTES.items():
+        for name in kernels:
+            got = entry_routes[key][name]
+            check(got.get(want_route[name], 0) > 0
+                  and sum(got.values()) == got[want_route[name]],
+                  f"bench {key}: {name} launches {got}, want every one on "
+                  f"{want_route[name]}")
+    return routes, entry_routes
+
+
+def model_layers(model) -> int:
+    """The bench model's depth, from its name (``d2048xL8-gqa4``)."""
+    return int(model["model"].split("xL")[1].split("-")[0])
 
 
 def profile_phase(profiling, flagship) -> dict:
@@ -4239,9 +4331,8 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
     to phase 4's streams by the split rule, then the dense engine on an
     NCCL mesh of world size 1, its rounds CUDA graphs with the
     collectives captured, bitwise against the unsharded graphed engine;
-    (c) flagship training at ('model', 2) and ('data', 2) and (d) the
-    4-expert flagship at ('expert', 2) against unsharded steps; (e) the
-    flash and int8 kernels at the sharded shapes."""
+    (c), (d) ``training_worlds_phase``; (e) the flash and int8 kernels at
+    the sharded shapes. Independent worlds run at once: (a)'s, (b)'s."""
     from kind_tpu_sim_torch.parallel import collectives, launch
     from kind_tpu_sim_torch.parallel import mesh as mesh_lib
 
@@ -4363,24 +4454,53 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
     torch.cuda.empty_cache()
     log(f"parallel (b) NCCL world 1: {time.perf_counter() - t_part:.1f} s")
 
-    # (c), (d)
-    out["training"] = {}
-    batch, unsharded = trainer.BATCH, {}
-    for label, experts, shape, names, steps in (
-            ("('model', 2)", 0, (2,), ("model",), PARALLEL_TRAIN_STEPS),
-            ("('data', 2)", 0, (2,), ("data",), PARALLEL_TRAIN_STEPS),
-            ("MoE ('expert', 2)", MOE_EXPERTS, (2,), ("expert",),
-             PARALLEL_MOE_STEPS)):
+    out["training"] = training_worlds_phase(tf, trainer)
+
+    # (e)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out["kernels"] = {
+        "train (8,1024) 8/2 heads": _sharded_flash(fa, gen, 8, 1024, 8, 2),
+        "train (8,1024) 4/1 heads": _sharded_flash(fa, gen, 8, 1024, 4, 1),
+        "admission (8,256) 8/2 heads": _sharded_flash(fa, gen, 8, 256, 8, 2),
+        "int8 cache kv 2": _sharded_int8(im, gen)}
+    return out
+
+
+def training_worlds_phase(tf, trainer) -> dict:
+    """Phase 11 (c): flagship training at ('model', 2) and ('data', 2),
+    and (d): the 4-expert flagship at ('expert', 2), each against
+    unsharded steps on the same parameters and batches (losses within
+    ``TP_LOSS_RTOL``; every flash launch a rank on the tensor cores).
+    Each model's unsharded steps run first, then its worlds; the two
+    dense worlds at once (their ranks fit the card together, the MoE
+    world's beside them would not)."""
+    from kind_tpu_sim_torch.parallel import launch
+
+    out = {}
+    batch = trainer.BATCH
+    trained = {}
+    for group in (
+            (("('model', 2)", 0, (2,), ("model",), PARALLEL_TRAIN_STEPS),
+             ("('data', 2)", 0, (2,), ("data",), PARALLEL_TRAIN_STEPS)),
+            (("MoE ('expert', 2)", MOE_EXPERTS, (2,), ("expert",),
+              PARALLEL_MOE_STEPS),)):
         t_part = time.perf_counter()
-        if (experts, steps) not in unsharded:
-            unsharded[experts, steps] = _plain_train(tf, trainer, experts,
-                                                     steps, batch)
-        want, plain_peak = unsharded[experts, steps]
-        res = launch.spawn(_train_rank, 2, shape, names, experts, steps,
-                           batch, backend="gloo", device="cuda",
-                           timeout_s=PARALLEL_TIMEOUT_S)
-        log(f"parallel {label}: unsharded steps and world "
-            f"{time.perf_counter() - t_part:.1f} s")
+        _, experts, _, _, steps = group[0]
+        unsharded = _plain_train(tf, trainer, experts, steps, batch)
+        with ThreadPoolExecutor(len(group)) as pool:
+            worlds = [pool.submit(
+                launch.spawn, _train_rank, 2, shape, names, experts, steps,
+                batch, backend="gloo", device="cuda",
+                timeout_s=PARALLEL_TIMEOUT_S)
+                for _, _, shape, names, _ in group]
+            results = [w.result() for w in worlds]
+        wall = time.perf_counter() - t_part
+        for (label, *_), res in zip(group, results):
+            trained[label] = (res, unsharded, wall)
+        log(f"parallel {' and '.join(g[0] for g in group)}: unsharded steps "
+            f"and world{'s at once' if len(group) > 1 else ''} {wall:.1f} s")
+    for label, (res, (want, plain_peak), wall) in trained.items():
+        steps = len(want)
         gap = _hold_losses(f"sharded training {label}", res["losses"], want)
         log(f"sharded training {label}: per rank {res['ranks']}; unsharded "
             f"peak {plain_peak:.2f} GiB (gloo ranks sharing one card: step "
@@ -4390,17 +4510,9 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
                 check(routes["cuda_cores"] == 0 and
                       routes["tensor_cores"] == 8 * steps,
                       f"sharded training {label}: {kname} {routes}")
-        out["training"][label] = {"gap": gap, "losses": res["losses"],
-                                  "unsharded": want, "ranks": res["ranks"],
-                                  "unsharded_peak_gib": plain_peak}
-
-    # (e)
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    out["kernels"] = {
-        "train (8,1024) 8/2 heads": _sharded_flash(fa, gen, 8, 1024, 8, 2),
-        "train (8,1024) 4/1 heads": _sharded_flash(fa, gen, 8, 1024, 4, 1),
-        "admission (8,256) 8/2 heads": _sharded_flash(fa, gen, 8, 256, 8, 2),
-        "int8 cache kv 2": _sharded_int8(im, gen)}
+        out[label] = {"gap": gap, "losses": res["losses"],
+                      "unsharded": want, "ranks": res["ranks"],
+                      "unsharded_peak_gib": plain_peak, "group_wall_s": wall}
     return out
 
 
@@ -4819,6 +4931,202 @@ def long_context_phase(trainer, tf, fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 13: the entry points and the pods. Every run is a process of its
+# own (a user's command, or a pod's payload run as the script it is in
+# its pod), all started at once: they are host-bound (start-ups, world
+# bring-ups, one nvcc build).
+
+ENTRY_TIMEOUT_S = 300
+# torch-smoke as a user runs it on the card: NCCL at world size 1, and 4
+# gloo ranks on CUDA tensors (phase 11's collectives world)
+TORCH_SMOKES = (
+    ("nccl world 1", ("--chips", "1", "--topology", "1x1", "--backend",
+                      "nccl")),
+    ("gloo world 4", ("--chips", "4", "--topology", "2x2", "--backend",
+                      "gloo")))
+TORCH_SMOKE_REPEAT = 3
+CI_STRINGS = ("DEVICES OK", "PLATFORM OK", "PSUM OK", "GLOBAL PSUM OK",
+              "CUDA KERNEL OK", "DEVICE GATE FAILED")
+
+
+def _timed_run(cmd, env=None) -> dict:
+    """One command as a process of its own, from the repository root:
+    exit code, wall seconds and both outputs."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=ENTRY_TIMEOUT_S)
+    return {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+            "stdout": res.stdout, "stderr": res.stderr}
+
+
+def _ci_lines(res) -> list:
+    return [line for line in (res["stdout"] + res["stderr"]).splitlines()
+            if line.startswith(CI_STRINGS)]
+
+
+def _pod_kernel(manifests, lib_path) -> dict:
+    """The kernel pod's library as the pod built it, loaded through
+    ctypes: its product against ``torch.matmul`` (TF32 off) and timed
+    beside it (median of 30, L2 flushed), with its bound."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib_path)).pod_matmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.randn((128, 128), generator=gen, device="cuda")
+    b = torch.randn((128, 128), generator=gen, device="cuda")
+    c = torch.empty_like(a)
+
+    def launch():
+        return fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 128,
+                  torch.cuda.current_stream().cuda_stream)
+
+    check(launch() == 0, "the kernel pod's kernel did not launch")
+    want = torch.matmul(a, b)
+    err = float((c - want).abs().max())
+    check(torch.allclose(c, want, atol=manifests.KERNEL_POD_ATOL),
+          f"the kernel pod's kernel: max_abs_err {err}")
+    ms = time_ms(launch)
+    plain_ms = time_ms(lambda: torch.matmul(a, b))
+    bound_ms, bound_by = bound(3 * 128 * 128 * 4, 2 * 128 ** 3,
+                               torch.float32)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": plain_ms, "library_call": "torch.matmul"}
+
+
+def entry_runs() -> dict:
+    """Phase 13's runs, all at once, each a process of its own:
+    ``torch-smoke`` through the CLI at NCCL world 1 and on 4 gloo ranks
+    on CUDA tensors, and each pod's payload from its generator run as a
+    script on the card: the gate pod allocated 1 and 2, the multi-host
+    payload as 1 replica x 1 GPU over tcp://127.0.0.1, the kernel pod
+    built into ``build/kind_tpu_sim_torch/``. Returns {"runs": {label:
+    run}, "wall_s": the wall of all of them}."""
+    import os
+
+    from kind_tpu_sim_torch import manifests
+    from kind_tpu_sim_torch.ops._build import BUILD_DIR
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scripts = {}
+        for name, make in (("gate", manifests.gate_payload),
+                           ("multihost", manifests.multihost_payload),
+                           ("kernel", manifests.kernel_payload)):
+            scripts[name] = Path(tmp) / f"{name}.py"
+            scripts[name].write_text(make())
+        coordinator = f"127.0.0.1:{free_port()}"
+
+        def payload(name, extra, *argv):
+            return _timed_run([sys.executable, str(scripts[name]), *argv],
+                              env={**os.environ, **extra})
+
+        runs = {
+            **{f"torch-smoke {label}": (
+                lambda argv=argv: _timed_run(
+                    [sys.executable, "-m", "kind_tpu_sim_torch",
+                     "torch-smoke", *argv, "--repeat",
+                     str(TORCH_SMOKE_REPEAT), "--json", "--device",
+                     "cuda"]))
+               for label, argv in TORCH_SMOKES},
+            "gate pod, allocated 1": lambda: payload(
+                "gate", {"TPU_SIM_GPUS": "1"}),
+            "gate pod, allocated 2": lambda: payload(
+                "gate", {"TPU_SIM_GPUS": "2"}),
+            "multihost payload, 1 replica x 1 GPU": lambda: payload(
+                "multihost", {"POD_NAME": "jax-tpu-0",
+                              "TPU_SIM_REPLICAS": "1", "TPU_SIM_GPUS": "1",
+                              "TPU_SIM_COORDINATOR": coordinator}),
+            "kernel pod": lambda: payload(
+                "kernel", {"TPU_SIM_GPUS": "1"}, "--build-dir",
+                str(BUILD_DIR)),
+        }
+        with ThreadPoolExecutor(len(runs)) as pool:
+            futures = {label: pool.submit(fn) for label, fn in runs.items()}
+            results = {label: f.result() for label, f in futures.items()}
+    return {"runs": results, "wall_s": time.perf_counter() - t0}
+
+
+def entry_points_phase(ran) -> dict:
+    """Phase 13's checks on ``entry_runs``' processes: ``torch-smoke`` ok
+    at NCCL world 1 and on 4 gloo ranks, every warm run faster than the
+    cold one, one worker across the runs; the gate pod allocated 1 passes
+    and allocated 2 must fail naming both counts; the multi-host payload
+    and the kernel pod pass. Every CI string seen is printed, with each
+    run's wall. Then the kernel pod's product is held to
+    ``torch.matmul`` and timed here (row 8's ``pod``)."""
+    from kind_tpu_sim_torch import manifests
+    from kind_tpu_sim_torch.ops._build import BUILD_DIR
+
+    out = {"runs_wall_s": ran["wall_s"]}
+    results = ran["runs"]
+    log(f"phase 13's runs: {ran['wall_s']:.1f} s, all at once")
+    for label, res in results.items():
+        log(f"phase 13 {label}: rc {res['rc']}, {res['wall_s']:.1f} s; "
+            f"CI strings {_ci_lines(res)}")
+        out[label] = {"rc": res["rc"], "wall_s": res["wall_s"],
+                      "ci": _ci_lines(res)}
+
+    for label, _ in TORCH_SMOKES:
+        res = results[f"torch-smoke {label}"]
+        check(res["rc"] == 0, f"torch-smoke {label} exited {res['rc']}:\n"
+              f"{res['stdout'][-3000:]}\n{res['stderr'][-3000:]}")
+        rep = json.loads(res["stdout"].strip().splitlines()[-1])
+        log(f"torch-smoke {label}: {json.dumps(rep)}")
+        check(rep["ok"] is True and len(rep["warm_suite_s"])
+              == TORCH_SMOKE_REPEAT - 1
+              and all(w < rep["cold_suite_s"] for w in rep["warm_suite_s"]),
+              f"torch-smoke {label}: {rep}")
+        out[f"torch-smoke {label}"]["report"] = rep
+
+    def passed(label, *strings):
+        res = results[label]
+        seen = "\n".join(_ci_lines(res))
+        check(res["rc"] == 0 and all(x in seen for x in strings),
+              f"{label}: rc {res['rc']}, CI strings {_ci_lines(res)}:\n"
+              f"{res['stdout'][-3000:]}\n{res['stderr'][-3000:]}")
+
+    passed("gate pod, allocated 1", "DEVICES OK", "PLATFORM OK", "PSUM OK")
+    passed("multihost payload, 1 replica x 1 GPU", "DEVICES OK",
+           "PLATFORM OK", "GLOBAL PSUM OK")
+    passed("kernel pod", "DEVICES OK", "PLATFORM OK", "CUDA KERNEL OK")
+    refused = results["gate pod, allocated 2"]
+    check(refused["rc"] != 0 and "DEVICE GATE FAILED" in refused["stderr"]
+          and "allocated 2" in refused["stderr"]
+          and "PSUM OK" not in refused["stdout"],
+          f"the gate let a pod allocated 2 GPUs through on one card: rc "
+          f"{refused['rc']}\n{refused['stdout']}\n{refused['stderr']}")
+
+    line = next(x for x in _ci_lines(results["kernel pod"])
+                if x.startswith("CUDA KERNEL OK"))
+    fields = dict(f.split("=", 1) for f in line.split() if "=" in f)
+    pod = {"source": "pods/cuda-kernel-pod.yaml",
+           "replaces": "pods/pallas-pod.yaml:28",
+           "launches": int(fields["launches"]),
+           "payload_max_abs_err": float(fields["max_abs_err"]),
+           "build_s": float(fields["build_s"]), "arch": fields["arch"],
+           **_pod_kernel(manifests, BUILD_DIR / manifests.KERNEL_LIBRARY)}
+    log(f"kernel pod: built for {pod['arch']} in {pod['build_s']:.2f} s, "
+        f"max_abs_err {pod['payload_max_abs_err']:.3e} in the pod, "
+        f"{pod['max_abs_err']:.3e} here; kernel {pod['ms']:.4f} ms, "
+        f"torch.matmul {pod['plain_ms']:.4f} ms, bound "
+        f"{pod['bound_ms']:.6f} ms ({pod['bound_by']})")
+    out["pod"] = pod
+    return out
+
+
+def free_port() -> int:
+    """A loopback port free when asked (its socket is closed again)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -4905,8 +5213,11 @@ def main() -> int:
     phase("6b MoE train", train_moe_phase, trainer, tf, fa, train_plain)
     toolchain_rows = phase("7 toolchain", toolchain_phase, tc)
     phase("8 train-smoke", train_smoke_phase, cli)
-    bench_routes = phase("9 bench", bench_phase, bench, fa, pa, im)
+    bench_routes, entry_routes = phase("9 bench", bench_phase, bench, fa,
+                                       pa, im)
     phase("10 profile", profile_phase, profiling, flagship)
+    entry = phase("13 entry points and pods",
+                  lambda: entry_points_phase(entry_runs()))
     # the forward and paged kernels' counts come from serving, the
     # backward kernels' from training (the forward's there is checked),
     # the int8 kernel's from 4g's solo W8A8 decode, the toolchain
@@ -4959,6 +5270,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in bench_routes:
             k["bench_launches_by_route"] = bench_routes[k["name"]]
+            k["bench_entry_launches_by_route"] = {
+                key: routes[k["name"]] for key, routes in entry_routes.items()
+                if k["name"] in BENCH_ENTRY_ROUTES[key]}
+    # row 8's pod: the kernel pod's own inline kernel (phase 13)
+    toolchain_rows[0]["pod"] = entry["pod"]
     kernels += toolchain_rows
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")

@@ -43,10 +43,42 @@ of the card's) records ``<key>_skipped``. An out-of-memory error trips
 reference trips it on ``RESOURCE_EXHAUSTED``. ``emit``, when given, is
 called with the result so far after each section.
 
+After the serving matrix come the reference's three entries that
+measure one mechanism each, where the reference runs them:
+
+* ``paged_tier_micro`` (``paged_tier_micro``): the gather tier against
+  the kernel tier of paged decode at long context and a small chunk, N
+  chained chunks a tier, at the reference's half scale for d2048 (8
+  slots, 1984 positions, chunk 8, N 16). Each tier's N chunks are one
+  CUDA graph (``graphs.round_runner``), the counterpart of the
+  reference's one ``lax.scan`` dispatch; its replay has no host round
+  trip inside, so no ``null_dt`` is subtracted. The two tiers must emit
+  the same tokens, or the entry records an error;
+* ``serving_realistic`` (``run_realistic``): the reference's 64-request
+  stream (40 independents over 224/1024/2048/3072-token prompts, 8
+  prefix families, 512 new tokens each) through ``PagedServingEngine``
+  with a 272-block pool, prefix caching and admission waves; the stream
+  and the engine are ``profile_serving``'s ``realistic_requests`` and
+  ``realistic_serving`` at the bench's sizes. It ends by emptying the
+  prefix cache, after which no block may be left in use;
+* ``speculative`` (``run_speculative``): solo ``speculative_generate``
+  over the first 256 tokens of the batch, 256 new tokens, ``draft_k`` 4,
+  one warm run, then one timed run. ``device_tokens_per_s`` is left out:
+  the reference derives it by subtracting a dispatch round trip per
+  verify step, and here no such round trip is measured.
+
+The last two run the flagship with ``flash=True`` and the realistic
+engine on the paged kernel tier, so that they go through the port's
+flash-attention and paged-attention kernels (the reference's model
+block runs them on XLA attention and the gather tier; the function
+computed is the same).
+
+``BENCH_FLAGSHIP=d1024`` picks ``bench_config()`` in place of
+``bench_config_large()`` on the card (``bench_model_config``), as the
+reference reads it; ``model`` in the result names the configuration.
+
 The reference's remote-tunnel child and probe machinery and its
-simulator smokes have no counterpart here; nor, yet, its
-``paged_tier_micro``, ``serving_realistic`` and solo ``speculative``
-entries.
+simulator smokes have no counterpart here.
 """
 
 from __future__ import annotations
@@ -55,6 +87,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -86,8 +119,40 @@ REQUIRED_ROOFLINE_KEYS = (
 )
 
 
+# the reference bench's realistic entry (bench.py:1236-1394): its
+# stream's sizes, its pool and its one warm prompt length
+REALISTIC_SIZES = {"independents": 40, "families": 8, "max_new": 512}
+REALISTIC_POOL_BLOCKS = 272
+REALISTIC_WARM_LENS = (224,)
+
+
 def stopwatch(name: str):
     return profiling.stopwatch(name, SECTION_S)
+
+
+def med(fn, n: int) -> float:
+    """The median host wall of ``n`` calls of ``fn``."""
+    samples = []
+    for _ in range(n):
+        t0 = time.monotonic()
+        fn()
+        samples.append(time.monotonic() - t0)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def bench_model_config(on_card: bool):
+    """The bench's model: the flagship (``bench_config_large``) on a
+    card, or ``bench_config()`` there when ``BENCH_FLAGSHIP=d1024`` (the
+    reference's knob, ``bench.py:306-310``); the tiny ``ModelConfig()``
+    on the CPU."""
+    from kind_tpu_sim_torch.models import transformer as tf
+
+    if not on_card:
+        return tf.ModelConfig()
+    flagship = os.environ.get("BENCH_FLAGSHIP", "large")
+    return (tf.bench_config() if flagship == "d1024"
+            else tf.bench_config_large())
 
 
 def model_throughput(emit=None, device="cuda") -> dict:
@@ -110,7 +175,7 @@ def model_throughput(emit=None, device="cuda") -> dict:
         # data sheet: none on the CPU
         spec = (F.chip_spec(torch.cuda.get_device_name(dev))
                 if on_card else None)
-        cfg = tf.bench_config_large() if on_card else tf.ModelConfig()
+        cfg = bench_model_config(on_card)
         batch = 8 if on_card else 2
         steps = 10 if on_card else 2
 
@@ -274,16 +339,7 @@ def model_throughput(emit=None, device="cuda") -> dict:
                           note_exc, release, _note)
 
         # Shared by the decode and serving sections, outside any one
-        # section's try: med() and the per-call overhead null_dt.
-        def med(fn, n):
-            samples = []
-            for _ in range(n):
-                t0 = time.monotonic()
-                fn()
-                samples.append(time.monotonic() - t0)
-            samples.sort()
-            return samples[len(samples) // 2]
-
+        # section's try: the per-call overhead null_dt.
         try:
             if result.get("device_poisoned"):
                 raise RuntimeError(
@@ -448,6 +504,20 @@ def model_throughput(emit=None, device="cuda") -> dict:
         if on_card:
             Serving(result, params, sparams, qparams, cfg, tokens, batch,
                     null_dt, null_ok, note_exc, release, _note).run_all()
+            # speculative decoding's tokens per verify step, solo
+            try:
+                if result.get("device_poisoned"):
+                    raise RuntimeError(
+                        "device poisoned by an earlier out-of-memory error")
+                with stopwatch("speculative"):
+                    result["speculative"] = run_speculative(
+                        sparams if sparams is not None
+                        else decode.serving_params(params, cfg),
+                        cfg, tokens)
+            except Exception as exc:
+                result["speculative_error"] = note_exc(exc)
+            release()
+            _note()
         return result
     except Exception as exc:
         result["error"] = str(exc)[:100]
@@ -895,7 +965,21 @@ class Serving:
             ("serving_longprompt_4k_chunked",
              lambda k: self.run_longprompt(k, LONG=4096, max_len=4224,
                                            prefill_chunk=64)),
+            ("paged_tier_micro", self.run_paged_tier_micro),
+            ("serving_realistic",
+             lambda k: run_realistic(self.result, k, self.sp, self.cfg,
+                                     self.tokens_h, self.null_dt,
+                                     self.null_ok)),
         )
+
+    def run_paged_tier_micro(self, key: str):
+        """The tier micro-bench at the reference's half scale for d2048
+        (``bench.py:1640-1650``)."""
+        self.require_serving()
+        half = ({"slots": 8, "ctx0": 1984} if self.cfg.d_model >= 2048
+                else {})
+        with stopwatch(key):
+            self.result[key] = paged_tier_micro(self.sp, self.cfg, **half)
 
     def run_saturated_int8(self, key: str):
         """W8A8 + int8 KV through the saturated pipelined schedule (a
@@ -997,6 +1081,179 @@ def measure_engine(result: dict, key: str, eng, reqs, tokens_h,
     result[key] = entry
     SECTION_S[key] = round(time.monotonic() - t_sec, 1)
     return entry
+
+
+def paged_tier_micro(sp, cfg, slots: int = 16, blk: int = 64,
+                     chunk: int = 8, N: int = 16, ctx0: int = 3968) -> dict:
+    """Gather against kernel tier of paged decode (the reference's
+    ``paged_tier_micro``, ``bench.py:1736-1810``): N chunks chained in
+    one compiled round a tier (a CUDA graph on a card, replayed; the
+    eager round on the CPU) at long context and a small chunk -- every
+    slot starts at ``ctx0`` positions over zeroed pools, greedy, with
+    ``ctx0 + N * chunk`` filling whole blocks. Reports each tier's ms a
+    chunk and tokens/s (the median of 3 replays, each ending in a
+    synchronize) and their ratio. Raises if the tiers' tokens differ.
+    Each tier runs 4 times: once to build and capture, 3 timed."""
+    from kind_tpu_sim_torch.models import graphs, paged
+
+    if (ctx0 + N * chunk) % blk:
+        raise ValueError(f"ctx0 + N * chunk = {ctx0 + N * chunk} is not a "
+                         f"whole number of {blk}-position blocks")
+    dev = sp["embed"].device
+    blocks_per = (ctx0 + chunk * N) // blk
+    width = paged.width_bucket(blocks_per)
+    pool_blocks = 1 + slots * blocks_per
+    tables_np = np.zeros((slots, width), np.int32)
+    for s in range(slots):
+        tables_np[s, :blocks_per] = 1 + s * blocks_per + np.arange(blocks_per)
+    tables = torch.as_tensor(tables_np, device=dev)
+    active = torch.ones((slots,), dtype=torch.bool, device=dev)
+    out: dict = {"slots": slots, "context": ctx0, "chunk": chunk,
+                 "chained_chunks": N, "table_width": width,
+                 "pool_blocks": pool_blocks}
+    emitted = {}
+    for name, step in (("gather", paged.paged_decode_chunk),
+                       ("kernel", paged.paged_decode_chunk_kernel)):
+        pools = paged.init_pools(cfg, pool_blocks, blk, device=dev)
+        lengths = torch.empty((slots,), dtype=torch.int32, device=dev)
+        last = torch.empty((slots,), dtype=torch.long, device=dev)
+        presence = torch.empty((slots, cfg.vocab_size), dtype=torch.bool,
+                               device=dev)
+
+        @torch.no_grad()
+        def chained(step=step, pools=pools, lengths=lengths, last=last,
+                    presence=presence):
+            # every run starts where the reference's does: ctx0 positions,
+            # token 1, nothing seen
+            lengths.fill_(ctx0)
+            last.fill_(1)
+            presence.zero_()
+            ems = []
+            for _ in range(N):
+                ems.append(step(sp, pools, tables, lengths, last, active,
+                                None, presence, cfg=cfg, chunk=chunk)[0])
+                lengths.add_(chunk)
+            return (torch.stack(ems),)
+
+        runner = graphs.round_runner(dev)
+        key = ("paged tier micro", name)
+        runner(key, chained)  # the kernels build; a card captures its graph
+        final = {}
+
+        def run():
+            final["emitted"] = runner(key, chained)[0]
+            profiling.synchronize()
+
+        t = med(run, 3)
+        emitted[name] = final["emitted"].cpu()
+        out[f"{name}_ms_per_chunk"] = round(1e3 * t / N, 3)
+        out[f"{name}_tokens_per_s"] = round(slots * chunk * N / t)
+        del pools, runner
+    if not torch.equal(emitted["gather"], emitted["kernel"]):
+        raise RuntimeError("paged_tier_micro: the gather and kernel tiers "
+                           "emitted different tokens")
+    out["gather_over_kernel"] = round(
+        out["gather_ms_per_chunk"] / out["kernel_ms_per_chunk"], 3)
+    return out
+
+
+def run_realistic(result: dict, key: str, sp, cfg, tokens_h, null_dt: float,
+                  null_ok: bool, sizes=None,
+                  pool_blocks: int = REALISTIC_POOL_BLOCKS) -> dict:
+    """The reference's ``run_realistic`` (``bench.py:1236-1394``): the
+    realistic stream at ``sizes`` (the reference's, ``REALISTIC_SIZES``,
+    by default) through ``PagedServingEngine`` on ``profile_serving``'s
+    realistic engine with a ``pool_blocks`` pool, the flagship with
+    flash attention. Warmed as the reference warms it (every prompt
+    bucket and wave size, then a throwaway family stored and hit and
+    the prefix cache emptied); the prefix-cache, pool and preemption
+    counters are reset where ``measure_engine`` resets the latencies,
+    after its own warm request. The entry is ``measure_engine``'s with
+    the reference's memory accounting; it is stored at ``result[key]``
+    and returned. Raises if a block is still in use once the prefix
+    cache has let go of its blocks."""
+    from kind_tpu_sim_torch import profile_serving as ps
+    from kind_tpu_sim_torch.models import serving
+
+    sizes = REALISTIC_SIZES if sizes is None else sizes
+    rcfg = dataclasses.replace(cfg, flash=True)
+    sc = ps.realistic_serving(pool_blocks)
+    eng = serving.PagedServingEngine(sp, rcfg, sc, device=sp["embed"].device)
+    base = tokens_h[0]
+    reqs = ps.realistic_requests(cfg.vocab_size, base=base, key=key, **sizes)
+    eng.warm_admission(ps.REALISTIC_LENS, sizes=sc.admission_wave_sizes)
+    warm_pre = ((base[:1024].astype(np.int64) + 31337)
+                % cfg.vocab_size).astype(int).tolist()
+    eng.submit(serving.Request(f"{key}wh", warm_pre, 2, cache_prefix=True))
+    eng.run()
+    eng.submit(serving.Request(f"{key}wm", warm_pre + [3] * 96, 2))
+    eng.run()
+    while eng.prefix_cache.evict_lru():
+        pass
+    inner_reset = eng.reset_latency
+
+    def reset_all():
+        # after measure_engine's warm request: the measured stream's
+        # counters start clean
+        inner_reset()
+        eng.prefix_cache.hits = 0
+        eng.prefix_cache.misses = 0
+        eng.prefix_cache.shared_blocks = 0
+        eng.alloc.peak_in_use = 0
+        eng.preemptions = 0
+
+    eng.reset_latency = reset_all
+    entry = measure_engine(result, key, eng, reqs, tokens_h, null_dt,
+                           null_ok, warm_lens=REALISTIC_WARM_LENS)
+    kv_pos_bytes = 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * 2
+    blk = sc.block_size
+    pc = eng.prefix_cache.report()
+    entry.update({
+        "pool_blocks": pool_blocks,
+        "block_size": blk,
+        "preemptions": eng.preemptions,
+        "peak_blocks_in_use": eng.alloc.peak_in_use,
+        "prefix_cache": pc,
+        "prefix_prefill_tokens_skipped": pc["shared_blocks"] * blk,
+        "prefix_hbm_saved_mb": round(
+            pc["shared_blocks"] * blk * kv_pos_bytes / 2**20, 1),
+        "pool_hbm_mb": round(pool_blocks * blk * kv_pos_bytes / 2**20),
+        "grid_equiv_hbm_mb": round(
+            sc.max_slots * sc.max_len * kv_pos_bytes / 2**20),
+    })
+    while eng.prefix_cache.evict_lru():
+        pass
+    if eng.alloc.in_use:
+        raise RuntimeError(f"{key}: {eng.alloc.in_use} blocks still in use "
+                           "after the stream, the prefix cache emptied")
+    return entry
+
+
+def run_speculative(sp, cfg, tokens, spec_new: int = 256,
+                    k: int = 4) -> dict:
+    """The reference's solo speculative entry (``bench.py:1694-1725``):
+    ``speculative_generate`` over ``tokens[:, :256]``, ``spec_new`` new
+    tokens, ``draft_k`` ``k``, the flagship with flash attention; one
+    warm run, then one timed run ending in a synchronize."""
+    from kind_tpu_sim_torch.models import speculative
+
+    dev = sp["embed"].device
+    scfg = dataclasses.replace(cfg, flash=True)
+    prompt = tokens[:, :256]
+    speculative.speculative_generate(sp, scfg, prompt, spec_new, draft_k=k,
+                                     device=dev)
+    profiling.synchronize()
+    t0 = time.monotonic()
+    _, stats = speculative.speculative_generate(
+        sp, scfg, prompt, spec_new, draft_k=k, return_stats=True, device=dev)
+    profiling.synchronize()
+    wall = time.monotonic() - t0
+    return {
+        "draft_k": k,
+        "verify_steps": stats["steps"],
+        "tokens_per_step": round((spec_new - 1) / max(stats["steps"], 1), 2),
+        "wall_tokens_per_s": round(prompt.shape[0] * spec_new / wall),
+    }
 
 
 # ---------------------------------------------------------------------

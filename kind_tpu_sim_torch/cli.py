@@ -7,6 +7,10 @@
     python -m kind_tpu_sim_torch slice-smoke [--topology T]
         [--accelerator A] [--ring-tokens N] [--num-slices N] [--serving]
         [--json] [--device cuda|cpu] [--backend gloo|nccl]
+    python -m kind_tpu_sim_torch torch-smoke [--chips N] [--topology T]
+        [--repeat N] [--json] [--device cuda|cpu] [--backend gloo|nccl]
+    python -m kind_tpu_sim_torch manifests torch-multihost [--topology T]
+        [--accelerator A] [--num-slices N] [--out FILE]
 
 ``train-smoke`` is the counterpart of ``python -m kind_tpu_sim
 train-smoke`` (``kind_tpu_sim/cli.py:run_train_smoke``): the training
@@ -32,6 +36,21 @@ rank, ``--num-slices`` launches a multislice job, ``--serving`` adds the
 serving reports. The ranks run on ``--device`` (the card unless ``cpu``
 is given) over ``--backend`` (gloo unless the caller names nccl, which
 takes one rank a card).
+
+``torch-smoke`` is the counterpart of ``python -m kind_tpu_sim
+jax-smoke`` (``kind_tpu_sim/cli.py:run_jax_smoke``): the collectives
+suite (``parallel/collectives.run_all`` over ``slice_mesh`` of
+``--topology``) submitted ``--repeat`` times to one persistent worker
+(``utils/worker_pool.py``) whose world of ``--chips`` ranks over
+``--backend`` on ``--device`` comes up once; the report has the
+reference's keys, the first run being the cold bring-up. It prints
+``TORCH SMOKE OK`` or ``TORCH SMOKE FAILED`` and exits 0 or 1.
+
+``manifests torch-multihost`` is the counterpart of ``python -m
+kind_tpu_sim manifests jax-multihost`` (``run_manifests``): the
+Services and StatefulSets of a ``torch.distributed`` world a slice over
+GPU nodes (``manifests.torch_multihost_manifest``), printed or written
+to ``--out``.
 """
 
 from __future__ import annotations
@@ -110,6 +129,37 @@ def build_parser() -> argparse.ArgumentParser:
                        help="torch device the ranks run on (default: cuda)")
     smoke.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                        help="torch.distributed backend (default: gloo)")
+
+    tsmoke = sub.add_parser(
+        "torch-smoke",
+        help=("no-cluster warm-path smoke: run the collectives suite on "
+              "one persistent worker and its live torch.distributed world "
+              "(utils/worker_pool) and report cold bring-up against warm "
+              "resubmission timings"))
+    tsmoke.add_argument("--chips", type=int, default=8,
+                        help="ranks of the worker's world")
+    tsmoke.add_argument("--topology", default="2x4")
+    tsmoke.add_argument("--repeat", type=int, default=3,
+                        help="total suite runs (first is the cold bring-up)")
+    tsmoke.add_argument("--json", action="store_true", dest="as_json")
+    tsmoke.add_argument("--device", default="cuda",
+                        help="torch device the ranks run on (default: cuda)")
+    tsmoke.add_argument("--backend", default="gloo",
+                        choices=("gloo", "nccl"),
+                        help="torch.distributed backend (default: gloo)")
+
+    man = sub.add_parser(
+        "manifests",
+        help="print a topology-derived workload manifest (no cluster "
+             "needed)")
+    man.add_argument("which", choices=["torch-multihost"])
+    man.add_argument("--topology", default=mesh.DEFAULT_TOPOLOGY)
+    man.add_argument("--accelerator", default=mesh.DEFAULT_ACCELERATOR,
+                     choices=sorted(mesh.ACCELERATORS))
+    man.add_argument("--num-slices", type=int, default=1,
+                     help="one torch.distributed world per slice")
+    man.add_argument("--out", default=None,
+                     help="write to this file instead of stdout")
     return parser
 
 
@@ -277,10 +327,74 @@ def run_slice_smoke(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def run_torch_smoke(args: argparse.Namespace) -> int:
+    """Warm-path smoke: one persistent worker, the collectives suite
+    submitted ``--repeat`` times. The first run pays the worker's
+    warm-up (torch's import and the world's bring-up); the rest measure
+    the warm path the pool exists for: the same processes and process
+    groups. ``ok`` also needs every run answered by the first's
+    worker."""
+    from kind_tpu_sim_torch.utils import worker_pool as wp
+
+    t0 = time.monotonic()
+    runs = []
+    with wp.WorkerPool(world=args.chips, backend=args.backend,
+                       device=args.device) as pool:
+        first = pool.submit("collectives_suite", topology=args.topology,
+                            timeout=300)
+        cold_s = time.monotonic() - t0
+        ok = bool(first["ok"])
+        for _ in range(max(0, args.repeat - 1)):
+            t1 = time.monotonic()
+            rep = pool.submit("collectives_suite", topology=args.topology,
+                              timeout=120)
+            runs.append(round(time.monotonic() - t1, 4))
+            ok = (ok and bool(rep["ok"])
+                  and rep["worker_pid"] == first["worker_pid"])
+        hello = pool.bringup()
+    report = {
+        "ok": ok,
+        "devices": first.get("devices"),
+        "worker_pid": first.get("worker_pid"),
+        "worker_warm_s": hello.get("warm_s"),
+        "cold_suite_s": round(cold_s, 3),
+        "warm_suite_s": runs,
+        "collectives": {k: v.get("ok") for k, v in first.items()
+                        if isinstance(v, dict) and "ok" in v},
+    }
+    if args.as_json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(f"worker {report['worker_pid']}: {report['devices']} "
+              f"devices ({args.backend} on {args.device}), warm-up "
+              f"{report['worker_warm_s']}s, cold suite "
+              f"{report['cold_suite_s']}s, warm {report['warm_suite_s']}")
+        print("TORCH SMOKE " + ("OK" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
+def run_manifests(args: argparse.Namespace) -> int:
+    from kind_tpu_sim_torch import manifests
+
+    text = manifests.torch_multihost_manifest(
+        args.accelerator, args.topology, num_slices=args.num_slices)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        print(f"wrote {args.out}")
+    else:
+        print(text, end="")
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "profile":
         return run_profile(args)
     if args.command == "slice-smoke":
         return run_slice_smoke(args)
+    if args.command == "torch-smoke":
+        return run_torch_smoke(args)
+    if args.command == "manifests":
+        return run_manifests(args)
     return run_train_smoke(args)

@@ -3,8 +3,8 @@ reference's virtual devices.
 
 The JAX package runs its meshes on 8 virtual CPU devices in one
 process. ``torch.distributed`` runs one process per rank, so
-``spawn(fn, world, backend=...)`` starts ``world`` processes with the
-``spawn`` start method, joins them into one process group, runs
+``spawn(fn, world, backend=..., device=...)`` starts ``world`` processes
+with the ``spawn`` start method, joins them into one process group, runs
 ``fn(*args)`` in each and returns rank 0's result:
 
 * the rendezvous is a ``file://`` store in a fresh temporary directory,
@@ -18,10 +18,14 @@ process. ``torch.distributed`` runs one process per rank, so
   ranks into a larger world instead (``tcp://host:port``, the ranks
   first_rank.. of it), as each simulated host of a slice does
   (``parallel/multihost.py``);
-* the caller names the backend (``gloo`` or ``nccl``); nothing picks
-  one. ``device="cuda"`` with ``nccl`` gives rank r card r; with
-  ``gloo`` every rank uses the card it is given (several ranks may
-  share one card).
+* the caller names the backend (``gloo`` or ``nccl``) and the device;
+  nothing picks either. ``device="cuda"`` with ``nccl`` gives rank r
+  card r; with ``gloo`` every rank uses the card it is given (several
+  ranks may share one card), and ``device="cpu"`` keeps the ranks on
+  the host.
+
+``join_world`` is one rank's side of it, for a process that starts its
+own ranks (``utils/worker_pool.py``).
 
 ``process_group(backend, ...)`` makes the calling process a world of
 one, for a mesh of one rank (NCCL on a single card).
@@ -55,28 +59,36 @@ def rank_device() -> torch.device:
     return _RANK_DEVICE
 
 
+def join_world(init_method: str, rank: int, world: int, local: int,
+               backend: str, device: str, timeout_s: float) -> None:
+    """Make this process rank ``rank`` of a world of ``world`` ranks
+    joined at ``init_method``, on ``device`` (``local``'s card under
+    NCCL), with one intra-op thread. ``rank_device()`` gives the device
+    after it."""
+    global _RANK_DEVICE
+    torch.set_num_threads(1)
+    if backend == "nccl":
+        _RANK_DEVICE = torch.device("cuda", local)
+    elif device.startswith("cuda"):
+        _RANK_DEVICE = torch.device("cuda", torch.device(device).index or 0)
+    if _RANK_DEVICE.type == "cuda":
+        torch.cuda.set_device(_RANK_DEVICE)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+
+
 def _rank_main(fn, args: Tuple, rank: int, world: int, store: str,
                backend: str, device: str, timeout_s: float, results,
                rendezvous=None) -> None:
-    global _RANK_DEVICE
-    torch.set_num_threads(1)
     local = rank
     init_method = f"file://{store}"
     if rendezvous is not None:
         init_method, first, world = rendezvous
         rank = first + local
     try:
-        if backend == "nccl":
-            _RANK_DEVICE = torch.device("cuda", local)
-        elif device.startswith("cuda"):
-            _RANK_DEVICE = torch.device("cuda", torch.device(device).index
-                                        or 0)
-        if _RANK_DEVICE.type == "cuda":
-            torch.cuda.set_device(_RANK_DEVICE)
-        dist.init_process_group(
-            backend, init_method=init_method, rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=timeout_s))
+        join_world(init_method, rank, world, local, backend, device,
+                   timeout_s)
         out = fn(*args)
         dist.barrier()
         # pickled to bytes here: the queue's own pickler would hand
@@ -96,11 +108,13 @@ def _rank_main(fn, args: Tuple, rank: int, world: int, store: str,
 
 
 def spawn(fn: Callable[..., Any], world: int, *args, backend: str,
-          device: str = "cpu", timeout_s: float = 120.0,
+          device: str, timeout_s: float = 120.0,
           rendezvous: Optional[Tuple[str, int, int]] = None) -> Any:
     """Run ``fn(*args)`` on ``world`` ranks of a fresh process group and
     return rank 0's result. ``fn`` must be importable by name (a
-    module-level function). Raises the first failing rank's exception,
+    module-level function). The caller names the backend and the device
+    (``"cuda"`` or ``"cpu"``); neither has a default. Raises the first
+    failing rank's exception,
     or RuntimeError when a rank dies or the deadline passes. With
     ``rendezvous`` the ``world`` ranks started here are ranks
     ``first_rank..`` of a world of ``world_size`` joined at

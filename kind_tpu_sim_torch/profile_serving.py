@@ -104,48 +104,55 @@ def realistic_serving(pool_blocks: int = 192) -> serving.ServingConfig:
     """The reference bench's realistic engine (``bench.py:1256-1274``) on
     the paged-kernel tier: 8 slots, ``max_len`` 3648, chunk 64, blocks
     of 64 positions, a fixed table width of 64, 8 prefix-cache entries,
-    admission waves of (1, 4, 8). The pool (the bench's 272 blocks)
-    starts at 192 here, far under the 8 x 50 blocks that eight 3072-token
-    prompts with their outputs would take, so growth preempts."""
+    admission waves of (1, 4, 8). The pool is 192 blocks by default (the
+    bench passes its 272), far under the 8 x 50 blocks that eight
+    3072-token prompts with their outputs would take, so growth
+    preempts."""
     return serving.ServingConfig(
         max_slots=8, max_len=3648, chunk=64, paged_blocks=pool_blocks,
         block_size=64, paged_width=64, paged_kernel=True,
         prefix_cache_entries=8, admission_wave_sizes=(1, 4, 8))
 
 
-def realistic_requests(vocab: int, logprobs: bool = False):
+def realistic_requests(vocab: int, logprobs: bool = False, *,
+                       independents: int = REALISTIC_INDEPENDENT,
+                       families: int = REALISTIC_FAMILIES,
+                       max_new: int = REALISTIC_MAX_NEW, base=None,
+                       key: str = "r"):
     """The reference bench's realistic stream (``bench.py:1276-1338``),
-    cut for card time by the ``REALISTIC_*`` constants above: 16
-    independent requests with prompts of ``REALISTIC_LENS`` tokens drawn
-    with ``RandomState(7)``, and 4 prefix families, each a 1024-token
-    head with ``cache_prefix=True`` and one member per suffix length
-    extending it; 128 new tokens a request, so 28 requests in all.
-    Prompt tokens tile one 1024-token row from ``RandomState(0)`` (the
-    bench tiles its token batch's first row), shifted per request. The
-    order is the bench's: a seeded permutation with each family's head
-    ahead of its members."""
+    cut for card time by default (the ``REALISTIC_*`` constants above;
+    the bench passes its own sizes): ``independents`` requests with
+    prompts of ``REALISTIC_LENS`` tokens drawn with ``RandomState(7)``,
+    and ``families`` prefix families, each a 1024-token head with
+    ``cache_prefix=True`` and one member per suffix length extending it;
+    ``max_new`` new tokens a request. Prompt tokens tile ``base`` (by
+    default one 1024-token row from ``RandomState(0)``; the bench passes
+    its token batch's first row, as the reference's does), shifted per
+    request. Request ids are the reference's with ``key`` as their
+    prefix. The order is the bench's: a seeded permutation with each
+    family's head ahead of its members."""
     rng = np.random.RandomState(7)
-    base = np.random.RandomState(0).randint(0, vocab, size=1024)
+    if base is None:
+        base = np.random.RandomState(0).randint(0, vocab, size=1024)
     reqs = []
-    max_new = REALISTIC_MAX_NEW
-    for i in range(REALISTIC_INDEPENDENT):
+    for i in range(independents):
         p_len = int(rng.choice(REALISTIC_LENS))
         reqs.append(serving.Request(
-            f"r{i}", ((np.resize(base, p_len) + i) % vocab).tolist(),
+            f"{key}{i}", ((np.resize(base, p_len) + i) % vocab).tolist(),
             max_new, logprobs=logprobs))
     fam_of = {}
-    for f in range(REALISTIC_FAMILIES):
+    for f in range(families):
         shared = ((np.resize(base, REALISTIC_HEAD) + 1000 + f)
                   % vocab).tolist()
-        reqs.append(serving.Request(f"rf{f}h", shared, max_new,
+        reqs.append(serving.Request(f"{key}f{f}h", shared, max_new,
                                     cache_prefix=True, logprobs=logprobs))
-        fam_of[f"rf{f}h"] = f
+        fam_of[f"{key}f{f}h"] = f
         for m, n in enumerate(REALISTIC_SUFFIXES):
             sfx = ((np.resize(base, n) + 7 * f + m) % vocab).tolist()
-            reqs.append(serving.Request(f"rf{f}m{m}", shared + sfx, max_new,
-                                        logprobs=logprobs))
-            fam_of[f"rf{f}m{m}"] = f
-    heads = {f"rf{f}h" for f in range(REALISTIC_FAMILIES)}
+            reqs.append(serving.Request(f"{key}f{f}m{m}", shared + sfx,
+                                        max_new, logprobs=logprobs))
+            fam_of[f"{key}f{f}m{m}"] = f
+    heads = {f"{key}f{f}h" for f in range(families)}
     seen_head, order, deferred = set(), [], {}
     for idx in rng.permutation(len(reqs)).tolist():
         r = reqs[idx]

@@ -204,3 +204,174 @@ def test_h100_calibration_is_calibrate_of_the_artifact():
         steps = [model.decode_step_s(c, batch=8, dtype=dtype)
                  for c in (0, 256, 1024, 4096)]
         assert steps == sorted(steps) and steps[-1] > steps[0]
+
+
+# ---------------------------------------------------------------------
+# the entries after the serving matrix: paged_tier_micro,
+# serving_realistic, speculative
+
+
+def _tree():
+    return ast.parse((ROOT / "bench.py").read_text())
+
+
+def _fn(tree, name):
+    return next(n for n in ast.walk(tree)
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def _reference_tier_micro_keys():
+    """paged_tier_micro's keys, its f-string keys expanded over the
+    tiers its loop names."""
+    fn = _fn(_tree(), "paged_tier_micro")
+    tiers = next(
+        [elt.elts[0].value for elt in node.iter.elts]
+        for node in ast.walk(fn) if isinstance(node, ast.For)
+        and isinstance(node.iter, ast.Tuple))
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.AnnAssign) and node.target.id == "out":
+            keys |= {k.value for k in node.value.keys}
+        elif (isinstance(node, ast.Assign)
+              and isinstance(node.targets[0], ast.Subscript)
+              and getattr(node.targets[0].value, "id", "") == "out"):
+            sl = node.targets[0].slice
+            if isinstance(sl, ast.Constant):
+                keys.add(sl.value)
+            else:
+                template = "".join(
+                    p.value if isinstance(p, ast.Constant) else "{}"
+                    for p in sl.values)
+                keys |= {template.format(t) for t in tiers}
+    return keys
+
+
+def _reference_realistic_keys():
+    """The keys run_realistic adds to measure_engine's entry."""
+    fn = _fn(_tree(), "run_realistic")
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", "") == "update"
+                and getattr(node.func.value, "id", "") == "entry"):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError("run_realistic updates no entry")
+
+
+def _reference_speculative_keys():
+    """The solo speculative entry's keys (its literal and the
+    conditional device_tokens_per_s)."""
+    fn = _fn(_tree(), "model_throughput")
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", "") == "entry"
+                and isinstance(node.value, ast.Dict)
+                and any(getattr(k, "value", "") == "draft_k"
+                        for k in node.value.keys)):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no speculative entry")
+
+
+def _reference_realistic_stream(key, tokens_h, vocab):
+    """The reference's realistic stream, built by its own statements
+    (``run_realistic``'s, from the RandomState(7) draw to the head
+    ordering) over the reference's Request."""
+    from kind_tpu_sim.models import serving as jserving
+
+    fn = _fn(_tree(), "run_realistic")
+    body = fn.body
+    start = next(i for i, n in enumerate(body) if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", "") == "rng")
+    stop = next(i for i, n in enumerate(body) if isinstance(n, ast.For)
+                and getattr(n.target, "id", "") == "rs")
+    code = compile(ast.Module(body=body[start:stop + 1], type_ignores=[]),
+                   "bench.py", "exec")
+    ns = {"np": np, "serving": jserving, "key": key, "tokens_h": tokens_h,
+          "cfg": type("Cfg", (), {"vocab_size": vocab})}
+    exec(code, ns)
+    return ns["fixed"]
+
+
+def test_full_size_realistic_stream_is_the_references():
+    from kind_tpu_sim_torch import profile_serving as ps
+
+    vocab = 32768
+    tokens_h = np.random.RandomState(3).randint(0, vocab, (8, 1024))
+    want = _reference_realistic_stream("serving_realistic", tokens_h, vocab)
+    got = ps.realistic_requests(vocab, base=tokens_h[0],
+                                key="serving_realistic",
+                                **pbench.REALISTIC_SIZES)
+    assert len(got) == len(want) == 64
+    assert [r.request_id for r in got] == [r.request_id for r in want]
+    assert [r.prompt for r in got] == [r.prompt for r in want]
+    assert [r.cache_prefix for r in got] == [r.cache_prefix for r in want]
+    assert {r.max_new for r in got} == {r.max_new for r in want} == {512}
+    assert sorted({len(r.prompt) for r in got}) == [224, 1024, 1120, 1152,
+                                                    2048, 3072]
+    order = [r.request_id for r in got]
+    for f in range(8):
+        head = order.index(f"serving_realisticf{f}h")
+        for m in range(2):
+            assert order.index(f"serving_realisticf{f}m{m}") > head
+
+
+def test_bench_flagship_knob(monkeypatch):
+    monkeypatch.delenv("BENCH_FLAGSHIP", raising=False)
+    assert pbench.bench_model_config(True) == ptf.bench_config_large()
+    monkeypatch.setenv("BENCH_FLAGSHIP", "d1024")
+    assert pbench.bench_model_config(True) == ptf.bench_config()
+    assert pbench.bench_model_config(False) == ptf.ModelConfig()
+    monkeypatch.setenv("BENCH_FLAGSHIP", "large")
+    assert pbench.bench_model_config(True) == ptf.bench_config_large()
+
+
+def _serving_params(cfg):
+    from kind_tpu_sim_torch.models import decode as pdecode
+
+    params = ptf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return pdecode.serving_params(params, cfg)
+
+
+def test_paged_tier_micro_on_the_cpu():
+    sp = _serving_params(CFG)
+    out = pbench.paged_tier_micro(sp, CFG, slots=2, blk=8, chunk=4, N=3,
+                                  ctx0=28)
+    assert set(out) == _reference_tier_micro_keys()
+    assert out["slots"] == 2 and out["context"] == 28
+    assert out["chunk"] == 4 and out["chained_chunks"] == 3
+    assert out["table_width"] == 8 and out["pool_blocks"] == 1 + 2 * 5
+    assert out["gather_over_kernel"] > 0
+    with pytest.raises(ValueError, match="whole number"):
+        pbench.paged_tier_micro(sp, CFG, slots=2, blk=8, chunk=4, N=3,
+                                ctx0=27)
+
+
+def test_speculative_entry_on_the_cpu():
+    sp = _serving_params(CFG)
+    tokens = torch.as_tensor(
+        np.random.RandomState(2).randint(0, CFG.vocab_size, (2, 300)))
+    out = pbench.run_speculative(sp, CFG, tokens, spec_new=12)
+    assert set(out) == _reference_speculative_keys() - {"device_tokens_per_s"}
+    assert out["draft_k"] == 4 and 1 <= out["verify_steps"] <= 11
+    assert out["tokens_per_step"] >= 1.0
+
+
+def test_realistic_entry_on_the_cpu():
+    """The realistic entry at a cut stream on a tiny model: the
+    reference's keys on top of measure_engine's, counters reset after
+    the warm-up, every block back once the prefix cache lets go."""
+    sp = _serving_params(CFG)
+    tokens_h = np.random.RandomState(4).randint(0, CFG.vocab_size, (2, 64))
+    result = {}
+    entry = pbench.run_realistic(
+        result, "serving_realistic", sp, CFG, tokens_h, 1e-6, True,
+        sizes={"independents": 2, "families": 1, "max_new": 3},
+        pool_blocks=120)
+    assert result["serving_realistic"] is entry
+    ref_keys, _ = _reference_measure_engine()
+    assert _reference_realistic_keys() <= set(entry)
+    assert set(entry) - _reference_realistic_keys() <= ref_keys
+    assert entry["requests"] == 5 and entry["generated_tokens"] == 15
+    assert entry["pool_blocks"] == 120 and entry["block_size"] == 64
+    assert entry["prefix_cache"]["hits"] == 2
+    assert entry["prefix_prefill_tokens_skipped"] == 2 * 1024
+    assert 0 < entry["peak_blocks_in_use"] <= 119

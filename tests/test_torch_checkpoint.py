@@ -190,7 +190,7 @@ def meshed(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("meshed")
     return launch.spawn(torch_parity.mesh_rank_checkpoint, 8, MESH_CFG,
-                        str(root), backend="gloo", timeout_s=150)
+                        str(root), backend="gloo", device="cpu", timeout_s=150)
 
 
 def test_meshed_train_and_resume(meshed, tmp_path):

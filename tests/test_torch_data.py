@@ -175,7 +175,7 @@ def test_pipeline_places_shards_on_mesh():
 
     cfg = dataclasses.replace(CFG, max_seq=16) if CFG.max_seq != 16 else CFG
     got = launch.spawn(torch_parity.mesh_rank_pipeline, 8, cfg, (4, 2),
-                       ("data", "model"), 8, 2, backend="gloo",
+                       ("data", "model"), 8, 2, backend="gloo", device="cpu",
                        timeout_s=120)
     want = list(jdata.input_pipeline(jax_cfg(cfg), batch=8, steps=2))
     assert {p.shape for p in got} == {(2, 2, cfg.max_seq)}

@@ -23,6 +23,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from kind_tpu_sim_torch import bench as pbench
 from kind_tpu_sim_torch import cli
 from kind_tpu_sim_torch import data as pdata
 from kind_tpu_sim_torch import device as pdevice
@@ -36,6 +37,7 @@ from kind_tpu_sim_torch.ops import _build
 from kind_tpu_sim_torch.ops import flash_attention as fa
 from kind_tpu_sim_torch.ops import int8_matmul as i8
 from kind_tpu_sim_torch.ops import toolchain as tc
+from kind_tpu_sim_torch.utils import worker_pool as pwp
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -157,6 +159,15 @@ def test_entry_points_without_a_card_raise(no_card, tmp_path):
     assert not (tmp_path / "ckpt").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train-smoke"])
+    # the warm-path smoke and its pool, and the bench (whose entries,
+    # paged_tier_micro, serving_realistic and speculative among them,
+    # run where its model lives)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["torch-smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pwp.WorkerPool(world=1, backend="gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbench.model_throughput()
     assert tc.toolchain_smoke(device="cpu")["ok"]
     assert pdevice.resolve("cpu").type == "cpu"
 

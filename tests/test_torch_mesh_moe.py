@@ -35,7 +35,7 @@ def test_moe_engines_on_a_mesh():
                              speculative_k=3), reqs=reqs)]
     got = launch.spawn(torch_parity.mesh_rank_serve, 4,
                        torch_parity.tree_numpy(jparams), cfg, (2, 2),
-                       ("data", "model"), cases, backend="gloo",
+                       ("data", "model"), cases, backend="gloo", device="cpu",
                        timeout_s=150)
     want = torch_parity.jax_serve(jparams, cfg, "ServingEngine",
                                   cases[0]["knobs"], reqs)

@@ -49,7 +49,7 @@ def tp(weights):
              int8=True, mesh=((2,), ("data",))),
     ]
     return launch.spawn(torch_parity.mesh_rank_serve, 2, weights[2], CFG,
-                        (2,), ("model",), cases, backend="gloo",
+                        (2,), ("model",), cases, backend="gloo", device="cpu",
                         timeout_s=150)
 
 

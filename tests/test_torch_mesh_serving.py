@@ -75,7 +75,7 @@ def grid(weights, draft):
     ]
     return launch.spawn(torch_parity.mesh_rank_serve, 4, weights[2], CFG,
                         (2, 2), ("data", "model"), cases, backend="gloo",
-                        timeout_s=150)
+                        device="cpu", timeout_s=150)
 
 
 @pytest.fixture(scope="module")

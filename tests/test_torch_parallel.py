@@ -23,7 +23,7 @@ import torch_parity
 @pytest.fixture(scope="module")
 def world():
     return launch.spawn(torch_parity.mesh_rank_smokes, 8, backend="gloo",
-                        timeout_s=120)
+                        device="cpu", timeout_s=120)
 
 
 def test_training_mesh_shapes(world):
@@ -83,7 +83,7 @@ def test_reports_equal_the_reference():
     from kind_tpu_sim.parallel import mesh as jmesh
 
     got = launch.spawn(torch_parity.mesh_rank_smokes, 8, backend="gloo",
-                       timeout_s=120)
+                       device="cpu", timeout_s=120)
     s8 = jmesh.slice_mesh(T.make_slice(topology="2x4"))
     assert got["psum"] == jcoll.psum_smoke(s8)
     assert got["ppermute"] == jcoll.ring_permute_smoke(s8)
@@ -127,7 +127,7 @@ def test_a_rank_that_raises_fails_the_spawn():
     t0 = time.monotonic()
     with pytest.raises(ValueError, match="rank 2 refuses") as info:
         launch.spawn(torch_parity.rank_raises, 4, 2, backend="gloo",
-                     timeout_s=30)
+                     device="cpu", timeout_s=30)
     assert time.monotonic() - t0 < 30
     assert any("rank 2 of 4" in n for n in getattr(info.value,
                                                    "__notes__", []))
@@ -137,10 +137,18 @@ def test_a_rank_that_dies_fails_the_spawn_within_its_deadline():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 of 3 died"):
         launch.spawn(torch_parity.rank_dies, 3, 1, backend="gloo",
-                     timeout_s=30)
+                     device="cpu", timeout_s=30)
     assert time.monotonic() - t0 < 30
 
 
 def test_spawn_names_its_backend():
     with pytest.raises(ValueError, match="backend"):
-        launch.spawn(torch_parity.rank_raises, 2, 0, backend="mpi")
+        launch.spawn(torch_parity.rank_raises, 2, 0, backend="mpi",
+                     device="cpu")
+
+
+def test_spawn_names_its_device():
+    """The caller names the device as it names the backend: a spawn
+    without one is refused before any rank starts."""
+    with pytest.raises(TypeError, match="device"):
+        launch.spawn(torch_parity.rank_raises, 2, 0, backend="gloo")

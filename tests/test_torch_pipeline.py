@@ -6,8 +6,16 @@ reference's slow case, run here), extra microbatches, a (data, stage)
 mesh, a ragged batch and the stacked parameters' shapes, each held to
 the reference's pipeline and to its plain forward. The port's ranks are
 gloo worlds of 2, 4 and 8 (a mesh spans its world), started at once.
+
+A 4-expert Switch-MoE config runs on the ('stage', 4) and ('data', 2,
+'stage', 4) worlds, its router biased by 0 and by 3 (most tokens then
+pick expert 0 and capacity drops tokens), held at 2e-4 to the
+reference's pipeline alone: both pipelines route each microbatch by
+itself, so neither equals the plain forward there (ROADMAP Queue C,
+C-11).
 """
 
+import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -23,6 +31,10 @@ TOL = 2e-4
 # tests/test_pipeline.py's cfg: fp32, 4 layers
 CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=4,
                       d_ff=64, max_seq=16, dtype="float32")
+MOE = dataclasses.replace(CFG, n_experts=4)
+# router bias -> the MoE tree, the reference's init with it added
+MOE_TREES = {bias: torch_parity.init_tree(MOE, router_bias=bias)
+             for bias in (0.0, 3.0)}
 
 
 def _tokens(seed, batch):
@@ -31,13 +43,25 @@ def _tokens(seed, batch):
              + np.arange(16)[None, :]) % CFG.vocab_size).astype(np.int64)
 
 
-# world -> (mesh shape, names, [(name, tokens, n_microbatches)])
+def _moe(bias):
+    return (MOE_TREES[bias], MOE)
+
+
+# world -> (mesh shape, names, [(name, tokens, n_microbatches[, (tree,
+# cfg)])])
 WORLDS = {
     2: ((2,), ("stage",), [("stages_2", _tokens(1, 4), None),
                            ("extra_microbatches", _tokens(2, 8), 4)]),
     4: ((4,), ("stage",), [("stages_4", _tokens(1, 8), None),
-                           ("ragged", _tokens(4, 6), None)]),
-    8: ((2, 4), ("data", "stage"), [("data_stage", _tokens(3, 8), None)]),
+                           ("ragged", _tokens(4, 6), None),
+                           ("moe_stages_4_bias_0", _tokens(5, 8), None,
+                            _moe(0.0)),
+                           ("moe_stages_4_bias_3", _tokens(5, 8), None,
+                            _moe(3.0))]),
+    8: ((2, 4), ("data", "stage"), [
+        ("data_stage", _tokens(3, 8), None),
+        ("moe_data_stage_bias_0", _tokens(6, 8), None, _moe(0.0)),
+        ("moe_data_stage_bias_3", _tokens(6, 8), None, _moe(3.0))]),
 }
 
 
@@ -51,18 +75,19 @@ def results(tree):
     def run(world):
         shape, names, cases = WORLDS[world]
         return launch.spawn(torch_parity.mesh_rank_pipe, world, tree, CFG,
-                            shape, names, [(t, m) for _, t, m in cases],
-                            backend="gloo", timeout_s=120)
+                            shape, names,
+                            [(t, m, *own) for _, t, m, *own in cases],
+                            backend="gloo", device="cpu", timeout_s=120)
 
     with ThreadPoolExecutor(len(WORLDS)) as pool:
         outs = dict(zip(WORLDS, pool.map(run, WORLDS)))
-    return {name: got for world, (_, _, cases) in WORLDS.items()
-            for (name, _, _), got in zip(cases, outs[world])}
+    return {case[0]: got for world, (_, _, cases) in WORLDS.items()
+            for case, got in zip(cases, outs[world])}
 
 
 def _case(name):
     for shape, names, cases in WORLDS.values():
-        for cname, tokens, n_micro in cases:
+        for cname, tokens, n_micro, *own in cases:
             if cname == name:
                 return shape, names, tokens, n_micro
     raise KeyError(name)
@@ -87,6 +112,25 @@ def test_pipeline_matches_the_reference(results, tree, name):
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
     plain = np.asarray(jtf.forward(params, toks, torch_parity.jax_cfg(CFG)))
     np.testing.assert_allclose(got, plain, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["moe_stages_4_bias_0",
+                                  "moe_stages_4_bias_3",
+                                  "moe_data_stage_bias_0",
+                                  "moe_data_stage_bias_3"])
+def test_moe_pipeline_matches_the_reference(results, name):
+    import jax
+    import jax.numpy as jnp
+
+    from kind_tpu_sim.parallel import pipeline as jpipe
+
+    shape, names, tokens, n_micro = _case(name)
+    bias = 3.0 if name.endswith("3") else 0.0
+    params = jax.tree_util.tree_map(jnp.asarray, MOE_TREES[bias])
+    want = np.asarray(jpipe.pipeline_forward(
+        params, jnp.asarray(tokens, jnp.int32), torch_parity.jax_cfg(MOE),
+        torch_parity.jax_mesh(shape, names), n_microbatches=n_micro))
+    np.testing.assert_allclose(results[name], want, atol=TOL, rtol=TOL)
 
 
 def test_pipeline_rejects_ragged_batch(results):

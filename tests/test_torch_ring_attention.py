@@ -57,7 +57,7 @@ def world():
     cases.append(dict(shape=(8,), names=("chip",), axis="chip",
                       qkv=GRAD_QKV, causal=True, grads=True))
     results, smoke, bench = launch.spawn(torch_parity.mesh_rank_ring, 8,
-                                         cases, backend="gloo",
+                                         cases, backend="gloo", device="cpu",
                                          timeout_s=120)
     return dict(zip(list(CASES) + ["grads"], results)), smoke, bench
 

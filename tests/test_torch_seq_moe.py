@@ -38,7 +38,8 @@ def tree():
 @pytest.fixture(scope="module")
 def world(tree):
     return launch.spawn(torch_parity.mesh_rank_seq_moe, 8, tree, MOE,
-                        BATCHES, X, backend="gloo", timeout_s=120)
+                        BATCHES, X, backend="gloo", device="cpu",
+                        timeout_s=120)
 
 
 def _jnp_tree(tree):

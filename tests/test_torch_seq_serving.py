@@ -44,7 +44,8 @@ def port(jparams):
                   mesh=(shape, NAMES)) for engine, shape in CASES]
     return launch.spawn(torch_parity.mesh_rank_serve, 4,
                         torch_parity.tree_numpy(jparams), CFG, MESHES[0],
-                        NAMES, cases, backend="gloo", timeout_s=120)
+                        NAMES, cases, backend="gloo", device="cpu",
+                        timeout_s=120)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)),

@@ -43,7 +43,7 @@ def tree():
 def world(tree, tmp_path_factory):
     root = tmp_path_factory.mktemp("seq_checkpoint")
     return launch.spawn(torch_parity.mesh_rank_seq, 8, tree, CFG, BATCHES,
-                        str(root), backend="gloo", timeout_s=120)
+                        str(root), backend="gloo", device="cpu", timeout_s=120)
 
 
 @pytest.fixture(scope="module")

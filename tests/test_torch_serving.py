@@ -458,7 +458,7 @@ def test_mesh_and_deadline_raise(params):
         CFG, (2,), ("data",),
         [dict(engine="ServingEngine", knobs=knobs, reqs=reqs),
          dict(engine="ServingEngine", knobs=dict(knobs, max_slots=3),
-              reqs=[])], backend="gloo", timeout_s=120)
+              reqs=[])], backend="gloo", device="cpu", timeout_s=120)
     assert meshed[0] == torch_parity.serve_plain(params[1], CFG,
                                                  "ServingEngine", knobs, reqs)
     assert bad[0] == "raise" and "divisible" in bad[1]

@@ -57,7 +57,7 @@ def tp22():
     """The port at training_mesh(2, 2) (4 gloo ranks), GQA config."""
     return launch.spawn(torch_parity.mesh_rank_tp, 4, _tree(GQA), GQA,
                         (2, 2), ("data", "model"), _batches(GQA),
-                        backend="gloo", timeout_s=120)
+                        backend="gloo", device="cpu", timeout_s=120)
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def tp2():
     """The port at ('model', 2) (2 gloo ranks)."""
     return launch.spawn(torch_parity.mesh_rank_tp, 2, _tree(GQA), GQA,
                         (2,), ("model",), _batches(GQA)[:1],
-                        backend="gloo", timeout_s=120)
+                        backend="gloo", device="cpu", timeout_s=120)
 
 
 def test_shard_then_gather_is_the_tree(tp22, tp2):
@@ -157,7 +157,8 @@ def test_moe_over_an_expert_axis_matches_jax():
     x = np.random.RandomState(1).randn(8, 8, 32).astype(np.float32)
     (out, aux), trained = launch.spawn(
         torch_parity.mesh_rank_moe, 4, tree, MOE, (2, 2),
-        ("data", "expert"), batches, x, backend="gloo", timeout_s=120)
+        ("data", "expert"), batches, x, backend="gloo", device="cpu",
+        timeout_s=120)
     mp = jax.tree_util.tree_map(jnp.asarray, tree["blocks"][0]["moe"])
     want_out, want_aux = jmoe.moe_mlp(jnp.asarray(x), mp, jmoe.MoeConfig(4))
     np.testing.assert_allclose(out, np.asarray(want_out), atol=1e-5,

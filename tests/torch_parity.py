@@ -670,7 +670,8 @@ def mesh_rank_seq_moe(tree, cfg, batches, x):
 def mesh_rank_pipe(tree, cfg, shape, names, cases):
     """On every rank of ``Mesh(shape, names)``: ``pipeline_forward`` of
     each (tokens, n_microbatches) case -> whole logits, or the message
-    it raises."""
+    it raises. A case (tokens, n_microbatches, (tree, cfg)) runs its own
+    weights and config."""
     import torch
 
     from kind_tpu_sim_torch.parallel import pipeline
@@ -679,12 +680,16 @@ def mesh_rank_pipe(tree, cfg, shape, names, cases):
     mesh = Mesh(shape, names)
     params = params_from_numpy(tree, cfg, device="cpu")
     out = []
-    for tokens, n_micro in cases:
+    for tokens, n_micro, *own in cases:
+        case_params, case_cfg = params, cfg
+        if own:
+            case_tree, case_cfg = own[0]
+            case_params = params_from_numpy(case_tree, case_cfg, device="cpu")
         try:
             with torch.no_grad():
                 out.append(pipeline.pipeline_forward(
-                    params, torch.as_tensor(tokens).long(), cfg, mesh,
-                    n_microbatches=n_micro).numpy())
+                    case_params, torch.as_tensor(tokens).long(), case_cfg,
+                    mesh, n_microbatches=n_micro).numpy())
         except ValueError as exc:
             out.append(str(exc))
     return out
