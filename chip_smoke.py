@@ -47,7 +47,10 @@ it fails (nothing is caught and ignored):
    int8 KV) through the dense grid and the paged gather tier, and a
    tiny 4-expert MoE through the dense grid, the paged kernel tier and
    the speculative grid and as a wave of 5 whose first tokens equal
-   each prompt admitted alone;
+   each prompt admitted alone. The streams include dense prefix hits
+   (a stored head restored into two slots, a wave of two misses); each
+   stream's admission graphs captured and replayed on the card number
+   the CPU run's distinct admission programs and their repeats;
 4. serve  -- 16 greedy requests (prompts of 192/224/256 tokens, 128
    new tokens each) through ``PagedServingEngine(paged_kernel=True)``
    at full width, with the kernels' launch counters zeroed just before
@@ -56,15 +59,22 @@ it fails (nothing is caught and ignored):
    requests with 224-3072-token prompts and prefix families; prefix
    caching, admission waves, a pool under demand) on the kernel tier,
    counters zeroed just before and read just after: hits, preemption,
-   shared blocks never written, no leaked block, launch counts;
+   shared blocks never written, no leaked block, launch counts,
+   ``warm_admission``'s captures; then a cut stream with the admission
+   graphs and again with eager admission (``admission_runs``: streams
+   equal, logprobs within 1e-4, admission wall both ways);
    4c. hit against cold -- the families' members through prefix hits
    against the same members cold (first-token logprobs and logits),
    and the same comparison read on faulty suffix forwards, which must
    fail it;
    4d. long prompt -- the dense long-prompt stream (8 x 224 tokens, then
-   768) with and without chunked prefill;
+   768) with and without chunked prefill, each again through
+   ``admission_runs``;
    4e. speculative -- solo ``speculative_generate`` (8 x 256 tokens, 256
-   new, k 4) against ``greedy_generate``; ``SpeculativeServingEngine``
+   new, k 4; its prefill and verify step graphs) against
+   ``greedy_generate`` and against the same call eager (tokens and
+   steps equal; tok/s both ways), and solo ``draft_model_generate``
+   (a random 2-layer draft) the same way; ``SpeculativeServingEngine``
    and ``PagedSpeculativeServingEngine`` (k 4, 4 windows a round) on
    phase 4's stream, held to phase 4's streams; the reference bench's
    motif stream at 64 windows a round (512 new tokens) beside the
@@ -93,28 +103,36 @@ it fails (nothing is caught and ignored):
    paged kernel tier, the dense grid and the speculative grid, each
    first token held to its prompt admitted alone;
    4i. compiled rounds -- every engine's rounds as CUDA graph replays
-   against the same engine's eager rounds, on phase 4's stream: the
-   dense grid, the paged gather and kernel tiers, the prompt-lookup
-   grid, the paged speculative engine, the draft-model grid, W8A8 with
-   the int8 KV cache and the MoE kernel tier, three runs of each path in
-   turns: streams equal, logprobs within 1e-4, the same launches in
-   every run; graphs captured, capture time, replays, tok/s, step wall
-   and a traced round's device busy share for both paths;
+   against the same engine's eager rounds, on phase 4's stream at the
+   flagship's widths and 2 of its 8 layers: the dense grid, the paged
+   gather and kernel tiers, the prompt-lookup grid, the paged
+   speculative engine, the draft-model grid, W8A8 with the int8 KV
+   cache and the MoE kernel tier, two graph runs and one eager run of
+   each in turns (graph runs admit through the admission graphs, eager
+   runs eagerly): streams equal, logprobs within 1e-4, the same
+   launches in every run; graphs captured (rounds and admission),
+   capture time, replays, tok/s, step wall and a traced round's device
+   busy share for both paths;
 5. small_train -- a tiny fp32 flash GQA model trains 5 AdamW steps on
    the card; losses and final parameters must match the same steps on
    the CPU plain path; then a tiny 4-expert MoE the same way (losses
    with the auxiliary term, the first step's gradients);
 6. train  -- the flagship training workload of
-   ``kind_tpu_sim_torch.profile_train`` at full width and depth: one
-   warm-up step, then 5 timed steps with the launch counters zeroed
+   ``kind_tpu_sim_torch.profile_train`` at full width and depth, the
+   compiled step (``train_twins``: its first step eager and captured,
+   the rest replays) against the same steps eager from the same state:
+   one warm-up step, then 5 timed steps with the launch counters zeroed
    just before; every loss finite, each flash kernel launched exactly
-   n_layers x steps times; then one flagship step with ``remat=True``
-   after a warm-up, its peak device memory beside the plain step's, the
-   flash forward launched twice per layer (forward and recompute);
-   6b. MoE training -- the flagship with 4 experts, one warm-up and 3
-   timed steps: finite losses, the auxiliary term at least 0.99 x its
-   weight, the flash kernels n_layers x steps each, step wall and peak
-   memory beside the dense step's;
+   n_layers x steps times, losses and parameters bitwise equal, step
+   wall and peak memory both ways; then one flagship step with
+   ``remat=True`` the same way, its peak device memory beside the plain
+   step's, the flash forward launched twice per layer (forward and
+   recompute);
+   6b. MoE training -- the flagship with 4 experts the same way (phase
+   6's graphs freed first), one warm-up and 3 timed steps: finite
+   losses, the auxiliary term at least 0.99 x its weight, the flash
+   kernels n_layers x steps each, step wall and peak memory beside the
+   dense step's;
 7. toolchain -- the kernel-toolchain gate ``toolchain_smoke`` on the
    card (the matmul, rms_norm and softmax kernels, each launched once),
    then each of the three at flagship width against its plain version,
@@ -125,11 +143,12 @@ it fails (nothing is caught and ignored):
 8. train_smoke -- ``python -m kind_tpu_sim_torch train-smoke --steps 10
    --checkpoint-dir <tmp> --json`` in-process: data pipeline, train
    steps and the checkpoint/resume round trip on the card;
-9. bench -- ``kind_tpu_sim_torch.bench.model_throughput()`` once, the
-   reference bench's model block at the flagship (``bench_config_large``,
-   batch 8): the forward, the dense and flash train steps, the 4k-token
-   forward and forward+backward, prefill and the compiled decode in
-   bf16, W8A8 and dequant, and the serving matrix; with the launch
+9. bench -- ``kind_tpu_sim_torch.bench.model_throughput(n_layers=2)``
+   once, the reference bench's model block at the flagship's widths
+   (``bench_config_large``, batch 8) and 2 of its 8 layers: the
+   forward, the dense and flash train steps, the 4k-token forward and
+   forward+backward, prefill and the compiled decode in bf16, W8A8 and
+   dequant, and the serving matrix; with the launch
    counters zeroed just before and read just after. Its
    ``headline_numbers`` are printed on a line of their own and the whole
    result is written to ``build/chip_smoke_bench.json``. It fails
@@ -160,7 +179,8 @@ it fails (nothing is caught and ignored):
    against unsharded, 0 paged-kernel launches and the flash forward on
    the tensor cores on every rank; the dense engine on an NCCL mesh of
    world size 1 (its rounds CUDA graphs, the collectives captured),
-   bitwise against the unsharded graphed engine; 3 AdamW steps of phase
+   bitwise against the unsharded graphed engine, and 3 compiled AdamW
+   steps there bitwise against 3 eager ones; 3 AdamW steps of phase
    6's training at ('model', 2) and ('data', 2) and 2 of the 4-expert
    flagship at ('expert', 2) (batch 8), the losses within rtol 2e-2 of
    the unsharded steps', each rank's peak memory; the flash forward and
@@ -184,11 +204,16 @@ it fails (nothing is caught and ignored):
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
 
-Every serving round on the card is a CUDA graph replay
-(``kind_tpu_sim_torch/models/graphs.py``): an engine's first round of a
-key runs eagerly and captures the graph, so the walls of phases 3-4h
-hold their engines' captures. The kernels' launch counts hold the
-replayed launches.
+Every serving round and admission program on the card is a CUDA graph
+replay (``kind_tpu_sim_torch/models/graphs.py``), and so are the solo
+speculative generators' steps and every train step after a trainer's
+first: an engine's first call of a key runs eagerly and captures the
+graph. The timed engines of 4e-4h are warmed first by one short request
+of their stream (``_warmed``: its round and admission captured, its
+counters reset), so their timed runs replay; 4g(a)'s solo decode is the
+bench's compiled decode (``graphs.DecodeProgram``), captured by an
+untimed first pass. The kernels' launch counts hold the replayed
+launches.
 
 The matmul, the flash forward and the flash backward's dq and dk/dv
 kernels each have two kernels, a route chosen from the inputs: wgmma
@@ -235,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import gzip
 import io
 import json
@@ -304,8 +330,18 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+# each line's seconds since the start, written beside the output to
+# build/chip_smoke_timeline.txt once main() has found the card and the
+# package: where a run's time went, line by line
+_START = time.perf_counter()
+_TIMELINE = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _TIMELINE is not None:
+        _TIMELINE.write(f"{time.perf_counter() - _START:8.1f} {msg[:160]}\n")
+        _TIMELINE.flush()
 
 
 # ---------------------------------------------------------------------
@@ -1368,6 +1404,16 @@ def small_streams(serving, rng, vocab: int) -> dict:
     head = prompt(32)
     paged = dict(max_len=80, chunk=8, block_size=16, paged_kernel=True)
     return {
+        # a head stored (its rows copied into the prefix arena), then two
+        # members restored from it, their suffixes run against it, and a
+        # wave of two misses of the head's bucket
+        "dense prefix hits": (
+            serving.ServingEngine,
+            serving.ServingConfig(max_slots=4, max_len=80, chunk=8,
+                                  prefix_cache_entries=4),
+            [{"h": (head, dict(cache_prefix=True))},
+             {"m0": (head + prompt(5), {}), "m1": (head + prompt(9), {}),
+              "d0": (prompt(20), {}), "d1": (prompt(27), {})}]),
         # a head stored for sharing (2 blocks), then two members
         # pointed at its blocks
         "paged prefix hits": (
@@ -1473,6 +1519,15 @@ def small_phase(tf, serving, fa, pa) -> None:
     def run(engine, sc, waves, p, device, draft=False):
         extra = {"draft": drafts[device]} if draft else {}
         eng = engine(p, cfg, sc, device=device, **extra)
+        programs = []
+        if device == "cpu":
+            # the admission programs the stream runs: their keys and
+            # count, which the card's graphs must capture and replay
+            def counted(key, fn):
+                programs.append(key)
+                return fn()
+
+            eng._admit_round = counted
         done = {}
         for wave in waves:
             for rid, (prompt, kw) in wave.items():
@@ -1480,10 +1535,18 @@ def small_phase(tf, serving, fa, pa) -> None:
             done.update({c.request_id: c.tokens for c in eng.run()})
         rep = eng.report()
         check(rep.get("paged", {}).get("blocks_in_use", 0)
-              == sum(len(e["blocks"]) for e in getattr(
+              == sum(len(e.get("blocks", ())) for e in getattr(
                   eng.prefix_cache, "entries", {}).values()),
               f"small phase ({device}): blocks left in use beyond the "
               "prefix cache's")
+        if device == "cpu":
+            rep["admission"] = (len(set(programs)),
+                                len(programs) - len(set(programs)))
+        else:
+            runner = eng._admit_round
+            check(runner.__class__.__name__ == "RoundGraphs",
+                  f"small phase: admission runs through {runner!r}")
+            rep["admission"] = (runner.captured, runner.replays)
         return done, rep
 
     for name, (engine, sc, waves, *draft) in streams.items():
@@ -1508,7 +1571,7 @@ def small_phase(tf, serving, fa, pa) -> None:
                      pa.paged_attention, 0, n_paged)
         plain, plain_rep = run(engine, sc, waves, cpu_params, "cpu",
                                bool(draft))
-        for key in ("prefix_cache", "waves", "suffix_windows"):
+        for key in ("prefix_cache", "waves", "suffix_windows", "admission"):
             check(rep.get(key) == plain_rep.get(key),
                   f"small phase {name}: {key} {rep.get(key)} on the card, "
                   f"{plain_rep.get(key)} on the CPU")
@@ -1524,8 +1587,19 @@ def small_phase(tf, serving, fa, pa) -> None:
             f"{rep.get('prefix_cache')}, preemptions "
             f"{rep.get('paged', {}).get('preemptions')}, speculative "
             f"{rep.get('speculative')} (CPU "
-            f"{plain_rep.get('speculative')})")
-        if name == "paged prefix hits":
+            f"{plain_rep.get('speculative')}); admission graphs captured, "
+            f"replays {rep['admission']} (the CPU's distinct programs, "
+            "repeats)")
+        if name in ("dense prefix hits", "dense chunked prefill",
+                    "under pool pressure"):
+            check(rep["admission"][1] > 0,
+                  f"small phase {name}: no admission graph replayed")
+        if name == "dense prefix hits":
+            check(rep["prefix_cache"]["hits"] == 2
+                  and rep["suffix_windows"] == 2 and rep["waves"],
+                  f"small phase {name}: {rep['prefix_cache']}, suffix "
+                  f"windows {rep['suffix_windows']}, waves {rep['waves']}")
+        elif name == "paged prefix hits":
             check(rep["prefix_cache"]["hits"] == 2,
                   f"small phase {name}: {rep['prefix_cache']}")
         elif name == "wave of 5":
@@ -1754,6 +1828,83 @@ def _snapshot(pools, blocks) -> torch.Tensor:
     return torch.stack([lc[name][idx] for lc in pools for name in ("k", "v")])
 
 
+# first-token and stream logprobs, admission graphs against eager
+# admission (the rounds graphed both ways): the compiled rounds' bar
+ADMISSION_LP_TOL = 1e-4
+
+
+def admission_runs(label: str, eng, reqs, reset=None) -> dict:
+    """``reqs`` served twice by ``eng``, whose rounds stay graphs:
+    admission through its graphs, then with its admission runner bound
+    to ``graphs.eager`` (``reset()`` before each). Token streams equal,
+    logprobs within ``ADMISSION_LP_TOL`` (reported bitwise where they
+    are), no admission graph captured by the graphed run (its keys were
+    warmed); admission's host wall both ways (it ends in each
+    activation's first-token readback, so its device work is inside)."""
+    from kind_tpu_sim_torch.models import graphs
+
+    runner = eng._admit_round
+    captured = runner.captured
+    runs = {}
+    for path in ("graph", "eager"):
+        if reset is not None:
+            reset()
+        eng._admit_round = runner if path == "graph" else graphs.eager
+        admit, spent = eng._admit_and_advance, [0.0]
+
+        def timed() -> None:
+            t = time.perf_counter()
+            admit()
+            spent[0] += time.perf_counter() - t
+
+        eng._admit_and_advance = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(dataclasses.replace(r, logprobs=True))
+        done = {c.request_id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        runs[path] = (done, time.perf_counter() - t0, spent[0])
+        del eng._admit_and_advance
+    eng._admit_round = runner
+    graph, eager = runs["graph"][0], runs["eager"][0]
+    check(len(graph) == len(eager) == len(reqs),
+          f"{label}: {len(graph)} and {len(eager)} of {len(reqs)} completed")
+    check(all(graph[r].tokens == eager[r].tokens for r in graph),
+          f"{label}: admission graphs and eager admission serve other "
+          "streams")
+    diff = max(float(np.abs(np.asarray(graph[r].logprobs)
+                            - np.asarray(eager[r].logprobs)).max())
+               for r in graph)
+    first = max(abs(graph[r].logprobs[0] - eager[r].logprobs[0])
+                for r in graph)
+    bitwise = all(graph[r].logprobs == eager[r].logprobs for r in graph)
+    check(diff <= ADMISSION_LP_TOL,
+          f"{label}: logprobs differ by {diff:.3e} (bar {ADMISSION_LP_TOL})")
+    check(runner.captured == captured,
+          f"{label}: {runner.captured - captured} admission graphs captured "
+          "in a warmed run")
+    out = {"requests": len(reqs), "logprobs_max_diff": diff,
+           "first_token_logprob_max_diff": first,
+           "logprobs_bitwise": bitwise,
+           "graph": {"wall_s": runs["graph"][1],
+                     "admission_s": runs["graph"][2]},
+           "eager": {"wall_s": runs["eager"][1],
+                     "admission_s": runs["eager"][2]},
+           "admission_graphs": runner.captured,
+           "admission_capture_s": runner.capture_s,
+           "admission_replays": runner.replays}
+    log(f"{label}: {len(reqs)} requests, streams equal with graphed and "
+        f"eager admission; logprobs {'bitwise equal' if bitwise else ''}"
+        f" max difference {diff:.3e} (first tokens {first:.3e}; bar "
+        f"{ADMISSION_LP_TOL}); admission {out['graph']['admission_s']:.3f} "
+        f"s graphed / {out['eager']['admission_s']:.3f} s eager of walls "
+        f"{out['graph']['wall_s']:.3f} / {out['eager']['wall_s']:.3f} s; "
+        f"admission graphs {runner.captured} captured in "
+        f"{runner.capture_s:.2f} s, {runner.replays} replays")
+    return out
+
+
 def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
     """Phase 4b: the realistic stream of ``profile_serving`` (28
     requests: mixed 224-3072-token prompts and prefix families) through
@@ -1780,6 +1931,10 @@ def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
     warm_s = time.perf_counter() - t0
     check(eng.report() == before and eng.alloc.peak_in_use == 0,
           f"warm_admission changed the engine: {eng.report()}")
+    warm_graphs = eng._admit_round.captured
+    check(warm_graphs == len(flagship.REALISTIC_LENS)
+          * len(sc.admission_wave_sizes),
+          f"warm_admission captured {warm_graphs} admission graphs")
     cache = eng.prefix_cache
     # {stored blocks: their k/v when stored}; a new entry replaces the
     # snapshot of blocks reused since
@@ -1844,6 +1999,12 @@ def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
     routes = {"flash_attention": dict(fa.flash_attention.launches_by_route),
               "paged_attention": dict(pa.paged_attention.launches_by_route)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cache.store = store
+    del eng._finish, eng._admit_and_advance
+    admission = {"graphs": eng._admit_round.captured,
+                 "warm_graphs": warm_graphs,
+                 "capture_s": eng._admit_round.capture_s,
+                 "replays": eng._admit_round.replays}
 
     check(len(done) == len(reqs), f"realistic: {len(done)} of {len(reqs)} "
           "completed")
@@ -1887,6 +2048,18 @@ def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
                  0)
     check_routes("realistic paged_attention", pa.paged_attention, want_paged,
                  0)
+    # a cut stream (independents of every prompt length, two families),
+    # served with the admission graphs and with eager admission
+    cut = flagship.realistic_requests(cfg.vocab_size, independents=8,
+                                      families=2, max_new=8, key="c")
+
+    def empty_cache() -> None:
+        while cache.evict_lru():
+            pass
+
+    admission["against_eager"] = admission_runs(
+        "4b realistic cut stream", eng, cut, reset=empty_cache)
+    empty_cache()
 
     gen_tokens = sum(len(c.tokens) for c in done.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
@@ -1905,7 +2078,7 @@ def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
            "peak_blocks": pg["peak_in_use"],
            "pool_blocks": sc.paged_blocks - 1,
            "peak_gib": peak_gib, "warm_s": warm_s,
-           "admission_s": admission_s[0],
+           "admission_s": admission_s[0], "admission": admission,
            "families_verified": sorted(verified)}
     log(f"realistic stream: {len(done)} requests, {gen_tokens} tokens in "
         f"{wall:.3f} s = {out['tok_per_s']:.1f} generated tok/s; mean TTFT "
@@ -1918,8 +2091,10 @@ def realistic_phase(flagship, serving, fa, pa, sp, cfg) -> dict:
         f"{pg['preemptions']}, peak blocks {pg['peak_in_use']} of "
         f"{sc.paged_blocks - 1}; peak device memory {peak_gib:.2f} GiB; "
         f"admission {admission_s[0]:.3f} s of the wall; warm-up "
-        f"{warm_s:.2f} s; families whose blocks were checked after "
-        f"their members: {sorted(verified)}")
+        f"{warm_s:.2f} s ({warm_graphs} admission graphs captured; "
+        f"{admission['graphs']} after the stream, {admission['replays']} "
+        f"replays, {admission['capture_s']:.2f} s capturing); families "
+        f"whose blocks were checked after their members: {sorted(verified)}")
     log(json.dumps({"realistic": out}))
     return {"routes": routes, **out}
 
@@ -2036,6 +2211,11 @@ def hit_vs_cold_phase(flagship, serving, sp, cfg) -> dict:
                      f"{cold.tokens[i]})")
     worst_rel = _worst_rel(logits[8], logits[0], ids)
     controls, eng = {}, engines[8]
+    # the faults are patched into the Python of the suffix forward, which
+    # a captured graph no longer runs: the controls admit eagerly
+    from kind_tpu_sim_torch.models import graphs
+
+    eng._admit_round = graphs.eager
     for kind in SUFFIX_FAULTS:
         logits[8].clear()
         hits = eng.report()["prefix_cache"]["hits"]
@@ -2071,15 +2251,15 @@ def _capture_prompt_logits(eng, store: dict) -> None:
     samples its first token from (a single window's or a wave row's)."""
     window, group = eng._prefill_window, eng._prefill_group
 
-    def captured_window(slot, req, tokens, w, done):
-        out = window(slot, req, tokens, w, done)
-        store[req.request_id] = out.float().clone()
+    def captured_window(slot, req, toks, done, final):
+        out = window(slot, req, toks, done, final)
+        store[req.request_id] = out[2][0].float().clone()
         return out
 
     def captured_group(grp):
         out = group(grp)
         for row, (_, req) in enumerate(grp):
-            store[req.request_id] = out[row].float().clone()
+            store[req.request_id] = out[2][row].float().clone()
         return out
 
     eng._prefill_window, eng._prefill_group = captured_window, captured_group
@@ -2098,7 +2278,8 @@ def longprompt_phase(flagship, serving, sp, cfg) -> dict:
             sp, cfg, flagship.longprompt_serving(chunk), device="cuda")
         eng.warm_admission((224,))
         eng.warm_admission((768,), sizes=(1,))
-        for rid, n in (("warm", 256), ("warmL", 768)):
+        # the short prompts' last 32-token window (chunked) warmed too
+        for rid, n in (("warm", 256), ("warmS", 224), ("warmL", 768)):
             eng.submit(serving.Request(rid, [1] * n, 2))
         eng.run()
         reqs = flagship.longprompt_requests(cfg.vocab_size)
@@ -2116,7 +2297,10 @@ def longprompt_phase(flagship, serving, sp, cfg) -> dict:
         out[key] = {"wall_s": wall, "short_e2e_p50_s": e2es[len(e2es) // 2],
                     "short_e2e_max_s": e2es[-1],
                     "long_ttft_s": done["L"].ttft_s,
-                    "prefills": eng.report()["prefills"]}
+                    "prefills": eng.report()["prefills"],
+                    "suffix_windows": eng.report()["suffix_windows"]}
+        out[key]["against_eager"] = admission_runs(
+            f"4d long-prompt stream ({key}) again", eng, reqs)
         log(f"long-prompt stream ({key}, prefill_chunk {chunk}): wall "
             f"{wall:.3f} s; short e2e p50 {out[key]['short_e2e_p50_s']:.3f} "
             f"s, max {out[key]['short_e2e_max_s']:.3f} s; long TTFT "
@@ -2214,12 +2398,18 @@ class SyncCount(contextlib.AbstractContextManager):
             return out
 
         eng._round_dispatch = counted
+        self._watched = eng
 
     def __exit__(self, *exc):
         torch.cuda.set_sync_debug_mode("default")
         self.total_flagged = self.flagged()
         self._catch.__exit__(*exc)
         torch.cuda.Event.synchronize = self._orig_sync
+        if getattr(self, "_watched", None) is not None:
+            # the engine's own method again: the wrapper's reference
+            # cycle would keep the engine and its graphs alive
+            del self._watched._round_dispatch
+            self._watched = None
         return False
 
 
@@ -2238,17 +2428,31 @@ def _drain(eng, reqs, warm=None):
     return done, wall, syncs
 
 
-def _warm(engine_fn, reqs) -> None:
-    """One short request through a throwaway engine of the same kind:
-    the kernels and libraries of prefill and one round warm up. Its
-    rounds run eagerly: a CUDA graph captured there would serve no later
-    engine."""
-    from kind_tpu_sim_torch.models import graphs
-
+def _warmed(engine_fn, reqs):
+    """The engine ``engine_fn()`` makes, after one short request of
+    ``reqs[0]``'s prompt: the kernels of prefill and a round built, and
+    the engine's graphs of that round and that admission captured (a
+    graph serves only its own engine), so the timed run that follows
+    replays them. Its counters are reset (``_reset_counters``)."""
     eng = engine_fn()
-    eng._round = graphs.eager
     eng.submit(dataclasses.replace(reqs[0], request_id="warm", max_new=9))
     eng.run()
+    _reset_counters(eng)
+    return eng
+
+
+def _reset_counters(eng) -> None:
+    """An engine's counters, latencies and pool peak set as a fresh
+    engine's, so its report reads the next run alone."""
+    eng.prefills = eng.prefill_dispatches = eng.suffix_windows = 0
+    eng.decode_rounds = 0
+    eng.wave_sizes.clear()
+    eng.reset_latency()
+    for name in ("verify_steps", "draft_prefills", "preemptions"):
+        if hasattr(eng, name):
+            setattr(eng, name, 0)
+    if hasattr(eng, "alloc"):
+        eng.alloc.peak_in_use = 0
 
 
 def _run_stats(name: str, cfg, done: dict, wall: float, rep: dict,
@@ -2314,6 +2518,68 @@ def bench_row(tf, cfg) -> np.ndarray:
                            cfg, 8, cfg.max_seq, device="cuda")[0].cpu().numpy()
 
 
+def solo_draft_model(tf, decode, spec, sp, cfg, prompt, greedy) -> dict:
+    """Solo ``draft_model_generate`` with a random 2-layer draft of the
+    flagship's vocab (seed 5): the warm call captures its programs
+    (the prefill, both models' prompts in it, and the draft-and-verify
+    step), the timed call replays them, then the same call eagerly, each
+    ``SOLO_NEW // 2`` new tokens; tokens and steps equal, and the tokens
+    held to the start of ``greedy_generate``'s (``greedy``) by the split
+    rule."""
+    from kind_tpu_sim_torch.models import graphs
+
+    dcfg = tf.ModelConfig(vocab_size=cfg.vocab_size, d_model=256, n_heads=4,
+                          n_kv_heads=2, n_layers=2, d_ff=1024,
+                          max_seq=cfg.max_seq, dtype=cfg.dtype, flash=True)
+    dp = decode.serving_params(tf.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(5), "cuda"), dcfg)
+    spec._PROGRAMS.clear()
+    new = SOLO_NEW // 2
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = spec.draft_model_generate(
+            sp, cfg, dp, dcfg, prompt, new, draft_k=SPEC_K,
+            return_stats=True, device="cuda")
+        torch.cuda.synchronize()
+        return toks, stats["steps"], time.perf_counter() - t0
+
+    call()
+    toks, steps, wall = call()
+    prog = spec.solo_program(sp, cfg, prompt, new, SPEC_K,
+                             draft=(dp, dcfg))
+    runner = prog._round
+    check(isinstance(runner, graphs.RoundGraphs) and runner.captured == 2,
+          f"4e solo draft model: its programs run through {runner!r}")
+    prog._round = graphs.eager
+    eager_toks, eager_steps, eager_wall = call()
+    spec._PROGRAMS.clear()
+    check(torch.equal(eager_toks, toks) and eager_steps == steps,
+          f"4e solo draft model: graphed ({steps} steps) and eager "
+          f"({eager_steps}) calls differ")
+    splits = hold_streams(
+        "4e solo draft_model_generate against greedy_generate", tf, sp, cfg,
+        {f"row{r}": prompt[r].tolist() for r in range(SOLO_BATCH)},
+        {f"row{r}": toks[r, SOLO_PROMPT:].tolist()
+         for r in range(SOLO_BATCH)},
+        {f"row{r}": greedy[r, SOLO_PROMPT:].tolist()
+         for r in range(SOLO_BATCH)}, prefix=True)
+    out = {"new_tokens": new, "verify_steps": steps, "wall_s": wall,
+           "eager_wall_s": eager_wall,
+           "tok_per_s": SOLO_BATCH * new / wall,
+           "eager_tok_per_s": SOLO_BATCH * new / eager_wall,
+           "graphs": runner.captured, "capture_s": runner.capture_s,
+           "splits": splits}
+    log(f"4e solo draft model (2 layers, d_model 256), {new} new tokens: "
+        f"{steps} verify steps; "
+        f"graphed {out['tok_per_s']:.1f} tok/s ({wall:.3f} s; "
+        f"{runner.captured} graphs captured in {runner.capture_s:.2f} s), "
+        f"eager {out['eager_tok_per_s']:.1f} tok/s ({eager_wall:.3f} s), "
+        f"tokens and steps equal; {splits} splits from greedy_generate")
+    return out
+
+
 def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
     """Phase 4e, speculative decoding at full width on the bf16 serving
     snapshot: (a) solo ``speculative_generate`` (bench.py:1694-1724)
@@ -2327,12 +2593,20 @@ def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
     from kind_tpu_sim_torch.models import decode
     from kind_tpu_sim_torch.models import speculative as spec
 
+    from kind_tpu_sim_torch.models import graphs
+
     routes, out = {}, {}
-    # (a) solo
+    # (a) solo: the warm call captures the prefill's and the verify
+    # step's graphs, which the timed call replays
     prompt = tf.sample_batch(torch.Generator(device="cuda").manual_seed(1),
                              cfg, SOLO_BATCH, SOLO_PROMPT, device="cuda")
-    spec.speculative_generate(sp, cfg, prompt, 9, draft_k=SPEC_K,
+    spec._PROGRAMS.clear()
+    spec.speculative_generate(sp, cfg, prompt, SOLO_NEW, draft_k=SPEC_K,
                               device="cuda")
+    prog = spec.solo_program(sp, cfg, prompt, SOLO_NEW, SPEC_K)
+    check(isinstance(prog._round, graphs.RoundGraphs)
+          and prog._round.captured == 2,
+          f"4e solo: its programs run through {prog._round!r}")
     zero_counts(fa.flash_attention, pa.paged_attention)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2342,6 +2616,21 @@ def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _flash_check("4e solo speculative_generate", fa, cfg.n_layers, routes)
+    replays = prog._round.replays
+    # the same call eagerly: the program's runner rebound
+    prog._round, runner = graphs.eager, prog._round
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_toks, eager_stats = spec.speculative_generate(
+        sp, cfg, prompt, SOLO_NEW, draft_k=SPEC_K, return_stats=True,
+        device="cuda")
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    spec._PROGRAMS.clear()
+    check(torch.equal(eager_toks, toks)
+          and eager_stats["steps"] == stats["steps"],
+          f"4e solo: the graphed call's tokens or steps ({stats['steps']}) "
+          f"differ from the eager call's ({eager_stats['steps']})")
     t0 = time.perf_counter()
     greedy = decode.greedy_generate(sp, cfg, prompt, SOLO_NEW, device="cuda")
     torch.cuda.synchronize()
@@ -2357,13 +2646,25 @@ def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
                    "tokens_per_step": (SOLO_NEW - 1) / stats["steps"],
                    "wall_s": wall,
                    "tok_per_s": SOLO_BATCH * SOLO_NEW / wall,
+                   "eager_wall_s": eager_wall,
+                   "eager_tok_per_s": SOLO_BATCH * SOLO_NEW / eager_wall,
+                   "eager_verify_steps": eager_stats["steps"],
+                   "graphs": runner.captured,
+                   "capture_s": runner.capture_s,
+                   "replays_timed_call": replays,
                    "greedy_tok_per_s": SOLO_BATCH * SOLO_NEW / greedy_wall,
                    "splits": splits}
     log(f"4e solo: batch {SOLO_BATCH}, {SOLO_PROMPT}-token prompts, "
         f"{SOLO_NEW} new, k {SPEC_K}: {stats['steps']} verify steps, "
-        f"{out['solo']['tokens_per_step']:.2f} tokens a step; "
-        f"{out['solo']['tok_per_s']:.1f} tok/s against greedy_generate's "
+        f"{out['solo']['tokens_per_step']:.2f} tokens a step; graphed "
+        f"{out['solo']['tok_per_s']:.1f} tok/s ({wall:.3f} s; "
+        f"{runner.captured} graphs captured in {runner.capture_s:.2f} s, "
+        f"{replays} replays by the timed call), eager "
+        f"{out['solo']['eager_tok_per_s']:.1f} tok/s ({eager_wall:.3f} s, "
+        f"{eager_stats['steps']} steps, tokens equal); greedy_generate's "
         f"{out['solo']['greedy_tok_per_s']:.1f}")
+    out["solo_draft"] = solo_draft_model(tf, decode, spec, sp, cfg, prompt,
+                                         greedy)
 
     # (b), (c): the phase 4 stream
     reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
@@ -2378,8 +2679,7 @@ def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
             ("4e paged speculative serving",
              serving.PagedSpeculativeServingEngine, paged_sc))
     for name, engine, sc in runs:
-        _warm(lambda: engine(sp, cfg, sc, device="cuda"), reqs)
-        eng = engine(sp, cfg, sc, device="cuda")
+        eng = _warmed(lambda: engine(sp, cfg, sc, device="cuda"), reqs)
         zero_counts(fa.flash_attention, pa.paged_attention)
         done, wall, syncs = _drain(eng, reqs)
         rep = eng.report()
@@ -2411,18 +2711,16 @@ def spec_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
     dense_sc = serving.ServingConfig(max_slots=flagship.SLOTS, max_len=1024,
                                      chunk=FLIP_TWIN_CHUNK,
                                      overlap_rounds=True)
-    _warm(lambda: serving.ServingEngine(sp, cfg, dense_sc, device="cuda"),
-          flip)
-    dense = serving.ServingEngine(sp, cfg, dense_sc, device="cuda")
+    dense = _warmed(lambda: serving.ServingEngine(sp, cfg, dense_sc,
+                                                  device="cuda"), flip)
     dense_done, dense_wall, _ = _drain(dense, flip)
     out["flip_dense"] = _run_stats(
         f"4e motif stream, dense twin (chunk {FLIP_TWIN_CHUNK}, overlapped)",
                                    cfg, dense_done, dense_wall,
                                    dense.report())
     flip_sc = serving.ServingConfig(**dict(base, spec_windows=FLIP_WINDOWS))
-    _warm(lambda: serving.SpeculativeServingEngine(sp, cfg, flip_sc,
-                                                   device="cuda"), flip)
-    eng = serving.SpeculativeServingEngine(sp, cfg, flip_sc, device="cuda")
+    eng = _warmed(lambda: serving.SpeculativeServingEngine(
+        sp, cfg, flip_sc, device="cuda"), flip)
     zero_counts(fa.flash_attention, pa.paged_attention)
     done, wall, syncs = _drain(eng, flip)
     rep = eng.report()
@@ -2447,8 +2745,9 @@ def surface_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
     """Phase 4f, the engine surface at full width: the dense grid
     sequential against ``overlap_rounds`` on phase 4's stream (chunk
     64) and on the bench's ``serving_rtt_bound`` stream (chunk 8,
-    bench.py:1440-1486), and the speculative grid of 4e overlapped;
-    streams equal, tok/s and host syncs a round printed, no
+    bench.py:1440-1486), and the speculative grid of 4e overlapped, in
+    turns on one warmed engine a mode (sequential, overlapped twice,
+    sequential); streams equal, tok/s and host syncs a round printed, no
     synchronizing operation inside a dispatch. Then a slot failure on a
     busy slot of the paged kernel tier mid-stream (replay held to phase
     4, no block leaked), and a deadline and a ``max_queue`` shed under
@@ -2477,12 +2776,15 @@ def surface_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
               dict(base, speculative_k=SPEC_K, spec_windows=SPEC_WINDOWS),
               reqs))
     for name, engine, kw, stream in pairs:
-        _warm(lambda: engine(sp, cfg, serving.ServingConfig(**kw),
-                             device="cuda"), stream)
-        streams = {}
+        # one engine a mode, warmed once and run twice
+        streams, engines = {}, {}
         for overlap in (False, True, True, False):
-            sc = serving.ServingConfig(overlap_rounds=overlap, **kw)
-            eng = engine(sp, cfg, sc, device="cuda")
+            if overlap not in engines:
+                sc = serving.ServingConfig(overlap_rounds=overlap, **kw)
+                engines[overlap] = _warmed(
+                    lambda: engine(sp, cfg, sc, device="cuda"), stream)
+            eng = engines[overlap]
+            _reset_counters(eng)
             zero_counts(fa.flash_attention, pa.paged_attention)
             done, wall, syncs = _drain(eng, stream)
             rep = eng.report()
@@ -2498,6 +2800,7 @@ def surface_phase(flagship, serving, tf, fa, pa, sp, cfg, want: dict) -> dict:
             check(streams.setdefault(key, tokens) == tokens,
                   f"4f {name}, {key}: streams differ between two runs")
             out.setdefault(name, {}).setdefault(key, []).append(stats)
+        del engines, eng
         check(streams["overlap"] == streams["sequential"],
               f"4f {name}: overlapped streams differ from sequential")
         if stream[0] is reqs[0]:
@@ -2647,23 +2950,38 @@ def int8_step_bytes(cfg, batch: int, cache_len: int) -> float:
     return weights + scales + kv
 
 
-def _solo_decode(decode, params, cfg, prompt, new: int, on_prefill=None):
-    """The bench's solo decode (bench.py:645-705): one prefill into a
-    cache of prompt + ``new`` positions, then ``new`` greedy tokens by the
-    chunked decoder; ``on_prefill()`` runs between the two. Returns
-    (prefill logits, tokens, prefill s, decode s)."""
+def _solo_decode(decode, params, cfg, prompt, new: int, counted=(),
+                 on_prefill=None):
+    """The bench's solo decode (bench.py:645-705) as the bench times it:
+    one prefill into a cache of prompt + ``new`` positions, then ``new``
+    greedy tokens by the compiled decoder (``graphs.DecodeProgram``, the
+    reference's jitted loop). A first pass over the same cache builds the
+    kernels and captures the chunks' graphs (the fewest tokens whose
+    chunks have the timed pass's sizes); then the wrappers in
+    ``counted`` are zeroed and the timed pass prefills the cache again in
+    place and replays; ``on_prefill()`` runs between its prefill and its
+    decode. Returns (prefill logits, tokens, prefill s, decode s)."""
+    from kind_tpu_sim_torch.models import graphs
+
     t_p = prompt.shape[1]
     with torch.no_grad():
+        logits, cache = decode.prefill(params, cfg, prompt, t_p + new)
+        program = graphs.DecodeProgram(params, cfg, cache)
+        chunk = graphs.DecodeProgram.CHUNK
+        warm = new if new - 1 <= chunk else chunk + (new - 1) % chunk + 1
+        program(torch.argmax(logits, dim=-1), t_p, warm)
+        zero_counts(*counted)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = decode.prefill(params, cfg, prompt, t_p + new)
+        logits, _ = decode.prefill(params, cfg, prompt, t_p + new,
+                                   cache=cache)
         first = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         if on_prefill is not None:
             on_prefill()
         t1b = time.perf_counter()
-        out = decode.generate_from_cache(params, cfg, first, cache, t_p, new)
+        out = program(first, t_p, new)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     return logits, out, t1 - t0, t2 - t1b
@@ -2738,12 +3056,11 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
     logits = {}
     for name, p, c in (("bf16", sp, cfg), ("w8a8", qp, q_cfg),
                        ("dequant", qp, dq_cfg)):
-        _solo_decode(decode, p, c, prompt, 9)  # warm-up
-        zero_counts(im.int8_matmul)
         at_prefill = {}
         lg, toks, pre_s, dec_s = _solo_decode(
-            decode, p, c, prompt, SOLO_INT8_NEW, on_prefill=lambda:
-            at_prefill.update(im.int8_matmul.launches_by_route))
+            decode, p, c, prompt, SOLO_INT8_NEW, counted=(im.int8_matmul,),
+            on_prefill=lambda: at_prefill.update(
+                im.int8_matmul.launches_by_route))
         n_int8 = im.int8_matmul.launches
         steps = SOLO_INT8_NEW - 1
         want = ((cfg.n_layers * 4 + 1) + steps * (cfg.n_layers * 6 + 1)
@@ -2802,8 +3119,8 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
         sc = serving.ServingConfig(max_slots=8, max_len=1024,
                                    chunk=SATURATED_CHUNK,
                                    overlap_rounds=overlap)
-        _warm(lambda: serving.ServingEngine(p, c, sc, device="cuda"), reqs)
-        eng = serving.ServingEngine(p, c, sc, device="cuda")
+        eng = _warmed(lambda: serving.ServingEngine(p, c, sc, device="cuda"),
+                      reqs)
         zero_counts(fa.flash_attention, im.int8_matmul)
         done, wall, syncs = _drain(eng, reqs)
         check(len(done) == len(reqs), f"4g(b) {name}: {len(done)} completed")
@@ -2826,9 +3143,8 @@ def int8_serving_phase(flagship, serving, tf, quant, fa, pa, im, sp,
           "gather tier", f"4g(c): paged_kernel with int8_kv: {refusal!r}")
     sc = flagship.flagship_serving(paged_kernel=False)
     reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
-    _warm(lambda: serving.PagedServingEngine(qp, q_cfg, sc, device="cuda"),
-          reqs)
-    eng = serving.PagedServingEngine(qp, q_cfg, sc, device="cuda")
+    eng = _warmed(lambda: serving.PagedServingEngine(qp, q_cfg, sc,
+                                                     device="cuda"), reqs)
     zero_counts(pa.paged_attention)
     done, wall, syncs = _drain(eng, reqs)
     rep = eng.report()
@@ -2907,8 +3223,7 @@ def moe_serving_phase(flagship, serving, tf, fa, pa, cfg) -> dict:
                                    spec_windows=SPEC_WINDOWS, **base)))
     out, routes = {}, {}
     for name, engine, sc in runs:
-        _warm(lambda: engine(smp, m_cfg, sc, device="cuda"), reqs)
-        eng = engine(smp, m_cfg, sc, device="cuda")
+        eng = _warmed(lambda: engine(smp, m_cfg, sc, device="cuda"), reqs)
         zero_counts(fa.flash_attention, pa.paged_attention)
         done, wall, syncs = _drain(eng, reqs)
         rep = eng.report()
@@ -2937,9 +3252,15 @@ def moe_serving_phase(flagship, serving, tf, fa, pa, cfg) -> dict:
 # rounds
 
 
-# timed runs of each path, in turns: three keep the whole run, phase 9's
-# bench included, well inside its time limit
-COMPILED_RUNS = 3
+# the timed runs of each path, in turns: the eager run holds the eager
+# rounds to the graphs (a stream of eager rounds takes 5-10x a stream of
+# replays, so one is what the script's time limit leaves room for), the
+# graphs' two give their median
+COMPILED_ORDER = ("graph", "eager", "graph")
+# 4i's engines keep the flagship's widths at 2 of its 8 layers: an
+# eager round's cost is its launches, n_layers of each (phase 4 and 4b-4h
+# serve the full depth, graphs and eager admission included)
+COMPILED_LAYERS = 2
 COMPILED_LP_TOL = 1e-4   # logprobs, graph replays against eager rounds
 
 
@@ -2980,19 +3301,19 @@ def _traced_round(flagship, eng, reqs) -> dict:
     return prof
 
 
-def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
+def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im,
                           cfg) -> dict:
     """Phase 4i: every serving round a CUDA graph replay, held against
     the same engine's eager rounds (its ``_round`` rebound to
-    ``graphs.eager``), at flagship width on phase 4's stream: the dense
+    ``graphs.eager``), at flagship width and ``COMPILED_LAYERS`` layers
+    (seed-0 weights) on phase 4's stream: the dense
     grid (chunk 64), the paged gather and kernel tiers, the prompt-lookup
     grid, the paged speculative engine, the draft-model grid (a random
     2-layer draft with the flagship's vocab), W8A8 with the int8 KV cache
     on the dense grid and the 4-expert MoE on the paged kernel tier. Each
     engine serves the stream once through its graphs (capturing every key
-    the stream needs; its second round, a replay, traced), then
-    ``COMPILED_RUNS`` times each way in turns (eager, graph, graph,
-    eager, ...): token streams equal, logprobs within
+    the stream needs; its second round, a replay, traced), then in the
+    turns of ``COMPILED_ORDER``: token streams equal, logprobs within
     ``COMPILED_LP_TOL``, the kernels' launches the same in every run (the
     paged kernel's n_layers x chunk x decode rounds); then one eager
     round is traced. Printed: graphs captured, capture seconds and
@@ -3004,6 +3325,8 @@ def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
 
+    cfg = dataclasses.replace(cfg, n_layers=COMPILED_LAYERS)
+    sp = flagship.flagship_params(cfg)
     reqs = flagship.flagship_requests(cfg.vocab_size, logprobs=True)
     base = dict(max_slots=flagship.SLOTS, max_len=1024)
     spec = dict(base, speculative_k=SPEC_K, spec_windows=SPEC_WINDOWS)
@@ -3040,25 +3363,27 @@ def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
     wrappers = {"flash_attention": fa.flash_attention,
                 "paged_attention": pa.paged_attention,
                 "int8_matmul": im.int8_matmul}
-    order = [("eager", "graph", "graph", "eager")[i % 4]
-             for i in range(2 * COMPILED_RUNS)]
     out = {}
     for name, engine, params, c, sc, extra in engines:
         eng = engine(params, c, sc, device="cuda", **extra)
-        runner = eng._round
-        check(isinstance(runner, graphs.RoundGraphs),
-              f"4i {name}: the engine's round is {runner!r}, not graphs")
+        runner, admit = eng._round, eng._admit_round
+        check(isinstance(runner, graphs.RoundGraphs)
+              and isinstance(admit, graphs.RoundGraphs),
+              f"4i {name}: the engine's round is {runner!r}, its admission "
+              f"{admit!r}, not graphs")
         steps = sc.spec_windows if sc.speculative_k else sc.chunk
         traced = {"graph": _traced_round(flagship, eng, reqs)}
         warm = {c_.request_id: c_ for c_ in eng.run()}
         check(len(warm) == len(reqs), f"4i {name}: {len(warm)} completed")
         want = {r: c_.tokens for r, c_ in warm.items()}
-        captured = runner.captured
+        captured, admit_captured = runner.captured, admit.captured
         ref_lp = counts = None
         runs = {"graph": [], "eager": []}
         max_lp = 0.0
-        for path in order:
+        for path in COMPILED_ORDER:
             eng._round = runner if path == "graph" else graphs.eager
+            # graph runs admit through graphs too, eager runs eagerly
+            eng._admit_round = admit if path == "graph" else graphs.eager
             zero_counts(*wrappers.values())
             rounds0 = eng.decode_rounds
             done, wall, rounds = _stream_run(eng, reqs)
@@ -3090,13 +3415,18 @@ def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
         check(max_lp <= COMPILED_LP_TOL,
               f"4i {name}: logprobs differ by {max_lp:.3e} between runs "
               f"(bar {COMPILED_LP_TOL})")
-        check(runner.captured == captured,
-              f"4i {name}: {runner.captured - captured} graphs captured "
+        check(runner.captured == captured
+              and admit.captured == admit_captured,
+              f"4i {name}: {runner.captured - captured} round and "
+              f"{admit.captured - admit_captured} admission graphs captured "
               "after the first stream")
-        eng._round = graphs.eager
+        eng._round = eng._admit_round = graphs.eager
         traced["eager"] = _traced_round(flagship, eng, reqs)
         row = {"graphs_captured": runner.captured,
                "capture_s": runner.capture_s, "replays": runner.replays,
+               "admission_graphs_captured": admit.captured,
+               "admission_capture_s": admit.capture_s,
+               "admission_replays": admit.replays,
                "max_logprob_diff": max_lp, "launches_a_run": counts}
         for path, rs in runs.items():
             step_ms = float(np.median([r["step_wall_ms"] for r in rs]))
@@ -3120,11 +3450,13 @@ def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
                                              / row["eager"]["tok_per_s"])
         out[name] = row
         log(f"4i {name}: {runner.captured} graphs captured in "
-            f"{runner.capture_s:.2f} s, {runner.replays} replays; tok/s "
+            f"{runner.capture_s:.2f} s, {runner.replays} replays; admission "
+            f"{admit.captured} graphs in {admit.capture_s:.2f} s, "
+            f"{admit.replays} replays; tok/s "
             f"graph {row['graph']['tok_per_s']:.1f} / eager "
             f"{row['eager']['tok_per_s']:.1f} "
             f"({row['graph_over_eager_tok_per_s']:.2f}x, medians of "
-            f"{COMPILED_RUNS}); step wall graph "
+            f"{len(runs['graph'])} and {len(runs['eager'])}); step wall graph "
             f"{row['graph']['step_wall_ms']:.3f} ms / eager "
             f"{row['eager']['step_wall_ms']:.3f} ms; traced busy share graph "
             f"{row['graph']['traced_device_busy_share']:.3f} / eager "
@@ -3134,12 +3466,12 @@ def compiled_rounds_phase(flagship, serving, tf, quant, fa, pa, im, sp,
             f"{row['eager']['busy_over_untraced_wall']:.3f}); device ops a "
             f"step {row['graph']['traced_device_ops_per_step']:.1f}; streams "
             f"equal, logprobs within {max_lp:.2e}")
-        del eng, runner
+        del eng, runner, admit
     out["w8a8_over_bf16_dense_tok_per_s"] = {
         path: out["W8A8 + int8 KV dense chunk 64"][path]["tok_per_s"]
         / out["dense chunk 64"][path]["tok_per_s"]
         for path in ("graph", "eager")}
-    del qp, smp, dparams
+    del sp, qp, smp, dparams
     log(json.dumps({"compiled_rounds": out}))
     return out
 
@@ -3307,49 +3639,122 @@ def small_moe_train_phase(tf, fa) -> None:
 # phase 6: training at full width
 
 
+FLASH_WRAPPERS = ("flash_attention", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+
+
+def train_twins(label: str, trainer, fa, cfg, timed: int) -> dict:
+    """``cfg`` trained as ``profile_train`` trains the flagship (its
+    seed-0 state, its batches) twice: by the compiled step
+    (``make_train_step`` on the card: the first step eager, capturing the
+    graph every later step replays), then by an eager one (the same
+    step with its runner rebound to ``graphs.eager``), each one warm-up
+    step and ``timed`` timed steps. The graphed trainer runs first, the
+    flash kernels' launches counted over its timed steps, and is freed
+    (its graph pool with it) before the eager one runs; its final
+    parameters are kept on the card. Losses and final parameters must
+    be bitwise equal (the same capturable AdamW). Returns {path:
+    {"walls_ms", "losses", "warm_ms", "peak_gib" (reserved: a replay's
+    activations live in the graph's pool, which the allocator counts as
+    reserved, not allocated), "peak_allocated_gib"}, "launches",
+    "routes", "graphs"}."""
+    from kind_tpu_sim_torch.models import graphs
+
+    batches = trainer.flagship_batches(cfg, timed + 1)
+    out, kept = {}, None
+    for path in ("graph", "eager"):
+        t0 = time.perf_counter()
+        step, state = trainer.flagship_state(cfg)
+        setup_s = time.perf_counter() - t0
+        if path == "eager":
+            step._round = graphs.eager
+        check(isinstance(step._round, graphs.RoundGraphs) == (path == "graph"),
+              f"{label}: the {path} trainer's step runs through "
+              f"{step._round!r}")
+        check(state["opt"].defaults["capturable"],
+              f"{label}: AdamW is not capturable on the card")
+        state, warm, _ = trainer.timed_steps(step, state, batches[:1])
+        zero_counts(*(getattr(fa, n) for n in FLASH_WRAPPERS))
+        torch.cuda.reset_peak_memory_stats()
+        state, walls, losses = trainer.timed_steps(step, state, batches[1:])
+        out[path] = {"walls_ms": walls, "losses": losses, "warm_ms": warm[0],
+                     "step_ms": float(np.median(walls)), "setup_s": setup_s,
+                     "peak_gib": torch.cuda.max_memory_reserved() / 2**30,
+                     "peak_allocated_gib":
+                         torch.cuda.max_memory_allocated() / 2**30}
+        check(all(math.isfinite(x) for x in losses),
+              f"{label} ({path}): non-finite loss in {losses}")
+        leaves = trainer.tf._leaves(state["params"])
+        if path == "graph":
+            out["launches"] = {n: getattr(fa, n).launches
+                               for n in FLASH_WRAPPERS}
+            out["routes"] = {n: dict(getattr(fa, n).launches_by_route)
+                             for n in FLASH_WRAPPERS}
+            out["graphs"] = {"captured": step._round.captured,
+                             "capture_s": step._round.capture_s,
+                             "replays": step._round.replays}
+            kept = [p.detach().clone() for p in leaves]
+            out["final_state"] = None
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(leaves, kept))
+            check(losses == out["graph"]["losses"] and same,
+                  f"{label}: the eager steps' losses {losses} or parameters "
+                  f"(equal: {same}) differ from the graphed steps' "
+                  f"{out['graph']['losses']}")
+            out["final_state"] = state
+        del step, leaves
+        if path == "graph":
+            del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del kept
+    g, e = out["graph"], out["eager"]
+    log(f"{label}: graphed step (first step eager, {out['graphs']['captured']}"
+        f" graph captured in {out['graphs']['capture_s']:.2f} s) walls ms "
+        f"{[round(w, 1) for w in g['walls_ms']]} (median {g['step_ms']:.1f}, "
+        f"warm-up {g['warm_ms']:.1f}); eager "
+        f"{[round(w, 1) for w in e['walls_ms']]} (median {e['step_ms']:.1f}, "
+        f"warm-up {e['warm_ms']:.1f}); losses "
+        f"and final parameters bitwise equal ({g['losses']}); peak device "
+        f"memory reserved {g['peak_gib']:.2f} / {e['peak_gib']:.2f} GiB, "
+        f"allocated {g['peak_allocated_gib']:.2f} / "
+        f"{e['peak_allocated_gib']:.2f} GiB (graphed / eager)")
+    return out
+
+
 def train_phase(trainer, fa) -> tuple:
     """The flagship workload of ``kind_tpu_sim_torch.profile_train``
-    (the same configuration, parameters, batches and optimizer).
-    Returns (launches, {"step_ms", "peak_gib"})."""
+    (the same configuration, parameters, batches and optimizer), the
+    compiled step against the eager one (``train_twins``). Returns
+    (launches, {"step_ms", "peak_gib", "routes"}) of the compiled
+    step."""
     cfg = trainer.flagship_config()
     steps = trainer.STEPS
-    t0 = time.perf_counter()
-    step, state = trainer.flagship_state(cfg)
-    batches = trainer.flagship_batches(cfg, steps + 1)
-    n_params = sum(p.numel() for p in trainer.tf._leaves(state["params"]))
-    log(f"flagship training: {n_params} fp32 parameters, set up in "
-        f"{time.perf_counter() - t0:.2f} s")
-    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
-
-    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
-                "flash_attention_bwd_dkv":
-                    fa.flash_attention_bwd_dkv.launches}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-
-    check(all(math.isfinite(x) for x in losses),
-          f"flagship training: non-finite loss in {losses}")
+    twins = train_twins("flagship training", trainer, fa, cfg, steps)
+    del twins["final_state"]
+    launches, g = twins["launches"], twins["graph"]
     want = cfg.n_layers * steps
     log(f"train launches: {launches} (expected n_layers x steps = {want} "
         "each)")
     check(all(n == want for n in launches.values()),
           "flagship training launch counts")
-    routes = {name: dict(getattr(fa, name).launches_by_route)
-              for name in launches}
     for name in launches:
-        check_routes(f"flagship training {name}", getattr(fa, name), want, 0)
-    median = float(np.median(walls))
+        check(twins["routes"][name] == {"tensor_cores": want,
+                                        "cuda_cores": 0},
+              f"flagship training {name}: routes {twins['routes'][name]}")
+    median = g["step_ms"]
     tokens = trainer.BATCH * (trainer.SEQ - 1)
-    log(f"flagship training: warm-up step {warm[0]:.1f} ms; {steps} steps "
-        f"of {trainer.BATCH} x {trainer.SEQ - 1} trained positions, step "
-        f"wall ms {[round(w, 1) for w in walls]} (median {median:.1f}) = "
-        f"{tokens / (median / 1e3):.1f} train tok/s; losses {losses}; peak "
-        f"device memory {peak:.2f} GiB")
-    return launches, {"step_ms": median, "peak_gib": peak, "routes": routes}
+    log(f"flagship training: {steps} steps of {trainer.BATCH} x "
+        f"{trainer.SEQ - 1} trained positions, graphed step median "
+        f"{median:.1f} ms = {tokens / (median / 1e3):.1f} train tok/s "
+        f"(eager {twins['eager']['step_ms']:.1f} ms = "
+        f"{tokens / (twins['eager']['step_ms'] / 1e3):.1f}); losses "
+        f"{g['losses']}")
+    log(json.dumps({"train_twins": {k: v for k, v in twins.items()
+                                    if k != "routes"}}))
+    return launches, {"step_ms": median, "peak_gib": g["peak_gib"],
+                      "eager_step_ms": twins["eager"]["step_ms"],
+                      "routes": twins["routes"]}
 
 
 # ---------------------------------------------------------------------
@@ -3358,36 +3763,30 @@ def train_phase(trainer, fa) -> tuple:
 
 def train_remat_phase(trainer, fa, plain: dict) -> None:
     """One flagship train step with ``remat=True`` after a warm-up step
-    (which allocates AdamW's state), counters zeroed just before it: the
-    flash forward runs twice per layer (the forward and the backward's
-    recompute), dq and dk/dv once. Its peak device memory is printed
-    beside the ``remat=False`` steps' (``plain``, from ``train_phase``)."""
+    (which allocates AdamW's state and captures the step), the compiled
+    step against the eager one (``train_twins``), counters zeroed just
+    before the graphed step: the flash forward runs twice per layer (the
+    forward and the backward's recompute), dq and dk/dv once. Its peak
+    device memory is printed beside the ``remat=False`` steps'
+    (``plain``, from ``train_phase``)."""
     cfg = dataclasses.replace(trainer.flagship_config(), remat=True)
-    step, state = trainer.flagship_state(cfg)
-    batches = trainer.flagship_batches(cfg, 2)
-    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
-    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
-                "flash_attention_bwd_dkv":
-                    fa.flash_attention_bwd_dkv.launches}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    twins = train_twins("flagship remat", trainer, fa, cfg, 1)
+    del twins["final_state"]
+    launches, g = twins["launches"], twins["graph"]
     want = {"flash_attention": 2 * cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers}
     log(f"flagship remat step launches: {launches} (expected {want})")
     check(launches == want, "flagship remat launch counts")
     for name, n in want.items():
-        check_routes(f"flagship remat {name}", getattr(fa, name), n, 0)
-    check(all(math.isfinite(x) for x in losses),
-          f"flagship remat: non-finite loss in {losses}")
-    log(f"flagship remat: warm-up step {warm[0]:.1f} ms, step {walls[0]:.1f} "
-        f"ms (remat=False median {plain['step_ms']:.1f} ms); peak device "
-        f"memory {peak:.2f} GiB (remat=False {plain['peak_gib']:.2f} GiB); "
-        f"loss {losses[0]}")
+        check(twins["routes"][name] == {"tensor_cores": n, "cuda_cores": 0},
+              f"flagship remat {name}: routes {twins['routes'][name]}")
+    log(f"flagship remat: graphed step {g['walls_ms'][0]:.1f} ms, eager "
+        f"{twins['eager']['walls_ms'][0]:.1f} ms (remat=False median "
+        f"{plain['step_ms']:.1f} ms); peak device memory reserved "
+        f"{g['peak_gib']:.2f} "
+        f"GiB (remat=False {plain['peak_gib']:.2f} GiB); loss "
+        f"{g['losses'][0]}")
 
 
 # ---------------------------------------------------------------------
@@ -3400,39 +3799,34 @@ MOE_TRAIN_STEPS = 3
 def train_moe_phase(trainer, tf, fa, plain: dict) -> dict:
     """The flagship with ``n_experts=4`` trained as phase 6 trains it (fp32
     parameters from seed 0, bf16 activations, AdamW, batches of 8 x 1025
-    from seed 1): one warm-up step, then ``MOE_TRAIN_STEPS`` timed with
-    the counters zeroed just before. Every loss finite; the flash
-    forward, dq and dk/dv each launched n_layers x steps; the summed
-    auxiliary term at least 0.99 x ``aux_loss_weight`` (tests/test_moe.py
-    holds one MoE call so). Step wall, train tok/s and peak memory
-    beside the dense step's (``plain``)."""
+    from seed 1), the compiled step against the eager one
+    (``train_twins``; phase 6's graphs freed before): one warm-up step,
+    then ``MOE_TRAIN_STEPS`` timed with the counters zeroed just before.
+    Every loss finite; the flash forward, dq and dk/dv each launched
+    n_layers x steps; the summed auxiliary term at least 0.99 x
+    ``aux_loss_weight`` (tests/test_moe.py holds one MoE call so). Step
+    wall, train tok/s and peak memory beside the dense step's
+    (``plain``)."""
     from kind_tpu_sim_torch.models.moe import MoeConfig
 
     cfg = dataclasses.replace(trainer.flagship_config(),
                               n_experts=MOE_EXPERTS)
-    t0 = time.perf_counter()
-    step, state = trainer.flagship_state(cfg)
-    batches = trainer.flagship_batches(cfg, MOE_TRAIN_STEPS + 1)
+    twins = train_twins("flagship MoE training", trainer, fa, cfg,
+                        MOE_TRAIN_STEPS)
+    state = twins.pop("final_state")
+    g = twins["graph"]
     n_params = sum(p.numel() for p in tf._leaves(state["params"]))
     log(f"flagship MoE training: {n_params} fp32 parameters, set up in "
-        f"{time.perf_counter() - t0:.2f} s")
-    state, warm, _ = trainer.timed_steps(step, state, batches[:1])
-    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    state, walls, losses = trainer.timed_steps(step, state, batches[1:])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {name: getattr(fa, name).launches for name in (
-        "flash_attention", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv")}
+        f"{g['setup_s']:.2f} s")
     want = cfg.n_layers * MOE_TRAIN_STEPS
-    check(all(math.isfinite(x) for x in losses),
-          f"flagship MoE training: non-finite loss in {losses}")
-    log(f"flagship MoE train launches: {launches} (expected n_layers x "
-        f"steps = {want} each)")
-    for name in launches:
-        check_routes(f"flagship MoE training {name}", getattr(fa, name),
-                     want, 0)
+    log(f"flagship MoE train launches: {twins['launches']} (expected "
+        f"n_layers x steps = {want} each)")
+    for name in FLASH_WRAPPERS:
+        check(twins["routes"][name] == {"tensor_cores": want,
+                                        "cuda_cores": 0},
+              f"flagship MoE training {name}: routes "
+              f"{twins['routes'][name]}")
+    batches = trainer.flagship_batches(cfg, MOE_TRAIN_STEPS + 1)
     with torch.no_grad():
         _, aux = tf.forward(state["params"], batches[-1][:, :-1], cfg,
                             return_aux=True)
@@ -3440,19 +3834,26 @@ def train_moe_phase(trainer, tf, fa, plain: dict) -> dict:
     check(float(aux) >= 0.99 * weight,
           f"flagship MoE training: auxiliary term {float(aux)} under 0.99 x "
           f"{weight}")
-    median = float(np.median(walls))
+    median = g["step_ms"]
     tokens = trainer.BATCH * (trainer.SEQ - 1)
-    out = {"step_ms": median, "walls_ms": walls, "losses": losses,
-           "train_tok_per_s": tokens / (median / 1e3), "peak_gib": peak,
-           "aux": float(aux), "dense_step_ms": plain["step_ms"],
-           "dense_peak_gib": plain["peak_gib"], "warm_up_ms": warm[0]}
-    log(f"flagship MoE training: warm-up step {warm[0]:.1f} ms; step wall "
-        f"ms {[round(w, 1) for w in walls]} (median {median:.1f}; dense "
-        f"{plain['step_ms']:.1f}) = {out['train_tok_per_s']:.1f} train "
-        f"tok/s; losses {losses}; auxiliary term {float(aux):.5f} over "
-        f"{cfg.n_layers} layers; peak device memory {peak:.2f} GiB (dense "
-        f"{plain['peak_gib']:.2f} GiB)")
+    out = {"step_ms": median, "walls_ms": g["walls_ms"],
+           "losses": g["losses"],
+           "train_tok_per_s": tokens / (median / 1e3),
+           "peak_gib": g["peak_gib"], "aux": float(aux),
+           "dense_step_ms": plain["step_ms"],
+           "dense_peak_gib": plain["peak_gib"], "warm_up_ms": g["warm_ms"],
+           "eager": twins["eager"], "graphs": twins["graphs"]}
+    log(f"flagship MoE training: graphed step wall ms "
+        f"{[round(w, 1) for w in g['walls_ms']]} (median {median:.1f}; "
+        f"eager {twins['eager']['step_ms']:.1f}; dense {plain['step_ms']:.1f})"
+        f" = {out['train_tok_per_s']:.1f} train tok/s; losses {g['losses']}; "
+        f"auxiliary term {float(aux):.5f} over {cfg.n_layers} layers; peak "
+        f"device memory reserved {g['peak_gib']:.2f} GiB (eager "
+        f"{twins['eager']['peak_gib']:.2f}; dense {plain['peak_gib']:.2f} "
+        "GiB)")
     del state
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3850,6 +4251,10 @@ BENCH_ENTRY_ROUTES = {
 # paged_tier_micro runs each tier 4 times (a warm run that captures its
 # graph, 3 timed replays), N chunks of ``chunk`` steps each
 TIER_MICRO_RUNS = 4
+# phase 9 runs the bench's model at the flagship's widths and 2 of its 8
+# layers: nearly every section's time is its layers' (the full depth's
+# numbers come from the bench's own run, ``bench --model-only``)
+BENCH_LAYERS = 2
 
 
 def _entry_launches(snaps, key) -> dict:
@@ -3862,7 +4267,8 @@ def _entry_launches(snaps, key) -> dict:
 
 
 def bench_phase(bench, fa, pa, im) -> tuple:
-    """Phase 9: the bench's model block at the flagship, its counts
+    """Phase 9: the bench's model block at the flagship's widths and
+    ``BENCH_LAYERS`` layers, its counts
     zeroed just before and read just after. Returns the launches by
     route of the counted kernels during the phase, and during each of
     the entries of ``BENCH_ENTRY_ROUTES`` (read at the bench's ``emit``
@@ -3879,7 +4285,9 @@ def bench_phase(bench, fa, pa, im) -> tuple:
                                  for fn in counted}))
 
     zero_counts(*counted)
-    model = bench.model_throughput(emit=emit)
+    model = bench.model_throughput(emit=emit, n_layers=BENCH_LAYERS)
+    check(model_layers(model) == BENCH_LAYERS,
+          f"bench: model {model.get('model')}, not {BENCH_LAYERS} layers")
     routes = {fn.__name__: dict(fn.launches_by_route) for fn in counted}
     log(json.dumps({"bench_headline": bench.headline_numbers(model)}))
     out = HERE / "build"
@@ -4012,6 +4420,9 @@ TP_LOGITS_REL_TOL = 2 * 2.4e-3
 # avoids (a world of 2 ranks each: a refusal may abort the rank)
 GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather")
 GLOO_CUDA_AVOIDED = ("all_to_all_single", "send/recv")
+# a probe world's ranks start beside the collectives world's (~20 s
+# together); a rank that aborts can leave its peer waiting until then
+GLOO_PROBE_TIMEOUT_S = 45
 
 
 def _gloo_cuda_op(op: str) -> str:
@@ -4069,7 +4480,7 @@ def gloo_collectives(launch) -> tuple:
     def probe(op):
         try:
             return launch.spawn(_gloo_cuda_op, 2, op, backend="gloo",
-                                device="cuda", timeout_s=90)
+                                device="cuda", timeout_s=GLOO_PROBE_TIMEOUT_S)
         except Exception as exc:  # the probe's answer, recorded and shown
             return (f"refused: {type(exc).__name__}: "
                     f"{str(exc).splitlines()[0][:160]}")
@@ -4214,7 +4625,9 @@ def _plain_train(tf, trainer, n_experts: int, steps: int, batch: int,
         state, loss = step(state, b)
         losses.append(float(loss))
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the compiled step's graph (and its pool) go with it
     del state, step
+    gc.collect()
     torch.cuda.empty_cache()
     return losses, peak
 
@@ -4431,6 +4844,8 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
         mesh_rep = mesh_eng.report()
         captured = mesh_eng._round.captured
         del mesh_eng
+        out["nccl_world1_training"] = nccl_train_twins(
+            tf, trainer, mesh_lib.training_mesh(1, 1))
     same = all(plain[rid].tokens == meshed[rid].tokens
                and plain[rid].logprobs == meshed[rid].logprobs
                for rid in plain)
@@ -4464,6 +4879,58 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
         "admission (8,256) 8/2 heads": _sharded_flash(fa, gen, 8, 256, 8, 2),
         "int8 cache kv 2": _sharded_int8(im, gen)}
     return out
+
+
+NCCL_TRAIN_STEPS, NCCL_TRAIN_BATCH = 3, 2
+
+
+def nccl_train_twins(tf, trainer, mesh) -> dict:
+    """``NCCL_TRAIN_STEPS`` AdamW steps of the flagship (batches of
+    ``NCCL_TRAIN_BATCH`` x 1025 tokens, seed-0 parameters) on ``mesh``,
+    an NCCL mesh of world size 1: compiled (the first step eager, the
+    graph with its collectives replayed after) against the same steps
+    with the step's runner rebound to ``graphs.eager``. Losses and final
+    parameters bitwise equal."""
+    from kind_tpu_sim_torch.models import graphs
+
+    cfg = trainer.flagship_config()
+    batches = _train_batches(tf, cfg, NCCL_TRAIN_STEPS, NCCL_TRAIN_BATCH)
+    runs = {}
+    for path in ("graph", "eager"):
+        step, init = tf.make_train_step(
+            cfg, mesh=mesh, learning_rate=trainer.LEARNING_RATE,
+            device="cuda")
+        check(isinstance(step._round, graphs.RoundGraphs),
+              f"NCCL world 1 training: the step runs through {step._round!r}")
+        if path == "eager":
+            step._round = graphs.eager
+        state = init(torch.Generator(device="cuda").manual_seed(0))
+        losses, walls = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, tf.shard_batch(b, mesh))
+            losses.append(float(loss))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        runs[path] = {"losses": losses, "walls_ms": walls, "params": [
+            p.detach().clone() for p in tf._leaves(state["params"])]}
+        if path == "graph":
+            runs[path]["graphs"] = step._round.captured
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(runs["graph"].pop("params"),
+                                                 runs["eager"].pop("params")))
+    log(f"NCCL world 1 training: {NCCL_TRAIN_STEPS} steps compiled "
+        f"({runs['graph']['graphs']} graph, walls ms "
+        f"{[round(w, 1) for w in runs['graph']['walls_ms']]}) against eager "
+        f"(walls ms {[round(w, 1) for w in runs['eager']['walls_ms']]}): "
+        f"losses {runs['graph']['losses']} / {runs['eager']['losses']}, "
+        f"parameters bitwise equal: {same}")
+    check(runs["graph"]["losses"] == runs["eager"]["losses"] and same,
+          "NCCL world 1 training: the compiled steps differ from the eager "
+          "ones")
+    return runs
 
 
 def training_worlds_phase(tf, trainer) -> dict:
@@ -5118,6 +5585,17 @@ def entry_points_phase(ran) -> dict:
     return out
 
 
+# the phase walls kept from the last run of this script before admission,
+# the solo generators and the train step were compiled programs (NVIDIA
+# H100 80GB HBM3, 700.00 W), and that command's wall: printed beside
+# this run's
+EARLIER_WALLS_S = {"4g int8": 115.1, "4i compiled rounds": 222.0,
+                   "11 parallel": 161.7,
+                   "12 long context, pipeline, multi-host": 138.4,
+                   "9 bench": 287.1, "13 entry points and pods": 35.3}
+EARLIER_COMMAND_S = 1151.2
+
+
 def free_port() -> int:
     """A loopback port free when asked (its socket is closed again)."""
     import socket
@@ -5146,6 +5624,9 @@ def main() -> int:
 
     check(Path(fa.__file__).resolve().is_relative_to(HERE),
           f"kind_tpu_sim_torch imported from {fa.__file__}, not {HERE}")
+    global _TIMELINE
+    (HERE / "build").mkdir(exist_ok=True)
+    _TIMELINE = open(HERE / "build" / "chip_smoke_timeline.txt", "w")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -5160,6 +5641,11 @@ def main() -> int:
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         result = fn(*args)
+        # an engine a phase wrapped (SyncCount, a timer) is a reference
+        # cycle holding its graphs' pools: collected and handed back to
+        # the card here, so the next phase's processes find the memory
+        gc.collect()
+        torch.cuda.empty_cache()
         walls[name] = time.perf_counter() - t0
         log(f"phase {name}: {walls[name]:.1f} s")
         return result
@@ -5200,7 +5686,7 @@ def main() -> int:
     moe = phase("4h MoE", moe_serving_phase, flagship, serving, tf, fa, pa,
                 cfg)
     phase("4i compiled rounds", compiled_rounds_phase, flagship, serving, tf,
-          quant, fa, pa, im, sp, cfg)
+          quant, fa, pa, im, cfg)
     parallel = phase("11 parallel", parallel_phase, flagship, trainer,
                      serving, tf, fa, pa, im, sp, cfg, streams)
     del sp
@@ -5279,8 +5765,13 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")
     log(json.dumps({"phase_wall_s": walls}))
-    # phase 4i adds forty stream runs of the flagship, half of them
-    # eager: most of the run's time beyond the earlier phases
+    log("phase walls beside the earlier run's: " + ", ".join(
+        f"{name} {walls[name]:.1f} s ({EARLIER_WALLS_S[name]:.1f} s)"
+        for name in EARLIER_WALLS_S)
+        + f"; phases {sum(walls.values()):.1f} s in all (the earlier "
+        f"command {EARLIER_COMMAND_S:.1f} s)")
+    # phase 4i serves 32 streams at the flagship's width, 8 of them with
+    # eager rounds, and traces 16 rounds
     log(f"phases: {sum(walls.values()):.1f} s in all, "
         f"{walls['4i compiled rounds']:.1f} s of them phase 4i (compiled "
         "rounds against eager ones)")
@@ -5295,6 +5786,7 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    _TIMELINE.close()
     return 0
 
 

@@ -75,7 +75,9 @@ computed is the same).
 
 ``BENCH_FLAGSHIP=d1024`` picks ``bench_config()`` in place of
 ``bench_config_large()`` on the card (``bench_model_config``), as the
-reference reads it; ``model`` in the result names the configuration.
+reference reads it; ``model_throughput(n_layers=N)`` keeps that
+configuration's widths and cuts its depth to N layers (a smoke's short
+run); ``model`` in the result names the configuration.
 
 The reference's remote-tunnel child and probe machinery and its
 simulator smokes have no counterpart here.
@@ -141,25 +143,33 @@ def med(fn, n: int) -> float:
     return samples[len(samples) // 2]
 
 
-def bench_model_config(on_card: bool):
+def bench_model_config(on_card: bool, n_layers: Optional[int] = None):
     """The bench's model: the flagship (``bench_config_large``) on a
     card, or ``bench_config()`` there when ``BENCH_FLAGSHIP=d1024`` (the
     reference's knob, ``bench.py:306-310``); the tiny ``ModelConfig()``
-    on the CPU."""
+    on the CPU. ``n_layers`` replaces its depth (None keeps it)."""
     from kind_tpu_sim_torch.models import transformer as tf
 
     if not on_card:
-        return tf.ModelConfig()
-    flagship = os.environ.get("BENCH_FLAGSHIP", "large")
-    return (tf.bench_config() if flagship == "d1024"
-            else tf.bench_config_large())
+        cfg = tf.ModelConfig()
+    elif os.environ.get("BENCH_FLAGSHIP", "large") == "d1024":
+        cfg = tf.bench_config()
+    else:
+        cfg = tf.bench_config_large()
+    if n_layers is None:
+        return cfg
+    if n_layers < 1:
+        raise ValueError(f"n_layers must be at least 1; got {n_layers}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
-def model_throughput(emit=None, device="cuda") -> dict:
+def model_throughput(emit=None, device="cuda",
+                     n_layers: Optional[int] = None) -> dict:
     """Flagship model throughput on ``device`` (the card unless the
     caller asks for the CPU; without a card this raises); see the module
-    docstring. Returns the result dict, every section measured before a
-    failure included."""
+    docstring. ``n_layers`` cuts the model's depth and keeps its widths
+    (None: the configuration's own). Returns the result dict, every
+    section measured before a failure included."""
     dev = resolve(device)
     result: dict = {}
     SECTION_S.clear()
@@ -175,7 +185,7 @@ def model_throughput(emit=None, device="cuda") -> dict:
         # data sheet: none on the CPU
         spec = (F.chip_spec(torch.cuda.get_device_name(dev))
                 if on_card else None)
-        cfg = bench_model_config(on_card)
+        cfg = bench_model_config(on_card, n_layers)
         batch = 8 if on_card else 2
         steps = 10 if on_card else 2
 
@@ -294,7 +304,8 @@ def model_throughput(emit=None, device="cuda") -> dict:
                 if on_card:
                     busy[label] = profiling.device_busy(run_train)[
                         "busy_pct"]
-                del state  # free the optimizer tree
+                # free the optimizer tree and the compiled step's graph
+                del state, step_fn, init_state
                 release()
                 return batch * seq_count / dt
 
@@ -660,10 +671,11 @@ def _long_context(result, params, cfg, dev, gen, sync, fits, note_exc,
 # the reference's jitted dispatch or host step of that label does. The
 # rounds (decode_chunk, verify_scan) are the engine's round runner,
 # labelled by the round's key; prefill and suffix_window are one
-# method, labelled by where its window starts.
+# method, labelled by where its window starts. A wave's first-token
+# sample is part of its admission program, so the reference's
+# first_sample is inside prefill.
 _PHASE_ATTRS = (
     ("_prefill_group", "prefill"),
-    ("_first_group", "first_sample"),
     ("_first_read_many", "first_readback"),
     ("_round_retire", "retire_fetch"),
     ("_claim_pending", "claim_host"),
@@ -705,9 +717,9 @@ def instrument_phases(eng) -> dict:
 
     window = eng._prefill_window
 
-    def prefill_window(slot, req, win, w, done):
+    def prefill_window(slot, req, toks, done, final):
         t0 = time.monotonic()
-        out = window(slot, req, win, w, done)
+        out = window(slot, req, toks, done, final)
         record("prefill" if done == 0 else "suffix_window", t0)
         return out
 

@@ -253,8 +253,25 @@ def restore(directory, state: Dict[str, Any],
         raise ValueError(
             f"checkpoint {file} and the state disagree on the optimizer")
     if state["opt"] is not None:
-        state["opt"].load_state_dict(payload["opt"])
+        _load_optimizer(state["opt"], payload["opt"])
     return state
+
+
+def _load_optimizer(opt, saved) -> None:
+    """``opt.load_state_dict(saved)``, keeping the tensors of a state the
+    optimizer already holds where they are (the loaded values copied
+    into them): a train step compiled on a card reads its moments and
+    step counts at their addresses."""
+    held = {p: dict(opt.state[p]) for p in opt.state}
+    opt.load_state_dict(saved)
+    for p, old in held.items():
+        new = opt.state.get(p, {})
+        for name, t in old.items():
+            got = new.get(name)
+            if (isinstance(t, torch.Tensor) and isinstance(got, torch.Tensor)
+                    and got.shape == t.shape):
+                t.copy_(got)
+                new[name] = t
 
 
 def batch_generator(seed: int, step: int, device) -> torch.Generator:

@@ -265,13 +265,31 @@ def _block_decode(x, bparams, cfg: ModelConfig, layer_cache, pos: int):
     return _finish_block(x, attn, bparams, cfg), layer_cache
 
 
-def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int):
+def _reset_cache(cache) -> None:
+    """Set a cache to what ``init_cache`` makes, in place: zeros (an
+    int8 cache's scales ones)."""
+    for layer_cache in cache:
+        for arr in layer_cache.values():
+            if isinstance(arr, QuantArray):
+                arr.q.zero_()
+                arr.scale.fill_(1.0)
+            else:
+                arr.zero_()
+
+
+def prefill(params: Params, cfg: ModelConfig, prompt, max_len: int,
+            cache=None):
     """prompt (b, t_p) -> (last-position logits (b, vocab), filled
-    cache) in one batched forward over the whole prompt."""
+    cache) in one batched forward over the whole prompt. With ``cache``
+    (of ``init_cache(cfg, b, max_len)``'s shapes) that cache is reset and
+    filled in place, the one a compiled program keeps at its address."""
     b, t_p = prompt.shape
     positions = torch.arange(t_p, device=prompt.device).expand(b, t_p)
     x = embed_lookup(params["embed"], prompt, torch_dtype(cfg.dtype))
-    cache = init_cache(cfg, b, max_len, device=prompt.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, device=prompt.device)
+    else:
+        _reset_cache(cache)
     for bparams, layer_cache in zip(params["blocks"], cache):
         x, _, k, v = _block_core(x, bparams, cfg, positions)
         _store(layer_cache["k"], k, 0)

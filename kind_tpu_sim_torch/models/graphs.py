@@ -92,6 +92,19 @@ def add_launches(delta) -> None:
             w.launches_by_route[r] += c
 
 
+def pointers(tree) -> tuple:
+    """The storage addresses of a tree's tensors (dicts in key order,
+    lists and tuples in order): what a program captured over the tree
+    reads, so part of its key."""
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(),)
+    if isinstance(tree, dict):
+        return tuple(p for key in sorted(tree) for p in pointers(tree[key]))
+    if isinstance(tree, (list, tuple)):
+        return tuple(p for node in tree for p in pointers(node))
+    return ()
+
+
 def fill(buf: torch.Tensor, array) -> torch.Tensor:
     """Copy the host ``array`` into the device buffer ``buf``; returns
     ``buf``. The host values are read now, so the caller may change its
@@ -152,6 +165,53 @@ class RoundInputs:
                                                          hosts))
 
 
+class AdmissionInputs:
+    """The device buffers through which an admission program (a wave's
+    stacked prefill, a window against a prefix, the dense prefix store
+    and restore) reads the host's values: prompt windows, true lengths,
+    cache rows or table rows, window bases, arena rows and the first
+    token's sampling state (knobs, seed words, seen rows). A buffer is
+    allocated at the first fill of its (name, shape, dtype) and kept for
+    the engine's life; a program's key fixes the shapes it reads, so
+    every replay of a key reads the buffers its capture read. The fills
+    are ``fill``'s queued copies, made before the program runs."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: Dict[tuple, torch.Tensor] = {}
+
+    def put(self, name: str, array, dtype=torch.int64) -> torch.Tensor:
+        """The ``name`` buffer of ``array``'s shape and ``dtype``,
+        filled with it."""
+        array = np.asarray(array)
+        key = (name, array.shape, dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = torch.zeros(array.shape, dtype=dtype,
+                                                device=self.device)
+        return fill(buf, array)
+
+    def sampling(self, samps, seeds, seen: Callable[[], np.ndarray]):
+        """The first-token sampling state of a group's rows
+        (``SamplingConfig``s, seeds, and ``seen()``, their (rows, vocab)
+        bool seen rows), or None when every row is greedy and
+        penalty-free (the argmax; part of the key): (temp, top_k, top_p,
+        min_p, rep_pen, seed words (rows, 2), seen rows)."""
+        temp = np.asarray([s.temperature for s in samps], np.float32)
+        rep_pen = np.asarray([s.repetition_penalty for s in samps],
+                             np.float32)
+        if not (np.any(temp > 0.0) or np.any(rep_pen != 1.0)):
+            return None
+        f32 = torch.float32
+        return (self.put("temp", temp, f32),
+                self.put("top_k", [s.top_k for s in samps], torch.int32),
+                self.put("top_p", [s.top_p for s in samps], f32),
+                self.put("min_p", [s.min_p for s in samps], f32),
+                self.put("rep_pen", rep_pen, f32),
+                self.put("seeds", _seed_words(seeds)),
+                self.put("seen", seen(), torch.bool))
+
+
 def eager(key, fn: Callable[[], Any]):
     """The round run as the Python it is: the CPU's path, and what a
     test on the card rebinds an engine's ``_round`` to, to hold its
@@ -175,8 +235,12 @@ class RoundGraphs:
     ``captured``, ``capture_s`` (seconds spent capturing, the eager
     warm-up rounds excluded) and ``replays`` say what it did."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, free_cached: bool = False):
         self.device = device
+        # a train step's capture: the eager step's cached blocks are
+        # handed back to the card first, so the graph's pool takes their
+        # place instead of doubling the step's peak
+        self.free_cached = free_cached
         self._graphs: Dict[Any, _Graph] = {}
         self._stream = None
         self._pool = None
@@ -207,6 +271,8 @@ class RoundGraphs:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             outputs = fn()
+            if self.free_cached:
+                torch.cuda.empty_cache()
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
@@ -239,16 +305,18 @@ class RoundGraphs:
         return outputs
 
 
-def round_runner(device: torch.device, mesh=None):
+def round_runner(device: torch.device, mesh=None, free_cached=False):
     """What an engine on ``device`` runs its rounds through: graphs on a
     card, ``eager`` on the CPU. Under a mesh the graphs capture the
     round's collectives, which NCCL allows (its groups are warmed by the
     eager first round of each key); a gloo mesh runs its collectives on
-    the host, which a graph cannot hold, so its rounds are eager."""
+    the host, which a graph cannot hold, so its rounds are eager. The
+    admission programs, the solo generators and the train step run
+    through runners of their own, made here by the same rule."""
     if device.type != "cuda" or (mesh is not None
                                  and mesh.backend != "nccl"):
         return eager
-    return RoundGraphs(device)
+    return RoundGraphs(device, free_cached)
 
 
 def _solo_chunk(params, cfg, token, cache, base, size: int) -> tuple:

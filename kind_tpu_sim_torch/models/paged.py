@@ -91,19 +91,24 @@ def _scatter_flat(pool_arr, blocks, offsets, rows) -> None:
     _write(pool_arr, (blocks.long(), offsets.long()), rows)
 
 
-def _window_indices(length: int, base: int, block_size: int, width: int,
-                    true_len: int, table_row):
+def _window_indices(length: int, base, block_size: int, width: int,
+                    true_len, table_rows):
     """Flat (blocks, offsets) for writing ``length`` window positions
-    from ``base``: positions past ``true_len`` or past the table's
-    width go to the garbage block."""
-    idx = torch.arange(length, device=table_row.device)
+    from ``base`` through each of ``table_rows`` (rows, width) with its
+    ``true_len`` (rows,) (a (width,) row: one window, ``true_len`` and
+    ``base`` integers or (1,) tensors): positions past the row's true
+    length or past the table's width go to the garbage block."""
+    rows = table_rows.reshape(-1, width)
+    idx = torch.arange(length, device=rows.device)
     pos = base + idx
     logical = pos // block_size
-    blocks = table_row[torch.clamp(logical, 0, width - 1)]
-    valid = (idx < true_len) & (logical < width)
-    return (torch.where(valid, blocks, torch.full_like(blocks,
-                                                       GARBAGE_BLOCK)),
-            pos % block_size)
+    blocks = rows[:, torch.clamp(logical, 0, width - 1)]
+    lens = torch.as_tensor(true_len, device=rows.device).reshape(-1, 1)
+    valid = (idx[None, :] < lens) & (logical < width)[None, :]
+    blocks = torch.where(valid, blocks,
+                         torch.full_like(blocks, GARBAGE_BLOCK))
+    return (blocks.reshape(-1),
+            (pos % block_size).expand(rows.shape[0], length).reshape(-1))
 
 
 def _write_layer(lc, kk, vv, write) -> None:
@@ -112,9 +117,10 @@ def _write_layer(lc, kk, vv, write) -> None:
     write(lc["v"], vv)
 
 
-def _last_logits(x, params, true_len: int, cfg: ModelConfig):
-    """fp32 logits (vocab,) at the window's TRUE last position."""
-    h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
+def _last_logits(x, params, true_len, cfg: ModelConfig):
+    """fp32 logits (vocab,) at the window's TRUE last position
+    (``true_len`` a (1,) tensor)."""
+    h = _rms_norm(x[0, true_len - 1], params["final_norm"])
     return _readout(h, params["embed"], cfg.int8_native)[0].float()
 
 
@@ -144,13 +150,16 @@ def scatter_rows(pools, tables, starts, rows_per_layer, active) -> None:
         _write_layer(lc, rows["k"], rows["v"], write)
 
 
-def paged_prefill(params, pools, tokens, true_len: int, table_row, *,
+def paged_prefill(params, pools, tokens, true_len, table_row, *,
                   cfg: ModelConfig):
     """Run a prompt (1, t_pad) through the forward, scattering k/v for
-    positions < true_len into the slot's pool blocks (table_row:
-    (width,) int32), in place. Returns the fp32 logits at the true
-    last position."""
-    return paged_prefill_many(params, pools, tokens, [true_len],
+    positions < true_len (a host integer or a (1,) tensor) into the
+    slot's pool blocks (table_row: (width,) int32), in place. Returns
+    the fp32 logits at the true last position."""
+    from kind_tpu_sim_torch.models.serving import _index
+
+    return paged_prefill_many(params, pools, tokens,
+                              _index(true_len, tokens.device),
                               table_row[None, :], cfg=cfg)[0]
 
 
@@ -163,16 +172,16 @@ def paged_prefill_many(params, pools, tokens, true_lens, tables, *,
     past them, or past the width, to the garbage block), in place. Each
     row's result equals its own ``paged_prefill``; the flash kernel
     launches once per layer for the wave, an MoE routes each prompt
-    alone. Returns (K, vocab) fp32
-    logits at each row's true last position."""
+    alone. ``true_lens`` is a (K,) integer device tensor (an engine's
+    buffer) or a host sequence, copied. Returns (K, vocab) fp32 logits
+    at each row's true last position."""
     k_rows, t_p = tokens.shape
     dev = tokens.device
     positions = torch.arange(t_p, device=dev)[None, :].expand(k_rows, t_p)
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
-    idx = [_window_indices(t_p, 0, pools[0]["k"].shape[1], tables.shape[1],
-                           n, row) for n, row in zip(true_lens, tables)]
-    blocks = torch.cat([b for b, _ in idx])
-    offsets = torch.cat([o for _, o in idx])
+    lens = torch.as_tensor(true_lens, device=dev)
+    blocks, offsets = _window_indices(t_p, 0, pools[0]["k"].shape[1],
+                                      tables.shape[1], lens, tables)
 
     def write(pool_arr, upd):
         flat = upd.reshape((k_rows * t_p,) + tuple(upd.shape[2:]))
@@ -181,14 +190,13 @@ def paged_prefill_many(params, pools, tokens, true_lens, tables, *,
     for bparams, lc in zip(params["blocks"], pools):
         x, _, k, v = _block_core(x, bparams, cfg, positions, "rows")
         _write_layer(lc, k, v, write)
-    lens = torch.as_tensor(true_lens, device=dev)
     h = _rms_norm(x[torch.arange(k_rows, device=dev), lens - 1],
                   params["final_norm"])
     return _readout(h, params["embed"], cfg.int8_native).float()
 
 
-def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
-                 *, cfg: ModelConfig):
+def paged_suffix(params, pools, tokens, true_len, base, table_row, *,
+                 cfg: ModelConfig):
     """Prefix-cache admission (and every chunked-prefill window after
     the first), paged: the slot's table already points at the blocks
     holding positions < ``base``; run the window (1, w_pad) through the
@@ -196,13 +204,16 @@ def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
     the slot's blocks from ``base`` on, in place, and return the fp32
     logits at the true last window position. Shared blocks are never
     written: a hit's suffix starts on a block boundary, so every write
-    lands in blocks this slot allocated itself."""
+    lands in blocks this slot allocated itself. ``true_len`` and
+    ``base`` are host integers or (1,) device tensors; with tensors
+    nothing is read on the host."""
+    from kind_tpu_sim_torch.models.serving import _index
     from kind_tpu_sim_torch.models.speculative import _window_block
 
     w = tokens.shape[1]
+    true_len, base = (_index(v, tokens.device) for v in (true_len, base))
     view = gather_view(pools, table_row[None, :])
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
-    base_vec = torch.full((1,), base, device=tokens.device)
     blocks, offsets = _window_indices(
         w, base, pools[0]["k"].shape[1], table_row.shape[0], true_len,
         table_row)
@@ -211,7 +222,7 @@ def paged_suffix(params, pools, tokens, true_len: int, base: int, table_row,
         _scatter_flat(pool_arr, blocks, offsets, upd[0])
 
     for bparams, lc, view_lc in zip(params["blocks"], pools, view):
-        x, kk, vv = _window_block(x, bparams, cfg, view_lc, base_vec)
+        x, kk, vv = _window_block(x, bparams, cfg, view_lc, base)
         _write_layer(lc, kk, vv, write)
     return _last_logits(x, params, true_len, cfg)
 

@@ -102,7 +102,7 @@ from kind_tpu_sim_torch.models.decode import (
     _block_decode_chunk,
     _counter_gumbel,
     _filtered_scaled,
-    _gumbel_noise,
+    _gumbel_noise,  # noqa: F401 (the host-keyed draw, served here too)
     _map_kv,
     _new_chunk_buffers,
     _write,
@@ -208,15 +208,27 @@ def _padded_window(toks) -> np.ndarray:
 # device functions
 
 
-def _prefill_into_slot(params, cache, tokens, true_len: int, slot: int, *,
+def _index(value, device) -> torch.Tensor:
+    """A host integer as the (1,) index tensor the buffer-driven
+    admission functions read; a tensor (an engine's buffer) passes as it
+    is."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((1,), int(value), dtype=torch.long, device=device)
+
+
+def _prefill_into_slot(params, cache, tokens, true_len, slot, *,
                        cfg: ModelConfig):
     """Run the prompt (1, L_pad) through the forward and write k/v for
     positions < true_len into row ``slot`` of the cache, in place (the
     rest of the row is zeroed: in an int8 cache, quantized zeros with
     scale 1e-8/127, as the reference's padded write leaves). Returns the
     fp32 logits (vocab,) at the TRUE last position; padding cannot leak
-    into them (causal)."""
-    return _prefill_many_into_slots(params, cache, tokens, [true_len], [slot],
+    into them (causal). ``true_len`` and ``slot`` are host integers or
+    (1,) device tensors."""
+    dev = tokens.device
+    return _prefill_many_into_slots(params, cache, tokens,
+                                    _index(true_len, dev), _index(slot, dev),
                                     cfg=cfg)[0]
 
 
@@ -229,7 +241,9 @@ def _prefill_many_into_slots(params, cache, tokens, true_lens, slots, *,
     ``_prefill_into_slot`` (the flash kernel launches once per layer
     for the whole wave; an MoE routes each prompt alone, over its
     bucket-padded length, as the reference's scan of single-prompt
-    prefills does). Returns (K, vocab) fp32 logits at each row's true
+    prefills does). ``true_lens`` and ``slots`` are (K,) integer device
+    tensors (an engine's buffers: nothing is read on the host) or host
+    sequences, copied. Returns (K, vocab) fp32 logits at each row's true
     last position."""
     k_rows, t_p = tokens.shape
     dev = tokens.device
@@ -251,38 +265,63 @@ def _prefill_many_into_slots(params, cache, tokens, true_lens, slots, *,
     return _readout(h, params["embed"], cfg.int8_native).float()
 
 
-def _suffix_into_slot(params, cache, tokens, true_len: int, base: int,
-                      slot: int, *, cfg: ModelConfig):
+def _parts(arr):
+    """A cache tensor's storage tensors: itself, or an int8 one's q and
+    scale."""
+    return tuple(arr) if isinstance(arr, QuantArray) else (arr,)
+
+
+def _write_from(arr, row, upd, base, slot) -> None:
+    """Write the window ``upd`` (1, w, kv, hd) into cache row ``slot``
+    of ``arr`` from position ``base`` ((1,) tensors), in place,
+    quantized per row into an int8 cache: rows past the row's end are
+    dropped and rows below ``base`` keep their bytes. ``row`` is the
+    slot's row as read before the window (1, s, kv, hd); the window is
+    written into it, extended by w rows of slack, and the row's first s
+    positions are copied back."""
+    w = upd.shape[1]
+    s = _parts(row)[0].shape[1]
+    ext = _map_kv(row, lambda a: torch.cat([a, a[:, :w]], dim=1))
+    cols = base + torch.arange(w, device=upd.device)
+    _write(ext, (0, cols), upd[0])
+    for dst, src in zip(_parts(arr), _parts(ext)):
+        dst.index_copy_(0, slot, src[:, :s])
+
+
+def _suffix_into_slot(params, cache, tokens, true_len, base, slot, *,
+                      cfg: ModelConfig):
     """Continue a slot whose first ``base`` positions already hold k/v
     (a restored prefix, or the earlier windows of a chunked prefill):
     run the window (1, w_pad) through the model attending to that
     prefix (``speculative._window_block``), write its k/v from ``base``
-    on (positions past ``true_len`` zeroed; none past the row's end),
-    in place, and return the fp32 logits at the TRUE last window
-    position. ``_prefill_into_slot`` is the base == 0 case."""
+    on (positions past ``true_len`` zeroed; none past the row's end,
+    none below ``base``), in place, and return the fp32 logits at the
+    TRUE last window position. ``true_len``, ``base`` and ``slot`` are
+    host integers or (1,) device tensors; with tensors nothing is read
+    on the host. ``_prefill_into_slot`` is the base == 0 case."""
     from kind_tpu_sim_torch.models.speculative import _window_block
 
     w = tokens.shape[1]
     dev = tokens.device
+    true_len, base, slot = (_index(v, dev) for v in (true_len, base, slot))
     x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
     keep = (torch.arange(w, device=dev) < true_len)[None, :, None, None]
-    base_vec = torch.full((1,), base, device=dev)
     for bparams, layer_cache in zip(params["blocks"], cache):
-        row = {name: _map_kv(arr, lambda a: a[slot:slot + 1])
+        row = {name: _map_kv(arr, lambda a: a.index_select(0, slot))
                for name, arr in layer_cache.items()}
-        x, kk, vv = _window_block(x, bparams, cfg, row, base_vec)
-        for arr, upd in ((layer_cache["k"], kk), (layer_cache["v"], vv)):
-            n = min(w, arr.shape[1] - base)
-            _write(arr, (slot, slice(base, base + n)),
-                   torch.where(keep, upd, 0)[0, :n])
-    h = _rms_norm(x[:, true_len - 1, :], params["final_norm"])
+        x, kk, vv = _window_block(x, bparams, cfg, row, base)
+        for name, upd in (("k", kk), ("v", vv)):
+            _write_from(layer_cache[name], row[name],
+                        torch.where(keep, upd, 0), base, slot)
+    h = _rms_norm(x[0, true_len - 1], params["final_norm"])
     return _readout(h, params["embed"], cfg.int8_native)[0].float()
 
 
 def _read_slot_rows(cache, slot: int, length: int):
     """Copies of the first ``length`` cache rows of ``slot``, one
     {"k", "v"} of (1, length, kv, hd) per layer (int8 caches: q and
-    scale, as they are): the store half of dense prefix caching."""
+    scale, as they are): the store half of dense prefix caching, as the
+    reference returns it (the engine stores into a ``PrefixArena``)."""
     return [{name: _map_kv(arr, lambda a: a[slot:slot + 1, :length].clone())
              for name, arr in layer_cache.items()} for layer_cache in cache]
 
@@ -292,10 +331,73 @@ def _write_slot_rows(cache, entry_kv, slot: int) -> None:
     device to device, in place: the restore half."""
     for layer_cache, entry in zip(cache, entry_kv):
         for name, arr in layer_cache.items():
-            pairs = (zip(arr, entry[name]) if isinstance(arr, QuantArray)
-                     else ((arr, entry[name]),))
-            for dst, src in pairs:
+            for dst, src in zip(_parts(arr), _parts(entry[name])):
                 dst[slot, :src.shape[1]] = src[0]
+
+
+def _store_rows(cache, arena, slot, entry) -> tuple:
+    """The store half of dense prefix caching over an arena: the first
+    L positions of cache row ``slot`` copied into row ``entry`` of
+    ``arena`` (one length's ``PrefixArena.storage``, L its length),
+    every layer, in place. ``slot`` and ``entry`` are (1,) device
+    tensors. Returns no outputs."""
+    for layer_cache, stored in zip(cache, arena):
+        for name, arr in layer_cache.items():
+            for dst, src in zip(_parts(stored[name]), _parts(arr)):
+                dst.index_copy_(0, entry,
+                                src.index_select(0, slot)[:, :dst.shape[1]])
+    return ()
+
+
+def _restore_rows(cache, arena, slot, entry) -> tuple:
+    """The restore half: row ``entry`` of ``arena`` copied into cache
+    row ``slot`` from position 0, every layer, in place. Returns no
+    outputs."""
+    for layer_cache, stored in zip(cache, arena):
+        for name, arr in layer_cache.items():
+            for dst, src in zip(_parts(arr), _parts(stored[name])):
+                dst[:, :src.shape[1]].index_copy_(0, slot,
+                                                  src.index_select(0, entry))
+    return ()
+
+
+class PrefixArena:
+    """Where the dense prefix cache's entries live on the device: for
+    each stored length (a prompt bucket) a cache-shaped tensor of
+    ``rows`` entries per layer, allocated at the first store of that
+    length and kept. An entry is one row of its length's arena; the
+    store and the restore copy a slot's first positions to and from it
+    through index buffers, so one program a length serves every slot and
+    entry. ``rows`` is the cache's capacity plus one: a store into a
+    full cache takes its row before the LRU entry gives one back."""
+
+    def __init__(self, cache, rows: int):
+        self._cache = cache
+        self.rows = rows
+        self._arenas: Dict[int, list] = {}
+        self._free: Dict[int, List[int]] = {}
+
+    def storage(self, length: int) -> list:
+        """The arena of ``length``: per layer {"k", "v"} of (rows,
+        length, kv, hd), int8 caches' q and scale alike."""
+        arena = self._arenas.get(length)
+        if arena is None:
+            def alloc(a):
+                return torch.zeros((self.rows, length) + tuple(a.shape[2:]),
+                                   dtype=a.dtype, device=a.device)
+
+            arena = self._arenas[length] = [
+                {name: _map_kv(arr, alloc) for name, arr in lc.items()}
+                for lc in self._cache]
+            self._free[length] = list(range(self.rows - 1, -1, -1))
+        return arena
+
+    def take(self, length: int) -> int:
+        self.storage(length)
+        return self._free[length].pop()
+
+    def give_back(self, length: int, row: int) -> None:
+        self._free[length].append(row)
 
 
 class PrefixCache:
@@ -310,6 +412,9 @@ class PrefixCache:
     def __init__(self, capacity: int):
         self.capacity = capacity
         self.entries = collections.OrderedDict()
+        # called with each entry the LRU drops (the engine returns its
+        # arena row)
+        self.on_evict = None
         # stored length -> entry count: lookup probes one key per
         # distinct length instead of comparing every entry
         self._len_count: Dict[int, int] = collections.Counter()
@@ -347,7 +452,9 @@ class PrefixCache:
         self.entries[key] = entry
         self.entries.move_to_end(key)
         while len(self.entries) > self.capacity:
-            old_key, _ = self.entries.popitem(last=False)
+            old_key, old = self.entries.popitem(last=False)
+            if self.on_evict is not None:
+                self.on_evict(old)
             self._len_count[len(old_key)] -= 1
             if not self._len_count[len(old_key)]:
                 del self._len_count[len(old_key)]
@@ -386,6 +493,38 @@ def _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen, presence,
     scaled = _filtered_scaled(logits, temp, top_k, top_p, min_p)
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temp <= 0.0, greedy, sampled)
+
+
+def _first_tokens(logits, sampling) -> tuple:
+    """Generation 0 of K admitted rows from their prefill logits (K,
+    vocab) fp32: the argmax when ``sampling`` is None (every row greedy
+    and penalty-free), else ``_sample_rows`` with the rows' knobs, seen
+    rows and the Gumbel noise of key (seed, 0), zeros on greedy rows;
+    ``sampling`` is ``graphs.AdmissionInputs.sampling``'s device tuple.
+    Returns (tokens (K,), their raw-model logprobs (K,))."""
+    if sampling is None:
+        first = torch.argmax(logits, dim=-1)
+    else:
+        temp, top_k, top_p, min_p, rep_pen, words, seen = sampling
+        gidx = torch.zeros(words.shape[0], dtype=torch.long,
+                           device=logits.device)
+        noise = _counter_gumbel(words, gidx, logits.shape[-1])
+        noise = torch.where(temp[:, None] > 0.0, noise,
+                            torch.zeros_like(noise))
+        first = _sample_rows(logits, temp, top_k, top_p, min_p, rep_pen,
+                             seen, noise=noise)
+    return first, _raw_token_lp(logits, first)
+
+
+def _admission(forward, sampling) -> tuple:
+    """One admission program: ``forward()`` (a stacked prefill's (K,
+    vocab) logits, or a window's (vocab,)), then each row's first token
+    (``_first_tokens``). Every input is a device tensor. Returns (first
+    (K,), lp (K,), logits (K, vocab))."""
+    logits = forward()
+    if logits.dim() == 1:
+        logits = logits[None]
+    return (*_first_tokens(logits, sampling), logits)
 
 
 def _chunk_scan(params, big_cache, lengths, last_token, active, sampling,
@@ -593,6 +732,11 @@ class ServingEngine:
         # per key on a card, the eager function on the CPU
         self._in = graphs.RoundInputs(n, self.device)
         self._round = graphs.round_runner(self.device, mesh)
+        # admission (waves, windows, the dense prefix store and restore)
+        # is compiled the same way, one program a key, through buffers
+        # of its own
+        self._adm = graphs.AdmissionInputs(self.device)
+        self._admit_round = graphs.round_runner(self.device, mesh)
 
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * n
@@ -643,9 +787,17 @@ class ServingEngine:
                 "paged_kernel; construct PagedServingEngine")
         self.cache = init_cache(self.cfg, self._storage_slots(),
                                 self.serving.max_len, device=self.device)
-        self.prefix_cache = (PrefixCache(self.serving.prefix_cache_entries)
-                             if self.serving.prefix_cache_entries > 0
-                             else None)
+        self._init_prefix_cache()
+
+    def _init_prefix_cache(self) -> None:
+        """The dense prefix cache and the arena its entries live in."""
+        entries = self.serving.prefix_cache_entries
+        self.prefix_cache = PrefixCache(entries) if entries > 0 else None
+        if self.prefix_cache is not None:
+            # the callback holds the arena, not the engine: no cycle
+            arena = self._arena = PrefixArena(self.cache, entries + 1)
+            self.prefix_cache.on_evict = (
+                lambda old: arena.give_back(old["pad"], old["row"]))
 
     # -- the slots' split over 'data' (dense grids) --------------------
 
@@ -705,17 +857,21 @@ class ServingEngine:
 
         return run
 
-    def _from_owner(self, slot: int, fn, vocab: int):
-        """fp32 logits (vocab,) that only ``slot``'s data rank can
-        compute (a window against the slot's prefix): computed there
-        and broadcast over 'data'."""
+    def _from_owner(self, slot: int, fn):
+        """An admission program's outputs (first (1,), lp (1,), logits
+        (1, vocab)) that only ``slot``'s data rank can compute (a window
+        against the slot's prefix): computed there and broadcast over
+        'data'."""
         if self._data is None:
             return fn()
         if self._owns(slot):
-            out = fn().contiguous()
+            outs = tuple(t.contiguous() for t in fn())
         else:
-            out = torch.empty(vocab, dtype=torch.float32, device=self.device)
-        return tp.broadcast(out, self._data, self._owner(slot))
+            outs = (torch.empty(1, dtype=torch.long, device=self.device),
+                    torch.empty(1, device=self.device),
+                    torch.empty(1, self.cfg.vocab_size, device=self.device))
+        return tuple(tp.broadcast(t, self._data, self._owner(slot))
+                     for t in outs)
 
     # -- public surface ------------------------------------------------
 
@@ -956,26 +1112,58 @@ class ServingEngine:
         length, the start of the prompt window (0 on a miss)."""
         return self._restore_prefix(slot, req)
 
-    def _prefill_window(self, slot: int, req: Request, window, w: int,
-                        done: int):
-        """One prompt window through the model: the plain prefill at
-        done 0, the suffix forward against the slot's [0, done) prefix
-        after it. Returns the window's fp32 logits."""
+    def _prefill_window(self, slot: int, req: Request, toks, done: int,
+                        final: bool):
+        """One prompt window (``toks``, host tokens) through the model as
+        one admission program: the K = 1 prefill at done 0, the window
+        against the slot's [0, done) prefix after it; the first token is
+        sampled in the same program when ``final`` (the window completes
+        the prompt). Returns (first (1,), lp (1,), logits (1, vocab))."""
+        window = _padded_window(toks)
+        sampling = self._first_sampling([req]) if final else None
         if done == 0:
-            return _prefill_into_slot(self.params, self.cache, window, w,
-                                      self._row(slot), cfg=self.cfg)
-        return self._from_owner(slot, lambda: _suffix_into_slot(
-            self.params, self.cache, window, w, done, self._row(slot),
-            cfg=self.cfg), self.cfg.vocab_size)
+            return self._wave([slot], window, [len(toks)], sampling)
+        return self._suffix(slot, window, len(toks), done, sampling)
 
     def _prefill_group(self, group):
-        """Storage half of an admission wave (dense grid): the stacked
-        whole-prompt prefill. Returns (K, vocab) logits."""
+        """An admission wave's stacked whole-prompt prefill and first
+        tokens, one program. Returns (first (K,), lp (K,), logits (K,
+        vocab)), the program's outputs (a later program of the same key
+        rewrites them)."""
         toks = np.stack([_padded_window(req.prompt)[0] for _, req in group])
-        return _prefill_many_into_slots(
-            self.params, self.cache, torch.as_tensor(toks, device=self.device),
-            [len(req.prompt) for _, req in group],
-            [self._row(slot) for slot, _ in group], cfg=self.cfg)
+        return self._wave([slot for slot, _ in group], toks,
+                          [len(req.prompt) for _, req in group],
+                          self._first_sampling([req for _, req in group]))
+
+    def _program(self, key, fn, sampling):
+        """Run the admission program ``_admission(fn, sampling)`` through
+        the admission runner under ``key``, ``sampled`` appended."""
+        return self._admit_round(key + (sampling is not None,),
+                                 functools.partial(_admission, fn, sampling))
+
+    def _wave(self, slots, toks: np.ndarray, lens, sampling):
+        """The stacked prefill of the windows ``toks`` (K, bucket) with
+        true lengths ``lens`` into ``slots``' cache rows (dense grid),
+        keyed (K, bucket, sampled): the reference's one program per (K,
+        bucket)."""
+        put = self._adm.put
+        tokens, lens = put("tokens", toks), put("lens", lens)
+        rows = put("rows", [self._row(slot) for slot in slots])
+        return self._program(("prefill",) + toks.shape, functools.partial(
+            _prefill_many_into_slots, self.params, self.cache, tokens, lens,
+            rows, cfg=self.cfg), sampling)
+
+    def _suffix(self, slot: int, window: np.ndarray, w: int, done: int,
+                sampling):
+        """The window (1, bucket) against slot's [0, done) prefix (dense
+        grid), keyed (bucket, sampled), on the slot's data rank."""
+        put = self._adm.put
+        tokens, lens = put("tokens", window), put("lens", [w])
+        base, row = put("base", [done]), put("rows", [self._row(slot)])
+        return self._from_owner(slot, lambda: self._program(
+            ("suffix", window.shape[1]), functools.partial(
+                _suffix_into_slot, self.params, self.cache, tokens, lens,
+                base, row, cfg=self.cfg), sampling))
 
     def _store_pending(self, slot: int, req: Request) -> None:
         """Prompt-complete hook (the prefix-cache store)."""
@@ -1053,8 +1241,18 @@ class ServingEngine:
         if hit is None:
             return 0
         if self._owns(slot):
-            _write_slot_rows(self.cache, hit["kv"], self._row(slot))
+            self._arena_copy(_restore_rows, "prefix restore", slot, hit)
         return hit["len"]
+
+    def _arena_copy(self, fn, name: str, slot: int, entry) -> None:
+        """``fn`` (``_store_rows`` or ``_restore_rows``) between slot's
+        cache row and the entry's arena row, one program a stored
+        length."""
+        put = self._adm.put
+        pad = entry["pad"]
+        self._admit_round((name, pad), functools.partial(
+            fn, self.cache, self._arena.storage(pad),
+            put("rows", [self._row(slot)]), put("entry", [entry["row"]])))
 
     def _store_prefix(self, slot: int, req: Request) -> None:
         """Store the slot's whole-prompt k/v, padded to the prompt's
@@ -1063,21 +1261,21 @@ class ServingEngine:
             return
         t_p = len(req.prompt)
         bucket = min(_bucket(t_p), self.serving.max_len)
-        self.prefix_cache.store(req.prompt, {
-            "kv": self._slot_rows(slot, bucket),
-            "len": t_p, "pad": bucket})
-
-    def _slot_rows(self, slot: int, length: int):
-        """``_read_slot_rows`` of ``slot``, on every data rank: its data
-        rank reads them and broadcasts them over 'data' (the others read
-        their sink row for the shapes)."""
-        rows = _read_slot_rows(self.cache, self._row(slot), length)
+        # a prompt stored again keeps its row (its length is the same)
+        old = self.prefix_cache.entries.get(tuple(req.prompt))
+        entry = {"row": (old["row"] if old is not None
+                         else self._arena.take(bucket)),
+                 "len": t_p, "pad": bucket}
+        # on every data rank (the others copy their sink row), then the
+        # slot's data rank broadcasts the entry over 'data'
+        self._arena_copy(_store_rows, "prefix store", slot, entry)
         if self._data is not None:
-            for layer in rows:
+            for layer in self._arena.storage(bucket):
                 for arr in layer.values():
-                    for t in (arr if isinstance(arr, QuantArray) else (arr,)):
-                        tp.broadcast(t, self._data, self._owner(slot))
-        return rows
+                    for t in _parts(arr):
+                        tp.broadcast(t[entry["row"]], self._data,
+                                     self._owner(slot))
+        self.prefix_cache.store(req.prompt, entry)
 
     # -- admission and retirement --------------------------------------
 
@@ -1152,23 +1350,22 @@ class ServingEngine:
         for _, group in sorted(groups.items()):
             self._admit_group(group)
 
-    def _window(self, slot: int, req: Request, window, w: int, done: int):
+    def _window(self, slot: int, req: Request, toks, done: int,
+                final: bool = True):
         """``_prefill_window``, counted."""
         self.prefills += 1
         if done == 0:
             self.prefill_dispatches += 1
         else:
             self.suffix_windows += 1
-        return self._prefill_window(slot, req, window, w, done)
+        return self._prefill_window(slot, req, toks, done, final)
 
     def _admit_single(self, slot: int, req: Request, done: int) -> None:
         """One slot's whole-prompt admission (claim done): the prompt
         past the restored prefix as one window, store, activate."""
-        suffix = req.prompt[done:]
-        window = torch.as_tensor(_padded_window(suffix), device=self.device)
-        logits = self._window(slot, req, window, len(suffix), done)
+        outs = self._window(slot, req, req.prompt[done:], done)
         self._store_pending(slot, req)
-        self._activate(slot, req, logits)
+        self._activate(slot, req, outs)
 
     def _wave_sizes(self) -> list:
         """Sub-wave sizes, largest first: the configured ones, or every
@@ -1185,68 +1382,59 @@ class ServingEngine:
     def _admit_group(self, group) -> None:
         """One same-bucket admission wave: K decomposed into sub-waves
         of the configured sizes, largest first (11 -> 8+2+1), each one
-        stacked prefill and one batched first-token sample; ONE host
-        readback for all K first tokens."""
-        handles = []
+        program (stacked prefill and batched first-token sample); ONE
+        host readback for all K first tokens (and one for their
+        logprobs when a request asked for them)."""
+        firsts, lps = [], []
         sizes = self._wave_sizes()
         i = 0
         while i < len(group):
             w = next(s for s in sizes if s <= len(group) - i)
-            sub = group[i:i + w]
+            first, lp, _ = self._prefill_group(group[i:i + w])
             i += w
-            logits_k = self._prefill_group(sub)
             self.prefills += w
             self.prefill_dispatches += 1
             self.wave_sizes[w] += 1
-            handles.append((sub, logits_k, self._first_group(sub, logits_k)))
-        firsts = self._first_read_many([h[2] for h in handles])
-        j = 0
-        for sub, logits_k, _ in handles:
-            for r, (slot, req) in enumerate(sub):
-                self._store_pending(slot, req)
-                self._activate_with_first(slot, req, logits_k[r], firsts[j])
-                j += 1
+            # a later sub-wave of the same key rewrites the outputs
+            firsts.append(first.clone())
+            lps.append(lp.clone())
+        firsts = self._first_read_many(firsts)
+        lps = (self._first_read_many(lps)
+               if any(req.logprobs for _, req in group) else None)
+        for j, (slot, req) in enumerate(group):
+            self._store_pending(slot, req)
+            self._activate_with_first(slot, req, firsts[j],
+                                      lps[j] if req.logprobs else None)
 
-    def _first_group(self, group, logits_k):
-        """The first token of each row of a wave, sampled on the device
-        from its prefill logits (K, vocab) with key (seed, 0); no
-        readback. An all-greedy, penalty-free wave is the argmax."""
+    def _first_sampling(self, reqs):
+        """The first-token sampling state of ``reqs``' rows in the
+        admission buffers, or None when every row is greedy and
+        penalty-free (then the first token is the argmax; part of the
+        key)."""
         samps = [req.sampling or SamplingConfig(temperature=0.0)
-                 for _, req in group]
-        temp = np.asarray([s.temperature for s in samps], np.float32)
-        rep_pen = np.asarray([s.repetition_penalty for s in samps],
-                             np.float32)
-        if not (np.any(temp > 0.0) or np.any(rep_pen != 1.0)):
-            return torch.argmax(logits_k, dim=-1)
-        dev = self.device
-        seen = np.stack([self._seen_row(req) for _, req in group])
-        keys = [(req.seed or 0, 0) for _, req in group]
-        temp = to_device(temp, dev)
-        return _sample_rows(
-            logits_k, temp,
-            to_device(np.asarray([s.top_k for s in samps], np.int32), dev),
-            to_device(np.asarray([s.top_p for s in samps], np.float32), dev),
-            to_device(np.asarray([s.min_p for s in samps], np.float32), dev),
-            to_device(rep_pen, dev), to_device(seen, dev),
-            noise=_gumbel_noise(keys, logits_k.shape[-1], temp, dev))
+                 for req in reqs]
+        return self._adm.sampling(
+            samps, [req.seed or 0 for req in reqs],
+            lambda: np.stack([self._seen_row(req) for req in reqs]))
 
     @staticmethod
-    def _first_read_many(arrs) -> List[int]:
-        """One host readback of a wave's first tokens, however many
-        sub-waves produced them."""
+    def _first_read_many(arrs) -> list:
+        """One host readback of a wave's first tokens (or their
+        logprobs), however many sub-waves produced them."""
         return torch.cat(arrs).cpu().tolist()
 
     @torch.no_grad()
     @_scoped
     def warm_admission(self, prompt_lens, sizes=None) -> None:
-        """Run every (prompt bucket x sub-wave size) admission dispatch
+        """Run every (prompt bucket x sub-wave size) admission program
         the wave decomposition can make on dummy prompts, before
-        traffic: the kernels build and the caching allocator grows to
-        the waves' size. Scheduler, allocator and counters are left as
-        they were: dense grids scribble on idle slots' rows (prefilled
-        again before any read), paged engines write through all-zero
-        table rows into the garbage block. A no-op for engines that
-        admit per slot (dynamic-width paged, chunked prefill)."""
+        traffic: the kernels build, and on a card each program's graph
+        is captured (the reference's trace ladder). Scheduler, allocator
+        and counters are left as they were: dense grids scribble on idle
+        slots' rows (prefilled again before any read), paged engines
+        write through all-zero table rows into the garbage block. A
+        no-op for engines that admit per slot (dynamic-width paged,
+        chunked prefill)."""
         if any(r is not None for r in self.slot_req) or self._pending:
             raise RuntimeError(
                 "warm_admission requires an idle engine (no live slots, "
@@ -1258,8 +1446,7 @@ class ServingEngine:
             for w in (sizes or self._wave_sizes()):
                 group = [(slot, Request(f"__warm_{wl}_{w}_{slot}", [1] * wl,
                                         1, seed=0)) for slot in range(w)]
-                self._first_read_many(
-                    [self._first_group(group, self._prefill_group(group))])
+                self._first_read_many([self._prefill_group(group)[0]])
 
     def _advance_prefills(self) -> None:
         """One prompt window per pending slot per round: long prompts
@@ -1271,29 +1458,31 @@ class ServingEngine:
             req, done = st["req"], st["done"]
             t_p = len(req.prompt)
             w = min(chunk, t_p - done)
-            window = torch.as_tensor(
-                _padded_window(req.prompt[done:done + w]), device=self.device)
-            logits = self._window(slot, req, window, w, done)
+            final = done + w >= t_p
+            outs = self._window(slot, req, req.prompt[done:done + w], done,
+                                final)
             st["done"] = done + w
-            if st["done"] >= t_p:
+            if final:
                 self._store_pending(slot, req)
                 del self._pending[slot]
-                self._activate(slot, req, logits)
+                self._activate(slot, req, outs)
 
     def _seen_row(self, req: Request) -> np.ndarray:
         row = np.zeros(self.cfg.vocab_size, bool)
         row[np.asarray(req.prompt, np.int64)] = True
         return row
 
-    def _activate(self, slot: int, req: Request, logits) -> None:
-        """Sample generation 0 from the prefill logits (one scalar
-        readback), then the shared bookkeeping."""
-        first = self._first_read_many(
-            [self._first_group([(slot, req)], logits[None, :])])[0]
-        self._activate_with_first(slot, req, logits, first)
+    def _activate(self, slot: int, req: Request, outs) -> None:
+        """Read generation 0 (one scalar readback; its logprob another,
+        when asked for) from a window program's outputs, then the shared
+        bookkeeping."""
+        first, lp, _ = outs
+        self._activate_with_first(
+            slot, req, self._first_read_many([first])[0],
+            self._first_read_many([lp])[0] if req.logprobs else None)
 
-    def _activate_with_first(self, slot: int, req: Request, logits,
-                             first: int) -> None:
+    def _activate_with_first(self, slot: int, req: Request, first: int,
+                             lp: Optional[float]) -> None:
         self._prefill_extras(slot, req)
         samp = req.sampling or SamplingConfig(temperature=0.0)
         self.temp[slot] = samp.temperature
@@ -1306,10 +1495,7 @@ class ServingEngine:
         # seen set: the prompt's tokens plus the first token
         self.presence[slot] = to_device(self._seen_row(req), self.device)
         self.presence[slot, first] = True
-        self.slot_lps[slot] = []
-        if req.logprobs:
-            self.slot_lps[slot].append(float(_raw_token_lp(
-                logits, torch.tensor(first, device=self.device))))
+        self.slot_lps[slot] = [lp] if req.logprobs else []
         # TTFT: the earliest first token survives a recompute preemption
         clock = self._req_clock.get(req.request_id)
         if clock is not None and "first" not in clock:
@@ -1613,45 +1799,51 @@ class PagedServingEngine(ServingEngine):
         self.slot_blocks[slot] = list(hit["blocks"]) + own
         return base
 
-    def _table_row(self, slot: int) -> torch.Tensor:
-        blocks = self.slot_blocks[slot]
-        table_row = np.zeros(self._table_width(len(blocks)), np.int32)
-        table_row[:len(blocks)] = blocks
-        return torch.as_tensor(table_row, device=self.device)
-
-    def _prefill_window(self, slot: int, req: Request, window, w: int,
-                        done: int):
-        """One prompt window through the block pool: the paged prefill
-        at done 0, the suffix forward against the slot's [0, done)
-        blocks after it."""
-        from kind_tpu_sim_torch.models import paged
-
-        if done == 0:
-            return paged.paged_prefill(self.params, self.pools, window, w,
-                                       self._table_row(slot), cfg=self.cfg)
-        return paged.paged_suffix(self.params, self.pools, window, w, done,
-                                  self._table_row(slot), cfg=self.cfg)
+    def _table_rows(self, slots, width: int) -> np.ndarray:
+        """``slots``' block lists as (len(slots), width) int32 table
+        rows; a slot outgrowing a fixed width fails loudly."""
+        tables = np.zeros((len(slots), width), np.int32)
+        for i, slot in enumerate(slots):
+            blocks = self.slot_blocks[slot]
+            self._table_width(len(blocks))  # loud overflow check
+            tables[i, :len(blocks)] = blocks
+        return tables
 
     def _batch_admission(self) -> bool:
         # a fixed table width makes the stacked rows one shape
         return bool(self.serving.paged_width)
 
-    def _prefill_group(self, group):
-        """Storage half of an admission wave, paged: the stacked
-        whole-prompt prefill into each slot's claimed blocks through
-        fixed-width table rows."""
-        toks = np.stack([_padded_window(req.prompt)[0] for _, req in group])
-        tables = np.zeros((len(group), self.serving.paged_width), np.int32)
-        for i, (slot, _) in enumerate(group):
-            blocks = self.slot_blocks[slot]
-            self._table_width(len(blocks))  # loud overflow check
-            tables[i, :len(blocks)] = blocks
+    def _wave(self, slots, toks: np.ndarray, lens, sampling):
+        """The stacked prefill into each slot's claimed blocks through
+        table rows of the fixed width (a dynamic-width engine's lone
+        prompt: its own width), keyed (K, bucket, width, sampled)."""
         from kind_tpu_sim_torch.models import paged
 
-        return paged.paged_prefill_many(
-            self.params, self.pools, torch.as_tensor(toks, device=self.device),
-            [len(req.prompt) for _, req in group],
-            torch.as_tensor(tables, device=self.device), cfg=self.cfg)
+        width = self._table_width(max(len(self.slot_blocks[s])
+                                      for s in slots))
+        put = self._adm.put
+        tokens, lens = put("tokens", toks), put("lens", lens)
+        tables = put("tables", self._table_rows(slots, width), torch.int32)
+        return self._program(
+            ("paged prefill",) + toks.shape + (width,), functools.partial(
+                paged.paged_prefill_many, self.params, self.pools, tokens,
+                lens, tables, cfg=self.cfg), sampling)
+
+    def _suffix(self, slot: int, window: np.ndarray, w: int, done: int,
+                sampling):
+        """The window (1, bucket) against the slot's [0, done) blocks,
+        keyed (bucket, width, sampled)."""
+        from kind_tpu_sim_torch.models import paged
+
+        width = self._table_width(len(self.slot_blocks[slot]))
+        put = self._adm.put
+        tokens, lens, base = (put("tokens", window), put("lens", [w]),
+                              put("base", [done]))
+        table = put("table", self._table_rows([slot], width)[0], torch.int32)
+        return self._program(
+            ("paged suffix", window.shape[1], width), functools.partial(
+                paged.paged_suffix, self.params, self.pools, tokens, lens,
+                base, table, cfg=self.cfg), sampling)
 
     def _wave_share_hit(self, stored_prompt, prompt) -> bool:
         # block-granular sharing: a pending store serves this claim if
@@ -1919,18 +2111,23 @@ class SpeculativeServingEngine(_Speculative, ServingEngine):
                 self._draft = (shard_params(dparams, dcfg, self.mesh), dcfg)
             self.draft_cache = init_cache(dcfg, n, self._rows,
                                           device=self.device)
-        self.prefix_cache = (PrefixCache(serving.prefix_cache_entries)
-                             if serving.prefix_cache_entries > 0 else None)
+        self._init_prefix_cache()
 
     def _prefill_extras(self, slot: int, req: Request) -> None:
         if self._draft is not None:
             # the draft model's own prompt k/v (a small model: one
-            # prefill a slot, on every admission path)
+            # prefill a slot, on every admission path), one program a
+            # prompt bucket
             dparams, dcfg = self._draft
-            window = torch.as_tensor(_padded_window(req.prompt),
-                                     device=self.device)
-            _prefill_into_slot(dparams, self.draft_cache, window,
-                               len(req.prompt), self._row(slot), cfg=dcfg)
+            window = _padded_window(req.prompt)
+            put = self._adm.put
+            tokens, lens = put("tokens", window), put("lens",
+                                                      [len(req.prompt)])
+            rows = put("rows", [self._row(slot)])
+            self._admit_round(("draft prefill", window.shape[1]),
+                              lambda: (_prefill_many_into_slots(
+                                  dparams, self.draft_cache, tokens, lens,
+                                  rows, cfg=dcfg),))
             self.draft_prefills += 1
 
     def _round_dispatch(self):

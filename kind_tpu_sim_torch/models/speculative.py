@@ -44,6 +44,7 @@ first (``serving._suffix_into_slot``, ``paged.paged_suffix``).
 
 from __future__ import annotations
 
+import collections
 from typing import Dict
 
 import torch
@@ -372,17 +373,112 @@ def _new_buffer(prompt, first, length: int):
                            device=prompt.device)
 
 
-def _host_loop(step, out, total, t_p: int, num_new: int, return_stats):
-    """The solo generators' loop: one verify step an iteration until
-    the slowest row holds t_p + num_new tokens (one readback of
-    min(total) an iteration, as the reference's)."""
+class SoloProgram:
+    """A solo speculative generator's compiled programs over one
+    (parameters[, draft model], batch, prompt length, cache length, k):
+    the prefill (the reference's ``_jitted_prefill``, one a config and
+    cache length; a draft model's prompt k/v in the same program) and
+    the verify step (``_jitted_step``, ``_jitted_draft_step``: one a k
+    and draft config). Each is a round of ``graphs.round_runner``: on a
+    card a CUDA graph captured at its first run and replayed after, on
+    the CPU the eager function; ``_round`` is that runner. The prompt
+    enters through a fixed buffer, and the caches, ``out`` and ``total``
+    stay at their addresses, written in place."""
+
+    def __init__(self, params, cfg: ModelConfig, draft, b: int, t_p: int,
+                 length: int, k: int, device):
+        from kind_tpu_sim_torch.models import graphs
+        from kind_tpu_sim_torch.models.decode import init_cache
+
+        self.params, self.cfg, self.draft, self.k = params, cfg, draft, k
+        self._round = graphs.round_runner(device)
+        self.prompt = torch.zeros((b, t_p), dtype=torch.long, device=device)
+        self.cache = init_cache(cfg, b, length, device=device)
+        self.draft_cache = (init_cache(draft[1], b, length, device=device)
+                            if draft is not None else None)
+        self.out = torch.zeros((b, length), dtype=torch.long, device=device)
+        self.total = torch.zeros(b, dtype=torch.long, device=device)
+
+    def prefill(self, prompt) -> None:
+        """The prompt's k/v into the caches and its first token into
+        ``out``; ``total`` = t_p + 1 on every row."""
+        self.prompt.copy_(prompt)
+        self._round(("prefill",), self._prefill)
+
+    def _prefill(self) -> tuple:
+        t_p, length = self.prompt.shape[1], self.out.shape[1]
+        logits, _ = prefill(self.params, self.cfg, self.prompt, length,
+                            cache=self.cache)
+        if self.draft is not None:
+            # the draft's own prompt k/v; its first proposal step
+            # consumes the first emitted token at base t_p
+            prefill(self.draft[0], self.draft[1], self.prompt, length,
+                    cache=self.draft_cache)
+        self.out.zero_()
+        self.out[:, :t_p] = self.prompt
+        self.out[:, t_p] = torch.argmax(logits, dim=-1)
+        self.total.fill_(t_p + 1)
+        return ()
+
+    def step(self) -> None:
+        """One verify step; ``out`` and ``total`` advance in place."""
+        self._round(("step", self.k), self._step)
+
+    def _step(self) -> tuple:
+        if self.draft is None:
+            _, total, _ = _verify_step(self.params, self.cache, self.out,
+                                       self.total, cfg=self.cfg, k=self.k)
+        else:
+            _, total, _ = _draft_verify_step(
+                self.params, self.draft[0], self.cache, self.draft_cache,
+                self.out, self.total, cfg=self.cfg, dcfg=self.draft[1],
+                k=self.k)
+        self.total.copy_(total)
+        return ()
+
+
+# the programs of the latest solo calls, by what they read (the
+# reference's lru_cache of its jitted programs)
+_PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()
+_KEEP = 2
+
+
+def solo_program(params, cfg: ModelConfig, prompt, num_new: int, k: int,
+                 draft=None) -> SoloProgram:
+    """The ``SoloProgram`` of a solo call: the one an earlier call with
+    the same parameters (their addresses), configs and shapes made, or a
+    new one (the oldest of more than ``_KEEP`` dropped)."""
+    b, t_p = prompt.shape
+    # room for the final window write: total + k + 1
+    length = t_p + num_new + k + 1
+    from kind_tpu_sim_torch.models.graphs import pointers
+
+    key = (pointers(params), cfg, None if draft is None else
+           (pointers(draft[0]), draft[1]), b, t_p, length, k, prompt.device)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = _PROGRAMS[key] = SoloProgram(params, cfg, draft, b, t_p,
+                                            length, k, prompt.device)
+        while len(_PROGRAMS) > _KEEP:
+            _PROGRAMS.popitem(last=False)
+    _PROGRAMS.move_to_end(key)
+    return prog
+
+
+def _solo_generate(prog: SoloProgram, prompt, num_new: int, return_stats):
+    """The solo generators' loop: the prefill, then one verify step an
+    iteration until the slowest row holds t_p + num_new tokens (one
+    readback of min(total) an iteration, as the reference's)."""
+    t_p = prompt.shape[1]
+    prog.prefill(prompt)
     steps = 0
     for _ in range(num_new - 1):
-        out, total = step(out, total)
+        prog.step()
         steps += 1
-        if int(total.min()) >= t_p + num_new:
+        if int(prog.total.min()) >= t_p + num_new:
             break
-    result = out[:, :t_p + num_new]
+    # the program's buffer is rewritten by its next call
+    result = prog.out[:, :t_p + num_new].clone()
     return (result, {"steps": steps}) if return_stats else result
 
 
@@ -393,23 +489,14 @@ def speculative_generate(params: Params, cfg: ModelConfig, prompt,
     """prompt (b, t_p) integer -> (b, t_p + num_new), greedy-exact, on
     ``device`` (the card unless the caller asks for the CPU). Every
     iteration emits between 1 and draft_k+1 tokens per row; with
-    ``return_stats`` also returns {"steps": verify steps}."""
+    ``return_stats`` also returns {"steps": verify steps}. The prefill
+    and the verify step are compiled programs (``solo_program``)."""
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
-    b, t_p = prompt.shape
     if num_new <= 0:
         return (prompt, {"steps": 0}) if return_stats else prompt
-    # room for the final window write: total + k + 1
-    length = t_p + num_new + draft_k + 1
-    logits, cache = prefill(params, cfg, prompt, length)
-    out, total = _new_buffer(prompt, torch.argmax(logits, dim=-1), length)
-
-    def step(out, total):
-        out, total, _ = _verify_step(params, cache, out, total, cfg=cfg,
-                                     k=draft_k)
-        return out, total
-
-    return _host_loop(step, out, total, t_p, num_new, return_stats)
+    prog = solo_program(params, cfg, prompt, num_new, draft_k)
+    return _solo_generate(prog, prompt, num_new, return_stats)
 
 
 def _draft_propose(draft_params, draft_cache, out, total, *,
@@ -460,33 +547,22 @@ def draft_model_generate(params: Params, cfg: ModelConfig,
                          draft_params: Params, dcfg: ModelConfig, prompt,
                          num_new: int, draft_k: int = 4,
                          return_stats: bool = False, device="cuda"):
-    """Draft-model speculative decoding: prompt (b, t_p) integer ->
-    (b, t_p + num_new), greedy-exact against the target's own greedy
-    stream however bad the draft model is. ``dcfg`` must share the
-    target's vocab; depth, width and dtype are free."""
+    """Draft-model speculative decoding: prompt (b, t_p) integer -> (b,
+    t_p + num_new), greedy-exact against the target's own greedy stream
+    however bad the draft model is. ``dcfg`` must share the target's
+    vocab; depth, width and dtype are free. Compiled as
+    ``speculative_generate`` is."""
     if dcfg.vocab_size != cfg.vocab_size:
         raise ValueError(
             f"draft vocab {dcfg.vocab_size} != target vocab "
             f"{cfg.vocab_size}")
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
-    b, t_p = prompt.shape
     if num_new <= 0:
         return (prompt, {"steps": 0}) if return_stats else prompt
-    length = t_p + num_new + draft_k + 1
-    logits, cache = prefill(params, cfg, prompt, length)
-    # the draft's own prompt k/v; its first proposal step consumes the
-    # first emitted token at base t_p
-    _, draft_cache = prefill(draft_params, dcfg, prompt, length)
-    out, total = _new_buffer(prompt, torch.argmax(logits, dim=-1), length)
-
-    def step(out, total):
-        out, total, _ = _draft_verify_step(
-            params, draft_params, cache, draft_cache, out, total, cfg=cfg,
-            dcfg=dcfg, k=draft_k)
-        return out, total
-
-    return _host_loop(step, out, total, t_p, num_new, return_stats)
+    prog = solo_program(params, cfg, prompt, num_new, draft_k,
+                        draft=(draft_params, dcfg))
+    return _solo_generate(prog, prompt, num_new, return_stats)
 
 
 def speculative_report(cfg: ModelConfig = None, batch: int = 2,

@@ -369,9 +369,11 @@ def _forward(params: Params, tokens, cfg: ModelConfig, whole: bool = True):
     aux_total = 0.0
     for bparams in params["blocks"]:
         if cfg.remat:
+            # no random draw in a block, so no RNG state to keep (its
+            # read would be a host copy a captured step cannot make)
             x, aux = torch.utils.checkpoint.checkpoint(
                 _block_in, shards, x, bparams, cfg, positions,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux = _block(x, bparams, cfg, positions)
         aux_total = aux_total + aux
@@ -657,7 +659,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
     1e-8, weight decay 1e-4 (``torch.optim.AdamW`` would default to
     1e-2), bias correction, no amsgrad — as ``torch.optim.AdamW`` with
     its default implementation (``foreach`` on the card, the per-tensor
-    loop on the CPU). ``use_optax=False`` is plain SGD (``sgd_step``).
+    loop on the CPU), built ``capturable`` on the card (its step count
+    and bias correction on the device). ``use_optax=False`` is plain SGD
+    (``sgd_step``).
     ``n_experts > 0`` trains the MoE through autograd, its auxiliary
     loss in the loss.
 
@@ -671,7 +675,16 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
     global mean, and the returned loss is the global batch's; AdamW,
     elementwise, runs on the shards. ``seq_parallel`` rides the ring
     under a mesh with a 'seq' axis longer than 1 and is plain attention
-    elsewhere, as in the reference."""
+    elsewhere, as in the reference.
+
+    On a card the step is a compiled program, the reference's
+    ``jax.jit(step)``: its first call runs eagerly (AdamW's moments are
+    created) and captures a CUDA graph of the step, and every later call
+    with the same state and token shape replays it (``graphs.
+    round_runner``: without a mesh and on NCCL; a gloo mesh's steps stay
+    eager). The tokens are copied into a fixed buffer first; the
+    returned loss is a copy of the graph's. ``step_fn._round`` is the
+    runner (``graphs.eager`` on the CPU)."""
     dev = resolve(device)
     shards = tp.shards_of(mesh)
     group = shards.token_group()
@@ -697,7 +710,8 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
         if use_optax:
             opt = torch.optim.AdamW(
                 _leaves(params), lr=learning_rate, betas=(0.9, 0.999),
-                eps=1e-8, weight_decay=1e-4, amsgrad=False)
+                eps=1e-8, weight_decay=1e-4, amsgrad=False,
+                capturable=dev.type == "cuda")
         state = {"params": params, "opt": opt}
         if mesh is not None:
             # what a checkpoint needs to gather the shards and to cut a
@@ -705,7 +719,7 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
             state["mesh"], state["cfg"] = mesh, cfg
         return state
 
-    def step_fn(state, tokens):
+    def step(state, tokens) -> tuple:
         params = state["params"]
         leaves = _leaves(params)
         with tp.scope(shards):
@@ -723,9 +737,39 @@ def make_train_step(cfg: ModelConfig, mesh=None, learning_rate: float = 1e-2,
             state["opt"].step()
             for p in leaves:
                 p.grad = None
-        return state, loss
+        return (loss,)
 
-    return step_fn, init_state
+    return _CompiledStep(step, dev, mesh), init_state
+
+
+class _CompiledStep:
+    """``make_train_step``'s ``step_fn(state, tokens) -> (state, loss)``:
+    ``step(state, tokens)`` run through ``_round``
+    (``graphs.round_runner``; the eager step's cached blocks make room
+    for the graph's pool) on tokens copied into a fixed buffer of their
+    shape. The returned loss is a copy of the program's."""
+
+    def __init__(self, step, device, mesh):
+        from kind_tpu_sim_torch.models import graphs
+
+        self._step, self._device = step, device
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+        self._round = graphs.round_runner(device, mesh, free_cached=True)
+
+    def __call__(self, state, tokens):
+        from kind_tpu_sim_torch.models import graphs
+
+        key = (tuple(tokens.shape), tokens.dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = self._buffers[key] = torch.empty(
+                tokens.shape, dtype=tokens.dtype, device=self._device)
+        buf.copy_(tokens)
+        # a step over other parameters or another optimizer is another
+        # program
+        key += (graphs.pointers(state["params"]), id(state["opt"]))
+        loss, = self._round(key, functools.partial(self._step, state, buf))
+        return state, loss.clone()
 
 
 def _place_leaves(params):

@@ -13,6 +13,7 @@ model block (bench.py), on the CPU.
 """
 
 import ast
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -324,6 +325,18 @@ def test_bench_flagship_knob(monkeypatch):
     assert pbench.bench_model_config(True) == ptf.bench_config_large()
 
 
+@pytest.mark.parametrize("on_card", [True, False])
+def test_bench_depth_knob(on_card, monkeypatch):
+    monkeypatch.delenv("BENCH_FLAGSHIP", raising=False)
+    full = pbench.bench_model_config(on_card)
+    cut = pbench.bench_model_config(on_card, n_layers=2)
+    assert cut.n_layers == 2
+    assert dataclasses.replace(cut, n_layers=full.n_layers) == full
+    assert pbench.bench_model_config(on_card, n_layers=None) == full
+    with pytest.raises(ValueError):
+        pbench.bench_model_config(on_card, n_layers=0)
+
+
 def _serving_params(cfg):
     from kind_tpu_sim_torch.models import decode as pdecode
 
@@ -353,25 +366,3 @@ def test_speculative_entry_on_the_cpu():
     assert set(out) == _reference_speculative_keys() - {"device_tokens_per_s"}
     assert out["draft_k"] == 4 and 1 <= out["verify_steps"] <= 11
     assert out["tokens_per_step"] >= 1.0
-
-
-def test_realistic_entry_on_the_cpu():
-    """The realistic entry at a cut stream on a tiny model: the
-    reference's keys on top of measure_engine's, counters reset after
-    the warm-up, every block back once the prefix cache lets go."""
-    sp = _serving_params(CFG)
-    tokens_h = np.random.RandomState(4).randint(0, CFG.vocab_size, (2, 64))
-    result = {}
-    entry = pbench.run_realistic(
-        result, "serving_realistic", sp, CFG, tokens_h, 1e-6, True,
-        sizes={"independents": 2, "families": 1, "max_new": 3},
-        pool_blocks=120)
-    assert result["serving_realistic"] is entry
-    ref_keys, _ = _reference_measure_engine()
-    assert _reference_realistic_keys() <= set(entry)
-    assert set(entry) - _reference_realistic_keys() <= ref_keys
-    assert entry["requests"] == 5 and entry["generated_tokens"] == 15
-    assert entry["pool_blocks"] == 120 and entry["block_size"] == 64
-    assert entry["prefix_cache"]["hits"] == 2
-    assert entry["prefix_prefill_tokens_skipped"] == 2 * 1024
-    assert 0 < entry["peak_blocks_in_use"] <= 119
