@@ -172,12 +172,14 @@ it fails (nothing is caught and ignored):
 11. parallel (run after 4i, while phase 4's streams and snapshot are
    at hand) -- the parallel layer on one card: the collective smokes at
    world size 1 on NCCL and on 4 gloo ranks, and which gloo collectives
-   take CUDA tensors (each in a world of its own); phase 4's stream
-   through the dense engine at (data 2, model 2) and ('model', 4) and
-   the paged gather tier at ('model', 2) on gloo ranks sharing the card,
-   held to phase 4's streams by the split rule, the first-step logits
-   against unsharded, 0 paged-kernel launches and the flash forward on
-   the tensor cores on every rank; the dense engine on an NCCL mesh of
+   take CUDA tensors (each in a world of its own); phase 4's stream at
+   the flagship's widths and 2 of its 8 layers through the dense engine
+   at (data 2, model 2) and ('model', 4) and the paged gather tier at
+   ('model', 2) on gloo ranks sharing the card, held by the split rule
+   to the unsharded engine's streams at that depth, the first-step
+   logits against unsharded, 0 paged-kernel launches and the flash
+   forward on the tensor cores on every rank; the dense engine on an
+   NCCL mesh of
    world size 1 (its rounds CUDA graphs, the collectives captured),
    bitwise against the unsharded graphed engine, and 3 compiled AdamW
    steps there bitwise against 3 eager ones; 3 AdamW steps of phase
@@ -199,7 +201,25 @@ it fails (nothing is caught and ignored):
    phase 11's training worlds they slowed its steps beyond their spread,
    ``tools/phase13_overlap.py``). The kernel pod's own
    kernel is then loaded from that build, held to ``torch.matmul`` and
-   timed: the matmul row's ``pod`` entry (kernel table row 8).
+   timed: the matmul row's ``pod`` entry (kernel table row 8);
+14. simulator engine paths -- the chaos scenarios and the fleet that drive
+   real engines (``kind_tpu_sim_torch/chaos.py``, ``fleet/``), each held
+   to the reference's bar: ``fleet-preemption`` (a replica of two real
+   engines preempted and restored under seeded traffic: streams equal to
+   the fault-free run's, requests requeued, tail attainment recovered)
+   and ``serving-slot-failure`` (a slot fails mid-stream: streams equal,
+   one failure, a requeue) at the flagship's width with flash;
+   ``preempt-train`` at the flagship's widths and 2 of its 8 layers, in
+   the main thread (SIGTERM mid-step, a checkpoint at that step, the
+   resumed losses bitwise the uninterrupted ones; the flash forward,
+   dq and dk/dv each 2 layers x 16 steps on the tensor cores); the
+   fleet command's fleet (64 requests, the tiny model in fp32) on the
+   card against the same fleet and weights on the CPU, every completion
+   equal; and, as processes started first, ``python -m
+   kind_tpu_sim_torch fleet run`` and ``chaos run --scenario all
+   --include-slow`` at the reference's tiny configs, whose weight-free
+   fields must equal the same runs' on the CPU. Each step logs its
+   flash launches by route and its CUDA graph captures.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -4413,6 +4433,9 @@ PARALLEL_TIMEOUT_S = 420
 # unsharded, judged against their largest magnitude: bf16 partial sums
 # reduced across ranks round at other points than one product does
 TP_LOGITS_REL_TOL = 2 * 2.4e-3
+# the gloo serving worlds' depth: each round's collectives cross the host,
+# so the worlds' walls scale with the layers
+TP_SERVING_LAYERS = 2
 
 
 # the collectives the port's gloo path runs on a card's tensors (each
@@ -4514,9 +4537,10 @@ def _logit_prompts(cfg):
                          device="cuda")
 
 
-def _serve_rank(shape, names, paged: bool) -> dict:
+def _serve_rank(shape, names, paged: bool, n_layers: int) -> dict:
     """On every rank of ``Mesh(shape, names)`` (gloo, the card shared):
-    the flagship's bf16 snapshot, phase 4's stream through the dense
+    the flagship's bf16 snapshot at ``n_layers`` of its layers, phase
+    4's stream through the dense
     engine (or the paged gather tier), the first-step logits of 4
     prompts of 256 tokens, and this rank's kernel launches and peak
     memory."""
@@ -4529,7 +4553,7 @@ def _serve_rank(shape, names, paged: bool) -> dict:
     from kind_tpu_sim_torch.parallel import tp
 
     mesh = mesh_lib.Mesh(shape, names)
-    cfg = flagship.flagship_config()
+    cfg = dataclasses.replace(flagship.flagship_config(), n_layers=n_layers)
     sp = flagship.flagship_params(cfg)
     sc = (flagship.flagship_serving(paged_kernel=False) if paged
           else _dense_serving(flagship, serving))
@@ -4735,13 +4759,14 @@ def _sharded_int8(im, gen) -> dict:
     return out
 
 
-def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
-                   streams) -> dict:
+def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp,
+                   cfg) -> dict:
     """(a) the collective smokes at world size 1 on NCCL and on 4 gloo
     ranks, and which gloo collectives take CUDA tensors; (b) the
-    flagship served tensor-parallel: the dense engine at (data 2, model
-    2) and ('model', 4), the paged gather tier at ('model', 2), each held
-    to phase 4's streams by the split rule, then the dense engine on an
+    flagship at ``TP_SERVING_LAYERS`` of its layers served
+    tensor-parallel: the dense engine at (data 2, model 2) and ('model',
+    4), the paged gather tier at ('model', 2), each held to the unsharded
+    engine's streams by the split rule, then the dense engine on an
     NCCL mesh of world size 1, its rounds CUDA graphs with the
     collectives captured, bitwise against the unsharded graphed engine;
     (c), (d) ``training_worlds_phase``; (e) the flash and int8 kernels at
@@ -4769,12 +4794,11 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
           f"gloo refused one of {GLOO_CUDA_OPS} on CUDA tensors")
     log(f"parallel (a): {time.perf_counter() - t_part:.1f} s")
 
-    # (b)
+    # (b) at TP_SERVING_LAYERS: held to the unsharded engine at that depth,
+    # which runs here while the worlds run
+    tcfg = dataclasses.replace(cfg, n_layers=TP_SERVING_LAYERS)
     reqs = flagship.flagship_requests(cfg.vocab_size)
     prompts = {r.request_id: r.prompt for r in reqs}
-    with torch.no_grad():
-        want_logits = tf.forward(sp, _logit_prompts(cfg), cfg)[:, -1].float()
-    torch.cuda.empty_cache()
     out["serving"] = {}
     cases = (("dense (data 2, model 2)", (2, 2), ("data", "model"), False),
              ("dense ('model', 4)", (4,), ("model",), False),
@@ -4783,19 +4807,32 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
     def world(case):
         _, shape, names, paged = case
         return launch.spawn(_serve_rank, int(np.prod(shape)), shape, names,
-                            paged, backend="gloo", device="cuda",
-                            timeout_s=PARALLEL_TIMEOUT_S)
+                            paged, TP_SERVING_LAYERS, backend="gloo",
+                            device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
 
     # the worlds are independent (a store each) and bound by their hosts'
     # gloo transport, not by the card: all at once
     t_part = time.perf_counter()
     with ThreadPoolExecutor(len(cases)) as pool:
-        results = list(pool.map(world, cases))
-    log(f"parallel (b) the three gloo serving worlds at once: "
+        running = [pool.submit(world, case) for case in cases]
+        tsp = flagship.flagship_params(tcfg)
+        ref = serving.ServingEngine(tsp, tcfg,
+                                    _dense_serving(flagship, serving),
+                                    device="cuda")
+        for r in reqs:
+            ref.submit(dataclasses.replace(r))
+        tstreams = {c.request_id: c.tokens for c in ref.run()}
+        del ref
+        with torch.no_grad():
+            want_logits = tf.forward(tsp, _logit_prompts(tcfg),
+                                     tcfg)[:, -1].float()
+        results = [f.result() for f in running]
+    log(f"parallel (b) the three gloo serving worlds at once, "
+        f"{TP_SERVING_LAYERS} of {cfg.n_layers} layers: "
         f"{time.perf_counter() - t_part:.1f} s")
     for (label, *_), res in zip(cases, results):
-        splits = hold_streams(f"tensor-parallel serving {label}", tf, sp, cfg,
-                              prompts, res["streams"], streams)
+        splits = hold_streams(f"tensor-parallel serving {label}", tf, tsp,
+                              tcfg, prompts, res["streams"], tstreams)
         diff = float((res["logits"].cuda() - want_logits).abs().max())
         rel = diff / float(want_logits.abs().max())
         log(f"tensor-parallel serving {label}: first-step logits' largest "
@@ -4815,7 +4852,10 @@ def parallel_phase(flagship, trainer, serving, tf, fa, pa, im, sp, cfg,
                   f"{label}: flash launches by route {r['flash_by_route']}")
         out["serving"][label] = {
             "splits": splits, "logits_rel": rel, "wall_s": res["wall_s"],
-            "ranks": res["ranks"], "report": res["report"]}
+            "layers": TP_SERVING_LAYERS, "ranks": res["ranks"],
+            "report": res["report"]}
+    del tsp
+    torch.cuda.empty_cache()
 
     # (b) NCCL at world size 1: the graphed rounds with their collectives
     sc = _dense_serving(flagship, serving)
@@ -5585,6 +5625,196 @@ def entry_points_phase(ran) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 14: the simulator's engine paths
+
+# the fleet command's trace length in (d) and (e)
+SIM_REQUESTS = 64
+# preempt-train at the flagship's widths and 2 of its 8 layers: each of
+# its three saves writes the parameters and both AdamW moments in fp32
+SIM_TRAIN_LAYERS = 2
+# the trainer's steps in preempt-train: 8 uninterrupted, then the
+# preempted run and its resume, 8 between them
+SIM_TRAIN_STEPS = 16
+SIM_COMMANDS = {
+    "fleet": ("fleet", "run", "--requests", str(SIM_REQUESTS), "--json",
+              "--device", "cuda"),
+    "chaos": ("chaos", "run", "--scenario", "all", "--include-slow",
+              "--json", "--device", "cuda"),
+}
+# the fleet report's keys that hold for every weight (the streams' crcs
+# taken out of the completions), and the scenario results'
+SIM_FLEET_KEYS = ("requests", "completed", "virtual_s", "slo", "router",
+                  "ok", "config", "fleet_counters")
+SIM_SCENARIO_KEYS = {
+    "preempt-train": ("plan", "preempted_at_step", "resume_max_loss_drift",
+                      "ok", "recovery_events"),
+    "serving-slot-failure": ("plan", "requests", "slot_failures",
+                             "requeues", "streams_identical", "ok",
+                             "recovery_events"),
+    "fleet-preemption": ("plan", "requests", "preempted_replica",
+                         "preempt_at_s", "requeues", "streams_identical",
+                         "tail_attainment_clean", "tail_attainment_faulted",
+                         "ok", "recovery_events"),
+}
+
+
+def _flash_routes(fa) -> dict:
+    return {name: dict(getattr(fa, name).launches_by_route) for name in (
+        "flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+
+
+def _sim_run(label: str, fa, graphs, fn):
+    """``fn()`` with the flash kernels' counts zeroed just before and read
+    just after, and the CUDA graphs captured in between counted. Returns
+    (its result, {wall_s, launches_by_route, graphs_captured,
+    capture_s})."""
+    zero_counts(fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = dict(graphs.CAPTURES)
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    stats = {"wall_s": time.perf_counter() - t0,
+             "launches_by_route": _flash_routes(fa),
+             "graphs_captured": graphs.CAPTURES["graphs"] - before["graphs"],
+             "capture_s": graphs.CAPTURES["capture_s"]
+             - before["capture_s"]}
+    log(f"14 {label}: {stats['wall_s']:.1f} s; flash launches by route "
+        f"{stats['launches_by_route']}; {stats['graphs_captured']} graphs "
+        f"captured in {stats['capture_s']:.2f} s")
+    return result, stats
+
+
+def _weight_free(rep: dict) -> dict:
+    """A fleet report's fields that hold for any weights."""
+    out = {key: rep[key] for key in SIM_FLEET_KEYS}
+    out["completions"] = [{k: v for k, v in e.items() if k != "tokens_crc"}
+                          for e in rep["completions"]]
+    return out
+
+
+def sim_engine_phase(fa, tf, cfg) -> dict:
+    """Phase 14: the simulator's engine paths on the card, each held to
+    the reference's bar. (d) ``fleet run`` and ``chaos run --scenario all
+    --include-slow`` start first as processes (the reference's tiny
+    configs) and are read last; meanwhile, in this, the main thread: (a)
+    ``fleet-preemption`` and (b) ``serving-slot-failure`` at the
+    flagship's width with flash, (c) ``preempt-train`` at the flagship's
+    widths and 2 of its 8 layers (SIGTERM reaches only the main thread),
+    (e) the fleet command's fleet (its trace, its config, the tiny model
+    in fp32, so near-ties cannot split a stream) on the card against the
+    same fleet on the CPU with the same weights: every completion equal,
+    crcs included. (d)'s fleet must give (e)'s weight-free fields, and
+    each of its scenarios the same scenario's weight-free fields run on
+    the CPU here. Each step's flash launches by route and graph captures
+    are logged."""
+    import threading
+
+    from kind_tpu_sim_torch import chaos, cli, fleet
+    from kind_tpu_sim_torch.models import graphs
+
+    out = {}
+    with ThreadPoolExecutor(len(SIM_COMMANDS)) as pool:
+        running = {label: pool.submit(
+            _timed_run, [sys.executable, "-m", "kind_tpu_sim_torch", *argv])
+            for label, argv in SIM_COMMANDS.items()}
+
+        for name in ("fleet-preemption", "serving-slot-failure"):
+            rep, stats = _sim_run(
+                f"({'a' if name == 'fleet-preemption' else 'b'}) {name} at "
+                "the flagship", fa, graphs,
+                lambda name=name: chaos.run_scenario(
+                    name, seed=0, device="cuda", cfg=cfg))
+            log(f"14 {name}: {json.dumps(rep, sort_keys=True)}")
+            check(rep["ok"] and rep["streams_identical"]
+                  and rep["requeues"] >= 1
+                  and rep.get("slot_failures", 1) == 1,
+                  f"{name} at the flagship: {rep}")
+            fwd = stats["launches_by_route"]["flash_attention"]
+            check(fwd["tensor_cores"] > 0 and fwd["cuda_cores"] == 0,
+                  f"{name}: flash forward launched {fwd}, expected all on "
+                  "the tensor cores")
+            out[name] = {"result": rep, **stats}
+
+        check(threading.current_thread() is threading.main_thread(),
+              "preempt-train must run in the main thread")
+        train_cfg = dataclasses.replace(cfg, n_layers=SIM_TRAIN_LAYERS)
+        rep, stats = _sim_run(
+            f"(c) preempt-train at the flagship's widths, "
+            f"{SIM_TRAIN_LAYERS} of {cfg.n_layers} layers", fa, graphs,
+            lambda: chaos.run_scenario("preempt-train", seed=0,
+                                       device="cuda", cfg=train_cfg))
+        log(f"14 preempt-train: {json.dumps(rep, sort_keys=True)}")
+        kill_step = rep["plan"]["events"][0]["at"] + 1
+        check(rep["ok"] and rep["preempted_at_step"] == kill_step + 1
+              and rep["resume_max_loss_drift"] == 0.0,
+              f"preempt-train at the flagship: {rep}")
+        want = SIM_TRAIN_LAYERS * SIM_TRAIN_STEPS
+        for name, routes in stats["launches_by_route"].items():
+            check(routes == {"tensor_cores": want, "cuda_cores": 0},
+                  f"preempt-train: {name} launched {routes}, expected "
+                  f"{want} on the tensor cores")
+        out["preempt-train"] = {"result": rep, "layers": SIM_TRAIN_LAYERS,
+                                **stats}
+
+        args = cli.build_parser().parse_args(list(SIM_COMMANDS["fleet"]))
+        fc = cli.fleet_config(args)
+        trace = cli.fleet_trace(args, 0)
+        tiny, sc = cli.serving_fleet_config()
+        tiny = dataclasses.replace(tiny, dtype="float32")
+        params = tf.init_params(tiny, torch.Generator().manual_seed(0), "cpu")
+        t0 = time.perf_counter()
+        cpu = fleet.engine_fleet(fc, trace, params, tiny, sc,
+                                 device="cpu").run()
+        cpu_s = time.perf_counter() - t0
+        card, stats = _sim_run(
+            "(e) the fleet command's fleet in fp32 on the card", fa, graphs,
+            lambda: fleet.engine_fleet(
+                fc, trace, _tree_to(params, lambda t: t.to("cuda")), tiny,
+                sc, device="cuda").run())
+        for key in SIM_FLEET_KEYS + ("completions",):
+            check(card[key] == cpu[key],
+                  f"the card's fleet differs from the CPU's in {key}")
+        check(card["ok"] and card["completed"] == SIM_REQUESTS,
+              f"the fleet on the card: ok {card['ok']}, completed "
+              f"{card['completed']}")
+        log(f"14 (e): {card['completed']} completions equal to the CPU's "
+            f"(CPU {cpu_s:.1f} s); slo {json.dumps(card['slo'])}")
+        out["fleet on the card against the CPU"] = {
+            "cpu_s": cpu_s, "slo": card["slo"], **stats}
+
+        cpu_scenarios = {name: chaos.run_scenario(name, seed=0, device="cpu")
+                         for name in SIM_SCENARIO_KEYS}
+        ran = {label: f.result() for label, f in running.items()}
+
+    for label, res in ran.items():
+        check(res["rc"] == 0, f"{label} command exited {res['rc']}:\n"
+              f"{res['stdout'][-3000:]}\n{res['stderr'][-3000:]}")
+        log(f"14 (d) {' '.join(SIM_COMMANDS[label])}: rc 0, "
+            f"{res['wall_s']:.1f} s")
+    fleet_rep = json.loads(ran["fleet"]["stdout"].strip().splitlines()[-1])
+    check(fleet_rep["ok"] and fleet_rep["engine"] == "serving"
+          and _weight_free(fleet_rep) == _weight_free(cpu),
+          "the fleet command on the card: not ok, or its weight-free "
+          "fields differ from the same fleet's on the CPU")
+    chaos_rep = json.loads(ran["chaos"]["stdout"].strip().splitlines()[-1])
+    by_name = {r["scenario"]: r for r in chaos_rep["scenarios"]}
+    check(chaos_rep["ok"] and sorted(by_name) == sorted(SIM_SCENARIO_KEYS),
+          f"chaos run on the card: {chaos_rep}")
+    for name, keys in SIM_SCENARIO_KEYS.items():
+        for key in keys:
+            check(by_name[name][key] == cpu_scenarios[name][key],
+                  f"chaos run {name} on the card: {key} "
+                  f"{by_name[name][key]} against the CPU's "
+                  f"{cpu_scenarios[name][key]}")
+    out["commands"] = {label: {"rc": res["rc"], "wall_s": res["wall_s"]}
+                       for label, res in ran.items()}
+    out["commands"]["fleet"]["slo"] = fleet_rep["slo"]
+    return out
+
+
 # the phase walls kept from the last run of this script before admission,
 # the solo generators and the train step were compiled programs (NVIDIA
 # H100 80GB HBM3, 700.00 W), and that command's wall: printed beside
@@ -5688,7 +5918,7 @@ def main() -> int:
     phase("4i compiled rounds", compiled_rounds_phase, flagship, serving, tf,
           quant, fa, pa, im, cfg)
     parallel = phase("11 parallel", parallel_phase, flagship, trainer,
-                     serving, tf, fa, pa, im, sp, cfg, streams)
+                     serving, tf, fa, pa, im, sp, cfg)
     del sp
     long_ctx = phase("12 long context, pipeline, multi-host",
                      long_context_phase, trainer, tf, fa)
@@ -5704,6 +5934,8 @@ def main() -> int:
     phase("10 profile", profile_phase, profiling, flagship)
     entry = phase("13 entry points and pods",
                   lambda: entry_points_phase(entry_runs()))
+    sim = phase("14 simulator engine paths", sim_engine_phase, fa, tf,
+                flagship.flagship_config())
     # the forward and paged kernels' counts come from serving, the
     # backward kernels' from training (the forward's there is checked),
     # the int8 kernel's from 4g's solo W8A8 decode, the toolchain
@@ -5719,6 +5951,15 @@ def main() -> int:
         "moe_launches_by_route": moe["flash_launches_by_route"],
         "train_launches_by_route": train_plain["routes"]["flash_attention"]})
     int8_row["launches_by_route"] = int8_serving["w8a8_launches_by_route"]
+    # phase 14: the flash kernels on the simulator's engine paths
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"):
+            k["sim_launches_by_route"] = {
+                label: x["launches_by_route"][k["name"]]
+                for label, x in sim.items()
+                if "launches_by_route" in x
+                and sum(x["launches_by_route"][k["name"]].values())}
     # the kernels at the shapes one rank of a mesh gives them (phase 11)
     sharded = parallel["kernels"]
     flash_row["sharded_shapes"] = {key: x["forward"]

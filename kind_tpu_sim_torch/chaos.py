@@ -1,0 +1,553 @@
+"""Seeded chaos: fault plans and the scenarios that drive the port's
+engines, trainer and fleet through their recovery paths.
+
+The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
+
+* the fault vocabulary (``FAULT_KINDS``), each kind's schema
+  (``FAULT_SCHEMAS``: its layer, its magnitude's draw) and
+  :func:`draw_param`, whole and in the reference's order;
+* :class:`ChaosSchedule`: ``plan()`` derives a :class:`FaultPlan` from
+  the seed and its arguments alone (a ``random.Random`` keyed by the
+  crc32 of the arguments' repr; each event's ``param`` drawn before its
+  slot and target), so a plan equals the reference's for the same seed;
+* the scenario registry and its three scenarios that drive device work,
+  each with the reference's bar:
+
+  - ``preempt-train``: SIGTERM mid-step; a checkpoint is written at that
+    step, and the resumed loss trajectory equals the uninterrupted one
+    exactly (``drift == 0.0``);
+  - ``serving-slot-failure``: a serving slot dies mid-stream; its request
+    requeues and every stream equals the fault-free run's;
+  - ``fleet-preemption``: a replica of real engines is preempted and
+    restored under seeded traffic; streams equal the fault-free run's
+    and tail SLO attainment recovers.
+
+Each scenario takes the reference's ``seed`` and returns its result
+dict. Its model is the reference's tiny config unless ``cfg`` names
+another, with weights drawn from ``torch.Generator`` seed 0 (the
+reference draws from ``jax.random``, so only the fields that do not
+depend on the weights equal the reference's). It runs on the card unless
+``device="cpu"`` is given. ``preempt-train`` signals its own process:
+run it in the main thread, where the guard's handler is installed.
+
+The reference's other scenarios drive the simulator's control plane,
+worker pools, scheduler and analytic fleets, and are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import random
+import signal
+import tempfile
+import zlib
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from kind_tpu_sim_torch import fleet, metrics
+from kind_tpu_sim_torch.device import resolve
+from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.models import checkpoint as ckpt
+from kind_tpu_sim_torch.models import transformer as tf
+from kind_tpu_sim_torch.models.serving import (
+    Request,
+    ServingConfig,
+    ServingEngine,
+)
+
+FAULT_KINDS = (
+    "worker_crash",
+    "worker_hang",
+    "device_flap",
+    "node_kill",
+    "node_restart",
+    "preempt_sigterm",
+    "cmd_transient",
+    "slot_failure",
+    "replica_preempt",
+    "replica_flap",
+    "node_drain",
+    "node_fail",
+    "straggler_worker",
+    "degraded_link",
+    "slow_replica",
+    "flaky_node",
+    "zone_loss",
+    "dcn_degrade",
+    "herd_failover",
+    "cell_drain",
+    "demand_surge",
+    "retry_storm",
+    "train_preempt",
+    "train_kill",
+    "prefill_pool_loss",
+    "kv_transfer_degrade",
+    "noisy_neighbor",
+    "tenant_surge",
+    "model_swap_storm",
+    "generation_cell_drain",
+    "sdc_chip",
+    "correlated_domain_fault",
+)
+
+FAULT_LAYERS = ("runtime", "grid", "cluster", "engine", "fleet",
+                "sched", "health", "globe", "overload", "train",
+                "tenant", "zoo")
+
+
+def resolve_seed(seed: Optional[int] = None) -> int:
+    """Explicit seed > env (KIND_TPU_SIM_CHAOS_SEED) > 0."""
+    if seed is not None:
+        return int(seed)
+    return int(knobs.get(knobs.CHAOS_SEED))
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSchema:
+    """One fault kind's contract: its owning ``layer``; ``param`` None
+    (no magnitude) or ``(draw, lo, hi)`` with ``draw`` "int"
+    (``rng.randint(lo, hi)``) or "uniform" (``round(rng.uniform(lo,
+    hi), 3)``); the topologies it can strike (``scopes``), its
+    prerequisites (``needs``), and whether the reference's fuzzer may
+    compose it (``fuzzable``, ``exclusive``)."""
+
+    kind: str
+    layer: str
+    param: Optional[tuple] = None
+    param_doc: str = ""
+    scopes: tuple = ()
+    needs: tuple = ()
+    fuzzable: bool = False
+    exclusive: bool = False
+
+    def as_dict(self) -> dict:
+        return {
+            "kind": self.kind,
+            "layer": self.layer,
+            "param": list(self.param) if self.param is not None else None,
+            "param_doc": self.param_doc,
+            "scopes": list(self.scopes),
+            "needs": list(self.needs),
+            "fuzzable": self.fuzzable,
+            "exclusive": self.exclusive,
+        }
+
+
+FAULT_SCHEMAS: Dict[str, FaultSchema] = {s.kind: s for s in (
+    FaultSchema("worker_crash", "grid", scopes=("worker",)),
+    FaultSchema("worker_hang", "grid", param=("int", 1, 5),
+                param_doc="hang seconds before the deadline kill",
+                scopes=("worker",)),
+    FaultSchema("device_flap", "cluster", scopes=("control-plane",)),
+    FaultSchema("node_kill", "cluster", scopes=("control-plane",)),
+    FaultSchema("node_restart", "cluster", scopes=("control-plane",)),
+    FaultSchema("preempt_sigterm", "engine", scopes=("train",),
+                needs=("jax",)),
+    FaultSchema("cmd_transient", "runtime", param=("int", 1, 3),
+                param_doc="transient failures before success",
+                scopes=("control-plane",)),
+    FaultSchema("slot_failure", "engine", scopes=("serving",),
+                needs=("jax",)),
+    FaultSchema("replica_preempt", "fleet", scopes=("fleet",),
+                fuzzable=True),
+    FaultSchema("replica_flap", "fleet", scopes=("fleet",),
+                fuzzable=True),
+    FaultSchema("node_drain", "sched", scopes=("fleet",),
+                needs=("sched",), fuzzable=True),
+    FaultSchema("node_fail", "sched", scopes=("fleet",),
+                needs=("sched",), fuzzable=True),
+    FaultSchema("straggler_worker", "health",
+                param=("uniform", 1.6, 2.4),
+                param_doc="per-cell stall seconds",
+                scopes=("worker",)),
+    FaultSchema("degraded_link", "health",
+                param=("uniform", 0.08, 0.25),
+                param_doc="ICI link bandwidth factor",
+                scopes=("fleet",), needs=("sched",), fuzzable=True),
+    FaultSchema("slow_replica", "health",
+                param=("uniform", 3.0, 6.0),
+                param_doc="service-time inflation factor",
+                scopes=("fleet",), fuzzable=True),
+    FaultSchema("flaky_node", "health",
+                param=("uniform", 0.5, 1.5),
+                param_doc="intermittent stall seconds",
+                scopes=("worker",)),
+    FaultSchema("zone_loss", "globe", scopes=("globe",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("dcn_degrade", "globe",
+                param=("uniform", 0.08, 0.25),
+                param_doc="inter-zone DCN bandwidth factor",
+                scopes=("globe",), fuzzable=True),
+    FaultSchema("herd_failover", "globe", scopes=("globe",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("cell_drain", "globe", scopes=("globe",),
+                fuzzable=True),
+    FaultSchema("demand_surge", "overload",
+                param=("uniform", 3.0, 5.0),
+                param_doc="arrival-rate step multiplier",
+                scopes=("fleet",), needs=("overload",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("retry_storm", "overload", param=("int", 3, 5),
+                param_doc="uncontrolled client max attempts",
+                scopes=("fleet",), needs=("overload",)),
+    FaultSchema("train_preempt", "train", scopes=("fleet",),
+                needs=("sched", "training"), fuzzable=True),
+    FaultSchema("train_kill", "train", scopes=("fleet",),
+                needs=("sched", "training"), fuzzable=True),
+    FaultSchema("prefill_pool_loss", "fleet", scopes=("fleet",),
+                needs=("disagg",), fuzzable=True, exclusive=True),
+    FaultSchema("kv_transfer_degrade", "fleet",
+                param=("uniform", 0.08, 0.25),
+                param_doc="KV-transfer link bandwidth factor",
+                scopes=("fleet",), needs=("disagg",),
+                fuzzable=True),
+    FaultSchema("noisy_neighbor", "tenant",
+                param=("uniform", 3.0, 6.0),
+                param_doc="aggressor-tenant arrival multiplier",
+                scopes=("fleet",), needs=("tenancy",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("tenant_surge", "tenant",
+                param=("uniform", 2.0, 4.0),
+                param_doc="one tenant's windowed rate multiplier",
+                scopes=("fleet",), needs=("tenancy",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("model_swap_storm", "zoo",
+                param=("int", 2, 4),
+                param_doc="resident-model eviction pulses across "
+                          "the window",
+                scopes=("fleet",), needs=("zoo",),
+                fuzzable=True, exclusive=True),
+    FaultSchema("generation_cell_drain", "zoo",
+                scopes=("globe",), needs=("zoo",),
+                fuzzable=True),
+    FaultSchema("sdc_chip", "health",
+                param=("uniform", 0.2, 0.6),
+                param_doc="fraction of work the defective chip "
+                          "corrupts (persists until quarantined)",
+                scopes=("fleet",), needs=("sdc",),
+                fuzzable=True),
+    FaultSchema("correlated_domain_fault", "sched",
+                scopes=("fleet",), needs=("sdc", "sched"),
+                fuzzable=True, exclusive=True),
+)}
+
+
+def draw_param(kind: str, rng: random.Random) -> float:
+    """One seeded magnitude draw for ``kind``, per its schema."""
+    schema = FAULT_SCHEMAS[kind]
+    if schema.param is None:
+        return 0.0
+    draw, lo, hi = schema.param
+    if draw == "int":
+        return float(rng.randint(int(lo), int(hi)))
+    return round(rng.uniform(float(lo), float(hi)), 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One planned fault: ``kind`` strikes ``target`` at schedule index
+    ``at`` (the scenario's unit: step, round, request); ``param`` is its
+    magnitude."""
+
+    kind: str
+    at: int
+    target: int = 0
+    param: float = 0.0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """An ordered, immutable fault schedule."""
+
+    seed: int
+    events: tuple
+
+    def for_kind(self, kind: str) -> List[FaultEvent]:
+        return [e for e in self.events if e.kind == kind]
+
+    def as_dict(self) -> dict:
+        return {"seed": self.seed,
+                "events": [e.as_dict() for e in self.events]}
+
+
+class ChaosSchedule:
+    """Seeded fault-plan generator: the same seed and arguments give the
+    same plan. Each ``plan()`` derives its own stream from the canonical
+    repr of its arguments."""
+
+    def __init__(self, seed: Optional[int] = None):
+        self.seed = resolve_seed(seed)
+
+    def plan(self, kinds: Sequence[str] = ("worker_crash",),
+             n_faults: int = 1, horizon: int = 8,
+             targets: int = 2) -> FaultPlan:
+        """``n_faults`` events over ``horizon`` slots and ``targets``
+        victims, kinds drawn from the seeded stream, each ``param``
+        drawn from its kind's schema before its slot and target."""
+        for kind in kinds:
+            if kind not in FAULT_KINDS:
+                raise ValueError(
+                    f"unknown fault kind {kind!r}; known: "
+                    f"{', '.join(FAULT_KINDS)}")
+        key = repr((self.seed, tuple(kinds), int(n_faults),
+                    int(horizon), int(targets)))
+        rng = random.Random(zlib.crc32(key.encode("utf-8")))
+        events = []
+        for _ in range(n_faults):
+            kind = rng.choice(list(kinds))
+            param = draw_param(kind, rng)
+            events.append(FaultEvent(
+                kind=kind,
+                at=rng.randrange(max(1, horizon)),
+                target=rng.randrange(max(1, targets)),
+                param=param,
+            ))
+        events.sort(key=lambda e: (e.at, e.target, e.kind))
+        return FaultPlan(seed=self.seed, events=tuple(events))
+
+
+# ---------------------------------------------------------------------
+# named scenarios
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    name: str
+    fn: Callable[..., dict]
+    description: str
+    slow: bool = False
+
+
+SCENARIOS: Dict[str, Scenario] = {}
+
+
+def _scenario(name: str, description: str, slow: bool = False):
+    def register(fn):
+        SCENARIOS[name] = Scenario(name, fn, description, slow=slow)
+        return fn
+
+    return register
+
+
+def _tiny_config(max_seq: int) -> tf.ModelConfig:
+    """The reference scenarios' model (bf16 activations)."""
+    return tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                          d_ff=64, max_seq=max_seq)
+
+
+def _params(cfg: tf.ModelConfig, dev: torch.device):
+    return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+
+
+@_scenario("preempt-train",
+           "SIGTERM mid-step; checkpoint written, resume reproduces the "
+           "uninterrupted loss trajectory", slow=True)
+def _scenario_preempt_train(seed: int, *, device="cuda",
+                            cfg: Optional[tf.ModelConfig] = None) -> dict:
+    dev = resolve(device)
+    plan = ChaosSchedule(seed).plan(kinds=("preempt_sigterm",),
+                                    n_faults=1, horizon=5, targets=1)
+    kill_step = plan.events[0].at + 1
+    total = 8
+    cfg = cfg or _tiny_config(16)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight_dir = os.path.join(tmp, "straight")
+        chaos_dir = os.path.join(tmp, "chaos")
+        _, straight = ckpt.train_with_checkpointing(
+            cfg, straight_dir, total_steps=total, checkpoint_every=total,
+            device=dev)
+
+        def preempt(step: int) -> None:
+            if step == kill_step:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        preempted_at = None
+        try:
+            ckpt.train_with_checkpointing(
+                cfg, chaos_dir, total_steps=total, checkpoint_every=total,
+                on_step=preempt, device=dev)
+        except ckpt.Preempted as exc:
+            preempted_at = exc.step
+            losses = exc.losses
+        else:
+            losses = {}
+        _, resumed = ckpt.train_with_checkpointing(
+            cfg, chaos_dir, total_steps=total, checkpoint_every=total,
+            device=dev)
+        combined = {**losses, **resumed}
+        drift = max(abs(combined[i] - straight[i]) for i in range(total))
+    return {
+        "plan": plan.as_dict(),
+        "preempted_at_step": preempted_at,
+        "resume_max_loss_drift": drift,
+        "ok": bool(preempted_at == kill_step + 1 and drift == 0.0),
+    }
+
+
+@_scenario("serving-slot-failure",
+           "a serving slot dies mid-stream; its request requeues and every "
+           "accepted request completes uncorrupted", slow=True)
+def _scenario_serving_slot_failure(seed: int, *, device="cuda",
+                                   cfg: Optional[tf.ModelConfig] = None
+                                   ) -> dict:
+    dev = resolve(device)
+    plan = ChaosSchedule(seed).plan(kinds=("slot_failure",),
+                                    n_faults=1, horizon=2, targets=2)
+    ev = plan.events[0]
+    cfg = cfg or _tiny_config(64)
+    params = _params(cfg, dev)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=4 + 3 * i).tolist()
+               for i in range(4)]
+    # one engine serves both runs: the clean run drains it, and the
+    # faulted run's counts are then its own (its rounds and admissions
+    # replay the clean run's graphs on a card)
+    eng = ServingEngine(params, cfg,
+                        ServingConfig(max_slots=2, max_len=48, chunk=8),
+                        device=dev)
+
+    def run(inject: bool):
+        for i, p in enumerate(prompts):
+            # max_new > 2 chunks, so the failure lands on a slot that is
+            # still mid-stream
+            eng.submit(Request(f"c{i}", p, max_new=20, seed=seed + i))
+        if inject:
+            for _ in range(ev.at + 1):
+                eng.step_round()
+            eng.inject_slot_failure(ev.target)
+            eng.restore_slot(ev.target)
+        comps = eng.poll() + eng.run()
+        return {c.request_id: tuple(c.tokens) for c in comps}
+
+    clean = run(inject=False)
+    faulted = run(inject=True)
+    return {
+        "plan": plan.as_dict(),
+        "requests": len(prompts),
+        "slot_failures": eng.slot_failures,
+        "requeues": eng.requeues,
+        "streams_identical": faulted == clean,
+        "ok": bool(faulted == clean and eng.slot_failures == 1
+                   and eng.requeues >= 1),
+    }
+
+
+class _RunClock:
+    """An engine clock that reads the current run's virtual clock, so
+    one engine serves runs that each start their clock at 0."""
+
+    def __init__(self):
+        self.clock = fleet.VirtualClock()
+
+    def __call__(self) -> float:
+        return self.clock.now()
+
+
+@_scenario("fleet-preemption",
+           "a serving replica (real engines) preempted mid-traffic; the "
+           "router drains + requeues via the slot-failure machinery, "
+           "streams stay identical to fault-free, and SLO attainment "
+           "recovers to baseline", slow=True)
+def _scenario_fleet_preemption(seed: int, *, device="cuda",
+                               cfg: Optional[tf.ModelConfig] = None) -> dict:
+    dev = resolve(device)
+    plan = ChaosSchedule(seed).plan(kinds=("replica_preempt",),
+                                    n_faults=1, horizon=4, targets=2)
+    target = plan.events[0].target % 2
+    cfg = cfg or _tiny_config(64)
+    params = _params(cfg, dev)
+    spec = fleet.WorkloadSpec(process="poisson", rps=150.0,
+                              n_requests=14, prompt_len=(3, 8),
+                              max_new=(6, 12), vocab=cfg.vocab_size)
+    trace = fleet.generate_trace(spec, seed)
+    tick = 0.05
+    # each replica id keeps its engine across the two runs: a run
+    # drains every engine and a restore lifts every quarantine, so the
+    # faulted run starts from the clean run's state (and replays its
+    # graphs on a card); the clock reads the current run's
+    clock = _RunClock()
+    engines: Dict[int, ServingEngine] = {}
+
+    def factory(rid):
+        if rid not in engines:
+            engines[rid] = ServingEngine(
+                params, cfg, ServingConfig(max_slots=2, max_len=48, chunk=4),
+                device=dev, clock=clock)
+        return fleet.EngineReplica(rid, engines[rid])
+
+    def run(events):
+        clock.clock = fleet.VirtualClock()
+        fc = fleet.FleetConfig(replicas=2, policy="round-robin",
+                               tick_s=tick,
+                               slo=fleet.SloPolicy(ttft_s=1.0, e2e_s=5.0))
+        return fleet.FleetSim(fc, trace, replica_factory=factory,
+                              chaos_events=events, clock=clock.clock).run()
+
+    clean = run([])
+    # preempt just after a mid-trace dispatch onto the target replica:
+    # the runs are identical up to that instant, so the victim holds
+    # in-flight work and the displacement is certain
+    victim_disp = sorted(e["dispatch_s"] for e in clean["completions"]
+                         if e["replica"] == target)
+    at = (victim_disp[len(victim_disp) // 4] + tick / 2
+          if victim_disp else tick)
+    restore = at + 4 * tick
+    faulted = run([
+        fleet.ChaosEvent(at_s=round(at, 6), action="preempt", target=target),
+        fleet.ChaosEvent(at_s=round(restore, 6), action="restore",
+                         target=target),
+    ])
+
+    def crc(rep):
+        return {e["request_id"]: e["tokens_crc"] for e in rep["completions"]}
+
+    tail_clean = fleet.attainment_over(clean["completions"], restore)
+    tail_faulted = fleet.attainment_over(faulted["completions"], restore)
+    recovered = (tail_clean is None or tail_faulted is None
+                 or tail_faulted >= tail_clean)
+    return {
+        "plan": plan.as_dict(),
+        "requests": len(trace),
+        "preempted_replica": target,
+        "preempt_at_s": round(at, 6),
+        "requeues": faulted["router"]["requeues"],
+        "streams_identical": crc(faulted) == crc(clean),
+        "tail_attainment_clean": tail_clean,
+        "tail_attainment_faulted": tail_faulted,
+        "ok": bool(faulted["ok"] and clean["ok"]
+                   and crc(faulted) == crc(clean)
+                   and faulted["router"]["requeues"] >= 1
+                   and recovered),
+    }
+
+
+def scenario_names(include_slow: bool = False) -> List[str]:
+    """The registry's names, sorted; slow ones only on request."""
+    return sorted(n for n, s in SCENARIOS.items()
+                  if include_slow or not s.slow)
+
+
+def run_scenario(name: str, seed: Optional[int] = None, **kwargs) -> dict:
+    """Run one named scenario (``kwargs``: its ``device`` and ``cfg``);
+    the report carries the seed, the plan, the recovery-log delta of
+    this run and the verdict."""
+    if name not in SCENARIOS:
+        raise ValueError(
+            f"unknown scenario {name!r}; ported: "
+            f"{', '.join(sorted(SCENARIOS))}")
+    seed = resolve_seed(seed)
+    before = metrics.recovery_log().counts()
+    report = SCENARIOS[name].fn(seed, **kwargs)
+    report.update({
+        "scenario": name,
+        "seed": seed,
+        "recovery_events": metrics.recovery_log().snapshot_since(before),
+    })
+    return report

@@ -11,6 +11,15 @@
         [--repeat N] [--json] [--device cuda|cpu] [--backend gloo|nccl]
     python -m kind_tpu_sim_torch manifests torch-multihost [--topology T]
         [--accelerator A] [--num-slices N] [--out FILE]
+    python -m kind_tpu_sim_torch fleet run|trace [--engine serving]
+        [--seed N] [--replicas N] [--policy P] [--rps R] [--requests N]
+        [--process P] [--deadline-s S] [--ttft-slo S] [--e2e-slo S]
+        [--itl-slo S] [--shared-prefix-frac F] [--prefix-groups N]
+        [--autoscale] [--max-replicas N] [--tick-s S] [--eval-every-s S]
+        [--trace-file F] [--save-trace F] [--out F] [--json]
+        [--device cuda|cpu]
+    python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
+        [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
 
 ``train-smoke`` is the counterpart of ``python -m kind_tpu_sim
 train-smoke`` (``kind_tpu_sim/cli.py:run_train_smoke``): the training
@@ -51,6 +60,22 @@ kind_tpu_sim manifests jax-multihost`` (``run_manifests``): the
 Services and StatefulSets of a ``torch.distributed`` world a slice over
 GPU nodes (``manifests.torch_multihost_manifest``), printed or written
 to ``--out``.
+
+``fleet`` is the counterpart of ``python -m kind_tpu_sim fleet --engine
+serving`` (``kind_tpu_sim/cli.py:run_fleet``): a fleet of real serving
+engines (the reference's tiny model, weights from ``torch.Generator``
+seed 0, four slots of 128 positions each) under a seeded open-loop
+trace on a virtual clock (``fleet/``), its JSON report the reference's.
+``fleet trace`` prints or saves the trace alone. The analytic replicas
+(``--engine sim``) and the flags of the simulator's other layers are
+refused, naming them.
+
+``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
+(``run_chaos_engine``) for the scenarios that drive device work
+(``chaos.py``): ``preempt-train``, ``serving-slot-failure`` and
+``fleet-preemption``. Without ``--scenario`` it lists them; ``all``
+runs every one (all three are slow, so with ``--include-slow``). It
+prints ``CHAOS RUN OK`` or ``CHAOS RUN FAILED`` and exits 0 or 1.
 """
 
 from __future__ import annotations
@@ -160,6 +185,83 @@ def build_parser() -> argparse.ArgumentParser:
                      help="one torch.distributed world per slice")
     man.add_argument("--out", default=None,
                      help="write to this file instead of stdout")
+
+    fl = sub.add_parser(
+        "fleet",
+        help=("a fleet of real serving engines under seeded open-loop "
+              "traffic with SLO-aware routing, on a virtual clock"))
+    fl.add_argument("action", choices=["run", "trace", "calibrate", "tune"])
+    fl.add_argument("--seed", type=int, default=None,
+                    help="workload seed (default: KIND_TPU_SIM_FLEET_SEED "
+                         "or 0)")
+    fl.add_argument("--replicas", type=int, default=2)
+    fl.add_argument("--policy", default="round-robin",
+                    choices=["round-robin", "least-outstanding",
+                             "prefix-affinity"])
+    fl.add_argument("--rps", type=float, default=100.0,
+                    help="mean arrival rate (requests per virtual second)")
+    fl.add_argument("--requests", type=int, default=200)
+    fl.add_argument("--process", default="poisson",
+                    choices=["poisson", "bursty", "diurnal"])
+    fl.add_argument("--engine", default="serving", choices=["sim", "serving"],
+                    help=("serving: real ServingEngine replicas (the port's); "
+                          "sim: the simulator's analytic replicas (not "
+                          "ported)"))
+    fl.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request e2e budget (virtual s)")
+    fl.add_argument("--ttft-slo", type=float, default=0.5)
+    fl.add_argument("--e2e-slo", type=float, default=2.0)
+    fl.add_argument("--itl-slo", type=float, default=None)
+    fl.add_argument("--shared-prefix-frac", type=float, default=0.0,
+                    help="fraction of requests in shared-prefix groups")
+    fl.add_argument("--prefix-groups", type=int, default=4)
+    fl.add_argument("--autoscale", action="store_true",
+                    help="queue/SLO-driven autoscaling (--replicas is the "
+                         "floor)")
+    fl.add_argument("--max-replicas", type=int, default=8)
+    fl.add_argument("--tick-s", type=float, default=None,
+                    help="virtual scheduling quantum (default: 0.01)")
+    fl.add_argument("--eval-every-s", type=float, default=None,
+                    help="autoscaler evaluation cadence in virtual seconds")
+    fl.add_argument("--trace-file", default=None,
+                    help="replay this JSONL trace instead of generating one")
+    fl.add_argument("--save-trace", default=None,
+                    help="also write the generated trace to this JSONL file")
+    fl.add_argument("--out", default=None,
+                    help="write the full JSON report to this file")
+    fl.add_argument("--json", action="store_true", dest="as_json")
+    fl.add_argument("--device", default="cuda",
+                    help="torch device the engines run on (default: cuda)")
+    # the simulator's other layers: accepted here only to be refused
+    for flag in ("--sched", "--health", "--overload", "--tenancy",
+                 "--no-tenant-isolation", "--zoo", "--profile"):
+        fl.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    for flag in ("--sched-policy", "--generations", "--disagg",
+                 "--disagg-tier", "--disagg-dtype", "--calibration",
+                 "--bench"):
+        fl.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    fl.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
+    fl.add_argument("--audit-frac", type=float, default=None,
+                    help=argparse.SUPPRESS)
+
+    ch = sub.add_parser(
+        "chaos",
+        help=("seeded chaos scenarios that drive the engines, the trainer "
+              "and the fleet through their recovery paths"))
+    ch.add_argument("action", choices=["run"])
+    ch.add_argument("--scenario", default=None,
+                    help="named scenario, or 'all'; omit to list them")
+    ch.add_argument("--seed", type=int, default=None,
+                    help="fault-plan seed (default: KIND_TPU_SIM_CHAOS_SEED "
+                         "or 0)")
+    ch.add_argument("--include-slow", action="store_true",
+                    help="'all' includes the slow scenarios (every ported "
+                         "one is slow)")
+    ch.add_argument("--list", action="store_true", dest="list_scenarios",
+                    help="print the scenario registry and exit")
+    ch.add_argument("--json", action="store_true", dest="as_json")
+    ch.add_argument("--device", default="cuda",
+                    help="torch device the scenarios run on (default: cuda)")
     return parser
 
 
@@ -387,8 +489,201 @@ def run_manifests(args: argparse.Namespace) -> int:
     return 0
 
 
+# the fleet flags of the simulator's other layers, with what they set
+_SIMULATOR_FLAGS = (
+    ("sched", "--sched", "the topology-aware cluster scheduler"),
+    ("sched_policy", "--sched-policy", "the cluster scheduler"),
+    ("health", "--health", "the gray-failure detector"),
+    ("overload", "--overload", "overload containment"),
+    ("tenancy", "--tenancy", "multi-tenancy"),
+    ("no_tenant_isolation", "--no-tenant-isolation", "multi-tenancy"),
+    ("zoo", "--zoo", "the model zoo"),
+    ("generations", "--generations", "per-generation pricing"),
+    ("train", "--train", "training tenancy"),
+    ("disagg", "--disagg", "disaggregated prefill/decode pools"),
+    ("disagg_tier", "--disagg-tier", "disaggregated pools"),
+    ("disagg_dtype", "--disagg-dtype", "disaggregated pools"),
+    ("calibration", "--calibration", "the analytic cost model"),
+    ("bench", "--bench", "fleet calibrate"),
+)
+
+
+def serving_fleet_config() -> tuple:
+    """(model config, serving config) of the reference's engine fleet:
+    the tiny model (bf16 activations) in 4 slots of 128 positions, at
+    most 64 requests queued an engine."""
+    from kind_tpu_sim_torch.models.serving import ServingConfig
+
+    cfg = tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                         d_ff=64, max_seq=128)
+    return cfg, ServingConfig(max_slots=4, max_len=128, chunk=8,
+                              max_queue=64)
+
+
+def fleet_trace(args: argparse.Namespace, seed: int) -> list:
+    """The trace ``fleet`` serves: ``--trace-file``'s, else generated
+    from the flags and ``seed``."""
+    from kind_tpu_sim_torch import fleet
+
+    if args.trace_file:
+        return fleet.load_trace(args.trace_file)
+    return fleet.generate_trace(fleet.WorkloadSpec(
+        process=args.process, rps=args.rps, n_requests=args.requests,
+        shared_prefix_frac=args.shared_prefix_frac,
+        prefix_groups=args.prefix_groups, deadline_s=args.deadline_s), seed)
+
+
+def fleet_config(args: argparse.Namespace):
+    """The ``FleetConfig`` of ``fleet run``'s flags."""
+    from kind_tpu_sim_torch import fleet
+
+    return fleet.FleetConfig(
+        replicas=args.replicas, policy=args.policy, tick_s=args.tick_s,
+        autoscale=args.autoscale, eval_every_s=args.eval_every_s,
+        slo=fleet.SloPolicy(ttft_s=args.ttft_slo, e2e_s=args.e2e_slo,
+                            itl_s=args.itl_slo),
+        autoscaler=fleet.AutoscalerConfig(min_replicas=args.replicas,
+                                          max_replicas=args.max_replicas))
+
+
+def run_fleet(args: argparse.Namespace) -> int:
+    """``fleet run`` / ``fleet trace`` over the port's engines. The JSON
+    report (sorted keys) is the same for two runs of one seed."""
+    from kind_tpu_sim_torch import fleet
+
+    if args.action in ("calibrate", "tune"):
+        raise SystemExit(
+            f"fleet {args.action} belongs to the simulator's analytic "
+            "fleet (python -m kind_tpu_sim fleet); not ported")
+    for attr, flag, layer in _SIMULATOR_FLAGS:
+        if getattr(args, attr):
+            raise SystemExit(
+                f"{flag} configures {layer}, a layer of the simulator's "
+                "analytic fleet (python -m kind_tpu_sim fleet); not "
+                "ported to the engine fleet")
+    if args.audit_frac:
+        raise SystemExit(
+            "--audit-frac configures the simulator's integrity audit "
+            "lane (python -m kind_tpu_sim fleet); not ported")
+    if args.profile:
+        raise SystemExit(
+            "--profile (the simulator's cProfile wrapper of a fleet run) "
+            "is not ported")
+    seed = fleet.resolve_seed(args.seed)
+    trace = fleet_trace(args, seed)
+    if args.save_trace:
+        fleet.save_trace(args.save_trace, trace)
+    if args.action == "trace":
+        if not args.save_trace:
+            for req in trace:
+                print(json.dumps(req.as_dict(), sort_keys=True))
+        else:
+            print(f"wrote {len(trace)} requests to {args.save_trace}")
+        return 0
+    if args.engine == "sim":
+        raise SystemExit(
+            "--engine sim runs the simulator's analytic replicas "
+            "(python -m kind_tpu_sim fleet); the port serves --engine "
+            "serving")
+    replicas = args.replicas
+    fc = fleet_config(args)
+    dev = resolve(args.device)
+    cfg, sc = serving_fleet_config()
+    bad = [r for r in trace
+           if max(r.prompt) >= cfg.vocab_size
+           or len(r.prompt) + r.max_new > sc.max_len]
+    if bad:
+        raise SystemExit(
+            f"{len(bad)} trace request(s) exceed the serving engine's "
+            f"vocab={cfg.vocab_size}/max_len={sc.max_len} envelope; "
+            "regenerate the trace within it")
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    report = fleet.engine_fleet(fc, trace, params, cfg, sc,
+                                device=dev).run()
+    report["seed"] = seed
+    report["engine"] = args.engine
+    text = json.dumps(report, sort_keys=True)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
+    if args.as_json:
+        print(text)
+    else:
+        slo = report["slo"]
+        print(f"fleet: {report['requests']} requests, {args.policy} over "
+              f"{replicas} replica(s), seed {seed}, engine {args.engine} "
+              f"on {dev}")
+        print(f"  attainment {slo['attainment']}  goodput "
+              f"{slo.get('goodput_tok_s')} tok/s  throughput "
+              f"{slo.get('throughput_tok_s')} tok/s")
+        ttft, e2e = slo["ttft"], slo["e2e"]
+        if ttft.get("count"):
+            print(f"  ttft p50/p90/p99 {ttft['p50_s']}/{ttft['p90_s']}/"
+                  f"{ttft['p99_s']} s  e2e p99 {e2e['p99_s']} s")
+        print(f"  shed {slo['shed']}  deadline_exceeded "
+              f"{slo['deadline_exceeded']}  requeues "
+              f"{report['router']['requeues']}")
+        if "autoscaler" in report:
+            a = report["autoscaler"]
+            print(f"  autoscaler: +{a['scale_ups']}/-{a['scale_downs']} "
+                  f"(warmup {a['warmup_s']}s)")
+        if args.out:
+            print(f"  report -> {args.out}")
+        print("FLEET RUN " + ("OK" if report["ok"] else "FAILED"))
+    return 0 if report["ok"] else 1
+
+
+def run_chaos(args: argparse.Namespace) -> int:
+    """``chaos run``: the ported scenarios on ``--device``."""
+    from kind_tpu_sim_torch import chaos
+
+    if args.list_scenarios or not args.scenario:
+        rows = [{"name": s.name, "description": s.description,
+                 "slow": s.slow}
+                for s in sorted(chaos.SCENARIOS.values(),
+                                key=lambda s: s.name)]
+        if args.as_json:
+            print(json.dumps(rows, sort_keys=True))
+        else:
+            print("available scenarios (chaos run --scenario NAME):")
+            for row in rows:
+                tag = " [slow]" if row["slow"] else ""
+                print(f"  {row['name']:<24} {row['description']}{tag}")
+        return 0
+    if args.scenario == "all":
+        names = chaos.scenario_names(include_slow=args.include_slow)
+    elif args.scenario in chaos.SCENARIOS:
+        names = [args.scenario]
+    else:
+        raise SystemExit(
+            f"unknown scenario {args.scenario!r}; the port runs "
+            f"{', '.join(sorted(chaos.SCENARIOS))} (the simulator's other "
+            "scenarios: python -m kind_tpu_sim chaos run)")
+    reports = [chaos.run_scenario(n, seed=args.seed, device=args.device)
+               for n in names]
+    ok = all(r["ok"] for r in reports)
+    if args.as_json:
+        out = reports[0] if len(reports) == 1 else {
+            "ok": ok, "scenarios": reports}
+        print(json.dumps(out, sort_keys=True))
+    else:
+        for rep in reports:
+            events = ", ".join(
+                f"{k}={v}" for k, v in
+                sorted(rep.get("recovery_events", {}).items())) or "-"
+            print(f"  {rep['scenario']:<24} seed={rep['seed']} "
+                  f"{'OK' if rep['ok'] else 'FAILED'}  [{events}]")
+        print("CHAOS RUN " + ("OK" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "fleet":
+        return run_fleet(args)
+    if args.command == "chaos":
+        return run_chaos(args)
     if args.command == "profile":
         return run_profile(args)
     if args.command == "slice-smoke":

@@ -1,10 +1,15 @@
-"""Fault and recovery event log for the serving engines.
+"""Fault and recovery event log, and the fleet's counter board.
 
-The port's own copy of the JAX package's ``RecoveryLog`` and
-``recovery_log()`` (``kind_tpu_sim/metrics.py``). The serving engines
-record ``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
-``slot_requeue`` (``inject_slot_failure``) here, so a chaos run reports
-recovery as counted events.
+The port's own copies of the JAX package's ``RecoveryLog`` /
+``recovery_log()`` and ``CounterBoard`` / ``fleet_board()``
+(``kind_tpu_sim/metrics.py``). The serving engines record
+``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
+``slot_requeue`` (``inject_slot_failure``) in the log, the training loop
+``preemption_checkpoint``, and the fleet its preemptions, restores and
+sheds, so a chaos run reports recovery as counted events. The fleet's
+router, loop and autoscaler count requests routed, shed, requeued and
+expired and scale events on the board; a fleet report carries the
+counts of its own run (``snapshot_since``).
 """
 
 from __future__ import annotations
@@ -60,3 +65,35 @@ def recovery_log() -> RecoveryLog:
     """The process-global fault/recovery event log (the engines record
     into it; callers snapshot and take deltas)."""
     return _RECOVERY_LOG
+
+
+class CounterBoard:
+    """Thread-safe named monotonic counters."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = collections.Counter()
+
+    def incr(self, name: str, by: int = 1) -> None:
+        with self._lock:
+            self._counts[name] += by
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def snapshot_since(self, before: Dict[str, int]) -> Dict[str, int]:
+        """Counter delta against an earlier ``counts()``: how one fleet
+        run attributes its own traffic on the shared board."""
+        now = self.counts()
+        return {k: now[k] - before.get(k, 0) for k in now
+                if now[k] - before.get(k, 0)}
+
+
+_FLEET_BOARD = CounterBoard()
+
+
+def fleet_board() -> CounterBoard:
+    """The process-global fleet counter board (the router, the fleet
+    loop and the autoscaler count into it)."""
+    return _FLEET_BOARD

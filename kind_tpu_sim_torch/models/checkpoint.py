@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kind_tpu_sim_torch import metrics
 from kind_tpu_sim_torch.device import resolve
 from kind_tpu_sim_torch.models import transformer as tf
 from kind_tpu_sim_torch.parallel import tp
@@ -326,9 +327,9 @@ def train_with_checkpointing(cfg, directory, *, total_steps: int,
                 on_step(i)
             done = i + 1
             if guard.preempted:
-                # the reference also records a recovery-log entry here;
-                # that log belongs to the simulator layer, not this port
                 save(directory, done, state)
+                metrics.recovery_log().record(
+                    "preemption_checkpoint", step=done)
                 raise Preempted(done, losses)
             if done % checkpoint_every == 0 or done == total_steps:
                 save(directory, done, state)

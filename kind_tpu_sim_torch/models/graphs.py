@@ -212,6 +212,12 @@ class AdmissionInputs:
                 self.put("seen", seen(), torch.bool))
 
 
+# every graph captured in this process, by any runner, and the seconds
+# its capture took: a caller reads both before and after a run to count
+# the run's captures
+CAPTURES = {"graphs": 0, "capture_s": 0.0}
+
+
 def eager(key, fn: Callable[[], Any]):
     """The round run as the Python it is: the CPU's path, and what a
     test on the card rebinds an engine's ``_round`` to, to hold its
@@ -292,7 +298,10 @@ class RoundGraphs:
                 if collecting:
                     gc.enable()
             launches = take_launches(before)
-            self.capture_s += time.perf_counter() - t0
+            took = time.perf_counter() - t0
+            self.capture_s += took
+            CAPTURES["graphs"] += 1
+            CAPTURES["capture_s"] += took
         main.wait_stream(side)
         for t in outputs:
             t.record_stream(main)
