@@ -215,11 +215,18 @@ it fails (nothing is caught and ignored):
    dq and dk/dv each 2 layers x 16 steps on the tensor cores); the
    fleet command's fleet (64 requests, the tiny model in fp32) on the
    card against the same fleet and weights on the CPU, every completion
-   equal; and, as processes started first, ``python -m
-   kind_tpu_sim_torch fleet run`` and ``chaos run --scenario all
-   --include-slow`` at the reference's tiny configs, whose weight-free
-   fields must equal the same runs' on the CPU. Each step logs its
-   flash launches by route and its CUDA graph captures.
+   equal; the fleet's control layers (the gray-failure detector,
+   overload containment, the stock tenants, the audit lane at 0.3) over
+   three flagship replicas at full width and depth with a slowed and a
+   preempted replica, whose weight-free fields must equal the same
+   fleet's of the tiny fp32 model on the CPU, with hedges issued,
+   cancels of both outcomes, a quarantine restored through probes and
+   audit copies that all agree; and, as processes started first,
+   ``python -m kind_tpu_sim_torch fleet run`` (also with ``--health
+   --overload --tenancy --audit-frac 0.25``) and ``chaos run --scenario
+   all --include-slow`` at the reference's tiny configs, whose
+   weight-free fields must equal the same runs' on the CPU. Each step
+   logs its flash launches by route and its CUDA graph captures.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5641,11 +5648,23 @@ SIM_COMMANDS = {
               "--device", "cuda"),
     "chaos": ("chaos", "run", "--scenario", "all", "--include-slow",
               "--json", "--device", "cuda"),
+    "fleet layers": ("fleet", "run", "--requests", str(SIM_REQUESTS),
+                     "--health", "--overload", "--tenancy", "--audit-frac",
+                     "0.25", "--json", "--device", "cuda"),
 }
 # the fleet report's keys that hold for every weight (the streams' crcs
-# taken out of the completions), and the scenario results'
+# taken out of the completions), with the control layers' sections where
+# a run has them, and the scenario results'
 SIM_FLEET_KEYS = ("requests", "completed", "virtual_s", "slo", "router",
                   "ok", "config", "fleet_counters")
+SIM_LAYER_KEYS = ("health", "overload", "tenancy", "integrity",
+                  "preemptions")
+# (f): the control layers' fleet at the flagship: the stock tenants'
+# trace of seed 0, three replicas, and replica 1 slowed x6 over 10-50%
+# of the trace's span, then replica 2 preempted over 60-80% of it
+SIM_LAYERS_REQUESTS = 80
+SIM_LAYERS_EVENTS = ((0.1, "slow", 1, 6.0), (0.5, "unslow", 1, 0.0),
+                     (0.6, "preempt", 2, 0.0), (0.8, "restore", 2, 0.0))
 SIM_SCENARIO_KEYS = {
     "preempt-train": ("plan", "preempted_at_step", "resume_max_loss_drift",
                       "ok", "recovery_events"),
@@ -5690,8 +5709,62 @@ def _sim_run(label: str, fa, graphs, fn):
 def _weight_free(rep: dict) -> dict:
     """A fleet report's fields that hold for any weights."""
     out = {key: rep[key] for key in SIM_FLEET_KEYS}
+    out.update({key: rep[key] for key in SIM_LAYER_KEYS if key in rep})
     out["completions"] = [{k: v for k, v in e.items() if k != "tokens_crc"}
                           for e in rep["completions"]]
+    return out
+
+
+def layers_fleet(fleet, params, cfg, serving, device: str):
+    """(f)'s fleet: the detector, overload containment, the stock
+    tenants and the audit lane at 0.3 over three engine replicas of
+    ``cfg`` on ``device``, least-outstanding, tick 0.01, SLO ttft 0.3 /
+    e2e 0.6. Its replicas count their ``cancel`` outcomes in the
+    returned Counter (True: withdrawn from the queue, False: left to
+    finish)."""
+    import collections
+
+    from kind_tpu_sim_torch.models.serving import ServingEngine
+
+    trace = fleet.generate_trace(fleet.WorkloadSpec(
+        process="poisson", rps=150.0, n_requests=SIM_LAYERS_REQUESTS,
+        max_new=(12, 24), tenancy=fleet.default_tenancy()), 0)
+    span = max(r.arrival_s for r in trace)
+    events = [fleet.ChaosEvent(round(frac * span, 6), action, target, param)
+              for frac, action, target, param in SIM_LAYERS_EVENTS]
+    fc = fleet.FleetConfig(
+        replicas=3, policy="least-outstanding", tick_s=0.01,
+        slo=fleet.SloPolicy(ttft_s=0.3, e2e_s=0.6),
+        health=fleet.DetectorConfig(), overload=fleet.OverloadConfig(),
+        tenancy=fleet.default_tenancy(), audit_frac=0.3)
+    clock = fleet.VirtualClock()
+    cancels = collections.Counter()
+
+    class Replica(fleet.EngineReplica):
+        def cancel(self, request_id):
+            out = super().cancel(request_id)
+            cancels[out] += 1
+            return out
+
+    def factory(rid):
+        return Replica(rid, ServingEngine(params, cfg, serving, device=device,
+                                          clock=clock.now))
+
+    return fleet.FleetSim(fc, trace, replica_factory=factory,
+                          chaos_events=events, clock=clock), cancels
+
+
+def _restored_by_probes(detector: dict) -> list:
+    """The components the detector quarantined and then restored through
+    probes."""
+    quarantined = set()
+    out = []
+    for ev in detector["events"]:
+        if ev["transition"] == "quarantined":
+            quarantined.add(ev["component"])
+        elif (ev["transition"] == "restored" and ev.get("reason") == "probes"
+              and ev["component"] in quarantined):
+            out.append(ev["component"])
     return out
 
 
@@ -5706,13 +5779,21 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     (e) the fleet command's fleet (its trace, its config, the tiny model
     in fp32, so near-ties cannot split a stream) on the card against the
     same fleet on the CPU with the same weights: every completion equal,
-    crcs included. (d)'s fleet must give (e)'s weight-free fields, and
-    each of its scenarios the same scenario's weight-free fields run on
-    the CPU here. Each step's flash launches by route and graph captures
-    are logged."""
+    crcs included. (f) the control layers (the detector, overload
+    containment, tenancy, the audit lane) over three replicas of the
+    flagship (all 8 layers, flash, phase 4's bf16 weights) with a slowed
+    and a preempted replica: its weight-free fields equal the same
+    fleet's of the tiny fp32 model on the CPU; hedges issued, cancels of
+    both outcomes, a quarantine restored through probes, audit copies
+    with no disagreement. (d)'s fleet must give (e)'s weight-free fields,
+    its fleet with the layers' flags the same flags' run on the CPU here,
+    and each of its scenarios the same scenario's weight-free fields run
+    on the CPU here. Each step's flash launches by route and graph
+    captures are logged."""
     import threading
 
     from kind_tpu_sim_torch import chaos, cli, fleet
+    from kind_tpu_sim_torch import profile_serving as flagship
     from kind_tpu_sim_torch.models import graphs
 
     out = {}
@@ -5785,6 +5866,59 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
         out["fleet on the card against the CPU"] = {
             "cpu_s": cpu_s, "slo": card["slo"], **stats}
 
+        t0 = time.perf_counter()
+        sim, _ = layers_fleet(fleet, params, tiny, sc, "cpu")
+        layers_cpu = sim.run()
+        cpu_s = time.perf_counter() - t0
+        sp = flagship.flagship_params(cfg)
+        sim, cancels = layers_fleet(fleet, sp, cfg, sc, "cuda")
+        layers, stats = _sim_run(
+            "(f) the control layers over three flagship replicas", fa,
+            graphs, sim.run)
+        del sim, sp
+        ov = layers["overload"]["counters"]
+        health = layers["health"]["counters"]
+        audits = layers["integrity"]["counters"]
+        restored = _restored_by_probes(layers["health"]["detector"])
+        log(f"14 (f): ok {layers['ok']}, {layers['completed']} completions "
+            f"(CPU {cpu_s:.1f} s); overload {json.dumps(ov)}; cancels "
+            f"withdrawn {cancels[True]}, left to finish {cancels[False]}; "
+            f"health {json.dumps(health)}, restored by probes {restored}; "
+            f"integrity {json.dumps(layers['integrity'])}; tenants "
+            + json.dumps({k: v["admitted"] for k, v in
+                          layers["tenancy"]["tenants"].items()}))
+        check(layers["ok"] and layers["completed"] >= SIM_LAYERS_REQUESTS,
+              f"(f) at the flagship: ok {layers['ok']}, completed "
+              f"{layers['completed']}")
+        got = _weight_free(layers)
+        for key, want in _weight_free(layers_cpu).items():
+            check(got[key] == want,
+                  f"(f) at the flagship differs from the CPU's in {key}")
+        check(ov.get("hedges_issued", 0) >= 1 and cancels[True] >= 1
+              and cancels[False] >= 1,
+              f"(f): hedges {ov}, cancel outcomes {dict(cancels)}")
+        check(health.get("quarantines", 0) >= 1 and restored,
+              f"(f): no quarantine restored through probes: {health}")
+        check(audits.get("audit_copies", 0) >= 1
+              and "audit_mismatches" not in audits
+              and not layers["integrity"]["detections"],
+              f"(f): audits {layers['integrity']}")
+        fwd = stats["launches_by_route"]["flash_attention"]
+        check(fwd["tensor_cores"] > 0 and fwd["cuda_cores"] == 0,
+              f"(f): flash forward launched {fwd}, expected all on the "
+              "tensor cores")
+        out["control layers at the flagship"] = {
+            "cpu_s": cpu_s, "slo": layers["slo"], "overload": ov,
+            "cancels": {"withdrawn": cancels[True],
+                        "left_to_finish": cancels[False]},
+            "health": health, "integrity": audits, **stats}
+
+        args = cli.build_parser().parse_args(
+            list(SIM_COMMANDS["fleet layers"]))
+        layers_cmd_cpu = fleet.engine_fleet(
+            cli.fleet_config(args), cli.fleet_trace(args, 0), params, tiny, sc,
+            device="cpu").run()
+
         cpu_scenarios = {name: chaos.run_scenario(name, seed=0, device="cpu")
                          for name in SIM_SCENARIO_KEYS}
         ran = {label: f.result() for label, f in running.items()}
@@ -5799,6 +5933,12 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
           and _weight_free(fleet_rep) == _weight_free(cpu),
           "the fleet command on the card: not ok, or its weight-free "
           "fields differ from the same fleet's on the CPU")
+    layers_rep = json.loads(
+        ran["fleet layers"]["stdout"].strip().splitlines()[-1])
+    check(layers_rep["ok"] and "integrity" in layers_rep
+          and _weight_free(layers_rep) == _weight_free(layers_cmd_cpu),
+          "the fleet command with the layers' flags on the card: not ok, or "
+          "its weight-free fields differ from the same flags' run on the CPU")
     chaos_rep = json.loads(ran["chaos"]["stdout"].strip().splitlines()[-1])
     by_name = {r["scenario"]: r for r in chaos_rep["scenarios"]}
     check(chaos_rep["ok"] and sorted(by_name) == sorted(SIM_SCENARIO_KEYS),
@@ -5812,6 +5952,9 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     out["commands"] = {label: {"rc": res["rc"], "wall_s": res["wall_s"]}
                        for label, res in ran.items()}
     out["commands"]["fleet"]["slo"] = fleet_rep["slo"]
+    out["commands"]["fleet layers"].update(
+        slo=layers_rep["slo"], overload=layers_rep["overload"]["counters"],
+        integrity=layers_rep["integrity"]["counters"])
     return out
 
 

@@ -16,8 +16,9 @@
         [--process P] [--deadline-s S] [--ttft-slo S] [--e2e-slo S]
         [--itl-slo S] [--shared-prefix-frac F] [--prefix-groups N]
         [--autoscale] [--max-replicas N] [--tick-s S] [--eval-every-s S]
-        [--trace-file F] [--save-trace F] [--out F] [--json]
-        [--device cuda|cpu]
+        [--health] [--overload] [--tenancy [--no-tenant-isolation]]
+        [--audit-frac F] [--trace-file F] [--save-trace F] [--out F]
+        [--json] [--device cuda|cpu]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
 
@@ -66,9 +67,12 @@ serving`` (``kind_tpu_sim/cli.py:run_fleet``): a fleet of real serving
 engines (the reference's tiny model, weights from ``torch.Generator``
 seed 0, four slots of 128 positions each) under a seeded open-loop
 trace on a virtual clock (``fleet/``), its JSON report the reference's.
-``fleet trace`` prints or saves the trace alone. The analytic replicas
-(``--engine sim``) and the flags of the simulator's other layers are
-refused, naming them.
+``--health``, ``--overload``, ``--tenancy`` and ``--audit-frac`` turn on
+the fleet's control layers as the reference's flags do. ``fleet trace``
+prints or saves the trace alone. The analytic replicas (``--engine
+sim``) and the flags of the simulator's other layers (the scheduler,
+training, disaggregated pools, the model zoo, calibration, profiling)
+are refused, naming them.
 
 ``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
 (``run_chaos_engine``) for the scenarios that drive device work
@@ -81,6 +85,7 @@ prints ``CHAOS RUN OK`` or ``CHAOS RUN FAILED`` and exits 0 or 1.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import time
@@ -232,17 +237,36 @@ def build_parser() -> argparse.ArgumentParser:
     fl.add_argument("--json", action="store_true", dest="as_json")
     fl.add_argument("--device", default="cuda",
                     help="torch device the engines run on (default: cuda)")
+    fl.add_argument("--health", action="store_true",
+                    help="the gray-failure detector: latency-aware routing, "
+                         "slow-replica quarantine and probe restore; the "
+                         "report gains a 'health' section")
+    fl.add_argument("--overload", action="store_true",
+                    help="overload containment: budgeted client retries, "
+                         "hedged requests (the first completion wins, the "
+                         "loser is cancelled), per-replica circuit breakers "
+                         "and the brownout ladder; the report gains an "
+                         "'overload' section")
+    fl.add_argument("--tenancy", action="store_true",
+                    help="multi-tenancy: the three-tenant traffic model, "
+                         "per-tenant quotas and deficit-round-robin "
+                         "queuing; the report gains a 'tenancy' section")
+    fl.add_argument("--no-tenant-isolation", action="store_true",
+                    help="with --tenancy: keep the tenant traffic but "
+                         "serve it FCFS without quotas")
+    fl.add_argument("--audit-frac", type=float, default=None,
+                    metavar="FRAC",
+                    help="execute this share of served requests again on a "
+                         "second replica and compare the streams (the "
+                         "integrity audit lane); default 0")
     # the simulator's other layers: accepted here only to be refused
-    for flag in ("--sched", "--health", "--overload", "--tenancy",
-                 "--no-tenant-isolation", "--zoo", "--profile"):
+    for flag in ("--sched", "--zoo", "--profile"):
         fl.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     for flag in ("--sched-policy", "--generations", "--disagg",
                  "--disagg-tier", "--disagg-dtype", "--calibration",
                  "--bench"):
         fl.add_argument(flag, default=None, help=argparse.SUPPRESS)
     fl.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
-    fl.add_argument("--audit-frac", type=float, default=None,
-                    help=argparse.SUPPRESS)
 
     ch = sub.add_parser(
         "chaos",
@@ -493,10 +517,6 @@ def run_manifests(args: argparse.Namespace) -> int:
 _SIMULATOR_FLAGS = (
     ("sched", "--sched", "the topology-aware cluster scheduler"),
     ("sched_policy", "--sched-policy", "the cluster scheduler"),
-    ("health", "--health", "the gray-failure detector"),
-    ("overload", "--overload", "overload containment"),
-    ("tenancy", "--tenancy", "multi-tenancy"),
-    ("no_tenant_isolation", "--no-tenant-isolation", "multi-tenancy"),
     ("zoo", "--zoo", "the model zoo"),
     ("generations", "--generations", "per-generation pricing"),
     ("train", "--train", "training tenancy"),
@@ -520,21 +540,39 @@ def serving_fleet_config() -> tuple:
                               max_queue=64)
 
 
+def fleet_tenancy(args: argparse.Namespace):
+    """The ``TenancyConfig`` of ``--tenancy`` (the stock three tenants,
+    unisolated under ``--no-tenant-isolation``), or None."""
+    from kind_tpu_sim_torch import fleet
+
+    if args.no_tenant_isolation and not args.tenancy:
+        raise SystemExit("--no-tenant-isolation needs --tenancy")
+    if not args.tenancy:
+        return None
+    tenancy = fleet.default_tenancy()
+    if args.no_tenant_isolation:
+        tenancy = dataclasses.replace(tenancy, isolation=False)
+    return tenancy
+
+
 def fleet_trace(args: argparse.Namespace, seed: int) -> list:
     """The trace ``fleet`` serves: ``--trace-file``'s, else generated
     from the flags and ``seed``."""
     from kind_tpu_sim_torch import fleet
 
+    tenancy = fleet_tenancy(args)
     if args.trace_file:
         return fleet.load_trace(args.trace_file)
     return fleet.generate_trace(fleet.WorkloadSpec(
         process=args.process, rps=args.rps, n_requests=args.requests,
         shared_prefix_frac=args.shared_prefix_frac,
-        prefix_groups=args.prefix_groups, deadline_s=args.deadline_s), seed)
+        prefix_groups=args.prefix_groups, deadline_s=args.deadline_s,
+        tenancy=tenancy), seed)
 
 
 def fleet_config(args: argparse.Namespace):
-    """The ``FleetConfig`` of ``fleet run``'s flags."""
+    """The ``FleetConfig`` of ``fleet run``'s flags (the detector with its
+    defaults under ``--health``)."""
     from kind_tpu_sim_torch import fleet
 
     return fleet.FleetConfig(
@@ -543,7 +581,10 @@ def fleet_config(args: argparse.Namespace):
         slo=fleet.SloPolicy(ttft_s=args.ttft_slo, e2e_s=args.e2e_slo,
                             itl_s=args.itl_slo),
         autoscaler=fleet.AutoscalerConfig(min_replicas=args.replicas,
-                                          max_replicas=args.max_replicas))
+                                          max_replicas=args.max_replicas),
+        health=fleet.DetectorConfig() if args.health else None,
+        overload=fleet.OverloadConfig() if args.overload else None,
+        tenancy=fleet_tenancy(args), audit_frac=args.audit_frac)
 
 
 def run_fleet(args: argparse.Namespace) -> int:
@@ -561,10 +602,6 @@ def run_fleet(args: argparse.Namespace) -> int:
                 f"{flag} configures {layer}, a layer of the simulator's "
                 "analytic fleet (python -m kind_tpu_sim fleet); not "
                 "ported to the engine fleet")
-    if args.audit_frac:
-        raise SystemExit(
-            "--audit-frac configures the simulator's integrity audit "
-            "lane (python -m kind_tpu_sim fleet); not ported")
     if args.profile:
         raise SystemExit(
             "--profile (the simulator's cProfile wrapper of a fleet run) "
@@ -628,6 +665,41 @@ def run_fleet(args: argparse.Namespace) -> int:
             a = report["autoscaler"]
             print(f"  autoscaler: +{a['scale_ups']}/-{a['scale_downs']} "
                   f"(warmup {a['warmup_s']}s)")
+        if "overload" in report:
+            o = report["overload"]["counters"]
+            print(f"  overload: retries {o.get('retries_scheduled', 0)} "
+                  f"(suppressed {o.get('retries_suppressed', 0)})  hedges "
+                  f"{o.get('hedges_issued', 0)} (wins "
+                  f"{o.get('hedge_wins', 0)}, cancelled "
+                  f"{o.get('hedge_cancels', 0)})  brownout level "
+                  f"{report['overload']['brownout']['level']}")
+        if "health" in report:
+            h = report["health"]["counters"]
+            print(f"  health: suspicions {h.get('suspicions', 0)}  "
+                  f"quarantines {h.get('quarantines', 0)}  restores "
+                  f"{h.get('restores', 0)}  probes "
+                  f"{h.get('probe_dispatches', 0)}")
+        if "tenancy" in report:
+            ten = report["tenancy"]
+            sheds = sum(t["quota_shed"] + t["token_shed"]
+                        for t in ten["tenants"].values())
+            fq = report["router"].get("fair_queue", {})
+            print(f"  tenancy: {len(ten['tenants'])} tenant(s)  isolation "
+                  f"{ten['isolation']}  quota/token sheds {sheds}  drr "
+                  f"rounds {fq.get('rounds', 0)}")
+            for name in sorted(ten["tenants"]):
+                t = ten["tenants"][name]
+                e2e = ten["slo"].get(name, {}).get("e2e", {})
+                p99 = e2e.get("p99_s") if e2e.get("count") else None
+                print(f"    {name} ({t['qos']}): admitted {t['admitted']}  "
+                      f"shed {t['quota_shed'] + t['token_shed']}  e2e p99 "
+                      f"{p99} s")
+        if "integrity" in report:
+            c = report["integrity"]["counters"]
+            print(f"  integrity: audits {c.get('audits', 0)}  copies "
+                  f"{c.get('audit_copies', 0)}  mismatches "
+                  f"{c.get('audit_mismatches', 0)}  quarantined "
+                  f"{len(report['integrity']['detections'])}")
         if args.out:
             print(f"  report -> {args.out}")
         print("FLEET RUN " + ("OK" if report["ok"] else "FAILED"))

@@ -3,15 +3,21 @@
 The port's copy of the engine-backed path of ``kind_tpu_sim/fleet/``:
 seeded open-loop traces (``loadgen``), SLO accounting (``slo``), the
 router and the engine replica (``router``), the autoscaler
-(``autoscaler``) and the virtual-clock loop (``sim``). The same seed
-and config give the reference's completion log and SLO report when the
-engines carry the same weights.
+(``autoscaler``), overload containment (``overload``), multi-tenancy
+(``tenancy``), the gray-failure detector (``kind_tpu_sim_torch.health``)
+and the virtual-clock loop (``sim``) with its integrity audit lane. The
+same seed and config give the reference's report when the engines carry
+the same weights.
 
 Knob: KIND_TPU_SIM_FLEET_SEED (``loadgen.resolve_seed``). The tick
 width and the replica warm-up take the reference's defaults where a
 config leaves them unset (``sim.TICK_S``, ``autoscaler.WARMUP_S``).
 """
 
+from kind_tpu_sim_torch.health import (  # noqa: F401
+    DetectorConfig,
+    FailureDetector,
+)
 from kind_tpu_sim_torch.fleet.autoscaler import (  # noqa: F401
     Autoscaler,
     AutoscalerConfig,
@@ -27,6 +33,20 @@ from kind_tpu_sim_torch.fleet.loadgen import (  # noqa: F401
     resolve_seed,
     save_trace,
 )
+from kind_tpu_sim_torch.fleet.overload import (  # noqa: F401
+    BrownoutController,
+    CircuitBreaker,
+    LatencyQuantile,
+    OverloadConfig,
+    OverloadState,
+    TokenBucket,
+    request_tier,
+    resolve_breaker_window,
+    resolve_brownout,
+    resolve_hedge_quantile,
+    resolve_retry_budget,
+    surge_trace,
+)
 from kind_tpu_sim_torch.fleet.router import (  # noqa: F401
     POLICIES,
     EngineReplica,
@@ -41,6 +61,19 @@ from kind_tpu_sim_torch.fleet.sim import (  # noqa: F401
     attainment_over,
     engine_fleet,
     resolve_tick_s,
+)
+from kind_tpu_sim_torch.fleet.tenancy import (  # noqa: F401
+    QOS_TIERS,
+    RateBucket,
+    TenancyConfig,
+    TenancyState,
+    TenantSpec,
+    default_tenancy,
+    generate_tenant_trace,
+    resolve_drr_quantum,
+    resolve_isolation,
+    tenant_of,
+    tenant_surge_trace,
 )
 from kind_tpu_sim_torch.fleet.slo import (  # noqa: F401
     FixedBucketHistogram,

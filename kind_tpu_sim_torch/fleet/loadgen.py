@@ -13,9 +13,10 @@ peak rate: ``poisson`` (exponential inter-arrivals at ``rps``),
 (a raised-cosine rate over ``diurnal_period_s``). Traces round-trip
 through JSON lines (:func:`save_trace` / :func:`load_trace`).
 
-The tenant population (``WorkloadSpec.tenancy``) and the model zoo's
-stamps (``WorkloadSpec.zoo``) feed simulator layers the port does not
-carry; a spec that sets either is refused.
+A spec with a tenant population (``WorkloadSpec.tenancy``) is drawn by
+``tenancy.generate_tenant_trace``. The model zoo's stamps
+(``WorkloadSpec.zoo``) feed a simulator layer the port does not carry;
+a spec that sets them is refused.
 """
 
 from __future__ import annotations
@@ -129,6 +130,9 @@ def _spec_rng(spec: WorkloadSpec, seed: int) -> random.Random:
     # phase-0 spec keeps its stream
     if spec.phase_s:
         sig = sig + (spec.phase_s,)
+    # so does the tenant population, by its traffic-shaping fields
+    if spec.tenancy is not None:
+        sig = sig + (spec.tenancy.signature(),)
     return random.Random(zlib.crc32(repr(sig).encode("utf-8")))
 
 
@@ -163,15 +167,16 @@ def generate_trace(spec: WorkloadSpec,
             f"{', '.join(WorkloadSpec.PROCESSES)}")
     if spec.rps <= 0:
         raise ValueError(f"rps must be > 0 (got {spec.rps})")
-    if spec.tenancy is not None:
-        raise ValueError(
-            "WorkloadSpec.tenancy (the tenant population of the "
-            "simulator's tenancy layer) is not ported")
     if spec.zoo is not None:
         raise ValueError(
             "WorkloadSpec.zoo (the simulator's model-zoo stamps) is "
             "not ported")
     seed = resolve_seed(seed)
+    if spec.tenancy is not None:
+        # a late import: tenancy builds TraceRequests
+        from kind_tpu_sim_torch.fleet.tenancy import generate_tenant_trace
+
+        return generate_tenant_trace(spec, seed)
     rng = _spec_rng(spec, seed)
     if spec.process == "bursty":
         peak = spec.rps * max(1.0, spec.burst_factor)

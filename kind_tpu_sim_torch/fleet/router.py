@@ -8,16 +8,24 @@ The port's copy of the engine-backed half of
   latency clock bound to the fleet's virtual clock, so real token
   streams flow under fleet traffic and the chaos scenarios drive the
   engine's own slot-failure recovery.
+  A hedge's losing copy is withdrawn with :meth:`EngineReplica.cancel`
+  while it still waits in the engine's queue.
 * :class:`Router` -- the balancing policies (round-robin,
   least-outstanding, prefix-affinity over the shared-prefix cohorts),
   deadlines of queued requests, and admission control: a bounded
   central queue sheds, and a replica that refuses a submit (its own
   ``max_queue``) passes the request to the next candidate. A failed
-  replica's displaced requests requeue at the front of the queue.
+  replica's displaced requests requeue at the front of the queue. With
+  a failure detector (``health``) quarantined replicas leave the
+  candidates and the load orderings weigh queue depth by each
+  replica's relative service time; with overload containment
+  (``overload``) an open circuit breaker takes its replica out of the
+  candidates; with tenant isolation (``tenancy``) the queue drains by
+  deficit round robin over tenants, strict priority across QoS tiers.
 
-The reference's analytic ``SimReplica`` and the router's health,
-overload, disaggregation, tenancy, zoo and columnar paths belong to
-simulator layers the port does not carry.
+The reference's analytic ``SimReplica`` and the router's disaggregated
+pools, model zoo and columnar fast path belong to simulator layers the
+port does not carry.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 
 from kind_tpu_sim_torch import metrics
 from kind_tpu_sim_torch.fleet.loadgen import TraceRequest
+from kind_tpu_sim_torch.fleet.tenancy import tenant_of
 from kind_tpu_sim_torch.models.serving import EngineSaturated, Request
 
 POLICIES = ("round-robin", "least-outstanding", "prefix-affinity")
@@ -119,6 +128,22 @@ class EngineReplica:
                 finish_reason=c.finish_reason))
         return out
 
+    def cancel(self, request_id: str) -> bool:
+        """Withdraw a hedge's losing copy: a request still in the
+        engine's queue leaves it and every record the replica and the
+        engine keep of it (True); one already claimed by a slot keeps
+        it and completes, and the caller drops that late completion
+        (False)."""
+        eng = self.engine
+        for i, r in enumerate(eng.queue):
+            if r.request_id == request_id:
+                del eng.queue[i]
+                eng._req_clock.pop(request_id, None)
+                self._dispatched.pop(request_id, None)
+                self._dispatch_s.pop(request_id, None)
+                return True
+        return False
+
     def fail(self, now: float) -> List[TraceRequest]:
         """Every slot takes ``inject_slot_failure`` (mid-stream requests
         requeue inside the engine), then the engine's whole queue goes
@@ -161,13 +186,25 @@ class Router:
     without reaching a replica; a full queue sheds on arrival."""
 
     def __init__(self, replicas: Sequence, policy: str = "round-robin",
-                 max_queue: int = 0, affinity_spill: int = 8):
+                 max_queue: int = 0, affinity_spill: int = 8,
+                 health=None, overload=None, tenancy=None):
         if policy not in POLICIES:
             raise ValueError(
                 f"unknown policy {policy!r}; known: {', '.join(POLICIES)}")
         self.replicas: List = list(replicas)
         self.policy = policy
         self.max_queue = max_queue
+        # optional health.FailureDetector, overload.OverloadState and
+        # tenancy.TenancyState (see the module's docstring)
+        self.health = health
+        self.overload = overload
+        self.tenancy = tenancy
+        self._drr_deficit: Dict[str, float] = {}
+        self._drr_pos: Dict[int, int] = {}
+        self.drr_rounds = 0
+        # called (request, replica, now) on every successful placement:
+        # the fleet arms its hedge timers through it
+        self.on_place = None
         # prefix-affinity: the home replica may be this many requests
         # more loaded than the least-loaded one before the request
         # spills elsewhere
@@ -184,23 +221,51 @@ class Router:
 
     # -- policy ------------------------------------------------------
 
-    def _pick_order(self, req: TraceRequest) -> List:
+    def _healthy(self, now: float) -> List:
+        """The routable replicas: healthy ones, less the quarantined and
+        those whose breaker is open, unless that would leave none
+        (degraded capacity beats none)."""
+        out = [r for r in self.replicas if r.healthy]
+        if self.health is not None:
+            clean = [r for r in out if not self.health.quarantined(
+                f"replica-{r.replica_id}")]
+            if clean:
+                out = clean
+        if self.overload is not None:
+            allowed = [r for r in out if self.overload.breaker_allows(
+                f"replica-{r.replica_id}", now)]
+            if allowed:
+                out = allowed
+        return out
+
+    def _load_key(self, r) -> float:
+        """A replica's load for the orderings: its queue depth, weighted
+        by its relative service time when a detector is on."""
+        if self.health is None:
+            return float(r.outstanding())
+        rel = self.health.relative_latency(f"replica-{r.replica_id}")
+        return (r.outstanding() + 1) * rel
+
+    def _pick_order(self, req: TraceRequest, now: float = 0.0) -> List:
         """Candidate replicas, best first; ties break on replica_id."""
-        healthy = [r for r in self.replicas if r.healthy]
+        healthy = self._healthy(now)
         if not healthy:
             return []
         if self.policy == "round-robin":
             start = self._rr % len(healthy)
             return healthy[start:] + healthy[:start]
-        by_load = sorted(healthy, key=lambda r: (float(r.outstanding()),
-                                                 r.replica_id))
+        by_load = sorted(healthy,
+                         key=lambda r: (self._load_key(r), r.replica_id))
         if self.policy == "least-outstanding" or req.prefix_group < 0:
             return by_load
         # prefix-affinity: a group's home is the crc of its id over the
         # whole replica list, so the mapping survives scale events
         key = zlib.crc32(f"group:{req.prefix_group}".encode("utf-8"))
         home = self.replicas[key % len(self.replicas)]
-        if not home.healthy:
+        # affinity never overrides a quarantine or an open breaker
+        if home not in healthy or (
+                self.health is not None and self.health.quarantined(
+                    f"replica-{home.replica_id}")):
             return by_load
         floor = by_load[0].outstanding()
         if home.outstanding() - floor > self.affinity_spill:
@@ -254,23 +319,70 @@ class Router:
             else:
                 still.append(req)
         self.queue = still
-        while self.queue:
-            if not self._try_place(self.queue[0], now):
-                break  # head blocks: FCFS, retry next pass
+        if self.tenancy is not None and self.tenancy.isolation:
+            self._dispatch_drr(now)
+        else:
+            while self.queue:
+                if not self._try_place(self.queue[0], now):
+                    break  # head blocks: FCFS, retry next pass
         return out
 
     def _try_place(self, req: TraceRequest, now: float) -> bool:
-        for replica in self._pick_order(req):
+        for replica in self._pick_order(req, now):
             if replica.submit(req, now):
-                self.queue.remove(req)
-                self.routed += 1
-                self.per_replica[replica.replica_id] = (
-                    self.per_replica.get(replica.replica_id, 0) + 1)
-                metrics.fleet_board().incr("requests_routed")
-                if self.policy == "round-robin":
-                    self._rr += 1
+                self._note_place(req, replica, now)
                 return True
         return False
+
+    def _dispatch_drr(self, now: float) -> None:
+        """Deficit round robin over tenants: serve the best QoS rank
+        present (strict priority), rotate its tenants, top each visit up
+        by ``quantum x weight`` (capped at twice that), and place the
+        tenant's FIFO head while credit lasts. A blocked tenant head
+        passes to the next tenant instead of blocking the rank. A
+        tenant's deficit resets when its backlog empties; all state
+        moves only on placements."""
+        ten = self.tenancy
+        progress = True
+        while progress and self.queue:
+            progress = False
+            fifos: Dict[str, List[TraceRequest]] = {}
+            for req in self.queue:
+                fifos.setdefault(tenant_of(req), []).append(req)
+            rank = min(ten.qos_rank(n) for n in fifos)
+            names = sorted(n for n in fifos if ten.qos_rank(n) == rank)
+            pos = self._drr_pos.get(rank, 0) % len(names)
+            for name in names[pos:] + names[:pos]:
+                fifo = fifos[name]
+                topup = ten.drr_quantum * ten.weight(name)
+                deficit = min(self._drr_deficit.get(name, 0.0) + topup,
+                              2.0 * topup)
+                while fifo and deficit >= 1.0:
+                    if not self._try_place(fifo[0], now):
+                        break
+                    fifo.pop(0)
+                    deficit -= 1.0
+                    progress = True
+                self._drr_deficit[name] = deficit if fifo else 0.0
+            if len(names) > 1:
+                self._drr_pos[rank] = (pos + 1) % len(names)
+            if progress:
+                self.drr_rounds += 1
+
+    def _note_place(self, req: TraceRequest, replica, now: float) -> None:
+        """A placement's bookkeeping. Deficit round robin may place from
+        mid-queue; ids are unique, so remove() is unambiguous."""
+        self.queue.remove(req)
+        self.routed += 1
+        self.per_replica[replica.replica_id] = (
+            self.per_replica.get(replica.replica_id, 0) + 1)
+        metrics.fleet_board().incr("requests_routed")
+        if self.policy == "round-robin":
+            self._rr += 1
+        if self.overload is not None:
+            self.overload.breaker_dispatch(f"replica-{replica.replica_id}")
+        if self.on_place is not None:
+            self.on_place(req, replica, now)
 
     def report(self) -> Dict[str, object]:
         out: Dict[str, object] = {
@@ -286,4 +398,7 @@ class Router:
         if self.policy == "prefix-affinity":
             out["affinity"] = {"hits": self.affinity_hits,
                                "spills": self.affinity_spills}
+        if self.tenancy is not None and self.tenancy.isolation:
+            out["fair_queue"] = {"quantum": round(self.tenancy.drr_quantum, 6),
+                                 "rounds": self.drr_rounds}
         return out

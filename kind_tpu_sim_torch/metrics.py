@@ -1,15 +1,20 @@
-"""Fault and recovery event log, and the fleet's counter board.
+"""Fault and recovery event log, and the fleet's counter boards.
 
 The port's own copies of the JAX package's ``RecoveryLog`` /
-``recovery_log()`` and ``CounterBoard`` / ``fleet_board()``
+``recovery_log()`` and ``CounterBoard`` with the boards the engine
+fleet counts on: ``fleet_board()``, ``health_board()``,
+``tenant_board()`` and ``integrity_board()``
 (``kind_tpu_sim/metrics.py``). The serving engines record
 ``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
 ``slot_requeue`` (``inject_slot_failure``) in the log, the training loop
 ``preemption_checkpoint``, and the fleet its preemptions, restores and
 sheds, so a chaos run reports recovery as counted events. The fleet's
 router, loop and autoscaler count requests routed, shed, requeued and
-expired and scale events on the board; a fleet report carries the
-counts of its own run (``snapshot_since``).
+expired and scale events on the fleet board, the failure detector its
+suspicions, quarantines, probes and restores on the health board, the
+tenancy layer its quota sheds on the tenant board, and the audit lane
+its audits, copies and mismatches on the integrity board; a fleet
+report carries the counts of its own run (``snapshot_since``).
 """
 
 from __future__ import annotations
@@ -97,3 +102,29 @@ def fleet_board() -> CounterBoard:
     """The process-global fleet counter board (the router, the fleet
     loop and the autoscaler count into it)."""
     return _FLEET_BOARD
+
+
+_HEALTH_BOARD = CounterBoard()
+
+
+def health_board() -> CounterBoard:
+    """The process-global gray-failure board (the failure detector and
+    the fleet's probes, quarantines and false positives)."""
+    return _HEALTH_BOARD
+
+
+_TENANT_BOARD = CounterBoard()
+
+
+def tenant_board() -> CounterBoard:
+    """The process-global multi-tenancy board (quota sheds)."""
+    return _TENANT_BOARD
+
+
+_INTEGRITY_BOARD = CounterBoard()
+
+
+def integrity_board() -> CounterBoard:
+    """The process-global integrity board (the duplicate-compute audit
+    lane's audits, copies, mismatches and quarantines)."""
+    return _INTEGRITY_BOARD

@@ -266,8 +266,7 @@ def _factory(rid):
     raise AssertionError("no replica is built for a refused config")
 
 
-@pytest.mark.parametrize("field", ["sched", "health", "overload",
-                                   "training", "disagg", "tenancy", "zoo",
+@pytest.mark.parametrize("field", ["sched", "training", "disagg", "zoo",
                                    "generations"])
 def test_refused_fleet_features_raise_naming_them(field):
     cfg = dataclasses.replace(pfleet.FleetConfig(), **{field: object()})
@@ -282,14 +281,8 @@ def test_the_event_core_audit_lane_and_analytic_replicas_raise():
     with pytest.raises(ValueError, match="fast_forward"):
         pfleet.FleetSim(pfleet.FleetConfig(fast_forward=False), [],
                         replica_factory=_factory)
-    with pytest.raises(ValueError, match="audit_frac"):
-        pfleet.FleetSim(pfleet.FleetConfig(audit_frac=0.1), [],
-                        replica_factory=_factory)
     with pytest.raises(ValueError, match="SimReplica"):
         pfleet.FleetSim(pfleet.FleetConfig(), [])
-    spec = pfleet.WorkloadSpec(tenancy=object())
-    with pytest.raises(ValueError, match="tenancy"):
-        pfleet.generate_trace(spec, 0)
     with pytest.raises(ValueError, match="zoo"):
         pfleet.generate_trace(pfleet.WorkloadSpec(zoo=object()), 0)
 
@@ -350,9 +343,10 @@ def test_fleet_trace_command_matches_the_reference(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "sim"], ["--sched"], ["--health"], ["--overload"],
-    ["--tenancy"], ["--zoo"], ["--disagg", "1:1"], ["--train", "1"],
-    ["--generations", "v5e"], ["--audit-frac", "0.1"], ["--profile"]])
+    ["--engine", "sim"], ["--sched"], ["--sched-policy", "ici"], ["--zoo"],
+    ["--disagg", "1:1"], ["--disagg-tier", "ici"], ["--train", "1"],
+    ["--generations", "v5e"], ["--calibration", "cal.json"],
+    ["--bench", "bench.json"], ["--profile"]])
 def test_fleet_command_refuses_the_simulators_layers(extra):
     with pytest.raises(SystemExit, match="simulator|not ported"):
         pcli.main(["fleet", "run", "--device", "cpu"] + extra)

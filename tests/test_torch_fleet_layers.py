@@ -1,0 +1,185 @@
+"""PyTorch port parity: the engine fleet's overload and audit layers.
+
+The port's ``FleetSim`` over ``EngineReplica``s against the JAX
+package's engine fleet with the same config, trace, chaos events and
+weights (the reference's init crossed through numpy; the fleet command's
+tiny model in fp32, so greedy streams have no near-ties), three replicas
+(``torch_parity.fleet_layers_run``):
+
+* overload containment with a replica slowed x6: hedges win, losers
+  are cancelled while queued or dropped when they finish late;
+* overload containment under a deadline burst: expiries, budgeted
+  retries, hedges;
+* the integrity audit lane at 0.3;
+* all four layers at once (the detector, overload, tenancy, audits)
+  with a slowed and then a preempted replica: the fleet that
+  ``chip_smoke.py`` phase 14 (f) runs at the flagship.
+
+The report's sections are compared whole: equal. (The detector's and
+tenancy's own fleets are in ``test_torch_health.py`` and
+``test_torch_tenancy.py``.) Then ``EngineReplica.cancel`` on both
+engines, and what a withdrawn request leaves behind in the port's
+engine: nothing.
+"""
+
+import pytest
+
+from kind_tpu_sim import fleet as jfleet
+from kind_tpu_sim.models import serving as jserving
+from kind_tpu_sim_torch import fleet as pfleet
+from kind_tpu_sim_torch.models import serving as pserving
+
+from torch_parity import (FLEET_CFG, FLEET_SERVING, fleet_layers_pair,
+                          jax_cfg, make_params, one_thread)
+
+BASE = dict(process="poisson", rps=150.0, n_requests=80, max_new=(12, 24))
+# chip_smoke phase 14 (f): the stock tenants' trace of seed 0 (its span
+# 0.644 s), replica 1 slowed x6 over 10-50% of it, replica 2 preempted
+# over 60-80%
+FLAGSHIP_EVENTS = [dict(at_s=0.0644, action="slow", target=1, param=6.0),
+                   dict(at_s=0.322, action="unslow", target=1),
+                   dict(at_s=0.3864, action="preempt", target=2),
+                   dict(at_s=0.5152, action="restore", target=2)]
+
+
+@pytest.fixture(scope="module")
+def params():
+    with one_thread():
+        yield make_params(FLEET_CFG)
+
+
+def test_hedges_on_a_slowed_replica_match_the_reference(params):
+    got = fleet_layers_pair(
+        params, dict(BASE, n_requests=50), overload=True,
+        events=[dict(at_s=0.05, action="slow", target=1, param=6.0)])
+    ov = got["overload"]["counters"]
+    assert ov["hedges_issued"] and ov["hedge_wins"]
+    assert ov["hedge_cancels"] and ov["hedge_late_drops"]
+
+
+def test_retries_under_deadlines_match_the_reference(params):
+    got = fleet_layers_pair(
+        params, dict(BASE, n_requests=60, rps=600.0, deadline_s=0.025),
+        overload=True)
+    ov = got["overload"]["counters"]
+    assert ov["hedge_cancels"] and ov["retries_scheduled"]
+    assert ov["retries_suppressed"] and got["slo"]["deadline_exceeded"]
+
+
+def test_audit_lane_matches_the_reference(params):
+    got = fleet_layers_pair(params, dict(BASE, n_requests=40),
+                            audit_frac=0.3)
+    audits = got["integrity"]["counters"]
+    assert audits["audit_copies"] and "audit_mismatches" not in audits
+    assert got["integrity"]["detections"] == []
+
+
+def test_all_four_layers_match_the_reference(params):
+    got = fleet_layers_pair(
+        params, dict(BASE, tenancy=True), seed=0, events=FLAGSHIP_EVENTS,
+        health=True, overload=True, tenancy=True, audit_frac=0.3)
+    # what chip_smoke's (f) holds the card to
+    ov = got["overload"]["counters"]
+    health = got["health"]["counters"]
+    audits = got["integrity"]["counters"]
+    assert got["completed"] == 80 and got["preemptions"] == 1
+    assert ov["hedge_cancels"] and ov["hedge_late_drops"]
+    assert health["quarantines"] and health["restores"]
+    assert audits["audit_copies"] and "audit_mismatches" not in audits
+    assert got["integrity"]["detections"] == []
+
+
+def _cancel_probe(fleet, serving, params, cfg, **kw):
+    """Six requests on an engine of four slots; after one round four hold
+    slots and two wait. Cancels a waiting one, one in a slot and an
+    unknown id, then drains."""
+    eng = serving.ServingEngine(params, cfg, serving.ServingConfig(
+        **FLEET_SERVING), clock=lambda: 0.0, **kw)
+    replica = fleet.EngineReplica(0, eng)
+    for i in range(6):
+        assert replica.submit(fleet.TraceRequest(
+            f"c{i}", 0.0, tuple(range(1, 4 + i)), 10, i), 0.0)
+    replica.tick(0.0, 0.01)
+    out = (replica.cancel("c5"), replica.cancel("c0"), replica.cancel("zz"))
+    done = []
+    while not replica.idle():
+        done += [(c.request.request_id, c.tokens, c.tokens_crc)
+                 for c in replica.tick(0.0, 0.01)]
+    return out, sorted(done), replica
+
+
+def test_cancel_matches_the_reference_and_leaves_nothing(params):
+    want = _cancel_probe(jfleet, jserving, params[0], jax_cfg(FLEET_CFG))
+    got = _cancel_probe(pfleet, pserving, params[1], FLEET_CFG,
+                        device="cpu")
+    assert got[:2] == want[:2]
+    assert got[0] == (True, False, False)
+    assert [rid for rid, _, _ in got[1]] == ["c0", "c1", "c2", "c3", "c4"]
+    replica = got[2]
+    eng = replica.engine
+    assert not replica._dispatched and not replica._dispatch_s
+    assert not eng.queue and not eng._req_clock and not eng._pending
+    assert eng.outstanding() == 0 and not eng.finished
+    assert all(r is None for r in eng.slot_req)
+    # the withdrawn id is free again on this engine
+    assert replica.submit(pfleet.TraceRequest("c5", 0.0, (1, 2), 2, 0), 0.0)
+
+
+class HeldReplica:
+    """A replica without an engine: what it holds finishes on its next
+    tick, four tokens over 0.05 s."""
+
+    slowdown = 1.0
+
+    def __init__(self, fleet, rid):
+        self.fleet = fleet
+        self.replica_id = rid
+        self.healthy = True
+        self.held = []
+
+    def outstanding(self):
+        return len(self.held)
+
+    def idle(self):
+        return not self.held
+
+    def submit(self, req, now):
+        self.held.append(req)
+        return True
+
+    def tick(self, now, dt):
+        out = [self.fleet.ReplicaCompletion(
+            request=r, dispatch_s=now, first_s=now, finish_s=now + 0.05,
+            tokens=4, tokens_crc=0, finish_reason="length")
+            for r in self.held]
+        self.held = []
+        return out
+
+    def report(self):
+        return {}
+
+
+def _drained_probe(fleet):
+    """A fleet with the detector whose replica 1 drains (a scale-down)
+    while a probe is on it; one step. Returns (the log's ids, the
+    detector's sample count)."""
+    sim = fleet.FleetSim(
+        fleet.FleetConfig(replicas=2, health=fleet.DetectorConfig()),
+        [fleet.TraceRequest("f00000", 1.0, (1, 2), 2, 0)],
+        replica_factory=lambda rid: HeldReplica(fleet, rid))
+    victim = sim.replicas.pop(1)
+    sim.router.replicas.remove(victim)
+    sim._draining.append(victim)
+    victim.submit(fleet.TraceRequest("__probe-1-0", 0.0, (1,) * 8, 4, 0),
+                  0.0)
+    sim.step(0.0, 0.01)
+    return [e["request_id"] for e in sim.log], sim.health.report()["samples"]
+
+
+def test_a_probe_on_a_draining_replica_stays_out_of_the_log():
+    """ROADMAP C-14: the reference's loop sends a draining replica's
+    completions to the SLO log without setting probes apart, so a probe
+    that finishes there is logged as user traffic. The port feeds it to
+    the detector alone, as the loop does for every other replica."""
+    assert _drained_probe(jfleet) == (["__probe-1-0"], 1)
+    assert _drained_probe(pfleet) == ([], 1)

@@ -6,6 +6,7 @@ packages as numpy arrays: the JAX package builds the weights
 ``weights.params_from_numpy``.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -45,6 +46,85 @@ def make_params(cfg, seed=0, embed_scale=1.0, block_scale=1.0):
         mlp["w_down"] = mlp["w_down"] * np.float32(block_scale)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     return jparams, params_from_numpy(tree, cfg, device="cpu")
+
+
+# the engine fleet of ``fleet run --engine serving`` in fp32 (no near-ties
+# in greedy streams), and its report's sections that hold for a run of
+# the control layers: all but the engines' own reports
+FLEET_CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,
+                            n_layers=2, d_ff=64, max_seq=128,
+                            dtype="float32")
+FLEET_SERVING = dict(max_slots=4, max_len=128, chunk=8, max_queue=64)
+FLEET_COMPARED = ("requests", "completed", "virtual_s", "slo", "router",
+                  "completions", "ok", "config", "fleet_counters", "health",
+                  "overload", "tenancy", "integrity", "preemptions")
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op torch thread: the tiny fleet's ops are too small to
+    share out, and under parallel test workers the threads contend."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def fleet_layers_run(fleet, serving, params, cfg, spec, events=(), seed=3,
+                     health=False, overload=False, tenancy=None,
+                     audit_frac=None, **kw):
+    """One ``FleetSim`` run of either package (``fleet`` and ``serving``
+    its modules) over three ``EngineReplica``s of ``FLEET_SERVING``,
+    least-outstanding, tick 0.01, SLO ttft 0.3 / e2e 0.6. ``spec`` is the
+    ``WorkloadSpec``'s fields (``tenancy=True``: the stock tenants'
+    trace); ``health`` and ``overload`` turn on the package's default
+    configs, ``tenancy`` (True or False: isolated or not) its stock
+    tenants; ``kw`` goes to each ``ServingEngine``."""
+    fc = dict(replicas=3, policy="least-outstanding", tick_s=0.01,
+              slo=fleet.SloPolicy(ttft_s=0.3, e2e_s=0.6),
+              health=fleet.DetectorConfig() if health else None,
+              overload=fleet.OverloadConfig() if overload else None,
+              audit_frac=audit_frac)
+    if tenancy is not None:
+        fc["tenancy"] = dataclasses.replace(fleet.default_tenancy(),
+                                            isolation=tenancy)
+    if spec.get("tenancy"):
+        spec = dict(spec, tenancy=fleet.default_tenancy())
+    trace = fleet.generate_trace(fleet.WorkloadSpec(**spec), seed)
+    clock = fleet.VirtualClock()
+
+    def factory(rid):
+        return fleet.EngineReplica(rid, serving.ServingEngine(
+            params, cfg, serving.ServingConfig(**FLEET_SERVING),
+            clock=clock.now, **kw))
+
+    return fleet.FleetSim(fleet.FleetConfig(**fc), trace,
+                          replica_factory=factory,
+                          chaos_events=[fleet.ChaosEvent(**e)
+                                        for e in events],
+                          clock=clock).run()
+
+
+def fleet_layers_pair(params, spec, **layers):
+    """The reference's and the port's ``fleet_layers_run`` on the CPU
+    with the same fp32 weights ``params`` (JAX, port)."""
+    from kind_tpu_sim import fleet as jfleet
+    from kind_tpu_sim.models import serving as jserving
+    from kind_tpu_sim_torch import fleet as pfleet
+    from kind_tpu_sim_torch.models import serving as pserving
+
+    want = fleet_layers_run(jfleet, jserving, params[0], jax_cfg(FLEET_CFG),
+                            spec, **layers)
+    got = fleet_layers_run(pfleet, pserving, params[1], FLEET_CFG, spec,
+                           device="cpu", **layers)
+    for key in FLEET_COMPARED:
+        assert got.get(key) == want.get(key), key
+    assert got["ok"]
+    return got
 
 
 def prompts(n, vocab, seed=0, base=4, step=3):
