@@ -221,12 +221,23 @@ it fails (nothing is caught and ignored):
    preempted replica, whose weight-free fields must equal the same
    fleet's of the tiny fp32 model on the CPU, with hedges issued,
    cancels of both outcomes, a quarantine restored through probes and
-   audit copies that all agree; and, as processes started first,
-   ``python -m kind_tpu_sim_torch fleet run`` (also with ``--health
-   --overload --tenancy --audit-frac 0.25``) and ``chaos run --scenario
-   all --include-slow`` at the reference's tiny configs, whose
-   weight-free fields must equal the same runs' on the CPU. Each step
-   logs its flash launches by route and its CUDA graph captures.
+   audit copies that all agree; the scheduler-backed fleet (two flagship
+   replicas placed as gangs on the default 4x8 inventory beside one
+   llm0 training gang, the detector on, a degraded and healed link,
+   node failures that evict a serving gang whose rebind preempts the
+   training gang, a training preemption), whose weight-free fields
+   (the scheduler's events and the training ledger included) must
+   equal the same fleet's of the tiny fp32 model on the CPU, every
+   time to routable at least bind_s + warm-up, the training gang done
+   with a clean ledger, and the flash forward on the tensor cores at
+   exactly 8 launches a prefill dispatch of the CPU twin; and, as
+   processes started first, ``python -m kind_tpu_sim_torch fleet run``
+   (also with ``--health --overload --tenancy --audit-frac 0.25``, and
+   with ``--sched --train 1 --profile``) and ``chaos run --scenario all
+   --include-slow`` at the reference's tiny configs, whose weight-free
+   fields must equal the same runs' on the CPU (the profile section
+   carrying the reference's keys). Each step logs its flash launches
+   by route and its CUDA graph captures.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5651,6 +5662,9 @@ SIM_COMMANDS = {
     "fleet layers": ("fleet", "run", "--requests", str(SIM_REQUESTS),
                      "--health", "--overload", "--tenancy", "--audit-frac",
                      "0.25", "--json", "--device", "cuda"),
+    "fleet sched": ("fleet", "run", "--requests", str(SIM_REQUESTS),
+                    "--sched", "--train", "1", "--profile", "--json",
+                    "--device", "cuda"),
 }
 # the fleet report's keys that hold for every weight (the streams' crcs
 # taken out of the completions), with the control layers' sections where
@@ -5658,13 +5672,31 @@ SIM_COMMANDS = {
 SIM_FLEET_KEYS = ("requests", "completed", "virtual_s", "slo", "router",
                   "ok", "config", "fleet_counters")
 SIM_LAYER_KEYS = ("health", "overload", "tenancy", "integrity",
-                  "preemptions")
+                  "preemptions", "scheduler", "training")
 # (f): the control layers' fleet at the flagship: the stock tenants'
 # trace of seed 0, three replicas, and replica 1 slowed x6 over 10-50%
 # of the trace's span, then replica 2 preempted over 60-80% of it
 SIM_LAYERS_REQUESTS = 80
 SIM_LAYERS_EVENTS = ((0.1, "slow", 1, 6.0), (0.5, "unslow", 1, 0.0),
                      (0.6, "preempt", 2, 0.0), (0.8, "restore", 2, 0.0))
+# (g): the scheduler-backed fleet at the flagship: two replicas on the
+# default 4x8 inventory (tpu-node-0-0 and -0-1) beside one llm0 training
+# gang (2x8, 80 steps, the other row), the detector on, the fleet
+# command's trace. The link of the one ICI domain degrades to 0.25 and
+# heals; node 1 fails (replica 1 rebinds on node 2 and preempts the
+# training gang) and heals, then node 2 fails (replica 1 rebinds on node
+# 1) and heals, which makes the row whole for the training gang again;
+# the gang is preempted once more by chaos. Virtual seconds.
+SIM_SCHED_EVENTS = ((0.05, "link_degrade", 0, 0.25),
+                    (0.08, "node_fail", 1, 0.0),
+                    (0.2, "node_restore", 1, 0.0),
+                    (0.25, "link_restore", 0, 0.0),
+                    (0.3, "node_fail", 2, 0.0),
+                    (0.45, "node_restore", 2, 0.0),
+                    (0.9, "train_preempt", 0, 0.0))
+SIM_PROFILE_KEYS = ["events_per_s", "lanes", "top_functions", "wall_s"]
+SIM_PROFILE_LANES = ["arrival", "autoscaler", "chaos", "completion", "core",
+                     "health_probe", "kv_transfer", "planner"]
 SIM_SCENARIO_KEYS = {
     "preempt-train": ("plan", "preempted_at_step", "resume_max_loss_drift",
                       "ok", "recovery_events"),
@@ -5754,6 +5786,34 @@ def layers_fleet(fleet, params, cfg, serving, device: str):
                           chaos_events=events, clock=clock), cancels
 
 
+def sched_fleet(fleet, params, cfg, serving, device: str):
+    """(g)'s fleet: two engine replicas of ``cfg`` on ``device`` placed
+    by the cluster scheduler on the default inventory, one llm0 training
+    gang under them, the detector on, the fleet command's trace and
+    config otherwise, and ``SIM_SCHED_EVENTS``."""
+    from kind_tpu_sim_torch import cli
+    from kind_tpu_sim_torch.models.serving import ServingEngine
+
+    args = cli.build_parser().parse_args(list(SIM_COMMANDS["fleet sched"]))
+    fc = dataclasses.replace(cli.fleet_config(args),
+                             health=fleet.DetectorConfig())
+    clock = fleet.VirtualClock()
+
+    def factory(rid):
+        return fleet.EngineReplica(rid, ServingEngine(
+            params, cfg, serving, device=device, clock=clock.now))
+
+    return fleet.FleetSim(
+        fc, cli.fleet_trace(args, 0), replica_factory=factory,
+        chaos_events=[fleet.ChaosEvent(*ev) for ev in SIM_SCHED_EVENTS],
+        clock=clock)
+
+
+def _prefill_dispatches(rep: dict) -> int:
+    return sum(r["engine"]["prefill_dispatches"]
+               for r in rep["replicas"].values())
+
+
 def _restored_by_probes(detector: dict) -> list:
     """The components the detector quarantined and then restored through
     probes."""
@@ -5785,11 +5845,19 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     and a preempted replica: its weight-free fields equal the same
     fleet's of the tiny fp32 model on the CPU; hedges issued, cancels of
     both outcomes, a quarantine restored through probes, audit copies
-    with no disagreement. (d)'s fleet must give (e)'s weight-free fields,
-    its fleet with the layers' flags the same flags' run on the CPU here,
-    and each of its scenarios the same scenario's weight-free fields run
-    on the CPU here. Each step's flash launches by route and graph
-    captures are logged."""
+    with no disagreement. (g) the scheduler-backed fleet
+    (``sched_fleet``: two flagship replicas beside a training gang, the
+    detector on, ``SIM_SCHED_EVENTS``): its weight-free fields equal the
+    same fleet's of the tiny fp32 model on the CPU; a serving gang
+    evicted and the training gang preempted; every time to routable at
+    least bind_s + warm-up; the training gang done with a clean ledger;
+    the flash forward all on the tensor cores, n_layers launches a
+    prefill dispatch of the CPU twin. (d)'s fleet must give (e)'s
+    weight-free fields, its fleets with the layers' flags and with
+    ``--sched --train 1 --profile`` the same flags' runs on the CPU here
+    (the profile's keys the reference's), and each of its scenarios the
+    same scenario's weight-free fields run on the CPU here. Each step's
+    flash launches by route and graph captures are logged."""
     import threading
 
     from kind_tpu_sim_torch import chaos, cli, fleet
@@ -5913,6 +5981,65 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
                         "left_to_finish": cancels[False]},
             "health": health, "integrity": audits, **stats}
 
+        t0 = time.perf_counter()
+        sched_cpu = sched_fleet(fleet, params, tiny, sc, "cpu").run()
+        cpu_s = time.perf_counter() - t0
+        sp = flagship.flagship_params(cfg)
+        sim = sched_fleet(fleet, sp, cfg, sc, "cuda")
+        sched, stats = _sim_run(
+            "(g) the scheduler-backed fleet: two flagship replicas beside a "
+            "training gang", fa, graphs, sim.run)
+        ttrs = list(sim.time_to_routable)
+        floor = round(sched["scheduler"]["bind_s"]
+                      + sched["scheduler"]["flat_warmup_s"], 6)
+        del sim, sp
+        tr = sched["training"]
+        preempted = [e["gang"] for e in sched["scheduler"]["events"]
+                     if e["type"] == "Preempted"]
+        dispatches = _prefill_dispatches(sched_cpu)
+        fwd = stats["launches_by_route"]["flash_attention"]
+        log(f"14 (g): ok {sched['ok']}, {sched['completed']} completions "
+            f"(CPU {cpu_s:.1f} s); scheduler "
+            f"{json.dumps(sched['scheduler']['event_counts'])}, preempted "
+            f"{preempted}, time to routable {ttrs} (floor {floor}); "
+            f"training done {tr['all_done']}, ledger ok {tr['ledger_ok']}, "
+            f"evictions {tr['evictions']}; health "
+            f"{json.dumps(sched['health']['counters'])}; prefill dispatches "
+            f"{dispatches} on the CPU, {_prefill_dispatches(sched)} here")
+        check(sched["ok"] and sched["completed"] == SIM_REQUESTS,
+              f"(g): ok {sched['ok']}, completed {sched['completed']}")
+        got = _weight_free(sched)
+        for key, want in _weight_free(sched_cpu).items():
+            check(got[key] == want,
+                  f"(g) at the flagship differs from the CPU's in {key}")
+        check(any(g.startswith("replica-") for g in preempted)
+              and "train-llm0" in preempted,
+              f"(g): preempted {preempted}, expected a serving gang's "
+              "eviction and the training gang's preemption")
+        check(ttrs and min(ttrs) >= floor,
+              f"(g): time to routable {ttrs} under bind_s + warm-up {floor}")
+        check(tr["all_done"] and tr["ledger_ok"]
+              and tr["gangs"]["llm0"]["ledger_verify"]["ok"]
+              and tr["gangs"]["llm0"]["steps_done"] == 80,
+              f"(g): training {json.dumps(tr)[:2000]}")
+        check(fwd == {"tensor_cores": cfg.n_layers * dispatches,
+                      "cuda_cores": 0}
+              and _prefill_dispatches(sched) == dispatches,
+              f"(g): flash forward launched {fwd}, expected "
+              f"{cfg.n_layers} x {dispatches} prefill dispatches, all on "
+              "the tensor cores")
+        out["scheduler-backed fleet at the flagship"] = {
+            "cpu_s": cpu_s, "slo": sched["slo"],
+            "scheduler": sched["scheduler"]["event_counts"],
+            "time_to_routable": ttrs, "training_evictions": tr["evictions"],
+            "prefill_dispatches": dispatches, **stats}
+
+        args = cli.build_parser().parse_args(
+            list(SIM_COMMANDS["fleet sched"]))
+        sched_cmd_cpu = fleet.engine_fleet(
+            cli.fleet_config(args), cli.fleet_trace(args, 0), params, tiny,
+            sc, device="cpu").run()
+
         args = cli.build_parser().parse_args(
             list(SIM_COMMANDS["fleet layers"]))
         layers_cmd_cpu = fleet.engine_fleet(
@@ -5939,6 +6066,18 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
           and _weight_free(layers_rep) == _weight_free(layers_cmd_cpu),
           "the fleet command with the layers' flags on the card: not ok, or "
           "its weight-free fields differ from the same flags' run on the CPU")
+    sched_rep = json.loads(
+        ran["fleet sched"]["stdout"].strip().splitlines()[-1])
+    profile = sched_rep.pop("profile", {})
+    check(sched_rep["ok"] and sched_rep["training"]["all_done"]
+          and _weight_free(sched_rep) == _weight_free(sched_cmd_cpu),
+          "the fleet command with --sched --train 1 on the card: not ok, or "
+          "its weight-free fields differ from the same flags' run on the CPU")
+    check(sorted(profile) == SIM_PROFILE_KEYS
+          and sorted(profile["lanes"]) == SIM_PROFILE_LANES
+          and profile["lanes"]["arrival"]["events"] == SIM_REQUESTS,
+          f"the fleet command's --profile section: {sorted(profile)}, "
+          f"lanes {sorted(profile.get('lanes', {}))}")
     chaos_rep = json.loads(ran["chaos"]["stdout"].strip().splitlines()[-1])
     by_name = {r["scenario"]: r for r in chaos_rep["scenarios"]}
     check(chaos_rep["ok"] and sorted(by_name) == sorted(SIM_SCENARIO_KEYS),
@@ -5955,6 +6094,11 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     out["commands"]["fleet layers"].update(
         slo=layers_rep["slo"], overload=layers_rep["overload"]["counters"],
         integrity=layers_rep["integrity"]["counters"])
+    out["commands"]["fleet sched"].update(
+        slo=sched_rep["slo"],
+        scheduler=sched_rep["scheduler"]["event_counts"],
+        profile={"wall_s": profile["wall_s"],
+                 "events_per_s": profile["events_per_s"]})
     return out
 
 

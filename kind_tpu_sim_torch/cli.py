@@ -17,8 +17,9 @@
         [--itl-slo S] [--shared-prefix-frac F] [--prefix-groups N]
         [--autoscale] [--max-replicas N] [--tick-s S] [--eval-every-s S]
         [--health] [--overload] [--tenancy [--no-tenant-isolation]]
-        [--audit-frac F] [--trace-file F] [--save-trace F] [--out F]
-        [--json] [--device cuda|cpu]
+        [--audit-frac F] [--sched [--sched-policy ici|binpack|spread]
+        [--train N]] [--no-event-core] [--profile] [--trace-file F]
+        [--save-trace F] [--out F] [--json] [--device cuda|cpu]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
 
@@ -68,11 +69,14 @@ engines (the reference's tiny model, weights from ``torch.Generator``
 seed 0, four slots of 128 positions each) under a seeded open-loop
 trace on a virtual clock (``fleet/``), its JSON report the reference's.
 ``--health``, ``--overload``, ``--tenancy`` and ``--audit-frac`` turn on
-the fleet's control layers as the reference's flags do. ``fleet trace``
-prints or saves the trace alone. The analytic replicas (``--engine
-sim``) and the flags of the simulator's other layers (the scheduler,
-training, disaggregated pools, the model zoo, calibration, profiling)
-are refused, naming them.
+the fleet's control layers as the reference's flags do; ``--sched``
+places the replicas as gangs of the cluster scheduler and ``--train N``
+adds N training gangs under them; ``--no-event-core`` runs the plain
+per-tick loop (the same report) and ``--profile`` adds the cProfile
+section (``profiling.profile_fleet_run``). ``fleet trace`` prints or
+saves the trace alone. The analytic replicas (``--engine sim``) and the
+flags of the simulator's other layers (disaggregated pools, the model
+zoo, generations, calibration) are refused, naming them.
 
 ``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
 (``run_chaos_engine``) for the scenarios that drive device work
@@ -225,7 +229,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "floor)")
     fl.add_argument("--max-replicas", type=int, default=8)
     fl.add_argument("--tick-s", type=float, default=None,
-                    help="virtual scheduling quantum (default: 0.01)")
+                    help="virtual scheduling quantum (default: "
+                         "KIND_TPU_SIM_FLEET_TICK_S or 0.01)")
     fl.add_argument("--eval-every-s", type=float, default=None,
                     help="autoscaler evaluation cadence in virtual seconds")
     fl.add_argument("--trace-file", default=None,
@@ -259,14 +264,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help="execute this share of served requests again on a "
                          "second replica and compare the streams (the "
                          "integrity audit lane); default 0")
+    fl.add_argument("--sched", action="store_true",
+                    help="place replicas through the topology-aware cluster "
+                         "scheduler: scale-up time to routable = queue wait "
+                         "+ placement + warm-up; enables node, link and "
+                         "domain chaos; the report gains a 'scheduler' "
+                         "section")
+    fl.add_argument("--sched-policy", default="ici",
+                    choices=["binpack", "spread", "ici"],
+                    help="placement scoring policy when --sched is set")
+    fl.add_argument("--train", type=int, default=0, metavar="N",
+                    help="co-schedule N LLM training gangs under the "
+                         "serving fleet (requires --sched): analytic gangs "
+                         "at priority -10 with checkpointed preemption and "
+                         "a zero-lost-step ledger; the report gains a "
+                         "'training' section")
+    fl.add_argument("--no-event-core", action="store_true",
+                    help="run the plain per-tick loop instead of the event "
+                         "core (the same report; default: "
+                         "KIND_TPU_SIM_FLEET_EVENT_CORE or on)")
+    fl.add_argument("--profile", action="store_true",
+                    help="run under cProfile and add a 'profile' section: "
+                         "wall seconds, events/s, events and self time by "
+                         "event lane, the top functions")
     # the simulator's other layers: accepted here only to be refused
-    for flag in ("--sched", "--zoo", "--profile"):
-        fl.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--sched-policy", "--generations", "--disagg",
-                 "--disagg-tier", "--disagg-dtype", "--calibration",
-                 "--bench"):
+    fl.add_argument("--zoo", action="store_true", help=argparse.SUPPRESS)
+    for flag in ("--generations", "--disagg", "--disagg-tier",
+                 "--disagg-dtype", "--calibration", "--bench"):
         fl.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    fl.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
 
     ch = sub.add_parser(
         "chaos",
@@ -515,11 +540,8 @@ def run_manifests(args: argparse.Namespace) -> int:
 
 # the fleet flags of the simulator's other layers, with what they set
 _SIMULATOR_FLAGS = (
-    ("sched", "--sched", "the topology-aware cluster scheduler"),
-    ("sched_policy", "--sched-policy", "the cluster scheduler"),
     ("zoo", "--zoo", "the model zoo"),
     ("generations", "--generations", "per-generation pricing"),
-    ("train", "--train", "training tenancy"),
     ("disagg", "--disagg", "disaggregated prefill/decode pools"),
     ("disagg_tier", "--disagg-tier", "disaggregated pools"),
     ("disagg_dtype", "--disagg-dtype", "disaggregated pools"),
@@ -570,6 +592,24 @@ def fleet_trace(args: argparse.Namespace, seed: int) -> list:
         tenancy=tenancy), seed)
 
 
+def fleet_training_config(args: argparse.Namespace):
+    """``--train N``: N ``llm{i}`` gangs of 2x8 chips (a row of two
+    hosts, which tiles beside the serving replicas' whole hosts on the
+    default 4x8 inventory), 80 steps each; None without it."""
+    from kind_tpu_sim_torch import fleet
+
+    if not args.train:
+        return None
+    if not args.sched:
+        raise SystemExit(
+            "--train needs --sched: training gangs are scheduler-placed "
+            "workloads")
+    return fleet.TrainingConfig(gangs=tuple(
+        fleet.TrainingGangConfig(name=f"llm{i}", topology="2x8",
+                                 total_steps=80)
+        for i in range(args.train)))
+
+
 def fleet_config(args: argparse.Namespace):
     """The ``FleetConfig`` of ``fleet run``'s flags (the detector with its
     defaults under ``--health``)."""
@@ -582,9 +622,13 @@ def fleet_config(args: argparse.Namespace):
                             itl_s=args.itl_slo),
         autoscaler=fleet.AutoscalerConfig(min_replicas=args.replicas,
                                           max_replicas=args.max_replicas),
+        sched=(fleet.FleetSchedConfig(policy=args.sched_policy)
+               if args.sched else None),
         health=fleet.DetectorConfig() if args.health else None,
         overload=fleet.OverloadConfig() if args.overload else None,
-        tenancy=fleet_tenancy(args), audit_frac=args.audit_frac)
+        training=fleet_training_config(args),
+        tenancy=fleet_tenancy(args), audit_frac=args.audit_frac,
+        event_core=False if args.no_event_core else None)
 
 
 def run_fleet(args: argparse.Namespace) -> int:
@@ -602,10 +646,6 @@ def run_fleet(args: argparse.Namespace) -> int:
                 f"{flag} configures {layer}, a layer of the simulator's "
                 "analytic fleet (python -m kind_tpu_sim fleet); not "
                 "ported to the engine fleet")
-    if args.profile:
-        raise SystemExit(
-            "--profile (the simulator's cProfile wrapper of a fleet run) "
-            "is not ported")
     seed = fleet.resolve_seed(args.seed)
     trace = fleet_trace(args, seed)
     if args.save_trace:
@@ -636,10 +676,20 @@ def run_fleet(args: argparse.Namespace) -> int:
             "regenerate the trace within it")
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
-    report = fleet.engine_fleet(fc, trace, params, cfg, sc,
-                                device=dev).run()
+    sim = fleet.engine_fleet(fc, trace, params, cfg, sc, device=dev)
+    profile = None
+    if args.profile:
+        from kind_tpu_sim_torch import profiling
+
+        profile = profiling.profile_fleet_run(sim)
+        report = profile.pop("report")
+    else:
+        report = sim.run()
     report["seed"] = seed
     report["engine"] = args.engine
+    if profile is not None:
+        # wall-clock extras, present only under --profile
+        report["profile"] = profile
     text = json.dumps(report, sort_keys=True)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:
@@ -673,6 +723,12 @@ def run_fleet(args: argparse.Namespace) -> int:
                   f"{o.get('hedge_wins', 0)}, cancelled "
                   f"{o.get('hedge_cancels', 0)})  brownout level "
                   f"{report['overload']['brownout']['level']}")
+        if "scheduler" in report:
+            s = report["scheduler"]
+            ttr = s["time_to_routable"]
+            print(f"  scheduler ({s['policy']}): time-to-routable mean/max "
+                  f"{ttr['mean_s']}/{ttr['max_s']} s over {ttr['count']} "
+                  f"placement(s) (flat warmup {s['flat_warmup_s']}s)")
         if "health" in report:
             h = report["health"]["counters"]
             print(f"  health: suspicions {h.get('suspicions', 0)}  "
@@ -700,6 +756,24 @@ def run_fleet(args: argparse.Namespace) -> int:
                   f"{c.get('audit_copies', 0)}  mismatches "
                   f"{c.get('audit_mismatches', 0)}  quarantined "
                   f"{len(report['integrity']['detections'])}")
+        if "training" in report:
+            t = report["training"]
+            print(f"  training: {len(t['gangs'])} gang(s)  all_done "
+                  f"{t['all_done']}  ledger_ok {t['ledger_ok']}  lost "
+                  f"{t['lost_steps']}  checkpoints {t['checkpoint_writes']}")
+        if "profile" in report:
+            p = report["profile"]
+            print(f"  profile: {p['wall_s']}s wall  {p['events_per_s']} "
+                  "events/s")
+            for name, lane in sorted(p["lanes"].items(),
+                                     key=lambda kv: -kv[1]["self_s"]):
+                if lane["events"] or lane["self_s"]:
+                    print(f"    lane {name}: {lane['events']} event(s)  "
+                          f"self {lane['self_s']}s")
+            for row in p["top_functions"][:5]:
+                print(f"    hot {row['function']}  cum "
+                      f"{row['cumulative_s']}s  self {row['self_s']}s  "
+                      f"x{row['calls']}")
         if args.out:
             print(f"  report -> {args.out}")
         print("FLEET RUN " + ("OK" if report["ok"] else "FAILED"))

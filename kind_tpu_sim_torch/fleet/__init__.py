@@ -4,14 +4,20 @@ The port's copy of the engine-backed path of ``kind_tpu_sim/fleet/``:
 seeded open-loop traces (``loadgen``), SLO accounting (``slo``), the
 router and the engine replica (``router``), the autoscaler
 (``autoscaler``), overload containment (``overload``), multi-tenancy
-(``tenancy``), the gray-failure detector (``kind_tpu_sim_torch.health``)
-and the virtual-clock loop (``sim``) with its integrity audit lane. The
-same seed and config give the reference's report when the engines carry
-the same weights.
+(``tenancy``), the gray-failure detector (``kind_tpu_sim_torch.health``),
+the training tenancy (``training``), the event heap (``events``) and the
+virtual-clock loop (``sim``) with its integrity audit lane and its
+scheduler-backed placement (``kind_tpu_sim_torch.sched``). The same seed
+and config give the reference's report when the engines carry the same
+weights.
 
-Knob: KIND_TPU_SIM_FLEET_SEED (``loadgen.resolve_seed``). The tick
-width and the replica warm-up take the reference's defaults where a
-config leaves them unset (``sim.TICK_S``, ``autoscaler.WARMUP_S``).
+Knobs (``knobs``): KIND_TPU_SIM_FLEET_SEED (``loadgen.resolve_seed``),
+KIND_TPU_SIM_FLEET_TICK_S (``sim.resolve_tick_s``),
+KIND_TPU_SIM_FLEET_WARMUP_S (``autoscaler.resolve_warmup_s``),
+KIND_TPU_SIM_FLEET_FF (``sim.resolve_fast_forward``),
+KIND_TPU_SIM_FLEET_EVENT_CORE (``events.resolve_event_core``),
+KIND_TPU_SIM_TRAIN_* (the training tenancy) and KIND_TPU_SIM_SDC_*
+(the audit lane and chip defects).
 """
 
 from kind_tpu_sim_torch.health import (  # noqa: F401
@@ -23,6 +29,11 @@ from kind_tpu_sim_torch.fleet.autoscaler import (  # noqa: F401
     AutoscalerConfig,
     ScaleEvent,
     resolve_warmup_s,
+)
+from kind_tpu_sim_torch.fleet.events import (  # noqa: F401
+    DueSet,
+    EventHeap,
+    resolve_event_core,
 )
 from kind_tpu_sim_torch.fleet.loadgen import (  # noqa: F401
     TraceRequest,
@@ -56,10 +67,13 @@ from kind_tpu_sim_torch.fleet.router import (  # noqa: F401
 from kind_tpu_sim_torch.fleet.sim import (  # noqa: F401
     ChaosEvent,
     FleetConfig,
+    FleetSchedConfig,
     FleetSim,
     SimReplicaConfig,
     attainment_over,
     engine_fleet,
+    resolve_audit_frac,
+    resolve_fast_forward,
     resolve_tick_s,
 )
 from kind_tpu_sim_torch.fleet.tenancy import (  # noqa: F401
@@ -74,6 +88,21 @@ from kind_tpu_sim_torch.fleet.tenancy import (  # noqa: F401
     resolve_isolation,
     tenant_of,
     tenant_surge_trace,
+)
+from kind_tpu_sim_torch.fleet.training import (  # noqa: F401
+    TRAIN_KINDS,
+    TrainingConfig,
+    TrainingGang,
+    TrainingGangConfig,
+    TrainingTenant,
+    expected_overhead,
+    gang_mesh,
+    grow_topology,
+    ising_gang,
+    optimal_cadence_steps,
+    shrink_topology,
+    step_time_s,
+    verify_ledger,
 )
 from kind_tpu_sim_torch.fleet.slo import (  # noqa: F401
     FixedBucketHistogram,

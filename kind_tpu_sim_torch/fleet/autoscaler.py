@@ -6,7 +6,7 @@ attainment falls below ``min_attainment``), scale down when it stays
 below ``down_backlog``; a breach must hold for ``breach_evals``
 consecutive evaluations, and no action follows another within
 ``cooldown_s``. A new replica becomes routable ``warmup_s`` after the
-decision (default 0.55 s); a scale-down
+decision (default 0.55 s, or KIND_TPU_SIM_FLEET_WARMUP_S); a scale-down
 drains its victim before removing it.
 """
 
@@ -16,13 +16,17 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from kind_tpu_sim_torch import metrics
+from kind_tpu_sim_torch.fleet import knobs
 
 WARMUP_S = 0.55  # the reference's default replica warm-up, virtual s
 
 
 def resolve_warmup_s(value: Optional[float] = None) -> float:
-    """``value``, else :data:`WARMUP_S`."""
-    return WARMUP_S if value is None else float(value)
+    """``value``, else KIND_TPU_SIM_FLEET_WARMUP_S, else
+    :data:`WARMUP_S`."""
+    if value is not None:
+        return float(value)
+    return float(knobs.get(knobs.FLEET_WARMUP_S))
 
 
 @dataclasses.dataclass(frozen=True)

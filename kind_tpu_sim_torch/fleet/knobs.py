@@ -1,29 +1,65 @@
-"""The environment knobs the fleet and chaos layers read: the trace
-seed and the chaos seed.
+"""The environment knobs the fleet, scheduler, training and chaos layers
+read.
 
 The JAX package declares its knobs in one registry
-(``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of these
-two, with the same names and defaults. An unset or unparseable
-value reads as the default.
+(``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
+its layers read, with the same names, types and defaults. An unset or
+unparseable value reads as the default; a bool reads ``""``, ``"0"``,
+``"false"`` and ``"no"`` (any case) as off and anything else as on.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 FLEET_SEED = "KIND_TPU_SIM_FLEET_SEED"
 CHAOS_SEED = "KIND_TPU_SIM_CHAOS_SEED"
+FLEET_TICK_S = "KIND_TPU_SIM_FLEET_TICK_S"
+FLEET_FF = "KIND_TPU_SIM_FLEET_FF"
+FLEET_WARMUP_S = "KIND_TPU_SIM_FLEET_WARMUP_S"
+FLEET_EVENT_CORE = "KIND_TPU_SIM_FLEET_EVENT_CORE"
+SCHED_SEED = "KIND_TPU_SIM_SCHED_SEED"
+TRAIN_CKPT_EVERY = "KIND_TPU_SIM_TRAIN_CKPT_EVERY"
+TRAIN_CKPT_WRITE_S = "KIND_TPU_SIM_TRAIN_CKPT_WRITE_S"
+TRAIN_RESTART_S = "KIND_TPU_SIM_TRAIN_RESTART_S"
+TRAIN_MTBF_S = "KIND_TPU_SIM_TRAIN_MTBF_S"
+TRAIN_ELASTIC = "KIND_TPU_SIM_TRAIN_ELASTIC"
+SDC_RATE = "KIND_TPU_SIM_SDC_RATE"
+SDC_AUDIT_FRAC = "KIND_TPU_SIM_SDC_AUDIT_FRAC"
 
-# name -> default
-KNOBS: Dict[str, int] = {FLEET_SEED: 0, CHAOS_SEED: 0}
+# values a bool knob reads as off
+FALSE_VALUES = ("", "0", "false", "no")
+
+# name -> (default, type)
+KNOBS: Dict[str, Tuple[object, str]] = {
+    FLEET_SEED: (0, "int"),
+    CHAOS_SEED: (0, "int"),
+    FLEET_TICK_S: (0.01, "float"),
+    FLEET_FF: (True, "bool"),
+    FLEET_WARMUP_S: (0.55, "float"),
+    FLEET_EVENT_CORE: (True, "bool"),
+    SCHED_SEED: (0, "int"),
+    TRAIN_CKPT_EVERY: (0, "int"),
+    TRAIN_CKPT_WRITE_S: (0.05, "float"),
+    TRAIN_RESTART_S: (0.2, "float"),
+    TRAIN_MTBF_S: (60.0, "float"),
+    TRAIN_ELASTIC: (True, "bool"),
+    SDC_RATE: (0.4, "float"),
+    SDC_AUDIT_FRAC: (0.0, "float"),
+}
 
 
-def get(name: str) -> int:
-    """The value of knob ``name``: the environment's, else the
-    default."""
+def get(name: str) -> object:
+    """The value of knob ``name``: the environment's, parsed as the
+    knob's type, else the default."""
+    default, kind = KNOBS[name]
     raw = os.environ.get(name)
+    if raw is None:
+        return default
+    if kind == "bool":
+        return raw.lower() not in FALSE_VALUES
     try:
-        return KNOBS[name] if raw is None else int(raw)
+        return int(raw) if kind == "int" else float(raw)
     except ValueError:
-        return KNOBS[name]
+        return default

@@ -10,14 +10,27 @@ an evaluation interval. Chaos events (replica preemption and restore,
 slowdown) fire at planned virtual times and displaced requests requeue
 at the router.
 
-Four control layers ride the loop when their :class:`FleetConfig` field
-is set:
+Six layers ride the loop when their :class:`FleetConfig` field is set:
 
+* ``sched`` (a :class:`FleetSchedConfig`): every replica is a gang that
+  ``kind_tpu_sim_torch.sched.ClusterScheduler`` places on a node
+  inventory. A node drain or failure, a gray migration or an integrity
+  quarantine evicts the gang: its engine fails (its streams requeue at
+  the router's front) and heals ``bind_s`` + warm-up after the gang
+  rebinds; a scale-up is bound through the scheduler. ``link_degrade``
+  on an ICI domain slows every engine placed there
+  (``collectives.ici_slowdown``), and ``domain_fault`` fails a whole
+  rack (``rack_pods``).
+* ``training`` (a ``training.TrainingConfig``, needs ``sched``):
+  analytic training gangs placed under serving at a lower priority;
+  serving gangs preempt them, and they checkpoint, resume and finish
+  with a verified progress ledger.
 * ``health`` (a ``health.DetectorConfig``): the gray-failure detector
   reads each completion's time per output token; quarantined replicas
-  leave the router's candidates, and suspect or quarantined ones get a
-  probe request every ``probe_interval_s`` while traffic flows, until
-  clean probes restore them.
+  leave the router's candidates (and, under ``sched``, their gangs
+  migrate off the suspect nodes one at a time), and suspect or
+  quarantined ones get a probe request every ``probe_interval_s`` while
+  traffic flows, until clean probes restore them.
 * ``overload`` (an ``overload.OverloadConfig``): client retries of shed
   and expired requests on a budget, hedged copies on a second replica
   once the primary is a tail case (the first completion wins and the
@@ -29,35 +42,50 @@ is set:
 * ``audit_frac`` > 0: that share of served requests is executed again
   on a replica that produced none of its results and the stream crcs are
   compared; a disagreement takes a third copy, and the majority names
-  the replica to quarantine.
+  the replica to quarantine (under ``sched``, one chip of its node
+  leaves the inventory and the gang rebinds).
 
-The loop is the reference's plain per-tick loop with its idle-gap
-fast-forward (``_idle_gap``): across a gap where nothing can happen
-before the next arrival or chaos event, the clock takes the same
-tick-sized float additions without the per-tick work. The reference's
-event-heap core is an execution strategy whose reports equal the plain
-loop's; it is not ported. For a given config, trace, events and
-weights, :meth:`FleetSim.run` returns the reference's report.
+Three execution strategies give byte-identical reports, as in the
+reference: the event core (``event_core``, default on, knob
+KIND_TPU_SIM_FLEET_EVENT_CORE) steps only the tick boundaries where
+something can happen; without it the plain per-tick loop runs, with the
+idle-gap fast-forward (``fast_forward``, default on, knob
+KIND_TPU_SIM_FLEET_FF) or without. Across skipped boundaries the clock
+takes the same tick-sized float additions. For a given config, trace,
+events and weights, :meth:`FleetSim.run` returns the reference's report.
 
-The :class:`FleetConfig` features that only the simulator's other
-layers serve are refused with a ``ValueError`` that names them:
-``sched``, ``training``, ``disagg``, ``zoo``, ``generations``,
-``event_core=True`` and ``fast_forward=False``; so is a fleet without a
-``replica_factory`` (the reference's analytic replicas). The reference
-resolves an unset ``tick_s`` and ``audit_frac`` from the environment;
-the port takes their defaults, 0.01 virtual seconds and 0.
+The features only the simulator's analytic fleet serves are refused
+with a ``ValueError`` that names them: ``disagg``, ``zoo`` and
+``generations``; so is a fleet without a ``replica_factory`` (the
+reference's analytic replicas). Knobs: KIND_TPU_SIM_FLEET_TICK_S
+(``resolve_tick_s``), KIND_TPU_SIM_SDC_AUDIT_FRAC
+(``resolve_audit_frac``), KIND_TPU_SIM_SDC_RATE.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import heapq
 import zlib
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet.autoscaler import Autoscaler, AutoscalerConfig
+from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.fleet.autoscaler import (
+    Autoscaler,
+    AutoscalerConfig,
+    resolve_warmup_s,
+)
+from kind_tpu_sim_torch.fleet.events import (
+    LANE_ARRIVAL,
+    LANE_AUTOSCALER,
+    LANE_CHAOS,
+    LANE_COMPLETION,
+    LANE_INTEGRITY_AUDIT,
+    DueSet,
+    EventHeap,
+    resolve_event_core,
+)
 from kind_tpu_sim_torch.fleet.loadgen import TraceRequest, VirtualClock
 from kind_tpu_sim_torch.fleet.overload import (
     OverloadConfig,
@@ -75,44 +103,36 @@ from kind_tpu_sim_torch.fleet.tenancy import (
     TenancyState,
     tenant_of,
 )
+from kind_tpu_sim_torch.fleet.training import (
+    TrainingConfig,
+    TrainingTenant,
+)
 from kind_tpu_sim_torch.health import DetectorConfig, FailureDetector
 from kind_tpu_sim_torch.models.serving import ServingEngine
-
-
-TICK_S = 0.01  # the reference's default tick width, virtual seconds
-SDC_RATE = 0.4  # the reference's default chip corruption rate
-
+from kind_tpu_sim_torch.parallel import collectives
 
 def resolve_tick_s(value: Optional[float] = None) -> float:
-    """``value``, else :data:`TICK_S`."""
-    return TICK_S if value is None else float(value)
+    """``value``, else KIND_TPU_SIM_FLEET_TICK_S, else 0.01 virtual
+    seconds."""
+    if value is not None:
+        return float(value)
+    return float(knobs.get(knobs.FLEET_TICK_S))
+
+
+def resolve_fast_forward(value: Optional[bool] = None) -> bool:
+    """``value``, else KIND_TPU_SIM_FLEET_FF, else on: the plain loop
+    skips the per-tick work across provably idle gaps."""
+    if value is not None:
+        return bool(value)
+    return bool(knobs.get(knobs.FLEET_FF))
 
 
 def resolve_audit_frac(value: Optional[float] = None) -> float:
-    """``value`` clamped to [0, 1], else 0 (the audit lane off)."""
-    return 0.0 if value is None else max(0.0, min(1.0, float(value)))
-
-
-class _Timers:
-    """Payloads due at virtual times, popped in (time, push order): the
-    reference's one-lane ``EventHeap``. Payloads are never compared."""
-
-    def __init__(self):
-        self._heap: List[tuple] = []
-        self._seq = 0
-
-    def __bool__(self) -> bool:
-        return bool(self._heap)
-
-    def push(self, time_s: float, payload) -> None:
-        heapq.heappush(self._heap, (time_s, self._seq, payload))
-        self._seq += 1
-
-    def pop_due(self, now: float) -> list:
-        out = []
-        while self._heap and self._heap[0][0] <= now:
-            out.append(heapq.heappop(self._heap)[2])
-        return out
+    """``value``, else KIND_TPU_SIM_SDC_AUDIT_FRAC, else 0 (the audit
+    lane off), clamped to [0, 1]."""
+    if value is None:
+        value = knobs.get(knobs.SDC_AUDIT_FRAC)
+    return max(0.0, min(1.0, float(value)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,9 +141,16 @@ class ChaosEvent:
     displaces replica ``target``'s whole load and ``restore`` heals it;
     ``slow`` steps it every ``param``-th tick (``unslow`` undoes it);
     ``sdc_chip`` is recorded (an engine replica has no corruption
-    model). The reference's node, link, domain, training, disaggregated
-    and zoo actions need simulator layers the port does not carry and
-    raise."""
+    model). With ``FleetConfig.sched``: ``node_drain`` / ``node_fail``
+    cordon or break node index ``target`` and evict its gangs,
+    ``node_restore`` heals it; ``link_degrade`` sets ICI domain index
+    ``target``'s link factor to ``param`` (``link_restore`` heals it);
+    ``domain_fault`` / ``domain_restore`` fail or heal every node of
+    one rack (``FleetSchedConfig.rack_pods``). With
+    ``FleetConfig.training``: ``train_preempt`` / ``train_kill``
+    preempt gang ``target`` gracefully or hard, and ``sdc_train_chip``
+    plants a defect on one of its chips. The disaggregated and zoo
+    actions need simulator layers the port does not carry and raise."""
 
     at_s: float
     action: str
@@ -132,6 +159,44 @@ class ChaosEvent:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSchedConfig:
+    """Scheduler-backed placement: every replica is a gang of
+    ``replica_topology`` on ``replica_accelerator``, placed by the
+    cluster scheduler (``policy``) on an inventory of ``pods`` at
+    ``priority``; a placement costs ``bind_s``, then the replica warms
+    up. ``ici_fraction`` is the share of service time in ICI
+    collectives that a degraded link inflates (and the warm-up on a
+    rebind); ``rack_pods`` groups that many consecutive pods into one
+    failure domain (None: ungrouped). The reference's fields and
+    defaults, in order."""
+
+    pods: tuple = (("tpu-v5-lite-podslice", "4x8"),)
+    policy: str = "ici"
+    bind_s: float = 0.05
+    replica_accelerator: str = "tpu-v5-lite-podslice"
+    replica_topology: str = "2x4"
+    priority: int = 10
+    zone: str = "zone-a"
+    ici_fraction: float = 0.35
+    rack_pods: Optional[int] = None
+
+    def as_dict(self) -> dict:
+        out = {
+            "pods": [list(p) for p in self.pods],
+            "policy": self.policy,
+            "bind_s": self.bind_s,
+            "replica_accelerator": self.replica_accelerator,
+            "replica_topology": self.replica_topology,
+            "priority": self.priority,
+            "ici_fraction": self.ici_fraction,
+            "zone": self.zone,
+        }
+        if self.rack_pods is not None:
+            out["rack_pods"] = self.rack_pods
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,9 +232,12 @@ class SimReplicaConfig:
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
     """The reference's fleet config, every field in order with its
-    default. ``sched``, ``training``, ``disagg``, ``zoo`` and
-    ``generations`` configure simulator layers the port does not carry:
-    :class:`FleetSim` refuses them when set."""
+    default. ``disagg``, ``zoo`` and ``generations`` configure simulator
+    layers the port does not carry: :class:`FleetSim` refuses them when
+    set. ``fast_forward``, ``event_core`` and ``columnar`` choose how
+    the loop runs, not what it computes, and stay out of
+    :meth:`as_dict` (``columnar`` engages only on analytic fleets and
+    is inert here)."""
 
     replicas: int = 2
     policy: str = "round-robin"
@@ -182,19 +250,19 @@ class FleetConfig:
     slo: SloPolicy = SloPolicy(ttft_s=0.5, e2e_s=2.0)
     sim: SimReplicaConfig = SimReplicaConfig()
     autoscaler: AutoscalerConfig = AutoscalerConfig()
-    sched: Optional[object] = None
+    sched: Optional[FleetSchedConfig] = None
     health: Optional[DetectorConfig] = None
     overload: Optional[OverloadConfig] = None
-    training: Optional[object] = None
+    training: Optional[TrainingConfig] = None
     disagg: Optional[object] = None
     tenancy: Optional[TenancyConfig] = None
     zoo: Optional[object] = None
     generations: Optional[tuple] = None
     zoo_large_model_gen: Optional[str] = None
-    fast_forward: Optional[bool] = None  # False is refused
-    event_core: Optional[bool] = None
+    fast_forward: Optional[bool] = None  # None -> resolve_fast_forward()
+    event_core: Optional[bool] = None    # None -> resolve_event_core()
     audit_frac: Optional[float] = None  # None -> resolve_audit_frac()
-    columnar: Optional[bool] = None  # analytic fleets only: inert here
+    columnar: Optional[bool] = None
 
     def as_dict(self) -> dict:
         out = {
@@ -212,7 +280,8 @@ class FleetConfig:
             out["eval_every_s"] = self.eval_every_s
         if self.autoscale:
             out["autoscaler"] = dataclasses.asdict(self.autoscaler)
-        for name in ("health", "overload", "tenancy"):
+        for name in ("sched", "health", "overload", "training",
+                     "tenancy"):
             layer = getattr(self, name)
             if layer is not None:
                 out[name] = layer.as_dict()
@@ -225,8 +294,6 @@ class FleetConfig:
 
 # the simulator layers each refused FleetConfig field configures
 _SIMULATOR_LAYERS = {
-    "sched": "the topology-aware cluster scheduler",
-    "training": "training tenancy",
     "disagg": "disaggregated prefill/decode pools",
     "zoo": "the model zoo",
     "generations": "per-generation pricing of analytic replicas",
@@ -234,12 +301,9 @@ _SIMULATOR_LAYERS = {
 
 # chaos actions that need one of those layers, and the field naming it
 _CHAOS_NEEDS = {
-    "train_preempt": "training", "train_kill": "training",
-    "sdc_train_chip": "training",
     "prefill_pool_loss": "disagg", "prefill_pool_restore": "disagg",
     "kv_degrade": "disagg", "kv_restore": "disagg",
     "model_swap_evict": "zoo",
-    "domain_fault": "sched", "domain_restore": "sched",
 }
 
 
@@ -250,17 +314,6 @@ def _refuse_unported(cfg: FleetConfig) -> None:
                 f"FleetConfig.{name} ({layer}) is a feature of the "
                 "simulator's analytic fleet, not ported to the engine "
                 "fleet")
-    if cfg.event_core:
-        raise ValueError(
-            "FleetConfig.event_core (the simulator's event-heap core) is "
-            "not ported: the engine fleet runs the plain per-tick loop "
-            "with the idle-gap fast-forward, whose reports the event "
-            "core's equal")
-    if cfg.fast_forward is False:
-        raise ValueError(
-            "FleetConfig.fast_forward=False (the simulator's tick-by-tick "
-            "walk of idle gaps) is not ported: the engine fleet always "
-            "runs the idle-gap fast-forward, whose reports equal it")
 
 
 def _is_probe(request_id: str) -> bool:
@@ -314,12 +367,17 @@ class FleetSim:
         self._next_replica_id = cfg.replicas
         # replicas paid for but not yet routable: (replica, reason) at
         # their ready time
-        self._warming = _Timers()
+        self._warming = EventHeap()
+        # gang-evicted replicas awaiting their rebind and warm-up
+        self._rebinding = EventHeap()
         self._draining: List = []
         self.preemptions = 0
+        self.sched = None
         self._now = 0.0
         self._ticks = 0
         self._pending = deque(self.trace)
+        self._fast_forward = resolve_fast_forward(cfg.fast_forward)
+        self._event_core = resolve_event_core(cfg.event_core)
         tick_s = resolve_tick_s(cfg.tick_s)
         if cfg.eval_every_s is not None:
             eval_every_s = cfg.eval_every_s
@@ -328,14 +386,22 @@ class FleetSim:
         else:
             eval_every_s = 10 * tick_s
         self._eval_ticks = max(1, int(round(eval_every_s / tick_s)))
-        # gray failures: replicas a `slow` event degrades (the ground
-        # truth false positives are judged against), and the probes
+        # after a wake scan that steps the next boundary anyway, skip
+        # the scan for a few boundaries (doubling, capped at 32): a cost
+        # heuristic only, since stepping a boundary is always exact
+        self._scan_holdoff = 0
+        self._scan_backoff = 1
+        # gray failures: replicas a `slow` event or a degraded ICI
+        # domain slows (the ground truth false positives are judged
+        # against), the probes, and quarantined gangs awaiting migration
         self._slow_factor: Dict[int, float] = {}
+        self._link_slow: set = set()
         self._probe_last: Dict[str, float] = {}
         self._probe_n: Dict[str, int] = {}
+        self._migrate_pending: List[int] = []
         # overload: retries and hedge timers on the virtual clock
-        self._retry_heap = _Timers()   # retried requests at their arrival
-        self._hedge_heap = _Timers()   # (request, primary) at hedge time
+        self._retry_heap = EventHeap()   # retried requests at their arrival
+        self._hedge_heap = EventHeap()   # (request, primary) at hedge time
         self._attempts: Dict[str, int] = {}
         self._hedges: Dict[str, dict] = {}
         self._hedge_dropped: set = set()
@@ -343,10 +409,58 @@ class FleetSim:
         # the audit lane: audits due (base ids), open audits, and each
         # quarantined replica's detection time
         self._audit_frac = resolve_audit_frac(cfg.audit_frac)
-        self._audit_heap = _Timers()
+        self._audit_heap = EventHeap()
         self._audits: Dict[str, dict] = {}
         self._sdc_detect_s: Dict[int, float] = {}
         self._sdc_active = self._audit_frac > 0.0
+        # training gangs co-scheduled under serving
+        self.trainer: Optional[TrainingTenant] = None
+        if cfg.sched is not None:
+            self._init_scheduler(cfg.sched)
+        if cfg.training is not None:
+            if self.sched is None:
+                raise ValueError(
+                    "FleetConfig.training needs a scheduler-backed "
+                    "fleet (set FleetConfig.sched): training gangs "
+                    "are scheduler-placed workloads")
+            self.trainer = TrainingTenant(cfg.training, self.sched)
+
+    # -- scheduler-backed placement ------------------------------------
+
+    def _init_scheduler(self, sc: FleetSchedConfig) -> None:
+        """Replicas become gangs on the inventory: the initial fleet
+        binds at t=0 (an inventory that cannot place it is a config
+        error), scale-ups queue through the scheduler, and evictions
+        fail the engine of the evicted gang."""
+        from kind_tpu_sim_torch import sched as sched_mod
+
+        self.sched = sched_mod.ClusterScheduler(
+            sched_mod.build_inventory(list(sc.pods), zone=sc.zone,
+                                      rack_pods=sc.rack_pods),
+            sched_mod.SchedConfig(policy=sc.policy, bind_s=sc.bind_s),
+            on_evict=self._on_gang_evict)
+        self._sched_cfg = sc
+        self._gang_replica: Dict[str, int] = {}
+        # gangs whose bind is awaited: name -> requested at
+        self._gang_requested: Dict[str, float] = {}
+        self.time_to_routable: List[float] = []
+        for replica in self.replicas:
+            name = f"replica-{replica.replica_id}"
+            self.sched.submit(self._gang_request(name), 0.0)
+            self._gang_replica[name] = replica.replica_id
+        bound = self.sched.step(0.0)
+        if len(bound) < len(self.replicas):
+            raise ValueError(
+                f"inventory cannot place the initial "
+                f"{len(self.replicas)} replica(s); {len(bound)} bound")
+
+    def _gang_request(self, name: str):
+        from kind_tpu_sim_torch import sched as sched_mod
+
+        sc = self._sched_cfg
+        return sched_mod.SliceRequest(
+            name=name, accelerator=sc.replica_accelerator,
+            topology=sc.replica_topology, priority=sc.priority)
 
     def _replica_by_id(self, rid: int):
         for r in self.replicas + self._draining:
@@ -354,7 +468,161 @@ class FleetSim:
                 return r
         return None
 
+    def _on_gang_evict(self, request) -> None:
+        """A scheduler eviction: a training gang checkpoints (or, moved
+        by defrag, repartitions); a serving gang's engine fails, its
+        streams requeue at the router's front, and it heals only after
+        its rebind and warm-up."""
+        if self.trainer is not None and self.trainer.owns(request.name):
+            bound = self.sched.bound.get(request.name)
+            if bound is not None:
+                # defrag moved the gang, which is already rebound
+                dom = self.sched.inv.domains[bound.placement.domain]
+                self.trainer.on_migrated(
+                    request.name, self._now, dom.link_factor,
+                    self._sched_cfg.bind_s)
+            else:
+                self.trainer.on_evicted(request.name, self._now)
+            return
+        rid = self._gang_replica.get(request.name)
+        if rid is None:
+            return
+        victim = self._replica_by_id(rid)
+        now = self._now
+        if victim is not None and victim.healthy:
+            displaced = victim.fail(now)
+            self._requeue_front(displaced)
+            self.preemptions += 1
+            metrics.fleet_board().incr("replica_preemptions")
+            metrics.recovery_log().record(
+                "fleet_gang_evict", gang=request.name,
+                displaced=len(displaced), at_s=round(now, 6))
+        self._gang_requested[request.name] = now
+
+    def _sched_step(self, now: float) -> None:
+        """Bind pending gangs: a bound serving gang is routable
+        ``bind_s`` + warm-up later (the warm-up inflated by its
+        domain's link state); an evicted engine heals then, and a
+        scale-up's new engine joins then."""
+        if not self.sched.pending:
+            return
+        warmup = (self.autoscaler.warmup_s
+                  if self.autoscaler is not None
+                  else resolve_warmup_s())
+        for gang in self.sched.step(now):
+            name = gang.request.name
+            if self.trainer is not None and self.trainer.owns(name):
+                dom = self.sched.inv.domains[gang.placement.domain]
+                self.trainer.on_bound(name, now, dom.link_factor,
+                                      self._sched_cfg.bind_s)
+                continue
+            requested = self._gang_requested.pop(name, now)
+            dom = self.sched.inv.domains[gang.placement.domain]
+            warm_mult = collectives.ici_slowdown(
+                dom.link_factor, self._sched_cfg.ici_fraction)
+            ready_at = (now + self._sched_cfg.bind_s
+                        + warmup * warm_mult)
+            ttr = round(ready_at - requested, 6)
+            self.time_to_routable.append(ttr)
+            rid = self._gang_replica[name]
+            existing = self._replica_by_id(rid)
+            if existing is not None:
+                # an evicted engine rebound: the same object heals
+                self._rebinding.push(ready_at, LANE_CHAOS, existing)
+            else:
+                # a scale-up: a new engine warms up
+                self._warming.push(
+                    ready_at, LANE_AUTOSCALER,
+                    (self.factory(rid),
+                     f"bound+warm (time_to_routable={ttr}s)"))
+
+    def _apply_node_chaos(self, ev: ChaosEvent, now: float) -> None:
+        from kind_tpu_sim_torch import sched as sched_mod
+
+        names = sorted(self.sched.inv.nodes)
+        node = names[ev.target % len(names)]
+        sched_mod.apply_node_event(self.sched, ev.action, node, now)
+        if ev.action in ("node_drain", "node_fail"):
+            metrics.recovery_log().record(
+                f"fleet_{ev.action}", node=node, at_s=round(now, 6))
+
+    def _apply_domain_chaos(self, ev: ChaosEvent, now: float) -> None:
+        """A correlated failure: one event fails (or heals) every node
+        of one rack failure domain."""
+        from kind_tpu_sim_torch import sched as sched_mod
+
+        fds = self.sched.inv.failure_domains()
+        if not fds:
+            raise ValueError(
+                "domain chaos needs correlated failure domains "
+                "(set FleetSchedConfig.rack_pods)")
+        fd = fds[ev.target % len(fds)]
+        action = ("node_fail" if ev.action == "domain_fault"
+                  else "node_restore")
+        nodes = self.sched.inv.failure_domain_nodes(fd)
+        for node in nodes:
+            sched_mod.apply_node_event(self.sched, action, node, now)
+        self._sdc_active = True
+        metrics.integrity_board().incr(
+            "domain_faults" if action == "node_fail"
+            else "domain_restores")
+        metrics.recovery_log().record(
+            f"fleet_{ev.action}", failure_domain=fd,
+            nodes=len(nodes), at_s=round(now, 6))
+
+    def _apply_link_chaos(self, ev: ChaosEvent, now: float) -> None:
+        from kind_tpu_sim_torch import sched as sched_mod
+
+        domains = sorted(self.sched.inv.domains)
+        domain = domains[ev.target % len(domains)]
+        if ev.action == "link_degrade":
+            sched_mod.apply_link_event(
+                self.sched, "link_degrade", domain,
+                max(1e-3, ev.param), now)
+            metrics.recovery_log().record(
+                "fleet_link_degrade", domain=domain,
+                factor=ev.param, at_s=round(now, 6))
+        else:
+            sched_mod.apply_link_event(
+                self.sched, "link_restore", domain, 1.0, now)
+            # the fault is gone: lift the avoid marks gray migrations
+            # left on the domain's nodes
+            for node in self.sched.inv.domains[domain].nodes.values():
+                self.sched.inv.mark_avoid(node.name, False)
+        self._refresh_link_slowdowns(now)
+
+    def _refresh_link_slowdowns(self, now: float) -> None:
+        """Every placed engine's slowdown from its ICI domain's link
+        state (or an explicit `slow`, whichever is larger), the set of
+        link-slowed replicas, and each training gang's ring rate."""
+        self._link_slow = set()
+        sc = self._sched_cfg
+        for name, gang in sorted(self.sched.bound.items()):
+            rid = self._gang_replica.get(name)
+            if rid is None:
+                if self.trainer is not None and self.trainer.owns(name):
+                    # the gang's ring slows or heals: a rate change, no
+                    # checkpoint
+                    self.trainer.gangs[name].reprice(
+                        now,
+                        self.sched.inv.domains[
+                            gang.placement.domain].link_factor)
+                continue
+            replica = self._replica_by_id(rid)
+            if replica is None:
+                continue
+            mult = collectives.ici_slowdown(
+                self.sched.inv.domains[gang.placement.domain]
+                .link_factor, sc.ici_fraction)
+            if mult > 1.0:
+                self._link_slow.add(rid)
+            replica.set_slowdown(
+                max(mult, self._slow_factor.get(rid, 1.0)))
+
     # -- gray failures -------------------------------------------------
+
+    def _gray_truth(self) -> set:
+        return set(self._slow_factor) | self._link_slow
 
     def _on_health_transition(self, rid: int, transition: str,
                               now: float) -> None:
@@ -362,9 +630,41 @@ class FleetSim:
             return
         metrics.recovery_log().record(
             "fleet_replica_quarantine", replica=rid, at_s=round(now, 6))
-        if rid not in self._slow_factor:
+        if rid not in self._gray_truth():
             # detection fired on a replica nothing degrades
             metrics.health_board().incr("false_positives")
+        if self.sched is not None:
+            self._migrate_pending.append(rid)
+
+    def _drain_migrations(self, now: float) -> None:
+        """At most one gray migration in flight: a quarantined replica
+        waiting its turn keeps serving its work (slowly)."""
+        if not self._migrate_pending:
+            return
+        if self._rebinding or self._gang_requested:
+            return  # a migration or rebind is already in flight
+        rid = self._migrate_pending.pop(0)
+        if (self.health is not None
+                and not self.health.quarantined(f"replica-{rid}")):
+            return  # restored in the meantime
+        self._migrate_gang(rid, now)
+
+    def _migrate_gang(self, rid: int, now: float) -> None:
+        """Move a quarantined replica's gang off the suspect nodes:
+        mark them avoid and evict the gang (its engine fails and its
+        streams requeue); the next scheduling pass rebinds it, scoring
+        degraded domains and avoided nodes last."""
+        name = f"replica-{rid}"
+        gang = self.sched.bound.get(name)
+        if gang is None:
+            return
+        for node in gang.placement.node_names:
+            self.sched.inv.mark_avoid(node, True)
+        self.sched.evict_gang(
+            name, now,
+            reason="gray: replica quarantined by the failure "
+                   "detector; migrating off suspect hardware")
+        metrics.health_board().incr("gray_migrations")
 
     def _probe_quarantined(self, now: float) -> None:
         """One probe request a probe interval to each suspect or
@@ -452,7 +752,8 @@ class FleetSim:
         rid = req.request_id
         if _is_probe(rid) or not ov.hedge_enabled() or rid in self._hedges:
             return
-        self._hedge_heap.push(now + ov.hedge_delay_s(), (req, replica))
+        self._hedge_heap.push(now + ov.hedge_delay_s(), LANE_COMPLETION,
+                              (req, replica))
 
     def _fire_hedges(self, now: float) -> None:
         """Due hedge timers: a request still in flight gets a copy on the
@@ -536,7 +837,7 @@ class FleetSim:
         self._attempts[base] = attempt + 1
         delay = ov.cfg.retry_backoff_s * (2 ** (attempt - 1))
         at = round(now + delay, 6)
-        self._retry_heap.push(at, dataclasses.replace(
+        self._retry_heap.push(at, LANE_ARRIVAL, dataclasses.replace(
             req, request_id=f"{base}~r{attempt}", arrival_s=at))
 
     def _requeue_front(self, displaced: List) -> None:
@@ -596,7 +897,7 @@ class FleetSim:
         if len(set(st["results"].values())) == 1 or len(st["order"]) >= 3:
             self._conclude_audit(base_id)
             return
-        self._audit_heap.push(comp.finish_s, base_id)
+        self._audit_heap.push(comp.finish_s, LANE_INTEGRITY_AUDIT, base_id)
 
     def _conclude_audit(self, base_id: str) -> None:
         """Close an audit: on a disagreement the majority names the
@@ -622,20 +923,34 @@ class FleetSim:
             for rid in culprits:
                 self._sdc_quarantine(rid, self._now)
 
-    def _sdc_quarantine(self, rid: int, now: float) -> None:
-        """Pull a replica an audit named: it fails (its work requeues),
-        and the detector holds a sticky integrity quarantine on it."""
+    def _sdc_quarantine(self, rid: int, now: float,
+                        cause: str = "audit") -> None:
+        """Pull a replica an audit named: the detector holds a sticky
+        integrity quarantine on it, and its engine fails (its work
+        requeues). On a scheduler-backed fleet one chip of the gang's
+        anchor node leaves the inventory and the gang is evicted, to
+        rebind elsewhere."""
         if rid in self._sdc_detect_s:
             return
         self._sdc_detect_s[rid] = round(now, 6)
         self._sdc_active = True
         metrics.integrity_board().incr("chips_quarantined")
         metrics.recovery_log().record(
-            "fleet_sdc_quarantine", replica=rid, cause="audit",
+            "fleet_sdc_quarantine", replica=rid, cause=cause,
             at_s=round(now, 6))
         if self.health is not None:
             self.health.record_integrity(f"replica-{rid}", now,
-                                         cause="audit")
+                                         cause=cause)
+        name = f"replica-{rid}"
+        if self.sched is not None and self.sched.bound.get(name) is not None:
+            gang = self.sched.bound[name]
+            self.sched.inv.quarantine_chips(
+                gang.placement.node_names[0], 1)
+            self.sched.evict_gang(
+                name, now,
+                reason="sdc: integrity quarantine; rebinding off "
+                       "the defective chip")
+            return
         victim = self._replica_by_id(rid)
         if victim is not None and victim.healthy:
             displaced = victim.fail(now)
@@ -644,6 +959,27 @@ class FleetSim:
             metrics.recovery_log().record(
                 "fleet_sdc_chip_pulled", replica=rid,
                 displaced=len(displaced), at_s=round(now, 6))
+
+    def _on_train_sdc(self, verdict: dict, now: float) -> None:
+        """A training gang's bisection named its culprit chip: a sticky
+        integrity quarantine on the chip, and the chip leaves its
+        node's capacity."""
+        gang = verdict["gang"]
+        chip = verdict["chip"]
+        self._sdc_active = True
+        metrics.integrity_board().incr("chips_quarantined")
+        metrics.recovery_log().record(
+            "fleet_sdc_train_quarantine", gang=gang, chip=chip,
+            at_s=round(now, 6))
+        if self.health is not None:
+            self.health.record_integrity(f"{gang}-chip-{chip}", now,
+                                         cause="bisection")
+        bound = self.sched.bound.get(gang) if self.sched else None
+        if bound is not None:
+            names = bound.placement.node_names
+            per = max(1, bound.placement.chips_per_node)
+            node = names[min(chip // per, len(names) - 1)]
+            self.sched.inv.quarantine_chips(node, 1)
 
     def _sampled_for_audit(self, request_id: str) -> bool:
         # a nested crc, as the reference draws it: a single crc32 pass
@@ -693,7 +1029,8 @@ class FleetSim:
             self._audits[req.request_id] = {
                 "req": req, "results": {replica_id: comp.tokens_crc},
                 "order": [replica_id], "copies": 0}
-            self._audit_heap.push(comp.finish_s, req.request_id)
+            self._audit_heap.push(comp.finish_s, LANE_INTEGRITY_AUDIT,
+                                  req.request_id)
             metrics.integrity_board().incr("audits")
         if self.tenancy is not None:
             name = tenant_of(req)
@@ -723,13 +1060,40 @@ class FleetSim:
         while self.chaos_events and self.chaos_events[0].at_s <= now:
             ev = self.chaos_events.pop(0)
             need = _CHAOS_NEEDS.get(ev.action)
-            if need is None and ev.action.startswith(("node_", "link_")):
-                need = "sched"
             if need is not None:
                 raise ValueError(
                     f"{ev.action} chaos needs FleetConfig.{need} "
                     f"({_SIMULATOR_LAYERS[need]}), which the engine "
                     "fleet does not carry")
+            if ev.action in ("train_preempt", "train_kill"):
+                if self.trainer is None:
+                    raise ValueError(
+                        f"{ev.action} chaos needs a training tenancy "
+                        "(FleetConfig.training)")
+                self.trainer.apply_chaos(ev.action, ev.target, now)
+                continue
+            if ev.action == "sdc_train_chip":
+                if self.trainer is None:
+                    raise ValueError(
+                        "sdc_train_chip chaos needs a training tenancy "
+                        "(FleetConfig.training)")
+                frac = (ev.param if ev.param > 0
+                        else float(knobs.get(knobs.SDC_RATE)))
+                self._sdc_active = True
+                self.trainer.apply_sdc(ev.target, frac, now)
+                continue
+            if ev.action.startswith(("domain_", "node_", "link_")):
+                if self.sched is None:
+                    raise ValueError(
+                        f"{ev.action} chaos needs a scheduler-backed "
+                        "fleet (FleetConfig.sched)")
+                if ev.action.startswith("domain_"):
+                    self._apply_domain_chaos(ev, now)
+                elif ev.action.startswith("node_"):
+                    self._apply_node_chaos(ev, now)
+                else:
+                    self._apply_link_chaos(ev, now)
+                continue
             victim = next((r for r in self.replicas
                            if r.replica_id == ev.target), None)
             if victim is None:
@@ -744,12 +1108,15 @@ class FleetSim:
             elif ev.action == "unslow":
                 self._slow_factor.pop(ev.target, None)
                 victim.set_slowdown(1.0)
+                if self.sched is not None:
+                    # a degraded link may still slow it
+                    self._refresh_link_slowdowns(now)
                 metrics.recovery_log().record(
                     "fleet_replica_unslow", replica=ev.target,
                     at_s=round(now, 6))
             elif ev.action == "sdc_chip":
                 frac = (ev.param if ev.param > 0
-                        else SDC_RATE)
+                        else float(knobs.get(knobs.SDC_RATE)))
                 metrics.recovery_log().record(
                     "fleet_sdc_chip", replica=ev.target,
                     frac=round(frac, 6), at_s=round(now, 6))
@@ -788,8 +1155,15 @@ class FleetSim:
         if action == "scale_up":
             rid = self._next_replica_id
             self._next_replica_id += 1
-            self._warming.push(now + scaler.warmup_s,
-                               (self.factory(rid), "warmup complete"))
+            if self.sched is not None:
+                # routable after queue wait, placement and warm-up
+                name = f"replica-{rid}"
+                self.sched.submit(self._gang_request(name), now)
+                self._gang_replica[name] = rid
+                self._gang_requested[name] = now
+            else:
+                self._warming.push(now + scaler.warmup_s, LANE_AUTOSCALER,
+                                   (self.factory(rid), "warmup complete"))
         elif action == "scale_down":
             # drain the highest-id healthy replica: no new traffic,
             # removed once idle
@@ -801,6 +1175,31 @@ class FleetSim:
 
     # -- the loop ------------------------------------------------------
 
+    def _step_sched(self, now: float) -> None:
+        """The scheduler's part of a boundary: the trainer's arrivals,
+        progress and releases, its bisection verdicts, one gray
+        migration, the scheduling pass, and the rebound engines that
+        heal now."""
+        if self.trainer is not None:
+            self.trainer.tick(now)
+            for verdict in self.trainer.drain_sdc_verdicts():
+                self._on_train_sdc(verdict, now)
+        self._drain_migrations(now)
+        self._sched_step(now)
+        healed = self._rebinding.pop_due(now)
+        for replica in healed:
+            replica.restore(now)
+            metrics.recovery_log().record(
+                "fleet_gang_rebound", replica=replica.replica_id,
+                at_s=round(now, 6))
+        if healed:
+            self._refresh_link_slowdowns(now)
+        for replica in healed:
+            comp = f"replica-{replica.replica_id}"
+            if self.health is not None and self.health.quarantined(comp):
+                # rebound onto other hardware: a new individual
+                self.health.restore(comp, now, reason="rebound")
+
     def step(self, now: float, tick: float,
              pending: Optional[deque] = None) -> None:
         """One fleet tick at virtual time ``now``."""
@@ -808,6 +1207,8 @@ class FleetSim:
             pending = self._pending
         self._now = now
         self._apply_chaos(now)
+        if self.sched is not None:
+            self._step_sched(now)
         while pending and pending[0].arrival_s <= now:
             self._offer_arrival(pending.popleft(), now, fresh=True)
         if self.overload is not None:
@@ -832,16 +1233,25 @@ class FleetSim:
                 self._complete(replica, comp, now)
             if replica.idle():
                 self._draining.remove(replica)
+                if self.sched is not None:
+                    self.sched.release(
+                        f"replica-{replica.replica_id}", now,
+                        reason="scale-down drained")
         if self._ticks % self._eval_ticks == 0:
             if self.autoscaler is not None:
                 self._autoscale(now)
             if self.overload is not None:
                 self.overload.brownout.evaluate(now)
+            if self.trainer is not None:
+                # the elastic ladder (a no-op unless an elastic gang is
+                # live, so skipped evaluation boundaries stay no-ops)
+                self.trainer.evaluate(now)
         self._ticks += 1
 
     def quiescent(self, pending: Optional[deque] = None) -> bool:
-        """Nothing pending, in flight, warming, draining, due or left in
-        the chaos plan: the loop's termination test."""
+        """Nothing pending, in flight, warming, draining, due, left in
+        the chaos plan, training or awaiting a bind: the loop's
+        termination test."""
         if pending is None:
             pending = self._pending
         return bool(
@@ -849,16 +1259,21 @@ class FleetSim:
             and not self._audit_heap and not self._audits
             and all(r.idle() for r in self.replicas if r.healthy)
             and not self._draining and not self.chaos_events
-            and not self._retry_heap and not self._hedge_heap)
+            and not self._retry_heap and not self._hedge_heap
+            and (self.trainer is None or self.trainer.quiescent())
+            and not (self.sched is not None
+                     and (self.sched.pending or self._rebinding)))
 
     def _idle_gap(self, pending: deque) -> bool:
         """True when nothing can happen before the next arrival or chaos
         event: no queued, in-flight, warming or draining work, no open
-        audit, and no tick-cadenced decision maker (autoscaler
-        evaluations, health probes, the overload layer's timers and
-        brownout evaluations)."""
+        audit, no scheduler or training activity, and no tick-cadenced
+        decision maker (autoscaler evaluations, health probes, the
+        overload layer's timers and brownout evaluations)."""
         if (self.autoscaler is not None or self.health is not None
                 or self.overload is not None):
+            return False
+        if self.trainer is not None and not self.trainer.quiescent():
             return False
         if self.router.queue or self._warming or self._draining:
             return False
@@ -867,14 +1282,127 @@ class FleetSim:
         # a slowdown other than 1 rules out even an idle replica: its
         # stride counter advances on every tick() call, so skipping
         # ticks would shift its stepping phase
-        return all(r.idle() and r.slowdown == 1.0 for r in self.replicas)
+        if not all(r.idle() and r.slowdown == 1.0 for r in self.replicas):
+            return False
+        return not (self.sched is not None and (
+            self.sched.pending or self._rebinding
+            or self._gang_requested or self._migrate_pending))
+
+    def _next_wake(self, pending: deque, tick: float = 0.0) -> DueSet:
+        """When does step() stop being a no-op? A queued request,
+        scheduler activity, a draining replica or an engine mid-stream
+        (or slowed) answer ``immediate``; arrivals, chaos, timers,
+        warm-ups, rebinds, training events and probe deadlines answer
+        with the time of the first boundary that must be stepped. A
+        pure read, valid until a boundary is stepped."""
+        due = DueSet()
+        if pending:
+            due.at(pending[0].arrival_s)
+        if self.chaos_events:
+            ev0 = self.chaos_events[0]
+            at = ev0.at_s
+            if ev0.action in ("slow", "unslow", "link_degrade",
+                              "link_restore"):
+                # a slowdown changes from the boundary it applies at, so
+                # the boundary before it is stepped too, as the plain
+                # loop steps it
+                at = max(0.0, at - tick)
+            due.at(at)
+        due.at(self._retry_heap.peek_time())
+        due.at(self._hedge_heap.peek_time())
+        due.at(self._audit_heap.peek_time())
+        if self.trainer is not None:
+            # gang arrivals and segment ends; progress between them is
+            # closed form
+            self.trainer.due(due)
+        if self.router.queue or self._draining:
+            return due.need_now()
+        if self.sched is not None and (
+                self.sched.pending or self._gang_requested
+                or self._migrate_pending):
+            return due.need_now()
+        due.at(self._warming.peek_time())
+        due.at(self._rebinding.peek_time())
+        for replica in self.replicas:
+            # an engine's stride counter advances on every tick() call,
+            # so only an idle, unslowed engine may be skipped
+            if not (replica.idle() and replica.slowdown == 1.0):
+                return due.need_now()
+        if self.health is not None and pending:
+            # a probe a probe interval to each suspect or quarantined
+            # live replica while user traffic flows
+            for replica in self.replicas:
+                comp = f"replica-{replica.replica_id}"
+                if (not replica.healthy
+                        or self.health.state(comp) == "healthy"):
+                    continue
+                last = self._probe_last.get(comp)
+                due.at(0.0 if last is None else
+                       last + self.health.cfg.probe_interval_s)
+        return due
+
+    def _skip_uninteresting(self, tick: float, pending: deque) -> None:
+        """The event core's jump: from the boundary just reached, keep
+        advancing (tick-sized float additions, as the plain loop takes
+        them) past every boundary where step() is a no-op. Skipped
+        boundaries still count into the tick index, so evaluations land
+        on the plain loop's boundaries."""
+        b = self.clock.now()
+        if pending and pending[0].arrival_s <= b:
+            return
+        if self._scan_holdoff > 0:
+            self._scan_holdoff -= 1
+            return
+        if self.chaos_events and self.chaos_events[0].at_s <= b:
+            return
+        due = self._next_wake(pending, tick)
+        if due.immediate:
+            return
+        evals_away = -1
+        if (self.autoscaler is not None or self.overload is not None
+                or (self.trainer is not None
+                    and self.trainer.wants_evals())):
+            # the autoscaler, the brownout ladder and the elastic
+            # ladder evaluate on the tick grid: those boundaries are
+            # stepped in every mode
+            r = self._ticks % self._eval_ticks
+            evals_away = (self._eval_ticks - r) % self._eval_ticks
+            if evals_away == 0:
+                return
+        due_ge = due.ge
+        limit = self.cfg.max_virtual_s
+        adv = self.clock.advance
+        now = self.clock.now
+        skipped = 0
+        while True:
+            b = now()
+            if b > limit or due_ge <= b:
+                break
+            adv(tick)
+            self._ticks += 1
+            skipped += 1
+            if evals_away > 0:
+                evals_away -= 1
+                if evals_away == 0:
+                    break
+        if skipped:
+            self._scan_backoff = 1
+        else:
+            self._scan_holdoff = self._scan_backoff
+            self._scan_backoff = min(self._scan_backoff * 2, 32)
 
     def _advance(self, tick: float, pending: deque) -> None:
-        """Advance the clock one tick, then through an idle gap with the
-        same tick-sized float additions (a single n * tick jump would
-        land on other floats)."""
+        """Advance the clock one tick; then, with the event core, past
+        every boundary where nothing can happen; without it, with the
+        fast-forward, through a provably idle gap up to the next arrival
+        or chaos event. The clock takes the same tick-sized float
+        additions in every mode (a single n * tick jump would land on
+        other floats)."""
         self.clock.advance(tick)
-        if not self._idle_gap(pending):
+        if self._event_core:
+            self._skip_uninteresting(tick, pending)
+            return
+        if not self._fast_forward or not self._idle_gap(pending):
             return
         next_s = pending[0].arrival_s if pending else float("inf")
         if self.chaos_events:
@@ -928,6 +1456,10 @@ class FleetSim:
             report["ok"] = all(r.request_id in base_done
                                for r in self.trace)
             report["overload"] = self.overload.report()
+        if self.trainer is not None:
+            tr = self.trainer.report()
+            report["training"] = tr
+            report["ok"] = bool(report["ok"] and tr["ledger_ok"])
         if self.tenancy is not None:
             ten_report = self.tenancy.report()
             ten_report["slo"] = {
@@ -949,6 +1481,24 @@ class FleetSim:
                                 "counters": counters("health")}
         if self.autoscaler is not None:
             report["autoscaler"] = self.autoscaler.report()
+        if self.sched is not None:
+            ttrs = self.time_to_routable
+            warmup = (self.autoscaler.warmup_s
+                      if self.autoscaler is not None
+                      else resolve_warmup_s())
+            report["scheduler"] = {
+                "policy": self._sched_cfg.policy,
+                "flat_warmup_s": round(warmup, 6),
+                "bind_s": self._sched_cfg.bind_s,
+                "time_to_routable": {
+                    "count": len(ttrs),
+                    "mean_s": (round(sum(ttrs) / len(ttrs), 6)
+                               if ttrs else None),
+                    "max_s": round(max(ttrs), 6) if ttrs else None,
+                },
+                "events": self.sched.events,
+                "event_counts": self.sched.report()["event_counts"],
+            }
         return report
 
 

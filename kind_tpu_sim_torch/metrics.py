@@ -3,7 +3,8 @@
 The port's own copies of the JAX package's ``RecoveryLog`` /
 ``recovery_log()`` and ``CounterBoard`` with the boards the engine
 fleet counts on: ``fleet_board()``, ``health_board()``,
-``tenant_board()`` and ``integrity_board()``
+``tenant_board()``, ``integrity_board()``, ``sched_board()`` and
+``train_board()``
 (``kind_tpu_sim/metrics.py``). The serving engines record
 ``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
 ``slot_requeue`` (``inject_slot_failure``) in the log, the training loop
@@ -13,7 +14,10 @@ router, loop and autoscaler count requests routed, shed, requeued and
 expired and scale events on the fleet board, the failure detector its
 suspicions, quarantines, probes and restores on the health board, the
 tenancy layer its quota sheds on the tenant board, and the audit lane
-its audits, copies and mismatches on the integrity board; a fleet
+its audits, copies and mismatches on the integrity board, the cluster
+scheduler its bindings, preemptions, evictions and node and link events
+on the scheduler board, and the training tenant its gangs, preemptions,
+migrations and resizes on the training board; a fleet
 report carries the counts of its own run (``snapshot_since``).
 """
 
@@ -128,3 +132,23 @@ def integrity_board() -> CounterBoard:
     """The process-global integrity board (the duplicate-compute audit
     lane's audits, copies, mismatches and quarantines)."""
     return _INTEGRITY_BOARD
+
+
+_SCHED_BOARD = CounterBoard()
+
+
+def sched_board() -> CounterBoard:
+    """The process-global scheduler board (gangs submitted, scheduled
+    and released, failed scheduling decisions, preemptions, defrag
+    migrations, node drains and failures, link events)."""
+    return _SCHED_BOARD
+
+
+_TRAIN_BOARD = CounterBoard()
+
+
+def train_board() -> CounterBoard:
+    """The process-global training-tenant board (gangs submitted,
+    bound and done, graceful preemptions and hard kills, migrations,
+    elastic grows and shrinks, spot grants)."""
+    return _TRAIN_BOARD

@@ -16,11 +16,11 @@ Counterpart of ``kind_tpu_sim/profiling.py`` on ``torch.profiler``:
 * ``device_busy(fn)`` -- one traced call's device time (kernels, memcpy
   and memset) over its wall time, the busy share of a call;
 * ``profile_flagship()`` -- one traced flagship loss step, the workload
-  of the ``profile`` command.
-
-The reference's ``profile_fleet_run`` profiles the fleet simulator with
-cProfile. The simulator is a layer the port does not rewrite, so it has
-no counterpart here.
+  of the ``profile`` command;
+* ``profile_fleet_run(sim)`` -- one engine-fleet run under cProfile, the
+  ``profile`` section of ``fleet run --profile``: wall seconds,
+  completions a second, events and self time by event lane (attributed
+  to the port's ``FleetSim`` methods), the top functions.
 """
 
 from __future__ import annotations
@@ -139,6 +139,90 @@ def device_busy(fn, *args) -> Dict[str, float]:
                and not ev.is_user_annotation())
     return {"wall_ms": round(wall, 3), "busy_ms": round(busy, 3),
             "busy_pct": round(100.0 * busy / wall, 1)}
+
+
+# fleet event lanes -> the FleetSim methods that handle them; a lane's
+# cost is the cProfile self time summed over its methods, so nested
+# handlers never count twice
+_FLEET_LANE_FNS = {
+    "arrival": ("_offer_arrival", "_on_place", "_shed"),
+    "completion": ("_handle_completion", "_complete", "_record",
+                   "_fire_hedges", "_maybe_retry"),
+    "chaos": ("_apply_chaos", "_apply_node_chaos", "_apply_link_chaos",
+              "_apply_domain_chaos"),
+    "health_probe": ("_probe_quarantined", "_observe_health",
+                     "_drain_migrations", "_refresh_link_slowdowns"),
+    "autoscaler": ("_autoscale", "_sched_step"),
+    "kv_transfer": ("_requeue_front",),
+    "core": ("step", "run", "_step_sched", "_skip_uninteresting",
+             "_advance", "_next_wake", "quiescent"),
+}
+
+
+def profile_fleet_run(sim, top: int = 25) -> Dict[str, Any]:
+    """Run ``sim.run()`` under cProfile: ``{"report": ...}`` plus the
+    wall seconds, completions a wall second, each event lane's pushes
+    (summed over the retry, hedge, warm-up and rebind heaps, plus the
+    arrivals and completions) and self time, and the top functions by
+    cumulative time. Wall-clock numbers only: the report is the one an
+    unprofiled run gives."""
+    import cProfile
+    import pstats
+
+    from kind_tpu_sim_torch.fleet import events as _ev
+
+    prof = cProfile.Profile()
+    t0 = time.monotonic()
+    prof.enable()
+    report = sim.run()
+    prof.disable()
+    wall = max(time.monotonic() - t0, 1e-9)
+
+    stats = pstats.Stats(prof)
+    lane_self_s = {lane: 0.0 for lane in _FLEET_LANE_FNS}
+    fn_to_lane = {fn: lane for lane, fns in _FLEET_LANE_FNS.items()
+                  for fn in fns}
+    rows = []
+    for (fname, lineno, func), (_cc, nc, tt, ct, _callers) \
+            in stats.stats.items():
+        if fname.endswith(os.path.join("fleet", "sim.py")):
+            lane = fn_to_lane.get(func)
+            if lane is not None:
+                lane_self_s[lane] += tt
+        rows.append({"function": f"{os.path.basename(fname)}:"
+                                 f"{lineno}({func})",
+                     "calls": nc, "self_s": round(tt, 4),
+                     "cumulative_s": round(ct, 4)})
+    rows.sort(key=lambda r: -r["cumulative_s"])
+
+    lane_names = {_ev.LANE_ARRIVAL: "arrival",
+                  _ev.LANE_COMPLETION: "completion",
+                  _ev.LANE_CHAOS: "chaos",
+                  _ev.LANE_HEALTH_PROBE: "health_probe",
+                  _ev.LANE_AUTOSCALER: "autoscaler",
+                  _ev.LANE_PLANNER: "planner",
+                  _ev.LANE_KV_TRANSFER: "kv_transfer"}
+    pushes = {name: 0 for name in lane_names.values()}
+    for heap in (sim._retry_heap, sim._hedge_heap, sim._warming,
+                 sim._rebinding):
+        for lane, seq in enumerate(heap._seq):
+            if seq:
+                pushes[lane_names[lane]] += seq
+    # arrivals and completions ride no heap
+    pushes["arrival"] += report.get("requests", 0)
+    pushes["completion"] += len(report.get("completions", ()))
+    lanes = {
+        name: {"events": pushes.get(name, 0),
+               "self_s": round(lane_self_s.get(name, 0.0), 4)}
+        for name in sorted(set(pushes) | set(lane_self_s))
+    }
+    return {
+        "report": report,
+        "wall_s": round(wall, 3),
+        "events_per_s": round(len(report.get("completions", ())) / wall),
+        "lanes": lanes,
+        "top_functions": rows[:top],
+    }
 
 
 def _trace_files(log_dir) -> List[str]:

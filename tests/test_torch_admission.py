@@ -17,6 +17,9 @@ from kind_tpu_sim.models import serving as jserving
 from kind_tpu_sim_torch.models import serving as pserving
 
 from torch_parity import TINY, jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 MAX_NEW = 6

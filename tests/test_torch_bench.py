@@ -26,6 +26,9 @@ from kind_tpu_sim.fleet import costmodel
 from kind_tpu_sim_torch import bench as pbench
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CALIBRATION = ROOT / "kind_tpu_sim_torch" / "calibration"

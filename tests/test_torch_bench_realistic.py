@@ -5,6 +5,7 @@ uses), so that its minute and that file's live reference run go to
 different workers."""
 
 import numpy as np
+import pytest
 
 from kind_tpu_sim_torch import bench as pbench
 
@@ -14,6 +15,9 @@ from test_torch_bench import (
     _reference_realistic_keys,
     _serving_params,
 )
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def test_realistic_entry_on_the_cpu():

@@ -20,6 +20,9 @@ import pytest
 from kind_tpu_sim import chaos as jchaos
 from kind_tpu_sim_torch import chaos as pchaos
 from kind_tpu_sim_torch import cli as pcli
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SEEDS = (0, 7)
 # the fields of each scenario's result that do not depend on the weights

@@ -20,6 +20,9 @@ from kind_tpu_sim_torch import chaos as pchaos
 from kind_tpu_sim_torch import cli as pcli
 from kind_tpu_sim_torch import metrics as pmetrics
 from kind_tpu_sim_torch.models import transformer as ptf
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 KEYS = ("plan", "preempted_at_step", "resume_max_loss_drift", "ok",
         "scenario", "seed", "recovery_events")

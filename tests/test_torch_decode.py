@@ -22,6 +22,9 @@ from kind_tpu_sim_torch.models import decode as pdecode
 from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import TINY, jax_cfg, make_params, prompts
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 # fp32 on both sides; the cache path and the forward sum in other

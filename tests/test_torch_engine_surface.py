@@ -24,6 +24,9 @@ from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import TINY, jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 # a non-round clock step, so the rounding of ttft/e2e shows

@@ -11,8 +11,10 @@ deadlines and a slowed replica, and with the autoscaler. The report's
 ``completions`` (stream crcs included), ``ok``, ``config`` and
 ``fleet_counters`` must be equal. The model is the reference scenarios'
 tiny config in fp32, so greedy streams have no near-ties. Then the
-features the port refuses, and the ``fleet`` command against the
-reference's ``fleet --engine serving``.
+features the port refuses (the scheduler-backed fleet and the loop
+choices are held to the reference in ``test_torch_fleet_sched.py``),
+and the ``fleet`` command against the reference's ``fleet --engine
+serving``.
 """
 
 import dataclasses
@@ -31,6 +33,9 @@ from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
                       d_ff=64, max_seq=64, dtype="float32")
@@ -266,8 +271,7 @@ def _factory(rid):
     raise AssertionError("no replica is built for a refused config")
 
 
-@pytest.mark.parametrize("field", ["sched", "training", "disagg", "zoo",
-                                   "generations"])
+@pytest.mark.parametrize("field", ["disagg", "zoo", "generations"])
 def test_refused_fleet_features_raise_naming_them(field):
     cfg = dataclasses.replace(pfleet.FleetConfig(), **{field: object()})
     with pytest.raises(ValueError, match=f"FleetConfig.{field} "):
@@ -275,12 +279,13 @@ def test_refused_fleet_features_raise_naming_them(field):
 
 
 def test_the_event_core_audit_lane_and_analytic_replicas_raise():
-    with pytest.raises(ValueError, match="event_core"):
-        pfleet.FleetSim(pfleet.FleetConfig(event_core=True), [],
-                        replica_factory=_factory)
-    with pytest.raises(ValueError, match="fast_forward"):
-        pfleet.FleetSim(pfleet.FleetConfig(fast_forward=False), [],
-                        replica_factory=_factory)
+    # the loop choices run (test_torch_fleet_sched.py holds their
+    # reports equal); training without a scheduler, analytic replicas
+    # and the zoo trace still raise
+    with pytest.raises(ValueError, match="FleetConfig.sched"):
+        pfleet.FleetSim(pfleet.FleetConfig(
+            training=pfleet.TrainingConfig()), [],
+            replica_factory=lambda rid: StubReplica(rid, 1))
     with pytest.raises(ValueError, match="SimReplica"):
         pfleet.FleetSim(pfleet.FleetConfig(), [])
     with pytest.raises(ValueError, match="zoo"):
@@ -343,10 +348,10 @@ def test_fleet_trace_command_matches_the_reference(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "sim"], ["--sched"], ["--sched-policy", "ici"], ["--zoo"],
-    ["--disagg", "1:1"], ["--disagg-tier", "ici"], ["--train", "1"],
+    ["--engine", "sim"], ["--zoo"],
+    ["--disagg", "1:1"], ["--disagg-tier", "ici"],
     ["--generations", "v5e"], ["--calibration", "cal.json"],
-    ["--bench", "bench.json"], ["--profile"]])
+    ["--bench", "bench.json"]])
 def test_fleet_command_refuses_the_simulators_layers(extra):
     with pytest.raises(SystemExit, match="simulator|not ported"):
         pcli.main(["fleet", "run", "--device", "cpu"] + extra)

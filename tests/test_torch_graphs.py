@@ -45,6 +45,9 @@ from kind_tpu_sim_torch.ops import int8_matmul as pim
 from kind_tpu_sim_torch.ops import paged_attention as ppa
 
 from torch_parity import TINY, jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 GRID = dict(max_slots=2, max_len=64)

@@ -37,6 +37,9 @@ from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 import test_torch_training as training
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 GQA = training.GQA_FLASH
 CASES = {"plain": GQA, "remat": dataclasses.replace(GQA, remat=True)}

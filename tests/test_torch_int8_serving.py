@@ -40,6 +40,9 @@ from torch_parity import (
     make_params,
     prompts,
 )
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = dataclasses.replace(TINY, flash=False, int8_kv=True, int8_native=True)
 DEQUANT = dataclasses.replace(CFG, int8_native=False)

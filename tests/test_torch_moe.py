@@ -32,6 +32,9 @@ from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 from torch_parity import TINY, drive, jax_cfg, make_params, prompts
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 # 4 experts (MoeConfig's default): capacity 2 x tokens / 4 drops tokens
 # whenever a routed set leans on one expert, so the routed sets show (with

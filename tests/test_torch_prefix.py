@@ -26,6 +26,9 @@ from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import speculative as pspec
 
 from torch_parity import TINY, assert_margins, jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 # the function-level suffix tests prefill with the plain attention (the

@@ -30,6 +30,9 @@ from kind_tpu_sim_torch.ops import int8_matmul as im
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 from torch_parity import jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
                       d_ff=64, max_seq=32, dtype="float32")

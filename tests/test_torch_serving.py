@@ -36,6 +36,9 @@ from torch_parity import (
     make_params,
     prompts,
 )
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 MARGIN = 1e-3

@@ -26,6 +26,9 @@ from kind_tpu_sim_torch.models import speculative as pspec
 from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import TINY, jax_cfg, make_params
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CFG = TINY
 LP_TOL = 1e-5

@@ -30,6 +30,9 @@ from kind_tpu_sim_torch.ops import flash_attention as fa
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 from torch_parity import jax_cfg
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 STEPS = 5
 # tests/test_model.py's config (there in bf16; fp32 first here)

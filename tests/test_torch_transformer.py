@@ -25,6 +25,9 @@ from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.weights import params_from_numpy
 
 from torch_parity import TINY, jax_cfg, make_params, prompts
+from torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CONFIGS = {
     "fp32_mha": ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,

@@ -10,6 +10,7 @@ import contextlib
 import dataclasses
 
 import numpy as np
+import pytest
 
 from kind_tpu_sim_torch.models import transformer as ptf
 from kind_tpu_sim_torch.weights import params_from_numpy
@@ -57,7 +58,8 @@ FLEET_CFG = ptf.ModelConfig(vocab_size=64, d_model=32, n_heads=2,
 FLEET_SERVING = dict(max_slots=4, max_len=128, chunk=8, max_queue=64)
 FLEET_COMPARED = ("requests", "completed", "virtual_s", "slo", "router",
                   "completions", "ok", "config", "fleet_counters", "health",
-                  "overload", "tenancy", "integrity", "preemptions")
+                  "overload", "tenancy", "integrity", "preemptions",
+                  "scheduler", "training", "autoscaler")
 
 
 @contextlib.contextmanager
@@ -74,16 +76,35 @@ def one_thread():
         torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """``one_thread`` over a whole test module (``pytestmark =
+    pytest.mark.usefixtures("torch_one_thread")`` after importing it):
+    the port's tiny models run faster on one torch thread, and the
+    tier-1 run's six workers share the host's cores."""
+    with one_thread():
+        yield
+
+
 def fleet_layers_run(fleet, serving, params, cfg, spec, events=(), seed=3,
                      health=False, overload=False, tenancy=None,
-                     audit_frac=None, **kw):
+                     audit_frac=None, sched=None, training=None,
+                     fleet_kw=None, sims=None, **kw):
     """One ``FleetSim`` run of either package (``fleet`` and ``serving``
     its modules) over three ``EngineReplica``s of ``FLEET_SERVING``,
     least-outstanding, tick 0.01, SLO ttft 0.3 / e2e 0.6. ``spec`` is the
     ``WorkloadSpec``'s fields (``tenancy=True``: the stock tenants'
-    trace); ``health`` and ``overload`` turn on the package's default
-    configs, ``tenancy`` (True or False: isolated or not) its stock
-    tenants; ``kw`` goes to each ``ServingEngine``."""
+    trace); ``events`` the chaos events' fields; ``health`` and
+    ``overload`` turn on the package's default configs, ``tenancy``
+    (True or False: isolated or not) its stock tenants; ``sched`` (a
+    dict of ``FleetSchedConfig`` fields) places the replicas through the
+    scheduler and ``training`` (a list of ``TrainingGangConfig`` fields)
+    adds training gangs under them; ``params`` may be a function of the
+    replica id (a replica on other weights stands for a defective chip);
+    ``fleet_kw`` overrides other
+    ``FleetConfig`` fields (an ``autoscaler`` dict becomes the package's
+    ``AutoscalerConfig``); a ``sims`` list receives the ``FleetSim``;
+    ``kw`` goes to each ``ServingEngine``."""
     fc = dict(replicas=3, policy="least-outstanding", tick_s=0.01,
               slo=fleet.SloPolicy(ttft_s=0.3, e2e_s=0.6),
               health=fleet.DetectorConfig() if health else None,
@@ -92,6 +113,14 @@ def fleet_layers_run(fleet, serving, params, cfg, spec, events=(), seed=3,
     if tenancy is not None:
         fc["tenancy"] = dataclasses.replace(fleet.default_tenancy(),
                                             isolation=tenancy)
+    if sched is not None:
+        fc["sched"] = fleet.FleetSchedConfig(**sched)
+    if training is not None:
+        fc["training"] = fleet.TrainingConfig(gangs=tuple(
+            fleet.TrainingGangConfig(**g) for g in training))
+    fc.update(fleet_kw or {})
+    if isinstance(fc.get("autoscaler"), dict):
+        fc["autoscaler"] = fleet.AutoscalerConfig(**fc["autoscaler"])
     if spec.get("tenancy"):
         spec = dict(spec, tenancy=fleet.default_tenancy())
     trace = fleet.generate_trace(fleet.WorkloadSpec(**spec), seed)
@@ -99,14 +128,16 @@ def fleet_layers_run(fleet, serving, params, cfg, spec, events=(), seed=3,
 
     def factory(rid):
         return fleet.EngineReplica(rid, serving.ServingEngine(
-            params, cfg, serving.ServingConfig(**FLEET_SERVING),
-            clock=clock.now, **kw))
+            params(rid) if callable(params) else params, cfg,
+            serving.ServingConfig(**FLEET_SERVING), clock=clock.now, **kw))
 
-    return fleet.FleetSim(fleet.FleetConfig(**fc), trace,
-                          replica_factory=factory,
-                          chaos_events=[fleet.ChaosEvent(**e)
-                                        for e in events],
-                          clock=clock).run()
+    sim = fleet.FleetSim(fleet.FleetConfig(**fc), trace,
+                         replica_factory=factory,
+                         chaos_events=[fleet.ChaosEvent(**e) for e in events],
+                         clock=clock)
+    if sims is not None:
+        sims.append(sim)
+    return sim.run()
 
 
 def fleet_layers_pair(params, spec, **layers):
