@@ -237,7 +237,23 @@ it fails (nothing is caught and ignored):
    --include-slow`` at the reference's tiny configs, whose weight-free
    fields must equal the same runs' on the CPU (the profile section
    carrying the reference's keys). Each step logs its flash launches
-   by route and its CUDA graph captures.
+   by route and its CUDA graph captures;
+15. the calibrated simulator (host only, no kernel) -- (a) the cost
+   model's ``calibrate`` over phase 9's bench model block (the
+   flagship's widths at 2 of its 8 layers, from this card): every
+   required key present, every rate positive, every error finite,
+   printed labelled as 2 of 8 layers and never written over
+   ``calibration/h100.json``; as processes at once: (b) ``python -m
+   kind_tpu_sim_torch fleet calibrate --bench
+   kind_tpu_sim_torch/calibration/bench_h100.json --out
+   build/h100_check.json``, whose file must equal the committed
+   ``h100.json`` byte for byte and whose exit code must be the 0.15
+   rule's (1 while prefill's error is 0.243129); (c) ``fleet run
+   --engine sim --disagg 2:2 --requests 200 --calibration
+   kind_tpu_sim_torch/calibration/h100.json``, exit 0 and a report
+   equal to the same run made in this process; (d) ``chaos run
+   --scenario disagg-pool-loss``, ``CHAOS RUN OK``. Under
+   ``SIM15_MAX_S`` seconds.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5707,6 +5723,11 @@ SIM_SCENARIO_KEYS = {
                          "preempt_at_s", "requeues", "streams_identical",
                          "tail_attainment_clean", "tail_attainment_faulted",
                          "ok", "recovery_events"),
+    # analytic: every field holds on any device
+    "disagg-pool-loss": ("plan", "requests", "kv_factor",
+                         "decode_survivors", "requeues", "kv",
+                         "tail_attainment_clean", "tail_attainment_faulted",
+                         "ok", "recovery_events"),
 }
 
 
@@ -6102,6 +6123,115 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     return out
 
 
+# phase 15: the calibrated simulator's commands, run as processes from
+# the repository root, and the phase's limit in seconds
+SIM15_CALIBRATION = "kind_tpu_sim_torch/calibration/h100.json"
+SIM15_COMMANDS = {
+    "calibrate": ("fleet", "calibrate", "--bench",
+                  "kind_tpu_sim_torch/calibration/bench_h100.json",
+                  "--out", "build/h100_check.json"),
+    "disagg": ("fleet", "run", "--engine", "sim", "--disagg", "2:2",
+               "--requests", "200", "--calibration", SIM15_CALIBRATION,
+               "--json"),
+    "pool loss": ("chaos", "run", "--scenario", "disagg-pool-loss"),
+}
+SIM15_MAX_S = 30.0
+
+
+def calibrated_sim_phase() -> dict:
+    """Phase 15: the calibrated simulator, on the host alone. (b)-(d)
+    start first as processes; meanwhile (a) calibrates phase 9's bench
+    model block (2 of the flagship's 8 layers, this card) and (c)'s run
+    is made in this process. Returns the calibration, the errors and
+    the commands' walls."""
+    from kind_tpu_sim_torch import cli, fleet
+    from kind_tpu_sim_torch.fleet import costmodel
+
+    t0 = time.perf_counter()
+    out = {}
+    with ThreadPoolExecutor(len(SIM15_COMMANDS)) as pool:
+        running = {label: pool.submit(
+            _timed_run, [sys.executable, "-m", "kind_tpu_sim_torch", *argv])
+            for label, argv in SIM15_COMMANDS.items()}
+
+        # (a) this run's bench block, as the cost model reads it
+        bench = json.loads((HERE / "build" / "chip_smoke_bench.json")
+                           .read_text())
+        cal = costmodel.calibrate({"model": bench["model"]})
+        rates = [cal["prefill"]["analytic_tokens_per_s"],
+                 cal["prefill"]["measured_tokens_per_s"]]
+        for d in cal["decode"].values():
+            rates += [d["analytic_tokens_per_s"], d["measured_tokens_per_s"],
+                      d["achieved_gbps"], d["bytes_per_step_mb"]]
+        errors = costmodel.CostModel(cal).errors()
+        check(all(r > 0 for r in rates)
+              and all(math.isfinite(e) for e in errors.values())
+              and model_layers(cal) == BENCH_LAYERS,
+              f"15 (a): calibration of phase 9's block {cal}")
+        log(json.dumps({"calibration_2_of_8_layers": cal}, sort_keys=True))
+        log(f"15 (a) phase 9's block ({BENCH_LAYERS} of 8 layers) "
+            f"calibrated: errors {errors} (not written over "
+            f"{SIM15_CALIBRATION})")
+        out["calibration_2_of_8_layers"] = {"calibration": cal,
+                                            "errors": errors}
+
+        # (c)'s run in this process
+        argv = list(SIM15_COMMANDS["disagg"])
+        args = cli.build_parser().parse_args(argv)
+        seed = fleet.resolve_seed(args.seed)
+        here = fleet.FleetSim(
+            cli.fleet_config(args), cli.fleet_trace(args, seed),
+            calibration=fleet.load_calibration(
+                str(HERE / SIM15_CALIBRATION))).run()
+        here.update(seed=seed, engine="sim")
+        ran = {label: f.result() for label, f in running.items()}
+
+    committed = (HERE / SIM15_CALIBRATION).read_text()
+    written = (HERE / "build" / "h100_check.json").read_text()
+    cal_errors = costmodel.CostModel(json.loads(written)).errors()
+    want_rc = 0 if max(cal_errors.values()) <= costmodel.MAX_ERROR_FRAC \
+        else 1
+    res = ran["calibrate"]
+    log(f"15 (b) {' '.join(SIM15_COMMANDS['calibrate'])}: rc {res['rc']} "
+        f"(the 0.15 rule gives {want_rc}), {res['wall_s']:.1f} s; errors "
+        f"{cal_errors}")
+    check(written == committed,
+          f"15 (b): the file fleet calibrate wrote differs from "
+          f"{SIM15_CALIBRATION}")
+    check(res["rc"] == want_rc and want_rc == 1
+          and cal_errors["prefill"] == 0.243129,
+          f"15 (b): fleet calibrate exited {res['rc']} with errors "
+          f"{cal_errors}, want {want_rc} (prefill 0.243129 over 0.15):\n"
+          f"{res['stdout'][-2000:]}\n{res['stderr'][-2000:]}")
+    res = ran["disagg"]
+    check(res["rc"] == 0, f"15 (c) exited {res['rc']}:\n"
+          f"{res['stdout'][-2000:]}\n{res['stderr'][-2000:]}")
+    report = json.loads(res["stdout"].strip().splitlines()[-1])
+    check(json.dumps(report, sort_keys=True)
+          == json.dumps(here, sort_keys=True)
+          and report["ok"] and report["completed"] == 200
+          and report["disagg"]["calibration_errors"] == cal_errors,
+          "15 (c): the disaggregated fleet's report differs from the same "
+          "run in this process, or is not ok")
+    log(f"15 (c) {' '.join(SIM15_COMMANDS['disagg'])}: rc 0, "
+        f"{res['wall_s']:.1f} s, equal to the run in this process; kv "
+        f"{json.dumps(report['disagg']['kv'])}; slo attainment "
+        f"{report['slo']['attainment']}")
+    res = ran["pool loss"]
+    check(res["rc"] == 0 and res["stdout"].rstrip().endswith("CHAOS RUN OK"),
+          f"15 (d) exited {res['rc']}:\n{res['stdout'][-2000:]}\n"
+          f"{res['stderr'][-2000:]}")
+    log(f"15 (d) {' '.join(SIM15_COMMANDS['pool loss'])}: "
+        f"{res['stdout'].strip().splitlines()[-2].strip()}; rc 0, "
+        f"{res['wall_s']:.1f} s")
+    wall = time.perf_counter() - t0
+    check(wall < SIM15_MAX_S,
+          f"phase 15 took {wall:.1f} s, over its {SIM15_MAX_S} s")
+    out["commands"] = {label: {"rc": r["rc"], "wall_s": r["wall_s"]}
+                       for label, r in ran.items()}
+    return out
+
+
 # the phase walls kept from the last run of this script before admission,
 # the solo generators and the train step were compiled programs (NVIDIA
 # H100 80GB HBM3, 700.00 W), and that command's wall: printed beside
@@ -6223,6 +6353,7 @@ def main() -> int:
                   lambda: entry_points_phase(entry_runs()))
     sim = phase("14 simulator engine paths", sim_engine_phase, fa, tf,
                 flagship.flagship_config())
+    phase("15 calibrated simulator", calibrated_sim_phase)
     # the forward and paged kernels' counts come from serving, the
     # backward kernels' from training (the forward's there is checked),
     # the int8 kernel's from 4g's solo W8A8 decode, the toolchain

@@ -101,6 +101,7 @@ import torch
 
 from kind_tpu_sim_torch import profiling
 from kind_tpu_sim_torch.device import resolve
+from kind_tpu_sim_torch.fleet import costmodel
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -108,17 +109,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 SECTION_S: dict = {}
 
 # The model-block keys, and the keys of each decode roofline, without
-# which the fleet simulator's ``costmodel.calibrate`` refuses a bench
-# artifact: the port's own copies of the reference's lists.
-REQUIRED_MODEL_KEYS = (
-    "backend", "chip", "decode_roofline", "decode_tokens_per_s",
-    "decode_int8_roofline", "decode_int8_tokens_per_s",
-    "fwd_tokens_per_s", "model", "prefill_tokens_per_s", "serving",
-)
-REQUIRED_ROOFLINE_KEYS = (
-    "achieved_gbps", "bytes_per_step_mb", "kv_mb", "roof_gbps",
-    "weight_mb",
-)
+# which the cost model's ``calibrate`` refuses a bench artifact.
+REQUIRED_MODEL_KEYS = costmodel.REQUIRED_MODEL_KEYS
+REQUIRED_ROOFLINE_KEYS = costmodel.REQUIRED_ROOFLINE_KEYS
 
 
 # the reference bench's realistic entry (bench.py:1236-1394): its

@@ -10,8 +10,8 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
   the seed and its arguments alone (a ``random.Random`` keyed by the
   crc32 of the arguments' repr; each event's ``param`` drawn before its
   slot and target), so a plan equals the reference's for the same seed;
-* the scenario registry and its three scenarios that drive device work,
-  each with the reference's bar:
+* the scenario registry: the three scenarios that drive device work
+  and one analytic scenario, each with the reference's bar:
 
   - ``preempt-train``: SIGTERM mid-step; a checkpoint is written at that
     step, and the resumed loss trajectory equals the uninterrupted one
@@ -20,18 +20,26 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
     requeues and every stream equals the fault-free run's;
   - ``fleet-preemption``: a replica of real engines is preempted and
     restored under seeded traffic; streams equal the fault-free run's
-    and tail SLO attainment recovers.
+    and tail SLO attainment recovers;
+  - ``disagg-pool-loss`` (analytic, no device work): a disaggregated
+    fleet of analytic replicas, priced from the cost model's
+    calibration, loses its whole prefill pool and then has its KV link
+    degraded; the decode pool finishes prefilled work through the
+    outage, no request is lost, and tail attainment recovers.
 
 Each scenario takes the reference's ``seed`` and returns its result
-dict. Its model is the reference's tiny config unless ``cfg`` names
-another, with weights drawn from ``torch.Generator`` seed 0 (the
-reference draws from ``jax.random``, so only the fields that do not
-depend on the weights equal the reference's). It runs on the card unless
-``device="cpu"`` is given. ``preempt-train`` signals its own process:
-run it in the main thread, where the guard's handler is installed.
+dict. A device scenario's model is the reference's tiny config unless
+``cfg`` names another, with weights drawn from ``torch.Generator`` seed
+0 (the reference draws from ``jax.random``, so only the fields that do
+not depend on the weights equal the reference's). It runs on the card
+unless ``device="cpu"`` is given. ``preempt-train`` signals its own
+process: run it in the main thread, where the guard's handler is
+installed. ``disagg-pool-loss`` takes neither ``device`` nor ``cfg``;
+with the same calibration its result is the reference's.
 
 The reference's other scenarios drive the simulator's control plane,
-worker pools, scheduler and analytic fleets, and are not ported.
+worker pools, scheduler and the rest of its analytic fleets, and are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -322,14 +330,18 @@ class Scenario:
     fn: Callable[..., dict]
     description: str
     slow: bool = False
+    # True: it does device work and takes ``device`` and ``cfg``
+    device: bool = True
 
 
 SCENARIOS: Dict[str, Scenario] = {}
 
 
-def _scenario(name: str, description: str, slow: bool = False):
+def _scenario(name: str, description: str, slow: bool = False,
+              device: bool = True):
     def register(fn):
-        SCENARIOS[name] = Scenario(name, fn, description, slow=slow)
+        SCENARIOS[name] = Scenario(name, fn, description, slow=slow,
+                                   device=device)
         return fn
 
     return register
@@ -528,6 +540,66 @@ def _scenario_fleet_preemption(seed: int, *, device="cuda",
     }
 
 
+@_scenario("disagg-pool-loss",
+           "a disaggregated fleet loses its whole prefill pool "
+           "mid-traffic, then its KV link degrades; the decode pool "
+           "keeps finishing already-prefilled work through the "
+           "outage, zero requests are lost, and post-heal SLO "
+           "attainment recovers to baseline", device=False)
+def _scenario_disagg_pool_loss(seed: int) -> dict:
+    plan = ChaosSchedule(seed).plan(kinds=("kv_transfer_degrade",),
+                                    n_faults=1, horizon=8, targets=1)
+    factor = plan.events[0].param
+    spec = fleet.WorkloadSpec(process="poisson", rps=120.0,
+                              n_requests=100, prompt_len=(8, 24),
+                              max_new=(8, 16))
+    trace = fleet.generate_trace(spec, seed)
+    dis = fleet.DisaggConfig(prefill_replicas=2, decode_replicas=2)
+    fc = fleet.FleetConfig(replicas=4, policy="least-outstanding",
+                           tick_s=0.01, disagg=dis,
+                           slo=fleet.SloPolicy(ttft_s=1.0, e2e_s=5.0))
+    clean = fleet.FleetSim(fc, trace).run()
+    span = clean["virtual_s"]
+    loss = round(span * 0.3, 6)
+    heal = round(span * 0.45, 6)
+    last_restore = round(span * 0.65, 6)
+    events = [
+        fleet.ChaosEvent(at_s=loss, action="prefill_pool_loss", target=0),
+        fleet.ChaosEvent(at_s=heal, action="prefill_pool_restore",
+                         target=0),
+        fleet.ChaosEvent(at_s=round(span * 0.5, 6), action="kv_degrade",
+                         target=0, param=factor),
+        fleet.ChaosEvent(at_s=last_restore, action="kv_restore", target=0),
+    ]
+    faulted = fleet.FleetSim(fc, trace, chaos_events=events).run()
+    # requests whose KV crossed before the loss keep finishing inside
+    # the outage
+    survivors = sum(1 for e in faulted["completions"]
+                    if loss <= e["finish_s"] < heal
+                    and e["finish_reason"] == "length")
+
+    def tokens(rep):
+        return sum(e["tokens"] for e in rep["completions"])
+
+    tail_clean = fleet.attainment_over(clean["completions"], last_restore)
+    tail_faulted = fleet.attainment_over(faulted["completions"],
+                                         last_restore)
+    recovered = (tail_clean is None or tail_faulted is None
+                 or tail_faulted >= tail_clean)
+    return {
+        "plan": plan.as_dict(),
+        "requests": len(trace),
+        "kv_factor": factor,
+        "decode_survivors": survivors,
+        "requeues": faulted["router"]["requeues"],
+        "kv": faulted["disagg"]["kv"],
+        "tail_attainment_clean": tail_clean,
+        "tail_attainment_faulted": tail_faulted,
+        "ok": bool(faulted["ok"] and clean["ok"] and survivors > 0
+                   and tokens(faulted) == tokens(clean) and recovered),
+    }
+
+
 def scenario_names(include_slow: bool = False) -> List[str]:
     """The registry's names, sorted; slow ones only on request."""
     return sorted(n for n, s in SCENARIOS.items()
@@ -535,16 +607,18 @@ def scenario_names(include_slow: bool = False) -> List[str]:
 
 
 def run_scenario(name: str, seed: Optional[int] = None, **kwargs) -> dict:
-    """Run one named scenario (``kwargs``: its ``device`` and ``cfg``);
-    the report carries the seed, the plan, the recovery-log delta of
-    this run and the verdict."""
+    """Run one named scenario (``kwargs``: a device scenario's ``device``
+    and ``cfg``; an analytic scenario takes none and ignores them); the
+    report carries the seed, the plan, the recovery-log delta of this
+    run and the verdict."""
     if name not in SCENARIOS:
         raise ValueError(
             f"unknown scenario {name!r}; ported: "
             f"{', '.join(sorted(SCENARIOS))}")
     seed = resolve_seed(seed)
+    scenario = SCENARIOS[name]
     before = metrics.recovery_log().counts()
-    report = SCENARIOS[name].fn(seed, **kwargs)
+    report = scenario.fn(seed, **(kwargs if scenario.device else {}))
     report.update({
         "scenario": name,
         "seed": seed,

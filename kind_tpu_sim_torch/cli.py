@@ -11,7 +11,9 @@
         [--repeat N] [--json] [--device cuda|cpu] [--backend gloo|nccl]
     python -m kind_tpu_sim_torch manifests torch-multihost [--topology T]
         [--accelerator A] [--num-slices N] [--out FILE]
-    python -m kind_tpu_sim_torch fleet run|trace [--engine serving]
+    python -m kind_tpu_sim_torch fleet run|trace [--engine serving|sim]
+        [--disagg P:D [--disagg-tier ici|dcn] [--disagg-dtype bf16|int8]
+        [--calibration PATH]]
         [--seed N] [--replicas N] [--policy P] [--rps R] [--requests N]
         [--process P] [--deadline-s S] [--ttft-slo S] [--e2e-slo S]
         [--itl-slo S] [--shared-prefix-frac F] [--prefix-groups N]
@@ -20,6 +22,8 @@
         [--audit-frac F] [--sched [--sched-policy ici|binpack|spread]
         [--train N]] [--no-event-core] [--profile] [--trace-file F]
         [--save-trace F] [--out F] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch fleet calibrate --bench PATH [--out PATH]
+        [--json]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
 
@@ -63,27 +67,38 @@ Services and StatefulSets of a ``torch.distributed`` world a slice over
 GPU nodes (``manifests.torch_multihost_manifest``), printed or written
 to ``--out``.
 
-``fleet`` is the counterpart of ``python -m kind_tpu_sim fleet --engine
-serving`` (``kind_tpu_sim/cli.py:run_fleet``): a fleet of real serving
-engines (the reference's tiny model, weights from ``torch.Generator``
-seed 0, four slots of 128 positions each) under a seeded open-loop
+``fleet`` is the counterpart of ``python -m kind_tpu_sim fleet``
+(``kind_tpu_sim/cli.py:run_fleet``): a fleet under a seeded open-loop
 trace on a virtual clock (``fleet/``), its JSON report the reference's.
+Its default engine is ``serving`` (the reference's is ``sim``): real
+serving engines (the reference's tiny model, weights from
+``torch.Generator`` seed 0, four slots of 128 positions each) on
+``--device``. ``--engine sim`` runs the analytic replicas, which do no
+device work and refuse ``--device``; ``--disagg P:D`` (sim only) splits
+them into prefill and decode pools priced from ``--calibration`` (the
+H100's calibration by default), with ``--disagg-tier`` and
+``--disagg-dtype``.
 ``--health``, ``--overload``, ``--tenancy`` and ``--audit-frac`` turn on
 the fleet's control layers as the reference's flags do; ``--sched``
 places the replicas as gangs of the cluster scheduler and ``--train N``
 adds N training gangs under them; ``--no-event-core`` runs the plain
 per-tick loop (the same report) and ``--profile`` adds the cProfile
 section (``profiling.profile_fleet_run``). ``fleet trace`` prints or
-saves the trace alone. The analytic replicas (``--engine sim``) and the
-flags of the simulator's other layers (disaggregated pools, the model
-zoo, generations, calibration) are refused, naming them.
+saves the trace alone. ``fleet calibrate --bench PATH`` derives the cost
+model's calibration from a bench artifact (``bench.py --model-only``),
+writes it to ``--out`` (default: the H100's file), prints each phase's
+error and exits 1 while any error is over 0.15. ``--zoo`` and
+``--generations`` (the model zoo) and ``fleet tune`` are refused,
+naming their layer.
 
 ``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
-(``run_chaos_engine``) for the scenarios that drive device work
-(``chaos.py``): ``preempt-train``, ``serving-slot-failure`` and
-``fleet-preemption``. Without ``--scenario`` it lists them; ``all``
-runs every one (all three are slow, so with ``--include-slow``). It
-prints ``CHAOS RUN OK`` or ``CHAOS RUN FAILED`` and exits 0 or 1.
+(``run_chaos_engine``) for the ported scenarios (``chaos.py``): the
+three that drive device work, ``preempt-train``,
+``serving-slot-failure`` and ``fleet-preemption`` (slow, on
+``--device``), and the analytic ``disagg-pool-loss``. Without
+``--scenario`` it lists them; ``all`` runs the fast ones, and the slow
+ones too with ``--include-slow``. It prints ``CHAOS RUN OK`` or
+``CHAOS RUN FAILED`` and exits 0 or 1.
 """
 
 from __future__ import annotations
@@ -197,8 +212,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     fl = sub.add_parser(
         "fleet",
-        help=("a fleet of real serving engines under seeded open-loop "
-              "traffic with SLO-aware routing, on a virtual clock"))
+        help=("a fleet of real serving engines or analytic replicas under "
+              "seeded open-loop traffic with SLO-aware routing, on a "
+              "virtual clock"))
     fl.add_argument("action", choices=["run", "trace", "calibrate", "tune"])
     fl.add_argument("--seed", type=int, default=None,
                     help="workload seed (default: KIND_TPU_SIM_FLEET_SEED "
@@ -213,9 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
     fl.add_argument("--process", default="poisson",
                     choices=["poisson", "bursty", "diurnal"])
     fl.add_argument("--engine", default="serving", choices=["sim", "serving"],
-                    help=("serving: real ServingEngine replicas (the port's); "
-                          "sim: the simulator's analytic replicas (not "
-                          "ported)"))
+                    help=("serving (the default, unlike the reference's "
+                          "sim, since the port's commands serve real "
+                          "engines): ServingEngine replicas on --device; "
+                          "sim: the analytic replicas, no device work"))
     fl.add_argument("--deadline-s", type=float, default=None,
                     help="per-request e2e budget (virtual s)")
     fl.add_argument("--ttft-slo", type=float, default=0.5)
@@ -240,8 +257,9 @@ def build_parser() -> argparse.ArgumentParser:
     fl.add_argument("--out", default=None,
                     help="write the full JSON report to this file")
     fl.add_argument("--json", action="store_true", dest="as_json")
-    fl.add_argument("--device", default="cuda",
-                    help="torch device the engines run on (default: cuda)")
+    fl.add_argument("--device", default=None,
+                    help="torch device the serving engines run on (default: "
+                         "cuda); refused with --engine sim")
     fl.add_argument("--health", action="store_true",
                     help="the gray-failure detector: latency-aware routing, "
                          "slow-replica quarantine and probe restore; the "
@@ -287,11 +305,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run under cProfile and add a 'profile' section: "
                          "wall seconds, events/s, events and self time by "
                          "event lane, the top functions")
-    # the simulator's other layers: accepted here only to be refused
+    fl.add_argument("--disagg", default=None, metavar="P:D",
+                    help="with --engine sim: P prefill replicas feed D decode "
+                         "replicas over a modeled KV transfer; replaces "
+                         "--replicas with P+D and prices both pools from "
+                         "the calibration")
+    fl.add_argument("--disagg-tier", default=None, choices=["ici", "dcn"],
+                    help="the KV transfer's interconnect tier (default: "
+                         "KIND_TPU_SIM_DISAGG_TIER or ici)")
+    fl.add_argument("--disagg-dtype", default=None, choices=["bf16", "int8"],
+                    help="the KV cache's dtype, pricing the transfer and "
+                         "decode's bandwidth (default: "
+                         "KIND_TPU_SIM_DISAGG_DTYPE or bf16)")
+    fl.add_argument("--calibration", default=None, metavar="PATH",
+                    help="the cost model's calibration JSON for --disagg "
+                         "(default: KIND_TPU_SIM_CALIBRATION or "
+                         "kind_tpu_sim_torch/calibration/h100.json)")
+    fl.add_argument("--bench", default=None, metavar="PATH",
+                    help="fleet calibrate's input: a bench artifact with "
+                         "the model block's roofline keys")
+    # the model zoo: accepted here only to be refused
     fl.add_argument("--zoo", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--generations", "--disagg", "--disagg-tier",
-                 "--disagg-dtype", "--calibration", "--bench"):
-        fl.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    fl.add_argument("--generations", default=None, help=argparse.SUPPRESS)
 
     ch = sub.add_parser(
         "chaos",
@@ -538,15 +573,11 @@ def run_manifests(args: argparse.Namespace) -> int:
     return 0
 
 
-# the fleet flags of the simulator's other layers, with what they set
+# the fleet flags of the simulator's layers the port does not carry yet,
+# with what they set
 _SIMULATOR_FLAGS = (
     ("zoo", "--zoo", "the model zoo"),
     ("generations", "--generations", "per-generation pricing"),
-    ("disagg", "--disagg", "disaggregated prefill/decode pools"),
-    ("disagg_tier", "--disagg-tier", "disaggregated pools"),
-    ("disagg_dtype", "--disagg-dtype", "disaggregated pools"),
-    ("calibration", "--calibration", "the analytic cost model"),
-    ("bench", "--bench", "fleet calibrate"),
 )
 
 
@@ -610,42 +641,110 @@ def fleet_training_config(args: argparse.Namespace):
         for i in range(args.train)))
 
 
-def fleet_config(args: argparse.Namespace):
-    """The ``FleetConfig`` of ``fleet run``'s flags (the detector with its
-    defaults under ``--health``)."""
+def fleet_disagg(args: argparse.Namespace):
+    """The ``DisaggConfig`` of ``--disagg P:D`` (with ``--disagg-tier``
+    and ``--disagg-dtype``), or None."""
     from kind_tpu_sim_torch import fleet
 
+    if not args.disagg:
+        return None
+    if args.sched:
+        raise SystemExit("--disagg is incompatible with --sched (phased "
+                         "pools pin their own placements)")
+    if args.engine == "serving":
+        raise SystemExit("--disagg needs the analytic sim engine (serving "
+                         "replicas have no phase split yet)")
+    return fleet.DisaggConfig.parse(args.disagg, tier=args.disagg_tier,
+                                    dtype=args.disagg_dtype)
+
+
+def fleet_config(args: argparse.Namespace):
+    """The ``FleetConfig`` of ``fleet run``'s flags (the detector with its
+    defaults under ``--health``; ``--disagg``'s pools in place of
+    ``--replicas``)."""
+    from kind_tpu_sim_torch import fleet
+
+    disagg = fleet_disagg(args)
+    replicas = args.replicas
+    if disagg is not None:
+        replicas = disagg.prefill_replicas + disagg.decode_replicas
     return fleet.FleetConfig(
-        replicas=args.replicas, policy=args.policy, tick_s=args.tick_s,
+        replicas=replicas, policy=args.policy, tick_s=args.tick_s,
         autoscale=args.autoscale, eval_every_s=args.eval_every_s,
         slo=fleet.SloPolicy(ttft_s=args.ttft_slo, e2e_s=args.e2e_slo,
                             itl_s=args.itl_slo),
-        autoscaler=fleet.AutoscalerConfig(min_replicas=args.replicas,
+        autoscaler=fleet.AutoscalerConfig(min_replicas=replicas,
                                           max_replicas=args.max_replicas),
         sched=(fleet.FleetSchedConfig(policy=args.sched_policy)
                if args.sched else None),
         health=fleet.DetectorConfig() if args.health else None,
         overload=fleet.OverloadConfig() if args.overload else None,
-        training=fleet_training_config(args),
+        training=fleet_training_config(args), disagg=disagg,
         tenancy=fleet_tenancy(args), audit_frac=args.audit_frac,
         event_core=False if args.no_event_core else None)
 
 
+def fleet_calibrate(args: argparse.Namespace) -> int:
+    """``fleet calibrate --bench PATH [--out PATH] [--json]``: the cost
+    model's calibration from a bench artifact, written to ``--out``
+    (default: the H100's file), each phase's error printed; exit 1 while
+    any error is over the simulator's 0.15."""
+    import pathlib
+
+    from kind_tpu_sim_torch.fleet import costmodel
+
+    if not args.bench:
+        raise SystemExit(
+            "fleet calibrate requires --bench BENCH.json (a `python -m "
+            "kind_tpu_sim_torch.bench --model-only` artifact with the "
+            "roofline keys)")
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    bench_path = next(
+        (q for q in (pathlib.Path(args.bench), repo / args.bench,
+                     repo / "bench_history" / args.bench)
+         if q.is_file()), None)
+    if bench_path is None:
+        raise SystemExit(
+            f"bench artifact {args.bench!r} not found (looked in cwd, "
+            f"{repo} and {repo / 'bench_history'})")
+    with open(bench_path, encoding="utf-8") as fh:
+        bench = json.load(fh)
+    cal = costmodel.calibrate(bench)
+    out_path = args.out or str(costmodel.DEFAULT_CALIBRATION)
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(cal, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    errors = costmodel.CostModel(cal).errors()
+    if args.as_json:
+        print(json.dumps(cal, sort_keys=True))
+    else:
+        print(f"calibration: {cal['model']} on {cal['chip']} "
+              f"(schema {cal['schema']}) -> {out_path}")
+        for phase in sorted(errors):
+            print(f"  {phase}: error_frac {errors[phase]}")
+    return 0 if max(errors.values()) <= costmodel.MAX_ERROR_FRAC else 1
+
+
 def run_fleet(args: argparse.Namespace) -> int:
-    """``fleet run`` / ``fleet trace`` over the port's engines. The JSON
+    """``fleet run`` / ``fleet trace`` / ``fleet calibrate``. A run's JSON
     report (sorted keys) is the same for two runs of one seed."""
     from kind_tpu_sim_torch import fleet
 
-    if args.action in ("calibrate", "tune"):
+    if args.action == "calibrate":
+        return fleet_calibrate(args)
+    if args.action == "tune":
         raise SystemExit(
-            f"fleet {args.action} belongs to the simulator's analytic "
-            "fleet (python -m kind_tpu_sim fleet); not ported")
+            "fleet tune belongs to the simulator's tuner, which the port "
+            "does not carry yet (python -m kind_tpu_sim fleet tune)")
     for attr, flag, layer in _SIMULATOR_FLAGS:
         if getattr(args, attr):
             raise SystemExit(
-                f"{flag} configures {layer}, a layer of the simulator's "
-                "analytic fleet (python -m kind_tpu_sim fleet); not "
-                "ported to the engine fleet")
+                f"{flag} configures {layer}, a layer of the simulator the "
+                "port does not carry yet (python -m kind_tpu_sim fleet)")
+    if args.engine == "sim" and args.device is not None:
+        raise SystemExit(
+            "--engine sim runs the analytic replicas, which do no device "
+            "work: drop --device")
     seed = fleet.resolve_seed(args.seed)
     trace = fleet_trace(args, seed)
     if args.save_trace:
@@ -657,26 +756,28 @@ def run_fleet(args: argparse.Namespace) -> int:
         else:
             print(f"wrote {len(trace)} requests to {args.save_trace}")
         return 0
-    if args.engine == "sim":
-        raise SystemExit(
-            "--engine sim runs the simulator's analytic replicas "
-            "(python -m kind_tpu_sim fleet); the port serves --engine "
-            "serving")
-    replicas = args.replicas
     fc = fleet_config(args)
-    dev = resolve(args.device)
-    cfg, sc = serving_fleet_config()
-    bad = [r for r in trace
-           if max(r.prompt) >= cfg.vocab_size
-           or len(r.prompt) + r.max_new > sc.max_len]
-    if bad:
-        raise SystemExit(
-            f"{len(bad)} trace request(s) exceed the serving engine's "
-            f"vocab={cfg.vocab_size}/max_len={sc.max_len} envelope; "
-            "regenerate the trace within it")
-    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev)
-    sim = fleet.engine_fleet(fc, trace, params, cfg, sc, device=dev)
+    replicas = fc.replicas
+    if args.engine == "sim":
+        dev = None
+        cal = None
+        if fc.disagg is not None and args.calibration:
+            cal = fleet.load_calibration(args.calibration)
+        sim = fleet.FleetSim(fc, trace, calibration=cal)
+    else:
+        dev = resolve(args.device or "cuda")
+        cfg, sc = serving_fleet_config()
+        bad = [r for r in trace
+               if max(r.prompt) >= cfg.vocab_size
+               or len(r.prompt) + r.max_new > sc.max_len]
+        if bad:
+            raise SystemExit(
+                f"{len(bad)} trace request(s) exceed the serving engine's "
+                f"vocab={cfg.vocab_size}/max_len={sc.max_len} envelope; "
+                "regenerate the trace within it")
+        params = tf.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        sim = fleet.engine_fleet(fc, trace, params, cfg, sc, device=dev)
     profile = None
     if args.profile:
         from kind_tpu_sim_torch import profiling
@@ -698,9 +799,21 @@ def run_fleet(args: argparse.Namespace) -> int:
         print(text)
     else:
         slo = report["slo"]
+        where = f" on {dev}" if dev is not None else ""
         print(f"fleet: {report['requests']} requests, {args.policy} over "
-              f"{replicas} replica(s), seed {seed}, engine {args.engine} "
-              f"on {dev}")
+              f"{replicas} replica(s), seed {seed}, engine "
+              f"{args.engine}{where}")
+        if "disagg" in report:
+            d = report["disagg"]
+            kv = d["kv"]
+            errs = d["calibration_errors"]
+            worst = max(errs.values()) if errs else None
+            print(f"  disagg: {d['config']['prefill_replicas']}P:"
+                  f"{d['config']['decode_replicas']}D "
+                  f"({d['config']['dtype']}, {kv['tier']})  kv handoffs "
+                  f"{kv['handoffs']}  {kv['bytes_total']} B in "
+                  f"{kv['transfer_s_total']}s  worst calibration error "
+                  f"{worst}")
         print(f"  attainment {slo['attainment']}  goodput "
               f"{slo.get('goodput_tok_s')} tok/s  throughput "
               f"{slo.get('throughput_tok_s')} tok/s")

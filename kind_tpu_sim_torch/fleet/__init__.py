@@ -1,23 +1,27 @@
-"""The serving fleet over the port's real engines.
+"""The serving fleet: analytic replicas and the port's real engines.
 
-The port's copy of the engine-backed path of ``kind_tpu_sim/fleet/``:
-seeded open-loop traces (``loadgen``), SLO accounting (``slo``), the
-router and the engine replica (``router``), the autoscaler
-(``autoscaler``), overload containment (``overload``), multi-tenancy
-(``tenancy``), the gray-failure detector (``kind_tpu_sim_torch.health``),
-the training tenancy (``training``), the event heap (``events``) and the
+The port's copy of ``kind_tpu_sim/fleet/``: seeded open-loop traces
+(``loadgen``), SLO accounting (``slo``), the router with the analytic
+``SimReplica`` and the engine replica (``router``), the cost model
+priced from the H100's calibration (``costmodel``), disaggregated
+prefill/decode pools (``disagg``), the autoscaler (``autoscaler``),
+overload containment (``overload``), multi-tenancy (``tenancy``), the
+gray-failure detector (``kind_tpu_sim_torch.health``), the training
+tenancy (``training``), the event heap (``events``) and the
 virtual-clock loop (``sim``) with its integrity audit lane and its
 scheduler-backed placement (``kind_tpu_sim_torch.sched``). The same seed
-and config give the reference's report when the engines carry the same
-weights.
+and config give the reference's report (for engine fleets, when the
+engines carry the same weights).
 
 Knobs (``knobs``): KIND_TPU_SIM_FLEET_SEED (``loadgen.resolve_seed``),
 KIND_TPU_SIM_FLEET_TICK_S (``sim.resolve_tick_s``),
 KIND_TPU_SIM_FLEET_WARMUP_S (``autoscaler.resolve_warmup_s``),
 KIND_TPU_SIM_FLEET_FF (``sim.resolve_fast_forward``),
 KIND_TPU_SIM_FLEET_EVENT_CORE (``events.resolve_event_core``),
-KIND_TPU_SIM_TRAIN_* (the training tenancy) and KIND_TPU_SIM_SDC_*
-(the audit lane and chip defects).
+KIND_TPU_SIM_TRAIN_* (the training tenancy), KIND_TPU_SIM_SDC_* (the
+audit lane and chip defects), KIND_TPU_SIM_CALIBRATION
+(``costmodel.load_calibration``) and KIND_TPU_SIM_DISAGG_TIER /
+KIND_TPU_SIM_DISAGG_DTYPE (``disagg.resolve_tier`` / ``resolve_dtype``).
 """
 
 from kind_tpu_sim_torch.health import (  # noqa: F401
@@ -29,6 +33,24 @@ from kind_tpu_sim_torch.fleet.autoscaler import (  # noqa: F401
     AutoscalerConfig,
     ScaleEvent,
     resolve_warmup_s,
+)
+from kind_tpu_sim_torch.fleet.costmodel import (  # noqa: F401
+    CALIBRATION_SCHEMA,
+    DEFAULT_CALIBRATION,
+    CostModel,
+    RequestCost,
+    calibrate,
+    kv_bytes_per_token,
+    load_calibration,
+    parse_geometry,
+)
+from kind_tpu_sim_torch.fleet.disagg import (  # noqa: F401
+    DisaggConfig,
+    KvHandoff,
+    calibrated_sim_config,
+    kv_transfer_s,
+    resolve_dtype,
+    resolve_tier,
 )
 from kind_tpu_sim_torch.fleet.events import (  # noqa: F401
     DueSet,
@@ -63,13 +85,14 @@ from kind_tpu_sim_torch.fleet.router import (  # noqa: F401
     EngineReplica,
     ReplicaCompletion,
     Router,
+    SimReplica,
+    SimReplicaConfig,
 )
 from kind_tpu_sim_torch.fleet.sim import (  # noqa: F401
     ChaosEvent,
     FleetConfig,
     FleetSchedConfig,
     FleetSim,
-    SimReplicaConfig,
     attainment_over,
     engine_fleet,
     resolve_audit_frac,

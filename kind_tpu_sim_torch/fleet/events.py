@@ -7,7 +7,8 @@ The port's copy of ``kind_tpu_sim/fleet/events.py``:
   counter, so a pop is a pure function of the push sequence and
   payloads are never compared.
 * :class:`DueSet`: the answer to "when must the loop step next?"
-  (``immediate``, or the earliest boundary-condition time ``ge``).
+  (``immediate``, the earliest boundary-condition time ``ge``, or the
+  earliest mid-tick slot event ``cover`` of an analytic replica).
 * :func:`resolve_event_core`: the ``KIND_TPU_SIM_FLEET_EVENT_CORE``
   switch (default on). The event core steps only the tick boundaries
   where something can happen and takes the same tick-sized float
@@ -96,7 +97,7 @@ class EventHeap:
 
 
 class DueSet:
-    """The two-way answer to "when must the loop step next?".
+    """The three-way answer to "when must the loop step next?".
 
     ``immediate``: some state machine needs every boundary (a non-empty
     router queue, a draining replica, scheduler activity, an engine
@@ -104,15 +105,18 @@ class DueSet:
     boundary-condition instant ``t``; the first grid boundary
     ``B >= t`` must be stepped (arrivals, chaos, timers, warm-ups,
     rebinds, training events and probe deadlines apply at ``t <=
-    now``). The reference's third answer, the mid-tick instants of its
-    analytic replicas, has no source on an engine fleet.
+    now``). ``cover``: the earliest mid-tick instant ``t`` (an analytic
+    replica's next slot event); the boundary ``B`` with ``B + tick >= t``
+    must be stepped, because a tick processes the slot events in
+    ``(B, B + tick]``.
     """
 
-    __slots__ = ("immediate", "ge")
+    __slots__ = ("immediate", "ge", "cover")
 
     def __init__(self) -> None:
         self.immediate = False
         self.ge = float("inf")
+        self.cover = float("inf")
 
     def need_now(self) -> "DueSet":
         self.immediate = True
@@ -121,4 +125,9 @@ class DueSet:
     def at(self, t: Optional[float]) -> "DueSet":
         if t is not None and t < self.ge:
             self.ge = t
+        return self
+
+    def covering(self, t: Optional[float]) -> "DueSet":
+        if t is not None and t < self.cover:
+            self.cover = t
         return self

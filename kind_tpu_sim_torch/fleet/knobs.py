@@ -1,5 +1,5 @@
-"""The environment knobs the fleet, scheduler, training and chaos layers
-read.
+"""The environment knobs the fleet, scheduler, training, chaos and cost
+model layers read.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
@@ -27,6 +27,9 @@ TRAIN_MTBF_S = "KIND_TPU_SIM_TRAIN_MTBF_S"
 TRAIN_ELASTIC = "KIND_TPU_SIM_TRAIN_ELASTIC"
 SDC_RATE = "KIND_TPU_SIM_SDC_RATE"
 SDC_AUDIT_FRAC = "KIND_TPU_SIM_SDC_AUDIT_FRAC"
+DISAGG_TIER = "KIND_TPU_SIM_DISAGG_TIER"
+DISAGG_DTYPE = "KIND_TPU_SIM_DISAGG_DTYPE"
+CALIBRATION = "KIND_TPU_SIM_CALIBRATION"
 
 # values a bool knob reads as off
 FALSE_VALUES = ("", "0", "false", "no")
@@ -47,6 +50,9 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     TRAIN_ELASTIC: (True, "bool"),
     SDC_RATE: (0.4, "float"),
     SDC_AUDIT_FRAC: (0.0, "float"),
+    DISAGG_TIER: ("ici", "str"),
+    DISAGG_DTYPE: ("bf16", "str"),
+    CALIBRATION: (None, "str"),
 }
 
 
@@ -59,6 +65,8 @@ def get(name: str) -> object:
         return default
     if kind == "bool":
         return raw.lower() not in FALSE_VALUES
+    if kind == "str":
+        return raw
     try:
         return int(raw) if kind == "int" else float(raw)
     except ValueError:

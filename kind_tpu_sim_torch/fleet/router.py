@@ -1,8 +1,18 @@
-"""SLO-aware routing over real serving engines (the fleet data plane).
+"""SLO-aware routing over serving replicas (the fleet data plane).
 
-The port's copy of the engine-backed half of
-``kind_tpu_sim/fleet/router.py``:
+The port's copy of ``kind_tpu_sim/fleet/router.py``:
 
+* :class:`SimReplica` -- the analytic continuous-batching replica on the
+  virtual clock: prefill is a base plus a per-token time, decode a time
+  per output token, ``max_slots`` run at once, and admission happens at
+  tick boundaries, the engine's shape without the matmuls. Each slot
+  keeps the absolute time of its next event, so a span gives the same
+  floats however ticks cover it. A replica has a phase: ``unified``
+  (prefill and decode), ``prefill`` (a request completes at its first
+  token as ``prefill_done``, and the fleet ships its KV cache) or
+  ``decode`` (it admits ``disagg.KvHandoff``s). Its prices come from
+  :class:`SimReplicaConfig`, or from the H100's calibration through
+  ``disagg.calibrated_sim_config``.
 * :class:`EngineReplica` -- a ``models/serving.ServingEngine`` of the
   port as a fleet replica, driven one ``step_round()`` a tick with its
   latency clock bound to the fleet's virtual clock, so real token
@@ -22,10 +32,13 @@ The port's copy of the engine-backed half of
   (``overload``) an open circuit breaker takes its replica out of the
   candidates; with tenant isolation (``tenancy``) the queue drains by
   deficit round robin over tenants, strict priority across QoS tiers.
+  With disaggregated pools (``disagg``) arrivals go to the prefill pool
+  and KV handoffs wait in a lane of their own for the decode pool, which
+  drains first and never sheds; under isolation a tenant over its
+  decode-pool budget defers without blocking the others.
 
-The reference's analytic ``SimReplica`` and the router's disaggregated
-pools, model zoo and columnar fast path belong to simulator layers the
-port does not carry.
+The reference's model-zoo routing and columnar fast path belong to
+layers the port does not carry yet.
 """
 
 from __future__ import annotations
@@ -54,7 +67,373 @@ class ReplicaCompletion:
     finish_s: float
     tokens: int
     tokens_crc: int
-    finish_reason: str  # length | stop | deadline_exceeded | shed
+    # length | stop | deadline_exceeded | shed | prefill_done
+    finish_reason: str
+    # ground truth that an analytic replica's defective chip corrupted
+    # this stream's fingerprint; detection reads only tokens_crc
+    corrupted: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SimReplicaConfig:
+    """The analytic replica's service model. The defaults are the
+    reference's round figures for a small model, not a measurement of
+    any chip; ``disagg.calibrated_sim_config`` prices a replica from the
+    H100's calibration instead. The ``model_*`` and ``resident_model``
+    fields are the model zoo's per-model prices (the reference's
+    fields, kept so a config and its report are the reference's); the
+    port's zoo is not carried yet, and a replica refuses them."""
+
+    max_slots: int = 4
+    prefill_base_s: float = 0.010
+    prefill_per_tok_s: float = 0.001
+    tpot_s: float = 0.005
+    max_queue: int = 64          # submit() refuses beyond this
+    prefix_cache_entries: int = 8  # prefix groups remembered (0: off)
+    model_prefill_per_tok_s: tuple = ()
+    model_tpot_s: tuple = ()
+    model_swap_s: tuple = ()
+    resident_model: str = ""
+
+    def as_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        if not self.model_tpot_s:
+            for key in ("model_prefill_per_tok_s", "model_tpot_s",
+                        "model_swap_s", "resident_model"):
+                del out[key]
+        else:
+            for key in ("model_prefill_per_tok_s", "model_tpot_s",
+                        "model_swap_s"):
+                out[key] = [list(pair) for pair in out[key]]
+        return out
+
+
+class SimReplica:
+    """The deterministic service-time model of one continuous-batching
+    engine. Each slot runs a prefill then decode timeline in closed
+    form: it carries the absolute virtual time of its next event (the
+    first token, then each decoded token), so advancing it over
+    [t0, t1] gives the same floats in one ``tick()`` or a hundred, which
+    is what lets the event core skip boundaries. Admission and the
+    queue's deadline reaping happen at tick boundaries."""
+
+    def __init__(self, replica_id: int,
+                 cfg: SimReplicaConfig = SimReplicaConfig(),
+                 phase: str = "unified"):
+        if phase not in ("prefill", "decode", "unified"):
+            raise ValueError(
+                f"unknown replica phase {phase!r}; known: "
+                "prefill, decode, unified")
+        if cfg.model_tpot_s or cfg.model_prefill_per_tok_s:
+            raise ValueError(
+                "per-model prices (SimReplicaConfig.model_*) belong to "
+                "the model zoo, which the port does not carry yet")
+        self.replica_id = replica_id
+        self.cfg = cfg
+        self.phase = phase
+        self.healthy = True
+        # gray failure: a factor on every service time (1.0 nominal)
+        self.slowdown = 1.0
+        # silent data corruption: the share of completions whose
+        # fingerprint a defective chip flips while timings stay nominal
+        self.corrupt_frac = 0.0
+        self.queue: List[TraceRequest] = []
+        self._slots: List[Optional[dict]] = [None] * cfg.max_slots
+        # prefix groups seen, LRU-bounded: a hit skips the group
+        # prefix's share of prefill
+        self._prefix_seen: Dict[int, bool] = {}
+        # under tenant isolation: group -> owning tenant, and the
+        # per-tenant entry caps the fleet installs, so a tenant evicts
+        # its own oldest groups before a neighbour's
+        self._prefix_owner: Dict[int, str] = {}
+        self.tenant_prefix_caps: Optional[Dict[str, int]] = None
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+
+    def set_slowdown(self, factor: float) -> None:
+        """Scale prefill and decode times by ``factor`` (1 restores)
+        from now on; a token already scheduled keeps its time."""
+        self.slowdown = max(1.0, float(factor))
+
+    def set_corrupt(self, frac: float) -> None:
+        """Make this replica's chip defective: a deterministic ``frac``
+        of its completions carry a wrong, replica-keyed fingerprint
+        (0 restores clean output)."""
+        self.corrupt_frac = max(0.0, min(1.0, float(frac)))
+
+    def cancel(self, request_id: str) -> bool:
+        """Withdraw a hedge's losing copy from the queue or free its
+        slot mid-stream (its partial stream is discarded); False when
+        the request is not here."""
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                return True
+        for i, slot in enumerate(self._slots):
+            if (slot is not None
+                    and slot["req"].request_id == request_id):
+                self._slots[i] = None
+                return True
+        return False
+
+    def outstanding(self) -> int:
+        return (len(self.queue)
+                + sum(1 for s in self._slots if s is not None))
+
+    def idle(self) -> bool:
+        return self.outstanding() == 0
+
+    def holds(self, request_id: str) -> bool:
+        """Whether ``request_id`` is queued or in a slot here."""
+        return (any(r.request_id == request_id for r in self.queue)
+                or any(s is not None and s["req"].request_id == request_id
+                       for s in self._slots))
+
+    def submit(self, req: TraceRequest, now: float) -> bool:
+        if not self.healthy:
+            return False
+        if (self.cfg.max_queue
+                and len(self.queue) >= self.cfg.max_queue):
+            return False
+        self.queue.append(req)
+        return True
+
+    def _prefill_cost(self, req: TraceRequest) -> float:
+        """The whole prompt's prefill time, less the cached prefix's
+        share on a group hit."""
+        toks = len(req.prompt)
+        if (self.cfg.prefix_cache_entries > 0
+                and req.prefix_group >= 0):
+            if req.prefix_group in self._prefix_seen:
+                self.prefix_hits += 1
+                self._prefix_seen.pop(req.prefix_group)
+                self._prefix_seen[req.prefix_group] = True
+                toks = max(1, toks - self._group_prefix_len(req))
+            else:
+                self.prefix_misses += 1
+                self._prefix_seen[req.prefix_group] = True
+                caps = self.tenant_prefix_caps
+                if caps is not None:
+                    owner = tenant_of(req)
+                    self._prefix_owner[req.prefix_group] = owner
+                    cap = caps.get(owner)
+                    if cap is not None:
+                        owned = [g for g in self._prefix_seen
+                                 if self._prefix_owner.get(g) == owner]
+                        while len(owned) > cap:
+                            g = owned.pop(0)
+                            self._prefix_seen.pop(g, None)
+                            self._prefix_owner.pop(g, None)
+                while (len(self._prefix_seen)
+                       > self.cfg.prefix_cache_entries):
+                    evicted = next(iter(self._prefix_seen))
+                    self._prefix_seen.pop(evicted)
+                    self._prefix_owner.pop(evicted, None)
+        return (self.cfg.prefill_base_s
+                + self.cfg.prefill_per_tok_s * toks) * self.slowdown
+
+    @staticmethod
+    def _group_prefix_len(req: TraceRequest) -> int:
+        """The shared prefix's length: at most half the prompt, so a hit
+        never removes prefill entirely."""
+        return min(len(req.prompt) // 2, 16)
+
+    def next_due(self) -> tuple:
+        """``(ge_s, cover_s)``, the event core's view of this replica.
+        ``ge_s``: the earliest boundary-condition instant (a queued
+        request's deadline, or 0.0 when queued work can take a free slot
+        at the next boundary). ``cover_s``: a lower bound on the earliest
+        completion in a slot, by length or by deadline (per-token events
+        between completions need no stepping), taken a float-noise
+        margin early because the closed form multiplies where the slot
+        sums. None when nothing is scheduled."""
+        if not self.healthy:
+            return (None, None)
+        ge = None
+        if self.queue:
+            if any(s is None for s in self._slots):
+                ge = 0.0
+            else:
+                for req in self.queue:
+                    if req.deadline_s is None:
+                        continue
+                    d = req.arrival_s + req.deadline_s
+                    if ge is None or d < ge:
+                        ge = d
+        cover = None
+        for slot in self._slots:
+            if slot is None:
+                continue
+            step = self.cfg.tpot_s * self.slowdown
+            req = slot["req"]
+            if slot["first_s"] is None:
+                # the prefill event, then at least max(max_new - 1, 1)
+                # decodes; for a prefill-pool replica the prefill event
+                # ends the slot
+                k = (0 if self.phase == "prefill"
+                     else max(req.max_new - 1, 1))
+            else:
+                k = max(req.max_new - slot["tokens"], 1) - 1
+            lb = slot["next_s"] + k * step
+            if req.deadline_s is not None:
+                # a deadline fires at the last token event within its
+                # budget, in (deadline - step, deadline]
+                d = req.arrival_s + req.deadline_s - step
+                if d < lb:
+                    lb = d
+            lb -= 1e-9 + 1e-12 * abs(lb)
+            if cover is None or lb < cover:
+                cover = lb
+        return (ge, cover)
+
+    def tick(self, now: float, dt: float) -> List[ReplicaCompletion]:
+        """Advance through (now, now + dt]: reap and admit at the
+        boundary, then every slot event in the window. A call that
+        covers no event changes nothing."""
+        if not self.healthy:
+            return []
+        done: List[ReplicaCompletion] = []
+        if self.queue:
+            still: List[TraceRequest] = []
+            for req in self.queue:
+                if (req.deadline_s is not None
+                        and now >= req.arrival_s + req.deadline_s):
+                    base = (req.request
+                            if getattr(req, "is_kv_handoff", False)
+                            else req)
+                    done.append(ReplicaCompletion(
+                        request=base, dispatch_s=now, first_s=None,
+                        finish_s=round(req.arrival_s + req.deadline_s, 9),
+                        tokens=0, tokens_crc=0,
+                        finish_reason="deadline_exceeded"))
+                else:
+                    still.append(req)
+            self.queue = still
+            for i, slot in enumerate(self._slots):
+                if slot is None and self.queue:
+                    req = self.queue.pop(0)
+                    if getattr(req, "is_kv_handoff", False):
+                        # a decode-pool admission: the KV arrived
+                        # prefilled, the slot resumes at the handoff's
+                        # token count, and the dispatch and first-token
+                        # stamps stay the request's
+                        self._slots[i] = {
+                            "req": req.request,
+                            "dispatch_s": req.dispatch_s,
+                            "next_s": (now + self.cfg.tpot_s
+                                       * self.slowdown),
+                            "first_s": req.first_s,
+                            "tokens": req.tokens,
+                        }
+                        continue
+                    self._slots[i] = {
+                        "req": req,
+                        "dispatch_s": now,
+                        # the slot's next event: the first token at the
+                        # end of prefill, then one a decoded token
+                        "next_s": now + self._prefill_cost(req),
+                        "first_s": None,
+                        "tokens": 0,
+                    }
+        end = now + dt
+        tpot = self.cfg.tpot_s
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot["next_s"] > end:
+                continue
+            req = slot["req"]
+            deadline = (req.arrival_s + req.deadline_s
+                        if req.deadline_s is not None else None)
+            while slot["next_s"] <= end:
+                t = slot["next_s"]
+                if slot["first_s"] is None:
+                    slot["first_s"] = t
+                    slot["tokens"] = 1
+                    if self.phase == "prefill":
+                        # the request's KV leaves for the decode pool
+                        done.append(self._complete(
+                            slot, finish_s=t, reason="prefill_done"))
+                        self._slots[i] = None
+                        break
+                else:
+                    slot["tokens"] += 1
+                    if slot["tokens"] >= req.max_new:
+                        done.append(self._complete(
+                            slot, finish_s=t, reason="length"))
+                        self._slots[i] = None
+                        break
+                # the next token at the current slowdown; a deadline it
+                # would overshoot fires now, stamped at the deadline
+                nxt = t + tpot * self.slowdown
+                if deadline is not None and nxt > deadline:
+                    done.append(self._complete(
+                        slot, finish_s=deadline,
+                        reason="deadline_exceeded"))
+                    self._slots[i] = None
+                    break
+                slot["next_s"] = nxt
+        # a slot freed mid-tick stays empty until the next boundary
+        return done
+
+    def _complete(self, slot: dict, finish_s: float,
+                  reason: str) -> ReplicaCompletion:
+        req = slot["req"]
+        # an audit copy (``~a``) fingerprints its base request, so the
+        # copies compare
+        base_id = req.request_id.split("~a", 1)[0]
+        crc = zlib.crc32(repr((base_id, req.seed,
+                               slot["tokens"])).encode("utf-8"))
+        corrupted = False
+        if (self.corrupt_frac > 0.0 and reason == "length"
+                and zlib.crc32(
+                    f"sdc:{self.replica_id}:{base_id}".encode(
+                        "utf-8")) / 2**32 < self.corrupt_frac):
+            # keyed by the replica, so two defective chips never agree
+            crc ^= zlib.crc32(
+                f"sdcbits:{self.replica_id}".encode("utf-8"))
+            corrupted = True
+        return ReplicaCompletion(
+            request=req,
+            dispatch_s=round(slot["dispatch_s"], 9),
+            first_s=(round(slot["first_s"], 9)
+                     if slot["first_s"] is not None else None),
+            finish_s=round(finish_s, 9),
+            tokens=slot["tokens"],
+            tokens_crc=crc,
+            finish_reason=reason,
+            corrupted=corrupted)
+
+    def fail(self, now: float) -> List[TraceRequest]:
+        """Preempt: every queued and in-flight request is returned for
+        the router to requeue, the prefix cache is lost, and the replica
+        refuses traffic until :meth:`restore`."""
+        displaced = list(self.queue)
+        displaced.extend(s["req"] for s in self._slots if s is not None)
+        self.queue = []
+        self._slots = [None] * self.cfg.max_slots
+        self._prefix_seen.clear()
+        self._prefix_owner.clear()
+        self.healthy = False
+        return displaced
+
+    def restore(self, now: float) -> None:
+        self.healthy = True
+
+    def report(self) -> Dict[str, object]:
+        out: Dict[str, object] = {
+            "kind": "sim",
+            "healthy": self.healthy,
+            "outstanding": self.outstanding(),
+        }
+        if self.phase != "unified":
+            out["phase"] = self.phase
+        if self.slowdown != 1.0:
+            out["slowdown"] = round(self.slowdown, 6)
+        if self.corrupt_frac:
+            out["corrupt_frac"] = round(self.corrupt_frac, 6)
+        if self.prefix_hits or self.prefix_misses:
+            out["prefix"] = {"hits": self.prefix_hits,
+                             "misses": self.prefix_misses}
+        return out
 
 
 class EngineReplica:
@@ -86,6 +465,10 @@ class EngineReplica:
 
     def idle(self) -> bool:
         return self.outstanding() == 0
+
+    def holds(self, request_id: str) -> bool:
+        """Whether ``request_id`` is queued or in flight on the engine."""
+        return request_id in self._dispatched
 
     def submit(self, req: TraceRequest, now: float) -> bool:
         if not self.healthy:
@@ -187,13 +570,22 @@ class Router:
 
     def __init__(self, replicas: Sequence, policy: str = "round-robin",
                  max_queue: int = 0, affinity_spill: int = 8,
-                 health=None, overload=None, tenancy=None):
+                 health=None, overload=None, disagg: bool = False,
+                 tenancy=None):
         if policy not in POLICIES:
             raise ValueError(
                 f"unknown policy {policy!r}; known: {', '.join(POLICIES)}")
         self.replicas: List = list(replicas)
         self.policy = policy
         self.max_queue = max_queue
+        # disaggregated pools: arrivals route to the prefill pool, KV
+        # handoffs wait in their own lane for the decode pool (a blocked
+        # prefill head never starves prefilled work) and are never shed
+        self.disagg = disagg
+        self.kv_queue: List = []
+        self.kv_routed = 0
+        self.kv_expired = 0
+        self.kv_deferred = 0
         # optional health.FailureDetector, overload.OverloadState and
         # tenancy.TenancyState (see the module's docstring)
         self.health = health
@@ -221,11 +613,21 @@ class Router:
 
     # -- policy ------------------------------------------------------
 
-    def _healthy(self, now: float) -> List:
-        """The routable replicas: healthy ones, less the quarantined and
-        those whose breaker is open, unless that would leave none
-        (degraded capacity beats none)."""
-        out = [r for r in self.replicas if r.healthy]
+    def _pool(self, need: str) -> List:
+        """The replicas of phase ``need`` and the unified ones (every
+        replica without disaggregated pools)."""
+        if not self.disagg:
+            return self.replicas
+        return [r for r in self.replicas
+                if getattr(r, "phase", "unified") in ("unified", need)]
+
+    def _healthy(self, now: float = 0.0,
+                 pool: Optional[List] = None) -> List:
+        """The routable replicas of ``pool`` (default: all): healthy
+        ones, less the quarantined and those whose breaker is open,
+        unless that would leave none (degraded capacity beats none)."""
+        base = self.replicas if pool is None else pool
+        out = [r for r in base if r.healthy]
         if self.health is not None:
             clean = [r for r in out if not self.health.quarantined(
                 f"replica-{r.replica_id}")]
@@ -247,10 +649,18 @@ class Router:
         return (r.outstanding() + 1) * rel
 
     def _pick_order(self, req: TraceRequest, now: float = 0.0) -> List:
-        """Candidate replicas, best first; ties break on replica_id."""
-        healthy = self._healthy(now)
+        """Candidate replicas, best first; ties break on replica_id. With
+        disaggregated pools the request's pool is chosen first, so the
+        never-empty fallbacks hold per pool; a KV handoff goes to the
+        least loaded decode replica under every policy."""
+        is_handoff = getattr(req, "is_kv_handoff", False)
+        pool = self._pool("decode" if is_handoff else "prefill")
+        healthy = self._healthy(now, pool)
         if not healthy:
             return []
+        if is_handoff:
+            return sorted(healthy,
+                          key=lambda r: (self._load_key(r), r.replica_id))
         if self.policy == "round-robin":
             start = self._rr % len(healthy)
             return healthy[start:] + healthy[:start]
@@ -261,7 +671,7 @@ class Router:
         # prefix-affinity: a group's home is the crc of its id over the
         # whole replica list, so the mapping survives scale events
         key = zlib.crc32(f"group:{req.prefix_group}".encode("utf-8"))
-        home = self.replicas[key % len(self.replicas)]
+        home = pool[key % len(pool)]
         # affinity never overrides a quarantine or an open breaker
         if home not in healthy or (
                 self.health is not None and self.health.quarantined(
@@ -292,19 +702,51 @@ class Router:
         self.queue.append(req)
         return None
 
+    def offer_handoff(self, handoff) -> None:
+        """A delivered KV handoff enters the decode lane; no admission
+        control, since its prefill is already spent."""
+        self.kv_queue.append(handoff)
+
     def requeue_front(self, displaced: Sequence[TraceRequest]) -> None:
         """A failed replica's requests go back to the queue head in
-        arrival order."""
-        ordered = sorted(displaced,
-                         key=lambda r: (r.arrival_s, r.request_id))
+        arrival order. A KV handoff unwraps to its request, which
+        prefills again: its cache died with the replica."""
+        ordered = sorted(
+            (r.request if getattr(r, "is_kv_handoff", False) else r
+             for r in displaced),
+            key=lambda r: (r.arrival_s, r.request_id))
         self.queue[:0] = ordered
         self.requeues += len(ordered)
         metrics.fleet_board().incr("fleet_requeues", len(ordered))
 
     def dispatch(self, now: float) -> List[ReplicaCompletion]:
         """One placement pass; returns the outcomes decided at the
-        router (queued requests past their deadline)."""
+        router (queued requests past their deadline). The KV lane drains
+        before the arrival queue."""
         out: List[ReplicaCompletion] = []
+        if self.kv_queue:
+            still_kv: List = []
+            for h in self.kv_queue:
+                if (h.deadline_s is not None
+                        and now >= h.arrival_s + h.deadline_s):
+                    self.kv_expired += 1
+                    metrics.disagg_board().incr("kv_expired_queued")
+                    out.append(ReplicaCompletion(
+                        request=h.request, dispatch_s=now, first_s=None,
+                        finish_s=round(h.arrival_s + h.deadline_s, 9),
+                        tokens=0, tokens_crc=0,
+                        finish_reason="deadline_exceeded"))
+                else:
+                    still_kv.append(h)
+            self.kv_queue = still_kv
+            if self.tenancy is not None and self.tenancy.isolation:
+                self._drain_kv_tenanted(now)
+            else:
+                # the head blocks while the decode pool is full or gone;
+                # a handoff waits, it is never shed
+                while self.kv_queue and self._place_handoff(
+                        self.kv_queue[0], now):
+                    self.kv_queue.pop(0)
         still: List[TraceRequest] = []
         for req in self.queue:
             if (req.deadline_s is not None
@@ -369,6 +811,59 @@ class Router:
             if progress:
                 self.drr_rounds += 1
 
+    def _place_handoff(self, h, now: float) -> bool:
+        """Submit one KV handoff into the decode pool."""
+        for replica in self._pick_order(h, now):
+            if replica.submit(h, now):
+                self.kv_routed += 1
+                self.per_replica[replica.replica_id] = (
+                    self.per_replica.get(replica.replica_id, 0) + 1)
+                metrics.disagg_board().incr("kv_handoffs_routed")
+                return True
+        return False
+
+    def _drain_kv_tenanted(self, now: float) -> None:
+        """The KV lane under isolation: a handoff whose tenant holds its
+        decode-pool budget defers (it stays queued) without blocking
+        other tenants' handoffs; a full pool still blocks everyone."""
+        ten = self.tenancy
+        pool = self._pool("decode")
+        capacity = self._pool_capacity(pool)
+        kept: List = []
+        blocked = False
+        for h in self.kv_queue:
+            if blocked:
+                kept.append(h)
+                continue
+            name = tenant_of(h)
+            budget = ten.kv_budget(name, capacity)
+            if (budget is not None
+                    and self._tenant_pool_load(name, pool) >= budget):
+                ten.note_kv_deferred(name)
+                self.kv_deferred += 1
+                kept.append(h)
+                continue
+            if not self._place_handoff(h, now):
+                kept.append(h)
+                blocked = True
+        self.kv_queue = kept
+
+    @staticmethod
+    def _pool_capacity(pool) -> int:
+        """A decode pool's slots (the KV budget's denominator); its
+        replicas are analytic."""
+        return sum(r.cfg.max_slots for r in pool)
+
+    @staticmethod
+    def _tenant_pool_load(name: str, pool) -> int:
+        """A tenant's requests queued at or running on a pool's
+        replicas."""
+        return (sum(1 for r in pool for req in r.queue
+                    if tenant_of(req) == name)
+                + sum(1 for r in pool for slot in r._slots
+                      if slot is not None
+                      and tenant_of(slot["req"]) == name))
+
     def _note_place(self, req: TraceRequest, replica, now: float) -> None:
         """A placement's bookkeeping. Deficit round robin may place from
         mid-queue; ids are unique, so remove() is unambiguous."""
@@ -401,4 +896,10 @@ class Router:
         if self.tenancy is not None and self.tenancy.isolation:
             out["fair_queue"] = {"quantum": round(self.tenancy.drr_quantum, 6),
                                  "rounds": self.drr_rounds}
+        if self.disagg:
+            out["kv"] = {"routed": self.kv_routed,
+                         "expired": self.kv_expired,
+                         "queued": len(self.kv_queue)}
+            if self.kv_deferred:
+                out["kv"]["deferred"] = self.kv_deferred
         return out

@@ -1,16 +1,20 @@
-"""The fleet loop over real engines: trace -> router -> replicas -> SLO.
+"""The fleet loop: trace -> router -> replicas -> SLO.
 
-The port's copy of the engine-backed path of
-``kind_tpu_sim/fleet/sim.py``. One virtual-clock loop: arrivals due at a
-tick boundary enter the router (or shed), the router places its queue by
-policy, every replica advances one tick (an :class:`EngineReplica` runs
-one ``step_round()`` of its engine), completions stream into the SLO
-tracker and the completion log, and the autoscaler gets one observation
-an evaluation interval. Chaos events (replica preemption and restore,
-slowdown) fire at planned virtual times and displaced requests requeue
-at the router.
+The port's copy of ``kind_tpu_sim/fleet/sim.py``. One virtual-clock
+loop: arrivals due at a tick boundary enter the router (or shed), the
+router places its queue by policy, every replica advances one tick,
+completions stream into the SLO tracker and the completion log, and the
+autoscaler gets one observation an evaluation interval. Chaos events
+(replica preemption and restore, slowdown) fire at planned virtual times
+and displaced requests requeue at the router.
 
-Six layers ride the loop when their :class:`FleetConfig` field is set:
+A replica is what ``replica_factory(replica_id)`` builds: an
+:class:`EngineReplica` around one of the port's engines (``engine_fleet``
+builds such a fleet; an engine runs one ``step_round()`` a tick), or,
+with no factory, the analytic ``SimReplica`` of ``FleetConfig.sim``
+(no device work: its slots run in closed form on the virtual clock).
+
+Seven layers ride the loop when their :class:`FleetConfig` field is set:
 
 * ``sched`` (a :class:`FleetSchedConfig`): every replica is a gang that
   ``kind_tpu_sim_torch.sched.ClusterScheduler`` places on a node
@@ -43,7 +47,16 @@ Six layers ride the loop when their :class:`FleetConfig` field is set:
   on a replica that produced none of its results and the stream crcs are
   compared; a disagreement takes a third copy, and the majority names
   the replica to quarantine (under ``sched``, one chip of its node
-  leaves the inventory and the gang rebinds).
+  leaves the inventory and the gang rebinds). An analytic replica made
+  defective by ``sdc_chip`` chaos corrupts a share of its fingerprints.
+* ``disagg`` (a ``disagg.DisaggConfig``, analytic replicas only):
+  prefill and decode pools priced from the cost model's calibration
+  (the H100's unless KIND_TPU_SIM_CALIBRATION or the ``calibration``
+  argument names another). A prefilled request ships its KV cache to
+  the decode pool over a modeled link (the KV-transfer lane); with
+  ``autoscale`` each pool scales on its own signal (TTFT for prefill,
+  ITL or backlog for decode); chaos takes out the prefill pool or
+  degrades the link.
 
 Three execution strategies give byte-identical reports, as in the
 reference: the event core (``event_core``, default on, knob
@@ -51,15 +64,18 @@ KIND_TPU_SIM_FLEET_EVENT_CORE) steps only the tick boundaries where
 something can happen; without it the plain per-tick loop runs, with the
 idle-gap fast-forward (``fast_forward``, default on, knob
 KIND_TPU_SIM_FLEET_FF) or without. Across skipped boundaries the clock
-takes the same tick-sized float additions. For a given config, trace,
-events and weights, :meth:`FleetSim.run` returns the reference's report.
+takes the same tick-sized float additions; an analytic replica's
+closed-form next events (``SimReplica.next_due``) tell the event core
+which boundaries it may skip. For a given config, trace, events and
+weights, :meth:`FleetSim.run` returns the reference's report (the
+reference's columnar mirror of analytic fleets is an execution strategy
+with the same reports, and is not carried).
 
-The features only the simulator's analytic fleet serves are refused
-with a ``ValueError`` that names them: ``disagg``, ``zoo`` and
-``generations``; so is a fleet without a ``replica_factory`` (the
-reference's analytic replicas). Knobs: KIND_TPU_SIM_FLEET_TICK_S
-(``resolve_tick_s``), KIND_TPU_SIM_SDC_AUDIT_FRAC
-(``resolve_audit_frac``), KIND_TPU_SIM_SDC_RATE.
+The model zoo and per-generation pricing (``zoo``, ``generations``) are
+refused with a ``ValueError`` that names them. Knobs:
+KIND_TPU_SIM_FLEET_TICK_S (``resolve_tick_s``),
+KIND_TPU_SIM_SDC_AUDIT_FRAC (``resolve_audit_frac``),
+KIND_TPU_SIM_SDC_RATE, KIND_TPU_SIM_CALIBRATION.
 """
 
 from __future__ import annotations
@@ -76,12 +92,24 @@ from kind_tpu_sim_torch.fleet.autoscaler import (
     AutoscalerConfig,
     resolve_warmup_s,
 )
+from kind_tpu_sim_torch.fleet.costmodel import (
+    CostModel,
+    kv_bytes_per_token,
+    load_calibration,
+)
+from kind_tpu_sim_torch.fleet.disagg import (
+    DisaggConfig,
+    KvHandoff,
+    calibrated_sim_config,
+    kv_transfer_s,
+)
 from kind_tpu_sim_torch.fleet.events import (
     LANE_ARRIVAL,
     LANE_AUTOSCALER,
     LANE_CHAOS,
     LANE_COMPLETION,
     LANE_INTEGRITY_AUDIT,
+    LANE_KV_TRANSFER,
     DueSet,
     EventHeap,
     resolve_event_core,
@@ -96,6 +124,8 @@ from kind_tpu_sim_torch.fleet.router import (
     EngineReplica,
     ReplicaCompletion,
     Router,
+    SimReplica,
+    SimReplicaConfig,
 )
 from kind_tpu_sim_torch.fleet.slo import SloPolicy, SloTracker
 from kind_tpu_sim_torch.fleet.tenancy import (
@@ -110,6 +140,7 @@ from kind_tpu_sim_torch.fleet.training import (
 from kind_tpu_sim_torch.health import DetectorConfig, FailureDetector
 from kind_tpu_sim_torch.models.serving import ServingEngine
 from kind_tpu_sim_torch.parallel import collectives
+
 
 def resolve_tick_s(value: Optional[float] = None) -> float:
     """``value``, else KIND_TPU_SIM_FLEET_TICK_S, else 0.01 virtual
@@ -140,17 +171,23 @@ class ChaosEvent:
     """A fleet-level fault at virtual time ``at_s``: ``preempt``
     displaces replica ``target``'s whole load and ``restore`` heals it;
     ``slow`` steps it every ``param``-th tick (``unslow`` undoes it);
-    ``sdc_chip`` is recorded (an engine replica has no corruption
-    model). With ``FleetConfig.sched``: ``node_drain`` / ``node_fail``
-    cordon or break node index ``target`` and evict its gangs,
-    ``node_restore`` heals it; ``link_degrade`` sets ICI domain index
+    ``sdc_chip`` makes an analytic replica's chip defective (it corrupts
+    the share ``param`` of its completions until an integrity quarantine
+    pulls it; an engine replica has no corruption model, and the event
+    is only recorded). With ``FleetConfig.sched``: ``node_drain`` /
+    ``node_fail`` cordon or break node index ``target`` and evict its
+    gangs, ``node_restore`` heals it; ``link_degrade`` sets ICI domain index
     ``target``'s link factor to ``param`` (``link_restore`` heals it);
     ``domain_fault`` / ``domain_restore`` fail or heal every node of
     one rack (``FleetSchedConfig.rack_pods``). With
     ``FleetConfig.training``: ``train_preempt`` / ``train_kill``
     preempt gang ``target`` gracefully or hard, and ``sdc_train_chip``
-    plants a defect on one of its chips. The disaggregated and zoo
-    actions need simulator layers the port does not carry and raise."""
+    plants a defect on one of its chips. With ``FleetConfig.disagg``:
+    ``prefill_pool_loss`` / ``prefill_pool_restore`` fail or heal every
+    prefill replica, ``kv_degrade`` scales the KV link's bandwidth by
+    ``param`` for transfers that start later (``kv_restore`` heals it).
+    ``model_swap_evict`` needs the model zoo, not carried yet, and
+    raises."""
 
     at_s: float
     action: str
@@ -200,44 +237,15 @@ class FleetSchedConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class SimReplicaConfig:
-    """The reference's analytic-replica service model. An engine fleet
-    never reads it; it is kept so that ``FleetConfig.sim`` and the
-    report's ``config`` section are the reference's."""
-
-    max_slots: int = 4
-    prefill_base_s: float = 0.010
-    prefill_per_tok_s: float = 0.001
-    tpot_s: float = 0.005
-    max_queue: int = 64
-    prefix_cache_entries: int = 8
-    model_prefill_per_tok_s: tuple = ()
-    model_tpot_s: tuple = ()
-    model_swap_s: tuple = ()
-    resident_model: str = ""
-
-    def as_dict(self) -> dict:
-        out = dataclasses.asdict(self)
-        if not self.model_tpot_s:
-            for key in ("model_prefill_per_tok_s", "model_tpot_s",
-                        "model_swap_s", "resident_model"):
-                del out[key]
-        else:
-            for key in ("model_prefill_per_tok_s", "model_tpot_s",
-                        "model_swap_s"):
-                out[key] = [list(pair) for pair in out[key]]
-        return out
-
-
-@dataclasses.dataclass(frozen=True)
 class FleetConfig:
     """The reference's fleet config, every field in order with its
-    default. ``disagg``, ``zoo`` and ``generations`` configure simulator
-    layers the port does not carry: :class:`FleetSim` refuses them when
+    default. ``zoo``, ``generations`` and ``zoo_large_model_gen``
+    configure the model zoo and per-generation pricing, which the port
+    does not carry yet: :class:`FleetSim` refuses the first two when
     set. ``fast_forward``, ``event_core`` and ``columnar`` choose how
     the loop runs, not what it computes, and stay out of
-    :meth:`as_dict` (``columnar`` engages only on analytic fleets and
-    is inert here)."""
+    :meth:`as_dict` (the reference's columnar mirror is not carried, so
+    ``columnar`` is inert)."""
 
     replicas: int = 2
     policy: str = "round-robin"
@@ -254,7 +262,7 @@ class FleetConfig:
     health: Optional[DetectorConfig] = None
     overload: Optional[OverloadConfig] = None
     training: Optional[TrainingConfig] = None
-    disagg: Optional[object] = None
+    disagg: Optional[DisaggConfig] = None
     tenancy: Optional[TenancyConfig] = None
     zoo: Optional[object] = None
     generations: Optional[tuple] = None
@@ -280,7 +288,7 @@ class FleetConfig:
             out["eval_every_s"] = self.eval_every_s
         if self.autoscale:
             out["autoscaler"] = dataclasses.asdict(self.autoscaler)
-        for name in ("sched", "health", "overload", "training",
+        for name in ("sched", "health", "overload", "training", "disagg",
                      "tenancy"):
             layer = getattr(self, name)
             if layer is not None:
@@ -294,26 +302,23 @@ class FleetConfig:
 
 # the simulator layers each refused FleetConfig field configures
 _SIMULATOR_LAYERS = {
-    "disagg": "disaggregated prefill/decode pools",
     "zoo": "the model zoo",
     "generations": "per-generation pricing of analytic replicas",
 }
 
 # chaos actions that need one of those layers, and the field naming it
-_CHAOS_NEEDS = {
-    "prefill_pool_loss": "disagg", "prefill_pool_restore": "disagg",
-    "kv_degrade": "disagg", "kv_restore": "disagg",
-    "model_swap_evict": "zoo",
-}
+_CHAOS_NEEDS = {"model_swap_evict": "zoo"}
+
+_DISAGG_CHAOS = ("prefill_pool_loss", "prefill_pool_restore",
+                 "kv_degrade", "kv_restore")
 
 
 def _refuse_unported(cfg: FleetConfig) -> None:
     for name, layer in _SIMULATOR_LAYERS.items():
         if getattr(cfg, name) is not None:
             raise ValueError(
-                f"FleetConfig.{name} ({layer}) is a feature of the "
-                "simulator's analytic fleet, not ported to the engine "
-                "fleet")
+                f"FleetConfig.{name} ({layer}) is a layer of the "
+                "simulator the port does not carry yet")
 
 
 def _is_probe(request_id: str) -> bool:
@@ -325,25 +330,62 @@ def _is_audit_copy(request_id: str) -> bool:
 
 
 class FleetSim:
-    """One fleet run of engine replicas. ``replica_factory(replica_id)``
-    builds a replica (an :class:`EngineReplica` around an engine whose
-    ``clock`` is ``clock.now``)."""
+    """One fleet run. ``replica_factory(replica_id)`` builds a replica
+    (an :class:`EngineReplica` around an engine whose ``clock`` is
+    ``clock.now``); without one every replica is a ``SimReplica`` of
+    ``cfg.sim``. A disaggregated fleet (``cfg.disagg``) builds its own
+    phased replicas, priced from ``calibration`` (a cost-model
+    calibration dict; default: ``costmodel.load_calibration()``)."""
 
     def __init__(self, cfg: FleetConfig,
                  trace: Sequence[TraceRequest],
                  replica_factory: Optional[Callable[[int], object]] = None,
                  chaos_events: Sequence[ChaosEvent] = (),
-                 clock: Optional[VirtualClock] = None):
+                 clock: Optional[VirtualClock] = None,
+                 calibration: Optional[dict] = None):
         _refuse_unported(cfg)
-        if replica_factory is None:
-            raise ValueError(
-                "the simulator's analytic replicas (SimReplica) are not "
-                "ported: pass a replica_factory of EngineReplicas")
         self.cfg = cfg
         self.clock = clock or VirtualClock()
         self.trace = sorted(trace, key=lambda r: (r.arrival_s, r.request_id))
-        self.factory = replica_factory
-        self.replicas = [self.factory(i) for i in range(cfg.replicas)]
+        self._disagg = (cfg.disagg if cfg.disagg is not None
+                        and cfg.disagg.enabled else None)
+        self._cost = None
+        self._disagg_sim_cfg = cfg.sim
+        if self._disagg is not None:
+            dis = self._disagg
+            if cfg.sched is not None:
+                raise ValueError(
+                    "FleetConfig.disagg is incompatible with a "
+                    "scheduler-backed fleet (FleetConfig.sched)")
+            want = dis.prefill_replicas + dis.decode_replicas
+            if cfg.replicas != want:
+                raise ValueError(
+                    f"FleetConfig.replicas={cfg.replicas} must equal "
+                    f"the disagg pool sum {dis.prefill_replicas}+"
+                    f"{dis.decode_replicas}={want}")
+            if replica_factory is not None:
+                raise ValueError(
+                    "a disagg fleet builds its own phased replicas; "
+                    "replica_factory is not supported")
+            cal = (calibration if calibration is not None
+                   else load_calibration())
+            self._cost = CostModel(cal)
+            self._kv_per_tok = kv_bytes_per_token(cal["geometry"],
+                                                  dis.dtype)
+            if dis.calibrated:
+                self._disagg_sim_cfg = calibrated_sim_config(
+                    cal, dis.dtype, max_slots=cfg.sim.max_slots,
+                    max_queue=cfg.sim.max_queue,
+                    prefix_cache_entries=cfg.sim.prefix_cache_entries)
+            p = dis.prefill_replicas
+            self.replicas = [
+                SimReplica(i, self._disagg_sim_cfg,
+                           phase="prefill" if i < p else "decode")
+                for i in range(cfg.replicas)]
+        self.factory = replica_factory or (
+            lambda rid: SimReplica(rid, cfg.sim))
+        if self._disagg is None:
+            self.replicas = [self.factory(i) for i in range(cfg.replicas)]
         self.health = (FailureDetector(cfg.health)
                        if cfg.health is not None else None)
         self.overload = (OverloadState(cfg.overload)
@@ -353,14 +395,43 @@ class FleetSim:
         self._tenant_trackers: Dict[str, SloTracker] = {}
         self.router = Router(self.replicas, policy=cfg.policy,
                              max_queue=cfg.max_queue, health=self.health,
-                             overload=self.overload, tenancy=self.tenancy)
+                             overload=self.overload,
+                             disagg=self._disagg is not None,
+                             tenancy=self.tenancy)
+        for replica in self.replicas:
+            self._install_tenant_caps(replica)
         if self.overload is not None:
             self.router.on_place = self._on_place
         self.chaos_events = sorted(chaos_events,
                                    key=lambda e: (e.at_s, e.target))
-        self.tracker = SloTracker(cfg.slo)
-        self.autoscaler = (Autoscaler(cfg.autoscaler) if cfg.autoscale
+        self.tracker = SloTracker(cfg.slo,
+                                  track_itl=self._disagg is not None)
+        self.autoscaler = (Autoscaler(cfg.autoscaler)
+                           if cfg.autoscale and self._disagg is None
                            else None)
+        # a disaggregated fleet scales each pool on its own signal,
+        # never below its declared size
+        self._pool_scalers: Optional[Dict[str, Autoscaler]] = None
+        if self._disagg is not None and cfg.autoscale:
+            dis = self._disagg
+            self._pool_scalers = {
+                "prefill": Autoscaler(dataclasses.replace(
+                    cfg.autoscaler, min_replicas=dis.prefill_replicas)),
+                "decode": Autoscaler(dataclasses.replace(
+                    cfg.autoscaler, min_replicas=dis.decode_replicas)),
+            }
+        # KV transfers in flight between the pools, at their delivery
+        # time; ``kv_degrade`` scales the link for transfers scheduled
+        # after it
+        self._kv_heap = EventHeap()
+        self._kv_factor = 1.0
+        self._prefill_done_ids: set = set()
+        self._kv_handoffs = 0
+        self._kv_bytes_total = 0
+        self._kv_transfer_s_total = 0.0
+        # the pools' scaling signals: TTFT and ITL attainment
+        self._recent_ttft = deque(maxlen=64)
+        self._recent_itl = deque(maxlen=64)
         self.log: List[dict] = []
         # recent attained flags: the autoscaler's SLO signal
         self._recent = deque(maxlen=64)
@@ -409,6 +480,11 @@ class FleetSim:
         # the audit lane: audits due (base ids), open audits, and each
         # quarantined replica's detection time
         self._audit_frac = resolve_audit_frac(cfg.audit_frac)
+        if self._audit_frac > 0.0 and self._disagg is not None:
+            raise ValueError(
+                "FleetConfig.audit_frac does not compose with "
+                "disagg phase pools: audit copies are whole-request "
+                "re-executions on unified replicas")
         self._audit_heap = EventHeap()
         self._audits: Dict[str, dict] = {}
         self._sdc_detect_s: Dict[int, float] = {}
@@ -700,6 +776,27 @@ class FleetSim:
 
     # -- tenancy and overload ------------------------------------------
 
+    def _install_tenant_caps(self, replica) -> None:
+        """An analytic replica's per-tenant prefix-cache caps (the KV
+        budget on the cache's stand-in): only under isolation, and only
+        for tenants whose ``kv_budget_frac`` is below 1."""
+        ten = self.tenancy
+        if ten is None or not ten.isolation:
+            return
+        rcfg = getattr(replica, "cfg", None)
+        if rcfg is None or not hasattr(rcfg, "prefix_cache_entries"):
+            return
+        entries = rcfg.prefix_cache_entries
+        if entries <= 0:
+            return
+        caps: Dict[str, int] = {}
+        for t in ten.cfg.tenants:
+            cap = ten.kv_budget(t.name, entries)
+            if cap is not None:
+                caps[t.name] = cap
+        if caps:
+            replica.tenant_prefix_caps = caps
+
     def _tenant_key(self, req) -> str:
         """The overload layer's tenant: the request's under isolation,
         '' otherwise."""
@@ -757,7 +854,14 @@ class FleetSim:
 
     def _fire_hedges(self, now: float) -> None:
         """Due hedge timers: a request still in flight gets a copy on the
-        next candidate, if the hedge budget allows."""
+        next candidate, if the hedge budget allows. A timer outlives a
+        preemption that requeued its request onto another replica: a
+        candidate that holds the request already is skipped (an engine
+        would refuse the duplicate id), and the pair's primary is the
+        replica of the primary's phase that holds the live copy, so the
+        first completion cancels the right loser (ROADMAP C-17). (A
+        prefilled request that moved on to the decode pool keeps its
+        prefill replica as the primary, as in the reference.)"""
         ov = self.overload
         for req, primary in self._hedge_heap.pop_due(now):
             rid = req.request_id
@@ -767,11 +871,17 @@ class FleetSim:
                 continue
             if not ov.spend_hedge(self._tenant_key(req)):
                 continue
+            holder = primary
+            if not primary.holds(rid):
+                phase = getattr(primary, "phase", "unified")
+                holder = next((r for r in self.replicas + self._draining
+                               if getattr(r, "phase", "unified") == phase
+                               and r.holds(rid)), primary)
             for cand in self.router._pick_order(req, now):
-                if cand is primary:
+                if cand is primary or cand.holds(rid):
                     continue
                 if cand.submit(req, now):
-                    self._hedges[rid] = {"primary": primary, "hedge": cand}
+                    self._hedges[rid] = {"primary": holder, "hedge": cand}
                     ov.incr("hedges_issued")
                     ov.breaker_dispatch(f"replica-{cand.replica_id}")
                     break
@@ -806,8 +916,9 @@ class FleetSim:
 
     def _complete(self, replica, comp: ReplicaCompletion, now: float) -> None:
         """A replica's completion to its consumer: a probe feeds the
-        detector and an audit copy the vote, never the SLO log; user
-        traffic goes through the overload filters to the log. (The
+        detector and an audit copy the vote, never the SLO log; a
+        prefill-pool replica's ``prefill_done`` starts a KV transfer;
+        user traffic goes through the overload filters to the log. (The
         reference logs a probe that finishes on a draining replica as
         user traffic: ROADMAP C-14.)"""
         rid = comp.request.request_id
@@ -815,6 +926,10 @@ class FleetSim:
             self._observe_health(replica.replica_id, comp, now)
         elif _is_audit_copy(rid):
             self._on_audit_result(replica, comp)
+        elif comp.finish_reason == "prefill_done":
+            # not a terminal outcome: the KV cache leaves for the decode
+            # pool, whose completion alone enters the log
+            self._on_prefill_done(replica, comp)
         else:
             self._handle_completion(replica, comp)
 
@@ -843,7 +958,8 @@ class FleetSim:
     def _requeue_front(self, displaced: List) -> None:
         """Displaced requests back to the router's queue head. An audit
         copy dies with its replica: its audit concludes on the results
-        it has."""
+        it has. A displaced request may prefill again, so it leaves the
+        prefill dedupe set."""
         if self._audits:
             kept = []
             for req in displaced:
@@ -852,7 +968,149 @@ class FleetSim:
                 else:
                     kept.append(req)
             displaced = kept
+        if self._disagg is not None:
+            for req in displaced:
+                base = (req.request if getattr(req, "is_kv_handoff", False)
+                        else req)
+                self._prefill_done_ids.discard(base.request_id)
         self.router.requeue_front(displaced)
+
+    # -- disaggregated pools -------------------------------------------
+
+    def _on_prefill_done(self, replica, comp: ReplicaCompletion) -> None:
+        """A prefill replica finished a prompt: the KV transfer, priced
+        from the prompt's length, goes on the KV-transfer lane to the
+        decode pool. A hedge's duplicate is deduped here: a request
+        ships one KV cache."""
+        rid = comp.request.request_id
+        ov = self.overload
+        if ov is not None and rid in self._hedge_dropped:
+            self._hedge_dropped.discard(rid)
+            ov.incr("hedge_late_drops")
+            return
+        if rid in self._prefill_done_ids or rid in self._completed_ids:
+            return
+        self._prefill_done_ids.add(rid)
+        if ov is not None:
+            pair = self._hedges.pop(rid, None)
+            if pair is not None:
+                loser = (pair["hedge"] if replica is pair["primary"]
+                         else pair["primary"])
+                if replica is pair["hedge"]:
+                    ov.incr("hedge_wins")
+                if loser.cancel(rid):
+                    ov.incr("hedge_cancels")
+                else:
+                    self._hedge_dropped.add(rid)
+        if (not _is_probe(rid) and self.cfg.slo.ttft_s is not None
+                and comp.first_s is not None):
+            # the prefill pool's scaling signal
+            self._recent_ttft.append(
+                comp.first_s - comp.request.arrival_s
+                <= self.cfg.slo.ttft_s)
+        kv_bytes = len(comp.request.prompt) * self._kv_per_tok
+        transfer = kv_transfer_s(kv_bytes, self._disagg.tier,
+                                 self._kv_factor)
+        handoff = KvHandoff(
+            request=comp.request, dispatch_s=comp.dispatch_s,
+            first_s=comp.first_s, tokens=comp.tokens,
+            kv_bytes=kv_bytes, from_replica=replica.replica_id)
+        self._kv_heap.push(round(comp.finish_s + transfer, 9),
+                           LANE_KV_TRANSFER, handoff)
+        self._kv_handoffs += 1
+        self._kv_bytes_total += kv_bytes
+        self._kv_transfer_s_total += transfer
+        metrics.disagg_board().incr("prefills_done")
+
+    def _apply_disagg_chaos(self, ev: ChaosEvent, now: float) -> None:
+        if ev.action == "prefill_pool_loss":
+            displaced: List[TraceRequest] = []
+            lost = 0
+            for r in self.replicas:
+                if getattr(r, "phase", "unified") == "prefill" and r.healthy:
+                    displaced.extend(r.fail(now))
+                    lost += 1
+            self._requeue_front(displaced)
+            self.preemptions += lost
+            metrics.disagg_board().incr("prefill_pool_losses")
+            metrics.recovery_log().record(
+                "fleet_prefill_pool_loss", replicas=lost,
+                displaced=len(displaced), at_s=round(now, 6))
+        elif ev.action == "prefill_pool_restore":
+            healed = 0
+            for r in self.replicas:
+                if (getattr(r, "phase", "unified") == "prefill"
+                        and not r.healthy):
+                    r.restore(now)
+                    healed += 1
+            metrics.recovery_log().record(
+                "fleet_prefill_pool_restore", replicas=healed,
+                at_s=round(now, 6))
+        elif ev.action == "kv_degrade":
+            # transfers already on the wire keep their delivery time
+            self._kv_factor = max(1e-3, ev.param)
+            metrics.disagg_board().incr("kv_degrades")
+            metrics.recovery_log().record(
+                "fleet_kv_degrade", factor=ev.param, at_s=round(now, 6))
+        elif ev.action == "kv_restore":
+            self._kv_factor = 1.0
+            metrics.recovery_log().record(
+                "fleet_kv_restore", at_s=round(now, 6))
+
+    def _pool_members(self, phase: str) -> List:
+        return [r for r in self.router.replicas
+                if getattr(r, "phase", "unified") == phase]
+
+    def _autoscale_pools(self, now: float) -> None:
+        """One evaluation a pool: prefill scales on TTFT attainment and
+        the arrival backlog, decode on ITL attainment (queue depth
+        without ``slo.itl_s``) and the KV lane's backlog. A scale-down
+        drains the pool's highest-id healthy replica."""
+        for replica, reason in self._warming.pop_due(now):
+            self.replicas.append(replica)
+            self.router.replicas.append(replica)
+            self._install_tenant_caps(replica)
+            phase = getattr(replica, "phase", "unified")
+            self._pool_scalers[phase].note_ready(
+                now, len(self._pool_members(phase)), reason=reason)
+        for phase in ("prefill", "decode"):
+            scaler = self._pool_scalers[phase]
+            members = self._pool_members(phase)
+            routable = sum(
+                1 for r in members
+                if r.healthy and (self.health is None
+                                  or not self.health.quarantined(
+                                      f"replica-{r.replica_id}")))
+            healthy_out = sum(r.outstanding() for r in members
+                              if r.healthy)
+            if phase == "prefill":
+                backlog = len(self.router.queue) + healthy_out
+                recent = list(self._recent_ttft)
+            else:
+                backlog = (len(self.router.kv_queue) + len(self._kv_heap)
+                           + healthy_out)
+                recent = list(self._recent_itl)
+            attainment = sum(recent) / len(recent) if recent else None
+            action = scaler.evaluate(now, routable=routable,
+                                     backlog=backlog,
+                                     attainment=attainment)
+            if action == "scale_up":
+                rid = self._next_replica_id
+                self._next_replica_id += 1
+                self._warming.push(
+                    now + scaler.warmup_s, LANE_AUTOSCALER,
+                    (SimReplica(rid, self._disagg_sim_cfg, phase=phase),
+                     f"{phase} warmup complete"))
+                metrics.disagg_board().incr(f"{phase}_scale_ups")
+            elif action == "scale_down":
+                victims = [r for r in members if r.healthy]
+                if not victims:
+                    continue
+                victim = max(victims, key=lambda r: r.replica_id)
+                self.router.replicas.remove(victim)
+                self.replicas.remove(victim)
+                self._draining.append(victim)
+                metrics.disagg_board().incr(f"{phase}_scale_downs")
 
     # -- the audit lane ------------------------------------------------
 
@@ -911,6 +1169,7 @@ class FleetSim:
         counts: Dict[int, int] = {}
         for c in results.values():
             counts[c] = counts.get(c, 0) + 1
+        caught = False
         if len(order) >= 2 and max(counts.values()) < len(order):
             metrics.integrity_board().incr("audit_mismatches")
             if len(order) >= 3 and max(counts.values()) >= 2:
@@ -922,6 +1181,15 @@ class FleetSim:
                 culprits = order[:1]
             for rid in culprits:
                 self._sdc_quarantine(rid, self._now)
+            caught = order[0] in culprits
+        if st["corrupted"]:
+            # ground truth: a corrupted answer withheld and replaced by
+            # the verified copy, or one that reached the user
+            if caught:
+                st["entry"]["sdc_caught"] = True
+                metrics.integrity_board().incr("corrupted_caught")
+            else:
+                metrics.integrity_board().incr("corrupted_served")
 
     def _sdc_quarantine(self, rid: int, now: float,
                         cause: str = "audit") -> None:
@@ -1019,6 +1287,10 @@ class FleetSim:
             entry["tenant"] = req.tenant
         if req.model:
             entry["model"] = req.model
+        corrupted = comp.corrupted
+        if corrupted:
+            entry["corrupted"] = True
+            metrics.integrity_board().incr("corrupted_produced")
         self.log.append(entry)
         served = comp.finish_reason not in ("shed", "deadline_exceeded")
         if (self._audit_frac > 0.0 and replica_id >= 0
@@ -1027,11 +1299,15 @@ class FleetSim:
                 and self._sampled_for_audit(req.request_id)):
             # into the audit lane: a second replica executes it again
             self._audits[req.request_id] = {
-                "req": req, "results": {replica_id: comp.tokens_crc},
+                "req": req, "entry": entry, "corrupted": corrupted,
+                "results": {replica_id: comp.tokens_crc},
                 "order": [replica_id], "copies": 0}
             self._audit_heap.push(comp.finish_s, LANE_INTEGRITY_AUDIT,
                                   req.request_id)
             metrics.integrity_board().incr("audits")
+        elif corrupted:
+            # not sampled: the wrong answer reaches the user
+            metrics.integrity_board().incr("corrupted_served")
         if self.tenancy is not None:
             name = tenant_of(req)
             if name not in self._tenant_trackers:
@@ -1039,6 +1315,11 @@ class FleetSim:
             self._tenant_trackers[name].observe(**finish)
         if self.health is not None and replica_id >= 0 and served:
             self._observe_health(replica_id, comp, self._now)
+        if (self._disagg is not None and self.cfg.slo.itl_s is not None
+                and comp.first_s is not None and comp.tokens >= 2):
+            # the decode pool's scaling signal
+            itl = (comp.finish_s - comp.first_s) / (comp.tokens - 1)
+            self._recent_itl.append(itl <= self.cfg.slo.itl_s)
         ov = self.overload
         if ov is not None:
             self._completed_ids.add(req.request_id)
@@ -1063,8 +1344,15 @@ class FleetSim:
             if need is not None:
                 raise ValueError(
                     f"{ev.action} chaos needs FleetConfig.{need} "
-                    f"({_SIMULATOR_LAYERS[need]}), which the engine "
-                    "fleet does not carry")
+                    f"({_SIMULATOR_LAYERS[need]}), which the port does "
+                    "not carry yet")
+            if ev.action in _DISAGG_CHAOS:
+                if self._disagg is None:
+                    raise ValueError(
+                        f"{ev.action} chaos needs a disaggregated fleet "
+                        "(FleetConfig.disagg)")
+                self._apply_disagg_chaos(ev, now)
+                continue
             if ev.action in ("train_preempt", "train_kill"):
                 if self.trainer is None:
                     raise ValueError(
@@ -1115,8 +1403,12 @@ class FleetSim:
                     "fleet_replica_unslow", replica=ev.target,
                     at_s=round(now, 6))
             elif ev.action == "sdc_chip":
+                # no heal event: only an integrity quarantine stops it
                 frac = (ev.param if ev.param > 0
                         else float(knobs.get(knobs.SDC_RATE)))
+                if hasattr(victim, "set_corrupt"):
+                    victim.set_corrupt(frac)
+                    self._sdc_active = True
                 metrics.recovery_log().record(
                     "fleet_sdc_chip", replica=ev.target,
                     frac=round(frac, 6), at_s=round(now, 6))
@@ -1140,6 +1432,7 @@ class FleetSim:
         for replica, reason in self._warming.pop_due(now):
             self.replicas.append(replica)
             self.router.replicas.append(replica)
+            self._install_tenant_caps(replica)
             scaler.note_ready(now, len(self.router.replicas), reason=reason)
         # a quarantined replica is missing capacity
         routable = sum(
@@ -1189,6 +1482,10 @@ class FleetSim:
         healed = self._rebinding.pop_due(now)
         for replica in healed:
             replica.restore(now)
+            if getattr(replica, "corrupt_frac", 0.0):
+                # rebound onto other chips: the defective one stayed in
+                # quarantine
+                replica.set_corrupt(0.0)
             metrics.recovery_log().record(
                 "fleet_gang_rebound", replica=replica.replica_id,
                 at_s=round(now, 6))
@@ -1214,6 +1511,11 @@ class FleetSim:
         if self.overload is not None:
             for req in self._retry_heap.pop_due(now):
                 self._offer_arrival(req, now, fresh=False)
+        # KV transfers delivered by this boundary join the decode lane,
+        # placed in this same pass
+        for handoff in self._kv_heap.pop_due(now):
+            metrics.disagg_board().incr("kv_handoffs_delivered")
+            self.router.offer_handoff(handoff)
         # due audits: the duplicate-compute copy (or the tiebreaker)
         for base_id in self._audit_heap.pop_due(now):
             self._dispatch_audit(base_id, now)
@@ -1240,6 +1542,8 @@ class FleetSim:
         if self._ticks % self._eval_ticks == 0:
             if self.autoscaler is not None:
                 self._autoscale(now)
+            if self._pool_scalers is not None:
+                self._autoscale_pools(now)
             if self.overload is not None:
                 self.overload.brownout.evaluate(now)
             if self.trainer is not None:
@@ -1256,6 +1560,7 @@ class FleetSim:
             pending = self._pending
         return bool(
             not pending and not self.router.queue and not self._warming
+            and not self._kv_heap and not self.router.kv_queue
             and not self._audit_heap and not self._audits
             and all(r.idle() for r in self.replicas if r.healthy)
             and not self._draining and not self.chaos_events
@@ -1271,17 +1576,20 @@ class FleetSim:
         decision maker (autoscaler evaluations, health probes, the
         overload layer's timers and brownout evaluations)."""
         if (self.autoscaler is not None or self.health is not None
-                or self.overload is not None):
+                or self.overload is not None
+                or self._pool_scalers is not None):
             return False
         if self.trainer is not None and not self.trainer.quiescent():
             return False
         if self.router.queue or self._warming or self._draining:
             return False
+        if self._kv_heap or self.router.kv_queue:
+            return False
         if self._audit_heap or self._audits:
             return False
-        # a slowdown other than 1 rules out even an idle replica: its
-        # stride counter advances on every tick() call, so skipping
-        # ticks would shift its stepping phase
+        # a slowdown other than 1 rules out even an idle replica: an
+        # engine's stride counter advances on every tick() call, so
+        # skipping ticks would shift its stepping phase
         if not all(r.idle() and r.slowdown == 1.0 for r in self.replicas):
             return False
         return not (self.sched is not None and (
@@ -1289,12 +1597,14 @@ class FleetSim:
             or self._gang_requested or self._migrate_pending))
 
     def _next_wake(self, pending: deque, tick: float = 0.0) -> DueSet:
-        """When does step() stop being a no-op? A queued request,
-        scheduler activity, a draining replica or an engine mid-stream
-        (or slowed) answer ``immediate``; arrivals, chaos, timers,
-        warm-ups, rebinds, training events and probe deadlines answer
-        with the time of the first boundary that must be stepped. A
-        pure read, valid until a boundary is stepped."""
+        """When does step() stop being a no-op? A queued request or KV
+        handoff, scheduler activity, a draining replica or an engine
+        mid-stream (or slowed) answer ``immediate``; arrivals, chaos,
+        timers, KV deliveries, warm-ups, rebinds, training events and
+        probe deadlines answer with the time of the first boundary that
+        must be stepped; an analytic replica answers with its
+        closed-form slot events. A pure read, valid until a boundary is
+        stepped."""
         due = DueSet()
         if pending:
             due.at(pending[0].arrival_s)
@@ -1310,12 +1620,13 @@ class FleetSim:
             due.at(at)
         due.at(self._retry_heap.peek_time())
         due.at(self._hedge_heap.peek_time())
+        due.at(self._kv_heap.peek_time())
         due.at(self._audit_heap.peek_time())
         if self.trainer is not None:
             # gang arrivals and segment ends; progress between them is
             # closed form
             self.trainer.due(due)
-        if self.router.queue or self._draining:
+        if self.router.queue or self.router.kv_queue or self._draining:
             return due.need_now()
         if self.sched is not None and (
                 self.sched.pending or self._gang_requested
@@ -1324,10 +1635,16 @@ class FleetSim:
         due.at(self._warming.peek_time())
         due.at(self._rebinding.peek_time())
         for replica in self.replicas:
-            # an engine's stride counter advances on every tick() call,
-            # so only an idle, unslowed engine may be skipped
-            if not (replica.idle() and replica.slowdown == 1.0):
-                return due.need_now()
+            nd = getattr(replica, "next_due", None)
+            if nd is None:
+                # an engine's stride counter advances on every tick()
+                # call, so only an idle, unslowed engine may be skipped
+                if not (replica.idle() and replica.slowdown == 1.0):
+                    return due.need_now()
+                continue
+            ge, cover = nd()
+            due.at(ge)
+            due.covering(cover)
         if self.health is not None and pending:
             # a probe a probe interval to each suspect or quarantined
             # live replica while user traffic flows
@@ -1359,7 +1676,8 @@ class FleetSim:
         if due.immediate:
             return
         evals_away = -1
-        if (self.autoscaler is not None or self.overload is not None
+        if (self.autoscaler is not None or self._pool_scalers is not None
+                or self.overload is not None
                 or (self.trainer is not None
                     and self.trainer.wants_evals())):
             # the autoscaler, the brownout ladder and the elastic
@@ -1370,13 +1688,14 @@ class FleetSim:
             if evals_away == 0:
                 return
         due_ge = due.ge
+        due_cover = due.cover
         limit = self.cfg.max_virtual_s
         adv = self.clock.advance
         now = self.clock.now
         skipped = 0
         while True:
             b = now()
-            if b > limit or due_ge <= b:
+            if b > limit or due_ge <= b or due_cover <= b + tick:
                 break
             adv(tick)
             self._ticks += 1
@@ -1415,7 +1734,8 @@ class FleetSim:
         boards = {"fleet": metrics.fleet_board(),
                   "health": metrics.health_board(),
                   "tenant": metrics.tenant_board(),
-                  "integrity": metrics.integrity_board()}
+                  "integrity": metrics.integrity_board(),
+                  "disagg": metrics.disagg_board()}
         before = {name: board.counts() for name, board in boards.items()}
 
         def counters(name):
@@ -1481,6 +1801,8 @@ class FleetSim:
                                 "counters": counters("health")}
         if self.autoscaler is not None:
             report["autoscaler"] = self.autoscaler.report()
+        if self._disagg is not None:
+            report["disagg"] = self._disagg_report(counters("disagg"))
         if self.sched is not None:
             ttrs = self.time_to_routable
             warmup = (self.autoscaler.warmup_s
@@ -1500,6 +1822,31 @@ class FleetSim:
                 "event_counts": self.sched.report()["event_counts"],
             }
         return report
+
+    def _disagg_report(self, counters: dict) -> dict:
+        pools: Dict[str, dict] = {}
+        for phase in ("prefill", "decode"):
+            members = [r for r in self.replicas + self._draining
+                       if getattr(r, "phase", "unified") == phase]
+            pools[phase] = {"replicas": len(members),
+                            "healthy": sum(1 for r in members
+                                           if r.healthy)}
+        out = {
+            "config": self._disagg.as_dict(),
+            "pools": pools,
+            "kv": {
+                "handoffs": self._kv_handoffs,
+                "bytes_total": self._kv_bytes_total,
+                "transfer_s_total": round(self._kv_transfer_s_total, 6),
+                "tier": self._disagg.tier,
+            },
+            "calibration_errors": self._cost.errors(),
+            "counters": counters,
+        }
+        if self._pool_scalers is not None:
+            out["autoscalers"] = {p: s.report() for p, s in
+                                  sorted(self._pool_scalers.items())}
+        return out
 
 
 def attainment_over(log: Sequence[dict], t_from: float,

@@ -108,14 +108,20 @@ class SloPolicy:
 
 class SloTracker:
     """Per-completion SLO accounting for one fleet run: three
-    histograms and a few counters."""
+    histograms and a few counters. With ``track_itl`` (the
+    disaggregated fleet's tracker) a fourth histogram weighs every
+    inter-token gap alike (a request of n tokens adds n - 1 of them),
+    and the report gains its ``itl`` section."""
 
     def __init__(self, policy: SloPolicy,
-                 hist_lo: float = 1e-4, hist_hi: float = 1e3):
+                 hist_lo: float = 1e-4, hist_hi: float = 1e3,
+                 track_itl: bool = False):
         self.policy = policy
         self.ttft = FixedBucketHistogram(hist_lo, hist_hi)
         self.tpot = FixedBucketHistogram(hist_lo, hist_hi)
         self.e2e = FixedBucketHistogram(hist_lo, hist_hi)
+        self.track_itl = track_itl
+        self.itl = FixedBucketHistogram(hist_lo, hist_hi)
         self.completed = 0
         self.attained = 0
         self.shed = 0
@@ -143,6 +149,8 @@ class SloTracker:
         self.e2e.observe(e2e)
         if tpot is not None:
             self.tpot.observe(tpot)
+            if self.track_itl:
+                self.itl.observe(tpot, count=tokens - 1)
         self.completed += 1
         self.tokens_total += tokens
         if deadline_exceeded:
@@ -178,6 +186,8 @@ class SloTracker:
             "tpot": self.tpot.report(),
             "e2e": self.e2e.report(),
         }
+        if self.track_itl:
+            out["itl"] = self.itl.report()
         if span and span > 0:
             out["throughput_tok_s"] = round(self.tokens_total / span, 3)
             out["goodput_tok_s"] = round(self.tokens_good / span, 3)

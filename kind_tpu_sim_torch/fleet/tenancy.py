@@ -23,9 +23,10 @@ Traces are host data drawn with ``random.Random`` streams keyed by
 ``zlib.crc32``, in the reference's draw order, so they equal the
 reference's item for item. The reference resolves an unset
 ``isolation`` and ``drr_quantum`` from environment knobs; the port
-takes the knobs' defaults. The decode-pool KV budgets serve the
-reference's disaggregated pools and analytic replicas only and are not
-ported; ``kv_budget_frac`` is kept so a config is the reference's.
+takes the knobs' defaults. A tenant's ``kv_budget_frac`` below 1 caps
+its share of a decode pool's slots (:meth:`TenancyState.kv_budget`,
+read by the router's KV lane) and of an analytic replica's prefix-cache
+entries; engine replicas have neither.
 """
 
 from __future__ import annotations
@@ -221,6 +222,7 @@ class TenancyState:
         self.admitted: Dict[str, int] = {}
         self.quota_shed: Dict[str, int] = {}
         self.token_shed: Dict[str, int] = {}
+        self.kv_deferred: Dict[str, int] = {}
 
     def qos_rank(self, name: str) -> int:
         return self.cfg.qos_rank(name)
@@ -230,6 +232,20 @@ class TenancyState:
 
     def tier(self, name: str) -> int:
         return self.cfg.tier(name)
+
+    def kv_budget(self, name: str, capacity: int) -> Optional[int]:
+        """The tenant's cap out of ``capacity`` units (a decode pool's
+        slots or a replica's prefix-cache entries); None when uncapped
+        (``kv_budget_frac`` >= 1, or isolation off)."""
+        if not self.isolation:
+            return None
+        frac = self.cfg.lookup(name).kv_budget_frac
+        if frac >= 1.0:
+            return None
+        return max(1, int(frac * capacity))
+
+    def note_kv_deferred(self, name: str) -> None:
+        self.kv_deferred[name] = self.kv_deferred.get(name, 0) + 1
 
     def _bucket(self, buckets: Dict[str, RateBucket], name: str,
                 rate: str, burst: str) -> RateBucket:
@@ -260,7 +276,7 @@ class TenancyState:
     def report(self) -> Dict[str, object]:
         tenants: Dict[str, object] = {}
         names = sorted(set(self.admitted) | set(self.quota_shed)
-                       | set(self.token_shed)
+                       | set(self.token_shed) | set(self.kv_deferred)
                        | {t.name for t in self.cfg.tenants})
         for name in names:
             ts = self.cfg.lookup(name)
@@ -275,6 +291,8 @@ class TenancyState:
                 row["quota"] = self._quota[name].report()
             if name in self._token_quota:
                 row["token_quota"] = self._token_quota[name].report()
+            if name in self.kv_deferred:
+                row["kv_deferred"] = self.kv_deferred[name]
             tenants[name] = row
         return {"isolation": self.isolation,
                 "drr_quantum": self.drr_quantum,

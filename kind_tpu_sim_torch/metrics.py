@@ -3,8 +3,8 @@
 The port's own copies of the JAX package's ``RecoveryLog`` /
 ``recovery_log()`` and ``CounterBoard`` with the boards the engine
 fleet counts on: ``fleet_board()``, ``health_board()``,
-``tenant_board()``, ``integrity_board()``, ``sched_board()`` and
-``train_board()``
+``tenant_board()``, ``integrity_board()``, ``sched_board()``,
+``train_board()`` and ``disagg_board()``
 (``kind_tpu_sim/metrics.py``). The serving engines record
 ``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
 ``slot_requeue`` (``inject_slot_failure``) in the log, the training loop
@@ -17,7 +17,8 @@ tenancy layer its quota sheds on the tenant board, and the audit lane
 its audits, copies and mismatches on the integrity board, the cluster
 scheduler its bindings, preemptions, evictions and node and link events
 on the scheduler board, and the training tenant its gangs, preemptions,
-migrations and resizes on the training board; a fleet
+migrations and resizes on the training board, the disaggregated pools
+their prefills, KV handoffs and pool events on the disagg board; a fleet
 report carries the counts of its own run (``snapshot_since``).
 """
 
@@ -152,3 +153,13 @@ def train_board() -> CounterBoard:
     bound and done, graceful preemptions and hard kills, migrations,
     elastic grows and shrinks, spot grants)."""
     return _TRAIN_BOARD
+
+
+_DISAGG_BOARD = CounterBoard()
+
+
+def disagg_board() -> CounterBoard:
+    """The process-global disaggregated-serving board (prefills done, KV
+    handoffs delivered and routed, queued handoffs expired, pool losses,
+    link degrades, pool scale events)."""
+    return _DISAGG_BOARD

@@ -147,12 +147,12 @@ def device_busy(fn, *args) -> Dict[str, float]:
 _FLEET_LANE_FNS = {
     "arrival": ("_offer_arrival", "_on_place", "_shed"),
     "completion": ("_handle_completion", "_complete", "_record",
-                   "_fire_hedges", "_maybe_retry"),
+                   "_fire_hedges", "_maybe_retry", "_on_prefill_done"),
     "chaos": ("_apply_chaos", "_apply_node_chaos", "_apply_link_chaos",
-              "_apply_domain_chaos"),
+              "_apply_domain_chaos", "_apply_disagg_chaos"),
     "health_probe": ("_probe_quarantined", "_observe_health",
                      "_drain_migrations", "_refresh_link_slowdowns"),
-    "autoscaler": ("_autoscale", "_sched_step"),
+    "autoscaler": ("_autoscale", "_autoscale_pools", "_sched_step"),
     "kv_transfer": ("_requeue_front",),
     "core": ("step", "run", "_step_sched", "_skip_uninteresting",
              "_advance", "_next_wake", "quiescent"),
@@ -162,7 +162,7 @@ _FLEET_LANE_FNS = {
 def profile_fleet_run(sim, top: int = 25) -> Dict[str, Any]:
     """Run ``sim.run()`` under cProfile: ``{"report": ...}`` plus the
     wall seconds, completions a wall second, each event lane's pushes
-    (summed over the retry, hedge, warm-up and rebind heaps, plus the
+    (summed over the retry, hedge, KV, warm-up and rebind heaps, plus the
     arrivals and completions) and self time, and the top functions by
     cumulative time. Wall-clock numbers only: the report is the one an
     unprofiled run gives."""
@@ -203,8 +203,8 @@ def profile_fleet_run(sim, top: int = 25) -> Dict[str, Any]:
                   _ev.LANE_PLANNER: "planner",
                   _ev.LANE_KV_TRANSFER: "kv_transfer"}
     pushes = {name: 0 for name in lane_names.values()}
-    for heap in (sim._retry_heap, sim._hedge_heap, sim._warming,
-                 sim._rebinding):
+    for heap in (sim._retry_heap, sim._hedge_heap, sim._kv_heap,
+                 sim._warming, sim._rebinding):
         for lane, seq in enumerate(heap._seq):
             if seq:
                 pushes[lane_names[lane]] += seq

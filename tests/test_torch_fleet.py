@@ -12,13 +12,18 @@ deadlines and a slowed replica, and with the autoscaler. The report's
 ``fleet_counters`` must be equal. The model is the reference scenarios'
 tiny config in fp32, so greedy streams have no near-ties. Then the
 features the port refuses (the scheduler-backed fleet and the loop
-choices are held to the reference in ``test_torch_fleet_sched.py``),
-and the ``fleet`` command against the reference's ``fleet --engine
-serving``.
+choices are held to the reference in ``test_torch_fleet_sched.py``; the
+analytic and disaggregated fleets in ``test_torch_sim_replica.py`` and
+``test_torch_disagg.py``), and the ``fleet`` command against the
+reference's ``fleet --engine serving``; where a refused flag or field
+has been ported since (``--engine sim``, ``--disagg``, ``--calibration``,
+``--bench``, ``FleetConfig.disagg``, a fleet without a factory), its
+case holds the port's answer to the reference's, byte for byte.
 """
 
 import dataclasses
 import json
+import pathlib
 import random
 
 import pytest
@@ -34,6 +39,9 @@ from kind_tpu_sim_torch.models import transformer as ptf
 
 from torch_parity import jax_cfg, make_params
 from torch_parity import torch_one_thread  # noqa: F401
+
+CALIBRATION = pathlib.Path(pfleet.DEFAULT_CALIBRATION)
+BENCH_H100 = CALIBRATION.parent / "bench_h100.json"
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
@@ -271,11 +279,30 @@ def _factory(rid):
     raise AssertionError("no replica is built for a refused config")
 
 
+def _dumps(report):
+    return json.dumps(report, sort_keys=True)
+
+
 @pytest.mark.parametrize("field", ["disagg", "zoo", "generations"])
-def test_refused_fleet_features_raise_naming_them(field):
-    cfg = dataclasses.replace(pfleet.FleetConfig(), **{field: object()})
-    with pytest.raises(ValueError, match=f"FleetConfig.{field} "):
-        pfleet.FleetSim(cfg, [], replica_factory=_factory)
+def test_refused_fleet_features_raise_naming_them(field, monkeypatch):
+    if field != "disagg":
+        cfg = dataclasses.replace(pfleet.FleetConfig(), **{field: object()})
+        with pytest.raises(ValueError, match=f"FleetConfig.{field} "):
+            pfleet.FleetSim(cfg, [], replica_factory=_factory)
+        return
+    # disaggregated pools are ported: a replica factory is refused as
+    # the reference refuses it, and the fleet's report is the
+    # reference's under the same calibration
+    monkeypatch.setenv("KIND_TPU_SIM_CALIBRATION", str(CALIBRATION))
+    reports = []
+    for mod in (jfleet, pfleet):
+        cfg = mod.FleetConfig(replicas=2, disagg=mod.DisaggConfig())
+        with pytest.raises(ValueError, match="replica_factory"):
+            mod.FleetSim(cfg, [], replica_factory=_factory)
+        trace = mod.generate_trace(mod.WorkloadSpec(n_requests=40), 3)
+        reports.append(mod.FleetSim(cfg, trace).run())
+    assert _dumps(reports[1]) == _dumps(reports[0])
+    assert reports[1]["ok"] and reports[1]["disagg"]["kv"]["handoffs"] == 40
 
 
 def test_the_event_core_audit_lane_and_analytic_replicas_raise():
@@ -286,8 +313,11 @@ def test_the_event_core_audit_lane_and_analytic_replicas_raise():
         pfleet.FleetSim(pfleet.FleetConfig(
             training=pfleet.TrainingConfig()), [],
             replica_factory=lambda rid: StubReplica(rid, 1))
-    with pytest.raises(ValueError, match="SimReplica"):
-        pfleet.FleetSim(pfleet.FleetConfig(), [])
+    # a fleet without a factory is the reference's analytic fleet
+    got, want = (mod.FleetSim(mod.FleetConfig(), mod.generate_trace(
+        mod.WorkloadSpec(n_requests=30), 1)).run()
+        for mod in (pfleet, jfleet))
+    assert _dumps(got) == _dumps(want) and got["ok"]
     with pytest.raises(ValueError, match="zoo"):
         pfleet.generate_trace(pfleet.WorkloadSpec(zoo=object()), 0)
 
@@ -349,12 +379,37 @@ def test_fleet_trace_command_matches_the_reference(capsys, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--engine", "sim"], ["--zoo"],
-    ["--disagg", "1:1"], ["--disagg-tier", "ici"],
-    ["--generations", "v5e"], ["--calibration", "cal.json"],
-    ["--bench", "bench.json"]])
-def test_fleet_command_refuses_the_simulators_layers(extra):
-    with pytest.raises(SystemExit, match="simulator|not ported"):
-        pcli.main(["fleet", "run", "--device", "cpu"] + extra)
+    ["--disagg", "1:1"], ["--disagg", "2:2", "--disagg-tier", "dcn"],
+    ["--generations", "v5e"], ["--disagg", "1:1", "--calibration", "CAL"],
+    ["--bench", "BENCH"]])
+def test_fleet_command_refuses_the_simulators_layers(extra, capsys,
+                                                     monkeypatch, tmp_path):
+    if extra[0] in ("--zoo", "--generations"):
+        with pytest.raises(SystemExit, match="model zoo|does not carry"):
+            pcli.main(["fleet", "run", "--device", "cpu"] + extra)
+        return
+    # ported since: the reference's answer, byte for byte, under the
+    # same calibration (the reference's --calibration sets the knob)
+    monkeypatch.setenv("KIND_TPU_SIM_CALIBRATION", str(CALIBRATION))
+    if extra[0] == "--bench":
+        outs = []
+        for main, name in ((jcli.main, "ref.json"), (pcli.main, "port.json")):
+            out = tmp_path / name
+            # prefill's error is 0.243129, over the 0.15 bar: exit 1
+            assert main(["fleet", "calibrate", "--bench", str(BENCH_H100),
+                         "--out", str(out)]) == 1
+            outs.append(capsys.readouterr().out.replace(str(out), "OUT"))
+            assert out.read_text() == CALIBRATION.read_text()
+        assert outs[1] == outs[0]
+        return
+    extra = [str(CALIBRATION) if a == "CAL" else a for a in extra]
+    argv = ["fleet", "run", "--engine", "sim", "--requests", "60", "--json"]
+    assert jcli.main(argv + extra) == 0
+    want = capsys.readouterr().out
+    assert pcli.main(argv + extra) == 0
+    assert capsys.readouterr().out == want
+    with pytest.raises(SystemExit, match="no device work"):
+        pcli.main(argv + extra + ["--device", "cpu"])
 
 
 def test_fleet_command_refuses_a_trace_outside_the_envelope(tmp_path):

@@ -19,7 +19,10 @@ The report's sections are compared whole: equal. (The detector's and
 tenancy's own fleets are in ``test_torch_health.py`` and
 ``test_torch_tenancy.py``.) Then ``EngineReplica.cancel`` on both
 engines, and what a withdrawn request leaves behind in the port's
-engine: nothing.
+engine: nothing. Last, two faults of the reference the port does not
+copy (ROADMAP Queue C): a stale hedge timer that offers the request to
+the replica holding it (C-17), and a probe logged as user traffic
+(C-14).
 """
 
 import pytest
@@ -30,7 +33,7 @@ from kind_tpu_sim_torch import fleet as pfleet
 from kind_tpu_sim_torch.models import serving as pserving
 
 from torch_parity import (FLEET_CFG, FLEET_SERVING, fleet_layers_pair,
-                          jax_cfg, make_params, one_thread)
+                          fleet_layers_run, jax_cfg, make_params, one_thread)
 
 BASE = dict(process="poisson", rps=150.0, n_requests=80, max_new=(12, 24))
 # chip_smoke phase 14 (f): the stock tenants' trace of seed 0 (its span
@@ -183,3 +186,83 @@ def test_a_probe_on_a_draining_replica_stays_out_of_the_log():
     the detector alone, as the loop does for every other replica."""
     assert _drained_probe(jfleet) == (["__probe-1-0"], 1)
     assert _drained_probe(pfleet) == ([], 1)
+
+
+C17_SPEC = dict(process="poisson", rps=600.0, n_requests=60,
+                max_new=(12, 24))
+C17_EVENTS = [dict(at_s=0.02, action="preempt", target=0),
+              dict(at_s=0.2, action="restore", target=0)]
+
+
+@pytest.mark.parametrize("replicas", [2, 3])
+def test_a_stale_hedge_timer_skips_the_replica_holding_the_request(
+        params, replicas):
+    """ROADMAP C-17: replica 0's requests carry hedge timers when it is
+    preempted; they requeue onto the others, and a timer that fires
+    then offers its request to the replica that now holds it. The
+    reference's engine refuses the duplicate id and the run raises. The
+    port skips that replica, makes the holder the pair's primary, and
+    completes every request once; with three replicas each hedge's
+    loser is the other live copy, cancelled while it waits."""
+    with pytest.raises(ValueError, match="already queued or in flight"):
+        with one_thread():
+            fleet_layers_run(jfleet, jserving, params[0], jax_cfg(FLEET_CFG),
+                             C17_SPEC, events=C17_EVENTS, overload=True,
+                             fleet_kw=dict(replicas=replicas))
+    sims = []
+    with one_thread():
+        got = fleet_layers_run(pfleet, pserving, params[1], FLEET_CFG,
+                               C17_SPEC, events=C17_EVENTS, overload=True,
+                               fleet_kw=dict(replicas=replicas), sims=sims,
+                               device="cpu")
+    ids = [e["request_id"] for e in got["completions"]]
+    assert got["ok"] and got["completed"] == 60 and len(set(ids)) == 60
+    assert got["preemptions"] == 1 and got["router"]["requeues"] >= 1
+    assert all(e["finish_reason"] == "length" for e in got["completions"])
+    sim = sims[0]
+    assert not sim._hedges and not sim._hedge_dropped
+    ov = got["overload"]["counters"]
+    if replicas == 3:
+        assert ov["hedges_issued"] == ov["hedge_cancels"] == 6
+        assert "hedge_late_drops" not in ov
+
+
+def _held_twice(fleet, monkeypatch):
+    """The analytic fleet under C-17's traffic and chaos (two replicas,
+    overload on): the submits that offered a replica a request it
+    already held, and the report."""
+    twice = []
+    submit = fleet.SimReplica.submit
+
+    def spy(self, req, now):
+        if any(r.request_id == req.request_id for r in self.queue) or any(
+                s is not None and s["req"].request_id == req.request_id
+                for s in self._slots):
+            twice.append(req.request_id)
+        return submit(self, req, now)
+
+    monkeypatch.setattr(fleet.SimReplica, "submit", spy)
+    trace = fleet.generate_trace(fleet.WorkloadSpec(**C17_SPEC), 3)
+    rep = fleet.FleetSim(
+        fleet.FleetConfig(replicas=2, policy="least-outstanding",
+                          overload=fleet.OverloadConfig()),
+        trace, chaos_events=[fleet.ChaosEvent(**e)
+                             for e in C17_EVENTS]).run()
+    return twice, rep
+
+
+def test_a_stale_hedge_timer_skips_the_holder_on_analytic_replicas(
+        monkeypatch):
+    """C-17 on analytic replicas: the reference's ``SimReplica`` takes
+    the duplicate, so the stale timer queues a second copy of a request
+    on the replica already running it, and the run completes. The
+    port's fleet skips the holder there too; its report departs from
+    the reference's from that hedge on, and every request completes
+    once."""
+    twice, want = _held_twice(jfleet, monkeypatch)
+    # each duplicate finishes first on its own replica: a "win"
+    assert twice and want["ok"]
+    assert want["overload"]["counters"]["hedge_wins"] == len(twice)
+    twice, got = _held_twice(pfleet, monkeypatch)
+    assert twice == [] and got["ok"] and got["completed"] == 60
+    assert "hedge_wins" not in got["overload"]["counters"]

@@ -8,6 +8,7 @@ packages as numpy arrays: the JAX package builds the weights
 
 import contextlib
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -155,6 +156,77 @@ def fleet_layers_pair(params, spec, **layers):
     for key in FLEET_COMPARED:
         assert got.get(key) == want.get(key), key
     assert got["ok"]
+    return got
+
+
+# the H100's calibration, the port's default; the parity tests select it
+# on both sides (the reference's own default is a TPU file)
+H100_CALIBRATION = str(pathlib.Path(__file__).resolve().parents[1]
+                       / "kind_tpu_sim_torch" / "calibration" / "h100.json")
+
+
+def _tenancy(fleet, tenancy):
+    """The stock tenants: isolated (True) or not (False), or a dict of
+    tenant name -> ``kv_budget_frac`` (isolated)."""
+    ten = fleet.default_tenancy()
+    if isinstance(tenancy, dict):
+        return dataclasses.replace(ten, isolation=True, tenants=tuple(
+            dataclasses.replace(t, kv_budget_frac=tenancy.get(t.name, 1.0))
+            for t in ten.tenants))
+    return dataclasses.replace(ten, isolation=tenancy)
+
+
+def sim_fleet_run(fleet, spec, events=(), seed=3, sims=None, **fc):
+    """One analytic ``FleetSim`` run of either package (``fleet`` its
+    fleet module, no replica factory). ``spec`` is the ``WorkloadSpec``'s
+    fields (``tenancy=True``: the tenants of ``fc["tenancy"]``);
+    ``events`` the chaos events' fields; ``fc`` the ``FleetConfig``'s
+    fields, where ``slo``, ``sim``, ``autoscaler``, ``sched`` and
+    ``disagg`` may be dicts of their config's fields, ``health`` and
+    ``overload`` True for the defaults, ``tenancy`` as ``_tenancy``
+    takes it and ``training`` a list of ``TrainingGangConfig`` fields.
+    Defaults: three replicas, least-outstanding, tick 0.01, SLO ttft
+    0.3 / e2e 0.6. A ``sims`` list receives the ``FleetSim``."""
+    cfg = dict(replicas=3, policy="least-outstanding", tick_s=0.01,
+               slo=dict(ttft_s=0.3, e2e_s=0.6))
+    cfg.update(fc)
+    classes = dict(slo=fleet.SloPolicy, sim=fleet.SimReplicaConfig,
+                   autoscaler=fleet.AutoscalerConfig,
+                   sched=fleet.FleetSchedConfig, disagg=fleet.DisaggConfig)
+    for key, cls in classes.items():
+        if isinstance(cfg.get(key), dict):
+            cfg[key] = cls(**cfg[key])
+    if cfg.get("health") is True:
+        cfg["health"] = fleet.DetectorConfig()
+    if cfg.get("overload") is True:
+        cfg["overload"] = fleet.OverloadConfig()
+    if "tenancy" in cfg:
+        cfg["tenancy"] = _tenancy(fleet, cfg["tenancy"])
+    if "training" in cfg:
+        cfg["training"] = fleet.TrainingConfig(gangs=tuple(
+            fleet.TrainingGangConfig(**g) for g in cfg["training"]))
+    if spec.get("tenancy"):
+        spec = dict(spec, tenancy=cfg["tenancy"])
+    trace = fleet.generate_trace(fleet.WorkloadSpec(**spec), seed)
+    sim = fleet.FleetSim(fleet.FleetConfig(**cfg), trace,
+                         chaos_events=[fleet.ChaosEvent(**e) for e in events])
+    if sims is not None:
+        sims.append(sim)
+    return sim.run()
+
+
+def sim_fleet_pair(spec, events=(), **fc):
+    """The reference's and the port's ``sim_fleet_run``: their reports,
+    as JSON with sorted keys, must be equal; returns the port's."""
+    import json
+
+    from kind_tpu_sim import fleet as jfleet
+    from kind_tpu_sim_torch import fleet as pfleet
+
+    want = sim_fleet_run(jfleet, spec, events, **fc)
+    got = sim_fleet_run(pfleet, spec, events, **fc)
+    assert (json.dumps(got, sort_keys=True)
+            == json.dumps(want, sort_keys=True))
     return got
 
 
