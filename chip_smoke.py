@@ -236,8 +236,11 @@ it fails (nothing is caught and ignored):
    with ``--sched --train 1 --profile``) and ``chaos run --scenario all
    --include-slow`` at the reference's tiny configs, whose weight-free
    fields must equal the same runs' on the CPU (the profile section
-   carrying the reference's keys). Each step logs its flash launches
-   by route and its CUDA graph captures;
+   carrying the reference's keys; ``zoo-swap-storm``'s verdict is the
+   CPU's, ``ok: false`` on the H100's calibration, every other scenario
+   must be ok, and the chaos command's exit code must be 0 exactly when
+   every verdict is). Each step logs its flash launches by route and
+   its CUDA graph captures;
 15. the calibrated simulator (host only, no kernel) -- (a) the cost
    model's ``calibrate`` over phase 9's bench model block (the
    flagship's widths at 2 of its 8 layers, from this card): every
@@ -252,8 +255,17 @@ it fails (nothing is caught and ignored):
    --engine sim --disagg 2:2 --requests 200 --calibration
    kind_tpu_sim_torch/calibration/h100.json``, exit 0 and a report
    equal to the same run made in this process; (d) ``chaos run
-   --scenario disagg-pool-loss``, ``CHAOS RUN OK``. Under
-   ``SIM15_MAX_S`` seconds.
+   --scenario disagg-pool-loss``, ``CHAOS RUN OK``; (e) ``fleet run
+   --engine sim --zoo --json`` (the model zoo on the h100 generation),
+   exit 0 and a report equal to the same run made in this process; (f)
+   ``chaos run --scenario zoo-swap-storm --json``, a report equal to the
+   same scenario run in this process and an exit code that is its
+   verdict's (1: the H100's decode bandwidth fails the 1.25 p99 bound);
+   (g) ``fleet run --engine sim`` of 512 analytic replicas and 10000
+   requests with the columnar mirror off and on (the knob), reports
+   byte-equal, both walls printed; (h) the h100 generation's
+   ``hbm_gib`` equal to this card's ``total_memory`` in GiB to two
+   places. Under ``SIM15_MAX_S`` seconds.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5728,7 +5740,14 @@ SIM_SCENARIO_KEYS = {
                          "decode_survivors", "requeues", "kv",
                          "tail_attainment_clean", "tail_attainment_faulted",
                          "ok", "recovery_events"),
+    "zoo-swap-storm": ("plan", "requests", "pulses", "generations",
+                       "swaps_steady", "swaps_storm", "per_model_slo",
+                       "p99_steady_s", "p99_storm_s", "p99_ratio",
+                       "replay_identical", "ok", "recovery_events"),
 }
+# the scenario whose verdict on the H100's calibration is a failure (its
+# p99 bound, by the decode bandwidth's arithmetic): held to the CPU's
+SIM_FAILING_SCENARIO = "zoo-swap-storm"
 
 
 def _flash_routes(fa) -> dict:
@@ -6071,10 +6090,21 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
                          for name in SIM_SCENARIO_KEYS}
         ran = {label: f.result() for label, f in running.items()}
 
+    res = ran["chaos"]
+    check(res["rc"] in (0, 1) and res["stdout"].strip(),
+          f"chaos command exited {res['rc']}:\n{res['stdout'][-3000:]}\n"
+          f"{res['stderr'][-3000:]}")
+    chaos_rep = json.loads(res["stdout"].strip().splitlines()[-1])
+    by_name = {r["scenario"]: r for r in chaos_rep["scenarios"]}
+    verdicts = {name: rep["ok"] for name, rep in by_name.items()}
     for label, res in ran.items():
-        check(res["rc"] == 0, f"{label} command exited {res['rc']}:\n"
+        # the chaos command exits 0 only when every verdict is ok
+        want_rc = (0 if label != "chaos" or all(verdicts.values())
+                   else 1)
+        check(res["rc"] == want_rc,
+              f"{label} command exited {res['rc']}, want {want_rc}:\n"
               f"{res['stdout'][-3000:]}\n{res['stderr'][-3000:]}")
-        log(f"14 (d) {' '.join(SIM_COMMANDS[label])}: rc 0, "
+        log(f"14 (d) {' '.join(SIM_COMMANDS[label])}: rc {res['rc']}, "
             f"{res['wall_s']:.1f} s")
     fleet_rep = json.loads(ran["fleet"]["stdout"].strip().splitlines()[-1])
     check(fleet_rep["ok"] and fleet_rep["engine"] == "serving"
@@ -6099,10 +6129,17 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
           and profile["lanes"]["arrival"]["events"] == SIM_REQUESTS,
           f"the fleet command's --profile section: {sorted(profile)}, "
           f"lanes {sorted(profile.get('lanes', {}))}")
-    chaos_rep = json.loads(ran["chaos"]["stdout"].strip().splitlines()[-1])
-    by_name = {r["scenario"]: r for r in chaos_rep["scenarios"]}
-    check(chaos_rep["ok"] and sorted(by_name) == sorted(SIM_SCENARIO_KEYS),
-          f"chaos run on the card: {chaos_rep}")
+    check(sorted(by_name) == sorted(SIM_SCENARIO_KEYS)
+          and chaos_rep["ok"] == all(verdicts.values())
+          and all(ok for name, ok in verdicts.items()
+                  if name != SIM_FAILING_SCENARIO)
+          and verdicts[SIM_FAILING_SCENARIO]
+          == cpu_scenarios[SIM_FAILING_SCENARIO]["ok"],
+          f"chaos run on the card: verdicts {verdicts}, the CPU's "
+          f"{SIM_FAILING_SCENARIO} "
+          f"{cpu_scenarios[SIM_FAILING_SCENARIO]['ok']}")
+    log(f"14 (d) chaos verdicts {verdicts} ({SIM_FAILING_SCENARIO} as on "
+        "the CPU)")
     for name, keys in SIM_SCENARIO_KEYS.items():
         for key in keys:
             check(by_name[name][key] == cpu_scenarios[name][key],
@@ -6134,7 +6171,15 @@ SIM15_COMMANDS = {
                "--requests", "200", "--calibration", SIM15_CALIBRATION,
                "--json"),
     "pool loss": ("chaos", "run", "--scenario", "disagg-pool-loss"),
+    "zoo": ("fleet", "run", "--engine", "sim", "--zoo", "--json"),
+    "storm": ("chaos", "run", "--scenario", "zoo-swap-storm", "--json"),
 }
+# (g): one analytic fleet with the columnar mirror off and on (its knob);
+# the per-object run takes about 9 s on a CPU core
+SIM15_COLUMNAR = ("fleet", "run", "--engine", "sim", "--replicas", "512",
+                  "--requests", "10000", "--rps", "10000", "--policy",
+                  "least-outstanding", "--json")
+SIM15_COLUMNAR_ENV = {"columnar off": "0", "columnar on": "1"}
 SIM15_MAX_S = 30.0
 
 
@@ -6144,15 +6189,23 @@ def calibrated_sim_phase() -> dict:
     model block (2 of the flagship's 8 layers, this card) and (c)'s run
     is made in this process. Returns the calibration, the errors and
     the commands' walls."""
-    from kind_tpu_sim_torch import cli, fleet
+    import os
+
+    from kind_tpu_sim_torch import chaos, cli, fleet
     from kind_tpu_sim_torch.fleet import costmodel
 
     t0 = time.perf_counter()
     out = {}
-    with ThreadPoolExecutor(len(SIM15_COMMANDS)) as pool:
+    with ThreadPoolExecutor(len(SIM15_COMMANDS)
+                            + len(SIM15_COLUMNAR_ENV)) as pool:
         running = {label: pool.submit(
             _timed_run, [sys.executable, "-m", "kind_tpu_sim_torch", *argv])
             for label, argv in SIM15_COMMANDS.items()}
+        for label, value in SIM15_COLUMNAR_ENV.items():
+            running[label] = pool.submit(
+                _timed_run,
+                [sys.executable, "-m", "kind_tpu_sim_torch", *SIM15_COLUMNAR],
+                env=dict(os.environ, KIND_TPU_SIM_FLEET_COLUMNAR=value))
 
         # (a) this run's bench block, as the cost model reads it
         bench = json.loads((HERE / "build" / "chip_smoke_bench.json")
@@ -6184,6 +6237,24 @@ def calibrated_sim_phase() -> dict:
             calibration=fleet.load_calibration(
                 str(HERE / SIM15_CALIBRATION))).run()
         here.update(seed=seed, engine="sim")
+
+        # (e)'s and (f)'s runs in this process
+        args = cli.build_parser().parse_args(list(SIM15_COMMANDS["zoo"]))
+        seed = fleet.resolve_seed(args.seed)
+        zoo_here = fleet.FleetSim(cli.fleet_config(args),
+                                  cli.fleet_trace(args, seed)).run()
+        zoo_here.update(seed=seed, engine="sim")
+        storm_here = chaos.run_scenario("zoo-swap-storm")
+
+        # (h) the generation's HBM, this card's
+        total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+        hbm_gib = fleet.load_generation("h100")["hbm_gib"]
+        check(round(total_gib, 2) == hbm_gib
+              == costmodel.GENERATION_FACTS["h100"]["hbm_gib"],
+              f"15 (h): the h100 generation's hbm_gib {hbm_gib} against "
+              f"this card's {total_gib:.4f} GiB")
+        log(f"15 (h) the h100 generation's hbm_gib {hbm_gib} = this card's "
+            f"total_memory {total_gib:.4f} GiB to two places")
         ran = {label: f.result() for label, f in running.items()}
 
     committed = (HERE / SIM15_CALIBRATION).read_text()
@@ -6224,11 +6295,51 @@ def calibrated_sim_phase() -> dict:
     log(f"15 (d) {' '.join(SIM15_COMMANDS['pool loss'])}: "
         f"{res['stdout'].strip().splitlines()[-2].strip()}; rc 0, "
         f"{res['wall_s']:.1f} s")
+    res = ran["zoo"]
+    check(res["rc"] == 0, f"15 (e) exited {res['rc']}:\n"
+          f"{res['stdout'][-2000:]}\n{res['stderr'][-2000:]}")
+    report = json.loads(res["stdout"].strip().splitlines()[-1])
+    check(json.dumps(report, sort_keys=True)
+          == json.dumps(zoo_here, sort_keys=True)
+          and report["ok"] and report["config"]["generations"] == ["h100"]
+          and set(report["generations"].values()) == {"h100"},
+          "15 (e): the zoo fleet's report differs from the same run in "
+          "this process, or is not ok")
+    log(f"15 (e) {' '.join(SIM15_COMMANDS['zoo'])}: rc 0, "
+        f"{res['wall_s']:.1f} s, equal to the run in this process; swaps "
+        f"{report['zoo']['swaps']['completed']}, routes "
+        f"{json.dumps(report['router']['zoo'])}; slo attainment "
+        f"{report['slo']['attainment']}")
+    res = ran["storm"]
+    storm = json.loads(res["stdout"].strip().splitlines()[-1])
+    check(json.dumps(storm, sort_keys=True)
+          == json.dumps(storm_here, sort_keys=True)
+          and res["rc"] == (0 if storm["ok"] else 1),
+          f"15 (f): the storm scenario's report differs from the same run "
+          f"in this process, or its exit code {res['rc']} is not its "
+          f"verdict's ({storm['ok']}):\n{res['stderr'][-2000:]}")
+    log(f"15 (f) {' '.join(SIM15_COMMANDS['storm'])}: rc {res['rc']} (its "
+        f"verdict, ok {storm['ok']}), {res['wall_s']:.1f} s, equal to the "
+        f"run in this process; p99 steady {storm['p99_steady_s']} s, storm "
+        f"{storm['p99_storm_s']} s, ratio {storm['p99_ratio']} (bound "
+        f"1.25), swaps {storm['swaps_steady']} / {storm['swaps_storm']}")
+    off, on = ran["columnar off"], ran["columnar on"]
+    check(off["rc"] == on["rc"] == 0 and off["stdout"] == on["stdout"]
+          and json.loads(on["stdout"].strip().splitlines()[-1])["ok"],
+          f"15 (g): the columnar fleet exited {off['rc']} / {on['rc']}, or "
+          f"its reports differ:\n{off['stderr'][-2000:]}\n"
+          f"{on['stderr'][-2000:]}")
+    log(f"15 (g) {' '.join(SIM15_COLUMNAR)}: reports byte-equal; wall "
+        f"{off['wall_s']:.2f} s per-object, {on['wall_s']:.2f} s columnar")
     wall = time.perf_counter() - t0
     check(wall < SIM15_MAX_S,
           f"phase 15 took {wall:.1f} s, over its {SIM15_MAX_S} s")
     out["commands"] = {label: {"rc": r["rc"], "wall_s": r["wall_s"]}
                        for label, r in ran.items()}
+    out["hbm_gib"] = {"generation": hbm_gib, "card": total_gib}
+    out["zoo_swap_storm"] = {k: storm[k] for k in (
+        "ok", "p99_steady_s", "p99_storm_s", "p99_ratio", "swaps_steady",
+        "swaps_storm")}
     return out
 
 

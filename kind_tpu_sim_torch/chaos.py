@@ -11,7 +11,7 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
   crc32 of the arguments' repr; each event's ``param`` drawn before its
   slot and target), so a plan equals the reference's for the same seed;
 * the scenario registry: the three scenarios that drive device work
-  and one analytic scenario, each with the reference's bar:
+  and two analytic ones, each with the reference's bar:
 
   - ``preempt-train``: SIGTERM mid-step; a checkpoint is written at that
     step, and the resumed loss trajectory equals the uninterrupted one
@@ -25,7 +25,15 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
     fleet of analytic replicas, priced from the cost model's
     calibration, loses its whole prefill pool and then has its KV link
     degraded; the decode pool finishes prefilled work through the
-    outage, no request is lost, and tail attainment recovers.
+    outage, no request is lost, and tail attainment recovers;
+  - ``zoo-swap-storm`` (analytic): six replicas of the port's generations
+    (``costmodel.GENERATIONS``, the H100's alone) serve the default
+    model zoo under model-swap-storm pulses; no request is lost, the
+    swap ledger holds every reload, and the storm's e2e p99 must stay
+    within 1.25x of the steady run's. Priced from the H100's
+    calibration (decode at 260.4 GB/s), six replicas fail that bound:
+    the verdict is ``ok: false``, and ``chaos run --scenario all``
+    exits 1.
 
 Each scenario takes the reference's ``seed`` and returns its result
 dict. A device scenario's model is the reference's tiny config unless
@@ -34,8 +42,9 @@ dict. A device scenario's model is the reference's tiny config unless
 not depend on the weights equal the reference's). It runs on the card
 unless ``device="cpu"`` is given. ``preempt-train`` signals its own
 process: run it in the main thread, where the guard's handler is
-installed. ``disagg-pool-loss`` takes neither ``device`` nor ``cfg``;
-with the same calibration its result is the reference's.
+installed. The analytic scenarios take neither ``device`` nor ``cfg``;
+with the same calibration (and, for ``zoo-swap-storm``, the same
+generation registry) their results are the reference's.
 
 The reference's other scenarios drive the simulator's control plane,
 worker pools, scheduler and the rest of its analytic fleets, and are
@@ -597,6 +606,80 @@ def _scenario_disagg_pool_loss(seed: int) -> dict:
         "tail_attainment_faulted": tail_faulted,
         "ok": bool(faulted["ok"] and clean["ok"] and survivors > 0
                    and tokens(faulted) == tokens(clean) and recovered),
+    }
+
+
+@_scenario("zoo-swap-storm",
+           "a fleet of the registered generations serving the default "
+           "model zoo under model-swap-storm pulses: every resident "
+           "model is evicted repeatedly mid-window, the warm pool "
+           "rebuilds through the swap lane each time, zero requests "
+           "are lost, the swap ledger accounts every reload, and p99 "
+           "holds within 1.25x of the steady-mix run", device=False)
+def _scenario_zoo_swap_storm(seed: int) -> dict:
+    from kind_tpu_sim_torch.fleet import costmodel
+    from kind_tpu_sim_torch.fleet import zoo as zoo_mod
+
+    plan = ChaosSchedule(seed).plan(kinds=("model_swap_storm",),
+                                    n_faults=1, horizon=8, targets=1)
+    pulses = max(1, int(plan.events[0].param))
+    zoo = zoo_mod.default_zoo()
+    # the reference's trace: long, so that a pulse's one reload a
+    # replica touches few of its 2000 requests
+    spec = fleet.WorkloadSpec(process="poisson", rps=120.0,
+                              n_requests=2000, prompt_len=(4, 16),
+                              max_new=(16, 32), zoo=zoo)
+    trace = fleet.generate_trace(spec, seed)
+    span = max(r.arrival_s for r in trace)
+    t0 = round(span * 0.3, 6)
+    t1 = round(span * 0.7, 6)
+    cfg = fleet.FleetConfig(
+        replicas=6, policy="least-outstanding",
+        slo=fleet.SloPolicy(ttft_s=1.0, e2e_s=5.0),
+        zoo=zoo, generations=tuple(costmodel.GENERATIONS))
+
+    def storm_events():
+        out = []
+        for k in range(pulses):
+            frac = k / max(1, pulses - 1) if pulses > 1 else 0.0
+            out.append(fleet.ChaosEvent(
+                round(t0 + (t1 - t0) * frac, 6), "model_swap_evict", 0))
+        return out
+
+    steady = fleet.FleetSim(cfg, trace).run()
+    storm = fleet.FleetSim(cfg, trace, chaos_events=storm_events()).run()
+    replay = fleet.FleetSim(cfg, trace, chaos_events=storm_events()).run()
+
+    def p99(rep: dict) -> Optional[float]:
+        return rep["slo"].get("e2e", {}).get("p99_s")
+
+    def tokens(rep: dict) -> int:
+        return sum(e["tokens"] for e in rep["completions"])
+
+    p99_steady = p99(steady)
+    p99_storm = p99(storm)
+    ratio = (round(p99_storm / p99_steady, 6)
+             if p99_steady and p99_storm is not None else None)
+    return {
+        "plan": plan.as_dict(),
+        "requests": len(trace),
+        "pulses": pulses,
+        "generations": sorted(set(storm["generations"].values())),
+        "swaps_steady": steady["zoo"]["swaps"]["completed"],
+        "swaps_storm": storm["zoo"]["swaps"]["completed"],
+        "per_model_slo": {
+            name: board.get("e2e", {}).get("p99_s")
+            for name, board in storm["zoo"]["per_model_slo"].items()},
+        "p99_steady_s": p99_steady,
+        "p99_storm_s": p99_storm,
+        "p99_ratio": ratio,
+        "replay_identical": storm == replay,
+        "ok": bool(storm["ok"] and steady["ok"]
+                   and storm == replay
+                   and tokens(storm) == tokens(steady)
+                   and storm["zoo"]["swaps"]["completed"]
+                   >= steady["zoo"]["swaps"]["completed"]
+                   and ratio is not None and ratio <= 1.25),
     }
 
 

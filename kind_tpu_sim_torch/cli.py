@@ -87,18 +87,25 @@ section (``profiling.profile_fleet_run``). ``fleet trace`` prints or
 saves the trace alone. ``fleet calibrate --bench PATH`` derives the cost
 model's calibration from a bench artifact (``bench.py --model-only``),
 writes it to ``--out`` (default: the H100's file), prints each phase's
-error and exits 1 while any error is over 0.15. ``--zoo`` and
-``--generations`` (the model zoo) and ``fleet tune`` are refused,
-naming their layer.
+error and exits 1 while any error is over 0.15. ``--zoo`` (sim only)
+serves the default three-model zoo: every request names a model,
+replicas keep one model warm and a cold admission pays a modeled weight
+load; ``--generations G1,G2`` cycles generation names over the replica
+ids, each replica priced from its generation's calibration. The port
+registers one generation, ``h100``, and a zoo without ``--generations``
+takes it; another name raises the reference's "unknown generation".
+``fleet tune`` is refused, naming its layer.
 
 ``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
 (``run_chaos_engine``) for the ported scenarios (``chaos.py``): the
 three that drive device work, ``preempt-train``,
 ``serving-slot-failure`` and ``fleet-preemption`` (slow, on
-``--device``), and the analytic ``disagg-pool-loss``. Without
-``--scenario`` it lists them; ``all`` runs the fast ones, and the slow
-ones too with ``--include-slow``. It prints ``CHAOS RUN OK`` or
-``CHAOS RUN FAILED`` and exits 0 or 1.
+``--device``), and the analytic ``disagg-pool-loss`` and
+``zoo-swap-storm``. Without ``--scenario`` it lists them; ``all`` runs
+the fast ones, and the slow ones too with ``--include-slow``. It prints
+``CHAOS RUN OK`` or ``CHAOS RUN FAILED`` and exits 0 or 1: on the
+H100's calibration ``zoo-swap-storm`` fails its p99 bound at seed 0, so
+``all`` exits 1.
 """
 
 from __future__ import annotations
@@ -324,9 +331,20 @@ def build_parser() -> argparse.ArgumentParser:
     fl.add_argument("--bench", default=None, metavar="PATH",
                     help="fleet calibrate's input: a bench artifact with "
                          "the model block's roofline keys")
-    # the model zoo: accepted here only to be refused
-    fl.add_argument("--zoo", action="store_true", help=argparse.SUPPRESS)
-    fl.add_argument("--generations", default=None, help=argparse.SUPPRESS)
+    fl.add_argument("--zoo", action="store_true",
+                    help="with --engine sim: serve the default three-model "
+                         "zoo: every request targets a model, replicas "
+                         "hold one model's weights warm, cold routes pay a "
+                         "modeled weight load on the swap lane, and routing "
+                         "is warm-first; defaults --generations to the "
+                         "default generation (h100); knobs "
+                         "KIND_TPU_SIM_ZOO_*; the report gains a 'zoo' "
+                         "section")
+    fl.add_argument("--generations", default=None, metavar="G1,G2",
+                    help="accelerator generations cycled over replica ids, "
+                         "each replica priced from its generation's "
+                         "calibration (registered: h100); under --sched the "
+                         "one generation is the gangs' accelerator label's")
 
     ch = sub.add_parser(
         "chaos",
@@ -573,14 +591,6 @@ def run_manifests(args: argparse.Namespace) -> int:
     return 0
 
 
-# the fleet flags of the simulator's layers the port does not carry yet,
-# with what they set
-_SIMULATOR_FLAGS = (
-    ("zoo", "--zoo", "the model zoo"),
-    ("generations", "--generations", "per-generation pricing"),
-)
-
-
 def serving_fleet_config() -> tuple:
     """(model config, serving config) of the reference's engine fleet:
     the tiny model (bf16 activations) in 4 slots of 128 positions, at
@@ -608,6 +618,29 @@ def fleet_tenancy(args: argparse.Namespace):
     return tenancy
 
 
+def fleet_zoo(args: argparse.Namespace):
+    """(the ``ZooConfig`` of ``--zoo``, the generations of
+    ``--generations``): the default zoo or None, and the names or None
+    (a name the registry lacks exits with the reference's "unknown
+    generation"); a zoo without ``--generations`` takes the default
+    generation, the one each of its models fits."""
+    from kind_tpu_sim_torch import fleet
+
+    zoo = fleet.default_zoo() if args.zoo else None
+    generations = None
+    if args.generations:
+        generations = tuple(g.strip() for g in args.generations.split(",")
+                            if g.strip())
+        for gen in generations:
+            try:
+                fleet.resolve_generation(gen)
+            except ValueError as exc:
+                raise SystemExit(str(exc)) from None
+    elif zoo is not None:
+        generations = (fleet.DEFAULT_GENERATION,)
+    return zoo, generations
+
+
 def fleet_trace(args: argparse.Namespace, seed: int) -> list:
     """The trace ``fleet`` serves: ``--trace-file``'s, else generated
     from the flags and ``seed``."""
@@ -620,7 +653,7 @@ def fleet_trace(args: argparse.Namespace, seed: int) -> list:
         process=args.process, rps=args.rps, n_requests=args.requests,
         shared_prefix_frac=args.shared_prefix_frac,
         prefix_groups=args.prefix_groups, deadline_s=args.deadline_s,
-        tenancy=tenancy), seed)
+        tenancy=tenancy, zoo=fleet_zoo(args)[0]), seed)
 
 
 def fleet_training_config(args: argparse.Namespace):
@@ -661,9 +694,17 @@ def fleet_disagg(args: argparse.Namespace):
 def fleet_config(args: argparse.Namespace):
     """The ``FleetConfig`` of ``fleet run``'s flags (the detector with its
     defaults under ``--health``; ``--disagg``'s pools in place of
-    ``--replicas``)."""
+    ``--replicas``; ``--zoo`` on the analytic replicas only)."""
     from kind_tpu_sim_torch import fleet
 
+    zoo, generations = fleet_zoo(args)
+    if zoo is not None:
+        if args.disagg:
+            raise SystemExit("--zoo does not compose with --disagg "
+                             "(phase pools price off the anchor)")
+        if args.engine == "serving":
+            raise SystemExit("--zoo needs the analytic sim engine "
+                             "(calibrated zoo replicas)")
     disagg = fleet_disagg(args)
     replicas = args.replicas
     if disagg is not None:
@@ -680,7 +721,8 @@ def fleet_config(args: argparse.Namespace):
         health=fleet.DetectorConfig() if args.health else None,
         overload=fleet.OverloadConfig() if args.overload else None,
         training=fleet_training_config(args), disagg=disagg,
-        tenancy=fleet_tenancy(args), audit_frac=args.audit_frac,
+        tenancy=fleet_tenancy(args), zoo=zoo, generations=generations,
+        audit_frac=args.audit_frac,
         event_core=False if args.no_event_core else None)
 
 
@@ -736,11 +778,6 @@ def run_fleet(args: argparse.Namespace) -> int:
         raise SystemExit(
             "fleet tune belongs to the simulator's tuner, which the port "
             "does not carry yet (python -m kind_tpu_sim fleet tune)")
-    for attr, flag, layer in _SIMULATOR_FLAGS:
-        if getattr(args, attr):
-            raise SystemExit(
-                f"{flag} configures {layer}, a layer of the simulator the "
-                "port does not carry yet (python -m kind_tpu_sim fleet)")
     if args.engine == "sim" and args.device is not None:
         raise SystemExit(
             "--engine sim runs the analytic replicas, which do no device "

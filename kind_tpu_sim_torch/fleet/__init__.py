@@ -8,8 +8,11 @@ prefill/decode pools (``disagg``), the autoscaler (``autoscaler``),
 overload containment (``overload``), multi-tenancy (``tenancy``), the
 gray-failure detector (``kind_tpu_sim_torch.health``), the training
 tenancy (``training``), the event heap (``events``) and the
-virtual-clock loop (``sim``) with its integrity audit lane and its
-scheduler-backed placement (``kind_tpu_sim_torch.sched``). The same seed
+virtual-clock loop (``sim``) with its integrity audit lane, its
+scheduler-backed placement (``kind_tpu_sim_torch.sched``), the model zoo
+and per-generation pricing (``zoo``, the generation registry in
+``costmodel``) and the columnar mirror of analytic fleets
+(``columnar``). The same seed
 and config give the reference's report (for engine fleets, when the
 engines carry the same weights).
 
@@ -21,7 +24,10 @@ KIND_TPU_SIM_FLEET_EVENT_CORE (``events.resolve_event_core``),
 KIND_TPU_SIM_TRAIN_* (the training tenancy), KIND_TPU_SIM_SDC_* (the
 audit lane and chip defects), KIND_TPU_SIM_CALIBRATION
 (``costmodel.load_calibration``) and KIND_TPU_SIM_DISAGG_TIER /
-KIND_TPU_SIM_DISAGG_DTYPE (``disagg.resolve_tier`` / ``resolve_dtype``).
+KIND_TPU_SIM_DISAGG_DTYPE (``disagg.resolve_tier`` / ``resolve_dtype``),
+KIND_TPU_SIM_GENERATION, KIND_TPU_SIM_ZOO_MODELS and
+KIND_TPU_SIM_ZOO_SWAP_FACTOR (``zoo``), KIND_TPU_SIM_FLEET_COLUMNAR
+(``columnar.resolve_columnar``).
 """
 
 from kind_tpu_sim_torch.health import (  # noqa: F401
@@ -34,14 +40,25 @@ from kind_tpu_sim_torch.fleet.autoscaler import (  # noqa: F401
     ScaleEvent,
     resolve_warmup_s,
 )
+from kind_tpu_sim_torch.fleet.columnar import (  # noqa: F401
+    COLUMNAR_MIN_REPLICAS,
+    FleetColumns,
+    resolve_columnar,
+)
 from kind_tpu_sim_torch.fleet.costmodel import (  # noqa: F401
     CALIBRATION_SCHEMA,
     DEFAULT_CALIBRATION,
+    DEFAULT_GENERATION,
+    GENERATION_FACTS,
+    GENERATIONS,
     CostModel,
     RequestCost,
     calibrate,
+    derive_generation,
+    generation_of_accelerator,
     kv_bytes_per_token,
     load_calibration,
+    load_generation,
     parse_geometry,
 )
 from kind_tpu_sim_torch.fleet.disagg import (  # noqa: F401
@@ -53,6 +70,7 @@ from kind_tpu_sim_torch.fleet.disagg import (  # noqa: F401
     resolve_tier,
 )
 from kind_tpu_sim_torch.fleet.events import (  # noqa: F401
+    LANE_MODEL_SWAP,
     DueSet,
     EventHeap,
     resolve_event_core,
@@ -126,6 +144,19 @@ from kind_tpu_sim_torch.fleet.training import (  # noqa: F401
     shrink_topology,
     step_time_s,
     verify_ledger,
+)
+from kind_tpu_sim_torch.fleet.zoo import (  # noqa: F401
+    ModelSpec,
+    SwapEvent,
+    ZooConfig,
+    default_zoo,
+    fits,
+    model_sim_config,
+    placements,
+    resolve_generation,
+    stamp_models,
+    swap_s,
+    zoo_config_from_dict,
 )
 from kind_tpu_sim_torch.fleet.slo import (  # noqa: F401
     FixedBucketHistogram,

@@ -1,8 +1,8 @@
 """The analytic serving cost model, priced from the H100's calibration.
 
-The port's copy of ``kind_tpu_sim/fleet/costmodel.py`` (the generation
-registry aside). It prices the two serving phases from first principles,
-anchored to a bench artifact of the card:
+The port's copy of ``kind_tpu_sim/fleet/costmodel.py``. It prices the
+two serving phases from first principles, anchored to a bench artifact
+of the card:
 
 * **prefill** is compute-bound: a prompt runs through one forward pass,
   so its time is ``prompt_tokens`` over the forward rate the bench
@@ -21,6 +21,22 @@ fleet calibrate``). The port's default is the H100's,
 KIND_TPU_SIM_CALIBRATION names another. Every function here is float
 arithmetic over the calibration dict, so a fleet priced by it replays
 byte for byte.
+
+The generation registry (the model zoo's and ``FleetConfig.generations``'
+pricing) names one calibration file a card generation. The port has
+numbers for one card, so it registers one generation, ``h100``: its file
+``calibration/generations/h100.json`` is ``calibration/h100.json`` plus
+the metadata keys ``generation``, ``hbm_gib`` (79.18, the card's
+``total_memory`` of 85,017,493,504 bytes) and ``chip_second_cost`` (1.0,
+the anchor). Generation files live in a folder of their own because
+``h100.json`` is the default calibration, which ``fleet calibrate``
+writes without those keys. Every accelerator label of
+``kind_tpu_sim_torch.topology.ACCELERATORS`` (the scheduler's labels,
+the reference's TPU names) prices as ``h100``; ``h100`` maps back to
+``topology.DEFAULT_ACCELERATOR``, and ``GENERATION_SCHED_TOPOLOGY`` keeps
+the reference's inventory shapes for the labels. :func:`derive_generation`
+keeps the reference's scaling rule, for a generation a caller registers
+with its own facts; the port ships no derived file.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ import pathlib
 import re
 from typing import Dict, Optional
 
+from kind_tpu_sim_torch import topology
 from kind_tpu_sim_torch.fleet import knobs
 
 # the calibration file's schema; the loader refuses any other
@@ -38,6 +55,36 @@ CALIBRATION_SCHEMA = 1
 
 DEFAULT_CALIBRATION = (pathlib.Path(__file__).resolve().parents[1]
                        / "calibration" / "h100.json")
+# the generation registry's files, calibration/generations/<gen>.json
+CALIBRATION_DIR = DEFAULT_CALIBRATION.parent / "generations"
+
+DEFAULT_GENERATION = "h100"
+GENERATIONS = ("h100",)
+
+# accelerator label -> the generation that prices a replica placed on it
+ACCELERATOR_GENERATIONS = {accel: DEFAULT_GENERATION
+                           for accel in sorted(topology.ACCELERATORS)}
+
+# generation -> the accelerator label a scheduler pool of it requests
+GENERATION_ACCELERATORS = {DEFAULT_GENERATION: topology.DEFAULT_ACCELERATOR}
+
+# scheduler inventory shapes a label: (pod topology, replica slice
+# topology), the reference's
+GENERATION_SCHED_TOPOLOGY = {
+    "tpu-v5-lite-podslice": ("4x8", "2x4"),
+    "tpu-v4-podslice": ("4x4x4", "2x2x2"),
+    "tpu-v5p-slice": ("4x4x4", "2x2x2"),
+}
+
+# A generation's facts against the anchor: the compute and bandwidth
+# ratios derive_generation scales by, the HBM the zoo's fit check
+# charges, and the relative price of a chip-second. h100 is the anchor;
+# its HBM is torch.cuda.get_device_properties(0).total_memory of an
+# NVIDIA H100 80GB HBM3 (85,017,493,504 bytes) in GiB.
+GENERATION_FACTS = {
+    "h100": {"compute_ratio": 1.0, "bandwidth_ratio": 1.0,
+             "hbm_gib": 79.18, "chip_second_cost": 1.0},
+}
 
 DTYPES = ("bf16", "int8")
 DTYPE_BYTES = {"bf16": 2, "int8": 1}
@@ -173,6 +220,87 @@ def load_calibration(path: Optional[str] = None) -> dict:
             f"{CALIBRATION_SCHEMA} — regenerate with "
             "`python -m kind_tpu_sim_torch fleet calibrate`")
     return cal
+
+
+def generation_path(name: str) -> pathlib.Path:
+    """Where generation ``name``'s calibration file lives."""
+    return CALIBRATION_DIR / f"{name}.json"
+
+
+def load_generation(name: str) -> dict:
+    """A registered generation's calibration. The file must name its
+    generation (``generation`` equal to ``name``), so a renamed or
+    misderived file cannot price a fleet."""
+    if name not in GENERATIONS:
+        raise ValueError(
+            f"unknown generation {name!r}; registered: "
+            f"{', '.join(GENERATIONS)}")
+    cal = load_calibration(str(generation_path(name)))
+    if cal.get("generation") != name:
+        raise ValueError(
+            f"calibration file {generation_path(name)} declares "
+            f"generation {cal.get('generation')!r}, expected "
+            f"{name!r}")
+    return cal
+
+
+def generation_of_accelerator(accelerator: str) -> str:
+    """The generation a scheduler accelerator label prices as."""
+    try:
+        return ACCELERATOR_GENERATIONS[accelerator]
+    except KeyError:
+        raise ValueError(
+            f"accelerator {accelerator!r} maps to no registered "
+            f"generation; known: "
+            f"{', '.join(sorted(ACCELERATOR_GENERATIONS))}") from None
+
+
+def derive_generation(base: dict, name: str) -> dict:
+    """The calibration ``base`` scaled onto generation ``name`` by its
+    ratios in ``GENERATION_FACTS``: prefill rates by the compute ratio,
+    decode bandwidths and rates by the bandwidth ratio. Analytic and
+    measured sides scale together, so every ``error_frac`` is kept."""
+    facts = GENERATION_FACTS[name]
+    compute = facts["compute_ratio"]
+    bw = facts["bandwidth_ratio"]
+    slots = int(base["slots"])
+    prefill_analytic = round(
+        base["prefill"]["analytic_tokens_per_s"] * compute, 3)
+    prefill_measured = round(
+        base["prefill"]["measured_tokens_per_s"] * compute, 3)
+    decode: Dict[str, dict] = {}
+    for dtype, d in base["decode"].items():
+        achieved = round(d["achieved_gbps"] * bw, 3)
+        analytic = (slots * achieved * 1e9
+                    / (d["bytes_per_step_mb"] * 1e6))
+        measured = round(d["measured_tokens_per_s"] * bw, 3)
+        decode[dtype] = {
+            "achieved_gbps": achieved,
+            "analytic_tokens_per_s": round(analytic, 3),
+            "bytes_per_step_mb": d["bytes_per_step_mb"],
+            "error_frac": _error_frac(analytic, measured),
+            "kv_mb": d["kv_mb"],
+            "measured_tokens_per_s": measured,
+            "roof_gbps": round(d["roof_gbps"] * bw, 3),
+            "weight_mb": d["weight_mb"],
+        }
+    return {
+        "schema": CALIBRATION_SCHEMA,
+        "backend": base["backend"],
+        "chip": name,
+        "generation": name,
+        "hbm_gib": facts["hbm_gib"],
+        "chip_second_cost": facts["chip_second_cost"],
+        "model": base["model"],
+        "geometry": dict(base["geometry"]),
+        "slots": slots,
+        "prefill": {
+            "analytic_tokens_per_s": prefill_analytic,
+            "measured_tokens_per_s": prefill_measured,
+            "error_frac": base["prefill"]["error_frac"],
+        },
+        "decode": decode,
+    }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""The environment knobs the fleet, scheduler, training, chaos and cost
-model layers read.
+"""The environment knobs the fleet, scheduler, training, chaos, cost
+model and model-zoo layers read.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
@@ -30,6 +30,10 @@ SDC_AUDIT_FRAC = "KIND_TPU_SIM_SDC_AUDIT_FRAC"
 DISAGG_TIER = "KIND_TPU_SIM_DISAGG_TIER"
 DISAGG_DTYPE = "KIND_TPU_SIM_DISAGG_DTYPE"
 CALIBRATION = "KIND_TPU_SIM_CALIBRATION"
+FLEET_COLUMNAR = "KIND_TPU_SIM_FLEET_COLUMNAR"
+GENERATION = "KIND_TPU_SIM_GENERATION"
+ZOO_MODELS = "KIND_TPU_SIM_ZOO_MODELS"
+ZOO_SWAP_FACTOR = "KIND_TPU_SIM_ZOO_SWAP_FACTOR"
 
 # values a bool knob reads as off
 FALSE_VALUES = ("", "0", "false", "no")
@@ -53,6 +57,11 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     DISAGG_TIER: ("ici", "str"),
     DISAGG_DTYPE: ("bf16", "str"),
     CALIBRATION: (None, "str"),
+    FLEET_COLUMNAR: (True, "bool"),
+    # the port's generation registry holds one name, the H100's
+    GENERATION: ("h100", "str"),
+    ZOO_MODELS: (3, "int"),
+    ZOO_SWAP_FACTOR: (1.0, "float"),
 }
 
 

@@ -14,9 +14,10 @@ peak rate: ``poisson`` (exponential inter-arrivals at ``rps``),
 through JSON lines (:func:`save_trace` / :func:`load_trace`).
 
 A spec with a tenant population (``WorkloadSpec.tenancy``) is drawn by
-``tenancy.generate_tenant_trace``. The model zoo's stamps
-(``WorkloadSpec.zoo``) feed a simulator layer the port does not carry;
-a spec that sets them is refused.
+``tenancy.generate_tenant_trace``. A spec with a model zoo
+(``WorkloadSpec.zoo``) gets a model stamped on every request by
+``zoo.stamp_models``, from a stream of its own, so the base trace is the
+unzooed one.
 """
 
 from __future__ import annotations
@@ -167,16 +168,12 @@ def generate_trace(spec: WorkloadSpec,
             f"{', '.join(WorkloadSpec.PROCESSES)}")
     if spec.rps <= 0:
         raise ValueError(f"rps must be > 0 (got {spec.rps})")
-    if spec.zoo is not None:
-        raise ValueError(
-            "WorkloadSpec.zoo (the simulator's model-zoo stamps) is "
-            "not ported")
     seed = resolve_seed(seed)
     if spec.tenancy is not None:
         # a late import: tenancy builds TraceRequests
         from kind_tpu_sim_torch.fleet.tenancy import generate_tenant_trace
 
-        return generate_tenant_trace(spec, seed)
+        return _stamp_zoo(spec, generate_tenant_trace(spec, seed), seed)
     rng = _spec_rng(spec, seed)
     if spec.process == "bursty":
         peak = spec.rps * max(1.0, spec.burst_factor)
@@ -217,7 +214,18 @@ def generate_trace(spec: WorkloadSpec,
             deadline_s=spec.deadline_s,
         ))
         i += 1
-    return out
+    return _stamp_zoo(spec, out, seed)
+
+
+def _stamp_zoo(spec: WorkloadSpec, trace: List[TraceRequest],
+               seed: int) -> List[TraceRequest]:
+    """The trace with the zoo's models stamped on, when the spec has a
+    zoo; else the trace as it is."""
+    if spec.zoo is None:
+        return trace
+    from kind_tpu_sim_torch.fleet.zoo import stamp_models
+
+    return stamp_models(spec.zoo, trace, seed)
 
 
 def save_trace(path: str, trace: Sequence[TraceRequest]) -> None:

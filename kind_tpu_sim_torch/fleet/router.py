@@ -35,10 +35,18 @@ The port's copy of ``kind_tpu_sim/fleet/router.py``:
   With disaggregated pools (``disagg``) arrivals go to the prefill pool
   and KV handoffs wait in a lane of their own for the decode pool, which
   drains first and never sheds; under isolation a tenant over its
-  decode-pool budget defers without blocking the others.
+  decode-pool budget defers without blocking the others. With the model
+  zoo (``zoo``) a request that names a model goes to the replicas that
+  can hold it, those with it resident first, then by load; a model that
+  no replica can hold is shed.
 
-The reference's model-zoo routing and columnar fast path belong to
-layers the port does not carry yet.
+A replica of a zoo fleet (``SimReplicaConfig``'s ``model_*`` maps, from
+``zoo.model_sim_config``) holds one model resident: admitting another
+pays its swap time before the prefill, on the slot's closed-form
+timeline, and reports the swap through ``on_swap``. In a columnar fleet
+(``fleet/columnar.py``) every method of a ``SimReplica`` that changes
+its queue, slots, health or timing calls ``_touch()``, and the router's
+least-outstanding choice is one ``argmin`` over the mirror.
 """
 
 from __future__ import annotations
@@ -79,10 +87,12 @@ class SimReplicaConfig:
     """The analytic replica's service model. The defaults are the
     reference's round figures for a small model, not a measurement of
     any chip; ``disagg.calibrated_sim_config`` prices a replica from the
-    H100's calibration instead. The ``model_*`` and ``resident_model``
-    fields are the model zoo's per-model prices (the reference's
-    fields, kept so a config and its report are the reference's); the
-    port's zoo is not carried yet, and a replica refuses them."""
+    H100's calibration instead. The ``model_*`` fields are the model
+    zoo's per-model prices as sorted (name, value) pairs, empty on an
+    unzooed replica (whose prices are then the plain fields, float for
+    float); a model absent from them cannot be served here.
+    ``model_swap_s`` is a cold admission's weight load, and
+    ``resident_model`` the model warm at bring-up."""
 
     max_slots: int = 4
     prefill_base_s: float = 0.010
@@ -96,6 +106,7 @@ class SimReplicaConfig:
     resident_model: str = ""
 
     def as_dict(self) -> dict:
+        """The config's report form: the zoo's fields only when set."""
         out = dataclasses.asdict(self)
         if not self.model_tpot_s:
             for key in ("model_prefill_per_tok_s", "model_tpot_s",
@@ -124,10 +135,6 @@ class SimReplica:
             raise ValueError(
                 f"unknown replica phase {phase!r}; known: "
                 "prefill, decode, unified")
-        if cfg.model_tpot_s or cfg.model_prefill_per_tok_s:
-            raise ValueError(
-                "per-model prices (SimReplicaConfig.model_*) belong to "
-                "the model zoo, which the port does not carry yet")
         self.replica_id = replica_id
         self.cfg = cfg
         self.phase = phase
@@ -149,17 +156,39 @@ class SimReplica:
         self.tenant_prefix_caps: Optional[Dict[str, int]] = None
         self.prefix_hits = 0
         self.prefix_misses = 0
+        # the model zoo: the resident model, the per-model prices and
+        # the swap ledger (empty and zero on an unzooed replica)
+        self.resident_model = cfg.resident_model
+        self._model_prefill = dict(cfg.model_prefill_per_tok_s)
+        self._model_tpot = dict(cfg.model_tpot_s)
+        self._model_swap = dict(cfg.model_swap_s)
+        self.swaps = 0
+        self.warm_hits = 0
+        # called (SwapEvent) when an admission loads a model: the fleet
+        # puts it on LANE_MODEL_SWAP
+        self.on_swap = None
+        # the columnar mirror and this replica's row in it (None outside
+        # a columnar fleet)
+        self._cols = None
+        self._idx = -1
+
+    def _touch(self) -> None:
+        c = self._cols
+        if c is not None:
+            c.dirty.add(self._idx)
 
     def set_slowdown(self, factor: float) -> None:
         """Scale prefill and decode times by ``factor`` (1 restores)
         from now on; a token already scheduled keeps its time."""
         self.slowdown = max(1.0, float(factor))
+        self._touch()
 
     def set_corrupt(self, frac: float) -> None:
         """Make this replica's chip defective: a deterministic ``frac``
         of its completions carry a wrong, replica-keyed fingerprint
         (0 restores clean output)."""
         self.corrupt_frac = max(0.0, min(1.0, float(frac)))
+        self._touch()
 
     def cancel(self, request_id: str) -> bool:
         """Withdraw a hedge's losing copy from the queue or free its
@@ -168,13 +197,49 @@ class SimReplica:
         for i, req in enumerate(self.queue):
             if req.request_id == request_id:
                 del self.queue[i]
+                self._touch()
                 return True
         for i, slot in enumerate(self._slots):
             if (slot is not None
                     and slot["req"].request_id == request_id):
                 self._slots[i] = None
+                self._touch()
                 return True
         return False
+
+    # -- the model zoo -------------------------------------------------
+
+    def can_serve(self, model: str) -> bool:
+        """Whether ``model`` is in this replica's price maps (absent: it
+        does not fit the replica's generation). The empty model and an
+        unzooed replica serve anywhere."""
+        return (not model or not self._model_tpot
+                or model in self._model_tpot)
+
+    def _swap_in(self, model: str, now: float) -> float:
+        """An admission's weight load, in seconds: 0 when ``model`` is
+        resident (a warm hit), else its swap time at the current
+        slowdown. The model is resident from the admission on, and the
+        fleet hears of the swap through ``on_swap``."""
+        if not model or not self._model_tpot:
+            return 0.0
+        if model == self.resident_model:
+            self.warm_hits += 1
+            return 0.0
+        cost = self._model_swap.get(model, 0.0) * self.slowdown
+        evicted = self.resident_model
+        self.resident_model = model
+        self.swaps += 1
+        self._touch()
+        if self.on_swap is not None:
+            from kind_tpu_sim_torch.fleet.zoo import SwapEvent
+
+            self.on_swap(SwapEvent(
+                replica_id=self.replica_id, model=model,
+                evicted=evicted, ready_s=round(now + cost, 9)))
+        return cost
+
+    # -- the replica interface -----------------------------------------
 
     def outstanding(self) -> int:
         return (len(self.queue)
@@ -192,10 +257,13 @@ class SimReplica:
     def submit(self, req: TraceRequest, now: float) -> bool:
         if not self.healthy:
             return False
+        if not self.can_serve(getattr(req, "model", "")):
+            return False
         if (self.cfg.max_queue
                 and len(self.queue) >= self.cfg.max_queue):
             return False
         self.queue.append(req)
+        self._touch()
         return True
 
     def _prefill_cost(self, req: TraceRequest) -> float:
@@ -229,8 +297,10 @@ class SimReplica:
                     evicted = next(iter(self._prefix_seen))
                     self._prefix_seen.pop(evicted)
                     self._prefix_owner.pop(evicted, None)
-        return (self.cfg.prefill_base_s
-                + self.cfg.prefill_per_tok_s * toks) * self.slowdown
+        # the model's prefill rate; an unzooed replica's is the plain one
+        per_tok = self._model_prefill.get(
+            req.model, self.cfg.prefill_per_tok_s)
+        return (self.cfg.prefill_base_s + per_tok * toks) * self.slowdown
 
     @staticmethod
     def _group_prefix_len(req: TraceRequest) -> int:
@@ -264,7 +334,8 @@ class SimReplica:
         for slot in self._slots:
             if slot is None:
                 continue
-            step = self.cfg.tpot_s * self.slowdown
+            # a zoo slot decodes at its model's TPOT
+            step = slot.get("tpot_s", self.cfg.tpot_s) * self.slowdown
             req = slot["req"]
             if slot["first_s"] is None:
                 # the prefill event, then at least max(max_new - 1, 1)
@@ -316,30 +387,44 @@ class SimReplica:
                         # a decode-pool admission: the KV arrived
                         # prefilled, the slot resumes at the handoff's
                         # token count, and the dispatch and first-token
-                        # stamps stay the request's
-                        self._slots[i] = {
+                        # stamps stay the request's; a cold model loads
+                        # before the first step
+                        model = req.request.model
+                        swap = self._swap_in(model, now)
+                        step = (self._model_tpot.get(
+                            model, self.cfg.tpot_s) * self.slowdown)
+                        slot = {
                             "req": req.request,
                             "dispatch_s": req.dispatch_s,
-                            "next_s": (now + self.cfg.tpot_s
-                                       * self.slowdown),
+                            "next_s": now + swap + step,
                             "first_s": req.first_s,
                             "tokens": req.tokens,
                         }
+                        if model and model in self._model_tpot:
+                            slot["tpot_s"] = self._model_tpot[model]
+                        self._slots[i] = slot
                         continue
-                    self._slots[i] = {
+                    model = req.model
+                    # a cold model's load precedes its prefill (zero on
+                    # a warm hit and on an unzooed replica)
+                    swap = self._swap_in(model, now)
+                    slot = {
                         "req": req,
                         "dispatch_s": now,
                         # the slot's next event: the first token at the
                         # end of prefill, then one a decoded token
-                        "next_s": now + self._prefill_cost(req),
+                        "next_s": now + swap + self._prefill_cost(req),
                         "first_s": None,
                         "tokens": 0,
                     }
+                    if model and model in self._model_tpot:
+                        slot["tpot_s"] = self._model_tpot[model]
+                    self._slots[i] = slot
         end = now + dt
-        tpot = self.cfg.tpot_s
         for i, slot in enumerate(self._slots):
             if slot is None or slot["next_s"] > end:
                 continue
+            tpot = slot.get("tpot_s", self.cfg.tpot_s)
             req = slot["req"]
             deadline = (req.arrival_s + req.deadline_s
                         if req.deadline_s is not None else None)
@@ -372,6 +457,7 @@ class SimReplica:
                     break
                 slot["next_s"] = nxt
         # a slot freed mid-tick stays empty until the next boundary
+        self._touch()
         return done
 
     def _complete(self, slot: dict, finish_s: float,
@@ -412,11 +498,16 @@ class SimReplica:
         self._slots = [None] * self.cfg.max_slots
         self._prefix_seen.clear()
         self._prefix_owner.clear()
+        # the warm pool dies with the replica: it comes back with its
+        # bring-up model resident
+        self.resident_model = self.cfg.resident_model
         self.healthy = False
+        self._touch()
         return displaced
 
     def restore(self, now: float) -> None:
         self.healthy = True
+        self._touch()
 
     def report(self) -> Dict[str, object]:
         out: Dict[str, object] = {
@@ -433,6 +524,10 @@ class SimReplica:
         if self.prefix_hits or self.prefix_misses:
             out["prefix"] = {"hits": self.prefix_hits,
                              "misses": self.prefix_misses}
+        if self._model_tpot:
+            out["zoo"] = {"resident": self.resident_model,
+                          "swaps": self.swaps,
+                          "warm_hits": self.warm_hits}
         return out
 
 
@@ -571,7 +666,7 @@ class Router:
     def __init__(self, replicas: Sequence, policy: str = "round-robin",
                  max_queue: int = 0, affinity_spill: int = 8,
                  health=None, overload=None, disagg: bool = False,
-                 tenancy=None):
+                 tenancy=None, zoo: bool = False):
         if policy not in POLICIES:
             raise ValueError(
                 f"unknown policy {policy!r}; known: {', '.join(POLICIES)}")
@@ -594,6 +689,10 @@ class Router:
         self._drr_deficit: Dict[str, float] = {}
         self._drr_pos: Dict[int, int] = {}
         self.drr_rounds = 0
+        # the model zoo: a request that names a model routes warm first
+        self.zoo = zoo
+        self.warm_routes = 0
+        self.cold_routes = 0
         # called (request, replica, now) on every successful placement:
         # the fleet arms its hedge timers through it
         self.on_place = None
@@ -603,6 +702,9 @@ class Router:
         self.affinity_spill = affinity_spill
         self.queue: List[TraceRequest] = []
         self._rr = 0
+        # a columnar fleet's mirror (fleet/columnar.py): the
+        # least-outstanding argmin
+        self._columns = None
         self.routed = 0
         self.shed = 0
         self.expired_queued = 0
@@ -658,6 +760,17 @@ class Router:
         healthy = self._healthy(now, pool)
         if not healthy:
             return []
+        model = getattr(req, "model", "") if self.zoo else ""
+        if model:
+            # the replicas that can hold the model, those with it
+            # resident first (a warm hit skips the load), then by load
+            serving = [r for r in healthy
+                       if getattr(r, "can_serve", lambda m: True)(model)]
+            return sorted(
+                serving,
+                key=lambda r: (
+                    0 if getattr(r, "resident_model", "") == model else 1,
+                    self._load_key(r), r.replica_id))
         if is_handoff:
             return sorted(healthy,
                           key=lambda r: (self._load_key(r), r.replica_id))
@@ -683,6 +796,23 @@ class Router:
             return by_load
         self.affinity_hits += 1
         return [home] + [r for r in by_load if r is not home]
+
+    def _fast_pick(self, req: TraceRequest):
+        """A columnar fleet's first candidate where the order is exactly
+        (outstanding, replica_id): least-outstanding, and prefix-affinity
+        for ungrouped requests, without a detector, breakers, pools or
+        the zoo. Otherwise None, and the sorted path runs; a refused
+        submit falls back to it too (a refusal changes nothing)."""
+        cols = self._columns
+        if (cols is None or self.disagg or self.zoo
+                or self.health is not None
+                or self.overload is not None):
+            return None
+        if self.policy == "round-robin":
+            return None
+        if self.policy == "prefix-affinity" and req.prefix_group >= 0:
+            return None
+        return cols.pick_least_outstanding()
 
     # -- surface -----------------------------------------------------
 
@@ -758,6 +888,18 @@ class Router:
                     finish_s=round(req.arrival_s + req.deadline_s, 9),
                     tokens=0, tokens_crc=0,
                     finish_reason="deadline_exceeded"))
+            elif (self.zoo and req.model
+                  and not self._servable(req.model)):
+                # no replica can ever hold the model: shed it now rather
+                # than block the queue's head for good
+                self.shed += 1
+                metrics.fleet_board().incr("requests_shed")
+                metrics.recovery_log().record(
+                    "fleet_shed", request=req.request_id)
+                out.append(ReplicaCompletion(
+                    request=req, dispatch_s=now, first_s=None,
+                    finish_s=now, tokens=0, tokens_crc=0,
+                    finish_reason="shed"))
             else:
                 still.append(req)
         self.queue = still
@@ -770,6 +912,11 @@ class Router:
         return out
 
     def _try_place(self, req: TraceRequest, now: float) -> bool:
+        """One placement: the columnar pick, then the sorted path."""
+        fast = self._fast_pick(req)
+        if fast is not None and fast.submit(req, now):
+            self._note_place(req, fast, now)
+            return True
         for replica in self._pick_order(req, now):
             if replica.submit(req, now):
                 self._note_place(req, replica, now)
@@ -810,6 +957,11 @@ class Router:
                 self._drr_pos[rank] = (pos + 1) % len(names)
             if progress:
                 self.drr_rounds += 1
+
+    def _servable(self, model: str) -> bool:
+        """Whether any replica, healthy or not, can hold ``model``."""
+        return any(getattr(r, "can_serve", lambda m: True)(model)
+                   for r in self.replicas)
 
     def _place_handoff(self, h, now: float) -> bool:
         """Submit one KV handoff into the decode pool."""
@@ -872,6 +1024,11 @@ class Router:
         self.per_replica[replica.replica_id] = (
             self.per_replica.get(replica.replica_id, 0) + 1)
         metrics.fleet_board().incr("requests_routed")
+        if self.zoo and req.model:
+            if getattr(replica, "resident_model", "") == req.model:
+                self.warm_routes += 1
+            else:
+                self.cold_routes += 1
         if self.policy == "round-robin":
             self._rr += 1
         if self.overload is not None:
@@ -902,4 +1059,7 @@ class Router:
                          "queued": len(self.kv_queue)}
             if self.kv_deferred:
                 out["kv"]["deferred"] = self.kv_deferred
+        if self.zoo:
+            out["zoo"] = {"warm_routes": self.warm_routes,
+                          "cold_routes": self.cold_routes}
         return out

@@ -57,8 +57,19 @@ Seven layers ride the loop when their :class:`FleetConfig` field is set:
   ``autoscale`` each pool scales on its own signal (TTFT for prefill,
   ITL or backlog for decode); chaos takes out the prefill pool or
   degrades the link.
+* ``zoo`` (a ``zoo.ZooConfig``) and ``generations`` (generation names,
+  cycled over replica ids): every replica is an analytic ``SimReplica``
+  priced from its generation's calibration (``costmodel.load_generation``;
+  the port registers ``h100``, and a scheduler-backed fleet takes the
+  generation of ``FleetSchedConfig.replica_accelerator``, which for
+  every label is ``h100``). With a zoo each generation warms the largest
+  model it fits (``zoo.placements``), requests route warm first, a cold
+  admission pays the model's swap time, the swaps land in a ledger on
+  the model-swap lane, and ``model_swap_evict`` chaos drops every
+  resident model. The report gains ``generations`` and ``zoo``. Neither
+  composes with a replica factory or with ``disagg``.
 
-Three execution strategies give byte-identical reports, as in the
+Four execution strategies give byte-identical reports, as in the
 reference: the event core (``event_core``, default on, knob
 KIND_TPU_SIM_FLEET_EVENT_CORE) steps only the tick boundaries where
 something can happen; without it the plain per-tick loop runs, with the
@@ -67,15 +78,18 @@ KIND_TPU_SIM_FLEET_FF) or without. Across skipped boundaries the clock
 takes the same tick-sized float additions; an analytic replica's
 closed-form next events (``SimReplica.next_due``) tell the event core
 which boundaries it may skip. For a given config, trace, events and
-weights, :meth:`FleetSim.run` returns the reference's report (the
-reference's columnar mirror of analytic fleets is an execution strategy
-with the same reports, and is not carried).
+weights, :meth:`FleetSim.run` returns the reference's report. The
+fourth is the columnar mirror of an analytic fleet (``columnar``, knob
+KIND_TPU_SIM_FLEET_COLUMNAR, engaged by the knob from
+``columnar.COLUMNAR_MIN_REPLICAS`` replicas on): the wake scan, the tick
+fan-out, quiescence and least-outstanding routing read numpy columns
+(``fleet/columnar.py``), and every scale event rebuilds them.
 
-The model zoo and per-generation pricing (``zoo``, ``generations``) are
-refused with a ``ValueError`` that names them. Knobs:
-KIND_TPU_SIM_FLEET_TICK_S (``resolve_tick_s``),
+Knobs: KIND_TPU_SIM_FLEET_TICK_S (``resolve_tick_s``),
 KIND_TPU_SIM_SDC_AUDIT_FRAC (``resolve_audit_frac``),
-KIND_TPU_SIM_SDC_RATE, KIND_TPU_SIM_CALIBRATION.
+KIND_TPU_SIM_SDC_RATE, KIND_TPU_SIM_CALIBRATION,
+KIND_TPU_SIM_GENERATION (``zoo.resolve_generation``),
+KIND_TPU_SIM_ZOO_SWAP_FACTOR (``zoo.swap_s``).
 """
 
 from __future__ import annotations
@@ -92,10 +106,17 @@ from kind_tpu_sim_torch.fleet.autoscaler import (
     AutoscalerConfig,
     resolve_warmup_s,
 )
+from kind_tpu_sim_torch.fleet.columnar import (
+    COLUMNAR_MIN_REPLICAS,
+    FleetColumns,
+    resolve_columnar,
+)
 from kind_tpu_sim_torch.fleet.costmodel import (
     CostModel,
+    generation_of_accelerator,
     kv_bytes_per_token,
     load_calibration,
+    load_generation,
 )
 from kind_tpu_sim_torch.fleet.disagg import (
     DisaggConfig,
@@ -110,6 +131,7 @@ from kind_tpu_sim_torch.fleet.events import (
     LANE_COMPLETION,
     LANE_INTEGRITY_AUDIT,
     LANE_KV_TRANSFER,
+    LANE_MODEL_SWAP,
     DueSet,
     EventHeap,
     resolve_event_core,
@@ -186,8 +208,8 @@ class ChaosEvent:
     ``prefill_pool_loss`` / ``prefill_pool_restore`` fail or heal every
     prefill replica, ``kv_degrade`` scales the KV link's bandwidth by
     ``param`` for transfers that start later (``kv_restore`` heals it).
-    ``model_swap_evict`` needs the model zoo, not carried yet, and
-    raises."""
+    With ``FleetConfig.zoo``: ``model_swap_evict`` drops every replica's
+    resident model (one pulse of a swap storm)."""
 
     at_s: float
     action: str
@@ -239,13 +261,12 @@ class FleetSchedConfig:
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
     """The reference's fleet config, every field in order with its
-    default. ``zoo``, ``generations`` and ``zoo_large_model_gen``
-    configure the model zoo and per-generation pricing, which the port
-    does not carry yet: :class:`FleetSim` refuses the first two when
-    set. ``fast_forward``, ``event_core`` and ``columnar`` choose how
-    the loop runs, not what it computes, and stay out of
-    :meth:`as_dict` (the reference's columnar mirror is not carried, so
-    ``columnar`` is inert)."""
+    default. ``zoo`` (a ``zoo.ZooConfig``), ``generations`` (a tuple of
+    registered generation names) and ``zoo_large_model_gen`` (the
+    generation whose replicas warm the zoo's largest model) configure
+    the model zoo and per-generation pricing. ``fast_forward``,
+    ``event_core`` and ``columnar`` choose how the loop runs, not what
+    it computes, and stay out of :meth:`as_dict`."""
 
     replicas: int = 2
     policy: str = "round-robin"
@@ -289,10 +310,12 @@ class FleetConfig:
         if self.autoscale:
             out["autoscaler"] = dataclasses.asdict(self.autoscaler)
         for name in ("sched", "health", "overload", "training", "disagg",
-                     "tenancy"):
+                     "tenancy", "zoo"):
             layer = getattr(self, name)
             if layer is not None:
                 out[name] = layer.as_dict()
+        if self.generations is not None:
+            out["generations"] = list(self.generations)
         if self.zoo_large_model_gen is not None:
             out["zoo_large_model_gen"] = self.zoo_large_model_gen
         if self.audit_frac is not None:
@@ -300,25 +323,8 @@ class FleetConfig:
         return out
 
 
-# the simulator layers each refused FleetConfig field configures
-_SIMULATOR_LAYERS = {
-    "zoo": "the model zoo",
-    "generations": "per-generation pricing of analytic replicas",
-}
-
-# chaos actions that need one of those layers, and the field naming it
-_CHAOS_NEEDS = {"model_swap_evict": "zoo"}
-
 _DISAGG_CHAOS = ("prefill_pool_loss", "prefill_pool_restore",
                  "kv_degrade", "kv_restore")
-
-
-def _refuse_unported(cfg: FleetConfig) -> None:
-    for name, layer in _SIMULATOR_LAYERS.items():
-        if getattr(cfg, name) is not None:
-            raise ValueError(
-                f"FleetConfig.{name} ({layer}) is a layer of the "
-                "simulator the port does not carry yet")
 
 
 def _is_probe(request_id: str) -> bool:
@@ -335,7 +341,9 @@ class FleetSim:
     ``clock.now``); without one every replica is a ``SimReplica`` of
     ``cfg.sim``. A disaggregated fleet (``cfg.disagg``) builds its own
     phased replicas, priced from ``calibration`` (a cost-model
-    calibration dict; default: ``costmodel.load_calibration()``)."""
+    calibration dict; default: ``costmodel.load_calibration()``); a zoo
+    or generation fleet builds replicas priced from its generations'
+    files."""
 
     def __init__(self, cfg: FleetConfig,
                  trace: Sequence[TraceRequest],
@@ -343,7 +351,6 @@ class FleetSim:
                  chaos_events: Sequence[ChaosEvent] = (),
                  clock: Optional[VirtualClock] = None,
                  calibration: Optional[dict] = None):
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.clock = clock or VirtualClock()
         self.trace = sorted(trace, key=lambda r: (r.arrival_s, r.request_id))
@@ -382,8 +389,50 @@ class FleetSim:
                 SimReplica(i, self._disagg_sim_cfg,
                            phase="prefill" if i < p else "decode")
                 for i in range(cfg.replicas)]
+        # the model zoo and per-generation pricing: every replica is an
+        # analytic one priced from its generation's calibration
+        self._zoo = cfg.zoo
+        self._generations: Optional[List[str]] = None
+        self._gen_cals: Dict[str, dict] = {}
+        self._gen_residents: Dict[str, str] = {}
+        self._swap_heap = EventHeap()
+        self._swap_log: List[dict] = []
+        self._model_trackers: Dict[str, SloTracker] = {}
+        if self._zoo is not None or cfg.generations is not None:
+            from kind_tpu_sim_torch.fleet import zoo as zoo_mod
+
+            if replica_factory is not None:
+                raise ValueError(
+                    "a zoo/generation fleet builds its own "
+                    "calibrated replicas; replica_factory is not "
+                    "supported")
+            if self._disagg is not None:
+                raise ValueError(
+                    "FleetConfig.zoo/generations do not compose "
+                    "with disagg phase pools yet (phase pools price "
+                    "off the cost model's calibration)")
+            if cfg.sched is not None:
+                gens = (generation_of_accelerator(
+                    cfg.sched.replica_accelerator),)
+            elif cfg.generations:
+                gens = tuple(cfg.generations)
+            else:
+                gens = (zoo_mod.resolve_generation(),)
+            self._gen_cycle = gens
+            self._generations = [gens[i % len(gens)]
+                                 for i in range(cfg.replicas)]
+            self._gen_cals = {g: load_generation(g)
+                              for g in sorted(set(gens))}
+            if self._zoo is not None:
+                uniq = sorted(set(gens))
+                self._gen_residents = dict(zip(
+                    uniq, zoo_mod.placements(
+                        self._zoo, uniq,
+                        large_model_gen=cfg.zoo_large_model_gen)))
         self.factory = replica_factory or (
             lambda rid: SimReplica(rid, cfg.sim))
+        if self._generations is not None:
+            self.factory = self._make_gen_replica
         if self._disagg is None:
             self.replicas = [self.factory(i) for i in range(cfg.replicas)]
         self.health = (FailureDetector(cfg.health)
@@ -397,11 +446,21 @@ class FleetSim:
                              max_queue=cfg.max_queue, health=self.health,
                              overload=self.overload,
                              disagg=self._disagg is not None,
-                             tenancy=self.tenancy)
+                             tenancy=self.tenancy,
+                             zoo=self._zoo is not None)
         for replica in self.replicas:
             self._install_tenant_caps(replica)
         if self.overload is not None:
             self.router.on_place = self._on_place
+        # the columnar mirror, on analytic fleets only (no factory: every
+        # replica a SimReplica, disaggregated and zoo fleets included)
+        self._cols: Optional[FleetColumns] = None
+        if replica_factory is None and (
+                cfg.columnar is True
+                or (resolve_columnar(cfg.columnar)
+                    and cfg.replicas >= COLUMNAR_MIN_REPLICAS)):
+            self._cols = FleetColumns(self.replicas)
+            self.router._columns = self._cols
         self.chaos_events = sorted(chaos_events,
                                    key=lambda e: (e.at_s, e.target))
         self.tracker = SloTracker(cfg.slo,
@@ -500,6 +559,45 @@ class FleetSim:
                     "fleet (set FleetConfig.sched): training gangs "
                     "are scheduler-placed workloads")
             self.trainer = TrainingTenant(cfg.training, self.sched)
+
+    # -- the model zoo and per-generation pricing ----------------------
+
+    def _gen_of(self, rid: int) -> str:
+        """The generation replica ``rid`` prices as: the declared cycle,
+        so scale-ups join it too."""
+        return self._gen_cycle[rid % len(self._gen_cycle)]
+
+    def _make_gen_replica(self, rid: int) -> SimReplica:
+        """A replica priced from its generation's calibration; in a zoo
+        fleet it carries the per-model prices, warms its generation's
+        placement and reports its swaps to the swap lane."""
+        from kind_tpu_sim_torch.fleet import zoo as zoo_mod
+
+        gen = self._gen_of(rid)
+        cal = self._gen_cals[gen]
+        sim = self.cfg.sim
+        if self._zoo is not None:
+            rcfg = zoo_mod.model_sim_config(
+                self._zoo, cal, max_slots=sim.max_slots,
+                max_queue=sim.max_queue,
+                prefix_cache_entries=sim.prefix_cache_entries,
+                resident_model=self._gen_residents[gen])
+        else:
+            rcfg = calibrated_sim_config(
+                cal, max_slots=sim.max_slots, max_queue=sim.max_queue,
+                prefix_cache_entries=sim.prefix_cache_entries)
+        replica = SimReplica(rid, rcfg)
+        if self._zoo is not None:
+            replica.on_swap = self._on_swap
+        return replica
+
+    def _on_swap(self, ev) -> None:
+        """A replica began loading a model: the load's latency is already
+        in the admitted slot's timeline, so the swap lane's event is
+        bookkeeping, drained into the ledger in (ready, lane, seq)
+        order."""
+        self._swap_heap.push(ev.ready_s, LANE_MODEL_SWAP, ev)
+        metrics.zoo_board().incr("model_swaps")
 
     # -- scheduler-backed placement ------------------------------------
 
@@ -1066,10 +1164,12 @@ class FleetSim:
         the arrival backlog, decode on ITL attainment (queue depth
         without ``slo.itl_s``) and the KV lane's backlog. A scale-down
         drains the pool's highest-id healthy replica."""
+        changed = False
         for replica, reason in self._warming.pop_due(now):
             self.replicas.append(replica)
             self.router.replicas.append(replica)
             self._install_tenant_caps(replica)
+            changed = True
             phase = getattr(replica, "phase", "unified")
             self._pool_scalers[phase].note_ready(
                 now, len(self._pool_members(phase)), reason=reason)
@@ -1110,7 +1210,10 @@ class FleetSim:
                 self.router.replicas.remove(victim)
                 self.replicas.remove(victim)
                 self._draining.append(victim)
+                changed = True
                 metrics.disagg_board().incr(f"{phase}_scale_downs")
+        if changed and self._cols is not None:
+            self._cols.rebuild(self.replicas)
 
     # -- the audit lane ------------------------------------------------
 
@@ -1308,6 +1411,10 @@ class FleetSim:
         elif corrupted:
             # not sampled: the wrong answer reaches the user
             metrics.integrity_board().incr("corrupted_served")
+        if self._zoo is not None and req.model:
+            if req.model not in self._model_trackers:
+                self._model_trackers[req.model] = SloTracker(self.cfg.slo)
+            self._model_trackers[req.model].observe(**finish)
         if self.tenancy is not None:
             name = tenant_of(req)
             if name not in self._tenant_trackers:
@@ -1334,18 +1441,31 @@ class FleetSim:
             self._maybe_retry(comp, self._now)
 
     def _backlog(self) -> int:
+        if self._cols is not None:
+            return (len(self.router.queue)
+                    + self._cols.healthy_outstanding())
         return (len(self.router.queue)
                 + sum(r.outstanding() for r in self.replicas if r.healthy))
 
     def _apply_chaos(self, now: float) -> None:
         while self.chaos_events and self.chaos_events[0].at_s <= now:
             ev = self.chaos_events.pop(0)
-            need = _CHAOS_NEEDS.get(ev.action)
-            if need is not None:
-                raise ValueError(
-                    f"{ev.action} chaos needs FleetConfig.{need} "
-                    f"({_SIMULATOR_LAYERS[need]}), which the port does "
-                    "not carry yet")
+            if ev.action == "model_swap_evict":
+                # one storm pulse: every resident model is dropped, so the
+                # next request each replica admits pays a full load
+                if self._zoo is None:
+                    raise ValueError(
+                        f"{ev.action} chaos needs a model zoo "
+                        "(FleetConfig.zoo)")
+                evicted = 0
+                for r in self.replicas:
+                    if getattr(r, "resident_model", ""):
+                        r.resident_model = ""
+                        evicted += 1
+                metrics.recovery_log().record(
+                    "fleet_model_swap_evict", evicted=evicted,
+                    at_s=round(now, 6))
+                continue
             if ev.action in _DISAGG_CHAOS:
                 if self._disagg is None:
                     raise ValueError(
@@ -1428,11 +1548,13 @@ class FleetSim:
 
     def _autoscale(self, now: float) -> None:
         scaler = self.autoscaler
+        changed = False
         # warming replicas come online first
         for replica, reason in self._warming.pop_due(now):
             self.replicas.append(replica)
             self.router.replicas.append(replica)
             self._install_tenant_caps(replica)
+            changed = True
             scaler.note_ready(now, len(self.router.replicas), reason=reason)
         # a quarantined replica is missing capacity
         routable = sum(
@@ -1465,6 +1587,9 @@ class FleetSim:
             self.router.replicas.remove(victim)
             self.replicas.remove(victim)
             self._draining.append(victim)
+            changed = True
+        if changed and self._cols is not None:
+            self._cols.rebuild(self.replicas)
 
     # -- the loop ------------------------------------------------------
 
@@ -1516,6 +1641,10 @@ class FleetSim:
         for handoff in self._kv_heap.pop_due(now):
             metrics.disagg_board().incr("kv_handoffs_delivered")
             self.router.offer_handoff(handoff)
+        # finished weight loads enter the swap ledger (bookkeeping: the
+        # loads' latency is already in their slots' timelines)
+        for ev in self._swap_heap.pop_due(now):
+            self._swap_log.append(ev.as_dict())
         # due audits: the duplicate-compute copy (or the tiebreaker)
         for base_id in self._audit_heap.pop_due(now):
             self._dispatch_audit(base_id, now)
@@ -1527,7 +1656,15 @@ class FleetSim:
             self._record(comp, -1)
         if self.overload is not None:
             self._fire_hedges(now)
-        for replica in list(self.replicas):
+        if self._cols is not None:
+            # only the replicas that can act in this window, in list
+            # order: the others' ticks are no-ops
+            reps = self._cols.replicas
+            targets = [reps[i] for i in
+                       self._cols.active_indices(now + tick)]
+        else:
+            targets = list(self.replicas)
+        for replica in targets:
             for comp in replica.tick(now, tick):
                 self._complete(replica, comp, now)
         for replica in list(self._draining):
@@ -1561,8 +1698,10 @@ class FleetSim:
         return bool(
             not pending and not self.router.queue and not self._warming
             and not self._kv_heap and not self.router.kv_queue
+            and not self._swap_heap
             and not self._audit_heap and not self._audits
-            and all(r.idle() for r in self.replicas if r.healthy)
+            and (self._cols.all_idle() if self._cols is not None
+                 else all(r.idle() for r in self.replicas if r.healthy))
             and not self._draining and not self.chaos_events
             and not self._retry_heap and not self._hedge_heap
             and (self.trainer is None or self.trainer.quiescent())
@@ -1583,7 +1722,7 @@ class FleetSim:
             return False
         if self.router.queue or self._warming or self._draining:
             return False
-        if self._kv_heap or self.router.kv_queue:
+        if self._kv_heap or self.router.kv_queue or self._swap_heap:
             return False
         if self._audit_heap or self._audits:
             return False
@@ -1621,6 +1760,8 @@ class FleetSim:
         due.at(self._retry_heap.peek_time())
         due.at(self._hedge_heap.peek_time())
         due.at(self._kv_heap.peek_time())
+        # a finished model load enters the ledger at its ready time
+        due.at(self._swap_heap.peek_time())
         due.at(self._audit_heap.peek_time())
         if self.trainer is not None:
             # gang arrivals and segment ends; progress between them is
@@ -1634,17 +1775,23 @@ class FleetSim:
             return due.need_now()
         due.at(self._warming.peek_time())
         due.at(self._rebinding.peek_time())
-        for replica in self.replicas:
-            nd = getattr(replica, "next_due", None)
-            if nd is None:
-                # an engine's stride counter advances on every tick()
-                # call, so only an idle, unslowed engine may be skipped
-                if not (replica.idle() and replica.slowdown == 1.0):
-                    return due.need_now()
-                continue
-            ge, cover = nd()
+        if self._cols is not None:
+            ge, cover = self._cols.wake()
             due.at(ge)
             due.covering(cover)
+        else:
+            for replica in self.replicas:
+                nd = getattr(replica, "next_due", None)
+                if nd is None:
+                    # an engine's stride counter advances on every tick()
+                    # call, so only an idle, unslowed engine may be
+                    # skipped
+                    if not (replica.idle() and replica.slowdown == 1.0):
+                        return due.need_now()
+                    continue
+                ge, cover = nd()
+                due.at(ge)
+                due.covering(cover)
         if self.health is not None and pending:
             # a probe a probe interval to each suspect or quarantined
             # live replica while user traffic flows
@@ -1735,7 +1882,8 @@ class FleetSim:
                   "health": metrics.health_board(),
                   "tenant": metrics.tenant_board(),
                   "integrity": metrics.integrity_board(),
-                  "disagg": metrics.disagg_board()}
+                  "disagg": metrics.disagg_board(),
+                  "zoo": metrics.zoo_board()}
         before = {name: board.counts() for name, board in boards.items()}
 
         def counters(name):
@@ -1787,6 +1935,26 @@ class FleetSim:
                 for name, tracker in sorted(self._tenant_trackers.items())}
             ten_report["counters"] = counters("tenant")
             report["tenancy"] = ten_report
+        if self._generations is not None:
+            # the generation each replica was priced as
+            report["generations"] = {
+                str(r.replica_id): self._gen_of(r.replica_id)
+                for r in sorted(self.replicas + self._draining,
+                                key=lambda r: r.replica_id)}
+        if self._zoo is not None:
+            report["zoo"] = {
+                "per_model_slo": {
+                    name: tracker.report(span_s=span)
+                    for name, tracker in
+                    sorted(self._model_trackers.items())},
+                "residents": {
+                    str(r.replica_id): getattr(r, "resident_model", "")
+                    for r in sorted(self.replicas + self._draining,
+                                    key=lambda r: r.replica_id)},
+                "swaps": {"completed": len(self._swap_log),
+                          "log": self._swap_log},
+                "counters": counters("zoo"),
+            }
         if self._sdc_active:
             report["integrity"] = {
                 "audit_frac": round(self._audit_frac, 6),

@@ -163,3 +163,11 @@ def disagg_board() -> CounterBoard:
     handoffs delivered and routed, queued handoffs expired, pool losses,
     link degrades, pool scale events)."""
     return _DISAGG_BOARD
+
+
+_ZOO_BOARD = CounterBoard()
+
+
+def zoo_board() -> CounterBoard:
+    """The process-global model-zoo board (model swaps)."""
+    return _ZOO_BOARD

@@ -119,12 +119,17 @@ def test_chaos_command_matches_the_reference(reference, capsys):
     want = reference[("fleet-preemption", 7)]
     for key in WEIGHT_FREE["fleet-preemption"]:
         assert got[key] == want[key], key
+    # zoo-swap-storm fails its p99 bound on the H100's calibration at
+    # seed 0 (test_torch_zoo.py), so 'all' exits 1; every other scenario
+    # passes
     assert pcli.main(["chaos", "run", "--scenario", "all", "--include-slow",
-                      "--json", "--device", "cpu"]) == 0
+                      "--json", "--device", "cpu"]) == 1
     everything = json.loads(capsys.readouterr().out)
-    assert everything["ok"]
+    assert not everything["ok"]
     by_name = {r["scenario"]: r for r in everything["scenarios"]}
     assert sorted(by_name) == sorted(pchaos.SCENARIOS)
+    assert [n for n, r in by_name.items() if not r["ok"]] == [
+        "zoo-swap-storm"]
     for name, keys in WEIGHT_FREE.items():
         for key in keys:
             assert by_name[name][key] == reference[(name, 0)][key], key
@@ -144,13 +149,16 @@ def test_chaos_command_lists_and_refuses(capsys):
     assert pcli.main(["chaos", "run", "--list", "--json"]) == 0
     rows = json.loads(capsys.readouterr().out)
     assert [r["name"] for r in rows] == sorted(pchaos.SCENARIOS)
-    assert [r["name"] for r in rows if not r["slow"]] == ["disagg-pool-loss"]
+    assert [r["name"] for r in rows if not r["slow"]] == [
+        "disagg-pool-loss", "zoo-swap-storm"]
     # the device scenarios are slow, as in the reference: 'all' without
-    # --include-slow runs the analytic one alone
+    # --include-slow runs the analytic ones alone, and exits 1 on
+    # zoo-swap-storm's verdict
     assert pcli.main(["chaos", "run", "--scenario", "all", "--json",
-                      "--device", "cpu"]) == 0
-    alone = json.loads(capsys.readouterr().out)
-    assert alone["scenario"] == "disagg-pool-loss" and alone["ok"]
+                      "--device", "cpu"]) == 1
+    fast = json.loads(capsys.readouterr().out)
+    assert [(r["scenario"], r["ok"]) for r in fast["scenarios"]] == [
+        ("disagg-pool-loss", True), ("zoo-swap-storm", False)]
     with pytest.raises(SystemExit, match="kind_tpu_sim chaos run"):
         pcli.main(["chaos", "run", "--scenario", "exec-transient",
                    "--device", "cpu"])

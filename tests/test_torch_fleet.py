@@ -14,11 +14,15 @@ tiny config in fp32, so greedy streams have no near-ties. Then the
 features the port refuses (the scheduler-backed fleet and the loop
 choices are held to the reference in ``test_torch_fleet_sched.py``; the
 analytic and disaggregated fleets in ``test_torch_sim_replica.py`` and
-``test_torch_disagg.py``), and the ``fleet`` command against the
-reference's ``fleet --engine serving``; where a refused flag or field
-has been ported since (``--engine sim``, ``--disagg``, ``--calibration``,
-``--bench``, ``FleetConfig.disagg``, a fleet without a factory), its
-case holds the port's answer to the reference's, byte for byte.
+``test_torch_disagg.py``; the zoo in ``test_torch_zoo.py``), and the
+``fleet`` command against the reference's ``fleet --engine serving``;
+where a refused flag or field has been ported since (``--engine sim``,
+``--disagg``, ``--calibration``, ``--bench``, ``--zoo``,
+``--generations``, ``FleetConfig.disagg``, ``.zoo`` and
+``.generations``, ``WorkloadSpec.zoo``, ``model_swap_evict``, a fleet
+without a factory), its case holds the port's answer to the
+reference's, byte for byte (the zoo's on the reference's registry
+patched to the port's, ``torch_parity.shared_registry``).
 """
 
 import dataclasses
@@ -37,7 +41,7 @@ from kind_tpu_sim_torch.fleet import sim as psim
 from kind_tpu_sim_torch.models import serving as pserving
 from kind_tpu_sim_torch.models import transformer as ptf
 
-from torch_parity import jax_cfg, make_params
+from torch_parity import jax_cfg, make_params, shared_registry, sim_fleet_pair
 from torch_parity import torch_one_thread  # noqa: F401
 
 CALIBRATION = pathlib.Path(pfleet.DEFAULT_CALIBRATION)
@@ -284,31 +288,37 @@ def _dumps(report):
 
 
 @pytest.mark.parametrize("field", ["disagg", "zoo", "generations"])
-def test_refused_fleet_features_raise_naming_them(field, monkeypatch):
-    if field != "disagg":
-        cfg = dataclasses.replace(pfleet.FleetConfig(), **{field: object()})
-        with pytest.raises(ValueError, match=f"FleetConfig.{field} "):
-            pfleet.FleetSim(cfg, [], replica_factory=_factory)
-        return
-    # disaggregated pools are ported: a replica factory is refused as
-    # the reference refuses it, and the fleet's report is the
-    # reference's under the same calibration
+def test_refused_fleet_features_raise_naming_them(field, monkeypatch,
+                                                  tmp_path):
+    # disaggregated pools, the model zoo and per-generation pricing are
+    # ported: a replica factory is refused as the reference refuses it,
+    # and the fleet's report is the reference's under the same
+    # calibration (the zoo and generations: the same registry)
     monkeypatch.setenv("KIND_TPU_SIM_CALIBRATION", str(CALIBRATION))
+    shared_registry(monkeypatch, tmp_path)
     reports = []
     for mod in (jfleet, pfleet):
-        cfg = mod.FleetConfig(replicas=2, disagg=mod.DisaggConfig())
+        layer = {"disagg": mod.DisaggConfig(), "zoo": mod.default_zoo(),
+                 "generations": ("h100",)}[field]
+        cfg = mod.FleetConfig(replicas=2, **{field: layer})
         with pytest.raises(ValueError, match="replica_factory"):
             mod.FleetSim(cfg, [], replica_factory=_factory)
-        trace = mod.generate_trace(mod.WorkloadSpec(n_requests=40), 3)
+        trace = mod.generate_trace(mod.WorkloadSpec(
+            n_requests=40, zoo=layer if field == "zoo" else None), 3)
         reports.append(mod.FleetSim(cfg, trace).run())
     assert _dumps(reports[1]) == _dumps(reports[0])
-    assert reports[1]["ok"] and reports[1]["disagg"]["kv"]["handoffs"] == 40
+    assert reports[1]["ok"]
+    if field == "disagg":
+        assert reports[1]["disagg"]["kv"]["handoffs"] == 40
+    else:
+        assert reports[1]["generations"] == {"0": "h100", "1": "h100"}
+        assert ("zoo" in reports[1]) is (field == "zoo")
 
 
 def test_the_event_core_audit_lane_and_analytic_replicas_raise():
     # the loop choices run (test_torch_fleet_sched.py holds their
-    # reports equal); training without a scheduler, analytic replicas
-    # and the zoo trace still raise
+    # reports equal); training without a scheduler still raises, and
+    # analytic replicas and the zoo's trace are the reference's
     with pytest.raises(ValueError, match="FleetConfig.sched"):
         pfleet.FleetSim(pfleet.FleetConfig(
             training=pfleet.TrainingConfig()), [],
@@ -318,14 +328,36 @@ def test_the_event_core_audit_lane_and_analytic_replicas_raise():
         mod.WorkloadSpec(n_requests=30), 1)).run()
         for mod in (pfleet, jfleet))
     assert _dumps(got) == _dumps(want) and got["ok"]
-    with pytest.raises(ValueError, match="zoo"):
-        pfleet.generate_trace(pfleet.WorkloadSpec(zoo=object()), 0)
+    # a zoo's trace is the reference's, models stamped
+    got, want = ([r.as_dict() for r in mod.generate_trace(
+        mod.WorkloadSpec(zoo=mod.default_zoo()), 0)]
+        for mod in (pfleet, jfleet))
+    assert got == want and all(r["model"] for r in got)
 
 
 @pytest.mark.parametrize("action", ["node_drain", "link_degrade",
                                     "train_preempt", "kv_degrade",
                                     "model_swap_evict", "domain_fault"])
-def test_chaos_actions_of_unported_layers_raise(action):
+def test_chaos_actions_of_unported_layers_raise(action, monkeypatch,
+                                                tmp_path):
+    if action == "model_swap_evict":
+        # the zoo is ported: without one the action raises as the
+        # reference's does; a zoo fleet under it reports the reference's
+        shared_registry(monkeypatch, tmp_path)
+        for mod in (pfleet, jfleet):
+            sim = mod.FleetSim(mod.FleetConfig(replicas=1), [], chaos_events=[
+                mod.ChaosEvent(at_s=0.0, action=action, target=0)])
+            with pytest.raises(ValueError, match="needs a model zoo"):
+                sim.run()
+        got = sim_fleet_pair(
+            dict(n_requests=60, zoo=True), [
+                dict(at_s=0.2, action=action, target=0),
+                dict(at_s=0.4, action=action, target=0)],
+            zoo=True, generations=("h100",))
+        assert got["ok"] and got["zoo"]["swaps"]["completed"]
+        assert got["zoo"]["swaps"]["completed"] == len(
+            got["zoo"]["swaps"]["log"])
+        return
     replicas = [StubReplica(0, 1)]
     sim = pfleet.FleetSim(
         pfleet.FleetConfig(replicas=1), [],
@@ -383,9 +415,29 @@ def test_fleet_trace_command_matches_the_reference(capsys, tmp_path):
     ["--generations", "v5e"], ["--disagg", "1:1", "--calibration", "CAL"],
     ["--bench", "BENCH"]])
 def test_fleet_command_refuses_the_simulators_layers(extra, capsys,
-                                                     monkeypatch, tmp_path):
+                                                     monkeypatch, tmp_path,
+                                                     caplog):
+    argv = ["fleet", "run", "--engine", "sim", "--requests", "60", "--json"]
     if extra[0] in ("--zoo", "--generations"):
-        with pytest.raises(SystemExit, match="model zoo|does not carry"):
+        # the zoo is ported (sim engine only); on the same registry its
+        # report is the reference's, whose --zoo alone buys TPU
+        # generations (the port's buys its one, h100). v5e is no
+        # generation of the port's: the reference's "unknown generation"
+        shared_registry(monkeypatch, tmp_path)
+        if extra == ["--generations", "v5e"]:
+            assert jcli.main(argv + extra) == 1
+            assert "unknown generation 'v5e'; registered: h100" in (
+                caplog.text)
+            with pytest.raises(SystemExit,
+                               match="unknown generation 'v5e'; "
+                                     "registered: h100"):
+                pcli.main(argv + extra)
+            return
+        assert jcli.main(argv + extra + ["--generations", "h100"]) == 0
+        want = capsys.readouterr().out
+        assert pcli.main(argv + extra) == 0
+        assert capsys.readouterr().out == want
+        with pytest.raises(SystemExit, match="analytic sim engine"):
             pcli.main(["fleet", "run", "--device", "cpu"] + extra)
         return
     # ported since: the reference's answer, byte for byte, under the
@@ -403,7 +455,6 @@ def test_fleet_command_refuses_the_simulators_layers(extra, capsys,
         assert outs[1] == outs[0]
         return
     extra = [str(CALIBRATION) if a == "CAL" else a for a in extra]
-    argv = ["fleet", "run", "--engine", "sim", "--requests", "60", "--json"]
     assert jcli.main(argv + extra) == 0
     want = capsys.readouterr().out
     assert pcli.main(argv + extra) == 0

@@ -262,6 +262,14 @@ def test_knobs_read_like_the_reference(monkeypatch, raw):
             monkeypatch.delenv(name, raising=False)
         else:
             monkeypatch.setenv(name, raw)
+        if name == pknobs.GENERATION:
+            # the default is the port's one registered generation, the
+            # H100's (the reference's is its TPU v5e); a set value reads
+            # the same
+            assert pknobs.KNOBS[name][0] == "h100"
+            assert pknobs.get(name) == (
+                "h100" if raw is None else jknobs.get(name)), raw
+            continue
         assert pknobs.get(name) == jknobs.get(name), (name, raw)
         assert pknobs.KNOBS[name][0] == jknobs.REGISTRY[name].default
     for fn, ref in ((pfleet.resolve_tick_s, jsim.resolve_tick_s),

@@ -170,7 +170,58 @@ def test_sim_replica_config_is_the_reference():
             == jfleet.SimReplicaConfig().as_dict())
     with pytest.raises(ValueError, match="unknown replica phase"):
         pfleet.SimReplica(0, phase="both")
-    # per-model prices belong to the model zoo, not carried yet
-    with pytest.raises(ValueError, match="model zoo"):
-        pfleet.SimReplica(0, pfleet.SimReplicaConfig(
-            model_tpot_s=(("m", 0.01),)))
+    # per-model prices (the model zoo) are ported: a replica of them
+    # answers like the reference's
+    cfg = dict(max_slots=2, max_queue=4, model_tpot_s=(("m", 0.01),),
+               model_prefill_per_tok_s=(("m", 0.002),),
+               model_swap_s=(("m", 0.3),), resident_model="")
+    assert (pfleet.SimReplicaConfig(**cfg).as_dict()
+            == jfleet.SimReplicaConfig(**cfg).as_dict())
+    assert _zoo_script(pfleet, cfg) == _zoo_script(jfleet, cfg)
+
+
+def _zoo_script(fleet, cfg):
+    """A replica with per-model prices driven through admissions of its
+    model, of no model and of a model it cannot hold, a slowed swap, a
+    decode-pool handoff and a failure; returns what each call answered
+    and the swaps it reported."""
+    swaps = []
+    out = []
+    for phase in ("unified", "decode"):
+        rep = fleet.SimReplica(3, fleet.SimReplicaConfig(**cfg),
+                               phase=phase)
+        rep.on_swap = lambda ev: swaps.append(ev.as_dict())
+
+        def req(i, model):
+            return fleet.TraceRequest(f"{phase}{i}", 0.001 * i,
+                                      tuple(range(4 + i)), 5, i,
+                                      model=model)
+
+        def tick(now, dt=0.02):
+            out.append([dataclasses.astuple(c)[1:] + (c.request.request_id,)
+                        for c in rep.tick(now, dt)])
+            out.append((rep.next_due(), rep.resident_model))
+
+        if phase == "decode":
+            handoff = fleet.KvHandoff(request=req(0, "m"), dispatch_s=0.0,
+                                      first_s=0.01, tokens=1, kv_bytes=64,
+                                      from_replica=0)
+            out.append(rep.submit(handoff, 0.0))
+            for k in range(6):
+                tick(0.02 * k)
+            out.append(rep.report())
+            continue
+        out.append([rep.submit(req(i, model), 0.0) for i, model in
+                    enumerate(("m", "", "x", "m"))])
+        out.append((rep.can_serve("m"), rep.can_serve(""),
+                    rep.can_serve("x")))
+        tick(0.0)
+        rep.set_slowdown(2.0)
+        for k in range(1, 12):
+            tick(0.02 * k)
+        out.append(rep.submit(req(5, "m"), 0.3))
+        out.append([r.request_id for r in rep.fail(0.31)])
+        rep.restore(0.32)
+        out.append((rep.resident_model, rep.report()))
+    out.append(swaps)
+    return out

@@ -184,7 +184,8 @@ def sim_fleet_run(fleet, spec, events=(), seed=3, sims=None, **fc):
     fields, where ``slo``, ``sim``, ``autoscaler``, ``sched`` and
     ``disagg`` may be dicts of their config's fields, ``health`` and
     ``overload`` True for the defaults, ``tenancy`` as ``_tenancy``
-    takes it and ``training`` a list of ``TrainingGangConfig`` fields.
+    takes it, ``training`` a list of ``TrainingGangConfig`` fields and
+    ``zoo`` True for the package's ``default_zoo()`` (``spec``'s too).
     Defaults: three replicas, least-outstanding, tick 0.01, SLO ttft
     0.3 / e2e 0.6. A ``sims`` list receives the ``FleetSim``."""
     cfg = dict(replicas=3, policy="least-outstanding", tick_s=0.01,
@@ -207,12 +208,55 @@ def sim_fleet_run(fleet, spec, events=(), seed=3, sims=None, **fc):
             fleet.TrainingGangConfig(**g) for g in cfg["training"]))
     if spec.get("tenancy"):
         spec = dict(spec, tenancy=cfg["tenancy"])
+    if cfg.get("zoo") is True:
+        cfg["zoo"] = fleet.default_zoo()
+    if spec.get("zoo") is True:
+        spec = dict(spec, zoo=fleet.default_zoo())
     trace = fleet.generate_trace(fleet.WorkloadSpec(**spec), seed)
     sim = fleet.FleetSim(fleet.FleetConfig(**cfg), trace,
                          chaos_events=[fleet.ChaosEvent(**e) for e in events])
     if sims is not None:
         sims.append(sim)
     return sim.run()
+
+
+def shared_registry(monkeypatch, tmp_path, extra=None):
+    """The reference's generation registry patched, for one test, to the
+    port's: ``GENERATIONS``, ``CALIBRATION_DIR`` (``tmp_path``, holding a
+    copy of the port's ``generations/h100.json``), ``GENERATION_FACTS
+    ["h100"]`` (set in the dict in place: ``zoo`` binds it by name),
+    ``ACCELERATOR_GENERATIONS`` and the KIND_TPU_SIM_GENERATION knob.
+    ``extra`` (name -> facts) registers test-only generations on both
+    sides, each file written by the port's ``derive_generation`` from
+    the h100 file into ``tmp_path``, which both registries then read.
+    Nothing in either package changes on disk."""
+    import json
+    import shutil
+
+    from kind_tpu_sim.fleet import costmodel as jcost
+    from kind_tpu_sim_torch.fleet import costmodel as pcost
+
+    shutil.copy(pcost.generation_path("h100"), tmp_path / "h100.json")
+    gens = ("h100",) + tuple(extra or {})
+    monkeypatch.setattr(jcost, "GENERATIONS", gens)
+    monkeypatch.setattr(jcost, "CALIBRATION_DIR", tmp_path)
+    monkeypatch.setitem(jcost.GENERATION_FACTS, "h100",
+                        dict(pcost.GENERATION_FACTS["h100"]))
+    monkeypatch.setattr(jcost, "ACCELERATOR_GENERATIONS",
+                        dict(pcost.ACCELERATOR_GENERATIONS))
+    monkeypatch.setenv("KIND_TPU_SIM_GENERATION", "h100")
+    if extra:
+        monkeypatch.setattr(pcost, "GENERATIONS", gens)
+        monkeypatch.setattr(pcost, "CALIBRATION_DIR", tmp_path)
+        base = pcost.load_generation("h100")
+        for name, facts in extra.items():
+            monkeypatch.setitem(jcost.GENERATION_FACTS, name, dict(facts))
+            monkeypatch.setitem(pcost.GENERATION_FACTS, name, dict(facts))
+            with open(tmp_path / f"{name}.json", "w",
+                      encoding="utf-8") as fh:
+                json.dump(pcost.derive_generation(base, name), fh,
+                          indent=1, sort_keys=True)
+    return gens
 
 
 def sim_fleet_pair(spec, events=(), **fc):
