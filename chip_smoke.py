@@ -236,10 +236,12 @@ it fails (nothing is caught and ignored):
    with ``--sched --train 1 --profile``) and ``chaos run --scenario all
    --include-slow`` at the reference's tiny configs, whose weight-free
    fields must equal the same runs' on the CPU (the profile section
-   carrying the reference's keys; ``zoo-swap-storm``'s verdict is the
-   CPU's, ``ok: false`` on the H100's calibration, every other scenario
-   must be ok, and the chaos command's exit code must be 0 exactly when
-   every verdict is). Each step logs its flash launches by route and
+   carrying the reference's keys; the chaos command's 18 scenarios, the
+   15 analytic ones' reports byte-equal to the same scenarios run in
+   this process; ``zoo-swap-storm``'s verdict is the CPU's, ``ok:
+   false`` on the H100's calibration, every other scenario must be ok,
+   and the chaos command's exit code must be 0 exactly when every
+   verdict is). Each step logs its flash launches by route and
    its CUDA graph captures;
 15. the calibrated simulator (host only, no kernel) -- (a) the cost
    model's ``calibrate`` over phase 9's bench model block (the
@@ -265,7 +267,14 @@ it fails (nothing is caught and ignored):
    requests with the columnar mirror off and on (the knob), reports
    byte-equal, both walls printed; (h) the h100 generation's
    ``hbm_gib`` equal to this card's ``total_memory`` in GiB to two
-   places. Under ``SIM15_MAX_S`` seconds.
+   places; and, as processes started with (b)-(g): (i) ``sched run
+   --manifest pods/tpu-serving-deployment.yaml --json``, (j) ``train run
+   --manifest pods/tpu-batch-train-job.yaml --json`` and (k) ``health
+   demo --json``, each exit 0 and its output byte-equal to the same
+   command run in this process; in this process also ``train plan
+   --json`` (the Young-Daly cadence among its rows), ``sched trace``
+   (the seeded gangs) and a ``to_pod_manifest`` round trip of every
+   traced gang. Under ``SIM15_MAX_S`` seconds.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5744,6 +5753,77 @@ SIM_SCENARIO_KEYS = {
                        "swaps_steady", "swaps_storm", "per_model_slo",
                        "p99_steady_s", "p99_storm_s", "p99_ratio",
                        "replay_identical", "ok", "recovery_events"),
+    # the virtual-clock scenarios of the control layers, the scheduler
+    # and the training tenancy (analytic, round-figure replicas)
+    "fleet-flaky-replica": ("plan", "requests", "flaps", "requeues",
+                            "tail_attainment_clean",
+                            "tail_attainment_faulted", "ok",
+                            "recovery_events"),
+    "tenant-noisy-neighbor": ("plan", "requests", "multiplier",
+                              "victim_p99_alone_s", "victim_p99_noisy_s",
+                              "victim_p99_isolation_off_s",
+                              "victim_p99_ratio", "aggressor_quota_shed",
+                              "aggressor_admitted", "fair_queue_rounds",
+                              "replay_identical", "ok", "recovery_events"),
+    "sched-node-drain": ("plan", "requests", "drain_at_s", "restore_at_s",
+                         "sched_events", "requeues", "tail_attainment_clean",
+                         "tail_attainment_faulted", "ok", "recovery_events"),
+    "sched-preemption-priority": ("plan", "evictions", "victims",
+                                  "high_priority_bound",
+                                  "victims_rescheduled", "events_identical",
+                                  "ok", "recovery_events"),
+    "gray-slow-replica": ("plan", "requests", "slow_replica", "factor",
+                          "fault_free_quarantines", "quarantines",
+                          "false_positives", "restored_via_probes",
+                          "p99_recovered", "p99_off_degraded",
+                          "replay_identical", "ok", "recovery_events"),
+    "gray-degraded-ici": ("plan", "requests", "degraded_domain",
+                          "link_factor", "fault_free_quarantines",
+                          "quarantines", "false_positives",
+                          "gray_migrations", "link_events",
+                          "migrations_avoid_degraded_domain",
+                          "p99_recovered", "p99_off_degraded",
+                          "replay_identical", "ok", "recovery_events"),
+    "overload-surge": ("plan", "requests", "surge_multiplier",
+                       "surge_window_s", "recovery_window_s",
+                       "goodput_floor_frac", "surge_goodput_clean",
+                       "surge_goodput_on", "goodput_floor_held",
+                       "p99_recovery_ratio_on", "p99_recovery_ratio_off",
+                       "retries_suppressed", "retries_on", "retries_off",
+                       "hedges_issued", "hedges_suppressed", "brownout",
+                       "replay_identical", "ok", "recovery_events"),
+    "retry-storm": ("plan", "requests", "amplification", "outage_window_s",
+                    "recovery_window_s", "preempted_replica",
+                    "p99_recovery_ratio_on", "p99_recovery_ratio_off",
+                    "retries_suppressed", "retries_on", "retries_off",
+                    "requeues", "replay_identical", "ok", "recovery_events"),
+    "train-preempt-economics": ("plan", "cadences", "preempt_at_s",
+                                "kill_at_s", "lost_steps",
+                                "checkpoint_writes", "overhead_frac",
+                                "expected_overhead", "ledger_ok",
+                                "economics_hold", "replay_identical", "ok",
+                                "recovery_events"),
+    "train-mixed-soak": ("plan", "requests", "drain_node", "p99_alone_s",
+                         "p99_mixed_s", "p99_ratio", "training",
+                         "train_preemptions", "strict_priority_preemptions",
+                         "serving_preempted_by_training", "replay_identical",
+                         "event_core_identical", "ok", "recovery_events"),
+    "sdc-training-bisect": ("plan", "sdc_at_s", "corrupt_frac",
+                            "expected_chip", "culprits", "bisection_rounds",
+                            "expected_rounds", "bisect_chip_s", "lost_steps",
+                            "integrity", "ledger_ok", "gang_done",
+                            "replay_identical", "event_core_identical", "ok",
+                            "recovery_events"),
+    "sdc-serving-audit": ("plan", "sdc_at_s", "victim_replica",
+                          "corrupt_frac", "audit", "audit_off",
+                          "corrupted_served_on", "corrupted_served_off",
+                          "p99_audit_s", "p99_off_s", "p99_ratio",
+                          "replay_identical", "ok", "recovery_events"),
+    "correlated-rack-loss": ("plan", "failure_domain", "rack_nodes",
+                             "outage_s", "fault_at_s",
+                             "max_simultaneous_dead", "p99_window_s",
+                             "slo_attainment", "domain_faults",
+                             "replay_identical", "ok", "recovery_events"),
 }
 # the scenario whose verdict on the H100's calibration is a failure (its
 # p99 bound, by the decode bandwidth's arithmetic): held to the CPU's
@@ -6146,6 +6226,12 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
                   f"chaos run {name} on the card: {key} "
                   f"{by_name[name][key]} against the CPU's "
                   f"{cpu_scenarios[name][key]}")
+        if not chaos.SCENARIOS[name].device:
+            # analytic: the whole report, byte for byte
+            check(json.dumps(by_name[name], sort_keys=True)
+                  == json.dumps(cpu_scenarios[name], sort_keys=True),
+                  f"chaos run {name}: the command's report differs from "
+                  "the same scenario run in this process")
     out["commands"] = {label: {"rc": res["rc"], "wall_s": res["wall_s"]}
                        for label, res in ran.items()}
     out["commands"]["fleet"]["slo"] = fleet_rep["slo"]
@@ -6173,7 +6259,15 @@ SIM15_COMMANDS = {
     "pool loss": ("chaos", "run", "--scenario", "disagg-pool-loss"),
     "zoo": ("fleet", "run", "--engine", "sim", "--zoo", "--json"),
     "storm": ("chaos", "run", "--scenario", "zoo-swap-storm", "--json"),
+    "sched": ("sched", "run", "--manifest",
+              "pods/tpu-serving-deployment.yaml", "--json"),
+    "train": ("train", "run", "--manifest", "pods/tpu-batch-train-job.yaml",
+              "--json"),
+    "health": ("health", "demo", "--json"),
 }
+# (i)-(k): the commands whose output must equal the same run in this
+# process
+SIM15_HERE = ("sched", "train", "health")
 # (g): one analytic fleet with the columnar mirror off and on (its knob);
 # the per-object run takes about 9 s on a CPU core
 SIM15_COLUMNAR = ("fleet", "run", "--engine", "sim", "--replicas", "512",
@@ -6181,6 +6275,47 @@ SIM15_COLUMNAR = ("fleet", "run", "--engine", "sim", "--replicas", "512",
                   "least-outstanding", "--json")
 SIM15_COLUMNAR_ENV = {"columnar off": "0", "columnar on": "1"}
 SIM15_MAX_S = 30.0
+
+
+def _cli_stdout(cli, argv) -> tuple:
+    """``python -m kind_tpu_sim_torch ARGV`` in this process: its exit
+    code and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def sched_train_here(cli) -> dict:
+    """Phase 15's checks that run in this process alone: ``train plan
+    --json`` (the optimal cadence among its rows, each row's overhead the
+    sum of its parts), ``sched trace`` (the seeded gangs, one JSON line
+    each) and every traced gang through ``to_pod_manifest`` and back."""
+    from kind_tpu_sim_torch import sched
+
+    rc, text = _cli_stdout(cli, ["train", "plan", "--json"])
+    plan = json.loads(text)
+    opt = plan["optimal_cadence_steps"]
+    rows = plan["cadences"]
+    check(rc == 0 and str(opt) in rows and all(
+        abs(r["write_frac"] + r["lost_frac"] - r["total_frac"]) < 1e-5
+        for r in rows.values()),
+          f"15 train plan: rc {rc}, {text[:2000]}")
+    rc, text = _cli_stdout(cli, ["sched", "trace"])
+    gangs = [sched.SliceRequest(**json.loads(line))
+             for line in text.splitlines()]
+    check(rc == 0 and len(gangs) == 24
+          and gangs == sched.generate_gangs(sched.SchedWorkloadSpec(), 0),
+          f"15 sched trace: rc {rc}, {len(gangs)} gangs")
+    back = [sched.slice_requests_from_yaml(sched.to_pod_manifest(g))
+            for g in gangs]
+    check(all(b == [dataclasses.replace(g, arrival_s=0.0)]
+              for b, g in zip(back, gangs)),
+          "15 to_pod_manifest: a traced gang does not read back")
+    log(f"15 train plan: optimal cadence {opt} of rows "
+        f"{sorted(int(c) for c in rows)}; sched trace: {len(gangs)} gangs, "
+        "each through to_pod_manifest and back")
+    return {"optimal_cadence_steps": opt, "traced_gangs": len(gangs)}
 
 
 def calibrated_sim_phase() -> dict:
@@ -6245,6 +6380,11 @@ def calibrated_sim_phase() -> dict:
                                   cli.fleet_trace(args, seed)).run()
         zoo_here.update(seed=seed, engine="sim")
         storm_here = chaos.run_scenario("zoo-swap-storm")
+
+        # (i)-(k) in this process, and the commands that run here alone
+        cli_here = {label: _cli_stdout(cli, SIM15_COMMANDS[label])
+                    for label in SIM15_HERE}
+        out["here"] = sched_train_here(cli)
 
         # (h) the generation's HBM, this card's
         total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
@@ -6331,6 +6471,17 @@ def calibrated_sim_phase() -> dict:
           f"{on['stderr'][-2000:]}")
     log(f"15 (g) {' '.join(SIM15_COLUMNAR)}: reports byte-equal; wall "
         f"{off['wall_s']:.2f} s per-object, {on['wall_s']:.2f} s columnar")
+    for label in SIM15_HERE:
+        res = ran[label]
+        rc, here_out = cli_here[label]
+        check(res["rc"] == rc == 0 and res["stdout"] == here_out
+              and json.loads(here_out)["ok"],
+              f"15 ({label}) {' '.join(SIM15_COMMANDS[label])} exited "
+              f"{res['rc']} (here {rc}), or its output differs from the "
+              f"same command in this process:\n{res['stderr'][-2000:]}")
+        log(f"15 ({label}) {' '.join(SIM15_COMMANDS[label])}: rc 0, "
+            f"{res['wall_s']:.1f} s, {len(here_out)} bytes equal to the "
+            "run in this process")
     wall = time.perf_counter() - t0
     check(wall < SIM15_MAX_S,
           f"phase 15 took {wall:.1f} s, over its {SIM15_MAX_S} s")

@@ -26,6 +26,16 @@
         [--json]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch sched run|trace [--seed N] [--policy P]
+        [--gangs N] [--pods A:T,...] [--no-preemption] [--no-defrag]
+        [--manifest FILE] [--events] [--out F] [--json]
+    python -m kind_tpu_sim_torch train run|plan [--seed N] [--gangs N]
+        [--ising N] [--steps N] [--cadence N] [--elastic]
+        [--manifest FILE] [--serving-rps R] [--requests N] [--replicas N]
+        [--pods A:T,...] [--mtbf-s S] [--step-s S] [--no-event-core]
+        [--out F] [--json]
+    python -m kind_tpu_sim_torch health knobs|demo [--seed N]
+        [--components N] [--samples N] [--json]
 
 ``train-smoke`` is the counterpart of ``python -m kind_tpu_sim
 train-smoke`` (``kind_tpu_sim/cli.py:run_train_smoke``): the training
@@ -100,12 +110,23 @@ takes it; another name raises the reference's "unknown generation".
 (``run_chaos_engine``) for the ported scenarios (``chaos.py``): the
 three that drive device work, ``preempt-train``,
 ``serving-slot-failure`` and ``fleet-preemption`` (slow, on
-``--device``), and the analytic ``disagg-pool-loss`` and
-``zoo-swap-storm``. Without ``--scenario`` it lists them; ``all`` runs
-the fast ones, and the slow ones too with ``--include-slow``. It prints
-``CHAOS RUN OK`` or ``CHAOS RUN FAILED`` and exits 0 or 1: on the
-H100's calibration ``zoo-swap-storm`` fails its p99 bound at seed 0, so
-``all`` exits 1.
+``--device``), and fifteen analytic ones (``disagg-pool-loss``,
+``zoo-swap-storm`` and the thirteen virtual-clock scenarios of the
+fleet's control layers, the scheduler and the training tenancy). Without
+``--scenario`` it lists them; ``all`` runs the fast ones, and the slow
+ones too with ``--include-slow``. It prints ``CHAOS RUN OK`` or ``CHAOS
+RUN FAILED`` and exits 0 or 1: on the H100's calibration
+``zoo-swap-storm`` fails its p99 bound at seed 0, so ``all`` exits 1.
+
+``sched run | trace``, ``train run | plan`` and ``health knobs | demo``
+are the reference's commands (``run_sched``, ``run_train``,
+``run_health``) on the port's scheduler, training tenancy and detector:
+the seeded scheduler simulation per placement policy (``--manifest``
+also schedules a manifest's TPU workloads at t=0, read with the port's
+own YAML reader; ``--events`` prints kubernetes Events), training gangs
+under a serving fleet (``--manifest`` takes the gangs from a manifest)
+and the checkpoint-cadence table, and the detector's resolved knobs and
+its seeded straggler demo. Their JSON is the reference's.
 """
 
 from __future__ import annotations
@@ -346,6 +367,143 @@ def build_parser() -> argparse.ArgumentParser:
                          "calibration (registered: h100); under --sched the "
                          "one generation is the gangs' accelerator label's")
 
+    sd = sub.add_parser(
+        "sched",
+        help=(
+            "deterministic topology-aware TPU slice scheduler sim: "
+            "gang placement of a seeded slice-request workload onto "
+            "a simulated node inventory, with binpack/spread/ICI "
+            "scoring, priority preemption, and defrag — same seed, "
+            "byte-identical event log (docs/SCHED.md)"
+        ),
+    )
+    sd.add_argument("action", choices=["run", "trace"])
+    sd.add_argument(
+        "--seed", type=int, default=None,
+        help="workload seed (default: KIND_TPU_SIM_SCHED_SEED or 0)")
+    sd.add_argument(
+        "--policy", default="binpack,spread,ici",
+        help="comma-separated placement policies to run "
+             "(binpack, spread, ici); one report section each")
+    sd.add_argument(
+        "--gangs", type=int, default=24,
+        help="slice requests in the seeded workload")
+    sd.add_argument(
+        "--pods", default="tpu-v5-lite-podslice:4x8,"
+                          "tpu-v5-lite-podslice:4x8",
+        help="inventory as comma-separated accelerator:topology "
+             "pairs, one ICI domain each")
+    sd.add_argument(
+        "--no-preemption", action="store_true",
+        help="disable priority preemption")
+    sd.add_argument(
+        "--no-defrag", action="store_true",
+        help="disable the defragmentation pass")
+    sd.add_argument(
+        "--manifest", default=None,
+        help="also schedule the TPU workloads parsed from this "
+             "kubernetes manifest (e.g. "
+             "pods/tpu-serving-deployment.yaml) at t=0")
+    sd.add_argument(
+        "--events", action="store_true",
+        help="run: print the full event log as JSON lines "
+             "(kubernetes Event objects)")
+    sd.add_argument(
+        "--out", default=None,
+        help="write the full JSON report to this file")
+    sd.add_argument("--json", action="store_true", dest="as_json")
+
+    tr = sub.add_parser(
+        "train",
+        help=(
+            "training as a fleet tenant (docs/TRAINING.md): run = "
+            "co-scheduled training gangs (LLM and/or Ising sweeps) "
+            "under a serving fleet on the cluster scheduler, with "
+            "checkpoint economics and a zero-lost-step progress "
+            "ledger — same seed, byte-identical report; plan = the "
+            "checkpoint-cadence economics table (Young-Daly "
+            "optimum vs alternatives)"
+        ),
+    )
+    tr.add_argument("action", choices=["run", "plan"])
+    tr.add_argument(
+        "--seed", type=int, default=None,
+        help="serving workload seed (default: "
+             "KIND_TPU_SIM_FLEET_SEED or 0)")
+    tr.add_argument(
+        "--gangs", type=int, default=1,
+        help="LLM training gangs (GSPMD data x model mesh over "
+             "each gang's ICI block)")
+    tr.add_argument(
+        "--ising", type=int, default=0,
+        help="additional Monte-Carlo Ising sweep gangs "
+             "(all-throughput, sub-host, collective-free)")
+    tr.add_argument(
+        "--steps", type=int, default=80,
+        help="training steps per gang")
+    tr.add_argument(
+        "--cadence", type=int, default=None,
+        help="checkpoint cadence in steps (default: "
+             "KIND_TPU_SIM_TRAIN_CKPT_EVERY; 0 = the Young-Daly "
+             "optimum for the gang's step time)")
+    tr.add_argument(
+        "--elastic", action="store_true",
+        help="elastic gangs: grow onto scavenged free inventory "
+             "via checkpointed repartition, shrink (never abort) "
+             "on reclaim")
+    tr.add_argument(
+        "--manifest", default=None,
+        help="parse the training gangs from this kubernetes "
+             "manifest (e.g. pods/tpu-batch-train-job.yaml: a "
+             "StatefulSet is ONE gang at its annotated priority) "
+             "instead of synthesizing them")
+    tr.add_argument("--serving-rps", type=float, default=40.0,
+                    help="serving traffic riding along (req/s)")
+    tr.add_argument("--requests", type=int, default=150,
+                    help="serving requests in the trace")
+    tr.add_argument("--replicas", type=int, default=2,
+                    help="serving replicas (priority 10, above "
+                         "every training gang)")
+    tr.add_argument(
+        "--pods", default="tpu-v5-lite-podslice:4x8,"
+                          "tpu-v5-lite-podslice:4x8",
+        help="inventory as comma-separated accelerator:topology "
+             "pairs, one ICI domain each")
+    tr.add_argument(
+        "--mtbf-s", type=float, default=None,
+        help="assumed preemption MTBF for plan / auto cadence "
+             "(default: KIND_TPU_SIM_TRAIN_MTBF_S)")
+    tr.add_argument(
+        "--step-s", type=float, default=None,
+        help="plan: per-step time override (default: derived from "
+             "the default gang's mesh via the ring model)")
+    tr.add_argument(
+        "--no-event-core", action="store_true",
+        help="force the plain per-tick loop (byte-identical, "
+             "slower)")
+    tr.add_argument("--out", default=None,
+                    help="write the full JSON report to this file")
+    tr.add_argument("--json", action="store_true", dest="as_json")
+
+    he = sub.add_parser(
+        "health",
+        help=(
+            "gray-failure detection layer (docs/HEALTH.md): print "
+            "the resolved detector knobs, or run a seeded synthetic "
+            "straggler through the phi-accrual detector "
+            "(quarantine -> probe -> restore) — deterministic, no "
+            "cluster needed"
+        ),
+    )
+    he.add_argument("action", choices=["knobs", "demo"])
+    he.add_argument(
+        "--seed", type=int, default=None,
+        help="fault-plan seed for 'demo' (default: "
+             "KIND_TPU_SIM_CHAOS_SEED or 0)")
+    he.add_argument("--components", type=int, default=4)
+    he.add_argument("--samples", type=int, default=120)
+    he.add_argument("--json", action="store_true", dest="as_json")
+
     ch = sub.add_parser(
         "chaos",
         help=("seeded chaos scenarios that drive the engines, the trainer "
@@ -357,8 +515,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fault-plan seed (default: KIND_TPU_SIM_CHAOS_SEED "
                          "or 0)")
     ch.add_argument("--include-slow", action="store_true",
-                    help="'all' includes the slow scenarios (every ported "
-                         "one is slow)")
+                    help="'all' includes the slow scenarios (the three "
+                         "that drive device work)")
     ch.add_argument("--list", action="store_true", dest="list_scenarios",
                     help="print the scenario registry and exit")
     ch.add_argument("--json", action="store_true", dest="as_json")
@@ -718,7 +876,7 @@ def fleet_config(args: argparse.Namespace):
                                           max_replicas=args.max_replicas),
         sched=(fleet.FleetSchedConfig(policy=args.sched_policy)
                if args.sched else None),
-        health=fleet.DetectorConfig() if args.health else None,
+        health=fleet.DetectorConfig.from_env() if args.health else None,
         overload=fleet.OverloadConfig() if args.overload else None,
         training=fleet_training_config(args), disagg=disagg,
         tenancy=fleet_tenancy(args), zoo=zoo, generations=generations,
@@ -974,12 +1132,271 @@ def run_chaos(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def run_train(args: argparse.Namespace) -> int:
+    """`train run` / `train plan`: the training-tenant simulator
+    (docs/TRAINING.md). `run` co-schedules training gangs under a
+    serving fleet on the cluster scheduler and reports throughput,
+    checkpoint overhead, and the zero-lost-step ledger verdict;
+    `plan` prints the checkpoint-cadence economics (write cost vs
+    expected lost work under the assumed preemption MTBF)."""
+    import dataclasses as _dc
+
+    from kind_tpu_sim_torch import fleet
+    from kind_tpu_sim_torch.fleet import training as tr_mod
+
+    if args.action == "plan":
+        gang = fleet.TrainingGangConfig(
+            name="plan", total_steps=max(1, args.steps))
+        step_s = (args.step_s if args.step_s is not None
+                  else fleet.step_time_s(gang, gang.topology))
+        write_s = tr_mod.resolve_ckpt_write_s()
+        mtbf = tr_mod.resolve_mtbf_s(args.mtbf_s)
+        opt = fleet.optimal_cadence_steps(step_s, write_s, mtbf)
+        rows = sorted({1, max(1, opt // 4), opt,
+                       max(1, opt * 4), max(1, args.steps)})
+        report = {
+            "step_s": round(step_s, 9),
+            "checkpoint_write_s": write_s,
+            "mtbf_s": mtbf,
+            "optimal_cadence_steps": opt,
+            "mesh": fleet.gang_mesh(gang.accelerator,
+                                    gang.topology, gang.kind),
+            "cadences": {
+                str(c): fleet.expected_overhead(step_s, c,
+                                                write_s, mtbf)
+                for c in rows},
+        }
+        text = json.dumps(report, sort_keys=True)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as fh:
+                fh.write(text + "\n")
+        if args.as_json:
+            print(text)
+        else:
+            print(f"train plan: step {report['step_s']}s, "
+                  f"write {write_s}s, MTBF {mtbf}s -> optimal "
+                  f"cadence {opt} step(s)")
+            for c in rows:
+                eo = report["cadences"][str(c)]
+                mark = " <-- optimal" if c == opt else ""
+                print(f"  every {c:>4}: write {eo['write_frac']}"
+                      f"  lost {eo['lost_frac']}  total "
+                      f"{eo['total_frac']}{mark}")
+        return 0
+
+    seed = fleet.resolve_seed(args.seed)
+    cadence = args.cadence
+    gangs = []
+    if args.manifest:
+        with open(args.manifest, encoding="utf-8") as fh:
+            parsed = fleet.gangs_from_manifest(fh.read())
+        if not parsed:
+            raise SystemExit(
+                f"{args.manifest}: no TPU training workloads "
+                "found (need a google.com/tpu limit)")
+        for g in parsed:
+            gangs.append(_dc.replace(
+                g, total_steps=args.steps,
+                checkpoint_every=cadence,
+                elastic=args.elastic))
+    else:
+        for i in range(args.gangs):
+            gangs.append(fleet.TrainingGangConfig(
+                name=f"llm{i}", total_steps=args.steps,
+                checkpoint_every=cadence, elastic=args.elastic))
+        for i in range(args.ising):
+            gangs.append(fleet.ising_gang(
+                f"ising{i}", total_steps=args.steps,
+                checkpoint_every=cadence))
+    pods = tuple(tuple(p.split(":", 1))
+                 for p in args.pods.split(","))
+    tc = fleet.TrainingConfig(gangs=tuple(gangs),
+                              scavenge=args.elastic)
+    spec = fleet.WorkloadSpec(
+        process="poisson", rps=args.serving_rps,
+        n_requests=args.requests, prompt_len=(8, 24),
+        max_new=(4, 12))
+    trace = fleet.generate_trace(spec, seed)
+    fc = fleet.FleetConfig(
+        replicas=args.replicas, policy="least-outstanding",
+        slo=fleet.SloPolicy(ttft_s=1.0, e2e_s=5.0),
+        sched=fleet.FleetSchedConfig(pods=pods), training=tc,
+        event_core=(False if args.no_event_core else None))
+    report = fleet.FleetSim(fc, trace).run()
+    report["seed"] = seed
+    text = json.dumps(report, sort_keys=True)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
+    if args.as_json:
+        print(text)
+    else:
+        t = report["training"]
+        print(f"train: {len(t['gangs'])} gang(s) under "
+              f"{args.replicas} serving replica(s), seed {seed}")
+        for name, g in t["gangs"].items():
+            line = (f"  {name} [{g['config']['kind']}] "
+                    f"{g['state']} {g['unique_steps']}/"
+                    f"{g['config']['total_steps']} steps")
+            if "work_per_s" in g:
+                line += (f"  {g['work_per_s']} "
+                         f"{g['work_unit']}/s")
+            line += (f"  ckpt_overhead {g['overhead_frac']}"
+                     f"  lost {g['lost_steps']}")
+            print(line)
+        print(f"  ledger_ok {t['ledger_ok']}  evictions "
+              f"{t['evictions']}  checkpoints "
+              f"{t['checkpoint_writes']}  serving attainment "
+              f"{report['slo']['attainment']}")
+        if args.out:
+            print(f"  report -> {args.out}")
+        print("TRAIN RUN " + ("OK" if report["ok"] else "FAILED"))
+    return 0 if report["ok"] else 1
+
+
+def run_sched(args: argparse.Namespace) -> int:
+    """`sched run` / `sched trace`: the deterministic scheduler sim
+    (docs/SCHED.md). The report is sorted-keys JSON of pure
+    virtual-clock state — two runs of the same seed+config are
+    byte-identical, the reproducibility contract `--seed` promises."""
+    from kind_tpu_sim_torch import sched as sched_mod
+
+    seed = sched_mod.resolve_seed(args.seed)
+    pods = []
+    for part in args.pods.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        acc, _, topology = part.partition(":")
+        if not topology:
+            raise ValueError(
+                f"malformed --pods entry {part!r} "
+                "(want accelerator:topology)")
+        pods.append((acc, topology))
+    workload = sched_mod.SchedWorkloadSpec(n_gangs=args.gangs)
+    if args.action == "trace":
+        for req in sched_mod.generate_gangs(workload, seed):
+            print(json.dumps(req.as_dict(), sort_keys=True))
+        return 0
+    policies = [p.strip() for p in args.policy.split(",")
+                if p.strip()]
+    manifest_gangs = []
+    if args.manifest:
+        with open(args.manifest, "r", encoding="utf-8") as fh:
+            manifest_gangs = sched_mod.slice_requests_from_yaml(
+                fh.read())
+    sections = {}
+    for policy in policies:
+        cfg = sched_mod.SchedSimConfig(
+            pods=tuple(pods),
+            sched=sched_mod.SchedConfig(
+                policy=policy,
+                preemption=not args.no_preemption,
+                defrag=not args.no_defrag),
+            workload=workload)
+        if manifest_gangs:
+            # manifest workloads submit at t=0, ahead of the seeded
+            # stream — the kube manifests drive the same sim
+            inv = sched_mod.build_inventory(list(cfg.pods))
+            pre = sched_mod.ClusterScheduler(inv, cfg.sched)
+            for req in manifest_gangs:
+                pre.submit(req, 0.0)
+            pre.step(0.0)
+            sections[f"{policy}:manifest"] = pre.report()
+        sections[policy] = sched_mod.run_sched_sim(cfg, seed)
+    ok = all(s.get("ok", True) for s in sections.values())
+    report = {"seed": seed, "pods": [list(p) for p in pods],
+              "policies": sections, "ok": ok}
+    text = json.dumps(report, sort_keys=True)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
+    if args.events:
+        for policy in policies:
+            for ev in sections[policy]["events"]:
+                print(json.dumps(sched_mod.k8s_event(ev),
+                                 sort_keys=True))
+        return 0 if ok else 1
+    if args.as_json:
+        print(text)
+    else:
+        for policy in policies:
+            sec = sections[policy]
+            ttr = sec["time_to_routable"]
+            counts = sec["event_counts"]
+            print(f"  {policy:<10} gangs {sec['scheduled']}/"
+                  f"{sec['gangs']}  ttr mean/max "
+                  f"{ttr['mean_s']}/{ttr['max_s']} s  "
+                  f"preemptions {counts.get('Preempted', 0)}  "
+                  f"migrations {counts.get('Migrated', 0)}  "
+                  f"failed-attempts "
+                  f"{sec['sched_counters'].get('failed_scheduling', 0)}")
+            man = sections.get(f"{policy}:manifest")
+            if man is not None:
+                mcounts = man["event_counts"]
+                total = len(man["bound"]) + len(man["pending"])
+                print(f"  {policy:<10} manifest gangs "
+                      f"{len(man['bound'])}/{total} bound at t=0  "
+                      f"scheduled {mcounts.get('Scheduled', 0)}  "
+                      f"failed-attempts "
+                      f"{mcounts.get('FailedScheduling', 0)}")
+        if args.out:
+            print(f"  report -> {args.out}")
+        print(f"SCHED RUN (seed {seed}) "
+              + ("OK" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
+def run_health(args: argparse.Namespace) -> int:
+    """`health knobs` / `health demo`: the gray-failure detector
+    surface (docs/HEALTH.md). knobs prints the resolved
+    KIND_TPU_SIM_HEALTH_* configuration; demo runs a seeded
+    synthetic straggler through the phi-accrual detector and asserts
+    the full quarantine -> probe -> restore round-trip — same seed,
+    byte-identical report."""
+    from kind_tpu_sim_torch import health
+
+    if args.action == "knobs":
+        cfg = health.DetectorConfig.from_env()
+        if args.as_json:
+            print(json.dumps(cfg.as_dict(), sort_keys=True))
+        else:
+            for key, value in sorted(cfg.as_dict().items()):
+                print(f"  {key:<20} {value}")
+        return 0
+    from kind_tpu_sim_torch.chaos import resolve_seed
+
+    report = health.detection_demo(
+        seed=resolve_seed(args.seed), components=args.components,
+        samples=args.samples)
+    if args.as_json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(f"health demo: {args.components} components, "
+              f"{args.samples} samples, straggler "
+              f"{report['straggler']} x{report['factor']}")
+        for ev in report["events"]:
+            extra = ""
+            if "phi" in ev:
+                extra = f" (phi {ev['phi']})"
+            print(f"  t={ev['at_s']:<6} {ev['component']:<10} "
+                  f"{ev['transition']}{extra}")
+        print("HEALTH DEMO " + ("OK" if report["ok"] else "FAILED"))
+    return 0 if report["ok"] else 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "fleet":
         return run_fleet(args)
     if args.command == "chaos":
         return run_chaos(args)
+    if args.command == "sched":
+        return run_sched(args)
+    if args.command == "train":
+        return run_train(args)
+    if args.command == "health":
+        return run_health(args)
     if args.command == "profile":
         return run_profile(args)
     if args.command == "slice-smoke":

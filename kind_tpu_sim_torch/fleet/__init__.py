@@ -27,7 +27,10 @@ audit lane and chip defects), KIND_TPU_SIM_CALIBRATION
 KIND_TPU_SIM_DISAGG_DTYPE (``disagg.resolve_tier`` / ``resolve_dtype``),
 KIND_TPU_SIM_GENERATION, KIND_TPU_SIM_ZOO_MODELS and
 KIND_TPU_SIM_ZOO_SWAP_FACTOR (``zoo``), KIND_TPU_SIM_FLEET_COLUMNAR
-(``columnar.resolve_columnar``).
+(``columnar.resolve_columnar``), KIND_TPU_SIM_OVERLOAD_* (``overload``'s
+``resolve_*``), KIND_TPU_SIM_TENANT_ISOLATION /
+KIND_TPU_SIM_TENANT_DRR_QUANTUM (``tenancy``) and KIND_TPU_SIM_HEALTH_*
+(``health.DetectorConfig.from_env``).
 """
 
 from kind_tpu_sim_torch.health import (  # noqa: F401
@@ -138,11 +141,13 @@ from kind_tpu_sim_torch.fleet.training import (  # noqa: F401
     TrainingTenant,
     expected_overhead,
     gang_mesh,
+    gangs_from_manifest,
     grow_topology,
     ising_gang,
     optimal_cadence_steps,
     shrink_topology,
     step_time_s,
+    to_manifest,
     verify_ledger,
 )
 from kind_tpu_sim_torch.fleet.zoo import (  # noqa: F401
@@ -162,4 +167,5 @@ from kind_tpu_sim_torch.fleet.slo import (  # noqa: F401
     FixedBucketHistogram,
     SloPolicy,
     SloTracker,
+    brute_force_percentile,
 )

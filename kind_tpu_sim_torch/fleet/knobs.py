@@ -1,5 +1,5 @@
 """The environment knobs the fleet, scheduler, training, chaos, cost
-model and model-zoo layers read.
+model, model-zoo, overload, tenancy and health layers read.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
@@ -34,6 +34,23 @@ FLEET_COLUMNAR = "KIND_TPU_SIM_FLEET_COLUMNAR"
 GENERATION = "KIND_TPU_SIM_GENERATION"
 ZOO_MODELS = "KIND_TPU_SIM_ZOO_MODELS"
 ZOO_SWAP_FACTOR = "KIND_TPU_SIM_ZOO_SWAP_FACTOR"
+OVERLOAD_RETRY_BUDGET = "KIND_TPU_SIM_OVERLOAD_RETRY_BUDGET"
+OVERLOAD_HEDGE_QUANTILE = "KIND_TPU_SIM_OVERLOAD_HEDGE_QUANTILE"
+OVERLOAD_BREAKER_WINDOW = "KIND_TPU_SIM_OVERLOAD_BREAKER_WINDOW"
+OVERLOAD_BROWNOUT = "KIND_TPU_SIM_OVERLOAD_BROWNOUT"
+TENANT_ISOLATION = "KIND_TPU_SIM_TENANT_ISOLATION"
+TENANT_DRR_QUANTUM = "KIND_TPU_SIM_TENANT_DRR_QUANTUM"
+HEALTH_ALPHA = "KIND_TPU_SIM_HEALTH_ALPHA"
+HEALTH_SUSPECT_PHI = "KIND_TPU_SIM_HEALTH_SUSPECT_PHI"
+HEALTH_QUARANTINE_PHI = "KIND_TPU_SIM_HEALTH_QUARANTINE_PHI"
+HEALTH_QUARANTINE_EVALS = "KIND_TPU_SIM_HEALTH_QUARANTINE_EVALS"
+HEALTH_PROBE_OK = "KIND_TPU_SIM_HEALTH_PROBE_OK"
+HEALTH_PROBE_INTERVAL_S = "KIND_TPU_SIM_HEALTH_PROBE_INTERVAL_S"
+HEALTH_MIN_SAMPLES = "KIND_TPU_SIM_HEALTH_MIN_SAMPLES"
+HEALTH_SIGMA_FRAC = "KIND_TPU_SIM_HEALTH_SIGMA_FRAC"
+HEALTH_SIGMA_ABS = "KIND_TPU_SIM_HEALTH_SIGMA_ABS"
+HEALTH_PROBE_TIMEOUT_S = "KIND_TPU_SIM_HEALTH_PROBE_TIMEOUT_S"
+HEALTH_SPEC_RATIO = "KIND_TPU_SIM_HEALTH_SPEC_RATIO"
 
 # values a bool knob reads as off
 FALSE_VALUES = ("", "0", "false", "no")
@@ -62,6 +79,23 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     GENERATION: ("h100", "str"),
     ZOO_MODELS: (3, "int"),
     ZOO_SWAP_FACTOR: (1.0, "float"),
+    OVERLOAD_RETRY_BUDGET: (0.1, "float"),
+    OVERLOAD_HEDGE_QUANTILE: (0.95, "float"),
+    OVERLOAD_BREAKER_WINDOW: (16, "int"),
+    OVERLOAD_BROWNOUT: (True, "bool"),
+    TENANT_ISOLATION: (True, "bool"),
+    TENANT_DRR_QUANTUM: (4.0, "float"),
+    HEALTH_ALPHA: (0.25, "float"),
+    HEALTH_SUSPECT_PHI: (2.0, "float"),
+    HEALTH_QUARANTINE_PHI: (8.0, "float"),
+    HEALTH_QUARANTINE_EVALS: (3, "int"),
+    HEALTH_PROBE_OK: (2, "int"),
+    HEALTH_PROBE_INTERVAL_S: (0.25, "float"),
+    HEALTH_MIN_SAMPLES: (4, "int"),
+    HEALTH_SIGMA_FRAC: (0.1, "float"),
+    HEALTH_SIGMA_ABS: (1e-4, "float"),
+    HEALTH_PROBE_TIMEOUT_S: (2.0, "float"),
+    HEALTH_SPEC_RATIO: (3.0, "float"),
 }
 
 

@@ -21,9 +21,9 @@ deterministic primitive the fleet router and loop thread through:
   and recovers one level at a time.
 
 Everything is a function of (config, completion stream, the clock the
-caller passes): no entropy, no wall time. The reference resolves unset
-fields from environment knobs; the port reads none and takes the knobs'
-defaults.
+caller passes): no entropy, no wall time. An unset field resolves from
+its environment knob (``KIND_TPU_SIM_OVERLOAD_*``, ``fleet/knobs.py``),
+else the knob's default.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import zlib
 from collections import deque
 from typing import Dict, List, Optional
 
+from kind_tpu_sim_torch.fleet import knobs
 from kind_tpu_sim_torch.fleet.loadgen import (
     TraceRequest,
     WorkloadSpec,
@@ -40,31 +41,41 @@ from kind_tpu_sim_torch.fleet.loadgen import (
 )
 from kind_tpu_sim_torch.fleet.slo import FixedBucketHistogram
 
-# the reference's knob defaults for the fields left unset
-RETRY_BUDGET = 0.1
-HEDGE_QUANTILE = 0.95
-BREAKER_WINDOW = 16
-BROWNOUT = True
+RETRY_BUDGET_ENV = knobs.OVERLOAD_RETRY_BUDGET
+HEDGE_QUANTILE_ENV = knobs.OVERLOAD_HEDGE_QUANTILE
+BREAKER_WINDOW_ENV = knobs.OVERLOAD_BREAKER_WINDOW
+BROWNOUT_ENV = knobs.OVERLOAD_BROWNOUT
 
 
 def resolve_retry_budget(value: Optional[float] = None) -> float:
-    """``value``, else :data:`RETRY_BUDGET`."""
-    return RETRY_BUDGET if value is None else float(value)
+    """Explicit value > env (KIND_TPU_SIM_OVERLOAD_RETRY_BUDGET) >
+    0.1."""
+    if value is not None:
+        return float(value)
+    return float(knobs.get(RETRY_BUDGET_ENV))
 
 
 def resolve_hedge_quantile(value: Optional[float] = None) -> float:
-    """``value``, else :data:`HEDGE_QUANTILE`."""
-    return HEDGE_QUANTILE if value is None else float(value)
+    """Explicit value > env (KIND_TPU_SIM_OVERLOAD_HEDGE_QUANTILE) >
+    0.95."""
+    if value is not None:
+        return float(value)
+    return float(knobs.get(HEDGE_QUANTILE_ENV))
 
 
 def resolve_breaker_window(value: Optional[int] = None) -> int:
-    """``value``, else :data:`BREAKER_WINDOW`."""
-    return BREAKER_WINDOW if value is None else int(value)
+    """Explicit value > env (KIND_TPU_SIM_OVERLOAD_BREAKER_WINDOW) >
+    16."""
+    if value is not None:
+        return int(value)
+    return int(knobs.get(BREAKER_WINDOW_ENV))
 
 
 def resolve_brownout(value: Optional[bool] = None) -> bool:
-    """``value``, else :data:`BROWNOUT`."""
-    return BROWNOUT if value is None else bool(value)
+    """Explicit value > env (KIND_TPU_SIM_OVERLOAD_BROWNOUT) > on."""
+    if value is not None:
+        return bool(value)
+    return bool(knobs.get(BROWNOUT_ENV))
 
 
 @dataclasses.dataclass(frozen=True)

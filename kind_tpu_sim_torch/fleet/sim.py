@@ -1057,7 +1057,22 @@ class FleetSim:
         """Displaced requests back to the router's queue head. An audit
         copy dies with its replica: its audit concludes on the results
         it has. A displaced request may prefill again, so it leaves the
-        prefill dedupe set."""
+        prefill dedupe set. A displaced copy of a hedged pair whose other
+        copy is still held elsewhere is not requeued: the pair dissolves
+        and that copy finishes as the request (requeued, the router could
+        place it on the replica holding the other copy, and an engine
+        refuses the duplicate id: ROADMAP C-19; the reference requeues
+        it)."""
+        if self._hedges:
+            live = self.replicas + self._draining
+            kept = []
+            for req in displaced:
+                rid = getattr(req, "request_id", None)
+                if rid in self._hedges and any(r.holds(rid) for r in live):
+                    del self._hedges[rid]
+                    continue
+                kept.append(req)
+            displaced = kept
         if self._audits:
             kept = []
             for req in displaced:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 
 class FixedBucketHistogram:
@@ -192,3 +192,15 @@ class SloTracker:
             out["throughput_tok_s"] = round(self.tokens_total / span, 3)
             out["goodput_tok_s"] = round(self.tokens_good / span, 3)
         return out
+
+
+def brute_force_percentile(samples: Sequence[float],
+                           p: float) -> Optional[float]:
+    """Nearest-rank percentile over a sorted copy: the exact value the
+    histogram estimates, for windows small enough to sort (None for no
+    samples)."""
+    if not samples:
+        return None
+    ordered = sorted(samples)
+    rank = max(0, math.ceil(p * len(ordered)) - 1)
+    return ordered[rank]

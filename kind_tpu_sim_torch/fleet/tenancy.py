@@ -21,9 +21,9 @@ The port's copy of ``kind_tpu_sim/fleet/tenancy.py``:
 
 Traces are host data drawn with ``random.Random`` streams keyed by
 ``zlib.crc32``, in the reference's draw order, so they equal the
-reference's item for item. The reference resolves an unset
-``isolation`` and ``drr_quantum`` from environment knobs; the port
-takes the knobs' defaults. A tenant's ``kv_budget_frac`` below 1 caps
+reference's item for item. An unset ``isolation`` and ``drr_quantum``
+resolve from their environment knobs (``KIND_TPU_SIM_TENANT_*``), else
+the knobs' defaults. A tenant's ``kv_budget_frac`` below 1 caps
 its share of a decode pool's slots (:meth:`TenancyState.kv_budget`,
 read by the router's KV lane) and of an analytic replica's prefix-cache
 entries; engine replicas have neither.
@@ -37,26 +37,30 @@ import random
 import zlib
 from typing import Dict, List, Optional, Tuple
 
+from kind_tpu_sim_torch.fleet import knobs
 from kind_tpu_sim_torch.fleet.overload import TokenBucket
 
 # QoS ladder, best first: strict priority at the router; batch is the
 # tier brownout sheds
 QOS_TIERS = ("interactive", "standard", "batch")
 
-# the reference's knob defaults for the fields left unset
-ISOLATION = True
-DRR_QUANTUM = 4.0
+TENANT_ISOLATION_ENV = knobs.TENANT_ISOLATION
+TENANT_DRR_QUANTUM_ENV = knobs.TENANT_DRR_QUANTUM
 
 
 def resolve_isolation(value: Optional[bool] = None) -> bool:
-    """``value``, else :data:`ISOLATION`."""
-    return ISOLATION if value is None else bool(value)
+    """Explicit value > env (KIND_TPU_SIM_TENANT_ISOLATION) > on."""
+    if value is not None:
+        return bool(value)
+    return bool(knobs.get(TENANT_ISOLATION_ENV))
 
 
 def resolve_drr_quantum(value: Optional[float] = None) -> float:
-    """``value``, else :data:`DRR_QUANTUM` (requests credited per DRR
-    visit per unit weight)."""
-    return DRR_QUANTUM if value is None else float(value)
+    """Explicit value > env (KIND_TPU_SIM_TENANT_DRR_QUANTUM) > 4.0
+    (requests credited per DRR visit per unit weight)."""
+    if value is not None:
+        return float(value)
+    return float(knobs.get(TENANT_DRR_QUANTUM_ENV))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,7 @@
 """Training as a first-class fleet tenant (docs/TRAINING.md).
 
-The port's copy of ``kind_tpu_sim/fleet/training.py`` (all but the kube
-manifest round trip, which only the analytic ``train`` command reads).
-The gangs are analytic: step time, the ring all-reduce and the loss
+The port's copy of ``kind_tpu_sim/fleet/training.py``, the kube manifest
+round trip included (``gangs_from_manifest`` / ``to_manifest``). The gangs are analytic: step time, the ring all-reduce and the loss
 curve are closed forms that put no work on a device.
 
 The tenant class the scheduler's strict-priority preemption, defrag and
@@ -1264,3 +1263,37 @@ class TrainingTenant:
 
 
 # -- the kubernetes face (pods/tpu-batch-train-job.yaml) ---------------
+
+
+# -- the kubernetes face (pods/tpu-batch-train-job.yaml) ---------------
+
+
+def gangs_from_manifest(text: str) -> List[TrainingGangConfig]:
+    """Parse a kubernetes manifest's TPU training workloads into
+    training-tenant specs — the same StatefulSet-is-one-gang mapping
+    :mod:`kind_tpu_sim_torch.sched.kubeface` applies (all-or-nothing
+    multi-host worlds), carrying the priority tier through. This is
+    what lets ``pods/tpu-batch-train-job.yaml`` drive the sim
+    instead of sitting unused."""
+    from kind_tpu_sim_torch.sched import kubeface
+
+    out: List[TrainingGangConfig] = []
+    for req in kubeface.slice_requests_from_yaml(text):
+        out.append(TrainingGangConfig(
+            name=req.name, accelerator=req.accelerator,
+            topology=req.topology, priority=req.priority))
+    return out
+
+
+def to_manifest(cfg: TrainingGangConfig) -> str:
+    """Render a training-tenant spec back to schedulable YAML (a
+    StatefulSet gang for multi-host shapes) — the round-trip inverse
+    of :func:`gangs_from_manifest`:
+    ``gangs_from_manifest(to_manifest(cfg))`` reproduces the
+    scheduling-relevant fields."""
+    from kind_tpu_sim_torch.sched import kubeface
+    from kind_tpu_sim_torch.sched.scheduler import SliceRequest
+
+    return kubeface.to_pod_manifest(SliceRequest(
+        name=cfg.name, accelerator=cfg.accelerator,
+        topology=cfg.topology, priority=cfg.priority))

@@ -23,10 +23,10 @@ counted on ``metrics.health_board()``. The detector draws no entropy
 and records the clock its caller passes, so the same sample stream
 gives the same event log.
 
-The reference resolves :class:`DetectorConfig` from environment knobs
-(``DetectorConfig.from_env``); the port reads none and takes the
-defaults, which are the knobs' defaults. The reference's
-``detection_demo`` feeds only its analytic simulator and is not ported.
+Every threshold is an environment knob (``KIND_TPU_SIM_HEALTH_*``,
+``DetectorConfig.from_env``); a detector built with no config resolves
+them. :func:`detection_demo` runs the analytic fleet with one slowed
+replica and prints what the detector saw (``health demo``).
 """
 
 from __future__ import annotations
@@ -68,6 +68,27 @@ class DetectorConfig:
     sigma_floor_abs: float = 1e-4
     probe_timeout_s: float = 2.0
     spec_age_ratio: float = 3.0
+
+    @classmethod
+    def from_env(cls) -> "DetectorConfig":
+        """Each field from its ``KIND_TPU_SIM_HEALTH_*`` knob, else the
+        knob's default (which is the field's default)."""
+        # imported here: the fleet package imports this module
+        from kind_tpu_sim_torch.fleet import knobs
+
+        return cls(
+            ewma_alpha=knobs.get(knobs.HEALTH_ALPHA),
+            suspect_phi=knobs.get(knobs.HEALTH_SUSPECT_PHI),
+            quarantine_phi=knobs.get(knobs.HEALTH_QUARANTINE_PHI),
+            quarantine_evals=knobs.get(knobs.HEALTH_QUARANTINE_EVALS),
+            probe_ok_required=knobs.get(knobs.HEALTH_PROBE_OK),
+            probe_interval_s=knobs.get(knobs.HEALTH_PROBE_INTERVAL_S),
+            min_samples=knobs.get(knobs.HEALTH_MIN_SAMPLES),
+            sigma_floor_frac=knobs.get(knobs.HEALTH_SIGMA_FRAC),
+            sigma_floor_abs=knobs.get(knobs.HEALTH_SIGMA_ABS),
+            probe_timeout_s=knobs.get(knobs.HEALTH_PROBE_TIMEOUT_S),
+            spec_age_ratio=knobs.get(knobs.HEALTH_SPEC_RATIO),
+        )
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -115,7 +136,7 @@ class FailureDetector:
     quarantined component count as probes. ``now`` is only recorded."""
 
     def __init__(self, cfg: Optional[DetectorConfig] = None):
-        self.cfg = cfg or DetectorConfig()
+        self.cfg = cfg or DetectorConfig.from_env()
         self._global = _Ewma(self.cfg.ewma_alpha)
         self._comps: Dict[str, _Component] = {}
         self.events: List[dict] = []
@@ -294,3 +315,55 @@ class FailureDetector:
         if sticky:
             out["integrity_quarantined"] = sticky
         return out
+
+
+def detection_demo(seed: int = 0, components: int = 4,
+                   samples: int = 120) -> dict:
+    """Seeded synthetic detection run (``health demo``): one component,
+    drawn from the chaos fault plan, turns straggler for the middle
+    third of the stream, then recovers; the detector must quarantine
+    it, restore it through probes, and never touch the healthy
+    components. A function of (seed, components, samples) and the
+    ``KIND_TPU_SIM_HEALTH_*`` knobs."""
+    import random
+    import zlib
+
+    from kind_tpu_sim_torch import chaos
+
+    plan = chaos.ChaosSchedule(seed).plan(
+        kinds=("straggler_worker",), n_faults=1, horizon=8,
+        targets=max(1, components))
+    ev = plan.events[0]
+    straggler = f"comp-{ev.target % max(1, components)}"
+    factor = max(3.0, ev.param)
+    rng = random.Random(zlib.crc32(
+        f"health-demo:{seed}:{components}:{samples}".encode("utf-8")))
+    det = FailureDetector(DetectorConfig.from_env())
+    base = 0.05
+    lo, hi = samples // 3, 2 * samples // 3
+    for i in range(samples):
+        comp = f"comp-{i % max(1, components)}"
+        value = base * rng.uniform(0.9, 1.1)
+        if comp == straggler and lo <= i < hi:
+            value *= factor
+        now = round(i * 0.1, 6)
+        if det.quarantined(comp):
+            det.record_probe(comp, ok=value < 2.0 * base, now=now)
+        else:
+            det.observe(comp, value, now)
+    report = det.report()
+    report.update({
+        "seed": seed,
+        "plan": plan.as_dict(),
+        "straggler": straggler,
+        "factor": round(factor, 3),
+        "ok": bool(
+            det.state(straggler) == HEALTHY
+            and any(e["transition"] == "quarantined"
+                    and e["component"] == straggler
+                    for e in det.events)
+            and not any(e["transition"] == "quarantined"
+                        and e["component"] != straggler
+                        for e in det.events)),
+    })
+    return report

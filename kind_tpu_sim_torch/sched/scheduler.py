@@ -1,7 +1,8 @@
 """Deterministic gang scheduler over the simulated TPU inventory.
 
-The port's copy of ``kind_tpu_sim/sched/scheduler.py`` (all but the
-analytic ``sched run`` loop and its seeded workload). The control loop the reference exists to let people *test* but never
+The port's copy of ``kind_tpu_sim/sched/scheduler.py``, the ``sched run``
+loop and its seeded workload included. The control loop the reference
+exists to let people *test* but never
 models itself: a pending queue of slice requests, gang (all-or-
 nothing) admission onto the :mod:`~kind_tpu_sim_torch.sched.inventory`,
 pluggable placement scoring, priority preemption, and a
@@ -37,6 +38,8 @@ same seed + config always yields a byte-identical event log
 from __future__ import annotations
 
 import dataclasses
+import random
+import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kind_tpu_sim_torch import metrics
@@ -45,6 +48,7 @@ from kind_tpu_sim_torch import topology as topo
 from kind_tpu_sim_torch.sched.inventory import (
     Inventory,
     Placement,
+    build_inventory,
 )
 
 POLICIES = ("binpack", "spread", "ici")
@@ -513,7 +517,124 @@ class ClusterScheduler:
 
 
 # ---------------------------------------------------------------------
-# node and link chaos
+# seeded workload + the `sched run` simulation loop
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedWorkloadSpec:
+    """Seeded gang-arrival workload for the scheduler sim. Shapes
+    are drawn from ``shapes`` (accelerator, topology, weight);
+    priorities uniform over ``priorities``; arrivals exponential at
+    ``gangs_per_s`` on the virtual clock; holds uniform in
+    ``hold_s``."""
+
+    n_gangs: int = 24
+    gangs_per_s: float = 2.0
+    shapes: Tuple = (
+        ("tpu-v5-lite-podslice", "2x4", 4),   # single host
+        ("tpu-v5-lite-podslice", "4x4", 3),   # 2 hosts
+        ("tpu-v5-lite-podslice", "4x8", 2),   # 4 hosts
+        ("tpu-v5-lite-podslice", "2x2", 2),   # sub-host (4 chips)
+    )
+    priorities: Tuple[int, ...] = (0, 0, 1, 2)
+    hold_s: Tuple[float, float] = (2.0, 10.0)
+
+
+def generate_gangs(spec: SchedWorkloadSpec,
+                   seed: Optional[int] = None) -> List[SliceRequest]:
+    """Pure function of (spec, seed) — the ChaosSchedule recipe: the
+    rng is keyed by the canonical argument repr, so workload identity
+    is exactly argument identity."""
+    seed = resolve_seed(seed)
+    key = repr((seed, dataclasses.astuple(spec)))
+    rng = random.Random(zlib.crc32(key.encode("utf-8")))
+    weights = [s[2] for s in spec.shapes]
+    now = 0.0
+    out: List[SliceRequest] = []
+    for i in range(spec.n_gangs):
+        now += rng.expovariate(spec.gangs_per_s)
+        acc, topo_str, _ = rng.choices(
+            list(spec.shapes), weights=weights)[0]
+        out.append(SliceRequest(
+            name=f"gang-{i:03d}",
+            accelerator=acc,
+            topology=topo_str,
+            priority=rng.choice(list(spec.priorities)),
+            arrival_s=round(now, 6),
+            hold_s=round(rng.uniform(*spec.hold_s), 6),
+        ))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedSimConfig:
+    """One `sched run`: inventory shape + scheduler knobs + seeded
+    workload + optional node chaos."""
+
+    pods: Tuple = (("tpu-v5-lite-podslice", "4x8"),
+                   ("tpu-v5-lite-podslice", "4x8"))
+    sched: SchedConfig = SchedConfig()
+    workload: SchedWorkloadSpec = SchedWorkloadSpec()
+    max_virtual_s: float = 600.0
+    # (at_s, action, node_name): node_drain cordons + evicts,
+    # node_fail breaks, node_restore heals either
+    node_events: Tuple = ()
+
+
+def run_sched_sim(cfg: SchedSimConfig,
+                  seed: Optional[int] = None) -> dict:
+    """Drive a seeded gang workload through the scheduler on the
+    virtual clock; the report (sorted-keys JSON) is byte-identical
+    for the same (cfg, seed)."""
+    seed = resolve_seed(seed)
+    board_before = metrics.sched_board().counts()
+    inv = build_inventory(list(cfg.pods))
+    sched = ClusterScheduler(inv, cfg.sched)
+    gangs = generate_gangs(cfg.workload, seed)
+    pending_arrivals = list(gangs)
+    node_events = sorted(cfg.node_events,
+                         key=lambda e: (e[0], e[2], e[1]))
+    now = 0.0
+    bound_at: Dict[str, float] = {}
+    ttr: Dict[str, float] = {}
+    while now <= cfg.max_virtual_s:
+        while node_events and node_events[0][0] <= now:
+            _, action, node_name = node_events.pop(0)
+            apply_node_event(sched, action, node_name, now)
+        while (pending_arrivals
+               and pending_arrivals[0].arrival_s <= now):
+            sched.submit(pending_arrivals.pop(0), now)
+        for gang in sched.step(now):
+            name = gang.request.name
+            bound_at[name] = now
+            ttr[name] = round(
+                now - gang.request.arrival_s + cfg.sched.bind_s, 6)
+        if (not pending_arrivals and not sched.pending
+                and not node_events
+                and all(g.release_s is None
+                        for g in sched.bound.values())):
+            break
+        now = round(now + cfg.sched.cycle_s, 9)
+    ttrs = [ttr[g.name] for g in gangs if g.name in ttr]
+    report = {
+        "seed": seed,
+        "policy": cfg.sched.policy,
+        "gangs": len(gangs),
+        "scheduled": len(ttr),
+        "virtual_s": round(now, 6),
+        "time_to_routable": {
+            "mean_s": (round(sum(ttrs) / len(ttrs), 6)
+                       if ttrs else None),
+            "max_s": round(max(ttrs), 6) if ttrs else None,
+        },
+        "events": sched.events,
+        "event_counts": sched.report()["event_counts"],
+        "placement": sched.placement_snapshot(),
+        "sched_counters": metrics.sched_board().snapshot_since(
+            board_before),
+        "ok": len(ttr) == len(gangs),
+    }
+    return report
 
 
 def apply_link_event(sched: ClusterScheduler, action: str,

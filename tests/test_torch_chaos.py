@@ -149,16 +149,22 @@ def test_chaos_command_lists_and_refuses(capsys):
     assert pcli.main(["chaos", "run", "--list", "--json"]) == 0
     rows = json.loads(capsys.readouterr().out)
     assert [r["name"] for r in rows] == sorted(pchaos.SCENARIOS)
-    assert [r["name"] for r in rows if not r["slow"]] == [
-        "disagg-pool-loss", "zoo-swap-storm"]
+    analytic = sorted([
+        "correlated-rack-loss", "disagg-pool-loss", "fleet-flaky-replica",
+        "gray-degraded-ici", "gray-slow-replica", "overload-surge",
+        "retry-storm", "sched-node-drain", "sched-preemption-priority",
+        "sdc-serving-audit", "sdc-training-bisect",
+        "tenant-noisy-neighbor", "train-mixed-soak",
+        "train-preempt-economics", "zoo-swap-storm"])
+    assert [r["name"] for r in rows if not r["slow"]] == analytic
     # the device scenarios are slow, as in the reference: 'all' without
-    # --include-slow runs the analytic ones alone, and exits 1 on
-    # zoo-swap-storm's verdict
+    # --include-slow runs the 15 analytic ones alone, and exits 1 on
+    # zoo-swap-storm's verdict alone
     assert pcli.main(["chaos", "run", "--scenario", "all", "--json",
                       "--device", "cpu"]) == 1
     fast = json.loads(capsys.readouterr().out)
     assert [(r["scenario"], r["ok"]) for r in fast["scenarios"]] == [
-        ("disagg-pool-loss", True), ("zoo-swap-storm", False)]
+        (name, name != "zoo-swap-storm") for name in analytic]
     with pytest.raises(SystemExit, match="kind_tpu_sim chaos run"):
         pcli.main(["chaos", "run", "--scenario", "exec-transient",
                    "--device", "cpu"])

@@ -227,6 +227,35 @@ def test_a_stale_hedge_timer_skips_the_replica_holding_the_request(
         assert "hedge_late_drops" not in ov
 
 
+@pytest.mark.parametrize("at", [0.17, 0.18])
+def test_a_requeued_copy_never_lands_on_its_hedge_holder(params, at):
+    """ROADMAP C-19: replica 0 is preempted while one of its requests
+    (f00046) has a hedge copy waiting on replica 1. The reference
+    requeues the displaced copy, the router places it on replica 1, and
+    its engine refuses the duplicate id. The port drops the displaced
+    copy, dissolves the pair, and completes every request once."""
+    events = [dict(at_s=at, action="preempt", target=0),
+              dict(at_s=round(at + 0.2, 3), action="restore", target=0)]
+    with pytest.raises(ValueError, match="'f00046' is already queued"):
+        with one_thread():
+            fleet_layers_run(jfleet, jserving, params[0], jax_cfg(FLEET_CFG),
+                             C17_SPEC, events=events, overload=True,
+                             fleet_kw=dict(replicas=2))
+    sims = []
+    with one_thread():
+        got = fleet_layers_run(pfleet, pserving, params[1], FLEET_CFG,
+                               C17_SPEC, events=events, overload=True,
+                               fleet_kw=dict(replicas=2), sims=sims,
+                               device="cpu")
+    ids = [e["request_id"] for e in got["completions"]]
+    assert got["ok"] and got["completed"] == 60 and len(set(ids)) == 60
+    assert got["preemptions"] == 1
+    assert not sims[0]._hedges and not sims[0]._hedge_dropped
+    ov = got["overload"]["counters"]
+    # one pair dissolved: its loser was the displaced copy
+    assert ov["hedges_issued"] == ov["hedge_cancels"] + 1
+
+
 def _held_twice(fleet, monkeypatch):
     """The analytic fleet under C-17's traffic and chaos (two replicas,
     overload on): the submits that offered a replica a request it

@@ -71,6 +71,52 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_yaml(path):
+    """The card's machine has no PyYAML: the port reads and writes its
+    manifests with ``kind_tpu_sim_torch/yamlsubset.py``."""
+    bad = [n for n in _imports(path) if n.split(".")[0] == "yaml"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_manifest_face_works_with_yaml_blocked():
+    code = "\n".join([
+        "import sys",
+        "sys.modules['yaml'] = None",
+        "from kind_tpu_sim_torch import fleet, sched",
+        "text = open('pods/tpu-serving-deployment.yaml').read()",
+        "reqs = sched.slice_requests_from_yaml(text)",
+        "assert [r.name for r in reqs] == [",
+        "    f'tpu-sim-serving-{i}' for i in range(3)], reqs",
+        "back = sched.slice_requests_from_yaml(sched.to_pod_manifest(reqs[0]))",
+        "assert back == reqs[:1], back",
+        "gangs = fleet.gangs_from_manifest(",
+        "    open('pods/tpu-batch-train-job.yaml').read())",
+        "assert [g.priority for g in gangs] == [-10], gangs",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_guard_tells_the_port_from_the_jax_package():
     assert _forbidden("kind_tpu_sim.models.serving")
     assert _forbidden("jax.numpy")
