@@ -236,13 +236,22 @@ it fails (nothing is caught and ignored):
    with ``--sched --train 1 --profile``) and ``chaos run --scenario all
    --include-slow`` at the reference's tiny configs, whose weight-free
    fields must equal the same runs' on the CPU (the profile section
-   carrying the reference's keys; the chaos command's 18 scenarios, the
-   15 analytic ones' reports byte-equal to the same scenarios run in
-   this process; ``zoo-swap-storm``'s verdict is the CPU's, ``ok:
-   false`` on the H100's calibration, every other scenario must be ok,
-   and the chaos command's exit code must be 0 exactly when every
-   verdict is). Each step logs its flash launches by route and
-   its CUDA graph captures;
+   carrying the reference's keys; the chaos command's 25 scenarios, the
+   reports of the 21 that do no device work but ``gray-straggler-grid``
+   byte-equal to the same scenarios run in this process (the 15
+   analytic ones, the four globe scenarios, the crash and hang worker
+   grids), ``gray-straggler-grid`` held on its timing-free fields;
+   ``zoo-swap-storm``'s verdict is the CPU's, ``ok: false`` on the
+   H100's calibration, every other scenario but the straggler grid must
+   be ok, and the chaos command's exit code must be 0 exactly when every
+   verdict is); then (h) ``chaos run --scenario gray-straggler-grid
+   --json`` as a process with nothing of this script beside it, whose
+   wall-clock verdict must be ok and whose timing-free fields must equal
+   the run in this process; and (i) ``globe run --json`` and ``globe
+   trace`` (the default globe: three zones of one scheduler-backed cell,
+   200 requests a zone), started with (d)'s processes, each exit 0 and
+   its output byte-equal to the same command run in this process. Each
+   step logs its flash launches by route and its CUDA graph captures;
 15. the calibrated simulator (host only, no kernel) -- (a) the cost
    model's ``calibrate`` over phase 9's bench model block (the
    flagship's widths at 2 of its 8 layers, from this card): every
@@ -5702,7 +5711,14 @@ SIM_COMMANDS = {
     "fleet sched": ("fleet", "run", "--requests", str(SIM_REQUESTS),
                     "--sched", "--train", "1", "--profile", "--json",
                     "--device", "cuda"),
+    "globe run": ("globe", "run", "--json"),
+    "globe trace": ("globe", "trace"),
 }
+# (i): the globe's commands (the default globe: three zones of one
+# scheduler-backed cell, 200 requests a zone), whose output must equal the
+# same command run in this process. They run among (d)'s processes, not
+# phase 15's: twelve processes there took phase 15 past its limit
+SIM_GLOBE = ("globe run", "globe trace")
 # the fleet report's keys that hold for every weight (the streams' crcs
 # taken out of the completions), with the control layers' sections where
 # a run has them, and the scenario results'
@@ -5824,10 +5840,47 @@ SIM_SCENARIO_KEYS = {
                              "max_simultaneous_dead", "p99_window_s",
                              "slo_attainment", "domain_faults",
                              "replay_identical", "ok", "recovery_events"),
+    # the globe's blast-radius scenarios (analytic cells)
+    "globe-zone-loss": ("plan", "requests", "lost_zone", "loss_at_s",
+                        "restore_at_s", "spilled", "readmitted", "shed",
+                        "p99_post_restore_ratio", "surviving_zone_p99_ratio",
+                        "replay_identical", "ok", "recovery_events"),
+    "globe-herd-failover": ("plan", "requests", "herd_zone", "failover_at_s",
+                            "readmitted", "spilled", "peak_outstanding",
+                            "hard_limits", "spill_bound_held", "cell_sheds",
+                            "frontdoor_sheds", "tail_attainment_clean",
+                            "tail_attainment_faulted", "replay_identical",
+                            "ok", "recovery_events"),
+    "globe-dcn-degrade": ("plan", "requests", "link_factor",
+                          "degrade_window_s", "spill_window_requests",
+                          "routed_around_degraded_link", "zone_c_p99_ratio",
+                          "p99_post_restore_ratio", "dcn_degrades",
+                          "replay_identical", "ok", "recovery_events"),
+    "train-globe-spot": ("plan", "requests", "loss_at_s", "restore_at_s",
+                         "train_grants", "train_reclaims", "grows",
+                         "shrinks", "evictions", "final_topology",
+                         "lost_steps", "ledger_ok", "gang_done",
+                         "replay_identical", "ok", "recovery_events"),
+    # the cold worker grids: real subprocess workers on the wall clock
+    "worker-crash-grid": ("plan", "cells", "faults_injected", "requeues",
+                          "respawns", "results_identical", "ok",
+                          "recovery_events"),
+    "worker-hang-grid": ("plan", "cells", "faults_injected", "requeues",
+                         "results_identical", "ok", "recovery_events"),
+    # its timing-free fields alone: its verdict times the host
+    "gray-straggler-grid": ("plan", "workers", "cells", "faulted_worker",
+                            "results_identical"),
 }
 # the scenario whose verdict on the H100's calibration is a failure (its
 # p99 bound, by the decode bandwidth's arithmetic): held to the CPU's
 SIM_FAILING_SCENARIO = "zoo-swap-storm"
+# the scenario whose verdict compares wall-clock makespans of subprocess
+# grids: beside (d)'s other processes and this process's card work a
+# healthy worker can miss its 0.8 s probe, so (d) holds its timing-free
+# fields alone, and (h) runs it with nothing beside it for its verdict
+SIM_TIMED_SCENARIO = "gray-straggler-grid"
+SIM_STRAGGLER_COMMAND = ("chaos", "run", "--scenario", SIM_TIMED_SCENARIO,
+                         "--json")
 
 
 def _flash_routes(fa) -> dict:
@@ -5952,7 +6005,8 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     """Phase 14: the simulator's engine paths on the card, each held to
     the reference's bar. (d) ``fleet run`` and ``chaos run --scenario all
     --include-slow`` start first as processes (the reference's tiny
-    configs) and are read last; meanwhile, in this, the main thread: (a)
+    configs), with (i) ``globe run --json`` and ``globe trace``, and are
+    read last; meanwhile, in this, the main thread: (a)
     ``fleet-preemption`` and (b) ``serving-slot-failure`` at the
     flagship's width with flash, (c) ``preempt-train`` at the flagship's
     widths and 2 of its 8 layers (SIGTERM reaches only the main thread),
@@ -5977,7 +6031,8 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     ``--sched --train 1 --profile`` the same flags' runs on the CPU here
     (the profile's keys the reference's), and each of its scenarios the
     same scenario's weight-free fields run on the CPU here. Each step's
-    flash launches by route and graph captures are logged."""
+    flash launches by route and graph captures are logged. Then (h), the
+    straggler grid alone (``lone_straggler_grid``)."""
     import threading
 
     from kind_tpu_sim_torch import chaos, cli, fleet
@@ -6168,6 +6223,8 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
 
         cpu_scenarios = {name: chaos.run_scenario(name, seed=0, device="cpu")
                          for name in SIM_SCENARIO_KEYS}
+        globe_here = {label: _cli_stdout(cli, SIM_COMMANDS[label])
+                      for label in SIM_GLOBE}
         ran = {label: f.result() for label, f in running.items()}
 
     res = ran["chaos"]
@@ -6212,28 +6269,45 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     check(sorted(by_name) == sorted(SIM_SCENARIO_KEYS)
           and chaos_rep["ok"] == all(verdicts.values())
           and all(ok for name, ok in verdicts.items()
-                  if name != SIM_FAILING_SCENARIO)
+                  if name not in (SIM_FAILING_SCENARIO, SIM_TIMED_SCENARIO))
           and verdicts[SIM_FAILING_SCENARIO]
           == cpu_scenarios[SIM_FAILING_SCENARIO]["ok"],
           f"chaos run on the card: verdicts {verdicts}, the CPU's "
           f"{SIM_FAILING_SCENARIO} "
           f"{cpu_scenarios[SIM_FAILING_SCENARIO]['ok']}")
     log(f"14 (d) chaos verdicts {verdicts} ({SIM_FAILING_SCENARIO} as on "
-        "the CPU)")
+        f"the CPU; {SIM_TIMED_SCENARIO} not held under this load)")
     for name, keys in SIM_SCENARIO_KEYS.items():
         for key in keys:
             check(by_name[name][key] == cpu_scenarios[name][key],
                   f"chaos run {name} on the card: {key} "
                   f"{by_name[name][key]} against the CPU's "
                   f"{cpu_scenarios[name][key]}")
-        if not chaos.SCENARIOS[name].device:
-            # analytic: the whole report, byte for byte
+        if not chaos.SCENARIOS[name].device and name != SIM_TIMED_SCENARIO:
+            # analytic, or a grid's counts: the whole report, byte for byte
             check(json.dumps(by_name[name], sort_keys=True)
                   == json.dumps(cpu_scenarios[name], sort_keys=True),
                   f"chaos run {name}: the command's report differs from "
                   "the same scenario run in this process")
+    for label in SIM_GLOBE:
+        res = ran[label]
+        rc, here_out = globe_here[label]
+        lines = here_out.strip().splitlines()
+        shape_ok = (json.loads(lines[-1])["ok"] if label == "globe run"
+                    else len(lines) == 600)
+        check(rc == 0 and res["stdout"] == here_out and shape_ok,
+              f"14 (i) {' '.join(SIM_COMMANDS[label])}: here rc {rc}, or its "
+              "output differs from the same command in this process")
+        log(f"14 (i) {' '.join(SIM_COMMANDS[label])}: {len(here_out)} bytes "
+            "equal to the run in this process")
+    globe_rep = json.loads(globe_here["globe run"][1])
+    out["globe"] = {"global_slo": globe_rep["global_slo"],
+                    "frontdoor": {k: globe_rep["frontdoor"][k] for k in (
+                        "routed", "spilled", "affinity_hits")}}
     out["commands"] = {label: {"rc": res["rc"], "wall_s": res["wall_s"]}
                        for label, res in ran.items()}
+    out["lone straggler grid"] = lone_straggler_grid(
+        cpu_scenarios[SIM_TIMED_SCENARIO])
     out["commands"]["fleet"]["slo"] = fleet_rep["slo"]
     out["commands"]["fleet layers"].update(
         slo=layers_rep["slo"], overload=layers_rep["overload"]["counters"],
@@ -6244,6 +6318,31 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
         profile={"wall_s": profile["wall_s"],
                  "events_per_s": profile["events_per_s"]})
     return out
+
+
+def lone_straggler_grid(here: dict) -> dict:
+    """14 (h): ``chaos run --scenario gray-straggler-grid --json`` as a
+    process with nothing of this script beside it (no other process, no
+    card work: this thread waits on it): its verdict, which compares
+    wall-clock makespans against bounds from two clean runs, must be ok,
+    and its timing-free fields those of the run in this process
+    (``here``)."""
+    res = _timed_run([sys.executable, "-m", "kind_tpu_sim_torch",
+                      *SIM_STRAGGLER_COMMAND])
+    check(res["rc"] in (0, 1) and res["stdout"].strip(),
+          f"14 (h) exited {res['rc']}:\n{res['stdout'][-2000:]}\n"
+          f"{res['stderr'][-2000:]}")
+    rep = json.loads(res["stdout"].strip().splitlines()[-1])
+    log(f"14 (h) {' '.join(SIM_STRAGGLER_COMMAND)} alone: rc {res['rc']}, "
+        f"{res['wall_s']:.1f} s; {json.dumps(rep, sort_keys=True)}")
+    check(res["rc"] == 0 and rep["ok"],
+          f"14 (h): the lone straggler grid is not ok: {rep}")
+    for key in SIM_SCENARIO_KEYS[SIM_TIMED_SCENARIO]:
+        check(rep[key] == here[key],
+              f"14 (h) {key}: {rep[key]} against this process's {here[key]}")
+    return {"rc": res["rc"], "wall_s": res["wall_s"], "ok": rep["ok"],
+            "detection": rep["detection"],
+            "recovery_events": rep["recovery_events"]}
 
 
 # phase 15: the calibrated simulator's commands, run as processes from

@@ -11,7 +11,7 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
   crc32 of the arguments' repr; each event's ``param`` drawn before its
   slot and target), so a plan equals the reference's for the same seed;
 * the scenario registry: the three scenarios that drive device work
-  and fifteen analytic ones, each with the reference's bar:
+  and twenty-two that do none, each with the reference's bar:
 
   - ``preempt-train``: SIGTERM mid-step; a checkpoint is written at that
     step, and the resumed loss trajectory equals the uninterrupted one
@@ -49,6 +49,20 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
     the replica holding it (seed 0: a stale hedge timer, ROADMAP C-17;
     seed 2: a requeue onto the hedge copy's replica, C-19), which the
     port never does: its retry counters differ there.
+  - the cold worker grids, on the wall clock with real subprocess
+    workers (``parallel/multihost.scatter_grid_cells`` over
+    ``utils/worker_pool.run_cells``): ``worker-crash-grid`` (a worker
+    killed mid-sweep; its cell requeues and the results equal the
+    fault-free run's), ``worker-hang-grid`` (a worker wedged past the 3 s
+    cell deadline is killed and its cell requeued) and
+    ``gray-straggler-grid`` (a slow but alive worker is probed out and
+    quarantined; detection on must finish within, and detection off
+    past, bounds derived from two clean runs by
+    :func:`derive_straggler_bounds`). The straggler's verdict times the
+    host: on a loaded host a healthy worker can miss its 0.8 s probe.
+  - the globe's blast-radius scenarios (``globe/``, analytic cells on one
+    virtual clock): ``globe-zone-loss``, ``globe-herd-failover``,
+    ``globe-dcn-degrade`` and ``train-globe-spot``.
 
 Each scenario takes the reference's ``seed`` and returns its result
 dict. A device scenario's model is the reference's tiny config unless
@@ -61,8 +75,8 @@ installed. The analytic scenarios take neither ``device`` nor ``cfg``;
 with the same calibration (and, for ``zoo-swap-storm``, the same
 generation registry) their results are the reference's.
 
-The reference's other scenarios (the control plane's, the worker
-grids', the globe's) are not ported yet.
+The reference's control-plane scenarios (``flaky-exec``,
+``device-flap``, ``node-flap``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -698,6 +712,144 @@ def _scenario_zoo_swap_storm(seed: int) -> dict:
                    and ratio is not None and ratio <= 1.25),
     }
 
+
+# ---------------------------------------------------------------------
+# the cold worker grids (wall clock: real subprocess workers)
+
+
+@_scenario("worker-crash-grid",
+           "a slice worker killed mid-sweep; its grid cells requeue "
+           "on survivors and results match the fault-free run",
+           device=False)
+def _scenario_worker_crash_grid(seed: int) -> dict:
+    from kind_tpu_sim_torch.parallel import multihost
+
+    plan = ChaosSchedule(seed).plan(kinds=("worker_crash",),
+                                    n_faults=1, horizon=6, targets=2)
+    ev = plan.events[0]
+    cells = [{"cell": i, "payload": seed} for i in range(6)]
+    clean, _ = multihost.scatter_grid_cells(cells, workers=2, timeout=120.0)
+    faulted, stats = multihost.scatter_grid_cells(
+        cells, workers=2, timeout=120.0,
+        fault=("crash", ev.at % len(cells)))
+    return {
+        "plan": plan.as_dict(),
+        "cells": len(cells),
+        "faults_injected": stats["faults_injected"],
+        "requeues": stats["requeues"],
+        "respawns": stats["respawns"],
+        "results_identical": faulted == clean,
+        "ok": bool(faulted == clean
+                   and stats["faults_injected"] == 1
+                   and stats["requeues"] >= 1),
+    }
+
+
+@_scenario("worker-hang-grid",
+           "a slice worker wedges mid-cell; the deadline kill "
+           "requeues its cell and the sweep still completes",
+           device=False)
+def _scenario_worker_hang_grid(seed: int) -> dict:
+    from kind_tpu_sim_torch.parallel import multihost
+
+    plan = ChaosSchedule(seed).plan(kinds=("worker_hang",),
+                                    n_faults=1, horizon=5, targets=2)
+    ev = plan.events[0]
+    cells = [{"cell": i, "payload": seed} for i in range(5)]
+    clean, _ = multihost.scatter_grid_cells(cells, workers=2, timeout=120.0)
+    faulted, stats = multihost.scatter_grid_cells(
+        cells, workers=2, timeout=120.0, cell_timeout=3.0,
+        fault=("hang", ev.at % len(cells), ev.param * 20))
+    return {
+        "plan": plan.as_dict(),
+        "cells": len(cells),
+        "faults_injected": stats["faults_injected"],
+        "requeues": stats["requeues"],
+        "results_identical": faulted == clean,
+        "ok": bool(faulted == clean
+                   and stats["faults_injected"] == 1
+                   and stats["requeues"] >= 1),
+    }
+
+
+def derive_straggler_bounds(clean_a_s: float, clean_b_s: float,
+                            stall_s: float) -> Dict[str, float]:
+    """The straggler grid's makespan bounds, from two clean runs (their
+    spread is this host's wall-clock noise now) and the injected stall,
+    an absolute quantity: detection on must finish under 1.25x the
+    slower clean run plus 0.9 of a stall (``on_limit_s``: the detector
+    eats at most about a window of stalled work before it quarantines),
+    and detection off must take longer than the faster clean run plus
+    0.6 of a stall (``off_floor_s``: the unmitigated straggler puts
+    stalled work into the makespan). Additive stall terms, unlike
+    ratios, are not made or erased by a uniform slowdown of the host."""
+    calib_hi = max(clean_a_s, clean_b_s)
+    calib_lo = max(1e-9, min(clean_a_s, clean_b_s))
+    return {
+        "calib_hi_s": calib_hi,
+        "calib_lo_s": calib_lo,
+        "on_limit_s": 1.25 * calib_hi + 0.9 * stall_s,
+        "off_floor_s": calib_lo + 0.6 * stall_s,
+    }
+
+
+@_scenario("gray-straggler-grid",
+           "a gray straggler worker (alive but slow) is probed out "
+           "and quarantined; the grid rebalances and its wall "
+           "recovers to within a calibration-derived tolerance of "
+           "fault-free, results bit-identical — detection-off "
+           "provably does not recover",
+           device=False)
+def _scenario_gray_straggler_grid(seed: int) -> dict:
+    from kind_tpu_sim_torch import health
+    from kind_tpu_sim_torch.parallel import multihost
+
+    plan = ChaosSchedule(seed).plan(kinds=("straggler_worker",),
+                                    n_faults=1, horizon=8, targets=6)
+    ev = plan.events[0]
+    workers = 6
+    stall = min(2.4, max(1.6, ev.param))
+    cells = [{"cell": i, "payload": seed % 997, "sleep_s": 0.08}
+             for i in range(36)]
+    hcfg = dataclasses.replace(health.DetectorConfig.from_env(),
+                               probe_timeout_s=0.8)
+    # two clean runs: the calibration the bounds derive from
+    clean, clean_stats = multihost.scatter_grid_cells(
+        cells, workers=workers, timeout=180.0, detect=True, health_cfg=hcfg)
+    clean2, clean2_stats = multihost.scatter_grid_cells(
+        cells, workers=workers, timeout=180.0, detect=True, health_cfg=hcfg)
+    bounds = derive_straggler_bounds(
+        clean_stats["makespan_s"], clean2_stats["makespan_s"], stall)
+    fault = ("straggler", ev.target % workers, stall)
+    on, on_stats = multihost.scatter_grid_cells(
+        cells, workers=workers, timeout=180.0, detect=True, health_cfg=hcfg,
+        fault=fault, max_respawns=1)
+    off, off_stats = multihost.scatter_grid_cells(
+        cells, workers=workers, timeout=240.0, fault=fault, max_respawns=0)
+    detected = (on_stats["quarantines"] + on_stats["speculative"]) >= 1
+    # the hard transitions alone: no wall-clock value in the report
+    detection = [d for d in on_stats.get("detection", [])
+                 if d["transition"] in ("quarantined", "restored")]
+    recovered = on_stats["makespan_s"] <= bounds["on_limit_s"]
+    off_degraded = off_stats["makespan_s"] >= bounds["off_floor_s"]
+    return {
+        "plan": plan.as_dict(),
+        "workers": workers,
+        "cells": len(cells),
+        "faulted_worker": ev.target % workers,
+        "results_identical": bool(on == clean and off == clean
+                                  and clean2 == clean),
+        "fault_free_quarantines": clean_stats["quarantines"]
+        + clean2_stats["quarantines"],
+        "detected": bool(detected),
+        "detection": detection,
+        "recovered_within_tolerance": bool(recovered),
+        "off_degraded": bool(off_degraded),
+        "ok": bool(on == clean and off == clean and clean2 == clean
+                   and clean_stats["quarantines"] == 0
+                   and clean2_stats["quarantines"] == 0
+                   and detected and recovered and off_degraded),
+    }
 
 def _window_p99_ttft(completions, t_from: float,
                      t_to: float) -> Optional[float]:
@@ -1992,6 +2144,371 @@ def _scenario_correlated_rack_loss(seed: int) -> dict:
                    and len(idxs) >= 2 and worse
                    and rep_c["integrity"]["counters"].get(
                        "domain_faults", 0) >= 1
+                   and identical),
+    }
+
+
+# ---------------------------------------------------------------------
+# the globe (analytic cells, one virtual clock)
+
+
+@_scenario("globe-zone-loss",
+           "a whole MULTI-CELL zone goes dark under the globe's "
+           "front door: both of its cells' load spills cross-zone "
+           "(nearest healthy first), zero requests are lost, global "
+           "p99 recovers after the zone returns, and the surviving "
+           "zones' boards stay within noise of fault-free — the "
+           "blast radius is the zone, not the planet",
+           device=False)
+def _scenario_globe_zone_loss(seed: int) -> dict:
+    from kind_tpu_sim_torch import globe
+
+    plan = ChaosSchedule(seed).plan(kinds=("zone_loss",),
+                                    n_faults=1, horizon=6, targets=3)
+    ev = plan.events[0]
+    # 2 cells per zone: the blast radius spans BOTH cells of the
+    # lost zone (they die together — a zone is a correlated failure
+    # domain) and the herd readmission spreads over the survivors'
+    # four cells, sibling-first within each zone
+    cfg = globe.GlobeConfig(
+        zones=("zone-a", "zone-b", "zone-c"), cells_per_zone=2,
+        replicas_per_cell=1,
+        workload=globe.GlobeWorkloadSpec(process="poisson",
+                                         rps=30.0, n_per_zone=120))
+    traces = globe.generate_globe_traces(cfg, seed)
+    span = max(r.arrival_s for reqs in traces.values()
+               for r in reqs)
+    lost_zone = cfg.zones[ev.target % len(cfg.zones)]
+    # the loss lands a third into the arrival window and the zone
+    # returns at two thirds — a full third of the trace arrives
+    # post-restore, so the recovery window has real traffic to judge
+    at = round(span / 3.0, 6)
+    restore = round(2.0 * span / 3.0, 6)
+    events = [
+        globe.GlobeChaosEvent(at_s=at, action="zone_loss",
+                              target=lost_zone),
+        globe.GlobeChaosEvent(at_s=restore, action="zone_restore",
+                              target=lost_zone),
+    ]
+    clean = globe.GlobeSim(cfg, traces=traces, seed=seed).run()
+    faulted = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                             chaos_events=events).run()
+    replay = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                            chaos_events=events).run()
+    # recovery: post-restore global p99 back to fault-free levels
+    p99_clean = _window_p99_ttft(clean["completions"], restore,
+                                 span + 1.0)
+    p99_faulted = _window_p99_ttft(faulted["completions"], restore,
+                                   span + 1.0)
+    recovered = (p99_clean is not None and p99_faulted is not None
+                 and p99_faulted <= 1.25 * p99_clean)
+    # containment: the surviving zones' per-zone boards (whole run,
+    # fault window included) must sit within noise of fault-free —
+    # a zone loss that degrades its neighbors was not contained.
+    # One histogram bucket is 1.12x; survivors legitimately carry
+    # the herd's spill DURING the window (they absorb 1.5x load by
+    # design), so their tolerance is ~3 buckets (1.12^3 = 1.405) —
+    # soak seeds land ratios up to ~1.35 with the spill fully
+    # bounded. Post-restore RECOVERY keeps the tighter 1.25.
+    survivors = [z for z in cfg.zones if z != lost_zone]
+    containment = {}
+    for z in survivors:
+        pc = clean["zones"][z]["slo"]["ttft"].get("p99_s")
+        pf = faulted["zones"][z]["slo"]["ttft"].get("p99_s")
+        containment[z] = (round(pf / pc, 3)
+                          if pc and pf is not None else None)
+    contained = all(r is not None and r <= 1.405
+                    for r in containment.values())
+    tokens = lambda rep: sum(e["tokens"] for e in rep["completions"])  # noqa: E731
+    identical = (json.dumps(faulted["completions"],
+                             sort_keys=True)
+                 == json.dumps(replay["completions"],
+                                sort_keys=True))
+    return {
+        "plan": plan.as_dict(),
+        "requests": faulted["requests"],
+        "lost_zone": lost_zone,
+        "loss_at_s": at,
+        "restore_at_s": restore,
+        "spilled": faulted["frontdoor"]["spilled"],
+        "readmitted": faulted["frontdoor"]["readmitted"],
+        "shed": faulted["global_slo"]["shed"],
+        "p99_post_restore_ratio": (
+            round(p99_faulted / p99_clean, 3)
+            if p99_clean and p99_faulted is not None else None),
+        "surviving_zone_p99_ratio": containment,
+        "replay_identical": bool(identical),
+        "ok": bool(clean["ok"] and faulted["ok"]
+                   and faulted["global_slo"]["shed"] == 0
+                   and tokens(faulted) == tokens(clean)
+                   and faulted["frontdoor"]["spilled"] >= 1
+                   and recovered and contained and identical),
+    }
+
+
+@_scenario("globe-herd-failover",
+           "a zone dies at peak burst: its whole load hits the "
+           "front door at once, and the spill bound spreads it "
+           "without cascade — no surviving cell is flooded past its "
+           "configured headroom, nothing sheds, and attainment "
+           "recovers once the zone returns",
+           device=False)
+def _scenario_globe_herd_failover(seed: int) -> dict:
+    from kind_tpu_sim_torch import globe
+
+    plan = ChaosSchedule(seed).plan(kinds=("herd_failover",),
+                                    n_faults=1, horizon=6, targets=3)
+    ev = plan.events[0]
+    cfg = globe.GlobeConfig(
+        zones=("zone-a", "zone-b", "zone-c"), replicas_per_cell=2,
+        workload=globe.GlobeWorkloadSpec(process="bursty",
+                                         rps=40.0, n_per_zone=150))
+    traces = globe.generate_globe_traces(cfg, seed)
+    span = max(r.arrival_s for reqs in traces.values()
+               for r in reqs)
+    herd_zone = cfg.zones[ev.target % len(cfg.zones)]
+    clean = globe.GlobeSim(cfg, traces=traces, seed=seed).run()
+    # kill the zone just after a mid-trace dispatch INTO it: the
+    # runs are identical up to that instant, so the zone provably
+    # holds in-flight work — the herd (displacement + re-admission)
+    # is guaranteed, not seed-lucky (burst valleys are empty)
+    tick = 0.01
+    herd_disp = sorted(
+        e["dispatch_s"] for e in clean["completions"]
+        if e["serving_zone"] == herd_zone
+        and span / 4.0 <= e["dispatch_s"] <= 2.0 * span / 3.0)
+    at = round((herd_disp[len(herd_disp) // 2] + tick / 2
+                if herd_disp else span / 3.0), 6)
+    restore = round(max(2.0 * span / 3.0, at + 0.15 * span), 6)
+    events = [
+        globe.GlobeChaosEvent(at_s=at, action="herd_failover",
+                              target=herd_zone),
+        globe.GlobeChaosEvent(at_s=restore, action="zone_restore",
+                              target=herd_zone),
+    ]
+    faulted = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                             chaos_events=events).run()
+    replay = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                            chaos_events=events).run()
+    fd = faulted["frontdoor"]
+    # the cascade-prevention invariant: admission never floods any
+    # surviving cell past its hard limit (nominal x (1 + headroom)),
+    # and neither tier sheds — overflow waits at the front door
+    bounded = all(
+        fd["peak_outstanding"][name] <= fd["hard_limits"][name]
+        for name in fd["hard_limits"])
+    cell_sheds = sum(c["router"]["shed"]
+                     for c in faulted["cells"].values())
+    tail_clean = globe.attainment_over(clean["completions"],
+                                       restore)
+    tail_faulted = globe.attainment_over(faulted["completions"],
+                                         restore)
+    recovered = (tail_clean is None or tail_faulted is None
+                 or tail_faulted >= tail_clean)
+    tokens = lambda rep: sum(e["tokens"] for e in rep["completions"])  # noqa: E731
+    identical = (json.dumps(faulted["completions"],
+                             sort_keys=True)
+                 == json.dumps(replay["completions"],
+                                sort_keys=True))
+    return {
+        "plan": plan.as_dict(),
+        "requests": faulted["requests"],
+        "herd_zone": herd_zone,
+        "failover_at_s": at,
+        "readmitted": fd["readmitted"],
+        "spilled": fd["spilled"],
+        "peak_outstanding": fd["peak_outstanding"],
+        "hard_limits": fd["hard_limits"],
+        "spill_bound_held": bool(bounded),
+        "cell_sheds": cell_sheds,
+        "frontdoor_sheds": fd["shed"],
+        "tail_attainment_clean": tail_clean,
+        "tail_attainment_faulted": tail_faulted,
+        "replay_identical": bool(identical),
+        "ok": bool(clean["ok"] and faulted["ok"]
+                   and bounded and cell_sheds == 0
+                   and fd["shed"] == 0
+                   and fd["readmitted"] >= 1
+                   and tokens(faulted) == tokens(clean)
+                   and recovered and identical),
+    }
+
+
+@_scenario("globe-dcn-degrade",
+           "an inter-zone DCN link browns out under cross-zone "
+           "spill (one cell drained for maintenance forces the "
+           "spill): the latency-aware front door routes around the "
+           "degraded path, the untouched zone's board stays within "
+           "noise, and the spill path heals when the link does",
+           device=False)
+def _scenario_globe_dcn_degrade(seed: int) -> dict:
+    from kind_tpu_sim_torch import globe
+
+    plan = ChaosSchedule(seed).plan(kinds=("dcn_degrade",),
+                                    n_faults=1, horizon=8, targets=1)
+    factor = min(0.25, max(0.08, plan.events[0].param))
+    # 3 replicas/cell: zone-a must absorb zone-b's whole spill
+    # WITHOUT ever saturating — a saturated near cell would let the
+    # front door legitimately prefer the far (degraded) path, and
+    # this scenario is about latency steering, not overload
+    cfg = globe.GlobeConfig(
+        zones=("zone-a", "zone-b", "zone-c"), replicas_per_cell=3,
+        workload=globe.GlobeWorkloadSpec(process="poisson",
+                                         rps=30.0, n_per_zone=120))
+    traces = globe.generate_globe_traces(cfg, seed)
+    span = max(r.arrival_s for reqs in traces.values()
+               for r in reqs)
+    t1 = round(span * 0.25, 6)
+    t2 = round(span * 0.65, 6)
+    # zone-b's cell is under maintenance the whole run (baseline
+    # includes the drain, so the faulted-vs-baseline delta is PURELY
+    # the browned-out link); its traffic must spill cross-zone,
+    # where zone-a and zone-c are equidistant candidates
+    drain = [globe.GlobeChaosEvent(at_s=0.0, action="cell_drain",
+                                   target="zone-b/c0")]
+    dcn = drain + [
+        globe.GlobeChaosEvent(at_s=t1, action="dcn_degrade",
+                              target="zone-c", param=factor),
+        globe.GlobeChaosEvent(at_s=t2, action="dcn_restore",
+                              target="zone-c"),
+    ]
+    base = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                          chaos_events=list(drain)).run()
+    faulted = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                             chaos_events=list(dcn)).run()
+    replay = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                            chaos_events=list(dcn)).run()
+    # steering: while zone-c's DCN is browned out, NO zone-b
+    # request may be served through it — the front door's
+    # latency-aware scoring must prefer the healthy path to zone-a.
+    # The window edges back off a tick: an arrival 1ms before the
+    # restore is ADMITTED at the next tick, after the link healed
+    window = [e for e in faulted["completions"]
+              if e["origin"] == "zone-b"
+              and t1 + 0.1 <= e["arrival_s"] < t2 - 0.05]
+    routed_around = (all(e["serving_zone"] != "zone-c"
+                         for e in window)
+                     and any(e["serving_zone"] == "zone-a"
+                             for e in window))
+    # containment: zone-c's own (purely local) traffic must not
+    # notice its DCN links browning out (1.25 = ~2 histogram
+    # buckets, the repo-wide fault-free tolerance)
+    pc = base["zones"]["zone-c"]["slo"]["ttft"].get("p99_s")
+    pf = faulted["zones"]["zone-c"]["slo"]["ttft"].get("p99_s")
+    contained = bool(pc and pf is not None and pf <= 1.25 * pc)
+    # recovery: once the link heals, the spill path costs what it
+    # did under maintenance alone
+    p99_base = _window_p99_ttft(base["completions"], t2, span + 1.0)
+    p99_faulted = _window_p99_ttft(faulted["completions"], t2,
+                                   span + 1.0)
+    recovered = (p99_base is not None and p99_faulted is not None
+                 and p99_faulted <= 1.25 * p99_base)
+    tokens = lambda rep: sum(e["tokens"] for e in rep["completions"])  # noqa: E731
+    identical = (json.dumps(faulted["completions"],
+                             sort_keys=True)
+                 == json.dumps(replay["completions"],
+                                sort_keys=True))
+    return {
+        "plan": plan.as_dict(),
+        "requests": faulted["requests"],
+        "link_factor": round(factor, 3),
+        "degrade_window_s": [t1, t2],
+        "spill_window_requests": len(window),
+        "routed_around_degraded_link": bool(routed_around),
+        "zone_c_p99_ratio": (round(pf / pc, 3)
+                             if pc and pf is not None else None),
+        "p99_post_restore_ratio": (
+            round(p99_faulted / p99_base, 3)
+            if p99_base and p99_faulted is not None else None),
+        "dcn_degrades": faulted["globe_counters"].get(
+            "dcn_degrades", 0),
+        "replay_identical": bool(identical),
+        "ok": bool(base["ok"] and faulted["ok"]
+                   and len(window) >= 5
+                   and routed_around and contained and recovered
+                   and faulted["globe_counters"].get(
+                       "dcn_degrades", 0) == 1
+                   and tokens(faulted) == tokens(base)
+                   and identical),
+    }
+
+
+@_scenario("train-globe-spot",
+           "an elastic training gang grows onto the globe planner's "
+           "idle spot budget; a zone loss checkpoints and evicts it "
+           "(zero steps lost), the displaced serving herd pressures "
+           "the surviving zone so the planner reclaims the training "
+           "rung — the gang shrinks (never aborts) after its zone "
+           "returns, finishes with a clean ledger, and the whole "
+           "report replays byte-identically",
+           device=False)
+def _scenario_train_globe_spot(seed: int) -> dict:
+    from kind_tpu_sim_torch import globe
+
+    plan = ChaosSchedule(seed).plan(kinds=("zone_loss",),
+                                    n_faults=1, horizon=6, targets=2)
+    tc = fleet.TrainingConfig(gangs=(
+        fleet.TrainingGangConfig(name="llm0", total_steps=160,
+                                 checkpoint_every=10, elastic=True,
+                                 max_topology="4x8"),))
+    cfg = globe.GlobeConfig(
+        zones=("zone-a", "zone-b"), cells_per_zone=1,
+        replicas_per_cell=1, autoscale=True,
+        # 3 domains per cell: serving + the base gang still leave a
+        # whole domain free, so the spot-granted growth is feasible
+        cell_pods=(("tpu-v5-lite-podslice", "4x8"),
+                   ("tpu-v5-lite-podslice", "4x8"),
+                   ("tpu-v5-lite-podslice", "4x8")),
+        planner=globe.PlannerConfig(spot_budget=2,
+                                    eval_every_s=0.25),
+        training=tc, training_cells=("zone-a/c0",),
+        workload=globe.GlobeWorkloadSpec(process="poisson",
+                                         rps=25.0, n_per_zone=150))
+    traces = globe.generate_globe_traces(cfg, seed)
+    span = max(r.arrival_s for reqs in traces.values()
+               for r in reqs)
+    lost_zone = "zone-a"  # the training zone is the one that dies
+    at = round(span * (0.35 + 0.05 * (plan.events[0].at % 3)), 6)
+    restore = round(max(2.0 * span / 3.0, at + 0.2 * span), 6)
+    events = [
+        globe.GlobeChaosEvent(at_s=at, action="zone_loss",
+                              target=lost_zone),
+        globe.GlobeChaosEvent(at_s=restore, action="zone_restore",
+                              target=lost_zone),
+    ]
+    rep = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                         chaos_events=events).run()
+    replay = globe.GlobeSim(cfg, traces=traces, seed=seed,
+                            chaos_events=events).run()
+    g = rep["cells"]["zone-a/c0"]["training"]["gangs"]["llm0"]
+    planner = rep["planner"]
+    grants = sum(1 for e in planner["events"]
+                 if e["action"] == "train_grant")
+    reclaims = sum(1 for e in planner["events"]
+                   if e["action"] == "train_reclaim")
+    identical = (json.dumps(rep, sort_keys=True)
+                 == json.dumps(replay, sort_keys=True))
+    return {
+        "plan": plan.as_dict(),
+        "requests": rep["requests"],
+        "loss_at_s": at,
+        "restore_at_s": restore,
+        "train_grants": grants,
+        "train_reclaims": reclaims,
+        "grows": g["grows"],
+        "shrinks": g["shrinks"],
+        "evictions": g["evictions"],
+        "final_topology": g["topology"],
+        "lost_steps": g["lost_steps"],
+        "ledger_ok": g["ledger_verify"]["ok"],
+        "gang_done": g["state"] == "done",
+        "replay_identical": bool(identical),
+        "ok": bool(rep["ok"] and g["state"] == "done"
+                   and g["ledger_verify"]["ok"]
+                   and g["lost_steps"] == 0
+                   and g["grows"] >= 1
+                   and grants >= 1
+                   and g["evictions"] >= 1
                    and identical),
     }
 

@@ -26,6 +26,12 @@
         [--json]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch globe run|trace [--seed N] [--zones N]
+        [--cells-per-zone N] [--replicas N] [--policy P] [--rps R]
+        [--requests N] [--process P] [--diurnal-period-s S] [--no-sched]
+        [--autoscale] [--spot-budget N] [--spill-headroom F] [--overload]
+        [--tenancy] [--tick-s S] [--no-event-core] [--max-virtual-s S]
+        [--trace-file F] [--save-trace F] [--out F] [--json]
     python -m kind_tpu_sim_torch sched run|trace [--seed N] [--policy P]
         [--gangs N] [--pods A:T,...] [--no-preemption] [--no-defrag]
         [--manifest FILE] [--events] [--out F] [--json]
@@ -110,13 +116,28 @@ takes it; another name raises the reference's "unknown generation".
 (``run_chaos_engine``) for the ported scenarios (``chaos.py``): the
 three that drive device work, ``preempt-train``,
 ``serving-slot-failure`` and ``fleet-preemption`` (slow, on
-``--device``), and fifteen analytic ones (``disagg-pool-loss``,
-``zoo-swap-storm`` and the thirteen virtual-clock scenarios of the
-fleet's control layers, the scheduler and the training tenancy). Without
+``--device``), and twenty-two that do no device work: fifteen
+analytic ones (``disagg-pool-loss``, ``zoo-swap-storm`` and the thirteen
+virtual-clock scenarios of the fleet's control layers, the scheduler and
+the training tenancy), the four globe scenarios (``globe-zone-loss``,
+``globe-herd-failover``, ``globe-dcn-degrade``, ``train-globe-spot``)
+and the three cold worker grids (``worker-crash-grid``,
+``worker-hang-grid``, ``gray-straggler-grid``), which run subprocess
+workers on the wall clock. Without
 ``--scenario`` it lists them; ``all`` runs the fast ones, and the slow
 ones too with ``--include-slow``. It prints ``CHAOS RUN OK`` or ``CHAOS
 RUN FAILED`` and exits 0 or 1: on the H100's calibration
 ``zoo-swap-storm`` fails its p99 bound at seed 0, so ``all`` exits 1.
+
+``globe run | trace`` is the counterpart of ``python -m kind_tpu_sim
+globe`` (``run_globe``): zones of analytic cells (each a ``FleetSim``,
+scheduler-backed unless ``--no-sched``) behind the global front door on
+one virtual clock, with ``--autoscale``, ``--spot-budget`` (the global
+planner), ``--overload`` and ``--tenancy``; ``trace`` prints or saves
+(``--save-trace``) the per-zone traces, and ``--trace-file`` replays one.
+Its output is the reference's. ``globe tune`` and more than one shard
+(``--shards``, ``KIND_TPU_SIM_GLOBE_SHARDS``) are refused, naming the
+queue item that brings them.
 
 ``sched run | trace``, ``train run | plan`` and ``health knobs | demo``
 are the reference's commands (``run_sched``, ``run_train``,
@@ -366,6 +387,107 @@ def build_parser() -> argparse.ArgumentParser:
                          "each replica priced from its generation's "
                          "calibration (registered: h100); under --sched the "
                          "one generation is the gangs' accelerator label's")
+
+    gl = sub.add_parser(
+        "globe",
+        help=(
+            "multi-cell / multi-zone fleet-of-fleets simulator: "
+            "per-zone seeded demand (follow-the-sun diurnal phase "
+            "offsets) through a global anycast-style front door "
+            "over N cells (each a full fleet sim, optionally "
+            "scheduler-backed), with bounded cross-cell spill and "
+            "a global spot-capacity planner — same seed, "
+            "byte-identical report (docs/GLOBE.md)"
+        ),
+    )
+    gl.add_argument("action", choices=["run", "trace", "tune"])
+    gl.add_argument(
+        "--seed", type=int, default=None,
+        help="workload seed (default: KIND_TPU_SIM_GLOBE_SEED or 0)")
+    gl.add_argument(
+        "--zones", type=int, default=3,
+        help="zones (correlated failure domains), named zone-a..")
+    gl.add_argument("--cells-per-zone", type=int, default=1)
+    gl.add_argument("--replicas", type=int, default=2,
+                    help="replicas per cell")
+    gl.add_argument(
+        "--policy", default="least-outstanding",
+        choices=["round-robin", "least-outstanding",
+                 "prefix-affinity"],
+        help="per-cell router policy")
+    gl.add_argument(
+        "--rps", type=float, default=40.0,
+        help="mean arrival rate per zone (requests/virtual s)")
+    gl.add_argument("--requests", type=int, default=200,
+                    help="requests per zone")
+    gl.add_argument(
+        "--process", default="poisson",
+        choices=["poisson", "bursty", "diurnal"],
+        help="per-zone arrival process; diurnal zones peak "
+             "follow-the-sun (staggered phase offsets)")
+    gl.add_argument(
+        "--diurnal-period-s", type=float, default=20.0,
+        help="one compressed day (diurnal process)")
+    gl.add_argument(
+        "--no-sched", action="store_true",
+        help="plain fleets instead of scheduler-backed cells")
+    gl.add_argument(
+        "--autoscale", action="store_true",
+        help="per-cell autoscalers (--replicas becomes each "
+             "cell's reserved floor)")
+    gl.add_argument(
+        "--spot-budget", type=int, default=None,
+        help="enable the global capacity planner with this many "
+             "spot replicas shared across all cells "
+             "(implies --autoscale)")
+    gl.add_argument(
+        "--spill-headroom", type=float, default=0.5,
+        help="extra load fraction a cell accepts from cross-cell "
+             "spill before the front door refuses (the herd bound)")
+    gl.add_argument(
+        "--overload", action="store_true",
+        help="enable overload containment (docs/OVERLOAD.md): "
+             "per-origin client retry budgets and cross-cell "
+             "hedging at the front door, per-cell circuit "
+             "breakers, breaker+brownout inside every cell; knobs "
+             "KIND_TPU_SIM_OVERLOAD_*")
+    gl.add_argument(
+        "--tenancy", action="store_true",
+        help="enable serving multi-tenancy (docs/TENANCY.md): "
+             "per-zone heavy-tailed tenant traffic, quotas charged "
+             "once at the global front door, weighted-fair queuing "
+             "+ KV budgets inside every cell, per-(origin, tenant) "
+             "retry/hedge budgets under --overload; report gains a "
+             "'tenancy' section")
+    gl.add_argument(
+        "--tick-s", type=float, default=None,
+        help="virtual scheduling quantum "
+             "(default: KIND_TPU_SIM_FLEET_TICK_S or 0.01)")
+    gl.add_argument(
+        "--no-event-core", action="store_true",
+        help="force the lockstep per-tick loop instead of the "
+             "event-heap core (byte-identical, just slower; "
+             "default: KIND_TPU_SIM_FLEET_EVENT_CORE or on)")
+    gl.add_argument(
+        "--max-virtual-s", type=float, default=600.0,
+        help="virtual-time runaway backstop")
+    gl.add_argument(
+        "--shards", type=int, default=None,
+        help="partition the cells across this many worker "
+             "processes (default: KIND_TPU_SIM_GLOBE_SHARDS or 0 = "
+             "single-process); the port runs one process and refuses "
+             "more than 1")
+    gl.add_argument(
+        "--trace-file", default=None,
+        help="replay this JSONL globe trace instead of generating")
+    gl.add_argument(
+        "--save-trace", default=None,
+        help="also write the generated per-zone traces to this "
+             "JSONL file (origin zone rides on each line)")
+    gl.add_argument(
+        "--out", default=None,
+        help="write the full JSON report to this file")
+    gl.add_argument("--json", action="store_true", dest="as_json")
 
     sd = sub.add_parser(
         "sched",
@@ -1347,6 +1469,125 @@ def run_sched(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def run_globe(args: argparse.Namespace) -> int:
+    """``globe run`` / ``globe trace``: the fleet-of-fleets simulator.
+    Per-zone seeded traffic through the global front door over cells
+    stepped in lockstep on one virtual clock; the JSON report (sorted
+    keys) is the same for two runs of one seed and config. ``globe
+    tune`` and more than one shard are refused."""
+    from kind_tpu_sim_torch import globe
+    from kind_tpu_sim_torch.fleet import knobs
+    from kind_tpu_sim_torch.fleet.tenancy import default_tenancy
+
+    if args.action == "tune":
+        raise SystemExit(
+            "globe tune belongs to the simulator's tuner (tune/, ROADMAP "
+            "Queue A item 5), which the port does not carry yet (python -m "
+            "kind_tpu_sim globe tune)")
+    shards = (args.shards if args.shards is not None
+              else knobs.get(knobs.GLOBE_SHARDS))
+    if shards > 1:
+        raise SystemExit(
+            f"globe run over {shards} shards needs the sharded globe driver "
+            "(globe/shard.py, ROADMAP Queue A's next item, with item 3), "
+            "which the port does not carry yet: drop --shards and "
+            "KIND_TPU_SIM_GLOBE_SHARDS for the single-process run")
+    seed = globe.resolve_seed(args.seed)
+    if args.zones < 1 or args.zones > 26:
+        raise SystemExit("--zones must be in [1, 26]")
+    zones = tuple(f"zone-{chr(ord('a') + i)}"
+                  for i in range(args.zones))
+    planner = (globe.PlannerConfig(spot_budget=args.spot_budget)
+               if args.spot_budget is not None else None)
+    cfg = globe.GlobeConfig(
+        zones=zones,
+        cells_per_zone=args.cells_per_zone,
+        replicas_per_cell=args.replicas,
+        policy=args.policy,
+        tick_s=args.tick_s,
+        max_virtual_s=args.max_virtual_s,
+        sched=not args.no_sched,
+        autoscale=bool(args.autoscale
+                       or args.spot_budget is not None),
+        frontdoor=globe.FrontDoorConfig(
+            spill_headroom=args.spill_headroom),
+        planner=planner,
+        overload=(globe.OverloadConfig()
+                  if args.overload else None),
+        tenancy=(default_tenancy()
+                 if args.tenancy else None),
+        workload=globe.GlobeWorkloadSpec(
+            process=args.process, rps=args.rps,
+            n_per_zone=args.requests,
+            diurnal_period_s=args.diurnal_period_s),
+        event_core=(False if args.no_event_core else None))
+    if args.trace_file:
+        traces = globe.load_globe_trace(args.trace_file)
+    else:
+        traces = globe.generate_globe_traces(cfg, seed)
+    if args.save_trace:
+        globe.save_globe_trace(args.save_trace, traces)
+    if args.action == "trace":
+        if not args.save_trace:
+            for zone in sorted(traces):
+                for req in traces[zone]:
+                    d = req.as_dict()
+                    d["origin"] = zone
+                    print(json.dumps(d, sort_keys=True))
+        else:
+            n = sum(len(t) for t in traces.values())
+            print(f"wrote {n} requests ({len(traces)} zones) to "
+                  f"{args.save_trace}")
+        return 0
+
+    report = globe.GlobeSim(cfg, traces=traces, seed=seed).run()
+    text = json.dumps(report, sort_keys=True)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
+    if args.as_json:
+        print(text)
+    else:
+        slo = report["global_slo"]
+        print(f"globe: {report['requests']} requests over "
+              f"{len(cfg.zones)} zone(s) x "
+              f"{cfg.cells_per_zone} cell(s), seed {seed}")
+        print(f"  global attainment {slo['attainment']}  "
+              f"goodput {slo.get('goodput_tok_s')} tok/s  "
+              f"shed {slo['shed']}")
+        fd = report["frontdoor"]
+        print(f"  front door: routed {fd['routed']}  "
+              f"spilled {fd['spilled']}  "
+              f"affinity hits {fd['affinity_hits']}  "
+              f"served-in-origin-zone "
+              f"{report['served_in_origin_zone']}")
+        for zone in cfg.zones:
+            z = report["zones"][zone]
+            ttft = z["slo"]["ttft"]
+            print(f"  {zone}: {z['requests']} req  "
+                  f"spilled-out {z['spilled_out']}  "
+                  f"attainment {z['slo']['attainment']}  "
+                  f"ttft p99 {ttft.get('p99_s')} s")
+        if "tenancy" in report:
+            ten = report["tenancy"]
+            sheds = sum(t["quota_shed"] + t["token_shed"]
+                        for t in ten["tenants"].values())
+            print(f"  tenancy: {len(ten['tenants'])} tenant(s)  "
+                  f"isolation {ten['isolation']}  "
+                  f"front-door quota/token sheds {sheds}")
+        if "planner" in report:
+            p = report["planner"]
+            print(f"  planner: spot budget {p['spot_budget']} "
+                  f"(left {p['budget_left']})  grants "
+                  f"{sum(1 for e in p['events'] if e['action'] == 'grant')}  "
+                  f"reclaims "
+                  f"{sum(1 for e in p['events'] if e['action'] == 'reclaim')}")
+        if args.out:
+            print(f"  report -> {args.out}")
+        print("GLOBE RUN " + ("OK" if report["ok"] else "FAILED"))
+    return 0 if report["ok"] else 1
+
+
 def run_health(args: argparse.Namespace) -> int:
     """`health knobs` / `health demo`: the gray-failure detector
     surface (docs/HEALTH.md). knobs prints the resolved
@@ -1391,6 +1632,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return run_fleet(args)
     if args.command == "chaos":
         return run_chaos(args)
+    if args.command == "globe":
+        return run_globe(args)
     if args.command == "sched":
         return run_sched(args)
     if args.command == "train":

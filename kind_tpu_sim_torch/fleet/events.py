@@ -131,3 +131,13 @@ class DueSet:
         if t is not None and t < self.cover:
             self.cover = t
         return self
+
+    def merge(self, other: "DueSet") -> "DueSet":
+        """Fold another answer in (a globe cell's, into the globe's)."""
+        if other.immediate:
+            self.immediate = True
+        if other.ge < self.ge:
+            self.ge = other.ge
+        if other.cover < self.cover:
+            self.cover = other.cover
+        return self

@@ -1,5 +1,6 @@
 """The environment knobs the fleet, scheduler, training, chaos, cost
-model, model-zoo, overload, tenancy and health layers read.
+model, model-zoo, overload, tenancy, health, worker-pool and globe layers
+read.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
@@ -15,6 +16,10 @@ from typing import Dict, Tuple
 
 FLEET_SEED = "KIND_TPU_SIM_FLEET_SEED"
 CHAOS_SEED = "KIND_TPU_SIM_CHAOS_SEED"
+CHAOS_FAULT = "KIND_TPU_SIM_CHAOS_FAULT"
+POOL_WARM = "KIND_TPU_SIM_POOL_WARM"
+GLOBE_SEED = "KIND_TPU_SIM_GLOBE_SEED"
+GLOBE_SHARDS = "KIND_TPU_SIM_GLOBE_SHARDS"
 FLEET_TICK_S = "KIND_TPU_SIM_FLEET_TICK_S"
 FLEET_FF = "KIND_TPU_SIM_FLEET_FF"
 FLEET_WARMUP_S = "KIND_TPU_SIM_FLEET_WARMUP_S"
@@ -59,6 +64,15 @@ FALSE_VALUES = ("", "0", "false", "no")
 KNOBS: Dict[str, Tuple[object, str]] = {
     FLEET_SEED: (0, "int"),
     CHAOS_SEED: (0, "int"),
+    # a worker's injected fault: crash@N, hang@N:S, slow@N:S, flaky@K:S
+    # (``utils/worker_pool.py`` reads it, and this variable's name, on
+    # its own: a cold worker imports nothing of the fleet)
+    CHAOS_FAULT: (None, "str"),
+    POOL_WARM: (False, "bool"),
+    GLOBE_SEED: (0, "int"),
+    # read only to refuse more than one shard: the port has no sharded
+    # globe driver yet
+    GLOBE_SHARDS: (0, "int"),
     FLEET_TICK_S: (0.01, "float"),
     FLEET_FF: (True, "bool"),
     FLEET_WARMUP_S: (0.55, "float"),

@@ -207,6 +207,20 @@ class SimReplica:
                 return True
         return False
 
+    def warm_prefix(self, group: int) -> None:
+        """Pre-warm one prefix-cache group (the globe's cross-cell
+        failover warm-up): the group enters the LRU as if just seen,
+        without counting a hit or a miss, so the cohort's next request
+        prefills its suffix alone."""
+        if self.cfg.prefix_cache_entries <= 0 or group < 0:
+            return
+        self._prefix_seen.pop(group, None)
+        self._prefix_seen[group] = True
+        while len(self._prefix_seen) > self.cfg.prefix_cache_entries:
+            evicted = next(iter(self._prefix_seen))
+            self._prefix_seen.pop(evicted)
+            self._prefix_owner.pop(evicted, None)
+
     # -- the model zoo -------------------------------------------------
 
     def can_serve(self, model: str) -> bool:

@@ -485,6 +485,10 @@ class FleetSim:
         self._kv_heap = EventHeap()
         self._kv_factor = 1.0
         self._prefill_done_ids: set = set()
+        # ids whose KV transfer a globe cell cancelled while it was on the
+        # wire: the heap has no removal, so the transfer is dropped when
+        # it is delivered
+        self._kv_cancelled: set = set()
         self._kv_handoffs = 0
         self._kv_bytes_total = 0
         self._kv_transfer_s_total = 0.0
@@ -492,6 +496,9 @@ class FleetSim:
         self._recent_ttft = deque(maxlen=64)
         self._recent_itl = deque(maxlen=64)
         self.log: List[dict] = []
+        # a globe cell's hook: called with (log entry, ReplicaCompletion)
+        # for every completion as it is recorded
+        self.on_complete: Optional[Callable] = None
         # recent attained flags: the autoscaler's SLO signal
         self._recent = deque(maxlen=64)
         self._next_replica_id = cfg.replicas
@@ -1053,6 +1060,24 @@ class FleetSim:
         self._retry_heap.push(at, LANE_ARRIVAL, dataclasses.replace(
             req, request_id=f"{base}~r{attempt}", arrival_s=at))
 
+    def displace_disagg(self) -> List[TraceRequest]:
+        """The whole KV lane, queued handoffs and transfers on the wire,
+        back to base requests (each prefills again): a failed globe cell
+        loses no work. A transfer cancelled on the wire stays dropped:
+        the hedge's winner owns its request."""
+        out: List[TraceRequest] = []
+        for h in self._kv_heap.pop_due(float("inf")):
+            rid = h.request.request_id
+            if rid in self._kv_cancelled:
+                self._kv_cancelled.discard(rid)
+                continue
+            out.append(h.request)
+        out.extend(h.request for h in self.router.kv_queue)
+        self.router.kv_queue = []
+        for r in out:
+            self._prefill_done_ids.discard(r.request_id)
+        return out
+
     def _requeue_front(self, displaced: List) -> None:
         """Displaced requests back to the router's queue head. An audit
         copy dies with its replica: its audit concludes on the results
@@ -1454,6 +1479,8 @@ class FleetSim:
                 ov.observe_service(comp.finish_s - comp.dispatch_s,
                                    self._tenant_key(req))
             self._maybe_retry(comp, self._now)
+        if self.on_complete is not None:
+            self.on_complete(self.log[-1], comp)
 
     def _backlog(self) -> int:
         if self._cols is not None:
@@ -1654,6 +1681,9 @@ class FleetSim:
         # KV transfers delivered by this boundary join the decode lane,
         # placed in this same pass
         for handoff in self._kv_heap.pop_due(now):
+            if handoff.request.request_id in self._kv_cancelled:
+                self._kv_cancelled.discard(handoff.request.request_id)
+                continue
             metrics.disagg_board().incr("kv_handoffs_delivered")
             self.router.offer_handoff(handoff)
         # finished weight loads enter the swap ledger (bookkeeping: the

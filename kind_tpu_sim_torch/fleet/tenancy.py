@@ -146,6 +146,14 @@ class TenancyConfig:
              t.think_time_s)
             for t in self.tenants)
 
+    def without_quotas(self) -> "TenancyConfig":
+        """The cell tier's copy in a globe: quotas are charged once, at
+        the front door, while weighted-fair queuing and the KV budgets
+        stay with the cells' routers."""
+        return dataclasses.replace(self, tenants=tuple(
+            dataclasses.replace(t, quota_rps=0.0, token_quota_per_s=0.0)
+            for t in self.tenants))
+
     def as_dict(self) -> dict:
         return {
             "tenants": [t.as_dict() for t in self.tenants],

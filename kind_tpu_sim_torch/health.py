@@ -2,7 +2,9 @@
 
 The port's copy of ``kind_tpu_sim/health.py``'s detector, which the
 engine fleet (``fleet/sim.py``) feeds with each replica's time per
-output token on the virtual clock. A gray failure is a replica that
+output token on the virtual clock, and the cold worker grid
+(``utils/worker_pool.run_cells``) with each grid cell's service time on
+the wall clock. A gray failure is a replica that
 stays alive but slow; nothing crashes, so only its latency shows it.
 
 A sample's suspicion is phi = -log10 P(X >= x) under a normal model of
@@ -53,9 +55,10 @@ class DetectorConfig:
     ``quarantine_evals`` consecutive suspicious samples escalate suspect
     to quarantined; ``probe_ok_required`` clean probes lift a
     quarantine; the sigma floor is ``max(sigma_floor_frac * mean,
-    sigma_floor_abs)``. ``probe_timeout_s`` and ``spec_age_ratio``
-    belong to the reference's worker-grid consumer and are kept so the
-    config is the reference's."""
+    sigma_floor_abs)``. ``probe_timeout_s`` bounds the worker grid's
+    ping before a worker may pull cells, and ``spec_age_ratio`` x the
+    expected service time is the age past which a tail cell earns a
+    speculative copy (``utils/worker_pool.run_cells``)."""
 
     ewma_alpha: float = 0.25
     suspect_phi: float = 2.0
@@ -160,6 +163,14 @@ class FailureDetector:
         if sf <= 1e-300:
             return PHI_CAP
         return min(PHI_CAP, -math.log10(sf))
+
+    def expected_s(self) -> Optional[float]:
+        """The baseline's expected service time (None before
+        ``min_samples``): the anchor of the speculative re-dispatch's
+        age threshold."""
+        if self._global.count < self.cfg.min_samples:
+            return None
+        return self._global.mean
 
     def relative_latency(self, component: str) -> float:
         """The component's EWMA service time over the global baseline,

@@ -4,8 +4,8 @@ The port's own copies of the JAX package's ``RecoveryLog`` /
 ``recovery_log()`` and ``CounterBoard`` with the boards the engine
 fleet counts on: ``fleet_board()``, ``health_board()``,
 ``tenant_board()``, ``integrity_board()``, ``sched_board()``,
-``train_board()`` and ``disagg_board()``
-(``kind_tpu_sim/metrics.py``). The serving engines record
+``train_board()``, ``disagg_board()``, ``zoo_board()`` and
+``globe_board()`` (``kind_tpu_sim/metrics.py``). The serving engines record
 ``request_shed`` (``max_queue`` shedding), ``slot_failure`` and
 ``slot_requeue`` (``inject_slot_failure``) in the log, the training loop
 ``preemption_checkpoint``, and the fleet its preemptions, restores and
@@ -18,8 +18,14 @@ its audits, copies and mismatches on the integrity board, the cluster
 scheduler its bindings, preemptions, evictions and node and link events
 on the scheduler board, and the training tenant its gangs, preemptions,
 migrations and resizes on the training board, the disaggregated pools
-their prefills, KV handoffs and pool events on the disagg board; a fleet
-report carries the counts of its own run (``snapshot_since``).
+their prefills, KV handoffs and pool events on the disagg board, and the
+globe its front door's, chaos's and planner's events on the globe board;
+a fleet or globe report carries the counts of its own run
+(``snapshot_since``). The cold worker grids (``utils/worker_pool.py``)
+record their injected faults (``fault_injected``), requeues
+(``cell_requeued``), respawns (``cell_worker_respawn``,
+``grid_worker_respawn``) and speculative copies (``cell_speculated``) in
+the log and count ``speculative_redispatch`` on the health board.
 """
 
 from __future__ import annotations
@@ -116,6 +122,17 @@ def health_board() -> CounterBoard:
     """The process-global gray-failure board (the failure detector and
     the fleet's probes, quarantines and false positives)."""
     return _HEALTH_BOARD
+
+
+_GLOBE_BOARD = CounterBoard()
+
+
+def globe_board() -> CounterBoard:
+    """The process-global globe board (the front door's admissions,
+    spills, queueing and sheds, zone losses and restores, DCN degrades,
+    cell drains, herd re-admissions, the planner's grants and
+    reclaims)."""
+    return _GLOBE_BOARD
 
 
 _TENANT_BOARD = CounterBoard()

@@ -51,7 +51,11 @@ _NAMING = {
 ACCELERATORS = tuple(_HOST_BOUNDS)
 DEFAULT_ACCELERATOR = "tpu-v5-lite-podslice"
 DEFAULT_TOPOLOGY = "4x4"
-DEFAULT_COORDINATOR_PORT = 8476
+# the slice contract's rendezvous port (defined beside the multi-host
+# identity, as in the reference)
+from kind_tpu_sim_torch.parallel.multihost import (  # noqa: E402
+    DEFAULT_COORDINATOR_PORT,
+)
 
 
 def _fmt(dims) -> str:

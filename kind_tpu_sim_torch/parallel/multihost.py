@@ -24,6 +24,16 @@ fresh ports, a job that failed is not.
 
 The caller names the device and the backend (``gloo`` by default, as
 the reference's workers use gloo; NCCL takes one rank a card).
+
+:func:`grid_cell_probe` and :func:`scatter_grid_cells` fan independent
+grid cells out over cold workers (``utils/worker_pool.run_cells``), the
+simulator's worker-grid chaos scenarios' work unit. A cold worker that
+runs ``grid_cell_probe`` imports this module, so the module imports no
+torch: the functions that need torch import it themselves. A cold worker
+reaches its hello and its first cell in a fraction of a second instead
+of paying torch's import (seconds), which would pass a grid's deadlines
+(``worker-hang-grid``'s 3 s a cell, the straggler grid's 0.8 s probe)
+and skew the detector's service-time baseline.
 """
 
 from __future__ import annotations
@@ -40,16 +50,12 @@ import time
 from pathlib import Path
 from typing import List, Optional, Tuple
 
-import torch
-import torch.distributed as dist
-
-from kind_tpu_sim_torch.parallel.mesh import DEFAULT_COORDINATOR_PORT
-
 log = logging.getLogger("kind-tpu-sim-torch")
 
 _PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 _BIND_ERRORS = ("address already in use", "failed to bind",
                 "eaddrinuse", "bind failed")
+DEFAULT_COORDINATOR_PORT = 8476
 
 
 @dataclasses.dataclass
@@ -120,6 +126,8 @@ def initialize_from_env(environ=None, local_rank: int = 0,
     identity, so the same program runs on one host or a slice."""
     import datetime
 
+    import torch.distributed as dist
+
     identity = identity_from_env(environ)
     world = rendezvous(identity, _chips_from_env(environ))
     if world is None:
@@ -134,7 +142,7 @@ def initialize_from_env(environ=None, local_rank: int = 0,
     return identity
 
 
-def _device() -> torch.device:
+def _device() -> "torch.device":  # noqa: F821
     from kind_tpu_sim_torch.parallel import launch
 
     return launch.rank_device()
@@ -143,6 +151,8 @@ def _device() -> torch.device:
 def global_device_report(environ=None) -> dict:
     """What a worker reports of its place: the reference's keys (a
     device is a rank)."""
+    import torch.distributed as dist
+
     identity = identity_from_env(environ)
     return {
         "process_index": 0 if identity is None else identity.worker_id,
@@ -158,6 +168,9 @@ def slice_smoke(environ=None) -> dict:
     of host i gives i + 1 (it must cross the hosts), and a rotation of
     those values over 'host' (point to point between hosts). Returns
     this rank's host's report (every chip of it the same)."""
+    import torch
+    import torch.distributed as dist
+
     from kind_tpu_sim_torch.parallel import tp
     from kind_tpu_sim_torch.parallel.mesh import Mesh
 
@@ -193,6 +206,9 @@ def ring_long_context_smoke(total_tokens: int = 32768,
     called on every rank. Checked analytically: with k = 0 every causal
     softmax is uniform, so for v[s] = s the output at position i is
     mean(0..i) = i / 2 exactly."""
+    import torch
+    import torch.distributed as dist
+
     from kind_tpu_sim_torch.parallel import tp
     from kind_tpu_sim_torch.parallel.mesh import Mesh
     from kind_tpu_sim_torch.parallel.ring_attention import ring_attention
@@ -485,6 +501,60 @@ def launch_local_multislice(num_slices: int = 2, topology: str = "2x4",
                     f"bad MEGASCALE_NUM_SLICES in slice {sid}: "
                     f"{rep.get('megascale_num_slices')!r}")
     return per_slice
+
+
+def grid_cell_probe(cell: int = 0, payload: int = 0,
+                    spin: int = 0, sleep_s: float = 0.0) -> dict:
+    """One deterministic grid cell, a pure function of (cell, payload):
+    the work unit ``scatter_grid_cells``' recovery contract is held
+    against (a faulted run returns exactly the fault-free results).
+    ``spin`` burns a little CPU to widen a crash window without sleeping;
+    ``sleep_s`` gives the cell a known service time for the gray-failure
+    scenarios' makespans (it does not change the value)."""
+    value = (cell * 2654435761 + payload * 97 + 12345) % (2 ** 32)
+    for _ in range(max(0, spin)):
+        value = (value * 6364136223846793005 + 1442695040888963407) \
+            % (2 ** 64)
+    if sleep_s > 0:
+        time.sleep(sleep_s)
+    return {"cell": cell, "payload": payload, "value": value}
+
+
+def scatter_grid_cells(cells: List[dict],
+                       target: str = (
+                           "kind_tpu_sim_torch.parallel.multihost:"
+                           "grid_cell_probe"),
+                       workers: int = 2,
+                       timeout: float = 120.0,
+                       cell_timeout: Optional[float] = None,
+                       chips: int = 1,
+                       fault: Optional[tuple] = None,
+                       max_respawns: int = 1,
+                       detect: bool = False,
+                       health_cfg=None):
+    """Independent grid cells over ``workers`` cold simulated-slice
+    workers with dead-worker recovery (``worker_pool.run_cells`` carries
+    the scheduling; this adds the simulated host's environment and each
+    worker's index as ``TPU_SIM_GRID_WORKER``).
+
+    ``fault`` = ("crash" | "hang", cell_index[, seconds]) kills or wedges
+    whichever worker draws that cell, once; ("straggler" | "flaky",
+    worker_index, stall_s) makes that worker answer correctly but
+    slowly. ``detect=True`` turns on probes, straggler quarantine and
+    speculative tail re-dispatch (thresholds from ``health_cfg``).
+    Returns (results, stats); results are cell-indexed and equal to a
+    fault-free run's."""
+    from kind_tpu_sim_torch.utils import worker_pool
+
+    envs = []
+    for w in range(workers):
+        env = dict(worker_pool.simulated_slice_env(chips))
+        env["TPU_SIM_GRID_WORKER"] = str(w)
+        envs.append(env)
+    return worker_pool.run_cells(
+        envs, target, cells, timeout=timeout, cell_timeout=cell_timeout,
+        max_respawns=max_respawns, fault=fault, detect=detect,
+        health_cfg=health_cfg)
 
 
 if __name__ == "__main__":

@@ -1,18 +1,18 @@
-"""Persistent worker with a live ``torch.distributed`` world: the port's
-counterpart of ``kind_tpu_sim/utils/worker_pool.py``, as far as the
-``torch-smoke`` command needs it.
+"""Persistent workers over a length-prefixed JSON protocol: the port's
+counterpart of ``kind_tpu_sim/utils/worker_pool.py``.
 
 The reference keeps long-lived JAX workers so that ``import jax``, the
 backend's start and XLA's compiles are paid once per session, and
 submits jobs to them over a length-prefixed JSON protocol on each
-worker's stdin and stdout. Here a worker pays ``import torch`` and the
-bring-up of a world of ``world`` ranks once; every later job runs in
+worker's stdin and stdout. Here a warm worker pays ``import torch`` and
+the bring-up of a world of ``world`` ranks once; every later job runs in
 that same live world, on the same processes and process groups.
 
 Protocol (both directions, the reference's): a 4-byte big-endian
 length, then a UTF-8 JSON object. The worker's first frame is a hello
-with its pid, the seconds its warm-up took (``warm_s``) and what it
-brought up; every later frame answers one request, in order::
+with its pid (a warm worker adds the seconds its warm-up took,
+``warm_s``, and what it brought up); every later frame answers one
+request, in order::
 
     request:  {"id": 3, "job": "collectives_suite", "kwargs": {...}}
     response: {"id": 3, "ok": true, "result": {...}, "elapsed_s": 0.04}
@@ -21,35 +21,53 @@ The worker writes frames to its original stdout and points file
 descriptor 1 at stderr first, so a stray print cannot corrupt the
 framing.
 
-The world: the worker process is rank 0, and it starts ``world - 1``
-rank processes (the ``spawn`` start method) that join it over a
-``file://`` store and then wait for jobs on a queue of their own.
-A job of ``RANK_JOBS`` (``collectives_suite``) is handed to every rank
-and run by all of them together; ``ping`` runs in the worker alone. A
-mesh is made once per topology and kept, so a resubmission starts no
-process and no process group. The worker brings its world up before its
-hello (the reference's warm start; its cold start serves the simulator's
-grids, which the port does not carry); if the world fails to come up,
-the hello carries the error and every rank job fails with it.
+Two temperatures, as in the reference:
+
+* warm (``WorkerPool``; ``--world`` given, ``KIND_TPU_SIM_POOL_WARM``
+  on): the worker process is rank 0, and it starts ``world - 1`` rank
+  processes (the ``spawn`` start method) that join it over a
+  ``file://`` store and then wait for jobs on a queue of their own, all
+  before its hello. A job of ``RANK_JOBS`` (``collectives_suite``) is
+  handed to every rank and run by all of them together; the other jobs
+  run in the worker alone. A mesh is made once per topology and kept,
+  so a resubmission starts no process and no process group. If the
+  world fails to come up, the hello carries the error and every rank
+  job fails with it.
+* cold (``run_grid``, ``run_cells``): a bare protocol loop. It imports
+  the standard library and this module alone (no torch, no world, no
+  CUDA), so it reaches its hello in a fraction of a second; ``call`` /
+  ``call_batch`` import the target's module and nothing more. The
+  simulator's grids run host functions in such workers.
 
 Failure contract (the reference's): a job that raises returns ``ok:
 false`` and surfaces as ``JobError``, the worker stays up; a worker
 that dies mid-job is started again and the job retried once, and a
 second death raises ``WorkerCrash`` with the worker's stderr tail; a
 job past its deadline kills the worker and raises ``TimeoutError``
-without a retry. The rank processes end with the worker: at its
-shutdown, or when they see their parent gone.
+without a retry. A warm worker's rank processes end with it: at its
+shutdown, or when they see their parent gone. ``start_heartbeat``
+respawns a dead idle worker before its next job.
 
-Not ported, because they feed the simulator's chaos engine, which the
-port does not carry: the reference's cold grids (``run_grid``,
-``run_cells``), its heartbeat, its shared-memory transport and its
-injected faults.
+Injected faults (``KIND_TPU_SIM_CHAOS_FAULT``, read by the worker):
+``crash@N`` exits on receiving request N (1-based), ``hang@N:S`` sleeps
+S seconds before answering it, ``slow@N:S`` stalls S seconds before
+answering every request from the Nth on (a gray straggler: alive,
+correct, slow) and ``flaky@K:S`` stalls S seconds before every Kth
+request. A respawned worker's environment lacks the variable, so an
+injected fault is transient. :func:`run_grid` fans one job out per
+worker environment; :func:`run_cells` schedules grid cells over cold
+workers with requeue, respawn, probes, quarantine, speculative tail
+re-dispatch and batching.
+
+Not ported yet: the reference's shared-memory transport for bulk
+payloads (``POOL_SHM_*``), which only its sharded globe driver needs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import pathlib
 import queue
@@ -61,12 +79,23 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
+
+log = logging.getLogger("kind-tpu-sim-torch")
 
 # A frame bigger than this is protocol corruption, not data.
 MAX_FRAME_BYTES = 64 * 1024 * 1024
 
+# The two knobs this module reads itself, by name: a cold worker imports
+# nothing of the fleet package (``fleet/knobs.py`` registers both names
+# with their types and defaults). A bool reads "", "0", "false" and "no"
+# as off, as every knob does.
+WARM_ENV = "KIND_TPU_SIM_POOL_WARM"
+CHAOS_FAULT_ENV = "KIND_TPU_SIM_CHAOS_FAULT"
+
 _PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[2]
+# a cold worker's command line
+_COLD_ARGS = ("-m", "kind_tpu_sim_torch.utils.worker_pool", "--serve")
 
 
 class JobError(RuntimeError):
@@ -79,6 +108,12 @@ class JobError(RuntimeError):
 
 class WorkerCrash(RuntimeError):
     """The worker process died before answering."""
+
+
+class WorkerCancelled(RuntimeError):
+    """The caller cancelled a pending read (a grid finished through a
+    speculative copy while a straggler still held the original
+    dispatch): not a worker failure."""
 
 
 class FrameError(RuntimeError):
@@ -173,9 +208,72 @@ def _job_collectives_suite(topology: str = "2x4") -> dict:
     return report
 
 
+def _job_call(target: str, kwargs: Optional[dict] = None):
+    """``module.path:attr`` resolved and called in the worker: how a grid
+    runs its cells without a job of its own."""
+    import importlib
+
+    mod_name, _, attr_path = target.partition(":")
+    if not attr_path:
+        raise ValueError(f"target {target!r} must be 'module:attr'")
+    obj = importlib.import_module(mod_name)
+    for attr in attr_path.split("."):
+        obj = getattr(obj, attr)
+    return obj(**(kwargs or {}))
+
+
+def _job_call_batch(target: str, kwargs_list: Sequence[dict]) -> list:
+    """N calls in one round trip; each the same pure function of its
+    kwargs as a lone ``call``, so results are position-equal to N
+    single dispatches."""
+    return [_job_call(target, kw) for kw in kwargs_list]
+
+
+def _job_crash(code: int = 13) -> None:
+    """Die without answering: the crash-recovery paths' chaos hook."""
+    os._exit(code)
+
+
+def _job_hang(seconds: float = 3600.0) -> dict:
+    """Wedge without answering for ``seconds``: the deadline-kill path's
+    chaos hook (the parent must time out and kill, never wait it out)."""
+    time.sleep(seconds)
+    return {"slept_s": seconds}
+
+
 # jobs every rank of the world runs together, and jobs of the worker alone
 RANK_JOBS = {"collectives_suite": _job_collectives_suite}
-JOBS = {"ping": _job_ping, **RANK_JOBS}
+JOBS = {"ping": _job_ping, "call": _job_call, "call_batch": _job_call_batch,
+        "crash": _job_crash, "hang": _job_hang, **RANK_JOBS}
+
+
+def _run_cold(job: str, kwargs: dict):
+    """A job in a cold worker, which has no world to run a rank job on."""
+    if job in RANK_JOBS:
+        raise RuntimeError(f"{job} runs on a world of ranks; a cold worker "
+                           "has none")
+    return JOBS[job](**kwargs)
+
+
+def _knob_on(name: str) -> bool:
+    return os.environ.get(name, "").lower() not in ("", "0", "false", "no")
+
+
+def _parse_fault(spec: Optional[str]):
+    """A ``KIND_TPU_SIM_CHAOS_FAULT`` spec -> (kind, request_no, param),
+    or None. ``crash@2`` exits on receiving request 2, ``hang@1:30``
+    sleeps 30 s before answering request 1, ``slow@1:0.5`` stalls 0.5 s
+    before answering every request from the 1st on, ``flaky@3:0.5``
+    stalls 0.5 s before every 3rd request. A malformed spec is ignored:
+    a chaos knob must never break a healthy worker."""
+    if not spec or "@" not in spec:
+        return None
+    kind, _, rest = spec.partition("@")
+    at, _, param = rest.partition(":")
+    try:
+        return kind, int(at), float(param or 0.0)
+    except ValueError:
+        return None
 
 
 def _rank_loop(init_method: str, rank: int, world: int, backend: str,
@@ -318,16 +416,23 @@ class _World:
 
 def _serve(argv=None) -> int:
     """Worker main loop: hello, then answer requests until EOF or a
-    shutdown request."""
+    shutdown request. With ``--world`` (and the warm knob on, as the pool
+    sets it) the worker brings its world up before the hello; without,
+    it is cold."""
     import traceback
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve", action="store_true", required=True)
-    ap.add_argument("--world", type=int, required=True)
-    ap.add_argument("--backend", required=True, choices=("gloo", "nccl"))
-    ap.add_argument("--device", required=True)
-    ap.add_argument("--timeout", type=float, required=True)
+    ap.add_argument("--world", type=int, default=None)
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--timeout", type=float, default=None)
     args = ap.parse_args(argv)
+    warm = _knob_on(WARM_ENV) or args.world is not None
+    if warm and None in (args.world, args.backend, args.device,
+                         args.timeout):
+        ap.error("a warm worker brings up a world: give --world, "
+                 "--backend, --device and --timeout")
 
     # the protocol on the ORIGINAL stdout; fd 1 (and the rank processes,
     # which inherit it) to stderr
@@ -336,16 +441,21 @@ def _serve(argv=None) -> int:
     out = os.fdopen(proto_fd, "wb")
     inp = sys.stdin.buffer
 
-    world = _World(args.world, args.backend, args.device, args.timeout)
+    world = (_World(args.world, args.backend, args.device, args.timeout)
+             if warm else None)
+    run = world.run if world is not None else _run_cold
     hello = {"hello": True, "pid": os.getpid()}
     try:
-        t0 = time.monotonic()
-        try:
-            hello.update(world.up())
-            hello["warm_s"] = round(time.monotonic() - t0, 3)
-        except Exception as exc:  # surfaced to the parent, not fatal
-            hello["warm_error"] = f"{type(exc).__name__}: {exc}"[:500]
+        if world is not None:
+            t0 = time.monotonic()
+            try:
+                hello.update(world.up())
+                hello["warm_s"] = round(time.monotonic() - t0, 3)
+            except Exception as exc:  # surfaced to the parent, not fatal
+                hello["warm_error"] = f"{type(exc).__name__}: {exc}"[:500]
         write_frame(out, hello)
+        fault = _parse_fault(os.environ.get(CHAOS_FAULT_ENV))
+        req_no = 0
         while True:
             try:
                 req = read_frame(inp)
@@ -353,11 +463,24 @@ def _serve(argv=None) -> int:
                 return 1
             if req is None or req.get("op") == "shutdown":
                 return 0
+            req_no += 1
+            if fault is not None:
+                kind, at, param = fault
+                if req_no == at:
+                    if kind == "crash":
+                        os._exit(int(param) or 13)
+                    if kind == "hang":
+                        time.sleep(param or 3600.0)
+                if kind == "slow" and req_no >= at:
+                    # a gray straggler: alive and correct, every job from
+                    # request ``at`` on stalled
+                    time.sleep(param)
+                if kind == "flaky" and at > 0 and req_no % at == 0:
+                    time.sleep(param)
             resp = {"id": req.get("id")}
             t0 = time.monotonic()
             try:
-                resp["result"] = world.run(req["job"],
-                                           req.get("kwargs") or {})
+                resp["result"] = run(req["job"], req.get("kwargs") or {})
                 resp["ok"] = True
             except Exception as exc:
                 resp["ok"] = False
@@ -366,25 +489,58 @@ def _serve(argv=None) -> int:
             resp["elapsed_s"] = round(time.monotonic() - t0, 6)
             write_frame(out, resp)
     finally:
-        world.close()
+        if world is not None:
+            world.close()
 
 
 # ---------------------------------------------------------------------
 # parent side
 
 
-class _WorkerProc:
-    """One protocol worker process, its read buffer and its stderr log."""
+def _pool_child_env(extra_env: Optional[Dict[str, str]] = None,
+                    warm: bool = True) -> Dict[str, str]:
+    """A worker's environment: this process's, ``extra_env`` over it, the
+    package on ``PYTHONPATH`` and the warm knob set."""
+    env = dict(os.environ)
+    env.update(extra_env or {})
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(_PACKAGE_ROOT), env.get("PYTHONPATH")) if p)
+    env[WARM_ENV] = "1" if warm else "0"
+    return env
 
-    def __init__(self, cmd: List[str], env: Dict[str, str]):
+
+def simulated_slice_env(chips: int = 8) -> Dict[str, str]:
+    """The environment of a cold worker that simulates one host of a
+    slice for a grid cell: the card hidden, since a grid cell is a host
+    function. (The reference's pins JAX to its CPU backend with ``chips``
+    virtual devices; a port cell holds no device, whatever the host's
+    ``chips``.)"""
+    return {"CUDA_VISIBLE_DEVICES": ""}
+
+
+class _WorkerProc:
+    """One protocol worker process, its read buffer and its stderr log
+    (a temporary file unless ``stderr_path`` names one). ``cmd`` is the
+    worker's command line: a cold worker's unless given."""
+
+    def __init__(self, env: Dict[str, str],
+                 stderr_path: Optional[pathlib.Path] = None,
+                 cmd: Optional[List[str]] = None):
         self._buf = b""
         self.hello: Optional[dict] = None
-        fd, name = tempfile.mkstemp(prefix="kts-worker-", suffix=".err")
-        self.stderr_path = pathlib.Path(name)
-        self._stderr_file = os.fdopen(fd, "wb")
+        self.spawned_at = time.monotonic()
+        if stderr_path is None:
+            fd, name = tempfile.mkstemp(prefix="kts-worker-", suffix=".err")
+            self.stderr_path = pathlib.Path(name)
+            self._stderr_file = os.fdopen(fd, "wb")
+            self._own_stderr = True
+        else:
+            self.stderr_path = stderr_path
+            self._stderr_file = open(stderr_path, "wb")
+            self._own_stderr = False
         self.proc = subprocess.Popen(
-            cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=self._stderr_file, env=env)
+            cmd or [sys.executable, *_COLD_ARGS], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self._stderr_file, env=env)
 
     @property
     def pid(self) -> int:
@@ -401,22 +557,27 @@ class _WorkerProc:
             # ValueError: the file was closed by kill()
             return ""
 
-    def read_frame(self, deadline: float):
+    def read_frame(self, deadline: float, cancel=None):
         """One frame from the worker's stdout, or raise: WorkerCrash on
-        EOF or death, TimeoutError past ``deadline``."""
+        EOF or death, TimeoutError past ``deadline``, WorkerCancelled
+        once ``cancel`` (a threading.Event) is set."""
         fd = self.proc.stdout.fileno()
         sel = selectors.DefaultSelector()
         sel.register(self.proc.stdout, selectors.EVENT_READ)
+        poll_s = 1.0 if cancel is None else 0.05
         try:
             while True:
                 frame, self._buf = _try_parse(self._buf)
                 if frame is not None:
                     return frame
+                if cancel is not None and cancel.is_set():
+                    raise WorkerCancelled(
+                        f"read from worker {self.pid} cancelled")
                 remain = deadline - time.monotonic()
                 if remain <= 0:
                     raise TimeoutError(
                         f"worker {self.pid} gave no answer in time")
-                if not sel.select(timeout=min(remain, 1.0)):
+                if not sel.select(timeout=min(remain, poll_s)):
                     if not self.alive():
                         raise WorkerCrash(
                             f"worker {self.pid} exited "
@@ -432,25 +593,35 @@ class _WorkerProc:
         finally:
             sel.close()
 
-    def request(self, req: dict, deadline: float) -> dict:
+    def ensure_ready(self, deadline: float) -> dict:
         if self.hello is None:
             self.hello = self.read_frame(deadline)
+        return self.hello
+
+    def send(self, req: dict) -> None:
         try:
             write_frame(self.proc.stdin, req)
         except (BrokenPipeError, OSError) as exc:
             raise WorkerCrash(f"worker {self.pid} pipe closed: {exc}; "
                               f"{self.stderr_tail()}") from exc
-        return self.read_frame(deadline)
+
+    def request(self, req: dict, deadline: float, cancel=None) -> dict:
+        self.ensure_ready(deadline)
+        self.send(req)
+        return self.read_frame(deadline, cancel=cancel)
 
     def kill(self) -> None:
         if self.alive():
             self.proc.kill()
-        self.proc.wait(timeout=10)
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:  # pragma: no cover
+            pass
         self.close_files()
 
     def shutdown(self, grace_s: float = 30.0) -> None:
-        """Ask the worker to stop (it stops its ranks first), then make
-        sure it has."""
+        """Ask the worker to stop (a warm one stops its ranks first), then
+        make sure it has."""
         try:
             if self.alive():
                 write_frame(self.proc.stdin, {"op": "shutdown"})
@@ -466,21 +637,23 @@ class _WorkerProc:
                 f.close()
             except OSError:
                 pass
-        try:
-            self.stderr_path.unlink()
-        except OSError:
-            pass
+        if self._own_stderr:
+            try:
+                self.stderr_path.unlink()
+            except OSError:
+                pass
 
 
 class WorkerPool:
-    """One protocol worker (the reference pool's default size) with its
-    world of ``world`` ranks over ``backend`` on ``device`` (the card
-    unless the caller asks for the CPU; without a card this raises).
-    The worker is started warm: it brings its world up before its hello.
-    Jobs run one at a time, in the order submitted."""
+    """One warm protocol worker (the reference pool's default size) with
+    its world of ``world`` ranks over ``backend`` on ``device`` (the card
+    unless the caller asks for the CPU; without a card this raises). It
+    brings its world up before its hello. Jobs run one at a time, in the
+    order submitted. ``health`` (a ``health.FailureDetector``) gets the
+    heartbeat's liveness probes as component ``pool-0``."""
 
     def __init__(self, *, world: int, backend: str, device: str = "cuda",
-                 job_timeout: float = 300.0):
+                 job_timeout: float = 300.0, health=None):
         from kind_tpu_sim_torch.device import resolve
 
         resolve(device)  # no card raises, unless the caller asks for the CPU
@@ -489,20 +662,22 @@ class WorkerPool:
                 f"backend must be 'gloo' or 'nccl'; got {backend!r}")
         if world < 1:
             raise ValueError(f"a world needs at least one rank; got {world}")
-        self._cmd = [sys.executable, "-m", "kind_tpu_sim_torch.utils."
-                     "worker_pool", "--serve", "--world", str(world),
+        self._cmd = [sys.executable, *_COLD_ARGS, "--world", str(world),
                      "--backend", backend, "--device", str(device),
                      "--timeout", str(job_timeout)]
-        self._env = dict(os.environ)
-        self._env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (str(_PACKAGE_ROOT), os.environ.get("PYTHONPATH"))
-            if p)
+        self._env = _pool_child_env(warm=True)
         self._timeout = job_timeout
+        self._health = health
+        # held for a whole job: the heartbeat leaves a busy worker to the
+        # job's own crash handling
         self._lock = threading.Lock()
         self._next_id = 0
         self._closed = False
         self.respawns = 0
-        self._proc: Optional[_WorkerProc] = _WorkerProc(self._cmd, self._env)
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+        self._proc: Optional[_WorkerProc] = _WorkerProc(self._env,
+                                                        cmd=self._cmd)
 
     def submit(self, job: str, *, timeout: Optional[float] = None,
                **kwargs):
@@ -527,13 +702,19 @@ class WorkerPool:
                     self._proc = None
                     if retries > 0:
                         retries -= 1
+                        log.warning("pool worker died; starting it again "
+                                    "and retrying job %s once", job)
                         continue
                     raise
                 except TimeoutError:
                     # a wedged worker is useless: kill it, but do not run
                     # the job again (that would double the wait)
+                    from kind_tpu_sim_torch import metrics
+
                     proc.kill()
                     self._proc = None
+                    metrics.recovery_log().record(
+                        "worker_hang_killed", slot=0, job=job)
                     raise
                 break
         if not resp.get("ok"):
@@ -551,13 +732,78 @@ class WorkerPool:
         info.update(self._proc.hello)
         return info
 
-    def _respawn(self) -> None:
+    # -- health -------------------------------------------------------
+
+    def check_health(self) -> List[dict]:
+        """One liveness row per slot (this pool has one): pid, alive,
+        busy, uptime. The heartbeat's observable."""
+        proc = self._proc
+        return [{
+            "slot": 0,
+            "pid": proc.pid if proc is not None else None,
+            "alive": bool(proc is not None and proc.alive()),
+            "busy": self._lock.locked(),
+            "uptime_s": (round(time.monotonic() - proc.spawned_at, 3)
+                         if proc is not None else None),
+        }]
+
+    def start_heartbeat(self, interval_s: float = 5.0) -> None:
+        """A background liveness sweep every ``interval_s``: a dead idle
+        worker is started again at once (not at its next job), so a pool
+        that sat through a kill is warm before the next submission. A
+        busy worker is left to its job, whose crash path owns it."""
+        if self._hb_thread is not None:
+            return
+        self._hb_stop.clear()
+
+        def sweep() -> None:
+            while not self._hb_stop.wait(interval_s):
+                if not self._lock.acquire(blocking=False):
+                    continue
+                try:
+                    if self._closed:
+                        return
+                    alive = self._proc is not None and self._proc.alive()
+                    if self._health is not None:
+                        self._health.record_probe(
+                            "pool-0", ok=alive, now=time.monotonic())
+                    if alive:
+                        continue
+                    self._respawn(reason="heartbeat")
+                    if self._health is not None:
+                        self._health.restore("pool-0", time.monotonic(),
+                                             reason="respawned")
+                finally:
+                    self._lock.release()
+
+        self._hb_thread = threading.Thread(
+            target=sweep, name="kts-pool-heartbeat", daemon=True)
+        self._hb_thread.start()
+
+    def stop_heartbeat(self) -> None:
+        if self._hb_thread is None:
+            return
+        self._hb_stop.set()
+        self._hb_thread.join(timeout=5)
+        self._hb_thread = None
+
+    def _respawn(self, reason: str = "crash") -> None:
+        """A new worker in the old one's place (the caller holds the
+        lock). A respawn heals: the injected fault, if any, applies to
+        the first worker only, so recovery converges."""
+        from kind_tpu_sim_torch import metrics
+
         if self._proc is not None:
             self._proc.kill()
         self.respawns += 1
-        self._proc = _WorkerProc(self._cmd, self._env)
+        env = dict(self._env)
+        env.pop(CHAOS_FAULT_ENV, None)
+        self._proc = _WorkerProc(env, cmd=self._cmd)
+        metrics.recovery_log().record(
+            "worker_respawn", slot=0, reason=reason, pid=self._proc.pid)
 
     def close(self) -> None:
+        self.stop_heartbeat()
         with self._lock:
             if self._closed:
                 return
@@ -572,12 +818,474 @@ class WorkerPool:
         self.close()
 
 
+# ---------------------------------------------------------------------
+# cold grids
+
+
+def run_grid(worker_envs: Sequence[Dict[str, str]], target: str,
+             timeout: float,
+             kwargs_list: Optional[Sequence[dict]] = None,
+             max_respawns: int = 0,
+             detector=None) -> List:
+    """One cold worker per environment in ``worker_envs`` runs ``target``
+    (a ``module:attr`` callable, with ``kwargs_list[i]`` for worker i);
+    the results in spawn order. A worker that crashes raises
+    RuntimeError with its stderr tail (the rest are killed); workers
+    still running at the deadline raise TimeoutError.
+
+    ``max_respawns`` > 0 heals: a worker that dies before answering is
+    started again (its environment, the injected fault stripped) and its
+    job resent, up to that many times a worker; the results equal a
+    fault-free run's, each job being a pure function of its environment
+    and kwargs. ``detector`` (a ``health.FailureDetector``) observes each
+    worker's reported job time as component ``grid-worker-<i>``."""
+    from kind_tpu_sim_torch import metrics
+
+    def send_job(proc: _WorkerProc, worker: int) -> None:
+        proc.send({
+            "id": worker, "job": "call",
+            "kwargs": {
+                "target": target,
+                "kwargs": kwargs_list[worker] if kwargs_list else {},
+            },
+        })
+
+    procs: List[_WorkerProc] = []
+    with tempfile.TemporaryDirectory() as logdir:
+        logs = pathlib.Path(logdir)
+        try:
+            for worker, extra in enumerate(worker_envs):
+                env = _pool_child_env(extra, warm=False)
+                procs.append(_WorkerProc(
+                    env, stderr_path=logs / f"worker-{worker}.err"))
+            deadline = time.monotonic() + timeout
+            for worker, proc in enumerate(procs):
+                try:
+                    send_job(proc, worker)
+                except WorkerCrash:
+                    raise RuntimeError(
+                        f"slice worker {worker} crashed at spawn "
+                        f"(rc={proc.proc.poll()}):\n{proc.stderr_tail()}")
+            results: List = [None] * len(procs)
+            pending = set(range(len(procs)))
+            respawns_left = [max_respawns] * len(procs)
+            while pending:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"slice workers {sorted(pending)} still running "
+                        f"after {timeout}s")
+                for worker in sorted(pending):
+                    proc = procs[worker]
+                    try:
+                        frame = proc.read_frame(
+                            min(deadline, time.monotonic() + 0.25))
+                    except TimeoutError:
+                        continue
+                    except WorkerCrash:
+                        rc = proc.proc.poll()
+                        if respawns_left[worker] <= 0:
+                            raise RuntimeError(
+                                f"slice worker {worker} crashed "
+                                f"(rc={rc}):\n{proc.stderr_tail()}")
+                        respawns_left[worker] -= 1
+                        proc.kill()
+                        env = _pool_child_env(worker_envs[worker], warm=False)
+                        env.pop(CHAOS_FAULT_ENV, None)
+                        retry_no = max_respawns - respawns_left[worker]
+                        fresh = _WorkerProc(
+                            env, stderr_path=logs
+                            / f"worker-{worker}-r{retry_no}.err")
+                        procs[worker] = fresh
+                        metrics.recovery_log().record(
+                            "grid_worker_respawn", worker=worker, rc=rc,
+                            retry=retry_no)
+                        log.warning(
+                            "grid worker %d died (rc=%s); respawning and "
+                            "resending its job (%d/%d)", worker, rc,
+                            retry_no, max_respawns)
+                        try:
+                            send_job(fresh, worker)
+                        except WorkerCrash:
+                            raise RuntimeError(
+                                f"slice worker {worker} crashed at respawn "
+                                f"(rc={fresh.proc.poll()}):\n"
+                                f"{fresh.stderr_tail()}")
+                        continue
+                    if frame.get("hello"):
+                        continue  # the cold hello precedes the result
+                    if not frame.get("ok"):
+                        raise RuntimeError(
+                            f"slice worker {worker} job failed: "
+                            f"{frame.get('error')}\n"
+                            f"{frame.get('traceback', '')[-1000:]}")
+                    if (detector is not None
+                            and frame.get("elapsed_s") is not None):
+                        detector.observe(f"grid-worker-{worker}",
+                                         float(frame["elapsed_s"]),
+                                         now=time.monotonic())
+                    results[worker] = frame.get("result")
+                    pending.discard(worker)
+            return results
+        finally:
+            for proc in procs:
+                proc.kill()
+
+
+def run_cells(worker_envs: Sequence[Dict[str, str]], target: str,
+              cells: Sequence[dict], timeout: float,
+              cell_timeout: Optional[float] = None,
+              max_respawns: int = 1,
+              fault: Optional[tuple] = None,
+              detect: bool = False,
+              health_cfg=None,
+              batch: int = 1):
+    """Grid cells over cold workers, each worker pulling the next
+    unclaimed cell, so the grid drains at the survivors' speed when a
+    worker dies.
+
+    A worker that crashes or hangs mid-cell has that cell requeued, for a
+    survivor or for the worker's own respawn while it has budget (the
+    injected fault stripped: a chaos fault is transient). A hang is
+    caught by ``cell_timeout`` and the wedged worker killed. Results are
+    indexed by cell, so a faulted run returns what the fault-free run
+    returns (each cell is a pure function of its kwargs). A cell whose
+    job raises fails the whole run (retrying would re-raise).
+
+    ``fault``: ("crash" | "hang", cell_index[, seconds]) sends a crash or
+    hang job in that cell's place on its first dispatch, once;
+    ("straggler" | "flaky", worker_index, stall_s) plants ``slow@1:S`` /
+    ``flaky@2:S`` in that worker's environment (alive, correct, slow).
+
+    ``detect=True`` turns the gray-failure layer on (``health.py``,
+    thresholds from ``health_cfg`` or the ``KIND_TPU_SIM_HEALTH_*``
+    knobs): each worker is probed (a ping bounded by ``probe_timeout_s``)
+    before it may pull cells, and a failed probe quarantines it until a
+    respawn (budget permitting) replaces and restores it; cell service
+    times feed the phi-accrual detector, and a worker it quarantines
+    stops pulling cells and is respawned while budget remains; once the
+    queue is empty, the oldest tail cell still in flight past
+    ``spec_age_ratio`` x the expected service time gets one speculative
+    copy on an idle worker, the first result winning.
+
+    ``batch`` > 1 sends up to that many cells a round trip
+    (``call_batch``), results position-equal; a crashed batch requeues
+    every unfinished member. Under ``fault`` or ``detect`` batching is
+    off: a planted fault targets a request.
+
+    Returns ``(results, stats)``: results in cell order; stats with the
+    requeue, respawn, fault, probe, quarantine and speculation counts,
+    ``makespan_s`` (first dispatch to last completion) and, with
+    ``detect``, the detector's transitions (no wall times). The events
+    go to ``metrics.recovery_log()`` and ``metrics.health_board()``.
+    """
+    from kind_tpu_sim_torch import metrics
+
+    detector = None
+    hcfg = None
+    if detect:
+        from kind_tpu_sim_torch import health as health_mod
+
+        hcfg = health_cfg or health_mod.DetectorConfig.from_env()
+        detector = health_mod.FailureDetector(hcfg)
+
+    gray_fault = (fault if fault is not None
+                  and fault[0] in ("straggler", "flaky") else None)
+    cell_fault = fault if gray_fault is None else None
+    if fault is not None or detect:
+        batch = 1
+    batch = max(1, int(batch))
+
+    deadline = time.monotonic() + timeout
+    cond = threading.Condition()
+    all_done = threading.Event()
+    todo: List[int] = list(range(len(cells)))
+    inflight: set = set()
+    dispatch_t: Dict[int, float] = {}
+    spec_extra: Dict[int, int] = {}
+    fatal: List[BaseException] = []
+    results: List = [None] * len(cells)
+    ok: List[bool] = [False] * len(cells)
+    done_count = [0]
+    span = [None, None]  # first dispatch, last completion
+    stats = {"workers": len(worker_envs), "requeues": 0,
+             "respawns": 0, "faults_injected": 0,
+             "probes": 0, "probe_failures": 0,
+             "quarantines": 0, "speculative": 0}
+    fault_budget = [1 if cell_fault else 0]
+
+    def next_cells() -> Optional[List[int]]:
+        with cond:
+            while True:
+                if fatal or time.monotonic() > deadline:
+                    return None
+                if todo:
+                    picked = todo[:batch]
+                    del todo[:len(picked)]
+                    now = time.monotonic()
+                    for idx in picked:
+                        inflight.add(idx)
+                        dispatch_t.setdefault(idx, now)
+                    if span[0] is None:
+                        span[0] = now
+                    return picked
+                if not inflight:
+                    return None
+                if detector is not None:
+                    idx = _pick_speculative()
+                    if idx is not None:
+                        return [idx]
+                cond.wait(0.05)
+
+    def _pick_speculative() -> Optional[int]:
+        # the caller holds cond: the oldest tail cell in flight, once
+        # past spec_age_ratio x the expected service time, earns ONE
+        # speculative copy
+        expected = detector.expected_s()
+        if expected is None:
+            return None
+        now = time.monotonic()
+        for idx in sorted(inflight, key=lambda i: dispatch_t.get(i, now)):
+            if ok[idx] or spec_extra.get(idx, 0) >= 1:
+                continue
+            age = now - dispatch_t.get(idx, now)
+            if age > hcfg.spec_age_ratio * expected:
+                spec_extra[idx] = spec_extra.get(idx, 0) + 1
+                stats["speculative"] += 1
+                metrics.health_board().incr("speculative_redispatch")
+                metrics.recovery_log().record(
+                    "cell_speculated", cell=idx, age_s=round(age, 3))
+                return idx
+        return None
+
+    def finish(idx: int, success: bool) -> None:
+        with cond:
+            inflight.discard(idx)
+            if success:
+                if not ok[idx]:
+                    ok[idx] = True
+                    done_count[0] += 1
+                    span[1] = time.monotonic()
+                    if done_count[0] == len(cells):
+                        all_done.set()
+            elif not ok[idx] and idx not in todo:
+                todo.insert(0, idx)
+                stats["requeues"] += 1
+            cond.notify_all()
+
+    def probe(proc: _WorkerProc, comp: str) -> bool:
+        """A bounded ping before the worker may pull cells; its round
+        trip is not a service-time sample (pings and cells are different
+        distributions): the verdict is binary."""
+        stats["probes"] += 1
+        try:
+            proc.request({"id": -1, "job": "ping"},
+                         time.monotonic() + hcfg.probe_timeout_s)
+        except (WorkerCrash, TimeoutError):
+            stats["probe_failures"] += 1
+            if detector.record_probe(
+                    comp, ok=False, now=time.monotonic()) == "quarantined":
+                stats["quarantines"] += 1
+            return False
+        detector.record_probe(comp, ok=True, now=time.monotonic())
+        return True
+
+    def respawn(env: Dict[str, str], proc: _WorkerProc,
+                worker: int) -> _WorkerProc:
+        proc.kill()
+        with cond:
+            stats["respawns"] += 1
+        env.pop(CHAOS_FAULT_ENV, None)
+        fresh = _WorkerProc(env)
+        metrics.recovery_log().record(
+            "cell_worker_respawn", worker=worker, pid=fresh.pid)
+        return fresh
+
+    def _drive_batch(proc: _WorkerProc, worker: int,
+                     idxs: List[int]) -> str:
+        """One batched dispatch (no fault, no detection): "ok", "crash"
+        (requeued; the caller may respawn) or "stop" (a job error or a
+        cancellation)."""
+        cell_deadline = deadline
+        if cell_timeout is not None:
+            cell_deadline = min(
+                deadline, time.monotonic() + cell_timeout * len(idxs))
+        req = {"id": idxs[0], "job": "call_batch",
+               "kwargs": {"target": target,
+                          "kwargs_list": [dict(cells[i]) for i in idxs]}}
+        try:
+            resp = proc.request(req, cell_deadline, cancel=all_done)
+        except WorkerCancelled:
+            proc.kill()
+            return "stop"
+        except (WorkerCrash, TimeoutError) as exc:
+            for idx in idxs:
+                finish(idx, False)
+            metrics.recovery_log().record(
+                "cell_requeued", cell=idxs[0], worker=worker,
+                cause=type(exc).__name__, batch=len(idxs))
+            proc.kill()
+            return "crash"
+        if not resp.get("ok"):
+            with cond:
+                fatal.append(RuntimeError(
+                    f"cells {idxs} failed on worker {worker}: "
+                    f"{resp.get('error')}\n"
+                    f"{resp.get('traceback', '')[-1000:]}"))
+                cond.notify_all()
+            return "stop"
+        for pos, idx in enumerate(idxs):
+            results[idx] = resp["result"][pos]
+            finish(idx, True)
+        return "ok"
+
+    def drive(worker: int) -> None:
+        env = _pool_child_env(worker_envs[worker], warm=False)
+        if (gray_fault is not None
+                and gray_fault[1] % len(worker_envs) == worker):
+            stall = float(gray_fault[2] if len(gray_fault) > 2 else 1.0)
+            env[CHAOS_FAULT_ENV] = (
+                f"slow@1:{stall}" if gray_fault[0] == "straggler"
+                else f"flaky@2:{stall}")
+            with cond:
+                stats["faults_injected"] += 1
+            metrics.recovery_log().record(
+                "fault_injected", kind=gray_fault[0], worker=worker)
+        proc = _WorkerProc(env)
+        comp = f"worker-{worker}"
+        respawns_left = max_respawns
+        try:
+            if detector is not None:
+                healthy = probe(proc, comp)
+                while not healthy:
+                    if respawns_left <= 0:
+                        return  # quarantined for good; the others drain
+                    respawns_left -= 1
+                    proc = respawn(dict(env), proc, worker)
+                    healthy = probe(proc, comp)
+                    if healthy:
+                        detector.restore(comp, time.monotonic(),
+                                         reason="respawned")
+            while True:
+                idxs = next_cells()
+                if idxs is None:
+                    return
+                if len(idxs) > 1:
+                    status = _drive_batch(proc, worker, idxs)
+                    if status == "ok":
+                        continue
+                    if status == "crash":
+                        if respawns_left <= 0:
+                            return  # the survivors drain the requeue
+                        respawns_left -= 1
+                        proc = respawn(dict(env), proc, worker)
+                        continue
+                    return
+                idx = idxs[0]
+                cell_deadline = deadline
+                if cell_timeout is not None:
+                    cell_deadline = min(deadline,
+                                        time.monotonic() + cell_timeout)
+                req = {"id": idx, "job": "call",
+                       "kwargs": {"target": target,
+                                  "kwargs": dict(cells[idx])}}
+                if cell_fault is not None and idx == cell_fault[1]:
+                    with cond:
+                        inject = fault_budget[0] > 0
+                        if inject:
+                            fault_budget[0] -= 1
+                            stats["faults_injected"] += 1
+                    if inject:
+                        if cell_fault[0] == "crash":
+                            req = {"id": idx, "job": "crash", "kwargs": {}}
+                        elif cell_fault[0] == "hang":
+                            req = {"id": idx, "job": "hang",
+                                   "kwargs": {"seconds": float(
+                                       cell_fault[2] if len(cell_fault) > 2
+                                       else 3600.0)}}
+                        metrics.recovery_log().record(
+                            "fault_injected", kind=cell_fault[0], cell=idx,
+                            worker=worker)
+                t0 = time.monotonic()
+                try:
+                    resp = proc.request(req, cell_deadline, cancel=all_done)
+                except WorkerCancelled:
+                    # the grid finished through a speculative copy while
+                    # this worker still held its cell
+                    proc.kill()
+                    return
+                except (WorkerCrash, TimeoutError) as exc:
+                    finish(idx, False)
+                    metrics.recovery_log().record(
+                        "cell_requeued", cell=idx, worker=worker,
+                        cause=type(exc).__name__)
+                    proc.kill()
+                    if respawns_left <= 0:
+                        return  # the survivors drain the requeued cell
+                    respawns_left -= 1
+                    proc = respawn(dict(env), proc, worker)
+                    continue
+                if not resp.get("ok"):
+                    with cond:
+                        fatal.append(RuntimeError(
+                            f"cell {idx} failed on worker {worker}: "
+                            f"{resp.get('error')}\n"
+                            f"{resp.get('traceback', '')[-1000:]}"))
+                        cond.notify_all()
+                    return
+                results[idx] = resp.get("result")
+                finish(idx, True)
+                if detector is not None:
+                    transition = detector.observe(
+                        comp, time.monotonic() - t0, now=time.monotonic())
+                    if transition == "quarantined":
+                        with cond:
+                            stats["quarantines"] += 1
+                        proc.kill()
+                        if respawns_left <= 0:
+                            return  # rebalanced away for good
+                        respawns_left -= 1
+                        proc = respawn(dict(env), proc, worker)
+                        if not probe(proc, comp):
+                            return
+                        detector.restore(comp, time.monotonic(),
+                                         reason="respawned")
+        finally:
+            proc.kill()
+            with cond:
+                cond.notify_all()
+
+    threads = [threading.Thread(target=drive, args=(w,),
+                                name=f"kts-cells-{w}", daemon=True)
+               for w in range(len(worker_envs))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=max(0.0, deadline - time.monotonic()) + 10.0)
+    if span[0] is not None and span[1] is not None:
+        stats["makespan_s"] = round(span[1] - span[0], 6)
+    if detector is not None:
+        # transitions only (no wall times): the shape a scenario's report
+        # embeds stays the same from run to run
+        stats["detection"] = [
+            {"component": e["component"], "transition": e["transition"]}
+            for e in detector.events]
+    if fatal:
+        raise fatal[0]
+    missing = [i for i, done in enumerate(ok) if not done]
+    if missing:
+        raise TimeoutError(
+            f"cells {missing} unfinished after {timeout}s "
+            f"(requeues={stats['requeues']}, "
+            f"respawns={stats['respawns']})")
+    return results, stats
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--serve" in argv:
         return _serve(argv)
     print("usage: python -m kind_tpu_sim_torch.utils.worker_pool --serve "
-          "--world N --backend B --device D --timeout S", file=sys.stderr)
+          "[--world N --backend B --device D --timeout S]", file=sys.stderr)
     return 2
 
 

@@ -20,7 +20,8 @@ import pytest
 from kind_tpu_sim import chaos as jchaos
 from kind_tpu_sim_torch import chaos as pchaos
 from kind_tpu_sim_torch import cli as pcli
-from torch_parity import torch_one_thread  # noqa: F401
+from kind_tpu_sim_torch.parallel import multihost as pmh
+from torch_parity import CannedGrid, torch_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
@@ -112,7 +113,18 @@ def test_scenarios_run_on_the_card_unless_asked():
         pchaos.run_scenario("node-kill", seed=0, device="cpu")
 
 
-def test_chaos_command_matches_the_reference(reference, capsys):
+@pytest.fixture
+def canned_straggler(monkeypatch):
+    """``gray-straggler-grid``'s grids canned (``CannedGrid``): its
+    verdict times real subprocess grids, which a loaded host can fail
+    (``test_torch_grid_straggler.py``); every other scenario runs as
+    it is."""
+    monkeypatch.setattr(pmh, "scatter_grid_cells", CannedGrid(
+        pmh.scatter_grid_cells, pmh.grid_cell_probe))
+
+
+def test_chaos_command_matches_the_reference(reference, canned_straggler,
+                                             capsys):
     assert pcli.main(["chaos", "run", "--scenario", "fleet-preemption",
                       "--seed", "7", "--json", "--device", "cpu"]) == 0
     got = json.loads(capsys.readouterr().out)
@@ -141,7 +153,7 @@ def test_chaos_command_matches_the_reference(reference, capsys):
     assert train["resume_max_loss_drift"] == 0.0
 
 
-def test_chaos_command_lists_and_refuses(capsys):
+def test_chaos_command_lists_and_refuses(canned_straggler, capsys):
     assert pcli.main(["chaos", "run"]) == 0
     listing = capsys.readouterr().out
     for name in pchaos.SCENARIOS:
@@ -155,11 +167,15 @@ def test_chaos_command_lists_and_refuses(capsys):
         "retry-storm", "sched-node-drain", "sched-preemption-priority",
         "sdc-serving-audit", "sdc-training-bisect",
         "tenant-noisy-neighbor", "train-mixed-soak",
-        "train-preempt-economics", "zoo-swap-storm"])
+        "train-preempt-economics", "zoo-swap-storm",
+        # the globe's, and the cold worker grids
+        "globe-dcn-degrade", "globe-herd-failover", "globe-zone-loss",
+        "train-globe-spot", "gray-straggler-grid", "worker-crash-grid",
+        "worker-hang-grid"])
     assert [r["name"] for r in rows if not r["slow"]] == analytic
     # the device scenarios are slow, as in the reference: 'all' without
-    # --include-slow runs the 15 analytic ones alone, and exits 1 on
-    # zoo-swap-storm's verdict alone
+    # --include-slow runs the 22 that do no device work alone, and exits 1
+    # on zoo-swap-storm's verdict alone
     assert pcli.main(["chaos", "run", "--scenario", "all", "--json",
                       "--device", "cpu"]) == 1
     fast = json.loads(capsys.readouterr().out)

@@ -920,3 +920,47 @@ def mesh_rank_pipe(tree, cfg, shape, names, cases):
         except ValueError as exc:
             out.append(str(exc))
     return out
+
+
+# -- gray-straggler-grid without timing the host ------------------------
+
+# the straggler grid's four runs (two clean, detection on, detection off),
+# each a stats dict as ``run_cells`` returns it: a host's likely timings
+# and counts, with which the scenario's verdict is ok
+STRAGGLER_STATS = (
+    {"workers": 6, "requeues": 0, "respawns": 0, "faults_injected": 0,
+     "probes": 6, "probe_failures": 0, "quarantines": 0, "speculative": 0,
+     "makespan_s": 0.62, "detection": []},
+    {"workers": 6, "requeues": 0, "respawns": 0, "faults_injected": 0,
+     "probes": 6, "probe_failures": 0, "quarantines": 0, "speculative": 0,
+     "makespan_s": 0.655, "detection": []},
+    {"workers": 6, "requeues": 0, "respawns": 1, "faults_injected": 1,
+     "probes": 7, "probe_failures": 0, "quarantines": 1, "speculative": 0,
+     "makespan_s": 1.95,
+     "detection": [{"component": "worker-4", "transition": "suspected"},
+                   {"component": "worker-4", "transition": "quarantined"},
+                   {"component": "worker-4", "transition": "restored"}]},
+    {"workers": 6, "requeues": 0, "respawns": 0, "faults_injected": 1,
+     "probes": 0, "probe_failures": 0, "quarantines": 0, "speculative": 0,
+     "makespan_s": 2.55},
+)
+
+
+class CannedGrid:
+    """A stand-in for ``scatter_grid_cells`` of either package: the
+    straggler grid's calls (``detect`` on, or a straggler fault) get the
+    canned ``stats`` in turn, with the cells' true results computed
+    without their sleeps; any other grid's call goes to ``real``. Each
+    canned call's arguments land in ``calls``."""
+
+    def __init__(self, real, probe, stats=STRAGGLER_STATS):
+        self.real, self.probe, self.stats = real, probe, stats
+        self.calls = []
+
+    def __call__(self, cells, **kw):
+        fault = kw.get("fault") or ("",)
+        if not (kw.get("detect") or fault[0] == "straggler"):
+            return self.real(cells, **kw)
+        stats = dict(self.stats[len(self.calls) % len(self.stats)])
+        self.calls.append(dict(kw, cells=list(cells)))
+        return ([self.probe(**dict(c, sleep_s=0.0)) for c in cells], stats)
