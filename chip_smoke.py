@@ -250,7 +250,20 @@ it fails (nothing is caught and ignored):
    the run in this process; and (i) ``globe run --json`` and ``globe
    trace`` (the default globe: three zones of one scheduler-backed cell,
    200 requests a zone), started with (d)'s processes, each exit 0 and
-   its output byte-equal to the same command run in this process. Each
+   its output byte-equal to the same command run in this process; and
+   (j), started in the same pool once (d)'s ``chaos run`` has ended:
+   ``globe run --json --shards 3`` (the sharded globe, its cells in
+   three cold workers over the pool's shared-memory transport), whose
+   output must be byte-equal to (i)'s
+   ``globe run --json``; ``chaos fuzz --json --budget 12 --seed 0`` (the
+   seeded fuzzer's campaign), exit 0, ok, and byte-equal to the same
+   campaign run in this process; ``chaos fuzz --json --budget 1 --seed 0
+   --inject-invariant-bug`` (the fuzzer's self-test), exit 0, the planted
+   bug found and shrunk to exactly ``replica_preempt`` and
+   ``slow_replica``; ``analysis replay --scenario globe-sharded --json``
+   (the sharded and single-process globes alternating), exit 0 and ok;
+   and the same with ``--inject-entropy-bug``, exit 1 and the first
+   divergent event named. Each command's wall is logged. Each
    step logs its flash launches by route and its CUDA graph captures;
 15. the calibrated simulator (host only, no kernel) -- (a) the cost
    model's ``calibrate`` over phase 9's bench model block (the
@@ -5713,12 +5726,24 @@ SIM_COMMANDS = {
                     "--device", "cuda"),
     "globe run": ("globe", "run", "--json"),
     "globe trace": ("globe", "trace"),
+    "globe shards": ("globe", "run", "--json", "--shards", "3"),
+    "fuzz": ("chaos", "fuzz", "--json", "--budget", "12", "--seed", "0"),
+    "fuzz self-test": ("chaos", "fuzz", "--json", "--budget", "1", "--seed",
+                       "0", "--inject-invariant-bug"),
+    "replay sharded": ("analysis", "replay", "--scenario", "globe-sharded",
+                       "--json"),
+    "replay injected": ("analysis", "replay", "--scenario", "globe-sharded",
+                        "--json", "--inject-entropy-bug"),
 }
 # (i): the globe's commands (the default globe: three zones of one
 # scheduler-backed cell, 200 requests a zone), whose output must equal the
 # same command run in this process. They run among (d)'s processes, not
 # phase 15's: twelve processes there took phase 15 past its limit
 SIM_GLOBE = ("globe run", "globe trace")
+# (j): the sharded globe, the fuzzer and the replay checker (host only),
+# with each command's exit code: the injected replay must diverge
+SIM_SHARDED = {"globe shards": 0, "fuzz": 0, "fuzz self-test": 0,
+               "replay sharded": 0, "replay injected": 1}
 # the fleet report's keys that hold for every weight (the streams' crcs
 # taken out of the completions), with the control layers' sections where
 # a run has them, and the scenario results'
@@ -6040,10 +6065,20 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     from kind_tpu_sim_torch.models import graphs
 
     out = {}
+    def start(argv, after=None):
+        if after is not None:
+            after.result()
+        return _timed_run([sys.executable, "-m", "kind_tpu_sim_torch", *argv])
+
     with ThreadPoolExecutor(len(SIM_COMMANDS)) as pool:
-        running = {label: pool.submit(
-            _timed_run, [sys.executable, "-m", "kind_tpu_sim_torch", *argv])
-            for label, argv in SIM_COMMANDS.items()}
+        running = {label: pool.submit(start, argv)
+                   for label, argv in SIM_COMMANDS.items()
+                   if label not in SIM_SHARDED}
+        # (j) once the chaos command has ended: its cold workers would
+        # crowd the straggler grid's, whose 0.8 s start-up probes fail then
+        for label in SIM_SHARDED:
+            running[label] = pool.submit(start, SIM_COMMANDS[label],
+                                         running["chaos"])
 
         for name in ("fleet-preemption", "serving-slot-failure"):
             rep, stats = _sim_run(
@@ -6224,7 +6259,7 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
         cpu_scenarios = {name: chaos.run_scenario(name, seed=0, device="cpu")
                          for name in SIM_SCENARIO_KEYS}
         globe_here = {label: _cli_stdout(cli, SIM_COMMANDS[label])
-                      for label in SIM_GLOBE}
+                      for label in SIM_GLOBE + ("fuzz",)}
         ran = {label: f.result() for label, f in running.items()}
 
     res = ran["chaos"]
@@ -6236,12 +6271,13 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
     verdicts = {name: rep["ok"] for name, rep in by_name.items()}
     for label, res in ran.items():
         # the chaos command exits 0 only when every verdict is ok
-        want_rc = (0 if label != "chaos" or all(verdicts.values())
-                   else 1)
+        want_rc = (SIM_SHARDED.get(label, 0)
+                   if label != "chaos" or all(verdicts.values()) else 1)
         check(res["rc"] == want_rc,
               f"{label} command exited {res['rc']}, want {want_rc}:\n"
               f"{res['stdout'][-3000:]}\n{res['stderr'][-3000:]}")
-        log(f"14 (d) {' '.join(SIM_COMMANDS[label])}: rc {res['rc']}, "
+        step = "(j)" if label in SIM_SHARDED else "(d)"
+        log(f"14 {step} {' '.join(SIM_COMMANDS[label])}: rc {res['rc']}, "
             f"{res['wall_s']:.1f} s")
     fleet_rep = json.loads(ran["fleet"]["stdout"].strip().splitlines()[-1])
     check(fleet_rep["ok"] and fleet_rep["engine"] == "serving"
@@ -6300,6 +6336,8 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
               "output differs from the same command in this process")
         log(f"14 (i) {' '.join(SIM_COMMANDS[label])}: {len(here_out)} bytes "
             "equal to the run in this process")
+    out["sharded globe, fuzz and replay"] = sim_sharded_checks(
+        ran, globe_here)
     globe_rep = json.loads(globe_here["globe run"][1])
     out["globe"] = {"global_slo": globe_rep["global_slo"],
                     "frontdoor": {k: globe_rep["frontdoor"][k] for k in (
@@ -6318,6 +6356,50 @@ def sim_engine_phase(fa, tf, cfg) -> dict:
         profile={"wall_s": profile["wall_s"],
                  "events_per_s": profile["events_per_s"]})
     return out
+
+
+def sim_sharded_checks(ran: dict, here: dict) -> dict:
+    """14 (j): the commands' outputs (``ran``) held to the runs in this
+    process (``here``: (i)'s ``globe run --json`` and the campaign of
+    ``fuzz``)."""
+    def last_json(label):
+        return json.loads(ran[label]["stdout"].strip().splitlines()[-1])
+
+    single = ran["globe run"]["stdout"]
+    check(ran["globe shards"]["stdout"] == single == here["globe run"][1],
+          "14 (j) globe run --shards 3: its output differs from the "
+          "single-process globe run's")
+    log(f"14 (j) globe run --json --shards 3: {len(single)} bytes equal to "
+        "the single-process run's")
+    rc, campaign = here["fuzz"]
+    fuzz_rep = last_json("fuzz")
+    check(rc == 0 and fuzz_rep["ok"] and ran["fuzz"]["stdout"] == campaign,
+          f"14 (j) chaos fuzz: here rc {rc}, ok {fuzz_rep['ok']}, or its "
+          "output differs from the same campaign in this process")
+    selftest = last_json("fuzz self-test")
+    kinds = [sorted(f["kind"] for f in r["spec"]["faults"])
+             for r in selftest["shrunk"]]
+    check(selftest["ok"] and selftest["selftest_found"]
+          and kinds == [["replica_preempt", "slow_replica"]],
+          f"14 (j) the fuzzer's self-test: found "
+          f"{selftest.get('selftest_found')}, shrunk to {kinds}")
+    replay, injected = last_json("replay sharded"), last_json(
+        "replay injected")
+    div = injected.get("divergence") or {}
+    check(replay["ok"] and not injected["ok"] and "index" in div,
+          f"14 (j) analysis replay globe-sharded: ok {replay['ok']}, "
+          f"injected {json.dumps(injected)[:2000]}")
+    log(f"14 (j) chaos fuzz (budget 12, seed 0): {len(fuzz_rep['runs'])} "
+        f"runs, ok, {len(campaign)} bytes equal to this process's; "
+        f"self-test shrunk to {kinds[0]}; replay globe-sharded "
+        f"{replay['events']} events, digest {replay['stream_digest'][:16]}; "
+        f"injected: first divergent event #{div['index']} "
+        f"(stream {div['stream']})")
+    return {"fuzz_runs": len(fuzz_rep["runs"]),
+            "selftest_shrunk": kinds[0],
+            "replay": {k: replay[k] for k in ("events", "stream_digest")},
+            "divergence": {k: div[k] for k in ("index", "stream")},
+            "walls_s": {label: ran[label]["wall_s"] for label in SIM_SHARDED}}
 
 
 def lone_straggler_grid(here: dict) -> dict:

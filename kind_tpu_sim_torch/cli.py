@@ -26,12 +26,17 @@
         [--json]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch chaos fuzz [--budget N] [--seed N]
+        [--max-faults N] [--inject-invariant-bug] [--emit-repros DIR]
+        [--json]
+    python -m kind_tpu_sim_torch analysis replay [--scenario NAME]
+        [--seed N] [--runs N] [--inject-entropy-bug] [--json]
     python -m kind_tpu_sim_torch globe run|trace [--seed N] [--zones N]
         [--cells-per-zone N] [--replicas N] [--policy P] [--rps R]
         [--requests N] [--process P] [--diurnal-period-s S] [--no-sched]
         [--autoscale] [--spot-budget N] [--spill-headroom F] [--overload]
         [--tenancy] [--tick-s S] [--no-event-core] [--max-virtual-s S]
-        [--trace-file F] [--save-trace F] [--out F] [--json]
+        [--shards N] [--trace-file F] [--save-trace F] [--out F] [--json]
     python -m kind_tpu_sim_torch sched run|trace [--seed N] [--policy P]
         [--gangs N] [--pods A:T,...] [--no-preemption] [--no-defrag]
         [--manifest FILE] [--events] [--out F] [--json]
@@ -128,6 +133,26 @@ workers on the wall clock. Without
 ones too with ``--include-slow``. It prints ``CHAOS RUN OK`` or ``CHAOS
 RUN FAILED`` and exits 0 or 1: on the H100's calibration
 ``zoo-swap-storm`` fails its p99 bound at seed 0, so ``all`` exits 1.
+``--list`` prints the scenario registry (``scenarios/registry.py``; a
+scenario that drives device work is tagged ``[device]`` where the
+reference tags ``[jax]``, and its JSON rows keep the reference's
+``needs_jax`` key).
+
+``chaos fuzz`` is the reference's seeded campaign (``scenarios/``):
+``--budget`` composed scenarios of fuzz stream ``--seed``, each run
+checked against the universal invariants, violations shrunk to minimal
+repro specs (``--emit-repros DIR`` writes them); ``--inject-invariant-bug``
+plants the self-test's broken invariant, which the campaign must find and
+shrink. Its report is the reference's for the same calibration and
+generation registry; on the H100's, seed 1 finds two ``recovery``
+violations by the numbers and exits 1. ``chaos soak`` is refused, naming
+the queue item that brings the three scenarios its pick pool lacks.
+
+``analysis replay`` is the reference's replay checker
+(``analysis/replaycheck.py``): ``--scenario`` runs twice under one seed
+and bisects any divergence to the first differing event; without it the
+targets are listed. The reference's ``tune`` target and ``analysis
+lint | contract | knobs`` are refused, naming their queue items.
 
 ``globe run | trace`` is the counterpart of ``python -m kind_tpu_sim
 globe`` (``run_globe``): zones of analytic cells (each a ``FleetSim``,
@@ -135,9 +160,10 @@ scheduler-backed unless ``--no-sched``) behind the global front door on
 one virtual clock, with ``--autoscale``, ``--spot-budget`` (the global
 planner), ``--overload`` and ``--tenancy``; ``trace`` prints or saves
 (``--save-trace``) the per-zone traces, and ``--trace-file`` replays one.
-Its output is the reference's. ``globe tune`` and more than one shard
-(``--shards``, ``KIND_TPU_SIM_GLOBE_SHARDS``) are refused, naming the
-queue item that brings them.
+``--shards N`` (or ``KIND_TPU_SIM_GLOBE_SHARDS``) above 1 runs the cells
+in N cold worker processes (``globe/shard.py``), with the same report.
+Its output is the reference's. ``globe tune`` is refused, naming the
+queue item that brings it.
 
 ``sched run | trace``, ``train run | plan`` and ``health knobs | demo``
 are the reference's commands (``run_sched``, ``run_train``,
@@ -474,9 +500,8 @@ def build_parser() -> argparse.ArgumentParser:
     gl.add_argument(
         "--shards", type=int, default=None,
         help="partition the cells across this many worker "
-             "processes (default: KIND_TPU_SIM_GLOBE_SHARDS or 0 = "
-             "single-process); the port runs one process and refuses "
-             "more than 1")
+             "processes (byte-identical report; default: "
+             "KIND_TPU_SIM_GLOBE_SHARDS or 0 = single-process)")
     gl.add_argument(
         "--trace-file", default=None,
         help="replay this JSONL globe trace instead of generating")
@@ -629,21 +654,57 @@ def build_parser() -> argparse.ArgumentParser:
     ch = sub.add_parser(
         "chaos",
         help=("seeded chaos scenarios that drive the engines, the trainer "
-              "and the fleet through their recovery paths"))
-    ch.add_argument("action", choices=["run"])
+              "and the fleet through their recovery paths, and the seeded "
+              "fuzzer that composes fault schedules (fuzz)"))
+    ch.add_argument("action", choices=["run", "soak", "fuzz"])
     ch.add_argument("--scenario", default=None,
                     help="named scenario, or 'all'; omit to list them")
     ch.add_argument("--seed", type=int, default=None,
                     help="fault-plan seed (default: KIND_TPU_SIM_CHAOS_SEED "
-                         "or 0)")
+                         "or 0; fuzz: KIND_TPU_SIM_FUZZ_SEED or 0)")
     ch.add_argument("--include-slow", action="store_true",
                     help="'all' includes the slow scenarios (the three "
                          "that drive device work)")
     ch.add_argument("--list", action="store_true", dest="list_scenarios",
-                    help="print the scenario registry and exit")
+                    help="print the scenario registry (with --json: one "
+                         "sorted-keys row per scenario) and exit")
+    ch.add_argument("--budget", type=int, default=None,
+                    help="composed scenarios one 'fuzz' campaign draws "
+                         "(default: KIND_TPU_SIM_FUZZ_BUDGET)")
+    ch.add_argument("--max-faults", type=int, default=None,
+                    help="max concurrent fault kinds per drawn scenario "
+                         "(default: KIND_TPU_SIM_FUZZ_MAX_FAULTS)")
+    ch.add_argument("--inject-invariant-bug", action="store_true",
+                    help="fuzz self-test: also check the deliberately "
+                         "broken invariant; exit 0 iff the fuzzer finds AND "
+                         "shrinks it")
+    ch.add_argument("--emit-repros", default=None, metavar="DIR",
+                    help="write each shrunk violation as a pinned spec file "
+                         "under DIR")
     ch.add_argument("--json", action="store_true", dest="as_json")
     ch.add_argument("--device", default="cuda",
                     help="torch device the scenarios run on (default: cuda)")
+
+    an = sub.add_parser(
+        "analysis",
+        help=("determinism tooling: replay = run a target twice under one "
+              "seed and bisect any divergence to the first differing "
+              "event (lint, contract and knobs are not ported yet)"))
+    an.add_argument("action", choices=["lint", "knobs", "replay", "contract"])
+    an.add_argument("paths", nargs="*", help=argparse.SUPPRESS)
+    an.add_argument("--scenario", default=None,
+                    help="replay target for 'replay' (omit to list targets)")
+    an.add_argument("--seed", type=int, default=None,
+                    help="replay seed (default: KIND_TPU_SIM_CHAOS_SEED or 0)")
+    an.add_argument("--runs", type=int, default=2,
+                    help="replay run count (divergence is judged against "
+                         "run 0)")
+    an.add_argument("--inject-entropy-bug", action="store_true",
+                    dest="inject",
+                    help="deliberately perturb every run after the first "
+                         "(bisector self-test: the report must name the "
+                         "first divergent event)")
+    an.add_argument("--json", action="store_true", dest="as_json")
     return parser
 
 
@@ -1211,21 +1272,38 @@ def run_fleet(args: argparse.Namespace) -> int:
 
 
 def run_chaos(args: argparse.Namespace) -> int:
-    """``chaos run``: the ported scenarios on ``--device``."""
+    """``chaos run``: the ported scenarios on ``--device``; ``chaos
+    fuzz``: the seeded campaign. ``chaos soak`` is refused."""
     from kind_tpu_sim_torch import chaos
+    from kind_tpu_sim_torch.scenarios import registry
 
-    if args.list_scenarios or not args.scenario:
-        rows = [{"name": s.name, "description": s.description,
-                 "slow": s.slow}
-                for s in sorted(chaos.SCENARIOS.values(),
-                                key=lambda s: s.name)]
+    if args.list_scenarios:
+        rows = registry.listing()
         if args.as_json:
             print(json.dumps(rows, sort_keys=True))
         else:
-            print("available scenarios (chaos run --scenario NAME):")
             for row in rows:
-                tag = " [slow]" if row["slow"] else ""
-                print(f"  {row['name']:<24} {row['description']}{tag}")
+                tags = "".join(
+                    f" [{t}]" for t, on in
+                    (("slow", row["slow"]), ("device", row["needs_jax"]),
+                     ("replay", row["replayable"]))
+                    if on)
+                print(f"  {row['name']:<24} {row['description']}"
+                      f"{tags}")
+        return 0
+    if args.action == "fuzz":
+        return run_chaos_fuzz(args)
+    if args.action == "soak":
+        raise SystemExit(
+            "chaos soak draws from the reference's non-slow scenarios, "
+            "three of which (flaky-exec, device-flap, node-flap) come with "
+            "the cluster layer (ROADMAP Queue A item 7), which the port "
+            "does not carry yet (python -m kind_tpu_sim chaos soak)")
+    if not args.scenario:
+        print("available scenarios (chaos run --scenario NAME):")
+        for row in registry.listing():
+            tag = " [slow]" if row["slow"] else ""
+            print(f"  {row['name']:<24} {row['description']}{tag}")
         return 0
     if args.scenario == "all":
         names = chaos.scenario_names(include_slow=args.include_slow)
@@ -1252,6 +1330,111 @@ def run_chaos(args: argparse.Namespace) -> int:
                   f"{'OK' if rep['ok'] else 'FAILED'}  [{events}]")
         print("CHAOS RUN " + ("OK" if ok else "FAILED"))
     return 0 if ok else 1
+
+
+def run_chaos_fuzz(args: argparse.Namespace) -> int:
+    """``chaos fuzz``: the seeded campaign. Composed multi-layer fault
+    schedules, every run checked against the universal invariant set,
+    violations shrunk to minimal repro specs; the report is a pure
+    function of (budget, seed, max-faults) and the reference's for the
+    same calibration and generation registry."""
+    import os
+    import sys
+
+    from kind_tpu_sim_torch.fleet import knobs
+    from kind_tpu_sim_torch.scenarios import fuzz as fuzz_mod
+
+    budget = (args.budget if args.budget is not None
+              else knobs.get(knobs.FUZZ_BUDGET))
+    max_faults = (args.max_faults if args.max_faults is not None
+                  else knobs.get(knobs.FUZZ_MAX_FAULTS))
+    seed = (args.seed if args.seed is not None
+            else knobs.get(knobs.FUZZ_SEED))
+    report = fuzz_mod.fuzz(
+        budget=budget, seed=seed, max_faults=max_faults,
+        inject_bug=args.inject_invariant_bug)
+    if args.emit_repros and report["shrunk"]:
+        os.makedirs(args.emit_repros, exist_ok=True)
+        for repro in report["shrunk"]:
+            path = os.path.join(args.emit_repros,
+                                repro["spec"]["name"] + ".json")
+            with open(path, "w", encoding="utf-8") as fh:
+                json.dump(repro, fh, sort_keys=True, indent=1)
+                fh.write("\n")
+            print(f"pinned repro: {path}", file=sys.stderr)
+    if args.as_json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        for run in report["runs"]:
+            mark = "OK" if run["ok"] else "VIOLATION"
+            kinds = ",".join(run["fault_kinds"]) or "-"
+            print(f"  {run['name']:<16} {run['topology']:<6} "
+                  f"{kinds:<48} {mark}")
+            for v in run["violations"]:
+                print(f"      {v['invariant']}: {v['detail']}")
+        for repro in report["shrunk"]:
+            print(f"  shrunk {repro['source']} -> "
+                  f"{repro['spec']['name']} "
+                  f"({len(repro['spec']['faults'])} faults, "
+                  f"{repro['shrink_steps']} steps)")
+        verdict = "OK" if report["ok"] else "FAILED"
+        print(f"CHAOS FUZZ (budget {budget}, seed {seed}) {verdict}")
+    return 0 if report["ok"] else 1
+
+
+def run_analysis(args: argparse.Namespace) -> int:
+    """``analysis replay``: run a target twice (``--runs``) under one
+    seed and bisect any divergence of the event streams to the first
+    differing event; without ``--scenario`` it lists the targets. The
+    reference's ``lint``, ``contract`` and ``knobs`` are refused."""
+    from kind_tpu_sim_torch.analysis import replaycheck
+
+    if args.action != "replay":
+        raise SystemExit(
+            f"analysis {args.action} belongs to the reference's static "
+            "linters and knob registry (ROADMAP Queue A item 6), which the "
+            f"port does not carry yet (python -m kind_tpu_sim analysis "
+            f"{args.action})")
+    if args.scenario == "tune":
+        raise SystemExit(
+            "the tune replay target belongs to the simulator's tuner (tune/, "
+            "ROADMAP Queue A item 5), which the port does not carry yet "
+            "(python -m kind_tpu_sim analysis replay --scenario tune)")
+    if not args.scenario:
+        targets = replaycheck.list_targets()
+        if args.as_json:
+            print(json.dumps({"targets": targets}, sort_keys=True))
+        else:
+            print("replay targets (analysis replay --scenario NAME):")
+            for t in targets:
+                tag = ("[slow]" if t["slow"] else "") + (
+                    "[injectable]" if t["injectable"] else "")
+                print(f"  {t['name']:<28} {t['description']}"
+                      + (f" {tag}" if tag else ""))
+        return 0
+    report = replaycheck.replay(args.scenario, seed=args.seed,
+                                runs=args.runs, inject=args.inject)
+    if args.as_json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(f"replay {report['target']}: seed {report['seed']}, "
+              f"{report['runs']} runs, {report['events']} events, "
+              f"digest {report['stream_digest'][:16]}")
+        div = report.get("divergence")
+        if div is not None:
+            print(f"  FIRST DIVERGENT EVENT: #{div['index']} "
+                  f"(stream {div['stream']}, run 0 vs run "
+                  f"{report['diverged_run']})")
+            for ctx in div["context"]:
+                print("    shared: "
+                      + json.dumps(ctx, sort_keys=True)[:120])
+            print("    run 0:  " + json.dumps(
+                div["a"], sort_keys=True)[:240])
+            print("    run N:  " + json.dumps(
+                div["b"], sort_keys=True)[:240])
+        print("ANALYSIS REPLAY "
+              + ("OK" if report["ok"] else "DIVERGED"))
+    return 0 if report["ok"] else 1
 
 
 def run_train(args: argparse.Namespace) -> int:
@@ -1472,11 +1655,12 @@ def run_sched(args: argparse.Namespace) -> int:
 def run_globe(args: argparse.Namespace) -> int:
     """``globe run`` / ``globe trace``: the fleet-of-fleets simulator.
     Per-zone seeded traffic through the global front door over cells
-    stepped in lockstep on one virtual clock; the JSON report (sorted
-    keys) is the same for two runs of one seed and config. ``globe
-    tune`` and more than one shard are refused."""
+    stepped in lockstep on one virtual clock, or with ``--shards N``
+    (or KIND_TPU_SIM_GLOBE_SHARDS) above 1 across N cold worker
+    processes, with the same report; the JSON report (sorted keys) is
+    the same for two runs of one seed and config. ``globe tune`` is
+    refused."""
     from kind_tpu_sim_torch import globe
-    from kind_tpu_sim_torch.fleet import knobs
     from kind_tpu_sim_torch.fleet.tenancy import default_tenancy
 
     if args.action == "tune":
@@ -1484,14 +1668,6 @@ def run_globe(args: argparse.Namespace) -> int:
             "globe tune belongs to the simulator's tuner (tune/, ROADMAP "
             "Queue A item 5), which the port does not carry yet (python -m "
             "kind_tpu_sim globe tune)")
-    shards = (args.shards if args.shards is not None
-              else knobs.get(knobs.GLOBE_SHARDS))
-    if shards > 1:
-        raise SystemExit(
-            f"globe run over {shards} shards needs the sharded globe driver "
-            "(globe/shard.py, ROADMAP Queue A's next item, with item 3), "
-            "which the port does not carry yet: drop --shards and "
-            "KIND_TPU_SIM_GLOBE_SHARDS for the single-process run")
     seed = globe.resolve_seed(args.seed)
     if args.zones < 1 or args.zones > 26:
         raise SystemExit("--zones must be in [1, 26]")
@@ -1540,7 +1716,13 @@ def run_globe(args: argparse.Namespace) -> int:
                   f"{args.save_trace}")
         return 0
 
-    report = globe.GlobeSim(cfg, traces=traces, seed=seed).run()
+    n_shards = globe.resolve_shards(args.shards)
+    if n_shards > 1:
+        sim = globe.ShardedGlobeSim(cfg, traces=traces, seed=seed,
+                                    shards=n_shards)
+    else:
+        sim = globe.GlobeSim(cfg, traces=traces, seed=seed)
+    report = sim.run()
     text = json.dumps(report, sort_keys=True)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:
@@ -1640,6 +1822,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return run_train(args)
     if args.command == "health":
         return run_health(args)
+    if args.command == "analysis":
+        return run_analysis(args)
     if args.command == "profile":
         return run_profile(args)
     if args.command == "slice-smoke":

@@ -1,6 +1,6 @@
-"""The environment knobs the fleet, scheduler, training, chaos, cost
-model, model-zoo, overload, tenancy, health, worker-pool and globe layers
-read.
+"""The environment knobs the fleet, scheduler, training, chaos, fuzz,
+cost model, model-zoo, overload, tenancy, health, worker-pool and globe
+layers read.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
@@ -18,6 +18,11 @@ FLEET_SEED = "KIND_TPU_SIM_FLEET_SEED"
 CHAOS_SEED = "KIND_TPU_SIM_CHAOS_SEED"
 CHAOS_FAULT = "KIND_TPU_SIM_CHAOS_FAULT"
 POOL_WARM = "KIND_TPU_SIM_POOL_WARM"
+POOL_SHM = "KIND_TPU_SIM_POOL_SHM"
+POOL_SHM_SEGS = "KIND_TPU_SIM_POOL_SHM_SEGS"
+FUZZ_BUDGET = "KIND_TPU_SIM_FUZZ_BUDGET"
+FUZZ_SEED = "KIND_TPU_SIM_FUZZ_SEED"
+FUZZ_MAX_FAULTS = "KIND_TPU_SIM_FUZZ_MAX_FAULTS"
 GLOBE_SEED = "KIND_TPU_SIM_GLOBE_SEED"
 GLOBE_SHARDS = "KIND_TPU_SIM_GLOBE_SHARDS"
 FLEET_TICK_S = "KIND_TPU_SIM_FLEET_TICK_S"
@@ -69,10 +74,16 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     # its own: a cold worker imports nothing of the fleet)
     CHAOS_FAULT: (None, "str"),
     POOL_WARM: (False, "bool"),
+    # the pool's bulk transport over shared-memory segments, and the
+    # segments' names a parent hands its worker (never set by hand);
+    # ``utils/worker_pool.py`` reads both names on its own, as above
+    POOL_SHM: (True, "bool"),
+    POOL_SHM_SEGS: ("", "str"),
     GLOBE_SEED: (0, "int"),
-    # read only to refuse more than one shard: the port has no sharded
-    # globe driver yet
     GLOBE_SHARDS: (0, "int"),
+    FUZZ_BUDGET: (25, "int"),
+    FUZZ_SEED: (0, "int"),
+    FUZZ_MAX_FAULTS: (4, "int"),
     FLEET_TICK_S: (0.01, "float"),
     FLEET_FF: (True, "bool"),
     FLEET_WARMUP_S: (0.55, "float"),

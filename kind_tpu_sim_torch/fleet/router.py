@@ -58,7 +58,6 @@ from typing import Dict, List, Optional, Sequence
 from kind_tpu_sim_torch import metrics
 from kind_tpu_sim_torch.fleet.loadgen import TraceRequest
 from kind_tpu_sim_torch.fleet.tenancy import tenant_of
-from kind_tpu_sim_torch.models.serving import EngineSaturated, Request
 
 POLICIES = ("round-robin", "least-outstanding", "prefix-affinity")
 
@@ -580,6 +579,10 @@ class EngineReplica:
         return request_id in self._dispatched
 
     def submit(self, req: TraceRequest, now: float) -> bool:
+        # the engine's module loads torch: imported here, so the analytic
+        # fleet and the globe import without it
+        from kind_tpu_sim_torch.models.serving import EngineSaturated, Request
+
         if not self.healthy:
             return False
         try:

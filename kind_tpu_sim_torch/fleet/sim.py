@@ -160,7 +160,6 @@ from kind_tpu_sim_torch.fleet.training import (
     TrainingTenant,
 )
 from kind_tpu_sim_torch.health import DetectorConfig, FailureDetector
-from kind_tpu_sim_torch.models.serving import ServingEngine
 from kind_tpu_sim_torch.parallel import collectives
 
 
@@ -2080,6 +2079,10 @@ def engine_fleet(cfg: FleetConfig, trace: Sequence[TraceRequest], params,
     around a ``ServingEngine`` of ``model_cfg`` and ``serving`` over the
     shared ``params`` on ``device``; every engine reads the fleet's
     virtual clock."""
+    # the engine's module loads torch: imported here, so the analytic
+    # fleet and the globe import without it
+    from kind_tpu_sim_torch.models.serving import ServingEngine
+
     clock = VirtualClock()
 
     def factory(rid):

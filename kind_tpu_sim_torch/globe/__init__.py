@@ -15,8 +15,10 @@ H100's calibration, ``fleet/costmodel.py``).
 Knobs: ``KIND_TPU_SIM_GLOBE_SEED`` (``sim.resolve_seed``), plus every
 fleet, scheduler and health knob the embedded cells inherit.
 
-Not ported yet: the sharded driver (``CellProxy``, ``ShardedGlobeSim``,
-``resolve_shards``), which runs the cells in cold pool workers.
+The sharded driver (``ShardedGlobeSim`` with its ``CellProxy`` stand-ins,
+``resolve_shards``, knob ``KIND_TPU_SIM_GLOBE_SHARDS``) runs the cells in
+cold pool workers and gives the single-process driver's report, byte for
+byte.
 """
 
 from kind_tpu_sim_torch.fleet.overload import (  # noqa: F401
@@ -49,4 +51,9 @@ from kind_tpu_sim_torch.globe.sim import (  # noqa: F401
     resolve_seed,
     save_globe_trace,
     zone_seed,
+)
+from kind_tpu_sim_torch.globe.shard import (  # noqa: F401
+    CellProxy,
+    ShardedGlobeSim,
+    resolve_shards,
 )

@@ -325,7 +325,7 @@ def fleet_config_for(cfg: GlobeConfig, zone: str,
                      ) -> FleetConfig:
     """The embedded FleetConfig one cell of ``cfg`` runs in ``zone``.
     Module-level (not a GlobeSim method) so shard workers
-    (the reference's globe/shard.py) build byte-identical cells from the wire copy
+    (globe/shard.py) build byte-identical cells from the wire copy
     of the config without a parent driver object. ``generation``
     makes this cell's replicas price against that accelerator
     generation (docs/ZOO.md): scheduler-backed cells request the
@@ -472,10 +472,9 @@ class GlobeSim:
         self._scan_backoff = 1
 
     def _build_cells(self, training_cells: set) -> List[Cell]:
-        """Cell construction, factored so a sharded driver can
-        override it with worker-resident cells behind parent-side
-        proxies (the reference's globe/shard.py; not ported yet).
-        With ``generations`` set, cell i
+        """Cell construction, factored so the sharded driver
+        (globe/shard.py) can override it with worker-resident cells
+        behind parent-side proxies. With ``generations`` set, cell i
         (name order) runs generation i % len — the mixed-generation
         fleet (docs/ZOO.md)."""
         gens = self.cfg.generations
@@ -491,8 +490,8 @@ class GlobeSim:
 
     def _wire_cells(self) -> None:
         """Hook every cell's completion stream into the globe log /
-        trackers (a sharded driver runs the hook on the parent
-        against streamed completion records instead)."""
+        trackers — a no-op in the sharded driver, where the hook
+        runs on the parent against streamed completion records."""
         for cell in self.cells:
             cell.sim.on_complete = self._completion_hook(cell)
 

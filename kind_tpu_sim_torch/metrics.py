@@ -25,7 +25,10 @@ a fleet or globe report carries the counts of its own run
 record their injected faults (``fault_injected``), requeues
 (``cell_requeued``), respawns (``cell_worker_respawn``,
 ``grid_worker_respawn``) and speculative copies (``cell_speculated``) in
-the log and count ``speculative_redispatch`` on the health board.
+the log and count ``speculative_redispatch`` on the health board; the
+sharded globe (``globe/shard.py``) records each shard worker it starts
+again and replays from its journal (``globe_shard_respawn``, with the
+shard and the journal's length).
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ here every rank of the mesh holds its own element of the same input
 (rank i holds i + 1 for the psum, and so on) and calls the collective
 on the mesh's process group. The reports have the reference's keys and
 values. The analytic ring model the simulator's cost math reads
-(``ring_allreduce_s``, ``tier_slowdown``) is a copy of the reference's.
+(``ring_allreduce_s``, ``tier_slowdown``) is a copy of the reference's;
+it needs no torch, so the smokes import torch themselves and the
+simulator's layers (a globe shard's cold worker among them) load this
+module without it.
 
 Every smoke must be called on every rank of the mesh; each rank gets
 the same report.
@@ -18,8 +21,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 TIER_LINK_GBPS: Dict[str, float] = {"ici": 90.0, "dcn": 25.0}
 TIER_FRACTION: Dict[str, float] = {"ici": 0.35, "dcn": 0.10}
@@ -92,10 +93,12 @@ def dcn_slowdown(link_factor: float,
     return tier_slowdown(link_factor, dcn_fraction, tier="dcn")
 
 
-def _device(mesh) -> torch.device:
+def _device(mesh) -> "torch.device":  # noqa: F821
     """Where this rank's smoke tensors live: its card under NCCL, else
     the device ``launch.spawn`` gave the rank (gloo reduces and gathers
     a card's tensors too)."""
+    import torch
+
     from kind_tpu_sim_torch.parallel import launch
 
     if mesh.backend == "nccl":
@@ -103,8 +106,11 @@ def _device(mesh) -> torch.device:
     return launch.rank_device()
 
 
-def _mine(mesh, values: np.ndarray, device=None) -> torch.Tensor:
+def _mine(mesh, values: np.ndarray,
+          device=None) -> "torch.Tensor":  # noqa: F821
     """This rank's element of an array laid out like the mesh grid."""
+    import torch
+
     where = tuple(mesh.coords[a] for a in mesh.axis_names)
     return torch.tensor([float(values[where])], dtype=torch.float32,
                         device=device or _device(mesh))
@@ -113,6 +119,8 @@ def _mine(mesh, values: np.ndarray, device=None) -> torch.Tensor:
 def psum_smoke(mesh=None) -> Dict[str, object]:
     """All-reduce over every rank of the mesh; rank (i, j) holds
     i*cols+j+1, so every rank must end with sum(1..n)."""
+    import torch.distributed as dist
+
     from kind_tpu_sim_torch.parallel.mesh import slice_mesh
 
     if mesh is None:
@@ -134,6 +142,9 @@ def psum_smoke(mesh=None) -> Dict[str, object]:
 def ring_permute_smoke(mesh=None) -> Dict[str, object]:
     """Each rank passes its value to the next rank on the last mesh axis
     (wrapping), point to point: the ring step of ring attention."""
+    import torch
+    import torch.distributed as dist
+
     from kind_tpu_sim_torch.parallel.mesh import slice_mesh
 
     if mesh is None:
@@ -167,6 +178,9 @@ def ring_permute_smoke(mesh=None) -> Dict[str, object]:
 def all_gather_smoke(mesh=None) -> Dict[str, object]:
     """all_gather along the first (host) axis: group g holds g, and the
     gathered sum must be the sum over groups on every rank."""
+    import torch
+    import torch.distributed as dist
+
     from kind_tpu_sim_torch.parallel.mesh import slice_mesh
 
     if mesh is None:
@@ -193,6 +207,9 @@ def hierarchical_psum_smoke(mesh) -> Dict[str, object]:
     axis but 'dcn' (within a slice, ICI) first, then over 'dcn' (across
     slices). Checks both tiers: after the first every rank of a slice
     holds its slice's subtotal, after the second the global total."""
+    import torch
+    import torch.distributed as dist
+
     if "dcn" not in mesh.axis_names:
         raise ValueError(f"mesh has no 'dcn' axis: {mesh.axis_names}")
     ici_axes = tuple(a for a in mesh.axis_names if a != "dcn")

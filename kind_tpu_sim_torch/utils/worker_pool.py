@@ -59,8 +59,22 @@ worker environment; :func:`run_cells` schedules grid cells over cold
 workers with requeue, respawn, probes, quarantine, speculative tail
 re-dispatch and batching.
 
-Not ported yet: the reference's shared-memory transport for bulk
-payloads (``POOL_SHM_*``), which only its sharded globe driver needs.
+Bulk payloads (``KIND_TPU_SIM_POOL_SHM``, on unless set off): the parent
+creates two shared-memory segments for each worker, one a direction,
+and hands the worker their names (``KIND_TPU_SIM_POOL_SHM_SEGS``). A
+payload of at least ``SHM_MIN_BYTES`` travels as raw bytes in the
+segment behind a ``{"shm_len": N}`` control frame; a smaller one, or one
+larger than the segment, or any payload with the knob off, goes in-band.
+Requests and answers alternate on a worker, so one segment a direction
+needs no lock. The parent owns both segments and unlinks them when it
+kills or closes the worker, so a worker that crashes or hangs leaves
+none behind. The worker attaches a segment only when a bulk payload
+first travels through it (a grid cell's worker never does, and starts as
+fast as without the transport), and detaches its attachments from its
+resource tracker, which would otherwise unlink them at its exit.
+:class:`PoolWorker` and :func:`pool_child_env` are the one-worker
+surface that the sharded globe (``globe/shard.py``) drives with its
+own session protocol.
 """
 
 from __future__ import annotations
@@ -86,12 +100,19 @@ log = logging.getLogger("kind-tpu-sim-torch")
 # A frame bigger than this is protocol corruption, not data.
 MAX_FRAME_BYTES = 64 * 1024 * 1024
 
-# The two knobs this module reads itself, by name: a cold worker imports
-# nothing of the fleet package (``fleet/knobs.py`` registers both names
+# the bulk transport's segments: each this size, and the least payload
+# that goes through one
+POOL_SHM_BYTES = 32 * 1024 * 1024
+SHM_MIN_BYTES = 64 * 1024
+
+# The knobs this module reads itself, by name: a cold worker imports
+# nothing of the fleet package (``fleet/knobs.py`` registers the names
 # with their types and defaults). A bool reads "", "0", "false" and "no"
 # as off, as every knob does.
 WARM_ENV = "KIND_TPU_SIM_POOL_WARM"
 CHAOS_FAULT_ENV = "KIND_TPU_SIM_CHAOS_FAULT"
+SHM_ENV = "KIND_TPU_SIM_POOL_SHM"
+SHM_SEGS_ENV = "KIND_TPU_SIM_POOL_SHM_SEGS"
 
 _PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[2]
 # a cold worker's command line
@@ -255,8 +276,76 @@ def _run_cold(job: str, kwargs: dict):
     return JOBS[job](**kwargs)
 
 
-def _knob_on(name: str) -> bool:
-    return os.environ.get(name, "").lower() not in ("", "0", "false", "no")
+def _knob_on(name: str, default: bool = False) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.lower() not in ("", "0", "false", "no")
+
+
+def _attach_shm(name: str):
+    """A parent-owned segment attached by name, or None when it cannot be
+    (the pipe framing is always a complete fallback). The attachment is
+    taken off this process's resource tracker: the parent owns the
+    segment's lifetime, and a tracked attachment would be unlinked a
+    second time at this process's exit."""
+    if not name:
+        return None
+    try:
+        from multiprocessing import resource_tracker, shared_memory
+
+        seg = shared_memory.SharedMemory(name=name)
+        try:
+            resource_tracker.unregister(seg._name, "shared_memory")
+        except Exception:
+            pass
+        return seg
+    except Exception:
+        return None
+
+
+def _encode(obj) -> bytes:
+    return json.dumps(obj, sort_keys=True).encode("utf-8")
+
+
+def _attacher(name: str):
+    """The worker's side of one segment: a function that attaches it at
+    its first call and then returns it (None without one). A worker
+    asks only when a bulk payload travels, so one that never carries
+    any (a grid cell's) starts no resource tracker and comes up as fast
+    as without the transport."""
+    held = []
+
+    def segment():
+        if not held:
+            held.append(_attach_shm(name))
+        return held[0]
+
+    return segment
+
+
+def _send_payload(stream, payload: bytes, segment) -> None:
+    """One frame's payload to ``stream``: through the segment that
+    ``segment()`` gives (asked only for a bulk payload) behind a
+    ``shm_len`` control frame when there is one and the payload fits,
+    else in-band."""
+    seg = segment() if len(payload) >= SHM_MIN_BYTES else None
+    if seg is not None and len(payload) <= seg.size:
+        seg.buf[:len(payload)] = payload
+        payload = _encode({"shm_len": len(payload)})
+    stream.write(struct.pack(">I", len(payload)) + payload)
+    stream.flush()
+
+
+def _from_segment(frame, segment):
+    """A bulk frame's payload read from the segment that ``segment()``
+    gives; any other frame as is."""
+    if isinstance(frame, dict) and "shm_len" in frame:
+        seg = segment()
+        if seg is not None:
+            return json.loads(
+                bytes(seg.buf[:frame["shm_len"]]).decode("utf-8"))
+    return frame
 
 
 def _parse_fault(spec: Optional[str]):
@@ -441,6 +530,11 @@ def _serve(argv=None) -> int:
     out = os.fdopen(proto_fd, "wb")
     inp = sys.stdin.buffer
 
+    # the bulk transport: the parent's segments, one a direction, each
+    # attached at the first bulk payload it carries
+    in_name, _, out_name = os.environ.get(SHM_SEGS_ENV, "").partition(":")
+    shm_in, shm_out = _attacher(in_name), _attacher(out_name)
+
     world = (_World(args.world, args.backend, args.device, args.timeout)
              if warm else None)
     run = world.run if world is not None else _run_cold
@@ -458,7 +552,7 @@ def _serve(argv=None) -> int:
         req_no = 0
         while True:
             try:
-                req = read_frame(inp)
+                req = _from_segment(read_frame(inp), shm_in)
             except EOFError:
                 return 1
             if req is None or req.get("op") == "shutdown":
@@ -487,7 +581,7 @@ def _serve(argv=None) -> int:
                 resp["error"] = f"{type(exc).__name__}: {exc}"[:2000]
                 resp["traceback"] = traceback.format_exc()[-2000:]
             resp["elapsed_s"] = round(time.monotonic() - t0, 6)
-            write_frame(out, resp)
+            _send_payload(out, _encode(resp), shm_out)
     finally:
         if world is not None:
             world.close()
@@ -519,8 +613,9 @@ def simulated_slice_env(chips: int = 8) -> Dict[str, str]:
 
 
 class _WorkerProc:
-    """One protocol worker process, its read buffer and its stderr log
-    (a temporary file unless ``stderr_path`` names one). ``cmd`` is the
+    """One protocol worker process, its read buffer, its stderr log (a
+    temporary file unless ``stderr_path`` names one) and, with the bulk
+    transport on, its two shared-memory segments. ``cmd`` is the
     worker's command line: a cold worker's unless given."""
 
     def __init__(self, env: Dict[str, str],
@@ -529,6 +624,22 @@ class _WorkerProc:
         self._buf = b""
         self.hello: Optional[dict] = None
         self.spawned_at = time.monotonic()
+        # the parent creates (and later unlinks) both segments and hands
+        # the worker their names: a worker never owns one
+        self._shm_in = self._shm_out = None
+        if _knob_on(SHM_ENV, default=True):
+            try:
+                from multiprocessing import shared_memory
+
+                self._shm_in = shared_memory.SharedMemory(
+                    create=True, size=POOL_SHM_BYTES)
+                self._shm_out = shared_memory.SharedMemory(
+                    create=True, size=POOL_SHM_BYTES)
+                env = dict(env)
+                env[SHM_SEGS_ENV] = (
+                    f"{self._shm_in.name}:{self._shm_out.name}")
+            except Exception:  # no /dev/shm: the pipe alone
+                self._close_shm()
         if stderr_path is None:
             fd, name = tempfile.mkstemp(prefix="kts-worker-", suffix=".err")
             self.stderr_path = pathlib.Path(name)
@@ -561,6 +672,8 @@ class _WorkerProc:
         """One frame from the worker's stdout, or raise: WorkerCrash on
         EOF or death, TimeoutError past ``deadline``, WorkerCancelled
         once ``cancel`` (a threading.Event) is set."""
+        if self.proc.stdout.closed:  # killed: its pipes went with it
+            raise WorkerCrash(f"worker {self.pid} was killed")
         fd = self.proc.stdout.fileno()
         sel = selectors.DefaultSelector()
         sel.register(self.proc.stdout, selectors.EVENT_READ)
@@ -569,7 +682,7 @@ class _WorkerProc:
             while True:
                 frame, self._buf = _try_parse(self._buf)
                 if frame is not None:
-                    return frame
+                    return _from_segment(frame, lambda: self._shm_out)
                 if cancel is not None and cancel.is_set():
                     raise WorkerCancelled(
                         f"read from worker {self.pid} cancelled")
@@ -599,9 +712,13 @@ class _WorkerProc:
         return self.hello
 
     def send(self, req: dict) -> None:
+        """One request to the worker: a bulk one through the
+        parent-to-worker segment, any other in-band."""
         try:
-            write_frame(self.proc.stdin, req)
-        except (BrokenPipeError, OSError) as exc:
+            _send_payload(self.proc.stdin, _encode(req),
+                          lambda: self._shm_in)
+        except (BrokenPipeError, OSError, ValueError) as exc:
+            # ValueError: the pipe was closed by kill()
             raise WorkerCrash(f"worker {self.pid} pipe closed: {exc}; "
                               f"{self.stderr_tail()}") from exc
 
@@ -632,6 +749,7 @@ class _WorkerProc:
         self.kill()
 
     def close_files(self) -> None:
+        self._close_shm()
         for f in (self.proc.stdin, self.proc.stdout, self._stderr_file):
             try:
                 f.close()
@@ -642,6 +760,23 @@ class _WorkerProc:
                 self.stderr_path.unlink()
             except OSError:
                 pass
+
+    def _close_shm(self) -> None:
+        for seg in (self._shm_in, self._shm_out):
+            if seg is None:
+                continue
+            for step in (seg.close, seg.unlink):
+                try:
+                    step()
+                except Exception:
+                    pass
+        self._shm_in = self._shm_out = None
+
+
+# the one-worker surface a driver with its own session protocol builds on
+# (the sharded globe, ``globe/shard.py``)
+PoolWorker = _WorkerProc
+pool_child_env = _pool_child_env
 
 
 class WorkerPool:

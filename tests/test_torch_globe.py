@@ -17,8 +17,8 @@ from one registry (``torch_parity.shared_registry``):
   the requests on its KV lane as the reference's does;
 * the scenarios at seeds 0-2 equal the reference's reports and
   recovery-log deltas byte for byte;
-* the command prints what the reference's prints; ``globe tune`` and
-  more than one shard are refused.
+* the command prints what the reference's prints; ``globe tune`` is
+  refused, and more than one shard runs the sharded driver.
 """
 
 import json
@@ -330,11 +330,18 @@ def test_saved_and_replayed_traces_print_as_the_reference(tmp_path, capsys):
     assert path.read_bytes() == saved
 
 
-def test_tune_and_shards_are_refused(monkeypatch):
+def test_tune_and_shards_are_refused(monkeypatch, capsys):
+    """``globe tune`` is refused, naming its queue item. More than one
+    shard, refused until the sharded driver came, now runs it and prints
+    the single-process run's report (tests/test_torch_globe_shard.py
+    holds it to the reference)."""
     with pytest.raises(SystemExit, match="Queue A item 5"):
         pcli.main(["globe", "tune"])
-    with pytest.raises(SystemExit, match="2 shards.*Queue A's next item"):
-        pcli.main(["globe", "run", "--shards", "2"])
+    argv = ["globe", "run", "--requests", "5", "--json"]
+    assert pcli.main(argv) == 0
+    single = capsys.readouterr().out
+    assert pcli.main(argv + ["--shards", "2"]) == 0
+    assert capsys.readouterr().out == single
     monkeypatch.setenv("KIND_TPU_SIM_GLOBE_SHARDS", "3")
-    with pytest.raises(SystemExit, match="3 shards"):
-        pcli.main(["globe", "run", "--requests", "5"])
+    assert pcli.main(argv) == 0
+    assert capsys.readouterr().out == single

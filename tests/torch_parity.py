@@ -225,7 +225,9 @@ def shared_registry(monkeypatch, tmp_path, extra=None):
     port's: ``GENERATIONS``, ``CALIBRATION_DIR`` (``tmp_path``, holding a
     copy of the port's ``generations/h100.json``), ``GENERATION_FACTS
     ["h100"]`` (set in the dict in place: ``zoo`` binds it by name),
-    ``ACCELERATOR_GENERATIONS`` and the KIND_TPU_SIM_GENERATION knob.
+    ``ACCELERATOR_GENERATIONS``, ``GENERATION_ACCELERATORS`` (a globe's
+    scheduler-backed zoo cells request their generation's accelerator
+    label) and the KIND_TPU_SIM_GENERATION knob.
     ``extra`` (name -> facts) registers test-only generations on both
     sides, each file written by the port's ``derive_generation`` from
     the h100 file into ``tmp_path``, which both registries then read.
@@ -244,6 +246,8 @@ def shared_registry(monkeypatch, tmp_path, extra=None):
                         dict(pcost.GENERATION_FACTS["h100"]))
     monkeypatch.setattr(jcost, "ACCELERATOR_GENERATIONS",
                         dict(pcost.ACCELERATOR_GENERATIONS))
+    monkeypatch.setattr(jcost, "GENERATION_ACCELERATORS",
+                        dict(pcost.GENERATION_ACCELERATORS))
     monkeypatch.setenv("KIND_TPU_SIM_GENERATION", "h100")
     if extra:
         monkeypatch.setattr(pcost, "GENERATIONS", gens)
@@ -256,6 +260,23 @@ def shared_registry(monkeypatch, tmp_path, extra=None):
                       encoding="utf-8") as fh:
                 json.dump(pcost.derive_generation(base, name), fh,
                           indent=1, sort_keys=True)
+    return gens
+
+
+@pytest.fixture
+def h100_registry(monkeypatch, tmp_path):
+    """Both packages on the H100's calibration and generation registry
+    for one test: ``KIND_TPU_SIM_CALIBRATION``, ``shared_registry`` and
+    the reference's scenario compiler's generation mix
+    (``scenarios/spec.py:_SPEC_GENERATIONS``, a TPU pair) set to the
+    port's registry, so specs, fuzz campaigns and replays compare byte
+    for byte. Nothing in either package changes on disk."""
+    from kind_tpu_sim.scenarios import spec as jspec
+    from kind_tpu_sim_torch.scenarios import spec as pspec
+
+    monkeypatch.setenv("KIND_TPU_SIM_CALIBRATION", H100_CALIBRATION)
+    gens = shared_registry(monkeypatch, tmp_path)
+    monkeypatch.setattr(jspec, "_SPEC_GENERATIONS", pspec._SPEC_GENERATIONS)
     return gens
 
 
