@@ -236,11 +236,12 @@ it fails (nothing is caught and ignored):
    with ``--sched --train 1 --profile``) and ``chaos run --scenario all
    --include-slow`` at the reference's tiny configs, whose weight-free
    fields must equal the same runs' on the CPU (the profile section
-   carrying the reference's keys; the chaos command's 25 scenarios, the
-   reports of the 21 that do no device work but ``gray-straggler-grid``
+   carrying the reference's keys; the chaos command's 28 scenarios, the
+   reports of the 24 that do no device work but ``gray-straggler-grid``
    byte-equal to the same scenarios run in this process (the 15
    analytic ones, the four globe scenarios, the crash and hang worker
-   grids), ``gray-straggler-grid`` held on its timing-free fields;
+   grids, the control plane's ``flaky-exec``, ``device-flap`` and
+   ``node-flap``), ``gray-straggler-grid`` held on its timing-free fields;
    ``zoo-swap-storm``'s verdict is the CPU's, ``ok: false`` on the
    H100's calibration, every other scenario but the straggler grid must
    be ok, and the chaos command's exit code must be 0 exactly when every
@@ -296,7 +297,21 @@ it fails (nothing is caught and ignored):
    command run in this process; in this process also ``train plan
    --json`` (the Young-Daly cadence among its rows), ``sched trace``
    (the seeded gangs) and a ``to_pod_manifest`` round trip of every
-   traced gang. Under ``SIM15_MAX_S`` seconds.
+   traced gang; and, in the same pool, the tuner and the cluster
+   layer (host only): (l) ``fleet tune --json --tune-workers 2``, its
+   report byte-equal to the same search in this process with no
+   workers; (m) ``globe tune --json --chaos-budget 1``, equal to the
+   search in this process; (n) ``fleet tune --spec-out
+   build/tune_winner.json``, then ``fleet tune --replay-spec`` of that
+   file, whose metrics row must equal (l)'s winner's; (o) ``analysis
+   replay --scenario tune --json``, exit 0 and ok; (p) ``create nvidia
+   --runtime fake -v``, ``status --runtime fake --json`` and ``delete
+   --runtime fake`` from ``build/cluster15``, each exit 0, the create's
+   command stream (which patches ``nvidia.com/gpu`` capacity on each
+   worker) and kind config equal to ``create`` run in this process;
+   (q) ``chaos run --scenario`` ``flaky-exec``, ``device-flap`` and
+   ``node-flap``, ``CHAOS RUN OK`` each. Under ``SIM15_MAX_S``
+   seconds.
 
 Phase 5 also trains the tiny model with ``remat=True`` on the card and
 holds it to the plain run.
@@ -5860,6 +5875,12 @@ SIM_SCENARIO_KEYS = {
                           "corrupted_served_on", "corrupted_served_off",
                           "p99_audit_s", "p99_off_s", "p99_ratio",
                           "replay_identical", "ok", "recovery_events"),
+    # the control plane's, over the fake runtime (no card, no daemon)
+    "flaky-exec": ("plan", "injected_failures", "commands_completed", "ok",
+                   "recovery_events"),
+    "device-flap": ("plan", "flaps", "fail_writes", "heal_writes", "ok",
+                    "recovery_events"),
+    "node-flap": ("plan", "kills", "restarts", "ok", "recovery_events"),
     "correlated-rack-loss": ("plan", "failure_domain", "rack_nodes",
                              "outage_s", "fault_at_s",
                              "max_simultaneous_dead", "p99_window_s",
@@ -6445,10 +6466,30 @@ SIM15_COMMANDS = {
     "train": ("train", "run", "--manifest", "pods/tpu-batch-train-job.yaml",
               "--json"),
     "health": ("health", "demo", "--json"),
+    # (l), (m), (o): the tuner's searches and its replay target
+    "tune workers": ("fleet", "tune", "--json", "--tune-workers", "2"),
+    "globe tune": ("globe", "tune", "--json", "--chaos-budget", "1"),
+    "tune replay": ("analysis", "replay", "--scenario", "tune", "--json"),
+    # (q): the cluster layer's scenarios over the fake runtime
+    "flaky-exec": ("chaos", "run", "--scenario", "flaky-exec"),
+    "device-flap": ("chaos", "run", "--scenario", "device-flap"),
+    "node-flap": ("chaos", "run", "--scenario", "node-flap"),
 }
 # (i)-(k): the commands whose output must equal the same run in this
 # process
 SIM15_HERE = ("sched", "train", "health")
+# (n): the winner's spec written by one search and re-scored by another
+# process
+SIM15_WINNER = "build/tune_winner.json"
+SIM15_SPEC_CHAIN = (("fleet", "tune", "--spec-out", SIM15_WINNER),
+                    ("fleet", "tune", "--replay-spec", SIM15_WINNER))
+# (p): the nvidia cluster's lifecycle over the fake runtime, in a
+# directory of its own (create writes kind-config.yaml where it runs)
+SIM15_CLUSTER_DIR = "build/cluster15"
+SIM15_CLUSTER_CHAIN = (("create", "nvidia", "--runtime", "fake", "-v"),
+                       ("status", "--runtime", "fake", "--json"),
+                       ("delete", "--runtime", "fake"))
+SIM15_STREAM = "-- fake runtime command stream --\n"
 # (g): one analytic fleet with the columnar mirror off and on (its knob);
 # the per-object run takes about 9 s on a CPU core
 SIM15_COLUMNAR = ("fleet", "run", "--engine", "sim", "--replicas", "512",
@@ -6465,6 +6506,131 @@ def _cli_stdout(cli, argv) -> tuple:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(list(argv))
     return rc, buf.getvalue()
+
+
+def _timed_chain(argvs, cwd=None) -> list:
+    """``python -m kind_tpu_sim_torch ARGV`` for each of ``argvs`` in
+    turn, from ``cwd`` (default: the repository root); each result as
+    ``_timed_run`` gives it."""
+    import os
+
+    cwd = HERE / (cwd or ".")
+    cwd.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    out = []
+    for argv in argvs:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "kind_tpu_sim_torch", *argv], cwd=cwd,
+            env=env, capture_output=True, text=True,
+            timeout=ENTRY_TIMEOUT_S)
+        out.append({"rc": res.returncode,
+                    "wall_s": time.perf_counter() - t0,
+                    "stdout": res.stdout, "stderr": res.stderr})
+    return out
+
+
+def nvidia_cluster_here(cli) -> tuple:
+    """``create nvidia`` over the fake runtime in this process, from a
+    directory under build/: the command stream as ``-v`` prints it, and
+    the kind config it wrote. Changes the working directory for the
+    call, so it runs when no other thread is at work."""
+    import os
+
+    where = HERE / "build" / "cluster15_here"
+    where.mkdir(parents=True, exist_ok=True)
+    args = cli.build_parser().parse_args(list(SIM15_CLUSTER_CHAIN[0]))
+    before = os.getcwd()
+    os.chdir(where)
+    try:
+        sim = cli.Simulator(cli.config_from_args(args))
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim.create()
+        config = (where / "kind-config.yaml").read_text()
+    finally:
+        os.chdir(before)
+    stream = "".join(f"  {cmd}\n" for cmd in sim.executor.commands())
+    return stream, config
+
+
+def tune_cluster_checks(ran: dict, chains: dict, here: dict) -> dict:
+    """Phase 15 (l)-(q): the tuner's and the cluster layer's processes
+    held to the runs in this process."""
+    res = ran["tune workers"]
+    check(res["rc"] == 0 and res["stdout"] == here["tune"]
+          and json.loads(res["stdout"])["ok"],
+          f"15 (l) fleet tune --tune-workers 2 exited {res['rc']}, or its "
+          "report differs from the in-process search's:\n"
+          f"{res['stderr'][-2000:]}")
+    report = json.loads(res["stdout"])
+    log(f"15 (l) {' '.join(SIM15_COMMANDS['tune workers'])}: rc 0, "
+        f"{res['wall_s']:.2f} s, {len(res['stdout'])} bytes equal to the "
+        f"search in this process with no workers; {report['evaluations']} "
+        f"evaluations, winner #{report['winner']['index']}")
+    res = ran["globe tune"]
+    check(res["rc"] == 0 and res["stdout"] == here["globe tune"]
+          and json.loads(res["stdout"])["chaos"]["budget"] == 1,
+          f"15 (m) globe tune exited {res['rc']}, or its report differs "
+          f"from the in-process search's:\n{res['stderr'][-2000:]}")
+    log(f"15 (m) {' '.join(SIM15_COMMANDS['globe tune'])}: rc 0, "
+        f"{res['wall_s']:.2f} s, equal to the search in this process")
+    spec, replay = chains["spec"]
+    winner = json.dumps(report["winner"]["metrics"], sort_keys=True)
+    check(spec["rc"] == 0 and spec["stdout"].rstrip().endswith("TUNE OK")
+          and replay["rc"] == 0
+          and replay["stdout"].strip() == winner,
+          f"15 (n) the winner spec round trip: rc {spec['rc']} / "
+          f"{replay['rc']}, replayed {replay['stdout'][-2000:]} against "
+          f"{winner}\n{spec['stderr'][-1000:]}{replay['stderr'][-1000:]}")
+    log(f"15 (n) fleet tune --spec-out {SIM15_WINNER}, then --replay-spec: "
+        f"the metrics row equals (l)'s winner's; {spec['wall_s']:.2f} s + "
+        f"{replay['wall_s']:.2f} s")
+    res = ran["tune replay"]
+    rep = json.loads(res["stdout"]) if res["rc"] == 0 else {}
+    check(res["rc"] == 0 and rep.get("ok"),
+          f"15 (o) analysis replay --scenario tune exited {res['rc']}:\n"
+          f"{res['stdout'][-2000:]}{res['stderr'][-2000:]}")
+    log(f"15 (o) {' '.join(SIM15_COMMANDS['tune replay'])}: rc 0, ok, "
+        f"{rep['events']} events, digest {rep['stream_digest'][:16]}, "
+        f"{res['wall_s']:.2f} s")
+    create, status, delete = chains["cluster"]
+    stream = create["stderr"].partition(SIM15_STREAM)[2]
+    patched = [ln for ln in stream.splitlines()
+               if ln.startswith("  kubectl patch node")]
+    written = (HERE / SIM15_CLUSTER_DIR / "kind-config.yaml").read_text()
+    check(create["rc"] == 0 and stream == here["cluster"][0]
+          and written == here["cluster"][1] and len(patched) == 2
+          and all("/status/capacity/nvidia.com~1gpu" in ln
+                  for ln in patched),
+          f"15 (p) create nvidia: rc {create['rc']}, its stream differs "
+          f"from create in this process, or it does not patch "
+          f"nvidia.com/gpu on each worker:\n{create['stderr'][-3000:]}")
+    nodes = (json.loads(status["stdout"])["nodes"] if status["rc"] == 0
+             else [])
+    check(status["rc"] == 0 and len(nodes) == 3 and delete["rc"] == 0,
+          f"15 (p) status / delete exited {status['rc']} / "
+          f"{delete['rc']}:\n{status['stderr'][-1000:]}"
+          f"{delete['stderr'][-1000:]}")
+    log(f"15 (p) create nvidia --runtime fake -v in {SIM15_CLUSTER_DIR}: "
+        f"rc 0, {len(stream.splitlines())} commands equal to create in "
+        f"this process, nvidia.com/gpu patched on {len(patched)} workers; "
+        f"status ({len(nodes)} nodes) and delete rc 0; "
+        f"{create['wall_s']:.2f} + {status['wall_s']:.2f} + "
+        f"{delete['wall_s']:.2f} s")
+    for label in ("flaky-exec", "device-flap", "node-flap"):
+        res = ran[label]
+        check(res["rc"] == 0
+              and res["stdout"].rstrip().endswith("CHAOS RUN OK"),
+              f"15 (q) chaos run --scenario {label} exited {res['rc']}:\n"
+              f"{res['stdout'][-2000:]}{res['stderr'][-2000:]}")
+        log(f"15 (q) chaos run --scenario {label}: "
+            f"{res['stdout'].strip().splitlines()[-2].strip()}; rc 0, "
+            f"{res['wall_s']:.2f} s")
+    return {"tune_winner": report["winner"]["index"],
+            "tune_replay_digest": rep["stream_digest"],
+            "cluster_commands": len(stream.splitlines()),
+            "chains_wall_s": {name: [r["wall_s"] for r in results]
+                              for name, results in chains.items()}}
 
 
 def sched_train_here(cli) -> dict:
@@ -6513,10 +6679,14 @@ def calibrated_sim_phase() -> dict:
     t0 = time.perf_counter()
     out = {}
     with ThreadPoolExecutor(len(SIM15_COMMANDS)
-                            + len(SIM15_COLUMNAR_ENV)) as pool:
+                            + len(SIM15_COLUMNAR_ENV) + 2) as pool:
         running = {label: pool.submit(
             _timed_run, [sys.executable, "-m", "kind_tpu_sim_torch", *argv])
             for label, argv in SIM15_COMMANDS.items()}
+        chaining = {
+            "spec": pool.submit(_timed_chain, SIM15_SPEC_CHAIN),
+            "cluster": pool.submit(_timed_chain, SIM15_CLUSTER_CHAIN,
+                                   SIM15_CLUSTER_DIR)}
         for label, value in SIM15_COLUMNAR_ENV.items():
             running[label] = pool.submit(
                 _timed_run,
@@ -6566,6 +6736,10 @@ def calibrated_sim_phase() -> dict:
         cli_here = {label: _cli_stdout(cli, SIM15_COMMANDS[label])
                     for label in SIM15_HERE}
         out["here"] = sched_train_here(cli)
+        # (l) and (m): the same searches in this process, with no workers
+        tune_here = {
+            "tune": _cli_stdout(cli, ["fleet", "tune", "--json"])[1],
+            "globe tune": _cli_stdout(cli, SIM15_COMMANDS["globe tune"])[1]}
 
         # (h) the generation's HBM, this card's
         total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
@@ -6577,6 +6751,10 @@ def calibrated_sim_phase() -> dict:
         log(f"15 (h) the h100 generation's hbm_gib {hbm_gib} = this card's "
             f"total_memory {total_gib:.4f} GiB to two places")
         ran = {label: f.result() for label, f in running.items()}
+        chains = {name: f.result() for name, f in chaining.items()}
+    # (p) in this process, once every process of the pool has ended
+    tune_here["cluster"] = nvidia_cluster_here(cli)
+    out["tune_cluster"] = tune_cluster_checks(ran, chains, tune_here)
 
     committed = (HERE / SIM15_CALIBRATION).read_text()
     written = (HERE / "build" / "h100_check.json").read_text()

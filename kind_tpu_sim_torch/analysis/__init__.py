@@ -8,10 +8,11 @@ and report, byte for byte.
 it runs a target twice under one seed, hashes the event stream
 incrementally and bisects a mismatch to the first divergent event.
 
-CLI: ``python -m kind_tpu_sim_torch analysis replay``. The reference's
-static linters (``detlint``, ``contractlint``) and its knob registry as
-a linted module (``knobs``, with ``analysis lint|contract|knobs``) are
-not ported yet; the port's knobs are ``fleet/knobs.py``.
+CLI: ``python -m kind_tpu_sim_torch analysis replay``.
+:mod:`~kind_tpu_sim_torch.analysis.knobs` is the port's table of every
+``KIND_TPU_SIM_*`` knob (the standard library alone). The reference's
+static linters (``detlint``, ``contractlint``) and the commands
+``analysis lint|contract|knobs`` are not ported yet.
 
 ``replaycheck`` loads lazily, so the runtime's imports do not pay for
 the tooling (it builds its targets from the scenario registry, which

@@ -1,18 +1,22 @@
-"""The environment knobs the fleet, scheduler, training, chaos, fuzz,
-cost model, model-zoo, overload, tenancy, health, worker-pool and globe
-layers read.
+"""The environment knobs the port reads: one table of every
+``KIND_TPU_SIM_*`` variable, with its name, type and default.
 
 The JAX package declares its knobs in one registry
 (``kind_tpu_sim/analysis/knobs.py``); the port keeps copies of the ones
 its layers read, with the same names, types and defaults. An unset or
 unparseable value reads as the default; a bool reads ``""``, ``"0"``,
 ``"false"`` and ``"no"`` (any case) as off and anything else as on.
+
+The lowest layers read this module (``utils/shell.py``, the worker
+pool's cold child, ``tune/``), so it imports the standard library alone
+and nothing of the port's packages: loading it loads neither torch nor
+the fleet.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 FLEET_SEED = "KIND_TPU_SIM_FLEET_SEED"
 CHAOS_SEED = "KIND_TPU_SIM_CHAOS_SEED"
@@ -61,6 +65,12 @@ HEALTH_SIGMA_FRAC = "KIND_TPU_SIM_HEALTH_SIGMA_FRAC"
 HEALTH_SIGMA_ABS = "KIND_TPU_SIM_HEALTH_SIGMA_ABS"
 HEALTH_PROBE_TIMEOUT_S = "KIND_TPU_SIM_HEALTH_PROBE_TIMEOUT_S"
 HEALTH_SPEC_RATIO = "KIND_TPU_SIM_HEALTH_SPEC_RATIO"
+MAX_RETRIES = "KIND_TPU_SIM_MAX_RETRIES"
+RETRY_BASE_MS = "KIND_TPU_SIM_RETRY_BASE_MS"
+CMD_TIMEOUT_S = "KIND_TPU_SIM_CMD_TIMEOUT_S"
+TUNE_SEED = "KIND_TPU_SIM_TUNE_SEED"
+TUNE_BUDGET = "KIND_TPU_SIM_TUNE_BUDGET"
+TUNE_CHAOS_BUDGET = "KIND_TPU_SIM_TUNE_CHAOS_BUDGET"
 
 # values a bool knob reads as off
 FALSE_VALUES = ("", "0", "false", "no")
@@ -70,13 +80,10 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     FLEET_SEED: (0, "int"),
     CHAOS_SEED: (0, "int"),
     # a worker's injected fault: crash@N, hang@N:S, slow@N:S, flaky@K:S
-    # (``utils/worker_pool.py`` reads it, and this variable's name, on
-    # its own: a cold worker imports nothing of the fleet)
     CHAOS_FAULT: (None, "str"),
     POOL_WARM: (False, "bool"),
     # the pool's bulk transport over shared-memory segments, and the
-    # segments' names a parent hands its worker (never set by hand);
-    # ``utils/worker_pool.py`` reads both names on its own, as above
+    # segments' names a parent hands its worker (never set by hand)
     POOL_SHM: (True, "bool"),
     POOL_SHM_SEGS: ("", "str"),
     GLOBE_SEED: (0, "int"),
@@ -121,14 +128,34 @@ KNOBS: Dict[str, Tuple[object, str]] = {
     HEALTH_SIGMA_ABS: (1e-4, "float"),
     HEALTH_PROBE_TIMEOUT_S: (2.0, "float"),
     HEALTH_SPEC_RATIO: (3.0, "float"),
+    # the classified retry of external commands (``utils/shell.py``);
+    # an unset deadline is no cap
+    MAX_RETRIES: (3, "int"),
+    RETRY_BASE_MS: (50.0, "float"),
+    CMD_TIMEOUT_S: (None, "float"),
+    # the tuner's search stream, candidate budget and chaos budget
+    TUNE_SEED: (0, "int"),
+    TUNE_BUDGET: (16, "int"),
+    TUNE_CHAOS_BUDGET: (0, "int"),
 }
 
 
-def get(name: str) -> object:
+def get_raw(name: str,
+            environ: Optional[Mapping[str, str]] = None) -> Optional[str]:
+    """The raw string of knob ``name`` in ``environ`` (default: the
+    process's environment), or None when unset. A name the table lacks
+    raises KeyError."""
+    if name not in KNOBS:
+        raise KeyError(f"unregistered knob {name!r}; declare it in "
+                       "kind_tpu_sim_torch/analysis/knobs.py")
+    return (os.environ if environ is None else environ).get(name)
+
+
+def get(name: str, environ: Optional[Mapping[str, str]] = None) -> object:
     """The value of knob ``name``: the environment's, parsed as the
     knob's type, else the default."""
     default, kind = KNOBS[name]
-    raw = os.environ.get(name)
+    raw = get_raw(name, environ)
     if raw is None:
         return default
     if kind == "bool":

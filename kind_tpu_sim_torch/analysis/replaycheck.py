@@ -20,13 +20,11 @@ is localized to the tightest unit the report offers.
 
 Targets (:data:`REPLAY_TARGETS`) cover every virtual-clock layer:
 direct ``fleet-run`` / ``sched-run`` / ``globe-run`` sims, the
-``globe-sharded`` cross-driver referee, plus the deterministic chaos
-scenarios of the port's registry (``globe-zone-loss`` etc.). The
-reference's ``tune`` target comes with the tuner (ROADMAP Queue A item
-5), and the registry's ``flaky-exec``, ``device-flap`` and ``node-flap``
-targets with the cluster layer (item 7). The sim
-targets also support a **deliberately injected entropy bug**
-(``inject=True`` perturbs the second run's workload mid-stream) — the
+``globe-sharded`` cross-driver referee, a small ``tune`` search, plus
+the deterministic chaos scenarios of the port's registry
+(``globe-zone-loss``, ``node-flap`` etc.): the reference's targets,
+whole. The sim targets also support a **deliberately injected entropy
+bug** (``inject=True`` perturbs the second run's workload mid-stream) — the
 self-test proving the bisector finds and names the first divergent
 event rather than just declaring failure.
 
@@ -225,6 +223,26 @@ def _run_globe_sharded(seed: int, inject: bool) -> dict:
     return globe.GlobeSim(cfg, traces=traces, seed=seed).run()
 
 
+def _run_tune(seed: int, inject: bool) -> dict:
+    """A small in-process tune search: the whole search trace rides in
+    the report's ``runs`` stream, so the bisector localizes a
+    divergence to one candidate evaluation."""
+    if inject:
+        raise ValueError("tune does not support injection; the "
+                         "search consumes generated traces — use "
+                         "fleet-run")
+    from kind_tpu_sim_torch import fleet, tune
+
+    space = tune.ratio_space(("1:3", "2:2", "3:1"))
+    workload = fleet.WorkloadSpec(process="poisson", rps=50.0,
+                                  n_requests=40,
+                                  prompt_len=(8, 16),
+                                  max_new=(4, 8))
+    slo = fleet.SloPolicy(ttft_s=0.5, e2e_s=2.0)
+    return tune.tune(space, workload, slo, seed=seed, budget=4,
+                     chaos_budget=1)
+
+
 def _scenario_runner(name: str):
     def run(seed: int, inject: bool) -> dict:
         if inject:
@@ -241,10 +259,9 @@ def _scenario_runner(name: str):
 # not chaos scenarios. Everything in REPLAY_TARGETS outside this
 # tuple MUST come from the scenario registry's replayable set — the
 # bijection test in tests/test_torch_replay.py pins that, so a new
-# driver target belongs here, not in an ad-hoc test exclusion. The
-# reference's "tune" target joins with the tuner (ROADMAP Queue A item 5).
+# driver target belongs here, not in an ad-hoc test exclusion.
 DRIVER_TARGETS = ("fleet-run", "sched-run", "globe-run",
-                  "globe-sharded")
+                  "globe-sharded", "tune")
 
 
 def _targets() -> Dict[str, ReplayTarget]:
@@ -270,6 +287,10 @@ def _targets() -> Dict[str, ReplayTarget]:
             "globe-sharded", "GlobeSim vs ShardedGlobeSim(2) on "
             "one seed — the cross-driver byte-identity referee",
             _run_globe_sharded, slow=True, injectable=True),
+        "tune": ReplayTarget(
+            "tune", "in-process tune search over the disagg-ratio "
+            "space (budget 4, chaos 1), full search trace",
+            _run_tune),
     }
     for name in registry.replayable_names():
         out[name] = ReplayTarget(

@@ -10,8 +10,14 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
   the seed and its arguments alone (a ``random.Random`` keyed by the
   crc32 of the arguments' repr; each event's ``param`` drawn before its
   slot and target), so a plan equals the reference's for the same seed;
+* the cluster layer's fault levers: :class:`FlakyExecutor` (transient
+  failures the classified retry of ``utils/shell.py`` must absorb) and
+  :class:`ChaosManager` (``chaos fail | heal | kill-node | start-node``:
+  a node's devices marked unhealthy through the plugin's unhealthy
+  file, and node containers stopped and started);
+* :func:`soak`: seeded scenario runs drawn from the registry's pool;
 * the scenario registry: the three scenarios that drive device work
-  and twenty-two that do none, each with the reference's bar:
+  and twenty-five that do none, each with the reference's bar:
 
   - ``preempt-train``: SIGTERM mid-step; a checkpoint is written at that
     step, and the resumed loss trajectory equals the uninterrupted one
@@ -63,6 +69,11 @@ The port's copy of the engine-backed part of ``kind_tpu_sim/chaos.py``:
   - the globe's blast-radius scenarios (``globe/``, analytic cells on one
     virtual clock): ``globe-zone-loss``, ``globe-herd-failover``,
     ``globe-dcn-degrade`` and ``train-globe-spot``.
+  - the control-plane scenarios, over the fake runtime's recorded
+    command stream (no cluster, no daemon): ``flaky-exec`` (transient
+    kubectl failures retried away), ``device-flap`` (seeded fail / heal
+    cycles, every flap healed) and ``node-flap`` (seeded kill / restart
+    cycles, every killed node started again).
 
 Each scenario takes the reference's ``seed`` and returns its result
 dict. A device scenario's model is the reference's tiny config unless
@@ -74,15 +85,13 @@ process: run it in the main thread, where the guard's handler is
 installed. The analytic scenarios take neither ``device`` nor ``cfg``;
 with the same calibration (and, for ``zoo-swap-storm``, the same
 generation registry) their results are the reference's.
-
-The reference's control-plane scenarios (``flaky-exec``,
-``device-flap``, ``node-flap``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import random
@@ -91,19 +100,17 @@ import tempfile
 import zlib
 from typing import Callable, Dict, List, Optional, Sequence
 
-import numpy as np
-import torch
-
 from kind_tpu_sim_torch import fleet, metrics
-from kind_tpu_sim_torch.device import resolve
-from kind_tpu_sim_torch.fleet import knobs
-from kind_tpu_sim_torch.models import checkpoint as ckpt
-from kind_tpu_sim_torch.models import transformer as tf
-from kind_tpu_sim_torch.models.serving import (
-    Request,
-    ServingConfig,
-    ServingEngine,
+from kind_tpu_sim_torch.analysis import knobs
+from kind_tpu_sim_torch.utils.shell import (
+    CommandError,
+    ExecResult,
+    FakeExecutor,
+    RetryPolicy,
+    run_with_retry,
 )
+
+log = logging.getLogger("kind-tpu-sim-torch")
 
 FAULT_KINDS = (
     "worker_crash",
@@ -359,6 +366,114 @@ class ChaosSchedule:
         return FaultPlan(seed=self.seed, events=tuple(events))
 
 
+class FlakyExecutor(FakeExecutor):
+    """FakeExecutor that injects TRANSIENT failures from a fault
+    plan: commands matching ``flaky_prefix`` fail their first
+    ``fail_attempts`` invocations with a retryable error, then
+    delegate to the normal rule table. The unit under test is the
+    retry layer (shell.run_with_retry): the command stream must
+    complete as if nothing happened, with the retries observable in
+    metrics.recovery_log()."""
+
+    def __init__(self, rules=None, binaries=None,
+                 flaky_prefix: str = "kubectl",
+                 fail_attempts: int = 2,
+                 error_text: str = ("Unable to connect to the server: "
+                                    "dial tcp 127.0.0.1:6443: connect:"
+                                    " connection refused")):
+        super().__init__(rules, binaries)
+        self.flaky_prefix = flaky_prefix
+        self.fail_attempts = fail_attempts
+        self.error_text = error_text
+        self.injected_failures = 0
+        self._attempts: Dict[str, int] = {}
+
+    def run(self, argv, *, input_text=None, check=True, capture=True,
+            env=None, timeout=None):
+        joined = " ".join(argv)
+        if joined.startswith(self.flaky_prefix):
+            seen = self._attempts.get(joined, 0)
+            if seen < self.fail_attempts:
+                self._attempts[joined] = seen + 1
+                self.injected_failures += 1
+                self.calls.append((list(argv), input_text))
+                result = ExecResult(1, "", self.error_text)
+                if check and not result.ok:
+                    raise CommandError(argv, result)
+                return result
+        return super().run(argv, input_text=input_text, check=check,
+                           capture=capture, env=env, timeout=timeout)
+
+
+class ChaosManager:
+    """The manual levers (``chaos fail | heal | kill-node |
+    start-node``) against a cluster's node containers: device health
+    through the plugin's unhealthy file, and node stop / start."""
+
+    def __init__(self, cfg: "SimConfig", runtime: "ContainerRuntime",
+                 cluster: "ClusterManager"):
+        self.cfg = cfg
+        self.rt = runtime
+        self.cluster = cluster
+
+    def resolve_node(self, node: Optional[str],
+                     worker: Optional[int]) -> str:
+        if node:
+            return node
+        workers = self.cluster.worker_nodes()
+        if worker is None:
+            raise ValueError("specify --node or --worker")
+        if not 0 <= worker < len(workers):
+            raise ValueError(
+                f"--worker {worker} out of range ({len(workers)} workers)"
+            )
+        return workers[worker]
+
+    def fail_devices(self, node: str, device_ids: List[str]) -> None:
+        """Mark devices unhealthy on a node (empty list = all).
+
+        Device IDs come from ``MultiSlice.device_ids`` on the node's
+        GLOBAL worker index — the job-level scheme the plugin uses
+        (``DevicePlugin::DeviceIds``), valid on every slice of a
+        ``--num-slices > 1`` cluster (per-slice ``Slice.device_ids``
+        would reject nodes of slice >= 1).
+        """
+        if not device_ids:
+            workers = self.cluster.worker_nodes()
+            device_ids = self.cfg.multislice.device_ids(
+                workers.index(node))
+        from kind_tpu_sim_torch import manifests
+
+        content = "\n".join(device_ids) + "\n"
+        self.rt.run(
+            "exec", node, "mkdir", "-p", manifests.SIM_STATE_DIR
+        )
+        self.rt.run(
+            "exec", "-i", node, "sh", "-c",
+            f"cat > {manifests.UNHEALTHY_FILE}",
+            input_text=content,
+        )
+        log.info("marked %d device(s) unhealthy on %s",
+                 len(device_ids), node)
+
+    def heal(self, node: str) -> None:
+        from kind_tpu_sim_torch import manifests
+
+        self.rt.run(
+            "exec", node, "sh", "-c",
+            f"rm -f {manifests.UNHEALTHY_FILE}",
+        )
+        log.info("healed all devices on %s", node)
+
+    def kill_node(self, node: str) -> None:
+        self.rt.run("stop", node)
+        log.info("stopped node container %s", node)
+
+    def start_node(self, node: str) -> None:
+        self.rt.run("start", node)
+        log.info("started node container %s", node)
+
+
 # ---------------------------------------------------------------------
 # named scenarios
 
@@ -386,13 +501,135 @@ def _scenario(name: str, description: str, slow: bool = False,
     return register
 
 
-def _tiny_config(max_seq: int) -> tf.ModelConfig:
+def _fake_chaos_manager(num_slices: int = 1) -> ChaosManager:
+    """A ChaosManager over the dry-run control plane — scenario
+    plumbing for the device/node fault kinds, no daemon needed."""
+    from kind_tpu_sim_torch.cluster import ClusterManager
+    from kind_tpu_sim_torch.config import SimConfig
+    from kind_tpu_sim_torch.fakes import dry_run_executor
+    from kind_tpu_sim_torch.registry import LocalRegistry
+    from kind_tpu_sim_torch.runtime import detect_runtime
+
+    cfg = SimConfig(runtime="fake", num_slices=num_slices)
+    executor = dry_run_executor(cfg)
+    # detect_runtime('fake') binds the SAME recording executor, so
+    # scenarios can assert on the full command stream afterwards
+    runtime = detect_runtime(executor, prefer="fake")
+    cluster = ClusterManager(cfg, runtime,
+                             LocalRegistry(cfg, runtime))
+    return ChaosManager(cfg, runtime, cluster)
+
+
+@_scenario("flaky-exec",
+           "transient kubectl failures recovered by the classified "
+           "retry policy (exponential backoff + jitter)", device=False)
+def _scenario_flaky_exec(seed: int) -> dict:
+    plan = ChaosSchedule(seed).plan(kinds=("cmd_transient",),
+                                    n_faults=2, horizon=4, targets=1)
+    fail_attempts = max(1, int(plan.events[0].param))
+    fake = FlakyExecutor(fail_attempts=fail_attempts)
+    policy = RetryPolicy(max_retries=3, base_ms=1.0, seed=seed)
+    commands = (["kubectl", "get", "nodes", "-o", "jsonpath={..}"],
+                ["kubectl", "get", "pods", "-A", "-o", "json"])
+    results = [run_with_retry(fake, argv, policy=policy)
+               for argv in commands]
+    ok = all(r.ok for r in results)
+    return {
+        "plan": plan.as_dict(),
+        "injected_failures": fake.injected_failures,
+        "commands_completed": sum(1 for r in results if r.ok),
+        "ok": bool(ok and fake.injected_failures
+                   == fail_attempts * len(commands)),
+    }
+
+
+@_scenario("device-flap",
+           "seeded fail/heal cycles through the device plugin's "
+           "health channel (dry-run control plane)", device=False)
+def _scenario_device_flap(seed: int) -> dict:
+    plan = ChaosSchedule(seed).plan(kinds=("device_flap",),
+                                    n_faults=3, horizon=6, targets=2)
+    mgr = _fake_chaos_manager()
+    workers = mgr.cluster.worker_nodes()
+    flaps = 0
+    for ev in plan.events:
+        node = workers[ev.target % len(workers)]
+        mgr.fail_devices(node, [])
+        mgr.heal(node)
+        flaps += 1
+        metrics.recovery_log().record("device_flap", node=node)
+    cmds = mgr.rt.executor.commands()
+    from kind_tpu_sim_torch import manifests
+
+    fails = sum(1 for c in cmds if "cat >" in c or "exec -i" in c)
+    heals = sum(1 for c in cmds
+                if f"rm -f {manifests.UNHEALTHY_FILE}" in c)
+    return {
+        "plan": plan.as_dict(),
+        "flaps": flaps,
+        "fail_writes": fails,
+        "heal_writes": heals,
+        # every flap must end healed — the recovery invariant
+        "ok": bool(flaps == len(plan.events) and heals == flaps),
+    }
+
+
+@_scenario("node-flap",
+           "seeded kill/restart cycles of kind node containers "
+           "(dry-run control plane)", device=False)
+def _scenario_node_flap(seed: int) -> dict:
+    plan = ChaosSchedule(seed).plan(
+        kinds=("node_kill", "node_restart"), n_faults=4, horizon=8,
+        targets=2)
+    mgr = _fake_chaos_manager()
+    workers = mgr.cluster.worker_nodes()
+    killed: List[str] = []
+    for ev in plan.events:
+        node = workers[ev.target % len(workers)]
+        if ev.kind == "node_kill":
+            mgr.kill_node(node)
+            killed.append(node)
+            metrics.recovery_log().record("node_kill", node=node)
+        else:
+            mgr.start_node(node)
+            metrics.recovery_log().record("node_restart", node=node)
+    # recovery invariant: every killed node is restarted before the
+    # scenario ends, whatever order the plan drew. sorted(): set
+    # order is hash-seed noise, and these restarts drive the
+    # recorded command stream scenarios assert on byte-for-byte.
+    for node in sorted(set(killed)):
+        mgr.start_node(node)
+    cmds = mgr.rt.executor.commands()
+    stops = [c for c in cmds if c.startswith("docker stop")]
+    starts = [c for c in cmds if c.startswith("docker start")]
+    ok = all(any(s.endswith(node) for s in starts)
+             for node in sorted(set(killed)))
+    return {
+        "plan": plan.as_dict(),
+        "kills": len(stops),
+        "restarts": len(starts),
+        "ok": bool(ok),
+    }
+
+
+# The device scenarios import torch and the models inside their
+# functions: the fault vocabulary, the plans and the analytic scenarios
+# load without torch (cold workers, the tuner's chaos schedules).
+
+
+def _tiny_config(max_seq: int) -> "tf.ModelConfig":
     """The reference scenarios' model (bf16 activations)."""
+    from kind_tpu_sim_torch.models import transformer as tf
+
     return tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
                           d_ff=64, max_seq=max_seq)
 
 
-def _params(cfg: tf.ModelConfig, dev: torch.device):
+def _params(cfg: "tf.ModelConfig", dev: "torch.device"):
+    import torch
+
+    from kind_tpu_sim_torch.models import transformer as tf
+
     return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                           dev)
 
@@ -401,7 +638,10 @@ def _params(cfg: tf.ModelConfig, dev: torch.device):
            "SIGTERM mid-step; checkpoint written, resume reproduces the "
            "uninterrupted loss trajectory", slow=True)
 def _scenario_preempt_train(seed: int, *, device="cuda",
-                            cfg: Optional[tf.ModelConfig] = None) -> dict:
+                            cfg: Optional["tf.ModelConfig"] = None) -> dict:
+    from kind_tpu_sim_torch.device import resolve
+    from kind_tpu_sim_torch.models import checkpoint as ckpt
+
     dev = resolve(device)
     plan = ChaosSchedule(seed).plan(kinds=("preempt_sigterm",),
                                     n_faults=1, horizon=5, targets=1)
@@ -446,8 +686,14 @@ def _scenario_preempt_train(seed: int, *, device="cuda",
            "a serving slot dies mid-stream; its request requeues and every "
            "accepted request completes uncorrupted", slow=True)
 def _scenario_serving_slot_failure(seed: int, *, device="cuda",
-                                   cfg: Optional[tf.ModelConfig] = None
+                                   cfg: Optional["tf.ModelConfig"] = None
                                    ) -> dict:
+    import numpy as np
+
+    from kind_tpu_sim_torch.device import resolve
+    from kind_tpu_sim_torch.models.serving import (Request, ServingConfig,
+                                                   ServingEngine)
+
     dev = resolve(device)
     plan = ChaosSchedule(seed).plan(kinds=("slot_failure",),
                                     n_faults=1, horizon=2, targets=2)
@@ -507,7 +753,11 @@ class _RunClock:
            "streams stay identical to fault-free, and SLO attainment "
            "recovers to baseline", slow=True)
 def _scenario_fleet_preemption(seed: int, *, device="cuda",
-                               cfg: Optional[tf.ModelConfig] = None) -> dict:
+                               cfg: Optional["tf.ModelConfig"] = None) -> dict:
+    from kind_tpu_sim_torch.device import resolve
+    from kind_tpu_sim_torch.models.serving import (Request, ServingConfig,
+                                                   ServingEngine)
+
     dev = resolve(device)
     plan = ChaosSchedule(seed).plan(kinds=("replica_preempt",),
                                     n_faults=1, horizon=4, targets=2)
@@ -2538,3 +2788,41 @@ def run_scenario(name: str, seed: Optional[int] = None, **kwargs) -> dict:
         "recovery_events": metrics.recovery_log().snapshot_since(before),
     })
     return report
+
+
+def soak(iterations: int = 10, seed: Optional[int] = None,
+         include_slow: bool = False, **kwargs) -> dict:
+    """Repeated seeded scenario runs (the `chaos soak` CLI): the
+    iteration stream is itself derived from the seed, so a soak that
+    finds a failure names the exact (scenario, seed) pair to replay
+    with `chaos run`. ``kwargs`` (a device scenario's ``device``) go
+    to :func:`run_scenario`."""
+    from kind_tpu_sim_torch.scenarios import registry
+
+    seed = resolve_seed(seed)
+    rng = random.Random(zlib.crc32(f"soak:{seed}".encode("utf-8")))
+    # the pick pool derives from the registry (sorted), so a new
+    # scenario can never be silently missing from soak — and the
+    # seeded stream stays a pure function of the registry contents
+    names = registry.soak_names(include_slow=include_slow)
+    runs = []
+    failures = 0
+    for i in range(iterations):
+        name = rng.choice(names)
+        sub_seed = rng.randrange(2 ** 31)
+        report = run_scenario(name, seed=sub_seed, **kwargs)
+        runs.append({"scenario": name, "seed": sub_seed,
+                     "ok": report["ok"]})
+        if not report["ok"]:
+            failures += 1
+            log.error("soak failure: replay with "
+                      "`chaos run --scenario %s --seed %d`",
+                      name, sub_seed)
+    return {
+        "seed": seed,
+        "iterations": iterations,
+        "failures": failures,
+        "runs": runs,
+        "recovery_events": metrics.recovery_log().counts(),
+        "ok": failures == 0,
+    }

@@ -1,5 +1,15 @@
 """Command line of the PyTorch port.
 
+    python -m kind_tpu_sim_torch create [tpu|rocm|nvidia] [--accelerator A]
+        [--topology T] [--num-slices N] [--capacity-mode plugin|patch]
+        [--skip-plugin] [--gpu-workers N] [--gpus-per-node N]
+        [--timing-json F] [--registry-port P] [--cluster-name NAME]
+        [--runtime auto|docker|podman|fake] [-v]
+    python -m kind_tpu_sim_torch delete|status [--json] [--runtime R] [-v]
+    python -m kind_tpu_sim_torch load --image-name IMAGE [--runtime R] [-v]
+    python -m kind_tpu_sim_torch chaos fail|heal|kill-node|start-node
+        [--node NAME | --worker N] [--devices ID,...] [--accelerator A]
+        [--topology T] [--num-slices N] [--runtime R] [-v]
     python -m kind_tpu_sim_torch train-smoke [--steps N] [--batch B]
         [--checkpoint-dir DIR] [--json] [--device cuda|cpu]
     python -m kind_tpu_sim_torch profile [--out DIR] [--json]
@@ -24,8 +34,14 @@
         [--save-trace F] [--out F] [--json] [--device cuda|cpu]
     python -m kind_tpu_sim_torch fleet calibrate --bench PATH [--out PATH]
         [--json]
+    python -m kind_tpu_sim_torch fleet|globe tune [--budget N]
+        [--tune-seed N] [--chaos-budget N] [--tune-workers N]
+        [--spec-out F] [--replay-spec F] [fleet: --ratios P:D,... --sdc
+        --zoo --tenancy] [the run flags of the workload] [--out F] [--json]
     python -m kind_tpu_sim_torch chaos run [--scenario NAME|all]
         [--include-slow] [--seed N] [--list] [--json] [--device cuda|cpu]
+    python -m kind_tpu_sim_torch chaos soak [--iterations N] [--seed N]
+        [--include-slow] [--json] [--device cuda|cpu]
     python -m kind_tpu_sim_torch chaos fuzz [--budget N] [--seed N]
         [--max-faults N] [--inject-invariant-bug] [--emit-repros DIR]
         [--json]
@@ -115,13 +131,37 @@ load; ``--generations G1,G2`` cycles generation names over the replica
 ids, each replica priced from its generation's calibration. The port
 registers one generation, ``h100``, and a zoo without ``--generations``
 takes it; another name raises the reference's "unknown generation".
-``fleet tune`` is refused, naming its layer.
+``fleet tune`` is the reference's seeded search (``tune/``): candidates
+of the fleet design space (``--zoo``: generations and model placement
+from the port's registry; ``--sdc``: the audit fraction; ``--ratios``:
+the disagg pool ratios) screened on a short trace, survivors run on the
+whole trace, the Pareto front of chip-seconds against goodput and
+attainment and its knee the winner, with ``--chaos-budget`` fault
+schedules re-scoring the finalists; every candidate is an analytic
+fleet priced from the calibration, so it refuses ``--device``.
+``--tune-workers N`` scores candidates in N cold worker processes (the
+same report), ``--spec-out`` writes the winner's spec and
+``--replay-spec`` re-scores one. It prints ``TUNE OK`` or ``TUNE
+FAILED`` (or the JSON report) and exits 0 or 1.
+
+``create``, ``delete``, ``load``, ``status`` and ``chaos fail | heal |
+kill-node | start-node`` are the reference's cluster layer
+(``config.py``, ``runtime.py``, ``registry.py``, ``cluster.py``,
+``plugin.py``): a kind cluster whose workers advertise simulated
+accelerators. ``create nvidia`` makes the ``nvidia.com/gpu`` nodes the
+port's GPU pods select (``hardware-type: gpu``, tolerating
+``gpu=true:NoSchedule``). It needs docker or podman, ``kind`` and
+``kubectl`` and fails naming a missing one (exit 1); ``--runtime fake``
+runs over a dry-run control plane (``fakes.py``) that records every
+command, printed to stderr with ``-v``.
 
 ``chaos run`` is the counterpart of ``python -m kind_tpu_sim chaos run``
 (``run_chaos_engine``) for the ported scenarios (``chaos.py``): the
 three that drive device work, ``preempt-train``,
 ``serving-slot-failure`` and ``fleet-preemption`` (slow, on
-``--device``), and twenty-two that do no device work: fifteen
+``--device``), and twenty-five that do no device work: the three
+control-plane ones over the fake runtime (``flaky-exec``,
+``device-flap``, ``node-flap``), fifteen
 analytic ones (``disagg-pool-loss``, ``zoo-swap-storm`` and the thirteen
 virtual-clock scenarios of the fleet's control layers, the scheduler and
 the training tenancy), the four globe scenarios (``globe-zone-loss``,
@@ -145,14 +185,17 @@ repro specs (``--emit-repros DIR`` writes them); ``--inject-invariant-bug``
 plants the self-test's broken invariant, which the campaign must find and
 shrink. Its report is the reference's for the same calibration and
 generation registry; on the H100's, seed 1 finds two ``recovery``
-violations by the numbers and exits 1. ``chaos soak`` is refused, naming
-the queue item that brings the three scenarios its pick pool lacks.
+violations by the numbers and exits 1. ``chaos soak`` runs
+``--iterations`` scenarios drawn, with their seeds, from ``--seed``
+over the registry's pool (the slow ones with ``--include-slow``), the
+reference's (scenario, seed) stream.
 
 ``analysis replay`` is the reference's replay checker
 (``analysis/replaycheck.py``): ``--scenario`` runs twice under one seed
 and bisects any divergence to the first differing event; without it the
-targets are listed. The reference's ``tune`` target and ``analysis
-lint | contract | knobs`` are refused, naming their queue items.
+targets are listed; they are the reference's, the ``tune`` search
+included. ``analysis lint | contract | knobs`` are refused, naming their
+queue item.
 
 ``globe run | trace`` is the counterpart of ``python -m kind_tpu_sim
 globe`` (``run_globe``): zones of analytic cells (each a ``FleetSim``,
@@ -162,8 +205,9 @@ planner), ``--overload`` and ``--tenancy``; ``trace`` prints or saves
 (``--save-trace``) the per-zone traces, and ``--trace-file`` replays one.
 ``--shards N`` (or ``KIND_TPU_SIM_GLOBE_SHARDS``) above 1 runs the cells
 in N cold worker processes (``globe/shard.py``), with the same report.
-Its output is the reference's. ``globe tune`` is refused, naming the
-queue item that brings it.
+Its output is the reference's. ``globe tune`` is the tuner over the
+globe's design space (zones, cells, replicas, spill headroom), with
+``fleet tune``'s tune flags.
 
 ``sched run | trace``, ``train run | plan`` and ``health knobs | demo``
 are the reference's commands (``run_sched``, ``run_train``,
@@ -181,18 +225,64 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import shutil
+import sys
 import time
 from typing import Optional, Sequence
 
-import numpy as np
-import torch
+from kind_tpu_sim_torch import config
+from kind_tpu_sim_torch import topology as topo
 
-from kind_tpu_sim_torch import data
-from kind_tpu_sim_torch.device import resolve
-from kind_tpu_sim_torch.models import checkpoint as ckpt
-from kind_tpu_sim_torch.models import transformer as tf
-from kind_tpu_sim_torch.parallel import mesh
+# torch and the models load inside the commands that drive a device, so
+# the host-only commands (the simulators, the tuner, the cluster layer)
+# start without them
+
+
+def _add_tune_args(parser, target: str) -> None:
+    """The ``tune`` action's flags, shared by the fleet and globe
+    subparsers (the reference's, ``kind_tpu_sim/cli.py:_add_tune_args``)."""
+    parser.add_argument(
+        "--budget", type=int, default=None,
+        help="tune: candidates to draw and screen (default: "
+             "KIND_TPU_SIM_TUNE_BUDGET or 16)")
+    parser.add_argument(
+        "--tune-seed", type=int, default=None,
+        help="tune: search-stream seed (default: "
+             "KIND_TPU_SIM_TUNE_SEED or 0); distinct from --seed, "
+             "which stays the workload seed")
+    parser.add_argument(
+        "--chaos-budget", type=int, default=None,
+        help="tune: re-score finalists under this many fuzzer-drawn "
+             "fault schedules and prefer all-schedule survivors "
+             "(default: KIND_TPU_SIM_TUNE_CHAOS_BUDGET or 0 = off)")
+    parser.add_argument(
+        "--tune-workers", type=int, default=0,
+        help="tune: evaluate candidates across this many cold worker "
+             "processes (0 = in-process; the search trace is "
+             "byte-identical either way)")
+    parser.add_argument(
+        "--spec-out", default=None,
+        help="tune: write the winner's runnable sorted-keys JSON "
+             "spec to this file (replay it with --replay-spec)")
+    parser.add_argument(
+        "--replay-spec", default=None, metavar="PATH",
+        help="tune: skip the search and re-score this winner spec "
+             "standalone (prints the metrics row)")
+    if target == "fleet":
+        parser.add_argument(
+            "--ratios", default=None, metavar="P:D,...",
+            help="tune: restrict the search space to these disagg "
+                 "pool ratios at the --policy placement (e.g. "
+                 "1:3,2:2,3:1); default searches the full fleet "
+                 "design space")
+        parser.add_argument(
+            "--sdc", action="store_true",
+            help="tune: search the integrity design space "
+                 "(audit_frac x replicas x policy), scored against "
+                 "dedicated sdc_chip storms when --chaos-budget > 0; "
+                 "survival demands zero uncontained corrupted "
+                 "responses")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -200,6 +290,61 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m kind_tpu_sim_torch",
         description="PyTorch + CUDA port of kind_tpu_sim's model path")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    # the cluster layer's flags (the reference's ``common`` parent)
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--registry-port", type=int, default=5000)
+    common.add_argument("--cluster-name", default="kind-tpu-sim")
+    common.add_argument(
+        "--runtime", choices=["auto", "docker", "podman", "fake"],
+        default="auto",
+        help="container runtime; 'fake' records commands without a daemon")
+    common.add_argument("-v", "--verbose", action="store_true")
+
+    create = sub.add_parser(
+        "create", parents=[common],
+        help=("create a simulated accelerator cluster (nvidia: the "
+              "nvidia.com/gpu nodes the port's GPU pods run on)"))
+    create.add_argument("vendor", nargs="?", choices=list(config.VENDORS),
+                        default="tpu")
+    create.add_argument("--accelerator", default=topo.DEFAULT_ACCELERATOR,
+                        choices=sorted(topo.ACCELERATORS),
+                        help="TPU generation to simulate")
+    create.add_argument("--topology", default=topo.DEFAULT_TOPOLOGY,
+                        help="TPU slice topology, e.g. 4x4 (v5e) or 2x2x4 "
+                             "(v4)")
+    create.add_argument(
+        "--num-slices", type=int, default=1,
+        help=("simulate a TPU multislice job: N identical ICI slices "
+              "joined over DCN (one set of kind workers per slice; pods "
+              "get MEGASCALE_* env from the device plugin)"))
+    create.add_argument(
+        "--capacity-mode", choices=["plugin", "patch"], default="plugin",
+        help=("plugin: durable capacity from the device plugin (default); "
+              "patch: the source system's one-shot node-status patch"))
+    create.add_argument(
+        "--skip-plugin", action="store_true",
+        help="skip the device-plugin build/deploy (patch mode only)")
+    create.add_argument("--gpu-workers", type=int, default=2,
+                        help="worker count for rocm/nvidia clusters")
+    create.add_argument("--gpus-per-node", type=int, default=2,
+                        help="fake GPUs per worker for rocm/nvidia clusters")
+    create.add_argument("--timing-json", default=None,
+                        help="write create-pipeline phase timings to this "
+                             "file")
+
+    sub.add_parser("delete", parents=[common],
+                   help="tear down cluster and registry")
+
+    load = sub.add_parser("load", parents=[common],
+                          help="side-load an image into the cluster")
+    load.add_argument("--image-name", required=True)
+
+    status = sub.add_parser(
+        "status", parents=[common],
+        help="show simulated capacity and pod Ready latency")
+    status.add_argument("--json", action="store_true", dest="as_json")
+
     train = sub.add_parser(
         "train-smoke",
         help=("no-cluster training proof: packed and prefetched input "
@@ -233,7 +378,7 @@ def build_parser() -> argparse.ArgumentParser:
               "and run cross-host collectives"))
     smoke.add_argument("--topology", default="2x2x2")
     smoke.add_argument("--accelerator", default="tpu-v4-podslice",
-                       choices=sorted(mesh.ACCELERATORS))
+                       choices=sorted(topo.ACCELERATORS))
     smoke.add_argument(
         "--ring-tokens", type=int, default=0,
         help=("also run the long-context ring-attention smoke over the "
@@ -277,9 +422,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="print a topology-derived workload manifest (no cluster "
              "needed)")
     man.add_argument("which", choices=["torch-multihost"])
-    man.add_argument("--topology", default=mesh.DEFAULT_TOPOLOGY)
-    man.add_argument("--accelerator", default=mesh.DEFAULT_ACCELERATOR,
-                     choices=sorted(mesh.ACCELERATORS))
+    man.add_argument("--topology", default=topo.DEFAULT_TOPOLOGY)
+    man.add_argument("--accelerator", default=topo.DEFAULT_ACCELERATOR,
+                     choices=sorted(topo.ACCELERATORS))
     man.add_argument("--num-slices", type=int, default=1,
                      help="one torch.distributed world per slice")
     man.add_argument("--out", default=None,
@@ -413,6 +558,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "each replica priced from its generation's "
                          "calibration (registered: h100); under --sched the "
                          "one generation is the gangs' accelerator label's")
+    _add_tune_args(fl, "fleet")
 
     gl = sub.add_parser(
         "globe",
@@ -513,6 +659,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--out", default=None,
         help="write the full JSON report to this file")
     gl.add_argument("--json", action="store_true", dest="as_json")
+    _add_tune_args(gl, "globe")
 
     sd = sub.add_parser(
         "sched",
@@ -652,19 +799,37 @@ def build_parser() -> argparse.ArgumentParser:
     he.add_argument("--json", action="store_true", dest="as_json")
 
     ch = sub.add_parser(
-        "chaos",
-        help=("seeded chaos scenarios that drive the engines, the trainer "
-              "and the fleet through their recovery paths, and the seeded "
-              "fuzzer that composes fault schedules (fuzz)"))
-    ch.add_argument("action", choices=["run", "soak", "fuzz"])
+        "chaos", parents=[common],
+        help=("fault injection: the manual levers (fail, heal, kill-node, "
+              "start-node) against a cluster, the seeded scenarios that "
+              "drive the engines, the trainer, the fleet and the control "
+              "plane through their recovery paths (run, soak), and the "
+              "seeded fuzzer that composes fault schedules (fuzz)"))
+    ch.add_argument("action", choices=["fail", "heal", "kill-node",
+                                       "start-node", "run", "soak", "fuzz"])
+    ch.add_argument("--node", default=None,
+                    help="target node container name")
+    ch.add_argument("--worker", type=int, default=None,
+                    help="target worker by id (alternative to --node)")
+    ch.add_argument("--devices", default="",
+                    help="comma-separated device IDs for 'fail' (default: "
+                         "all)")
+    ch.add_argument("--topology", default=topo.DEFAULT_TOPOLOGY)
+    ch.add_argument("--accelerator", default=topo.DEFAULT_ACCELERATOR,
+                    choices=sorted(topo.ACCELERATORS))
+    ch.add_argument("--num-slices", type=int, default=1,
+                    help="match the create-time multislice shape so "
+                         "--worker range checks cover every slice's nodes")
+    ch.add_argument("--iterations", type=int, default=10,
+                    help="seeded scenario runs for 'soak'")
     ch.add_argument("--scenario", default=None,
                     help="named scenario, or 'all'; omit to list them")
     ch.add_argument("--seed", type=int, default=None,
                     help="fault-plan seed (default: KIND_TPU_SIM_CHAOS_SEED "
                          "or 0; fuzz: KIND_TPU_SIM_FUZZ_SEED or 0)")
     ch.add_argument("--include-slow", action="store_true",
-                    help="'all' includes the slow scenarios (the three "
-                         "that drive device work)")
+                    help="run all / soak may pick the slow scenarios (the "
+                         "three that drive device work)")
     ch.add_argument("--list", action="store_true", dest="list_scenarios",
                     help="print the scenario registry (with --json: one "
                          "sorted-keys row per scenario) and exit")
@@ -708,8 +873,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def smoke_config() -> tf.ModelConfig:
+def smoke_config() -> "tf.ModelConfig":
     """The reference's train-smoke model (bf16 activations)."""
+    from kind_tpu_sim_torch.models import transformer as tf
+
     return tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
                           d_ff=64, max_seq=16)
 
@@ -721,6 +888,14 @@ def run_train_smoke(args: argparse.Namespace) -> int:
         raise SystemExit(
             "train-smoke needs --steps >= 10 (the ok-check compares the "
             "first five losses against the last five)")
+    import numpy as np
+    import torch
+
+    from kind_tpu_sim_torch import data
+    from kind_tpu_sim_torch.device import resolve
+    from kind_tpu_sim_torch.models import checkpoint as ckpt
+    from kind_tpu_sim_torch.models import transformer as tf
+
     dev = resolve(args.device)
     cfg = smoke_config()
     step, init = tf.make_train_step(cfg, learning_rate=1e-2, device=dev)
@@ -800,7 +975,7 @@ def run_profile(args: argparse.Namespace) -> int:
 
 
 def run_slice_smoke(args: argparse.Namespace) -> int:
-    from kind_tpu_sim_torch.parallel import multihost
+    from kind_tpu_sim_torch.parallel import mesh, multihost
 
     if args.ring_tokens:
         # fail fast: a token count the ranks cannot split would crash
@@ -936,6 +1111,7 @@ def serving_fleet_config() -> tuple:
     """(model config, serving config) of the reference's engine fleet:
     the tiny model (bf16 activations) in 4 slots of 128 positions, at
     most 64 requests queued an engine."""
+    from kind_tpu_sim_torch.models import transformer as tf
     from kind_tpu_sim_torch.models.serving import ServingConfig
 
     cfg = tf.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
@@ -1108,6 +1284,127 @@ def fleet_calibrate(args: argparse.Namespace) -> int:
     return 0 if max(errors.values()) <= costmodel.MAX_ERROR_FRAC else 1
 
 
+def _tune_output(report: dict, args: argparse.Namespace) -> int:
+    """Shared ``fleet tune`` / ``globe tune`` output: the report file,
+    the winner spec file, JSON or the human summary ending ``TUNE OK``
+    or ``TUNE FAILED``; exit 0 or 1."""
+    from kind_tpu_sim_torch import tune
+
+    text = json.dumps(report, sort_keys=True)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
+    if args.spec_out:
+        spec_text = tune.winner_spec_text(report)
+        if spec_text is None:
+            print("no winner to write", file=sys.stderr)
+        else:
+            with open(args.spec_out, "w", encoding="utf-8") as fh:
+                fh.write(spec_text + "\n")
+            print(f"winner spec -> {args.spec_out}")
+    if args.as_json:
+        print(text)
+    else:
+        front = report["pareto"]["front"]
+        print(f"tune[{report['target']}]: "
+              f"{report['distinct_candidates']} candidate(s) from "
+              f"budget {report['budget']}, seed {report['seed']}, "
+              f"{report['evaluations']} evaluation(s)")
+        print(f"  finalists {report['finalists']}  "
+              f"pareto front {len(front)} point(s)")
+        for p in front:
+            print(f"    #{p['index']}: cost {p['cost_chip_s']} "
+                  f"chip-s  goodput {p['goodput_tok_s']} tok/s  "
+                  f"attainment {p['attainment']}")
+        if "chaos" in report:
+            ch = report["chaos"]
+            print(f"  chaos: {ch['budget']} schedule(s), front "
+                  f"survivors {ch['front_survivors']}")
+        winner = report.get("winner")
+        if winner is not None:
+            cand = json.dumps(winner["candidate"], sort_keys=True)
+            print(f"  winner #{winner['index']}: {cand}")
+        print("TUNE " + ("OK" if report["ok"] else "FAILED"))
+    return 0 if report["ok"] else 1
+
+
+def _replay_tune_spec(path: str) -> int:
+    from kind_tpu_sim_torch import tune
+
+    with open(path, "r", encoding="utf-8") as fh:
+        spec = json.load(fh)
+    metrics = tune.replay(spec)
+    print(json.dumps(metrics, sort_keys=True))
+    return 0 if metrics.get("ok") else 1
+
+
+def fleet_tune(args: argparse.Namespace) -> int:
+    """``fleet tune``: seeded successive-halving search over the fleet
+    design space (``--zoo``: the generation and placement space of the
+    port's registry; ``--sdc``: the audit space; ``--ratios``: the
+    disagg ratios) against this workload and SLO, on analytic fleets
+    priced from the calibration. The report is the same across runs and
+    ``--tune-workers`` counts of one tune seed."""
+    from kind_tpu_sim_torch import fleet, tune
+
+    if args.device is not None:
+        raise SystemExit(
+            "fleet tune scores analytic fleets, which do no device work: "
+            "drop --device")
+    if args.replay_spec:
+        return _replay_tune_spec(args.replay_spec)
+    seed = fleet.resolve_seed(args.seed)
+    tenancy = fleet.default_tenancy() if args.tenancy else None
+    zoo = fleet.default_zoo() if args.zoo else None
+    workload = fleet.WorkloadSpec(
+        process=args.process, rps=args.rps,
+        n_requests=args.requests,
+        shared_prefix_frac=args.shared_prefix_frac,
+        prefix_groups=args.prefix_groups,
+        deadline_s=args.deadline_s,
+        tenancy=tenancy, zoo=zoo)
+    slo = fleet.SloPolicy(ttft_s=args.ttft_slo,
+                          e2e_s=args.e2e_slo,
+                          itl_s=args.itl_slo)
+    if args.zoo:
+        space = tune.zoo_space()
+    elif args.sdc:
+        space = tune.sdc_space()
+    elif args.ratios:
+        space = tune.ratio_space(
+            tuple(args.ratios.split(",")), policy=args.policy)
+    else:
+        space = tune.default_fleet_space()
+    report = tune.tune(
+        space, workload, slo, seed=args.tune_seed,
+        budget=args.budget, workers=args.tune_workers,
+        chaos_budget=args.chaos_budget, workload_seed=seed)
+    return _tune_output(report, args)
+
+
+def globe_tune(args: argparse.Namespace) -> int:
+    """``globe tune``: seeded successive-halving search over the global
+    design space (zones, cells, replicas, spill headroom) against this
+    workload."""
+    from kind_tpu_sim_torch import globe, tune
+
+    if args.replay_spec:
+        return _replay_tune_spec(args.replay_spec)
+    seed = globe.resolve_seed(args.seed)
+    workload = globe.GlobeWorkloadSpec(
+        process=args.process, rps=args.rps,
+        n_per_zone=args.requests,
+        diurnal_period_s=args.diurnal_period_s)
+    slo = globe.GlobeConfig().slo
+    space = tune.default_globe_space()
+    report = tune.tune(
+        space, workload, slo, seed=args.tune_seed,
+        budget=args.budget, workers=args.tune_workers,
+        chaos_budget=args.chaos_budget, workload_seed=seed,
+        max_virtual_s=args.max_virtual_s)
+    return _tune_output(report, args)
+
+
 def run_fleet(args: argparse.Namespace) -> int:
     """``fleet run`` / ``fleet trace`` / ``fleet calibrate``. A run's JSON
     report (sorted keys) is the same for two runs of one seed."""
@@ -1116,9 +1413,7 @@ def run_fleet(args: argparse.Namespace) -> int:
     if args.action == "calibrate":
         return fleet_calibrate(args)
     if args.action == "tune":
-        raise SystemExit(
-            "fleet tune belongs to the simulator's tuner, which the port "
-            "does not carry yet (python -m kind_tpu_sim fleet tune)")
+        return fleet_tune(args)
     if args.engine == "sim" and args.device is not None:
         raise SystemExit(
             "--engine sim runs the analytic replicas, which do no device "
@@ -1143,6 +1438,11 @@ def run_fleet(args: argparse.Namespace) -> int:
             cal = fleet.load_calibration(args.calibration)
         sim = fleet.FleetSim(fc, trace, calibration=cal)
     else:
+        import torch
+
+        from kind_tpu_sim_torch.device import resolve
+        from kind_tpu_sim_torch.models import transformer as tf
+
         dev = resolve(args.device or "cuda")
         cfg, sc = serving_fleet_config()
         bad = [r for r in trace
@@ -1272,8 +1572,9 @@ def run_fleet(args: argparse.Namespace) -> int:
 
 
 def run_chaos(args: argparse.Namespace) -> int:
-    """``chaos run``: the ported scenarios on ``--device``; ``chaos
-    fuzz``: the seeded campaign. ``chaos soak`` is refused."""
+    """``chaos run``: the scenarios on ``--device``; ``chaos soak``:
+    seeded runs drawn from the registry's pool; ``chaos fuzz``: the
+    seeded campaign."""
     from kind_tpu_sim_torch import chaos
     from kind_tpu_sim_torch.scenarios import registry
 
@@ -1294,11 +1595,20 @@ def run_chaos(args: argparse.Namespace) -> int:
     if args.action == "fuzz":
         return run_chaos_fuzz(args)
     if args.action == "soak":
-        raise SystemExit(
-            "chaos soak draws from the reference's non-slow scenarios, "
-            "three of which (flaky-exec, device-flap, node-flap) come with "
-            "the cluster layer (ROADMAP Queue A item 7), which the port "
-            "does not carry yet (python -m kind_tpu_sim chaos soak)")
+        report = chaos.soak(iterations=args.iterations, seed=args.seed,
+                            include_slow=args.include_slow,
+                            device=args.device)
+        if args.as_json:
+            print(json.dumps(report, sort_keys=True))
+        else:
+            for run in report["runs"]:
+                print(f"  {run['scenario']:<24} seed={run['seed']:<12}"
+                      f" {'OK' if run['ok'] else 'FAILED'}")
+            print(f"CHAOS SOAK ({report['iterations']} runs, seed "
+                  f"{report['seed']}) "
+                  + ("OK" if report["ok"] else
+                     f"FAILED ({report['failures']} failures)"))
+        return 0 if report["ok"] else 1
     if not args.scenario:
         print("available scenarios (chaos run --scenario NAME):")
         for row in registry.listing():
@@ -1339,9 +1649,8 @@ def run_chaos_fuzz(args: argparse.Namespace) -> int:
     function of (budget, seed, max-faults) and the reference's for the
     same calibration and generation registry."""
     import os
-    import sys
 
-    from kind_tpu_sim_torch.fleet import knobs
+    from kind_tpu_sim_torch.analysis import knobs
     from kind_tpu_sim_torch.scenarios import fuzz as fuzz_mod
 
     budget = (args.budget if args.budget is not None
@@ -1395,11 +1704,6 @@ def run_analysis(args: argparse.Namespace) -> int:
             "linters and knob registry (ROADMAP Queue A item 6), which the "
             f"port does not carry yet (python -m kind_tpu_sim analysis "
             f"{args.action})")
-    if args.scenario == "tune":
-        raise SystemExit(
-            "the tune replay target belongs to the simulator's tuner (tune/, "
-            "ROADMAP Queue A item 5), which the port does not carry yet "
-            "(python -m kind_tpu_sim analysis replay --scenario tune)")
     if not args.scenario:
         targets = replaycheck.list_targets()
         if args.as_json:
@@ -1664,10 +1968,7 @@ def run_globe(args: argparse.Namespace) -> int:
     from kind_tpu_sim_torch.fleet.tenancy import default_tenancy
 
     if args.action == "tune":
-        raise SystemExit(
-            "globe tune belongs to the simulator's tuner (tune/, ROADMAP "
-            "Queue A item 5), which the port does not carry yet (python -m "
-            "kind_tpu_sim globe tune)")
+        return globe_tune(args)
     seed = globe.resolve_seed(args.seed)
     if args.zones < 1 or args.zones > 26:
         raise SystemExit("--zones must be in [1, 26]")
@@ -1808,8 +2109,224 @@ def run_health(args: argparse.Namespace) -> int:
     return 0 if report["ok"] else 1
 
 
+# ---------------------------------------------------------------------
+# the cluster layer: create, delete, load, status and the chaos levers
+
+
+def config_from_args(args: argparse.Namespace):
+    """The ``SimConfig`` of a cluster command's flags."""
+    kwargs = dict(
+        registry_port=args.registry_port,
+        cluster_name=args.cluster_name,
+        runtime=args.runtime,
+        verbose=args.verbose,
+    )
+    if args.command == "create":
+        kwargs.update(
+            vendor=args.vendor,
+            accelerator=args.accelerator,
+            tpu_topology=args.topology,
+            num_slices=args.num_slices,
+            capacity_mode=args.capacity_mode,
+            gpu_workers=args.gpu_workers,
+            gpus_per_node=args.gpus_per_node,
+        )
+    elif args.command == "chaos":
+        kwargs.update(
+            accelerator=args.accelerator,
+            tpu_topology=args.topology,
+            num_slices=args.num_slices,
+        )
+    if getattr(args, "image_name", None):
+        kwargs["image_name"] = args.image_name
+    return config.SimConfig(**kwargs)
+
+
+class Simulator:
+    """Wires the cluster layers together for one command (the
+    reference's ``kind_tpu_sim/cli.py:Simulator``). Without ``--runtime
+    fake`` it needs ``kind`` and ``kubectl`` on the PATH and raises
+    naming the one that is missing; it never falls back to the fake
+    runtime."""
+
+    def __init__(self, cfg, executor=None):
+        from kind_tpu_sim_torch.cluster import ClusterManager
+        from kind_tpu_sim_torch.metrics import PhaseTimer
+        from kind_tpu_sim_torch.plugin import PluginManager
+        from kind_tpu_sim_torch.registry import LocalRegistry
+        from kind_tpu_sim_torch.runtime import (detect_runtime,
+                                                required_binaries)
+        from kind_tpu_sim_torch.utils.shell import SystemExecutor
+
+        self.cfg = cfg
+        if executor is None:
+            if cfg.runtime == "fake":
+                from kind_tpu_sim_torch.fakes import dry_run_executor
+
+                executor = dry_run_executor(cfg)
+            else:
+                executor = SystemExecutor()
+        self.executor = executor
+        for binary in required_binaries(cfg.runtime):
+            if not executor.have(binary):
+                raise RuntimeError(
+                    f"required binary {binary!r} not found on PATH")
+        self.runtime = detect_runtime(executor, prefer=cfg.runtime)
+        if cfg.runtime != "fake":
+            self.runtime.configure_environment()
+        self.registry = LocalRegistry(cfg, self.runtime)
+        self.cluster = ClusterManager(cfg, self.runtime, self.registry)
+        self.plugin = PluginManager(cfg, self.runtime, self.registry,
+                                    self.cluster)
+        self.timer = PhaseTimer()
+
+    def create(self, skip_plugin: bool = False) -> None:
+        cfg = self.cfg
+        if skip_plugin and cfg.capacity_mode != "patch":
+            raise RuntimeError(
+                "--skip-plugin leaves no capacity source; "
+                "use --capacity-mode=patch with it")
+        with self.timer.phase("registry"):
+            self.registry.start()
+        with self.timer.phase("cluster-create"):
+            self.cluster.create()
+        if not skip_plugin:
+            with self.timer.phase("plugin-build"):
+                image = self.plugin.build(cfg.vendor)
+            with self.timer.phase("plugin-deploy"):
+                self.plugin.deploy(cfg.vendor, image)
+        if cfg.vendor == "tpu":
+            s = cfg.slice
+            prefix = (f"{cfg.num_slices} x " if cfg.num_slices > 1
+                      else "")
+            _cluster_log.info(
+                "simulated %s%s slice%s ready: topology %s, %d workers"
+                " x %d google.com/tpu", prefix, s.accelerator_type,
+                "s" if cfg.num_slices > 1 else "",
+                topo.format_topology(s.dims), cfg.workers,
+                s.chips_per_host)
+        print(f"Simulated {cfg.vendor} kind cluster is ready "
+              f"('{cfg.cluster_name}')")
+        print("create pipeline timing:")
+        print(self.timer.report())
+
+    def delete(self) -> None:
+        self.cluster.delete()
+        self.registry.delete()
+
+    def load(self) -> None:
+        self.cluster.load_image(self.cfg.image_name)
+
+    def chaos(self, action: str, node: Optional[str] = None,
+              worker: Optional[int] = None,
+              devices: Optional[Sequence[str]] = None) -> None:
+        from kind_tpu_sim_torch.chaos import ChaosManager
+
+        mgr = ChaosManager(self.cfg, self.runtime, self.cluster)
+        target = mgr.resolve_node(node, worker)
+        if action == "fail":
+            mgr.fail_devices(target, list(devices or []))
+        elif action == "heal":
+            mgr.heal(target)
+        elif action == "kill-node":
+            mgr.kill_node(target)
+        elif action == "start-node":
+            mgr.start_node(target)
+
+    def status(self, as_json: bool = False) -> dict:
+        from kind_tpu_sim_torch.metrics import ready_latency_summary
+        from kind_tpu_sim_torch.runtime import kubectl
+
+        nodes_json = kubectl(self.executor, "get", "nodes", "-o",
+                             "json").stdout
+        pods_json = kubectl(self.executor, "get", "pods", "-A", "-o",
+                            "json").stdout
+        nodes = json.loads(nodes_json).get("items", [])
+        report: dict = {"cluster": self.cfg.cluster_name, "nodes": []}
+        for node in nodes:
+            meta = node.get("metadata", {})
+            labels = meta.get("labels", {})
+            capacity = node.get("status", {}).get("capacity", {})
+            report["nodes"].append({
+                "name": meta.get("name"),
+                "accelerators": {
+                    k: v for k, v in capacity.items()
+                    if k in config.RESOURCE_BY_VENDOR.values()
+                },
+                "topology": labels.get(topo.LABEL_TOPOLOGY),
+                "worker-id": labels.get(topo.LABEL_WORKER_ID),
+                "host-coord": labels.get(topo.LABEL_HOST_COORD),
+            })
+        report["ready_latency"] = ready_latency_summary(pods_json)
+        if as_json:
+            print(json.dumps(report, indent=2, sort_keys=True))
+        else:
+            for entry in report["nodes"]:
+                accel = ", ".join(
+                    f"{k}={v}" for k, v in entry["accelerators"].items()
+                ) or "-"
+                extra = ""
+                if entry["worker-id"] is not None:
+                    extra = (f"  worker={entry['worker-id']} "
+                             f"coord={entry['host-coord']} "
+                             f"topo={entry['topology']}")
+                print(f"{entry['name']}: {accel}{extra}")
+            lat = report["ready_latency"]
+            if lat.get("count"):
+                print(f"pod schedule-to-Ready: p50={lat['p50_s']}s "
+                      f"max={lat['max_s']}s over {lat['count']} pods")
+        return report
+
+
+_cluster_log = logging.getLogger("kind-tpu-sim-torch")
+
+
+def run_cluster(args: argparse.Namespace) -> int:
+    """``create | delete | load | status`` and ``chaos fail | heal |
+    kill-node | start-node``: the cluster layer over docker or podman,
+    kind and kubectl, or over the fake runtime's recorded command stream
+    (``--runtime fake``; with ``-v`` the stream is printed to stderr).
+    A failed command, a missing binary or a bad flag logs the error and
+    exits 1."""
+    from kind_tpu_sim_torch.utils.shell import CommandError, FakeExecutor
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(levelname)s %(name)s: %(message)s")
+    try:
+        cfg = config_from_args(args)
+        sim = Simulator(cfg)
+        if args.command == "create":
+            sim.create(skip_plugin=args.skip_plugin)
+            if args.timing_json:
+                with open(args.timing_json, "w", encoding="utf-8") as fh:
+                    json.dump(sim.timer.as_dict(), fh, indent=2,
+                              sort_keys=True)
+        elif args.command == "delete":
+            sim.delete()
+        elif args.command == "load":
+            sim.load()
+        elif args.command == "status":
+            sim.status(as_json=args.as_json)
+        elif args.command == "chaos":
+            sim.chaos(args.action, node=args.node, worker=args.worker,
+                      devices=[d for d in args.devices.split(",") if d])
+        if isinstance(sim.executor, FakeExecutor) and cfg.verbose:
+            print("-- fake runtime command stream --", file=sys.stderr)
+            for cmd in sim.executor.commands():
+                print(f"  {cmd}", file=sys.stderr)
+        return 0
+    except (CommandError, RuntimeError, ValueError, TimeoutError) as exc:
+        _cluster_log.error("%s", exc)
+        return 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command in ("create", "delete", "load", "status") or (
+            args.command == "chaos"
+            and args.action not in ("run", "soak", "fuzz")):
+        return run_cluster(args)
     if args.command == "fleet":
         return run_fleet(args)
     if args.command == "chaos":

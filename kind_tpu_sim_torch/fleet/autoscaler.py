@@ -16,7 +16,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 
 WARMUP_S = 0.55  # the reference's default replica warm-up, virtual s
 

@@ -33,7 +33,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 
 _INF = float("inf")
 # the knob engages the mirror only from this many replicas on: below it

@@ -48,7 +48,7 @@ import re
 from typing import Dict, Optional
 
 from kind_tpu_sim_torch import topology
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 
 # the calibration file's schema; the loader refuses any other
 CALIBRATION_SCHEMA = 1

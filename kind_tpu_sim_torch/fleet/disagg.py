@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import ClassVar, Optional, Tuple
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.costmodel import DTYPE_BYTES, DTYPES
 from kind_tpu_sim_torch.fleet.loadgen import TraceRequest
 from kind_tpu_sim_torch.parallel.collectives import TIER_LINK_GBPS

@@ -21,7 +21,7 @@ from __future__ import annotations
 import heapq
 from typing import List, Optional
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 
 EVENT_CORE_ENV = knobs.FLEET_EVENT_CORE
 

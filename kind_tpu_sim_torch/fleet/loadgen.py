@@ -29,7 +29,7 @@ import random
 import zlib
 from typing import List, Optional, Sequence
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 
 
 def resolve_seed(seed: Optional[int] = None) -> int:

@@ -22,7 +22,7 @@ deterministic primitive the fleet router and loop thread through:
 
 Everything is a function of (config, completion stream, the clock the
 caller passes): no entropy, no wall time. An unset field resolves from
-its environment knob (``KIND_TPU_SIM_OVERLOAD_*``, ``fleet/knobs.py``),
+its environment knob (``KIND_TPU_SIM_OVERLOAD_*``, ``analysis/knobs.py``),
 else the knob's default.
 """
 
@@ -33,7 +33,7 @@ import zlib
 from collections import deque
 from typing import Dict, List, Optional
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.loadgen import (
     TraceRequest,
     WorkloadSpec,

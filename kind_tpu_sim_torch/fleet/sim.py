@@ -100,7 +100,7 @@ from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.autoscaler import (
     Autoscaler,
     AutoscalerConfig,

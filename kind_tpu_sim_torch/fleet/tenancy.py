@@ -37,7 +37,7 @@ import random
 import zlib
 from typing import Dict, List, Optional, Tuple
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.overload import TokenBucket
 
 # QoS ladder, best first: strict priority at the router; batch is the

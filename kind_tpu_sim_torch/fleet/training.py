@@ -68,7 +68,7 @@ from typing import Dict, List, Optional, Tuple
 
 from kind_tpu_sim_torch import metrics
 from kind_tpu_sim_torch import topology as topo
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.parallel import collectives
 
 TRAIN_KINDS = ("llm", "ising")

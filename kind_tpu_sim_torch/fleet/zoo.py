@@ -33,7 +33,7 @@ import random
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.costmodel import (
     DEFAULT_GENERATION,
     GENERATION_FACTS,

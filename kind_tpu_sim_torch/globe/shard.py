@@ -75,7 +75,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.fleet.autoscaler import AutoscalerConfig
 from kind_tpu_sim_torch.fleet.events import DueSet
 from kind_tpu_sim_torch.fleet.loadgen import TraceRequest, VirtualClock

@@ -34,7 +34,7 @@ from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch.parallel import collectives
 from kind_tpu_sim_torch.fleet.autoscaler import AutoscalerConfig
 from kind_tpu_sim_torch.fleet.loadgen import (

@@ -77,7 +77,7 @@ class DetectorConfig:
         """Each field from its ``KIND_TPU_SIM_HEALTH_*`` knob, else the
         knob's default (which is the field's default)."""
         # imported here: the fleet package imports this module
-        from kind_tpu_sim_torch.fleet import knobs
+        from kind_tpu_sim_torch.analysis import knobs
 
         return cls(
             ewma_alpha=knobs.get(knobs.HEALTH_ALPHA),

@@ -14,8 +14,8 @@ PyYAML. The committed pod files are these generators' output:
 * ``torch_multihost_manifest`` -> ``pods/torch-multihost.yaml``: one
   headless Service and one StatefulSet a slice, each pod one NCCL rank a
   local GPU in a ``tcp://<coordinator>:8476`` world; replicas, GPUs a
-  pod, the coordinator's DNS name and port come from
-  ``parallel/mesh.py``'s slice contract, as the reference's come from
+  pod, the coordinator's DNS name and port come from the slice
+  contract of the port's ``topology.py``, as the reference's come from
   its topology module;
 * ``cuda_kernel_pod`` -> ``pods/cuda-kernel-pod.yaml``: an inline CUDA C
   128 x 128 fp32 product built with ``nvcc`` for the card's capability,
@@ -38,7 +38,17 @@ card.
 
 The pods take the source system's GPU node selector (``hardware-type:
 gpu``) and toleration (``gpu=true:NoSchedule``), as
-``pods/nvidia-gpu-test-pod.yaml`` does.
+``pods/nvidia-gpu-test-pod.yaml`` does: the labels and taint that
+``create nvidia`` (``cluster.py``) puts on its workers, beside their
+patched ``nvidia.com/gpu`` capacity.
+
+The cluster half (the port's copy of ``kind_tpu_sim/manifests.py``'s)
+renders what the cluster layer applies: the kind ``Cluster`` config,
+the local-registry ``ConfigMap``, the nodes' containerd ``hosts.toml``
+and the device-plugin DaemonSets of the three vendors. These are
+written by ``yamlsubset.dump``, byte for byte what
+the reference's PyYAML dumper writes (multi-line strings as literal
+blocks).
 """
 
 from __future__ import annotations
@@ -48,7 +58,9 @@ import re
 import textwrap
 from typing import Dict, List, Optional
 
-from kind_tpu_sim_torch.parallel import mesh
+from kind_tpu_sim_torch import topology as topo
+from kind_tpu_sim_torch import yamlsubset
+from kind_tpu_sim_torch.config import RESOURCE_BY_VENDOR, SimConfig
 
 # one public CUDA PyTorch image that carries nvcc
 GPU_IMAGE = "nvcr.io/nvidia/pytorch:24.08-py3"
@@ -60,6 +72,19 @@ GPUS_PER_NODE = 2
 # the shared library the kernel pod builds, in its build directory
 KERNEL_LIBRARY = "cuda_kernel_pod.so"
 KERNEL_POD_ATOL = 1e-4  # pods/pallas-pod.yaml's np.allclose(atol=1e-4)
+
+
+# Kubelet's device-plugin registration directory; the plugin DaemonSet
+# must mount it to reach kubelet.sock (cf. kind-gpu-sim.sh:321-328).
+KUBELET_DP_DIR = "/var/lib/kubelet/device-plugins"
+
+PLUGIN_APP_LABEL = "tpu-sim-device-plugin"
+PLUGIN_NAMESPACE = "kube-system"
+
+# Host directory for simulator runtime state; the chaos subcommand
+# writes device IDs into UNHEALTHY_FILE on a node to fail them.
+SIM_STATE_DIR = "/var/run/tpu-sim"
+UNHEALTHY_FILE = SIM_STATE_DIR + "/unhealthy"
 
 
 # ---------------------------------------------------------------------
@@ -492,13 +517,13 @@ def _world_names(hostnames: List[str]):
     return pod.rsplit("-", 1)[0], service, host
 
 
-def _torch_world_manifest(s: mesh.SliceShape, hostnames: List[str],
+def _torch_world_manifest(s: topo.SliceTopology, hostnames: List[str],
                           extra_selector: Dict[str, str],
                           slice_note: Optional[str], regen: str) -> str:
     name, service, host = _world_names(hostnames)
     replicas = s.num_hosts
     chips = s.chips_per_host
-    port = mesh.DEFAULT_COORDINATOR_PORT
+    port = topo.DEFAULT_COORDINATOR_PORT
     service_doc = {
         "apiVersion": "v1",
         "kind": "Service",
@@ -554,15 +579,16 @@ def _torch_world_manifest(s: mesh.SliceShape, hostnames: List[str],
         f"# Multi-host torch.distributed over {what}: the GPU\n"
         "# counterpart of pods/jax-multihost.yaml.\n"
         "# GENERATED by kind_tpu_sim_torch.manifests.torch_multihost_manifest\n"
-        f"# for {s.accelerator_type} topology {mesh._fmt(s.dims)} "
+        f"# for {s.accelerator_type} topology "
+        f"{topo.format_topology(s.dims)} "
         f"({replicas} hosts x {chips} GPUs).\n"
         f"# Regenerate: python -m kind_tpu_sim_torch manifests {regen}\n"
         f"# CI greps for \"GLOBAL PSUM OK\" on {name}-0.\n")
     return header + to_yaml(service_doc) + "---\n" + to_yaml(statefulset)
 
 
-def torch_multihost_manifest(accelerator: str = mesh.DEFAULT_ACCELERATOR,
-                             topology: str = mesh.DEFAULT_TOPOLOGY,
+def torch_multihost_manifest(accelerator: str = topo.DEFAULT_ACCELERATOR,
+                             topology: str = topo.DEFAULT_TOPOLOGY,
                              num_slices: int = 1) -> str:
     """Services and StatefulSets of a multi-host ``torch.distributed``
     world from the slice contract: a host of the slice is a GPU node
@@ -572,11 +598,11 @@ def torch_multihost_manifest(accelerator: str = mesh.DEFAULT_ACCELERATOR,
     ``---`` (the reference joins its slices' documents with a bare
     newline, so a YAML reader merges each slice's StatefulSet into the
     next slice's Service)."""
-    ms = mesh.make_multislice(num_slices, accelerator=accelerator,
+    ms = topo.make_multislice(num_slices, accelerator=accelerator,
                               topology=topology)
-    s = ms.slice_shape
+    s = ms.slice_topo
     regen = (f"torch-multihost --accelerator={accelerator} "
-             f"--topology={mesh._fmt(s.dims)}")
+             f"--topology={topo.format_topology(s.dims)}")
     if num_slices == 1:
         return _torch_world_manifest(s, ms.hostnames(), {}, None, regen)
     regen += f" --num-slices={num_slices}"
@@ -585,3 +611,263 @@ def torch_multihost_manifest(accelerator: str = mesh.DEFAULT_ACCELERATOR,
                               {LABEL_SLICE_ID: str(sid)},
                               f"{sid}/{num_slices}", regen)
         for sid in range(num_slices))
+
+
+# ---------------------------------------------------------------------
+# the cluster half: what create applies
+
+
+def kind_cluster_config(cfg: SimConfig) -> str:
+    """kind Cluster config: 1 control-plane + N workers + registry mirror.
+
+    Mirror patch matches the source system's containerdConfigPatches
+    (kind-gpu-sim.sh:89-92); worker count is derived from the simulated
+    slice instead of being hardcoded (:93-97).
+    """
+    doc = {
+        "kind": "Cluster",
+        "apiVersion": "kind.x-k8s.io/v1alpha4",
+        "containerdConfigPatches": [
+            (
+                '[plugins."io.containerd.grpc.v1.cri".registry.mirrors.'
+                f'"localhost:{cfg.registry_port}"]\n'
+                f'  endpoint = ["http://{cfg.registry_name}:5000"]\n'
+            )
+        ],
+        "nodes": [{"role": "control-plane"}]
+        + [{"role": "worker"} for _ in range(cfg.workers)],
+    }
+    return yamlsubset.dump(doc)
+
+
+def registry_configmap(cfg: SimConfig) -> str:
+    """Standard local-registry-hosting ConfigMap (kind-gpu-sim.sh:131-141)."""
+    doc = {
+        "apiVersion": "v1",
+        "kind": "ConfigMap",
+        "metadata": {
+            "name": "local-registry-hosting",
+            "namespace": "kube-public",
+        },
+        "data": {
+            "localRegistryHosting.v1": (
+                f'host: "localhost:{cfg.registry_port}"\n'
+                'help: "https://kind.sigs.k8s.io/docs/user/local-registry/"\n'
+            ),
+        },
+    }
+    return yamlsubset.dump(doc)
+
+
+def containerd_hosts_toml(cfg: SimConfig) -> str:
+    """Per-node registry mirror config (kind-gpu-sim.sh:122-125)."""
+    return (
+        f'[host."http://{cfg.registry_name}:5000"]\n'
+        '  capabilities = ["pull", "resolve"]\n'
+    )
+
+
+def _vendor_toleration(vendor: str) -> List[Dict[str, str]]:
+    if vendor == "tpu":
+        return [
+            {
+                "key": topo.TAINT_KEY,
+                "operator": "Equal",
+                "value": topo.TAINT_VALUE,
+                "effect": topo.TAINT_EFFECT,
+            }
+        ]
+    # reference taint: gpu=true:NoSchedule (kind-gpu-sim.sh:110)
+    return [
+        {
+            "key": "gpu",
+            "operator": "Equal",
+            "value": "true",
+            "effect": "NoSchedule",
+        }
+    ]
+
+
+def _vendor_node_selector(vendor: str) -> Dict[str, str]:
+    return {
+        topo.LABEL_HARDWARE_TYPE: "tpu" if vendor == "tpu" else "gpu"
+    }
+
+
+def tpu_plugin_daemonset(cfg: SimConfig, image: str) -> str:
+    """DaemonSet for the in-repo fake TPU device plugin.
+
+    Structure follows the reference's NVIDIA deploy (kind-gpu-sim.sh:291-329)
+    — node selector + toleration + privileged + kubelet socket-dir mount —
+    but the image is our native C++ plugin and its behavior is driven by
+    the slice-topology env block rather than FAIL_ON_INIT_ERROR.
+    """
+    s = cfg.slice
+    # Slice-global identity shared by every worker; the plugin derives
+    # the per-node TPU_WORKER_ID from NODE_NAME (plugin/src/
+    # device_plugin.cc WorkerIdFromNodeName).
+    w0 = s.worker_env(0)
+    env = [
+        {"name": "TPU_SIM_CHIPS", "value": str(s.chips_per_host)},
+        {"name": "TPU_SIM_RESOURCE", "value": RESOURCE_BY_VENDOR["tpu"]},
+        {"name": "TPU_SIM_ACCELERATOR", "value": s.spec.gke_type},
+        {"name": "TPU_SIM_TOPOLOGY", "value": topo.format_topology(s.dims)},
+        {
+            "name": "TPU_SIM_ACCELERATOR_TYPE",
+            "value": w0["TPU_ACCELERATOR_TYPE"],
+        },
+        {
+            "name": "TPU_SIM_CHIPS_PER_HOST_BOUNDS",
+            "value": w0["TPU_CHIPS_PER_HOST_BOUNDS"],
+        },
+        {"name": "TPU_SIM_HOST_BOUNDS", "value": w0["TPU_HOST_BOUNDS"]},
+        {"name": "TPU_SIM_HOSTNAMES", "value": w0["TPU_WORKER_HOSTNAMES"]},
+        {"name": "TPU_SIM_UNHEALTHY_FILE", "value": UNHEALTHY_FILE},
+        {
+            "name": "NODE_NAME",
+            "valueFrom": {"fieldRef": {"fieldPath": "spec.nodeName"}},
+        },
+    ]
+    if cfg.num_slices > 1:
+        # Multislice: the plugin decomposes the node's global worker
+        # index into (slice, local worker) and injects the MEGASCALE_*
+        # cross-slice contract at Allocate. Hostnames become the full
+        # cross-slice list; the plugin narrows to this slice's window.
+        ms = cfg.multislice
+        all_hosts = ms.hostnames()
+        env = [e for e in env if e.get("name") != "TPU_SIM_HOSTNAMES"]
+        env.extend([
+            {"name": "TPU_SIM_HOSTNAMES",
+             "value": ",".join(all_hosts)},
+            {"name": "TPU_SIM_NUM_SLICES",
+             "value": str(ms.num_slices)},
+            {"name": "TPU_SIM_HOSTS_PER_SLICE",
+             "value": str(s.num_hosts)},
+            {"name": "TPU_SIM_MEGASCALE_COORDINATOR",
+             "value": ms.megascale_env(0)[
+                 "MEGASCALE_COORDINATOR_ADDRESS"]},
+        ])
+    doc = {
+        "apiVersion": "apps/v1",
+        "kind": "DaemonSet",
+        "metadata": {
+            "name": "tpu-sim-device-plugin",
+            "namespace": PLUGIN_NAMESPACE,
+            "labels": {"app": PLUGIN_APP_LABEL},
+        },
+        "spec": {
+            "selector": {"matchLabels": {"app": PLUGIN_APP_LABEL}},
+            "template": {
+                "metadata": {"labels": {"app": PLUGIN_APP_LABEL}},
+                "spec": {
+                    "nodeSelector": _vendor_node_selector("tpu"),
+                    "tolerations": _vendor_toleration("tpu"),
+                    "priorityClassName": "system-node-critical",
+                    "containers": [
+                        {
+                            "name": "tpu-device-plugin",
+                            "image": image,
+                            "imagePullPolicy": "IfNotPresent",
+                            "securityContext": {"privileged": True},
+                            "env": env,
+                            "volumeMounts": [
+                                {
+                                    "name": "device-plugin",
+                                    "mountPath": KUBELET_DP_DIR,
+                                },
+                                {
+                                    "name": "sim-state",
+                                    "mountPath": SIM_STATE_DIR,
+                                },
+                            ],
+                        }
+                    ],
+                    "volumes": [
+                        {
+                            "name": "device-plugin",
+                            "hostPath": {
+                                "path": KUBELET_DP_DIR,
+                                "type": "DirectoryOrCreate",
+                            },
+                        },
+                        {
+                            "name": "sim-state",
+                            "hostPath": {
+                                "path": SIM_STATE_DIR,
+                                "type": "DirectoryOrCreate",
+                            },
+                        },
+                    ],
+                },
+            },
+        },
+    }
+    return yamlsubset.dump(doc)
+
+
+def gpu_plugin_daemonset(cfg: SimConfig, vendor: str, image: str) -> str:
+    """ROCm/NVIDIA vendor-plugin DaemonSets (parity with :242-336)."""
+    if vendor == "rocm":
+        name = "amdgpu-device-plugin-daemonset"
+        app = "amdgpu-device-plugin"
+        container: Dict[str, object] = {
+            "name": "amdgpu-dp-ds",
+            "image": image,
+            "imagePullPolicy": "IfNotPresent",
+            "securityContext": {"privileged": True},
+        }
+        volumes: Optional[List[Dict[str, object]]] = None
+    elif vendor == "nvidia":
+        name = "nvidia-device-plugin-daemonset"
+        app = "nvidia-device-plugin"
+        container = {
+            "name": "nvidia-device-plugin-ctr",
+            "image": image,
+            "securityContext": {"privileged": True},
+            # lets the real plugin start with no NVML/GPU present
+            # (kind-gpu-sim.sh:318-320)
+            "env": [{"name": "FAIL_ON_INIT_ERROR", "value": "false"}],
+            "volumeMounts": [
+                {"name": "device-plugin", "mountPath": KUBELET_DP_DIR}
+            ],
+        }
+        volumes = [
+            {
+                "name": "device-plugin",
+                "hostPath": {
+                    "path": KUBELET_DP_DIR,
+                    "type": "DirectoryOrCreate",
+                },
+            }
+        ]
+    else:
+        raise ValueError(f"no vendor plugin DaemonSet for {vendor!r}")
+
+    pod_spec: Dict[str, object] = {
+        "nodeSelector": _vendor_node_selector(vendor),
+        "tolerations": _vendor_toleration(vendor),
+        "containers": [container],
+    }
+    if vendor == "nvidia":
+        pod_spec["volumes"] = volumes
+    doc = {
+        "apiVersion": "apps/v1",
+        "kind": "DaemonSet",
+        "metadata": {"name": name, "namespace": PLUGIN_NAMESPACE},
+        "spec": {
+            "selector": {"matchLabels": {"app": app}},
+            "template": {
+                "metadata": {"labels": {"app": app}},
+                "spec": pod_spec,
+            },
+        },
+    }
+    return yamlsubset.dump(doc)
+
+
+def plugin_app_label(vendor: str) -> str:
+    return {
+        "tpu": PLUGIN_APP_LABEL,
+        "rocm": "amdgpu-device-plugin",
+        "nvidia": "nvidia-device-plugin",
+    }[vendor]

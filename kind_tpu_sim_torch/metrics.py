@@ -28,14 +28,26 @@ record their injected faults (``fault_injected``), requeues
 the log and count ``speculative_redispatch`` on the health board; the
 sharded globe (``globe/shard.py``) records each shard worker it starts
 again and replays from its journal (``globe_shard_respawn``, with the
-shard and the journal's length).
+shard and the journal's length). The cluster layer's classified retry
+(``utils/shell.py``) records each retry (``exec_retry``) and the chaos
+levers their device and node flaps.
+
+The cluster layer's timing is here too: :class:`PhaseTimer` times the
+``create`` pipeline's phases (``create --timing-json``), and
+:func:`ready_latency_summary` reads pod schedule-to-Ready latency from
+``kubectl get pods -o json`` (``status``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import json
+import statistics
 import threading
-from typing import Dict, List
+import time
+from typing import Dict, Iterator, List, Optional
 
 
 class RecoveryLog:
@@ -191,3 +203,132 @@ _ZOO_BOARD = CounterBoard()
 def zoo_board() -> CounterBoard:
     """The process-global model-zoo board (model swaps)."""
     return _ZOO_BOARD
+
+
+# -- the cluster layer's timing ----------------------------------------
+
+
+@dataclasses.dataclass
+class Phase:
+    name: str
+    seconds: float
+    start: Optional[float] = None
+    end: Optional[float] = None
+
+
+class PhaseTimer:
+    """Wall-clock timing for named pipeline phases.
+
+    Phases may now run CONCURRENTLY (the warm-path bring-up overlaps
+    the JAX worker warm-up with the orchestrator/plugin phases):
+    recording is thread-safe, each phase keeps its absolute
+    start/end, and :attr:`wall_seconds` /
+    :attr:`overlap_saved_seconds` report the overlapped schedule
+    against the serialized sum."""
+
+    # the wall clock times a real bring-up; a caller may inject another
+    def __init__(self, clock=time.monotonic):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self.phases: List[Phase] = []
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        start = self._clock()
+        try:
+            yield
+        finally:
+            end = self._clock()
+            self.record(name, end - start, start=start, end=end)
+
+    def record(self, name: str, seconds: float,
+               start: Optional[float] = None,
+               end: Optional[float] = None) -> None:
+        """Add an externally-measured phase (e.g. a worker-pool job
+        timed on the other side of the pipe)."""
+        with self._lock:
+            self.phases.append(Phase(name, seconds, start, end))
+
+    @property
+    def total_seconds(self) -> float:
+        return sum(p.seconds for p in self.phases)
+
+    @property
+    def wall_seconds(self) -> float:
+        """Span from the first phase start to the last phase end;
+        falls back to the serialized sum when spans were not
+        recorded."""
+        spans = [p for p in self.phases
+                 if p.start is not None and p.end is not None]
+        if not spans:
+            return self.total_seconds
+        return (max(p.end for p in spans)
+                - min(p.start for p in spans))
+
+    @property
+    def overlap_saved_seconds(self) -> float:
+        """Seconds the overlapped schedule saved vs running every
+        phase back-to-back (0.0 when phases were sequential)."""
+        return max(0.0, self.total_seconds - self.wall_seconds)
+
+    def as_dict(self) -> Dict[str, float]:
+        out = {p.name: round(p.seconds, 3) for p in self.phases}
+        out["total"] = round(self.total_seconds, 3)
+        return out
+
+    def report(self) -> str:
+        width = max((len(p.name) for p in self.phases), default=0)
+        lines = [
+            f"  {p.name.ljust(width)}  {p.seconds:8.2f}s" for p in self.phases
+        ]
+        lines.append(f"  {'total'.ljust(width)}  {self.total_seconds:8.2f}s")
+        return "\n".join(lines)
+
+
+def parse_k8s_time(stamp: str) -> float:
+    """RFC3339 (kubernetes) timestamp -> unix seconds."""
+    import datetime
+
+    return datetime.datetime.strptime(
+        stamp, "%Y-%m-%dT%H:%M:%SZ"
+    ).replace(tzinfo=datetime.timezone.utc).timestamp()
+
+
+def schedule_to_ready_seconds(pod: dict) -> Optional[float]:
+    """Scheduled->Ready latency from one pod's status conditions.
+
+    Computed from the ``PodScheduled`` and ``Ready`` condition transition
+    times of a pod JSON object (kubectl get pod -o json).
+    """
+    conditions = {
+        c.get("type"): c
+        for c in pod.get("status", {}).get("conditions", [])
+    }
+    sched = conditions.get("PodScheduled")
+    ready = conditions.get("Ready")
+    if not sched or not ready:
+        return None
+    if sched.get("status") != "True" or ready.get("status") != "True":
+        return None
+    return parse_k8s_time(ready["lastTransitionTime"]) - parse_k8s_time(
+        sched["lastTransitionTime"]
+    )
+
+
+def ready_latency_summary(pods_json: str) -> Dict[str, object]:
+    """Summarize schedule->Ready latency over a pod list JSON document."""
+    doc = json.loads(pods_json)
+    items = doc.get("items", [doc] if doc.get("kind") == "Pod" else [])
+    latencies = []
+    for pod in items:
+        lat = schedule_to_ready_seconds(pod)
+        if lat is not None:
+            latencies.append(lat)
+    if not latencies:
+        return {"count": 0}
+    return {
+        "count": len(latencies),
+        "p50_s": round(statistics.median(latencies), 3),
+        "max_s": round(max(latencies), 3),
+        "min_s": round(min(latencies), 3),
+    }

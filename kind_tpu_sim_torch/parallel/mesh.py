@@ -11,11 +11,11 @@ names and order:
 * ``multislice_mesh`` -- ('dcn', 'data', 'model'[, 'seq']);
 * ``auto_training_mesh`` -- a near-square (data, model) split.
 
-``SliceShape`` and ``MultiSliceShape`` also carry the environment
-contract a simulated host is started with: the reference's
-``topology.SliceTopology.worker_env`` and ``MultiSlice.megascale_env`` /
-``worker_env``, key for key (``parallel/multihost.py`` launches hosts
-from it).
+``SliceShape`` and ``MultiSliceShape`` are the port's
+``topology.SliceTopology`` and ``topology.MultiSlice``, which also carry
+the environment contract a simulated host is started with
+(``worker_env``, ``megascale_env``; ``parallel/multihost.py`` launches
+hosts from it).
 
 A mesh spans the whole world: a rank outside it would have nothing to
 run, so a world of another size raises ("needs N devices"). Every
@@ -27,215 +27,21 @@ making every group.
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
 
-# the chips per host of the reference's accelerators (its topology
-# module's host bounds), and its default slice
-_HOST_BOUNDS = {
-    "tpu-v5-lite-podslice": (2, 4),
-    "tpu-v4-podslice": (2, 2, 1),
-    "tpu-v5p-slice": (2, 2, 1),
-}
-# (family, cores a chip) of each, for the libtpu accelerator name
-_NAMING = {
-    "tpu-v5-lite-podslice": ("v5litepod", 1),
-    "tpu-v4-podslice": ("v4", 2),
-    "tpu-v5p-slice": ("v5p", 2),
-}
-ACCELERATORS = tuple(_HOST_BOUNDS)
-DEFAULT_ACCELERATOR = "tpu-v5-lite-podslice"
-DEFAULT_TOPOLOGY = "4x4"
-# the slice contract's rendezvous port (defined beside the multi-host
-# identity, as in the reference)
-from kind_tpu_sim_torch.parallel.multihost import (  # noqa: E402
-    DEFAULT_COORDINATOR_PORT,
+# the slice contract (the chip grid, its hosts and each host's
+# environment) is the port's topology module's, under the mesh's names
+from kind_tpu_sim_torch.topology import (  # noqa: F401
+    MultiSlice as MultiSliceShape,
+    SliceTopology as SliceShape,
+    make_multislice,
+    make_slice,
 )
-
-
-def _fmt(dims) -> str:
-    return "x".join(str(d) for d in dims)
-
-
-@dataclasses.dataclass(frozen=True)
-class SliceShape:
-    """The reference's ``topology.SliceTopology`` as the port needs it:
-    the chip grid, how many hosts own it, and each host's environment
-    contract (``worker_env``)."""
-
-    accelerator: str
-    dims: Tuple[int, ...]
-
-    @property
-    def num_chips(self) -> int:
-        return math.prod(self.dims)
-
-    @property
-    def _bounds(self) -> Tuple[int, ...]:
-        return _HOST_BOUNDS[self.accelerator]
-
-    @property
-    def host_grid(self) -> Tuple[int, ...]:
-        """How hosts tile the chip grid, e.g. 4x4 over 2x4 hosts ->
-        (2, 1)."""
-        if self.num_chips <= math.prod(self._bounds):
-            return (1,) * len(self.dims)
-        return tuple(d // b for d, b in zip(self.dims, self._bounds))
-
-    @property
-    def num_hosts(self) -> int:
-        return math.prod(self.host_grid)
-
-    @property
-    def chips_per_host(self) -> int:
-        return self.num_chips // self.num_hosts
-
-    @property
-    def accelerator_type(self) -> str:
-        """libtpu's name, e.g. ``v5litepod-16`` or ``v4-16`` (v4 and
-        v5p count TensorCores, two a chip)."""
-        family, cores = _NAMING[self.accelerator]
-        return f"{family}-{self.num_chips * cores}"
-
-    def chip_bounds_for_host(self) -> Tuple[int, ...]:
-        """The chip block each host owns (CHIPS_PER_HOST_BOUNDS)."""
-        if self.num_chips <= math.prod(self._bounds):
-            return self.dims
-        return self._bounds
-
-    def _check_worker(self, worker_id: int) -> None:
-        if not 0 <= worker_id < self.num_hosts:
-            raise ValueError(
-                f"worker_id {worker_id} out of range for "
-                f"{self.num_hosts}-host slice")
-
-    def worker_env(self, worker_id: int,
-                   hostnames: Optional[List[str]] = None) -> Dict[str, str]:
-        """The libtpu/JAX environment of one simulated worker, as the
-        device plugin injects it (the reference's ``worker_env``)."""
-        self._check_worker(worker_id)
-        if hostnames is None:
-            hostnames = default_hostnames(self.num_hosts)
-        bounds = self.chip_bounds_for_host()
-        grid = self.host_grid
-        return {
-            "TPU_ACCELERATOR_TYPE": self.accelerator_type,
-            "TPU_CHIPS_PER_HOST_BOUNDS": ",".join(
-                str(d) for d in bounds + (1,) * (3 - len(bounds))),
-            "TPU_HOST_BOUNDS": ",".join(
-                str(d) for d in grid + (1,) * (3 - len(grid))),
-            "TPU_WORKER_ID": str(worker_id),
-            "TPU_WORKER_HOSTNAMES": ",".join(hostnames),
-            "TPU_SKIP_MDS_QUERY": "true",
-        }
-
-
-def default_hostnames(num_hosts: int) -> List[str]:
-    """The in-cluster DNS names of the multi-host StatefulSet."""
-    return [f"jax-tpu-{i}.tpu-sim.default.svc.cluster.local"
-            for i in range(num_hosts)]
-
-
-def make_slice(accelerator: str = DEFAULT_ACCELERATOR,
-               topology: str = DEFAULT_TOPOLOGY) -> SliceShape:
-    """``topology.make_slice``: ``"2x4"`` -> dims (2, 4), with its
-    checks (rank of the topology, multi-host slices tiled by whole
-    hosts)."""
-    if accelerator not in _HOST_BOUNDS:
-        raise ValueError(f"unknown accelerator {accelerator!r}; "
-                         f"known: {sorted(_HOST_BOUNDS)}")
-    try:
-        dims = tuple(int(p) for p in topology.lower().split("x"))
-    except ValueError as exc:
-        raise ValueError(f"malformed topology {topology!r}") from exc
-    if not dims or min(dims) < 1:
-        raise ValueError(f"malformed topology {topology!r}")
-    bounds = _HOST_BOUNDS[accelerator]
-    if len(dims) != len(bounds):
-        raise ValueError(f"{accelerator} expects {len(bounds)}-D topology, "
-                         f"got {_fmt(dims)}")
-    if math.prod(dims) > math.prod(bounds) and any(
-            d < b or d % b for d, b in zip(dims, bounds)):
-        raise ValueError(f"topology {_fmt(dims)} not divisible by host "
-                         f"bounds {bounds}")
-    return SliceShape(accelerator, dims)
-
-
-@dataclasses.dataclass(frozen=True)
-class MultiSliceShape:
-    """The reference's ``topology.MultiSlice``: ``num_slices`` identical
-    slices, each its own world, joined over the data-centre network
-    whose contract is the MEGASCALE_* environment."""
-
-    slice_shape: SliceShape
-    num_slices: int
-
-    def __post_init__(self) -> None:
-        if self.num_slices < 1:
-            raise ValueError("num_slices must be >= 1")
-
-    @property
-    def num_chips(self) -> int:
-        return self.num_slices * self.slice_shape.num_chips
-
-    @property
-    def num_hosts(self) -> int:
-        return self.num_slices * self.slice_shape.num_hosts
-
-    def _check_slice(self, slice_id: int) -> None:
-        if not 0 <= slice_id < self.num_slices:
-            raise ValueError(
-                f"slice_id {slice_id} out of range for "
-                f"{self.num_slices}-slice job")
-
-    def hostnames(self) -> List[str]:
-        """Every slice's pod names, slice-major (one StatefulSet and
-        headless Service a slice; one slice keeps the plain names)."""
-        h = self.slice_shape.num_hosts
-        if self.num_slices == 1:
-            return default_hostnames(h)
-        return [f"jax-tpu-s{s}-{i}.tpu-sim-s{s}.default.svc.cluster.local"
-                for s in range(self.num_slices) for i in range(h)]
-
-    def slice_hostnames(self, slice_id: int) -> List[str]:
-        self._check_slice(slice_id)
-        h = self.slice_shape.num_hosts
-        return self.hostnames()[slice_id * h:(slice_id + 1) * h]
-
-    def megascale_env(self, slice_id: int,
-                      coordinator: Optional[str] = None) -> Dict[str, str]:
-        """The cross-slice contract: this worker's slice, how many
-        there are, and where slice 0's coordinator lives."""
-        self._check_slice(slice_id)
-        if coordinator is None:
-            coordinator = (f"{self.hostnames()[0]}:"
-                           f"{DEFAULT_COORDINATOR_PORT}")
-        return {
-            "MEGASCALE_COORDINATOR_ADDRESS": coordinator,
-            "MEGASCALE_NUM_SLICES": str(self.num_slices),
-            "MEGASCALE_SLICE_ID": str(slice_id),
-        }
-
-    def worker_env(self, slice_id: int, worker_id: int,
-                   hostnames: Optional[List[str]] = None) -> Dict[str, str]:
-        """One worker's whole environment: its slice's identity (that
-        slice's hostnames) and the cross-slice contract."""
-        if hostnames is None:
-            hostnames = self.slice_hostnames(slice_id)
-        env = self.slice_shape.worker_env(worker_id, hostnames)
-        env.update(self.megascale_env(slice_id))
-        return env
-
-
-def make_multislice(num_slices: int,
-                    accelerator: str = DEFAULT_ACCELERATOR,
-                    topology: str = DEFAULT_TOPOLOGY) -> MultiSliceShape:
-    return MultiSliceShape(make_slice(accelerator, topology), num_slices)
 
 
 class Mesh:

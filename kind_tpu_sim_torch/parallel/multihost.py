@@ -50,12 +50,13 @@ import time
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+from kind_tpu_sim_torch.topology import DEFAULT_COORDINATOR_PORT
+
 log = logging.getLogger("kind-tpu-sim-torch")
 
 _PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 _BIND_ERRORS = ("address already in use", "failed to bind",
                 "eaddrinuse", "bind failed")
-DEFAULT_COORDINATOR_PORT = 8476
 
 
 @dataclasses.dataclass
@@ -465,7 +466,7 @@ def launch_local_multislice(num_slices: int = 2, topology: str = "2x4",
     resolve(device)  # no card raises, unless the caller asks for the CPU
     ms = mesh.make_multislice(num_slices, accelerator=accelerator,
                               topology=topology)
-    h = ms.slice_shape.num_hosts
+    h = ms.slice_topo.num_hosts
 
     def build_envs() -> List[dict]:
         ports = _pick_ports(num_slices)
@@ -482,7 +483,7 @@ def launch_local_multislice(num_slices: int = 2, topology: str = "2x4",
         lambda: _launch_grid(build_envs(), timeout, device, backend),
         attempts)
     per_slice = [flat[sid * h:(sid + 1) * h] for sid in range(num_slices)]
-    chips = ms.slice_shape.num_chips
+    chips = ms.slice_topo.num_chips
     for sid, reports in enumerate(per_slice):
         for rep in reports:
             if not rep.get("ok"):

@@ -2,8 +2,7 @@
 scenario (the port's copy of ``kind_tpu_sim/scenarios/registry.py``).
 
 Replaces the hand-maintained scenario lists: `chaos run`'s listing,
-`chaos soak`'s pick pool (the command comes with the cluster layer,
-ROADMAP Queue A item 7), and `analysis replay`'s REPLAY_TARGETS all
+`chaos soak`'s pick pool, and `analysis replay`'s REPLAY_TARGETS all
 derive from here, so a newly added scenario cannot be silently
 missing from any of them (registry_problems() is the machine check).
 
@@ -27,14 +26,15 @@ from kind_tpu_sim_torch.scenarios.spec import ScenarioSpec, run_spec
 # name -> (fault kinds exercised, named invariants their bespoke
 # assertions map onto, replayable). device (the wire key needs_jax)
 # and slow stay declared on the chaos.Scenario and are copied into the
-# spec at build time — one owner per fact. The reference's rows for
-# flaky-exec, device-flap and node-flap join with those scenarios and
-# the cluster layer they drive (ROADMAP Queue A item 7).
+# spec at build time — one owner per fact.
 _VERDICT = ("verdict-ok",)
 _FLEETV = ("verdict-ok", "no-lost-work")
 _LEGACY: Dict[str, tuple] = {
+    "flaky-exec": (("cmd_transient",), _VERDICT, True),
     "worker-crash-grid": (("worker_crash",), _VERDICT, False),
     "worker-hang-grid": (("worker_hang",), _VERDICT, False),
+    "device-flap": (("device_flap",), _VERDICT, True),
+    "node-flap": (("node_kill", "node_restart"), _VERDICT, True),
     "preempt-train": (("preempt_sigterm",), _VERDICT, False),
     "serving-slot-failure": (("slot_failure",), _VERDICT, False),
     "fleet-flaky-replica": (("replica_flap",), _FLEETV, True),

@@ -43,7 +43,7 @@ import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kind_tpu_sim_torch import metrics
-from kind_tpu_sim_torch.fleet import knobs
+from kind_tpu_sim_torch.analysis import knobs
 from kind_tpu_sim_torch import topology as topo
 from kind_tpu_sim_torch.sched.inventory import (
     Inventory,

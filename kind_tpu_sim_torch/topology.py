@@ -1,13 +1,17 @@
-"""TPU slice topology math for the simulated cluster's inventory.
+"""TPU slice topology math for the simulated cluster.
 
-The port's copy of what the scheduler and the training gangs read from
-``kind_tpu_sim/topology.py``: the accelerator table, the node label and
-taint keys, topology parsing, :class:`SliceTopology` (chips, hosts, the
-host grid, per-host labels) and the contiguous sub-block geometry the
-scheduler's ICI-fit placement enumerates. The inventory describes the
-simulated TPU cluster the fleet's gangs are placed on, so its labels
-stay the reference's TPU labels; the engines themselves run on
-whatever device the fleet was built for.
+The port's copy of ``kind_tpu_sim/topology.py``: the accelerator table,
+the node label and taint keys, topology parsing, :class:`SliceTopology`
+(chips, hosts, the host grid, per-host labels, the libtpu worker
+environment and the device plugin's device IDs), the contiguous
+sub-block geometry the scheduler's ICI-fit placement enumerates, and
+:class:`MultiSlice` (the DCN tier). The scheduler's inventory, the
+cluster layer's ``tpu`` vendor (``config.SimConfig``, ``cluster.py``,
+the plugin DaemonSet) and the multi-host launchers and manifests
+(``parallel/mesh.py``, ``parallel/multihost.py``) read it; the
+standard library is all it imports. The simulated TPU cluster keeps the
+reference's TPU labels, and the engines run on whatever device the
+fleet was built for.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ ACCELERATORS: Dict[str, AcceleratorSpec] = {
 
 DEFAULT_ACCELERATOR = "tpu-v5-lite-podslice"
 DEFAULT_TOPOLOGY = "4x4"
+# slice 0's rendezvous port: the multislice coordinator's here, each
+# host's jax.distributed / torch.distributed one in parallel/multihost.py
+DEFAULT_COORDINATOR_PORT = 8476
 
 
 def parse_topology(topology: str) -> Tuple[int, ...]:
@@ -142,6 +149,15 @@ class SliceTopology:
     def chips_per_host(self) -> int:
         return self.num_chips // self.num_hosts
 
+    @property
+    def accelerator_type(self) -> str:
+        """libtpu-style name, e.g. ``v5litepod-16`` or ``v4-16``.
+
+        v4/v5p names count TensorCores (2/chip); v5e counts chips.
+        """
+        n = self.num_chips * self.spec.cores_per_chip
+        return f"{self.spec.family}-{n}"
+
     # -- per-host structure --------------------------------------------
 
     def host_coords(self) -> List[Tuple[int, ...]]:
@@ -156,6 +172,12 @@ class SliceTopology:
                 rem %= stride
             coords.append(tuple(coord))
         return coords
+
+    def chip_bounds_for_host(self) -> Tuple[int, ...]:
+        """Chip-grid block owned by each host (CHIPS_PER_HOST_BOUNDS)."""
+        if self.num_chips <= self.spec.chips_per_host:
+            return self.dims
+        return self.spec.host_bounds
 
     # -- simulator surface ---------------------------------------------
 
@@ -177,6 +199,46 @@ class SliceTopology:
             LABEL_WORKER_ID: str(worker_id),
             LABEL_HOST_COORD: ",".join(str(c) for c in coord),
         }
+
+    def worker_env(
+        self, worker_id: int, hostnames: List[str] | None = None
+    ) -> Dict[str, str]:
+        """The libtpu/JAX environment contract for one simulated worker.
+
+        These are the variables a real TPU VM exposes and that
+        ``jax.distributed`` / libtpu probe at startup; the device plugin
+        injects them via its Allocate response so a pod landing on the
+        node sees a coherent TPU worker identity.
+        """
+        self._check_worker(worker_id)
+        if hostnames is None:
+            hostnames = default_hostnames(self.num_hosts)
+        bounds = self.chip_bounds_for_host()
+        host_grid = self.host_grid
+        # libtpu bounds strings are always 3-D; pad 2-D (v5e) with 1.
+        pad = (1,) * (3 - len(bounds))
+        env = {
+            "TPU_ACCELERATOR_TYPE": self.accelerator_type,
+            "TPU_CHIPS_PER_HOST_BOUNDS": ",".join(
+                str(d) for d in bounds + pad
+            ),
+            "TPU_HOST_BOUNDS": ",".join(
+                str(d) for d in host_grid + (1,) * (3 - len(host_grid))
+            ),
+            "TPU_WORKER_ID": str(worker_id),
+            "TPU_WORKER_HOSTNAMES": ",".join(hostnames),
+            "TPU_SKIP_MDS_QUERY": "true",
+        }
+        return env
+
+    def device_ids(self, worker_id: int) -> List[str]:
+        """Stable device-plugin IDs for one host's chips, e.g. ``tpu-0-3``."""
+        self._check_worker(worker_id)
+        base = worker_id * self.chips_per_host
+        return [
+            f"tpu-{worker_id}-{base + i}"
+            for i in range(self.chips_per_host)
+        ]
 
 
 def _suffix_products(grid: Tuple[int, ...]) -> List[int]:
@@ -246,6 +308,18 @@ def block_coords(
     return coords
 
 
+def default_hostnames(num_hosts: int) -> List[str]:
+    """Stable in-cluster DNS names for the multi-host JAX StatefulSet.
+
+    Matches ``pods/jax-multihost.yaml`` (headless service ``tpu-sim`` in
+    the default namespace).
+    """
+    return [
+        f"jax-tpu-{i}.tpu-sim.default.svc.cluster.local"
+        for i in range(num_hosts)
+    ]
+
+
 def make_slice(
     accelerator: str = DEFAULT_ACCELERATOR,
     topology: str = DEFAULT_TOPOLOGY,
@@ -258,3 +332,132 @@ def make_slice(
             f"known: {sorted(ACCELERATORS)}"
         ) from exc
     return SliceTopology(spec=spec, dims=parse_topology(topology))
+
+
+# ---------------------------------------------------------------------
+# multislice (DCN tier)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiSlice:
+    """N identical ICI slices joined over DCN (TPU multislice).
+
+    The real system: each slice is its own ICI domain; traffic between
+    slices rides the data-center network, coordinated by libtpu's
+    "megascale" layer, which workers discover through MEGASCALE_* env
+    vars. The simulator mirrors exactly that split: per-slice worker
+    identity stays `SliceTopology.worker_env` (the ICI contract), this
+    class adds the cross-slice contract (env + labels), and
+    the port's ``parallel/mesh.py`` (which names this class
+    ``MultiSliceShape``) gives its worlds the same outermost 'dcn' axis.
+    """
+
+    slice_topo: SliceTopology
+    num_slices: int
+
+    def __post_init__(self) -> None:
+        if self.num_slices < 1:
+            raise ValueError("num_slices must be >= 1")
+
+    @property
+    def num_chips(self) -> int:
+        return self.num_slices * self.slice_topo.num_chips
+
+    @property
+    def num_hosts(self) -> int:
+        return self.num_slices * self.slice_topo.num_hosts
+
+    def _check_slice(self, slice_id: int) -> None:
+        if not 0 <= slice_id < self.num_slices:
+            raise ValueError(
+                f"slice_id {slice_id} out of range for "
+                f"{self.num_slices}-slice job")
+
+    def node_labels(self, slice_id: int, worker_id: int) -> Dict[str, str]:
+        """Per-node labels: the slice's own labels plus the slice id,
+        so scheduling can pin a replica group to one ICI domain."""
+        self._check_slice(slice_id)
+        labels = dict(self.slice_topo.node_labels(worker_id))
+        labels[LABEL_SLICE_ID] = str(slice_id)
+        return labels
+
+    def device_ids(self, global_worker: int) -> List[str]:
+        """Device-plugin IDs for one node by its GLOBAL worker index —
+        the job-level counterpart of ``SliceTopology.device_ids``.
+
+        The plugin derives IDs from NODE_NAME's global index with the
+        same ``worker_id * chips + i`` scheme regardless of slice
+        (DevicePlugin::DeviceIds, plugin/src/device_plugin.cc:151), so
+        this is THE in-Python source of truth for any tooling (chaos,
+        tests) addressing nodes of slice >= 1."""
+        if not 0 <= global_worker < self.num_hosts:
+            raise ValueError(
+                f"global worker {global_worker} out of range for "
+                f"{self.num_hosts}-host job")
+        chips = self.slice_topo.chips_per_host
+        base = global_worker * chips
+        return [
+            f"tpu-{global_worker}-{base + i}" for i in range(chips)
+        ]
+
+    def hostnames(self) -> List[str]:
+        """Canonical pod DNS names across every slice, slice-major —
+        THE global list the device plugin receives whole and windows
+        per slice. Single-slice jobs keep the historical names
+        (`default_hostnames`); multislice jobs get one StatefulSet +
+        headless Service per slice (manifests.jax_multihost_manifest),
+        hence per-slice DNS."""
+        if self.num_slices == 1:
+            return default_hostnames(self.slice_topo.num_hosts)
+        return [
+            f"jax-tpu-s{s}-{i}.tpu-sim-s{s}.default.svc.cluster.local"
+            for s in range(self.num_slices)
+            for i in range(self.slice_topo.num_hosts)
+        ]
+
+    def slice_hostnames(self, slice_id: int) -> List[str]:
+        """One slice's window of :meth:`hostnames` — each slice is its
+        own jax.distributed world."""
+        self._check_slice(slice_id)
+        h = self.slice_topo.num_hosts
+        return self.hostnames()[slice_id * h:(slice_id + 1) * h]
+
+    def megascale_env(
+        self, slice_id: int,
+        coordinator: str | None = None,
+    ) -> Dict[str, str]:
+        """libtpu's cross-slice discovery contract (the DCN analog of
+        ``worker_env``): which slice this worker belongs to, how many
+        slices exist, and where slice 0's coordinator lives."""
+        self._check_slice(slice_id)
+        if coordinator is None:
+            coordinator = (f"{self.hostnames()[0]}:"
+                           f"{DEFAULT_COORDINATOR_PORT}")
+        return {
+            "MEGASCALE_COORDINATOR_ADDRESS": coordinator,
+            "MEGASCALE_NUM_SLICES": str(self.num_slices),
+            "MEGASCALE_SLICE_ID": str(slice_id),
+        }
+
+    def worker_env(
+        self, slice_id: int, worker_id: int,
+        hostnames: List[str] | None = None,
+    ) -> Dict[str, str]:
+        """Full env for one worker: ICI identity (with THIS slice's
+        hostname window — each slice is its own jax.distributed
+        world) + DCN identity. Matches what the device plugin's
+        AllocateEnv computes from the global list."""
+        if hostnames is None:
+            hostnames = self.slice_hostnames(slice_id)
+        env = self.slice_topo.worker_env(worker_id, hostnames)
+        env.update(self.megascale_env(slice_id))
+        return env
+
+
+def make_multislice(
+    num_slices: int,
+    accelerator: str = DEFAULT_ACCELERATOR,
+    topology: str = DEFAULT_TOPOLOGY,
+) -> MultiSlice:
+    return MultiSlice(slice_topo=make_slice(accelerator, topology),
+                      num_slices=num_slices)

@@ -95,6 +95,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
+from kind_tpu_sim_torch.analysis import knobs
+
 log = logging.getLogger("kind-tpu-sim-torch")
 
 # A frame bigger than this is protocol corruption, not data.
@@ -105,14 +107,13 @@ MAX_FRAME_BYTES = 64 * 1024 * 1024
 POOL_SHM_BYTES = 32 * 1024 * 1024
 SHM_MIN_BYTES = 64 * 1024
 
-# The knobs this module reads itself, by name: a cold worker imports
-# nothing of the fleet package (``fleet/knobs.py`` registers the names
-# with their types and defaults). A bool reads "", "0", "false" and "no"
-# as off, as every knob does.
-WARM_ENV = "KIND_TPU_SIM_POOL_WARM"
-CHAOS_FAULT_ENV = "KIND_TPU_SIM_CHAOS_FAULT"
-SHM_ENV = "KIND_TPU_SIM_POOL_SHM"
-SHM_SEGS_ENV = "KIND_TPU_SIM_POOL_SHM_SEGS"
+# The knobs this module reads, through the knob table
+# (``analysis/knobs.py``: the standard library alone, so a cold worker
+# stays light).
+WARM_ENV = knobs.POOL_WARM
+CHAOS_FAULT_ENV = knobs.CHAOS_FAULT
+SHM_ENV = knobs.POOL_SHM
+SHM_SEGS_ENV = knobs.POOL_SHM_SEGS
 
 _PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[2]
 # a cold worker's command line
@@ -274,13 +275,6 @@ def _run_cold(job: str, kwargs: dict):
         raise RuntimeError(f"{job} runs on a world of ranks; a cold worker "
                            "has none")
     return JOBS[job](**kwargs)
-
-
-def _knob_on(name: str, default: bool = False) -> bool:
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    return raw.lower() not in ("", "0", "false", "no")
 
 
 def _attach_shm(name: str):
@@ -517,7 +511,7 @@ def _serve(argv=None) -> int:
     ap.add_argument("--device", default=None)
     ap.add_argument("--timeout", type=float, default=None)
     args = ap.parse_args(argv)
-    warm = _knob_on(WARM_ENV) or args.world is not None
+    warm = knobs.get(WARM_ENV) or args.world is not None
     if warm and None in (args.world, args.backend, args.device,
                          args.timeout):
         ap.error("a warm worker brings up a world: give --world, "
@@ -532,7 +526,7 @@ def _serve(argv=None) -> int:
 
     # the bulk transport: the parent's segments, one a direction, each
     # attached at the first bulk payload it carries
-    in_name, _, out_name = os.environ.get(SHM_SEGS_ENV, "").partition(":")
+    in_name, _, out_name = knobs.get(SHM_SEGS_ENV).partition(":")
     shm_in, shm_out = _attacher(in_name), _attacher(out_name)
 
     world = (_World(args.world, args.backend, args.device, args.timeout)
@@ -548,7 +542,7 @@ def _serve(argv=None) -> int:
             except Exception as exc:  # surfaced to the parent, not fatal
                 hello["warm_error"] = f"{type(exc).__name__}: {exc}"[:500]
         write_frame(out, hello)
-        fault = _parse_fault(os.environ.get(CHAOS_FAULT_ENV))
+        fault = _parse_fault(knobs.get(CHAOS_FAULT_ENV))
         req_no = 0
         while True:
             try:
@@ -627,7 +621,7 @@ class _WorkerProc:
         # the parent creates (and later unlinks) both segments and hands
         # the worker their names: a worker never owns one
         self._shm_in = self._shm_out = None
-        if _knob_on(SHM_ENV, default=True):
+        if knobs.get(SHM_ENV):
             try:
                 from multiprocessing import shared_memory
 

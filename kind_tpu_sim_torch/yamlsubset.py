@@ -6,7 +6,8 @@ the manifests in ``pods/`` itself:
 * :func:`load_all` reads a (possibly multi-document) stream as
   ``yaml.safe_load_all`` does, for block mappings and sequences, plain
   and quoted scalars, flow sequences, the literal ``|`` and folded
-  ``>`` block scalars, comments and ``---`` between documents. Plain
+  ``>`` block scalars, comments, ``---`` between documents and ``...``
+  ending one (content after it needs a ``---`` first). Plain
   scalars are typed by the YAML 1.1 rules ``yaml.SafeLoader`` applies
   (ints, floats, bools, null; everything else a string). Anything else
   (anchors, aliases, tags, directives, flow mappings other than ``{}``,
@@ -17,10 +18,17 @@ the manifests in ``pods/`` itself:
   sort_keys=False)`` does: block style, sequences in a mapping not
   indented, strings plain where they read back as the same string and
   single-quoted otherwise (``'4'``), long values wrapped at spaces past
-  column 80. It takes dicts (whose keys are simple: scalars, and strings
-  of 1-127 characters), lists, strings of printable ASCII, ints, bools
-  and None, and raises ``ValueError`` on anything else, such as a float
-  or a string it would have to double-quote.
+  column 80. A string with line breaks is written as a literal block
+  (``|``, with yaml's indentation and chomping indicators: ``|2`` for
+  text that starts with a space or a break, ``|-`` for text without a
+  final break, ``|+`` for text ending in two), as the dumper of
+  ``kind_tpu_sim/manifests.py`` does (``yaml.safe_dump`` would fold it
+  into a quoted scalar). It
+  takes dicts (whose keys are simple: scalars, and strings of 1-127
+  characters), lists, strings of printable ASCII (and line breaks in a
+  literal block), ints, bools and None, and raises ``ValueError`` on
+  anything else, such as a float or a string it would have to
+  double-quote.
 """
 
 from __future__ import annotations
@@ -514,7 +522,8 @@ class _Reader:
 
 
 def _document_lines(text: str) -> List[List[_Line]]:
-    """The stream split at ``---`` lines, each document's lines."""
+    """The stream split at ``---`` and ``...`` lines, each document's
+    lines."""
     text = text.replace("\r\n", "\n")
     if "\r" in text:
         raise ValueError("a bare carriage return is not supported")
@@ -522,6 +531,11 @@ def _document_lines(text: str) -> List[List[_Line]]:
     if text.endswith("\n"):
         raws.pop()
     docs: List[List[_Line]] = [[]]
+    # documents that count only if they hold content: what stands
+    # before the first '---', and what follows a '...' (which may hold
+    # nothing but blank lines and comments)
+    implicit = {0}
+    ended = False
     opened = False
     for no, raw in enumerate(raws, start=1):
         if raw.startswith("---") and raw[3:4] in ("", " ", "\t"):
@@ -529,22 +543,35 @@ def _document_lines(text: str) -> List[List[_Line]]:
             if tail and not tail.startswith("#"):
                 raise ValueError(f"line {no}: content after '---' is not "
                                  "supported")
+            if not opened:
+                opened = True
+            elif ended:
+                docs.pop()
+                implicit.discard(len(docs))
+            ended = False
             docs.append([])
-            opened = True
             continue
         if raw.startswith("...") and raw[3:4] in ("", " ", "\t"):
-            raise ValueError(f"line {no}: the '...' document end marker "
-                             "is not supported")
+            tail = raw[3:].strip()
+            if tail and not tail.startswith("#"):
+                raise ValueError(f"line {no}: content after '...' is not "
+                                 "supported")
+            opened = ended = True
+            docs.append([])
+            implicit.add(len(docs) - 1)
+            continue
         if raw.startswith("%"):
             raise ValueError(f"line {no}: directives are not supported")
+        if ended and not _blank(raw):
+            raise ValueError(f"line {no}: content after '...' needs a "
+                             "'---' first")
         stripped = raw.lstrip(" ")
         docs[-1].append(_Line(no, len(raw) - len(stripped), stripped, raw,
                               has_break=no < len(raws)
                               or text.endswith("\n")))
-    # what stands before the first '---' is a document only if it holds
-    # content
-    if opened and all(_blank(ln.raw) for ln in docs[0]):
-        docs.pop(0)
+    if opened:
+        docs = [d for i, d in enumerate(docs)
+                if i not in implicit or not all(_blank(ln.raw) for ln in d)]
     return docs
 
 
@@ -604,14 +631,44 @@ class _Writer:
         self.parts: List[str] = []
         self.column = 0
         self.whitespace = True
+        # a literal block ends its own last line
+        self.line_start = False
+        # yaml's open_ended: a ``|+`` block was the last thing written
+        self.open_ended = False
 
     def write(self, text: str) -> None:
         self.parts.append(text)
         self.column += len(text)
+        self.open_ended = False
 
     def newline(self, indent: int) -> None:
-        self.parts.append("\n" + " " * indent)
+        self.parts.append(("" if self.line_start else "\n") + " " * indent)
+        self.line_start = False
         self.column = indent
+        self.whitespace = True
+
+    def block(self, text: str, indent: int) -> None:
+        """``text`` as yaml's write_literal writes it, its lines at
+        ``indent``; only text yaml's analyze_scalar allows in a block
+        (printable ASCII and breaks, no space before a break or at the
+        end)."""
+        if (not all(ch == "\n" or " " <= ch <= "~" for ch in text)
+                or text.endswith(" ") or " \n" in text):
+            raise ValueError(f"{text!r}: not written as a literal block")
+        hints = "2" if text[0] in " \n" else ""
+        if text[-1] != "\n":
+            hints += "-"
+        elif len(text) == 1 or text[-2] == "\n":
+            hints += "+"
+        self.write(("|" if self.whitespace else " |") + hints)
+        lines = text.split("\n")
+        if text.endswith("\n"):
+            lines.pop()
+        self.parts.append("".join(
+            "\n" + (" " * indent + ln if ln else "") for ln in lines) + "\n")
+        self.line_start = True
+        self.open_ended = hints.endswith("+")
+        self.column = 0
         self.whitespace = True
 
     def scalar(self, value, indent: int, simple_key: bool) -> None:
@@ -625,6 +682,9 @@ class _Writer:
         elif isinstance(value, int):
             text, style = str(value), ""
         elif isinstance(value, str):
+            if "\n" in value and not simple_key:
+                self.block(value, indent)
+                return
             if not all(" " <= ch <= "~" for ch in value):
                 raise ValueError(f"{value!r}: only printable ASCII strings "
                                  "are written")
@@ -719,7 +779,8 @@ class _Writer:
 
 
 def dump(doc) -> str:
-    """``doc`` as ``yaml.safe_dump(doc, sort_keys=False)`` writes it."""
+    """``doc`` as ``yaml.safe_dump(doc, sort_keys=False)`` writes it,
+    strings with line breaks as literal blocks."""
     if not isinstance(doc, (dict, list)) or not doc:
         raise ValueError("only a non-empty mapping or sequence is written")
     writer = _Writer()
@@ -727,4 +788,5 @@ def dump(doc) -> str:
         writer.mapping(doc, 0, first_inline=False)
     else:
         writer.sequence(doc, 0)
-    return "".join(writer.parts) + "\n"
+    end = "...\n" if writer.open_ended else ""
+    return "".join(writer.parts) + ("" if writer.line_start else "\n") + end

@@ -168,13 +168,13 @@ def test_chaos_command_lists_and_refuses(canned_straggler, capsys):
         "sdc-serving-audit", "sdc-training-bisect",
         "tenant-noisy-neighbor", "train-mixed-soak",
         "train-preempt-economics", "zoo-swap-storm",
-        # the globe's, and the cold worker grids
+        # the globe's, the cold worker grids and the control plane's
         "globe-dcn-degrade", "globe-herd-failover", "globe-zone-loss",
         "train-globe-spot", "gray-straggler-grid", "worker-crash-grid",
-        "worker-hang-grid"])
+        "worker-hang-grid", "flaky-exec", "device-flap", "node-flap"])
     assert [r["name"] for r in rows if not r["slow"]] == analytic
     # the device scenarios are slow, as in the reference: 'all' without
-    # --include-slow runs the 22 that do no device work alone, and exits 1
+    # --include-slow runs the 25 that do no device work alone, and exits 1
     # on zoo-swap-storm's verdict alone
     assert pcli.main(["chaos", "run", "--scenario", "all", "--json",
                       "--device", "cpu"]) == 1

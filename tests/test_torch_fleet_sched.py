@@ -255,7 +255,7 @@ def test_knobs_read_like_the_reference(monkeypatch, raw):
     from kind_tpu_sim.fleet import autoscaler as jauto
     from kind_tpu_sim.fleet import events as jevents
     from kind_tpu_sim.fleet import sim as jsim
-    from kind_tpu_sim_torch.fleet import knobs as pknobs
+    from kind_tpu_sim_torch.analysis import knobs as pknobs
 
     for name in pknobs.KNOBS:
         if raw is None:

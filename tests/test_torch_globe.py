@@ -330,13 +330,17 @@ def test_saved_and_replayed_traces_print_as_the_reference(tmp_path, capsys):
     assert path.read_bytes() == saved
 
 
-def test_tune_and_shards_are_refused(monkeypatch, capsys):
-    """``globe tune`` is refused, naming its queue item. More than one
-    shard, refused until the sharded driver came, now runs it and prints
-    the single-process run's report (tests/test_torch_globe_shard.py
-    holds it to the reference)."""
-    with pytest.raises(SystemExit, match="Queue A item 5"):
-        pcli.main(["globe", "tune"])
+def test_tune_matches_the_reference_and_shards_the_single_process(
+        monkeypatch, capsys):
+    """``globe tune`` (refused until the tuner came) prints the
+    reference's report and summary. More than one shard, refused until
+    the sharded driver came, now runs it and prints the single-process
+    run's report (tests/test_torch_globe_shard.py holds it to the
+    reference)."""
+    _both(("globe", "tune", "--budget", "3", "--requests", "20",
+           "--json"), capsys)
+    assert _both(("globe", "tune", "--budget", "3", "--requests", "20"),
+                 capsys).endswith("TUNE OK\n")
     argv = ["globe", "run", "--requests", "5", "--json"]
     assert pcli.main(argv) == 0
     single = capsys.readouterr().out

@@ -38,7 +38,7 @@ from kind_tpu_sim.utils import worker_pool as jwp
 from kind_tpu_sim_torch import chaos as pchaos
 from kind_tpu_sim_torch import health as phealth
 from kind_tpu_sim_torch import metrics as pmetrics
-from kind_tpu_sim_torch.fleet import knobs as pknobs
+from kind_tpu_sim_torch.analysis import knobs as pknobs
 from kind_tpu_sim_torch.parallel import multihost as pmh
 from kind_tpu_sim_torch.utils import worker_pool as pwp
 

@@ -95,6 +95,37 @@ def test_port_file_imports_no_yaml(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jsonschema(path):
+    """The card's machine has no jsonschema: ``manifest_lint.py`` checks
+    its pinned schemas with a validator of its own."""
+    bad = [n for n in _imports(path) if n.split(".")[0] == "jsonschema"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_cluster_layer_works_with_yaml_and_jsonschema_blocked():
+    code = "\n".join([
+        "import sys",
+        "sys.modules['yaml'] = None",
+        "sys.modules['jsonschema'] = None",
+        "from kind_tpu_sim_torch import cli, config, manifest_lint, manifests",
+        "cfg = config.SimConfig(vendor='nvidia')",
+        "for text in (manifests.kind_cluster_config(cfg),",
+        "             manifests.gpu_plugin_daemonset(cfg, 'nvidia', 'i'),",
+        "             open('pods/torch-gpu-pod.yaml').read()):",
+        "    assert manifest_lint.validate_yaml(text) == [], text",
+        "sim = cli.Simulator(config.SimConfig(vendor='nvidia', "
+        "runtime='fake'))",
+        "assert sim.executor.commands() == []",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_the_manifest_face_works_with_yaml_blocked():
     code = "\n".join([
         "import sys",

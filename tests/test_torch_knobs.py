@@ -24,7 +24,7 @@ from kind_tpu_sim.fleet import overload as jov
 from kind_tpu_sim.fleet import tenancy as jten
 from kind_tpu_sim_torch import cli as pcli
 from kind_tpu_sim_torch import health as phealth
-from kind_tpu_sim_torch.fleet import knobs as pknobs
+from kind_tpu_sim_torch.analysis import knobs as pknobs
 from kind_tpu_sim_torch.fleet import overload as pov
 from kind_tpu_sim_torch.fleet import tenancy as pten
 

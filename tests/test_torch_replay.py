@@ -36,7 +36,6 @@ from torch_parity import (  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread", "h100_registry")
 
-ITEM_7 = ("device-flap", "flaky-exec", "node-flap")
 
 
 def _events(n, start=0):
@@ -94,19 +93,17 @@ def test_the_event_stream_equals_the_reference():
     assert events[-1]["event"]["completions"] == "<stream: 2 events>"
 
 
-def test_the_targets_are_the_reference_s_but_tune_and_item_7():
-    leave_out = ITEM_7 + ("tune",)
-    assert prc.list_targets() == [t for t in jrc.list_targets()
-                                  if t["name"] not in leave_out]
+def test_the_targets_are_the_reference_s():
+    """Every target of the reference's, the tuner's ``tune`` and the
+    cluster layer's three scenarios included."""
+    assert prc.list_targets() == jrc.list_targets()
     scenario_targets = sorted(n for n in prc.REPLAY_TARGETS
                               if n not in prc.DRIVER_TARGETS)
     assert scenario_targets == preg.replayable_names()
-    assert prc.DRIVER_TARGETS == tuple(n for n in jrc.DRIVER_TARGETS
-                                       if n != "tune")
+    assert prc.DRIVER_TARGETS == jrc.DRIVER_TARGETS
     for name in prc.DRIVER_TARGETS:
         assert name in prc.REPLAY_TARGETS and name not in preg.names()
-    assert sorted(set(jreg.replayable_names()) - set(scenario_targets)) == \
-        sorted(ITEM_7)
+    assert scenario_targets == jreg.replayable_names()
 
 
 TARGETS = [("fleet-run", 11), ("sched-run", 1), ("globe-run", 3),
@@ -139,8 +136,8 @@ def test_an_injected_entropy_bug_diverges_where_the_reference_does(target):
 def test_unknown_and_uninjectable_targets_raise():
     with pytest.raises(ValueError, match="unknown replay target"):
         prc.replay("not-a-target")
-    with pytest.raises(ValueError, match="unknown replay target"):
-        prc.replay("tune")
+    with pytest.raises(ValueError, match="injection"):
+        prc.replay("tune", inject=True)
     with pytest.raises(ValueError, match="injection"):
         prc.replay("sched-run", seed=1, inject=True)
     with pytest.raises(ValueError, match="injection"):
@@ -193,6 +190,7 @@ def test_the_linters_are_refused_naming_item_6(action):
         pcli.main(["analysis", action])
 
 
-def test_the_tune_target_is_refused_naming_item_5():
-    with pytest.raises(SystemExit, match="Queue A item 5"):
-        pcli.main(["analysis", "replay", "--scenario", "tune"])
+def test_the_tune_target_s_command_matches_the_reference(capsys):
+    rc, out = _both(("analysis", "replay", "--scenario", "tune",
+                     "--json"), capsys)
+    assert rc == 0 and json.loads(out)["ok"]

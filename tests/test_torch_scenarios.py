@@ -39,7 +39,7 @@ from kind_tpu_sim.scenarios import shrink as jshrink
 from kind_tpu_sim.scenarios import spec as jspec
 from kind_tpu_sim_torch import chaos as pchaos
 from kind_tpu_sim_torch import cli as pcli
-from kind_tpu_sim_torch.fleet import knobs as pknobs
+from kind_tpu_sim_torch.analysis import knobs as pknobs
 from kind_tpu_sim_torch.scenarios import fuzz as pfuzz
 from kind_tpu_sim_torch.scenarios import invariants as pinv
 from kind_tpu_sim_torch.scenarios import registry as preg
@@ -54,8 +54,6 @@ from torch_parity import (  # noqa: F401
 pytestmark = pytest.mark.usefixtures("torch_one_thread", "h100_registry")
 
 REPROS = pathlib.Path(__file__).parent / "repros"
-# the reference's scenarios of the cluster layer (ROADMAP Queue A item 7)
-ITEM_7 = ("device-flap", "flaky-exec", "node-flap")
 SPECS = {"port": pspec, "reference": jspec}
 
 
@@ -69,16 +67,15 @@ def _dumps(obj):
 def test_registry_covers_every_scenario():
     assert preg.registry_problems() == []
     assert sorted(preg.specs()) == sorted(pchaos.SCENARIOS)
-    assert sorted(preg.specs()) == sorted(
-        n for n in jreg.specs() if n not in ITEM_7)
+    assert sorted(preg.specs()) == sorted(jreg.specs())
 
 
-def test_listing_equals_the_reference_but_item_7():
-    """Row for row the reference's, the cluster layer's three rows left
-    out; ``needs_jax`` is the port's ``Scenario.device``, and
+def test_listing_equals_the_reference():
+    """Row for row the reference's, the cluster layer's three rows
+    included; ``needs_jax`` is the port's ``Scenario.device``, and
     zoo-swap-storm describes the port's generations."""
     want = [dict(r, description=pchaos.SCENARIOS[r["name"]].description)
-            for r in jreg.listing() if r["name"] not in ITEM_7]
+            for r in jreg.listing()]
     rows = preg.listing()
     assert rows == want
     assert [r["name"] for r in rows if r["description"] != next(
@@ -93,8 +90,8 @@ def test_soak_pool_and_replayable_names_derive_from_registry():
     assert preg.soak_names() == sorted(
         n for n, s in pchaos.SCENARIOS.items() if not s.slow)
     assert preg.soak_names(include_slow=True) == sorted(pchaos.SCENARIOS)
-    assert preg.replayable_names() == [
-        n for n in jreg.replayable_names() if n not in ITEM_7]
+    assert preg.replayable_names() == jreg.replayable_names()
+    assert preg.soak_names() == jreg.soak_names()
 
 
 def test_legacy_executors_are_the_original_functions():
@@ -444,5 +441,11 @@ def test_the_list_and_soak_commands(capsys):
     assert tagged["globe-zone-loss"].endswith(" [replay]")
     assert pcli.main(["chaos", "run"]) == 0
     assert "available scenarios" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="Queue A item 7"):
-        pcli.main(["chaos", "soak"])
+    # soak seed 5 draws flaky-exec, train-mixed-soak, correlated-rack-loss
+    argv = ["chaos", "soak", "--iterations", "3", "--seed", "5"]
+    assert pcli.main(argv + ["--device", "cpu"]) == 0
+    ours = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    assert ours == capsys.readouterr().out
+    assert ours.splitlines()[0].split()[0] == "flaky-exec"
+    assert ours.endswith("CHAOS SOAK (3 runs, seed 5) OK\n")

@@ -535,8 +535,8 @@ def test_fleet_run_zoo_refusals(capsys):
         pcli.main(base + ["--zoo", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--disagg"):
         pcli.main(base + ["--engine", "sim", "--zoo", "--disagg", "1:1"])
-    with pytest.raises(SystemExit, match="belongs to the simulator's tuner"):
-        pcli.main(["fleet", "tune", "--zoo"])
+    with pytest.raises(SystemExit, match="drop --device"):
+        pcli.main(["fleet", "tune", "--zoo", "--device", "cpu"])
     assert pcli.main(["fleet", "trace", "--zoo", "--requests", "5"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 5 and all('"model"' in ln for ln in lines)
